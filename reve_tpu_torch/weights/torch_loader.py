@@ -1,0 +1,68 @@
+"""Loader for upstream Real-ESRGAN PyTorch checkpoints (.pth).
+
+Counterpart of reve_tpu/weights/torch_loader.py, loading straight into
+the port's params (HWIO float32 torch tensors).  Published
+SRVGGNetCompact checkpoints (e.g. realesr-animevideov3.pth) store a state
+dict under 'params' with keys:
+
+    body.0.weight / body.0.bias      first conv (OIHW / O)
+    body.1.weight                    PReLU alpha
+    body.2.weight / body.2.bias ...  alternating conv / prelu
+    body.<2*(num_conv+1)>.weight     last conv
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+
+def _state_dict(path: str) -> Dict[str, torch.Tensor]:
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(blob, dict):
+        for key in ("params", "params_ema", "state_dict"):
+            if key in blob and isinstance(blob[key], dict):
+                blob = blob[key]
+                break
+    return {k: v.detach().to("cpu", torch.float32) for k, v in blob.items()}
+
+
+def load_srvgg_pth(path: str):
+    """realesr .pth -> (SRVGGConfig, params)."""
+    from reve_tpu_torch.models.srvgg import SRVGGConfig
+
+    sd = _state_dict(path)
+    body_idx = sorted(
+        {int(k.split(".")[1]) for k in sd if k.startswith("body.")}
+    )
+    n_body = max(body_idx) + 1
+    # layers alternate conv, prelu, conv, prelu, ..., conv
+    num_conv = (n_body - 3) // 2
+    convs, prelus = [], []
+    for i in body_idx:
+        w = sd[f"body.{i}.weight"]
+        if w.dim() == 4:  # conv, OIHW -> HWIO
+            b = sd.get(f"body.{i}.bias", torch.zeros(w.shape[0]))
+            convs.append({"w": w.permute(2, 3, 1, 0).contiguous(),
+                          "b": b.contiguous()})
+        else:  # prelu alpha
+            prelus.append({"alpha": w.contiguous()})
+    num_feat = int(convs[0]["w"].shape[-1])
+    num_in_ch = int(convs[0]["w"].shape[2])
+    last_out = int(convs[-1]["w"].shape[-1])
+    # upscale from last conv: out_ch * r^2
+    for num_out_ch in (num_in_ch, 3, 1):
+        r = int(round((last_out / num_out_ch) ** 0.5))
+        if r * r * num_out_ch == last_out:
+            break
+    else:
+        raise ValueError(f"cannot infer upscale from last conv ({last_out})")
+    cfg = SRVGGConfig(
+        num_in_ch=num_in_ch,
+        num_out_ch=num_out_ch,
+        num_feat=num_feat,
+        num_conv=num_conv,
+        upscale=r,
+    )
+    return cfg, {"convs": convs, "prelus": prelus}
