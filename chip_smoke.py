@@ -17,6 +17,14 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               |d| <= 1), then timed beside the
               plain version, one cuDNN F.conv2d of the same conv
               (library_ms; the port never calls it) and the card's bound;
+              The int8 kernels K4a, K4 and K4h at the same shapes, with a
+              QuantizedBody the port's int8 engine calibrates on the
+              smoke's frames, each against its plain version (K4: s8
+              exact; K4a: |d| <= 1 s8 code, its bf16 conv summed in
+              another order than cuDNN's; K4h: |d| <= 1 u8), timed the
+              same way (library_ms: torch._int_mm of the im2col'd
+              product of one frame, x4 frames, the im2col not counted;
+              cuDNN bf16 F.conv2d for K4a);
   4. main     the product job through the port's CLI: 8 frames of
               1920x1080 -> 7680x4320 (x4, realesr-animevideov3 at its full
               64-feature, 16-conv width, the shipped weights), default
@@ -25,11 +33,24 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               Output frame 0 is held against the port's plain float32 path
               on the card (PSNR >= srvgg.BF16_PSNR_FLOOR_DB).  The job
               runs with --trace: the phase reports seconds per scheduler
-              span and the model's device time as a share of the wall.
+              span and the model's device time as a share of the wall;
+  5. int8     the same job with --dtype int8: launch counts must show K4a,
+              K4 (16 per model call) and K4h; output frame 0 is held
+              against the port's plain int8 path on the card, with the
+              calibration the workspace persisted, at >= 60 dB.  It
+              reports the certified int8-vs-f32 dB (reported, not gated:
+              the frames are synthetic and the weights self-SR proxies),
+              the job's fps and the calibration and certification
+              seconds;
+  6. probe    P1, the tensor-core dot-rate probe, through
+              `python -m reve_tpu_torch.scripts.perf_int8_dot`'s main at
+              its shapes, then against its plain version (s8 exact; bf16
+              max |d| <= 1e-4 max |ref|): s8 and bf16 TOP/s and their
+              ratio, beside loops x torch._int_mm / torch.matmul.
 
 The line before the last is nvidia-smi's name and power limit; before
 that, one JSON object {"kernels": [...]} with each kernel's launches on
-the main path, error, times and bound.  The last line is
+its path (main, int8 or probe), error, times and bound.  The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -49,9 +70,9 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-#: H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor rate, float32
-#: rate outside the tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+#: H100 SXM peaks (NVIDIA data sheet): dense bf16 and int8 tensor rates,
+#: float32 rate outside the tensor cores, HBM3 bandwidth
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 FRAMES, W, H, SCALE, BATCH = 8, 1920, 1080, 4, 4
 
@@ -82,6 +103,17 @@ def cuda_time_ms(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def library_time_ms(fn, iters: int = 10):
+    """cuda_time_ms of a library call that is only a yardstick: None, with
+    the reason printed, where the installed PyTorch refuses the call."""
+    try:
+        return cuda_time_ms(fn, iters)
+    except RuntimeError as e:
+        print(f"# library call refused: {str(e).splitlines()[0]}",
+              flush=True)
+        return None
 
 
 def bf16_ulp_ok(got, want, ulps: int = 2) -> bool:
@@ -219,6 +251,96 @@ def kernel_phase(params, cfg, frames, out: dict) -> dict:
     return results
 
 
+def int8_kernel_phase(params, cfg, frames, qb, out: dict) -> dict:
+    """K4a, K4 and K4h against their plain versions, then timed.  Inputs
+    chain like the int8 model's: K4a on the frames, K4 on K4a's output,
+    K4h on K4's output, with the model's weights quantized by `qb`."""
+    import torch
+    import torch.nn.functional as F
+
+    from reve_tpu_torch.kernels import conv3x3, conv3x3_s8, head
+
+    dev = torch.device("cuda", 0)
+    u8 = torch.from_numpy(frames).to(dev)
+    B = u8.shape[0]
+    px = B * H * W
+    feat, r, n = cfg.num_feat, cfg.upscale, cfg.num_conv
+    c0, a0 = params["convs"][0], params["prelus"][0]["alpha"]
+    w0 = c0["w"].to(torch.bfloat16).contiguous()
+    sx = qb.act_scale
+    inv = 1.0 / sx
+    s1, sl = sx[0] * qb.sw[0], sx[n] * qb.sw_last
+    q0 = conv3x3.conv3x3_u8_bias_prelu_q8_plain(u8, w0, c0["b"], a0,
+                                                inv[0:1])
+    q1 = conv3x3_s8.conv3x3_s8_dq_prelu_q8_plain(q0, qb.w8[0], s1, qb.b[0],
+                                                 qb.alpha[0], inv[1:2])
+
+    def int_mm_x4(x8, w8):
+        """torch._int_mm of one frame's im2col'd product, x4 frames (the
+        im2col, built here once, is not timed)."""
+        xp = F.pad(x8[0].permute(2, 0, 1), (1, 1, 1, 1)).permute(1, 2, 0)
+        cols = torch.cat([xp[dy:dy + H, dx:dx + W] for dy in range(3)
+                          for dx in range(3)], -1).reshape(H * W, -1)
+        wm = w8.reshape(-1, w8.shape[-1]).contiguous()
+
+        def run():
+            for _ in range(B):
+                torch._int_mm(cols, wm)
+        return run
+
+    bf_in = u8.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    bf_w = w0.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    cases = {
+        "conv3x3_u8_bias_prelu_q8": dict(
+            kernel=lambda: conv3x3.conv3x3_u8_bias_prelu_q8(
+                u8, w0, c0["b"], a0, inv[0:1]),
+            plain=lambda: conv3x3.conv3x3_u8_bias_prelu_q8_plain(
+                u8, w0, c0["b"], a0, inv[0:1]),
+            library=lambda: F.conv2d(bf_in, bf_w,
+                                     c0["b"].to(torch.bfloat16), padding=1),
+            tol=1, nbytes=px * 3 + px * feat + w0.numel() * 2 + 2 * feat * 4
+            + 4, flops=2 * 9 * 3 * feat * px, peak="bfloat16"),
+        "conv3x3_s8_dq_prelu_q8": dict(
+            kernel=lambda: conv3x3_s8.conv3x3_s8_dq_prelu_q8(
+                q0, qb.w8[0], s1, qb.b[0], qb.alpha[0], inv[1:2]),
+            plain=lambda: conv3x3_s8.conv3x3_s8_dq_prelu_q8_plain(
+                q0, qb.w8[0], s1, qb.b[0], qb.alpha[0], inv[1:2]),
+            library=int_mm_x4(q0, qb.w8[0]),
+            tol=0, nbytes=2 * px * feat + qb.w8[0].numel() + 3 * feat * 4
+            + 4, flops=2 * 9 * feat * feat * px, peak="int8"),
+        "head_conv_s8_residual_u8_shuffle": dict(
+            kernel=lambda: head.head_conv_s8_residual_u8_shuffle(
+                q1, qb.w8_last, sl, qb.b_last, u8, r),
+            plain=lambda: head.head_conv_s8_residual_u8_shuffle_plain(
+                q1, qb.w8_last, sl, qb.b_last, u8, r),
+            library=int_mm_x4(q1, qb.w8_last),
+            tol=1, nbytes=px * feat + px * 3 + px * r * r * 3
+            + qb.w8_last.numel() + 2 * 3 * r * r * 4,
+            flops=2 * 9 * feat * 3 * r * r * px, peak="int8"),
+    }
+    results = {}
+    for kname, c in cases.items():
+        got, want = c["kernel"](), c["plain"]()
+        torch.cuda.synchronize()
+        err = (got.int() - want.int()).abs().max().item()
+        if err > c["tol"]:
+            raise AssertionError(f"{kname}: kernel disagrees with its plain "
+                                 f"version (max |d| {err} > {c['tol']})")
+        bms, bby = bound_ms(c["nbytes"], c["flops"], c["peak"])
+        results[kname] = {
+            "max_abs_err": err, "ms": cuda_time_ms(c["kernel"]),
+            "plain_ms": cuda_time_ms(c["plain"], iters=3),
+            "library_ms": library_time_ms(c["library"]),
+            "bound_ms": bms, "bound_by": bby, "shape": list(got.shape),
+        }
+        del got, want
+    torch.cuda.empty_cache()
+    out["int8_kernels"] = results
+    return results
+
+
 def model_ms(params, cfg, frames) -> dict:
     """The whole model, u8 -> u8 on the card, per batch of BATCH frames."""
     import torch
@@ -229,6 +351,65 @@ def model_ms(params, cfg, frames) -> dict:
     return {name: cuda_time_ms(lambda: srvgg.apply(
         params, u8, cfg=cfg, compute_dtype=getattr(torch, name)), iters=3)
         for name in ("bfloat16", "float32")}
+
+
+def probe_phase(out: dict) -> dict:
+    """P1 through the probe script's entry point with the launch counters
+    zeroed, then against its plain version and beside the library's
+    loops x (torch._int_mm | torch.matmul) on the same inputs."""
+    import torch
+
+    from reve_tpu_torch import kernels
+    from reve_tpu_torch.kernels import dot_probe
+    from reve_tpu_torch.scripts import perf_int8_dot as probe
+
+    iters, loops = 20, 64
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    rates = probe.main(["--iters", str(iters), "--loops", str(loops)])
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["dot_loop"]
+    if launches != 2 * (iters + 1):
+        raise AssertionError(f"probe launched P1 {launches} times, "
+                             f"expected {2 * (iters + 1)}")
+    ops = probe.inputs(torch.device("cuda", 0))
+    k = probe.K
+    results = {}
+    for name, peak in (("int8", "int8"), ("bf16", "bfloat16")):
+        x, w = ops[name]
+        got = dot_probe.dot_loop(x, w, loops)
+        want = dot_probe.dot_loop_plain(x, w, loops)
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs().max().item()
+        tol = 0.0 if name == "int8" else \
+            1e-4 * want.abs().max().item()
+        if err > tol:
+            raise AssertionError(f"dot_loop {name}: kernel disagrees with "
+                                 f"its plain version (max |d| {err} > "
+                                 f"{tol})")
+        halves = (w[:k], w[k:])
+        if name == "int8":
+            def library():
+                for i in range(loops):
+                    torch._int_mm(x, halves[i % 2])
+        else:
+            def library():
+                for i in range(loops):
+                    torch.matmul(x, halves[i % 2])
+        flops = 2 * probe.M * k * probe.N * loops
+        nbytes = (x.numel() + w.numel()) * x.element_size() + got.numel() * 4
+        bms, bby = bound_ms(nbytes, flops, peak)
+        results[name] = {
+            "max_abs_err": err, "ms": rates[name]["ms"],
+            "tops": rates[name]["tops"],
+            "plain_ms": cuda_time_ms(lambda: dot_probe.dot_loop_plain(
+                x, w, loops), iters=3),
+            "library_ms": library_time_ms(library), "bound_ms": bms,
+            "bound_by": bby, "shape": [probe.M, k, probe.N, loops],
+        }
+    out.update(results, launches=launches, ratio_int8_bf16=rates["ratio"],
+               peak_ratio=PEAK_FLOPS["int8"] / PEAK_FLOPS["bfloat16"])
+    return results
 
 
 def main() -> int:
@@ -243,6 +424,8 @@ def main() -> int:
     from reve_tpu_torch.io import reader, writer
     from reve_tpu_torch.kernels import build
     from reve_tpu_torch.models import srvgg
+    from reve_tpu_torch.pipeline.engine import UpscaleEngine
+    from reve_tpu_torch.weights import quantize
     from reve_tpu_torch.weights.torch_loader import load_srvgg_pth
 
     smi = subprocess.run(
@@ -274,7 +457,18 @@ def main() -> int:
                            "scale": SCALE}) as rec:
         results = kernel_phase(params, cfg, frames[:BATCH], rec)
         batch_ms = model_ms(params, cfg, frames[:BATCH])
+        # a QuantizedBody as the int8 engine calibrates it on these frames
+        eng = UpscaleEngine(compute_dtype="int8", batch_size=BATCH,
+                            preloaded=(cfg, params))
+        eng.calibrate_int8(frames)
+        qb = eng._qbody
+        rec["int8_calibrate_s"] = eng.stats.calibrate_s
+        results8 = int8_kernel_phase(params, cfg, frames[:BATCH], qb, rec)
+        u8 = torch.from_numpy(frames[:BATCH]).cuda()
+        batch_ms["int8"] = cuda_time_ms(lambda: srvgg.apply_int8(
+            params, qb, u8, cfg=cfg), iters=3)
         rec["model_ms_per_batch"] = batch_ms
+        del eng, u8
 
     work = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
     try:
@@ -343,8 +537,77 @@ def main() -> int:
                        output=[W * SCALE, H * SCALE], span_s=spans,
                        model_device_s=model_s,
                        model_share_of_wall=model_s / wall)
+        main_launches = launches
+
+        out8 = os.path.join(work, "out8.y4m")
+        trace8 = os.path.join(work, "trace8.jsonl")
+        argv8 = ["-i", inp, "-s", str(SCALE), out8, "--dtype", "int8",
+                 "--io-backend", "y4m", "--weights", weights, "-S", "4",
+                 "--batch", str(BATCH), "--keep-workspace", "--yes",
+                 "--trace", trace8]
+        with phase("int8", {"argv": argv8[3:]}) as rec:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.run(argv8)
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            if rc != 0:
+                raise AssertionError(f"cli.run --dtype int8 exited {rc}")
+            rd = reader.Y4MReader(out8)
+            shape = (rd.frame_count(), rd.width, rd.height)
+            if shape != (FRAMES, W * SCALE, H * SCALE):
+                raise AssertionError(f"int8 output {shape}, expected "
+                                     f"{(FRAMES, W * SCALE, H * SCALE)}")
+            heads = launches["head_conv_s8_residual_u8_shuffle"]
+            hidden = launches["conv3x3_s8_dq_prelu_q8"]
+            if heads < 2 or hidden != cfg.num_conv * heads \
+                    or launches["conv3x3_u8_bias_prelu_q8"] != heads:
+                raise AssertionError(f"launch counts {launches} do not "
+                                     f"show the int8 path's kernels")
+            ws8 = os.path.join(work, "out8.y4m.revework")
+            with open(os.path.join(ws8, "int8_calibration.json")) as f:
+                maxima = json.load(f)["act_maxima"]
+            with open(os.path.join(ws8, "int8_cert.json")) as f:
+                cert_db = json.load(f)["db"]
+            # frame 0 against the plain int8 path on the card, with the
+            # persisted calibration, through the same y4m encode
+            qb8 = quantize.build_qbody(params, cfg, maxima, margin=1.25)
+            ref = srvgg.apply_int8(params, qb8,
+                                   torch.from_numpy(in0[None]).cuda(),
+                                   cfg=cfg, plain=True)[0].cpu().numpy()
+            ref_path = os.path.join(work, "ref8.y4m")
+            with writer.open_writer(ref_path, W * SCALE, H * SCALE,
+                                    fractions.Fraction(24),
+                                    backend="y4m") as wr:
+                wr.write(ref)
+            ref_dec = next(reader.Y4MReader(ref_path).read_range(0, 1))
+            db8 = psnr(next(rd.read_range(0, 1)), ref_dec)
+            if not db8 >= 60.0:
+                raise AssertionError(f"int8 frame 0 PSNR {db8:.2f} dB vs "
+                                     f"the plain int8 path < 60 dB")
+            spans, int8_ev = {}, {}
+            with open(trace8) as f:
+                for ln in f:
+                    ev = json.loads(ln)
+                    if "dur" in ev:
+                        spans[ev["ev"]] = spans.get(ev["ev"], 0.0) + ev["dur"]
+                    elif ev["ev"] == "int8":
+                        int8_ev = ev
+            rec.update(rc=rc, frames=FRAMES, wall_s=round(wall, 3),
+                       fps_end_to_end=FRAMES / wall, launches=launches,
+                       psnr_db_vs_plain_int8=db8, psnr_floor_db=60.0,
+                       certified_db_vs_f32=cert_db,
+                       calibrate_s=int8_ev.get("calibrate_s"),
+                       certify_s=int8_ev.get("certify_s"),
+                       output=[W * SCALE, H * SCALE], span_s=spans)
+        int8_launches = launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    with phase("probe", {}) as rec:
+        probe = probe_phase(rec)
+        probe_launches = rec["launches"]
 
     sources = {
         "conv3x3_u8_bias_prelu": (
@@ -356,20 +619,48 @@ def main() -> int:
         "head_conv_residual_u8_shuffle": (
             "reve_tpu_torch/kernels/csrc/head.cu",
             "reve_tpu/models/srvgg.py:211"),
+        "conv3x3_u8_bias_prelu_q8": (
+            "reve_tpu_torch/kernels/csrc/conv3x3.cu",
+            "reve_tpu/models/srvgg.py:376"),
+        "conv3x3_s8_dq_prelu_q8": (
+            "reve_tpu_torch/kernels/csrc/conv3x3_s8.cu",
+            "reve_tpu/models/srvgg.py:380"),
+        "head_conv_s8_residual_u8_shuffle": (
+            "reve_tpu_torch/kernels/csrc/head.cu",
+            "reve_tpu/models/srvgg.py:383"),
+        "dot_loop": (
+            "reve_tpu_torch/kernels/csrc/dot_probe.cu",
+            "scripts/perf_pallas_int8.py:54"),
+    }
+    # each kernel's numbers and its launches on the path that runs it: the
+    # bf16 main job, the int8 job, or the probe script
+    paths = {
+        "conv3x3_u8_bias_prelu": ("bfloat16", main_launches),
+        "conv3x3_bias_prelu": ("bfloat16", main_launches),
+        "head_conv_residual_u8_shuffle": ("bfloat16", main_launches),
+        "conv3x3_u8_bias_prelu_q8": ("int8", int8_launches),
+        "conv3x3_s8_dq_prelu_q8": ("int8", int8_launches),
+        "head_conv_s8_residual_u8_shuffle": ("int8", int8_launches),
+        "dot_loop": ("int8", {"dot_loop": probe_launches}),
     }
     line = []
     for name, (src, replaces) in sources.items():
-        main_dt = results[name]["bfloat16"]
-        line.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": main_dt["max_abs_err"], "ms": main_dt["ms"],
-            "plain_ms": main_dt["plain_ms"], "bound_ms": main_dt["bound_ms"],
-            "bound_by": main_dt["bound_by"],
-            "library_ms": main_dt["library_ms"], "dtype": "bfloat16",
-            "shape": main_dt["shape"],
-            "float32": results[name]["float32"],
-        })
+        dtype, launched = paths[name]
+        if name == "dot_loop":
+            nums, extra = probe["int8"], {"bfloat16": probe["bf16"]}
+        elif dtype == "bfloat16":
+            nums, extra = results[name]["bfloat16"], {
+                "float32": results[name]["float32"]}
+        else:
+            nums, extra = results8[name], {}
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": launched[name],
+                 "dtype": dtype}
+        entry.update({k: nums[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape")})
+        entry.update(extra)
+        line.append(entry)
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

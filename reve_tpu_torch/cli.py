@@ -8,12 +8,17 @@ reve-shared/src/lib.rs:209-280):
          [-x x265params] <output.mp4|mkv|y4m>
 
 This slice ports the video job: fresh and resumed runs, --dtype
-auto|float32|bfloat16 (auto = bfloat16), --model/--weights/-m, --batch,
---tile 0|-1, --device N (cuda:N), --io-backend, --workspace, --yes,
---keep-workspace, --progress-json, --trace and --profile-dir
+auto|float32|bfloat16|int8 (auto = bfloat16 on CUDA, as reve_tpu's rule
+has it off the TPU), --int8-calib, --int8-gate, --model/--weights/-m,
+--batch, --tile 0|-1, --device N (cuda:N), --io-backend, --workspace,
+--yes, --keep-workspace, --progress-json, --trace and --profile-dir
 (torch.profiler).  Flags whose feature is not ported yet exit 2 with a
 one-line "not yet ported in reve_tpu_torch" message naming the
 ROADMAP.md port-queue item; they are never silently ignored.
+
+A workspace records the package that started it (state.opts["backend"]);
+the port resumes only its own, so one output never mixes segments of two
+implementations.
 
 `run(argv, device=None)`: the `device` keyword is for callers and tests
 (e.g. device="cpu"); --device on the command line wins.  With neither,
@@ -32,6 +37,9 @@ from typing import List, Optional
 from reve_tpu_torch.pipeline.planner import plan_segments
 from reve_tpu_torch.pipeline.state import JobState, Workspace, repair_pending
 
+
+#: the package's stamp in state.opts["backend"]
+BACKEND = "reve_tpu_torch"
 
 PRESETS = (
     "ultrafast", "superfast", "veryfast", "faster", "fast", "medium",
@@ -86,6 +94,17 @@ def _crf_validation(s: str) -> int:
     return v
 
 
+def _int8_calib_validation(s: str) -> str:
+    """The grammar the engine accepts ("max" or "p<percentile>")."""
+    from reve_tpu_torch.pipeline.engine import parse_int8_calib
+
+    try:
+        parse_int8_calib(s)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e))
+    return s
+
+
 def _preset_validation(s: str) -> str:
     if s not in PRESETS:
         raise argparse.ArgumentTypeError(
@@ -136,15 +155,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype",
                    choices=("auto", "bfloat16", "float32", "int8"),
                    default="auto",
-                   help="compute dtype.  auto (default) = bfloat16 "
-                        "(int8: not ported)")
-    p.add_argument("--int8-calib", default=None, dest="int8_calib",
-                   metavar="max|p<PCT>", help="int8 calibration (not "
-                                              "ported)")
+                   help="compute dtype.  auto (default): the int8 turbo "
+                        "where it is eligible (TPUs in reve_tpu's rule, or "
+                        "REVE_TPU_AUTO_INT8=1) and certifies at 50 dB (or "
+                        "--int8-gate) vs float32 on frames sampled across "
+                        "this video, else bfloat16; on CUDA auto is "
+                        "bfloat16.  int8 forces the turbo path (hidden "
+                        "stack and head conv in s8)")
+    p.add_argument("--int8-calib", type=_int8_calib_validation,
+                   default=None, dest="int8_calib", metavar="max|p<PCT>",
+                   help="int8 calibration statistic for activation "
+                        "scales: p<percentile> of |activation| (default "
+                        "p99.9) or max")
     p.add_argument("--tta", action="store_true",
                    help="8-transform self-ensemble (not ported)")
     p.add_argument("--int8-gate", type=float, default=None, metavar="DB",
-                   help="int8 PSNR gate (not ported)")
+                   help="minimum int8-vs-f32 PSNR (dB) measured on frames "
+                        "sampled across this video.  With --dtype auto: "
+                        "overrides the 50 dB turbo-selection gate.  With "
+                        "--dtype int8: refuse to run below DB, exit 3 (the "
+                        "turbo PSNR is always reported)")
     p.add_argument("--device", default=None, metavar="N[,M,...]",
                    help="run on CUDA device N (cuda:N); a comma list "
                         "(several devices) is not ported")
@@ -208,9 +238,6 @@ def _refuse_unported(args) -> Optional[int]:
             args.inputpath.lower().endswith(IMAGE_EXTS):
         return _not_ported("image and directory inputs", "image mode")
     checks = (
-        (args.dtype == "int8", "--dtype int8", "int8 turbo, K4/K5"),
-        (args.int8_calib is not None, "--int8-calib", "int8 turbo, K4/K5"),
-        (args.int8_gate is not None, "--int8-gate", "int8 turbo, K4/K5"),
         (args.tta, "--tta", "TTA, K6"),
         (args.denoise is not None or args.weights_wdn is not None,
          "--denoise/--weights-wdn", "ncnn/dni weights"),
@@ -280,8 +307,10 @@ def _fresh_state(args) -> JobState:
         },
         model=args.model,
         opts={
+            "backend": BACKEND,
             "weights": args.weights,
             "dtype": args.dtype,
+            "int8_calib": args.int8_calib,
             "tta": False,
             "io_backend": args.io_backend,
             # persist the random-init opt-in: a resume continues the
@@ -354,8 +383,18 @@ def run(argv: Optional[List[str]] = None, device=None) -> int:
     err = _require_weights(args)
     if err is not None:
         return err
+    if args.dtype not in ("int8", "auto") and args.int8_calib is not None:
+        print("--int8-calib requires --dtype int8 or auto (it configures "
+              "the int8 turbo path only)", file=sys.stderr)
+        return 2
+    args.int8_calib = args.int8_calib or "p99.9"
     if os.path.exists(args.outputpath):
         print("output path already exists", file=sys.stderr)
+        return 2
+    if args.dtype not in ("int8", "auto") and args.int8_gate is not None:
+        # a silently ignored quality gate is worse than no gate
+        print("--int8-gate requires --dtype int8 or auto (it gates the "
+              "int8 turbo path only)", file=sys.stderr)
         return 2
     if args.format is not None:
         print("--format applies to image/directory modes (video output "
@@ -389,6 +428,16 @@ def run(argv: Optional[List[str]] = None, device=None) -> int:
         if ws.has_state():
             if _confirm("found an interrupted job — resume?", args.yes):
                 state = ws.load()
+                if state.opts.get("backend") != BACKEND:
+                    # the other package's segments (or calibration) must
+                    # never be joined to this one's in one output
+                    started = state.opts.get("backend") or \
+                        "another implementation (reve_tpu)"
+                    print(f"this workspace was started by {started}, not "
+                          f"{BACKEND}: resuming it would mix segments of "
+                          f"two implementations in one output; start the "
+                          f"job fresh (remove {ws.root})", file=sys.stderr)
+                    return 2
                 if state.model != args.model:
                     print(f"workspace holds progress for model {state.model!r};"
                           f" resume with the same --model or start fresh",
@@ -404,7 +453,7 @@ def run(argv: Optional[List[str]] = None, device=None) -> int:
                 # args.temp, main.rs:92-101)
                 state.opts.setdefault("allow_random_init",
                                       not state.opts.get("weights"))
-                for key in ("weights", "dtype", "io_backend",
+                for key in ("weights", "dtype", "int8_calib", "io_backend",
                             "allow_random_init"):
                     if key in state.opts and \
                             getattr(args, key) != state.opts[key]:
@@ -420,11 +469,18 @@ def run(argv: Optional[List[str]] = None, device=None) -> int:
                                   file=sys.stderr)
                         setattr(args, key, state.opts[key])
                 if state.opts.get("tta") or \
-                        state.opts.get("denoise") is not None or \
-                        args.dtype == "int8":
+                        state.opts.get("denoise") is not None:
                     return _not_ported(
-                        "resuming a job saved with int8, --tta or "
-                        "--denoise", "int8 turbo / TTA / ncnn-dni weights")
+                        "resuming a job saved with --tta or --denoise",
+                        "TTA / ncnn-dni weights")
+                if args.int8_gate is not None and \
+                        args.dtype not in ("int8", "auto"):
+                    # the saved job is not int8: certification never runs
+                    print("--int8-gate was requested but this workspace's "
+                          f"saved job runs --dtype {args.dtype}; resume "
+                          "without the gate, or start fresh to run int8",
+                          file=sys.stderr)
+                    return 2
                 ws.create(keep_parts=True)
                 state = repair_pending(state, ws, ext=_part_ext(args))
                 print(
@@ -457,18 +513,43 @@ def run(argv: Optional[List[str]] = None, device=None) -> int:
 
         tracer = trace_mod.Tracer(args.trace) if args.trace else \
             trace_mod.from_env()
+
+        def make_engine(dtype: str, int8_calib: str) -> UpscaleEngine:
+            return UpscaleEngine(
+                model=state.model, scale=state.scale, weights=args.weights,
+                batch_size=args.batch, tile=args.tile, compute_dtype=dtype,
+                int8_calib=int8_calib, device=device,
+                allow_random_init=args.allow_random_init or None,
+            )
+
+        engine = None
+        int8_db = None
+        resolve_s = None
         if args.dtype == "auto":
             # the RESOLVED dtype is persisted so a resume runs the same path
-            args.dtype, notes = scheduler.resolve_auto_dtype(ws)
+            resolve_t0 = _time.monotonic()
+            args.dtype, engine, int8_db, notes = \
+                scheduler.resolve_auto_dtype(
+                    make_engine, ws, state, io_backend=args.io_backend,
+                    gate_db=args.int8_gate, platform=device.type,
+                    on_note=lambda m: print(m, file=sys.stderr, flush=True),
+                    tracer=tracer)
+            resolve_s = _time.monotonic() - resolve_t0
             for msg in notes:
                 print(msg, file=sys.stderr)
             state.opts["dtype"] = args.dtype
+            state.opts["int8_calib"] = args.int8_calib
             ws.save(state)
-        engine = UpscaleEngine(
-            model=state.model, scale=state.scale, weights=args.weights,
-            batch_size=args.batch, tile=args.tile, compute_dtype=args.dtype,
-            device=device, allow_random_init=args.allow_random_init or None,
-        )
+        if engine is None:
+            engine = make_engine(args.dtype, args.int8_calib)
+        if args.dtype == "int8" and int8_db is None:
+            err, int8_db = _certify_int8(args, state, engine, ws)
+            if err is not None:
+                return err
+        if args.dtype == "int8":
+            tracer.event("int8", db=int8_db,
+                         calibrate_s=engine.stats.calibrate_s,
+                         certify_s=engine.stats.certify_s)
         renderer = ConsoleRenderer()
         jsonl = JsonlRenderer(args.progress_json) if args.progress_json \
             else None
@@ -509,14 +590,61 @@ def run(argv: Optional[List[str]] = None, device=None) -> int:
             e2e_fps = done_frames / elapsed
             rate_note = (f", {e2e_fps:.3g} fps end-to-end = "
                          f"{e2e_fps / src_fps:.3g}x realtime")
+        # the compute path and its certificate belong in the done-line
+        path_note = f", path: {args.dtype}"
+        if args.dtype == "int8" and int8_db is not None:
+            path_note = f", path: int8 turbo ({int8_db:.1f} dB certified)"
+        if resolve_s is not None:
+            path_note += f", auto-resolve {resolve_s:.1f} s"
         print(f"\ndone: {state.output_path} (concat backend: "
-              f"{report['backend']}{enc_note}, path: {args.dtype} on "
+              f"{report['backend']}{enc_note}{path_note} on "
               f"{engine.device}{rate_note})", file=sys.stderr)
         if not args.keep_workspace:
             ws.destroy()
         return 0
     finally:
         ws.release_owner()
+
+
+def _certify_int8(args, state, engine, ws: Workspace):
+    """Report (and with --int8-gate, enforce) the int8 turbo's PSNR vs
+    float32 on frames sampled across THIS video, with the scales the job
+    runs with (persisted in `ws`, so a resume certifies identically).
+    Returns (exit_code_or_None, measured_db_or_None)."""
+    from reve_tpu_torch.pipeline import scheduler
+
+    try:
+        db = scheduler.certify_int8_on_input(engine, ws, state,
+                                             io_backend=args.io_backend)
+        if db is None:
+            return None, None
+    except Exception as e:
+        if args.int8_gate is not None:
+            # an explicit gate fails CLOSED: an unmeasured PSNR cannot
+            # clear it
+            print(f"refusing: int8 certification failed ({e}) and "
+                  f"--int8-gate {args.int8_gate:g} demands a measured "
+                  f"PSNR — run without --dtype int8 or without the gate",
+                  file=sys.stderr)
+            if not ws.completed_parts(_part_ext(args)):
+                ws.destroy()
+            return 3, None
+        print(f"int8 certification skipped: {e}", file=sys.stderr)
+        return None, None
+    ws.save(state)  # persist the sampled indices (opts["calib_frames"])
+    n = len(state.opts.get("calib_frames") or ()) or \
+        min(engine.batch_size, state.frame_count)
+    print(f"int8 turbo: {db:.1f} dB vs f32 on {n} frame(s) sampled "
+          f"across the video (quality gate reference: 50 dB)",
+          file=sys.stderr)
+    if args.int8_gate is not None and db < args.int8_gate:
+        print(f"refusing: int8 PSNR {db:.1f} dB is below --int8-gate "
+              f"{args.int8_gate:g} — run without --dtype int8 (or lower "
+              f"the gate)", file=sys.stderr)
+        if not ws.completed_parts(_part_ext(args)):
+            ws.destroy()  # nothing committed: leave no resume prompt
+        return 3, db
+    return None, db
 
 
 def _require_weights(args, skip_if_resumable: bool = True) -> Optional[int]:

@@ -52,28 +52,25 @@ _DTYPES = {
     "bfloat16": torch.bfloat16,
     "bf16": torch.bfloat16,
     # off the TPU, reve_tpu's --dtype auto is bf16 without certification
-    # (reve_tpu/pipeline/scheduler.py resolve_auto_dtype); the int8 turbo
-    # is not ported yet
+    # (reve_tpu/pipeline/scheduler.py resolve_auto_dtype)
     "auto": torch.bfloat16,
 }
 
 
 def resolve_dtype(name: Union[str, torch.dtype]) -> torch.dtype:
-    """Compute-dtype name -> torch dtype (float32 | bfloat16; auto ->
-    bfloat16).  int8 raises NotImplementedError (not ported yet)."""
+    """Float compute-dtype name -> torch dtype (float32 | bfloat16; auto
+    -> bfloat16).  "int8" is not a float dtype: the engine takes it as the
+    int8 turbo path, whose float parts run in bfloat16."""
     if isinstance(name, torch.dtype):
         if name not in (torch.float32, torch.bfloat16):
             raise ValueError(f"unsupported compute dtype {name}")
         return name
-    if name == "int8":
-        raise NotImplementedError(
-            "compute_dtype='int8' is not yet ported in reve_tpu_torch "
-            "(ROADMAP.md port queue: int8 turbo, K4/K5)")
     try:
         return _DTYPES[name]
     except KeyError:
         raise ValueError(f"unknown compute dtype {name!r}; known: "
-                         f"{sorted(_DTYPES)} (int8 not ported)") from None
+                         f"{sorted(_DTYPES)}, and int8 for "
+                         f"UpscaleEngine") from None
 
 
 def strict_f32() -> None:

@@ -5,6 +5,12 @@ its plain PyTorch version and a launch counter.
     K3  conv3x3.conv3x3_u8_bias_prelu         u8 input + first conv + PReLU
     K2  head.head_conv_residual_u8_shuffle    head conv + residual + u8 +
                                               pixel shuffle
+    K4  conv3x3_s8.conv3x3_s8_dq_prelu_q8     int8 hidden conv + dequant +
+                                              PReLU + requant
+    K4a conv3x3.conv3x3_u8_bias_prelu_q8      K3 with an s8 quantize epilogue
+    K4h head.head_conv_s8_residual_u8_shuffle int8 head conv + K2's epilogue
+    P1  dot_probe.dot_loop                    tensor-core s8/bf16 dot-rate
+                                              probe (not on a model path)
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback.  `LAUNCHES` counts
@@ -19,6 +25,10 @@ LAUNCHES = {
     "conv3x3_bias_prelu": 0,
     "conv3x3_u8_bias_prelu": 0,
     "head_conv_residual_u8_shuffle": 0,
+    "conv3x3_s8_dq_prelu_q8": 0,
+    "conv3x3_u8_bias_prelu_q8": 0,
+    "head_conv_s8_residual_u8_shuffle": 0,
+    "dot_loop": 0,
 }
 
 

@@ -1,11 +1,14 @@
-"""K1 `conv3x3_bias_prelu` and K3 `conv3x3_u8_bias_prelu` (csrc/conv3x3.cu).
+"""K1 `conv3x3_bias_prelu`, K3 `conv3x3_u8_bias_prelu` and K4a
+`conv3x3_u8_bias_prelu_q8` (csrc/conv3x3.cu).
 
 K1 replaces the hidden layers of reve_tpu/models/srvgg.py:apply
 (`_prelu(_conv3x3(h, w, b), alpha)`, srvgg.py:88-113, applied at
 :205-210); K3 replaces the engine's u8 -> float32 * (1/255) -> compute
 dtype cast (reve_tpu/pipeline/engine.py:645, srvgg.py:154) fused with the
 first conv + PReLU (srvgg.py:203-204).  Both were one XLA-fused conv graph
-on the TPU.
+on the TPU.  K4a is K3 for the int8 path (srvgg.py:376-379): the same
+first conv + PReLU in the compute dtype, then `_quant_s8` (srvgg.py:279-288)
+to the s8 input of the first int8 hidden conv.
 
 Bound per 1080p frame on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): K1
 152.9 GFLOP -> 0.155 ms and 531 MB -> 0.158 ms (bf16); K3 7.2 GFLOP,
@@ -31,7 +34,6 @@ from reve_tpu_torch.kernels import LAUNCHES, build
 SOURCE = "conv3x3.cu"
 FEAT = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 # -- plain versions ---------------------------------------------------------
@@ -67,6 +69,18 @@ def conv3x3_u8_bias_prelu_plain(u8, w, b, alpha) -> torch.Tensor:
                                     alpha)
 
 
+def quant_s8_plain(x: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """reve_tpu srvgg._quant_s8: round(float32(x) * inv), half to even,
+    clipped to +-127, as int8.  `inv` is the float32 tensor 1 / scale (a
+    float32 reciprocal, as the reference forms it, never a Python
+    double)."""
+    return torch.round(x.float() * inv).clamp_(-127, 127).to(torch.int8)
+
+
+def conv3x3_u8_bias_prelu_q8_plain(u8, w, b, alpha, inv) -> torch.Tensor:
+    return quant_s8_plain(conv3x3_u8_bias_prelu_plain(u8, w, b, alpha), inv)
+
+
 # -- kernel wrappers ----------------------------------------------------------
 
 
@@ -97,19 +111,35 @@ def check_operands(*ts: torch.Tensor) -> None:
                              "aligned and on one device")
 
 
-def _launch(entry: str, x, w, b, alpha) -> torch.Tensor:
+def f32_operand(t: torch.Tensor, n: int, device, what: str) -> torch.Tensor:
+    """`t` as `n` contiguous float32 values on `device`: a per-channel
+    vector or scalar the kernels read."""
+    t = t.to(device=device, dtype=torch.float32).contiguous()
+    if t.numel() != n:
+        raise ValueError(f"{what} must have {n} float32 entries")
+    return t
+
+
+def _launch(entry: str, x, w, b, alpha, inv=None) -> torch.Tensor:
     B, H, W, _ = x.shape
-    y = torch.empty((B, H, W, FEAT), dtype=w.dtype, device=x.device)
-    bb = b.to(device=x.device, dtype=torch.float32).contiguous()
+    y = torch.empty((B, H, W, FEAT),
+                    dtype=w.dtype if inv is None else torch.int8,
+                    device=x.device)
+    bb = f32_operand(b, FEAT, x.device, "bias")
     # alpha as the compute dtype rounds it, widened for the kernel
-    aa = alpha.to(x.device).to(w.dtype).float().contiguous()
-    if bb.numel() != FEAT or aa.numel() != FEAT:
-        raise ValueError(f"bias/alpha must have {FEAT} entries")
+    aa = f32_operand(alpha.to(x.device).to(w.dtype), FEAT, x.device,
+                     "alpha")
     lib = build.load(SOURCE)
     fn = getattr(lib, entry)
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    err = fn(x.data_ptr(), w.data_ptr(), bb.data_ptr(), aa.data_ptr(),
-             y.data_ptr(), B, H, W, _DTYPE_CODE[w.dtype],
+    ptrs = [x.data_ptr(), w.data_ptr(), bb.data_ptr(), aa.data_ptr()]
+    if inv is not None:
+        inv = f32_operand(inv, 1, x.device, "inv (1 / scale)")
+        ptrs.append(inv.data_ptr())
+    # pointers (inputs, then y), B, H, W, dtype, stream
+    fn.argtypes = ([ctypes.c_void_p] * (len(ptrs) + 1) + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = fn(*ptrs, y.data_ptr(), B, H, W, _DTYPE_CODE[w.dtype],
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, entry)
     return y
@@ -136,4 +166,18 @@ def conv3x3_u8_bias_prelu(u8: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     _check(u8, w, 3, torch.uint8)
     y = _launch("reve_conv3x3_u8_bias_prelu", u8, w, b, alpha)
     LAUNCHES["conv3x3_u8_bias_prelu"] += 1
+    return y
+
+
+def conv3x3_u8_bias_prelu_q8(u8: torch.Tensor, w: torch.Tensor,
+                             b: torch.Tensor, alpha: torch.Tensor,
+                             inv: torch.Tensor) -> torch.Tensor:
+    """K4a: K3, then the s8 quantize of its PReLU output ->
+    clip(round(float32(h) * inv), +-127) (B, H, W, 64) int8.  `inv`: one
+    float32 value, 1 / act_scale[0]."""
+    if u8.device.type == "cpu":
+        return conv3x3_u8_bias_prelu_q8_plain(u8, w, b, alpha, inv)
+    _check(u8, w, 3, torch.uint8)
+    y = _launch("reve_conv3x3_u8_bias_prelu_q8", u8, w, b, alpha, inv)
+    LAUNCHES["conv3x3_u8_bias_prelu_q8"] += 1
     return y

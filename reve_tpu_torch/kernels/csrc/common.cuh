@@ -39,6 +39,23 @@ __device__ __forceinline__ float round_to(float v) {
   return to_float(from_float<T>(v));
 }
 
+// reve_tpu srvgg._quant_s8: round(x * (1/scale)) half to even, clipped to
+// +-127.  `inv` is float32(1/scale), formed by the wrapper in torch exactly
+// as the reference forms it; rintf, never roundf (halves away from zero).
+__device__ __forceinline__ int8_t quant_s8(float x, float inv) {
+  const float q = rintf(__fmul_rn(x, inv));
+  return (int8_t)(int)fminf(fmaxf(q, -127.f), 127.f);
+}
+
+// Four s8 values of HWIO weights (input channels ci..ci+3 of one output
+// channel, `stride` bytes apart) packed into one __dp4a word, lowest
+// channel in the lowest byte -- the order of an s8 NHWC pixel read as words.
+__device__ __forceinline__ int pack_s8x4(const int8_t* w, int stride) {
+  return (int)((uint32_t)(uint8_t)w[0] | ((uint32_t)(uint8_t)w[stride] << 8) |
+               ((uint32_t)(uint8_t)w[2 * stride] << 16) |
+               ((uint32_t)(uint8_t)w[3 * stride] << 24));
+}
+
 // Launch grid for a persistent kernel: one wave of resident blocks (each
 // loads its weights into shared memory once and then walks many tiles).
 template <typename K>

@@ -1,6 +1,8 @@
 // K1 conv3x3_bias_prelu and K3 conv3x3_u8_bias_prelu: SAME 3x3 conv,
 // NHWC x HWIO -> NHWC, float32 accumulation, + bias (float32), cast to the
-// compute dtype, PReLU in the compute dtype.
+// compute dtype, PReLU in the compute dtype.  K4a conv3x3_u8_bias_prelu_q8
+// is K3 with an s8 output: the PReLU result is quantized in the epilogue,
+// clip(round(float32(h) * inv), -127, 127), inv = 1 / act_scale[0].
 //
 // Replaces (TPU side): the XLA-fused conv graph of
 //   K1  reve_tpu/models/srvgg.py:_conv3x3 + _prelu (srvgg.py:88-113), the
@@ -8,10 +10,12 @@
 //   K3  the u8 -> float32 * (1/255) -> compute-dtype cast of the engine
 //       (reve_tpu/pipeline/engine.py:645, srvgg.py:154) fused with the first
 //       3->64 conv + PReLU (srvgg.py:203-204).
+//   K4a the int8 path's first conv + PReLU + _quant_s8 (srvgg.py:376-379).
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 tensor, 3.35 TB/s), per 1080p
 // frame: K1 152.9 GFLOP -> 0.155 ms, 531 MB of bf16 in + out -> 0.158 ms;
-// K3 7.2 GFLOP, 6 MB in + 265 MB out -> 0.08 ms (bytes).
+// K3 7.2 GFLOP, 6 MB in + 265 MB out -> 0.08 ms (bytes); K4a writes s8,
+// 6 MB in + 133 MB out -> 0.04 ms per frame (bytes).
 //
 // Design (a first, simple form): a direct conv on CUDA cores with fmaf,
 // never TF32, so float32 matches the JAX reference's Precision.HIGHEST.
@@ -23,6 +27,8 @@
 // of K3's u8 input happens there), with an odd per-pixel word stride so
 // the 8 pixels a warp reads at once hit distinct banks.  Each thread owns
 // 4 pixels x 16 output channels (64 float32 accumulators).
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -46,12 +52,15 @@ struct Conv {
                                  + (size_t)(TH + 2) * (TW + 2) * SP * sizeof(T);
 };
 
-template <typename TIn, typename T, int CIN, int TH>
+// TOut is T, or int8_t for K4a (then `inv` points at 1 / act_scale[0])
+template <typename TIn, typename T, typename TOut, int CIN, int TH>
 __global__ void __launch_bounds__(TH * 32, 1)
 conv3x3_bias_prelu_kernel(const TIn* __restrict__ x, const T* __restrict__ w,
                           const float* __restrict__ bias,
-                          const float* __restrict__ alpha, T* __restrict__ y,
-                          int B, int H, int W) {
+                          const float* __restrict__ alpha,
+                          const float* __restrict__ inv,
+                          TOut* __restrict__ y, int B, int H, int W) {
+  constexpr bool Q8 = std::is_same<TOut, int8_t>::value;
   using C = Conv<TIn, T, CIN, TH>;
   constexpr int SP = C::SP;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -66,6 +75,7 @@ conv3x3_bias_prelu_kernel(const TIn* __restrict__ x, const T* __restrict__ w,
     bs[i] = bias[i];
     as[i] = alpha[i];
   }
+  const float inv_s = Q8 ? *inv : 0.f;
 
   const int tiles_x = (W + TW - 1) / TW;
   const int tiles_y = (H + TH - 1) / TH;
@@ -151,31 +161,35 @@ conv3x3_bias_prelu_kernel(const TIn* __restrict__ x, const T* __restrict__ w,
     for (int k = 0; k < PIX; ++k) {
       const int ox = x0 + pl + 8 * k;
       if (oy >= H || ox >= W) continue;
-      __align__(16) T outv[CPT];
+      __align__(16) TOut outv[CPT];
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int c = cg * CPT + j;
         // (acc + b) in float32, cast to dtype; PReLU in dtype:
         // max(v, 0) + dtype(alpha * min(v, 0))
         const float v = round_to<T>(__fadd_rn(acc[k][j], bs[c]));
-        outv[j] = v > 0.f ? from_float<T>(v)
-                          : from_float<T>(__fmul_rn(as[c], v));
+        const T h = v > 0.f ? from_float<T>(v)
+                            : from_float<T>(__fmul_rn(as[c], v));
+        if constexpr (Q8)
+          outv[j] = reve::quant_s8(to_float(h), inv_s);
+        else
+          outv[j] = h;
       }
       uint4* dst = reinterpret_cast<uint4*>(
           y + (((long long)b * H + oy) * W + ox) * COUT + cg * CPT);
       const uint4* src = reinterpret_cast<const uint4*>(outv);
 #pragma unroll
-      for (int q = 0; q < (int)(CPT * sizeof(T) / 16); ++q) dst[q] = src[q];
+      for (int q = 0; q < (int)(CPT * sizeof(TOut) / 16); ++q) dst[q] = src[q];
     }
   }
 }
 
-template <typename TIn, typename T, int CIN, int TH>
+template <typename TIn, typename T, int CIN, int TH, typename TOut = T>
 cudaError_t launch(const void* x, const void* w, const float* b,
                    const float* a, void* y, int B, int H, int W,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, const float* inv = nullptr) {
   using C = Conv<TIn, T, CIN, TH>;
-  auto kernel = conv3x3_bias_prelu_kernel<TIn, T, CIN, TH>;
+  auto kernel = conv3x3_bias_prelu_kernel<TIn, T, TOut, CIN, TH>;
   const long long tiles =
       (long long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
   if (tiles == 0) return cudaSuccess;
@@ -184,8 +198,8 @@ cudaError_t launch(const void* x, const void* w, const float* b,
       reve::persistent_grid(kernel, C::THREADS, C::SMEM, tiles, &grid);
   if (err != cudaSuccess) return err;
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
-      static_cast<const TIn*>(x), static_cast<const T*>(w), b, a,
-      static_cast<T*>(y), B, H, W);
+      static_cast<const TIn*>(x), static_cast<const T*>(w), b, a, inv,
+      static_cast<TOut*>(y), B, H, W);
   return cudaGetLastError();
 }
 
@@ -215,5 +229,23 @@ extern "C" int reve_conv3x3_u8_bias_prelu(const void* x, const void* w,
                                                 s);
   if (dtype == 0)
     return launch<uint8_t, float, 3, 8>(x, w, b, alpha, y, B, H, W, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K4a: K3 with the s8 quantize epilogue; `inv` is a device pointer to
+// float32(1 / act_scale[0]).
+extern "C" int reve_conv3x3_u8_bias_prelu_q8(const void* x, const void* w,
+                                             const float* b,
+                                             const float* alpha,
+                                             const float* inv, void* y, int B,
+                                             int H, int W, int dtype,
+                                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch<uint8_t, __nv_bfloat16, 3, 8, int8_t>(x, w, b, alpha, y, B,
+                                                        H, W, s, inv);
+  if (dtype == 0)
+    return launch<uint8_t, float, 3, 8, int8_t>(x, w, b, alpha, y, B, H, W, s,
+                                                inv);
   return (int)cudaErrorInvalidValue;
 }

@@ -24,6 +24,20 @@
 // float32 head tensor, no separate shuffle pass.  Every rounding point is
 // an explicit __f*_rn so the compiler cannot contract it into an FMA that
 // the JAX graph does not have.
+//
+// K4h head_conv_s8_residual_u8_shuffle is the int8 path's head, the same
+// kernel shape on s8 input:
+//   h   = float32(conv3x3(x8, w8)) * scale + b    (s32 acc, scale =
+//                                                 act_scale[n] * sw_last;
+//                                                 NO cast to the compute dtype)
+//   then K2's residual, rounding and shuffle.
+// Replaces reve_tpu/models/srvgg.py:383-386 (int8_head) with _epilogue
+// (:251-262).  Bound at r=4 per call of 4 1080p frames: 458.6 GOP / 1979
+// TOP/s = 0.23 ms; 531 MB s8 + 25 MB u8 in + 398 MB u8 out = 0.95 GB ->
+// 0.29 ms (bytes).  Design: __dp4a on CUDA cores over dp4a words [tap][ci/4]
+// [co] in shared memory, the halo tile at an odd word stride (17) per
+// pixel; 2 pixels x all 3r^2 s32 accumulators per thread, then K2's
+// register epilogue.
 #include "common.cuh"
 
 namespace {
@@ -36,6 +50,14 @@ constexpr int TH = 4;
 constexpr int TW = 64;
 constexpr int PIX = 2;  // columns col and col + 32
 constexpr int THREADS = TH * 32;
+
+// K2's float32 residual + u8 rounding of one head output channel:
+// u8(clip((h + base) * 255 + 0.5, 0, 255)), each step rounded on its own.
+__device__ __forceinline__ uint8_t residual_u8(float hv, float base) {
+  const float yv = __fadd_rn(hv, base);
+  const float q = __fadd_rn(__fmul_rn(yv, 255.f), 0.5f);
+  return (uint8_t)fminf(fmaxf(q, 0.f), 255.f);
+}
 
 template <typename T, int R>
 struct Head {
@@ -142,11 +164,8 @@ head_kernel(const T* __restrict__ x, const T* __restrict__ w,
       for (int kk = 0; kk < COUT; ++kk) {
         const int c = kk / (R * R), i = (kk / R) % R, j = kk % R;
         const float hv = round_to<T>(__fadd_rn(acc[k][kk], bs[kk]));
-        const float yv = __fadd_rn(hv, base[c]);
-        float q = __fadd_rn(__fmul_rn(yv, 255.f), 0.5f);
-        q = fminf(fmaxf(q, 0.f), 255.f);
         out[(((long long)b * H + oy) * R + i) * out_w * 3 +
-            ((long long)ox * R + j) * 3 + c] = (uint8_t)q;
+            ((long long)ox * R + j) * 3 + c] = residual_u8(hv, base[c]);
       }
     }
   }
@@ -183,6 +202,149 @@ cudaError_t launch_r(int r, const void* x, const void* w, const float* b,
   }
 }
 
+// ---- K4h: the same head on s8 input, dequantized in float32 -----------------
+
+constexpr int CW = CIN / 4;    // dp4a words per pixel
+constexpr int SPW = CW + 1;    // shared-memory pixel stride in words (odd)
+
+template <int R>
+struct HeadS8 {
+  static constexpr int COUT = 3 * R * R;
+  static constexpr int COUTP = (COUT + 3) / 4 * 4;
+  static constexpr int W_WORDS = 9 * CW * COUTP;
+  static constexpr size_t SMEM = (size_t)W_WORDS * 4 +
+                                 2 * COUTP * sizeof(float) +
+                                 (size_t)(TH + 2) * (TW + 2) * SPW * 4;
+};
+
+template <int R>
+__global__ void __launch_bounds__(THREADS)
+head_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+               const float* __restrict__ scale,
+               const float* __restrict__ bias,
+               const uint8_t* __restrict__ orig, uint8_t* __restrict__ out,
+               int B, int H, int W) {
+  using C = HeadS8<R>;
+  constexpr int COUT = C::COUT, COUTP = C::COUTP;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* ws = reinterpret_cast<int*>(smem);              // [9][CW][COUTP]
+  float* ss = reinterpret_cast<float*>(ws + C::W_WORDS);  // [COUTP]
+  float* bs = ss + COUTP;                              // [COUTP]
+  int* xs = reinterpret_cast<int*>(bs + COUTP);        // [pix][SPW]
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < C::W_WORDS; i += THREADS) {
+    const int co = i % COUTP, ciw = (i / COUTP) % CW, tap = i / (COUTP * CW);
+    ws[i] = co < COUT ? reve::pack_s8x4(
+                            w + ((size_t)tap * CIN + ciw * 4) * COUT + co, COUT)
+                      : 0;
+  }
+  for (int i = tid; i < COUTP; i += THREADS) {
+    ss[i] = i < COUT ? scale[i] : 0.f;
+    bs[i] = i < COUT ? bias[i] : 0.f;
+  }
+
+  const int tiles_x = (W + TW - 1) / TW;
+  const int tiles_y = (H + TH - 1) / TH;
+  const long long ntiles = (long long)B * tiles_y * tiles_x;
+  const int col = tid & 31;
+  const int row = tid >> 5;
+  const long long out_w = (long long)W * R;
+
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int b = (int)(tile / ((long long)tiles_y * tiles_x));
+    const int rem = (int)(tile - (long long)b * tiles_y * tiles_x);
+    const int y0 = (rem / tiles_x) * TH;
+    const int x0 = (rem % tiles_x) * TW;
+
+    __syncthreads();
+    constexpr int VPP = CIN / 16;
+    constexpr int NV = (TH + 2) * (TW + 2) * VPP;
+    for (int i = tid; i < NV; i += THREADS) {
+      const int pix = i / VPP, v = i - pix * VPP;
+      const int r = pix / (TW + 2), c = pix - r * (TW + 2);
+      const int gy = y0 - 1 + r, gx = x0 - 1 + c;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+        val = __ldg(reinterpret_cast<const uint4*>(
+                        x + (((long long)b * H + gy) * W + gx) * CIN) + v);
+      int* dst = xs + pix * SPW + v * 4;
+      dst[0] = (int)val.x;
+      dst[1] = (int)val.y;
+      dst[2] = (int)val.z;
+      dst[3] = (int)val.w;
+    }
+    __syncthreads();
+
+    int acc[PIX][COUTP];
+#pragma unroll
+    for (int k = 0; k < PIX; ++k)
+#pragma unroll
+      for (int j = 0; j < COUTP; ++j) acc[k][j] = 0;
+
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap - dy * 3;
+      const int* xr = xs + ((row + dy) * (TW + 2) + col + dx) * SPW;
+      const int4* wr = reinterpret_cast<const int4*>(ws + tap * CW * COUTP);
+#pragma unroll 2
+      for (int ciw = 0; ciw < CW; ++ciw) {
+        int xv[PIX];
+#pragma unroll
+        for (int k = 0; k < PIX; ++k) xv[k] = xr[k * 32 * SPW + ciw];
+#pragma unroll
+        for (int q = 0; q < COUTP / 4; ++q) {
+          const int4 wv = wr[ciw * (COUTP / 4) + q];
+#pragma unroll
+          for (int k = 0; k < PIX; ++k) {
+            acc[k][4 * q + 0] = __dp4a(xv[k], wv.x, acc[k][4 * q + 0]);
+            acc[k][4 * q + 1] = __dp4a(xv[k], wv.y, acc[k][4 * q + 1]);
+            acc[k][4 * q + 2] = __dp4a(xv[k], wv.z, acc[k][4 * q + 2]);
+            acc[k][4 * q + 3] = __dp4a(xv[k], wv.w, acc[k][4 * q + 3]);
+          }
+        }
+      }
+    }
+
+    const int oy = y0 + row;
+#pragma unroll
+    for (int k = 0; k < PIX; ++k) {
+      const int ox = x0 + col + 32 * k;
+      if (oy >= H || ox >= W) continue;
+      const uint8_t* o = orig + (((long long)b * H + oy) * W + ox) * 3;
+      const float base[3] = {reve::u8_to_unit(o[0]), reve::u8_to_unit(o[1]),
+                             reve::u8_to_unit(o[2])};
+#pragma unroll
+      for (int kk = 0; kk < COUT; ++kk) {
+        const int c = kk / (R * R), i = (kk / R) % R, j = kk % R;
+        // |acc| < 2^24: exact in float32; dequant + b stay float32
+        const float hv =
+            __fadd_rn(__fmul_rn((float)acc[k][kk], ss[kk]), bs[kk]);
+        out[(((long long)b * H + oy) * R + i) * out_w * 3 +
+            ((long long)ox * R + j) * 3 + c] = residual_u8(hv, base[c]);
+      }
+    }
+  }
+}
+
+template <int R>
+cudaError_t launch_s8(const void* x, const void* w, const float* scale,
+                      const float* b, const uint8_t* orig, uint8_t* out,
+                      int B, int H, int W, cudaStream_t stream) {
+  auto kernel = head_s8_kernel<R>;
+  const long long tiles =
+      (long long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+  if (tiles == 0) return cudaSuccess;
+  int grid = 0;
+  cudaError_t err = reve::persistent_grid(kernel, THREADS, HeadS8<R>::SMEM,
+                                          tiles, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, THREADS, HeadS8<R>::SMEM, stream>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), scale, b,
+      orig, out, B, H, W);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; r in {2, 3, 4}.  Returns a cudaError_t.
@@ -194,4 +356,18 @@ extern "C" int reve_head_conv_residual_u8_shuffle(
     return (int)launch_r<__nv_bfloat16>(r, x, w, b, orig, out, B, H, W, s);
   if (dtype == 0) return (int)launch_r<float>(r, x, w, b, orig, out, B, H, W, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// K4h: s8 head; r in {2, 3, 4}.  Returns a cudaError_t.
+extern "C" int reve_head_conv_s8_residual_u8_shuffle(
+    const void* x, const void* w, const float* scale, const float* b,
+    const uint8_t* orig, uint8_t* out, int B, int H, int W, int r,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (r) {
+    case 2: return (int)launch_s8<2>(x, w, scale, b, orig, out, B, H, W, s);
+    case 3: return (int)launch_s8<3>(x, w, scale, b, orig, out, B, H, W, s);
+    case 4: return (int)launch_s8<4>(x, w, scale, b, orig, out, B, H, W, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

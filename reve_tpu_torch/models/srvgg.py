@@ -19,6 +19,7 @@ is held against both of its modes.
 first conv, K1 each hidden conv, K2 the head with its epilogue); on CPU
 tensors each kernel wrapper runs its plain PyTorch version, and
 `plain=True` runs the plain versions on any device (the reference path).
+`apply_int8` is the int8 turbo path on K4a, K4 and K4h.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from reve_tpu_torch.kernels import conv3x3, head
+from reve_tpu_torch.kernels import conv3x3, conv3x3_s8, head
 
 #: floor for bf16-vs-f32 PSNR (dB, 8-bit scale) of the model's u8 output:
 #: the repo's 50 dB quality gate (BASELINE.md).  tests/test_torch_srvgg.py
@@ -148,3 +149,57 @@ def apply(params: Params, u8: torch.Tensor, *, cfg: SRVGGConfig,
         h = hidden(h, convs[i + 1]["w"].to(dt), convs[i + 1]["b"],
                    prelus[i + 1]["alpha"])
     return last(h, convs[-1]["w"].to(dt), convs[-1]["b"], u8, cfg.upscale)
+
+
+def apply_int8(params: Params, qbody, u8: torch.Tensor, *, cfg: SRVGGConfig,
+               compute_dtype: torch.dtype = torch.bfloat16,
+               int8_head: bool = True, plain: bool = False) -> torch.Tensor:
+    """int8 turbo forward, u8 -> u8: (B, H, W, 3) uint8 -> (B, H*r, W*r, 3)
+    uint8.  Equals reve_tpu's `srvgg.apply_int8(params, qbody, u8 / 255,
+    quantize_u8=True)` in its classic domain (its row space-to-depth form
+    is exact):
+
+      K4a  first conv + PReLU in the compute dtype (as `apply`), then
+           _quant_s8(h, act_scale[0]);
+      K4   per hidden layer: s8 conv, float32(y32) * (act_scale[i] *
+           sw[i]) + b, PReLU in float32, _quant_s8(., act_scale[i + 1]);
+      K4h  (int8_head) s8 head conv, float32(y32) * (act_scale[n] *
+           sw_last) + b_last in float32, then the u8 residual epilogue.
+
+    `int8_head=False` runs the head in the compute dtype instead: K2 on
+    q * act_scale[n], both cast to the compute dtype (srvgg.py:387-390).
+    `qbody`: weights.quantize.QuantizedBody on the frames' device.  Every
+    scale the kernels take is formed here in torch exactly as the
+    reference forms it: products sx[i] * sw[i] and reciprocals 1 / sx[i]
+    in float32."""
+    if u8.dtype != torch.uint8:
+        raise TypeError(f"apply_int8 takes uint8 frames, got {u8.dtype}")
+    dt = compute_dtype
+    convs, prelus = params["convs"], params["prelus"]
+    n = cfg.num_conv
+    if len(qbody.w8) != n or tuple(qbody.act_scale.shape) != (n + 1,):
+        raise ValueError(f"qbody holds {len(qbody.w8)} int8 convs / "
+                         f"{tuple(qbody.act_scale.shape)} scales; cfg needs "
+                         f"{n} / ({n + 1},)")
+    if plain:
+        first = conv3x3.conv3x3_u8_bias_prelu_q8_plain
+        hidden = conv3x3_s8.conv3x3_s8_dq_prelu_q8_plain
+        last8 = head.head_conv_s8_residual_u8_shuffle_plain
+        last = head.head_conv_residual_u8_shuffle_plain
+    else:
+        first = conv3x3.conv3x3_u8_bias_prelu_q8
+        hidden = conv3x3_s8.conv3x3_s8_dq_prelu_q8
+        last8 = head.head_conv_s8_residual_u8_shuffle
+        last = head.head_conv_residual_u8_shuffle
+    sx = qbody.act_scale
+    inv = 1.0 / sx  # float32 reciprocals, as `1.0 / scale` in _quant_s8
+    q = first(u8, convs[0]["w"].to(dt), convs[0]["b"], prelus[0]["alpha"],
+              inv[0:1])
+    for i in range(n):
+        q = hidden(q, qbody.w8[i], sx[i] * qbody.sw[i], qbody.b[i],
+                   qbody.alpha[i], inv[i + 1:i + 2])
+    if int8_head:
+        return last8(q, qbody.w8_last, sx[n] * qbody.sw_last, qbody.b_last,
+                     u8, cfg.upscale)
+    hf = q.to(dt) * sx[n].to(dt)
+    return last(hf, convs[-1]["w"].to(dt), convs[-1]["b"], u8, cfg.upscale)

@@ -14,15 +14,23 @@ Counterpart of reve_tpu/pipeline/engine.py.  Design:
   * A memory plan (`_plan_execution`) splits a batch into chunks of
     frames per model call from `torch.cuda.mem_get_info()` and the
     engine's own byte count per frame.
+  * int8 turbo (`compute_dtype="int8"`): the hidden stack and the head
+    run in s8 (K4a, K4, K4h), the first conv and the epilogue in
+    bfloat16/float32, with activation scales from a float32 calibration
+    forward over sampled frames (`calibrate_int8`), persisted first-wins
+    through `calibration_hook`; `certify_int8` measures its PSNR against
+    the float32 path on the job's own frames.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-port-queue item): int8, TTA, halo tiling (including frames too large for
-the memory plan) and multi-device meshes.
+port-queue item): TTA, halo tiling (including frames too large for the
+memory plan) and multi-device meshes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -42,6 +50,28 @@ _PLAN_INFLIGHT_SETS = 2
 _ACT_BUFFERS = 2
 
 
+def parse_int8_calib(int8_calib: str):
+    """Validate an int8_calib spec ("max" or "p<percentile>", percentile
+    in (0, 100]) and return the percentile as a float, or None for "max".
+    Raises ValueError on anything else (the CLI validates --int8-calib with
+    it too)."""
+    if int8_calib == "max":
+        return None
+    if not int8_calib.startswith("p"):
+        raise ValueError(
+            f"int8_calib must be 'max' or 'p<percentile>', "
+            f"got {int8_calib!r}")
+    try:
+        pct = float(int8_calib[1:])
+    except ValueError:
+        raise ValueError(
+            f"invalid int8_calib percentile {int8_calib!r}") from None
+    if not 0.0 < pct <= 100.0:
+        raise ValueError(
+            f"int8_calib percentile out of range: {int8_calib!r}")
+    return pct
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not yet ported in reve_tpu_torch (ROADMAP.md port "
@@ -54,6 +84,11 @@ class EngineStats:
     batches: int = 0
     #: model calls (chunks) dispatched
     calls: int = 0
+    #: host seconds spent in int8 calibration (float32 forwards and
+    #: statistics) and in certification (int8 + float32 passes); each
+    #: ends in a device->host read, so the host clock covers the device
+    calibrate_s: float = 0.0
+    certify_s: float = 0.0
 
 
 class PendingBatch:
@@ -90,6 +125,7 @@ class UpscaleEngine:
         batch_size: int = 4,
         tile: int = 0,            # 0 = auto, -1 = never tile
         compute_dtype: str = "bfloat16",
+        int8_calib: str = "p99.9",
         tta: bool = False,
         device: device_mod.DeviceLike = None,
         mesh=None,
@@ -104,7 +140,12 @@ class UpscaleEngine:
         `allow_random_init`: permit the deterministic random-init
         fallback when no weights resolve.  None defers to
         REVE_TPU_ALLOW_RANDOM_INIT; without either, missing weights raise
-        registry.MissingWeightsError."""
+        registry.MissingWeightsError.
+
+        `compute_dtype="int8"`: the int8 turbo path, its float parts in
+        bfloat16.  `int8_calib`: the calibration statistic of fresh
+        calibrations, "p<percentile>" of |activation| (default p99.9) or
+        "max"; scales injected with set_calibration are used as given."""
         if tta:
             raise _not_ported("tta=True", "TTA, K6")
         if tile > 0:
@@ -113,7 +154,18 @@ class UpscaleEngine:
             raise _not_ported("a multi-device mesh", "multi-GPU")
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-        self.compute_dtype = device_mod.resolve_dtype(compute_dtype)
+        self._int8 = compute_dtype == "int8"
+        self._qbody = None
+        self._qbody_provisional = False
+        self._act_maxima = None
+        self._calib_percentile = parse_int8_calib(int8_calib)
+        self.int8_calib = int8_calib
+        #: called with freshly calibrated (non-provisional) maxima, returns
+        #: the maxima to use: Workspace.claim_calibration makes the first
+        #: calibration of a job the one every resume quantizes with
+        self.calibration_hook = None
+        self.compute_dtype = device_mod.resolve_dtype(
+            "bfloat16" if self._int8 else compute_dtype)
         self.device = device_mod.resolve_device(device)
         if preloaded is not None:
             cfg, params = preloaded
@@ -146,9 +198,11 @@ class UpscaleEngine:
     def _frame_bytes(self, h: int, w: int) -> int:
         """Peak device bytes of ONE frame inside a model call: the live
         hidden activations plus the frame's u8 input and output.  The
-        kernels keep everything else on chip: K2 writes u8 straight from
-        the head conv, with no float32 epilogue tensor."""
-        act = h * w * self.cfg.num_feat * self._bpe() * _ACT_BUFFERS
+        kernels keep everything else on chip: K2 and K4h write u8 straight
+        from the head conv, with no float32 epilogue tensor, and an int8
+        engine's activations are s8 (1 byte) from K4a on."""
+        bpe = 1 if self._int8 else self._bpe()
+        act = h * w * self.cfg.num_feat * bpe * _ACT_BUFFERS
         return act + self._in_bytes(h, w) + self._out_bytes(h, w)
 
     def _free_bytes(self) -> int:
@@ -210,33 +264,212 @@ class UpscaleEngine:
 
     # -- public API --------------------------------------------------------
 
+    def _on_device(self):
+        """The engine's device and stream as the current ones: the int8
+        measurement work (calibration, qbody build, certification) runs in
+        stream order with the batches that read its results."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.cuda.device(self.device))
+        stack.enter_context(torch.cuda.stream(self._stream))
+        return stack
+
     def _forward(self, u8: torch.Tensor) -> torch.Tensor:
         self.stats.calls += 1
+        if self._int8:
+            return srvgg.apply_int8(self.params, self._qbody, u8,
+                                    cfg=self.cfg,
+                                    compute_dtype=self.compute_dtype)
         return srvgg.apply(self.params, u8, cfg=self.cfg,
                            compute_dtype=self.compute_dtype)
 
+    # -- int8 calibration and certification --------------------------------
+
+    def _dp_pad(self, frames: np.ndarray):
+        """reve_tpu pads calibration and certification batches to a
+        multiple of its mesh's dp size; on one device (the only layout the
+        port runs) the batch is used as it is.  Returns (frames, n_real)."""
+        return frames, len(frames)
+
+    @staticmethod
+    def _calib_crop(frames: np.ndarray) -> np.ndarray:
+        """Bound calibration/certification frames to <=720p windows, with
+        the crop ANCHOR cycling center/corners per frame so content at the
+        frame edges reaches the statistics too.  Deterministic in the
+        frame's position within the batch (reve_tpu's crops exactly)."""
+        n, h, w, _ = frames.shape
+        ch, cw = min(h, 720), min(w, 1280)
+        if (ch, cw) == (h, w):
+            return frames
+        anchors = ((1, 1), (0, 0), (0, 2), (2, 0), (2, 2))  # halves of 2
+        out = np.empty((n, ch, cw, 3), frames.dtype)
+        for i in range(n):
+            ay, ax = anchors[i % len(anchors)]
+            y0, x0 = (h - ch) * ay // 2, (w - cw) * ax // 2
+            out[i] = frames[i, y0:y0 + ch, x0:x0 + cw]
+        return out
+
+    def calibrate_int8(self, frames: np.ndarray) -> None:
+        """Calibrate the int8 quantization on `frames` ((n, H, W, 3) u8,
+        the pipeline passes frames sampled across the video), through
+        calibration_hook like the lazy first-batch calibration."""
+        if not self._int8:
+            raise ValueError("calibrate_int8 requires an int8 engine")
+        self._calibrate_int8(np.asarray(frames, np.uint8),
+                             provisional=False)
+
+    #: activation elements (h*w*feat) per calibration chunk: reve_tpu's
+    #: budget, kept because the percentile statistic is the max of
+    #: per-chunk percentiles, so another chunking gives other scales
+    _CALIB_CHUNK_ELEMS = int(2e8)
+
+    def _calibrate_int8(self, frames: np.ndarray, provisional: bool) -> None:
+        """Build the quantized body from a calibration batch: the float32
+        forward over chunks of the (cropped) frames, per-layer statistics
+        max-combined across chunks.  The sample is padded by cyclic frame
+        repeats to a chunk multiple, as reve_tpu pads it, so the chunks
+        and hence the percentile scales are the reference's."""
+        from reve_tpu_torch.weights import quantize
+
+        t0 = time.perf_counter()
+        frames, _ = self._dp_pad(self._calib_crop(frames))
+        n, h, w, _c = frames.shape
+        chunk = max(1, self._CALIB_CHUNK_ELEMS
+                    // max(h * w * self.cfg.num_feat, 1))
+        pad = (-n) % chunk
+        if pad:
+            frames = np.concatenate([frames, frames[np.arange(pad) % n]])
+        maxima = None
+        with self._on_device():
+            for i in range(0, len(frames), chunk):
+                x = torch.from_numpy(np.ascontiguousarray(
+                    frames[i:i + chunk], np.uint8)).to(self.device)
+                m = quantize.collect_maxima(
+                    self.params, x, cfg=self.cfg,
+                    percentile=self._calib_percentile).cpu().numpy()
+                maxima = m if maxima is None else np.maximum(maxima, m)
+        self.stats.calibrate_s += time.perf_counter() - t0
+        if self.calibration_hook is not None and not provisional:
+            maxima = np.asarray(self.calibration_hook(maxima), np.float32)
+        self._install_qbody(maxima, provisional)
+
+    def _install_qbody(self, maxima: np.ndarray, provisional: bool) -> None:
+        from reve_tpu_torch.weights import quantize
+
+        with self._on_device():
+            # margin absorbs content hotter than the calibration batch
+            self._qbody = quantize.build_qbody(self.params, self.cfg,
+                                               np.asarray(maxima),
+                                               margin=1.25)
+        self._qbody_provisional = provisional
+        self._act_maxima = np.asarray(maxima, np.float32)
+
+    def get_calibration(self):
+        """The activation maxima the current int8 quantization was built
+        from, or None (not int8 / not yet calibrated / provisional)."""
+        if not self._int8 or self._qbody_provisional:
+            return None
+        return self._act_maxima
+
+    def set_calibration(self, maxima) -> None:
+        """Quantize with externally provided activation maxima (e.g. the
+        job's persisted calibration), so every segment of one output is
+        quantized with identical scales."""
+        if not self._int8:
+            raise ValueError("set_calibration requires an int8 engine")
+        maxima = np.asarray(maxima, np.float32)
+        if (self._act_maxima is not None and not self._qbody_provisional
+                and np.array_equal(self._act_maxima, maxima)):
+            return  # already quantized with exactly these scales
+        self._install_qbody(maxima, provisional=False)
+
+    def reset_calibration(self) -> None:
+        """Drop the int8 calibration so the next real batch recalibrates."""
+        self._qbody = None
+        self._qbody_provisional = False
+        self._act_maxima = None
+
+    def _maybe_calibrate(self, frames: np.ndarray, provisional: bool) -> None:
+        if not self._int8:
+            return
+        if self._qbody is None or (self._qbody_provisional
+                                   and not provisional):
+            self._calibrate_int8(frames, provisional)
+
+    def certify_int8(self, frames: np.ndarray, crop: bool = True,
+                     chunk: "Optional[int]" = None) -> float:
+        """PSNR (dB, 8-bit scale) of the int8 turbo path against the
+        float32 path on `frames` ((n, H, W, 3) uint8), both u8 -> u8 on
+        this engine's kernels, with the scales the job runs with
+        (calibrating first if needed).  By default the frames are cropped
+        to <=720p windows as calibration crops them; `chunk` = frames per
+        model call (None: from _CALIB_CHUNK_ELEMS, as reve_tpu)."""
+        if not self._int8:
+            raise ValueError("certify_int8 requires an int8 engine")
+        self._maybe_calibrate(frames, provisional=False)
+        t0 = time.perf_counter()
+        measured = self._calib_crop(frames) if crop else \
+            np.asarray(frames, np.uint8)
+        measured, n_real = self._dp_pad(measured)
+        _n, ch, cw, _c = measured.shape
+        if chunk is None:
+            chunk = max(1, self._CALIB_CHUNK_ELEMS
+                        // max(ch * cw * self.cfg.num_feat, 1))
+        sse = 0
+        with self._on_device():
+            for i in range(0, n_real, chunk):
+                x = torch.from_numpy(np.ascontiguousarray(
+                    measured[i:min(i + chunk, n_real)],
+                    np.uint8)).to(self.device)
+                y8 = srvgg.apply_int8(self.params, self._qbody, x,
+                                      cfg=self.cfg,
+                                      compute_dtype=self.compute_dtype)
+                yf = srvgg.apply(self.params, x, cfg=self.cfg,
+                                 compute_dtype=torch.float32)
+                d = y8.int() - yf.int()
+                del y8, yf
+                # int64 sum of squares: exact at any frame count
+                sse += int((d * d).sum())
+        self.stats.certify_s += time.perf_counter() - t0
+        cnt = n_real * (ch * self.scale) * (cw * self.scale) * 3
+        mse = max(sse / max(cnt, 1), 1e-12)
+        return float(10.0 * np.log10(255.0 ** 2 / mse))
+
+    # -- batches -----------------------------------------------------------
+
     def warmup(self, h: int, w: int) -> None:
         """Build the kernels (first use compiles them) and the memory plan
-        for a resolution, and run one batch of zeros through the model."""
-        self.submit(np.zeros((self.batch_size, h, w, 3), np.uint8)).result()
-        self.stats.frames -= self.batch_size
-        self.stats.batches -= 1
+        for a resolution, and run one batch of zeros through the model.
+        An int8 engine calibrates provisionally on the zeros; the first
+        real batch replaces that calibration."""
+        dummy = np.zeros((self.batch_size, h, w, 3), np.uint8)
+        self._maybe_calibrate(dummy, provisional=True)
+        self._dispatch(dummy, self.batch_size).result()
 
     def submit(self, frames: np.ndarray) -> PendingBatch:
         """Enqueue a batch; returns a handle. frames: (n<=batch, H, W, 3) u8.
 
         Short batches are padded to `batch_size` by repeating the last
         frame (a fixed batch shape per job); padding is cropped in
-        result()."""
+        result().  An int8 engine without a real calibration calibrates
+        on the padded batch first."""
         n, h, w, _ = frames.shape
         if n < self.batch_size:
             pad = np.repeat(frames[-1:], self.batch_size - n, axis=0)
             frames = np.concatenate([frames, pad], axis=0)
         elif n > self.batch_size:
             raise ValueError(f"batch {n} > batch_size {self.batch_size}")
-        chunk = self._plan_execution(h, w)
+        self._maybe_calibrate(frames, provisional=False)
         self.stats.frames += n
         self.stats.batches += 1
+        return self._dispatch(frames, n)
+
+    def _dispatch(self, frames: np.ndarray, n: int) -> PendingBatch:
+        """Enqueue one padded (batch_size, H, W, 3) u8 batch through the
+        memory plan's model calls; `n` frames of it are valid."""
+        _bs, h, w, _ = frames.shape
+        chunk = self._plan_execution(h, w)
         r = self.scale
         bs = self.batch_size
         if self.device.type != "cuda":
@@ -249,7 +482,7 @@ class UpscaleEngine:
         host_in.numpy()[...] = frames
         host_out = torch.empty((bs, h * r, w * r, 3), dtype=torch.uint8,
                                pin_memory=True)
-        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+        with self._on_device():
             dev_in = host_in.to(self.device, non_blocking=True)
             for i in range(0, bs, chunk):
                 y = self._forward(dev_in[i:i + chunk])

@@ -1,9 +1,11 @@
 """The overlapped decode -> upscale -> encode pipeline.
 
-Counterpart of reve_tpu/pipeline/scheduler.py on the CUDA engine.  The
-int8 calibration and certification helpers are not ported yet (ROADMAP.md
-port queue: int8 turbo); `resolve_auto_dtype` reduces to reve_tpu's
-off-TPU branch, bfloat16 without certification.
+Counterpart of reve_tpu/pipeline/scheduler.py on the CUDA engine, with
+its int8 calibration and certification helpers and `resolve_auto_dtype`.
+The auto rule is the reference's: the int8 turbo is eligible on TPUs only
+(or where REVE_TPU_AUTO_INT8 forces it), so on CUDA `--dtype auto`
+resolves bfloat16 without certification until a measured rule for the
+H100 replaces it (ROADMAP.md).
 
 This is the rebuild of the reference's hot loop (reve-cli/src/main.rs:172-350):
 there, while segment k upscales on the GPU, segment k+1 is being ffmpeg-
@@ -75,8 +77,13 @@ class PipelineError(RuntimeError):
 
 
 #: frames sampled (evenly spaced across the whole video) by
-#: sample_frame_indices — the calibration sample of the int8 path
+#: sample_frame_indices — the calibration and certification sample of the
+#: int8 path
 CALIB_SAMPLE_FRAMES = 16
+
+#: --dtype auto runs the int8 turbo only when its on-content int8-vs-f32
+#: certification clears this PSNR (dB): BASELINE.json's quality gate
+AUTO_INT8_GATE_DB = 50.0
 
 
 def sample_frame_indices(frame_count: int,
@@ -116,28 +123,177 @@ def read_sampled_frames(state: JobState, io_backend=None,
     return frames
 
 
-def resolve_auto_dtype(workspace: Workspace):
-    """--dtype auto -> (dtype, notes).  reve_tpu certifies the int8 turbo
-    on TPUs only; everywhere else auto is bfloat16 without certification,
-    and the int8 path is not ported yet, so the port resolves bfloat16.
-    The decision is published first-wins through the workspace
-    (claim_resolution) like reve_tpu's, so a resume follows the job's
-    resolved dtype.  A workspace whose resolution is int8 raises
-    NotImplementedError."""
-    saved = workspace.load_resolution()
-    if saved is None:
-        saved = workspace.claim_resolution("bfloat16", None)
-        note = ("auto dtype: bfloat16 (int8 turbo is not ported to "
-                "reve_tpu_torch)")
+def _calibration_frames(state: JobState,
+                        io_backend=None) -> "np.ndarray | None":
+    """The job's calibration/certification sample: frames evenly spaced
+    across the WHOLE video.  The indices are recorded in
+    state.opts['calib_frames'] the first time and reused afterwards; the
+    caller that holds the job's canonical state persists it."""
+    indices = state.opts.get("calib_frames")
+    if not indices:
+        indices = sample_frame_indices(state.frame_count)
+        state.opts["calib_frames"] = indices
+    return read_sampled_frames(state, io_backend, indices)
+
+
+def ensure_int8_calibrated(engine, workspace: Workspace, state: JobState,
+                           io_backend=None) -> None:
+    """Calibrate an int8 engine on the job's sampled frames (not on
+    whatever batch arrives first).  No-op when the engine already carries
+    this job's calibration (persisted first-wins via
+    wire_int8_calibration) or is not int8."""
+    if not getattr(engine, "_int8", False):
+        return
+    wire_int8_calibration(engine, workspace)
+    if engine.get_calibration() is not None:
+        return
+    frames = _calibration_frames(state, io_backend)
+    if frames is not None:
+        engine.calibrate_int8(frames)
+
+
+def wire_int8_calibration(engine, workspace: Workspace) -> None:
+    """One calibration per job, persisted in the workspace: a resumed run
+    quantizes with the exact scales the job started with, and an engine
+    reused across jobs drops another job's scales.  Idempotent; no-op for
+    non-int8 engines."""
+    if not getattr(engine, "_int8", False):
+        return
+    saved = workspace.load_calibration()
+    if saved is not None:
+        engine.set_calibration(saved)
     else:
-        note = (f"auto dtype: {saved['dtype']} (inherited this "
-                f"workspace's first-wins resolution)")
-    if saved["dtype"] == "int8":
-        raise NotImplementedError(
-            "this workspace resolved --dtype auto to int8, which is not "
-            "yet ported in reve_tpu_torch (ROADMAP.md port queue: int8 "
-            "turbo, K4/K5)")
-    return saved["dtype"], [note]
+        # no persisted calibration: non-provisional scales the engine
+        # carries belong to a DIFFERENT job (this job's own hook would
+        # have persisted them)
+        if engine.get_calibration() is not None and \
+                engine.calibration_hook != workspace.claim_calibration:
+            engine.reset_calibration()
+        engine.calibration_hook = workspace.claim_calibration
+
+
+def certify_int8_on_input(engine, workspace: Workspace, state: JobState,
+                          io_backend=None):
+    """int8-vs-f32 PSNR (dB) on frames sampled across the job's own video,
+    with the workspace-persisted scales the job runs with — shared by the
+    CLI's gate and report and by --dtype auto.  The measured dB is
+    published first-wins (claim_int8_cert) and reused by every resume of
+    the job.  Returns None when the input yields no frames; raises on
+    read/measure errors (each caller decides whether that fails open or
+    closed)."""
+    wire_int8_calibration(engine, workspace)
+    saved = workspace.load_int8_cert()
+    if saved is not None and engine.get_calibration() is not None:
+        # scales and certificate both persisted: record the frames the
+        # inherited certificate was measured on (deterministic in
+        # frame_count) and reuse it
+        state.opts.setdefault("calib_frames",
+                              sample_frame_indices(state.frame_count))
+        return saved
+    frames = _calibration_frames(state, io_backend)
+    if frames is None:
+        return None
+    return workspace.claim_int8_cert(engine.certify_int8(frames))
+
+
+def resolve_auto_dtype(make_engine, workspace: Workspace, state: JobState,
+                       io_backend=None, gate_db=None, platform=None,
+                       on_note=None, tracer=None):
+    """--dtype auto: the int8 turbo when it is eligible here and certifies
+    at >= gate_db (default AUTO_INT8_GATE_DB) on this video's sampled
+    frames, else bfloat16 (a failed certification falls back to bfloat16:
+    the exact path needs no certificate).
+
+    Eligibility is the reference's rule: `platform == "tpu"`, or the
+    REVE_TPU_AUTO_INT8 environment variable set to a true value.  The
+    port's platform is "cuda", so auto is bfloat16 without certification
+    unless the variable forces it.
+
+    `make_engine(dtype, int8_calib)` builds an engine with the caller's
+    settings; on int8 the calibrated trial engine is returned for reuse.
+    Returns (dtype, engine_or_None, db_or_None, notes).  The decision is
+    published first-wins through the workspace (claim_resolution), so a
+    resume follows the job's resolved dtype.  `on_note` receives a line
+    before the certification starts; `tracer` times it as the
+    "auto_resolve" span."""
+    import time as _time
+
+    from reve_tpu_torch.utils import trace as trace_mod
+
+    gate = AUTO_INT8_GATE_DB if gate_db is None else gate_db
+    tracer = tracer or trace_mod.null()
+
+    def follow(res, note):
+        """Materialize a previously claimed decision."""
+        if res["dtype"] != "int8":
+            return (res["dtype"], None, res["db"], [note])
+        eng = make_engine("int8", state.opts.get("int8_calib", "p99.9"))
+        wire_int8_calibration(eng, workspace)
+        return ("int8", eng, res["db"], [note])
+
+    saved = workspace.load_resolution()
+    if saved is not None:
+        dbtxt = ("" if saved["db"] is None
+                 else f", certified {saved['db']:.1f} dB vs f32")
+        return follow(saved,
+                      f"auto dtype: {saved['dtype']} (inherited this "
+                      f"workspace's first-wins resolution{dbtxt})")
+
+    env = os.environ.get("REVE_TPU_AUTO_INT8")
+    eligible = (env.strip().lower() not in ("0", "", "off", "false", "no")
+                if env is not None else platform == "tpu")
+
+    def decide(dtype, engine, db, note):
+        """Publish our decision first-wins; follow whoever won."""
+        final = workspace.claim_resolution(dtype, db)
+        if final["dtype"] == dtype:
+            return (dtype, engine if dtype == "int8" else None, db, [note])
+        return follow(final, (
+            f"auto dtype: {final['dtype']} (this worker resolved {dtype}, "
+            f"but the workspace's first-wins resolution is "
+            f"{final['dtype']} — following it so one output never mixes "
+            f"compute paths)"))
+
+    if not eligible:
+        return decide("bfloat16", None, None,
+                      f"auto dtype: bfloat16 (int8 turbo is TPU-only; "
+                      f"backend is {platform})")
+    try:
+        engine = make_engine("int8", state.opts.get("int8_calib", "p99.9"))
+    except (ValueError, NotImplementedError) as e:
+        # an architecture without a (ported) int8 path
+        return decide("bfloat16", None, None, f"auto dtype: bfloat16 ({e})")
+    idx = state.opts.get("calib_frames") or \
+        sample_frame_indices(state.frame_count)
+    if on_note is not None:
+        on_note(f"auto dtype: certifying int8 turbo vs f32 on {len(idx)} "
+                f"frame(s) sampled across the video (runs once, before "
+                f"upscaling starts)...")
+    t0 = _time.monotonic()
+    try:
+        with tracer.span("auto_resolve", frames=len(idx)):
+            db = certify_int8_on_input(engine, workspace, state,
+                                       io_backend=io_backend)
+    except Exception as e:
+        # an unmeasurable certification fails SAFE: the exact path
+        return decide("bfloat16", None, None,
+                      f"auto dtype: bfloat16 (int8 certification "
+                      f"failed: {e})")
+    wall = _time.monotonic() - t0
+    n = len(state.opts.get("calib_frames") or ())
+    if db is None:
+        return decide("bfloat16", None, None,
+                      "auto dtype: bfloat16 (input yielded no frames to "
+                      "certify int8 on)")
+    if db >= gate:
+        return decide("int8", engine, db,
+                      f"auto dtype: int8 turbo (certified {db:.1f} dB vs "
+                      f"f32 on {n} sampled frame(s), gate {gate:g} dB; "
+                      f"resolved in {wall:.1f} s)")
+    return decide("bfloat16", None, db,
+                  f"auto dtype: bfloat16 (int8 measured {db:.1f} dB vs "
+                  f"f32 on {n} sampled frame(s), below the {gate:g} dB "
+                  f"gate; resolved in {wall:.1f} s)")
 
 
 class PipelineJob:
@@ -182,6 +338,15 @@ class PipelineJob:
         #: fallback that cannot honor crf/preset is never invisible
         self.encoder_desc: Optional[str] = None
         self._stop = threading.Event()
+        try:
+            # calibrate on frames sampled across the whole video; only if
+            # sampling itself fails does the engine's lazy first-batch
+            # calibration take over (both persist first-wins)
+            ensure_int8_calibrated(engine, workspace, state, io_backend)
+        except Exception as e:
+            log.warning("sampled int8 calibration failed (%s); falling "
+                        "back to first-batch calibration", e)
+            wire_int8_calibration(engine, workspace)
         remaining = sum(s.size for s in state.pending)
         self.progress = progress or ProgressTracker(
             total_frames=remaining, total_segments=len(state.pending),

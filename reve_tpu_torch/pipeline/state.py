@@ -101,12 +101,20 @@ class Workspace:
 
     def create(self, keep_parts: bool = False) -> None:
         """(Re)create the workspace; keep_parts=True preserves completed
-        segment files for resume (lib.rs:301-311 semantics)."""
+        segment files for resume (lib.rs:301-311 semantics).  A fresh
+        start (keep_parts=False) also drops the previous job's int8
+        calibration, certificate and auto-dtype resolution: they belong
+        to the discarded job, and a first-wins claim would otherwise hand
+        them to the new one."""
         os.makedirs(self.root, exist_ok=True)
         if not keep_parts and os.path.isdir(self.parts_dir):
             shutil.rmtree(self.parts_dir)
-        if not keep_parts and os.path.exists(self.state_path):
-            os.unlink(self.state_path)
+        if not keep_parts:
+            for name in (STATE_FILE, CALIBRATION_FILE, CERT_FILE,
+                         RESOLUTION_FILE):
+                path = os.path.join(self.root, name)
+                if os.path.exists(path):
+                    os.unlink(path)
         os.makedirs(self.parts_dir, exist_ok=True)
 
     def destroy(self) -> None:

@@ -1,0 +1,165 @@
+"""Post-training int8 quantization of the SRVGG body (the int8 turbo).
+
+Counterpart of reve_tpu/weights/quantize.py, SRVGG part (RRDB's trunk
+quantization is not ported: ROADMAP.md port queue item 8).  The scheme is
+the reference's, to the bit:
+
+  * weights: per-output-channel symmetric int8,
+    ``w8[..., o] = clip(round(w[..., o] / sw[o]), -127, 127)`` with
+    ``sw[o] = max(max|w[..., o]|, 1e-12) / 127`` (a division, as JAX does
+    it, not a multiply by 1/127);
+  * activations: one symmetric scale per hidden-conv input and for the
+    head conv's input, ``act_scale = max(maxima * margin, 1e-8) / 127`` in
+    float32, from |activation| statistics of a calibration forward
+    (`collect_act_maxima`): the max, or a percentile of a strided
+    subsample (`_stat`).
+
+Given the same maxima, quantization is float32 elementwise math and comes
+out identical to the reference's, so a calibration persisted by either
+package (Workspace.claim_calibration) quantizes the same way in both.  The
+maxima themselves agree to float32 accumulation order (about 1e-6
+relative): the calibration forward runs K3/K1 in float32 on CUDA and their
+plain versions on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from reve_tpu_torch.kernels import conv3x3
+from reve_tpu_torch.models import srvgg
+
+#: percentile statistics of tensors above this many elements are taken on
+#: a deterministic strided subsample of ~this many (reve_tpu's cap); it
+#: also keeps torch.quantile under its 2^24-element input limit
+_PCT_SAMPLE_CAP = 1 << 22
+
+
+def _not_ported_rrdb() -> NotImplementedError:
+    return NotImplementedError(
+        "int8 quantization of RRDB is not yet ported in reve_tpu_torch "
+        "(ROADMAP.md port queue: item 8, RRDB)")
+
+
+@dataclasses.dataclass
+class QuantizedBody:
+    """int8 hidden-stack + head-conv parameters (classic domain), as torch
+    tensors on one device."""
+
+    w8: List[torch.Tensor]       # num_conv x (3, 3, C, C) int8
+    sw: List[torch.Tensor]       # num_conv x (C,) f32 per-out-channel
+    b: List[torch.Tensor]        # num_conv x (C,) f32
+    alpha: List[torch.Tensor]    # num_conv x (C,) f32 (PReLU)
+    act_scale: torch.Tensor      # (num_conv + 1,) f32: input scale per
+    #                              hidden conv + the head conv's input
+    w8_last: torch.Tensor        # (3, 3, C, out*r^2) int8 head conv
+    sw_last: torch.Tensor        # (out*r^2,) f32
+    b_last: torch.Tensor         # (out*r^2,) f32
+
+
+def qbody_from_jax(qb) -> QuantizedBody:
+    """reve_tpu's QuantizedBody (jax or numpy arrays) -> the port's, the
+    same numbers as torch tensors on the CPU."""
+
+    def t(a):
+        return torch.from_numpy(np.array(a, copy=True))
+
+    return QuantizedBody(
+        w8=[t(a) for a in qb.w8], sw=[t(a) for a in qb.sw],
+        b=[t(a) for a in qb.b], alpha=[t(a) for a in qb.alpha],
+        act_scale=t(qb.act_scale), w8_last=t(qb.w8_last),
+        sw_last=t(qb.sw_last), b_last=t(qb.b_last))
+
+
+def _stat(h: torch.Tensor, percentile: Optional[float]) -> torch.Tensor:
+    """max|h|, or the `percentile` of |h| (linear interpolation) over the
+    reference's strided subsample: every (n // 2^22)-th element."""
+    a = h.float().abs()
+    if percentile is None:
+        return a.max()
+    flat = a.reshape(-1)
+    stride = max(1, flat.shape[0] // _PCT_SAMPLE_CAP)
+    # q as jnp.percentile forms it: float32(percentile) / 100 in float32
+    # (a double q would move the interpolation rank by up to ~n * 6e-8)
+    q = torch.tensor(percentile, dtype=torch.float32,
+                     device=a.device) / 100.0
+    return torch.quantile(flat[::stride], q, interpolation="linear")
+
+
+def collect_act_maxima(params: Dict[str, Any], u8: torch.Tensor, *,
+                       cfg: srvgg.SRVGGConfig,
+                       percentile: Optional[float] = None,
+                       plain: bool = False) -> torch.Tensor:
+    """Calibration forward in float32 over (B, H, W, 3) uint8 frames:
+    (num_conv + 1,) |activation| statistics, one for the input of each
+    hidden conv and one for the head conv's input (reve_tpu
+    collect_act_maxima, classic domain).  The float32 forward runs K3 and
+    K1 (their plain versions on the CPU, or with `plain=True`)."""
+    if not isinstance(cfg, srvgg.SRVGGConfig):
+        raise _not_ported_rrdb()
+    if plain:
+        first = conv3x3.conv3x3_u8_bias_prelu_plain
+        hidden = conv3x3.conv3x3_bias_prelu_plain
+    else:
+        first = conv3x3.conv3x3_u8_bias_prelu
+        hidden = conv3x3.conv3x3_bias_prelu
+    convs, prelus = params["convs"], params["prelus"]
+    h = first(u8, convs[0]["w"].float().contiguous(), convs[0]["b"],
+              prelus[0]["alpha"])
+    maxima = [_stat(h, percentile)]
+    for i in range(cfg.num_conv):
+        h = hidden(h, convs[i + 1]["w"].float().contiguous(),
+                   convs[i + 1]["b"], prelus[i + 1]["alpha"])
+        maxima.append(_stat(h, percentile))
+    return torch.stack(maxima)
+
+
+def _qw(w: torch.Tensor):
+    w = w.float()
+    s = torch.amax(w.abs(), dim=(0, 1, 2)).clamp_min(1e-12) / 127.0
+    return torch.round(w / s).clamp_(-127, 127).to(torch.int8), s
+
+
+def quantize_hidden(params: Dict[str, Any], cfg: srvgg.SRVGGConfig,
+                    act_maxima, margin: float = 1.0) -> QuantizedBody:
+    """int8 hidden-stack + head params from float32 params + calibration
+    maxima ((num_conv + 1,), e.g. from `collect_act_maxima`), on the
+    params' device.  `margin` (>= 1) widens the activation ranges."""
+    dev = params["convs"][0]["w"].device
+    if not torch.is_tensor(act_maxima):
+        act_maxima = torch.from_numpy(np.array(act_maxima, np.float32))
+    act_maxima = act_maxima.to(dev, torch.float32)
+    if tuple(act_maxima.shape) != (cfg.num_conv + 1,):
+        raise ValueError(f"act_maxima must be ({cfg.num_conv + 1},), "
+                         f"got {tuple(act_maxima.shape)}")
+    act_scale = (act_maxima * float(margin)).clamp_min(1e-8) / 127.0
+    w8, sw, b, alpha = [], [], [], []
+    for i in range(cfg.num_conv):
+        q, s = _qw(params["convs"][i + 1]["w"])
+        w8.append(q)
+        sw.append(s)
+        b.append(params["convs"][i + 1]["b"].float())
+        alpha.append(params["prelus"][i + 1]["alpha"].float())
+    w8_last, sw_last = _qw(params["convs"][-1]["w"])
+    return QuantizedBody(w8=w8, sw=sw, b=b, alpha=alpha,
+                         act_scale=act_scale, w8_last=w8_last,
+                         sw_last=sw_last,
+                         b_last=params["convs"][-1]["b"].float())
+
+
+def collect_maxima(params, u8, *, cfg, percentile: Optional[float] = None,
+                   plain: bool = False) -> torch.Tensor:
+    """Calibration statistics for any supported architecture (SRVGG)."""
+    return collect_act_maxima(params, u8, cfg=cfg, percentile=percentile,
+                              plain=plain)
+
+
+def build_qbody(params, cfg, act_maxima, margin: float = 1.0):
+    """Quantized body for any supported architecture (SRVGG)."""
+    if not isinstance(cfg, srvgg.SRVGGConfig):
+        raise _not_ported_rrdb()
+    return quantize_hidden(params, cfg, act_maxima, margin=margin)

@@ -46,19 +46,62 @@ def test_read_sampled_frames_seeks_the_right_frames(tmp_path):
     np.testing.assert_array_equal(got, np.stack([want[1], want[3]]))
 
 
-def test_auto_dtype_resolves_bf16_first_wins(tmp_path):
+def test_auto_dtype_resolves_bf16_first_wins(tmp_path, monkeypatch):
+    """On CUDA (not eligible in the reference's rule) auto resolves
+    bfloat16 without building an engine or certifying; the decision is
+    first-wins, and a workspace resolved to int8 is followed (its engine
+    built as int8 with the persisted calibration wired in)."""
+    monkeypatch.delenv("REVE_TPU_AUTO_INT8", raising=False)
+    built = []
+
+    class _Int8Engine:
+        _int8 = True
+        calibration_hook = None
+
+        def get_calibration(self):
+            return None
+
+    def make_engine(dtype, calib):
+        built.append((dtype, calib))
+        return _Int8Engine()
+
     ws = Workspace(str(tmp_path / "ws"))
     ws.create()
-    dtype, notes = scheduler.resolve_auto_dtype(ws)
-    assert dtype == "bfloat16" and "not ported" in notes[0]
-    dtype, notes = scheduler.resolve_auto_dtype(ws)
+    st = _state("unused.y4m")
+    dtype, eng, db, notes = scheduler.resolve_auto_dtype(
+        make_engine, ws, st, platform="cuda")
+    assert (dtype, eng, db) == ("bfloat16", None, None)
+    assert "TPU-only" in notes[0] and "cuda" in notes[0] and not built
+    dtype, eng, db, notes = scheduler.resolve_auto_dtype(
+        make_engine, ws, st, platform="cuda")
     assert dtype == "bfloat16" and "inherited" in notes[0]
-    # a workspace the JAX package resolved to int8 is refused
     ws2 = Workspace(str(tmp_path / "ws2"))
     ws2.create()
     ws2.claim_resolution("int8", 55.0)
-    with pytest.raises(NotImplementedError, match="int8"):
-        scheduler.resolve_auto_dtype(ws2)
+    dtype, eng, db, notes = scheduler.resolve_auto_dtype(
+        make_engine, ws2, st, platform="cuda")
+    assert (dtype, db) == ("int8", 55.0) and built == [("int8", "p99.9")]
+    assert eng.calibration_hook == ws2.claim_calibration
+
+
+def test_fresh_workspace_drops_the_old_jobs_int8_files(tmp_path):
+    """A fresh start (keep_parts=False) drops the discarded job's int8
+    calibration, certificate and auto-dtype resolution with its state; a
+    resume (keep_parts=True) keeps them.  (reve_tpu's Workspace.create
+    keeps them, so a first-wins claim hands them to the new job.)"""
+    ws = Workspace(str(tmp_path / "ws"))
+    ws.create()
+    ws.save(_state("unused.y4m"))
+    ws.claim_calibration([1.0, 2.0])
+    ws.claim_int8_cert(61.0)
+    ws.claim_resolution("int8", 61.0)
+    ws.create(keep_parts=True)
+    assert ws.load_calibration() == [1.0, 2.0] and ws.has_state()
+    assert ws.load_int8_cert() == 61.0 and ws.load_resolution()
+    ws.create(keep_parts=False)
+    assert not ws.has_state() and ws.load_calibration() is None
+    assert ws.load_int8_cert() is None and ws.load_resolution() is None
+    assert ws.claim_calibration([3.0]) == [3.0]
 
 
 class _Engine:
