@@ -8,9 +8,13 @@ JSON line; any failure exits non-zero (no phase catches and continues):
   1. device   the card's name, and its name and power limit as nvidia-smi
               reports them;
   2. build    nvcc builds every kernel of the main path from the sources
-              in this checkout (sm_90a), all at once;
+              in this checkout (sm_90a), all at once, and prints each
+              library's registers, spills and count of HGMMA (wgmma)
+              instructions in its SASS (cuobjdump); the library of the
+              bfloat16 K1 and K2 must have some;
   3. kernels  K3, K1 and K2 at the main path's shapes (1080p frames, a
-              batch of 4, x4), in bfloat16 and float32: each kernel against
+              batch of 4, x4), in bfloat16 (K1 and K2 on the tensor cores,
+              conv3x3_tc.cu) and float32 (CUDA cores): each kernel against
               its plain PyTorch version on the same inputs (float32:
               max |d| <= 1e-4, float32 accumulation order; bfloat16: <= 2
               bf16 ulp relative, the ulp taken at 2^-10 or more; uint8:
@@ -50,7 +54,9 @@ JSON line; any failure exits non-zero (no phase catches and continues):
 
 The line before the last is nvidia-smi's name and power limit; before
 that, one JSON object {"kernels": [...]} with each kernel's launches on
-its path (main, int8 or probe), error, times and bound.  The last line is
+its path (main, int8 or probe), error, times, bound and design ("wgmma",
+"mma_sync" or "cuda_cores"; the float32 forms of K1, K2 and K3 nested
+under "float32" with their own source and design).  The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -135,6 +141,17 @@ def bf16_ulp_ok(got, want, ulps: int = 2) -> bool:
               flush=True)
         return False
     return True
+
+
+def sass_count(lib: str, opcode: str) -> int:
+    """Instructions of `opcode` in a built library's SASS (cuobjdump of
+    the CUDA toolkit whose nvcc built it)."""
+    from reve_tpu_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], check=True,
+                          capture_output=True, text=True).stdout
+    return sum(opcode in ln for ln in sass.splitlines())
 
 
 def bound_ms(nbytes: int, flops: int, dtype: str):
@@ -422,7 +439,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from reve_tpu_torch import cli, kernels
     from reve_tpu_torch.io import reader, writer
-    from reve_tpu_torch.kernels import build
+    from reve_tpu_torch.kernels import build, conv3x3
     from reve_tpu_torch.models import srvgg
     from reve_tpu_torch.pipeline.engine import UpscaleEngine
     from reve_tpu_torch.weights import quantize
@@ -440,12 +457,16 @@ def main() -> int:
     with phase("build", {}) as rec:
         info = build.load_all()
         rec["sources"] = {s: {"seconds": round(v["seconds"], 3),
-                              "cached": v["cached"]}
+                              "cached": v["cached"],
+                              "hgmma": sass_count(v["path"], "HGMMA")}
                           for s, v in info.items()}
         for s, v in info.items():
-            print(f"# {s}: " + " | ".join(
-                ln.strip() for ln in v["log"].splitlines()
-                if "registers" in ln or "spill" in ln), flush=True)
+            print(f"# {s}: HGMMA {rec['sources'][s]['hgmma']} | "
+                  + " | ".join(ln.strip() for ln in v["log"].splitlines()
+                               if "registers" in ln or "spill" in ln),
+                  flush=True)
+        if rec["sources"][conv3x3.TC_SOURCE]["hgmma"] == 0:
+            raise AssertionError(f"{conv3x3.TC_SOURCE}: no HGMMA in its SASS")
 
     weights = os.path.join(ROOT, "models", "realesr-animevideov3-x4.pth")
     cfg, params = load_srvgg_pth(weights)
@@ -614,10 +635,10 @@ def main() -> int:
             "reve_tpu_torch/kernels/csrc/conv3x3.cu",
             "reve_tpu/models/srvgg.py:203"),
         "conv3x3_bias_prelu": (
-            "reve_tpu_torch/kernels/csrc/conv3x3.cu",
+            "reve_tpu_torch/kernels/csrc/conv3x3_tc.cu",
             "reve_tpu/models/srvgg.py:206"),
         "head_conv_residual_u8_shuffle": (
-            "reve_tpu_torch/kernels/csrc/head.cu",
+            "reve_tpu_torch/kernels/csrc/conv3x3_tc.cu",
             "reve_tpu/models/srvgg.py:211"),
         "conv3x3_u8_bias_prelu_q8": (
             "reve_tpu_torch/kernels/csrc/conv3x3.cu",
@@ -643,6 +664,16 @@ def main() -> int:
         "head_conv_s8_residual_u8_shuffle": ("int8", int8_launches),
         "dot_loop": ("int8", {"dot_loop": probe_launches}),
     }
+    # bfloat16 K1 and K2 run on wgmma, P1 on mma.sync, the rest on CUDA
+    # cores; the float32 forms of K3, K1 and K2 are CUDA-core kernels
+    designs = {"conv3x3_bias_prelu": "wgmma",
+               "head_conv_residual_u8_shuffle": "wgmma",
+               "dot_loop": "mma_sync"}
+    f32_sources = {
+        "conv3x3_u8_bias_prelu": "reve_tpu_torch/kernels/csrc/conv3x3.cu",
+        "conv3x3_bias_prelu": "reve_tpu_torch/kernels/csrc/conv3x3.cu",
+        "head_conv_residual_u8_shuffle": "reve_tpu_torch/kernels/csrc/head.cu",
+    }
     line = []
     for name, (src, replaces) in sources.items():
         dtype, launched = paths[name]
@@ -650,12 +681,14 @@ def main() -> int:
             nums, extra = probe["int8"], {"bfloat16": probe["bf16"]}
         elif dtype == "bfloat16":
             nums, extra = results[name]["bfloat16"], {
-                "float32": results[name]["float32"]}
+                "float32": dict(results[name]["float32"],
+                                source=f32_sources[name],
+                                design="cuda_cores")}
         else:
             nums, extra = results8[name], {}
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launched[name],
-                 "dtype": dtype}
+                 "dtype": dtype, "design": designs.get(name, "cuda_cores")}
         entry.update({k: nums[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")})

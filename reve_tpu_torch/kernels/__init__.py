@@ -12,6 +12,11 @@ its plain PyTorch version and a launch counter.
     P1  dot_probe.dot_loop                    tensor-core s8/bf16 dot-rate
                                               probe (not on a model path)
 
+In bfloat16, K1 and K2 run on the tensor cores: one implicit-GEMM `wgmma`
+kernel with two epilogues (csrc/conv3x3_tc.cu).  Their float32 forms stay
+on CUDA cores (csrc/conv3x3.cu, csrc/head.cu), never TF32, to match the
+reference's Precision.HIGHEST; so do K3, K4a, K4 and K4h.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback.  `LAUNCHES` counts
 kernel launches only (plain-version calls are not counted), so a run can

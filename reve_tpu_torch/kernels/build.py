@@ -25,7 +25,8 @@ from typing import Dict, List
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 #: one shared library per source
-SOURCES = ("conv3x3.cu", "head.cu", "conv3x3_s8.cu", "dot_probe.cu")
+SOURCES = ("conv3x3.cu", "conv3x3_tc.cu", "head.cu", "conv3x3_s8.cu",
+           "dot_probe.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-#: {source: {"seconds": float, "cached": bool, "log": str}} of the last load
+#: {source: {"seconds": float, "cached": bool, "log": str, "path": str}} of
+#: the last load
 build_info: Dict[str, dict] = {}
 
 
@@ -82,7 +84,7 @@ def _compile_all(sources: List[str]) -> None:
     for src, out, tmp, t0, proc in procs:
         log, _ = proc.communicate()
         build_info[src] = {"seconds": time.perf_counter() - t0,
-                           "cached": False, "log": log}
+                           "cached": False, "log": log, "path": out}
         if proc.returncode != 0:
             failed.append(f"{src}: nvcc exited {proc.returncode}\n{log}")
             if os.path.exists(tmp):
@@ -109,7 +111,8 @@ def load(source: str) -> ctypes.CDLL:
                 log_path = _lib_path(s) + ".log"
                 log = open(log_path).read() if os.path.exists(log_path) \
                     else ""
-                build_info[s] = {"seconds": 0.0, "cached": True, "log": log}
+                build_info[s] = {"seconds": 0.0, "cached": True, "log": log,
+                                 "path": _lib_path(s)}
             if s not in _libs:
                 _libs[s] = ctypes.CDLL(_lib_path(s))
         return _libs[source]

@@ -12,9 +12,10 @@ to the s8 input of the first int8 hidden conv.
 
 Bound per 1080p frame on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): K1
 152.9 GFLOP -> 0.155 ms and 531 MB -> 0.158 ms (bf16); K3 7.2 GFLOP,
-6 MB in + 265 MB out -> 0.08 ms.  The kernels are a first direct-conv
-form on CUDA cores (see the .cu header); `bound_ms` in chip_smoke.py is
-computed from each run's own shapes.
+6 MB in + 265 MB out -> 0.08 ms.  bfloat16 K1 is an implicit GEMM on the
+tensor cores (wgmma, csrc/conv3x3_tc.cu); float32 K1, K3 and K4a are
+direct convs on CUDA cores (csrc/conv3x3.cu), float32 never in TF32.
+`bound_ms` in chip_smoke.py is computed from each run's own shapes.
 
 Rounding points follow the JAX reference exactly: weights in the compute
 dtype, float32 accumulation, + bias in float32, cast to the compute
@@ -32,6 +33,10 @@ from reve_tpu_torch import device as device_mod
 from reve_tpu_torch.kernels import LAUNCHES, build
 
 SOURCE = "conv3x3.cu"
+#: bfloat16 K1 and K2 on the tensor cores
+TC_SOURCE = "conv3x3_tc.cu"
+#: (rows, columns) of those kernels' output tile (TH, TW in TC_SOURCE)
+TC_TILE = (4, 64)
 FEAT = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -120,7 +125,8 @@ def f32_operand(t: torch.Tensor, n: int, device, what: str) -> torch.Tensor:
     return t
 
 
-def _launch(entry: str, x, w, b, alpha, inv=None) -> torch.Tensor:
+def _launch(entry: str, x, w, b, alpha, inv=None,
+            source: str = SOURCE) -> torch.Tensor:
     B, H, W, _ = x.shape
     y = torch.empty((B, H, W, FEAT),
                     dtype=w.dtype if inv is None else torch.int8,
@@ -129,7 +135,7 @@ def _launch(entry: str, x, w, b, alpha, inv=None) -> torch.Tensor:
     # alpha as the compute dtype rounds it, widened for the kernel
     aa = f32_operand(alpha.to(x.device).to(w.dtype), FEAT, x.device,
                      "alpha")
-    lib = build.load(SOURCE)
+    lib = build.load(source)
     fn = getattr(lib, entry)
     ptrs = [x.data_ptr(), w.data_ptr(), bb.data_ptr(), aa.data_ptr()]
     if inv is not None:
@@ -152,7 +158,11 @@ def conv3x3_bias_prelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if x.device.type == "cpu":
         return conv3x3_bias_prelu_plain(x, w, b, alpha)
     _check(x, w, FEAT, w.dtype)
-    y = _launch("reve_conv3x3_bias_prelu", x, w, b, alpha)
+    if w.dtype == torch.bfloat16:
+        y = _launch("reve_conv3x3_bias_prelu_tc", x, w, b, alpha,
+                    source=TC_SOURCE)
+    else:
+        y = _launch("reve_conv3x3_bias_prelu", x, w, b, alpha)
     LAUNCHES["conv3x3_bias_prelu"] += 1
     return y
 

@@ -1,6 +1,7 @@
 // Shared helpers for the SRVGG conv kernels (sm_90a, plain C interface).
 //
-// Every kernel accumulates in float32 with fmaf (never TF32), and rounds
+// Every kernel accumulates in float32 (fmaf on CUDA cores, or the tensor
+// cores' float32 accumulators for bf16 operands; never TF32), and rounds
 // to the storage type exactly where reve_tpu/models/srvgg.py rounds: the
 // conv output (acc + bias, float32) is cast to the compute dtype, PReLU
 // runs in the compute dtype, and the residual epilogue runs in float32.
@@ -31,6 +32,14 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 // (a Python double rounded once to float32).
 __device__ __forceinline__ float u8_to_unit(uint8_t v) {
   return __fmul_rn((float)v, (float)(1.0 / 255.0));
+}
+
+// The head's float32 residual + u8 rounding of one output channel:
+// u8(clip((h + base) * 255 + 0.5, 0, 255)), each step rounded on its own.
+__device__ __forceinline__ uint8_t residual_u8(float hv, float base) {
+  const float yv = __fadd_rn(hv, base);
+  const float q = __fadd_rn(__fmul_rn(yv, 255.f), 0.5f);
+  return (uint8_t)fminf(fmaxf(q, 0.f), 255.f);
 }
 
 // Round v to T and back: the value a cast to the compute dtype leaves.

@@ -20,7 +20,8 @@
 // Design (a first, simple form): a direct conv on CUDA cores with fmaf,
 // never TF32, so float32 matches the JAX reference's Precision.HIGHEST.
 // Its own ceiling is the ~67 TFLOP/s float32 FMA rate, not the tensor
-// cores; wgmma/TMA is later work.  Each block is persistent: it converts
+// cores.  K1 here is the float32 form only: bfloat16 K1 runs on the tensor
+// cores (conv3x3_tc.cu).  Each block is persistent: it converts
 // the 9*Cin*64 weights to float32 in dynamic shared memory once (147 KB
 // for 64->64), then walks output tiles of TH x 32 pixels.  A tile plus its
 // 1-pixel halo is staged in shared memory in the compute dtype (the cast
@@ -45,7 +46,7 @@ constexpr int CPT = 16;  // output channels per thread
 template <typename TIn, typename T, int CIN, int TH>
 struct Conv {
   // shared-memory pixel stride in elements of T: odd in 32-bit words
-  static constexpr int SP = CIN == 64 ? (sizeof(T) == 2 ? 66 : 65) : CIN;
+  static constexpr int SP = CIN == 64 ? 65 : CIN;
   static constexpr int THREADS = TH * 32;
   static constexpr int W_FLOATS = 9 * CIN * COUT;
   static constexpr size_t SMEM = (size_t)(W_FLOATS + 2 * COUT) * sizeof(float)
@@ -205,15 +206,13 @@ cudaError_t launch(const void* x, const void* w, const float* b,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = success).
+// dtype: 0 = float32, 1 = bfloat16; K1 takes float32 only here (its
+// bfloat16 form is conv3x3_tc.cu's).  Returns a cudaError_t (0 = success).
 extern "C" int reve_conv3x3_bias_prelu(const void* x, const void* w,
                                        const float* b, const float* alpha,
                                        void* y, int B, int H, int W,
                                        int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16, 64, 8>(x, w, b, alpha, y, B,
-                                                       H, W, s);
   if (dtype == 0)
     return launch<float, float, 64, 4>(x, w, b, alpha, y, B, H, W, s);
   return (int)cudaErrorInvalidValue;

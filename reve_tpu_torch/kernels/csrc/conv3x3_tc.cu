@@ -1,0 +1,501 @@
+// K1 conv3x3_bias_prelu and K2 head_conv_residual_u8_shuffle in bfloat16,
+// on the tensor cores: one implicit-GEMM mainloop (wgmma), two epilogues.
+//
+// Replaces (TPU side), in bfloat16 (float32 stays on the CUDA-core kernels
+// of conv3x3.cu and head.cu, which match Precision.HIGHEST; TF32 would not):
+//   K1  reve_tpu/models/srvgg.py:_conv3x3 + _prelu (srvgg.py:88-113), the
+//       16 hidden 64->64 layers of apply (srvgg.py:205-210);
+//   K2  the head _conv3x3 (srvgg.py:211-212) with _epilogue(quantize_u8=True)
+//       (srvgg.py:239-262) and reve_tpu/ops/pixel_shuffle.py:14-22, also
+//       reached from apply_int8(int8_head=False) (srvgg.py:204-205).
+// Both were one XLA-fused conv graph on the TPU.  What they compute, and
+// where they round, is that of the plain versions (kernels/conv3x3.py,
+// kernels/head.py) and of common.cuh.
+//
+// Bound on an H100 SXM (989 TFLOP/s bf16 tensor, 3.35 TB/s) per call of 4
+// 1080p frames: K1 611.5 GFLOP -> 0.618 ms, 2.12 GB in + out -> 0.634 ms,
+// at the card's ridge (288 FLOP/byte against 295); K2 at r=4 458.6 GFLOP
+// -> 0.464 ms (operations), 1.49 GB -> 0.44 ms.  Only the tensor cores get
+// near either bound: the CUDA-core forms top out at ~67 TFLOP/s.
+//
+// Design.  Each conv is a GEMM of M = output pixels, N = output channels
+// (64 for K1; 3r^2 padded to a multiple of 8 for K2: 16, 32, 48) and
+// K = 9 taps x 64 input channels = 576, as 36 wgmma m64nNk16 steps with
+// float32 accumulators in registers.
+//  * Persistent blocks, one per SM, of 4 warpgroups.  A block loads the
+//    weights into shared memory once (73,728 B for K1, 55,296 B for K2 at
+//    r=4) and walks tiles of 4 rows x 64 pixels, one row per warpgroup, so
+//    one row is one wgmma M of 64.
+//  * The halo tile ((4+2) x (64+2) pixels x 64 channels) comes in as one
+//    TMA copy of a 4-D tensor map over the NHWC input, into one of two
+//    buffers: the next tile's halo loads while this tile's wgmmas and
+//    epilogue run.  The copy fills what lies outside the frame with zeros,
+//    which is exactly SAME padding, and needs no per-thread address work.
+//    TMA rather than cp.async: 16-B cp.async copies from every thread
+//    reached about half the card's bandwidth (the loads alone took longer
+//    than the wgmmas), and one bulk copy per tile does not.  The tensor
+//    map is encoded per call (the input pointer changes), through
+//    cuTensorMapEncodeTiled from cudaGetDriverEntryPoint, so the library
+//    needs no libcuda at link time, and is passed as a __grid_constant__.
+//  * A halo pixel is one 128-B row (64 bf16 channels), stored in the 128-B
+//    swizzle that wgmma reads for a K-major A operand: the 16-B chunk c of
+//    pixel p sits at chunk c ^ (p % 8).  The A operand of tap (dy, dx) is
+//    the halo started dy * 66 + dx pixels later.  The swizzle is a function
+//    of the shared-memory address bits (the buffers are 1024-B aligned),
+//    both where TMA writes and where wgmma reads, so a start moved by whole
+//    128-B rows reads what TMA wrote, with the descriptor's base offset 0.
+//    The weights sit as [k / 8][n][8] (B K-major, no swizzle: core
+//    matrices of 8 rows x 16 B), transposed from HWIO when loaded.
+//  * Epilogues keep the reference's rounding (__fadd_rn, __fmul_rn,
+//    __float2bfloat16_rn; no FMA contraction).  K1 stages its bf16 row of
+//    64 x 64 in shared memory (16-B chunks XOR-swizzled by pixel) and writes
+//    it as 16-B vectors, one contiguous 8 KB run per row.  K2 reads the
+//    row's u8 pixels once, stages its r output rows of 64r x 3 bytes in
+//    shared memory in pixel-shuffle order, and writes each as 16-B vectors.
+#include <cuda.h>  // CUtensorMap and its enums; no libcuda is linked
+
+#include "common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using reve::round_to;
+
+constexpr int CIN = 64;
+constexpr int TH = 4;   // tile rows, one warpgroup each
+constexpr int TW = 64;  // tile columns: the M of one wgmma
+constexpr int THREADS = 128 * TH;
+constexpr int HALO_TX = (TH + 2) * (TW + 2) * CIN * 2;  // bytes of one copy
+constexpr int HALO_BYTES = (HALO_TX + 1023) / 1024 * 1024;  // 1024-B aligned
+
+// R = 0: K1 (bias + PReLU, bf16 out); R = 2, 3, 4: K2 (u8 residual +
+// pixel shuffle at scale R).
+template <int R>
+struct Tc {
+  static constexpr int COUT = R == 0 ? CIN : 3 * R * R;
+  static constexpr int N = (COUT + 7) / 8 * 8;
+  static constexpr int W_BYTES = 9 * CIN * N * 2;
+  // staged output of one warpgroup's row: 64 x 64 bf16, or R rows of
+  // 64R x 3 u8; then the row's u8 input pixels (K2)
+  static constexpr int STAGE = R == 0 ? TW * CIN * 2 : R * TW * R * 3;
+  static constexpr int ORIG = R == 0 ? 0 : TW * 3;
+  static constexpr size_t OFF_W = 2 * HALO_BYTES;
+  static constexpr size_t OFF_STAGE = OFF_W + W_BYTES;
+  static constexpr size_t OFF_ORIG = OFF_STAGE + TH * STAGE;
+  static constexpr size_t OFF_PAR = OFF_ORIG + TH * ORIG;  // bias, alpha
+  static constexpr size_t OFF_BAR = OFF_PAR + 2 * N * sizeof(float);
+  static constexpr size_t SMEM = OFF_BAR + 2 * sizeof(uint64_t);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// shared-memory writes by this thread become visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A halo buffer's barrier: one arrival (the thread that starts the copy)
+// plus the copy's bytes complete a phase.
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// Start the copy of the halo of the tile at (b, y0, x0) into `dst`,
+// completing on `bar`: box (64 channels, TW + 2, TH + 2, 1) at (0, x0 - 1,
+// y0 - 1, b), zeros outside the frame.
+__device__ __forceinline__ void load_halo(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int b, int y0,
+                                          int x0) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(HALO_TX)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(0), "r"(x0 - 1), "r"(y0 - 1), "r"(b)
+      : "memory");
+}
+
+// barrier of one warpgroup (ids 1..4; 0 is __syncthreads)
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major operand without swizzle:
+// core matrices of 8 rows x 16 B (rows 16 B apart), `lbo` bytes from one
+// core matrix to the next along K, 128 B from one group of 8 rows to the
+// next (SBO); layout type 0 (no swizzle), base offset 0.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+// ... and of a K-major operand in the 128-B swizzle: rows of 128 B, groups
+// of 8 rows 1024 B apart (SBO); layout type 1, base offset 0.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// D (64 x N, float32) += A (64 x 16) * B (16 x N), both bf16 from shared
+// memory; D as the m64nN accumulator fragment, N / 2 registers a thread.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  __device__ static void mma(float (&d)[8], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  __device__ static void mma(float (&d)[16], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<48> {
+  __device__ static void mma(float (&d)[24], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, "
+        "1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  __device__ static void mma(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+        "%27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+struct TileGrid {
+  int tiles_x, tiles_y;
+  long long count;
+  __device__ TileGrid(int B, int H, int W)
+      : tiles_x((W + TW - 1) / TW),
+        tiles_y((H + TH - 1) / TH),
+        count((long long)B * tiles_y * tiles_x) {}
+  // tile -> (image, first row, first column); x fastest, so neighbouring
+  // blocks share halo rows in L2
+  __device__ void origin(long long tile, int& b, int& y0, int& x0) const {
+    b = (int)(tile / ((long long)tiles_y * tiles_x));
+    const int rem = (int)(tile - (long long)b * tiles_y * tiles_x);
+    y0 = (rem / tiles_x) * TH;
+    x0 = (rem % tiles_x) * TW;
+  }
+};
+
+// Issue the 36 wgmma steps of one warpgroup's row, asynchronously (see
+// wait_mma): `a_row` is halo pixel (row, 0), and tap (dy, dx) starts
+// dy * (TW + 2) + dx pixels later; k16 step kc is 32 B into each row.
+template <int N>
+__device__ __forceinline__ void issue_mma(float (&acc)[N / 2], uint32_t a_row,
+                                          uint32_t w) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+#pragma unroll
+    for (int kc = 0; kc < CIN / 16; ++kc) {
+      const uint32_t a =
+          a_row + ((tap / 3) * (TW + 2) + tap % 3) * CIN * 2 + kc * 32;
+      const uint32_t b = w + (tap * 8 + 2 * kc) * N * 16;
+      Wgmma<N>::mma(acc, desc_sw128(a), desc(b, N * 16));
+    }
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait for the warpgroup's wgmmas: `acc` is final only after this.
+template <int N>
+__device__ __forceinline__ void wait_mma(float (&acc)[N / 2]) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  // keep every read of the accumulators below the wait
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+}
+
+template <int R>
+__global__ void __launch_bounds__(THREADS, 1)
+conv3x3_tc_kernel(const __grid_constant__ CUtensorMap map,
+                  const bf16* __restrict__ w,
+                  const float* __restrict__ bias,
+                  const float* __restrict__ alpha,
+                  const uint8_t* __restrict__ orig, void* __restrict__ out,
+                  int B, int H, int W) {
+  using C = Tc<R>;
+  constexpr int N = C::N, COUT = C::COUT;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, t = tid & 127;  // warpgroup = tile row
+
+  // weights, HWIO (k = tap * 64 + ci, n = co) -> [k / 8][n][8], n >= COUT 0
+  bf16* ws = reinterpret_cast<bf16*>(smem + C::OFF_W);
+  for (int i = tid; i < 9 * CIN * N; i += THREADS) {
+    const int k = i / N, n = i - k * N;
+    ws[((k >> 3) * N + n) * 8 + (k & 7)] =
+        n < COUT ? w[k * COUT + n] : __float2bfloat16_rn(0.f);
+  }
+  float* bs = reinterpret_cast<float*>(smem + C::OFF_PAR);
+  float* as = bs + N;
+  for (int i = tid; i < N; i += THREADS) {
+    bs[i] = i < COUT ? bias[i] : 0.f;
+    if constexpr (R == 0) as[i] = alpha[i];
+  }
+  const uint32_t bar = base + (uint32_t)C::OFF_BAR;  // one per buffer
+  if (tid == 0) {
+    mbar_init(bar);
+    mbar_init(bar + 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  const TileGrid g(B, H, W);
+  long long tile = blockIdx.x;  // the grid never exceeds the tile count
+  int b, y0, x0;
+  if (tid == 0) {
+    g.origin(tile, b, y0, x0);
+    load_halo(base, &map, bar, b, y0, x0);
+  }
+  for (int it = 0; tile < g.count; tile += gridDim.x, ++it) {
+    // this tile's halo has landed (the buffer's use it / 2), and every
+    // warpgroup is done with the other buffer and with the staging areas
+    mbar_wait(bar + (it & 1) * 8, (it >> 1) & 1);
+    __syncthreads();
+    const long long next = tile + gridDim.x;
+    if (tid == 0 && next < g.count) {
+      g.origin(next, b, y0, x0);
+      load_halo(base + ((it + 1) & 1) * HALO_BYTES, &map,
+                bar + ((it + 1) & 1) * 8, b, y0, x0);
+    }
+
+    g.origin(tile, b, y0, x0);
+    const int oy = y0 + wg;
+    float acc[N / 2];
+    issue_mma<N>(acc, base + (it & 1) * HALO_BYTES + wg * (TW + 2) * CIN * 2,
+                 base + (uint32_t)C::OFF_W);
+    // K2 reads the row's u8 input pixels, two bytes a thread, while the
+    // tensor cores work
+    const int valid = min(TW, W - x0);  // pixels of this row in the frame
+    uint8_t o0 = 0, o1 = 0;
+    if constexpr (R > 0) {
+      const int n = oy < H ? valid * 3 : 0;
+      const uint8_t* row = orig + (((long long)b * H + oy) * W + x0) * 3;
+      if (t < n) o0 = row[t];
+      if (t + 128 < n) o1 = row[t + 128];
+    }
+    wait_mma<N>(acc);
+
+    // accumulator fragment: register 4j + 2h + e holds pixel
+    // 16 * warp + lane / 4 + 8h, channel 8j + 2 * (lane % 4) + e
+    const int lane = t & 31;
+    const int p0 = (t >> 5) * 16 + (lane >> 2), c0 = (lane & 3) * 2;
+    unsigned char* st = smem + C::OFF_STAGE + wg * C::STAGE;
+    if constexpr (R == 0) {
+      // (acc + b) in float32, cast to bf16; PReLU in bf16:
+      // max(v, 0) + bf16(alpha * min(v, 0))
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = p0 + 8 * h, c = 8 * j + c0;
+          __nv_bfloat162 v;
+          float f = round_to<bf16>(__fadd_rn(acc[4 * j + 2 * h], bs[c]));
+          v.x = __float2bfloat16_rn(f > 0.f ? f : __fmul_rn(as[c], f));
+          f = round_to<bf16>(__fadd_rn(acc[4 * j + 2 * h + 1], bs[c + 1]));
+          v.y = __float2bfloat16_rn(f > 0.f ? f : __fmul_rn(as[c + 1], f));
+          *reinterpret_cast<__nv_bfloat162*>(
+              st + p * 128 + ((j ^ (p & 7)) << 4) + c0 * 2) = v;
+        }
+      warpgroup_sync(wg);
+      if (oy < H) {
+        bf16* y = static_cast<bf16*>(out) + ((long long)b * H + oy) * W * CIN;
+        for (int q = t; q < TW * 8; q += 128) {
+          const int p = q >> 3, c = q & 7;
+          if (x0 + p < W)
+            *reinterpret_cast<uint4*>(y + (long long)(x0 + p) * CIN + c * 8) =
+                *reinterpret_cast<const uint4*>(st + p * 128 +
+                                                ((c ^ (p & 7)) << 4));
+        }
+      }
+    } else {
+      constexpr int ROW = TW * R * 3;  // staged bytes of one output row
+      unsigned char* os = smem + C::OFF_ORIG + wg * C::ORIG;
+      os[t] = o0;
+      if (t + 128 < C::ORIG) os[t + 128] = o1;
+      warpgroup_sync(wg);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int p = p0 + 8 * h, kk = 8 * j + c0 + e;
+            if (kk < COUT) {
+              // channel kk = c * R^2 + i * R + jj -> output pixel
+              // (oy * R + i, (x0 + p) * R + jj), colour c
+              const int c = kk / (R * R), i = (kk / R) % R, jj = kk % R;
+              const float hv =
+                  round_to<bf16>(__fadd_rn(acc[4 * j + 2 * h + e], bs[kk]));
+              st[i * ROW + (p * R + jj) * 3 + c] =
+                  reve::residual_u8(hv, reve::u8_to_unit(os[p * 3 + c]));
+            }
+          }
+      warpgroup_sync(wg);
+      if (oy < H) {
+        const long long out_row = (long long)W * R * 3;
+        uint8_t* o = static_cast<uint8_t*>(out) +
+                     ((long long)b * H + oy) * R * out_row +
+                     (long long)x0 * R * 3;
+        const int bytes = valid * R * 3;
+        for (int q = t; q < R * ROW / 16; q += 128) {
+          const int i = q / (ROW / 16), off = (q - i * (ROW / 16)) * 16;
+          if (off >= bytes) continue;
+          uint8_t* dst = o + i * out_row + off;
+          const unsigned char* src = st + i * ROW + off;
+          if (off + 16 <= bytes && (reinterpret_cast<uintptr_t>(dst) & 15) == 0)
+            *reinterpret_cast<uint4*>(dst) =
+                *reinterpret_cast<const uint4*>(src);
+          else  // a ragged edge, or rows not 16-B aligned (W * 3R % 16)
+            for (int k = 0; k < 16 && off + k < bytes; ++k) dst[k] = src[k];
+        }
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The tensor map of the (B, H, W, 64) bf16 input: halo boxes, 128-B
+// swizzle, zeros outside the tensor.
+cudaError_t make_map(CUtensorMap* map, const void* x, int B, int H, int W) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess) return cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[4] = {CIN, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {CIN * 2, (cuuint64_t)W * CIN * 2,
+                                 (cuuint64_t)H * W * CIN * 2};
+  const cuuint32_t box[4] = {CIN, TW + 2, TH + 2, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int R>
+cudaError_t launch(const void* x, const void* w, const float* b,
+                   const float* alpha, const uint8_t* orig, void* out, int B,
+                   int H, int W, cudaStream_t stream) {
+  const long long tiles =
+      (long long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+  if (tiles == 0) return cudaSuccess;
+  CUtensorMap map;
+  cudaError_t err = make_map(&map, x, B, H, W);
+  if (err != cudaSuccess) return err;
+  auto kernel = conv3x3_tc_kernel<R>;
+  int grid = 0;
+  err = reve::persistent_grid(kernel, THREADS, Tc<R>::SMEM, tiles, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, THREADS, Tc<R>::SMEM, stream>>>(
+      map, static_cast<const bf16*>(w), b, alpha, orig, out, B, H, W);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// K1, bfloat16 only (dtype 1; float32 is conv3x3.cu's).  Returns a
+// cudaError_t (0 = success).
+extern "C" int reve_conv3x3_bias_prelu_tc(const void* x, const void* w,
+                                          const float* b, const float* alpha,
+                                          void* y, int B, int H, int W,
+                                          int dtype, void* stream) {
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  return (int)launch<0>(x, w, b, alpha, nullptr, y, B, H, W,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// K2, bfloat16 only (dtype 1; float32 is head.cu's); r in {2, 3, 4}.
+extern "C" int reve_head_conv_residual_u8_shuffle_tc(
+    const void* x, const void* w, const float* b, const uint8_t* orig,
+    uint8_t* out, int B, int H, int W, int r, int dtype, void* stream) {
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (r) {
+    case 2: return (int)launch<2>(x, w, b, nullptr, orig, out, B, H, W, s);
+    case 3: return (int)launch<3>(x, w, b, nullptr, orig, out, B, H, W, s);
+    case 4: return (int)launch<4>(x, w, b, nullptr, orig, out, B, H, W, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -15,7 +15,8 @@
 // frame at r=4: 114.7 GFLOP -> 0.116 ms; 265 MB in + 6 MB u8 in + 99.5 MB
 // u8 out (7680x4320x3) -> 0.111 ms; so about 0.116 ms (operations).
 //
-// Design (a first, simple form): a direct conv on CUDA cores with fmaf
+// Design (a first, simple form; float32 only, bfloat16 K2 runs on the
+// tensor cores in conv3x3_tc.cu): a direct conv on CUDA cores with fmaf
 // (never TF32); persistent blocks hold the 9x64x(3r^2, padded to a multiple
 // of 4) float32 weights in dynamic shared memory (111 KB at r=4) and walk
 // 4 x 64 pixel tiles staged with their halo in shared memory.  Each thread
@@ -42,8 +43,7 @@
 
 namespace {
 
-using reve::round_to;
-using reve::to_float;
+using reve::residual_u8;
 
 constexpr int CIN = 64;
 constexpr int TH = 4;
@@ -51,40 +51,32 @@ constexpr int TW = 64;
 constexpr int PIX = 2;  // columns col and col + 32
 constexpr int THREADS = TH * 32;
 
-// K2's float32 residual + u8 rounding of one head output channel:
-// u8(clip((h + base) * 255 + 0.5, 0, 255)), each step rounded on its own.
-__device__ __forceinline__ uint8_t residual_u8(float hv, float base) {
-  const float yv = __fadd_rn(hv, base);
-  const float q = __fadd_rn(__fmul_rn(yv, 255.f), 0.5f);
-  return (uint8_t)fminf(fmaxf(q, 0.f), 255.f);
-}
-
-template <typename T, int R>
+template <int R>
 struct Head {
   static constexpr int COUT = 3 * R * R;
   static constexpr int COUTP = (COUT + 3) / 4 * 4;
-  static constexpr int SP = sizeof(T) == 2 ? 66 : 65;
+  static constexpr int SP = 65;  // pixel stride in floats: odd
   static constexpr int W_FLOATS = 9 * CIN * COUTP;
-  static constexpr size_t SMEM = (size_t)(W_FLOATS + COUTP) * sizeof(float)
-                                 + (size_t)(TH + 2) * (TW + 2) * SP * sizeof(T);
+  static constexpr size_t SMEM =
+      (size_t)(W_FLOATS + COUTP + (TH + 2) * (TW + 2) * SP) * sizeof(float);
 };
 
-template <typename T, int R>
+template <int R>
 __global__ void __launch_bounds__(THREADS, 1)
-head_kernel(const T* __restrict__ x, const T* __restrict__ w,
+head_kernel(const float* __restrict__ x, const float* __restrict__ w,
             const float* __restrict__ bias, const uint8_t* __restrict__ orig,
             uint8_t* __restrict__ out, int B, int H, int W) {
-  using C = Head<T, R>;
+  using C = Head<R>;
   constexpr int COUT = C::COUT, COUTP = C::COUTP, SP = C::SP;
   extern __shared__ __align__(16) unsigned char smem[];
   float* ws = reinterpret_cast<float*>(smem);  // [9][CIN][COUTP]
   float* bs = ws + C::W_FLOATS;                // [COUTP]
-  T* xs = reinterpret_cast<T*>(bs + COUTP);    // [(TH+2)*(TW+2)][SP]
+  float* xs = bs + COUTP;                      // [(TH+2)*(TW+2)][SP]
 
   const int tid = threadIdx.x;
   for (int i = tid; i < C::W_FLOATS; i += THREADS) {
     const int tc = i / COUTP, co = i - tc * COUTP;
-    ws[i] = co < COUT ? to_float(w[tc * COUT + co]) : 0.f;
+    ws[i] = co < COUT ? w[tc * COUT + co] : 0.f;
   }
   for (int i = tid; i < COUTP; i += THREADS) bs[i] = i < COUT ? bias[i] : 0.f;
 
@@ -102,8 +94,7 @@ head_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const int x0 = (rem % tiles_x) * TW;
 
     __syncthreads();
-    constexpr int EPV = 16 / sizeof(T);
-    constexpr int VPP = CIN / EPV;
+    constexpr int VPP = CIN / 4;  // 16-byte vectors per pixel
     constexpr int NV = (TH + 2) * (TW + 2) * VPP;
     for (int i = tid; i < NV; i += THREADS) {
       const int pix = i / VPP, v = i - pix * VPP;
@@ -113,7 +104,7 @@ head_kernel(const T* __restrict__ x, const T* __restrict__ w,
       if (gy >= 0 && gy < H && gx >= 0 && gx < W)
         val = __ldg(reinterpret_cast<const uint4*>(
                         x + (((long long)b * H + gy) * W + gx) * CIN) + v);
-      uint32_t* dst = reinterpret_cast<uint32_t*>(xs + pix * SP + v * EPV);
+      uint32_t* dst = reinterpret_cast<uint32_t*>(xs + pix * SP + v * 4);
       dst[0] = val.x;
       dst[1] = val.y;
       dst[2] = val.z;
@@ -130,14 +121,14 @@ head_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll 1
     for (int tap = 0; tap < 9; ++tap) {
       const int dy = tap / 3, dx = tap - dy * 3;
-      const T* xr = xs + ((row + dy) * (TW + 2) + col + dx) * SP;
+      const float* xr = xs + ((row + dy) * (TW + 2) + col + dx) * SP;
       const float4* wr =
           reinterpret_cast<const float4*>(ws + tap * CIN * COUTP);
 #pragma unroll 2
       for (int ci = 0; ci < CIN; ++ci) {
         float xv[PIX];
 #pragma unroll
-        for (int k = 0; k < PIX; ++k) xv[k] = to_float(xr[k * 32 * SP + ci]);
+        for (int k = 0; k < PIX; ++k) xv[k] = xr[k * 32 * SP + ci];
 #pragma unroll
         for (int q = 0; q < COUTP / 4; ++q) {
           const float4 wv = wr[ci * (COUTP / 4) + q];
@@ -163,7 +154,7 @@ head_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
       for (int kk = 0; kk < COUT; ++kk) {
         const int c = kk / (R * R), i = (kk / R) % R, j = kk % R;
-        const float hv = round_to<T>(__fadd_rn(acc[k][kk], bs[kk]));
+        const float hv = __fadd_rn(acc[k][kk], bs[kk]);  // float32: no cast
         out[(((long long)b * H + oy) * R + i) * out_w * 3 +
             ((long long)ox * R + j) * 3 + c] = residual_u8(hv, base[c]);
       }
@@ -171,12 +162,12 @@ head_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T, int R>
+template <int R>
 cudaError_t launch(const void* x, const void* w, const float* b,
                    const uint8_t* orig, uint8_t* out, int B, int H, int W,
                    cudaStream_t stream) {
-  using C = Head<T, R>;
-  auto kernel = head_kernel<T, R>;
+  using C = Head<R>;
+  auto kernel = head_kernel<R>;
   const long long tiles =
       (long long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
   if (tiles == 0) return cudaSuccess;
@@ -184,20 +175,19 @@ cudaError_t launch(const void* x, const void* w, const float* b,
   cudaError_t err =
       reve::persistent_grid(kernel, THREADS, C::SMEM, tiles, &grid);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, THREADS, C::SMEM, stream>>>(static_cast<const T*>(x),
-                                             static_cast<const T*>(w), b,
+  kernel<<<grid, THREADS, C::SMEM, stream>>>(static_cast<const float*>(x),
+                                             static_cast<const float*>(w), b,
                                              orig, out, B, H, W);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch_r(int r, const void* x, const void* w, const float* b,
                      const uint8_t* orig, uint8_t* out, int B, int H, int W,
                      cudaStream_t s) {
   switch (r) {
-    case 2: return launch<T, 2>(x, w, b, orig, out, B, H, W, s);
-    case 3: return launch<T, 3>(x, w, b, orig, out, B, H, W, s);
-    case 4: return launch<T, 4>(x, w, b, orig, out, B, H, W, s);
+    case 2: return launch<2>(x, w, b, orig, out, B, H, W, s);
+    case 3: return launch<3>(x, w, b, orig, out, B, H, W, s);
+    case 4: return launch<4>(x, w, b, orig, out, B, H, W, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -347,14 +337,13 @@ cudaError_t launch_s8(const void* x, const void* w, const float* scale,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; r in {2, 3, 4}.  Returns a cudaError_t.
+// dtype: 0 = float32 only (bfloat16 is conv3x3_tc.cu's); r in {2, 3, 4}.
+// Returns a cudaError_t.
 extern "C" int reve_head_conv_residual_u8_shuffle(
     const void* x, const void* w, const float* b, const uint8_t* orig,
     uint8_t* out, int B, int H, int W, int r, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return (int)launch_r<__nv_bfloat16>(r, x, w, b, orig, out, B, H, W, s);
-  if (dtype == 0) return (int)launch_r<float>(r, x, w, b, orig, out, B, H, W, s);
+  if (dtype == 0) return (int)launch_r(r, x, w, b, orig, out, B, H, W, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -9,7 +9,9 @@ Replaces the SRVGG head of reve_tpu/models/srvgg.py:apply: the last
 Bound per 1080p frame at r=4 on an H100 SXM (989 TFLOP/s bf16,
 3.35 TB/s): 114.7 GFLOP -> 0.116 ms; 265 + 6 + 99.5 MB -> 0.111 ms.  The
 kernel writes only the u8 (B, H*r, W*r, 3) output: no float32 head
-tensor and no separate shuffle pass.
+tensor and no separate shuffle pass.  bfloat16 K2 runs on the tensor
+cores (wgmma, csrc/conv3x3_tc.cu, K1's mainloop with N = 3r^2 padded to
+a multiple of 8); float32 K2 and K4h on CUDA cores (csrc/head.cu).
 
 Rounding points follow the JAX reference: float32 accumulation + b in
 float32, cast to the compute dtype, + repeat(u8 / 255, r^2) in float32,
@@ -30,7 +32,7 @@ import ctypes
 import torch
 
 from reve_tpu_torch.kernels import LAUNCHES, build
-from reve_tpu_torch.kernels.conv3x3 import (FEAT, check_operands,
+from reve_tpu_torch.kernels.conv3x3 import (FEAT, TC_SOURCE, check_operands,
                                             conv3x3_plain, f32_operand)
 from reve_tpu_torch.kernels.conv3x3_s8 import conv3x3_s8_plain
 from reve_tpu_torch.ops.pixel_shuffle import pixel_shuffle
@@ -94,8 +96,12 @@ def head_conv_residual_u8_shuffle(h: torch.Tensor, w: torch.Tensor,
     bb = f32_operand(b, 3 * r * r, h.device, "bias")
     out = torch.empty((B, H * r, W * r, 3), dtype=torch.uint8,
                       device=h.device)
-    lib = build.load(SOURCE)
-    fn = lib.reve_head_conv_residual_u8_shuffle
+    if w.dtype == torch.bfloat16:
+        lib = build.load(TC_SOURCE)
+        fn = lib.reve_head_conv_residual_u8_shuffle_tc
+    else:
+        lib = build.load(SOURCE)
+        fn = lib.reve_head_conv_residual_u8_shuffle
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     err = fn(h.data_ptr(), w.data_ptr(), bb.data_ptr(), u8.data_ptr(),
              out.data_ptr(), B, H, W, r, _DTYPE_CODE[w.dtype],

@@ -190,6 +190,45 @@ def test_non_cuda_device_tensors_raise_instead_of_falling_back():
     assert all(v == 0 for v in LAUNCHES.values())
 
 
+def test_bfloat16_non_cuda_tensors_raise_before_the_tensor_core_path():
+    """bfloat16 K1 and K2 route to the tensor-core library only after the
+    device check: a tensor off the CPU and off CUDA is refused."""
+    x = torch.empty((1, 4, 4, 64), device="meta", dtype=torch.bfloat16)
+    w = torch.empty((3, 3, 64, 64), device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        conv3x3.conv3x3_bias_prelu(x, w, torch.zeros(64), torch.zeros(64))
+    with pytest.raises(ValueError, match="CUDA"):
+        head.head_conv_residual_u8_shuffle(
+            x, torch.empty((3, 3, 64, 48), device="meta",
+                           dtype=torch.bfloat16), torch.zeros(48),
+            torch.empty((1, 4, 4, 3), dtype=torch.uint8, device="meta"), 4)
+    assert all(v == 0 for v in LAUNCHES.values())
+    assert not build._libs
+
+
+def test_every_kernel_source_is_built():
+    """Each csrc/*.cu is one library of build.SOURCES (the tensor-core
+    source of bfloat16 K1 and K2 among them)."""
+    import os
+
+    on_disk = {f for f in os.listdir(build.CSRC) if f.endswith(".cu")}
+    assert on_disk == set(build.SOURCES)
+    assert conv3x3.TC_SOURCE in build.SOURCES
+
+
+def test_tensor_core_tile_is_the_kernels_tile():
+    """conv3x3.TC_TILE, which the card tests use for their tile-edge
+    shapes, is the TH x TW output tile that conv3x3_tc.cu computes."""
+    import os
+    import re
+
+    with open(os.path.join(build.CSRC, conv3x3.TC_SOURCE)) as f:
+        src = f.read()
+    th = re.search(r"constexpr int TH = (\d+);", src)
+    tw = re.search(r"constexpr int TW = (\d+);", src)
+    assert conv3x3.TC_TILE == (int(th.group(1)), int(tw.group(1)))
+
+
 def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch):
     """The library name changes with the source, so an edited kernel
     rebuilds instead of loading a stale library."""

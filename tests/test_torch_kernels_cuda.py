@@ -7,6 +7,10 @@ reve_tpu, so it runs on a machine with only PyTorch and the CUDA toolkit:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest
 
+K1 and K2 in bfloat16 run on the tensor cores (csrc/conv3x3_tc.cu, tiles
+of conv3x3.TC_TILE pixels): they are held at the tile edges, ragged and
+whole, and at large activations.
+
 Tolerances: float32 max |d| <= 1e-4 (float32 accumulation order);
 bfloat16 <= 2 bf16 ulp relative (the kernel and the plain version may
 round a float32 sum that differs in its last bits to neighbouring bf16
@@ -55,12 +59,12 @@ def _inputs(seed, B, H, W, cin=64, cout=64):
     }
 
 
-def _close(got, want, name):
+def _close(got, want, name, floor=2.0 ** -10):
     if name == "float32":
         torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
         return
     g, w = got.float(), want.float()
-    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -10)
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(floor)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
     assert bool(((g - w).abs() <= 2 * ulp).all()), (g - w).abs().max()
 
@@ -105,6 +109,74 @@ def test_head_kernel_matches_plain(name, r):
     assert LAUNCHES["head_conv_residual_u8_shuffle"] == before + 1
 
 
+# tile-edge shapes of the tensor-core kernels (conv3x3.TC_TILE = TH x TW):
+# a lone pixel, ragged tiles, one whole tile, one tile plus a row and a
+# column, and a full-width strip of 30 tiles
+TC_SHAPES = [(1, 1), (19, 45), conv3x3.TC_TILE,
+             (conv3x3.TC_TILE[0] + 1, conv3x3.TC_TILE[1] + 1), (8, 1920)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", TC_SHAPES)
+@pytest.mark.parametrize("B", [1, 3])
+def test_tensor_core_k1_matches_plain_at_tile_edges(B, hw):
+    dev = _cuda()
+    d = _inputs(7, B, *hw)
+    x, w = d["x"].to(dev, torch.bfloat16), d["w"].to(dev, torch.bfloat16)
+    b, a = d["b"].to(dev), d["alpha"].to(dev)
+    before = LAUNCHES["conv3x3_bias_prelu"]
+    got = conv3x3.conv3x3_bias_prelu(x, w, b, a)
+    want = conv3x3.conv3x3_bias_prelu_plain(x, w, b, a)
+    torch.cuda.synchronize()
+    assert got.shape == (B, *hw, 64) and got.dtype == torch.bfloat16
+    _close(got, want, "bfloat16")
+    assert LAUNCHES["conv3x3_bias_prelu"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", TC_SHAPES)
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("r", [2, 3, 4])
+def test_tensor_core_k2_matches_plain_at_tile_edges(r, B, hw):
+    dev = _cuda()
+    d = _inputs(10 + r, B, *hw, cout=3 * r * r)
+    h = d["x"].clamp_min(0).to(dev, torch.bfloat16)
+    w, b = d["w"].to(dev, torch.bfloat16), d["b"].to(dev)
+    u8 = d["u8"].to(dev)
+    before = LAUNCHES["head_conv_residual_u8_shuffle"]
+    got = head.head_conv_residual_u8_shuffle(h, w, b, u8, r)
+    want = head.head_conv_residual_u8_shuffle_plain(h, w, b, u8, r)
+    torch.cuda.synchronize()
+    assert got.shape == (B, hw[0] * r, hw[1] * r, 3)
+    assert (got.int() - want.int()).abs().max().item() <= 1
+    assert LAUNCHES["head_conv_residual_u8_shuffle"] == before + 1
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernels_at_large_activations():
+    """Activations up to +-2^8: the float32 epilogues (bias, PReLU, the
+    residual, the u8 clip) see sums far from the usual range."""
+    dev = _cuda()
+    d = _inputs(21, 2, 19, 45)
+    x = ((d["x"] - 0.5) * 2 ** 8).to(dev, torch.bfloat16)
+    w, b, a = d["w"].to(dev, torch.bfloat16), d["b"].to(dev), \
+        d["alpha"].to(dev)
+    # the ulp floor scales with the inputs: a sum of 576 products of
+    # 2^8 times the usual size carries 2^8 times the order noise
+    _close(conv3x3.conv3x3_bias_prelu(x, w, b, a),
+           conv3x3.conv3x3_bias_prelu_plain(x, w, b, a), "bfloat16",
+           floor=2.0 ** -2)
+    dh = _inputs(22, 2, 19, 45, cout=48)
+    wh, bh = dh["w"].to(dev, torch.bfloat16), dh["b"].to(dev)
+    u8 = dh["u8"].to(dev)
+    got = head.head_conv_residual_u8_shuffle(x, wh, bh, u8, 4)
+    want = head.head_conv_residual_u8_shuffle_plain(x, wh, bh, u8, 4)
+    torch.cuda.synchronize()
+    assert (got.int() - want.int()).abs().max().item() <= 1
+    # most outputs clip at 0 or 255 at this range
+    assert ((got == 0) | (got == 255)).float().mean().item() > 0.5
+
+
 @pytest.mark.cuda
 def test_model_kernels_match_plain_path():
     dev = _cuda()
@@ -124,7 +196,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="expected"):
         conv3x3.conv3x3_bias_prelu(x, torch.zeros((3, 3, 32, 64), device=dev),
                                    torch.zeros(64), torch.zeros(64))
+    with pytest.raises(ValueError, match="expected"):
+        conv3x3.conv3x3_bias_prelu(
+            x.to(torch.bfloat16),
+            torch.zeros((3, 3, 32, 64), device=dev, dtype=torch.bfloat16),
+            torch.zeros(64), torch.zeros(64))
     x = torch.zeros((1, 4, 4, 64), device=dev)
+    with pytest.raises(ValueError, match="expected"):
+        head.head_conv_residual_u8_shuffle(
+            x.to(torch.bfloat16),
+            torch.zeros((3, 3, 64, 12), device=dev, dtype=torch.bfloat16),
+            torch.zeros(12), torch.zeros((1, 4, 5, 3), dtype=torch.uint8,
+                                         device=dev), 2)
     with pytest.raises(TypeError):
         conv3x3.conv3x3_bias_prelu(
             x, torch.zeros((3, 3, 64, 64), device=dev, dtype=torch.float16),
