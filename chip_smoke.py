@@ -9,23 +9,28 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               reports them;
   2. build    nvcc builds every kernel of the main path from the sources
               in this checkout (sm_90a), all at once, and prints each
-              library's registers, spills and count of HGMMA (wgmma)
-              instructions in its SASS (cuobjdump); the library of the
-              bfloat16 K1 and K2 must have some;
+              library's registers, spills and count of wgmma instructions
+              in its SASS (cuobjdump: HGMMA for bf16, IGMMA for s8); the
+              libraries of bfloat16 K1/K2, float32 K1 and K4 must have
+              some, and K4's no __dp4a (IDP4A);
   3. kernels  K3, K1 and K2 at the main path's shapes (1080p frames, a
               batch of 4, x4), in bfloat16 (K1 and K2 on the tensor cores,
-              conv3x3_tc.cu) and float32 (CUDA cores): each kernel against
-              its plain PyTorch version on the same inputs (float32:
-              max |d| <= 1e-4, float32 accumulation order; bfloat16: <= 2
-              bf16 ulp relative, the ulp taken at 2^-10 or more; uint8:
-              |d| <= 1), then timed beside the
-              plain version, one cuDNN F.conv2d of the same conv
-              (library_ms; the port never calls it) and the card's bound;
-              The int8 kernels K4a, K4 and K4h at the same shapes, with a
-              QuantizedBody the port's int8 engine calibrates on the
-              smoke's frames, each against its plain version (K4: s8
-              exact; K4a: |d| <= 1 s8 code, its bf16 conv summed in
-              another order than cuDNN's; K4h: |d| <= 1 u8), timed the
+              conv3x3_tc.cu) and float32 (K1 on the tensor cores as six
+              bf16 products, its split pass and conv3x3_f32_tc.cu; K3 and
+              K2 on CUDA cores): each kernel against its plain PyTorch
+              version on the same inputs (float32: max |d| <= 1e-4,
+              float32 accumulation order; bfloat16: <= 2 bf16 ulp
+              relative, the ulp taken at 2^-10 or more; uint8: |d| <= 1;
+              the split pass exact), then timed beside the plain version,
+              one cuDNN F.conv2d of the same conv (library_ms; the port
+              never calls it) and the card's bound (float32 K1: its six
+              bf16 passes at the bf16 rate);
+              The int8 kernels K4a, K4 (s8 wgmma) and K4h at the same
+              shapes, with a QuantizedBody the port's int8 engine
+              calibrates on the smoke's frames, each against its plain
+              version (K4: s8 exact; K4a: |d| <= 1 s8 code, its bf16
+              conv summed in another order than cuDNN's; K4h: |d| <= 1
+              u8), timed the
               same way (library_ms: torch._int_mm of the im2col'd
               product of one frame, x4 frames, the im2col not counted;
               cuDNN bf16 F.conv2d for K4a);
@@ -39,8 +44,9 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               runs with --trace: the phase reports seconds per scheduler
               span and the model's device time as a share of the wall;
   5. int8     the same job with --dtype int8: launch counts must show K4a,
-              K4 (16 per model call) and K4h; output frame 0 is held
-              against the port's plain int8 path on the card, with the
+              K4 (16 per model call) and K4h, and float32 K1 with its
+              split pass (calibration, certification); output frame 0 is
+              held against the port's plain int8 path on the card, with the
               calibration the workspace persisted, at >= 60 dB.  It
               reports the certified int8-vs-f32 dB (reported, not gated:
               the frames are synthetic and the weights self-SR proxies),
@@ -55,8 +61,9 @@ JSON line; any failure exits non-zero (no phase catches and continues):
 The line before the last is nvidia-smi's name and power limit; before
 that, one JSON object {"kernels": [...]} with each kernel's launches on
 its path (main, int8 or probe), error, times, bound and design ("wgmma",
-"mma_sync" or "cuda_cores"; the float32 forms of K1, K2 and K3 nested
-under "float32" with their own source and design).  The last line is
+"wgmma_bf16x6", "mma_sync" or "cuda_cores"; the float32 forms of K1, K2
+and K3 nested under "float32" with their own source, design and launches
+on the int8 path, where they run).  The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -67,6 +74,7 @@ import fractions
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -143,15 +151,19 @@ def bf16_ulp_ok(got, want, ulps: int = 2) -> bool:
     return True
 
 
-def sass_count(lib: str, opcode: str) -> int:
-    """Instructions of `opcode` in a built library's SASS (cuobjdump of
-    the CUDA toolkit whose nvcc built it)."""
+def sass_ops(lib: str) -> dict:
+    """Counts of the wgmma opcodes (HGMMA, IGMMA, ...) and of IDP4A in a
+    built library's SASS (cuobjdump of the CUDA toolkit whose nvcc built
+    it)."""
     from reve_tpu_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib], check=True,
                           capture_output=True, text=True).stdout
-    return sum(opcode in ln for ln in sass.splitlines())
+    ops = {}
+    for m in re.finditer(r"\b([A-Z]GMMA|IDP4A)\b", sass):
+        ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return ops
 
 
 def bound_ms(nbytes: int, flops: int, dtype: str):
@@ -215,6 +227,9 @@ def kernel_phase(params, cfg, frames, out: dict) -> dict:
                 nbytes=px * 3 + px * feat * bpe + w0.numel() * bpe + 2 * feat
                 * 4,
                 flops=2 * 9 * 3 * feat * px),
+            # float32 K1 is six bf16 products on the tensor cores (the
+            # split pass included in its time): bound at six times the
+            # operations at the bf16 rate
             "conv3x3_bias_prelu": dict(
                 kernel=lambda: conv3x3.conv3x3_bias_prelu(
                     x3, w1, c1["b"], a1),
@@ -222,7 +237,9 @@ def kernel_phase(params, cfg, frames, out: dict) -> dict:
                     x3, w1, c1["b"], a1),
                 lib_in=x3.permute(0, 3, 1, 2), lib_w=w1, lib_b=c1["b"],
                 nbytes=2 * px * feat * bpe + w1.numel() * bpe + 2 * feat * 4,
-                flops=2 * 9 * feat * feat * px),
+                flops=2 * 9 * feat * feat * px
+                * (6 if name == "float32" else 1),
+                peak="bfloat16"),
             "head_conv_residual_u8_shuffle": dict(
                 kernel=lambda: head.head_conv_residual_u8_shuffle(
                     x1, wl, cl["b"], u8, r),
@@ -251,7 +268,8 @@ def kernel_phase(params, cfg, frames, out: dict) -> dict:
                 memory_format=torch.channels_last)
             lib_in = c["lib_in"].contiguous(memory_format=torch.channels_last)
             lib_b = c["lib_b"].to(dt)
-            bms, bby = bound_ms(c["nbytes"], c["flops"], name)
+            bms, bby = bound_ms(c["nbytes"], c["flops"],
+                                c.get("peak", name))
             results.setdefault(kname, {})[name] = {
                 "max_abs_err": err,
                 "ms": cuda_time_ms(c["kernel"]),
@@ -262,10 +280,33 @@ def kernel_phase(params, cfg, frames, out: dict) -> dict:
                 "shape": list(got.shape),
             }
             del got, want
+        if name == "float32":
+            results["split_bf16x3"] = split_case(x3)
         del x3, x1
         torch.cuda.empty_cache()
     out["kernels"] = results
     return results
+
+
+def split_case(x):
+    """float32 K1's split pass alone, on K1's input: exact against its
+    plain version; bound by its bytes (4 in, 6 out per value)."""
+    import torch
+
+    from reve_tpu_torch.kernels import conv3x3
+
+    got, want = conv3x3.split_bf16x3(x), conv3x3.split_bf16x3_plain(x)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if err != 0:
+        raise AssertionError(f"split_bf16x3 disagrees with its plain "
+                             f"version (max |d| {err})")
+    bms, bby = bound_ms(x.numel() * 10, 0, "float32")
+    return {"max_abs_err": err,
+            "ms": cuda_time_ms(lambda: conv3x3.split_bf16x3(x)),
+            "plain_ms": cuda_time_ms(lambda: conv3x3.split_bf16x3_plain(x)),
+            "library_ms": None, "bound_ms": bms, "bound_by": bby,
+            "shape": list(got.shape)}
 
 
 def int8_kernel_phase(params, cfg, frames, qb, out: dict) -> dict:
@@ -439,7 +480,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from reve_tpu_torch import cli, kernels
     from reve_tpu_torch.io import reader, writer
-    from reve_tpu_torch.kernels import build, conv3x3
+    from reve_tpu_torch.kernels import build, conv3x3, conv3x3_s8
     from reve_tpu_torch.models import srvgg
     from reve_tpu_torch.pipeline.engine import UpscaleEngine
     from reve_tpu_torch.weights import quantize
@@ -456,17 +497,25 @@ def main() -> int:
 
     with phase("build", {}) as rec:
         info = build.load_all()
-        rec["sources"] = {s: {"seconds": round(v["seconds"], 3),
-                              "cached": v["cached"],
-                              "hgmma": sass_count(v["path"], "HGMMA")}
-                          for s, v in info.items()}
+        rec["sources"] = {}
         for s, v in info.items():
-            print(f"# {s}: HGMMA {rec['sources'][s]['hgmma']} | "
+            ops = sass_ops(v["path"])
+            rec["sources"][s] = {
+                "seconds": round(v["seconds"], 3), "cached": v["cached"],
+                "wgmma": sum(n for k, n in ops.items() if k != "IDP4A"),
+                "sass_ops": ops}
+            print(f"# {s}: {ops} | "
                   + " | ".join(ln.strip() for ln in v["log"].splitlines()
                                if "registers" in ln or "spill" in ln),
                   flush=True)
-        if rec["sources"][conv3x3.TC_SOURCE]["hgmma"] == 0:
-            raise AssertionError(f"{conv3x3.TC_SOURCE}: no HGMMA in its SASS")
+        # bfloat16 K1/K2, float32 K1 and K4 run on wgmma; K4 no longer
+        # on __dp4a
+        for s in (conv3x3.TC_SOURCE, conv3x3.F32_SOURCE,
+                  conv3x3_s8.SOURCE):
+            if rec["sources"][s]["wgmma"] == 0:
+                raise AssertionError(f"{s}: no wgmma in its SASS")
+        if rec["sources"][conv3x3_s8.SOURCE]["sass_ops"].get("IDP4A"):
+            raise AssertionError(f"{conv3x3_s8.SOURCE}: IDP4A in its SASS")
 
     weights = os.path.join(ROOT, "models", "realesr-animevideov3-x4.pth")
     cfg, params = load_srvgg_pth(weights)
@@ -582,8 +631,12 @@ def main() -> int:
                                      f"{(FRAMES, W * SCALE, H * SCALE)}")
             heads = launches["head_conv_s8_residual_u8_shuffle"]
             hidden = launches["conv3x3_s8_dq_prelu_q8"]
+            # calibration and certification run the float32 model: K1
+            # on the tensor cores, each call with its split pass
+            f32_k1 = launches["conv3x3_bias_prelu"]
             if heads < 2 or hidden != cfg.num_conv * heads \
-                    or launches["conv3x3_u8_bias_prelu_q8"] != heads:
+                    or launches["conv3x3_u8_bias_prelu_q8"] != heads \
+                    or f32_k1 == 0 or launches["split_bf16x3"] != f32_k1:
                 raise AssertionError(f"launch counts {launches} do not "
                                      f"show the int8 path's kernels")
             ws8 = os.path.join(work, "out8.y4m.revework")
@@ -637,6 +690,9 @@ def main() -> int:
         "conv3x3_bias_prelu": (
             "reve_tpu_torch/kernels/csrc/conv3x3_tc.cu",
             "reve_tpu/models/srvgg.py:206"),
+        "split_bf16x3": (
+            "reve_tpu_torch/kernels/csrc/conv3x3_f32_tc.cu",
+            "reve_tpu/models/srvgg.py:91"),
         "head_conv_residual_u8_shuffle": (
             "reve_tpu_torch/kernels/csrc/conv3x3_tc.cu",
             "reve_tpu/models/srvgg.py:211"),
@@ -658,37 +714,49 @@ def main() -> int:
     paths = {
         "conv3x3_u8_bias_prelu": ("bfloat16", main_launches),
         "conv3x3_bias_prelu": ("bfloat16", main_launches),
+        "split_bf16x3": ("float32", int8_launches),
         "head_conv_residual_u8_shuffle": ("bfloat16", main_launches),
         "conv3x3_u8_bias_prelu_q8": ("int8", int8_launches),
         "conv3x3_s8_dq_prelu_q8": ("int8", int8_launches),
         "head_conv_s8_residual_u8_shuffle": ("int8", int8_launches),
         "dot_loop": ("int8", {"dot_loop": probe_launches}),
     }
-    # bfloat16 K1 and K2 run on wgmma, P1 on mma.sync, the rest on CUDA
-    # cores; the float32 forms of K3, K1 and K2 are CUDA-core kernels
+    # bfloat16 K1 and K2 and K4 run on wgmma, P1 on mma.sync, the rest
+    # on CUDA cores; of the float32 forms, K1 runs on wgmma as six bf16
+    # products (after its split pass), K3 and K2 on CUDA cores
     designs = {"conv3x3_bias_prelu": "wgmma",
                "head_conv_residual_u8_shuffle": "wgmma",
+               "conv3x3_s8_dq_prelu_q8": "wgmma",
                "dot_loop": "mma_sync"}
-    f32_sources = {
-        "conv3x3_u8_bias_prelu": "reve_tpu_torch/kernels/csrc/conv3x3.cu",
-        "conv3x3_bias_prelu": "reve_tpu_torch/kernels/csrc/conv3x3.cu",
-        "head_conv_residual_u8_shuffle": "reve_tpu_torch/kernels/csrc/head.cu",
+    f32_forms = {
+        "conv3x3_u8_bias_prelu": ("reve_tpu_torch/kernels/csrc/conv3x3.cu",
+                                  "cuda_cores"),
+        "conv3x3_bias_prelu": (
+            "reve_tpu_torch/kernels/csrc/conv3x3_f32_tc.cu",
+            "wgmma_bf16x6"),
+        "head_conv_residual_u8_shuffle": (
+            "reve_tpu_torch/kernels/csrc/head.cu", "cuda_cores"),
     }
     line = []
     for name, (src, replaces) in sources.items():
         dtype, launched = paths[name]
         if name == "dot_loop":
             nums, extra = probe["int8"], {"bfloat16": probe["bf16"]}
+        elif name == "split_bf16x3":
+            nums, extra = results[name], {}
         elif dtype == "bfloat16":
+            f32_src, f32_design = f32_forms[name]
             nums, extra = results[name]["bfloat16"], {
-                "float32": dict(results[name]["float32"],
-                                source=f32_sources[name],
-                                design="cuda_cores")}
+                "float32": dict(results[name]["float32"], source=f32_src,
+                                route="cuda", design=f32_design,
+                                launches=int8_launches[name])}
         else:
             nums, extra = results8[name], {}
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launched[name],
                  "dtype": dtype, "design": designs.get(name, "cuda_cores")}
+        if name == "split_bf16x3":
+            entry["design"] = "elementwise"
         entry.update({k: nums[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")})

@@ -2,6 +2,7 @@
 its plain PyTorch version and a launch counter.
 
     K1  conv3x3.conv3x3_bias_prelu            hidden conv 64->64 + PReLU
+        conv3x3.split_bf16x3                  float32 K1's split pass
     K3  conv3x3.conv3x3_u8_bias_prelu         u8 input + first conv + PReLU
     K2  head.head_conv_residual_u8_shuffle    head conv + residual + u8 +
                                               pixel shuffle
@@ -12,10 +13,12 @@ its plain PyTorch version and a launch counter.
     P1  dot_probe.dot_loop                    tensor-core s8/bf16 dot-rate
                                               probe (not on a model path)
 
-In bfloat16, K1 and K2 run on the tensor cores: one implicit-GEMM `wgmma`
-kernel with two epilogues (csrc/conv3x3_tc.cu).  Their float32 forms stay
-on CUDA cores (csrc/conv3x3.cu, csrc/head.cu), never TF32, to match the
-reference's Precision.HIGHEST; so do K3, K4a, K4 and K4h.
+K1, K2 (bfloat16) and K4 run on the tensor cores as implicit-GEMM `wgmma`
+kernels with TMA halo loads: bfloat16 K1 and K2 in csrc/conv3x3_tc.cu,
+float32 K1 in csrc/conv3x3_f32_tc.cu (its operands split into three bf16
+parts, six products summed: float32 accuracy, never TF32, to match the
+reference's Precision.HIGHEST), K4 on s8 wgmma in csrc/conv3x3_s8.cu.
+float32 K2, K3, K4a and K4h run on CUDA cores.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback.  `LAUNCHES` counts
@@ -28,6 +31,7 @@ from __future__ import annotations
 #: kernel name -> launches since the last reset_launches()
 LAUNCHES = {
     "conv3x3_bias_prelu": 0,
+    "split_bf16x3": 0,
     "conv3x3_u8_bias_prelu": 0,
     "head_conv_residual_u8_shuffle": 0,
     "conv3x3_s8_dq_prelu_q8": 0,

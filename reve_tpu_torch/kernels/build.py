@@ -3,7 +3,7 @@
 Each `csrc/*.cu` source is compiled by `nvcc` for sm_90a into its own
 shared library with a plain C interface, loaded with ctypes.  The build
 goes into `reve_tpu_torch/kernels/build/` on first use, keyed by a hash
-of the source, the shared header and the flags, so an edited source
+of the source, the shared headers and the flags, so an edited source
 rebuilds and an unchanged one loads in milliseconds.  All sources are
 compiled at once (one `nvcc` process each, started together).
 
@@ -25,9 +25,9 @@ from typing import Dict, List
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 #: one shared library per source
-SOURCES = ("conv3x3.cu", "conv3x3_tc.cu", "head.cu", "conv3x3_s8.cu",
-           "dot_probe.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("conv3x3.cu", "conv3x3_tc.cu", "conv3x3_f32_tc.cu", "head.cu",
+           "conv3x3_s8.cu", "dot_probe.cu")
+HEADERS = ("common.cuh", "tc.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]

@@ -1,4 +1,5 @@
-"""K1 `conv3x3_bias_prelu`, K3 `conv3x3_u8_bias_prelu` and K4a
+"""K1 `conv3x3_bias_prelu` (csrc/conv3x3_tc.cu in bfloat16,
+csrc/conv3x3_f32_tc.cu in float32), K3 `conv3x3_u8_bias_prelu` and K4a
 `conv3x3_u8_bias_prelu_q8` (csrc/conv3x3.cu).
 
 K1 replaces the hidden layers of reve_tpu/models/srvgg.py:apply
@@ -12,10 +13,12 @@ to the s8 input of the first int8 hidden conv.
 
 Bound per 1080p frame on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): K1
 152.9 GFLOP -> 0.155 ms and 531 MB -> 0.158 ms (bf16); K3 7.2 GFLOP,
-6 MB in + 265 MB out -> 0.08 ms.  bfloat16 K1 is an implicit GEMM on the
-tensor cores (wgmma, csrc/conv3x3_tc.cu); float32 K1, K3 and K4a are
-direct convs on CUDA cores (csrc/conv3x3.cu), float32 never in TF32.
-`bound_ms` in chip_smoke.py is computed from each run's own shapes.
+6 MB in + 265 MB out -> 0.08 ms.  K1 is an implicit GEMM on the tensor
+cores (wgmma): in bfloat16 directly (csrc/conv3x3_tc.cu); in float32 as
+six bf16 products of its operands split in three (`split_bf16x3`, then
+csrc/conv3x3_f32_tc.cu), which keeps float32 accuracy and is never TF32.
+K3 and K4a are direct convs on CUDA cores (csrc/conv3x3.cu).  `bound_ms`
+in chip_smoke.py is computed from each run's own shapes.
 
 Rounding points follow the JAX reference exactly: weights in the compute
 dtype, float32 accumulation, + bias in float32, cast to the compute
@@ -35,6 +38,8 @@ from reve_tpu_torch.kernels import LAUNCHES, build
 SOURCE = "conv3x3.cu"
 #: bfloat16 K1 and K2 on the tensor cores
 TC_SOURCE = "conv3x3_tc.cu"
+#: float32 K1 on the tensor cores (bf16x6) and its split pass
+F32_SOURCE = "conv3x3_f32_tc.cu"
 #: (rows, columns) of those kernels' output tile (TH, TW in TC_SOURCE)
 TC_TILE = (4, 64)
 FEAT = 64
@@ -84,6 +89,26 @@ def quant_s8_plain(x: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
 
 def conv3x3_u8_bias_prelu_q8_plain(u8, w, b, alpha, inv) -> torch.Tensor:
     return quant_s8_plain(conv3x3_u8_bias_prelu_plain(u8, w, b, alpha), inv)
+
+
+def split_bf16x3_plain(x: torch.Tensor) -> torch.Tensor:
+    """float32 x -> (3, *x.shape) bfloat16 (hi, mid, lo): hi = bf16(x),
+    mid = bf16(x - hi), lo = bf16(x - hi - mid).  Each subtraction is
+    exact in float32, so hi + mid + lo == x."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return torch.stack([hi, mid, (r - mid.float()).to(torch.bfloat16)])
+
+
+def pack_weights_bf16x3(w: torch.Tensor) -> torch.Tensor:
+    """float32 HWIO (3, 3, 64, 64) -> the weights float32 K1 streams, tap
+    by tap: (9, 3, 8, 64, 8) bfloat16 [tap][split][k / 8][n][8], with
+    packed[t, s, kb, n, kk] = split_bf16x3(w)[s, t // 3, t % 3, 8 kb + kk,
+    n] (B K-major in core matrices of 8 rows x 16 B)."""
+    s = split_bf16x3_plain(w).reshape(3, 9, FEAT // 8, 8, FEAT)
+    return s.permute(1, 0, 2, 4, 3).contiguous()
 
 
 # -- kernel wrappers ----------------------------------------------------------
@@ -151,10 +176,58 @@ def _launch(entry: str, x, w, b, alpha, inv=None,
     return y
 
 
+def split_bf16x3(x: torch.Tensor) -> torch.Tensor:
+    """The split pass of float32 K1: (..., 64) float32 -> (3, ..., 64)
+    bfloat16 planes hi, mid, lo (see split_bf16x3_plain)."""
+    if x.device.type == "cpu":
+        return split_bf16x3_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"tensor on {x.device}: the kernel takes CUDA "
+                         f"tensors (CPU tensors take the plain version)")
+    if x.dtype != torch.float32:
+        raise TypeError(f"split_bf16x3 takes float32, got {x.dtype}")
+    if x.numel() % 8:
+        raise ValueError(f"split_bf16x3 takes a multiple of 8 values, got "
+                         f"{x.numel()}")
+    check_operands(x)
+    out = torch.empty((3, *x.shape), dtype=torch.bfloat16, device=x.device)
+    lib = build.load(F32_SOURCE)
+    fn = lib.reve_split_bf16x3
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), out.data_ptr(), x.numel(),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "split_bf16x3")
+    LAUNCHES["split_bf16x3"] += 1
+    return out
+
+
+def _launch_f32tc(x, w, b, alpha) -> torch.Tensor:
+    """float32 K1: the split pass, then the bf16x6 conv on its planes."""
+    B, H, W, _ = x.shape
+    planes = split_bf16x3(x)
+    wp = pack_weights_bf16x3(w)
+    bb = f32_operand(b, FEAT, x.device, "bias")
+    aa = f32_operand(alpha, FEAT, x.device, "alpha")
+    y = torch.empty((B, H, W, FEAT), dtype=torch.float32, device=x.device)
+    lib = build.load(F32_SOURCE)
+    fn = lib.reve_conv3x3_bias_prelu_f32tc
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(planes.data_ptr(), wp.data_ptr(), bb.data_ptr(), aa.data_ptr(),
+             y.data_ptr(), B, H, W,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "conv3x3_bias_prelu (float32)")
+    return y
+
+
 def conv3x3_bias_prelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                        alpha: torch.Tensor) -> torch.Tensor:
     """K1: (B, H, W, 64) x (3, 3, 64, 64) HWIO in the compute dtype ->
-    PReLU(dtype(conv + b)) (B, H, W, 64) in the compute dtype."""
+    PReLU(dtype(conv + b)) (B, H, W, 64) in the compute dtype.  float32
+    launches two kernels: the split pass and the bf16x6 conv."""
     if x.device.type == "cpu":
         return conv3x3_bias_prelu_plain(x, w, b, alpha)
     _check(x, w, FEAT, w.dtype)
@@ -162,7 +235,7 @@ def conv3x3_bias_prelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         y = _launch("reve_conv3x3_bias_prelu_tc", x, w, b, alpha,
                     source=TC_SOURCE)
     else:
-        y = _launch("reve_conv3x3_bias_prelu", x, w, b, alpha)
+        y = _launch_f32tc(x, w, b, alpha)
     LAUNCHES["conv3x3_bias_prelu"] += 1
     return y
 

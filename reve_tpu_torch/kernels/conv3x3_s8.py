@@ -9,8 +9,9 @@ s8 input (:279-288), which XLA fused into one conv on the TPU.
 
 Bound per call of 4 1080p frames on an H100 SXM (1979 TOP/s s8 dense,
 3.35 TB/s): 611.5 GOP -> 0.31 ms; 1.06 GB of s8 in + out -> 0.32 ms.  The
-kernel is a first direct-conv form with __dp4a on CUDA cores (see the .cu
-header).
+kernel is an implicit GEMM on s8 `wgmma` (m64n64k32) with TMA halo loads
+(see the .cu header); the wrapper packs the weights for it
+(`pack_weights_s8`).
 
 The integer accumulation is exact, so the kernel is bit-exact against its
 plain version.  CUDA has no integer conv in torch, so the plain version
@@ -58,6 +59,14 @@ def conv3x3_s8_dq_prelu_q8_plain(x8, w8, scale, b, alpha,
         inv_next).contiguous()
 
 
+def pack_weights_s8(w8: torch.Tensor) -> torch.Tensor:
+    """s8 HWIO (3, 3, 64, 64) -> the kernel's resident weights: (9, 4, 64,
+    16) int8 [tap][k / 16][n][16], packed[t, kb, n, kk] = w8[t // 3, t % 3,
+    16 kb + kk, n] (B K-major in core matrices of 8 rows x 16 B)."""
+    return w8.reshape(9, FEAT // 16, 16, FEAT).permute(0, 1, 3, 2) \
+        .contiguous()
+
+
 # -- kernel wrapper -----------------------------------------------------------
 
 
@@ -96,7 +105,8 @@ def conv3x3_s8_dq_prelu_q8(x8: torch.Tensor, w8: torch.Tensor,
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(x8.data_ptr(), w8.data_ptr(), ss.data_ptr(), bb.data_ptr(),
+    wp = pack_weights_s8(w8)
+    err = fn(x8.data_ptr(), wp.data_ptr(), ss.data_ptr(), bb.data_ptr(),
              aa.data_ptr(), inv.data_ptr(), y.data_ptr(), B, H, W,
              torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "conv3x3_s8_dq_prelu_q8")

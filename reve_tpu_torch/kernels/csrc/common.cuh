@@ -1,7 +1,8 @@
 // Shared helpers for the SRVGG conv kernels (sm_90a, plain C interface).
 //
-// Every kernel accumulates in float32 (fmaf on CUDA cores, or the tensor
-// cores' float32 accumulators for bf16 operands; never TF32), and rounds
+// Every float kernel accumulates in float32 (fmaf on CUDA cores, or the
+// tensor cores' float32 accumulators for bf16 operands, float32 values as
+// three bf16 parts; never TF32), every s8 kernel exactly in s32, and rounds
 // to the storage type exactly where reve_tpu/models/srvgg.py rounds: the
 // conv output (acc + bias, float32) is cast to the compute dtype, PReLU
 // runs in the compute dtype, and the residual epilogue runs in float32.

@@ -1,33 +1,28 @@
-// K1 conv3x3_bias_prelu and K3 conv3x3_u8_bias_prelu: SAME 3x3 conv,
-// NHWC x HWIO -> NHWC, float32 accumulation, + bias (float32), cast to the
-// compute dtype, PReLU in the compute dtype.  K4a conv3x3_u8_bias_prelu_q8
-// is K3 with an s8 output: the PReLU result is quantized in the epilogue,
+// K3 conv3x3_u8_bias_prelu: SAME 3x3 conv of the u8 frames, NHWC x HWIO ->
+// NHWC, float32 accumulation, + bias (float32), cast to the compute dtype,
+// PReLU in the compute dtype.  K4a conv3x3_u8_bias_prelu_q8 is K3 with an
+// s8 output: the PReLU result is quantized in the epilogue,
 // clip(round(float32(h) * inv), -127, 127), inv = 1 / act_scale[0].
 //
 // Replaces (TPU side): the XLA-fused conv graph of
-//   K1  reve_tpu/models/srvgg.py:_conv3x3 + _prelu (srvgg.py:88-113), the
-//       16 hidden 64->64 layers of apply (srvgg.py:205-210);
 //   K3  the u8 -> float32 * (1/255) -> compute-dtype cast of the engine
 //       (reve_tpu/pipeline/engine.py:645, srvgg.py:154) fused with the first
 //       3->64 conv + PReLU (srvgg.py:203-204).
 //   K4a the int8 path's first conv + PReLU + _quant_s8 (srvgg.py:376-379).
+// (K1, the hidden 64->64 conv, runs on the tensor cores: conv3x3_tc.cu in
+// bfloat16, conv3x3_f32_tc.cu in float32.)
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16 tensor, 3.35 TB/s), per 1080p
-// frame: K1 152.9 GFLOP -> 0.155 ms, 531 MB of bf16 in + out -> 0.158 ms;
-// K3 7.2 GFLOP, 6 MB in + 265 MB out -> 0.08 ms (bytes); K4a writes s8,
-// 6 MB in + 133 MB out -> 0.04 ms per frame (bytes).
+// Bound on an H100 SXM (3.35 TB/s), per 1080p frame: K3 7.2 GFLOP, 6 MB
+// in + 265 MB out -> 0.08 ms (bytes); K4a writes s8, 6 MB in + 133 MB out
+// -> 0.04 ms per frame (bytes).
 //
 // Design (a first, simple form): a direct conv on CUDA cores with fmaf,
 // never TF32, so float32 matches the JAX reference's Precision.HIGHEST.
-// Its own ceiling is the ~67 TFLOP/s float32 FMA rate, not the tensor
-// cores.  K1 here is the float32 form only: bfloat16 K1 runs on the tensor
-// cores (conv3x3_tc.cu).  Each block is persistent: it converts
-// the 9*Cin*64 weights to float32 in dynamic shared memory once (147 KB
-// for 64->64), then walks output tiles of TH x 32 pixels.  A tile plus its
-// 1-pixel halo is staged in shared memory in the compute dtype (the cast
-// of K3's u8 input happens there), with an odd per-pixel word stride so
-// the 8 pixels a warp reads at once hit distinct banks.  Each thread owns
-// 4 pixels x 16 output channels (64 float32 accumulators).
+// Each block is persistent: it converts the 9*3*64 weights to float32 in
+// shared memory once, then walks output tiles of TH x 32 pixels.  A tile
+// plus its 1-pixel halo is staged in shared memory in the compute dtype
+// (the cast of the u8 input happens there).  Each thread owns 4 pixels x
+// 16 output channels (64 float32 accumulators).
 #include <type_traits>
 
 #include "common.cuh"
@@ -42,11 +37,11 @@ constexpr int COUT = 64;
 constexpr int TW = 32;   // tile width in pixels
 constexpr int PIX = 4;   // pixels per thread: columns pl, pl+8, pl+16, pl+24
 constexpr int CPT = 16;  // output channels per thread
+constexpr int CIN = 3;   // the u8 frames' channels
 
-template <typename TIn, typename T, int CIN, int TH>
+template <typename T, int TH>
 struct Conv {
-  // shared-memory pixel stride in elements of T: odd in 32-bit words
-  static constexpr int SP = CIN == 64 ? 65 : CIN;
+  static constexpr int SP = CIN;  // shared-memory pixel stride
   static constexpr int THREADS = TH * 32;
   static constexpr int W_FLOATS = 9 * CIN * COUT;
   static constexpr size_t SMEM = (size_t)(W_FLOATS + 2 * COUT) * sizeof(float)
@@ -54,15 +49,16 @@ struct Conv {
 };
 
 // TOut is T, or int8_t for K4a (then `inv` points at 1 / act_scale[0])
-template <typename TIn, typename T, typename TOut, int CIN, int TH>
+template <typename T, typename TOut, int TH>
 __global__ void __launch_bounds__(TH * 32, 1)
-conv3x3_bias_prelu_kernel(const TIn* __restrict__ x, const T* __restrict__ w,
-                          const float* __restrict__ bias,
-                          const float* __restrict__ alpha,
-                          const float* __restrict__ inv,
-                          TOut* __restrict__ y, int B, int H, int W) {
+conv3x3_u8_bias_prelu_kernel(const uint8_t* __restrict__ x,
+                             const T* __restrict__ w,
+                             const float* __restrict__ bias,
+                             const float* __restrict__ alpha,
+                             const float* __restrict__ inv,
+                             TOut* __restrict__ y, int B, int H, int W) {
   constexpr bool Q8 = std::is_same<TOut, int8_t>::value;
-  using C = Conv<TIn, T, CIN, TH>;
+  using C = Conv<T, TH>;
   constexpr int SP = C::SP;
   extern __shared__ __align__(16) unsigned char smem[];
   float* ws = reinterpret_cast<float*>(smem);  // [9][CIN][COUT]
@@ -92,37 +88,17 @@ conv3x3_bias_prelu_kernel(const TIn* __restrict__ x, const T* __restrict__ w,
     const int x0 = (rem % tiles_x) * TW;
 
     __syncthreads();  // the previous tile's reads of xs are done
-    if constexpr (CIN == 64) {
-      constexpr int EPV = 16 / sizeof(T);  // elements per 16-byte vector
-      constexpr int VPP = CIN / EPV;       // vectors per pixel
-      constexpr int NV = (TH + 2) * (TW + 2) * VPP;
-      for (int i = tid; i < NV; i += C::THREADS) {
-        const int pix = i / VPP, v = i - pix * VPP;
-        const int r = pix / (TW + 2), c = pix - r * (TW + 2);
-        const int gy = y0 - 1 + r, gx = x0 - 1 + c;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-          val = __ldg(reinterpret_cast<const uint4*>(
-                          x + (((long long)b * H + gy) * W + gx) * CIN) + v);
-        uint32_t* dst = reinterpret_cast<uint32_t*>(xs + pix * SP + v * EPV);
-        dst[0] = val.x;
-        dst[1] = val.y;
-        dst[2] = val.z;
-        dst[3] = val.w;
-      }
-    } else {
-      // u8 input: x = dtype(float32(u8) * float32(1/255)); zero padding
-      constexpr int NE = (TH + 2) * (TW + 2) * CIN;
-      for (int i = tid; i < NE; i += C::THREADS) {
-        const int pix = i / CIN, ch = i - pix * CIN;
-        const int r = pix / (TW + 2), c = pix - r * (TW + 2);
-        const int gy = y0 - 1 + r, gx = x0 - 1 + c;
-        float v = 0.f;
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-          v = reve::u8_to_unit(
-              x[(((long long)b * H + gy) * W + gx) * CIN + ch]);
-        xs[pix * SP + ch] = from_float<T>(v);
-      }
+    // u8 input: x = dtype(float32(u8) * float32(1/255)); zero padding
+    constexpr int NE = (TH + 2) * (TW + 2) * CIN;
+    for (int i = tid; i < NE; i += C::THREADS) {
+      const int pix = i / CIN, ch = i - pix * CIN;
+      const int r = pix / (TW + 2), c = pix - r * (TW + 2);
+      const int gy = y0 - 1 + r, gx = x0 - 1 + c;
+      float v = 0.f;
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+        v = reve::u8_to_unit(
+            x[(((long long)b * H + gy) * W + gx) * CIN + ch]);
+      xs[pix * SP + ch] = from_float<T>(v);
     }
     __syncthreads();
 
@@ -185,12 +161,12 @@ conv3x3_bias_prelu_kernel(const TIn* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename TIn, typename T, int CIN, int TH, typename TOut = T>
+template <typename T, int TH, typename TOut = T>
 cudaError_t launch(const void* x, const void* w, const float* b,
                    const float* a, void* y, int B, int H, int W,
                    cudaStream_t stream, const float* inv = nullptr) {
-  using C = Conv<TIn, T, CIN, TH>;
-  auto kernel = conv3x3_bias_prelu_kernel<TIn, T, TOut, CIN, TH>;
+  using C = Conv<T, TH>;
+  auto kernel = conv3x3_u8_bias_prelu_kernel<T, TOut, TH>;
   const long long tiles =
       (long long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
   if (tiles == 0) return cudaSuccess;
@@ -199,35 +175,23 @@ cudaError_t launch(const void* x, const void* w, const float* b,
       reve::persistent_grid(kernel, C::THREADS, C::SMEM, tiles, &grid);
   if (err != cudaSuccess) return err;
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
-      static_cast<const TIn*>(x), static_cast<const T*>(w), b, a, inv,
+      static_cast<const uint8_t*>(x), static_cast<const T*>(w), b, a, inv,
       static_cast<TOut*>(y), B, H, W);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; K1 takes float32 only here (its
-// bfloat16 form is conv3x3_tc.cu's).  Returns a cudaError_t (0 = success).
-extern "C" int reve_conv3x3_bias_prelu(const void* x, const void* w,
-                                       const float* b, const float* alpha,
-                                       void* y, int B, int H, int W,
-                                       int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float, float, 64, 4>(x, w, b, alpha, y, B, H, W, s);
-  return (int)cudaErrorInvalidValue;
-}
-
+// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = success).
 extern "C" int reve_conv3x3_u8_bias_prelu(const void* x, const void* w,
                                           const float* b, const float* alpha,
                                           void* y, int B, int H, int W,
                                           int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch<uint8_t, __nv_bfloat16, 3, 8>(x, w, b, alpha, y, B, H, W,
-                                                s);
+    return launch<__nv_bfloat16, 8>(x, w, b, alpha, y, B, H, W, s);
   if (dtype == 0)
-    return launch<uint8_t, float, 3, 8>(x, w, b, alpha, y, B, H, W, s);
+    return launch<float, 8>(x, w, b, alpha, y, B, H, W, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -241,10 +205,9 @@ extern "C" int reve_conv3x3_u8_bias_prelu_q8(const void* x, const void* w,
                                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch<uint8_t, __nv_bfloat16, 3, 8, int8_t>(x, w, b, alpha, y, B,
-                                                        H, W, s, inv);
+    return launch<__nv_bfloat16, 8, int8_t>(x, w, b, alpha, y, B, H, W, s,
+                                            inv);
   if (dtype == 0)
-    return launch<uint8_t, float, 3, 8, int8_t>(x, w, b, alpha, y, B, H, W, s,
-                                                inv);
+    return launch<float, 8, int8_t>(x, w, b, alpha, y, B, H, W, s, inv);
   return (int)cudaErrorInvalidValue;
 }

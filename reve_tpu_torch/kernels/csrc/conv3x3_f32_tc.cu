@@ -1,0 +1,310 @@
+// K1 conv3x3_bias_prelu in float32, on the tensor cores as a six-pass
+// bf16 product ("bf16x6"), and its split pass.
+//
+// Replaces (TPU side): reve_tpu/models/srvgg.py:_conv3x3 at float32 with
+// Precision.HIGHEST (srvgg.py:91-107) + _prelu, the 16 hidden 64->64
+// layers of apply (srvgg.py:205-210): float32 accumulation, + b in
+// float32, PReLU in float32 with float32 alpha.  The int8 path's float32
+// calibration and certification passes run it too.
+//
+// Scheme.  Each float32 value splits into three bf16 parts, hi = bf16(x),
+// mid = bf16(x - hi), lo = bf16(x - hi - mid): each subtraction is exact
+// in float32, so hi + mid + lo carries all 24 bits of x.  The conv sums
+// the six products that matter, hi.hi, hi.mid, mid.hi, hi.lo, lo.hi and
+// mid.mid (those left out are below 2^-24 of the result), on bf16 wgmma
+// with float32 accumulators; a bf16 x bf16 product is exact in float32.
+// That is how XLA computes a float32 Precision.HIGHEST product on the TPU.
+// It is not TF32 (10 mantissa bits).  The tensor cores add in their own
+// order and may truncate where IEEE addition rounds, so hi.hi accumulates
+// in one register set and the five smaller products in another, added in
+// float32 in the epilogue: the large sum takes 36 truncating steps, not
+// 216.  The result is within 1e-4 of the plain float32 conv, not
+// bit-exact.
+//
+// Bound on an H100 SXM per call of 4 1080p frames: 6 x 611.5 GFLOP /
+// 989 TFLOP/s = 3.71 ms (operations); float32 in + out 4.25 GB -> 1.27 ms.
+// The CUDA-core form it replaces was bound at 9.13 ms (67 TFLOP/s).
+//
+// Design.
+//  * split_bf16x3: an elementwise pass, float32 NHWC -> three bf16 NHWC
+//    planes (3, B, H, W, 64), 8 values a thread (two 16-B loads, three
+//    16-B stores).  4 B in and 6 B out per value: 5.3 GB per call, 1.6 ms
+//    at the card's bandwidth.  The wrapper launches it, then the conv.
+//  * The conv is conv3x3_tc.cu's implicit GEMM (M = 64 pixels of a row,
+//    N = 64, K = 576 as 9 taps x 4 k16 steps), six wgmmas a step.  The
+//    three planes' halos ((4+2) x (64+2) pixels, 128-B swizzle, three TMA
+//    copies of one tensor map over the planes) take 153,600 B and are
+//    single-buffered: the next tile's halo loads while this tile's
+//    epilogue runs.  The weights' three splits (221,184 B) cannot stay
+//    resident beside them, so they stream tap by tap (24,576 B: the
+//    tap's three splits, [split][k / 8][n][8], packed by the wrapper)
+//    through a ring of three stages by bulk copies; all of them stay in
+//    L2.  A producer warp issues every copy, so the four warpgroups run
+//    no branch between a wgmma and its wait (ptxas serialises wgmmas that
+//    straddle one, C7518) and the taps' wgmmas overlap.
+//  * The epilogue writes float32 straight from the accumulator fragment
+//    (8-B stores, whole 32-B sectors), with the reference's rounding:
+//    __fadd_rn for + b, __fmul_rn for PReLU.
+#include "tc.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using namespace reve::tc;
+
+constexpr int CIN = 64, COUT = 64;
+constexpr int TH = 4;   // tile rows, one warpgroup each
+constexpr int TW = 64;  // tile columns: the M of one wgmma
+constexpr int THREADS = 128 * TH + 32;  // + the producer warp
+constexpr int PLANES = 3;  // hi, mid, lo
+constexpr int HALO_TX = (TH + 2) * (TW + 2) * CIN * 2;  // one plane's copy
+constexpr int HALO_BYTES = (HALO_TX + 1023) / 1024 * 1024;  // 1024-B aligned
+constexpr int SPLIT_BYTES = CIN * COUT * 2;  // one tap's weights, one split
+constexpr int TAP_BYTES = PLANES * SPLIT_BYTES;
+constexpr int STAGES = 3;  // weight ring
+constexpr size_t OFF_W = (size_t)PLANES * HALO_BYTES;
+constexpr size_t OFF_PAR = OFF_W + (size_t)STAGES * TAP_BYTES;  // bias, alpha
+constexpr size_t OFF_BAR = OFF_PAR + 2 * COUT * sizeof(float);
+// barriers: halo full, halo empty, then STAGES full, then STAGES empty
+constexpr size_t SMEM = OFF_BAR + (2 + 2 * STAGES) * sizeof(uint64_t);
+static_assert(SMEM <= 232448, "more shared memory than a block may have");
+using Grid = TileGrid<TH, TW>;
+
+// Six wgmmas of one k16 step: `a` is the hi plane's A operand (mid and lo
+// one and two halo buffers later), `w` the stage's hi weights (mid and lo
+// SPLIT_BYTES and 2 * SPLIT_BYTES later).  hi.hi into `acc`, the five
+// smaller products into `cor`, smallest first.
+__device__ __forceinline__ void mma_bf16x6(float (&acc)[32], float (&cor)[32],
+                                           uint32_t a, uint32_t w) {
+  const uint64_t ah = desc_sw128(a), am = desc_sw128(a + HALO_BYTES),
+                 al = desc_sw128(a + 2 * HALO_BYTES);
+  const uint64_t bh = desc(w, COUT * 16),
+                 bm = desc(w + SPLIT_BYTES, COUT * 16),
+                 bl = desc(w + 2 * SPLIT_BYTES, COUT * 16);
+  Wgmma<64>::mma(cor, al, bh);
+  Wgmma<64>::mma(cor, ah, bl);
+  Wgmma<64>::mma(cor, am, bm);
+  Wgmma<64>::mma(cor, am, bh);
+  Wgmma<64>::mma(cor, ah, bm);
+  Wgmma<64>::mma(acc, ah, bh);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+conv3x3_f32_tc_kernel(const __grid_constant__ CUtensorMap map,
+                      const bf16* __restrict__ w,
+                      const float* __restrict__ bias,
+                      const float* __restrict__ alpha,
+                      float* __restrict__ y, int B, int H, int W) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, t = tid & 127;  // warpgroup = tile row
+
+  float* bs = reinterpret_cast<float*>(smem + OFF_PAR);
+  float* as = bs + COUT;
+  for (int i = tid; i < COUT; i += THREADS) {
+    bs[i] = bias[i];
+    as[i] = alpha[i];
+  }
+  const uint32_t halo_full = base + (uint32_t)OFF_BAR;
+  const uint32_t halo_empty = halo_full + 8;
+  const uint32_t w_full = halo_full + 16;
+  const uint32_t w_empty = w_full + 8 * STAGES;
+  if (tid == 0) {
+    mbar_init(halo_full, 1);
+    mbar_init(halo_empty, TH);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(w_full + 8 * s, 1);
+      mbar_init(w_empty + 8 * s, TH);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const Grid g(B, H, W);
+
+  if (wg == TH) {
+    // The producer warp: one thread issues every copy, in the order the
+    // warpgroups free the buffers.  Tap gi (the block's gi-th weight
+    // stage, tap gi % 9 of its tile gi / 9) waits for the warpgroups to
+    // release tap gi - STAGES; a tile's halo, issued after its tap 0's
+    // weights, waits for them to finish the tile before.
+    if (t != 0) return;
+    auto load_halo = [&](long long tile) {
+      int b, y0, x0;
+      g.origin(tile, b, y0, x0);
+      mbar_expect_tx(halo_full, PLANES * HALO_TX);
+      for (int q = 0; q < PLANES; ++q)
+        tma_load_4d(base + q * HALO_BYTES, &map, halo_full, 0, x0 - 1,
+                    y0 - 1, q * B + b);
+    };
+    const long long tiles =
+        (g.count - blockIdx.x + gridDim.x - 1) / gridDim.x;
+    load_halo(blockIdx.x);  // the grid never exceeds the tile count
+    for (long long gi = 0; gi < 9 * tiles; ++gi) {
+      const int s = (int)(gi % STAGES);
+      if (gi >= STAGES)
+        mbar_wait(w_empty + 8 * s, (uint32_t)((gi / STAGES - 1) & 1));
+      mbar_expect_tx(w_full + 8 * s, TAP_BYTES);
+      bulk_load(base + (uint32_t)(OFF_W + s * TAP_BYTES),
+                w + (gi % 9) * (TAP_BYTES / 2), TAP_BYTES, w_full + 8 * s);
+      if (gi % 9 == 0 && gi > 0) {
+        const long long it = gi / 9;
+        mbar_wait(halo_empty, (uint32_t)((it - 1) & 1));
+        load_halo(blockIdx.x + it * gridDim.x);
+      }
+    }
+    return;
+  }
+
+  // The warpgroups: no branch between a wgmma and its wait (the releases
+  // are predicated arrivals), so the wgmmas of consecutive taps overlap.
+  const int lane = t & 31;
+  const int p0 = (t >> 5) * 16 + (lane >> 2), c0 = (lane & 3) * 2;
+  long long tile = blockIdx.x;
+  for (long long it = 0; tile < g.count; tile += gridDim.x, ++it) {
+    int b, y0, x0;
+    g.origin(tile, b, y0, x0);
+    mbar_wait(halo_full, (uint32_t)(it & 1));
+    float acc[32], cor[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = cor[i] = 0.f;
+    const uint32_t a_row = base + wg * (TW + 2) * CIN * 2;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const long long gi = it * 9 + tap;
+      const int s = (int)(gi % STAGES);
+      mbar_wait(w_full + 8 * s, (uint32_t)((gi / STAGES) & 1));
+      const uint32_t a = a_row + ((tap / 3) * (TW + 2) + tap % 3) * CIN * 2;
+      const uint32_t ws = base + (uint32_t)(OFF_W + s * TAP_BYTES);
+      fence_regs(acc);
+      fence_regs(cor);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < CIN / 16; ++kc)
+        mma_bf16x6(acc, cor, a + kc * 32, ws + 2 * kc * COUT * 16);
+      wgmma_commit();
+      fence_regs(acc);
+      fence_regs(cor);
+      // the previous tap's wgmmas are done: release its stage
+      if (tap < 8) {
+        wgmma_wait<1>();
+        if (tap > 0)
+          mbar_arrive_if(w_empty + 8 * (int)((gi - 1) % STAGES), t == 0);
+      } else {
+        wgmma_wait<0>();
+        mbar_arrive_if(w_empty + 8 * (int)((gi - 1) % STAGES), t == 0);
+        mbar_arrive_if(w_empty + 8 * s, t == 0);
+        mbar_arrive_if(halo_empty, t == 0);  // the halo may be refilled
+      }
+    }
+    fence_regs(acc);
+    fence_regs(cor);
+
+    // accumulator fragment: register 4j + 2h + e holds pixel
+    // 16 * warp + lane / 4 + 8h, channel 8j + 2 * (lane % 4) + e
+    const int oy = y0 + wg;
+    if (oy < H) {
+      float* yr = y + ((long long)b * H + oy) * W * COUT;
+#pragma unroll
+      for (int j = 0; j < COUT / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = p0 + 8 * h, c = 8 * j + c0;
+          if (x0 + p >= W) continue;
+          // conv + b in float32; PReLU in float32:
+          // max(v, 0) + alpha * min(v, 0)
+          float v0 = __fadd_rn(
+              __fadd_rn(acc[4 * j + 2 * h], cor[4 * j + 2 * h]), bs[c]);
+          float v1 = __fadd_rn(
+              __fadd_rn(acc[4 * j + 2 * h + 1], cor[4 * j + 2 * h + 1]),
+              bs[c + 1]);
+          v0 = v0 > 0.f ? v0 : __fmul_rn(as[c], v0);
+          v1 = v1 > 0.f ? v1 : __fmul_rn(as[c + 1], v1);
+          *reinterpret_cast<float2*>(yr + (long long)(x0 + p) * COUT + c) =
+              make_float2(v0, v1);
+        }
+    }
+  }
+}
+
+// Split two float32 values into their bf16 hi, mid and lo pairs.
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = __fsub_rn(v0, hf.x), r1 = __fsub_rn(v1, hf.y);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(__fsub_rn(r0, mf.x), __fsub_rn(r1, mf.y));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// n8 groups of 8 float32 values -> three planes of n8 groups of 8 bf16.
+__global__ void __launch_bounds__(256)
+split_bf16x3_kernel(const float4* __restrict__ x, uint4* __restrict__ out,
+                    long long n8) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n8;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float4 a = x[2 * i], c = x[2 * i + 1];
+    uint4 h, m, l;
+    split2(a.x, a.y, h.x, m.x, l.x);
+    split2(a.z, a.w, h.y, m.y, l.y);
+    split2(c.x, c.y, h.z, m.z, l.z);
+    split2(c.z, c.w, h.w, m.w, l.w);
+    out[i] = h;
+    out[n8 + i] = m;
+    out[2 * n8 + i] = l;
+  }
+}
+
+}  // namespace
+
+// The split pass: `n` float32 values (a multiple of 8, 16-B aligned) ->
+// planes hi, mid, lo of n bf16 values each, one after the other in `out`.
+// Returns a cudaError_t (0 = success).
+extern "C" int reve_split_bf16x3(const void* x, void* out, long long n,
+                                 void* stream) {
+  if (n % 8) return (int)cudaErrorInvalidValue;
+  const long long n8 = n / 8;
+  if (n8 == 0) return (int)cudaSuccess;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (n8 + 255) / 256;
+  const int grid = (int)(blocks < 8LL * sms ? blocks : 8LL * sms);
+  split_bf16x3_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(x), static_cast<uint4*>(out), n8);
+  return (int)cudaGetLastError();
+}
+
+// float32 K1 on the split planes (3, B, H, W, 64) bf16 of its input, with
+// the weights packed by the wrapper as [tap][split][k / 8][n][8] bf16.
+// Returns a cudaError_t (0 = success).
+extern "C" int reve_conv3x3_bias_prelu_f32tc(const void* planes,
+                                             const void* wp, const float* b,
+                                             const float* alpha, void* y,
+                                             int B, int H, int W,
+                                             void* stream) {
+  const long long tiles =
+      (long long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+  if (tiles == 0) return (int)cudaSuccess;
+  CUtensorMap map;
+  cudaError_t err =
+      halo_map(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, planes, PLANES * B,
+               H, W, TW + 2, TH + 2, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return (int)err;
+  int grid = 0;
+  err = reve::persistent_grid(conv3x3_f32_tc_kernel, THREADS, SMEM, tiles,
+                              &grid);
+  if (err != cudaSuccess) return (int)err;
+  conv3x3_f32_tc_kernel<<<grid, THREADS, SMEM,
+                          static_cast<cudaStream_t>(stream)>>>(
+      map, static_cast<const bf16*>(wp), b, alpha, static_cast<float*>(y), B,
+      H, W);
+  return (int)cudaGetLastError();
+}

@@ -1,8 +1,9 @@
 // K1 conv3x3_bias_prelu and K2 head_conv_residual_u8_shuffle in bfloat16,
 // on the tensor cores: one implicit-GEMM mainloop (wgmma), two epilogues.
 //
-// Replaces (TPU side), in bfloat16 (float32 stays on the CUDA-core kernels
-// of conv3x3.cu and head.cu, which match Precision.HIGHEST; TF32 would not):
+// Replaces (TPU side), in bfloat16 (float32 K1 is conv3x3_f32_tc.cu's, a
+// six-pass bf16 split on wgmma; float32 K2 stays on head.cu's CUDA cores;
+// both match Precision.HIGHEST, which TF32 would not):
 //   K1  reve_tpu/models/srvgg.py:_conv3x3 + _prelu (srvgg.py:88-113), the
 //       16 hidden 64->64 layers of apply (srvgg.py:205-210);
 //   K2  the head _conv3x3 (srvgg.py:211-212) with _epilogue(quantize_u8=True)
@@ -52,14 +53,14 @@
 //    it as 16-B vectors, one contiguous 8 KB run per row.  K2 reads the
 //    row's u8 pixels once, stages its r output rows of 64r x 3 bytes in
 //    shared memory in pixel-shuffle order, and writes each as 16-B vectors.
-#include <cuda.h>  // CUtensorMap and its enums; no libcuda is linked
-
-#include "common.cuh"
+// The barrier, TMA, descriptor and wgmma helpers are tc.cuh's.
+#include "tc.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using reve::round_to;
+using namespace reve::tc;
 
 constexpr int CIN = 64;
 constexpr int TH = 4;   // tile rows, one warpgroup each
@@ -67,6 +68,7 @@ constexpr int TW = 64;  // tile columns: the M of one wgmma
 constexpr int THREADS = 128 * TH;
 constexpr int HALO_TX = (TH + 2) * (TW + 2) * CIN * 2;  // bytes of one copy
 constexpr int HALO_BYTES = (HALO_TX + 1023) / 1024 * 1024;  // 1024-B aligned
+using Grid = TileGrid<TH, TW>;
 
 // R = 0: K1 (bias + PReLU, bf16 out); R = 2, 3, 4: K2 (u8 residual +
 // pixel shuffle at scale R).
@@ -87,156 +89,15 @@ struct Tc {
   static constexpr size_t SMEM = OFF_BAR + 2 * sizeof(uint64_t);
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// shared-memory writes by this thread become visible to wgmma's reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// A halo buffer's barrier: one arrival (the thread that starts the copy)
-// plus the copy's bytes complete a phase.
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
 // Start the copy of the halo of the tile at (b, y0, x0) into `dst`,
 // completing on `bar`: box (64 channels, TW + 2, TH + 2, 1) at (0, x0 - 1,
 // y0 - 1, b), zeros outside the frame.
 __device__ __forceinline__ void load_halo(uint32_t dst, const CUtensorMap* map,
                                           uint32_t bar, int b, int y0,
                                           int x0) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(HALO_TX)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(map), "r"(bar), "r"(0), "r"(x0 - 1), "r"(y0 - 1), "r"(b)
-      : "memory");
+  mbar_expect_tx(bar, HALO_TX);
+  tma_load_4d(dst, map, bar, 0, x0 - 1, y0 - 1, b);
 }
-
-// barrier of one warpgroup (ids 1..4; 0 is __syncthreads)
-__device__ __forceinline__ void warpgroup_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major operand without swizzle:
-// core matrices of 8 rows x 16 B (rows 16 B apart), `lbo` bytes from one
-// core matrix to the next along K, 128 B from one group of 8 rows to the
-// next (SBO); layout type 0 (no swizzle), base offset 0.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(128 >> 4) << 32);
-}
-
-// ... and of a K-major operand in the 128-B swizzle: rows of 128 B, groups
-// of 8 rows 1024 B apart (SBO); layout type 1, base offset 0.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// D (64 x N, float32) += A (64 x 16) * B (16 x N), both bf16 from shared
-// memory; D as the m64nN accumulator fragment, N / 2 registers a thread.
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<16> {
-  __device__ static void mma(float (&d)[8], uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(a), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<32> {
-  __device__ static void mma(float (&d)[16], uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-        "%14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15])
-        : "l"(a), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<48> {
-  __device__ static void mma(float (&d)[24], uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, "
-        "1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-        : "l"(a), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  __device__ static void mma(float (&d)[32], uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
-        "%27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(1));
-  }
-};
-
-struct TileGrid {
-  int tiles_x, tiles_y;
-  long long count;
-  __device__ TileGrid(int B, int H, int W)
-      : tiles_x((W + TW - 1) / TW),
-        tiles_y((H + TH - 1) / TH),
-        count((long long)B * tiles_y * tiles_x) {}
-  // tile -> (image, first row, first column); x fastest, so neighbouring
-  // blocks share halo rows in L2
-  __device__ void origin(long long tile, int& b, int& y0, int& x0) const {
-    b = (int)(tile / ((long long)tiles_y * tiles_x));
-    const int rem = (int)(tile - (long long)b * tiles_y * tiles_x);
-    y0 = (rem / tiles_x) * TH;
-    x0 = (rem % tiles_x) * TW;
-  }
-};
 
 // Issue the 36 wgmma steps of one warpgroup's row, asynchronously (see
 // wait_mma): `a_row` is halo pixel (row, 0), and tap (dy, dx) starts
@@ -246,7 +107,7 @@ __device__ __forceinline__ void issue_mma(float (&acc)[N / 2], uint32_t a_row,
                                           uint32_t w) {
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  wgmma_fence();
 #pragma unroll
   for (int tap = 0; tap < 9; ++tap) {
 #pragma unroll
@@ -257,16 +118,14 @@ __device__ __forceinline__ void issue_mma(float (&acc)[N / 2], uint32_t a_row,
       Wgmma<N>::mma(acc, desc_sw128(a), desc(b, N * 16));
     }
   }
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  wgmma_commit();
 }
 
 // Wait for the warpgroup's wgmmas: `acc` is final only after this.
 template <int N>
 __device__ __forceinline__ void wait_mma(float (&acc)[N / 2]) {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-  // keep every read of the accumulators below the wait
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+  wgmma_wait<0>();
+  fence_regs(acc);  // keep every read of the accumulators below the wait
 }
 
 template <int R>
@@ -306,7 +165,7 @@ conv3x3_tc_kernel(const __grid_constant__ CUtensorMap map,
   fence_proxy_async();
   __syncthreads();
 
-  const TileGrid g(B, H, W);
+  const Grid g(B, H, W);
   long long tile = blockIdx.x;  // the grid never exceeds the tile count
   int b, y0, x0;
   if (tid == 0) {
@@ -420,38 +279,11 @@ conv3x3_tc_kernel(const __grid_constant__ CUtensorMap map,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
 // The tensor map of the (B, H, W, 64) bf16 input: halo boxes, 128-B
 // swizzle, zeros outside the tensor.
 cudaError_t make_map(CUtensorMap* map, const void* x, int B, int H, int W) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess) return cudaErrorSymbolNotFound;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t dims[4] = {CIN, (cuuint64_t)W, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {CIN * 2, (cuuint64_t)W * CIN * 2,
-                                 (cuuint64_t)H * W * CIN * 2};
-  const cuuint32_t box[4] = {CIN, TW + 2, TH + 2, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return halo_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, B, H, W,
+                  TW + 2, TH + 2, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int R>

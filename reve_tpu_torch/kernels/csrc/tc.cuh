@@ -1,0 +1,299 @@
+// Shared pieces of the tensor-core conv kernels (sm_90a): shared-memory
+// addresses, mbarriers, TMA copies, wgmma descriptors and instructions,
+// and the persistent walk over output tiles.  Used by conv3x3_tc.cu
+// (bfloat16 K1, K2), conv3x3_f32_tc.cu (float32 K1) and conv3x3_s8.cu (K4).
+//
+// Every conv here is an implicit GEMM over a halo tile in shared memory:
+// one halo pixel is one row of the K-major A operand (64 channels: 128 B
+// in bf16, 64 B in s8), stored in the swizzle of that row width, and tap
+// (dy, dx) starts whole rows later.  The swizzle is a function of the
+// shared-memory address bits (the buffers are 1024-B aligned), both where
+// TMA writes and where wgmma reads, so a start moved by whole rows reads
+// what TMA wrote with the descriptor's base offset 0.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; no libcuda is linked
+
+#include "common.cuh"
+
+namespace reve {
+namespace tc {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// shared-memory writes by this thread become visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A barrier whose phase completes after `count` arrivals (plus, for a
+// copy's barrier, the bytes the arrival announced).
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// Arrive on `bar` where `pred` holds, predicated inside the instruction:
+// no branch, so it may sit between a wgmma and its wait without ptxas
+// serialising the wgmmas.
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"((int)pred)
+      : "memory");
+}
+
+// Arrive on `bar` announcing `bytes` that copies will complete on it.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// TMA copy of the box of a 4-D tensor map at (c0, c1, c2, c3) into `dst`,
+// completing on `bar`; what lies outside the tensor is filled with zeros.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Bulk copy of `bytes` contiguous bytes (a multiple of 16, both ends 16-B
+// aligned) from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// barrier of one warpgroup (ids 1..4; 0 is __syncthreads)
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major operand without swizzle:
+// core matrices of 8 rows x 16 B (rows 16 B apart), `lbo` bytes from one
+// core matrix to the next along K, 128 B from one group of 8 rows to the
+// next (SBO); layout type 0 (no swizzle), base offset 0.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+// ... of a K-major operand in the 128-B swizzle: rows of 128 B, groups of
+// 8 rows 1024 B apart (SBO); layout type 1, base offset 0.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// ... of a K-major operand in the 64-B swizzle: rows of 64 B, groups of 8
+// rows 512 B apart (SBO); layout type 2, base offset 0.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N of this warpgroup's wgmma groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of accumulator registers
+// across this point (around the asynchronous wgmmas that own them).
+__device__ __forceinline__ void fence_reg(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+__device__ __forceinline__ void fence_reg(int& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+template <typename T, int N>
+__device__ __forceinline__ void fence_regs(T (&acc)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_reg(acc[i]);
+}
+
+// D (64 x N, float32) += A (64 x 16) * B (16 x N), both bf16 from shared
+// memory, both K-major; D as the m64nN accumulator fragment, N / 2
+// registers a thread.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  __device__ static void mma(float (&d)[8], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  __device__ static void mma(float (&d)[16], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<48> {
+  __device__ static void mma(float (&d)[24], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, "
+        "1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  __device__ static void mma(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+        "%27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// D (64 x 64, s32) += A (64 x 32) * B (32 x 64), both s8 from shared
+// memory.  8-bit wgmma takes no transpose: both operands are K-major.
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+      "%27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// Output tiles of TH rows x TW pixels over B images, for persistent blocks.
+template <int TH, int TW>
+struct TileGrid {
+  int tiles_x, tiles_y;
+  long long count;
+  __device__ TileGrid(int B, int H, int W)
+      : tiles_x((W + TW - 1) / TW),
+        tiles_y((H + TH - 1) / TH),
+        count((long long)B * tiles_y * tiles_x) {}
+  // tile -> (image, first row, first column); x fastest, so neighbouring
+  // blocks share halo rows in L2
+  __device__ void origin(long long tile, int& b, int& y0, int& x0) const {
+    b = (int)(tile / ((long long)tiles_y * tiles_x));
+    const int rem = (int)(tile - (long long)b * tiles_y * tiles_x);
+    y0 = (rem / tiles_x) * TH;
+    x0 = (rem % tiles_x) * TW;
+  }
+};
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The tensor map of a (B, H, W, 64) NHWC tensor of `elem`-byte values for
+// halo boxes of (64 channels, bw, bh, 1 image), in `swizzle`, zeros
+// outside the tensor.  Encoded per call (the pointer changes) through
+// cuTensorMapEncodeTiled from cudaGetDriverEntryPoint, so the library
+// needs no libcuda at link time; passed to the kernel as a
+// __grid_constant__.
+inline cudaError_t halo_map(CUtensorMap* map, CUtensorMapDataType type,
+                            int elem, const void* x, int B, int H, int W,
+                            int bw, int bh, CUtensorMapSwizzle swizzle) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess) return cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t px = 64 * (cuuint64_t)elem;  // bytes of one pixel
+  const cuuint64_t dims[4] = {64, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {px, (cuuint64_t)W * px,
+                                 (cuuint64_t)H * W * px};
+  const cuuint32_t box[4] = {64, (cuuint32_t)bw, (cuuint32_t)bh, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, type, 4, const_cast<void*>(x), dims, strides, box, one,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace tc
+}  // namespace reve

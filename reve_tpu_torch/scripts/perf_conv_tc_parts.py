@@ -1,18 +1,26 @@
-"""Where the time of the tensor-core K1 and K2 goes.
+"""Where the time of the tensor-core conv kernels goes.
 
     python -m reve_tpu_torch.scripts.perf_conv_tc_parts [--iters N]
 
-Builds variants of reve_tpu_torch/kernels/csrc/conv3x3_tc.cu with one or
-two of its three parts taken out: the halo loads after the first tile
-(`no_load`: later tiles compute on a stale buffer), the wgmmas
-(`no_mma`: the accumulators are set, not computed), and the epilogue
-(`no_epi`: nothing is written).  It times each variant, beside the kernel
-as it is (`full`), on K1 and K2 (r=4) at the main path's shapes: a batch
-of 4 1920x1080 frames.  The variants compute wrong results.  They exist
-only here, in a temporary directory, and only their times mean anything.
-Prints one JSON line: the card, then {variant: {"k1_ms", "k2_ms"}}, each
-time the mean over `iters` launches after one untimed launch, with the
-variants run in turn, twice.
+Builds variants of the three tensor-core sources with one or two of their
+parts taken out: the halo loads after the first tile (`no_load`: later
+tiles compute on a stale buffer), the wgmmas (`no_mma`: the accumulators
+are set, not computed), and the epilogue (`no_epi`: nothing is written).
+It times each variant, beside the kernel as it is (`full`), at the main
+path's shapes (a batch of 4 1920x1080 frames):
+  * kernels/csrc/conv3x3_tc.cu: bfloat16 K1 (`k1_ms`) and K2 at r=4
+    (`k2_ms`);
+  * kernels/csrc/conv3x3_f32_tc.cu: float32 K1 as the wrapper runs it,
+    split pass and conv (`k1_f32_ms`), the conv alone on split planes
+    (`conv_ms`) and the split pass alone (`split_ms`).  Its weights
+    stream tap by tap in every variant: `no_load` takes out the halo
+    loads only;
+  * kernels/csrc/conv3x3_s8.cu: K4 (`k4_ms`).
+The variants compute wrong results.  They exist only here, in a temporary
+directory, and only their times mean anything.  Prints one JSON line: the
+card, then {source: {variant: {timing: [ms, ms]}}}, each time the mean
+over `iters` launches after one untimed launch, the variants run in turn,
+twice.
 """
 
 from __future__ import annotations
@@ -29,55 +37,93 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from reve_tpu_torch.kernels import build, conv3x3
+from reve_tpu_torch.kernels import build, conv3x3, conv3x3_s8
 from reve_tpu_torch.scripts.perf_int8_dot import time_ms
 
 B, H, W, R = 4, 1080, 1920, 4
 _LOAD = "    if (tid == 0 && next < g.count) {"
 _LOAD_WAIT = "    mbar_wait(bar + (it & 1) * 8, (it >> 1) & 1);"
-_MMA = ("    issue_mma<N>(acc, base + (it & 1) * HALO_BYTES + wg * (TW + 2) "
-        "* CIN * 2,\n                 base + (uint32_t)C::OFF_W);\n")
-_WAIT = "    wait_mma<N>(acc);\n"
-#: variant -> [(text in the source, its replacement)]
+_NO_LOAD = [(_LOAD, "    if (false) {"),
+            (_LOAD_WAIT, "    if (it == 0) mbar_wait(bar, 0);")]
+#: source -> variant -> [(text in the source, its replacement)]
 PATCHES = {
-    "full": [],
-    "no_load": [(_LOAD, "    if (false) {"),
-                (_LOAD_WAIT, "    if (it == 0) mbar_wait(bar, 0);")],
-    "no_mma": [(_MMA, "    for (int i = 0; i < N / 2; ++i) acc[i] = it;\n")],
-    "no_epi": [(_WAIT, _WAIT + "    if (acc[0] == 0.5f) *(float*)out = "
-                "acc[1];\n    continue;\n")],
+    conv3x3.TC_SOURCE: {
+        "no_load": _NO_LOAD,
+        "no_mma": [("    issue_mma<N>(acc, base + (it & 1) * HALO_BYTES + wg "
+                    "* (TW + 2) * CIN * 2,\n                 base + "
+                    "(uint32_t)C::OFF_W);\n",
+                    "    for (int i = 0; i < N / 2; ++i) acc[i] = it;\n")],
+        "no_epi": [("    wait_mma<N>(acc);\n",
+                    "    wait_mma<N>(acc);\n    if (acc[0] == 0.5f) "
+                    "*(float*)out = acc[1];\n    continue;\n")],
+    },
+    conv3x3.F32_SOURCE: {
+        "no_load": [("      if (gi % 9 == 0 && gi > 0) {",
+                     "      if (false) {"),
+                    ("    mbar_wait(halo_full, (uint32_t)(it & 1));",
+                     "    if (it == 0) mbar_wait(halo_full, 0);")],
+        "no_mma": [("        mma_bf16x6(acc, cor, a + kc * 32, ws + 2 * kc * "
+                    "COUT * 16);\n", "        acc[kc] += a;\n")],
+        "no_epi": [("    const int oy = y0 + wg;\n    if (oy < H) {\n",
+                    "    if (acc[0] == 0.5f) *y = cor[1];\n    continue;\n"
+                    "    const int oy = y0 + wg;\n    if (oy < H) {\n")],
+    },
+    conv3x3_s8.SOURCE: {
+        "no_load": _NO_LOAD,
+        "no_mma": [("    issue_mma(acc, base + (it & 1) * HALO_BYTES + wg * "
+                    "(TW + 2) * C,\n              base + (uint32_t)OFF_W);\n",
+                    "    for (int i = 0; i < 32; ++i) acc[i] = it;\n")],
+        "no_epi": [("    wait_mma(acc);\n",
+                    "    wait_mma(acc);\n    if (acc[0] == 5) *y = "
+                    "(int8_t)acc[1];\n    continue;\n")],
+    },
 }
-PATCHES["no_load_no_epi"] = PATCHES["no_load"] + PATCHES["no_epi"]
-PATCHES["no_mma_no_epi"] = PATCHES["no_mma"] + PATCHES["no_epi"]
+for _p in PATCHES.values():
+    _p["full"] = []
+    _p["no_load_no_epi"] = _p["no_load"] + _p["no_epi"]
+    _p["no_mma_no_epi"] = _p["no_mma"] + _p["no_epi"]
+
+
+def variant_source(source: str, variant: str) -> str:
+    """The text of `source` with `variant`'s parts taken out."""
+    with open(os.path.join(build.CSRC, source)) as f:
+        text = f.read()
+    for old, new in PATCHES[source][variant]:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{source} {variant}: the source no longer "
+                               f"has the text this variant replaces")
+        text = text.replace(old, new)
+    return text
 
 
 def build_variants(tmp: str) -> dict:
-    """{variant: loaded library}, all compiled at once."""
-    with open(os.path.join(build.CSRC, conv3x3.TC_SOURCE)) as f:
-        src = f.read().replace('#include "common.cuh"',
-                               f'#include "{build.CSRC}/common.cuh"')
+    """{(source, variant): loaded library}, all compiled at once."""
     procs = {}
-    for name, patches in PATCHES.items():
-        text = src
-        for old, new in patches:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the source no longer has the "
-                                   f"text this variant replaces")
-            text = text.replace(old, new)
-        cu = os.path.join(tmp, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
-        so = os.path.join(tmp, f"lib{name}.so")
-        procs[name] = (so, subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", so, cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for source, variants in PATCHES.items():
+        for variant in variants:
+            stem = f"{os.path.splitext(source)[0]}-{variant}"
+            cu = os.path.join(tmp, f"{stem}.cu")
+            with open(cu, "w") as f:
+                f.write(variant_source(source, variant))
+            so = os.path.join(tmp, f"lib{stem}.so")
+            procs[source, variant] = (so, subprocess.Popen(
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-I", build.CSRC,
+                 "-o", so, cu],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for name, (so, proc) in procs.items():
+    for key, (so, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"{name}: nvcc exited {proc.returncode}\n{log}")
-        libs[name] = ctypes.CDLL(so)
+            raise RuntimeError(f"{key}: nvcc exited {proc.returncode}\n{log}")
+        libs[key] = ctypes.CDLL(so)
     return libs
+
+
+def _entry(lib, name: str, argtypes) -> ctypes._CFuncPtr:
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -87,40 +133,83 @@ def main(argv: Optional[List[str]] = None) -> dict:
     args = p.parse_args(argv)
     dev = torch.device("cuda", 0)
     rs = np.random.RandomState(0)
-    x = torch.from_numpy(rs.rand(B, H, W, 64).astype(np.float32) - 0.3).to(
-        dev, torch.bfloat16)
-    w = torch.from_numpy(rs.uniform(-0.04, 0.04, (3, 3, 64, 64)).astype(
-        np.float32)).to(dev, torch.bfloat16)
+    xf = torch.from_numpy(rs.rand(B, H, W, 64).astype(np.float32) - 0.3).to(
+        dev)
+    x = xf.to(torch.bfloat16)
+    wf = torch.from_numpy(rs.uniform(-0.04, 0.04, (3, 3, 64, 64)).astype(
+        np.float32)).to(dev)
+    w = wf.to(torch.bfloat16)
     wh = w[..., :3 * R * R].contiguous()
+    wp = conv3x3.pack_weights_bf16x3(wf)
+    x8 = torch.from_numpy(rs.randint(-127, 128, (B, H, W, 64)).astype(
+        np.int8)).to(dev)
+    w8 = conv3x3_s8.pack_weights_s8(torch.from_numpy(
+        rs.randint(-127, 128, (3, 3, 64, 64)).astype(np.int8)).to(dev))
     b = torch.zeros(64, device=dev)
     alpha = torch.full((64,), 0.2, device=dev)
+    scale = torch.full((64,), 1e-5, device=dev)
+    inv = torch.full((1,), 50.0, device=dev)
     u8 = torch.from_numpy(rs.randint(0, 256, (B, H, W, 3)).astype(
         np.uint8)).to(dev)
-    y = torch.empty_like(x)
+    y, yf, y8 = torch.empty_like(x), torch.empty_like(xf), \
+        torch.empty_like(x8)
+    planes = conv3x3.split_bf16x3(xf)
     o = torch.empty((B, H * R, W * R, 3), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    P, I = ctypes.c_void_p, ctypes.c_int
+
+    def timings(source, lib, name):
+        """{timing: callable} for one variant's library."""
+        if source == conv3x3.TC_SOURCE:
+            k1 = _entry(lib, "reve_conv3x3_bias_prelu_tc",
+                        [P] * 5 + [I] * 4 + [P])
+            k2 = _entry(lib, "reve_head_conv_residual_u8_shuffle_tc",
+                        [P] * 5 + [I] * 5 + [P])
+            return {
+                "k1_ms": lambda: build.check(lib, k1(
+                    x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                    alpha.data_ptr(), y.data_ptr(), B, H, W, 1, stream),
+                    name),
+                "k2_ms": lambda: build.check(lib, k2(
+                    x.data_ptr(), wh.data_ptr(), b.data_ptr(),
+                    u8.data_ptr(), o.data_ptr(), B, H, W, R, 1, stream),
+                    name)}
+        if source == conv3x3.F32_SOURCE:
+            split = _entry(lib, "reve_split_bf16x3",
+                           [P, P, ctypes.c_longlong, P])
+            conv = _entry(lib, "reve_conv3x3_bias_prelu_f32tc",
+                          [P] * 5 + [I] * 3 + [P])
+
+            def run_split():
+                build.check(lib, split(xf.data_ptr(), planes.data_ptr(),
+                                       xf.numel(), stream), name)
+
+            def run_conv():
+                build.check(lib, conv(
+                    planes.data_ptr(), wp.data_ptr(), b.data_ptr(),
+                    alpha.data_ptr(), yf.data_ptr(), B, H, W, stream), name)
+
+            def run_both():
+                run_split()
+                run_conv()
+            return {"k1_f32_ms": run_both, "conv_ms": run_conv,
+                    "split_ms": run_split}
+        k4 = _entry(lib, "reve_conv3x3_s8_dq_prelu_q8",
+                    [P] * 7 + [I] * 3 + [P])
+        return {"k4_ms": lambda: build.check(lib, k4(
+            x8.data_ptr(), w8.data_ptr(), scale.data_ptr(), b.data_ptr(),
+            alpha.data_ptr(), inv.data_ptr(), y8.data_ptr(), B, H, W,
+            stream), name)}
+
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_variants(tmp)
         for _ in range(2):
-            for name, lib in libs.items():
-                k1 = lib.reve_conv3x3_bias_prelu_tc
-                k1.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
-                    [ctypes.c_void_p]
-                k2 = lib.reve_head_conv_residual_u8_shuffle_tc
-                k2.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
-                    [ctypes.c_void_p]
-                t1 = time_ms(lambda: build.check(lib, k1(
-                    x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                    alpha.data_ptr(), y.data_ptr(), B, H, W, 1, stream),
-                    name), args.iters, dev)
-                t2 = time_ms(lambda: build.check(lib, k2(
-                    x.data_ptr(), wh.data_ptr(), b.data_ptr(),
-                    u8.data_ptr(), o.data_ptr(), B, H, W, R, 1, stream),
-                    name), args.iters, dev)
-                out.setdefault(name, {"k1_ms": [], "k2_ms": []})
-                out[name]["k1_ms"].append(t1)
-                out[name]["k2_ms"].append(t2)
+            for (source, variant), lib in libs.items():
+                for timing, fn in timings(source, lib, variant).items():
+                    out.setdefault(source, {}).setdefault(
+                        variant, {}).setdefault(timing, []).append(
+                            time_ms(fn, args.iters, dev))
     line = {"device": torch.cuda.get_device_name(dev), "shape": [B, H, W],
             "r": R, "variants": out}
     print(json.dumps(line), flush=True)

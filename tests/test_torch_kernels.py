@@ -233,12 +233,14 @@ def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch):
     """The library name changes with the source, so an edited kernel
     rebuilds instead of loading a stale library."""
     monkeypatch.setattr(build, "CSRC", str(tmp_path))
-    (tmp_path / "common.cuh").write_text("// header\n")
+    for h in build.HEADERS:
+        (tmp_path / h).write_text("// header\n")
     (tmp_path / "conv3x3.cu").write_text("// v1\n")
-    p1 = build._lib_path("conv3x3.cu")
+    paths = [build._lib_path("conv3x3.cu")]
     (tmp_path / "conv3x3.cu").write_text("// v2\n")
-    p2 = build._lib_path("conv3x3.cu")
-    (tmp_path / "common.cuh").write_text("// header v2\n")
-    p3 = build._lib_path("conv3x3.cu")
-    assert len({p1, p2, p3}) == 3
-    assert all(p.startswith(build.BUILD_DIR) for p in (p1, p2, p3))
+    paths.append(build._lib_path("conv3x3.cu"))
+    for h in build.HEADERS:  # each shared header is in the key
+        (tmp_path / h).write_text("// header v2\n")
+        paths.append(build._lib_path("conv3x3.cu"))
+    assert len(set(paths)) == 2 + len(build.HEADERS)
+    assert all(p.startswith(build.BUILD_DIR) for p in paths)

@@ -7,11 +7,15 @@ reve_tpu, so it runs on a machine with only PyTorch and the CUDA toolkit:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest
 
-K1 and K2 in bfloat16 run on the tensor cores (csrc/conv3x3_tc.cu, tiles
-of conv3x3.TC_TILE pixels): they are held at the tile edges, ragged and
-whole, and at large activations.
+K1 (both dtypes), K2 in bfloat16 and K4 run on the tensor cores (tiles
+of conv3x3.TC_TILE pixels: csrc/conv3x3_tc.cu, csrc/conv3x3_f32_tc.cu,
+csrc/conv3x3_s8.cu): they are held at the tile edges, ragged and whole,
+and at large activations; K4 at each of its nine taps alone.
 
-Tolerances: float32 max |d| <= 1e-4 (float32 accumulation order);
+Tolerances: float32 max |d| <= 1e-4 (float32 accumulation order; float32
+K1 sums six bf16 products on the tensor cores, which add in their own
+order), scaled with the inputs at +-2^8 activations; the split pass
+exact;
 bfloat16 <= 2 bf16 ulp relative (the kernel and the plain version may
 round a float32 sum that differs in its last bits to neighbouring bf16
 values, and PReLU rounds once more), the ulp taken at 2^-10 or more (a
@@ -178,6 +182,65 @@ def test_tensor_core_kernels_at_large_activations():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hw", TC_SHAPES)
+@pytest.mark.parametrize("B", [1, 3])
+def test_f32_tensor_core_k1_matches_plain_at_tile_edges(B, hw):
+    dev = _cuda()
+    d = _inputs(8, B, *hw)
+    x, w = d["x"].to(dev), d["w"].to(dev)
+    b, a = d["b"].to(dev), d["alpha"].to(dev)
+    before = dict(LAUNCHES)
+    got = conv3x3.conv3x3_bias_prelu(x, w, b, a)
+    want = conv3x3.conv3x3_bias_prelu_plain(x, w, b, a)
+    torch.cuda.synchronize()
+    assert got.shape == (B, *hw, 64) and got.dtype == torch.float32
+    _close(got, want, "float32")
+    # one float32 K1 call is the split pass and the bf16x6 conv
+    assert LAUNCHES["conv3x3_bias_prelu"] == \
+        before["conv3x3_bias_prelu"] + 1
+    assert LAUNCHES["split_bf16x3"] == before["split_bf16x3"] + 1
+
+
+@pytest.mark.cuda
+def test_f32_tensor_core_k1_at_large_activations():
+    """Activations up to +-2^8: float32 K1 stays within the float32
+    tolerance scaled by the inputs (a sum of 576 products 2^8 times the
+    usual size carries 2^8 times the order noise)."""
+    dev = _cuda()
+    d = _inputs(23, 2, 19, 45)
+    x = ((d["x"] - 0.5) * 2 ** 8).to(dev)
+    w, b, a = d["w"].to(dev), d["b"].to(dev), d["alpha"].to(dev)
+    got = conv3x3.conv3x3_bias_prelu(x, w, b, a)
+    want = conv3x3.conv3x3_bias_prelu_plain(x, w, b, a)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4 * 2 ** 8, rtol=0)
+    assert want.abs().max().item() > 2 ** 6  # the range was reached
+
+
+@pytest.mark.cuda
+def test_split_pass_is_exact():
+    """The split pass gives the plain version's planes bit for bit, and
+    they add back to the input, at ordinary values, +-2^8, +-2^-20 and
+    zeros."""
+    dev = _cuda()
+    rs = np.random.RandomState(4)
+    x = rs.standard_normal((2, 5, 7, 64)).astype(np.float32)
+    x[0, 0] = 2.0 ** 8 * rs.choice([-1, 1], 64)
+    x[0, 1] = 2.0 ** -20 * rs.uniform(-1, 1, 64)
+    x[0, 2] = 0.0
+    x = torch.from_numpy(x).to(dev)
+    before = LAUNCHES["split_bf16x3"]
+    got = conv3x3.split_bf16x3(x)
+    want = conv3x3.split_bf16x3_plain(x)
+    torch.cuda.synchronize()
+    assert got.shape == (3, *x.shape) and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    back = got[0].float() + got[1].float() + got[2].float()
+    assert torch.equal(back, x)
+    assert LAUNCHES["split_bf16x3"] == before + 1
+
+
+@pytest.mark.cuda
 def test_model_kernels_match_plain_path():
     dev = _cuda()
     cfg = srvgg.SRVGGConfig(num_feat=64, num_conv=3, upscale=4)
@@ -214,6 +277,39 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
             torch.zeros(64), torch.zeros(64))
 
 
+@pytest.mark.cuda
+def test_tensor_core_wrappers_reject_what_the_kernels_do_not_take():
+    """float32 K1, its split pass and K4 refuse what their kernels do not
+    take, and nothing is launched; the CUDA-core float32 K1 is gone."""
+    dev = _cuda()
+    before = dict(LAUNCHES)
+    w = torch.zeros((3, 3, 64, 64), device=dev)
+    x = torch.zeros((1, 4, 8, 64), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3.conv3x3_bias_prelu(x.transpose(1, 2), w, torch.zeros(64),
+                                   torch.zeros(64))
+    with pytest.raises(TypeError):
+        conv3x3.split_bf16x3(x.double())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        conv3x3.split_bf16x3(torch.zeros(12, device=dev))
+    x8 = torch.zeros((1, 4, 8, 64), dtype=torch.int8, device=dev)
+    w8 = torch.zeros((3, 3, 64, 64), dtype=torch.int8, device=dev)
+    f = torch.ones(64, device=dev)
+    inv = torch.ones(1, device=dev)
+    with pytest.raises(TypeError):
+        conv3x3_s8.conv3x3_s8_dq_prelu_q8(x8.to(torch.uint8), w8, f, f, f,
+                                          inv)
+    with pytest.raises(ValueError, match="expected"):
+        conv3x3_s8.conv3x3_s8_dq_prelu_q8(x8[..., :32].contiguous(), w8, f,
+                                          f, f, inv)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3_s8.conv3x3_s8_dq_prelu_q8(x8.transpose(1, 2), w8, f, f, f,
+                                          inv)
+    assert LAUNCHES == before
+    from reve_tpu_torch.kernels import build
+    assert not hasattr(build.load(conv3x3.SOURCE), "reve_conv3x3_bias_prelu")
+
+
 def _s8_inputs(seed, B, H, W, cout=64):
     rs = np.random.RandomState(seed)
     return {
@@ -246,6 +342,40 @@ def test_s8_conv_kernel_is_exact(hw):
     assert got.dtype == torch.int8 and got.shape == want.shape
     assert torch.equal(got, want)
     assert LAUNCHES["conv3x3_s8_dq_prelu_q8"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", TC_SHAPES)
+@pytest.mark.parametrize("B", [1, 3])
+def test_s8_tensor_core_k4_is_exact_at_tile_edges(B, hw):
+    dev = _cuda()
+    d = {k: v.to(dev) for k, v in _s8_inputs(30 + B, B, *hw).items()}
+    args = (d["x8"], d["w8"], d["scale"], d["b"], d["alpha"], d["inv"])
+    before = LAUNCHES["conv3x3_s8_dq_prelu_q8"]
+    got = conv3x3_s8.conv3x3_s8_dq_prelu_q8(*args)
+    want = conv3x3_s8.conv3x3_s8_dq_prelu_q8_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (B, *hw, 64) and got.dtype == torch.int8
+    assert torch.equal(got, want)
+    assert LAUNCHES["conv3x3_s8_dq_prelu_q8"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tap", range(9))
+def test_s8_k4_each_tap_alone_under_the_64b_swizzle(tap):
+    """Weights nonzero at one tap only: the A operand of tap (dy, dx) is
+    the halo started dy * 66 + dx 64-B rows later in the 64-B swizzle, and
+    each start must read what TMA wrote (ragged shape, exact)."""
+    dev = _cuda()
+    d = {k: v.to(dev) for k, v in _s8_inputs(40 + tap, 2, 19, 45).items()}
+    w8 = torch.zeros_like(d["w8"])
+    w8[tap // 3, tap % 3] = d["w8"][tap // 3, tap % 3]
+    args = (d["x8"], w8, d["scale"], d["b"], d["alpha"], d["inv"])
+    got = conv3x3_s8.conv3x3_s8_dq_prelu_q8(*args)
+    want = conv3x3_s8.conv3x3_s8_dq_prelu_q8_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert want.unique().numel() > 64  # not clipped flat
 
 
 @pytest.mark.cuda
