@@ -10,27 +10,28 @@ JSON line; any failure exits non-zero (no phase catches and continues):
   2. build    nvcc builds every kernel of the main path from the sources
               in this checkout (sm_90a), all at once, and prints each
               library's registers, spills and count of wgmma instructions
-              in its SASS (cuobjdump: HGMMA for bf16, IGMMA for s8); the
-              libraries of bfloat16 K1/K2, float32 K1 and K4 must have
-              some, and K4's no __dp4a (IDP4A);
+              in its SASS (cuobjdump: HGMMA for bf16, IGMMA for s8): the
+              libraries of bfloat16 K1/K2, float32 K1/K2 and K4/K4h must
+              have at least the count of all their kernels (the heads
+              at r = 2, 3, 4 included), and no library any __dp4a
+              (IDP.4A);
   3. kernels  K3, K1 and K2 at the main path's shapes (1080p frames, a
               batch of 4, x4), in bfloat16 (K1 and K2 on the tensor cores,
-              conv3x3_tc.cu) and float32 (K1 on the tensor cores as six
-              bf16 products, its split pass and conv3x3_f32_tc.cu; K3 and
-              K2 on CUDA cores): each kernel against its plain PyTorch
-              version on the same inputs (float32: max |d| <= 1e-4,
-              float32 accumulation order; bfloat16: <= 2 bf16 ulp
-              relative, the ulp taken at 2^-10 or more; uint8: |d| <= 1;
-              the split pass exact), then timed beside the plain version,
-              one cuDNN F.conv2d of the same conv (library_ms; the port
-              never calls it) and the card's bound (float32 K1: its six
-              bf16 passes at the bf16 rate);
-              The int8 kernels K4a, K4 (s8 wgmma) and K4h at the same
-              shapes, with a QuantizedBody the port's int8 engine
+              conv3x3_tc.cu) and float32 (K1 and K2 on the tensor cores as
+              six bf16 products, each after its split pass,
+              conv3x3_f32_tc.cu; K3 on CUDA cores): each kernel against
+              its plain PyTorch version on the same inputs (float32: max
+              |d| <= 1e-4, float32 accumulation order; bfloat16: <= 2 bf16
+              ulp relative, the ulp taken at 2^-10 or more; uint8: |d| <=
+              1; the split pass exact), then timed beside the plain
+              version, one cuDNN F.conv2d of the same conv (library_ms;
+              the port never calls it) and the card's bound (float32 K1
+              and K2: their six bf16 passes at the bf16 rate);
+              The int8 kernels K4a, K4 and K4h (both on s8 wgmma) at the
+              same shapes, with a QuantizedBody the port's int8 engine
               calibrates on the smoke's frames, each against its plain
-              version (K4: s8 exact; K4a: |d| <= 1 s8 code, its bf16
-              conv summed in another order than cuDNN's; K4h: |d| <= 1
-              u8), timed the
+              version (K4 and K4h exact; K4a: |d| <= 1 s8 code, its bf16
+              conv summed in another order than cuDNN's), timed the
               same way (library_ms: torch._int_mm of the im2col'd
               product of one frame, x4 frames, the im2col not counted;
               cuDNN bf16 F.conv2d for K4a);
@@ -44,14 +45,14 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               runs with --trace: the phase reports seconds per scheduler
               span and the model's device time as a share of the wall;
   5. int8     the same job with --dtype int8: launch counts must show K4a,
-              K4 (16 per model call) and K4h, and float32 K1 with its
-              split pass (calibration, certification); output frame 0 is
-              held against the port's plain int8 path on the card, with the
-              calibration the workspace persisted, at >= 60 dB.  It
-              reports the certified int8-vs-f32 dB (reported, not gated:
-              the frames are synthetic and the weights self-SR proxies),
-              the job's fps and the calibration and certification
-              seconds;
+              K4 (16 per model call) and K4h, and float32 K1 and K2, each
+              launch with its split pass (calibration, certification);
+              output frame 0 is held against the port's plain int8 path
+              on the card, with the calibration the workspace persisted,
+              at >= 60 dB.  It reports the certified int8-vs-f32 dB
+              (reported, not gated: the frames are synthetic and the
+              weights self-SR proxies), the job's fps and the calibration
+              and certification seconds;
   6. probe    P1, the tensor-core dot-rate probe, through
               `python -m reve_tpu_torch.scripts.perf_int8_dot`'s main at
               its shapes, then against its plain version (s8 exact; bf16
@@ -60,11 +61,15 @@ JSON line; any failure exits non-zero (no phase catches and continues):
 
 The line before the last is nvidia-smi's name and power limit; before
 that, one JSON object {"kernels": [...]} with each kernel's launches on
-its path (main, int8 or probe), error, times, bound and design ("wgmma",
-"wgmma_bf16x6", "mma_sync" or "cuda_cores"; the float32 forms of K1, K2
-and K3 nested under "float32" with their own source, design and launches
-on the int8 path, where they run).  The last line is
-{"ok": true, "device": {...}}.
+its path (main, int8 or probe), error (and, for u8 and s8 outputs,
+n_diff: the values that differ from the plain version's), times, bound
+and design ("wgmma", "wgmma_bf16x6", "mma_sync" or "cuda_cores"; the
+float32 forms of K1, K2 and K3 nested under "float32" with their own
+source, design and launches on the int8 path, where they run).  The last
+line is {"ok": true, "device": {...}}.
+
+Run from the root of a checkout: alone, or without a CUDA device, it
+exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -89,6 +94,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 FRAMES, W, H, SCALE, BATCH = 8, 1920, 1080, 4, 4
+#: wgmma instructions each tensor-core library must hold at least: every
+#: kernel's mainloop unrolled (per 64-pixel row: bf16 36, bf16x6 216, s8
+#: 18), the hidden conv and the heads at r = 2, 3, 4
+MIN_WGMMA = {"conv3x3_tc.cu": 4 * 36, "conv3x3_f32_tc.cu": 4 * 216,
+             "conv3x3_s8.cu": 4 * 18}
 
 
 def emit(obj) -> None:
@@ -152,17 +162,18 @@ def bf16_ulp_ok(got, want, ulps: int = 2) -> bool:
 
 
 def sass_ops(lib: str) -> dict:
-    """Counts of the wgmma opcodes (HGMMA, IGMMA, ...) and of IDP4A in a
-    built library's SASS (cuobjdump of the CUDA toolkit whose nvcc built
-    it)."""
+    """Counts of the wgmma opcodes (HGMMA, IGMMA, ...) and of __dp4a
+    (SASS IDP.4A, counted as "IDP4A") in a built library's SASS
+    (cuobjdump of the CUDA toolkit whose nvcc built it)."""
     from reve_tpu_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib], check=True,
                           capture_output=True, text=True).stdout
     ops = {}
-    for m in re.finditer(r"\b([A-Z]GMMA|IDP4A)\b", sass):
-        ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    for m in re.finditer(r"\b([A-Z]GMMA|IDP\.?4A)\b", sass):
+        op = m.group(1).replace(".", "")
+        ops[op] = ops.get(op, 0) + 1
     return ops
 
 
@@ -227,9 +238,9 @@ def kernel_phase(params, cfg, frames, out: dict) -> dict:
                 nbytes=px * 3 + px * feat * bpe + w0.numel() * bpe + 2 * feat
                 * 4,
                 flops=2 * 9 * 3 * feat * px),
-            # float32 K1 is six bf16 products on the tensor cores (the
-            # split pass included in its time): bound at six times the
-            # operations at the bf16 rate
+            # float32 K1 and K2 are six bf16 products on the tensor cores
+            # (the split pass included in their time): bound at six times
+            # the operations at the bf16 rate
             "conv3x3_bias_prelu": dict(
                 kernel=lambda: conv3x3.conv3x3_bias_prelu(
                     x3, w1, c1["b"], a1),
@@ -248,13 +259,17 @@ def kernel_phase(params, cfg, frames, out: dict) -> dict:
                 lib_in=x1.permute(0, 3, 1, 2), lib_w=wl, lib_b=cl["b"],
                 nbytes=px * feat * bpe + px * 3 + px * r * r * 3
                 + wl.numel() * bpe + 3 * r * r * 4,
-                flops=2 * 9 * feat * 3 * r * r * px),
+                flops=2 * 9 * feat * 3 * r * r * px
+                * (6 if name == "float32" else 1),
+                peak="bfloat16"),
         }
         for kname, c in cases.items():
             got, want = c["kernel"](), c["plain"]()
             torch.cuda.synchronize()
+            n_diff = None
             if got.dtype == torch.uint8:
                 err = (got.int() - want.int()).abs().max().item()
+                n_diff = int((got != want).sum().item())
                 ok = err <= 1
             else:
                 err = (got.float() - want.float()).abs().max().item()
@@ -271,7 +286,7 @@ def kernel_phase(params, cfg, frames, out: dict) -> dict:
             bms, bby = bound_ms(c["nbytes"], c["flops"],
                                 c.get("peak", name))
             results.setdefault(kname, {})[name] = {
-                "max_abs_err": err,
+                "max_abs_err": err, "n_diff": n_diff,
                 "ms": cuda_time_ms(c["kernel"]),
                 "plain_ms": cuda_time_ms(c["plain"]),
                 "library_ms": cuda_time_ms(
@@ -289,8 +304,9 @@ def kernel_phase(params, cfg, frames, out: dict) -> dict:
 
 
 def split_case(x):
-    """float32 K1's split pass alone, on K1's input: exact against its
-    plain version; bound by its bytes (4 in, 6 out per value)."""
+    """The split pass of float32 K1 and K2 alone, on K1's input: exact
+    against its plain version; bound by its bytes (4 in, 6 out per
+    value)."""
     import torch
 
     from reve_tpu_torch.kernels import conv3x3
@@ -374,7 +390,7 @@ def int8_kernel_phase(params, cfg, frames, qb, out: dict) -> dict:
             plain=lambda: head.head_conv_s8_residual_u8_shuffle_plain(
                 q1, qb.w8_last, sl, qb.b_last, u8, r),
             library=int_mm_x4(q1, qb.w8_last),
-            tol=1, nbytes=px * feat + px * 3 + px * r * r * 3
+            tol=0, nbytes=px * feat + px * 3 + px * r * r * 3
             + qb.w8_last.numel() + 2 * 3 * r * r * 4,
             flops=2 * 9 * feat * 3 * r * r * px, peak="int8"),
     }
@@ -388,7 +404,8 @@ def int8_kernel_phase(params, cfg, frames, qb, out: dict) -> dict:
                                  f"version (max |d| {err} > {c['tol']})")
         bms, bby = bound_ms(c["nbytes"], c["flops"], c["peak"])
         results[kname] = {
-            "max_abs_err": err, "ms": cuda_time_ms(c["kernel"]),
+            "max_abs_err": err, "n_diff": int((got != want).sum().item()),
+            "ms": cuda_time_ms(c["kernel"]),
             "plain_ms": cuda_time_ms(c["plain"], iters=3),
             "library_ms": library_time_ms(c["library"]),
             "bound_ms": bms, "bound_by": bby, "shape": list(got.shape),
@@ -478,6 +495,11 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    if not os.path.isdir(os.path.join(ROOT, "reve_tpu_torch")):
+        print(f"chip_smoke: no reve_tpu_torch package beside {__file__}: "
+              f"run it from the root of a checkout of the repo",
+              file=sys.stderr)
+        return 1
     from reve_tpu_torch import cli, kernels
     from reve_tpu_torch.io import reader, writer
     from reve_tpu_torch.kernels import build, conv3x3, conv3x3_s8
@@ -508,14 +530,16 @@ def main() -> int:
                   + " | ".join(ln.strip() for ln in v["log"].splitlines()
                                if "registers" in ln or "spill" in ln),
                   flush=True)
-        # bfloat16 K1/K2, float32 K1 and K4 run on wgmma; K4 no longer
-        # on __dp4a
-        for s in (conv3x3.TC_SOURCE, conv3x3.F32_SOURCE,
-                  conv3x3_s8.SOURCE):
-            if rec["sources"][s]["wgmma"] == 0:
-                raise AssertionError(f"{s}: no wgmma in its SASS")
-        if rec["sources"][conv3x3_s8.SOURCE]["sass_ops"].get("IDP4A"):
-            raise AssertionError(f"{conv3x3_s8.SOURCE}: IDP4A in its SASS")
+        # K1, K2 (both dtypes), K4 and K4h run on wgmma; nothing on
+        # __dp4a
+        for s, least in MIN_WGMMA.items():
+            if rec["sources"][s]["wgmma"] < least:
+                raise AssertionError(f"{s}: {rec['sources'][s]['wgmma']} "
+                                     f"wgmma in its SASS, fewer than its "
+                                     f"kernels' {least}")
+        for s, v in rec["sources"].items():
+            if v["sass_ops"].get("IDP4A"):
+                raise AssertionError(f"{s}: IDP.4A in its SASS")
 
     weights = os.path.join(ROOT, "models", "realesr-animevideov3-x4.pth")
     cfg, params = load_srvgg_pth(weights)
@@ -632,11 +656,14 @@ def main() -> int:
             heads = launches["head_conv_s8_residual_u8_shuffle"]
             hidden = launches["conv3x3_s8_dq_prelu_q8"]
             # calibration and certification run the float32 model: K1
-            # on the tensor cores, each call with its split pass
+            # and (certification) K2 on the tensor cores, each call with
+            # its split pass
             f32_k1 = launches["conv3x3_bias_prelu"]
+            f32_k2 = launches["head_conv_residual_u8_shuffle"]
             if heads < 2 or hidden != cfg.num_conv * heads \
                     or launches["conv3x3_u8_bias_prelu_q8"] != heads \
-                    or f32_k1 == 0 or launches["split_bf16x3"] != f32_k1:
+                    or f32_k1 == 0 or f32_k2 == 0 \
+                    or launches["split_bf16x3"] != f32_k1 + f32_k2:
                 raise AssertionError(f"launch counts {launches} do not "
                                      f"show the int8 path's kernels")
             ws8 = os.path.join(work, "out8.y4m.revework")
@@ -703,7 +730,7 @@ def main() -> int:
             "reve_tpu_torch/kernels/csrc/conv3x3_s8.cu",
             "reve_tpu/models/srvgg.py:380"),
         "head_conv_s8_residual_u8_shuffle": (
-            "reve_tpu_torch/kernels/csrc/head.cu",
+            "reve_tpu_torch/kernels/csrc/conv3x3_s8.cu",
             "reve_tpu/models/srvgg.py:383"),
         "dot_loop": (
             "reve_tpu_torch/kernels/csrc/dot_probe.cu",
@@ -721,12 +748,13 @@ def main() -> int:
         "head_conv_s8_residual_u8_shuffle": ("int8", int8_launches),
         "dot_loop": ("int8", {"dot_loop": probe_launches}),
     }
-    # bfloat16 K1 and K2 and K4 run on wgmma, P1 on mma.sync, the rest
-    # on CUDA cores; of the float32 forms, K1 runs on wgmma as six bf16
-    # products (after its split pass), K3 and K2 on CUDA cores
+    # bfloat16 K1 and K2, K4 and K4h run on wgmma, P1 on mma.sync, the
+    # rest on CUDA cores; of the float32 forms, K1 and K2 run on wgmma as
+    # six bf16 products (after their split pass), K3 on CUDA cores
     designs = {"conv3x3_bias_prelu": "wgmma",
                "head_conv_residual_u8_shuffle": "wgmma",
                "conv3x3_s8_dq_prelu_q8": "wgmma",
+               "head_conv_s8_residual_u8_shuffle": "wgmma",
                "dot_loop": "mma_sync"}
     f32_forms = {
         "conv3x3_u8_bias_prelu": ("reve_tpu_torch/kernels/csrc/conv3x3.cu",
@@ -735,7 +763,8 @@ def main() -> int:
             "reve_tpu_torch/kernels/csrc/conv3x3_f32_tc.cu",
             "wgmma_bf16x6"),
         "head_conv_residual_u8_shuffle": (
-            "reve_tpu_torch/kernels/csrc/head.cu", "cuda_cores"),
+            "reve_tpu_torch/kernels/csrc/conv3x3_f32_tc.cu",
+            "wgmma_bf16x6"),
     }
     line = []
     for name, (src, replaces) in sources.items():
@@ -759,7 +788,8 @@ def main() -> int:
             entry["design"] = "elementwise"
         entry.update({k: nums[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape")})
+            "library_ms", "shape") + (("n_diff",) if "n_diff" in nums
+                                      else ())})
         entry.update(extra)
         line.append(entry)
     emit({"kernels": line})

@@ -2,7 +2,8 @@
 its plain PyTorch version and a launch counter.
 
     K1  conv3x3.conv3x3_bias_prelu            hidden conv 64->64 + PReLU
-        conv3x3.split_bf16x3                  float32 K1's split pass
+        conv3x3.split_bf16x3                  float32 K1's and K2's split
+                                              pass
     K3  conv3x3.conv3x3_u8_bias_prelu         u8 input + first conv + PReLU
     K2  head.head_conv_residual_u8_shuffle    head conv + residual + u8 +
                                               pixel shuffle
@@ -13,12 +14,12 @@ its plain PyTorch version and a launch counter.
     P1  dot_probe.dot_loop                    tensor-core s8/bf16 dot-rate
                                               probe (not on a model path)
 
-K1, K2 (bfloat16) and K4 run on the tensor cores as implicit-GEMM `wgmma`
-kernels with TMA halo loads: bfloat16 K1 and K2 in csrc/conv3x3_tc.cu,
-float32 K1 in csrc/conv3x3_f32_tc.cu (its operands split into three bf16
-parts, six products summed: float32 accuracy, never TF32, to match the
-reference's Precision.HIGHEST), K4 on s8 wgmma in csrc/conv3x3_s8.cu.
-float32 K2, K3, K4a and K4h run on CUDA cores.
+K1, K2 (both dtypes), K4 and K4h run on the tensor cores as
+implicit-GEMM `wgmma` kernels with TMA halo loads: bfloat16 K1 and K2 in
+csrc/conv3x3_tc.cu, float32 K1 and K2 in csrc/conv3x3_f32_tc.cu (their
+operands split into three bf16 parts, six products summed: float32
+accuracy, never TF32, to match the reference's Precision.HIGHEST), K4 and
+K4h on s8 wgmma in csrc/conv3x3_s8.cu.  K3 and K4a run on CUDA cores.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback.  `LAUNCHES` counts

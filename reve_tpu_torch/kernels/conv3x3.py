@@ -1,6 +1,7 @@
 """K1 `conv3x3_bias_prelu` (csrc/conv3x3_tc.cu in bfloat16,
 csrc/conv3x3_f32_tc.cu in float32), K3 `conv3x3_u8_bias_prelu` and K4a
-`conv3x3_u8_bias_prelu_q8` (csrc/conv3x3.cu).
+`conv3x3_u8_bias_prelu_q8` (csrc/conv3x3.cu), and the weight packing of
+the tensor-core kernels.
 
 K1 replaces the hidden layers of reve_tpu/models/srvgg.py:apply
 (`_prelu(_conv3x3(h, w, b), alpha)`, srvgg.py:88-113, applied at
@@ -38,7 +39,7 @@ from reve_tpu_torch.kernels import LAUNCHES, build
 SOURCE = "conv3x3.cu"
 #: bfloat16 K1 and K2 on the tensor cores
 TC_SOURCE = "conv3x3_tc.cu"
-#: float32 K1 on the tensor cores (bf16x6) and its split pass
+#: float32 K1 and K2 on the tensor cores (bf16x6) and their split pass
 F32_SOURCE = "conv3x3_f32_tc.cu"
 #: (rows, columns) of those kernels' output tile (TH, TW in TC_SOURCE)
 TC_TILE = (4, 64)
@@ -102,12 +103,27 @@ def split_bf16x3_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, mid, (r - mid.float()).to(torch.bfloat16)])
 
 
+def padded_n(cout: int) -> int:
+    """The N of a wgmma over `cout` output channels: a multiple of 8 (64
+    for the hidden convs; 16, 32, 48 for the heads at r = 2, 3, 4)."""
+    return (cout + 7) // 8 * 8
+
+
+def pad_outputs(w: torch.Tensor) -> torch.Tensor:
+    """HWIO weights with the output channels padded with zeros to
+    padded_n."""
+    cout = w.shape[-1]
+    return F.pad(w, (0, padded_n(cout) - cout))
+
+
 def pack_weights_bf16x3(w: torch.Tensor) -> torch.Tensor:
-    """float32 HWIO (3, 3, 64, 64) -> the weights float32 K1 streams, tap
-    by tap: (9, 3, 8, 64, 8) bfloat16 [tap][split][k / 8][n][8], with
-    packed[t, s, kb, n, kk] = split_bf16x3(w)[s, t // 3, t % 3, 8 kb + kk,
-    n] (B K-major in core matrices of 8 rows x 16 B)."""
-    s = split_bf16x3_plain(w).reshape(3, 9, FEAT // 8, 8, FEAT)
+    """float32 HWIO (3, 3, 64, cout) -> the weights float32 K1 and K2
+    stream, tap by tap: (9, 3, 8, N, 8) bfloat16 [tap][split][k / 8][n][8],
+    N = padded_n(cout), with packed[t, s, kb, n, kk] = split_bf16x3(w)[s,
+    t // 3, t % 3, 8 kb + kk, n] for n < cout and 0 above (B K-major in
+    core matrices of 8 rows x 16 B)."""
+    n = padded_n(w.shape[-1])
+    s = split_bf16x3_plain(pad_outputs(w)).reshape(3, 9, FEAT // 8, 8, n)
     return s.permute(1, 0, 2, 4, 3).contiguous()
 
 
@@ -177,8 +193,8 @@ def _launch(entry: str, x, w, b, alpha, inv=None,
 
 
 def split_bf16x3(x: torch.Tensor) -> torch.Tensor:
-    """The split pass of float32 K1: (..., 64) float32 -> (3, ..., 64)
-    bfloat16 planes hi, mid, lo (see split_bf16x3_plain)."""
+    """The split pass of float32 K1 and K2: (..., 64) float32 -> (3, ...,
+    64) bfloat16 planes hi, mid, lo (see split_bf16x3_plain)."""
     if x.device.type == "cpu":
         return split_bf16x3_plain(x)
     if x.device.type != "cuda":

@@ -1,5 +1,6 @@
 """K4 `conv3x3_s8_dq_prelu_q8` (csrc/conv3x3_s8.cu): one hidden layer of
-the int8 SRVGG body.
+the int8 SRVGG body.  The same source holds K4h, the int8 head (its
+wrapper is kernels/head.py's).
 
 Replaces the classic-domain loop of reve_tpu/models/srvgg.py:apply_int8
 (srvgg.py:380-382): `_conv3x3_s8` (s8 x s8 -> s32, :268-276), the
@@ -28,7 +29,8 @@ import torch.nn.functional as F
 
 from reve_tpu_torch.kernels import LAUNCHES, build
 from reve_tpu_torch.kernels.conv3x3 import (FEAT, check_operands,
-                                            f32_operand, quant_s8_plain)
+                                            f32_operand, pad_outputs,
+                                            padded_n, quant_s8_plain)
 
 SOURCE = "conv3x3_s8.cu"
 
@@ -60,11 +62,13 @@ def conv3x3_s8_dq_prelu_q8_plain(x8, w8, scale, b, alpha,
 
 
 def pack_weights_s8(w8: torch.Tensor) -> torch.Tensor:
-    """s8 HWIO (3, 3, 64, 64) -> the kernel's resident weights: (9, 4, 64,
-    16) int8 [tap][k / 16][n][16], packed[t, kb, n, kk] = w8[t // 3, t % 3,
-    16 kb + kk, n] (B K-major in core matrices of 8 rows x 16 B)."""
-    return w8.reshape(9, FEAT // 16, 16, FEAT).permute(0, 1, 3, 2) \
-        .contiguous()
+    """s8 HWIO (3, 3, 64, cout) -> the resident weights of K4 and K4h: (9,
+    4, N, 16) int8 [tap][k / 16][n][16], N = padded_n(cout),
+    packed[t, kb, n, kk] = w8[t // 3, t % 3, 16 kb + kk, n] for n < cout
+    and 0 above (B K-major in core matrices of 8 rows x 16 B)."""
+    n = padded_n(w8.shape[-1])
+    return pad_outputs(w8).reshape(9, FEAT // 16, 16, n) \
+        .permute(0, 1, 3, 2).contiguous()
 
 
 # -- kernel wrapper -----------------------------------------------------------

@@ -36,11 +36,15 @@ __device__ __forceinline__ float u8_to_unit(uint8_t v) {
 }
 
 // The head's float32 residual + u8 rounding of one output channel:
-// u8(clip((h + base) * 255 + 0.5, 0, 255)), each step rounded on its own.
+// u8(clip((h + base) * 255 + 0.5, 0, 255)), each step rounded on its own;
+// the clip and the truncating cast as one saturating conversion (NaN
+// gives 0, as the clip does).
 __device__ __forceinline__ uint8_t residual_u8(float hv, float base) {
   const float yv = __fadd_rn(hv, base);
   const float q = __fadd_rn(__fmul_rn(yv, 255.f), 0.5f);
-  return (uint8_t)fminf(fmaxf(q, 0.f), 255.f);
+  unsigned short r;
+  asm("cvt.rzi.sat.u8.f32 %0, %1;" : "=h"(r) : "f"(q));
+  return (uint8_t)r;
 }
 
 // Round v to T and back: the value a cast to the compute dtype leaves.
@@ -55,15 +59,6 @@ __device__ __forceinline__ float round_to(float v) {
 __device__ __forceinline__ int8_t quant_s8(float x, float inv) {
   const float q = rintf(__fmul_rn(x, inv));
   return (int8_t)(int)fminf(fmaxf(q, -127.f), 127.f);
-}
-
-// Four s8 values of HWIO weights (input channels ci..ci+3 of one output
-// channel, `stride` bytes apart) packed into one __dp4a word, lowest
-// channel in the lowest byte -- the order of an s8 NHWC pixel read as words.
-__device__ __forceinline__ int pack_s8x4(const int8_t* w, int stride) {
-  return (int)((uint32_t)(uint8_t)w[0] | ((uint32_t)(uint8_t)w[stride] << 8) |
-               ((uint32_t)(uint8_t)w[2 * stride] << 16) |
-               ((uint32_t)(uint8_t)w[3 * stride] << 24));
 }
 
 // Launch grid for a persistent kernel: one wave of resident blocks (each

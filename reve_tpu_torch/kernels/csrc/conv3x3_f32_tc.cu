@@ -1,11 +1,17 @@
-// K1 conv3x3_bias_prelu in float32, on the tensor cores as a six-pass
-// bf16 product ("bf16x6"), and its split pass.
+// K1 conv3x3_bias_prelu and K2 head_conv_residual_u8_shuffle in float32,
+// on the tensor cores as a six-pass bf16 product ("bf16x6"): one
+// mainloop, two epilogues; and their split pass.
 //
-// Replaces (TPU side): reve_tpu/models/srvgg.py:_conv3x3 at float32 with
-// Precision.HIGHEST (srvgg.py:91-107) + _prelu, the 16 hidden 64->64
-// layers of apply (srvgg.py:205-210): float32 accumulation, + b in
-// float32, PReLU in float32 with float32 alpha.  The int8 path's float32
-// calibration and certification passes run it too.
+// Replaces (TPU side), at float32 with Precision.HIGHEST (srvgg.py:91-107):
+//   K1  reve_tpu/models/srvgg.py:_conv3x3 + _prelu, the 16 hidden 64->64
+//       layers of apply (srvgg.py:205-210): float32 accumulation, + b in
+//       float32, PReLU in float32 with float32 alpha;
+//   K2  the head _conv3x3 (srvgg.py:211-212) with
+//       _epilogue(quantize_u8=True) (srvgg.py:239-262) and
+//       reve_tpu/ops/pixel_shuffle.py:14-22: + b in float32 (no cast: the
+//       compute dtype is float32), + repeat(u8 / 255, r^2) in float32,
+//       u8(clip(y * 255 + 0.5, 0, 255)), stored in pixel-shuffle order.
+// The int8 path's float32 calibration and certification passes run both.
 //
 // Scheme.  Each float32 value splits into three bf16 parts, hi = bf16(x),
 // mid = bf16(x - hi), lo = bf16(x - hi - mid): each subtraction is exact
@@ -19,32 +25,40 @@
 // in one register set and the five smaller products in another, added in
 // float32 in the epilogue: the large sum takes 36 truncating steps, not
 // 216.  The result is within 1e-4 of the plain float32 conv, not
-// bit-exact.
+// bit-exact (K2's u8 may differ by one where y * 255 + 0.5 sits near an
+// integer).
 //
-// Bound on an H100 SXM per call of 4 1080p frames: 6 x 611.5 GFLOP /
-// 989 TFLOP/s = 3.71 ms (operations); float32 in + out 4.25 GB -> 1.27 ms.
-// The CUDA-core form it replaces was bound at 9.13 ms (67 TFLOP/s).
+// Bound on an H100 SXM per call of 4 1080p frames: K1 6 x 611.5 GFLOP /
+// 989 TFLOP/s = 3.71 ms (operations), float32 in + out 4.25 GB -> 1.27 ms;
+// K2 at r=4 6 x 458.6 GFLOP -> 2.78 ms (operations), 2.12 GB float32 +
+// 25 MB u8 in + 398 MB u8 out -> 0.76 ms.  The CUDA-core forms they
+// replace were bound at 9.13 and 6.85 ms (67 TFLOP/s).
 //
 // Design.
 //  * split_bf16x3: an elementwise pass, float32 NHWC -> three bf16 NHWC
 //    planes (3, B, H, W, 64), 8 values a thread (two 16-B loads, three
 //    16-B stores).  4 B in and 6 B out per value: 5.3 GB per call, 1.6 ms
-//    at the card's bandwidth.  The wrapper launches it, then the conv.
+//    at the card's bandwidth.  The wrappers launch it, then the conv.
 //  * The conv is conv3x3_tc.cu's implicit GEMM (M = 64 pixels of a row,
-//    N = 64, K = 576 as 9 taps x 4 k16 steps), six wgmmas a step.  The
-//    three planes' halos ((4+2) x (64+2) pixels, 128-B swizzle, three TMA
+//    N = 64 for K1, 3r^2 padded to a multiple of 8 for K2: 16, 32, 48;
+//    K = 576 as 9 taps x 4 k16 steps), six wgmmas a step.  The three
+//    planes' halos ((4+2) x (64+2) pixels, 128-B swizzle, three TMA
 //    copies of one tensor map over the planes) take 153,600 B and are
 //    single-buffered: the next tile's halo loads while this tile's
-//    epilogue runs.  The weights' three splits (221,184 B) cannot stay
-//    resident beside them, so they stream tap by tap (24,576 B: the
-//    tap's three splits, [split][k / 8][n][8], packed by the wrapper)
-//    through a ring of three stages by bulk copies; all of them stay in
-//    L2.  A producer warp issues every copy, so the four warpgroups run
-//    no branch between a wgmma and its wait (ptxas serialises wgmmas that
-//    straddle one, C7518) and the taps' wgmmas overlap.
-//  * The epilogue writes float32 straight from the accumulator fragment
+//    epilogue runs.  The weights' three splits (221,184 B for K1) cannot
+//    stay resident beside them, so they stream tap by tap (the tap's
+//    three splits, [split][k / 8][n][8], packed by the wrapper: 24,576 B
+//    for K1, 18,432 B for K2 at r=4) through a ring of three stages by
+//    bulk copies; all of them stay in L2.  A producer warp issues every
+//    copy, so the four warpgroups run no branch between a wgmma and its
+//    wait (ptxas serialises wgmmas that straddle one, C7518) and the
+//    taps' wgmmas overlap.
+//  * K1's epilogue writes float32 straight from the accumulator fragment
 //    (8-B stores, whole 32-B sectors), with the reference's rounding:
-//    __fadd_rn for + b, __fmul_rn for PReLU.
+//    __fadd_rn for + b, __fmul_rn for PReLU.  K2's is bf16 K2's (tc.cuh's
+//    HeadEpilogue) with the value acc + cor + b in float32: it reads the
+//    row's u8 pixels before the wgmmas, stages r output rows of 64r x 3
+//    bytes in shuffle order and writes them as 16-B vectors.
 #include "tc.cuh"
 
 namespace {
@@ -52,61 +66,82 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace reve::tc;
 
-constexpr int CIN = 64, COUT = 64;
+constexpr int CIN = 64;
 constexpr int TH = 4;   // tile rows, one warpgroup each
 constexpr int TW = 64;  // tile columns: the M of one wgmma
 constexpr int THREADS = 128 * TH + 32;  // + the producer warp
 constexpr int PLANES = 3;  // hi, mid, lo
 constexpr int HALO_TX = (TH + 2) * (TW + 2) * CIN * 2;  // one plane's copy
 constexpr int HALO_BYTES = (HALO_TX + 1023) / 1024 * 1024;  // 1024-B aligned
-constexpr int SPLIT_BYTES = CIN * COUT * 2;  // one tap's weights, one split
-constexpr int TAP_BYTES = PLANES * SPLIT_BYTES;
 constexpr int STAGES = 3;  // weight ring
-constexpr size_t OFF_W = (size_t)PLANES * HALO_BYTES;
-constexpr size_t OFF_PAR = OFF_W + (size_t)STAGES * TAP_BYTES;  // bias, alpha
-constexpr size_t OFF_BAR = OFF_PAR + 2 * COUT * sizeof(float);
-// barriers: halo full, halo empty, then STAGES full, then STAGES empty
-constexpr size_t SMEM = OFF_BAR + (2 + 2 * STAGES) * sizeof(uint64_t);
-static_assert(SMEM <= 232448, "more shared memory than a block may have");
 using Grid = TileGrid<TH, TW>;
+
+// R = 0: K1 (bias + PReLU, float32 out); R = 2, 3, 4: K2 (u8 residual +
+// pixel shuffle at scale R).
+template <int R>
+struct F32 {
+  using Epi = HeadEpilogue<R>;  // K2's; unused by K1
+  static constexpr int COUT = R == 0 ? CIN : 3 * R * R;
+  static constexpr int N = (COUT + 7) / 8 * 8;
+  static constexpr int SPLIT_BYTES = CIN * N * 2;  // one tap, one split
+  static constexpr int TAP_BYTES = PLANES * SPLIT_BYTES;
+  // K2's staged output rows and input pixels, one area per warpgroup
+  static constexpr int STAGE = R == 0 ? 0 : Epi::STAGE;
+  static constexpr int ORIG = R == 0 ? 0 : Epi::ORIG;
+  static constexpr size_t OFF_W = (size_t)PLANES * HALO_BYTES;
+  static constexpr size_t OFF_STAGE = OFF_W + (size_t)STAGES * TAP_BYTES;
+  static constexpr size_t OFF_ORIG = OFF_STAGE + TH * STAGE;
+  static constexpr size_t OFF_PAR = OFF_ORIG + TH * ORIG;  // bias, alpha
+  static constexpr size_t OFF_BAR = OFF_PAR + 2 * N * sizeof(float);
+  // barriers: halo full, halo empty, then STAGES full, then STAGES empty
+  static constexpr size_t SMEM = OFF_BAR + (2 + 2 * STAGES) * sizeof(uint64_t);
+  static_assert(SMEM <= 232448, "more shared memory than a block may have");
+};
 
 // Six wgmmas of one k16 step: `a` is the hi plane's A operand (mid and lo
 // one and two halo buffers later), `w` the stage's hi weights (mid and lo
-// SPLIT_BYTES and 2 * SPLIT_BYTES later).  hi.hi into `acc`, the five
-// smaller products into `cor`, smallest first.
-__device__ __forceinline__ void mma_bf16x6(float (&acc)[32], float (&cor)[32],
-                                           uint32_t a, uint32_t w) {
+// one and two splits later).  hi.hi into `acc`, the five smaller products
+// into `cor`, smallest first.
+template <int N>
+__device__ __forceinline__ void mma_bf16x6(float (&acc)[N / 2],
+                                           float (&cor)[N / 2], uint32_t a,
+                                           uint32_t w) {
+  constexpr int SPLIT = CIN * N * 2;
   const uint64_t ah = desc_sw128(a), am = desc_sw128(a + HALO_BYTES),
                  al = desc_sw128(a + 2 * HALO_BYTES);
-  const uint64_t bh = desc(w, COUT * 16),
-                 bm = desc(w + SPLIT_BYTES, COUT * 16),
-                 bl = desc(w + 2 * SPLIT_BYTES, COUT * 16);
-  Wgmma<64>::mma(cor, al, bh);
-  Wgmma<64>::mma(cor, ah, bl);
-  Wgmma<64>::mma(cor, am, bm);
-  Wgmma<64>::mma(cor, am, bh);
-  Wgmma<64>::mma(cor, ah, bm);
-  Wgmma<64>::mma(acc, ah, bh);
+  const uint64_t bh = desc(w, N * 16), bm = desc(w + SPLIT, N * 16),
+                 bl = desc(w + 2 * SPLIT, N * 16);
+  Wgmma<N>::mma(cor, al, bh);
+  Wgmma<N>::mma(cor, ah, bl);
+  Wgmma<N>::mma(cor, am, bm);
+  Wgmma<N>::mma(cor, am, bh);
+  Wgmma<N>::mma(cor, ah, bm);
+  Wgmma<N>::mma(acc, ah, bh);
 }
 
+template <int R>
 __global__ void __launch_bounds__(THREADS, 1)
 conv3x3_f32_tc_kernel(const __grid_constant__ CUtensorMap map,
                       const bf16* __restrict__ w,
                       const float* __restrict__ bias,
                       const float* __restrict__ alpha,
-                      float* __restrict__ y, int B, int H, int W) {
+                      const uint8_t* __restrict__ orig,
+                      void* __restrict__ out, int B, int H, int W) {
+  using F = F32<R>;
+  using Epi = typename F::Epi;
+  constexpr int N = F::N, COUT = F::COUT, TAP_BYTES = F::TAP_BYTES;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
   const int tid = threadIdx.x;
   const int wg = tid >> 7, t = tid & 127;  // warpgroup = tile row
 
-  float* bs = reinterpret_cast<float*>(smem + OFF_PAR);
-  float* as = bs + COUT;
-  for (int i = tid; i < COUT; i += THREADS) {
-    bs[i] = bias[i];
-    as[i] = alpha[i];
+  float* bs = reinterpret_cast<float*>(smem + F::OFF_PAR);
+  float* as = bs + N;
+  for (int i = tid; i < N; i += THREADS) {
+    bs[i] = i < COUT ? bias[i] : 0.f;
+    as[i] = R == 0 ? alpha[i] : 0.f;
   }
-  const uint32_t halo_full = base + (uint32_t)OFF_BAR;
+  const uint32_t halo_full = base + (uint32_t)F::OFF_BAR;
   const uint32_t halo_empty = halo_full + 8;
   const uint32_t w_full = halo_full + 16;
   const uint32_t w_empty = w_full + 8 * STAGES;
@@ -145,7 +180,7 @@ conv3x3_f32_tc_kernel(const __grid_constant__ CUtensorMap map,
       if (gi >= STAGES)
         mbar_wait(w_empty + 8 * s, (uint32_t)((gi / STAGES - 1) & 1));
       mbar_expect_tx(w_full + 8 * s, TAP_BYTES);
-      bulk_load(base + (uint32_t)(OFF_W + s * TAP_BYTES),
+      bulk_load(base + (uint32_t)(F::OFF_W + s * TAP_BYTES),
                 w + (gi % 9) * (TAP_BYTES / 2), TAP_BYTES, w_full + 8 * s);
       if (gi % 9 == 0 && gi > 0) {
         const long long it = gi / 9;
@@ -164,10 +199,17 @@ conv3x3_f32_tc_kernel(const __grid_constant__ CUtensorMap map,
   for (long long it = 0; tile < g.count; tile += gridDim.x, ++it) {
     int b, y0, x0;
     g.origin(tile, b, y0, x0);
+    const int oy = y0 + wg;
+    const int valid = min(TW, W - x0);  // pixels of this row in the frame
+    // K2 reads the row's u8 input pixels before the wgmmas; the loads
+    // land while the tensor cores work
+    uint8_t o0 = 0, o1 = 0;
+    if constexpr (R > 0)
+      Epi::load_orig(orig, b, oy, x0, H, W, valid, t, o0, o1);
     mbar_wait(halo_full, (uint32_t)(it & 1));
-    float acc[32], cor[32];
+    float acc[N / 2], cor[N / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = cor[i] = 0.f;
+    for (int i = 0; i < N / 2; ++i) acc[i] = cor[i] = 0.f;
     const uint32_t a_row = base + wg * (TW + 2) * CIN * 2;
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
@@ -175,13 +217,13 @@ conv3x3_f32_tc_kernel(const __grid_constant__ CUtensorMap map,
       const int s = (int)(gi % STAGES);
       mbar_wait(w_full + 8 * s, (uint32_t)((gi / STAGES) & 1));
       const uint32_t a = a_row + ((tap / 3) * (TW + 2) + tap % 3) * CIN * 2;
-      const uint32_t ws = base + (uint32_t)(OFF_W + s * TAP_BYTES);
+      const uint32_t ws = base + (uint32_t)(F::OFF_W + s * TAP_BYTES);
       fence_regs(acc);
       fence_regs(cor);
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < CIN / 16; ++kc)
-        mma_bf16x6(acc, cor, a + kc * 32, ws + 2 * kc * COUT * 16);
+        mma_bf16x6<N>(acc, cor, a + kc * 32, ws + 2 * kc * N * 16);
       wgmma_commit();
       fence_regs(acc);
       fence_regs(cor);
@@ -202,27 +244,37 @@ conv3x3_f32_tc_kernel(const __grid_constant__ CUtensorMap map,
 
     // accumulator fragment: register 4j + 2h + e holds pixel
     // 16 * warp + lane / 4 + 8h, channel 8j + 2 * (lane % 4) + e
-    const int oy = y0 + wg;
-    if (oy < H) {
-      float* yr = y + ((long long)b * H + oy) * W * COUT;
+    if constexpr (R == 0) {
+      if (oy < H) {
+        float* yr =
+            static_cast<float*>(out) + ((long long)b * H + oy) * W * COUT;
 #pragma unroll
-      for (int j = 0; j < COUT / 8; ++j)
+        for (int j = 0; j < COUT / 8; ++j)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int p = p0 + 8 * h, c = 8 * j + c0;
-          if (x0 + p >= W) continue;
-          // conv + b in float32; PReLU in float32:
-          // max(v, 0) + alpha * min(v, 0)
-          float v0 = __fadd_rn(
-              __fadd_rn(acc[4 * j + 2 * h], cor[4 * j + 2 * h]), bs[c]);
-          float v1 = __fadd_rn(
-              __fadd_rn(acc[4 * j + 2 * h + 1], cor[4 * j + 2 * h + 1]),
-              bs[c + 1]);
-          v0 = v0 > 0.f ? v0 : __fmul_rn(as[c], v0);
-          v1 = v1 > 0.f ? v1 : __fmul_rn(as[c + 1], v1);
-          *reinterpret_cast<float2*>(yr + (long long)(x0 + p) * COUT + c) =
-              make_float2(v0, v1);
-        }
+          for (int h = 0; h < 2; ++h) {
+            const int p = p0 + 8 * h, c = 8 * j + c0;
+            if (x0 + p >= W) continue;
+            // conv + b in float32; PReLU in float32:
+            // max(v, 0) + alpha * min(v, 0)
+            float v0 = __fadd_rn(
+                __fadd_rn(acc[4 * j + 2 * h], cor[4 * j + 2 * h]), bs[c]);
+            float v1 = __fadd_rn(
+                __fadd_rn(acc[4 * j + 2 * h + 1], cor[4 * j + 2 * h + 1]),
+                bs[c + 1]);
+            v0 = v0 > 0.f ? v0 : __fmul_rn(as[c], v0);
+            v1 = v1 > 0.f ? v1 : __fmul_rn(as[c + 1], v1);
+            *reinterpret_cast<float2*>(yr + (long long)(x0 + p) * COUT + c) =
+                make_float2(v0, v1);
+          }
+      }
+    } else {
+      // conv + b in float32, no cast (the compute dtype is float32)
+      Epi::template row<N>(
+          smem + F::OFF_STAGE + wg * F::STAGE,
+          smem + F::OFF_ORIG + wg * F::ORIG, static_cast<uint8_t*>(out), b,
+          oy, x0, H, W, valid, wg, t, o0, o1, [&](int q, int kk) {
+            return __fadd_rn(__fadd_rn(acc[q], cor[q]), bs[kk]);
+          });
     }
   }
 }
@@ -260,6 +312,27 @@ split_bf16x3_kernel(const float4* __restrict__ x, uint4* __restrict__ out,
   }
 }
 
+template <int R>
+cudaError_t launch(const void* planes, const void* wp, const float* b,
+                   const float* alpha, const uint8_t* orig, void* out, int B,
+                   int H, int W, cudaStream_t stream) {
+  const long long tiles =
+      (long long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+  if (tiles == 0) return cudaSuccess;
+  CUtensorMap map;
+  cudaError_t err =
+      halo_map(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, planes, PLANES * B,
+               H, W, TW + 2, TH + 2, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  auto kernel = conv3x3_f32_tc_kernel<R>;
+  int grid = 0;
+  err = reve::persistent_grid(kernel, THREADS, F32<R>::SMEM, tiles, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, THREADS, F32<R>::SMEM, stream>>>(
+      map, static_cast<const bf16*>(wp), b, alpha, orig, out, B, H, W);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The split pass: `n` float32 values (a multiple of 8, 16-B aligned) ->
@@ -290,21 +363,24 @@ extern "C" int reve_conv3x3_bias_prelu_f32tc(const void* planes,
                                              const float* alpha, void* y,
                                              int B, int H, int W,
                                              void* stream) {
-  const long long tiles =
-      (long long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
-  if (tiles == 0) return (int)cudaSuccess;
-  CUtensorMap map;
-  cudaError_t err =
-      halo_map(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, planes, PLANES * B,
-               H, W, TW + 2, TH + 2, CU_TENSOR_MAP_SWIZZLE_128B);
-  if (err != cudaSuccess) return (int)err;
-  int grid = 0;
-  err = reve::persistent_grid(conv3x3_f32_tc_kernel, THREADS, SMEM, tiles,
-                              &grid);
-  if (err != cudaSuccess) return (int)err;
-  conv3x3_f32_tc_kernel<<<grid, THREADS, SMEM,
-                          static_cast<cudaStream_t>(stream)>>>(
-      map, static_cast<const bf16*>(wp), b, alpha, static_cast<float*>(y), B,
-      H, W);
-  return (int)cudaGetLastError();
+  return (int)launch<0>(planes, wp, b, alpha, nullptr, y, B, H, W,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// float32 K2 on the split planes of its input, the weights packed as K1's
+// with n padded with zeros to 3r^2 rounded up to a multiple of 8; `b`:
+// 3r^2 float32; r in {2, 3, 4}.  Returns a cudaError_t (0 = success).
+extern "C" int reve_head_conv_residual_u8_shuffle_f32tc(
+    const void* planes, const void* wp, const float* b, const uint8_t* orig,
+    uint8_t* out, int B, int H, int W, int r, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (r) {
+    case 2: return (int)launch<2>(planes, wp, b, nullptr, orig, out, B, H, W,
+                                  s);
+    case 3: return (int)launch<3>(planes, wp, b, nullptr, orig, out, B, H, W,
+                                  s);
+    case 4: return (int)launch<4>(planes, wp, b, nullptr, orig, out, B, H, W,
+                                  s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

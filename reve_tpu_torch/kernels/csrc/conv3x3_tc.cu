@@ -1,9 +1,9 @@
 // K1 conv3x3_bias_prelu and K2 head_conv_residual_u8_shuffle in bfloat16,
 // on the tensor cores: one implicit-GEMM mainloop (wgmma), two epilogues.
 //
-// Replaces (TPU side), in bfloat16 (float32 K1 is conv3x3_f32_tc.cu's, a
-// six-pass bf16 split on wgmma; float32 K2 stays on head.cu's CUDA cores;
-// both match Precision.HIGHEST, which TF32 would not):
+// Replaces (TPU side), in bfloat16 (float32 K1 and K2 are
+// conv3x3_f32_tc.cu's, a six-pass bf16 split on wgmma that matches
+// Precision.HIGHEST, which TF32 would not):
 //   K1  reve_tpu/models/srvgg.py:_conv3x3 + _prelu (srvgg.py:88-113), the
 //       16 hidden 64->64 layers of apply (srvgg.py:205-210);
 //   K2  the head _conv3x3 (srvgg.py:211-212) with _epilogue(quantize_u8=True)
@@ -52,7 +52,8 @@
 //    64 x 64 in shared memory (16-B chunks XOR-swizzled by pixel) and writes
 //    it as 16-B vectors, one contiguous 8 KB run per row.  K2 reads the
 //    row's u8 pixels once, stages its r output rows of 64r x 3 bytes in
-//    shared memory in pixel-shuffle order, and writes each as 16-B vectors.
+//    shared memory in pixel-shuffle order, and writes each as 16-B vectors
+//    (tc.cuh's HeadEpilogue, which float32 K2 and K4h share).
 // The barrier, TMA, descriptor and wgmma helpers are tc.cuh's.
 #include "tc.cuh"
 
@@ -74,13 +75,14 @@ using Grid = TileGrid<TH, TW>;
 // pixel shuffle at scale R).
 template <int R>
 struct Tc {
+  using Epi = HeadEpilogue<R>;  // K2's; unused by K1
   static constexpr int COUT = R == 0 ? CIN : 3 * R * R;
   static constexpr int N = (COUT + 7) / 8 * 8;
   static constexpr int W_BYTES = 9 * CIN * N * 2;
   // staged output of one warpgroup's row: 64 x 64 bf16, or R rows of
   // 64R x 3 u8; then the row's u8 input pixels (K2)
-  static constexpr int STAGE = R == 0 ? TW * CIN * 2 : R * TW * R * 3;
-  static constexpr int ORIG = R == 0 ? 0 : TW * 3;
+  static constexpr int STAGE = R == 0 ? TW * CIN * 2 : Epi::STAGE;
+  static constexpr int ORIG = R == 0 ? 0 : Epi::ORIG;
   static constexpr size_t OFF_W = 2 * HALO_BYTES;
   static constexpr size_t OFF_STAGE = OFF_W + W_BYTES;
   static constexpr size_t OFF_ORIG = OFF_STAGE + TH * STAGE;
@@ -137,6 +139,7 @@ conv3x3_tc_kernel(const __grid_constant__ CUtensorMap map,
                   const uint8_t* __restrict__ orig, void* __restrict__ out,
                   int B, int H, int W) {
   using C = Tc<R>;
+  using Epi = typename C::Epi;
   constexpr int N = C::N, COUT = C::COUT;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
@@ -193,12 +196,8 @@ conv3x3_tc_kernel(const __grid_constant__ CUtensorMap map,
     // tensor cores work
     const int valid = min(TW, W - x0);  // pixels of this row in the frame
     uint8_t o0 = 0, o1 = 0;
-    if constexpr (R > 0) {
-      const int n = oy < H ? valid * 3 : 0;
-      const uint8_t* row = orig + (((long long)b * H + oy) * W + x0) * 3;
-      if (t < n) o0 = row[t];
-      if (t + 128 < n) o1 = row[t + 128];
-    }
+    if constexpr (R > 0)
+      Epi::load_orig(orig, b, oy, x0, H, W, valid, t, o0, o1);
     wait_mma<N>(acc);
 
     // accumulator fragment: register 4j + 2h + e holds pixel
@@ -234,47 +233,12 @@ conv3x3_tc_kernel(const __grid_constant__ CUtensorMap map,
         }
       }
     } else {
-      constexpr int ROW = TW * R * 3;  // staged bytes of one output row
-      unsigned char* os = smem + C::OFF_ORIG + wg * C::ORIG;
-      os[t] = o0;
-      if (t + 128 < C::ORIG) os[t + 128] = o1;
-      warpgroup_sync(wg);
-#pragma unroll
-      for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int p = p0 + 8 * h, kk = 8 * j + c0 + e;
-            if (kk < COUT) {
-              // channel kk = c * R^2 + i * R + jj -> output pixel
-              // (oy * R + i, (x0 + p) * R + jj), colour c
-              const int c = kk / (R * R), i = (kk / R) % R, jj = kk % R;
-              const float hv =
-                  round_to<bf16>(__fadd_rn(acc[4 * j + 2 * h + e], bs[kk]));
-              st[i * ROW + (p * R + jj) * 3 + c] =
-                  reve::residual_u8(hv, reve::u8_to_unit(os[p * 3 + c]));
-            }
-          }
-      warpgroup_sync(wg);
-      if (oy < H) {
-        const long long out_row = (long long)W * R * 3;
-        uint8_t* o = static_cast<uint8_t*>(out) +
-                     ((long long)b * H + oy) * R * out_row +
-                     (long long)x0 * R * 3;
-        const int bytes = valid * R * 3;
-        for (int q = t; q < R * ROW / 16; q += 128) {
-          const int i = q / (ROW / 16), off = (q - i * (ROW / 16)) * 16;
-          if (off >= bytes) continue;
-          uint8_t* dst = o + i * out_row + off;
-          const unsigned char* src = st + i * ROW + off;
-          if (off + 16 <= bytes && (reinterpret_cast<uintptr_t>(dst) & 15) == 0)
-            *reinterpret_cast<uint4*>(dst) =
-                *reinterpret_cast<const uint4*>(src);
-          else  // a ragged edge, or rows not 16-B aligned (W * 3R % 16)
-            for (int k = 0; k < 16 && off + k < bytes; ++k) dst[k] = src[k];
-        }
-      }
+      // conv + b in float32, cast to bf16, then the residual
+      Epi::template row<N>(
+          st, smem + C::OFF_ORIG + wg * C::ORIG, static_cast<uint8_t*>(out),
+          b, oy, x0, H, W, valid, wg, t, o0, o1, [&](int q, int kk) {
+            return round_to<bf16>(__fadd_rn(acc[q], bs[kk]));
+          });
     }
   }
 }
@@ -307,7 +271,7 @@ cudaError_t launch(const void* x, const void* w, const float* b,
 
 }  // namespace
 
-// K1, bfloat16 only (dtype 1; float32 is conv3x3.cu's).  Returns a
+// K1, bfloat16 only (dtype 1; float32 is conv3x3_f32_tc.cu's).  Returns a
 // cudaError_t (0 = success).
 extern "C" int reve_conv3x3_bias_prelu_tc(const void* x, const void* w,
                                           const float* b, const float* alpha,
@@ -318,7 +282,8 @@ extern "C" int reve_conv3x3_bias_prelu_tc(const void* x, const void* w,
                         static_cast<cudaStream_t>(stream));
 }
 
-// K2, bfloat16 only (dtype 1; float32 is head.cu's); r in {2, 3, 4}.
+// K2, bfloat16 only (dtype 1; float32 is conv3x3_f32_tc.cu's); r in {2, 3,
+// 4}.
 extern "C" int reve_head_conv_residual_u8_shuffle_tc(
     const void* x, const void* w, const float* b, const uint8_t* orig,
     uint8_t* out, int B, int H, int W, int r, int dtype, void* stream) {

@@ -1,7 +1,8 @@
 // Shared pieces of the tensor-core conv kernels (sm_90a): shared-memory
 // addresses, mbarriers, TMA copies, wgmma descriptors and instructions,
-// and the persistent walk over output tiles.  Used by conv3x3_tc.cu
-// (bfloat16 K1, K2), conv3x3_f32_tc.cu (float32 K1) and conv3x3_s8.cu (K4).
+// the heads' u8 epilogue and the persistent walk over output tiles.  Used
+// by conv3x3_tc.cu (bfloat16 K1, K2), conv3x3_f32_tc.cu (float32 K1, K2)
+// and conv3x3_s8.cu (K4, K4h).
 //
 // Every conv here is an implicit GEMM over a halo tile in shared memory:
 // one halo pixel is one row of the K-major A operand (64 channels: 128 B
@@ -216,25 +217,160 @@ struct Wgmma<64> {
   }
 };
 
-// D (64 x 64, s32) += A (64 x 32) * B (32 x 64), both s8 from shared
-// memory.  8-bit wgmma takes no transpose: both operands are K-major.
-__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t a,
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
-      "%27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
+// D (64 x N, s32) += A (64 x 32) * B (32 x N), both s8 from shared
+// memory.  8-bit wgmma takes no transpose: both operands are K-major.  The
+// s32 fragment has the f32 fragment's layout, N / 2 registers a thread.
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<16> {
+  __device__ static void mma(int (&d)[8], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<32> {
+  __device__ static void mma(int (&d)[16], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15}, %16, %17, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<48> {
+  __device__ static void mma(int (&d)[24], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<64> {
+  __device__ static void mma(int (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+        "%27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// The heads' u8 epilogue (bf16 K2 in conv3x3_tc.cu, float32 K2 in
+// conv3x3_f32_tc.cu, K4h in conv3x3_s8.cu): one warpgroup's row of 64
+// pixels -> R output rows of 64R x 3 u8 in pixel-shuffle order (channel
+// c * R^2 + i * R + jj -> output pixel (oy * R + i, (x0 + p) * R + jj),
+// colour c), staged in shared memory and written as 16-B vectors.  The
+// kernel calls load_orig() before it waits for its wgmmas, then row().
+template <int R>
+struct HeadEpilogue {
+  static constexpr int COUT = 3 * R * R;
+  static constexpr int ROW = 64 * R * 3;  // staged bytes of one output row
+  static constexpr int STAGE = R * ROW;   // staged bytes of the R rows
+  static constexpr int ORIG = 64 * 3;     // the row's u8 input pixels
+
+  // The row's u8 input pixels, two bytes a thread (t < 128); read before
+  // the wgmmas are waited on, so the loads overlap them.  `valid`: pixels
+  // of the row inside the frame.
+  __device__ static void load_orig(const uint8_t* orig, int b, int oy,
+                                   int x0, int H, int W, int valid, int t,
+                                   uint8_t& o0, uint8_t& o1) {
+    const int n = oy < H ? valid * 3 : 0;
+    const uint8_t* row = orig + (((long long)b * H + oy) * W + x0) * 3;
+    o0 = t < n ? row[t] : 0;
+    o1 = t + 128 < n ? row[t + 128] : 0;
+  }
+
+  // The row of warpgroup `wg` (thread t of it) at output row oy: stage
+  // its input pixels o0, o1 in `os` (ORIG bytes), then for each register
+  // q = 4j + 2h + e of the N-wide accumulator fragment (pixel 16 * warp +
+  // lane / 4 + 8h, channel kk = 8j + 2 * (lane % 4) + e < COUT) the
+  // residual and u8 rounding of its float32 head value hv(q, kk) into
+  // `st` (STAGE bytes), then the store to `out`.  Each thread reads its
+  // 2 pixels x 3 residual bases once: the staging stores might alias
+  // them, so the compiler would read them again for every channel.
+  template <int N, typename Hv>
+  __device__ static void row(unsigned char* st, unsigned char* os,
+                             uint8_t* out, int b, int oy, int x0, int H,
+                             int W, int valid, int wg, int t, uint8_t o0,
+                             uint8_t o1, Hv hv) {
+    os[t] = o0;
+    if (t + 128 < ORIG) os[t + 128] = o1;
+    warpgroup_sync(wg);
+    const int lane = t & 31;
+    const int p0 = (t >> 5) * 16 + (lane >> 2), c0 = (lane & 3) * 2;
+    float bv[2][3];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        bv[h][c] = reve::u8_to_unit(os[(p0 + 8 * h) * 3 + c]);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kk = 8 * j + c0 + e;
+          if (kk >= COUT) continue;
+          const int c = kk / (R * R), i = (kk / R) % R, jj = kk % R;
+          const float base = c == 0 ? bv[h][0] : c == 1 ? bv[h][1] : bv[h][2];
+          st[i * ROW + ((p0 + 8 * h) * R + jj) * 3 + c] =
+              reve::residual_u8(hv(4 * j + 2 * h + e, kk), base);
+        }
+    warpgroup_sync(wg);
+    // the staged rows as 16-B vectors where the destination allows; a
+    // ragged edge, or rows not 16-B aligned (W * 3R % 16), byte by byte
+    if (oy >= H) return;
+    const long long out_row = (long long)W * R * 3;
+    uint8_t* o = out + ((long long)b * H + oy) * R * out_row +
+                 (long long)x0 * R * 3;
+    const int bytes = valid * R * 3;
+    for (int q = t; q < STAGE / 16; q += 128) {
+      const int i = q / (ROW / 16), off = (q - i * (ROW / 16)) * 16;
+      if (off >= bytes) continue;
+      uint8_t* dst = o + i * out_row + off;
+      const unsigned char* src = st + i * ROW + off;
+      if (off + 16 <= bytes && (reinterpret_cast<uintptr_t>(dst) & 15) == 0)
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      else
+        for (int k = 0; k < 16 && off + k < bytes; ++k) dst[k] = src[k];
+    }
+  }
+};
 
 // Output tiles of TH rows x TW pixels over B images, for persistent blocks.
 template <int TH, int TW>

@@ -1,5 +1,7 @@
 """K2 `head_conv_residual_u8_shuffle` and K4h
-`head_conv_s8_residual_u8_shuffle` (csrc/head.cu).
+`head_conv_s8_residual_u8_shuffle`, the SRVGG heads, all on the tensor
+cores: bfloat16 K2 in csrc/conv3x3_tc.cu, float32 K2 in
+csrc/conv3x3_f32_tc.cu, K4h in csrc/conv3x3_s8.cu.
 
 Replaces the SRVGG head of reve_tpu/models/srvgg.py:apply: the last
 `_conv3x3` (srvgg.py:211) with `_epilogue(quantize_u8=True)`
@@ -7,11 +9,14 @@ Replaces the SRVGG head of reve_tpu/models/srvgg.py:apply: the last
 (pixel_shuffle.py:14-22), which XLA fused into the conv graph on the TPU.
 
 Bound per 1080p frame at r=4 on an H100 SXM (989 TFLOP/s bf16,
-3.35 TB/s): 114.7 GFLOP -> 0.116 ms; 265 + 6 + 99.5 MB -> 0.111 ms.  The
+3.35 TB/s): 114.7 GFLOP -> 0.116 ms; 265 + 6 + 99.5 MB -> 0.111 ms.  Each
 kernel writes only the u8 (B, H*r, W*r, 3) output: no float32 head
-tensor and no separate shuffle pass.  bfloat16 K2 runs on the tensor
-cores (wgmma, csrc/conv3x3_tc.cu, K1's mainloop with N = 3r^2 padded to
-a multiple of 8); float32 K2 and K4h on CUDA cores (csrc/head.cu).
+tensor and no separate shuffle pass.  Each is its source's hidden-conv
+mainloop at N = 3r^2 padded to a multiple of 8 (16, 32, 48) with one
+shared epilogue (tc.cuh's HeadEpilogue): bfloat16 K2 on bf16 `wgmma`;
+float32 K2 as six bf16 products of its operands split in three
+(`split_bf16x3`, then the conv: float32 accuracy, never TF32), bound at
+6 x 458.6 GFLOP per call of 4 frames -> 2.78 ms; K4h on s8 `wgmma`.
 
 Rounding points follow the JAX reference: float32 accumulation + b in
 float32, cast to the compute dtype, + repeat(u8 / 255, r^2) in float32,
@@ -22,7 +27,8 @@ K4h is the int8 path's head (reve_tpu srvgg.py:383-386 with `_epilogue`,
 float32(y32) * (act_scale[n] * sw_last) + b_last, with NO cast to the
 compute dtype, then K2's residual, rounding and shuffle.  Bound at r=4 per
 call of 4 1080p frames: 458.6 GOP / 1979 TOP/s = 0.23 ms; 0.95 GB ->
-0.29 ms (bytes).
+0.29 ms (bytes).  Its accumulation is exact: it is bit-exact against its
+plain version.
 """
 
 from __future__ import annotations
@@ -32,14 +38,16 @@ import ctypes
 import torch
 
 from reve_tpu_torch.kernels import LAUNCHES, build
-from reve_tpu_torch.kernels.conv3x3 import (FEAT, TC_SOURCE, check_operands,
-                                            conv3x3_plain, f32_operand)
-from reve_tpu_torch.kernels.conv3x3_s8 import conv3x3_s8_plain
+from reve_tpu_torch.kernels.conv3x3 import (F32_SOURCE, FEAT, TC_SOURCE,
+                                            check_operands, conv3x3_plain,
+                                            f32_operand, pack_weights_bf16x3,
+                                            split_bf16x3)
+from reve_tpu_torch.kernels.conv3x3_s8 import (SOURCE as S8_SOURCE,
+                                               conv3x3_s8_plain,
+                                               pack_weights_s8)
 from reve_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 
-SOURCE = "head.cu"
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def residual_u8_plain(h: torch.Tensor, u8: torch.Tensor,
@@ -70,25 +78,42 @@ def _check_head(x, w, u8, r: int) -> None:
                          f"tensors (CPU tensors take the plain version)")
     if r not in (2, 3, 4):
         raise ValueError(f"upscale {r} not supported (2, 3, 4)")
-    B, H, W, C = x.shape
-    if C != FEAT or tuple(w.shape) != (3, 3, FEAT, 3 * r * r):
+    if x.dim() != 4 or x.shape[3] != FEAT or \
+            tuple(w.shape) != (3, 3, FEAT, 3 * r * r):
         raise ValueError(f"head shapes {tuple(x.shape)} x {tuple(w.shape)}; "
                          f"expected (B, H, W, {FEAT}) x "
                          f"(3, 3, {FEAT}, {3 * r * r})")
+    B, H, W, _ = x.shape
     if u8.dtype != torch.uint8 or tuple(u8.shape) != (B, H, W, 3):
         raise ValueError(f"residual input {tuple(u8.shape)} {u8.dtype}; "
                          f"expected ({B}, {H}, {W}, 3) uint8")
     check_operands(x, w, u8)
 
 
+def _launch(source: str, entry: str, ins, u8, out, ints, what: str):
+    """Call `entry` of `source`'s library: the input tensors' pointers,
+    u8's and out's, B, H, W, then `ints` (r, and the dtype code where the
+    entry takes one) and the stream."""
+    B, H, W, _ = u8.shape
+    lib = build.load(source)
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * (len(ins) + 2) + \
+        [ctypes.c_int] * (3 + len(ints)) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*(t.data_ptr() for t in ins), u8.data_ptr(), out.data_ptr(),
+             B, H, W, *ints, torch.cuda.current_stream(u8.device).cuda_stream)
+    build.check(lib, err, what)
+
+
 def head_conv_residual_u8_shuffle(h: torch.Tensor, w: torch.Tensor,
                                   b: torch.Tensor, u8: torch.Tensor,
                                   r: int) -> torch.Tensor:
     """K2: head conv (B, H, W, 64) x (3, 3, 64, 3r^2) HWIO in the compute
-    dtype + the u8 residual epilogue -> (B, H*r, W*r, 3) uint8."""
+    dtype + the u8 residual epilogue -> (B, H*r, W*r, 3) uint8.  float32
+    launches two kernels: the split pass and the bf16x6 conv."""
     if h.device.type == "cpu":
         return head_conv_residual_u8_shuffle_plain(h, w, b, u8, r)
-    if w.dtype not in _DTYPE_CODE or h.dtype != w.dtype:
+    if w.dtype not in _DTYPES or h.dtype != w.dtype:
         raise TypeError(f"head dtypes {h.dtype}/{w.dtype}; expected one "
                         f"of float32, bfloat16 for both")
     _check_head(h, w, u8, r)
@@ -97,16 +122,12 @@ def head_conv_residual_u8_shuffle(h: torch.Tensor, w: torch.Tensor,
     out = torch.empty((B, H * r, W * r, 3), dtype=torch.uint8,
                       device=h.device)
     if w.dtype == torch.bfloat16:
-        lib = build.load(TC_SOURCE)
-        fn = lib.reve_head_conv_residual_u8_shuffle_tc
+        _launch(TC_SOURCE, "reve_head_conv_residual_u8_shuffle_tc",
+                (h, w, bb), u8, out, (r, 1), "head_conv_residual_u8_shuffle")
     else:
-        lib = build.load(SOURCE)
-        fn = lib.reve_head_conv_residual_u8_shuffle
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    err = fn(h.data_ptr(), w.data_ptr(), bb.data_ptr(), u8.data_ptr(),
-             out.data_ptr(), B, H, W, r, _DTYPE_CODE[w.dtype],
-             torch.cuda.current_stream(h.device).cuda_stream)
-    build.check(lib, err, "head_conv_residual_u8_shuffle")
+        _launch(F32_SOURCE, "reve_head_conv_residual_u8_shuffle_f32tc",
+                (split_bf16x3(h), pack_weights_bf16x3(w), bb), u8, out,
+                (r,), "head_conv_residual_u8_shuffle (float32)")
     LAUNCHES["head_conv_residual_u8_shuffle"] += 1
     return out
 
@@ -130,14 +151,8 @@ def head_conv_s8_residual_u8_shuffle(x8: torch.Tensor, w8: torch.Tensor,
     bb = f32_operand(b, 3 * r * r, x8.device, "bias")
     out = torch.empty((B, H * r, W * r, 3), dtype=torch.uint8,
                       device=x8.device)
-    lib = build.load(SOURCE)
-    fn = lib.reve_head_conv_s8_residual_u8_shuffle
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(x8.data_ptr(), w8.data_ptr(), ss.data_ptr(), bb.data_ptr(),
-             u8.data_ptr(), out.data_ptr(), B, H, W, r,
-             torch.cuda.current_stream(x8.device).cuda_stream)
-    build.check(lib, err, "head_conv_s8_residual_u8_shuffle")
+    _launch(S8_SOURCE, "reve_head_conv_s8_residual_u8_shuffle_tc",
+            (x8, pack_weights_s8(w8), ss, bb), u8, out, (r,),
+            "head_conv_s8_residual_u8_shuffle")
     LAUNCHES["head_conv_s8_residual_u8_shuffle"] += 1
     return out

@@ -7,17 +7,21 @@ parts taken out: the halo loads after the first tile (`no_load`: later
 tiles compute on a stale buffer), the wgmmas (`no_mma`: the accumulators
 are set, not computed), and the epilogue (`no_epi`: nothing is written).
 It times each variant, beside the kernel as it is (`full`), at the main
-path's shapes (a batch of 4 1920x1080 frames):
+path's shapes (a batch of 4 1920x1080 frames); `two_blocks` runs K4h at
+two blocks on each SM, as K4, not three:
   * kernels/csrc/conv3x3_tc.cu: bfloat16 K1 (`k1_ms`) and K2 at r=4
     (`k2_ms`);
   * kernels/csrc/conv3x3_f32_tc.cu: float32 K1 as the wrapper runs it,
     split pass and conv (`k1_f32_ms`), the conv alone on split planes
-    (`conv_ms`) and the split pass alone (`split_ms`).  Its weights
-    stream tap by tap in every variant: `no_load` takes out the halo
-    loads only;
-  * kernels/csrc/conv3x3_s8.cu: K4 (`k4_ms`).
-The variants compute wrong results.  They exist only here, in a temporary
-directory, and only their times mean anything.  Prints one JSON line: the
+    (`conv_ms`), the split pass alone (`split_ms`), and float32 K2 at r=4
+    with its split pass (`k2_f32_ms`) and alone (`k2_conv_ms`).  The
+    weights stream tap by tap in every variant: `no_load` takes out the
+    halo loads only;
+  * kernels/csrc/conv3x3_s8.cu: K4 (`k4_ms`) and K4h at r=4 (`k4h_ms`).
+Each source's kernels share one mainloop, so a variant takes the part out
+of all of them.  The variants compute wrong results.  They exist only
+here, in a temporary directory, and only their times mean anything.
+Prints one JSON line: the
 card, then {source: {variant: {timing: [ms, ms]}}}, each time the mean
 over `iters` launches after one untimed launch, the variants run in turn,
 twice.
@@ -62,20 +66,24 @@ PATCHES = {
                      "      if (false) {"),
                     ("    mbar_wait(halo_full, (uint32_t)(it & 1));",
                      "    if (it == 0) mbar_wait(halo_full, 0);")],
-        "no_mma": [("        mma_bf16x6(acc, cor, a + kc * 32, ws + 2 * kc * "
-                    "COUT * 16);\n", "        acc[kc] += a;\n")],
-        "no_epi": [("    const int oy = y0 + wg;\n    if (oy < H) {\n",
-                    "    if (acc[0] == 0.5f) *y = cor[1];\n    continue;\n"
-                    "    const int oy = y0 + wg;\n    if (oy < H) {\n")],
+        "no_mma": [("        mma_bf16x6<N>(acc, cor, a + kc * 32, ws + 2 * kc "
+                    "* N * 16);\n", "        acc[kc] += a;\n")],
+        "no_epi": [("    // accumulator fragment: register",
+                    "    if (acc[0] == 0.5f) *(float*)out = cor[1];\n"
+                    "    continue;\n    // accumulator fragment: register")],
     },
     conv3x3_s8.SOURCE: {
         "no_load": _NO_LOAD,
-        "no_mma": [("    issue_mma(acc, base + (it & 1) * HALO_BYTES + wg * "
-                    "(TW + 2) * C,\n              base + (uint32_t)OFF_W);\n",
-                    "    for (int i = 0; i < 32; ++i) acc[i] = it;\n")],
-        "no_epi": [("    wait_mma(acc);\n",
-                    "    wait_mma(acc);\n    if (acc[0] == 5) *y = "
-                    "(int8_t)acc[1];\n    continue;\n")],
+        "no_mma": [("    issue_mma<N>(acc, base + (it & 1) * HALO_BYTES + wg "
+                    "* (TW + 2) * C,\n                 base + "
+                    "(uint32_t)S::OFF_W);\n",
+                    "    for (int i = 0; i < N / 2; ++i) acc[i] = it;\n")],
+        "no_epi": [("    wait_mma<N>(acc);\n",
+                    "    wait_mma<N>(acc);\n    if (acc[0] == 5) "
+                    "*(int8_t*)out = (int8_t)acc[1];\n    continue;\n")],
+        # K4h at K4's two blocks on each SM, not three
+        "two_blocks": [("  static constexpr int BLOCKS = R == 0 ? 2 : 3;",
+                        "  static constexpr int BLOCKS = 2;")],
     },
 }
 for _p in PATCHES.values():
@@ -141,10 +149,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
     w = wf.to(torch.bfloat16)
     wh = w[..., :3 * R * R].contiguous()
     wp = conv3x3.pack_weights_bf16x3(wf)
+    wph = conv3x3.pack_weights_bf16x3(wf[..., :3 * R * R])
     x8 = torch.from_numpy(rs.randint(-127, 128, (B, H, W, 64)).astype(
         np.int8)).to(dev)
-    w8 = conv3x3_s8.pack_weights_s8(torch.from_numpy(
-        rs.randint(-127, 128, (3, 3, 64, 64)).astype(np.int8)).to(dev))
+    w8r = torch.from_numpy(rs.randint(-127, 128, (3, 3, 64, 64)).astype(
+        np.int8)).to(dev)
+    w8 = conv3x3_s8.pack_weights_s8(w8r)
+    w8h = conv3x3_s8.pack_weights_s8(w8r[..., :3 * R * R])
     b = torch.zeros(64, device=dev)
     alpha = torch.full((64,), 0.2, device=dev)
     scale = torch.full((64,), 1e-5, device=dev)
@@ -179,6 +190,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
                            [P, P, ctypes.c_longlong, P])
             conv = _entry(lib, "reve_conv3x3_bias_prelu_f32tc",
                           [P] * 5 + [I] * 3 + [P])
+            head = _entry(lib, "reve_head_conv_residual_u8_shuffle_f32tc",
+                          [P] * 5 + [I] * 4 + [P])
 
             def run_split():
                 build.check(lib, split(xf.data_ptr(), planes.data_ptr(),
@@ -192,14 +205,30 @@ def main(argv: Optional[List[str]] = None) -> dict:
             def run_both():
                 run_split()
                 run_conv()
+
+            def run_head():
+                build.check(lib, head(
+                    planes.data_ptr(), wph.data_ptr(), b.data_ptr(),
+                    u8.data_ptr(), o.data_ptr(), B, H, W, R, stream), name)
+
+            def run_head_split():
+                run_split()
+                run_head()
             return {"k1_f32_ms": run_both, "conv_ms": run_conv,
-                    "split_ms": run_split}
+                    "split_ms": run_split, "k2_f32_ms": run_head_split,
+                    "k2_conv_ms": run_head}
         k4 = _entry(lib, "reve_conv3x3_s8_dq_prelu_q8",
                     [P] * 7 + [I] * 3 + [P])
+        k4h = _entry(lib, "reve_head_conv_s8_residual_u8_shuffle_tc",
+                     [P] * 6 + [I] * 4 + [P])
         return {"k4_ms": lambda: build.check(lib, k4(
             x8.data_ptr(), w8.data_ptr(), scale.data_ptr(), b.data_ptr(),
             alpha.data_ptr(), inv.data_ptr(), y8.data_ptr(), B, H, W,
-            stream), name)}
+            stream), name),
+            "k4h_ms": lambda: build.check(lib, k4h(
+                x8.data_ptr(), w8h.data_ptr(), scale.data_ptr(),
+                b.data_ptr(), u8.data_ptr(), o.data_ptr(), B, H, W, R,
+                stream), name)}
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:

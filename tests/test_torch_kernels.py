@@ -207,13 +207,17 @@ def test_bfloat16_non_cuda_tensors_raise_before_the_tensor_core_path():
 
 
 def test_every_kernel_source_is_built():
-    """Each csrc/*.cu is one library of build.SOURCES (the tensor-core
-    source of bfloat16 K1 and K2 among them)."""
+    """Each csrc/*.cu is one library of build.SOURCES: the tensor-core
+    sources, which hold every head (bfloat16 and float32 K2, K4h), among
+    them."""
     import os
+
+    from reve_tpu_torch.kernels import conv3x3_s8
 
     on_disk = {f for f in os.listdir(build.CSRC) if f.endswith(".cu")}
     assert on_disk == set(build.SOURCES)
-    assert conv3x3.TC_SOURCE in build.SOURCES
+    assert {conv3x3.TC_SOURCE, conv3x3.F32_SOURCE,
+            conv3x3_s8.SOURCE} <= set(build.SOURCES)
 
 
 def test_tensor_core_tile_is_the_kernels_tile():

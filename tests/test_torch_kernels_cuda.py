@@ -7,10 +7,11 @@ reve_tpu, so it runs on a machine with only PyTorch and the CUDA toolkit:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest
 
-K1 (both dtypes), K2 in bfloat16 and K4 run on the tensor cores (tiles
-of conv3x3.TC_TILE pixels: csrc/conv3x3_tc.cu, csrc/conv3x3_f32_tc.cu,
-csrc/conv3x3_s8.cu): they are held at the tile edges, ragged and whole,
-and at large activations; K4 at each of its nine taps alone.
+K1 and K2 (both dtypes), K4 and K4h run on the tensor cores
+(csrc/conv3x3_tc.cu, csrc/conv3x3_f32_tc.cu, csrc/conv3x3_s8.cu; tiles of
+conv3x3.TC_TILE pixels, K4 and K4h of 2 x 64): they are held at the tile
+edges, ragged and whole, and at large activations; K4 at each of its nine
+taps alone.
 
 Tolerances: float32 max |d| <= 1e-4 (float32 accumulation order; float32
 K1 sums six bf16 products on the tensor cores, which add in their own
@@ -22,8 +23,10 @@ values, and PReLU rounds once more), the ulp taken at 2^-10 or more (a
 sum that cancels to near zero may change sign between two summation
 orders); uint8 |d| <= 1.  The int8 kernels: K4 exact (integer sums, the
 same float32 epilogue); K4a |d| <= 1 s8 code (its float conv sums in
-another order before the quantize); K4h |d| <= 1 u8; P1 s8 exact, bf16
-within 1e-4 of the largest |value|.
+another order before the quantize); K4h exact (integer sums, the same
+float32 epilogue); P1 s8 exact, bf16 within 1e-4 of the largest |value|.
+float32 K2 sums six bf16 products like float32 K1: u8 |d| <= 1, at
+ordinary and at +-2^8 activations.
 """
 
 import numpy as np
@@ -407,8 +410,105 @@ def test_s8_head_kernel_matches_plain(r):
     want = head.head_conv_s8_residual_u8_shuffle_plain(*args)
     torch.cuda.synchronize()
     assert got.shape == (2, 21 * r, 70 * r, 3) and got.dtype == torch.uint8
-    assert (got.int() - want.int()).abs().max().item() <= 1
+    assert torch.equal(got, want)
     assert LAUNCHES["head_conv_s8_residual_u8_shuffle"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", TC_SHAPES)
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("r", [2, 3, 4])
+def test_s8_tensor_core_k4h_is_exact_at_tile_edges(r, B, hw):
+    """K4h on s8 wgmma at N = 3r^2 padded to 16, 32, 48: exact."""
+    dev = _cuda()
+    d = {k: v.to(dev) for k, v in _s8_inputs(50 + r + B, B, *hw,
+                                             cout=3 * r * r).items()}
+    args = (d["x8"], d["w8"], d["scale"] * 1e-2, d["b"], d["u8"], r)
+    before = LAUNCHES["head_conv_s8_residual_u8_shuffle"]
+    got = head.head_conv_s8_residual_u8_shuffle(*args)
+    want = head.head_conv_s8_residual_u8_shuffle_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (B, hw[0] * r, hw[1] * r, 3)
+    assert torch.equal(got, want)
+    assert LAUNCHES["head_conv_s8_residual_u8_shuffle"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", TC_SHAPES)
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("r", [2, 3, 4])
+def test_f32_tensor_core_k2_matches_plain_at_tile_edges(r, B, hw):
+    """float32 K2: the split pass, then the bf16x6 head on wgmma."""
+    dev = _cuda()
+    d = _inputs(60 + r + B, B, *hw, cout=3 * r * r)
+    h = d["x"].clamp_min(0).to(dev)
+    w, b, u8 = d["w"].to(dev), d["b"].to(dev), d["u8"].to(dev)
+    before = dict(LAUNCHES)
+    got = head.head_conv_residual_u8_shuffle(h, w, b, u8, r)
+    want = head.head_conv_residual_u8_shuffle_plain(h, w, b, u8, r)
+    torch.cuda.synchronize()
+    assert got.shape == (B, hw[0] * r, hw[1] * r, 3)
+    assert (got.int() - want.int()).abs().max().item() <= 1
+    assert LAUNCHES["head_conv_residual_u8_shuffle"] == \
+        before["head_conv_residual_u8_shuffle"] + 1
+    assert LAUNCHES["split_bf16x3"] == before["split_bf16x3"] + 1
+
+
+@pytest.mark.cuda
+def test_f32_tensor_core_k2_at_large_activations():
+    """Activations up to +-2^8 into float32 K2: the six-pass sums far
+    from the usual range, and the u8 clip at both ends."""
+    dev = _cuda()
+    d = _inputs(24, 2, 19, 45, cout=48)
+    x = ((d["x"] - 0.5) * 2 ** 8).to(dev)
+    w, b, u8 = d["w"].to(dev), d["b"].to(dev), d["u8"].to(dev)
+    got = head.head_conv_residual_u8_shuffle(x, w, b, u8, 4)
+    want = head.head_conv_residual_u8_shuffle_plain(x, w, b, u8, 4)
+    torch.cuda.synchronize()
+    assert (got.int() - want.int()).abs().max().item() <= 1
+    assert ((got == 0) | (got == 255)).float().mean().item() > 0.5
+    assert ((got > 0) & (got < 255)).any()
+
+
+@pytest.mark.cuda
+def test_head_wrappers_reject_what_the_kernels_do_not_take():
+    """float32 K2 and K4h refuse what their kernels do not take, and
+    nothing is launched; no library exports the CUDA-core heads' entry
+    points (their source is gone)."""
+    dev = _cuda()
+    before = dict(LAUNCHES)
+    h = torch.zeros((1, 4, 8, 64), device=dev)
+    w = torch.zeros((3, 3, 64, 48), device=dev)
+    b = torch.zeros(48, device=dev)
+    u8 = torch.zeros((1, 4, 8, 3), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="upscale"):
+        head.head_conv_residual_u8_shuffle(h, w, b, u8, 5)
+    with pytest.raises(ValueError, match="expected"):
+        head.head_conv_residual_u8_shuffle(h, w[..., :27].contiguous(),
+                                           b[:27], u8, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        head.head_conv_residual_u8_shuffle(
+            h.transpose(1, 2).contiguous().transpose(1, 2), w, b, u8, 4)
+    with pytest.raises(TypeError):
+        head.head_conv_residual_u8_shuffle(h.double(), w, b, u8, 4)
+    with pytest.raises(ValueError, match="uint8"):
+        head.head_conv_residual_u8_shuffle(h, w, b, u8.float(), 4)
+    x8 = h.to(torch.int8)
+    w8 = w.to(torch.int8)
+    with pytest.raises(TypeError):
+        head.head_conv_s8_residual_u8_shuffle(x8.to(torch.uint8), w8, b, b,
+                                              u8, 4)
+    with pytest.raises(ValueError, match="expected"):
+        head.head_conv_s8_residual_u8_shuffle(x8, w8, b, b, u8[:, :3], 4)
+    with pytest.raises(ValueError, match="48 float32"):
+        head.head_conv_s8_residual_u8_shuffle(x8, w8, b[:12], b, u8, 4)
+    torch.cuda.synchronize()
+    assert LAUNCHES == before
+    from reve_tpu_torch.kernels import build
+    for source in build.SOURCES:
+        lib = build.load(source)
+        assert not hasattr(lib, "reve_head_conv_residual_u8_shuffle")
+        assert not hasattr(lib, "reve_head_conv_s8_residual_u8_shuffle")
 
 
 @pytest.mark.cuda
