@@ -11,23 +11,26 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               in this checkout (sm_90a), all at once, and prints each
               library's registers, spills and count of wgmma instructions
               in its SASS (cuobjdump: HGMMA for bf16, IGMMA for s8): the
-              libraries of bfloat16 K1/K2, float32 K1/K2 and K4/K4h must
-              have at least the count of all their kernels (the heads
-              at r = 2, 3, 4 included), and no library any __dp4a
-              (IDP.4A);
+              libraries of K3/K4a, bfloat16 K1/K2, float32 K1/K2 and
+              K4/K4h must have at least the count of all their kernels
+              (the heads at r = 2, 3, 4 included), every kernel of
+              conv3x3.cu (K3 and K4a in both compute dtypes) must hold
+              HGMMA, and no library any __dp4a (IDP.4A);
   3. kernels  K3, K1 and K2 at the main path's shapes (1080p frames, a
-              batch of 4, x4), in bfloat16 (K1 and K2 on the tensor cores,
-              conv3x3_tc.cu) and float32 (K1 and K2 on the tensor cores as
-              six bf16 products, each after its split pass,
-              conv3x3_f32_tc.cu; K3 on CUDA cores): each kernel against
+              batch of 4, x4), all on the tensor cores, in bfloat16
+              (conv3x3.cu, conv3x3_tc.cu) and float32 (as six bf16
+              products: K3 in conv3x3.cu, K1 and K2 each after its split
+              pass in conv3x3_f32_tc.cu): each kernel against
               its plain PyTorch version on the same inputs (float32: max
               |d| <= 1e-4, float32 accumulation order; bfloat16: <= 2 bf16
               ulp relative, the ulp taken at 2^-10 or more; uint8: |d| <=
               1; the split pass exact), then timed beside the plain
               version, one cuDNN F.conv2d of the same conv (library_ms;
-              the port never calls it) and the card's bound (float32 K1
-              and K2: their six bf16 passes at the bf16 rate);
-              The int8 kernels K4a, K4 and K4h (both on s8 wgmma) at the
+              the port never calls it) and the card's bound (float32 K1,
+              K2 and K3: their six bf16 passes at the bf16 rate; K3 is
+              bound by its bytes in both dtypes);
+              The int8 kernels K4a (K3's kernel with an s8 output, its
+              conv in bf16), K4 and K4h (both on s8 wgmma) at the
               same shapes, with a QuantizedBody the port's int8 engine
               calibrates on the smoke's frames, each against its plain
               version (K4 and K4h exact; K4a: |d| <= 1 s8 code, its bf16
@@ -63,7 +66,7 @@ The line before the last is nvidia-smi's name and power limit; before
 that, one JSON object {"kernels": [...]} with each kernel's launches on
 its path (main, int8 or probe), error (and, for u8 and s8 outputs,
 n_diff: the values that differ from the plain version's), times, bound
-and design ("wgmma", "wgmma_bf16x6", "mma_sync" or "cuda_cores"; the
+and design ("wgmma", "wgmma_bf16x6", "mma_sync" or "elementwise"; the
 float32 forms of K1, K2 and K3 nested under "float32" with their own
 source, design and launches on the int8 path, where they run).  The last
 line is {"ok": true, "device": {...}}.
@@ -96,9 +99,10 @@ PEAK_BYTES = 3.35e12
 FRAMES, W, H, SCALE, BATCH = 8, 1920, 1080, 4, 4
 #: wgmma instructions each tensor-core library must hold at least: every
 #: kernel's mainloop unrolled (per 64-pixel row: bf16 36, bf16x6 216, s8
-#: 18), the hidden conv and the heads at r = 2, 3, 4
+#: 18), the hidden conv and the heads at r = 2, 3, 4; K3 and K4a 2 in
+#: bfloat16 and 12 in float32 (K = 32: two k16 steps, six products each)
 MIN_WGMMA = {"conv3x3_tc.cu": 4 * 36, "conv3x3_f32_tc.cu": 4 * 216,
-             "conv3x3_s8.cu": 4 * 18}
+             "conv3x3_s8.cu": 4 * 18, "conv3x3.cu": 2 * (2 + 12)}
 
 
 def emit(obj) -> None:
@@ -164,17 +168,21 @@ def bf16_ulp_ok(got, want, ulps: int = 2) -> bool:
 def sass_ops(lib: str) -> dict:
     """Counts of the wgmma opcodes (HGMMA, IGMMA, ...) and of __dp4a
     (SASS IDP.4A, counted as "IDP4A") in a built library's SASS
-    (cuobjdump of the CUDA toolkit whose nvcc built it)."""
+    (cuobjdump of the CUDA toolkit whose nvcc built it), in all and by
+    kernel: {"all": {op: n}, "by_kernel": {mangled name: {op: n}}}."""
     from reve_tpu_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib], check=True,
                           capture_output=True, text=True).stdout
-    ops = {}
-    for m in re.finditer(r"\b([A-Z]GMMA|IDP\.?4A)\b", sass):
-        op = m.group(1).replace(".", "")
-        ops[op] = ops.get(op, 0) + 1
-    return ops
+    every, by_kernel = {}, {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        ops = by_kernel.setdefault(part.split()[0], {})
+        for m in re.finditer(r"\b([A-Z]GMMA|IDP\.?4A)\b", part):
+            op = m.group(1).replace(".", "")
+            ops[op] = ops.get(op, 0) + 1
+            every[op] = every.get(op, 0) + 1
+    return {"all": every, "by_kernel": by_kernel}
 
 
 def bound_ms(nbytes: int, flops: int, dtype: str):
@@ -227,6 +235,10 @@ def kernel_phase(params, cfg, frames, out: dict) -> dict:
         x3 = conv3x3.conv3x3_u8_bias_prelu_plain(u8, w0, c0["b"], a0)
         x1 = conv3x3.conv3x3_bias_prelu_plain(x3, w1, c1["b"], a1)
         cases = {
+            # float32 K3, K1 and K2 are six bf16 products on the tensor
+            # cores (K1's and K2's split pass included in their time):
+            # bound at six times the operations at the bf16 rate (K3's
+            # bytes bound it in both dtypes)
             "conv3x3_u8_bias_prelu": dict(
                 kernel=lambda: conv3x3.conv3x3_u8_bias_prelu(
                     u8, w0, c0["b"], a0),
@@ -237,10 +249,8 @@ def kernel_phase(params, cfg, frames, out: dict) -> dict:
                 lib_w=w0, lib_b=c0["b"],
                 nbytes=px * 3 + px * feat * bpe + w0.numel() * bpe + 2 * feat
                 * 4,
-                flops=2 * 9 * 3 * feat * px),
-            # float32 K1 and K2 are six bf16 products on the tensor cores
-            # (the split pass included in their time): bound at six times
-            # the operations at the bf16 rate
+                flops=2 * 9 * 3 * feat * px * (6 if name == "float32" else 1),
+                peak="bfloat16"),
             "conv3x3_bias_prelu": dict(
                 kernel=lambda: conv3x3.conv3x3_bias_prelu(
                     x3, w1, c1["b"], a1),
@@ -521,22 +531,32 @@ def main() -> int:
         info = build.load_all()
         rec["sources"] = {}
         for s, v in info.items():
-            ops = sass_ops(v["path"])
+            sass = sass_ops(v["path"])
+            ops = sass["all"]
             rec["sources"][s] = {
                 "seconds": round(v["seconds"], 3), "cached": v["cached"],
                 "wgmma": sum(n for k, n in ops.items() if k != "IDP4A"),
-                "sass_ops": ops}
+                "sass_ops": ops,
+                "kernels_without_wgmma": sorted(
+                    k for k, o in sass["by_kernel"].items()
+                    if not any(op.endswith("GMMA") for op in o))}
             print(f"# {s}: {ops} | "
                   + " | ".join(ln.strip() for ln in v["log"].splitlines()
                                if "registers" in ln or "spill" in ln),
                   flush=True)
-        # K1, K2 (both dtypes), K4 and K4h run on wgmma; nothing on
-        # __dp4a
+        # K1, K2, K3 (both dtypes), K4a, K4 and K4h run on wgmma;
+        # nothing on __dp4a
         for s, least in MIN_WGMMA.items():
             if rec["sources"][s]["wgmma"] < least:
                 raise AssertionError(f"{s}: {rec['sources'][s]['wgmma']} "
                                      f"wgmma in its SASS, fewer than its "
                                      f"kernels' {least}")
+        # no CUDA-core form of K3 or K4a is left: every kernel of their
+        # library holds HGMMA
+        if rec["sources"][conv3x3.SOURCE]["kernels_without_wgmma"]:
+            raise AssertionError(
+                f"{conv3x3.SOURCE}: kernels without wgmma: "
+                f"{rec['sources'][conv3x3.SOURCE]['kernels_without_wgmma']}")
         for s, v in rec["sources"].items():
             if v["sass_ops"].get("IDP4A"):
                 raise AssertionError(f"{s}: IDP.4A in its SASS")
@@ -748,17 +768,13 @@ def main() -> int:
         "head_conv_s8_residual_u8_shuffle": ("int8", int8_launches),
         "dot_loop": ("int8", {"dot_loop": probe_launches}),
     }
-    # bfloat16 K1 and K2, K4 and K4h run on wgmma, P1 on mma.sync, the
-    # rest on CUDA cores; of the float32 forms, K1 and K2 run on wgmma as
-    # six bf16 products (after their split pass), K3 on CUDA cores
-    designs = {"conv3x3_bias_prelu": "wgmma",
-               "head_conv_residual_u8_shuffle": "wgmma",
-               "conv3x3_s8_dq_prelu_q8": "wgmma",
-               "head_conv_s8_residual_u8_shuffle": "wgmma",
-               "dot_loop": "mma_sync"}
+    # every model conv runs on wgmma, P1 on mma.sync, the split pass on
+    # CUDA cores; the float32 forms of K1, K2 and K3 run on wgmma as six
+    # bf16 products (K1's and K2's after their split pass)
+    designs = {"dot_loop": "mma_sync", "split_bf16x3": "elementwise"}
     f32_forms = {
         "conv3x3_u8_bias_prelu": ("reve_tpu_torch/kernels/csrc/conv3x3.cu",
-                                  "cuda_cores"),
+                                  "wgmma_bf16x6"),
         "conv3x3_bias_prelu": (
             "reve_tpu_torch/kernels/csrc/conv3x3_f32_tc.cu",
             "wgmma_bf16x6"),
@@ -783,9 +799,7 @@ def main() -> int:
             nums, extra = results8[name], {}
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launched[name],
-                 "dtype": dtype, "design": designs.get(name, "cuda_cores")}
-        if name == "split_bf16x3":
-            entry["design"] = "elementwise"
+                 "dtype": dtype, "design": designs.get(name, "wgmma")}
         entry.update({k: nums[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape") + (("n_diff",) if "n_diff" in nums

@@ -12,14 +12,21 @@ on the TPU.  K4a is K3 for the int8 path (srvgg.py:376-379): the same
 first conv + PReLU in the compute dtype, then `_quant_s8` (srvgg.py:279-288)
 to the s8 input of the first int8 hidden conv.
 
-Bound per 1080p frame on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): K1
-152.9 GFLOP -> 0.155 ms and 531 MB -> 0.158 ms (bf16); K3 7.2 GFLOP,
-6 MB in + 265 MB out -> 0.08 ms.  K1 is an implicit GEMM on the tensor
-cores (wgmma): in bfloat16 directly (csrc/conv3x3_tc.cu); in float32 as
-six bf16 products of its operands split in three (`split_bf16x3`, then
-csrc/conv3x3_f32_tc.cu), which keeps float32 accuracy and is never TF32.
-K3 and K4a are direct convs on CUDA cores (csrc/conv3x3.cu).  `bound_ms`
-in chip_smoke.py is computed from each run's own shapes.
+Bound per call of 4 1080p frames on an H100 SXM (989 TFLOP/s bf16,
+3.35 TB/s): K1 611.5 GFLOP -> 0.618 ms and 2.12 GB -> 0.634 ms (bf16);
+K3 25 MB of u8 in and 64 channels out, 1.087 GB in bf16 -> 0.324 ms,
+2.148 GB in float32 -> 0.641 ms; K4a 0.556 GB -> 0.166 ms (bytes).  All
+are implicit GEMMs on the tensor cores (wgmma): K1 in bfloat16 directly
+(csrc/conv3x3_tc.cu); in float32 as six bf16 products of its operands
+split in three (`split_bf16x3`, then csrc/conv3x3_f32_tc.cu), which keeps
+float32 accuracy and is never TF32.  K3 and K4a (csrc/conv3x3.cu) run one
+template at K = 27 taps x channels laid out in 32 (`u8conv_k`), A read
+into registers from the staged u8 halo (converted, and in float32 split,
+once per value), B packed by each block from the HWIO weights (as
+`pack_weights_u8conv` lays it out), six bf16 products in float32; their
+output, which sets their time, leaves by TMA stores from two staging
+buffers.
+`bound_ms` in chip_smoke.py is computed from each run's own shapes.
 
 Rounding points follow the JAX reference exactly: weights in the compute
 dtype, float32 accumulation, + bias in float32, cast to the compute
@@ -116,6 +123,33 @@ def pad_outputs(w: torch.Tensor) -> torch.Tensor:
     return F.pad(w, (0, padded_n(cout) - cout))
 
 
+#: the K of K3 and K4a's product: tap (dy, dx), channel c at k = 10 dx +
+#: 3 dy + c (taps column by column, each column of 9 padded to 10), so
+#: k = 9, 19, 29, 30, 31 are zero rows
+U8_K = 32
+
+
+def u8conv_k(dy: int, dx: int, c: int) -> int:
+    return 10 * dx + 3 * dy + c
+
+
+def pack_weights_u8conv(w: torch.Tensor) -> torch.Tensor:
+    """HWIO (3, 3, 3, 64) in the compute dtype -> the B operand each block
+    of K3 and K4a packs from those weights in shared memory (the kernel's
+    pack_weights; this is its reference, held by the CPU tests): (S, 4,
+    64, 8) bfloat16 [split][k / 8][n][8], with packed[s, kb, n, kk] =
+    planes[s, dy, dx, c, n] at k = 8 kb + kk = u8conv_k(dy, dx, c) and 0
+    at the other k (B K-major in core matrices of 8 rows x 16 B).
+    bfloat16: S = 1, the weights as they are; float32: S = 3,
+    split_bf16x3's hi, mid, lo."""
+    planes = w[None] if w.dtype == torch.bfloat16 else split_bf16x3_plain(w)
+    # [s][dx][dy * 3 + c][n], each column of taps padded from 9 to 10
+    k = F.pad(planes.permute(0, 2, 1, 3, 4).reshape(-1, 3, 9, FEAT),
+              (0, 0, 0, 1)).reshape(-1, 30, FEAT)
+    k = F.pad(k, (0, 0, 0, U8_K - 30))
+    return k.reshape(-1, U8_K // 8, 8, FEAT).permute(0, 1, 3, 2).contiguous()
+
+
 def pack_weights_bf16x3(w: torch.Tensor) -> torch.Tensor:
     """float32 HWIO (3, 3, 64, cout) -> the weights float32 K1 and K2
     stream, tap by tap: (9, 3, 8, N, 8) bfloat16 [tap][split][k / 8][n][8],
@@ -166,30 +200,27 @@ def f32_operand(t: torch.Tensor, n: int, device, what: str) -> torch.Tensor:
     return t
 
 
-def _launch(entry: str, x, w, b, alpha, inv=None,
-            source: str = SOURCE) -> torch.Tensor:
-    B, H, W, _ = x.shape
-    y = torch.empty((B, H, W, FEAT),
-                    dtype=w.dtype if inv is None else torch.int8,
-                    device=x.device)
-    bb = f32_operand(b, FEAT, x.device, "bias")
-    # alpha as the compute dtype rounds it, widened for the kernel
-    aa = f32_operand(alpha.to(x.device).to(w.dtype), FEAT, x.device,
-                     "alpha")
+def _bias_alpha(b, alpha, dtype, device):
+    """b as float32, and alpha as the compute dtype rounds it, widened to
+    float32: the per-channel vectors the kernels read."""
+    return (f32_operand(b, FEAT, device, "bias"),
+            f32_operand(alpha.to(device).to(dtype), FEAT, device, "alpha"))
+
+
+def _launch(source: str, entry: str, ins, y: torch.Tensor,
+            ints=()) -> None:
+    """Call `entry` of `source`'s library: the input tensors' pointers,
+    y's, y's B, H, W, then `ints` and the stream; raise on a launch
+    error."""
+    B, H, W, _ = y.shape
     lib = build.load(source)
     fn = getattr(lib, entry)
-    ptrs = [x.data_ptr(), w.data_ptr(), bb.data_ptr(), aa.data_ptr()]
-    if inv is not None:
-        inv = f32_operand(inv, 1, x.device, "inv (1 / scale)")
-        ptrs.append(inv.data_ptr())
-    # pointers (inputs, then y), B, H, W, dtype, stream
-    fn.argtypes = ([ctypes.c_void_p] * (len(ptrs) + 1) + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * (len(ins) + 1)
+                   + [ctypes.c_int] * (3 + len(ints)) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    err = fn(*ptrs, y.data_ptr(), B, H, W, _DTYPE_CODE[w.dtype],
-             torch.cuda.current_stream(x.device).cuda_stream)
+    err = fn(*(t.data_ptr() for t in ins), y.data_ptr(), B, H, W, *ints,
+             torch.cuda.current_stream(y.device).cuda_stream)
     build.check(lib, err, entry)
-    return y
 
 
 def split_bf16x3(x: torch.Tensor) -> torch.Tensor:
@@ -219,26 +250,6 @@ def split_bf16x3(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _launch_f32tc(x, w, b, alpha) -> torch.Tensor:
-    """float32 K1: the split pass, then the bf16x6 conv on its planes."""
-    B, H, W, _ = x.shape
-    planes = split_bf16x3(x)
-    wp = pack_weights_bf16x3(w)
-    bb = f32_operand(b, FEAT, x.device, "bias")
-    aa = f32_operand(alpha, FEAT, x.device, "alpha")
-    y = torch.empty((B, H, W, FEAT), dtype=torch.float32, device=x.device)
-    lib = build.load(F32_SOURCE)
-    fn = lib.reve_conv3x3_bias_prelu_f32tc
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(planes.data_ptr(), wp.data_ptr(), bb.data_ptr(), aa.data_ptr(),
-             y.data_ptr(), B, H, W,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(lib, err, "conv3x3_bias_prelu (float32)")
-    return y
-
-
 def conv3x3_bias_prelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                        alpha: torch.Tensor) -> torch.Tensor:
     """K1: (B, H, W, 64) x (3, 3, 64, 64) HWIO in the compute dtype ->
@@ -247,12 +258,29 @@ def conv3x3_bias_prelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if x.device.type == "cpu":
         return conv3x3_bias_prelu_plain(x, w, b, alpha)
     _check(x, w, FEAT, w.dtype)
+    y = torch.empty(x.shape, dtype=w.dtype, device=x.device)
+    bb, aa = _bias_alpha(b, alpha, w.dtype, x.device)
     if w.dtype == torch.bfloat16:
-        y = _launch("reve_conv3x3_bias_prelu_tc", x, w, b, alpha,
-                    source=TC_SOURCE)
+        _launch(TC_SOURCE, "reve_conv3x3_bias_prelu_tc", (x, w, bb, aa), y)
     else:
-        y = _launch_f32tc(x, w, b, alpha)
+        _launch(F32_SOURCE, "reve_conv3x3_bias_prelu_f32tc",
+                (split_bf16x3(x), pack_weights_bf16x3(w), bb, aa), y)
     LAUNCHES["conv3x3_bias_prelu"] += 1
+    return y
+
+
+def _launch_u8(entry: str, u8, w, b, alpha, inv=None) -> torch.Tensor:
+    """K3 (inv None) or K4a: the launch of `entry` of csrc/conv3x3.cu in
+    w's dtype (the kernel packs the HWIO weights itself)."""
+    B, H, W, _ = u8.shape
+    y = torch.empty((B, H, W, FEAT),
+                    dtype=w.dtype if inv is None else torch.int8,
+                    device=u8.device)
+    bb, aa = _bias_alpha(b, alpha, w.dtype, u8.device)
+    ins = [u8, w, bb, aa]
+    if inv is not None:
+        ins.append(f32_operand(inv, 1, u8.device, "inv (1 / scale)"))
+    _launch(SOURCE, entry, ins, y, (_DTYPE_CODE[w.dtype],))
     return y
 
 
@@ -263,7 +291,7 @@ def conv3x3_u8_bias_prelu(u8: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if u8.device.type == "cpu":
         return conv3x3_u8_bias_prelu_plain(u8, w, b, alpha)
     _check(u8, w, 3, torch.uint8)
-    y = _launch("reve_conv3x3_u8_bias_prelu", u8, w, b, alpha)
+    y = _launch_u8("reve_conv3x3_u8_bias_prelu", u8, w, b, alpha)
     LAUNCHES["conv3x3_u8_bias_prelu"] += 1
     return y
 
@@ -277,6 +305,6 @@ def conv3x3_u8_bias_prelu_q8(u8: torch.Tensor, w: torch.Tensor,
     if u8.device.type == "cpu":
         return conv3x3_u8_bias_prelu_q8_plain(u8, w, b, alpha, inv)
     _check(u8, w, 3, torch.uint8)
-    y = _launch("reve_conv3x3_u8_bias_prelu_q8", u8, w, b, alpha, inv)
+    y = _launch_u8("reve_conv3x3_u8_bias_prelu_q8", u8, w, b, alpha, inv)
     LAUNCHES["conv3x3_u8_bias_prelu_q8"] += 1
     return y

@@ -54,18 +54,26 @@ __device__ __forceinline__ float round_to(float v) {
 }
 
 // reve_tpu srvgg._quant_s8: round(x * (1/scale)) half to even, clipped to
-// +-127.  `inv` is float32(1/scale), formed by the wrapper in torch exactly
-// as the reference forms it; rintf, never roundf (halves away from zero).
-__device__ __forceinline__ int8_t quant_s8(float x, float inv) {
-  const float q = rintf(__fmul_rn(x, inv));
-  return (int8_t)(int)fminf(fmaxf(q, -127.f), 127.f);
+// +-127, as the s8 code's byte.  `inv` is float32(1/scale), formed by the
+// wrapper in torch exactly as the reference forms it.  One saturating
+// conversion: clip(rint(v), -127, 127) == rint(max(v, -127)) saturated to
+// s8 (rint is monotone and +-127 are integers); cvt.rni rounds half to
+// even, as rintf does (roundf would take halves away from zero).
+__device__ __forceinline__ uint32_t quant_s8(float x, float inv) {
+  unsigned short r;
+  asm("cvt.rni.sat.s8.f32 %0, %1;"
+      : "=h"(r)
+      : "f"(fmaxf(__fmul_rn(x, inv), -127.f)));
+  return r & 0xFFu;
 }
 
 // Launch grid for a persistent kernel: one wave of resident blocks (each
-// loads its weights into shared memory once and then walks many tiles).
+// loads its weights into shared memory once and then walks many tiles),
+// at most `max_per_sm` on each SM.
 template <typename K>
 inline cudaError_t persistent_grid(K kernel, int threads, size_t smem,
-                                   long long tiles, int* grid) {
+                                   long long tiles, int* grid,
+                                   int max_per_sm = 1 << 30) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -79,7 +87,7 @@ inline cudaError_t persistent_grid(K kernel, int threads, size_t smem,
                                                       threads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  long long g = (long long)sms * per_sm;
+  long long g = (long long)sms * (per_sm < max_per_sm ? per_sm : max_per_sm);
   *grid = (int)(tiles < g ? tiles : g);
   return cudaSuccess;
 }

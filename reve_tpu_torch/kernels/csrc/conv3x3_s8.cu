@@ -52,8 +52,8 @@
 //  * The epilogues round exactly where the reference does: __fmul_rn and
 //    __fadd_rn keep nvcc from contracting the dequant into an FMA.  Each
 //    thread keeps its N / 4 channels' scale and bias (and K4's alpha) in
-//    registers.  K4 quantizes half to even (reve::quant_s8's function, as
-//    one saturating conversion), stages its row's 64 x 64 s8 outputs in
+//    registers.  K4 quantizes half to even (reve::quant_s8, one
+//    saturating conversion), stages its row's 64 x 64 s8 outputs in
 //    shared memory (16-B chunks XOR-swizzled by pixel) and writes them as
 //    16-B vectors, one contiguous 4 KB run per row.  K4h is bf16 K2's
 //    epilogue (tc.cuh's HeadEpilogue): it reads the row's u8 pixels while
@@ -99,17 +99,6 @@ struct S8 {
   // blocks on each SM: K4's registers allow two, K4h's three
   static constexpr int BLOCKS = R == 0 ? 2 : 3;
 };
-
-// reve::quant_s8 as a saturating conversion: clip(rint(v), -127, 127) ==
-// rint(max(v, -127)) saturated to s8 (rint is monotone and +-127 are
-// integers), one conversion in place of rint, two clamps and a cast.
-__device__ __forceinline__ uint32_t quant_s8_sat(float x, float inv) {
-  unsigned short r;
-  asm("cvt.rni.sat.s8.f32 %0, %1;"
-      : "=h"(r)
-      : "f"(fmaxf(__fmul_rn(x, inv), -127.f)));
-  return r & 0xFFu;
-}
 
 // Start the copy of the halo of the tile at (b, y0, x0) into `dst`,
 // completing on `bar`: box (64 channels, TW + 2, TH + 2, 1) at (0, x0 - 1,
@@ -252,7 +241,7 @@ conv3x3_s8_tc_kernel(const __grid_constant__ CUtensorMap map,
                                     sc[2 * j + e]),
                           bi[2 * j + e]);
             const float pr = fy > 0.f ? fy : __fmul_rn(al[2 * j + e], fy);
-            two |= quant_s8_sat(pr, inv) << (8 * e);
+            two |= reve::quant_s8(pr, inv) << (8 * e);
           }
           *reinterpret_cast<uint16_t*>(
               st + p * C + (((c >> 4) ^ ((p >> 1) & 3)) << 4) + (c & 15)) =

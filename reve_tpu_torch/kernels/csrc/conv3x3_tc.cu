@@ -271,23 +271,20 @@ cudaError_t launch(const void* x, const void* w, const float* b,
 
 }  // namespace
 
-// K1, bfloat16 only (dtype 1; float32 is conv3x3_f32_tc.cu's).  Returns a
-// cudaError_t (0 = success).
+// K1 in bfloat16 (float32 is conv3x3_f32_tc.cu's).  Returns a cudaError_t
+// (0 = success).
 extern "C" int reve_conv3x3_bias_prelu_tc(const void* x, const void* w,
                                           const float* b, const float* alpha,
                                           void* y, int B, int H, int W,
-                                          int dtype, void* stream) {
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
+                                          void* stream) {
   return (int)launch<0>(x, w, b, alpha, nullptr, y, B, H, W,
                         static_cast<cudaStream_t>(stream));
 }
 
-// K2, bfloat16 only (dtype 1; float32 is conv3x3_f32_tc.cu's); r in {2, 3,
-// 4}.
+// K2 in bfloat16 (float32 is conv3x3_f32_tc.cu's); r in {2, 3, 4}.
 extern "C" int reve_head_conv_residual_u8_shuffle_tc(
     const void* x, const void* w, const float* b, const uint8_t* orig,
-    uint8_t* out, int B, int H, int W, int r, int dtype, void* stream) {
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
+    uint8_t* out, int B, int H, int W, int r, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (r) {
     case 2: return (int)launch<2>(x, w, b, nullptr, orig, out, B, H, W, s);

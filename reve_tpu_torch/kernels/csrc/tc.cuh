@@ -1,16 +1,19 @@
 // Shared pieces of the tensor-core conv kernels (sm_90a): shared-memory
-// addresses, mbarriers, TMA copies, wgmma descriptors and instructions,
-// the heads' u8 epilogue and the persistent walk over output tiles.  Used
-// by conv3x3_tc.cu (bfloat16 K1, K2), conv3x3_f32_tc.cu (float32 K1, K2)
-// and conv3x3_s8.cu (K4, K4h).
+// addresses, mbarriers, TMA copies (loads and stores), wgmma descriptors
+// and instructions, the heads' u8 epilogue and the persistent walk over
+// output tiles.  Used by conv3x3_tc.cu (bfloat16 K1, K2),
+// conv3x3_f32_tc.cu (float32 K1, K2), conv3x3_s8.cu (K4, K4h) and
+// conv3x3.cu (K3, K4a).
 //
-// Every conv here is an implicit GEMM over a halo tile in shared memory:
-// one halo pixel is one row of the K-major A operand (64 channels: 128 B
-// in bf16, 64 B in s8), stored in the swizzle of that row width, and tap
-// (dy, dx) starts whole rows later.  The swizzle is a function of the
-// shared-memory address bits (the buffers are 1024-B aligned), both where
-// TMA writes and where wgmma reads, so a start moved by whole rows reads
-// what TMA wrote with the descriptor's base offset 0.
+// Every 64-channel conv here is an implicit GEMM over a halo tile in
+// shared memory: one halo pixel is one row of the K-major A operand (64
+// channels: 128 B in bf16, 64 B in s8), stored in the swizzle of that row
+// width, and tap (dy, dx) starts whole rows later.  The swizzle is a
+// function of the shared-memory address bits (the buffers are 1024-B
+// aligned), both where TMA writes and where wgmma reads, so a start moved
+// by whole rows reads what TMA wrote with the descriptor's base offset 0.
+// (The 3-channel input conv of conv3x3.cu builds its A operand in
+// registers instead.)
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; no libcuda is linked
@@ -86,6 +89,38 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// TMA store of the box of a 4-D tensor map at (c0, c1, c2, c3) from `src`
+// (written by this block's threads, each after fence_proxy_async and a
+// barrier), in this thread's bulk group; what lies outside the tensor is
+// not written.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(map),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Close this thread's bulk group of the stores issued since the last.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read shared
+// memory (their sources may be written again).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // barrier of one warpgroup (ids 1..4; 0 is __syncthreads)
@@ -214,6 +249,28 @@ struct Wgmma<64> {
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
         : "l"(a), "l"(b), "r"(1));
+  }
+  // ... with A from registers: the thread's fragment of A, four bf16
+  // pairs; register r holds row 16 * warp + lane / 4 + 8 * (r % 2),
+  // columns 2 * (lane % 4) + 8 * (r / 2) + {0, 1} (the first in the low
+  // half).  The registers must not change before the wgmma is waited on.
+  __device__ static void mma(float (&d)[32], const uint32_t (&a)[4],
+                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+        "%27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
 
@@ -399,14 +456,16 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapFloatOOBfill);
 
 // The tensor map of a (B, H, W, 64) NHWC tensor of `elem`-byte values for
-// halo boxes of (64 channels, bw, bh, 1 image), in `swizzle`, zeros
-// outside the tensor.  Encoded per call (the pointer changes) through
+// boxes of (bc channels, bw, bh, 1 image), in `swizzle`: halo boxes for
+// loads (zeros outside the tensor), output boxes for stores (clipped at
+// its edge).  Encoded per call (the pointer changes) through
 // cuTensorMapEncodeTiled from cudaGetDriverEntryPoint, so the library
 // needs no libcuda at link time; passed to the kernel as a
 // __grid_constant__.
 inline cudaError_t halo_map(CUtensorMap* map, CUtensorMapDataType type,
                             int elem, const void* x, int B, int H, int W,
-                            int bw, int bh, CUtensorMapSwizzle swizzle) {
+                            int bw, int bh, CUtensorMapSwizzle swizzle,
+                            int bc = 64) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -422,7 +481,8 @@ inline cudaError_t halo_map(CUtensorMap* map, CUtensorMapDataType type,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {px, (cuuint64_t)W * px,
                                  (cuuint64_t)H * W * px};
-  const cuuint32_t box[4] = {64, (cuuint32_t)bw, (cuuint32_t)bh, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)bc, (cuuint32_t)bw, (cuuint32_t)bh,
+                             1};
   const cuuint32_t one[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, type, 4, const_cast<void*>(x), dims, strides, box, one,

@@ -92,8 +92,7 @@ def _check_head(x, w, u8, r: int) -> None:
 
 def _launch(source: str, entry: str, ins, u8, out, ints, what: str):
     """Call `entry` of `source`'s library: the input tensors' pointers,
-    u8's and out's, B, H, W, then `ints` (r, and the dtype code where the
-    entry takes one) and the stream."""
+    u8's and out's, B, H, W, then `ints` (r) and the stream."""
     B, H, W, _ = u8.shape
     lib = build.load(source)
     fn = getattr(lib, entry)
@@ -123,7 +122,7 @@ def head_conv_residual_u8_shuffle(h: torch.Tensor, w: torch.Tensor,
                       device=h.device)
     if w.dtype == torch.bfloat16:
         _launch(TC_SOURCE, "reve_head_conv_residual_u8_shuffle_tc",
-                (h, w, bb), u8, out, (r, 1), "head_conv_residual_u8_shuffle")
+                (h, w, bb), u8, out, (r,), "head_conv_residual_u8_shuffle")
     else:
         _launch(F32_SOURCE, "reve_head_conv_residual_u8_shuffle_f32tc",
                 (split_bf16x3(h), pack_weights_bf16x3(w), bb), u8, out,

@@ -37,6 +37,10 @@ CALIBRATION_FILE = "int8_calibration.json"
 CERT_FILE = "int8_cert.json"
 RESOLUTION_FILE = "auto_dtype.json"
 OWNER_FILE = "owner.lock"
+#: how long the contender that cleared a stale owner lock keeps retrying
+#: its creation against empty flock artifacts (Workspace
+#: ._acquire_owner_pidfile)
+_STEAL_RETRY_S = 1.0
 
 
 @dataclasses.dataclass
@@ -226,8 +230,18 @@ class Workspace:
         that both read a dead pid race read-unlink-create and can BOTH
         acquire — one unlinking the other's freshly created live lock
         (the exact double-writer corruption this lock exists to prevent).
-        A contender that loses any race returns False (stay safe); one
-        steal attempt per call (no unbounded loops against a hostile FS).
+        A contender that finds a live owner, or another steal in
+        progress, returns False (stay safe).
+
+        The race this guards: a contender whose flock attempt starts
+        after a steal's unlink recreates the path, EMPTY, by its
+        os.open(O_CREAT), before the stealer links its pid file.  A
+        stealer that stopped after two create/steal rounds could then
+        give up on a path nobody owns, and so could every contender:
+        no winner.  So the contender that cleared the path keeps
+        creating, and stealing empty artifacts, while the path is absent
+        or empty, for at most _STEAL_RETRY_S (each contender leaves at
+        most one artifact per call).
 
         Residual windows, accepted for a degraded-FS fallback: pid
         liveness is per-HOST (cross-host single-writing is the lease
@@ -235,14 +249,33 @@ class Workspace:
         degrades to O_EXCL-then-write whose µs-scale create-to-write gap
         an empty-steal could theoretically hit (the 50 ms stability
         recheck guards it)."""
-        for _ in range(2):
+        import time
+
+        if self._pidfile_create():
+            return True
+        if not self._pidfile_try_steal():
+            return False
+        deadline = time.monotonic() + _STEAL_RETRY_S
+        while time.monotonic() <= deadline:
             if self._pidfile_create():
                 return True
-            if not self._pidfile_try_steal():
+            if self._pidfile_try_steal():
+                continue
+            # a live owner won, or another contender is stealing an
+            # empty artifact (and will create in turn)
+            if not self._pidfile_vacant():
                 return False
-            # stole (or the path freed itself): retry the create once;
-            # losing that race means a live contender won — give up
+            time.sleep(0.005)
         return False
+
+    def _pidfile_vacant(self) -> bool:
+        """owner_path is absent or an empty flock artifact."""
+        try:
+            return os.path.getsize(self.owner_path) == 0
+        except FileNotFoundError:
+            return True
+        except OSError:
+            return False
 
     def _pidfile_create(self) -> bool:
         """Atomically publish {pid: us} at owner_path; False if a file is

@@ -1,14 +1,20 @@
 """Where the time of the tensor-core conv kernels goes.
 
     python -m reve_tpu_torch.scripts.perf_conv_tc_parts [--iters N]
+        [--sources SOURCE ...]
 
-Builds variants of the three tensor-core sources with one or two of their
+Builds variants of the four tensor-core sources with one or two of their
 parts taken out: the halo loads after the first tile (`no_load`: later
 tiles compute on a stale buffer), the wgmmas (`no_mma`: the accumulators
 are set, not computed), and the epilogue (`no_epi`: nothing is written).
 It times each variant, beside the kernel as it is (`full`), at the main
 path's shapes (a batch of 4 1920x1080 frames); `two_blocks` runs K4h at
-two blocks on each SM, as K4, not three:
+two blocks on each SM, as K4, not three.  For K3 and K4a `no_epi` takes
+out the epilogue arithmetic and the TMA stores, and `stores_only` runs
+the stores of the staging buffers alone (no loads, wgmmas or epilogue
+arithmetic); their `no_load_no_epi` is the wgmmas with the halo's
+staging, and `fewer_blocks` / `more_blocks` run one block fewer / more on
+each SM:
   * kernels/csrc/conv3x3_tc.cu: bfloat16 K1 (`k1_ms`) and K2 at r=4
     (`k2_ms`);
   * kernels/csrc/conv3x3_f32_tc.cu: float32 K1 as the wrapper runs it,
@@ -17,7 +23,10 @@ two blocks on each SM, as K4, not three:
     with its split pass (`k2_f32_ms`) and alone (`k2_conv_ms`).  The
     weights stream tap by tap in every variant: `no_load` takes out the
     halo loads only;
-  * kernels/csrc/conv3x3_s8.cu: K4 (`k4_ms`) and K4h at r=4 (`k4h_ms`).
+  * kernels/csrc/conv3x3_s8.cu: K4 (`k4_ms`) and K4h at r=4 (`k4h_ms`);
+  * kernels/csrc/conv3x3.cu: K3 in bfloat16 (`k3_ms`) and float32
+    (`k3_f32_ms`), K4a with its conv in bfloat16 (`k4a_ms`) and float32
+    (`k4a_f32_ms`).
 Each source's kernels share one mainloop, so a variant takes the part out
 of all of them.  The variants compute wrong results.  They exist only
 here, in a temporary directory, and only their times mean anything.
@@ -49,6 +58,11 @@ _LOAD = "    if (tid == 0 && next < g.count) {"
 _LOAD_WAIT = "    mbar_wait(bar + (it & 1) * 8, (it >> 1) & 1);"
 _NO_LOAD = [(_LOAD, "    if (false) {"),
             (_LOAD_WAIT, "    if (it == 0) mbar_wait(bar, 0);")]
+_U8_MMA = ("    mma_row<U::F32>(acc, cor, a_src, base + "
+           "(uint32_t)U::OFF_W);\n")
+_U8_EPI = ("    epilogue<T, TOut>(st, acc, cor, bi, al, al2, inv_s, pa, "
+           "q);\n")
+_U8_STORE = "    if (t == 0) {\n      const uint32_t src"
 #: source -> variant -> [(text in the source, its replacement)]
 PATCHES = {
     conv3x3.TC_SOURCE: {
@@ -85,7 +99,25 @@ PATCHES = {
         "two_blocks": [("  static constexpr int BLOCKS = R == 0 ? 2 : 3;",
                         "  static constexpr int BLOCKS = 2;")],
     },
+    conv3x3.SOURCE: {
+        "no_load": [("    if (tile + 2 * step < count)\n      fetch(",
+                     "    if (false)\n      fetch(")],
+        "no_mma": [(_U8_MMA, "    for (int i = 0; i < 32; ++i) acc[i] = "
+                    "cor[i] = it;\n")],
+        "no_epi": [(_U8_EPI, "    if (acc[0] == 0.5f) smem[0] = 1;\n"),
+                   (_U8_STORE, "    if (false) {\n      const uint32_t src")],
+    },
 }
+# K3 and K4a at one block fewer and one more on each SM than they run
+_U8_BLOCKS = ("  static constexpr int BLOCKS = F32 ? (Q8 ? 3 : 2) : (Q8 ? 6 : "
+              "4);")
+PATCHES[conv3x3.SOURCE]["fewer_blocks"] = [(_U8_BLOCKS, _U8_BLOCKS.replace(
+    "(Q8 ? 3 : 2) : (Q8 ? 6 : 4)", "(Q8 ? 2 : 1) : (Q8 ? 5 : 3)"))]
+PATCHES[conv3x3.SOURCE]["more_blocks"] = [(_U8_BLOCKS, _U8_BLOCKS.replace(
+    "(Q8 ? 3 : 2) : (Q8 ? 6 : 4)", "(Q8 ? 4 : 3) : (Q8 ? 7 : 5)"))]
+PATCHES[conv3x3.SOURCE]["stores_only"] = (
+    PATCHES[conv3x3.SOURCE]["no_load"] + PATCHES[conv3x3.SOURCE]["no_mma"]
+    + [(_U8_EPI, "")])
 for _p in PATCHES.values():
     _p["full"] = []
     _p["no_load_no_epi"] = _p["no_load"] + _p["no_epi"]
@@ -104,11 +136,12 @@ def variant_source(source: str, variant: str) -> str:
     return text
 
 
-def build_variants(tmp: str) -> dict:
-    """{(source, variant): loaded library}, all compiled at once."""
+def build_variants(tmp: str, sources=None) -> dict:
+    """{(source, variant): loaded library} of `sources` (default: all),
+    all compiled at once."""
     procs = {}
-    for source, variants in PATCHES.items():
-        for variant in variants:
+    for source in sources or PATCHES:
+        for variant in PATCHES[source]:
             stem = f"{os.path.splitext(source)[0]}-{variant}"
             cu = os.path.join(tmp, f"{stem}.cu")
             with open(cu, "w") as f:
@@ -138,6 +171,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     p = argparse.ArgumentParser(prog="perf_conv_tc_parts",
                                 description=__doc__.splitlines()[0])
     p.add_argument("--iters", type=int, default=20)
+    p.add_argument("--sources", nargs="+", choices=sorted(PATCHES),
+                   help="time only these sources' variants")
     args = p.parse_args(argv)
     dev = torch.device("cuda", 0)
     rs = np.random.RandomState(0)
@@ -156,6 +191,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         np.int8)).to(dev)
     w8 = conv3x3_s8.pack_weights_s8(w8r)
     w8h = conv3x3_s8.pack_weights_s8(w8r[..., :3 * R * R])
+    w3, w3f = w[:, :, :3].contiguous(), wf[:, :, :3].contiguous()
     b = torch.zeros(64, device=dev)
     alpha = torch.full((64,), 0.2, device=dev)
     scale = torch.full((64,), 1e-5, device=dev)
@@ -173,17 +209,17 @@ def main(argv: Optional[List[str]] = None) -> dict:
         """{timing: callable} for one variant's library."""
         if source == conv3x3.TC_SOURCE:
             k1 = _entry(lib, "reve_conv3x3_bias_prelu_tc",
-                        [P] * 5 + [I] * 4 + [P])
+                        [P] * 5 + [I] * 3 + [P])
             k2 = _entry(lib, "reve_head_conv_residual_u8_shuffle_tc",
-                        [P] * 5 + [I] * 5 + [P])
+                        [P] * 5 + [I] * 4 + [P])
             return {
                 "k1_ms": lambda: build.check(lib, k1(
                     x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                    alpha.data_ptr(), y.data_ptr(), B, H, W, 1, stream),
+                    alpha.data_ptr(), y.data_ptr(), B, H, W, stream),
                     name),
                 "k2_ms": lambda: build.check(lib, k2(
                     x.data_ptr(), wh.data_ptr(), b.data_ptr(),
-                    u8.data_ptr(), o.data_ptr(), B, H, W, R, 1, stream),
+                    u8.data_ptr(), o.data_ptr(), B, H, W, R, stream),
                     name)}
         if source == conv3x3.F32_SOURCE:
             split = _entry(lib, "reve_split_bf16x3",
@@ -217,6 +253,26 @@ def main(argv: Optional[List[str]] = None) -> dict:
             return {"k1_f32_ms": run_both, "conv_ms": run_conv,
                     "split_ms": run_split, "k2_f32_ms": run_head_split,
                     "k2_conv_ms": run_head}
+        if source == conv3x3.SOURCE:
+            k3 = _entry(lib, "reve_conv3x3_u8_bias_prelu",
+                        [P] * 5 + [I] * 4 + [P])
+            k4a = _entry(lib, "reve_conv3x3_u8_bias_prelu_q8",
+                         [P] * 6 + [I] * 4 + [P])
+
+            def run_k3(wt, out, code):
+                return lambda: build.check(lib, k3(
+                    u8.data_ptr(), wt.data_ptr(), b.data_ptr(),
+                    alpha.data_ptr(), out.data_ptr(), B, H, W, code, stream),
+                    name)
+
+            def run_k4a(wt, code):
+                return lambda: build.check(lib, k4a(
+                    u8.data_ptr(), wt.data_ptr(), b.data_ptr(),
+                    alpha.data_ptr(), inv.data_ptr(), y8.data_ptr(), B, H, W,
+                    code, stream), name)
+            return {"k3_ms": run_k3(w3, y, 1),
+                    "k3_f32_ms": run_k3(w3f, yf, 0),
+                    "k4a_ms": run_k4a(w3, 1), "k4a_f32_ms": run_k4a(w3f, 0)}
         k4 = _entry(lib, "reve_conv3x3_s8_dq_prelu_q8",
                     [P] * 7 + [I] * 3 + [P])
         k4h = _entry(lib, "reve_head_conv_s8_residual_u8_shuffle_tc",
@@ -232,7 +288,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_variants(tmp)
+        libs = build_variants(tmp, args.sources)
         for _ in range(2):
             for (source, variant), lib in libs.items():
                 for timing, fn in timings(source, lib, variant).items():

@@ -7,11 +7,14 @@ reve_tpu, so it runs on a machine with only PyTorch and the CUDA toolkit:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest
 
-K1 and K2 (both dtypes), K4 and K4h run on the tensor cores
+Every conv runs on the tensor cores: K1 and K2 (both dtypes), K4 and K4h
 (csrc/conv3x3_tc.cu, csrc/conv3x3_f32_tc.cu, csrc/conv3x3_s8.cu; tiles of
-conv3x3.TC_TILE pixels, K4 and K4h of 2 x 64): they are held at the tile
-edges, ragged and whole, and at large activations; K4 at each of its nine
-taps alone.
+conv3x3.TC_TILE pixels, K4 and K4h of 2 x 64), and K3 and K4a (both
+compute dtypes, csrc/conv3x3.cu; tiles of 1 x 64, the output by TMA
+stores): they are held at the tile edges, ragged and whole, and at large
+activations; K4 at each of its nine taps alone; K3 and K4a also at a
+batch of 4 1080p frames, far more tiles than the persistent grid's
+blocks, so each block's staging buffers serve many stores.
 
 Tolerances: float32 max |d| <= 1e-4 (float32 accumulation order; float32
 K1 sums six bf16 products on the tensor cores, which add in their own
@@ -22,8 +25,10 @@ round a float32 sum that differs in its last bits to neighbouring bf16
 values, and PReLU rounds once more), the ulp taken at 2^-10 or more (a
 sum that cancels to near zero may change sign between two summation
 orders); uint8 |d| <= 1.  The int8 kernels: K4 exact (integer sums, the
-same float32 epilogue); K4a |d| <= 1 s8 code (its float conv sums in
-another order before the quantize); K4h exact (integer sums, the same
+same float32 epilogue); K4a |d| <= 1 s8 code, in both compute dtypes (its
+float conv sums in another order before the quantize, so a value near a
+rounding boundary may land on the next code); K4h exact (integer sums,
+the same
 float32 epilogue); P1 s8 exact, bf16 within 1e-4 of the largest |value|.
 float32 K2 sums six bf16 products like float32 K1: u8 |d| <= 1, at
 ordinary and at +-2^8 activations.
@@ -561,3 +566,107 @@ def test_int8_model_kernels_match_plain_path():
         # later codes too: held by PSNR, as chip_smoke.py holds the job
         mse = ((got.double() - want.double()) ** 2).mean().item()
         assert 10 * np.log10(255.0 ** 2 / max(mse, 1e-12)) >= 60.0
+
+
+def _u8_case(seed, B, hw, name, q8):
+    """K3 (q8 False) or K4a, kernel and plain version, on one input."""
+    dev = _cuda()
+    d = _inputs(seed, B, *hw)
+    w3 = d["w"][:, :, :3].contiguous().to(dev, DTYPES[name]) * 4
+    u8, b, a = d["u8"].to(dev), d["b"].to(dev), d["alpha"].to(dev)
+    if q8:
+        inv = torch.tensor([1.0 / 0.01], device=dev)
+        return (conv3x3.conv3x3_u8_bias_prelu_q8(u8, w3, b, a, inv),
+                conv3x3.conv3x3_u8_bias_prelu_q8_plain(u8, w3, b, a, inv))
+    return (conv3x3.conv3x3_u8_bias_prelu(u8, w3, b, a),
+            conv3x3.conv3x3_u8_bias_prelu_plain(u8, w3, b, a))
+
+
+def _u8_close(got, want, name, q8):
+    if q8:
+        assert got.dtype == torch.int8
+        d = (got.int() - want.int()).abs()
+        assert d.max().item() <= 1
+        # n_diff: a few codes, where the value sits at a rounding boundary
+        assert int((d > 0).sum()) <= max(2, 1e-3 * d.numel())
+    else:
+        assert got.dtype == DTYPES[name]
+        _close(got, want, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", TC_SHAPES)
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("q8", [False, True], ids=["k3", "k4a"])
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_u8_conv_kernels_match_plain_at_tile_edges(name, q8, B, hw):
+    """K3 and K4a on the tensor cores, in both compute dtypes: tiles of one
+    row of 64 pixels, the halo read as 4-B words of rows of W * 3 bytes
+    (ragged at every width but 1920), the ragged right edge clipped by the
+    TMA store."""
+    key = "conv3x3_u8_bias_prelu" + ("_q8" if q8 else "")
+    before = LAUNCHES[key]
+    got, want = _u8_case(70 + B + hw[1], B, hw, name, q8)
+    torch.cuda.synchronize()
+    assert got.shape == (B, *hw, 64)
+    _u8_close(got, want, name, q8)
+    assert LAUNCHES[key] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_u8_conv_kernels_at_1080p(name):
+    """A batch of 4 1080p frames: many more tiles than the persistent
+    grid has blocks, so every block reuses its two staging buffers (and
+    waits on their stores) many times over."""
+    B, H, W = 4, 1080, 1920
+    sms = torch.cuda.get_device_properties(_cuda()).multi_processor_count
+    assert B * H * (W // 64) > 16 * sms
+    for q8 in (False, True):
+        got, want = _u8_case(80, B, (H, W), name, q8)
+        torch.cuda.synchronize()
+        _u8_close(got, want, name, q8)
+        del got, want
+
+
+@pytest.mark.cuda
+def test_u8_conv_wrappers_refuse_and_no_cuda_core_form_is_left():
+    """K3/K4a refuse what their kernel does not take, and launch nothing;
+    their library exports K3 and K4a only, and each of its kernels holds
+    wgmma (HGMMA) in its SASS: no CUDA-core form of K3 or K4a is left."""
+    import os
+    import re
+    import subprocess
+
+    from reve_tpu_torch.kernels import build
+
+    dev = _cuda()
+    before = dict(LAUNCHES)
+    u8 = torch.zeros((1, 4, 8, 3), dtype=torch.uint8, device=dev)
+    w = torch.zeros((3, 3, 3, 64), device=dev)
+    f = torch.zeros(64, device=dev)
+    inv = torch.ones(1, device=dev)
+    with pytest.raises(TypeError):
+        conv3x3.conv3x3_u8_bias_prelu(u8.float(), w, f, f)
+    with pytest.raises(TypeError):
+        conv3x3.conv3x3_u8_bias_prelu(u8, w.half(), f, f)
+    with pytest.raises(ValueError, match="expected"):
+        conv3x3.conv3x3_u8_bias_prelu(u8, w[:, :, :2].contiguous(), f, f)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3.conv3x3_u8_bias_prelu_q8(u8.transpose(1, 2), w, f, f, inv)
+    with pytest.raises(ValueError, match="1 float32"):
+        conv3x3.conv3x3_u8_bias_prelu_q8(u8, w, f, f, f)
+    torch.cuda.synchronize()
+    assert LAUNCHES == before
+    lib = build.load(conv3x3.SOURCE)
+    assert hasattr(lib, "reve_conv3x3_u8_bias_prelu")
+    assert hasattr(lib, "reve_conv3x3_u8_bias_prelu_q8")
+    assert not hasattr(lib, "reve_conv3x3_bias_prelu")
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", build.build_info[
+        conv3x3.SOURCE]["path"]], check=True, capture_output=True,
+        text=True).stdout
+    kernels = re.split(r"\n\s*Function : ", sass)[1:]
+    assert len(kernels) == 4  # K3 and K4a, each in both compute dtypes
+    for k in kernels:  # (a CUDA-core conv would be thousands of FFMA)
+        assert "HGMMA" in k and k.count("FFMA") < 8, k.split()[0]

@@ -155,3 +155,48 @@ def test_tracer_and_torch_profile(tmp_path):
     assert os.path.getsize(os.path.join(prof_dir, "trace.json")) > 0
     with trace.device_profile(None):
         pass
+
+
+def test_owner_pidfile_steal_has_exactly_one_winner_under_race(tmp_path,
+                                                               monkeypatch):
+    """With flock unsupported, eight threads contend for a lock whose pid
+    file names a dead process: in every round exactly one acquires.  Each
+    contender's flock attempt first creates an empty owner.lock if the
+    path is absent, which can land between a stealer's unlink and its
+    link; a stealer must not give up on such an artifact."""
+    import concurrent.futures
+    import errno
+    import fcntl
+    import subprocess
+    import sys
+    import time
+
+    def no_flock(fd, op):
+        raise OSError(errno.ENOLCK, "No locks available")
+
+    monkeypatch.setattr(fcntl, "flock", no_flock)
+    root = str(tmp_path / "w")
+    os.makedirs(root)
+    rs = np.random.RandomState(0)
+
+    def contend(ws_delay):
+        # starts staggered over 2 ms, so that some flock attempts land
+        # between a steal's unlink and its link
+        ws, delay = ws_delay
+        time.sleep(delay)
+        return ws.acquire_owner()
+
+    dead = subprocess.Popen([sys.executable, "-c", "pass"])
+    dead.wait()
+    winners = []
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        for _ in range(200):
+            contenders = [Workspace(root) for _ in range(8)]
+            with open(contenders[0].owner_path, "w") as f:
+                json.dump({"pid": dead.pid}, f)
+            delays = rs.uniform(0, 0.002, 8)
+            winners.append(sum(ex.map(contend, zip(contenders, delays))))
+            for w in contenders:
+                w.release_owner()
+    assert winners == [1] * len(winners), \
+        {n: winners.count(n) for n in set(winners)}

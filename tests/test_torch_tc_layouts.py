@@ -3,7 +3,11 @@ and six-pass product of float32 K1 and K2 (csrc/conv3x3_f32_tc.cu)
 against the JAX package's float32 conv and head epilogue, and the weight
 packers of float32 K1/K2 and K4/K4h (csrc/conv3x3_s8.cu) against their
 index formulas, at every N the kernels take (64 for the hidden convs;
-16, 32, 48 for the heads at r = 2, 3, 4, zero-padded).
+16, 32, 48 for the heads at r = 2, 3, 4, zero-padded).  K3 and K4a
+(csrc/conv3x3.cu): their weight packer against its index formula, an
+emulation of their product (A in their K order, B as packed, bf16 or
+six bf16 pairs) and epilogue (PReLU as one bf16x2 fma, the quantize by
+adding 1.5 * 2^23) against reve_tpu's first conv + PReLU (+ _quant_s8).
 
 Tolerances: the split is exact (hi + mid + lo == x); the six-pass
 emulation, float32 convs of each bf16 pair summed in float32, is held to
@@ -11,7 +15,10 @@ reve_tpu's `_conv3x3` at float32 (Precision.HIGHEST) at the bound of
 test_torch_kernels.py's float32 cases, atol 2e-5, rtol 1e-5, scaled by
 2^8 with the inputs; through the head epilogue, u8 |d| <= 1 (a sum that
 differs in its last bits may round y * 255 + 0.5 to the neighbouring
-integer), on under 1% of the samples.
+integer), on under 1% of the samples.  K3's emulation: float32 atol
+2e-5, rtol 1e-5 as float32 K1's; bfloat16 within 2 bf16 ulp (the ulp
+taken at 2^-10 or more) as the card tests hold the kernel; K4a's s8 codes
+within 1 of the reference's.
 """
 
 import os
@@ -187,6 +194,8 @@ def test_every_header_is_in_the_build_key():
 
 
 @pytest.mark.parametrize("source, entries", [
+    ("conv3x3.cu", ("reve_conv3x3_u8_bias_prelu",
+                    "reve_conv3x3_u8_bias_prelu_q8")),
     ("conv3x3_tc.cu", ("reve_conv3x3_bias_prelu_tc",
                        "reve_head_conv_residual_u8_shuffle_tc")),
     ("conv3x3_f32_tc.cu", ("reve_split_bf16x3",
@@ -203,6 +212,9 @@ def test_heads_live_beside_their_hidden_convs(source, entries):
         src = f.read()
     for entry in entries:
         assert f'extern "C" int {entry}(' in src
+    # every conv is on the tensor cores: no CUDA-core form is left
+    assert "Wgmma" in src
+    assert "fmaf(" not in src and "__dp4a" not in src
     if "head" in " ".join(entries):
         assert "HeadEpilogue<R>" in src and "residual_u8(" not in src
 
@@ -216,6 +228,9 @@ def test_parts_script_variants_still_apply(source):
     for variant in perf_conv_tc_parts.PATCHES[source]:
         text = perf_conv_tc_parts.variant_source(source, variant)
         assert (text == original) == (variant == "full")
+    if source == conv3x3.SOURCE:  # K3/K4a: stores alone, wgmmas alone
+        assert {"stores_only", "no_load_no_epi", "full"} <= set(
+            perf_conv_tc_parts.PATCHES[source])
 
 
 def test_split_pass_refuses_non_cuda_devices():
@@ -224,3 +239,141 @@ def test_split_pass_refuses_non_cuda_devices():
         conv3x3.split_bf16x3(x)
     assert all(v == 0 for v in LAUNCHES.values())
     assert not build._libs
+
+
+#: the compute dtypes of K3 and K4a: (JAX dtype, torch dtype)
+U8_DTYPES = {"float32": (jnp.float32, torch.float32),
+             "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+@pytest.mark.parametrize("name", sorted(U8_DTYPES))
+def test_u8conv_weight_packer_matches_its_index_formula(name):
+    """K3/K4a's B: row k = 10 dx + 3 dy + c holds tap (dy, dx), channel
+    c (taps column by column, each column of 9 padded to 10); rows 9, 19
+    and 29..31 are zero.  bfloat16 packs the weights as they are, float32
+    their three bf16 splits."""
+    tdt = U8_DTYPES[name][1]
+    rs = np.random.RandomState(7)
+    w = torch.from_numpy(rs.standard_normal((3, 3, 3, 64)).astype(
+        np.float32)).to(tdt)
+    p = conv3x3.pack_weights_u8conv(w)
+    planes = w[None] if tdt == torch.bfloat16 else conv3x3.split_bf16x3(w)
+    assert p.dtype == torch.bfloat16 and p.is_contiguous()
+    assert p.shape == (planes.shape[0], 4, 64, 8)
+    real = {conv3x3.u8conv_k(dy, dx, c): (dy, dx, c)
+            for dy in range(3) for dx in range(3) for c in range(3)}
+    assert len(real) == 27 and max(real) < conv3x3.U8_K
+    assert set(range(conv3x3.U8_K)) - set(real) == {9, 19, 29, 30, 31}
+    for s in range(p.shape[0]):
+        for kb in range(4):
+            for kk in range(8):
+                k = 8 * kb + kk
+                if k in real:
+                    dy, dx, c = real[k]
+                    assert torch.equal(p[s, kb, :, kk], planes[s, dy, dx, c])
+                else:
+                    assert not p[s, kb, :, kk].any()
+
+
+def _u8conv_emulation(u8, w, b, alpha, inv=None):
+    """The product and epilogue of K3 (inv None) or K4a on the CPU: A as
+    the kernel stages it (bf16(u8 / 255), or float32 u8 / 255 as its bf16
+    hi, mid, lo) in the kernel's K order, B as pack_weights_u8conv lays it
+    out, float32 sums (float32: the pairs of BF16X6_PAIRS, smallest first),
+    + b in float32, the cast, PReLU as max(f, 0) + alpha * min(f, 0) in one
+    rounding, and K4a's quantize as the kernel does it: clip, then add
+    1.5 * 2^23, whose float32 sum's low byte is the code."""
+    dt = w.dtype
+    B, H, W, _ = u8.shape
+    x = u8.float() * (1.0 / 255.0)
+    planes = x.to(torch.bfloat16)[None] if dt == torch.bfloat16 \
+        else conv3x3.split_bf16x3(x)
+    xp = torch.nn.functional.pad(planes, (0, 0, 1, 1, 1, 1))
+    cols = torch.zeros(planes.shape[0], B, H, W, conv3x3.U8_K)
+    for dy in range(3):
+        for dx in range(3):
+            for c in range(3):
+                cols[..., conv3x3.u8conv_k(dy, dx, c)] = \
+                    xp[:, :, dy:dy + H, dx:dx + W, c].float()
+    bp = conv3x3.pack_weights_u8conv(w).permute(0, 1, 3, 2).reshape(
+        -1, conv3x3.U8_K, 64).float()
+    pairs = ((0, 0),) if dt == torch.bfloat16 else BF16X6_PAIRS
+    acc = None
+    for i, j in reversed(pairs):
+        t = cols[i] @ bp[j]
+        acc = t if acc is None else acc + t
+    f = (acc + b).to(dt).double()
+    a = alpha.to(dt).double()
+    h = (f.clamp_min(0) + a * f.clamp_max(0)).to(dt)  # one rounding
+    if inv is None:
+        return h
+    v = (h.float() * inv).clamp(-127, 127) + 12582912.0
+    code = (v.view(torch.int32) & 0xFF).to(torch.uint8)
+    return code.view(torch.int8)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["k3", "k4a"])
+@pytest.mark.parametrize("name", sorted(U8_DTYPES))
+def test_u8conv_emulation_matches_jax_first_conv(name, q8):
+    jdt, tdt = U8_DTYPES[name]
+    rs = np.random.RandomState(11 + q8)
+    u8 = rs.randint(0, 256, (2, 9, 13, 3)).astype(np.uint8)
+    w = rs.uniform(-0.3, 0.3, (3, 3, 3, 64)).astype(np.float32)
+    b = rs.uniform(-0.1, 0.1, 64).astype(np.float32)
+    alpha = rs.uniform(0.05, 0.4, 64).astype(np.float32)
+    x = jnp.asarray(u8).astype(jnp.float32) * (1.0 / 255.0)
+    want = jsrvgg._prelu(jsrvgg._conv3x3(
+        x.astype(jdt), jnp.asarray(w).astype(jdt), jnp.asarray(b)),
+        jnp.asarray(alpha))
+    scale = np.float32(0.01)
+    inv = torch.tensor([1.0], dtype=torch.float32) / torch.tensor(
+        [scale], dtype=torch.float32)
+    got = _u8conv_emulation(torch.from_numpy(u8),
+                            torch.from_numpy(w).to(tdt), torch.from_numpy(b),
+                            torch.from_numpy(alpha), inv if q8 else None)
+    if q8:
+        want = np.asarray(jsrvgg._quant_s8(want, jnp.float32(scale)))
+        d = np.abs(got.numpy().astype(np.int16) - want.astype(np.int16))
+        assert d.max() <= 1 and (d > 0).mean() < 0.01
+        assert np.unique(want).size > 64 and (np.abs(want) == 127).any()
+        return
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    g = got.float().numpy()
+    if name == "float32":
+        np.testing.assert_allclose(g, want, atol=2e-5, rtol=1e-5)
+    else:
+        mag = np.maximum(np.maximum(np.abs(g), np.abs(want)), 2.0 ** -10)
+        ulp = 2.0 ** (np.floor(np.log2(mag)) - 7)
+        assert (np.abs(g - want) <= 2 * ulp).all()
+
+
+def test_quantize_by_adding_1p5_2p23_is_round_half_even_clipped():
+    """K4a's quantize: clip(t, +-127) + 1.5 * 2^23 in float32 has the code
+    clip(rint(t), +-127) in its low byte, ties to even, at the halves,
+    their neighbours, the clip bounds and far past them."""
+    rs = np.random.RandomState(3)
+    halves = np.arange(-130, 131) + 0.5
+    t = np.concatenate([
+        halves, np.nextafter(halves, np.inf, dtype=np.float32),
+        np.nextafter(halves, -np.inf, dtype=np.float32),
+        rs.uniform(-200, 200, 4096), [0.0, -0.0, 127.0, -127.0, 3e38,
+                                      -3e38, 1e-30, -1e-30]]).astype(
+                                          np.float32)
+    v = np.clip(t, np.float32(-127), np.float32(127)) + np.float32(12582912)
+    got = (v.view(np.int32) & 0xFF).astype(np.uint8).view(np.int8)
+    want = np.clip(np.rint(t), -127, 127).astype(np.int8)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_prelu_as_one_bf16_fma_matches_the_plain_prelu():
+    """K3/K4a's bf16 PReLU, alpha * min(f, 0) + max(f, 0) rounded once,
+    equals the plain version's max(f, 0) + bf16(alpha * min(f, 0))."""
+    rs = np.random.RandomState(4)
+    f = torch.from_numpy(rs.standard_normal(65536).astype(
+        np.float32) * np.exp2(rs.uniform(-20, 8, 65536)).astype(
+            np.float32)).to(torch.bfloat16)
+    alpha = torch.from_numpy(rs.uniform(0.01, 0.5, 65536).astype(
+        np.float32)).to(torch.bfloat16)
+    fd, ad = f.double(), alpha.double()
+    fma = (ad * fd.clamp_max(0) + fd.clamp_min(0)).to(torch.bfloat16)
+    assert torch.equal(fma.float(), conv3x3.prelu_plain(f, alpha).float())
