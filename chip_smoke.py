@@ -11,11 +11,13 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               in this checkout (sm_90a), all at once, and prints each
               library's registers, spills and count of wgmma instructions
               in its SASS (cuobjdump: HGMMA for bf16, IGMMA for s8): the
-              libraries of K3/K4a, bfloat16 K1/K2, float32 K1/K2 and
-              K4/K4h must have at least the count of all their kernels
-              (the heads at r = 2, 3, 4 included), every kernel of
-              conv3x3.cu (K3 and K4a in both compute dtypes) must hold
-              HGMMA, and no library any __dp4a (IDP.4A);
+              libraries of K3/K4a, bfloat16 K1/K2, float32 K1/K2, K4/K4h
+              and P1 must have at least the count of all their kernels
+              (the heads at r = 2, 3, 4 included; P1 at every K), every
+              kernel of conv3x3.cu (K3 and K4a in both compute dtypes)
+              and of dot_probe.cu must hold wgmma, P1's library both
+              IGMMA and HGMMA, and no library any __dp4a (IDP.4A) or
+              mma.sync (HMMA, IMMA);
   3. kernels  K3, K1 and K2 at the main path's shapes (1080p frames, a
               batch of 4, x4), all on the tensor cores, in bfloat16
               (conv3x3.cu, conv3x3_tc.cu) and float32 (as six bf16
@@ -56,17 +58,25 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               (reported, not gated: the frames are synthetic and the
               weights self-SR proxies), the job's fps and the calibration
               and certification seconds;
-  6. probe    P1, the tensor-core dot-rate probe, through
+  6. probe    P1, the tensor-core dot-rate probe (wgmma), through
               `python -m reve_tpu_torch.scripts.perf_int8_dot`'s main at
-              its shapes, then against its plain version (s8 exact; bf16
-              max |d| <= 1e-4 max |ref|): s8 and bf16 TOP/s and their
-              ratio, beside loops x torch._int_mm / torch.matmul.
+              its shapes: per call at 64 loops timed free of the host's
+              launch cost (the calls queued behind a sleep kernel, so that
+              the card runs them back to back), the marginal rate from
+              64 to 1024 loops and the check that the time grows
+              linearly (fails otherwise: a dot was hoisted), and the
+              time of back-to-back calls from the host; then against
+              its plain version (s8 exact; bf16 max |d| <= 1e-4 max
+              |ref|), beside one library call of the same multiply-adds
+              (library_ms: torch._int_mm, or a bf16 torch.mm to float32,
+              of x tiled 64 times along K by the halves stacked in loop
+              order) and 64 library calls (library_loop_ms).
 
 The line before the last is nvidia-smi's name and power limit; before
 that, one JSON object {"kernels": [...]} with each kernel's launches on
 its path (main, int8 or probe), error (and, for u8 and s8 outputs,
 n_diff: the values that differ from the plain version's), times, bound
-and design ("wgmma", "wgmma_bf16x6", "mma_sync" or "elementwise"; the
+and design ("wgmma", "wgmma_bf16x6" or "elementwise"; the
 float32 forms of K1, K2 and K3 nested under "float32" with their own
 source, design and launches on the int8 path, where they run).  The last
 line is {"ok": true, "device": {...}}.
@@ -100,9 +110,13 @@ FRAMES, W, H, SCALE, BATCH = 8, 1920, 1080, 4, 4
 #: wgmma instructions each tensor-core library must hold at least: every
 #: kernel's mainloop unrolled (per 64-pixel row: bf16 36, bf16x6 216, s8
 #: 18), the hidden conv and the heads at r = 2, 3, 4; K3 and K4a 2 in
-#: bfloat16 and 12 in float32 (K = 32: two k16 steps, six products each)
+#: bfloat16 and 12 in float32 (K = 32: two k16 steps, six products each);
+#: P1 one kernel for each count of 32-B k steps, its dot's wgmmas
+#: unrolled: s8 1 + ... + 8 (IGMMA), bf16 1 + ... + 16 (HGMMA)
+P1_IGMMA, P1_HGMMA = sum(range(1, 9)), sum(range(1, 17))
 MIN_WGMMA = {"conv3x3_tc.cu": 4 * 36, "conv3x3_f32_tc.cu": 4 * 216,
-             "conv3x3_s8.cu": 4 * 18, "conv3x3.cu": 2 * (2 + 12)}
+             "conv3x3_s8.cu": 4 * 18, "conv3x3.cu": 2 * (2 + 12),
+             "dot_probe.cu": P1_IGMMA + P1_HGMMA}
 
 
 def emit(obj) -> None:
@@ -166,10 +180,11 @@ def bf16_ulp_ok(got, want, ulps: int = 2) -> bool:
 
 
 def sass_ops(lib: str) -> dict:
-    """Counts of the wgmma opcodes (HGMMA, IGMMA, ...) and of __dp4a
-    (SASS IDP.4A, counted as "IDP4A") in a built library's SASS
-    (cuobjdump of the CUDA toolkit whose nvcc built it), in all and by
-    kernel: {"all": {op: n}, "by_kernel": {mangled name: {op: n}}}."""
+    """Counts of the wgmma opcodes (HGMMA, IGMMA, ...), of mma.sync (HMMA,
+    IMMA) and of __dp4a (SASS IDP.4A, counted as "IDP4A") in a built
+    library's SASS (cuobjdump of the CUDA toolkit whose nvcc built it), in
+    all and by kernel: {"all": {op: n}, "by_kernel": {mangled name: {op:
+    n}}}."""
     from reve_tpu_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -178,7 +193,7 @@ def sass_ops(lib: str) -> dict:
     every, by_kernel = {}, {}
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         ops = by_kernel.setdefault(part.split()[0], {})
-        for m in re.finditer(r"\b([A-Z]GMMA|IDP\.?4A)\b", part):
+        for m in re.finditer(r"\b([A-Z]GMMA|[HI]MMA|IDP\.?4A)\b", part):
             op = m.group(1).replace(".", "")
             ops[op] = ops.get(op, 0) + 1
             every[op] = every.get(op, 0) + 1
@@ -438,10 +453,12 @@ def model_ms(params, cfg, frames) -> dict:
         for name in ("bfloat16", "float32")}
 
 
-def probe_phase(out: dict) -> dict:
+def probe_phase(out: dict, smi: str) -> dict:
     """P1 through the probe script's entry point with the launch counters
-    zeroed, then against its plain version and beside the library's
-    loops x (torch._int_mm | torch.matmul) on the same inputs."""
+    zeroed (its calls queued behind a sleep kernel at 64 and 1024 loops,
+    then timed from the host; the growth must be linear), then against
+    its plain version and beside one library call of the same
+    multiply-adds and 64 library calls, on the same inputs."""
     import torch
 
     from reve_tpu_torch import kernels
@@ -451,16 +468,25 @@ def probe_phase(out: dict) -> dict:
     iters, loops = 20, 64
     torch.cuda.synchronize()
     kernels.reset_launches()
-    rates = probe.main(["--iters", str(iters), "--loops", str(loops)])
+    rates = probe.main(["--iters", str(iters), "--loops", str(loops)],
+                       card_line=smi)
     torch.cuda.synchronize()
     launches = kernels.LAUNCHES["dot_loop"]
-    if launches != 2 * (iters + 1):
+    # per dtype: the queued calls at 64 and at 1024 loops and the host's
+    # loop, each one untimed call and `iters` timed ones
+    if launches != 2 * 3 * (iters + 1):
         raise AssertionError(f"probe launched P1 {launches} times, "
-                             f"expected {2 * (iters + 1)}")
+                             f"expected {2 * 3 * (iters + 1)}")
     ops = probe.inputs(torch.device("cuda", 0))
     k = probe.K
     results = {}
     for name, peak in (("int8", "int8"), ("bf16", "bfloat16")):
+        r = rates[name]
+        if not r["linear"]:
+            raise AssertionError(
+                f"dot_loop {name}: time x{r['growth']:.2f} from "
+                f"{r['loops']} to {r['long_loops']} loops, marginal "
+                f"{r['marginal_tops']:.1f} TOP/s: not linear")
         x, w = ops[name]
         got = dot_probe.dot_loop(x, w, loops)
         want = dot_probe.dot_loop_plain(x, w, loops)
@@ -473,27 +499,61 @@ def probe_phase(out: dict) -> dict:
                                  f"its plain version (max |d| {err} > "
                                  f"{tol})")
         halves = (w[:k], w[k:])
+        xt, wt = probe.library_operands(x, w, loops)
         if name == "int8":
+            lib_dtype = "int32"
+
             def library():
+                return torch._int_mm(xt, wt)
+
+            def library_loop():
                 for i in range(loops):
                     torch._int_mm(x, halves[i % 2])
         else:
+            # float32 output where the installed PyTorch offers it
+            lib_dtype = "float32"
+
             def library():
+                return torch.mm(xt, wt, out_dtype=torch.float32)
+
+            def library_loop():
                 for i in range(loops):
                     torch.matmul(x, halves[i % 2])
+        try:
+            lib_out = library()
+        except (TypeError, RuntimeError, NotImplementedError) as e:
+            if name == "int8":
+                raise
+            print(f"# torch.mm without out_dtype=float32 "
+                  f"({str(e).splitlines()[0]}): bf16 output", flush=True)
+            lib_dtype = "bfloat16"
+
+            def library():
+                return torch.mm(xt, wt)
+            lib_out = library()
+        lib_err = (lib_out.double() - want.double()).abs().max().item()
+        del lib_out
         flops = 2 * probe.M * k * probe.N * loops
         nbytes = (x.numel() + w.numel()) * x.element_size() + got.numel() * 4
         bms, bby = bound_ms(nbytes, flops, peak)
         results[name] = {
-            "max_abs_err": err, "ms": rates[name]["ms"],
-            "tops": rates[name]["tops"],
+            "max_abs_err": err, "ms": r["ms"], "tops": r["tops"],
+            "ms_long": r["ms_long"], "long_loops": r["long_loops"],
+            "marginal_tops": r["marginal_tops"], "growth": r["growth"],
+            "linear": r["linear"], "host_ms": r["host_ms"],
             "plain_ms": cuda_time_ms(lambda: dot_probe.dot_loop_plain(
                 x, w, loops), iters=3),
-            "library_ms": library_time_ms(library), "bound_ms": bms,
-            "bound_by": bby, "shape": [probe.M, k, probe.N, loops],
+            "library_ms": library_time_ms(library),
+            "library_dtype": lib_dtype, "library_max_abs_err": lib_err,
+            "library_loop_ms": library_time_ms(library_loop),
+            "bound_ms": bms, "bound_by": bby,
+            "shape": [probe.M, k, probe.N, loops],
         }
+        del xt, wt
     out.update(results, launches=launches, ratio_int8_bf16=rates["ratio"],
-               peak_ratio=PEAK_FLOPS["int8"] / PEAK_FLOPS["bfloat16"])
+               marginal_ratio_int8_bf16=rates["marginal_ratio"],
+               peak_ratio=PEAK_FLOPS["int8"] / PEAK_FLOPS["bfloat16"],
+               nvidia_smi=smi)
     return results
 
 
@@ -512,7 +572,7 @@ def main() -> int:
         return 1
     from reve_tpu_torch import cli, kernels
     from reve_tpu_torch.io import reader, writer
-    from reve_tpu_torch.kernels import build, conv3x3, conv3x3_s8
+    from reve_tpu_torch.kernels import build, conv3x3, conv3x3_s8, dot_probe
     from reve_tpu_torch.models import srvgg
     from reve_tpu_torch.pipeline.engine import UpscaleEngine
     from reve_tpu_torch.weights import quantize
@@ -535,7 +595,8 @@ def main() -> int:
             ops = sass["all"]
             rec["sources"][s] = {
                 "seconds": round(v["seconds"], 3), "cached": v["cached"],
-                "wgmma": sum(n for k, n in ops.items() if k != "IDP4A"),
+                "wgmma": sum(n for k, n in ops.items()
+                             if k.endswith("GMMA")),
                 "sass_ops": ops,
                 "kernels_without_wgmma": sorted(
                     k for k, o in sass["by_kernel"].items()
@@ -544,22 +605,28 @@ def main() -> int:
                   + " | ".join(ln.strip() for ln in v["log"].splitlines()
                                if "registers" in ln or "spill" in ln),
                   flush=True)
-        # K1, K2, K3 (both dtypes), K4a, K4 and K4h run on wgmma;
-        # nothing on __dp4a
+        # K1, K2, K3 (both dtypes), K4a, K4, K4h and P1 run on wgmma;
+        # nothing on __dp4a or mma.sync
         for s, least in MIN_WGMMA.items():
             if rec["sources"][s]["wgmma"] < least:
                 raise AssertionError(f"{s}: {rec['sources'][s]['wgmma']} "
                                      f"wgmma in its SASS, fewer than its "
                                      f"kernels' {least}")
-        # no CUDA-core form of K3 or K4a is left: every kernel of their
-        # library holds HGMMA
-        if rec["sources"][conv3x3.SOURCE]["kernels_without_wgmma"]:
-            raise AssertionError(
-                f"{conv3x3.SOURCE}: kernels without wgmma: "
-                f"{rec['sources'][conv3x3.SOURCE]['kernels_without_wgmma']}")
+        p1 = rec["sources"][dot_probe.SOURCE]["sass_ops"]
+        if p1.get("IGMMA", 0) < P1_IGMMA or p1.get("HGMMA", 0) < P1_HGMMA:
+            raise AssertionError(f"{dot_probe.SOURCE}: {p1}, fewer than "
+                                 f"IGMMA {P1_IGMMA} and HGMMA {P1_HGMMA}")
+        # no CUDA-core form of K3 or K4a and no mma.sync form of P1 is
+        # left: every kernel of their libraries holds wgmma
+        for s in (conv3x3.SOURCE, dot_probe.SOURCE):
+            if rec["sources"][s]["kernels_without_wgmma"]:
+                raise AssertionError(
+                    f"{s}: kernels without wgmma: "
+                    f"{rec['sources'][s]['kernels_without_wgmma']}")
         for s, v in rec["sources"].items():
-            if v["sass_ops"].get("IDP4A"):
-                raise AssertionError(f"{s}: IDP.4A in its SASS")
+            for op in ("IDP4A", "HMMA", "IMMA"):
+                if v["sass_ops"].get(op):
+                    raise AssertionError(f"{s}: {op} in its SASS")
 
     weights = os.path.join(ROOT, "models", "realesr-animevideov3-x4.pth")
     cfg, params = load_srvgg_pth(weights)
@@ -727,7 +794,7 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
 
     with phase("probe", {}) as rec:
-        probe = probe_phase(rec)
+        probe = probe_phase(rec, smi)
         probe_launches = rec["launches"]
 
     sources = {
@@ -768,10 +835,10 @@ def main() -> int:
         "head_conv_s8_residual_u8_shuffle": ("int8", int8_launches),
         "dot_loop": ("int8", {"dot_loop": probe_launches}),
     }
-    # every model conv runs on wgmma, P1 on mma.sync, the split pass on
-    # CUDA cores; the float32 forms of K1, K2 and K3 run on wgmma as six
-    # bf16 products (K1's and K2's after their split pass)
-    designs = {"dot_loop": "mma_sync", "split_bf16x3": "elementwise"}
+    # every model conv and P1 run on wgmma, the split pass on CUDA cores;
+    # the float32 forms of K1, K2 and K3 run on wgmma as six bf16 products
+    # (K1's and K2's after their split pass)
+    designs = {"split_bf16x3": "elementwise"}
     f32_forms = {
         "conv3x3_u8_bias_prelu": ("reve_tpu_torch/kernels/csrc/conv3x3.cu",
                                   "wgmma_bf16x6"),
@@ -786,7 +853,11 @@ def main() -> int:
     for name, (src, replaces) in sources.items():
         dtype, launched = paths[name]
         if name == "dot_loop":
-            nums, extra = probe["int8"], {"bfloat16": probe["bf16"]}
+            nums = probe["int8"]
+            extra = {key: nums[key] for key in (
+                "library_loop_ms", "library_dtype", "host_ms", "ms_long",
+                "long_loops", "marginal_tops", "growth", "linear")}
+            extra["bfloat16"] = probe["bf16"]
         elif name == "split_bf16x3":
             nums, extra = results[name], {}
         elif dtype == "bfloat16":

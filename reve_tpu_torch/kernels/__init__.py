@@ -11,15 +11,17 @@ its plain PyTorch version and a launch counter.
                                               PReLU + requant
     K4a conv3x3.conv3x3_u8_bias_prelu_q8      K3 with an s8 quantize epilogue
     K4h head.head_conv_s8_residual_u8_shuffle int8 head conv + K2's epilogue
-    P1  dot_probe.dot_loop                    tensor-core s8/bf16 dot-rate
-                                              probe (not on a model path)
+    P1  dot_probe.dot_loop                    s8/bf16 dot-rate probe on
+                                              wgmma (not on a model path)
 
 K1, K2 (both dtypes), K4 and K4h run on the tensor cores as
 implicit-GEMM `wgmma` kernels with TMA halo loads: bfloat16 K1 and K2 in
 csrc/conv3x3_tc.cu, float32 K1 and K2 in csrc/conv3x3_f32_tc.cu (their
 operands split into three bf16 parts, six products summed: float32
 accuracy, never TF32, to match the reference's Precision.HIGHEST), K4 and
-K4h on s8 wgmma in csrc/conv3x3_s8.cu.  K3 and K4a run on CUDA cores.
+K4h on s8 wgmma in csrc/conv3x3_s8.cu.  K3 and K4a run on bf16 wgmma
+with A from registers and TMA stores (csrc/conv3x3.cu), and P1 on s8 and
+bf16 wgmma with A from registers (csrc/dot_probe.cu).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback.  `LAUNCHES` counts

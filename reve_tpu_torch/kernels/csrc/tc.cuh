@@ -2,8 +2,8 @@
 // addresses, mbarriers, TMA copies (loads and stores), wgmma descriptors
 // and instructions, the heads' u8 epilogue and the persistent walk over
 // output tiles.  Used by conv3x3_tc.cu (bfloat16 K1, K2),
-// conv3x3_f32_tc.cu (float32 K1, K2), conv3x3_s8.cu (K4, K4h) and
-// conv3x3.cu (K3, K4a).
+// conv3x3_f32_tc.cu (float32 K1, K2), conv3x3_s8.cu (K4, K4h),
+// conv3x3.cu (K3, K4a) and dot_probe.cu (P1).
 //
 // Every 64-channel conv here is an implicit GEMM over a halo tile in
 // shared memory: one halo pixel is one row of the K-major A operand (64
@@ -343,6 +343,28 @@ struct WgmmaS8<64> {
           "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
           "+r"(d[30]), "+r"(d[31])
         : "l"(a), "l"(b), "r"(1));
+  }
+  // ... with A from registers: the thread's fragment of A, four words of
+  // four s8; register r holds row 16 * warp + lane / 4 + 8 * (r % 2),
+  // columns 4 * (lane % 4) + 16 * (r / 2) + {0, 1, 2, 3} (the first in the
+  // low byte): the bf16 fragment's bytes.  The registers must not change
+  // before the wgmma is waited on.
+  __device__ static void mma(int (&d)[32], const uint32_t (&a)[4],
+                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
 

@@ -26,10 +26,18 @@ each SM:
   * kernels/csrc/conv3x3_s8.cu: K4 (`k4_ms`) and K4h at r=4 (`k4h_ms`);
   * kernels/csrc/conv3x3.cu: K3 in bfloat16 (`k3_ms`) and float32
     (`k3_f32_ms`), K4a with its conv in bfloat16 (`k4a_ms`) and float32
-    (`k4a_f32_ms`).
+    (`k4a_f32_ms`);
+  * kernels/csrc/dot_probe.cu: P1 at the probe's shape in s8 and bf16 at
+    0 loops (the prologue and epilogue alone), 64 and 1024 loops
+    (`int8_64_ms`, ...), the calls queued behind a sleep kernel
+    (perf_int8_dot.queued_ms); its variants are one warpgroup on each 64 x
+    64 tile in place of two (`one_wg`: every dot in one chain) and the
+    mainloop without the prologue (`no_prologue`: B not staged, A not
+    loaded).
 Each source's kernels share one mainloop, so a variant takes the part out
-of all of them.  The variants compute wrong results.  They exist only
-here, in a temporary directory, and only their times mean anything.
+of all of them.  The variants that take a part out compute wrong results.
+They exist only here, in a temporary directory, and only their times mean
+anything.
 Prints one JSON line: the
 card, then {source: {variant: {timing: [ms, ms]}}}, each time the mean
 over `iters` launches after one untimed launch, the variants run in turn,
@@ -50,8 +58,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from reve_tpu_torch.kernels import build, conv3x3, conv3x3_s8
-from reve_tpu_torch.scripts.perf_int8_dot import time_ms
+from reve_tpu_torch.kernels import build, conv3x3, conv3x3_s8, dot_probe
+from reve_tpu_torch.scripts import perf_int8_dot
+from reve_tpu_torch.scripts.perf_int8_dot import queued_ms, time_ms
 
 B, H, W, R = 4, 1080, 1920, 4
 _LOAD = "    if (tid == 0 && next < g.count) {"
@@ -122,6 +131,19 @@ for _p in PATCHES.values():
     _p["full"] = []
     _p["no_load_no_epi"] = _p["no_load"] + _p["no_epi"]
     _p["no_mma_no_epi"] = _p["no_mma"] + _p["no_epi"]
+PATCHES[dot_probe.SOURCE] = {
+    "full": [],
+    "one_wg": [("constexpr int WGS = 2;", "constexpr int WGS = 1;")],
+    "no_prologue": [
+        ("  for (int h = 0; h < 2; ++h)\n    stage_half",
+         "  for (int h = 0; h < 0; ++h)\n    stage_half"),
+        ("      a[s][r] = __ldg(reinterpret_cast<const uint32_t*>(\n"
+         "          xr + (r & 1) * 8 * KB + 32 * s + 16 * (r >> 1)));\n",
+         "      a[s][r] = (uint32_t)(size_t)xr + 32 * s + r;\n")],
+}
+#: P1's loop counts: the prologue and epilogue alone, the probe's, the
+#: slope's
+_DOT_LOOPS = (0, 64, 1024)
 
 
 def variant_source(source: str, variant: str) -> str:
@@ -205,8 +227,25 @@ def main(argv: Optional[List[str]] = None) -> dict:
     stream = torch.cuda.current_stream(dev).cuda_stream
     P, I = ctypes.c_void_p, ctypes.c_int
 
+    probe_ops = perf_int8_dot.inputs(dev)
+    probe_out = {n: torch.empty((perf_int8_dot.M, perf_int8_dot.N),
+                                dtype=torch.int32 if n == "int8"
+                                else torch.float32, device=dev)
+                 for n in probe_ops}
+
     def timings(source, lib, name):
         """{timing: callable} for one variant's library."""
+        if source == dot_probe.SOURCE:
+            fn = _entry(lib, "reve_dot_loop", [P] * 3 + [I] * 5 + [P])
+
+            def run(n, loops):
+                x, w = probe_ops[n]
+                return lambda: build.check(lib, fn(
+                    x.data_ptr(), w.data_ptr(), probe_out[n].data_ptr(),
+                    perf_int8_dot.M, perf_int8_dot.N, perf_int8_dot.K,
+                    loops, int(n == "bf16"), stream), name)
+            return {f"{n}_{loops}_ms": run(n, loops) for n in probe_ops
+                    for loops in _DOT_LOOPS}
         if source == conv3x3.TC_SOURCE:
             k1 = _entry(lib, "reve_conv3x3_bias_prelu_tc",
                         [P] * 5 + [I] * 3 + [P])
@@ -291,10 +330,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
         libs = build_variants(tmp, args.sources)
         for _ in range(2):
             for (source, variant), lib in libs.items():
+                timer = queued_ms if source == dot_probe.SOURCE else \
+                    time_ms
                 for timing, fn in timings(source, lib, variant).items():
                     out.setdefault(source, {}).setdefault(
                         variant, {}).setdefault(timing, []).append(
-                            time_ms(fn, args.iters, dev))
+                            timer(fn, args.iters, dev))
     line = {"device": torch.cuda.get_device_name(dev), "shape": [B, H, W],
             "r": R, "variants": out}
     print(json.dumps(line), flush=True)

@@ -29,7 +29,9 @@ same float32 epilogue); K4a |d| <= 1 s8 code, in both compute dtypes (its
 float conv sums in another order before the quantize, so a value near a
 rounding boundary may land on the next code); K4h exact (integer sums,
 the same
-float32 epilogue); P1 s8 exact, bf16 within 1e-4 of the largest |value|.
+float32 epilogue); P1 s8 exact, bf16 within 1e-4 of the largest |value|
+(its float32 sum is sum(even dots) + sum(odd dots), each dot's k steps
+added in order).
 float32 K2 sums six bf16 products like float32 K1: u8 |d| <= 1, at
 ordinary and at +-2^8 activations.
 """
@@ -516,14 +518,14 @@ def test_head_wrappers_reject_what_the_kernels_do_not_take():
         assert not hasattr(lib, "reve_head_conv_s8_residual_u8_shuffle")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 256, 128, 4), (4224, 256, 128, 64),
-                                   (128, 64, 64, 3)])
-@pytest.mark.parametrize("name", ["int8", "bfloat16"])
-def test_dot_probe_kernel_matches_plain(name, shape):
+def _probe_case(name, shape):
+    """P1 and its plain version on seeded operands of `shape` (m, k, n,
+    loops); k "step" is the dtype's k step (32 for s8, 16 for bf16)."""
     dev = _cuda()
     m, k, n, loops = shape
-    rs = np.random.RandomState(m + loops)
+    if k == "step":
+        k = 32 if name == "int8" else 16
+    rs = np.random.RandomState(m + n + k + loops)
     if name == "int8":
         x = torch.from_numpy(rs.randint(-127, 128, (m, k)).astype(np.int8))
         w = torch.from_numpy(rs.randint(-127, 128, (2 * k, n)).astype(
@@ -539,11 +541,86 @@ def test_dot_probe_kernel_matches_plain(name, shape):
     want = dot_probe.dot_loop_plain(x, w, loops)
     torch.cuda.synchronize()
     assert LAUNCHES["dot_loop"] == before + 1
+    assert got.shape == (m, n) and got.dtype == want.dtype
     if name == "int8":
         assert torch.equal(got, want)
     else:
         tol = 1e-4 * want.abs().max().item()
         assert (got - want).abs().max().item() <= tol
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 256, 128, 4), (4224, 256, 128, 64),
+                                   (128, 64, 64, 3)])
+@pytest.mark.parametrize("name", ["int8", "bfloat16"])
+def test_dot_probe_kernel_matches_plain(name, shape):
+    _probe_case(name, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (64, "step", 64, 0), (64, "step", 64, 1), (64, "step", 192, 2),
+    (128, 96, 64, 5), (64, 256, 64, 1), (192, 128, 320, 7)])
+@pytest.mark.parametrize("name", ["int8", "bfloat16"])
+def test_dot_probe_kernel_at_its_edges(name, shape):
+    """loops 0 (zeros) and 1 (the second warpgroup of the loop's split
+    runs no dot), K of one k step, N = 64 and 192 (not multiples of 128),
+    M = 64 (one tile), odd loops."""
+    got = _probe_case(name, shape)
+    if shape[3] == 0:
+        assert not got.any()
+
+
+@pytest.mark.cuda
+def test_dot_probe_kernel_refuses_and_runs_on_wgmma():
+    """P1 refuses N = 96 and K = 288 (and the C entry by itself), launches
+    nothing for them, and its library holds s8 and bf16 wgmma (IGMMA,
+    HGMMA) in every kernel and no mma.sync (HMMA, IMMA)."""
+    import ctypes
+    import os
+    import re
+    import subprocess
+
+    from reve_tpu_torch.kernels import build
+
+    dev = _cuda()
+    before = LAUNCHES["dot_loop"]
+    for dt in (torch.int8, torch.bfloat16):
+        x = torch.zeros((64, 256), dtype=dt, device=dev)
+        with pytest.raises(ValueError, match="multiples of 64"):
+            dot_probe.dot_loop(x, torch.zeros((512, 96), dtype=dt,
+                                              device=dev), 1)
+        with pytest.raises(ValueError, match="K <= 256"):
+            dot_probe.dot_loop(torch.zeros((64, 288), dtype=dt, device=dev),
+                               torch.zeros((576, 128), dtype=dt, device=dev),
+                               1)
+    with pytest.raises(TypeError):
+        dot_probe.dot_loop(torch.zeros((64, 32), device=dev),
+                           torch.zeros((64, 64), device=dev), 1)
+    lib = build.load(dot_probe.SOURCE)
+    fn = lib.reve_dot_loop
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    buf = torch.zeros(1 << 20, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for m, n, k, dtype in ((64, 96, 256, 0), (64, 128, 288, 0),
+                           (64, 128, 48, 0), (64, 128, 288, 1),
+                           (100, 128, 64, 1), (64, 128, 64, 2)):
+        assert fn(buf.data_ptr(), buf.data_ptr(), buf.data_ptr(), m, n, k, 1,
+                  dtype, stream) != 0
+    torch.cuda.synchronize()
+    assert LAUNCHES["dot_loop"] == before
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", build.build_info[
+        dot_probe.SOURCE]["path"]], check=True, capture_output=True,
+        text=True).stdout
+    kernels = re.split(r"\n\s*Function : ", sass)[1:]
+    assert len(kernels) == 8 + 16  # one for each count of 32-B k steps
+    for k in kernels:
+        assert ("IGMMA" in k) != ("HGMMA" in k), k.split()[0]
+    assert not re.search(r"\b[HI]MMA\b", sass)
 
 
 @pytest.mark.cuda
