@@ -40,6 +40,18 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               same way (library_ms: torch._int_mm of the im2col'd
               product of one frame, x4 frames, the im2col not counted;
               cuDNN bf16 F.conv2d for K4a);
+              every kernel above once more on the transposed batch (4
+              frames of 1080 x 1920, the shape the TTA path's odd
+              quarter-turns give it: 1080 columns, ragged against the
+              64-pixel tiles), against its plain version at the same
+              tolerance, untimed;
+              K6 at the TTA path's shape (4 frames of 1080p x4: u8 model
+              outputs, the int16 accumulator), each of its three forms
+              (FIRST writes acc, MIDDLE adds, LAST writes the u8 mean)
+              for each of the 8 transforms exact against its plain
+              version, timed beside it, beside the same function as
+              in-place torch ops (library_ms: rot90/flip, then add_) and
+              its byte bound;
   4. main     the product job through the port's CLI: 8 frames of
               1920x1080 -> 7680x4320 (x4, realesr-animevideov3 at its full
               64-feature, 16-conv width, the shipped weights), default
@@ -58,7 +70,26 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               (reported, not gated: the frames are synthetic and the
               weights self-SR proxies), the job's fps and the calibration
               and certification seconds;
-  6. probe    P1, the tensor-core dot-rate probe (wgmma), through
+  6. tile     the main job on its first 4 frames (one batch) with --tile
+              512 (bfloat16): windows of 548 x 548, their model calls
+              through K3, 16 x K1 and K2 (the counts checked per window
+              chunk), and an output file byte-identical (n_diff = 0) to
+              the main job's first 4 frames; then, on the engine, int8
+              (with the scales the whole-frame engine calibrated) and
+              float32 tiled batches byte-identical to whole-frame ones,
+              and the model's ms per batch tiled against whole frames in
+              the three dtypes;
+  7. tta      the same 4 frames with --tta (bfloat16): 8 model calls per
+              batch, each followed by K6 (the inverse-dihedral accumulate,
+              csrc/tta.cu), checked by the launch counts; the engine's
+              ensemble byte-identical to the manual one (the whole-frame
+              engine on the 8 forward-transformed batches, inverse
+              transformed and averaged by K6's plain version) and to the
+              job's output frame 0, and tta(rot90(x)) == rot90(tta(x));
+              the model output of the first quarter-turn (1080 x 1920)
+              against the plain float32 path on the same input at the
+              main phase's PSNR gate; the job's seconds by span;
+  8. probe    P1, the tensor-core dot-rate probe (wgmma), through
               `python -m reve_tpu_torch.scripts.perf_int8_dot`'s main at
               its shapes: per call at 64 loops timed free of the host's
               launch cost (the calls queued behind a sleep kernel, so that
@@ -74,9 +105,12 @@ JSON line; any failure exits non-zero (no phase catches and continues):
 
 The line before the last is nvidia-smi's name and power limit; before
 that, one JSON object {"kernels": [...]} with each kernel's launches on
-its path (main, int8 or probe), error (and, for u8 and s8 outputs,
-n_diff: the values that differ from the plain version's), times, bound
-and design ("wgmma", "wgmma_bf16x6" or "elementwise"; the
+its path (main, int8, tta or probe), error (and, for u8 and s8 outputs,
+n_diff: the values that differ from the plain version's; the model
+kernels' error on the transposed batch under "transposed"), times, bound
+and design ("wgmma", "wgmma_bf16x6", "elementwise" or "smem_transpose";
+K6's numbers per launch averaged over one batch's 8 launches, with each
+form's under "forms"; the
 float32 forms of K1, K2 and K3 nested under "float32" with their own
 source, design and launches on the int8 path, where they run).  The last
 line is {"ok": true, "device": {...}}.
@@ -107,6 +141,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 FRAMES, W, H, SCALE, BATCH = 8, 1920, 1080, 4, 4
+#: the tile phase's --tile: windows of 548 x 548 at the model's halo 18
+TILE = 512
 #: wgmma instructions each tensor-core library must hold at least: every
 #: kernel's mainloop unrolled (per 64-pixel row: bf16 36, bf16x6 216, s8
 #: 18), the hidden conv and the heads at r = 2, 3, 4; K3 and K4a 2 in
@@ -224,10 +260,11 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
     return float(10 * math.log10(255.0 ** 2 / max(mse, 1e-12)))
 
 
-def kernel_phase(params, cfg, frames, out: dict) -> dict:
-    """Each kernel against its plain version, then timed, in both dtypes.
-    Inputs chain like the model's: K3 on the frames, K1 on K3's output,
-    K2 on K1's output, with the model's real weights."""
+def kernel_phase(params, cfg, frames, out: dict, timed: bool = True) -> dict:
+    """Each kernel against its plain version, then (`timed`) timed, in
+    both dtypes.  Inputs chain like the model's: K3 on the frames, K1 on
+    K3's output, K2 on K1's output, with the model's real weights.
+    Untimed, the results hold each kernel's error only."""
     import torch
     import torch.nn.functional as F
 
@@ -301,9 +338,15 @@ def kernel_phase(params, cfg, frames, out: dict) -> dict:
                 ok = err <= 1e-4 if name == "float32" else \
                     bf16_ulp_ok(got, want)
             if not ok:
-                raise AssertionError(f"{kname} {name}: kernel disagrees "
-                                     f"with its plain version (max |d| "
-                                     f"{err})")
+                raise AssertionError(f"{kname} {name} at {list(got.shape)}: "
+                                     f"kernel disagrees with its plain "
+                                     f"version (max |d| {err})")
+            if not timed:
+                results.setdefault(kname, {})[name] = {
+                    "max_abs_err": err, "n_diff": n_diff,
+                    "shape": list(got.shape)}
+                del got, want
+                continue
             lib_w = c["lib_w"].permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
             lib_in = c["lib_in"].contiguous(memory_format=torch.channels_last)
@@ -320,11 +363,11 @@ def kernel_phase(params, cfg, frames, out: dict) -> dict:
                 "shape": list(got.shape),
             }
             del got, want
-        if name == "float32":
+        if name == "float32" and timed:
             results["split_bf16x3"] = split_case(x3)
         del x3, x1
         torch.cuda.empty_cache()
-    out["kernels"] = results
+    out["kernels" if timed else "kernels_transposed"] = results
     return results
 
 
@@ -350,10 +393,12 @@ def split_case(x):
             "shape": list(got.shape)}
 
 
-def int8_kernel_phase(params, cfg, frames, qb, out: dict) -> dict:
-    """K4a, K4 and K4h against their plain versions, then timed.  Inputs
-    chain like the int8 model's: K4a on the frames, K4 on K4a's output,
-    K4h on K4's output, with the model's weights quantized by `qb`."""
+def int8_kernel_phase(params, cfg, frames, qb, out: dict,
+                      timed: bool = True) -> dict:
+    """K4a, K4 and K4h against their plain versions, then (`timed`)
+    timed.  Inputs chain like the int8 model's: K4a on the frames, K4 on
+    K4a's output, K4h on K4's output, with the model's weights quantized
+    by `qb`.  Untimed, the results hold each kernel's error only."""
     import torch
     import torch.nn.functional as F
 
@@ -406,7 +451,7 @@ def int8_kernel_phase(params, cfg, frames, qb, out: dict) -> dict:
                 q0, qb.w8[0], s1, qb.b[0], qb.alpha[0], inv[1:2]),
             plain=lambda: conv3x3_s8.conv3x3_s8_dq_prelu_q8_plain(
                 q0, qb.w8[0], s1, qb.b[0], qb.alpha[0], inv[1:2]),
-            library=int_mm_x4(q0, qb.w8[0]),
+            library=int_mm_x4(q0, qb.w8[0]) if timed else None,
             tol=0, nbytes=2 * px * feat + qb.w8[0].numel() + 3 * feat * 4
             + 4, flops=2 * 9 * feat * feat * px, peak="int8"),
         "head_conv_s8_residual_u8_shuffle": dict(
@@ -414,7 +459,7 @@ def int8_kernel_phase(params, cfg, frames, qb, out: dict) -> dict:
                 q1, qb.w8_last, sl, qb.b_last, u8, r),
             plain=lambda: head.head_conv_s8_residual_u8_shuffle_plain(
                 q1, qb.w8_last, sl, qb.b_last, u8, r),
-            library=int_mm_x4(q1, qb.w8_last),
+            library=int_mm_x4(q1, qb.w8_last) if timed else None,
             tol=0, nbytes=px * feat + px * 3 + px * r * r * 3
             + qb.w8_last.numel() + 2 * 3 * r * r * 4,
             flops=2 * 9 * feat * 3 * r * r * px, peak="int8"),
@@ -425,11 +470,18 @@ def int8_kernel_phase(params, cfg, frames, qb, out: dict) -> dict:
         torch.cuda.synchronize()
         err = (got.int() - want.int()).abs().max().item()
         if err > c["tol"]:
-            raise AssertionError(f"{kname}: kernel disagrees with its plain "
-                                 f"version (max |d| {err} > {c['tol']})")
+            raise AssertionError(f"{kname} at {list(got.shape)}: kernel "
+                                 f"disagrees with its plain version (max "
+                                 f"|d| {err} > {c['tol']})")
+        n_diff = int((got != want).sum().item())
+        if not timed:
+            results[kname] = {"max_abs_err": err, "n_diff": n_diff,
+                              "shape": list(got.shape)}
+            del got, want
+            continue
         bms, bby = bound_ms(c["nbytes"], c["flops"], c["peak"])
         results[kname] = {
-            "max_abs_err": err, "n_diff": int((got != want).sum().item()),
+            "max_abs_err": err, "n_diff": n_diff,
             "ms": cuda_time_ms(c["kernel"]),
             "plain_ms": cuda_time_ms(c["plain"], iters=3),
             "library_ms": library_time_ms(c["library"]),
@@ -437,8 +489,205 @@ def int8_kernel_phase(params, cfg, frames, qb, out: dict) -> dict:
         }
         del got, want
     torch.cuda.empty_cache()
-    out["int8_kernels"] = results
+    out["int8_kernels" if timed else "int8_kernels_transposed"] = results
     return results
+
+
+def tta_kernel_phase(out: dict) -> dict:
+    """K6 at the TTA path's shape: each form for each of the 8 transforms
+    against its plain version (exact), then timed beside it, beside the
+    same function as in-place torch ops and the byte bound (FIRST 3 B a
+    value, MIDDLE 5, LAST 4).  The top-level numbers are per launch,
+    averaged over one batch's 8 launches (1 FIRST, 6 MIDDLE, 1 LAST)."""
+    import torch
+
+    from reve_tpu_torch.kernels import tta
+
+    dev = torch.device("cuda", 0)
+    shape = (BATCH, H * SCALE, W * SCALE, 3)
+    n = math.prod(shape)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    acc0 = torch.randint(0, 1786, shape, dtype=tta.ACC_DTYPE, device=dev,
+                         generator=gen)
+    forms = {}
+    for form, fname, nbytes in ((tta.FIRST, "first", 3),
+                                (tta.MIDDLE, "middle", 5),
+                                (tta.LAST, "last", 4)):
+        per_spec, n_diff, max_err = {}, 0, 0
+        for k, flip in tta.SPECS:
+            ys = (BATCH, W * SCALE, H * SCALE, 3) if k & 1 else shape
+            y = torch.randint(0, 256, ys, dtype=torch.uint8, device=dev,
+                              generator=gen)
+            acc, acc_p = acc0.clone(), acc0.clone()
+            res = torch.empty(shape, dtype=torch.uint8, device=dev)
+            res_p = torch.empty_like(res)
+            tta.tta_accumulate(y, acc, k, flip, form, out=res)
+            tta.tta_accumulate_plain(y, acc_p, k, flip, form, out=res_p)
+            torch.cuda.synchronize()
+            got, want = (res, res_p) if form == tta.LAST else (acc, acc_p)
+            d = int((got != want).sum().item())
+            err = (got.int() - want.int()).abs().max().item()
+            n_diff += d
+            max_err = max(max_err, err)
+
+            def library():
+                term = torch.rot90(y.flip(2) if flip else y, -k, (1, 2))
+                if form == tta.FIRST:
+                    acc.copy_(term)
+                elif form == tta.MIDDLE:
+                    acc.add_(term)
+                else:
+                    res.copy_((acc + term + 4) >> 3)
+            per_spec[f"{k}{'f' if flip else ''}"] = {
+                "n_diff": d, "max_abs_err": err,
+                "ms": cuda_time_ms(lambda: tta.tta_accumulate(
+                    y, acc, k, flip, form, out=res)),
+                "plain_ms": cuda_time_ms(lambda: tta.tta_accumulate_plain(
+                    y, acc_p, k, flip, form, out=res_p), iters=3),
+                "library_ms": cuda_time_ms(library, iters=3)}
+            del y, acc, acc_p, res, res_p, got, want
+        if n_diff:
+            raise AssertionError(f"tta_accumulate {fname}: {n_diff} values "
+                                 f"differ from the plain version")
+        bms, bby = bound_ms(nbytes * n, 0, "int8")
+        forms[fname] = {key: sum(v[key] for v in per_spec.values()) / 8
+                        for key in ("ms", "plain_ms", "library_ms")}
+        forms[fname].update(n_diff=n_diff, max_abs_err=max_err,
+                            bound_ms=bms, bound_by=bby,
+                            ms_by_transform={t: v["ms"]
+                                             for t, v in per_spec.items()})
+    torch.cuda.empty_cache()
+    weights = {"first": 1, "middle": 6, "last": 1}
+    result = {key: sum(weights[f] * forms[f][key] for f in forms) / 8
+              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    result.update(max_abs_err=max(f["max_abs_err"] for f in forms.values()),
+                  n_diff=sum(f["n_diff"] for f in forms.values()),
+                  bound_by="bytes",
+                  batch_ms=8 * result["ms"],
+                  batch_bound_ms=8 * result["bound_ms"], forms=forms,
+                  shape=list(shape))
+    out["tta_kernel"] = result
+    return result
+
+
+def span_seconds(trace: str) -> dict:
+    """Seconds per scheduler span of a job's --trace file."""
+    spans = {}
+    with open(trace) as f:
+        for ln in f:
+            ev = json.loads(ln)
+            if "dur" in ev:
+                spans[ev["ev"]] = spans.get(ev["ev"], 0.0) + ev["dur"]
+    return spans
+
+
+def tile_engine_checks(params, cfg, frames) -> dict:
+    """On the engine: tiled batches (--tile TILE) byte-identical to whole
+    frames in int8 (with the scales the whole-frame engine calibrated)
+    and float32; the model's ms per batch, tiled and whole, in the three
+    dtypes (the plan's calls on the card, no host copies)."""
+    import torch
+
+    from reve_tpu_torch.pipeline.engine import UpscaleEngine
+
+    batch = frames[:BATCH]
+    dev_in = torch.from_numpy(batch).cuda()
+    n_diff, ms = {}, {}
+    for dt in ("bfloat16", "int8", "float32"):
+        whole = UpscaleEngine(compute_dtype=dt, batch_size=BATCH, tile=-1,
+                              preloaded=(cfg, params))
+        tiled = UpscaleEngine(compute_dtype=dt, batch_size=BATCH,
+                              tile=TILE, preloaded=(cfg, params))
+        if dt == "int8":
+            whole.calibrate_int8(frames)
+            tiled.set_calibration(whole.get_calibration())
+        if dt != "bfloat16":
+            d = int((whole.submit(batch).result()
+                     != tiled.submit(batch).result()).sum())
+            if d:
+                raise AssertionError(f"{dt}: tiled batch differs from the "
+                                     f"whole frames in {d} bytes")
+            n_diff[dt] = d
+        ms[dt] = {name: cuda_time_ms(lambda: [y for _, _, y in
+                                              eng._pieces(dev_in)], iters=3)
+                  for name, eng in (("tiled", tiled), ("whole", whole))}
+        ms[dt]["ratio"] = ms[dt]["tiled"] / ms[dt]["whole"]
+        ms[dt]["plan"] = list(tiled._plans[(H, W)])
+        del whole, tiled
+        torch.cuda.empty_cache()
+    return {"engine_n_diff": n_diff, "model_ms_per_batch": ms}
+
+
+def tta_engine_checks(params, cfg, batch, job_frame0, work: str) -> dict:
+    """On the engine: the TTA ensemble of `batch` (the job's frames as it
+    decoded them from the y4m input) against the manual one (the
+    whole-frame engine on the 8 forward-transformed batches, inverse
+    transformed and averaged by K6's plain version, on the card), the
+    model output of the first quarter-turn (a 1080 x 1920 batch) against
+    the plain float32 path on the same input (PSNR >=
+    srvgg.BF16_PSNR_FLOOR_DB, the gate of the main phase), the job's
+    output frame 0 against the ensemble's through the same y4m encode,
+    and tta(rot90(x)) == rot90(tta(x))."""
+    import torch
+
+    from reve_tpu_torch.io import reader, writer
+    from reve_tpu_torch.kernels import tta
+    from reve_tpu_torch.models import srvgg
+    from reve_tpu_torch.pipeline.engine import UpscaleEngine
+
+    ens = UpscaleEngine(compute_dtype="bfloat16", batch_size=BATCH,
+                        tta=True, preloaded=(cfg, params))
+    plain = UpscaleEngine(compute_dtype="bfloat16", batch_size=BATCH,
+                          preloaded=(cfg, params))
+    t0 = time.perf_counter()
+    got = ens.submit(batch).result().copy()
+    batch_s = time.perf_counter() - t0
+    x = torch.from_numpy(batch)
+    shape = (BATCH, H * SCALE, W * SCALE, 3)
+    acc = torch.empty(shape, dtype=tta.ACC_DTYPE, device="cuda")
+    mean = torch.empty(shape, dtype=torch.uint8, device="cuda")
+    for s, (k, flip) in enumerate(tta.SPECS):
+        xt = tta.forward_transform(x, k, flip)
+        y = plain.submit(xt.numpy()).result()
+        if (k, flip) == (1, False):
+            ref = srvgg.apply(params, xt.cuda(), cfg=cfg,
+                              compute_dtype=torch.float32, plain=True)
+            mse = (torch.from_numpy(y).cuda().double()
+                   - ref.double()).square().mean().item()
+            db_rot = 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+            del ref
+            if not db_rot >= srvgg.BF16_PSNR_FLOOR_DB:
+                raise AssertionError(
+                    f"model output on the quarter-turned batch "
+                    f"{list(y.shape)}: PSNR {db_rot:.2f} dB vs the plain "
+                    f"float32 path < {srvgg.BF16_PSNR_FLOOR_DB} dB")
+        form = tta.FIRST if s == 0 else tta.LAST if s == 7 else tta.MIDDLE
+        tta.tta_accumulate_plain(torch.from_numpy(y).cuda(), acc, k, flip,
+                                 form, out=mean)
+    n_manual = int((mean.cpu().numpy() != got).sum())
+    del acc, mean
+    if n_manual:
+        raise AssertionError(f"TTA ensemble differs from the manual one in "
+                             f"{n_manual} bytes")
+    ref_path = os.path.join(work, "ref_tta.y4m")
+    with writer.open_writer(ref_path, W * SCALE, H * SCALE,
+                            fractions.Fraction(24), backend="y4m") as wr:
+        wr.write(got[0])
+    ref0 = next(reader.Y4MReader(ref_path).read_range(0, 1))
+    n_job = int((ref0 != job_frame0).sum())
+    if n_job:
+        raise AssertionError(f"TTA job frame 0 differs from the engine's "
+                             f"ensemble in {n_job} bytes")
+    rot = ens.submit(np.ascontiguousarray(np.rot90(batch, 1, (1, 2))))
+    n_equiv = int((rot.result() != np.rot90(got, 1, (1, 2))).sum())
+    if n_equiv:
+        raise AssertionError(f"tta(rot90(x)) != rot90(tta(x)) in {n_equiv} "
+                             f"bytes")
+    torch.cuda.empty_cache()
+    return {"n_diff_vs_manual": n_manual, "n_diff_job_frame0": n_job,
+            "psnr_db_rot90_vs_plain_f32": db_rot,
+            "n_diff_equivariance_rot90": n_equiv,
+            "engine_batch_s": batch_s}
 
 
 def model_ms(params, cfg, frames) -> dict:
@@ -637,6 +886,14 @@ def main() -> int:
     with phase("kernels", {"batch": BATCH, "h": H, "w": W,
                            "scale": SCALE}) as rec:
         results = kernel_phase(params, cfg, frames[:BATCH], rec)
+        # the TTA path's odd quarter-turns run every kernel on the
+        # transposed batch (W x H: 1080 columns, ragged against the
+        # kernels' 64-pixel tiles): held there too, untimed
+        frames_t = np.ascontiguousarray(frames[:BATCH].transpose(0, 2, 1, 3))
+        for kname, by_dt in kernel_phase(params, cfg, frames_t, rec,
+                                         timed=False).items():
+            for dt, v in by_dt.items():
+                results[kname][dt]["transposed"] = v
         batch_ms = model_ms(params, cfg, frames[:BATCH])
         # a QuantizedBody as the int8 engine calibrates it on these frames
         eng = UpscaleEngine(compute_dtype="int8", batch_size=BATCH,
@@ -645,11 +902,15 @@ def main() -> int:
         qb = eng._qbody
         rec["int8_calibrate_s"] = eng.stats.calibrate_s
         results8 = int8_kernel_phase(params, cfg, frames[:BATCH], qb, rec)
+        for kname, v in int8_kernel_phase(params, cfg, frames_t, qb, rec,
+                                          timed=False).items():
+            results8[kname]["transposed"] = v
         u8 = torch.from_numpy(frames[:BATCH]).cuda()
         batch_ms["int8"] = cuda_time_ms(lambda: srvgg.apply_int8(
             params, qb, u8, cfg=cfg), iters=3)
         rec["model_ms_per_batch"] = batch_ms
         del eng, u8
+        k6 = tta_kernel_phase(rec)
 
     work = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
     try:
@@ -704,12 +965,7 @@ def main() -> int:
             # span (submit on the main thread; device_wait and
             # encode_batch on the encode thread), and the model's device
             # time from the kernels phase (calls x ms per batch)
-            spans = {}
-            with open(trace) as f:
-                for ln in f:
-                    ev = json.loads(ln)
-                    if "dur" in ev:
-                        spans[ev["ev"]] = spans.get(ev["ev"], 0.0) + ev["dur"]
+            spans = span_seconds(trace)
             model_s = calls * batch_ms["bfloat16"] / 1e3
             rec.update(rc=rc, frames=FRAMES, wall_s=round(wall, 3),
                        fps_end_to_end=FRAMES / wall, launches=launches,
@@ -790,6 +1046,82 @@ def main() -> int:
                        certify_s=int8_ev.get("certify_s"),
                        output=[W * SCALE, H * SCALE], span_s=spans)
         int8_launches = launches
+
+        # the main job's first batch, for the tiled and TTA jobs
+        in4 = os.path.join(work, "in4.y4m")
+        with writer.Y4MWriter(in4, W, H, fractions.Fraction(24)) as wr:
+            for f in frames[:BATCH]:
+                wr.write(f)
+        out_t = os.path.join(work, "out_tile.y4m")
+        trace_t = os.path.join(work, "trace_tile.jsonl")
+        argv_t = ["-i", in4, "-s", str(SCALE), out_t, "--io-backend", "y4m",
+                  "--weights", weights, "-S", "4", "--batch", str(BATCH),
+                  "--yes", "--trace", trace_t, "--tile", str(TILE)]
+        with phase("tile", {"argv": argv_t[3:]}) as rec:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.run(argv_t)
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            if rc != 0:
+                raise AssertionError(f"cli.run --tile {TILE} exited {rc}")
+            calls = launches["conv3x3_u8_bias_prelu"]
+            if calls < 1 or \
+                    launches["conv3x3_bias_prelu"] != cfg.num_conv * calls \
+                    or launches["head_conv_residual_u8_shuffle"] != calls:
+                raise AssertionError(f"launch counts {launches} do not "
+                                     f"show the model on every window chunk")
+            # the tiled job's file against the main job's first 4 frames:
+            # the same header, then the same bytes
+            with open(out_t, "rb") as f:
+                got = np.frombuffer(f.read(), np.uint8)
+            with open(out, "rb") as f:
+                want = np.frombuffer(f.read(len(got)), np.uint8)
+            n_diff = int((got != want).sum()) if len(want) == len(got) \
+                else -1
+            if n_diff != 0:
+                raise AssertionError(f"tiled job output differs from the "
+                                     f"whole-frame job's: n_diff {n_diff}")
+            del got, want
+            rec.update(rc=rc, frames=BATCH, wall_s=round(wall, 3),
+                       launches=launches, model_calls=calls,
+                       windows=BATCH * len(range(0, H, TILE))
+                       * len(range(0, W, TILE)), n_diff_vs_main=n_diff,
+                       span_s=span_seconds(trace_t),
+                       **tile_engine_checks(params, cfg, frames))
+
+        out_a = os.path.join(work, "out_tta.y4m")
+        trace_a = os.path.join(work, "trace_tta.jsonl")
+        argv_a = ["-i", in4, "-s", str(SCALE), out_a, "--io-backend", "y4m",
+                  "--weights", weights, "-S", "4", "--batch", str(BATCH),
+                  "--yes", "--trace", trace_a, "--tta"]
+        with phase("tta", {"argv": argv_a[3:]}) as rec:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.run(argv_a)
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            if rc != 0:
+                raise AssertionError(f"cli.run --tta exited {rc}")
+            # main ran 2 batches; each TTA batch runs 8 times its model
+            # calls, K6 once after each
+            calls = launches["conv3x3_u8_bias_prelu"]
+            if calls != 8 * main_launches["conv3x3_u8_bias_prelu"] // 2 \
+                    or launches["tta_accumulate"] != calls \
+                    or launches["conv3x3_bias_prelu"] != cfg.num_conv * calls \
+                    or launches["head_conv_residual_u8_shuffle"] != calls:
+                raise AssertionError(f"launch counts {launches} do not "
+                                     f"show the TTA path's kernels")
+            got0 = next(reader.Y4MReader(out_a).read_range(0, 1))
+            rec.update(rc=rc, frames=BATCH, wall_s=round(wall, 3),
+                       fps_end_to_end=BATCH / wall, launches=launches,
+                       model_calls=calls, span_s=span_seconds(trace_a),
+                       **tta_engine_checks(
+                           params, cfg, np.stack(list(reader.Y4MReader(
+                               in4).read_range(0, BATCH))), got0, work))
+        tta_launches = launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -819,6 +1151,9 @@ def main() -> int:
         "head_conv_s8_residual_u8_shuffle": (
             "reve_tpu_torch/kernels/csrc/conv3x3_s8.cu",
             "reve_tpu/models/srvgg.py:383"),
+        "tta_accumulate": (
+            "reve_tpu_torch/kernels/csrc/tta.cu",
+            "reve_tpu/pipeline/engine.py:189"),
         "dot_loop": (
             "reve_tpu_torch/kernels/csrc/dot_probe.cu",
             "scripts/perf_pallas_int8.py:54"),
@@ -833,12 +1168,14 @@ def main() -> int:
         "conv3x3_u8_bias_prelu_q8": ("int8", int8_launches),
         "conv3x3_s8_dq_prelu_q8": ("int8", int8_launches),
         "head_conv_s8_residual_u8_shuffle": ("int8", int8_launches),
+        "tta_accumulate": ("uint8", tta_launches),
         "dot_loop": ("int8", {"dot_loop": probe_launches}),
     }
     # every model conv and P1 run on wgmma, the split pass on CUDA cores;
     # the float32 forms of K1, K2 and K3 run on wgmma as six bf16 products
     # (K1's and K2's after their split pass)
-    designs = {"split_bf16x3": "elementwise"}
+    designs = {"split_bf16x3": "elementwise",
+               "tta_accumulate": "smem_transpose"}
     f32_forms = {
         "conv3x3_u8_bias_prelu": ("reve_tpu_torch/kernels/csrc/conv3x3.cu",
                                   "wgmma_bf16x6"),
@@ -860,14 +1197,20 @@ def main() -> int:
             extra["bfloat16"] = probe["bf16"]
         elif name == "split_bf16x3":
             nums, extra = results[name], {}
+        elif name == "tta_accumulate":
+            nums = k6
+            extra = {key: k6[key] for key in ("forms", "batch_ms",
+                                              "batch_bound_ms")}
         elif dtype == "bfloat16":
             f32_src, f32_design = f32_forms[name]
             nums, extra = results[name]["bfloat16"], {
+                "transposed": results[name]["bfloat16"]["transposed"],
                 "float32": dict(results[name]["float32"], source=f32_src,
                                 route="cuda", design=f32_design,
                                 launches=int8_launches[name])}
         else:
-            nums, extra = results8[name], {}
+            nums = results8[name]
+            extra = {"transposed": nums["transposed"]}
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launched[name],
                  "dtype": dtype, "design": designs.get(name, "wgmma")}

@@ -8,13 +8,14 @@ so each file's counterpart is easy to find.
 
 Layer map:
 
-    CLI                               reve_tpu_torch.cli
+    CLI / library API                 reve_tpu_torch.cli / reve_tpu_torch.api
       └─ pipeline scheduler           reve_tpu_torch.pipeline.scheduler
            ├─ planner + resume        reve_tpu_torch.pipeline.{planner,state}
            ├─ io backends             reve_tpu_torch.io.{probe,reader,writer,concat}
            └─ CUDA inference engine   reve_tpu_torch.pipeline.engine
                 ├─ models             reve_tpu_torch.models.srvgg
-                ├─ kernels            reve_tpu_torch.kernels.{conv3x3,head}
+                ├─ ops                reve_tpu_torch.ops.{tiling,pixel_shuffle}
+                ├─ kernels            reve_tpu_torch.kernels.{conv3x3,conv3x3_s8,head,tta}
                 └─ device/dtype       reve_tpu_torch.device
 
 Entry points run on `cuda:0` unless the caller passes a device; with no
@@ -24,7 +25,7 @@ CPU.
 
 from reve_tpu_torch.version import __version__
 
-__all__ = ["__version__", "UpscaleEngine"]
+__all__ = ["__version__", "UpscaleEngine", "upscale_video"]
 
 
 def __getattr__(name):
@@ -33,4 +34,8 @@ def __getattr__(name):
         from reve_tpu_torch.pipeline.engine import UpscaleEngine
 
         return UpscaleEngine
+    if name == "upscale_video":
+        from reve_tpu_torch import api
+
+        return api.upscale_video
     raise AttributeError(name)

@@ -7,17 +7,21 @@ reve-shared/src/lib.rs:209-280):
     reve -i <input.mp4|mkv|y4m> -s {2,3,4} [-S segsize] [-c crf] [-p preset]
          [-x x265params] <output.mp4|mkv|y4m>
 
-This slice ports the video job: fresh and resumed runs, --dtype
+The port carries the video job: fresh and resumed runs, --dtype
 auto|float32|bfloat16|int8 (auto = bfloat16 on CUDA, as reve_tpu's rule
 has it off the TPU), --int8-calib, --int8-gate, --model/--weights/-m,
---batch, --tile 0|-1, --device N (cuda:N), --io-backend, --workspace,
---yes, --keep-workspace, --progress-json, --trace and --profile-dir
-(torch.profiler).  Flags whose feature is not ported yet exit 2 with a
-one-line "not yet ported in reve_tpu_torch" message naming the
-ROADMAP.md port-queue item; they are never silently ignored.
+--batch, --tile N (halo tiles, byte-identical to whole frames; 0 = only
+frames past the memory plan, -1 = never), --tta (the 8-transform
+self-ensemble, restored on resume), --device N (cuda:N), --io-backend,
+--workspace, --yes, --keep-workspace, --progress-json, --trace and
+--profile-dir (torch.profiler).  Flags whose feature is not ported yet
+exit 2 with a one-line "not yet ported in reve_tpu_torch" message naming
+the ROADMAP.md port-queue item; they are never silently ignored.
 
-A workspace records the package that started it (state.opts["backend"]);
-the port resumes only its own, so one output never mixes segments of two
+The job's body (the resume contract, the fresh state, the engine, the
+run) is `pipeline/job.py`, which `api.upscale_video` shares.  A workspace
+records the package that started it (state.opts["backend"]); the port
+resumes only its own, so one output never mixes segments of two
 implementations.
 
 `run(argv, device=None)`: the `device` keyword is for callers and tests
@@ -31,15 +35,12 @@ import argparse
 import logging
 import os
 import sys
-from fractions import Fraction
 from typing import List, Optional
 
-from reve_tpu_torch.pipeline.planner import plan_segments
-from reve_tpu_torch.pipeline.state import JobState, Workspace, repair_pending
+from reve_tpu_torch.pipeline import job as job_mod
+from reve_tpu_torch.pipeline.job import BACKEND  # noqa: F401 (re-export)
+from reve_tpu_torch.pipeline.state import Workspace
 
-
-#: the package's stamp in state.opts["backend"]
-BACKEND = "reve_tpu_torch"
 
 PRESETS = (
     "ultrafast", "superfast", "veryfast", "faster", "fast", "medium",
@@ -151,7 +152,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch", type=_positive_int("batch"), default=4,
                    help="frames per GPU batch")
     p.add_argument("--tile", type=int, default=0,
-                   help="tile size (0=auto, -1=never tile; >0 not ported)")
+                   help="tile size (0=auto, -1=never tile)")
     p.add_argument("--dtype",
                    choices=("auto", "bfloat16", "float32", "int8"),
                    default="auto",
@@ -168,7 +169,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "scales: p<percentile> of |activation| (default "
                         "p99.9) or max")
     p.add_argument("--tta", action="store_true",
-                   help="8-transform self-ensemble (not ported)")
+                   help="8-transform self-ensemble: the model runs on "
+                        "all 8 rotations/flips of each frame and the "
+                        "outputs are averaged (8x the model work)")
     p.add_argument("--int8-gate", type=float, default=None, metavar="DB",
                    help="minimum int8-vs-f32 PSNR (dB) measured on frames "
                         "sampled across this video.  With --dtype auto: "
@@ -238,10 +241,8 @@ def _refuse_unported(args) -> Optional[int]:
             args.inputpath.lower().endswith(IMAGE_EXTS):
         return _not_ported("image and directory inputs", "image mode")
     checks = (
-        (args.tta, "--tta", "TTA, K6"),
         (args.denoise is not None or args.weights_wdn is not None,
          "--denoise/--weights-wdn", "ncnn/dni weights"),
-        (args.tile > 0, f"--tile {args.tile}", "tiling"),
         (args.shard_worker is not None or args.lease_stale_after is not None,
          "--shard-worker/--lease-stale-after", "multi-GPU"),
         (args.scene_align, "--scene-align", "scene-aligned segments"),
@@ -277,48 +278,6 @@ def _confirm(prompt: str, assume_yes: bool) -> bool:
         )
     answer = input(f"{prompt} [Y/n] ").strip().lower()
     return answer in ("", "y", "yes")
-
-
-def _fresh_state(args) -> JobState:
-    from reve_tpu_torch.io import probe
-    from reve_tpu_torch.models import registry
-
-    info = probe.probe(args.inputpath, backend=args.io_backend)
-    if info.frame_count <= 0:
-        raise SystemExit("could not determine frame count")
-    fps = info.fps if info.fps else Fraction(30, 1)
-    pending = plan_segments(info.frame_count, args.segmentsize)
-    return JobState(
-        input_path=os.path.abspath(args.inputpath),
-        output_path=os.path.abspath(args.outputpath),
-        scale=args.scale,
-        segment_size=args.segmentsize,
-        frame_count=info.frame_count,
-        fps_num=fps.numerator,
-        fps_den=fps.denominator,
-        width=info.width,
-        height=info.height,
-        pending=pending,
-        plan=list(pending),
-        encode={
-            "crf": args.crf,
-            "preset": args.preset,
-            "x265_params": args.x265params,
-        },
-        model=args.model,
-        opts={
-            "backend": BACKEND,
-            "weights": args.weights,
-            "dtype": args.dtype,
-            "int8_calib": args.int8_calib,
-            "tta": False,
-            "io_backend": args.io_backend,
-            # persist the random-init opt-in: a resume continues the
-            # decision the job was STARTED with (like every other opt)
-            "allow_random_init": bool(
-                args.allow_random_init or registry.random_init_allowed()),
-        },
-    )
 
 
 def _resolve_device(args, device):
@@ -425,185 +384,121 @@ def run(argv: Optional[List[str]] = None, device=None) -> int:
               file=sys.stderr)
         return 2
     try:
-        if ws.has_state():
-            if _confirm("found an interrupted job — resume?", args.yes):
-                state = ws.load()
-                if state.opts.get("backend") != BACKEND:
-                    # the other package's segments (or calibration) must
-                    # never be joined to this one's in one output
-                    started = state.opts.get("backend") or \
-                        "another implementation (reve_tpu)"
-                    print(f"this workspace was started by {started}, not "
-                          f"{BACKEND}: resuming it would mix segments of "
-                          f"two implementations in one output; start the "
-                          f"job fresh (remove {ws.root})", file=sys.stderr)
-                    return 2
-                if state.model != args.model:
-                    print(f"workspace holds progress for model {state.model!r};"
-                          f" resume with the same --model or start fresh",
-                          file=sys.stderr)
-                    return 2
-                if state.scale != args.scale:
-                    # the reference resumes with its SAVED args wholesale
-                    # (main.rs:92-101); we match that but say so
-                    print(f"resume: using saved -s {state.scale} (command "
-                          f"line said {args.scale})", file=sys.stderr)
-                # resumed segments must go through the same model/weights/
-                # container as the committed ones (the reference's
-                # args.temp, main.rs:92-101)
-                state.opts.setdefault("allow_random_init",
-                                      not state.opts.get("weights"))
-                for key in ("weights", "dtype", "int8_calib", "io_backend",
-                            "allow_random_init"):
-                    if key in state.opts and \
-                            getattr(args, key) != state.opts[key]:
-                        if key == "dtype" and args.dtype == "auto":
-                            print(f"resume: continuing on the saved "
-                                  f"--dtype={state.opts[key]!r} path",
-                                  file=sys.stderr)
-                        else:
-                            print(f"resume: using saved "
-                                  f"--{key.replace('_', '-')}"
-                                  f"={state.opts[key]!r} (command line said "
-                                  f"{getattr(args, key)!r})",
-                                  file=sys.stderr)
-                        setattr(args, key, state.opts[key])
-                if state.opts.get("tta") or \
-                        state.opts.get("denoise") is not None:
-                    return _not_ported(
-                        "resuming a job saved with --tta or --denoise",
-                        "TTA / ncnn-dni weights")
-                if args.int8_gate is not None and \
-                        args.dtype not in ("int8", "auto"):
-                    # the saved job is not int8: certification never runs
-                    print("--int8-gate was requested but this workspace's "
-                          f"saved job runs --dtype {args.dtype}; resume "
-                          "without the gate, or start fresh to run int8",
-                          file=sys.stderr)
-                    return 2
-                ws.create(keep_parts=True)
-                state = repair_pending(state, ws, ext=_part_ext(args))
-                print(
-                    f"resuming: {len(state.pending)} segment(s) remaining",
-                    file=sys.stderr,
-                )
-            else:
-                if not _confirm("discard previous progress and start over?",
-                                args.yes):
-                    return 1
-                err = _require_weights(args, skip_if_resumable=False)
-                if err is not None:
-                    return err
-                ws.create(keep_parts=False)
-                state = _fresh_state(args)
-        else:
-            ws.create(keep_parts=False)
-            state = _fresh_state(args)
-        ws.save(state)
-
-        from reve_tpu_torch.pipeline import scheduler
-        from reve_tpu_torch.pipeline.engine import UpscaleEngine
-        from reve_tpu_torch.pipeline.progress import (ConsoleRenderer,
-                                                      JsonlRenderer,
-                                                      ProgressTracker,
-                                                      TeeRenderer)
-        from reve_tpu_torch.utils import trace as trace_mod
-
-        import time as _time
-
-        tracer = trace_mod.Tracer(args.trace) if args.trace else \
-            trace_mod.from_env()
-
-        def make_engine(dtype: str, int8_calib: str) -> UpscaleEngine:
-            return UpscaleEngine(
-                model=state.model, scale=state.scale, weights=args.weights,
-                batch_size=args.batch, tile=args.tile, compute_dtype=dtype,
-                int8_calib=int8_calib, device=device,
-                allow_random_init=args.allow_random_init or None,
-            )
-
-        engine = None
-        int8_db = None
-        resolve_s = None
-        if args.dtype == "auto":
-            # the RESOLVED dtype is persisted so a resume runs the same path
-            resolve_t0 = _time.monotonic()
-            args.dtype, engine, int8_db, notes = \
-                scheduler.resolve_auto_dtype(
-                    make_engine, ws, state, io_backend=args.io_backend,
-                    gate_db=args.int8_gate, platform=device.type,
-                    on_note=lambda m: print(m, file=sys.stderr, flush=True),
-                    tracer=tracer)
-            resolve_s = _time.monotonic() - resolve_t0
-            for msg in notes:
-                print(msg, file=sys.stderr)
-            state.opts["dtype"] = args.dtype
-            state.opts["int8_calib"] = args.int8_calib
-            ws.save(state)
-        if engine is None:
-            engine = make_engine(args.dtype, args.int8_calib)
-        if args.dtype == "int8" and int8_db is None:
-            err, int8_db = _certify_int8(args, state, engine, ws)
-            if err is not None:
-                return err
-        if args.dtype == "int8":
-            tracer.event("int8", db=int8_db,
-                         calibrate_s=engine.stats.calibrate_s,
-                         certify_s=engine.stats.certify_s)
-        renderer = ConsoleRenderer()
-        jsonl = JsonlRenderer(args.progress_json) if args.progress_json \
-            else None
-        remaining = sum(s.size for s in state.pending)
-        tracker = ProgressTracker(
-            total_frames=remaining,
-            total_segments=len(state.pending),
-            on_update=TeeRenderer(renderer, jsonl),
-            source_fps=state.fps_num / max(state.fps_den, 1),
-        )
-        run_t0 = _time.monotonic()
-        job = scheduler.PipelineJob(
-            state, ws, engine, io_backend=args.io_backend,
-            part_ext=_part_ext(args), progress=tracker, tracer=tracer,
-        )
-        try:
-            with trace_mod.device_profile(args.profile_dir):
-                state = job.run()
-        except KeyboardInterrupt:
-            # committed parts + state are already on disk (checkpoint
-            # after every segment)
-            job.cancel()
-            done = len(ws.completed_parts(_part_ext(args)))
-            print(f"\ninterrupted — {done} segment(s) committed; rerun the "
-                  f"same command to resume", file=sys.stderr)
-            return 130
-        report = scheduler.finalize(
-            state, ws, io_backend=args.io_backend, part_ext=_part_ext(args)
-        )
-        enc_note = f", encoder: {job.encoder_desc}" if job.encoder_desc \
-            else ""
-        # end-to-end x-realtime for the frames THIS run processed
-        rate_note = ""
-        elapsed = _time.monotonic() - run_t0
-        done_frames = tracker.stages["encode"].done
-        src_fps = state.fps_num / max(state.fps_den, 1)
-        if elapsed > 0 and done_frames and src_fps > 0:
-            e2e_fps = done_frames / elapsed
-            rate_note = (f", {e2e_fps:.3g} fps end-to-end = "
-                         f"{e2e_fps / src_fps:.3g}x realtime")
-        # the compute path and its certificate belong in the done-line
-        path_note = f", path: {args.dtype}"
-        if args.dtype == "int8" and int8_db is not None:
-            path_note = f", path: int8 turbo ({int8_db:.1f} dB certified)"
-        if resolve_s is not None:
-            path_note += f", auto-resolve {resolve_s:.1f} s"
-        print(f"\ndone: {state.output_path} (concat backend: "
-              f"{report['backend']}{enc_note}{path_note} on "
-              f"{engine.device}{rate_note})", file=sys.stderr)
-        if not args.keep_workspace:
-            ws.destroy()
-        return 0
+        return _run_job(args, ws, device)
+    except job_mod.JobRefused as e:
+        print(e, file=sys.stderr)
+        return e.code
     finally:
         ws.release_owner()
+
+
+def _run_job(args, ws: Workspace, device) -> int:
+    """The job in `ws` (owned): resume or start it, then run it through
+    pipeline/job.py; returns the exit code (refusals raise JobRefused)."""
+    import time as _time
+
+    from reve_tpu_torch.pipeline.progress import (ConsoleRenderer,
+                                                  JsonlRenderer,
+                                                  ProgressTracker,
+                                                  TeeRenderer)
+    from reve_tpu_torch.utils import trace as trace_mod
+
+    def note(msg: str) -> None:
+        print(msg, file=sys.stderr, flush=True)
+
+    if ws.has_state() and _confirm("found an interrupted job — resume?",
+                                   args.yes):
+        state = job_mod.restore(ws, ws.load(), args, args.model,
+                                on_note=note)
+        if state.scale != args.scale:
+            # the reference resumes with its SAVED args wholesale
+            # (main.rs:92-101); we match that but say so
+            note(f"resume: using saved -s {state.scale} (command line "
+                 f"said {args.scale})")
+        if args.int8_gate is not None and \
+                args.dtype not in ("int8", "auto"):
+            # the saved job is not int8: certification never runs
+            print("--int8-gate was requested but this workspace's "
+                  f"saved job runs --dtype {args.dtype}; resume "
+                  "without the gate, or start fresh to run int8",
+                  file=sys.stderr)
+            return 2
+        note(f"resuming: {len(state.pending)} segment(s) remaining")
+    else:
+        if ws.has_state():
+            if not _confirm("discard previous progress and start over?",
+                            args.yes):
+                return 1
+            err = _require_weights(args, skip_if_resumable=False)
+            if err is not None:
+                return err
+        state = job_mod.fresh(
+            ws, args, input_path=args.inputpath,
+            output_path=args.outputpath, scale=args.scale,
+            segment_size=args.segmentsize, model=args.model,
+            encode={"crf": args.crf, "preset": args.preset,
+                    "x265_params": args.x265params})
+    ws.save(state)
+
+    tracer = trace_mod.Tracer(args.trace) if args.trace else \
+        trace_mod.from_env()
+    resolve_t0 = _time.monotonic()
+    auto = args.dtype == "auto"
+    engine, int8_db = job_mod.open_engine(
+        ws, state, args, device, batch=args.batch, tile=args.tile,
+        gate_db=args.int8_gate, on_note=note, tracer=tracer)
+    resolve_s = _time.monotonic() - resolve_t0 if auto else None
+    if args.dtype == "int8" and int8_db is None:
+        err, int8_db = _certify_int8(args, state, engine, ws)
+        if err is not None:
+            return err
+    if args.dtype == "int8":
+        tracer.event("int8", db=int8_db,
+                     calibrate_s=engine.stats.calibrate_s,
+                     certify_s=engine.stats.certify_s)
+    renderer = ConsoleRenderer()
+    jsonl = JsonlRenderer(args.progress_json) if args.progress_json \
+        else None
+    tracker = ProgressTracker(
+        total_frames=sum(s.size for s in state.pending),
+        total_segments=len(state.pending),
+        on_update=TeeRenderer(renderer, jsonl),
+        source_fps=state.fps_num / max(state.fps_den, 1),
+    )
+    run_t0 = _time.monotonic()
+    try:
+        state, report = job_mod.run(
+            ws, state, engine, args, progress=tracker, tracer=tracer,
+            profile_dir=args.profile_dir,
+            keep_workspace=args.keep_workspace)
+    except KeyboardInterrupt:
+        # committed parts + state are already on disk (checkpoint
+        # after every segment)
+        done = len(ws.completed_parts(_part_ext(args)))
+        print(f"\ninterrupted — {done} segment(s) committed; rerun the "
+              f"same command to resume", file=sys.stderr)
+        return 130
+    enc_note = f", encoder: {report['encoder']}" if "encoder" in report \
+        else ""
+    # end-to-end x-realtime for the frames THIS run processed
+    rate_note = ""
+    elapsed = _time.monotonic() - run_t0
+    done_frames = tracker.stages["encode"].done
+    src_fps = state.fps_num / max(state.fps_den, 1)
+    if elapsed > 0 and done_frames and src_fps > 0:
+        e2e_fps = done_frames / elapsed
+        rate_note = (f", {e2e_fps:.3g} fps end-to-end = "
+                     f"{e2e_fps / src_fps:.3g}x realtime")
+    # the compute path and its certificate belong in the done-line
+    path_note = f", path: {args.dtype}"
+    if args.dtype == "int8" and int8_db is not None:
+        path_note = f", path: int8 turbo ({int8_db:.1f} dB certified)"
+    if resolve_s is not None:
+        path_note += f", auto-resolve {resolve_s:.1f} s"
+    print(f"\ndone: {state.output_path} (concat backend: "
+          f"{report['backend']}{enc_note}{path_note} on "
+          f"{engine.device}{rate_note})", file=sys.stderr)
+    return 0
 
 
 def _certify_int8(args, state, engine, ws: Workspace):
@@ -648,28 +543,20 @@ def _certify_int8(args, state, engine, ws: Workspace):
 
 
 def _require_weights(args, skip_if_resumable: bool = True) -> Optional[int]:
-    """Weights are a product requirement: a random-init 'upscale' is
-    hours of compute emitting plausible-looking garbage, so it is an
-    explicit opt-in (--allow-random-init / REVE_TPU_ALLOW_RANDOM_INIT=1),
-    never a fallback.  Runs BEFORE any workspace/probe/decode.
+    """Exit 2 for a job with no weights that did not opt into random init
+    (--allow-random-init / REVE_TPU_ALLOW_RANDOM_INIT=1), BEFORE any
+    workspace/probe/decode (job.missing_weights).
 
     `skip_if_resumable`: an existing interrupted workspace defers the check
     to the resume path (the saved opts are the contract)."""
-    from reve_tpu_torch.models import registry
-
-    if args.weights or registry.random_init_allowed(
-            True if args.allow_random_init else None):
-        return None
     if skip_if_resumable and Workspace(
             args.workspace or args.outputpath + ".revework").has_state():
         return None
-    if registry.resolve_weights(args.model, args.scale) is not None:
+    msg = job_mod.missing_weights(args.model, args.scale, args.weights,
+                                  args.allow_random_init)
+    if msg is None:
         return None
-    spec, _ = registry.parse_model_name(args.model)
-    stem = spec.canonical if spec.upscale is not None else \
-        f"{spec.canonical}-x{args.scale}"
-    print(registry.missing_weights_message(args.model, args.scale, stem),
-          file=sys.stderr)
+    print(msg, file=sys.stderr)
     return 2
 
 
@@ -699,7 +586,7 @@ def _apply_models_dir(args) -> Optional[int]:
 
 
 def _part_ext(args) -> str:
-    return ".y4m" if args.io_backend == "y4m" else ".mp4"
+    return job_mod.part_ext(args.io_backend)
 
 
 def main() -> None:

@@ -11,6 +11,10 @@ its plain PyTorch version and a launch counter.
                                               PReLU + requant
     K4a conv3x3.conv3x3_u8_bias_prelu_q8      K3 with an s8 quantize epilogue
     K4h head.head_conv_s8_residual_u8_shuffle int8 head conv + K2's epilogue
+    K6  tta.tta_accumulate                    TTA inverse-dihedral
+                                              accumulate (u8 term -> int16
+                                              sum; the last form writes
+                                              the u8 mean)
     P1  dot_probe.dot_loop                    s8/bf16 dot-rate probe on
                                               wgmma (not on a model path)
 
@@ -21,7 +25,9 @@ operands split into three bf16 parts, six products summed: float32
 accuracy, never TF32, to match the reference's Precision.HIGHEST), K4 and
 K4h on s8 wgmma in csrc/conv3x3_s8.cu.  K3 and K4a run on bf16 wgmma
 with A from registers and TMA stores (csrc/conv3x3.cu), and P1 on s8 and
-bf16 wgmma with A from registers (csrc/dot_probe.cu).
+bf16 wgmma with A from registers (csrc/dot_probe.cu).  K6 moves bytes
+only: it stages tiles of the transformed output through shared memory
+(csrc/tta.cu).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback.  `LAUNCHES` counts
@@ -40,6 +46,7 @@ LAUNCHES = {
     "conv3x3_s8_dq_prelu_q8": 0,
     "conv3x3_u8_bias_prelu_q8": 0,
     "head_conv_s8_residual_u8_shuffle": 0,
+    "tta_accumulate": 0,
     "dot_loop": 0,
 }
 

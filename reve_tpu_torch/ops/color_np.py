@@ -2,8 +2,10 @@
 
 IO threads (writers/readers) must not touch the accelerator: a per-frame
 jit call from an encode thread round-trips the device for work the host
-does in microseconds.  Same math as reve_tpu_torch.ops.color, pure numpy —
-equivalence asserted by tests/test_color_np.py.
+does in microseconds.  A copy of the JAX package's numpy conversions
+(reve_tpu/ops/color_np.py, the same math as reve_tpu/ops/color.py's device
+conversions), pure numpy; tests/test_torch_pipeline.py holds it against
+the JAX package's copy, byte for byte.
 """
 
 from __future__ import annotations

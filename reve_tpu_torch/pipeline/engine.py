@@ -11,19 +11,24 @@ Counterpart of reve_tpu/pipeline/engine.py.  Design:
     copy into pinned output memory on the engine's CUDA stream, records a
     CUDA event and returns.  `PendingBatch.result()` waits on that event,
     so the caller can keep 2+ batches in flight.
-  * A memory plan (`_plan_execution`) splits a batch into chunks of
-    frames per model call from `torch.cuda.mem_get_info()` and the
-    engine's own byte count per frame.
+  * A memory plan (`_plan_execution`) runs whole frames, a chunk of them
+    per model call, when one frame fits the free device memory beside the
+    in-flight IO reserve, and halo tiles (`ops/tiling.py`, byte-identical
+    to the whole frame) when one does not or `tile > 0` asks for them.
   * int8 turbo (`compute_dtype="int8"`): the hidden stack and the head
     run in s8 (K4a, K4, K4h), the first conv and the epilogue in
     bfloat16/float32, with activation scales from a float32 calibration
-    forward over sampled frames (`calibrate_int8`), persisted first-wins
-    through `calibration_hook`; `certify_int8` measures its PSNR against
-    the float32 path on the job's own frames.
+    forward over sampled whole frames (`calibrate_int8`), persisted
+    first-wins through `calibration_hook`; `certify_int8` measures its
+    PSNR against the float32 path on the job's own frames.
+  * TTA (`tta=True`): the 8-transform dihedral self-ensemble.  Each
+    forward transform runs on the device after the H2D copy, each
+    transform's model output goes straight into K6 (the inverse transform
+    and a 16-bit accumulate), and the 8th K6 writes the u8 mean that the
+    one D2H copy reads (`TTAPendingBatch`).
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-port-queue item): TTA, halo tiling (including frames too large for the
-memory plan) and multi-device meshes.
+Not ported yet (raises NotImplementedError naming its ROADMAP.md
+port-queue item): multi-device meshes.
 """
 
 from __future__ import annotations
@@ -31,19 +36,23 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from reve_tpu_torch import device as device_mod
+from reve_tpu_torch.kernels import tta as tta_mod
 from reve_tpu_torch.models import registry, srvgg
+from reve_tpu_torch.ops import tiling
 
 
 #: share of the free device memory (at plan time) the plan may fill
 _MEM_FRACTION = 0.85
 #: in-flight batch IO sets (pinned-staged u8 input + u8 output on the
-#: device) the plan reserves beside the executing chunk
+#: device) the plan reserves beside the executing chunk: the scheduler's
+#: queue floor (recommended_queue_depth >= 1) plus the batch being
+#: submitted
 _PLAN_INFLIGHT_SETS = 2
 #: live hidden-activation buffers of one model call: a hidden layer's
 #: input and output (K1 writes a fresh tensor; the input is freed after)
@@ -114,6 +123,38 @@ class PendingBatch:
         return self._out.numpy()[: self._valid]
 
 
+class TTAPendingBatch(PendingBatch):
+    """Self-ensemble (TTA) batch: the surface of the replaced engine's
+    `-x` switch (realesrgan-ncnn-vulkan runs the model on all 8 dihedral
+    transforms of the input and averages; the reference CLI never passes
+    it).
+
+    `submit` enqueues the whole ensemble on the engine's stream: per
+    transform, the forward transform of the device input (torch ops on
+    the u8 input), the model in the plan's pieces and K6 on each piece's
+    output; the 8th K6 writes the u8 mean, the one tensor the D2H copy
+    reads.  Because the 8 transforms are a group, the ensemble is exactly
+    dihedral-equivariant: tta(T(x)) == T(tta(x)) byte for byte
+    (tests/test_torch_tta.py).  `result()` is one-shot, as the
+    reference's is: the pinned output is handed over and released."""
+
+    def result(self) -> np.ndarray:
+        if self._out is None:
+            raise RuntimeError("TTAPendingBatch.result() is one-shot")
+        out = super().result()
+        self._out = None
+        return out
+
+
+class Plan(NamedTuple):
+    """How one batch runs: `tile == 0` whole frames, `per_call` frames per
+    model call; `tile > 0` halo tiles of that side, `per_call` windows per
+    model call."""
+
+    tile: int
+    per_call: int
+
+
 class UpscaleEngine:
     """Batched u8 -> u8 video upscaler on one CUDA device."""
 
@@ -145,11 +186,12 @@ class UpscaleEngine:
         `compute_dtype="int8"`: the int8 turbo path, its float parts in
         bfloat16.  `int8_calib`: the calibration statistic of fresh
         calibrations, "p<percentile>" of |activation| (default p99.9) or
-        "max"; scales injected with set_calibration are used as given."""
-        if tta:
-            raise _not_ported("tta=True", "TTA, K6")
-        if tile > 0:
-            raise _not_ported(f"tile={tile}", "tiling")
+        "max"; scales injected with set_calibration are used as given.
+
+        `tile`: 0 (auto) runs whole frames and halo tiles only a frame
+        past the memory plan; N > 0 tiles every frame in N x N tiles; -1
+        never tiles (a frame past the plan raises).  `tta`: the
+        8-transform self-ensemble."""
         if mesh is not None:
             raise _not_ported("a multi-device mesh", "multi-GPU")
         if batch_size < 1:
@@ -179,6 +221,12 @@ class UpscaleEngine:
         self.params = srvgg.params_to(params, self.device)
         self.scale = cfg.upscale
         self.batch_size = batch_size
+        #: 0 = tile only frames past the memory plan, -1 = never tile,
+        #: N > 0 = always tile N x N
+        self.tile = tile
+        #: the 8-transform self-ensemble (TTAPendingBatch): 8x the model
+        #: work for a small quality gain
+        self.tta = bool(tta)
         self.stats = EngineStats()
         self._plans = {}
         self._stream = (torch.cuda.Stream(self.device)
@@ -214,45 +262,115 @@ class UpscaleEngine:
                   - stats.get("allocated_bytes.all.current", 0))
         return free + max(cached, 0)
 
-    def _plan_execution(self, h: int, w: int) -> int:
-        """Frames per model call at (h, w): the whole batch when it fits,
-        else the largest chunk whose working set plus the in-flight IO
-        reserve fits the free device memory.  On the CPU, the batch.
-        Raises NotImplementedError when not even one frame fits (halo
-        tiling is not ported yet)."""
+    def _io_batch_bytes(self, h: int, w: int) -> int:
+        """One batch's IO set on the device: u8 input + u8 output."""
+        return self.batch_size * (self._in_bytes(h, w)
+                                  + self._out_bytes(h, w))
+
+    def _tta_bytes(self, h: int, w: int) -> int:
+        """What TTA holds beside the model per batch: the 16-bit
+        accumulator (2 B per output value), two transforms' u8 outputs in
+        flight (the mean K6 writes counts as one) and the transformed
+        input."""
+        if not self.tta:
+            return 0
+        return self.batch_size * (4 * self._out_bytes(h, w)
+                                  + self._in_bytes(h, w))
+
+    def _window(self, h: int, w: int, tile: int):
+        """The (rows, columns) of a halo window of `tile` at (h, w)."""
+        side = tile + 2 * self.halo
+        return min(h, side), min(w, side)
+
+    def _auto_tile(self, h: int, w: int, avail: int) -> int:
+        """The largest tile whose window fits `avail` bytes (0: none):
+        fewest windows, so the least halo work."""
+        lo, hi = 0, max(h, w)
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            if self._frame_bytes(*self._window(h, w, mid)) <= avail:
+                lo = mid
+            else:
+                hi = mid - 1
+        return lo
+
+    def _does_not_fit(self, what: str, need: int, avail: int):
+        return RuntimeError(
+            f"{what} does not fit the device memory plan "
+            f"({need / 2**30:.2f} GiB needed, {max(avail, 0) / 2**30:.2f} "
+            f"GiB available beside the in-flight IO reserve)")
+
+    def _plan_execution(self, h: int, w: int) -> Plan:
+        """The plan of a batch at (h, w).  Whole frames, the whole batch
+        per call when it fits, else the largest chunk whose working set
+        plus the in-flight IO reserve (and TTA's accumulator) fits the
+        free device memory, fewest calls first (also when `tile > 0` but
+        one tile covers the frame).  Halo tiles when `tile > 0`, or when
+        `tile == 0` and not even one frame fits: the tile as
+        given, or the largest whose window fits, and as many windows per
+        call as fit beside the executing batch's own IO set.  On the CPU
+        the whole batch (or every window) in one call.  Raises
+        RuntimeError when nothing fits (with `tile == -1`: when one whole
+        frame does not)."""
         key = (h, w)
         if key in self._plans:
             return self._plans[key]
         batch = self.batch_size
+        # a given tile whose one window is the whole frame runs as whole
+        # frames, in chunks of frames like tile == 0
+        n = tiling.plan_tiles(h, w, self.tile, self.halo).num_tiles \
+            if self.tile > 0 else 0
+        whole = self.tile <= 0 or n == 1
         if self.device.type != "cuda":
-            chunk = batch
-        else:
-            budget = int(self._free_bytes() * _MEM_FRACTION)
-            io_batch = batch * (self._in_bytes(h, w) + self._out_bytes(h, w))
-            avail = budget - _PLAN_INFLIGHT_SETS * io_batch
-            fits = avail // max(self._frame_bytes(h, w), 1)
-            if fits < 1:
-                raise _not_ported(
-                    f"a {w}x{h} frame past the memory plan "
-                    f"({self._frame_bytes(h, w) / 2**30:.2f} GiB/frame, "
-                    f"{max(avail, 0) / 2**30:.2f} GiB available)",
-                    "tiling")
+            plan = Plan(0, batch) if whole else Plan(self.tile, batch * n)
+            self._plans[key] = plan
+            return plan
+        budget = int(self._free_bytes() * _MEM_FRACTION)
+        io_batch = self._io_batch_bytes(h, w)
+        avail = budget - _PLAN_INFLIGHT_SETS * io_batch \
+            - self._tta_bytes(h, w)
+        fits = avail // max(self._frame_bytes(h, w), 1)
+        if whole and fits >= 1:
             # fewest calls first, then the least uneven split
             calls = -(-batch // min(fits, batch))
-            chunk = -(-batch // calls)
-        self._plans[key] = chunk
-        return chunk
+            plan = Plan(0, -(-batch // calls))
+        elif self.tile < 0 or n == 1:
+            why = "tile=-1: never tile" if self.tile < 0 else \
+                f"tile={self.tile}: one window is the whole frame"
+            raise self._does_not_fit(f"a {w}x{h} frame ({why})",
+                                     self._frame_bytes(h, w), avail)
+        else:
+            # the executing batch's device input and assembled output
+            # stay beside the windows
+            avail -= io_batch
+            tile = self.tile if self.tile > 0 else \
+                self._auto_tile(h, w, avail)
+            win = self._frame_bytes(*self._window(h, w, max(tile, 1)))
+            per = avail // win
+            if tile < 1 or per < 1:
+                raise self._does_not_fit(
+                    f"a {w}x{h} frame in tiles of {max(tile, 1)}", win,
+                    avail)
+            n = tiling.plan_tiles(h, w, tile, self.halo).num_tiles
+            plan = Plan(tile, int(min(per, batch * n)))
+        self._plans[key] = plan
+        return plan
 
     def recommended_queue_depth(self, h: int, w: int) -> int:
         """Completed batches the scheduler may hold beyond the executing
         one: what the free memory left after the plan's working set
-        affords in IO sets, clamped to [1, 3]."""
-        chunk = self._plan_execution(h, w)
+        (tiled or whole-frame, with TTA's accumulator) affords in IO sets,
+        clamped to [1, 3]."""
+        plan = self._plan_execution(h, w)
         if self.device.type != "cuda":
             return 2
-        io_batch = self.batch_size * (self._in_bytes(h, w)
-                                      + self._out_bytes(h, w))
-        ws = chunk * self._frame_bytes(h, w)
+        io_batch = self._io_batch_bytes(h, w)
+        if plan.tile:
+            ws = io_batch + plan.per_call \
+                * self._frame_bytes(*self._window(h, w, plan.tile))
+        else:
+            ws = plan.per_call * self._frame_bytes(h, w)
+        ws += self._tta_bytes(h, w)
         headroom = (int(self._free_bytes() * _MEM_FRACTION) - ws) \
             // max(io_batch, 1)
         return int(min(3, max(1, headroom - 1)))
@@ -440,9 +558,11 @@ class UpscaleEngine:
 
     def warmup(self, h: int, w: int) -> None:
         """Build the kernels (first use compiles them) and the memory plan
-        for a resolution, and run one batch of zeros through the model.
-        An int8 engine calibrates provisionally on the zeros; the first
-        real batch replaces that calibration."""
+        for a resolution, and run one batch of zeros through the model;
+        with TTA on, the ensemble also plans and runs the rotated (w, h)
+        shape of the odd quarter-turns.  An int8 engine calibrates
+        provisionally on the zeros; the first real batch replaces that
+        calibration."""
         dummy = np.zeros((self.batch_size, h, w, 3), np.uint8)
         self._maybe_calibrate(dummy, provisional=True)
         self._dispatch(dummy, self.batch_size).result()
@@ -453,7 +573,8 @@ class UpscaleEngine:
         Short batches are padded to `batch_size` by repeating the last
         frame (a fixed batch shape per job); padding is cropped in
         result().  An int8 engine without a real calibration calibrates
-        on the padded batch first."""
+        on the padded batch first (whole frames, never windows).  With
+        TTA on, the handle is a one-shot TTAPendingBatch."""
         n, h, w, _ = frames.shape
         if n < self.batch_size:
             pad = np.repeat(frames[-1:], self.batch_size - n, axis=0)
@@ -465,31 +586,70 @@ class UpscaleEngine:
         self.stats.batches += 1
         return self._dispatch(frames, n)
 
+    def _pieces(self, x: torch.Tensor):
+        """Run the model over the device batch x (B, H, W, 3) u8 in the
+        plan's calls; yields (lo, hi, y): y is the u8 output of frames
+        lo:hi.  Whole frames: one piece per chunk.  Tiles: one piece, the
+        windows' cores assembled on the device."""
+        b, h, w, _ = x.shape
+        plan = self._plan_execution(h, w)
+        if plan.tile:
+            yield 0, b, tiling.upscale_tiled(
+                self._forward, x, scale=self.scale, tile=plan.tile,
+                halo=self.halo, chunk=plan.per_call)
+            return
+        for i in range(0, b, plan.per_call):
+            yield i, min(i + plan.per_call, b), \
+                self._forward(x[i:i + plan.per_call])
+
+    def _ensemble(self, x: torch.Tensor):
+        """The TTA ensemble of the device batch x: per transform, its
+        forward transform, the model's pieces and K6 on each piece (exact
+        piece by piece: a transform never crosses the batch axis); the
+        8th K6 writes the u8 mean.  Yields it as one piece."""
+        b, h, w, _ = x.shape
+        r = self.scale
+        shape = (b, h * r, w * r, 3)
+        acc = torch.empty(shape, dtype=tta_mod.ACC_DTYPE, device=x.device)
+        mean = torch.empty(shape, dtype=torch.uint8, device=x.device)
+        last = len(tta_mod.SPECS) - 1
+        for s, (k, flip) in enumerate(tta_mod.SPECS):
+            form = tta_mod.FIRST if s == 0 else \
+                tta_mod.LAST if s == last else tta_mod.MIDDLE
+            for lo, hi, y in self._pieces(
+                    tta_mod.forward_transform(x, k, flip)):
+                tta_mod.tta_accumulate(y, acc[lo:hi], k, flip, form,
+                                       out=mean[lo:hi])
+        yield 0, b, mean
+
     def _dispatch(self, frames: np.ndarray, n: int) -> PendingBatch:
         """Enqueue one padded (batch_size, H, W, 3) u8 batch through the
-        memory plan's model calls; `n` frames of it are valid."""
-        _bs, h, w, _ = frames.shape
-        chunk = self._plan_execution(h, w)
+        memory plan's model calls (and, with TTA on, the ensemble); `n`
+        frames of it are valid."""
+        bs, h, w, _ = frames.shape
         r = self.scale
-        bs = self.batch_size
-        if self.device.type != "cuda":
-            x = torch.from_numpy(np.ascontiguousarray(frames, np.uint8))
-            out = torch.cat([self._forward(x[i:i + chunk])
-                             for i in range(0, bs, chunk)])
-            return PendingBatch(out, n)
-        host_in = torch.empty((bs, h, w, 3), dtype=torch.uint8,
-                              pin_memory=True)
-        host_in.numpy()[...] = frames
+        cuda = self.device.type == "cuda"
+        if cuda:
+            host_in = torch.empty((bs, h, w, 3), dtype=torch.uint8,
+                                  pin_memory=True)
+            host_in.numpy()[...] = frames
+        else:
+            host_in = torch.from_numpy(np.ascontiguousarray(frames,
+                                                            np.uint8))
         host_out = torch.empty((bs, h * r, w * r, 3), dtype=torch.uint8,
-                               pin_memory=True)
+                               pin_memory=cuda)
+        event = None
         with self._on_device():
             dev_in = host_in.to(self.device, non_blocking=True)
-            for i in range(0, bs, chunk):
-                y = self._forward(dev_in[i:i + chunk])
-                host_out[i:i + chunk].copy_(y, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(self._stream)
-        return PendingBatch(host_out, n, event, host_in)
+            pieces = self._ensemble(dev_in) if self.tta else \
+                self._pieces(dev_in)
+            for lo, hi, y in pieces:
+                host_out[lo:hi].copy_(y, non_blocking=True)
+            if cuda:
+                event = torch.cuda.Event()
+                event.record(self._stream)
+        handle = TTAPendingBatch if self.tta else PendingBatch
+        return handle(host_out, n, event, host_in if cuda else None)
 
     def upscale_frames(self, frames: np.ndarray) -> np.ndarray:
         """Synchronous convenience: (N, H, W, 3) u8 -> (N, H*s, W*s, 3) u8."""

@@ -210,7 +210,10 @@ def resolve_auto_dtype(make_engine, workspace: Workspace, state: JobState,
     unless the variable forces it.
 
     `make_engine(dtype, int8_calib)` builds an engine with the caller's
-    settings; on int8 the calibrated trial engine is returned for reuse.
+    full settings (batch, tile, tta, device), so the trial engine is the
+    job's engine; on int8 the calibrated trial engine is returned for
+    reuse (calibration and certification run whole frames, never tiles
+    or transforms).
     Returns (dtype, engine_or_None, db_or_None, notes).  The decision is
     published first-wins through the workspace (claim_resolution), so a
     resume follows the job's resolved dtype.  `on_note` receives a line

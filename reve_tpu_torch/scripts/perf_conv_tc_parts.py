@@ -1,4 +1,4 @@
-"""Where the time of the tensor-core conv kernels goes.
+"""Where the time of the tensor-core conv kernels (and of K6) goes.
 
     python -m reve_tpu_torch.scripts.perf_conv_tc_parts [--iters N]
         [--sources SOURCE ...]
@@ -33,8 +33,13 @@ each SM:
     (perf_int8_dot.queued_ms); its variants are one warpgroup on each 64 x
     64 tile in place of two (`one_wg`: every dot in one chain) and the
     mainloop without the prologue (`no_prologue`: B not staged, A not
-    loaded).
-Each source's kernels share one mainloop, so a variant takes the part out
+    loaded);
+  * kernels/csrc/tta.cu: K6's three forms at the TTA path's shape (4
+    frames of 1080p x4) for an even and an odd transform
+    (`middle_k1f_ms`: MIDDLE at k = 1 with the flip, ...); its variants
+    walk each tile's rows 4 or 1 at a time (`rows_4`, `rows_1`) where
+    it walks them 2 at a time.  They compute the right result.
+Each conv source's kernels share one mainloop, so a variant takes the part out
 of all of them.  The variants that take a part out compute wrong results.
 They exist only here, in a temporary directory, and only their times mean
 anything.
@@ -58,7 +63,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from reve_tpu_torch.kernels import build, conv3x3, conv3x3_s8, dot_probe
+from reve_tpu_torch.kernels import (build, conv3x3, conv3x3_s8, dot_probe,
+                                    tta)
 from reve_tpu_torch.scripts import perf_int8_dot
 from reve_tpu_torch.scripts.perf_int8_dot import queued_ms, time_ms
 
@@ -141,6 +147,14 @@ PATCHES[dot_probe.SOURCE] = {
          "          xr + (r & 1) * 8 * KB + 32 * s + 16 * (r >> 1)));\n",
          "      a[s][r] = (uint32_t)(size_t)xr + 32 * s + r;\n")],
 }
+_K6_ROWS = "constexpr int ROWS_PER_PASS = 2;"
+PATCHES[tta.SOURCE] = {
+    "full": [],
+    "rows_4": [(_K6_ROWS, _K6_ROWS.replace("2", "4"))],
+    "rows_1": [(_K6_ROWS, _K6_ROWS.replace("2", "1"))],
+}
+#: K6's transforms in the timer: an even one and an odd one (a transpose)
+_K6_SPECS = ((2, False), (1, True))
 #: P1's loop counts: the prologue and epilogue alone, the probe's, the
 #: slope's
 _DOT_LOOPS = (0, 64, 1024)
@@ -226,6 +240,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
     o = torch.empty((B, H * R, W * R, 3), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     P, I = ctypes.c_void_p, ctypes.c_int
+    k6_shape = (B, H * R, W * R, 3)
+    k6_acc = torch.from_numpy(rs.randint(0, 1786, k6_shape).astype(
+        np.int16)).to(dev)
+    k6_y = {k: torch.from_numpy(rs.randint(0, 256, (
+        B, W * R, H * R, 3) if k & 1 else k6_shape).astype(np.uint8)).to(dev)
+        for k, _ in _K6_SPECS}
 
     probe_ops = perf_int8_dot.inputs(dev)
     probe_out = {n: torch.empty((perf_int8_dot.M, perf_int8_dot.N),
@@ -246,6 +266,20 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     loops, int(n == "bf16"), stream), name)
             return {f"{n}_{loops}_ms": run(n, loops) for n in probe_ops
                     for loops in _DOT_LOOPS}
+        if source == tta.SOURCE:
+            fn = _entry(lib, "reve_tta_accumulate", [P] * 3 + [I] * 6 + [P])
+
+            def run_k6(k, flip, form):
+                # MIDDLE adds in place at each launch (the sum wraps; only
+                # the time is read)
+                return lambda: build.check(lib, fn(
+                    k6_y[k].data_ptr(), k6_acc.data_ptr(), o.data_ptr(), B,
+                    H * R, W * R, k, int(flip), form, stream), name)
+            return {f"{fname}_k{k}{'f' if flip else ''}_ms":
+                    run_k6(k, flip, form) for k, flip in _K6_SPECS
+                    for form, fname in ((tta.FIRST, "first"),
+                                        (tta.MIDDLE, "middle"),
+                                        (tta.LAST, "last"))}
         if source == conv3x3.TC_SOURCE:
             k1 = _entry(lib, "reve_conv3x3_bias_prelu_tc",
                         [P] * 5 + [I] * 3 + [P])

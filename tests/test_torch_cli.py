@@ -109,6 +109,154 @@ def test_cli_matches_jax_cli_on_hermetic_job(tmp_path, monkeypatch):
     _assert_close_y4m(got, want)
 
 
+@pytest.mark.parametrize("extra", [["--tile", "64"], ["--tile", "8"],
+                                   ["--tta"]])
+def test_cli_tile_and_tta_match_jax_cli(tmp_path, monkeypatch, extra):
+    """--tile N and --tta through both CLIs, sample for sample.  (At this
+    frame size and the shipped model's halo of 18, every window is the
+    whole frame; the engine tests hold real windows.)"""
+    monkeypatch.chdir(tmp_path)
+    inp = _input(tmp_path)
+    want = str(tmp_path / "jax.y4m")
+    got = str(tmp_path / "torch.y4m")
+    assert jcli.run(["-i", inp, want] + JOB + extra) == 0
+    assert cli.run(["-i", inp, got, "--keep-workspace"] + JOB + extra,
+                   device="cpu") == 0
+    _assert_close_y4m(got, want)
+    assert Workspace(got + ".revework").load().opts["tta"] == \
+        ("--tta" in extra)
+
+
+def test_cli_tta_resume_restores_tta(tmp_path, monkeypatch, capsys):
+    """A --tta job interrupted after one segment resumes with tta
+    restored from its workspace, even without --tta on the command line:
+    the output is byte-identical to the uninterrupted --tta run."""
+    monkeypatch.chdir(tmp_path)
+    inp = _input(tmp_path)
+    full = str(tmp_path / "full.y4m")
+    assert cli.run(["-i", inp, full, "--tta"] + JOB, device="cpu") == 0
+    out = str(tmp_path / "out.y4m")
+    assert cli.run(["-i", inp, out, "--keep-workspace", "--tta"] + JOB,
+                   device="cpu") == 0
+    os.unlink(out)
+    ws = Workspace(out + ".revework")
+    state = ws.load()
+    assert state.opts["tta"] is True
+    os.unlink(ws.part_path(1, ".y4m"))
+    state.pending = [s for s in state.plan if s.index == 1]
+    ws.save(state)
+    capsys.readouterr()
+    assert cli.run(["-i", inp, out] + JOB, device="cpu") == 0
+    err = capsys.readouterr().err
+    assert "resuming: 1 segment(s) remaining" in err
+    assert "resume: using saved --tta=True" in err
+    with open(out, "rb") as a, open(full, "rb") as b:
+        assert a.read() == b.read()
+    # and the ensemble is not the plain job's output
+    plain = str(tmp_path / "plain.y4m")
+    assert cli.run(["-i", inp, plain] + JOB, device="cpu") == 0
+    with open(plain, "rb") as a, open(full, "rb") as b:
+        assert a.read() != b.read()
+
+
+def test_api_upscale_video_matches_jax_api(tmp_path, monkeypatch):
+    """reve_tpu_torch.upscale_video against reve_tpu.upscale_video on the
+    same y4m, with tile and tta."""
+    import reve_tpu
+    import reve_tpu_torch
+
+    monkeypatch.chdir(tmp_path)
+    inp = _input(tmp_path)
+    kw = dict(weights=PTH, segment_size=3, batch=2, dtype="float32",
+              io_backend="y4m", tile=64, tta=True)
+    want = str(tmp_path / "jax.y4m")
+    got = str(tmp_path / "torch.y4m")
+    jrep = reve_tpu.upscale_video(inp, want, 4, **kw)
+    rep = reve_tpu_torch.upscale_video(inp, got, 4, device="cpu", **kw)
+    assert rep["dtype"] == jrep["dtype"] == "float32"
+    # the concat backend differs: the port has no native remux core yet
+    assert rep["backend"] == "y4m" and jrep["backend"] == "native"
+    _assert_close_y4m(got, want)
+    assert not os.path.exists(got + ".revework")
+    with pytest.raises(FileExistsError):
+        reve_tpu_torch.upscale_video(inp, got, 4, device="cpu", **kw)
+
+
+def test_api_resumes_a_cli_tta_job_with_its_settings(tmp_path, monkeypatch):
+    """The API and the CLI share one resume contract (pipeline/job.py): a
+    --tta job the CLI started and that stopped after one segment resumes
+    through upscale_video, called without tta, to the uninterrupted
+    run's bytes."""
+    from reve_tpu_torch import api
+
+    monkeypatch.chdir(tmp_path)
+    inp = _input(tmp_path)
+    full = str(tmp_path / "full.y4m")
+    assert cli.run(["-i", inp, full, "--tta"] + JOB, device="cpu") == 0
+    out = str(tmp_path / "out.y4m")
+    assert cli.run(["-i", inp, out, "--keep-workspace", "--tta"] + JOB,
+                   device="cpu") == 0
+    os.unlink(out)
+    ws = Workspace(out + ".revework")
+    state = ws.load()
+    os.unlink(ws.part_path(1, ".y4m"))
+    state.pending = [s for s in state.plan if s.index == 1]
+    ws.save(state)
+    rep = api.upscale_video(inp, out, 4, weights=PTH, segment_size=3,
+                            batch=2, device="cpu")
+    assert rep["dtype"] == "float32"
+    with open(out, "rb") as a, open(full, "rb") as b:
+        assert a.read() == b.read()
+    assert not os.path.exists(out + ".revework")
+
+
+@pytest.mark.parametrize("saved,match", [
+    ({"backend": None}, "started by another implementation"),
+    ({"denoise": 0.5}, "denoise.*ROADMAP"),
+])
+def test_api_refuses_the_resumes_the_cli_refuses(tmp_path, monkeypatch,
+                                                 saved, match):
+    """A workspace another package started, or one saved with --denoise,
+    is refused by the API as by the CLI, and left as it was."""
+    from reve_tpu_torch import api
+
+    monkeypatch.chdir(tmp_path)
+    inp = _input(tmp_path, frames=3)
+    out = str(tmp_path / "out.y4m")
+    assert cli.run(["-i", inp, out, "--keep-workspace"] + JOB,
+                   device="cpu") == 0
+    os.unlink(out)
+    ws = Workspace(out + ".revework")
+    state = ws.load()
+    state.opts.update(saved)
+    ws.save(state)
+    with pytest.raises(ValueError, match=match):
+        api.upscale_video(inp, out, 4, weights=PTH, segment_size=3,
+                          batch=2, dtype="float32", io_backend="y4m",
+                          device="cpu")
+    assert ws.load().opts == state.opts and not os.path.exists(out)
+    assert cli.run(["-i", inp, out] + JOB, device="cpu") == 2
+
+
+@pytest.mark.parametrize("kw,err,match", [
+    ({"mesh": object()}, NotImplementedError, "multi-GPU"),
+    ({"scene_align": True}, NotImplementedError, "scene-aligned"),
+    ({"model": "realesrgan-x4plus"}, NotImplementedError, "RRDB"),
+    ({"weights": "m.param"}, NotImplementedError, "ncnn"),
+    ({"compile_attempts": 2}, ValueError, "no counterpart"),
+    ({"device": 7}, ValueError, "out of range"),
+])
+def test_api_refuses_what_the_cli_refuses(tmp_path, kw, err, match):
+    from reve_tpu_torch import api
+
+    inp = _input(tmp_path, frames=1)
+    base = dict(device="cpu", allow_random_init=True)
+    base.update(kw)
+    with pytest.raises(err, match=match):
+        api.upscale_video(inp, str(tmp_path / "o.y4m"), 4, **base)
+    assert not os.path.exists(str(tmp_path / "o.y4m.revework"))
+
+
 def test_cli_resume_with_one_committed_part(tmp_path, monkeypatch):
     """A workspace holding one committed part (segment 0 of 2) resumes to
     the same output as an uninterrupted run."""
@@ -261,12 +409,13 @@ def test_cli_refuses_to_resume_a_reve_tpu_workspace(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("extra", [
-    ["--tta"], ["--dtype", "int8", "--model", "realesrgan-x4plus"],
-    ["--lease-stale-after", "5"],
-    ["--denoise", "0.5"], ["--shard-worker", "w0"], ["--tile", "64"],
-    ["--device", "0,1"], ["--scene-align"], ["--compile-attempts", "2"],
-    ["--model", "realesrgan-x4plus"],
-])
+    pytest.param(extra, id=f"extra{i}") for i, extra in (
+        # (ids as before --tta, extra0, and --tile 64, extra5, left)
+        (1, ["--dtype", "int8", "--model", "realesrgan-x4plus"]),
+        (2, ["--lease-stale-after", "5"]), (3, ["--denoise", "0.5"]),
+        (4, ["--shard-worker", "w0"]), (6, ["--device", "0,1"]),
+        (7, ["--scene-align"]), (8, ["--compile-attempts", "2"]),
+        (9, ["--model", "realesrgan-x4plus"]))])
 def test_unported_flags_exit_2(tmp_path, monkeypatch, capsys, extra):
     monkeypatch.chdir(tmp_path)
     inp = _input(tmp_path, frames=1)

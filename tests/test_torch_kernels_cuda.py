@@ -33,7 +33,12 @@ float32 epilogue); P1 s8 exact, bf16 within 1e-4 of the largest |value|
 (its float32 sum is sum(even dots) + sum(odd dots), each dot's k steps
 added in order).
 float32 K2 sums six bf16 products like float32 K1: u8 |d| <= 1, at
-ordinary and at +-2^8 activations.
+ordinary and at +-2^8 activations.  K6 (csrc/tta.cu) moves bytes and adds
+integers: exact, for each of the 8 transforms and its three forms, on
+ragged shapes and batches.  The engine's halo tiles are byte-identical to
+its whole frames on the card in bfloat16, float32 and int8 (the kernels
+compute each output pixel by the same sum wherever it sits), and its TTA
+ensemble equals the manual one and is exactly dihedral-equivariant.
 """
 
 import numpy as np
@@ -41,8 +46,9 @@ import pytest
 import torch
 
 from reve_tpu_torch.kernels import (LAUNCHES, conv3x3, conv3x3_s8,
-                                    dot_probe, head)
+                                    dot_probe, head, tta)
 from reve_tpu_torch.models import srvgg
+from reve_tpu_torch.pipeline.engine import UpscaleEngine
 from reve_tpu_torch.weights import quantize
 
 torch.set_num_threads(2)
@@ -747,3 +753,109 @@ def test_u8_conv_wrappers_refuse_and_no_cuda_core_form_is_left():
     assert len(kernels) == 4  # K3 and K4a, each in both compute dtypes
     for k in kernels:  # (a CUDA-core conv would be thousands of FFMA)
         assert "HGMMA" in k and k.count("FFMA") < 8, k.split()[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 37, 70), (2, 64, 33),
+                                   (1, 5, 300), (4, 400, 510)])
+@pytest.mark.parametrize("spec", tta.SPECS, ids=str)
+def test_tta_kernel_is_exact(spec, shape):
+    """K6's three forms against the plain version, for each transform, on
+    tiles that are ragged (37, 70, 33, 5, 300, 400, 510 against 32),
+    batches > 1 and hundreds of tiles; the FIRST form never reads acc
+    and LAST never writes it."""
+    dev = _cuda()
+    k, flip = spec
+    b, ho, wo = shape
+    rs = np.random.RandomState(k * 2 + flip)
+    ys = (b, wo, ho, 3) if k & 1 else (b, ho, wo, 3)
+    y = torch.from_numpy(rs.randint(0, 256, ys).astype(np.uint8)).to(dev)
+    acc0 = torch.from_numpy(rs.randint(0, 1786, (b, ho, wo, 3)).astype(
+        np.int16)).to(dev)
+    before = LAUNCHES["tta_accumulate"]
+    for form in (tta.FIRST, tta.MIDDLE, tta.LAST):
+        acc, acc_p = acc0.clone(), acc0.clone()
+        out = torch.full((b, ho, wo, 3), 7, dtype=torch.uint8, device=dev)
+        out_p = out.clone()
+        got = tta.tta_accumulate(y, acc, k, flip, form, out=out)
+        want = tta.tta_accumulate_plain(y, acc_p, k, flip, form, out=out_p)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want), form
+        assert torch.equal(acc, acc_p) and torch.equal(out, out_p)
+    assert LAUNCHES["tta_accumulate"] == before + 3
+
+
+@pytest.mark.cuda
+def test_tta_kernel_refuses_what_it_does_not_take():
+    dev = _cuda()
+    y = torch.zeros((1, 4, 6, 3), dtype=torch.uint8, device=dev)
+    acc = torch.zeros((1, 4, 6, 3), dtype=torch.int16, device=dev)
+    with pytest.raises(ValueError, match="expected"):
+        tta.tta_accumulate(y, acc, 1, False, tta.MIDDLE)  # needs (1, 6, 4)
+    with pytest.raises(ValueError, match="LAST"):
+        tta.tta_accumulate(y, acc, 0, False, tta.LAST)
+    with pytest.raises(ValueError, match="contiguous"):
+        tta.tta_accumulate(y, acc.transpose(1, 2).contiguous().transpose(
+            1, 2), 0, False, tta.MIDDLE)
+
+
+def _engines(dtype, **kw):
+    """A whole-frame engine and one with `kw` on the card, on one small
+    model (64 features, 3 hidden convs, x4: halo 5)."""
+    dev = _cuda()
+    cfg = srvgg.SRVGGConfig(num_feat=64, num_conv=3, upscale=4)
+    params = srvgg.params_to(srvgg.init_params(cfg), dev)
+
+    def make(**extra):
+        return UpscaleEngine(compute_dtype=dtype, batch_size=3, device=dev,
+                             preloaded=(cfg, params), **extra)
+    return make(tile=-1), make(**kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8"])
+def test_tiled_engine_is_byte_identical_to_whole_frames(dtype):
+    """Halo tiles of 32 (windows of 42, clamped at the borders) against
+    whole frames, both through the kernels; int8 quantizes both with the
+    scales the whole-frame engine calibrated."""
+    whole, tiled = _engines(dtype, tile=32)
+    frames = np.random.RandomState(9).randint(0, 256, (3, 70, 101, 3),
+                                              np.uint8)
+    if dtype == "int8":
+        whole.calibrate_int8(frames)
+        tiled.set_calibration(whole.get_calibration())
+    calls = tiled.stats.calls
+    want = whole.submit(frames).result()
+    got = tiled.submit(frames).result()
+    assert tiled._plans[(70, 101)].tile == 32
+    assert tiled.stats.calls > calls
+    assert got.shape == want.shape == (3, 280, 404, 3)
+    assert int((got != want).sum()) == 0
+
+
+@pytest.mark.cuda
+def test_tta_engine_equals_manual_ensemble_and_is_equivariant():
+    """The ensemble on the card (K6 after each transform's model call)
+    against the whole-frame engine on the 8 transformed batches, inverse
+    transformed and averaged by K6's plain version; then tta(rot90(x)) ==
+    rot90(tta(x)) and the same for a flip, on non-square frames."""
+    plain, ens = _engines("bfloat16", tta=True)
+    frames = np.random.RandomState(10).randint(0, 256, (3, 24, 40, 3),
+                                               np.uint8)
+    before = LAUNCHES["tta_accumulate"]
+    got = ens.submit(frames).result()
+    assert LAUNCHES["tta_accumulate"] == before + 8
+    x = torch.from_numpy(frames)
+    acc = torch.empty((3, 96, 160, 3), dtype=tta.ACC_DTYPE)
+    mean = torch.empty((3, 96, 160, 3), dtype=torch.uint8)
+    for s, (k, flip) in enumerate(tta.SPECS):
+        y = plain.submit(tta.forward_transform(x, k, flip).numpy()).result()
+        form = tta.FIRST if s == 0 else tta.LAST if s == 7 else tta.MIDDLE
+        tta.tta_accumulate_plain(torch.from_numpy(y.copy()), acc, k, flip,
+                                 form, out=mean)
+    np.testing.assert_array_equal(got, mean.numpy())
+    for k, flip in ((1, False), (0, True)):
+        t = tta.forward_transform(x, k, flip).numpy()
+        np.testing.assert_array_equal(
+            ens.submit(t).result(),
+            tta.forward_transform(torch.from_numpy(got), k, flip).numpy())

@@ -200,3 +200,28 @@ def test_owner_pidfile_steal_has_exactly_one_winner_under_race(tmp_path,
                 w.release_owner()
     assert winners == [1] * len(winners), \
         {n: winners.count(n) for n in set(winners)}
+
+
+@pytest.mark.parametrize("matrix", ["bt601", "bt709"])
+@pytest.mark.parametrize("bits,full_range", [(8, False), (10, False),
+                                             (10, True)])
+def test_color_np_copy_matches_the_jax_packages(matrix, bits, full_range):
+    """The port's copy of the host colour conversions (ops/color_np.py)
+    gives the JAX package's bytes: the same numpy arithmetic, both ways."""
+    from reve_tpu.ops import color_np as jcolor_np
+    from reve_tpu_torch.ops import color_np
+
+    rgb = np.random.RandomState(3).randint(0, 256, (12, 18, 3), np.uint8)
+    got = color_np.rgb_to_yuv420_np(rgb, matrix=matrix, bits=bits,
+                                    full_range=full_range)
+    want = jcolor_np.rgb_to_yuv420_np(rgb, matrix=matrix, bits=bits,
+                                      full_range=full_range)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    y, u, v = want
+    np.testing.assert_array_equal(
+        color_np.yuv420_to_rgb_np(y, u, v, matrix=matrix, bits=bits,
+                                  full_range=full_range),
+        jcolor_np.yuv420_to_rgb_np(y, u, v, matrix=matrix, bits=bits,
+                                   full_range=full_range))
