@@ -89,7 +89,40 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               the model output of the first quarter-turn (1080 x 1920)
               against the plain float32 path on the same input at the
               main phase's PSNR gate; the job's seconds by span;
-  8. probe    P1, the tensor-core dot-rate probe (wgmma), through
+  8. rrdb     RRDBNet (realesrgan-x4plus at its full width and depth: 64
+              features, 32 growth channels, 23 blocks; random weights
+              from seed 0, reve_tpu's init scales) on the same 4 frames:
+              K7's seven forms on the path (Cin 64/96/128/160 -> 32 with
+              the leaky ReLU, 192 -> 64 with the dense block's and the
+              RRDB's residual, conv_body's 64 -> 64 + feat) in both
+              dtypes at a batch of 4 1080p frames on the model's own
+              activations, each against its plain version (bfloat16 <=
+              2 ulp of the largest operand of its epilogue; float32 max
+              |d| <= 2e-6), timed beside the plain version, cuDNN's
+              F.conv2d and its bound; the CLI job (-s 4 --model
+              realesrgan-x4plus --allow-random-init --dtype auto =
+              bfloat16) with the counters zeroed around it: per model
+              call K3 1, K7 346, K1 3 and K2's conv_last mode 1; each
+              of its 4 frames against the plain float32 path, at most 1
+              dB further from it than the plain bfloat16 path (bf16
+              through 23 random-weight blocks is itself below the 50-dB
+              gate), and at 50 dB or more against the plain bfloat16
+              path, with the share of bytes clipped to 0 or 255 printed;
+              a float32 engine batch through the plan's chunks, twice,
+              with PyTorch's default allocator (the second batch
+              byte-identical to the first), every frame at u8 |d| <= 1
+              against the plain float32 path; the model's ms per batch,
+              the plan and one call's peak device memory, at most what
+              the plan bills, in both dtypes; the conv_last mode
+              at its shapes (4 frames of 7680 x 4320 in bfloat16, the
+              float32 plan's chunk) against its plain version frame by
+              frame (u8 |d| <= 1); K1 at the up convs' shapes (alpha
+              0.2; 4 frames at 2x and at 4x, 8.5e9 values, in bfloat16;
+              the float32 plan's chunk in float32) against its plain
+              version on every frame, in strips of rows (<= 2 ulp;
+              float32 <= 2e-6), timed beside it, cuDNN and its bound;
+              the nearest x2's time;
+  9. probe    P1, the tensor-core dot-rate probe (wgmma), through
               `python -m reve_tpu_torch.scripts.perf_int8_dot`'s main at
               its shapes: per call at 64 loops timed free of the host's
               launch cost (the calls queued behind a sleep kernel, so that
@@ -105,7 +138,8 @@ JSON line; any failure exits non-zero (no phase catches and continues):
 
 The line before the last is nvidia-smi's name and power limit; before
 that, one JSON object {"kernels": [...]} with each kernel's launches on
-its path (main, int8, tta or probe), error (and, for u8 and s8 outputs,
+its path (main, int8, tta, rrdb or probe), error (and, for u8 and s8
+outputs,
 n_diff: the values that differ from the plain version's; the model
 kernels' error on the transposed batch under "transposed"), times, bound
 and design ("wgmma", "wgmma_bf16x6", "elementwise" or "smem_transpose";
@@ -116,7 +150,9 @@ source, design and launches on the int8 path, where they run).  The last
 line is {"ok": true, "device": {...}}.
 
 Run from the root of a checkout: alone, or without a CUDA device, it
-exits 1 and prints no result.
+exits 1 and prints no result.  Any failure, in a phase or before the
+first, prints one JSON line {"phase": ..., "ok": false, "error": ...} on
+stdout before the script exits non-zero.
 """
 
 from __future__ import annotations
@@ -145,27 +181,43 @@ FRAMES, W, H, SCALE, BATCH = 8, 1920, 1080, 4, 4
 TILE = 512
 #: wgmma instructions each tensor-core library must hold at least: every
 #: kernel's mainloop unrolled (per 64-pixel row: bf16 36, bf16x6 216, s8
-#: 18), the hidden conv and the heads at r = 2, 3, 4; K3 and K4a 2 in
-#: bfloat16 and 12 in float32 (K = 32: two k16 steps, six products each);
-#: P1 one kernel for each count of 32-B k steps, its dot's wgmmas
-#: unrolled: s8 1 + ... + 8 (IGMMA), bf16 1 + ... + 16 (HGMMA)
+#: 18), the hidden conv, the heads at r = 2, 3, 4 and K2's conv_last mode
+#: (r = 1); K3 and K4a 2 in bfloat16 and 12 in float32 (K = 32: two k16
+#: steps, six products each); K7 at N = 32 and 64, per 32-channel chunk
+#: 18 in bfloat16 and 108 in float32; P1 one kernel for each count of
+#: 32-B k steps, its dot's wgmmas unrolled: s8 1 + ... + 8 (IGMMA), bf16
+#: 1 + ... + 16 (HGMMA)
 P1_IGMMA, P1_HGMMA = sum(range(1, 9)), sum(range(1, 17))
-MIN_WGMMA = {"conv3x3_tc.cu": 4 * 36, "conv3x3_f32_tc.cu": 4 * 216,
+MIN_WGMMA = {"conv3x3_tc.cu": 5 * 36, "conv3x3_f32_tc.cu": 5 * 216,
              "conv3x3_s8.cu": 4 * 18, "conv3x3.cu": 2 * (2 + 12),
-             "dot_probe.cu": P1_IGMMA + P1_HGMMA}
+             "dot_probe.cu": P1_IGMMA + P1_HGMMA,
+             "rrdb.cu": 2 * (18 + 108)}
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+#: the phase running now, named by the failure line if one fails
+CURRENT = ["setup"]
+
+
+def fail_line(err: BaseException) -> None:
+    """The one JSON line a failure prints on stdout before the script
+    exits non-zero: the phase and the error."""
+    emit({"phase": CURRENT[0], "ok": False,
+          "error": f"{type(err).__name__}: {err}"[:4000]})
+
+
 @contextlib.contextmanager
 def phase(name: str, record: dict):
+    CURRENT[0] = name
     t0 = time.perf_counter()
     yield record
     record.update(phase=name, ok=True,
                   seconds=round(time.perf_counter() - t0, 3))
     emit(record)
+    CURRENT[0] = f"after {name}"
 
 
 def cuda_time_ms(fn, iters: int = 10) -> float:
@@ -806,23 +858,436 @@ def probe_phase(out: dict, smi: str) -> dict:
     return results
 
 
+#: the rrdb phase's model and its K7 launches per call: 15 dense convs a
+#: block and conv_body
+RRDB_MODEL = "realesrgan-x4plus"
+RRDB_BLOCKS = 23
+RRDB_K7_PER_CALL = 15 * RRDB_BLOCKS + 1
+#: each frame of the bf16 job may sit this far further from the plain
+#: float32 path than the plain bfloat16 path does (dB):
+#: tests/test_torch_rrdb.py's margin against the JAX package's own bf16
+#: error
+RRDB_BF16_MARGIN_DB = 1.0
+#: and no frame of it below this against the plain bfloat16 path (dB):
+#: the kernels' rounding moves it to 59.7 dB on frame 0 (PERF.md §6)
+RRDB_VS_PLAIN_BF16_DB = 50.0
+
+
+def k7_forms(params):
+    """K7's forms on the model's path, with the weights of block 0 that
+    use them and their launches per model call: convs 1-4 (lrelu, Cin 64
+    to 160) three times a block, conv 5 as rdb twice a block and as rrdb
+    once, conv_body (add) once."""
+    rdbs = params["body"][0]["rdbs"]
+    forms = [(f"lrelu_{64 + 32 * i}", 64 + 32 * i, 32, "lrelu",
+              rdbs[0]["convs"][i], 3 * RRDB_BLOCKS) for i in range(4)]
+    forms += [("rdb_192", 192, 64, "rdb", rdbs[0]["convs"][4],
+               2 * RRDB_BLOCKS),
+              ("rrdb_192", 192, 64, "rrdb", rdbs[2]["convs"][4],
+               RRDB_BLOCKS),
+              ("add_64", 64, 64, "add", params["conv_body"], 1)]
+    assert sum(f[-1] for f in forms) == RRDB_K7_PER_CALL
+    return forms
+
+
+def library_conv(buf, cin: int, w, b):
+    """The yardstick for K7's and the conv_last mode's time (the port
+    never calls it): one cuDNN F.conv2d of the same conv in channels-last
+    at the same dtype (TF32 off for float32), on operands laid out once
+    here.  Returns a callable."""
+    import torch
+    import torch.nn.functional as F
+
+    x = buf[..., :cin].permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    bl = b.to(w.dtype)
+    return lambda: F.conv2d(x, wl, bl, padding=1)
+
+
+def rrdb_kernel_phase(params, frames) -> dict:
+    """K7's forms at the main path's shapes (a batch of 4 1080p frames) in
+    both dtypes, against their plain versions on the same inputs (the
+    frames through conv_first, then block 0's first dense block in the
+    plain version, so every form reads the model's own activations),
+    then timed beside the plain version, one cuDNN F.conv2d of the same
+    conv (channels-last, the same dtype, TF32 off) and the bound (bytes:
+    the channels read, written and the residuals; operations: float32's
+    six bf16 products at the bf16 rate).  Tolerances: bfloat16 <= 2 ulp
+    of the largest operand of the epilogue (the conv value, the
+    residuals, the result), float32 max |d| <= 2e-6.  The top-level
+    numbers of each dtype are per launch, weighted by the forms'
+    launches in one model call ("call_ms": their sum over the call)."""
+    import torch
+
+    from reve_tpu_torch import device as device_mod
+    from reve_tpu_torch.kernels import conv3x3
+    from reve_tpu_torch.kernels import rrdb as k7
+
+    dev = torch.device("cuda", 0)
+    u8 = torch.from_numpy(frames).to(dev)
+    B = u8.shape[0]
+    px = B * H * W
+    forms = k7_forms(params)
+    results = {}
+    for name in ("bfloat16", "float32"):
+        dt = getattr(torch, name)
+        bpe = torch.finfo(dt).bits // 8
+        device_mod.strict_f32()
+        cf = params["conv_first"]
+        feat = conv3x3.conv3x3_u8_bias_prelu_plain(
+            u8, cf["w"].to(dt), cf["b"], torch.ones(64, device=dev))
+        a = torch.empty((B, H, W, 192), dtype=dt, device=dev)
+        a[..., :64] = feat
+        for i in range(4):
+            c = params["body"][0]["rdbs"][0]["convs"][i]
+            k7.dense_conv_plain(a, 64 + 32 * i, c["w"].to(dt), c["b"], a,
+                                64 + 32 * i, "lrelu")
+        by_form = {}
+        for fname, cin, cout, epi, p, n in forms:
+            w, b = p["w"].to(dt).contiguous(), p["b"]
+            packed = k7.pack_weights_dense(w)
+            if epi == "lrelu":
+                out, off, res, res2 = a.clone(), cin, None, None
+                buf = out
+            elif epi == "add":
+                out = feat.clone()
+                buf, off, res, res2 = a, 0, out, None
+            else:
+                out = a.clone() if epi == "rrdb" else torch.empty_like(a)
+                buf, off, res = a, 0, a
+                res2 = out if epi == "rrdb" else None
+            want = out.clone()
+            plain_args = (buf if buf is not out else want, cin, w, b, want,
+                          off, epi, res if res is not out else want,
+                          res2 if res2 is not out else want)
+            k7.dense_conv(buf, cin, w, b, out, off, epi, res, res2,
+                          packed=packed)
+            k7.dense_conv_plain(*plain_args)
+            torch.cuda.synchronize()
+            got_s, want_s = (t[..., off:off + cout] for t in (out, want))
+            err = (got_s.float() - want_s.float()).abs().max().item()
+            if name == "float32":
+                ok = err <= 2e-6
+            else:
+                y = conv3x3.conv3x3_plain(a[..., :cin], w, b)
+                # the residuals as they were before the kernel wrote
+                ops = [t[..., :cout] for t in
+                       {"lrelu": (), "rdb": (a,), "rrdb": (a, a),
+                        "add": (feat,)}[epi]]
+                mag = torch.stack([t.float().abs() for t in
+                                   [got_s, want_s, y] + ops]).amax(0) \
+                    .clamp_min(2.0 ** -10)
+                ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+                ok = bool(((got_s.float() - want_s.float()).abs()
+                           <= 2 * ulp).all())
+                del y, mag, ulp
+            if not ok:
+                raise AssertionError(f"dense_conv {fname} {name}: kernel "
+                                     f"disagrees with its plain version "
+                                     f"(max |d| {err})")
+            del got_s, want_s
+            resid = {"lrelu": 0, "rdb": 1, "rrdb": 2, "add": 1}[epi]
+            nbytes = px * (cin + cout * (1 + resid)) * bpe \
+                + w.numel() * bpe + cout * 4
+            bms, bby = bound_ms(nbytes, 2 * 9 * cin * cout * px
+                                * (6 if name == "float32" else 1),
+                                "bfloat16")
+            by_form[fname] = {
+                "cin": cin, "cout": cout, "epilogue": epi,
+                "launches_per_call": n, "max_abs_err": err,
+                "ms": cuda_time_ms(lambda: k7.dense_conv(
+                    buf, cin, w, b, out, off, epi, res, res2,
+                    packed=packed)),
+                "plain_ms": cuda_time_ms(lambda: k7.dense_conv_plain(
+                    *plain_args), iters=3),
+                "library_ms": cuda_time_ms(library_conv(buf, cin, w, b)),
+                "bound_ms": bms, "bound_by": bby}
+            del out, want, plain_args, res, res2, buf
+            torch.cuda.empty_cache()
+        total = sum(f["launches_per_call"] for f in by_form.values())
+        top = {key: sum(f[key] * f["launches_per_call"]
+                        for f in by_form.values()) / total
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        top.update(max_abs_err=max(f["max_abs_err"]
+                                   for f in by_form.values()),
+                   bound_by="operations" if all(
+                       f["bound_by"] == "operations"
+                       for f in by_form.values()) else "bytes",
+                   call_ms=top["ms"] * total,
+                   call_bound_ms=top["bound_ms"] * total,
+                   forms=by_form, shape=[B, H, W, 192])
+        results[name] = top
+        del a, feat
+        torch.cuda.empty_cache()
+    return results
+
+
+def conv_last_phase(params, batches: dict) -> dict:
+    """K2's conv_last mode at the main path's shapes (4 frames of 7680 x
+    4320 in bfloat16; the float32 plan's chunk, `batches["float32"]`
+    frames, in float32) on conv_hr-like activations (a leaky ReLU of
+    seeded normals), against its plain version frame by frame (the
+    plain version's float32 copy of a whole batch would not fit beside
+    it), timed beside cuDNN's F.conv2d and its byte bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from reve_tpu_torch.kernels import head
+
+    dev = torch.device("cuda", 0)
+    p = params["conv_last"]
+    results = {}
+    for name in ("bfloat16", "float32"):
+        dt = getattr(torch, name)
+        B, oh, ow = batches[name], H * SCALE, W * SCALE
+        gen = torch.Generator(device=dev).manual_seed(7)
+        h = torch.randn((B, oh, ow, 64), device=dev, generator=gen,
+                        dtype=dt).mul_(0.3)
+        F.leaky_relu_(h, 0.2)
+        w = p["w"].to(dt).contiguous()
+        got = head.conv_last_u8(h, w, p["b"])
+        torch.cuda.synchronize()
+        err, n_diff = 0, 0
+        for i in range(B):
+            want = head.conv_last_u8_plain(h[i:i + 1], w, p["b"])
+            d = (got[i:i + 1].int() - want.int()).abs()
+            err, n_diff = max(err, d.max().item()), n_diff + int(
+                (d > 0).sum().item())
+            del want, d
+        clipped = ((got == 0) | (got == 255)).float().mean().item()
+        if err > 1:
+            raise AssertionError(f"conv_last_u8 {name}: kernel disagrees "
+                                 f"with its plain version (max |d| {err})")
+        del got
+        torch.cuda.empty_cache()
+        bpe = torch.finfo(dt).bits // 8
+        px = B * oh * ow
+        bms, bby = bound_ms(px * (64 * bpe + 3) + w.numel() * bpe + 12,
+                            2 * 9 * 64 * 3 * px
+                            * (6 if name == "float32" else 1), "bfloat16")
+        results[name] = {
+            "max_abs_err": err, "n_diff": n_diff, "clipped_share": clipped,
+            "ms": cuda_time_ms(lambda: head.conv_last_u8(h, w, p["b"]),
+                               iters=3),
+            "plain_ms": cuda_time_ms(lambda: [head.conv_last_u8_plain(
+                h[i:i + 1], w, p["b"]) for i in range(B)], iters=1),
+            "library_ms": library_time_ms(library_conv(h, 64, w, p["b"]),
+                                          iters=3),
+            "bound_ms": bms, "bound_by": bby, "shape": [B, oh, ow, 3]}
+        del h
+        torch.cuda.empty_cache()
+    return results
+
+
+def strips_plain(fn, x, i: int, rows: int = 540):
+    """fn's plain version on frame i of x, a strip of `rows` output rows
+    at a time, each read with a row of context on either side (the 3x3
+    conv's SAME padding falls only at the frame's own edges): yields (r,
+    the strip's rows of the result).  A whole frame's float32
+    temporaries would not fit beside the batch."""
+    h = x.shape[1]
+    for r in range(0, h, rows):
+        lo, hi = max(r - 1, 0), min(r + rows + 1, h)
+        yield r, fn(x[i:i + 1, lo:hi])[:, r - lo:r - lo + min(rows, h - r)]
+
+
+def rrdb_k1_phase(params, batches: dict) -> dict:
+    """K1 at the RRDB head's shapes, alpha 0.2 (dense.SLOPE): conv_up1's
+    at 2x and conv_up2's / conv_hr's at 4x (4 frames of 7680 x 4320 x 64
+    are 8.5e9 values, past 2^32), in bfloat16 at the batch of 4 and in
+    float32 at the float32 plan's chunk (`batches["float32"]` frames),
+    with the model's weights (conv_up1's; conv_hr's at 4x) on conv_up-like
+    activations (a leaky ReLU of seeded normals).  Every frame is held
+    against the plain version in strips of rows (strips_plain):
+    bfloat16 within 2 ulp (bf16_ulp_ok), float32 max |d| <= 2e-6.  Timed
+    beside the plain version (its strips), cuDNN's F.conv2d (conv + bias
+    in channels-last, the same dtype, TF32 off) and the bound (bytes: the
+    input read and the output written once; operations: float32's six
+    bf16 products at the bf16 rate)."""
+    import torch
+    import torch.nn.functional as F
+
+    from reve_tpu_torch import device as device_mod
+    from reve_tpu_torch.kernels import conv3x3
+    from reve_tpu_torch.kernels import rrdb as k7
+
+    dev = torch.device("cuda", 0)
+    slope = torch.full((64,), k7.SLOPE, device=dev)
+    results = {}
+    for name in ("bfloat16", "float32"):
+        dt = getattr(torch, name)
+        bpe = torch.finfo(dt).bits // 8
+        device_mod.strict_f32()
+        for shape_name, r, p in (("up1", 2, params["conv_up1"]),
+                                 ("up2_hr", 4, params["conv_hr"])):
+            B, oh, ow = batches[name], H * r, W * r
+            gen = torch.Generator(device=dev).manual_seed(11 + r)
+            x = torch.randn((B, oh, ow, 64), device=dev, generator=gen,
+                            dtype=dt).mul_(0.3)
+            F.leaky_relu_(x, 0.2)
+            w, b = p["w"].to(dt).contiguous(), p["b"]
+
+            def kernel():
+                return conv3x3.conv3x3_bias_prelu(x, w, b, slope)
+
+            def plain(t):
+                return conv3x3.conv3x3_bias_prelu_plain(t, w, b, slope)
+
+            y = kernel()
+            torch.cuda.synchronize()
+            err = 0.0
+            for i in range(B):
+                for row, want in strips_plain(plain, x, i):
+                    got = y[i:i + 1, row:row + want.shape[1]]
+                    err = max(err, (got.float() - want.float()).abs()
+                              .max().item())
+                    ok = err <= 2e-6 if name == "float32" else \
+                        bf16_ulp_ok(got, want)
+                    if not ok:
+                        raise AssertionError(
+                            f"conv3x3_bias_prelu {name} at {[B, oh, ow, 64]}"
+                            f", frame {i} rows {row}+: kernel disagrees "
+                            f"with its plain version (max |d| {err})")
+                    del got, want
+            del y
+            torch.cuda.empty_cache()
+            px = B * oh * ow
+            bms, bby = bound_ms(2 * px * 64 * bpe + w.numel() * bpe + 2 * 64
+                                * 4, 2 * 9 * 64 * 64 * px
+                                * (6 if name == "float32" else 1),
+                                "bfloat16")
+            results.setdefault(shape_name, {})[name] = {
+                "max_abs_err": err, "ms": cuda_time_ms(kernel, iters=3),
+                "plain_ms": cuda_time_ms(lambda: [
+                    None for i in range(B)
+                    for _ in strips_plain(plain, x, i)], iters=1),
+                "library_ms": library_time_ms(library_conv(x, 64, w, b),
+                                              iters=3),
+                "bound_ms": bms, "bound_by": bby, "shape": [B, oh, ow, 64]}
+            del x
+            torch.cuda.empty_cache()
+    return results
+
+
+def upsample_ms() -> dict:
+    """The nearest x2 before conv_up1 and conv_up2 (a torch op, one copy)
+    at the bfloat16 batch's two shapes, beside its byte bound (read once,
+    write four times the bytes)."""
+    import torch
+
+    from reve_tpu_torch.ops.resize import upsample_nearest
+
+    out = {}
+    for name, (h, w) in (("up1", (H, W)), ("up2", (2 * H, 2 * W))):
+        x = torch.zeros((BATCH, h, w, 64), dtype=torch.bfloat16,
+                        device="cuda")
+        bms, _ = bound_ms(x.numel() * 2 * 5, 0, "bfloat16")
+        out[name] = {"ms": cuda_time_ms(lambda: upsample_nearest(x, 2),
+                                        iters=3),
+                     "bound_ms": bms, "shape": [BATCH, h, w, 64]}
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_pieces(eng, x) -> None:
+    """The engine's model calls over the device batch x, each piece's
+    output dropped before the next piece runs, as the engine's own loop
+    does (a chunked plan frees the chunk's segments in between)."""
+    for piece in eng._pieces(x):
+        del piece
+
+
+def rrdb_engine_checks(frames, ref_f32: np.ndarray) -> dict:
+    """The RRDB engines on the card, with PyTorch's default allocator: a
+    float32 batch through the plan's chunks, twice (the second
+    byte-identical to the first: the chunks find their memory again),
+    every frame against the plain float32 path (`ref_f32`, u8 |d| <= 1);
+    the model's ms per batch and the plan in both dtypes; one call's peak
+    device memory, held to what the plan bills for it; the most the
+    allocator reserved beside the free memory the plan saw."""
+    import torch
+
+    from reve_tpu_torch import kernels
+    from reve_tpu_torch.pipeline.engine import UpscaleEngine
+
+    dev_in = torch.from_numpy(frames).cuda()
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        eng = UpscaleEngine(model=RRDB_MODEL, scale=SCALE, compute_dtype=dt,
+                            batch_size=BATCH, allow_random_init=True)
+        torch.cuda.reset_peak_memory_stats()
+        reserved0 = torch.cuda.memory_reserved()
+        free_seen = eng._free_bytes()
+        plan = eng._plan_execution(H, W)
+        calls = eng.stats.calls
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        got = eng.submit(frames).result()
+        batch_s = time.perf_counter() - t0
+        ran = eng.stats.calls - calls
+        launches = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                    if v != before[k]}
+        if plan.tile or ran != -(-BATCH // plan.per_call):
+            raise AssertionError(f"{dt} batch ran {ran} calls; plan {plan}")
+        rec = {"plan": list(plan), "calls_per_batch": ran,
+               "engine_batch_s": batch_s, "launches": launches}
+        if dt == "float32":
+            d = np.abs(got.astype(np.int16) - ref_f32.astype(np.int16))
+            rec.update(max_abs_err=int(d.max()), n_diff=int((d > 0).sum()),
+                       frames_checked=len(got))
+            if d.max() > 1:
+                bad = np.nonzero(d.max((1, 2, 3)) > 1)[0].tolist()
+                raise AssertionError(f"float32 engine differs from the "
+                                     f"plain float32 path by {d.max()} "
+                                     f"(frames {bad})")
+            again = eng.submit(frames).result()
+            if not np.array_equal(again, got):
+                raise AssertionError("float32 engine: a second batch "
+                                     "differs from the first")
+            del again
+        rec.update(free_bytes_at_plan=free_seen,
+                   max_reserved_bytes=torch.cuda.max_memory_reserved()
+                   - reserved0)
+        del got
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with eng._on_device():
+            y = eng._forward(dev_in[:plan.per_call])
+        torch.cuda.synchronize()
+        del y
+        rec["peak_bytes_per_call"] = torch.cuda.max_memory_allocated() - base
+        rec["billed_bytes_per_call"] = plan.per_call * eng._frame_bytes(H, W)
+        if rec["peak_bytes_per_call"] > rec["billed_bytes_per_call"]:
+            raise AssertionError(f"{dt}: a call peaked at "
+                                 f"{rec['peak_bytes_per_call']} B, past the "
+                                 f"plan's {rec['billed_bytes_per_call']} B")
+        rec["model_ms_per_batch"] = cuda_time_ms(
+            lambda: run_pieces(eng, dev_in), iters=2)
+        out[dt] = rec
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "False)", file=sys.stderr)
-        return 1
+        raise RuntimeError("no CUDA device (torch.cuda.is_available() is "
+                           "False)")
     sys.path.insert(0, ROOT)
     if not os.path.isdir(os.path.join(ROOT, "reve_tpu_torch")):
-        print(f"chip_smoke: no reve_tpu_torch package beside {__file__}: "
-              f"run it from the root of a checkout of the repo",
-              file=sys.stderr)
-        return 1
+        raise RuntimeError(f"no reve_tpu_torch package beside {__file__}: "
+                           f"run it from the root of a checkout of the "
+                           f"repo")
     from reve_tpu_torch import cli, kernels
     from reve_tpu_torch.io import reader, writer
     from reve_tpu_torch.kernels import build, conv3x3, conv3x3_s8, dot_probe
-    from reve_tpu_torch.models import srvgg
+    from reve_tpu_torch.models import registry, rrdb, srvgg
     from reve_tpu_torch.pipeline.engine import UpscaleEngine
     from reve_tpu_torch.weights import quantize
     from reve_tpu_torch.weights.torch_loader import load_srvgg_pth
@@ -854,8 +1319,8 @@ def main() -> int:
                   + " | ".join(ln.strip() for ln in v["log"].splitlines()
                                if "registers" in ln or "spill" in ln),
                   flush=True)
-        # K1, K2, K3 (both dtypes), K4a, K4, K4h and P1 run on wgmma;
-        # nothing on __dp4a or mma.sync
+        # K1, K2, K3, K7 (both dtypes), K4a, K4, K4h and P1 run on
+        # wgmma; nothing on __dp4a or mma.sync
         for s, least in MIN_WGMMA.items():
             if rec["sources"][s]["wgmma"] < least:
                 raise AssertionError(f"{s}: {rec['sources'][s]['wgmma']} "
@@ -865,9 +1330,9 @@ def main() -> int:
         if p1.get("IGMMA", 0) < P1_IGMMA or p1.get("HGMMA", 0) < P1_HGMMA:
             raise AssertionError(f"{dot_probe.SOURCE}: {p1}, fewer than "
                                  f"IGMMA {P1_IGMMA} and HGMMA {P1_HGMMA}")
-        # no CUDA-core form of K3 or K4a and no mma.sync form of P1 is
-        # left: every kernel of their libraries holds wgmma
-        for s in (conv3x3.SOURCE, dot_probe.SOURCE):
+        # no CUDA-core form of K3, K4a or K7 and no mma.sync form of P1
+        # is left: every kernel of their libraries holds wgmma
+        for s in (conv3x3.SOURCE, dot_probe.SOURCE, "rrdb.cu"):
             if rec["sources"][s]["kernels_without_wgmma"]:
                 raise AssertionError(
                     f"{s}: kernels without wgmma: "
@@ -1122,6 +1587,120 @@ def main() -> int:
                            params, cfg, np.stack(list(reader.Y4MReader(
                                in4).read_range(0, BATCH))), got0, work))
         tta_launches = launches
+
+        # RRDBNet (realesrgan-x4plus at full width and depth, random
+        # weights from seed 0) on the same 4 frames
+        out_r = os.path.join(work, "out_rrdb.y4m")
+        trace_r = os.path.join(work, "trace_rrdb.jsonl")
+        argv_r = ["-i", in4, "-s", str(SCALE), out_r, "--model", RRDB_MODEL,
+                  "--allow-random-init", "--dtype", "auto", "--io-backend",
+                  "y4m", "-S", "4", "--batch", str(BATCH), "--yes",
+                  "--trace", trace_r]
+        with phase("rrdb", {"argv": argv_r[3:]}) as rec:
+            cfg_r, params_r = registry.load_model(RRDB_MODEL, SCALE,
+                                                  allow_random_init=True)
+            assert (cfg_r.num_feat, cfg_r.num_grow_ch, cfg_r.num_block) == \
+                (64, 32, RRDB_BLOCKS)
+            params_r = rrdb.params_to(params_r, "cuda")
+            k7_results = rrdb_kernel_phase(params_r, frames[:BATCH])
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.run(argv_r)
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            if rc != 0:
+                raise AssertionError(f"cli.run --model {RRDB_MODEL} exited "
+                                     f"{rc}")
+            rd = reader.Y4MReader(out_r)
+            shape = (rd.frame_count(), rd.width, rd.height)
+            if shape != (BATCH, W * SCALE, H * SCALE):
+                raise AssertionError(f"rrdb output {shape}, expected "
+                                     f"{(BATCH, W * SCALE, H * SCALE)}")
+            calls = launches["conv3x3_u8_bias_prelu"]
+            if calls < 1 or \
+                    launches["dense_conv"] != RRDB_K7_PER_CALL * calls or \
+                    launches["conv3x3_bias_prelu"] != 3 * calls or \
+                    launches["conv_last_u8"] != calls or \
+                    launches["head_conv_residual_u8_shuffle"] != 0:
+                raise AssertionError(f"launch counts {launches} do not "
+                                     f"show the RRDB path's kernels")
+            # every frame against the plain float32 and the plain
+            # bfloat16 paths on the card (a frame at a time), through the
+            # same y4m encode as the job's output
+            batch4 = np.stack(list(reader.Y4MReader(in4).read_range(
+                0, BATCH)))
+            refs = {}
+            for dt in ("float32", "bfloat16"):
+                y = np.stack([rrdb.apply(
+                    params_r, torch.from_numpy(batch4[i:i + 1]).cuda(),
+                    cfg=cfg_r, compute_dtype=getattr(torch, dt),
+                    plain=True)[0].cpu().numpy() for i in range(BATCH)])
+                torch.cuda.empty_cache()
+                ref_path = os.path.join(work, f"ref_rrdb_{dt}.y4m")
+                with writer.open_writer(ref_path, W * SCALE, H * SCALE,
+                                        fractions.Fraction(24),
+                                        backend="y4m") as wr:
+                    for f in y:
+                        wr.write(f)
+                refs[dt] = (y, list(reader.Y4MReader(ref_path)
+                                    .read_range(0, BATCH)))
+            got = list(rd.read_range(0, BATCH))
+            f32, b16 = refs["float32"][1], refs["bfloat16"][1]
+            db = [psnr(g, r) for g, r in zip(got, f32)]
+            db_plain = [psnr(a, r) for a, r in zip(b16, f32)]
+            db_kernels = [psnr(g, a) for g, a in zip(got, b16)]
+            clipped = [float(((g == 0) | (g == 255)).mean()) for g in got]
+            # bf16 through 23 random-weight blocks is itself below the
+            # 50-dB gate against float32 (the reference's arithmetic, run
+            # as the plain bfloat16 path, sits where the job does): each
+            # frame is held to the plain bfloat16 path's own distance from
+            # float32, and to the plain bfloat16 path itself, which a
+            # fault in a kernel moves
+            for i in range(BATCH):
+                if not db[i] >= db_plain[i] - RRDB_BF16_MARGIN_DB:
+                    raise AssertionError(
+                        f"rrdb frame {i} PSNR {db[i]:.2f} dB vs the plain "
+                        f"float32 path, more than {RRDB_BF16_MARGIN_DB} dB "
+                        f"below the plain bfloat16 path's "
+                        f"{db_plain[i]:.2f} dB (clipped share "
+                        f"{clipped[i]:.3f})")
+                if not db_kernels[i] >= RRDB_VS_PLAIN_BF16_DB:
+                    raise AssertionError(
+                        f"rrdb frame {i} PSNR {db_kernels[i]:.2f} dB vs "
+                        f"the plain bfloat16 path, below "
+                        f"{RRDB_VS_PLAIN_BF16_DB} dB")
+            engines = rrdb_engine_checks(batch4, refs["float32"][0])
+            chunk = {"bfloat16": BATCH,
+                     "float32": engines["float32"]["plan"][1]}
+            last = conv_last_phase(params_r, chunk)
+            up_convs = rrdb_k1_phase(params_r, chunk)
+            ref = refs["float32"][0]
+            del refs
+            rec.update(rc=rc, frames=BATCH, wall_s=round(wall, 3),
+                       launches=launches, model_calls=calls,
+                       launches_per_call={
+                           k: launches[k] / calls for k in (
+                               "conv3x3_u8_bias_prelu", "dense_conv",
+                               "conv3x3_bias_prelu", "conv_last_u8")},
+                       psnr_db_vs_plain_f32=db,
+                       psnr_db_plain_bf16_vs_plain_f32=db_plain,
+                       psnr_db_vs_plain_bf16=db_kernels,
+                       psnr_margin_db=RRDB_BF16_MARGIN_DB,
+                       psnr_floor_vs_plain_bf16_db=RRDB_VS_PLAIN_BF16_DB,
+                       clipped_share=clipped,
+                       clipped_share_ref=[
+                           float(((f == 0) | (f == 255)).mean())
+                           for f in ref],
+                       up_convs=up_convs,
+                       span_s=span_seconds(trace_r), engines=engines,
+                       upsample=upsample_ms(),
+                       model_ms_per_batch={
+                           dt: engines[dt]["model_ms_per_batch"]
+                           for dt in ("bfloat16", "float32")})
+            del params_r
+            torch.cuda.empty_cache()
+        rrdb_launches = launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1157,6 +1736,12 @@ def main() -> int:
         "dot_loop": (
             "reve_tpu_torch/kernels/csrc/dot_probe.cu",
             "scripts/perf_pallas_int8.py:54"),
+        "dense_conv": (
+            "reve_tpu_torch/kernels/csrc/rrdb.cu",
+            "reve_tpu/models/rrdb.py:157"),
+        "conv_last_u8": (
+            "reve_tpu_torch/kernels/csrc/conv3x3_tc.cu",
+            "reve_tpu/models/rrdb.py:232"),
     }
     # each kernel's numbers and its launches on the path that runs it: the
     # bf16 main job, the int8 job, or the probe script
@@ -1170,6 +1755,8 @@ def main() -> int:
         "head_conv_s8_residual_u8_shuffle": ("int8", int8_launches),
         "tta_accumulate": ("uint8", tta_launches),
         "dot_loop": ("int8", {"dot_loop": probe_launches}),
+        "dense_conv": ("bfloat16", rrdb_launches),
+        "conv_last_u8": ("bfloat16", rrdb_launches),
     }
     # every model conv and P1 run on wgmma, the split pass on CUDA cores;
     # the float32 forms of K1, K2 and K3 run on wgmma as six bf16 products
@@ -1201,6 +1788,20 @@ def main() -> int:
             nums = k6
             extra = {key: k6[key] for key in ("forms", "batch_ms",
                                               "batch_bound_ms")}
+        elif name in ("dense_conv", "conv_last_u8"):
+            # bfloat16 at the top, float32 nested with its launches in the
+            # float32 engine's batch
+            by_dt = k7_results if name == "dense_conv" else last
+            f32_src = src if name == "dense_conv" else \
+                "reve_tpu_torch/kernels/csrc/conv3x3_f32_tc.cu"
+            nums = by_dt["bfloat16"]
+            extra = {key: v for key, v in nums.items() if key not in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape", "n_diff")}
+            extra["float32"] = dict(
+                by_dt["float32"], source=f32_src, route="cuda",
+                design="wgmma_bf16x6",
+                launches=engines["float32"]["launches"].get(name, 0))
         elif dtype == "bfloat16":
             f32_src, f32_design = f32_forms[name]
             nums, extra = results[name]["bfloat16"], {
@@ -1219,6 +1820,12 @@ def main() -> int:
             "library_ms", "shape") + (("n_diff",) if "n_diff" in nums
                                       else ())})
         entry.update(extra)
+        if name == "conv3x3_bias_prelu":
+            # K1 on the RRDB path: conv_up1 at 2x, conv_up2 and conv_hr at
+            # 4x, with its launches in the bf16 job and the float32 batch
+            entry["rrdb"] = dict(
+                up_convs, launches=rrdb_launches[name],
+                float32_launches=engines["float32"]["launches"][name])
         line.append(entry)
     emit({"kernels": line})
     print(smi, flush=True)
@@ -1229,4 +1836,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    except Exception as e:
+        fail_line(e)
+        print(f"chip_smoke: {CURRENT[0]} failed: {e}", file=sys.stderr)
+        raise
+    sys.exit(rc)

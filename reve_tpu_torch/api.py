@@ -11,7 +11,8 @@ after a crash continues where the job stopped, with the settings the job
 was started with.  It runs on cuda:0 unless `device` names another CUDA
 device or "cpu".  What the port's CLI refuses with exit 2, this raises:
 NotImplementedError naming the ROADMAP.md port-queue item (`mesh`,
-`scene_align`, a non-SRVGG model, ncnn weights), or ValueError
+`scene_align`, `realesrgan-x2plus`, int8 with an RRDB model, ncnn
+weights), or ValueError
 (`compile_attempts`, which has no counterpart).  `upscale_image` waits
 for image mode (ROADMAP.md).
 """
@@ -81,8 +82,9 @@ def upscale_video(
     as the CLI: output must not exist, mkv input requires mkv output).
 
     `tile`: 0 (default) tiles only frames past the device memory plan, N
-    > 0 always runs N x N halo tiles, -1 never tiles; tiles are
-    byte-identical to whole frames.  `tta`: the 8-transform self-ensemble
+    > 0 always runs N x N halo tiles, -1 never tiles; SRVGG's tiles are
+    byte-identical to whole frames (RRDB's halo, 24 px, is an
+    approximation, as in reve_tpu).  `tta`: the 8-transform self-ensemble
     (8x the model work).  `dtype="auto"`: the CLI's --dtype auto policy
     (bfloat16 on CUDA).  `on_progress`: optional callable receiving a
     snapshot dict after every counter update, from pipeline worker
@@ -103,8 +105,10 @@ def upscale_video(
     if scene_align:
         raise _not_ported("scene_align", "scene-aligned segments")
     spec, _ = registry.parse_model_name(model)
-    if spec.arch != "srvgg":
-        raise _not_ported(f"model {model} ({spec.arch})", "RRDB, K7")
+    refusal = registry.unported(spec.arch, spec.upscale, dtype)
+    if refusal is not None:
+        raise _not_ported(f"model {model} with dtype {dtype} "
+                          f"({refusal[0]})", refusal[1])
     if weights and weights.endswith((".param", ".bin")):
         raise _not_ported(f"ncnn weights {weights!r}", "ncnn/dni weights")
     if compile_attempts is not None:

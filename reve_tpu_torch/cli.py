@@ -9,9 +9,11 @@ reve-shared/src/lib.rs:209-280):
 
 The port carries the video job: fresh and resumed runs, --dtype
 auto|float32|bfloat16|int8 (auto = bfloat16 on CUDA, as reve_tpu's rule
-has it off the TPU), --int8-calib, --int8-gate, --model/--weights/-m,
---batch, --tile N (halo tiles, byte-identical to whole frames; 0 = only
-frames past the memory plan, -1 = never), --tta (the 8-transform
+has it off the TPU), --int8-calib, --int8-gate, --model/--weights/-m
+(SRVGG, and RRDB at x4: realesrgan-x4plus, realesrgan-x4plus-anime,
+realesrnet-x4plus), --batch, --tile N (halo tiles, for SRVGG
+byte-identical to whole frames; 0 = only frames past the memory plan,
+-1 = never), --tta (the 8-transform
 self-ensemble, restored on resume), --device N (cuda:N), --io-backend,
 --workspace, --yes, --keep-workspace, --progress-json, --trace and
 --profile-dir (torch.profiler).  Flags whose feature is not ported yet
@@ -255,8 +257,10 @@ def _refuse_unported(args) -> Optional[int]:
     from reve_tpu_torch.models import registry
 
     spec, _ = registry.parse_model_name(args.model)
-    if spec.arch != "srvgg":
-        return _not_ported(f"--model {args.model} ({spec.arch})", "RRDB, K7")
+    refusal = registry.unported(spec.arch, spec.upscale, args.dtype)
+    if refusal is not None:
+        return _not_ported(f"--model {args.model} --dtype {args.dtype} "
+                           f"({refusal[0]})", refusal[1])
     if args.compile_attempts is not None:
         print("--compile-attempts has no counterpart in reve_tpu_torch "
               "(the JAX package's XLA compile-lottery guard)",
@@ -327,7 +331,8 @@ def run(argv: Optional[List[str]] = None, device=None) -> int:
             w = (f"weights: x{'/x'.join(map(str, found))}" if found
                  else "weights: none (jobs refuse to start; "
                       "--allow-random-init to override)")
-            ported = "" if spec.arch == "srvgg" else "  (not ported)"
+            ported = "" if registry.unported(spec.arch, spec.upscale) \
+                is None else "  (not ported)"
             print(f"{name}  [{spec.arch}, x{scales}]  {w}{ported}")
         return 0
     args = build_parser().parse_args(argv)

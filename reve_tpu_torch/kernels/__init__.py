@@ -1,12 +1,20 @@
-"""Hand-written CUDA kernels of the SRVGG main path (sm_90a), each with
-its plain PyTorch version and a launch counter.
+"""Hand-written CUDA kernels of the SRVGG and RRDBNet main paths
+(sm_90a), each with its plain PyTorch version and a launch counter.
 
     K1  conv3x3.conv3x3_bias_prelu            hidden conv 64->64 + PReLU
-        conv3x3.split_bf16x3                  float32 K1's and K2's split
-                                              pass
+                                              (RRDB: the up and hr convs +
+                                              leaky ReLU, alpha 0.2)
+        conv3x3.split_bf16x3                  float32 K1's, K2's and K7's
+                                              split pass
     K3  conv3x3.conv3x3_u8_bias_prelu         u8 input + first conv + PReLU
+                                              (RRDB: conv_first, alpha 1)
     K2  head.head_conv_residual_u8_shuffle    head conv + residual + u8 +
                                               pixel shuffle
+        head.conv_last_u8                     K2's conv_last mode (RRDB):
+                                              64->3 conv + u8, no residual
+    K7  rrdb.dense_conv                       RRDB dense-block conv over
+                                              a channel slice + leaky ReLU
+                                              or the block residuals
     K4  conv3x3_s8.conv3x3_s8_dq_prelu_q8     int8 hidden conv + dequant +
                                               PReLU + requant
     K4a conv3x3.conv3x3_u8_bias_prelu_q8      K3 with an s8 quantize epilogue
@@ -18,12 +26,14 @@ its plain PyTorch version and a launch counter.
     P1  dot_probe.dot_loop                    s8/bf16 dot-rate probe on
                                               wgmma (not on a model path)
 
-K1, K2 (both dtypes), K4 and K4h run on the tensor cores as
+K1, K2 (both dtypes), K7, K4 and K4h run on the tensor cores as
 implicit-GEMM `wgmma` kernels with TMA halo loads: bfloat16 K1 and K2 in
 csrc/conv3x3_tc.cu, float32 K1 and K2 in csrc/conv3x3_f32_tc.cu (their
 operands split into three bf16 parts, six products summed: float32
 accuracy, never TF32, to match the reference's Precision.HIGHEST), K4 and
-K4h on s8 wgmma in csrc/conv3x3_s8.cu.  K3 and K4a run on bf16 wgmma
+K4h on s8 wgmma in csrc/conv3x3_s8.cu, K7 in both dtypes in
+csrc/rrdb.cu (Cin in chunks of 32 channels through a TMA and bulk-copy
+ring; float32 as six bf16 products).  K3 and K4a run on bf16 wgmma
 with A from registers and TMA stores (csrc/conv3x3.cu), and P1 on s8 and
 bf16 wgmma with A from registers (csrc/dot_probe.cu).  K6 moves bytes
 only: it stages tiles of the transformed output through shared memory
@@ -43,6 +53,8 @@ LAUNCHES = {
     "split_bf16x3": 0,
     "conv3x3_u8_bias_prelu": 0,
     "head_conv_residual_u8_shuffle": 0,
+    "conv_last_u8": 0,
+    "dense_conv": 0,
     "conv3x3_s8_dq_prelu_q8": 0,
     "conv3x3_u8_bias_prelu_q8": 0,
     "head_conv_s8_residual_u8_shuffle": 0,

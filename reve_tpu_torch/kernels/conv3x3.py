@@ -223,9 +223,27 @@ def _launch(source: str, entry: str, ins, y: torch.Tensor,
     build.check(lib, err, entry)
 
 
+def _row_stride(x: torch.Tensor):
+    """The stride between the rows (last-dim runs) of x when its leading
+    dims walk rows of one stride (a channel slice of contiguous NHWC
+    pixels, or a contiguous tensor), else None."""
+    if x.dim() == 0 or x.stride(-1) != 1:
+        return None
+    if x.dim() == 1:
+        return x.shape[-1]
+    step, want = x.stride(-2), x.stride(-2)
+    for n, st in zip(reversed(x.shape[:-1]), reversed(x.stride()[:-1])):
+        if n > 1 and st != want:
+            return None
+        want *= n
+    return step
+
+
 def split_bf16x3(x: torch.Tensor) -> torch.Tensor:
-    """The split pass of float32 K1 and K2: (..., 64) float32 -> (3, ...,
-    64) bfloat16 planes hi, mid, lo (see split_bf16x3_plain)."""
+    """The split pass of float32 K1, K2 and K7: (..., C) float32 -> (3,
+    ..., C) bfloat16 planes hi, mid, lo (see split_bf16x3_plain).  `x` is
+    contiguous, or a slice of the leading C channels of contiguous pixels
+    (K7's input: the channels its conv reads), C a multiple of 8."""
     if x.device.type == "cpu":
         return split_bf16x3_plain(x)
     if x.device.type != "cuda":
@@ -233,17 +251,28 @@ def split_bf16x3(x: torch.Tensor) -> torch.Tensor:
                          f"tensors (CPU tensors take the plain version)")
     if x.dtype != torch.float32:
         raise TypeError(f"split_bf16x3 takes float32, got {x.dtype}")
-    if x.numel() % 8:
-        raise ValueError(f"split_bf16x3 takes a multiple of 8 values, got "
-                         f"{x.numel()}")
-    check_operands(x)
+    if x.is_contiguous():
+        # a flat run: rows of 8 values, back to back
+        rows, cols, stride = x.numel() // 8, 8, 8
+        ok = x.numel() % 8 == 0
+        check_operands(x)
+    else:
+        stride, cols = _row_stride(x), x.shape[-1]
+        rows = x.numel() // max(cols, 1)
+        ok = stride is not None and cols % 8 == 0 and stride % 4 == 0 \
+            and x.data_ptr() % 16 == 0
+    if not ok:
+        raise ValueError(
+            f"split_bf16x3 takes a contiguous tensor of a multiple of 8 "
+            f"values or rows of a multiple of 8 values 16-B aligned, got "
+            f"shape {tuple(x.shape)} strides {x.stride()}")
     out = torch.empty((3, *x.shape), dtype=torch.bfloat16, device=x.device)
     lib = build.load(F32_SOURCE)
     fn = lib.reve_split_bf16x3
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), out.data_ptr(), x.numel(),
+    err = fn(x.data_ptr(), out.data_ptr(), rows, cols, stride,
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "split_bf16x3")
     LAUNCHES["split_bf16x3"] += 1

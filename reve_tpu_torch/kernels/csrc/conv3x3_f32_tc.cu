@@ -10,7 +10,10 @@
 //       _epilogue(quantize_u8=True) (srvgg.py:239-262) and
 //       reve_tpu/ops/pixel_shuffle.py:14-22: + b in float32 (no cast: the
 //       compute dtype is float32), + repeat(u8 / 255, r^2) in float32,
-//       u8(clip(y * 255 + 0.5, 0, 255)), stored in pixel-shuffle order.
+//       u8(clip(y * 255 + 0.5, 0, 255)), stored in pixel-shuffle order;
+//       at r = 1 with no residual, RRDBNet's conv_last (64 -> 3,
+//       reve_tpu/models/rrdb.py:232-233) with the engine's u8 rounding
+//       (reve_tpu/pipeline/engine.py:428-429).
 // The int8 path's float32 calibration and certification passes run both.
 //
 // Scheme.  Each float32 value splits into three bf16 parts, hi = bf16(x),
@@ -37,7 +40,8 @@
 // Design.
 //  * split_bf16x3: an elementwise pass, float32 NHWC -> three bf16 NHWC
 //    planes (3, B, H, W, 64), 8 values a thread (two 16-B loads, three
-//    16-B stores).  4 B in and 6 B out per value: 5.3 GB per call, 1.6 ms
+//    16-B stores), over a contiguous tensor or a channel slice of wider
+//    pixels (K7's float32 input, rrdb.cu).  4 B in and 6 B out per value: 5.3 GB per call, 1.6 ms
 //    at the card's bandwidth.  The wrappers launch it, then the conv.
 //  * The conv is conv3x3_tc.cu's implicit GEMM (M = 64 pixels of a row,
 //    N = 64 for K1, 3r^2 padded to a multiple of 8 for K2: 16, 32, 48;
@@ -77,7 +81,8 @@ constexpr int STAGES = 3;  // weight ring
 using Grid = TileGrid<TH, TW>;
 
 // R = 0: K1 (bias + PReLU, float32 out); R = 2, 3, 4: K2 (u8 residual +
-// pixel shuffle at scale R).
+// pixel shuffle at scale R); R = 1: K2's conv_last mode (no residual: the
+// epilogue adds a zero base, which leaves every value as it is).
 template <int R>
 struct F32 {
   using Epi = HeadEpilogue<R>;  // K2's; unused by K1
@@ -204,7 +209,7 @@ conv3x3_f32_tc_kernel(const __grid_constant__ CUtensorMap map,
     // K2 reads the row's u8 input pixels before the wgmmas; the loads
     // land while the tensor cores work
     uint8_t o0 = 0, o1 = 0;
-    if constexpr (R > 0)
+    if constexpr (R > 1)
       Epi::load_orig(orig, b, oy, x0, H, W, valid, t, o0, o1);
     mbar_wait(halo_full, (uint32_t)(it & 1));
     float acc[N / 2], cor[N / 2];
@@ -294,13 +299,26 @@ __device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// n8 groups of 8 float32 values -> three planes of n8 groups of 8 bf16.
+// The split of `rows` rows of `cols` float32 values, `stride` values
+// apart, into planes hi, mid, lo of rows x cols bf16 each; 8 values a
+// thread.  stride == cols: a contiguous run (float32 K1's and K2's
+// input), read without the row arithmetic; else a channel slice of NHWC
+// pixels (K7's input in float32).
 __global__ void __launch_bounds__(256)
-split_bf16x3_kernel(const float4* __restrict__ x, uint4* __restrict__ out,
-                    long long n8) {
+split_bf16x3_kernel(const float* __restrict__ x, uint4* __restrict__ out,
+                    long long rows, int cols, int stride) {
+  const int g8 = cols / 8;
+  const long long n8 = rows * g8;
+  const bool flat = stride == cols;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n8;
        i += (long long)gridDim.x * blockDim.x) {
-    const float4 a = x[2 * i], c = x[2 * i + 1];
+    long long at = i * 8;
+    if (!flat) {
+      const long long r = i / g8;
+      at = r * stride + (i - r * g8) * 8;
+    }
+    const float4* src = reinterpret_cast<const float4*>(x + at);
+    const float4 a = src[0], c = src[1];
     uint4 h, m, l;
     split2(a.x, a.y, h.x, m.x, l.x);
     split2(a.z, a.w, h.y, m.y, l.y);
@@ -310,6 +328,19 @@ split_bf16x3_kernel(const float4* __restrict__ x, uint4* __restrict__ out,
     out[n8 + i] = m;
     out[2 * n8 + i] = l;
   }
+}
+
+// A grid-stride launch of 256-thread blocks over n8 groups of 8 values:
+// at most 8 blocks an SM.
+cudaError_t split_grid(long long n8, int* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (n8 + 255) / 256;
+  *grid = (int)(blocks < 8LL * sms ? blocks : 8LL * sms);
+  return cudaSuccess;
 }
 
 template <int R>
@@ -335,23 +366,23 @@ cudaError_t launch(const void* planes, const void* wp, const float* b,
 
 }  // namespace
 
-// The split pass: `n` float32 values (a multiple of 8, 16-B aligned) ->
-// planes hi, mid, lo of n bf16 values each, one after the other in `out`.
-// Returns a cudaError_t (0 = success).
-extern "C" int reve_split_bf16x3(const void* x, void* out, long long n,
-                                 void* stream) {
-  if (n % 8) return (int)cudaErrorInvalidValue;
-  const long long n8 = n / 8;
+// The split pass over `rows` rows of `cols` float32 values (a multiple of
+// 8) whose starts lie `stride` values apart (a multiple of 4; `x` 16-B
+// aligned; stride == cols for a contiguous tensor) -> planes hi, mid, lo
+// of rows x cols bf16 each, one after the other in `out`.  Returns a
+// cudaError_t (0 = success).
+extern "C" int reve_split_bf16x3(const void* x, void* out, long long rows,
+                                 int cols, int stride, void* stream) {
+  if (cols % 8 || stride % 4 || stride < cols)
+    return (int)cudaErrorInvalidValue;
+  const long long n8 = rows * (cols / 8);
   if (n8 == 0) return (int)cudaSuccess;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int grid = 0;
+  const cudaError_t err = split_grid(n8, &grid);
   if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (n8 + 255) / 256;
-  const int grid = (int)(blocks < 8LL * sms ? blocks : 8LL * sms);
   split_bf16x3_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(x), static_cast<uint4*>(out), n8);
+      static_cast<const float*>(x), static_cast<uint4*>(out), rows, cols,
+      stride);
   return (int)cudaGetLastError();
 }
 
@@ -383,4 +414,14 @@ extern "C" int reve_head_conv_residual_u8_shuffle_f32tc(
                                   s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// K2's conv_last mode in float32 on the split planes of its input, the
+// weights packed as K2's with n padded to 8: the 64 -> 3 conv + b in
+// float32 to u8 with no residual, (B, H, W, 3).  Returns a cudaError_t.
+extern "C" int reve_conv_last_u8_f32tc(const void* planes, const void* wp,
+                                       const float* b, uint8_t* out, int B,
+                                       int H, int W, void* stream) {
+  return (int)launch<1>(planes, wp, b, nullptr, nullptr, out, B, H, W,
+                        static_cast<cudaStream_t>(stream));
 }

@@ -8,7 +8,11 @@
 //       16 hidden 64->64 layers of apply (srvgg.py:205-210);
 //   K2  the head _conv3x3 (srvgg.py:211-212) with _epilogue(quantize_u8=True)
 //       (srvgg.py:239-262) and reve_tpu/ops/pixel_shuffle.py:14-22, also
-//       reached from apply_int8(int8_head=False) (srvgg.py:204-205).
+//       reached from apply_int8(int8_head=False) (srvgg.py:204-205);
+//       at r = 1 with no residual, RRDBNet's conv_last (64 -> 3,
+//       reve_tpu/models/rrdb.py:232-233) with the engine's u8 rounding
+//       (reve_tpu/pipeline/engine.py:428-429): u8(clip(float32(bf16(acc +
+//       b)) * 255 + 0.5, 0, 255)), the residual epilogue on a zero base.
 // Both were one XLA-fused conv graph on the TPU.  What they compute, and
 // where they round, is that of the plain versions (kernels/conv3x3.py,
 // kernels/head.py) and of common.cuh.
@@ -72,7 +76,8 @@ constexpr int HALO_BYTES = (HALO_TX + 1023) / 1024 * 1024;  // 1024-B aligned
 using Grid = TileGrid<TH, TW>;
 
 // R = 0: K1 (bias + PReLU, bf16 out); R = 2, 3, 4: K2 (u8 residual +
-// pixel shuffle at scale R).
+// pixel shuffle at scale R); R = 1: K2's conv_last mode (no residual: the
+// epilogue adds a zero base, which leaves every value as it is).
 template <int R>
 struct Tc {
   using Epi = HeadEpilogue<R>;  // K2's; unused by K1
@@ -196,7 +201,7 @@ conv3x3_tc_kernel(const __grid_constant__ CUtensorMap map,
     // tensor cores work
     const int valid = min(TW, W - x0);  // pixels of this row in the frame
     uint8_t o0 = 0, o1 = 0;
-    if constexpr (R > 0)
+    if constexpr (R > 1)
       Epi::load_orig(orig, b, oy, x0, H, W, valid, t, o0, o1);
     wait_mma<N>(acc);
 
@@ -292,4 +297,13 @@ extern "C" int reve_head_conv_residual_u8_shuffle_tc(
     case 4: return (int)launch<4>(x, w, b, nullptr, orig, out, B, H, W, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// K2's conv_last mode in bfloat16 (float32 is conv3x3_f32_tc.cu's): the
+// 64 -> 3 conv + b, cast to bf16, to u8 with no residual, (B, H, W, 3).
+extern "C" int reve_conv_last_u8_tc(const void* x, const void* w,
+                                    const float* b, uint8_t* out, int B,
+                                    int H, int W, void* stream) {
+  return (int)launch<1>(x, w, b, nullptr, nullptr, out, B, H, W,
+                        static_cast<cudaStream_t>(stream));
 }

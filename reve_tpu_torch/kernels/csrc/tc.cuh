@@ -3,7 +3,7 @@
 // and instructions, the heads' u8 epilogue and the persistent walk over
 // output tiles.  Used by conv3x3_tc.cu (bfloat16 K1, K2),
 // conv3x3_f32_tc.cu (float32 K1, K2), conv3x3_s8.cu (K4, K4h),
-// conv3x3.cu (K3, K4a) and dot_probe.cu (P1).
+// conv3x3.cu (K3, K4a), rrdb.cu (K7) and dot_probe.cu (P1).
 //
 // Every 64-channel conv here is an implicit GEMM over a halo tile in
 // shared memory: one halo pixel is one row of the K-major A operand (64
@@ -184,6 +184,18 @@ __device__ __forceinline__ void fence_regs(T (&acc)[N]) {
 // registers a thread.
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  __device__ static void mma(float (&d)[4], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
 
 template <>
 struct Wgmma<16> {
@@ -477,17 +489,20 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// The tensor map of a (B, H, W, 64) NHWC tensor of `elem`-byte values for
-// boxes of (bc channels, bw, bh, 1 image), in `swizzle`: halo boxes for
-// loads (zeros outside the tensor), output boxes for stores (clipped at
-// its edge).  Encoded per call (the pointer changes) through
-// cuTensorMapEncodeTiled from cudaGetDriverEntryPoint, so the library
-// needs no libcuda at link time; passed to the kernel as a
-// __grid_constant__.
+// The tensor map of a (B, H, W, `channels`) NHWC view of `elem`-byte
+// values whose pixels lie `pixel` values apart (0: `channels`, a
+// contiguous tensor), for boxes of (bc channels, bw, bh, 1 image), in
+// `swizzle`: halo boxes for loads (zeros outside the view), output boxes
+// for stores (clipped at its edge).  The defaults, 64 contiguous
+// channels, are every SRVGG kernel's map; K7 (rrdb.cu) reads the first
+// Cin channels of 192-channel pixels.  Encoded per call (the pointer
+// changes) through cuTensorMapEncodeTiled from cudaGetDriverEntryPoint,
+// so the library needs no libcuda at link time; passed to the kernel as
+// a __grid_constant__.
 inline cudaError_t halo_map(CUtensorMap* map, CUtensorMapDataType type,
                             int elem, const void* x, int B, int H, int W,
                             int bw, int bh, CUtensorMapSwizzle swizzle,
-                            int bc = 64) {
+                            int bc = 64, int channels = 64, int pixel = 0) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -498,9 +513,10 @@ inline cudaError_t halo_map(CUtensorMap* map, CUtensorMapDataType type,
     if (found != cudaDriverEntryPointSuccess) return cudaErrorSymbolNotFound;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  const cuuint64_t px = 64 * (cuuint64_t)elem;  // bytes of one pixel
-  const cuuint64_t dims[4] = {64, (cuuint64_t)W, (cuuint64_t)H,
-                              (cuuint64_t)B};
+  // bytes of one pixel
+  const cuuint64_t px = (cuuint64_t)(pixel ? pixel : channels) * elem;
+  const cuuint64_t dims[4] = {(cuuint64_t)channels, (cuuint64_t)W,
+                              (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {px, (cuuint64_t)W * px,
                                  (cuuint64_t)H * W * px};
   const cuuint32_t box[4] = {(cuuint32_t)bc, (cuuint32_t)bw, (cuuint32_t)bh,

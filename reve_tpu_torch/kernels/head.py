@@ -1,7 +1,8 @@
 """K2 `head_conv_residual_u8_shuffle` and K4h
-`head_conv_s8_residual_u8_shuffle`, the SRVGG heads, all on the tensor
-cores: bfloat16 K2 in csrc/conv3x3_tc.cu, float32 K2 in
-csrc/conv3x3_f32_tc.cu, K4h in csrc/conv3x3_s8.cu.
+`head_conv_s8_residual_u8_shuffle`, the SRVGG heads, and K2's
+`conv_last_u8` mode, RRDBNet's last conv, all on the tensor cores:
+bfloat16 K2 in csrc/conv3x3_tc.cu, float32 K2 in csrc/conv3x3_f32_tc.cu,
+K4h in csrc/conv3x3_s8.cu.
 
 Replaces the SRVGG head of reve_tpu/models/srvgg.py:apply: the last
 `_conv3x3` (srvgg.py:211) with `_epilogue(quantize_u8=True)`
@@ -17,6 +18,15 @@ shared epilogue (tc.cuh's HeadEpilogue): bfloat16 K2 on bf16 `wgmma`;
 float32 K2 as six bf16 products of its operands split in three
 (`split_bf16x3`, then the conv: float32 accuracy, never TF32), bound at
 6 x 458.6 GFLOP per call of 4 frames -> 2.78 ms; K4h on s8 `wgmma`.
+
+The conv_last mode is K2's kernel at r = 1 (N = 8) with no residual: the
+shared epilogue adds a zero base, which leaves each value as it is, so it
+computes reve_tpu rrdb.apply's conv_last (rrdb.py:232-234) with the
+engine's u8 rounding (engine.py:428-429): u8(clip(float32(dtype(conv +
+b)) * 255 + 0.5, 0, 255)).  Bound per call of 4 frames at 7680 x 4320 (the
+output of 4 1080p frames x4): 2 x 9 x 64 x 3 x 132.7 M = 458.6 GFLOP ->
+0.464 ms at the bf16 rate; 17.0 GB of bf16 in + 0.40 GB u8 out -> 5.19 ms
+(bytes).
 
 Rounding points follow the JAX reference: float32 accumulation + b in
 float32, cast to the compute dtype, + repeat(u8 / 255, r^2) in float32,
@@ -62,6 +72,14 @@ def residual_u8_plain(h: torch.Tensor, u8: torch.Tensor,
 
 def head_conv_residual_u8_shuffle_plain(h, w, b, u8, r: int) -> torch.Tensor:
     return residual_u8_plain(conv3x3_plain(h, w, b), u8, r)
+
+
+def conv_last_u8_plain(h, w, b) -> torch.Tensor:
+    """RRDBNet's conv_last with the engine's u8 rounding (reve_tpu
+    rrdb.apply :232-234 and engine.py:428-429): u8(clip(float32(dtype(conv
+    + b)) * 255 + 0.5, 0, 255)), truncated."""
+    y = conv3x3_plain(h, w, b).float()
+    return torch.clamp(y * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
 
 
 def head_conv_s8_residual_u8_shuffle_plain(x8, w8, scale, b, u8,
@@ -128,6 +146,46 @@ def head_conv_residual_u8_shuffle(h: torch.Tensor, w: torch.Tensor,
                 (split_bf16x3(h), pack_weights_bf16x3(w), bb), u8, out,
                 (r,), "head_conv_residual_u8_shuffle (float32)")
     LAUNCHES["head_conv_residual_u8_shuffle"] += 1
+    return out
+
+
+def conv_last_u8(h: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """K2's conv_last mode: (B, H, W, 64) x (3, 3, 64, 3) HWIO in the
+    compute dtype, + b, cast to it, then u8 with no residual -> (B, H, W,
+    3) uint8.  K2's kernel at r = 1 (its epilogue on a zero base); float32
+    launches two kernels: the split pass and the bf16x6 conv."""
+    if h.device.type == "cpu":
+        return conv_last_u8_plain(h, w, b)
+    if h.device.type != "cuda":
+        raise ValueError(f"tensor on {h.device}: the kernel takes CUDA "
+                         f"tensors (CPU tensors take the plain version)")
+    if w.dtype not in _DTYPES or h.dtype != w.dtype:
+        raise TypeError(f"conv_last dtypes {h.dtype}/{w.dtype}; expected "
+                        f"one of float32, bfloat16 for both")
+    if h.dim() != 4 or h.shape[3] != FEAT or tuple(w.shape) != (3, 3, FEAT,
+                                                                3):
+        raise ValueError(f"conv_last shapes {tuple(h.shape)} x "
+                         f"{tuple(w.shape)}; expected (B, H, W, {FEAT}) x "
+                         f"(3, 3, {FEAT}, 3)")
+    check_operands(h, w)
+    B, H, W, _ = h.shape
+    bb = f32_operand(b, 3, h.device, "bias")
+    out = torch.empty((B, H, W, 3), dtype=torch.uint8, device=h.device)
+    if w.dtype == torch.bfloat16:
+        source, entry, ins = TC_SOURCE, "reve_conv_last_u8_tc", (h, w, bb)
+    else:
+        source, entry = F32_SOURCE, "reve_conv_last_u8_f32tc"
+        ins = (split_bf16x3(h), pack_weights_bf16x3(w), bb)
+    lib = build.load(source)
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*(t.data_ptr() for t in ins), out.data_ptr(), B, H, W,
+             torch.cuda.current_stream(h.device).cuda_stream)
+    build.check(lib, err, entry)
+    LAUNCHES["conv_last_u8"] += 1
     return out
 
 

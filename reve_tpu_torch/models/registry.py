@@ -2,8 +2,9 @@
 
 Counterpart of reve_tpu/models/registry.py with the same names, search
 order, environment variables and MissingWeightsError gate.  SRVGG models
-with .pth weights are ported; RRDB models and ncnn .param/.bin weights
-raise NotImplementedError naming their ROADMAP.md port-queue item.
+and the x4 RRDB models with .pth weights are ported; `realesrgan-x2plus`
+(RRDB x2) and ncnn .param/.bin weights raise NotImplementedError naming
+their ROADMAP.md port-queue item.
 
 The reference selects models by name string: the CLI hardcodes
 `realesr-animevideov3-x2` with the real ratio in `-s`
@@ -107,6 +108,21 @@ _SPECS = {
 }
 
 
+def unported(arch: str, upscale: Optional[int],
+             dtype: Optional[str] = None):
+    """(what, ROADMAP.md port-queue item) when the port does not carry a
+    model of `arch` at `upscale` (None: every scale) in `dtype` (a
+    --dtype name; None: any), else None.  The one place the CLI, the API
+    and the engine read it from: RRDB at x2 (its pixel-unshuffled
+    12-channel input), and RRDB in int8 (rrdb.apply_int8)."""
+    if arch == "rrdb" and upscale != 4:
+        return f"rrdb x{upscale}", "RRDB x2"
+    if arch == "rrdb" and dtype == "int8":
+        return "int8 of the rrdb architecture (rrdb.apply_int8)", \
+            "RRDB int8"
+    return None
+
+
 def list_models():
     """[(name, spec)] for every registered model (CLI --list-models)."""
     return sorted(_SPECS.items())
@@ -172,8 +188,9 @@ def load_model(name: str, scale: Optional[int] = None,
                allow_random_init: Optional[bool] = None):
     """Resolve a model name (+ requested scale) to (cfg, params).
 
-    Returns (SRVGGConfig, params) for srvgg archs, params as float32 CPU
-    tensors.  RRDB archs are not ported yet (NotImplementedError).
+    Returns (SRVGGConfig, params) for srvgg archs and (RRDBConfig, params)
+    for the x4 rrdb archs, params as float32 CPU tensors.  RRDB x2 is not
+    ported yet (NotImplementedError).
 
     Raises MissingWeightsError when no weights resolve, unless random init
     is explicitly allowed (`allow_random_init=True` or
@@ -182,10 +199,11 @@ def load_model(name: str, scale: Optional[int] = None,
     """
     spec, name_scale = parse_model_name(name)
     scale = scale or name_scale or 2
-    if spec.arch != "srvgg":
+    refusal = unported(spec.arch, spec.upscale)
+    if refusal is not None:
         raise NotImplementedError(
-            f"model {name!r} ({spec.arch}) is not yet ported in "
-            f"reve_tpu_torch (ROADMAP.md port queue: RRDB, K7)")
+            f"model {name!r} ({refusal[0]}) is not yet ported in "
+            f"reve_tpu_torch (ROADMAP.md port queue: {refusal[1]})")
 
     stem = spec.canonical
     if spec.upscale is None:
@@ -200,6 +218,18 @@ def load_model(name: str, scale: Optional[int] = None,
             found = ("pth", weights)
     else:
         found = _find_weight_files(stem) or _find_weight_files(spec.canonical)
+
+    if spec.arch == "rrdb":
+        if found is not None and found[0] == "ncnn":
+            raise NotImplementedError(
+                f"ncnn weights ({found[1]}) are not yet ported in "
+                f"reve_tpu_torch (ROADMAP.md port queue: ncnn/dni "
+                f"weights); pass a .pth")
+        from reve_tpu_torch.models import rrdb
+
+        return rrdb.load_model(spec, scale,
+                               None if found is None else found[1],
+                               allow_random_init=allow_random_init)
 
     if found is None:
         if not random_init_allowed(allow_random_init):

@@ -1,0 +1,299 @@
+"""RRDBNet — the full-size Real-ESRGAN generator (x4plus, x4plus-anime-6B,
+RealESRNet), in PyTorch.
+
+Counterpart of reve_tpu/models/rrdb.py.  Architecture (upstream
+Real-ESRGAN `RRDBNet`):
+
+    conv_first -> nb x RRDB -> conv_body (+ residual)
+    -> [nearest x2 + conv_up1 + lrelu] x2 -> conv_hr + lrelu -> conv_last
+
+    RDB  (dense block): 5 convs with dense concats, growth gc, out*0.2 + x
+    RRDB: 3 RDBs chained, out*0.2 + x
+
+Layouts match reve_tpu: NHWC activations, HWIO weights, uint8 frames at
+the public boundary.  Only the classic domain at x4 is carried: reve_tpu's
+2D space-to-depth form is an MXU-width trick and exact, so the port is
+held against both of its modes; x2 (a pixel-unshuffled 12-channel input)
+is not ported (ROADMAP.md port queue: RRDB x2).
+
+`apply` runs u8 -> u8 through the kernels of the path: K3 for conv_first
+(its PReLU at alpha 1 is the identity), K7 for every dense-block conv and
+conv_body with the step after it (one NHWC buffer of nf + 4 gc channels a
+pixel holds a dense block's concat, three of them rotate through an
+RRDB), K1 for conv_up1, conv_up2 and conv_hr with the leaky ReLU (PReLU
+at alpha 0.2), and K2's conv_last mode for conv_last with the engine's u8
+rounding.  The nearest x2 before each up conv is a torch op
+(ops/resize.py).  On CPU tensors each wrapper runs its plain version, and
+`plain=True` runs the plain versions on any device (the reference path).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from reve_tpu_torch.kernels import conv3x3, head
+from reve_tpu_torch.kernels import rrdb as dense
+from reve_tpu_torch.ops.resize import upsample_nearest
+
+log = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass(frozen=True)
+class RRDBConfig:
+    num_in_ch: int = 3
+    num_out_ch: int = 3
+    num_feat: int = 64
+    num_block: int = 23
+    num_grow_ch: int = 32
+    upscale: int = 4   # output scale; x2/x1 pixel-unshuffle the input
+
+    @property
+    def dense_channels(self) -> int:
+        """Channels of one dense block's concat: nf + 4 gc."""
+        return self.num_feat + 4 * self.num_grow_ch
+
+
+Params = Dict[str, Any]
+#: the head convs, classic domain, in order
+HEAD = ("conv_up1", "conv_up2", "conv_hr", "conv_last")
+
+
+def _conv_init(gen, cin, cout, dtype, scale=1.0):
+    bound = scale / math.sqrt(cin * 9)
+    w = (torch.rand((3, 3, cin, cout), generator=gen, dtype=dtype) * 2
+         - 1) * bound
+    return {"w": w, "b": torch.zeros((cout,), dtype=dtype)}
+
+
+def init_params(cfg: RRDBConfig, generator: Optional[torch.Generator] = None,
+                dtype=torch.float32) -> Params:
+    """Deterministic init with reve_tpu's scales (rrdb.py:48-83): weights
+    uniform(+-scale / sqrt(9 cin)), scale 0.1 in the dense blocks and 1
+    elsewhere, zero biases; from an explicit torch.Generator (seed 0 when
+    none is given).  Not bit-equal to reve_tpu's jax.random init: tests
+    carry weights across with params_from_jax instead."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    nf, gc = cfg.num_feat, cfg.num_grow_ch
+    cin = cfg.num_in_ch * (4 if cfg.upscale == 2 else
+                           16 if cfg.upscale == 1 else 1)
+
+    def rdb():
+        return {"convs": [_conv_init(generator, nf + i * gc,
+                                     gc if i < 4 else nf, dtype, scale=0.1)
+                          for i in range(5)]}
+
+    params = {"conv_first": _conv_init(generator, cin, nf, dtype)}
+    params["body"] = [{"rdbs": [rdb() for _ in range(3)]}
+                      for _ in range(cfg.num_block)]
+    params["conv_body"] = _conv_init(generator, nf, nf, dtype)
+    for name in HEAD[:-1]:
+        params[name] = _conv_init(generator, nf, nf, dtype)
+    params["conv_last"] = _conv_init(generator, nf, cfg.num_out_ch, dtype)
+    return params
+
+
+def _map_convs(params: Params, fn) -> Params:
+    """params with fn(conv) in place of every conv dict."""
+    out = {name: fn(params[name]) for name in
+           ("conv_first", "conv_body") + HEAD}
+    out["body"] = [{"rdbs": [{"convs": [fn(c) for c in rdb["convs"]]}
+                             for rdb in block["rdbs"]]}
+                   for block in params["body"]]
+    return out
+
+
+def params_from_jax(tree) -> Params:
+    """reve_tpu's classic-domain params pytree (HWIO `w`, `b`; numpy or
+    jax arrays) -> the port's layout, float32 torch tensors."""
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+    return _map_convs(tree, lambda c: {"w": t(c["w"]), "b": t(c["b"])})
+
+
+def params_to(params: Params, device) -> Params:
+    return _map_convs(params, lambda c: {k: v.to(device)
+                                         for k, v in c.items()})
+
+
+def prepare(params: Params, compute_dtype: torch.dtype) -> Params:
+    """params with every weight cast to the compute dtype once and, on a
+    CUDA device, every K7 conv's weights packed once (`packed`, what
+    kernels.rrdb.dense_conv streams): `apply` takes either form, and the
+    engine keeps this one.  Biases stay float32."""
+
+    def cast(c):
+        return {"w": c["w"].to(compute_dtype).contiguous(),
+                "b": c["b"].float()}
+
+    out = _map_convs(params, cast)
+    if out["conv_body"]["w"].device.type == "cuda":
+        def pack(c):
+            return dict(c, packed=dense.pack_weights_dense(c["w"]))
+
+        out["body"] = [{"rdbs": [{"convs": [pack(c) for c in rdb["convs"]]}
+                                 for rdb in block["rdbs"]]}
+                       for block in out["body"]]
+        out["conv_body"] = pack(out["conv_body"])
+    return out
+
+
+def _check_cfg(cfg: RRDBConfig) -> None:
+    if cfg.upscale != 4:
+        raise NotImplementedError(
+            f"RRDB x{cfg.upscale} (a pixel-unshuffled input) is not yet "
+            f"ported in reve_tpu_torch (ROADMAP.md port queue: RRDB x2)")
+    if (cfg.num_in_ch, cfg.num_out_ch) != (3, 3):
+        raise ValueError(f"RRDB takes and returns RGB frames, got "
+                         f"{cfg.num_in_ch} -> {cfg.num_out_ch} channels")
+
+
+def apply(params: Params, u8: torch.Tensor, *, cfg: RRDBConfig,
+          compute_dtype: torch.dtype = torch.float32,
+          plain: bool = False) -> torch.Tensor:
+    """Forward pass, u8 -> u8: (B, H, W, 3) uint8 -> (B, 4H, 4W, 3) uint8.
+
+    Equals the JAX engine's RRDB call (reve_tpu/pipeline/engine.py:426-429):
+    `rrdb.apply(u8 / 255, s2d=...)`, then u8 = clip(y * 255 + 0.5, 0, 255)
+    truncated.  Weights in the compute dtype, float32 accumulation, each
+    conv + bias in float32 then cast (_raw_conv); the leaky ReLU, the
+    dense blocks' `* 0.2 + x` and conv_body's `feat +` in the compute
+    dtype; the last conv's output widened to float32 for the u8 rounding.
+
+    `params`: float32 params, or `prepare(params, compute_dtype)` (weights
+    cast and K7's packed once).  `plain=True` runs the plain PyTorch
+    version of every kernel (the reference path) wherever the tensors
+    are."""
+    if u8.dtype != torch.uint8:
+        raise TypeError(f"apply takes uint8 frames, got {u8.dtype}")
+    _check_cfg(cfg)
+    if len(params["body"]) != cfg.num_block:
+        raise ValueError(f"params hold {len(params['body'])} RRDB blocks; "
+                         f"cfg needs {cfg.num_block}")
+    dt = compute_dtype
+    nf, gc, cs = cfg.num_feat, cfg.num_grow_ch, cfg.dense_channels
+    if plain:
+        first = conv3x3.conv3x3_u8_bias_prelu_plain
+        up_conv = conv3x3.conv3x3_bias_prelu_plain
+        last = head.conv_last_u8_plain
+    else:
+        first = conv3x3.conv3x3_u8_bias_prelu
+        up_conv = conv3x3.conv3x3_bias_prelu
+        last = head.conv_last_u8
+
+    def conv(src, cin, p, dst, off, epi, res=None, res2=None):
+        w = p["w"].to(dt)
+        if plain:
+            dense.dense_conv_plain(src, cin, w, p["b"], dst, off, epi, res,
+                                   res2)
+        else:
+            dense.dense_conv(src, cin, w, p["b"], dst, off, epi, res, res2,
+                             packed=p.get("packed"))
+
+    dev = u8.device
+    cf = params["conv_first"]
+    # conv_first has no activation: K3's PReLU at alpha 1 is the identity
+    feat = first(u8, cf["w"].to(dt), cf["b"], torch.ones(nf, device=dev))
+    B, H, W, _ = u8.shape
+    # a: the RRDB's input and, written in place by the third dense
+    # block's last conv, its output; b, c: the first two blocks' outputs
+    a, b, c = (torch.empty((B, H, W, cs), dtype=dt, device=dev)
+               for _ in range(3))
+    a[..., :nf].copy_(feat)
+    for block in params["body"]:
+        for (src, dst), rdb, epi in zip(((a, b), (b, c), (c, a)),
+                                        block["rdbs"], ("rdb", "rdb",
+                                                        "rrdb")):
+            convs = rdb["convs"]
+            for i in range(4):
+                # growth slice i right after the channels conv i reads
+                conv(src, nf + i * gc, convs[i], src, nf + i * gc, "lrelu")
+            conv(src, cs, convs[4], dst, 0, epi, res=src,
+                 res2=a if epi == "rrdb" else None)
+    # feat + conv_body(body), written over feat
+    conv(a, nf, params["conv_body"], feat, 0, "add", res=feat)
+    # the trunk's buffers go before the head allocates at 2x and 4x
+    del a, b, c, src, dst
+    slope = torch.full((nf,), dense.SLOPE, device=dev)
+    for name in ("conv_up1", "conv_up2"):
+        p = params[name]
+        x = upsample_nearest(feat, 2)
+        del feat
+        feat = up_conv(x, p["w"].to(dt), p["b"], slope)
+        del x
+    p = params["conv_hr"]
+    x = up_conv(feat, p["w"].to(dt), p["b"], slope)
+    del feat
+    p = params["conv_last"]
+    return last(x, p["w"].to(dt), p["b"])
+
+
+# -- weight loading ----------------------------------------------------------
+
+
+def load_pth(path: str):
+    """RealESRGAN RRDBNet .pth -> (RRDBConfig, params), params as float32
+    CPU tensors.  Upstream key layout (reve_tpu rrdb.load_pth): conv_first,
+    body.<i>.rdb<j>.conv<k>, conv_body, conv_up1/2, conv_hr, conv_last
+    (weights OIHW, stored HWIO)."""
+    from reve_tpu_torch.weights.torch_loader import _state_dict
+
+    sd = _state_dict(path)
+
+    def conv(name):
+        w = sd[f"{name}.weight"]
+        b = sd.get(f"{name}.bias", torch.zeros((w.shape[0],)))
+        return {"w": w.permute(2, 3, 1, 0).contiguous(), "b": b.contiguous()}
+
+    num_block = 1 + max(
+        int(k.split(".")[1]) for k in sd if k.startswith("body."))
+    first_w = sd["conv_first.weight"]
+    nf, cin = int(first_w.shape[0]), int(first_w.shape[1])
+    gc = int(sd["body.0.rdb1.conv1.weight"].shape[0])
+    upscale = {3: 4, 12: 2, 48: 1}.get(cin, 4)
+    cfg = RRDBConfig(num_in_ch=3,
+                     num_out_ch=int(sd["conv_last.weight"].shape[0]),
+                     num_feat=nf, num_block=num_block, num_grow_ch=gc,
+                     upscale=upscale)
+    params = {"conv_first": conv("conv_first")}
+    params["body"] = [
+        {"rdbs": [{"convs": [conv(f"body.{i}.rdb{j + 1}.conv{k + 1}")
+                             for k in range(5)]} for j in range(3)]}
+        for i in range(num_block)]
+    for name in ("conv_body",) + HEAD:
+        params[name] = conv(name)
+    return cfg, params
+
+
+def load_model(spec, scale: int, path: Optional[str] = None,
+               allow_random_init=None):
+    """Registry hook (models.registry.load_model for the rrdb arch), with
+    reve_tpu rrdb.load_model's missing-weights contract: the .pth at
+    `path` (an explicit --weights, or found on the search path by the
+    registry) must load at `scale`; with no weights, MissingWeightsError
+    unless random init is explicitly allowed (then init_params, seed
+    0)."""
+    from reve_tpu_torch.models import registry
+
+    if path:
+        cfg, params = load_pth(path)
+        if cfg.upscale != scale:
+            raise ValueError(f"weights {path!r} are x{cfg.upscale}, "
+                             f"requested x{scale}")
+        return cfg, params
+    if not registry.random_init_allowed(allow_random_init):
+        raise registry.MissingWeightsError(registry.missing_weights_message(
+            spec.canonical, scale, spec.canonical))
+    log.warning("no weights for %s; using deterministic random init",
+                spec.canonical)
+    cfg = RRDBConfig(num_feat=spec.num_feat, num_block=spec.num_conv,
+                     upscale=scale)
+    return cfg, init_params(cfg)

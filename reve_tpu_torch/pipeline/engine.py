@@ -27,8 +27,16 @@ Counterpart of reve_tpu/pipeline/engine.py.  Design:
     and a 16-bit accumulate), and the 8th K6 writes the u8 mean that the
     one D2H copy reads (`TTAPendingBatch`).
 
+  * Two architectures: SRVGG (K3, K1, K2) and RRDBNet at x4 (K3, K7 for
+    the dense-block trunk, K1 for the up and hr convs, K2's conv_last
+    mode), each behind `_forward`, so tiling and TTA reach both the same
+    way.  RRDB's halo is reve_tpu's documented approximation (24 px; its
+    receptive field is far wider, so its tiles are not byte-identical to
+    whole frames), and its memory plan bills its own allocations
+    (`_rrdb_bytes`).
+
 Not ported yet (raises NotImplementedError naming its ROADMAP.md
-port-queue item): multi-device meshes.
+port-queue item): multi-device meshes, RRDB int8, RRDB x2.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ import torch
 
 from reve_tpu_torch import device as device_mod
 from reve_tpu_torch.kernels import tta as tta_mod
-from reve_tpu_torch.models import registry, srvgg
+from reve_tpu_torch.models import registry, rrdb, srvgg
 from reve_tpu_torch.ops import tiling
 
 
@@ -57,6 +65,12 @@ _PLAN_INFLIGHT_SETS = 2
 #: live hidden-activation buffers of one model call: a hidden layer's
 #: input and output (K1 writes a fresh tensor; the input is freed after)
 _ACT_BUFFERS = 2
+#: bytes a float32 conv adds per value of its input: the three bf16
+#: planes of the split pass (float32 K1, K2 and K7)
+_SPLIT_BYTES = 6
+#: RRDB's tile halo: reve_tpu's documented approximation (24 px of
+#: context; the true receptive field spans hundreds of pixels)
+RRDB_HALO = 24
 
 
 def parse_int8_calib(int8_calib: str):
@@ -176,7 +190,8 @@ class UpscaleEngine:
         """`device`: None -> cuda:0 (raises without CUDA); "cpu" runs
         every kernel's plain PyTorch version (tests).  `preloaded`:
         (cfg, params) to use instead of resolving `model`/`weights`
-        (params as float32 tensors, e.g. from srvgg.params_from_jax).
+        (params as float32 tensors, e.g. from srvgg.params_from_jax or
+        rrdb.params_from_jax).
 
         `allow_random_init`: permit the deterministic random-init
         fallback when no weights resolve.  None defers to
@@ -214,11 +229,20 @@ class UpscaleEngine:
         else:
             cfg, params = registry.load_model(
                 model, scale, weights, allow_random_init=allow_random_init)
-        if not isinstance(cfg, srvgg.SRVGGConfig):
-            raise _not_ported(f"architecture {type(cfg).__name__}",
-                              "RRDB, K7")
+        self._rrdb = isinstance(cfg, rrdb.RRDBConfig)
+        if not self._rrdb and not isinstance(cfg, srvgg.SRVGGConfig):
+            raise TypeError(f"unknown model config {type(cfg).__name__}")
+        refusal = registry.unported("rrdb" if self._rrdb else "srvgg",
+                                    cfg.upscale, compute_dtype)
+        if refusal is not None:
+            raise _not_ported(*refusal)
         self.cfg = cfg
-        self.params = srvgg.params_to(params, self.device)
+        if self._rrdb:
+            # weights cast, and K7's packed, once for every batch
+            self.params = rrdb.prepare(rrdb.params_to(params, self.device),
+                                       self.compute_dtype)
+        else:
+            self.params = srvgg.params_to(params, self.device)
         self.scale = cfg.upscale
         self.batch_size = batch_size
         #: 0 = tile only frames past the memory plan, -1 = never tile,
@@ -248,18 +272,46 @@ class UpscaleEngine:
         hidden activations plus the frame's u8 input and output.  The
         kernels keep everything else on chip: K2 and K4h write u8 straight
         from the head conv, with no float32 epilogue tensor, and an int8
-        engine's activations are s8 (1 byte) from K4a on."""
-        bpe = 1 if self._int8 else self._bpe()
-        act = h * w * self.cfg.num_feat * bpe * _ACT_BUFFERS
+        engine's activations are s8 (1 byte) from K4a on.  RRDB bills its
+        own allocations (_rrdb_bytes)."""
+        if self._rrdb:
+            act = self._rrdb_bytes(h, w)
+        else:
+            bpe = 1 if self._int8 else self._bpe()
+            act = h * w * self.cfg.num_feat * bpe * _ACT_BUFFERS
         return act + self._in_bytes(h, w) + self._out_bytes(h, w)
 
+    def _rrdb_bytes(self, h: int, w: int) -> int:
+        """Peak device bytes of one frame's activations in rrdb.apply, the
+        largest of its phases (float32 adds each conv input's split
+        planes):
+          trunk   feat + three dense buffers of nf + 4 gc channels (+ the
+                  split of a conv's up-to nf + 4 gc input channels);
+          up1     at 2x: the upsampled input and conv_up1's output (+ its
+                  split);
+          up2/hr  at 4x: a conv's input and output (+ its split), which
+                  peaks: 4096 B per input pixel in bfloat16, 14,336 in
+                  float32.
+        Each phase frees the last one's tensors before it allocates."""
+        bpe = self._bpe()
+        split = _SPLIT_BYTES if self.compute_dtype == torch.float32 else 0
+        nf, cs = self.cfg.num_feat, self.cfg.dense_channels
+        trunk = (3 * cs + nf) * bpe + cs * split
+        per_px = max(trunk, *(r * r * (2 * nf * bpe + nf * split)
+                              for r in (2, 4)))
+        return h * w * per_px
+
     def _free_bytes(self) -> int:
+        """Device bytes the plan may spend: cudaMemGetInfo's free memory and
+        the segments this process's caching allocator holds with nothing
+        in them (it releases those before it fails an allocation).  The
+        unused parts of segments that a live tensor still holds do not
+        count: a tensor larger than such a part cannot use it."""
         free, _total = torch.cuda.mem_get_info(self.device)
-        # memory this process's caching allocator holds but does not use
-        # is free to the plan too
         stats = torch.cuda.memory_stats(self.device)
         cached = (stats.get("reserved_bytes.all.current", 0)
-                  - stats.get("allocated_bytes.all.current", 0))
+                  - stats.get("allocated_bytes.all.current", 0)
+                  - stats.get("inactive_split_bytes.all.current", 0))
         return free + max(cached, 0)
 
     def _io_batch_bytes(self, h: int, w: int) -> int:
@@ -377,7 +429,10 @@ class UpscaleEngine:
 
     @property
     def halo(self) -> int:
-        """Exact receptive-field radius: 1 px per 3x3 conv."""
+        """Tile halo radius.  SRVGG: the exact receptive-field radius, 1 px
+        per 3x3 conv.  RRDB: RRDB_HALO, reve_tpu's approximation."""
+        if self._rrdb:
+            return RRDB_HALO
         return self.cfg.num_conv + 2
 
     # -- public API --------------------------------------------------------
@@ -395,6 +450,9 @@ class UpscaleEngine:
 
     def _forward(self, u8: torch.Tensor) -> torch.Tensor:
         self.stats.calls += 1
+        if self._rrdb:
+            return rrdb.apply(self.params, u8, cfg=self.cfg,
+                              compute_dtype=self.compute_dtype)
         if self._int8:
             return srvgg.apply_int8(self.params, self._qbody, u8,
                                     cfg=self.cfg,
@@ -589,7 +647,8 @@ class UpscaleEngine:
     def _pieces(self, x: torch.Tensor):
         """Run the model over the device batch x (B, H, W, 3) u8 in the
         plan's calls; yields (lo, hi, y): y is the u8 output of frames
-        lo:hi.  Whole frames: one piece per chunk.  Tiles: one piece, the
+        lo:hi, which the caller drops before it asks for the next piece.
+        Whole frames: one piece per chunk.  Tiles: one piece, the
         windows' cores assembled on the device."""
         b, h, w, _ = x.shape
         plan = self._plan_execution(h, w)
@@ -601,6 +660,15 @@ class UpscaleEngine:
         for i in range(0, b, plan.per_call):
             yield i, min(i + plan.per_call, b), \
                 self._forward(x[i:i + plan.per_call])
+        if plan.per_call < b and self.device.type == "cuda":
+            # the caller has dropped the last chunk's output (each chunk
+            # finds the last one's freed segments whole, since nothing is
+            # allocated between them): give the segments back, so that
+            # nothing allocated before the next pass (TTA's next
+            # transformed input, the next batch's) lands in one and splits
+            # it, which would keep the next pass's tensors of tens of GB
+            # from fitting where free memory suffices
+            torch.cuda.empty_cache()
 
     def _ensemble(self, x: torch.Tensor):
         """The TTA ensemble of the device batch x: per transform, its
@@ -620,6 +688,8 @@ class UpscaleEngine:
                     tta_mod.forward_transform(x, k, flip)):
                 tta_mod.tta_accumulate(y, acc[lo:hi], k, flip, form,
                                        out=mean[lo:hi])
+                # freed before the next piece runs (see _dispatch)
+                del y
         yield 0, b, mean
 
     def _dispatch(self, frames: np.ndarray, n: int) -> PendingBatch:
@@ -645,6 +715,11 @@ class UpscaleEngine:
                 self._pieces(dev_in)
             for lo, hi, y in pieces:
                 host_out[lo:hi].copy_(y, non_blocking=True)
+                # a piece's output is freed (in stream order) before the
+                # next piece runs, so no segment of this piece's large
+                # tensors stays held by it: the next piece allocates the
+                # same sizes again and finds them whole
+                del y
             if cuda:
                 event = torch.cuda.Event()
                 event.record(self._stream)

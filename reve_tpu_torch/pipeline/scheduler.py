@@ -196,6 +196,17 @@ def certify_int8_on_input(engine, workspace: Workspace, state: JobState,
     return workspace.claim_int8_cert(engine.certify_int8(frames))
 
 
+def _arch(model: str):
+    """The registry's architecture of a model name, or None for a name it
+    does not know."""
+    from reve_tpu_torch.models import registry
+
+    try:
+        return registry.parse_model_name(model)[0].arch
+    except ValueError:
+        return None
+
+
 def resolve_auto_dtype(make_engine, workspace: Workspace, state: JobState,
                        io_backend=None, gate_db=None, platform=None,
                        on_note=None, tracer=None):
@@ -207,7 +218,9 @@ def resolve_auto_dtype(make_engine, workspace: Workspace, state: JobState,
     Eligibility is the reference's rule: `platform == "tpu"`, or the
     REVE_TPU_AUTO_INT8 environment variable set to a true value.  The
     port's platform is "cuda", so auto is bfloat16 without certification
-    unless the variable forces it.
+    unless the variable forces it.  A model of another architecture than
+    SRVGG (RRDB) resolves bfloat16 even when eligible, as in reve_tpu:
+    its int8 is opt-in.
 
     `make_engine(dtype, int8_calib)` builds an engine with the caller's
     full settings (batch, tile, tta, device), so the trial engine is the
@@ -261,6 +274,14 @@ def resolve_auto_dtype(make_engine, workspace: Workspace, state: JobState,
         return decide("bfloat16", None, None,
                       f"auto dtype: bfloat16 (int8 turbo is TPU-only; "
                       f"backend is {platform})")
+    if _arch(state.model) not in (None, "srvgg"):
+        # reve_tpu's rule: int8 for a non-SRVGG model stays OPT-IN (--dtype
+        # int8), so auto keeps the exact path; decided from the model's
+        # name, so no int8 engine is built for it
+        return decide("bfloat16", None, None,
+                      "auto dtype: bfloat16 (int8 for this architecture "
+                      "is opt-in via --dtype int8; auto keeps the exact "
+                      "path)")
     try:
         engine = make_engine("int8", state.opts.get("int8_calib", "p99.9"))
     except (ValueError, NotImplementedError) as e:

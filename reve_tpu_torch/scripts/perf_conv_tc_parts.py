@@ -296,7 +296,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     name)}
         if source == conv3x3.F32_SOURCE:
             split = _entry(lib, "reve_split_bf16x3",
-                           [P, P, ctypes.c_longlong, P])
+                           [P, P, ctypes.c_longlong, I, I, P])
             conv = _entry(lib, "reve_conv3x3_bias_prelu_f32tc",
                           [P] * 5 + [I] * 3 + [P])
             head = _entry(lib, "reve_head_conv_residual_u8_shuffle_f32tc",
@@ -304,7 +304,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
             def run_split():
                 build.check(lib, split(xf.data_ptr(), planes.data_ptr(),
-                                       xf.numel(), stream), name)
+                                       xf.numel() // 8, 8, 8, stream), name)
 
             def run_conv():
                 build.check(lib, conv(

@@ -1,8 +1,8 @@
 """Post-training int8 quantization of the SRVGG body (the int8 turbo).
 
 Counterpart of reve_tpu/weights/quantize.py, SRVGG part (RRDB's trunk
-quantization is not ported: ROADMAP.md port queue item 8).  The scheme is
-the reference's, to the bit:
+quantization is not ported: ROADMAP.md port queue, RRDB int8).  The
+scheme is the reference's, to the bit:
 
   * weights: per-output-channel symmetric int8,
     ``w8[..., o] = clip(round(w[..., o] / sw[o]), -127, 127)`` with
@@ -42,7 +42,7 @@ _PCT_SAMPLE_CAP = 1 << 22
 def _not_ported_rrdb() -> NotImplementedError:
     return NotImplementedError(
         "int8 quantization of RRDB is not yet ported in reve_tpu_torch "
-        "(ROADMAP.md port queue: item 8, RRDB)")
+        "(ROADMAP.md port queue: RRDB int8)")
 
 
 @dataclasses.dataclass

@@ -241,7 +241,7 @@ def test_api_refuses_the_resumes_the_cli_refuses(tmp_path, monkeypatch,
 @pytest.mark.parametrize("kw,err,match", [
     ({"mesh": object()}, NotImplementedError, "multi-GPU"),
     ({"scene_align": True}, NotImplementedError, "scene-aligned"),
-    ({"model": "realesrgan-x4plus"}, NotImplementedError, "RRDB"),
+    ({"model": "realesrgan-x2plus"}, NotImplementedError, "RRDB"),
     ({"weights": "m.param"}, NotImplementedError, "ncnn"),
     ({"compile_attempts": 2}, ValueError, "no counterpart"),
     ({"device": 7}, ValueError, "out of range"),
@@ -415,7 +415,7 @@ def test_cli_refuses_to_resume_a_reve_tpu_workspace(tmp_path, monkeypatch,
         (2, ["--lease-stale-after", "5"]), (3, ["--denoise", "0.5"]),
         (4, ["--shard-worker", "w0"]), (6, ["--device", "0,1"]),
         (7, ["--scene-align"]), (8, ["--compile-attempts", "2"]),
-        (9, ["--model", "realesrgan-x4plus"]))])
+        (9, ["--model", "realesrgan-x2plus"]))])
 def test_unported_flags_exit_2(tmp_path, monkeypatch, capsys, extra):
     monkeypatch.chdir(tmp_path)
     inp = _input(tmp_path, frames=1)
@@ -471,4 +471,9 @@ def test_list_models(capsys):
     assert cli.run(["--list-models"]) == 0
     out = capsys.readouterr().out
     assert "realesr-animevideov3" in out
-    assert "realesrgan-x4plus" in out and "(not ported)" in out
+    rows = {ln.split()[0]: ln for ln in out.splitlines() if ln.strip()}
+    # the x4 RRDB models are ported; x2plus (RRDB x2) is not
+    for name in ("realesrgan-x4plus", "realesrgan-x4plus-anime",
+                 "realesrnet-x4plus"):
+        assert "(not ported)" not in rows[name]
+    assert "(not ported)" in rows["realesrgan-x2plus"]

@@ -100,7 +100,7 @@ def test_engine_raises_without_cuda(monkeypatch):
                   "scale": 4}, "RRDB", id="kw0-int8"),
     # (ids as before tiling and TTA left this list)
     pytest.param({"mesh": object()}, "multi-GPU", id="kw3-multi-GPU"),
-    pytest.param({"model": "realesrgan-x4plus", "scale": 4}, "RRDB",
+    pytest.param({"model": "realesrgan-x2plus", "scale": 2}, "RRDB",
                  id="kw4-RRDB"),
 ])
 def test_unported_modes_raise(kw, item):
@@ -193,6 +193,49 @@ def test_memory_plan_takes_the_tile_given(monkeypatch):
     monkeypatch.setattr(mine, "_free_bytes",
                         lambda: int((7 * io + 5 * win) / 0.85) + 1)
     assert mine.recommended_queue_depth(h, w) == 3
+
+
+def test_chunks_free_their_output_before_the_next_chunk(monkeypatch):
+    """With a plan that chunks the batch on the card, every chunk's output
+    is dead (dropped by TTA's loop, and by a caller that drops it as
+    _dispatch does) when the engine hands the pass's segments back
+    (torch.cuda.empty_cache), once after each pass of the model over the
+    batch: once a batch, once a transform with TTA; a plan of one call
+    never empties the cache."""
+    import weakref
+
+    mine, _ = _pair(batch_size=4)
+    h, w = 6, 10
+    _as_gpu_plan(mine, monkeypatch, 0)
+    monkeypatch.setattr(mine, "_plan_execution", lambda h, w: Plan(0, 2))
+    outputs, empties = [], []
+
+    def forward(u8):
+        r = mine.scale
+        y = torch.zeros((u8.shape[0], u8.shape[1] * r, u8.shape[2] * r, 3),
+                        dtype=torch.uint8)
+        outputs.append(weakref.ref(y))
+        return y
+
+    monkeypatch.setattr(mine, "_forward", forward)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: empties.append(
+        [r() is None for r in outputs]))
+    x = torch.zeros((4, h, w, 3), dtype=torch.uint8)
+    for piece in mine._pieces(x):
+        del piece
+    assert empties == [[True, True]]
+    empties.clear()
+    outputs.clear()
+    monkeypatch.setattr(mine, "tta", True)
+    for piece in mine._ensemble(x):
+        del piece
+    assert len(empties) == 8 and all(all(e) for e in empties)
+    assert len(outputs) == 16
+    empties.clear()
+    monkeypatch.setattr(mine, "_plan_execution", lambda h, w: Plan(0, 4))
+    for piece in mine._pieces(x):
+        del piece
+    assert empties == []
 
 
 def test_memory_plan_tile_past_the_frame_chunks_frames(monkeypatch):

@@ -33,7 +33,13 @@ float32 epilogue); P1 s8 exact, bf16 within 1e-4 of the largest |value|
 (its float32 sum is sum(even dots) + sum(odd dots), each dot's k steps
 added in order).
 float32 K2 sums six bf16 products like float32 K1: u8 |d| <= 1, at
-ordinary and at +-2^8 activations.  K6 (csrc/tta.cu) moves bytes and adds
+ordinary and at +-2^8 activations.  K7 (csrc/rrdb.cu, RRDB's dense
+convs): float32 max |d| <= 2e-6 at the model's weight scale (0.1 /
+sqrt(9 Cin)) and activations in [-1, 1], scaled with the inputs at
++-2^8; bfloat16 <= 2 bf16 ulp of the largest operand of its epilogue
+(the conv value, its residuals, the result): a residual add can cancel,
+so a conv value rounded to the neighbouring bf16 lands on a result near
+zero.  K2's conv_last mode: u8 |d| <= 1.  K6 (csrc/tta.cu) moves bytes and adds
 integers: exact, for each of the 8 transforms and its three forms, on
 ragged shapes and batches.  The engine's halo tiles are byte-identical to
 its whole frames on the card in bfloat16, float32 and int8 (the kernels
@@ -46,8 +52,8 @@ import pytest
 import torch
 
 from reve_tpu_torch.kernels import (LAUNCHES, conv3x3, conv3x3_s8,
-                                    dot_probe, head, tta)
-from reve_tpu_torch.models import srvgg
+                                    dot_probe, head, rrdb as k7, tta)
+from reve_tpu_torch.models import rrdb, srvgg
 from reve_tpu_torch.pipeline.engine import UpscaleEngine
 from reve_tpu_torch.weights import quantize
 
@@ -254,6 +260,29 @@ def test_split_pass_is_exact():
     back = got[0].float() + got[1].float() + got[2].float()
     assert torch.equal(back, x)
     assert LAUNCHES["split_bf16x3"] == before + 1
+
+
+@pytest.mark.cuda
+def test_split_pass_of_a_channel_slice_is_exact():
+    """The split pass over the leading Cin channels of 192-channel pixels
+    (float32 K7's input: rows of Cin values 192 apart) and over a
+    contiguous tensor whose last dim is not a multiple of 8 (a flat run)
+    gives the plain version's planes bit for bit."""
+    dev = _cuda()
+    rs = np.random.RandomState(5)
+    buf = torch.from_numpy(rs.standard_normal((2, 5, 7, 192)).astype(
+        np.float32)).to(dev)
+    cases = [buf[..., :cin] for cin in (64, 96, 128, 160, 192)]
+    cases.append(torch.from_numpy(rs.standard_normal((10, 4)).astype(
+        np.float32)).to(dev))
+    for x in cases:
+        before = LAUNCHES["split_bf16x3"]
+        got = conv3x3.split_bf16x3(x)
+        want = conv3x3.split_bf16x3_plain(x)
+        torch.cuda.synchronize()
+        assert got.shape == (3, *x.shape)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        assert LAUNCHES["split_bf16x3"] == before + 1
 
 
 @pytest.mark.cuda
@@ -859,3 +888,325 @@ def test_tta_engine_equals_manual_ensemble_and_is_equivariant():
         np.testing.assert_array_equal(
             ens.submit(t).result(),
             tta.forward_transform(torch.from_numpy(got), k, flip).numpy())
+
+
+# -- RRDB: K7, K2's conv_last mode, K1 past 2^31 elements, the model --------
+
+#: K7's forms on the model's path: (Cin, Cout, epilogue)
+K7_FORMS = [(64, 32, "lrelu"), (96, 32, "lrelu"), (128, 32, "lrelu"),
+            (160, 32, "lrelu"), (192, 64, "rdb"), (192, 64, "rrdb"),
+            (64, 64, "add")]
+#: ragged and whole tiles of K7's 4 x 64 tiles
+K7_SHAPES = [(1, 1, 1), (2, 19, 45), (1, 4, 64), (3, 5, 65), (1, 9, 130)]
+
+
+def _k7_case(seed, B, H, W, cin, cout, epi, dev, dt, scale=1.0):
+    """Operands of one K7 call: a 192-channel buffer in [-1, 1) x scale,
+    weights at the model's scale, the output tensor and residuals as the
+    model lays them out (convs 1-4 into their own buffer, conv 5 into
+    another, the rrdb form over its residual, conv_body over feat)."""
+    rs = np.random.RandomState(seed)
+    buf = torch.from_numpy((rs.uniform(-1, 1, (B, H, W, 192)) * scale)
+                           .astype(np.float32)).to(dev, dt)
+    w = torch.from_numpy((rs.uniform(-1, 1, (3, 3, cin, cout)) * 0.1
+                          / np.sqrt(9 * cin)).astype(np.float32)).to(dev, dt)
+    b = torch.from_numpy(rs.uniform(-0.1, 0.1, cout).astype(np.float32)) \
+        .to(dev)
+    other = torch.from_numpy((rs.uniform(-1, 1, (B, H, W, 192)) * scale)
+                             .astype(np.float32)).to(dev, dt)
+    if epi == "lrelu":
+        return dict(buf=buf, w=w, b=b, out=buf, off=cin, res=None,
+                    res2=None)
+    if epi == "add":
+        feat = other[..., :64].contiguous()
+        return dict(buf=buf, w=w, b=b, out=feat, off=0, res=feat, res2=None)
+    return dict(buf=buf, w=w, b=b, out=other if epi == "rrdb" else
+                torch.zeros_like(other), off=0, res=buf,
+                res2=other if epi == "rrdb" else None)
+
+
+def _k7_run(c, cin, epi, plain):
+    """K7 or its plain version with a copy of the case's output (and of
+    whichever operand is that same tensor); returns (the written
+    channels, the plain pre-epilogue conv value, the residuals at those
+    channels)."""
+    out = c["out"].clone()
+
+    def swap(t):
+        return out if t is c["out"] else t
+
+    cout = c["w"].shape[-1]
+    fn = k7.dense_conv_plain if plain else k7.dense_conv
+    fn(swap(c["buf"]), cin, c["w"], c["b"], out, c["off"], epi,
+       swap(c["res"]), swap(c["res2"]))
+    y = conv3x3.conv3x3_plain(c["buf"][..., :cin], c["w"], c["b"])
+    ops = [t[..., :cout] for t in (c["res"], c["res2"]) if t is not None]
+    return out[..., c["off"]:c["off"] + cout], y, ops
+
+
+def _k7_close(got, want, y, ops, name, scale=1.0):
+    if name == "float32":
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=2e-6 * scale, rtol=0)
+        return
+    mag = torch.stack([t.float().abs() for t in [got, want, y, *ops]]) \
+        .amax(0).clamp_min(2.0 ** -10 * scale)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    d = (got.float() - want.float()).abs()
+    assert bool((d <= 2 * ulp).all()), float(d.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,epi", K7_FORMS)
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_k7_matches_plain_at_tile_edges(name, cin, cout, epi):
+    dev = _cuda()
+    dt = DTYPES[name]
+    for i, (B, H, W) in enumerate(K7_SHAPES):
+        c = _k7_case(cin + i, B, H, W, cin, cout, epi, dev, dt)
+        before = dict(LAUNCHES)
+        got, y, ops = _k7_run(c, cin, epi, plain=False)
+        want, _, _ = _k7_run(c, cin, epi, plain=True)
+        torch.cuda.synchronize()
+        _k7_close(got, want, y, ops, name)
+        assert LAUNCHES["dense_conv"] == before["dense_conv"] + 1
+        # float32: one split pass over the channels the conv reads
+        assert LAUNCHES["split_bf16x3"] == before["split_bf16x3"] + \
+            (name == "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_k7_in_place_forms_leave_the_rest_untouched(name):
+    """Convs 1-4 write only their growth slice of the buffer they read;
+    the rrdb form writes over its residual's first 64 channels only."""
+    dev = _cuda()
+    dt = DTYPES[name]
+    c = _k7_case(3, 2, 19, 45, 96, 32, "lrelu", dev, dt)
+    before = c["buf"].clone()
+    k7.dense_conv(c["buf"], 96, c["w"], c["b"], c["buf"], 96, "lrelu")
+    torch.cuda.synchronize()
+    assert torch.equal(c["buf"][..., :96], before[..., :96])
+    assert torch.equal(c["buf"][..., 128:], before[..., 128:])
+    c = _k7_case(4, 2, 19, 45, 192, 64, "rrdb", dev, dt)
+    before = c["out"].clone()
+    k7.dense_conv(c["buf"], 192, c["w"], c["b"], c["out"], 0, "rrdb",
+                  c["res"], c["res2"])
+    torch.cuda.synchronize()
+    assert torch.equal(c["out"][..., 64:], before[..., 64:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_k7_at_large_activations(name):
+    """Activations at +-2^8: the tolerance and the ulp floor scale with
+    the inputs."""
+    dev = _cuda()
+    dt = DTYPES[name]
+    for cin, cout, epi in ((160, 32, "lrelu"), (192, 64, "rrdb")):
+        c = _k7_case(5, 2, 19, 45, cin, cout, epi, dev, dt, scale=2.0 ** 8)
+        got, y, ops = _k7_run(c, cin, epi, plain=False)
+        want, _, _ = _k7_run(c, cin, epi, plain=True)
+        torch.cuda.synchronize()
+        _k7_close(got, want, y, ops, name, scale=2.0 ** 8)
+
+
+@pytest.mark.cuda
+def test_k7_refusals():
+    dev = _cuda()
+    c = _k7_case(6, 1, 8, 8, 192, 64, "rdb", dev, torch.bfloat16)
+    with pytest.raises(ValueError, match="past the ones it reads"):
+        k7.dense_conv(c["buf"], 192, c["w"], c["b"], c["buf"], 0, "rdb",
+                      c["buf"])
+    with pytest.raises(ValueError, match="needs residuals"):
+        k7.dense_conv(c["buf"], 192, c["w"], c["b"], c["out"], 0, "rdb")
+    with pytest.raises(TypeError, match="dtypes"):
+        k7.dense_conv(c["buf"].float(), 192, c["w"], c["b"], c["out"], 0,
+                      "rdb", c["res"])
+    with pytest.raises(ValueError, match="packed weights"):
+        k7.dense_conv(c["buf"], 192, c["w"], c["b"], c["out"], 0, "rdb",
+                      c["res"], packed=k7.pack_weights_dense(c["w"]
+                                                             .float()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_conv_last_mode_matches_plain(name):
+    dev = _cuda()
+    dt = DTYPES[name]
+    for i, (B, H, W) in enumerate(K7_SHAPES):
+        d = _inputs(30 + i, B, H, W, cout=3)
+        h = (d["x"] * 2 - 1).to(dev, dt)
+        w, b = (d["w"] * 8).to(dev, dt), (d["b"] + 0.45).to(dev)
+        before = LAUNCHES["conv_last_u8"]
+        got = head.conv_last_u8(h, w, b)
+        want = head.conv_last_u8_plain(h, w, b)
+        torch.cuda.synchronize()
+        assert got.shape == (B, H, W, 3) and got.dtype == torch.uint8
+        assert (got.int() - want.int()).abs().max().item() <= 1
+        assert LAUNCHES["conv_last_u8"] == before + 1
+        assert 0 < want.float().mean().item() < 255
+
+
+@pytest.mark.cuda
+def test_k1_and_conv_last_past_2_31_elements():
+    """Two 7680 x 4320 frames of 64 bf16 channels (4.2e9 values, past
+    2^31: RRDB's conv_up2 / conv_hr input at a batch of 2 1080p frames):
+    K1 and the conv_last mode in one call each, against their plain
+    versions frame by frame (the same function; one frame at a time
+    keeps the plain version's float32 copies in memory)."""
+    dev = _cuda()
+    B, H, W = 2, 4320, 7680
+    assert B * H * W * 64 > 2 ** 31
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = (torch.rand((B, H, W, 64), device=dev, generator=gen) * 2 - 1) \
+        .to(torch.bfloat16)
+    d = _inputs(40, 1, 1, 1)
+    w, b = d["w"].to(dev, torch.bfloat16), d["b"].to(dev)
+    alpha = torch.full((64,), 0.2, device=dev)
+    y = conv3x3.conv3x3_bias_prelu(x, w, b, alpha)
+    for i in range(B):
+        want = conv3x3.conv3x3_bias_prelu_plain(x[i:i + 1], w, b, alpha)
+        # compared a strip of rows at a time: the check's float32
+        # temporaries of a whole frame would not fit beside the tensors
+        for r in range(0, H, 540):
+            _close(y[i:i + 1, r:r + 540], want[:, r:r + 540], "bfloat16")
+        del want
+    del y
+    dl = _inputs(41, 1, 1, 1, cout=3)
+    wl, bl = (dl["w"] * 8).to(dev, torch.bfloat16), (dl["b"] + 0.45).to(dev)
+    u8 = head.conv_last_u8(x, wl, bl)
+    for i in range(B):
+        want = head.conv_last_u8_plain(x[i:i + 1], wl, bl)
+        assert (u8[i:i + 1].int() - want.int()).abs().max().item() <= 1
+    torch.cuda.synchronize()
+
+
+def _rrdb_small(num_block=2, seed=0):
+    cfg = rrdb.RRDBConfig(num_block=num_block)
+    params = rrdb.init_params(cfg, torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    for c in ([params["conv_first"], params["conv_body"]]
+              + [params[n] for n in rrdb.HEAD]):
+        c["b"] = torch.rand(c["b"].shape, generator=gen) * 0.1 - 0.05
+    params["conv_last"]["b"] += 0.45
+    return cfg, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_rrdb_model_kernels_match_plain(name):
+    """The model through K3, K7 (15 per block + conv_body), K1 x 3 and the
+    conv_last mode against its plain path on the card: float32 u8 |d| <=
+    1; bfloat16 >= 50 dB against the plain float32 path."""
+    dev = _cuda()
+    dt = DTYPES[name]
+    cfg, params = _rrdb_small()
+    params = rrdb.params_to(params, dev)
+    u8 = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 256, (2, 24, 70, 3), np.uint8)).to(dev)
+    before = dict(LAUNCHES)
+    got = rrdb.apply(rrdb.prepare(params, dt), u8, cfg=cfg, compute_dtype=dt)
+    torch.cuda.synchronize()
+    n = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    assert (n["conv3x3_u8_bias_prelu"], n["dense_conv"],
+            n["conv3x3_bias_prelu"], n["conv_last_u8"]) == (
+        1, 15 * cfg.num_block + 1, 3, 1)
+    ref = rrdb.apply(params, u8, cfg=cfg, compute_dtype=torch.float32,
+                     plain=True)
+    assert got.shape == ref.shape == (2, 96, 280, 3)
+    d = (got.int() - ref.int()).abs()
+    if name == "float32":
+        assert d.max().item() <= 1
+    else:
+        mse = (d.double() ** 2).mean().item()
+        assert 10 * np.log10(255.0 ** 2 / max(mse, 1e-12)) >= 50.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["tiled", "tta"])
+def test_rrdb_engine_tiles_and_tta_match_the_cpu_engine(mode):
+    """RRDB through the engine's halo tiles (tile 16 at halo 24 on 40 x 72
+    frames: windows of 40 x 64) and its TTA ensemble, on the card's
+    kernels and on the CPU's plain versions, float32: u8 |d| <= 1."""
+    _cuda()
+    cfg, params = _rrdb_small()
+    frames = np.random.RandomState(11).randint(0, 256, (3, 40, 72, 3),
+                                               np.uint8)
+    kw = dict(compute_dtype="float32", batch_size=2,
+              tile=16 if mode == "tiled" else 0, tta=mode == "tta",
+              preloaded=(cfg, params))
+    card = UpscaleEngine(**kw)
+    cpu = UpscaleEngine(device="cpu", **kw)
+    got = card.upscale_frames(frames)
+    want = cpu.upscale_frames(frames)
+    assert got.shape == want.shape == (3, 160, 288, 3)
+    assert int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max()) \
+        <= 1
+    if mode == "tiled":
+        assert card._plans[(40, 72)].tile == 16
+
+
+_CHUNKED_F32_RRDB = """
+import json, sys
+import numpy as np, torch
+from reve_tpu_torch.models import rrdb
+from reve_tpu_torch.pipeline.engine import UpscaleEngine
+cfg = rrdb.RRDBConfig(num_block=1)
+params = rrdb.init_params(cfg, torch.Generator().manual_seed(0))
+frames = np.random.RandomState(0).randint(0, 256, (4, 1080, 1920, 3),
+                                          np.uint8)
+want = rrdb.apply(rrdb.params_to(params, "cuda"),
+                  torch.from_numpy(frames[:1]).cuda(), cfg=cfg,
+                  compute_dtype=torch.float32, plain=True).cpu().numpy()
+torch.cuda.empty_cache()
+out = {}
+for tta in (False, True):
+    eng = UpscaleEngine(compute_dtype="float32", batch_size=4, tta=tta,
+                        preloaded=(cfg, params))
+    free = eng._free_bytes()
+    plan = eng._plan_execution(1080, 1920)
+    a = eng.submit(frames).result()
+    b = eng.submit(frames).result()
+    out[str(tta)] = dict(plan=list(plan), calls=eng.stats.calls,
+                         same=bool(np.array_equal(a, b)), free=free)
+    if not tta:
+        out["max_d"] = int(np.abs(a[:1].astype(np.int16)
+                                  - want.astype(np.int16)).max())
+    del eng, a, b
+    torch.cuda.empty_cache()
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.cuda
+def test_chunked_float32_rrdb_runs_with_fixed_allocator_segments():
+    """A float32 RRDB batch of 4 1080p frames, past one call on an 80 GB
+    card, runs in the plan's chunks twice in a row, and with TTA, under
+    PYTORCH_CUDA_ALLOC_CONF=expandable_segments:False (the allocator's
+    fixed segments: a tensor left in a freed segment of a chunk would keep
+    the next chunk's tens of gigabytes from fitting), in a process of its
+    own: the second batch is byte-identical to the first and frame 0 is
+    within u8 |d| <= 1 of the plain float32 path."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    _cuda()
+    # this process's cached segments would leave the child little memory
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:"
+               "False", PYTHONPATH=root)
+    run = subprocess.run([sys.executable, "-c", _CHUNKED_F32_RRDB],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    for tta in ("False", "True"):
+        tile, per_call = out[tta]["plan"]
+        assert tile == 0 and 1 <= per_call < 4, out
+        assert out[tta]["same"], out
+    assert out["False"]["calls"] == 2 * -(-4 // out["False"]["plan"][1])
+    assert out["max_d"] <= 1, out

@@ -136,7 +136,7 @@ def test_registry_resolves_the_same_weights(monkeypatch):
                        match="REVE_TPU_ALLOW_RANDOM_INIT"):
         registry.load_model("realesr-general-x4v3", 4)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.load_model("realesrgan-x4plus", 4, allow_random_init=True)
+        registry.load_model("realesrgan-x2plus", 2, allow_random_init=True)
 
 
 def test_init_params_is_seeded_by_generator():
