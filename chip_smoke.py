@@ -11,11 +11,12 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               in this checkout (sm_90a), all at once, and prints each
               library's registers, spills and count of wgmma instructions
               in its SASS (cuobjdump: HGMMA for bf16, IGMMA for s8): the
-              libraries of K3/K4a, bfloat16 K1/K2, float32 K1/K2, K4/K4h
-              and P1 must have at least the count of all their kernels
-              (the heads at r = 2, 3, 4 included; P1 at every K), every
-              kernel of conv3x3.cu (K3 and K4a in both compute dtypes)
-              and of dot_probe.cu must hold wgmma, P1's library both
+              libraries of K3/K4a, bfloat16 K1/K2, float32 K1/K2, K4/K4h,
+              K7, K7q and P1 must have at least the count of all their
+              kernels (the heads at r = 2, 3, 4 included; P1 at every K),
+              every kernel of conv3x3.cu (K3 and K4a in both compute
+              dtypes), rrdb.cu, rrdb_s8.cu and dot_probe.cu must hold
+              wgmma, P1's library both
               IGMMA and HGMMA, and no library any __dp4a (IDP.4A) or
               mma.sync (HMMA, IMMA);
   3. kernels  K3, K1 and K2 at the main path's shapes (1080p frames, a
@@ -122,7 +123,23 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               version on every frame, in strips of rows (<= 2 ulp;
               float32 <= 2e-6), timed beside it, cuDNN and its bound;
               the nearest x2's time;
-  9. probe    P1, the tensor-core dot-rate probe (wgmma), through
+  9. rrdb_int8  the same model and frames with --dtype int8 (the CLI
+              job, counters zeroed around it): the launch counts split
+              into the job's int8 calls (each K3 1, K7q 346, K1 3, the
+              conv_last mode 1), the calibration's float32 forwards (K3,
+              345 x K7) and the certification's float32 calls; each
+              frame against the port's plain int8 path on the card with
+              the calibration the workspace persisted, >= 60 dB, with
+              n_diff; the certificate (dB vs float32), calibrate_s and
+              certify_s; K7q's seven forms at a batch of 4 1080p frames
+              on the int8 model's own activations, each exact against
+              its plain version (s8 n_diff 0, float outputs
+              bit-identical), timed beside the plain version,
+              torch._int_mm of one frame's im2col'd product x4 and its
+              bound (bytes); an int8 engine's plan, one call's peak
+              device memory against the plan's bill and the model's ms
+              per batch beside bfloat16's;
+ 10. probe    P1, the tensor-core dot-rate probe (wgmma), through
               `python -m reve_tpu_torch.scripts.perf_int8_dot`'s main at
               its shapes: per call at 64 loops timed free of the host's
               launch cost (the calls queued behind a sleep kernel, so that
@@ -138,7 +155,7 @@ JSON line; any failure exits non-zero (no phase catches and continues):
 
 The line before the last is nvidia-smi's name and power limit; before
 that, one JSON object {"kernels": [...]} with each kernel's launches on
-its path (main, int8, tta, rrdb or probe), error (and, for u8 and s8
+its path (main, int8, tta, rrdb, rrdb_int8 or probe), error (and, for u8 and s8
 outputs,
 n_diff: the values that differ from the plain version's; the model
 kernels' error on the transposed batch under "transposed"), times, bound
@@ -184,14 +201,15 @@ TILE = 512
 #: 18), the hidden conv, the heads at r = 2, 3, 4 and K2's conv_last mode
 #: (r = 1); K3 and K4a 2 in bfloat16 and 12 in float32 (K = 32: two k16
 #: steps, six products each); K7 at N = 32 and 64, per 32-channel chunk
-#: 18 in bfloat16 and 108 in float32; P1 one kernel for each count of
+#: 18 in bfloat16 and 108 in float32; K7q at N = 32 and 64, per
+#: 64-channel chunk 18 (s8); P1 one kernel for each count of
 #: 32-B k steps, its dot's wgmmas unrolled: s8 1 + ... + 8 (IGMMA), bf16
 #: 1 + ... + 16 (HGMMA)
 P1_IGMMA, P1_HGMMA = sum(range(1, 9)), sum(range(1, 17))
 MIN_WGMMA = {"conv3x3_tc.cu": 5 * 36, "conv3x3_f32_tc.cu": 5 * 216,
              "conv3x3_s8.cu": 4 * 18, "conv3x3.cu": 2 * (2 + 12),
              "dot_probe.cu": P1_IGMMA + P1_HGMMA,
-             "rrdb.cu": 2 * (18 + 108)}
+             "rrdb.cu": 2 * (18 + 108), "rrdb_s8.cu": 2 * 18}
 
 
 def emit(obj) -> None:
@@ -471,19 +489,6 @@ def int8_kernel_phase(params, cfg, frames, qb, out: dict,
     q1 = conv3x3_s8.conv3x3_s8_dq_prelu_q8_plain(q0, qb.w8[0], s1, qb.b[0],
                                                  qb.alpha[0], inv[1:2])
 
-    def int_mm_x4(x8, w8):
-        """torch._int_mm of one frame's im2col'd product, x4 frames (the
-        im2col, built here once, is not timed)."""
-        xp = F.pad(x8[0].permute(2, 0, 1), (1, 1, 1, 1)).permute(1, 2, 0)
-        cols = torch.cat([xp[dy:dy + H, dx:dx + W] for dy in range(3)
-                          for dx in range(3)], -1).reshape(H * W, -1)
-        wm = w8.reshape(-1, w8.shape[-1]).contiguous()
-
-        def run():
-            for _ in range(B):
-                torch._int_mm(cols, wm)
-        return run
-
     bf_in = u8.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
         memory_format=torch.channels_last)
     bf_w = w0.permute(3, 2, 0, 1).contiguous(
@@ -503,7 +508,7 @@ def int8_kernel_phase(params, cfg, frames, qb, out: dict,
                 q0, qb.w8[0], s1, qb.b[0], qb.alpha[0], inv[1:2]),
             plain=lambda: conv3x3_s8.conv3x3_s8_dq_prelu_q8_plain(
                 q0, qb.w8[0], s1, qb.b[0], qb.alpha[0], inv[1:2]),
-            library=int_mm_x4(q0, qb.w8[0]) if timed else None,
+            library=int_mm_x4(q0, feat, qb.w8[0], B) if timed else None,
             tol=0, nbytes=2 * px * feat + qb.w8[0].numel() + 3 * feat * 4
             + 4, flops=2 * 9 * feat * feat * px, peak="int8"),
         "head_conv_s8_residual_u8_shuffle": dict(
@@ -511,7 +516,7 @@ def int8_kernel_phase(params, cfg, frames, qb, out: dict,
                 q1, qb.w8_last, sl, qb.b_last, u8, r),
             plain=lambda: head.head_conv_s8_residual_u8_shuffle_plain(
                 q1, qb.w8_last, sl, qb.b_last, u8, r),
-            library=int_mm_x4(q1, qb.w8_last) if timed else None,
+            library=int_mm_x4(q1, feat, qb.w8_last, B) if timed else None,
             tol=0, nbytes=px * feat + px * 3 + px * r * r * 3
             + qb.w8_last.numel() + 2 * 3 * r * r * 4,
             flops=2 * 9 * feat * 3 * r * r * px, peak="int8"),
@@ -871,6 +876,9 @@ RRDB_BF16_MARGIN_DB = 1.0
 #: and no frame of it below this against the plain bfloat16 path (dB):
 #: the kernels' rounding moves it to 59.7 dB on frame 0 (PERF.md §6)
 RRDB_VS_PLAIN_BF16_DB = 50.0
+#: each frame of the rrdb_int8 job against the port's plain int8 path with
+#: the job's persisted calibration (dB), as the SRVGG int8 phase holds it
+RRDB_INT8_FLOOR_DB = 60.0
 
 
 def k7_forms(params):
@@ -1021,6 +1029,221 @@ def rrdb_kernel_phase(params, frames) -> dict:
         del a, feat
         torch.cuda.empty_cache()
     return results
+
+
+def int_mm_x4(x8, cin: int, w8, frames: int):
+    """The yardstick of K4's and K7q's time (the port never calls it):
+    torch._int_mm of one frame's im2col'd s8 product (x8's first `cin`
+    channels, built here once and not timed), `frames` times.  Returns a
+    callable."""
+    import torch
+    import torch.nn.functional as F
+
+    h, w = x8.shape[1:3]
+    xp = F.pad(x8[0, ..., :cin].permute(2, 0, 1), (1, 1, 1, 1)) \
+        .permute(1, 2, 0)
+    cols = torch.cat([xp[dy:dy + h, dx:dx + w] for dy in range(3)
+                      for dx in range(3)], -1).reshape(h * w, -1)
+    wm = w8.reshape(-1, w8.shape[-1]).contiguous()
+
+    def run():
+        for _ in range(frames):
+            torch._int_mm(cols, wm)
+    return run
+
+
+def k7q_forms(qb):
+    """K7q's forms on the int8 model's path, with the quantized weights of
+    block 0 that use them ((qrdb, conv index)) and their launches per
+    model call: convs 1-4 (lrelu_q, Cin 64 to 160) three times a block,
+    conv 5 as rdb twice a block and as rrdb once, conv_body (add) once."""
+    rdbs = qb["body"][0]
+    cb = {k: [v] for k, v in qb["conv_body"].items()}
+    forms = [(f"lrelu_q_{64 + 32 * i}", 64 + 32 * i, 32, "lrelu_q",
+              rdbs[0], i, 3 * RRDB_BLOCKS) for i in range(4)]
+    forms += [("rdb_192", 192, 64, "rdb", rdbs[0], 4, 2 * RRDB_BLOCKS),
+              ("rrdb_192", 192, 64, "rrdb", rdbs[2], 4, RRDB_BLOCKS),
+              ("add_64", 64, 64, "add", cb, 0, 1)]
+    assert sum(f[-1] for f in forms) == RRDB_K7_PER_CALL
+    return forms
+
+
+def rrdb_int8_kernel_phase(params, qb, frames) -> dict:
+    """K7q's forms at the main path's shapes (a batch of 4 1080p frames),
+    each against its plain version on the int8 model's own activations
+    (the frames through conv_first in bfloat16, the trunk input's
+    quantize, then block 0's first dense block by the plain lrelu_q
+    forms), exact: s8 codes n_diff 0, the float32 chain and conv_body's
+    bfloat16 feat bit-identical (integer sums, the same float32 steps,
+    each rounded on its own).  Then timed beside the plain version,
+    torch._int_mm of one frame's im2col'd product x4 (K4's convention) and
+    the bound (bytes for every form: the s8 channels read, the s8 and
+    float32 written, the float32 residuals read; operations at the s8
+    rate).  The top-level numbers are per launch, weighted by the forms'
+    launches in one model call ("call_ms": their sum over the call)."""
+    import torch
+
+    from reve_tpu_torch.kernels import conv3x3
+    from reve_tpu_torch.kernels import rrdb as k7
+    from reve_tpu_torch.models import rrdb
+
+    dev = torch.device("cuda", 0)
+    u8 = torch.from_numpy(frames).to(dev)
+    B = u8.shape[0]
+    px = B * H * W
+    inv = 1.0 / qb["act_scale"]
+    cf = params["conv_first"]
+    feat = conv3x3.conv3x3_u8_bias_prelu_plain(
+        u8, cf["w"].to(torch.bfloat16), cf["b"], torch.ones(64, device=dev))
+    chain = feat.float()
+    a = torch.zeros((B, H, W, 192), dtype=torch.int8, device=dev)
+    rrdb._quant_into(a[..., :64], chain, inv[0])
+    q0 = qb["body"][0][0]
+    for i in range(4):
+        k7.dense_conv_s8_plain(a, 64 + 32 * i, q0["w8"][i], q0["sw"][i],
+                               q0["b"][i], "lrelu_q", inv=inv[i + 1],
+                               out8=a, out8_off=64 + 32 * i)
+    by_form = {}
+    for fname, cin, cout, epi, q, i, n in k7q_forms(qb):
+        w8, sw, b = q["w8"][i], q["sw"][i], q["b"][i]
+        packed = k7.pack_weights_dense_s8(w8)
+
+        def operands():
+            """Fresh (buf, out8, out, kwargs) of one call: the tensors it
+            writes are copies, so the kernel and the plain version start
+            alike."""
+            if epi == "lrelu_q":
+                buf = a.clone()
+                return buf, buf, None, dict(inv=inv[i + 1], out8=buf,
+                                            out8_off=cin)
+            if epi == "add":
+                out = feat.clone()
+                return a, None, out, dict(res=out, out=out)
+            out8 = torch.zeros_like(a)
+            out = chain.clone() if epi == "rrdb" else torch.empty_like(chain)
+            kw = dict(inv=inv[5], out8=out8, res=chain, out=out)
+            if epi == "rrdb":
+                kw["res2"] = out
+            return a, out8, out, kw
+
+        got, want = operands(), operands()
+        k7.dense_conv_s8(got[0], cin, w8, sw, b, epi, packed=packed,
+                         **got[3])
+        k7.dense_conv_s8_plain(want[0], cin, w8, sw, b, epi, **want[3])
+        torch.cuda.synchronize()
+        lo = cin if epi == "lrelu_q" else 0
+        n_diff = 0 if epi == "add" else int(
+            (got[1][..., lo:lo + cout] != want[1][..., lo:lo + cout]).sum())
+        err = 0.0 if epi == "lrelu_q" else float(
+            (got[2].float() - want[2].float()).abs().max())
+        if n_diff or err:
+            raise AssertionError(f"dense_conv_s8 {fname}: kernel disagrees "
+                                 f"with its plain version (n_diff {n_diff}, "
+                                 f"max |d| {err})")
+        del want
+        resid = {"lrelu_q": 0, "rdb": 1, "rrdb": 2, "add": 1}[epi]
+        if epi == "add":
+            nbytes = px * (cin + 2 * cout * 2)
+        else:
+            nbytes = px * (cin + cout + (cout * 4 * (1 + resid)
+                                         if resid else 0))
+        nbytes += w8.numel() + 2 * cout * 4
+        bms, bby = bound_ms(nbytes, 2 * 9 * cin * cout * px, "int8")
+        buf, _o8, _o, kw = got
+        by_form[fname] = {
+            "cin": cin, "cout": cout, "epilogue": epi,
+            "launches_per_call": n, "max_abs_err": err, "n_diff": n_diff,
+            "ms": cuda_time_ms(lambda: k7.dense_conv_s8(
+                buf, cin, w8, sw, b, epi, packed=packed, **kw)),
+            "plain_ms": cuda_time_ms(lambda: k7.dense_conv_s8_plain(
+                buf, cin, w8, sw, b, epi, **kw), iters=1),
+            "library_ms": library_time_ms(int_mm_x4(a, cin, w8, B)),
+            "bound_ms": bms, "bound_by": bby}
+        del got, buf, kw, _o8, _o
+        torch.cuda.empty_cache()
+    total = sum(f["launches_per_call"] for f in by_form.values())
+    top = {key: None if any(f[key] is None for f in by_form.values())
+           else sum(f[key] * f["launches_per_call"]
+                    for f in by_form.values()) / total
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    top.update(max_abs_err=max(f["max_abs_err"] for f in by_form.values()),
+               n_diff=sum(f["n_diff"] for f in by_form.values()),
+               bound_by="operations" if all(
+                   f["bound_by"] == "operations" for f in by_form.values())
+               else "bytes",
+               call_ms=top["ms"] * total,
+               call_bound_ms=top["bound_ms"] * total,
+               forms=by_form, shape=[B, H, W, 192])
+    del a, chain, feat
+    torch.cuda.empty_cache()
+    return top
+
+
+def rrdb_int8_calls(launches: dict) -> dict:
+    """The model calls of the rrdb_int8 job from its launch counts, and
+    the check that each ran the int8 path's kernels: an int8 call
+    launches K3 (bf16) once, K7q 346 times, K1 3 times and the conv_last
+    mode once; the calibration's float32 forwards K3 once and K7 345
+    times (no conv_body); the certification's float32 calls the whole
+    float32 model (K3, 346 x K7, 3 x K1, conv_last).  At least one of
+    each, and more int8 calls than float32 ones (the job's own batch)."""
+    k7q = launches["dense_conv_s8"]
+    n8 = k7q // RRDB_K7_PER_CALL
+    cert = launches["conv_last_u8"] - n8
+    calib = launches["conv3x3_u8_bias_prelu"] - launches["conv_last_u8"]
+    ok = (k7q == RRDB_K7_PER_CALL * n8 and n8 > cert >= 1 and calib >= 1
+          and launches["conv3x3_bias_prelu"] == 3 * (n8 + cert)
+          and launches["dense_conv"] == (RRDB_K7_PER_CALL - 1) * calib
+          + RRDB_K7_PER_CALL * cert
+          and not any(launches[k] for k in (
+              "head_conv_residual_u8_shuffle", "conv3x3_s8_dq_prelu_q8",
+              "conv3x3_u8_bias_prelu_q8", "head_conv_s8_residual_u8_shuffle",
+              "tta_accumulate")))
+    if not ok:
+        raise AssertionError(f"launch counts {launches} do not show the "
+                             f"RRDB int8 path's kernels")
+    return {"int8": n8, "float32_calibration": calib,
+            "float32_certification": cert,
+            "float32_conv3x3_u8_bias_prelu": calib + cert,
+            "float32_conv3x3_bias_prelu": 3 * cert,
+            "float32_conv_last_u8": cert}
+
+
+def rrdb_int8_engine_checks(frames, maxima) -> dict:
+    """An int8 RRDB engine on the card with the job's persisted
+    calibration: the plan, one call's peak device memory (held to what
+    the plan bills for it) and the model's ms per batch."""
+    import torch
+
+    from reve_tpu_torch.pipeline.engine import UpscaleEngine
+
+    eng = UpscaleEngine(model=RRDB_MODEL, scale=SCALE, compute_dtype="int8",
+                        batch_size=BATCH, allow_random_init=True)
+    eng.set_calibration(maxima)
+    dev_in = torch.from_numpy(frames).cuda()
+    plan = eng._plan_execution(H, W)
+    if plan.tile:
+        raise AssertionError(f"int8 plan {plan}: tiles at 1080p")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with eng._on_device():
+        y = eng._forward(dev_in[:plan.per_call])
+    torch.cuda.synchronize()
+    del y
+    rec = {"plan": list(plan),
+           "peak_bytes_per_call": torch.cuda.max_memory_allocated() - base,
+           "billed_bytes_per_call": plan.per_call * eng._frame_bytes(H, W)}
+    if rec["peak_bytes_per_call"] > rec["billed_bytes_per_call"]:
+        raise AssertionError(f"int8: a call peaked at "
+                             f"{rec['peak_bytes_per_call']} B, past the "
+                             f"plan's {rec['billed_bytes_per_call']} B")
+    rec["model_ms_per_batch"] = cuda_time_ms(
+        lambda: run_pieces(eng, dev_in), iters=2)
+    del eng, dev_in
+    torch.cuda.empty_cache()
+    return rec
 
 
 def conv_last_phase(params, batches: dict) -> dict:
@@ -1319,7 +1542,7 @@ def main() -> int:
                   + " | ".join(ln.strip() for ln in v["log"].splitlines()
                                if "registers" in ln or "spill" in ln),
                   flush=True)
-        # K1, K2, K3, K7 (both dtypes), K4a, K4, K4h and P1 run on
+        # K1, K2, K3, K7 (both dtypes), K7q, K4a, K4, K4h and P1 run on
         # wgmma; nothing on __dp4a or mma.sync
         for s, least in MIN_WGMMA.items():
             if rec["sources"][s]["wgmma"] < least:
@@ -1330,9 +1553,10 @@ def main() -> int:
         if p1.get("IGMMA", 0) < P1_IGMMA or p1.get("HGMMA", 0) < P1_HGMMA:
             raise AssertionError(f"{dot_probe.SOURCE}: {p1}, fewer than "
                                  f"IGMMA {P1_IGMMA} and HGMMA {P1_HGMMA}")
-        # no CUDA-core form of K3, K4a or K7 and no mma.sync form of P1
-        # is left: every kernel of their libraries holds wgmma
-        for s in (conv3x3.SOURCE, dot_probe.SOURCE, "rrdb.cu"):
+        # no CUDA-core form of K3, K4a, K7 or K7q and no mma.sync form of
+        # P1 is left: every kernel of their libraries holds wgmma
+        for s in (conv3x3.SOURCE, dot_probe.SOURCE, "rrdb.cu",
+                  "rrdb_s8.cu"):
             if rec["sources"][s]["kernels_without_wgmma"]:
                 raise AssertionError(
                     f"{s}: kernels without wgmma: "
@@ -1701,6 +1925,105 @@ def main() -> int:
             del params_r
             torch.cuda.empty_cache()
         rrdb_launches = launches
+
+        # RRDB's int8 turbo: the same model and frames with --dtype int8
+        out_q = os.path.join(work, "out_rrdb8.y4m")
+        trace_q = os.path.join(work, "trace_rrdb8.jsonl")
+        argv_q = ["-i", in4, "-s", str(SCALE), out_q, "--model", RRDB_MODEL,
+                  "--allow-random-init", "--dtype", "int8", "--io-backend",
+                  "y4m", "-S", "4", "--batch", str(BATCH), "--keep-workspace",
+                  "--yes", "--trace", trace_q]
+        with phase("rrdb_int8", {"argv": argv_q[3:]}) as rec:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.run(argv_q)
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            if rc != 0:
+                raise AssertionError(f"cli.run --model {RRDB_MODEL} --dtype "
+                                     f"int8 exited {rc}")
+            rd = reader.Y4MReader(out_q)
+            shape = (rd.frame_count(), rd.width, rd.height)
+            if shape != (BATCH, W * SCALE, H * SCALE):
+                raise AssertionError(f"rrdb int8 output {shape}, expected "
+                                     f"{(BATCH, W * SCALE, H * SCALE)}")
+            calls = rrdb_int8_calls(launches)
+            ws_q = out_q + ".revework"
+            with open(os.path.join(ws_q, "int8_calibration.json")) as f:
+                maxima = json.load(f)["act_maxima"]
+            with open(os.path.join(ws_q, "int8_cert.json")) as f:
+                cert_db = json.load(f)["db"]
+            spans, int8_ev = {}, {}
+            with open(trace_q) as f:
+                for ln in f:
+                    ev = json.loads(ln)
+                    if "dur" in ev:
+                        spans[ev["ev"]] = spans.get(ev["ev"], 0.0) + ev["dur"]
+                    elif ev["ev"] == "int8":
+                        int8_ev = ev
+            cfg_q, params_q = registry.load_model(RRDB_MODEL, SCALE,
+                                                  allow_random_init=True)
+            params_q = rrdb.params_to(params_q, "cuda")
+            qb_q = rrdb.prepare_qbody(quantize.build_qbody(
+                params_q, cfg_q, maxima, margin=1.25))
+            # every frame against the plain int8 path on the card with the
+            # job's persisted calibration, a frame at a time, through the
+            # same y4m encode
+            batch4 = np.stack(list(reader.Y4MReader(in4).read_range(
+                0, BATCH)))
+            t1 = time.perf_counter()
+            ref = np.stack([rrdb.apply_int8(
+                params_q, qb_q, torch.from_numpy(batch4[i:i + 1]).cuda(),
+                cfg=cfg_q, plain=True)[0].cpu().numpy()
+                for i in range(BATCH)])
+            plain_s = time.perf_counter() - t1
+            torch.cuda.empty_cache()
+            ref_path = os.path.join(work, "ref_rrdb8.y4m")
+            with writer.open_writer(ref_path, W * SCALE, H * SCALE,
+                                    fractions.Fraction(24),
+                                    backend="y4m") as wr:
+                for f in ref:
+                    wr.write(f)
+            got = list(rd.read_range(0, BATCH))
+            ref_dec = list(reader.Y4MReader(ref_path).read_range(0, BATCH))
+            db_q = [psnr(g, r) for g, r in zip(got, ref_dec)]
+            n_diff_q = [int((g != r).sum()) for g, r in zip(got, ref_dec)]
+            for i in range(BATCH):
+                if not db_q[i] >= RRDB_INT8_FLOOR_DB:
+                    raise AssertionError(
+                        f"rrdb int8 frame {i} PSNR {db_q[i]:.2f} dB vs the "
+                        f"plain int8 path < {RRDB_INT8_FLOOR_DB} dB")
+            del ref, ref_dec, got
+            k7q_results = rrdb_int8_kernel_phase(params_q, qb_q,
+                                                 frames[:BATCH])
+            del qb_q, params_q
+            torch.cuda.empty_cache()
+            engine_q = rrdb_int8_engine_checks(batch4, maxima)
+            rec.update(rc=rc, frames=BATCH, wall_s=round(wall, 3),
+                       launches=launches, calls=calls,
+                       launches_per_call={
+                           k: launches[k] / max(calls["int8"], 1)
+                           for k in ("dense_conv_s8",)} | {
+                           k: (launches[k] - calls["float32_" + k])
+                           / max(calls["int8"], 1) for k in (
+                               "conv3x3_u8_bias_prelu", "conv3x3_bias_prelu",
+                               "conv_last_u8")},
+                       psnr_db_vs_plain_int8=db_q,
+                       n_diff_vs_plain_int8=n_diff_q,
+                       psnr_floor_db=RRDB_INT8_FLOOR_DB,
+                       plain_int8_s=plain_s,
+                       certified_db_vs_f32=cert_db,
+                       calibrate_s=int8_ev.get("calibrate_s"),
+                       certify_s=int8_ev.get("certify_s"),
+                       span_s=spans, engine=engine_q,
+                       model_ms_per_batch={
+                           "int8": engine_q["model_ms_per_batch"],
+                           "bfloat16": engines["bfloat16"][
+                               "model_ms_per_batch"]},
+                       k7q_call_ms=k7q_results["call_ms"],
+                       k7q_call_bound_ms=k7q_results["call_bound_ms"])
+        rrdb8_launches = launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1742,6 +2065,9 @@ def main() -> int:
         "conv_last_u8": (
             "reve_tpu_torch/kernels/csrc/conv3x3_tc.cu",
             "reve_tpu/models/rrdb.py:232"),
+        "dense_conv_s8": (
+            "reve_tpu_torch/kernels/csrc/rrdb_s8.cu",
+            "reve_tpu/models/rrdb.py:247"),
     }
     # each kernel's numbers and its launches on the path that runs it: the
     # bf16 main job, the int8 job, or the probe script
@@ -1757,6 +2083,7 @@ def main() -> int:
         "dot_loop": ("int8", {"dot_loop": probe_launches}),
         "dense_conv": ("bfloat16", rrdb_launches),
         "conv_last_u8": ("bfloat16", rrdb_launches),
+        "dense_conv_s8": ("int8", rrdb8_launches),
     }
     # every model conv and P1 run on wgmma, the split pass on CUDA cores;
     # the float32 forms of K1, K2 and K3 run on wgmma as six bf16 products
@@ -1802,6 +2129,10 @@ def main() -> int:
                 by_dt["float32"], source=f32_src, route="cuda",
                 design="wgmma_bf16x6",
                 launches=engines["float32"]["launches"].get(name, 0))
+        elif name == "dense_conv_s8":
+            nums = k7q_results
+            extra = {key: nums[key] for key in ("forms", "call_ms",
+                                                "call_bound_ms")}
         elif dtype == "bfloat16":
             f32_src, f32_design = f32_forms[name]
             nums, extra = results[name]["bfloat16"], {

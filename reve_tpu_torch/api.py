@@ -11,8 +11,7 @@ after a crash continues where the job stopped, with the settings the job
 was started with.  It runs on cuda:0 unless `device` names another CUDA
 device or "cpu".  What the port's CLI refuses with exit 2, this raises:
 NotImplementedError naming the ROADMAP.md port-queue item (`mesh`,
-`scene_align`, `realesrgan-x2plus`, int8 with an RRDB model, ncnn
-weights), or ValueError
+`scene_align`, `realesrgan-x2plus`, ncnn weights), or ValueError
 (`compile_attempts`, which has no counterpart).  `upscale_image` waits
 for image mode (ROADMAP.md).
 """

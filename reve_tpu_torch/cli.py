@@ -9,9 +9,9 @@ reve-shared/src/lib.rs:209-280):
 
 The port carries the video job: fresh and resumed runs, --dtype
 auto|float32|bfloat16|int8 (auto = bfloat16 on CUDA, as reve_tpu's rule
-has it off the TPU), --int8-calib, --int8-gate, --model/--weights/-m
-(SRVGG, and RRDB at x4: realesrgan-x4plus, realesrgan-x4plus-anime,
-realesrnet-x4plus), --batch, --tile N (halo tiles, for SRVGG
+has it off the TPU; int8 with SRVGG and with the x4 RRDB models),
+--int8-calib, --int8-gate, --model/--weights/-m (SRVGG, and RRDB at x4:
+realesrgan-x4plus, realesrgan-x4plus-anime, realesrnet-x4plus), --batch, --tile N (halo tiles, for SRVGG
 byte-identical to whole frames; 0 = only frames past the memory plan,
 -1 = never), --tta (the 8-transform
 self-ensemble, restored on resume), --device N (cuda:N), --io-backend,
@@ -163,8 +163,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "REVE_TPU_AUTO_INT8=1) and certifies at 50 dB (or "
                         "--int8-gate) vs float32 on frames sampled across "
                         "this video, else bfloat16; on CUDA auto is "
-                        "bfloat16.  int8 forces the turbo path (hidden "
-                        "stack and head conv in s8)")
+                        "bfloat16 (and for RRDB in both packages).  int8 "
+                        "forces the turbo path (SRVGG: hidden stack and "
+                        "head conv in s8; RRDB: the dense-block trunk)")
     p.add_argument("--int8-calib", type=_int8_calib_validation,
                    default=None, dest="int8_calib", metavar="max|p<PCT>",
                    help="int8 calibration statistic for activation "

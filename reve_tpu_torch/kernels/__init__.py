@@ -15,6 +15,9 @@
     K7  rrdb.dense_conv                       RRDB dense-block conv over
                                               a channel slice + leaky ReLU
                                               or the block residuals
+    K7q rrdb.dense_conv_s8                    K7's s8 form (RRDB int8
+                                              trunk): s8 conv + dequant +
+                                              quantize or float residuals
     K4  conv3x3_s8.conv3x3_s8_dq_prelu_q8     int8 hidden conv + dequant +
                                               PReLU + requant
     K4a conv3x3.conv3x3_u8_bias_prelu_q8      K3 with an s8 quantize epilogue
@@ -33,7 +36,8 @@ operands split into three bf16 parts, six products summed: float32
 accuracy, never TF32, to match the reference's Precision.HIGHEST), K4 and
 K4h on s8 wgmma in csrc/conv3x3_s8.cu, K7 in both dtypes in
 csrc/rrdb.cu (Cin in chunks of 32 channels through a TMA and bulk-copy
-ring; float32 as six bf16 products).  K3 and K4a run on bf16 wgmma
+ring; float32 as six bf16 products), K7q on s8 wgmma in csrc/rrdb_s8.cu
+(Cin in chunks of 64 through a TMA ring, the weights resident).  K3 and K4a run on bf16 wgmma
 with A from registers and TMA stores (csrc/conv3x3.cu), and P1 on s8 and
 bf16 wgmma with A from registers (csrc/dot_probe.cu).  K6 moves bytes
 only: it stages tiles of the transformed output through shared memory
@@ -55,6 +59,7 @@ LAUNCHES = {
     "head_conv_residual_u8_shuffle": 0,
     "conv_last_u8": 0,
     "dense_conv": 0,
+    "dense_conv_s8": 0,
     "conv3x3_s8_dq_prelu_q8": 0,
     "conv3x3_u8_bias_prelu_q8": 0,
     "head_conv_s8_residual_u8_shuffle": 0,

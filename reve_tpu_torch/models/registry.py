@@ -114,12 +114,9 @@ def unported(arch: str, upscale: Optional[int],
     model of `arch` at `upscale` (None: every scale) in `dtype` (a
     --dtype name; None: any), else None.  The one place the CLI, the API
     and the engine read it from: RRDB at x2 (its pixel-unshuffled
-    12-channel input), and RRDB in int8 (rrdb.apply_int8)."""
+    12-channel input), in every dtype."""
     if arch == "rrdb" and upscale != 4:
         return f"rrdb x{upscale}", "RRDB x2"
-    if arch == "rrdb" and dtype == "int8":
-        return "int8 of the rrdb architecture (rrdb.apply_int8)", \
-            "RRDB int8"
     return None
 
 

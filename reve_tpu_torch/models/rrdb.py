@@ -23,8 +23,11 @@ pixel holds a dense block's concat, three of them rotate through an
 RRDB), K1 for conv_up1, conv_up2 and conv_hr with the leaky ReLU (PReLU
 at alpha 0.2), and K2's conv_last mode for conv_last with the engine's u8
 rounding.  The nearest x2 before each up conv is a torch op
-(ops/resize.py).  On CPU tensors each wrapper runs its plain version, and
-`plain=True` runs the plain versions on any device (the reference path).
+(ops/resize.py).  `apply_int8`, the int8 turbo (`--dtype int8`), runs the
+trunk on K7q, K7's s8 form, with the scales of weights/quantize.py's
+quantize_rrdb, and conv_first and the head as `apply` in bfloat16.  On
+CPU tensors each wrapper runs its plain version, and `plain=True` runs
+the plain versions on any device (the reference path).
 """
 
 from __future__ import annotations
@@ -179,15 +182,26 @@ def apply(params: Params, u8: torch.Tensor, *, cfg: RRDBConfig,
         raise ValueError(f"params hold {len(params['body'])} RRDB blocks; "
                          f"cfg needs {cfg.num_block}")
     dt = compute_dtype
-    nf, gc, cs = cfg.num_feat, cfg.num_grow_ch, cfg.dense_channels
-    if plain:
-        first = conv3x3.conv3x3_u8_bias_prelu_plain
-        up_conv = conv3x3.conv3x3_bias_prelu_plain
-        last = head.conv_last_u8_plain
-    else:
-        first = conv3x3.conv3x3_u8_bias_prelu
-        up_conv = conv3x3.conv3x3_bias_prelu
-        last = head.conv_last_u8
+    first = conv3x3.conv3x3_u8_bias_prelu_plain if plain else \
+        conv3x3.conv3x3_u8_bias_prelu
+    cf = params["conv_first"]
+    # conv_first has no activation: K3's PReLU at alpha 1 is the identity
+    feat = first(u8, cf["w"].to(dt), cf["b"],
+                 torch.ones(cfg.num_feat, device=u8.device))
+    a = dense_trunk(params, feat, cfg=cfg, compute_dtype=dt, plain=plain)
+    # feat + conv_body(body), written over feat
+    _dense_conv_fn(dt, plain)(a, cfg.num_feat, params["conv_body"], feat,
+                              0, "add", res=feat)
+    # the trunk's buffer goes before the head allocates at 2x and 4x
+    del a
+    held = [feat]
+    del feat
+    return _head(params, held, dt, plain)
+
+
+def _dense_conv_fn(dt: torch.dtype, plain: bool):
+    """K7 (or its plain version) over a conv's params in the compute
+    dtype, with its packed weights where `prepare` packed them."""
 
     def conv(src, cin, p, dst, off, epi, res=None, res2=None):
         w = p["w"].to(dt)
@@ -197,32 +211,62 @@ def apply(params: Params, u8: torch.Tensor, *, cfg: RRDBConfig,
         else:
             dense.dense_conv(src, cin, w, p["b"], dst, off, epi, res, res2,
                              packed=p.get("packed"))
+    return conv
 
-    dev = u8.device
-    cf = params["conv_first"]
-    # conv_first has no activation: K3's PReLU at alpha 1 is the identity
-    feat = first(u8, cf["w"].to(dt), cf["b"], torch.ones(nf, device=dev))
-    B, H, W, _ = u8.shape
+
+def dense_trunk(params: Params, feat: torch.Tensor, *, cfg: RRDBConfig,
+                compute_dtype: torch.dtype, plain: bool = False,
+                observe=None) -> torch.Tensor:
+    """The RRDB blocks of `apply` over feat (B, H, W, nf) in the compute
+    dtype, on K7: returns the dense buffer whose first nf channels hold
+    the trunk's output (conv_body's input).  `observe(buf, lo, hi)`, when
+    given, sees channels [lo, hi) of the buffer holding each dense
+    block's input and each growth slice as it is written (the
+    calibration's statistics, weights/quantize.py)."""
+    nf, gc, cs = cfg.num_feat, cfg.num_grow_ch, cfg.dense_channels
+    conv = _dense_conv_fn(compute_dtype, plain)
+    B, H, W, _ = feat.shape
     # a: the RRDB's input and, written in place by the third dense
     # block's last conv, its output; b, c: the first two blocks' outputs
-    a, b, c = (torch.empty((B, H, W, cs), dtype=dt, device=dev)
-               for _ in range(3))
+    a, b, c = (torch.empty((B, H, W, cs), dtype=compute_dtype,
+                           device=feat.device) for _ in range(3))
     a[..., :nf].copy_(feat)
     for block in params["body"]:
         for (src, dst), rdb, epi in zip(((a, b), (b, c), (c, a)),
                                         block["rdbs"], ("rdb", "rdb",
                                                         "rrdb")):
+            if observe is not None:
+                observe(src, 0, nf)
             convs = rdb["convs"]
             for i in range(4):
                 # growth slice i right after the channels conv i reads
-                conv(src, nf + i * gc, convs[i], src, nf + i * gc, "lrelu")
+                lo = nf + i * gc
+                conv(src, lo, convs[i], src, lo, "lrelu")
+                if observe is not None:
+                    observe(src, lo, lo + gc)
             conv(src, cs, convs[4], dst, 0, epi, res=src,
                  res2=a if epi == "rrdb" else None)
-    # feat + conv_body(body), written over feat
-    conv(a, nf, params["conv_body"], feat, 0, "add", res=feat)
-    # the trunk's buffers go before the head allocates at 2x and 4x
-    del a, b, c, src, dst
-    slope = torch.full((nf,), dense.SLOPE, device=dev)
+    return a
+
+
+def _head(params: Params, held: list, dt: torch.dtype,
+          plain: bool) -> torch.Tensor:
+    """The head after the trunk, u8 out: nearest x2 + conv_up1 + leaky
+    ReLU, the same at 4x with conv_up2, conv_hr + leaky ReLU, then
+    conv_last with the u8 rounding (K1 with PReLU at alpha 0.2, K2's
+    conv_last mode; their plain versions with `plain`).  `held`: a
+    one-element list holding feat (B, H, W, nf) in the compute dtype,
+    emptied here, so that the caller keeps no reference that would hold
+    feat while the head allocates at 2x and 4x."""
+    if plain:
+        up_conv = conv3x3.conv3x3_bias_prelu_plain
+        last = head.conv_last_u8_plain
+    else:
+        up_conv = conv3x3.conv3x3_bias_prelu
+        last = head.conv_last_u8
+    feat = held.pop()
+    nf = feat.shape[-1]
+    slope = torch.full((nf,), dense.SLOPE, device=feat.device)
     for name in ("conv_up1", "conv_up2"):
         p = params[name]
         x = upsample_nearest(feat, 2)
@@ -234,6 +278,134 @@ def apply(params: Params, u8: torch.Tensor, *, cfg: RRDBConfig,
     del feat
     p = params["conv_last"]
     return last(x, p["w"].to(dt), p["b"])
+
+
+def qbody_from_jax(tree) -> Dict[str, Any]:
+    """reve_tpu's quantize_rrdb output (numpy or jax arrays) -> the port's
+    qbody (weights.quantize.quantize_rrdb's layout), the same numbers as
+    torch tensors on the CPU."""
+
+    def t(a):
+        return torch.from_numpy(np.array(a, copy=True))
+
+    def conv(c):
+        return {k: t(c[k]) for k in ("w8", "sw", "b")}
+
+    return {"body": [[{k: [t(a) for a in q[k]] for k in ("w8", "sw", "b")}
+                      for q in block] for block in tree["body"]],
+            "conv_body": conv(tree["conv_body"]),
+            "act_scale": t(tree["act_scale"])}
+
+
+def prepare_qbody(qbody: Dict[str, Any]) -> Dict[str, Any]:
+    """qbody with, on a CUDA device, every K7q conv's s8 weights packed
+    once (`packed`: a list of 5 per dense block, one for conv_body), what
+    kernels.rrdb.dense_conv_s8 keeps resident; on the CPU as it is."""
+    if qbody["conv_body"]["w8"].device.type != "cuda":
+        return qbody
+    pack = dense.pack_weights_dense_s8
+    body = [[dict(q, packed=[pack(w) for w in q["w8"]]) for q in block]
+            for block in qbody["body"]]
+    cb = qbody["conv_body"]
+    return dict(qbody, body=body, conv_body=dict(cb, packed=pack(cb["w8"])))
+
+
+def _quant_into(dst: torch.Tensor, x: torch.Tensor,
+                inv: torch.Tensor) -> None:
+    """dst (int8) = reve_tpu srvgg._quant_s8(x): round(x * inv) half to
+    even, clipped to +-127, through one float32 temporary."""
+    t = x * inv
+    t.round_().clamp_(-127, 127)
+    dst.copy_(t)
+
+
+def apply_int8(params: Params, qbody: Dict[str, Any], u8: torch.Tensor, *,
+               cfg: RRDBConfig, compute_dtype: torch.dtype = torch.bfloat16,
+               plain: bool = False) -> torch.Tensor:
+    """int8 turbo forward, u8 -> u8: (B, H, W, 3) uint8 -> (B, 4H, 4W, 3)
+    uint8.  Equals reve_tpu's `rrdb.apply_int8(params, qbody, u8 / 255,
+    quantize_u8=True)` in its classic domain (its s2d form is exact in the
+    s8 convs):
+
+      conv_first on K3 in the compute dtype (as `apply`); body =
+          float32(feat) and its quantize with act_scale[0] as torch ops;
+      every dense-block conv on K7q (kernels.rrdb.dense_conv_s8): s8 x
+          s8 -> s32, dq = float32(y32) * sw + b, then lrelu_q for convs
+          1-4, rdb (dq * 0.2 + x in float32) for conv 5 and rrdb (then
+          * 0.2 + b_in) after the third dense block, each conv-5 output
+          quantized with the next statistic's scale;
+      conv_body on K7q's add form: feat = dtype(float32(feat) + dq);
+      the head exactly as `apply`'s.
+
+    Buffers: two s8 concat buffers of nf + 4 gc channels that alternate
+    by dense block (conv 5 writes its quantized output into the first nf
+    channels of the other one: neighbouring tiles still read its input
+    through their halos) and three float32 nf-channel buffers for the
+    residual chain (the RRDB's input, written over in place by the third
+    dense block, and the first two blocks' outputs).
+
+    `params`: float32 params or `prepare(params, compute_dtype)`; `qbody`:
+    weights.quantize.quantize_rrdb's, or prepare_qbody's (K7q's weights
+    packed once).  Every scale is formed here in torch as the reference
+    forms it: the reciprocals 1 / act_scale in float32.  `plain=True` runs
+    the plain PyTorch version of every kernel wherever the tensors are."""
+    if u8.dtype != torch.uint8:
+        raise TypeError(f"apply_int8 takes uint8 frames, got {u8.dtype}")
+    _check_cfg(cfg)
+    n = cfg.num_block * 15 + 1
+    if len(params["body"]) != cfg.num_block or \
+            len(qbody["body"]) != cfg.num_block or \
+            tuple(qbody["act_scale"].shape) != (n,):
+        raise ValueError(f"params / qbody hold {len(params['body'])} / "
+                         f"{len(qbody['body'])} RRDB blocks and "
+                         f"{tuple(qbody['act_scale'].shape)} scales; cfg "
+                         f"needs {cfg.num_block} and ({n},)")
+    dt = compute_dtype
+    nf, gc, cs = cfg.num_feat, cfg.num_grow_ch, cfg.dense_channels
+    first = conv3x3.conv3x3_u8_bias_prelu_plain if plain else \
+        conv3x3.conv3x3_u8_bias_prelu
+    conv_s8 = dense.dense_conv_s8_plain if plain else dense.dense_conv_s8
+
+    def conv(src, cin, q, i, epi, **kw):
+        if not plain:
+            kw["packed"] = q["packed"][i] if "packed" in q else None
+        conv_s8(src, cin, q["w8"][i], q["sw"][i], q["b"][i], epi, **kw)
+
+    dev = u8.device
+    inv = 1.0 / qbody["act_scale"]  # float32, as `1.0 / scale`
+    cf = params["conv_first"]
+    feat = first(u8, cf["w"].to(dt), cf["b"], torch.ones(nf, device=dev))
+    B, H, W, _ = u8.shape
+    s8 = [torch.empty((B, H, W, cs), dtype=torch.int8, device=dev)
+          for _ in range(2)]
+    # chain[0]: the RRDB's input, then (in place) its output; chain[1],
+    # chain[2]: the first two dense blocks' outputs
+    chain = [torch.empty((B, H, W, nf), dtype=torch.float32, device=dev)
+             for _ in range(3)]
+    chain[0].copy_(feat)
+    _quant_into(s8[0][..., :nf], chain[0], inv[0])
+    cur, si = 0, 0
+    for qblock in qbody["body"]:
+        for j, q in enumerate(qblock):
+            src, dst = s8[cur], s8[1 - cur]
+            for i in range(4):
+                # growth slice i right after the channels conv i reads
+                conv(src, nf + i * gc, q, i, "lrelu_q", inv=inv[si + i + 1],
+                     out8=src, out8_off=nf + i * gc)
+            last = j == len(qblock) - 1
+            conv(src, cs, q, 4, "rrdb" if last else "rdb",
+                 inv=inv[si + 5], out8=dst, res=chain[j],
+                 res2=chain[0] if last else None,
+                 out=chain[0] if last else chain[j + 1])
+            cur, si = 1 - cur, si + 5
+    # feat + conv_body(quant(body)), written over feat
+    cb = qbody["conv_body"]
+    conv(s8[cur], nf, {k: [v] for k, v in cb.items()}, 0, "add", res=feat,
+         out=feat)
+    del s8, chain, src, dst
+    held = [feat]
+    del feat
+    return _head(params, held, dt, plain)
 
 
 # -- weight loading ----------------------------------------------------------

@@ -15,12 +15,14 @@ Counterpart of reve_tpu/pipeline/engine.py.  Design:
     per model call, when one frame fits the free device memory beside the
     in-flight IO reserve, and halo tiles (`ops/tiling.py`, byte-identical
     to the whole frame) when one does not or `tile > 0` asks for them.
-  * int8 turbo (`compute_dtype="int8"`): the hidden stack and the head
+  * int8 turbo (`compute_dtype="int8"`): SRVGG's hidden stack and head
     run in s8 (K4a, K4, K4h), the first conv and the epilogue in
-    bfloat16/float32, with activation scales from a float32 calibration
-    forward over sampled whole frames (`calibrate_int8`), persisted
-    first-wins through `calibration_hook`; `certify_int8` measures its
-    PSNR against the float32 path on the job's own frames.
+    bfloat16/float32; RRDB's trunk runs in s8 on K7q with float32
+    residuals, conv_first and the head in bfloat16.  Activation scales
+    come from a float32 calibration forward over sampled whole frames
+    (`calibrate_int8`), persisted first-wins through `calibration_hook`;
+    `certify_int8` measures its PSNR against the float32 path on the
+    job's own frames.
   * TTA (`tta=True`): the 8-transform dihedral self-ensemble.  Each
     forward transform runs on the device after the H2D copy, each
     transform's model output goes straight into K6 (the inverse transform
@@ -28,15 +30,15 @@ Counterpart of reve_tpu/pipeline/engine.py.  Design:
     one D2H copy reads (`TTAPendingBatch`).
 
   * Two architectures: SRVGG (K3, K1, K2) and RRDBNet at x4 (K3, K7 for
-    the dense-block trunk, K1 for the up and hr convs, K2's conv_last
-    mode), each behind `_forward`, so tiling and TTA reach both the same
-    way.  RRDB's halo is reve_tpu's documented approximation (24 px; its
+    the dense-block trunk, or K7q in int8, K1 for the up and hr convs,
+    K2's conv_last mode), each behind `_forward`, so tiling and TTA reach
+    both the same way.  RRDB's halo is reve_tpu's documented approximation (24 px; its
     receptive field is far wider, so its tiles are not byte-identical to
     whole frames), and its memory plan bills its own allocations
     (`_rrdb_bytes`).
 
 Not ported yet (raises NotImplementedError naming its ROADMAP.md
-port-queue item): multi-device meshes, RRDB int8, RRDB x2.
+port-queue item): multi-device meshes, RRDB x2.
 """
 
 from __future__ import annotations
@@ -237,12 +239,21 @@ class UpscaleEngine:
         if refusal is not None:
             raise _not_ported(*refusal)
         self.cfg = cfg
+        #: the float32 params that int8 calibration, quantization and
+        #: certification read (None off int8)
+        self._params_f32 = None
         if self._rrdb:
-            # weights cast, and K7's packed, once for every batch
-            self.params = rrdb.prepare(rrdb.params_to(params, self.device),
-                                       self.compute_dtype)
+            # weights cast, and K7's packed, once for every batch; an int8
+            # engine also keeps them in float32 (K7's three planes packed)
+            # for its float32 measurement passes
+            params = rrdb.params_to(params, self.device)
+            self.params = rrdb.prepare(params, self.compute_dtype)
+            if self._int8:
+                self._params_f32 = rrdb.prepare(params, torch.float32)
         else:
             self.params = srvgg.params_to(params, self.device)
+            if self._int8:
+                self._params_f32 = self.params
         self.scale = cfg.upscale
         self.batch_size = batch_size
         #: 0 = tile only frames past the memory plan, -1 = never tile,
@@ -281,22 +292,31 @@ class UpscaleEngine:
             act = h * w * self.cfg.num_feat * bpe * _ACT_BUFFERS
         return act + self._in_bytes(h, w) + self._out_bytes(h, w)
 
-    def _rrdb_bytes(self, h: int, w: int) -> int:
-        """Peak device bytes of one frame's activations in rrdb.apply, the
-        largest of its phases (float32 adds each conv input's split
-        planes):
+    def _rrdb_bytes(self, h: int, w: int,
+                    dtype: Optional[torch.dtype] = None) -> int:
+        """Peak device bytes of one frame's activations in rrdb.apply (or,
+        on an int8 engine, apply_int8) in `dtype` (None: the engine's
+        compute dtype), the largest of its phases (float32 adds each conv
+        input's split planes):
           trunk   feat + three dense buffers of nf + 4 gc channels (+ the
-                  split of a conv's up-to nf + 4 gc input channels);
+                  split of a conv's up-to nf + 4 gc input channels); int8:
+                  feat, two s8 dense buffers, three float32 nf-channel
+                  chain buffers and the first quantize's float32
+                  temporary;
           up1     at 2x: the upsampled input and conv_up1's output (+ its
                   split);
           up2/hr  at 4x: a conv's input and output (+ its split), which
-                  peaks: 4096 B per input pixel in bfloat16, 14,336 in
-                  float32.
+                  peaks: 4096 B per input pixel in bfloat16 (and int8),
+                  14,336 in float32.
         Each phase frees the last one's tensors before it allocates."""
-        bpe = self._bpe()
-        split = _SPLIT_BYTES if self.compute_dtype == torch.float32 else 0
+        dtype = dtype or self.compute_dtype
+        bpe = torch.finfo(dtype).bits // 8
+        split = _SPLIT_BYTES if dtype == torch.float32 else 0
         nf, cs = self.cfg.num_feat, self.cfg.dense_channels
-        trunk = (3 * cs + nf) * bpe + cs * split
+        if self._int8 and dtype != torch.float32:
+            trunk = nf * bpe + 2 * cs + 4 * nf * 4
+        else:
+            trunk = (3 * cs + nf) * bpe + cs * split
         per_px = max(trunk, *(r * r * (2 * nf * bpe + nf * split)
                               for r in (2, 4)))
         return h * w * per_px
@@ -450,6 +470,10 @@ class UpscaleEngine:
 
     def _forward(self, u8: torch.Tensor) -> torch.Tensor:
         self.stats.calls += 1
+        if self._rrdb and self._int8:
+            return rrdb.apply_int8(self.params, self._qbody, u8,
+                                   cfg=self.cfg,
+                                   compute_dtype=self.compute_dtype)
         if self._rrdb:
             return rrdb.apply(self.params, u8, cfg=self.cfg,
                               compute_dtype=self.compute_dtype)
@@ -522,9 +546,11 @@ class UpscaleEngine:
                 x = torch.from_numpy(np.ascontiguousarray(
                     frames[i:i + chunk], np.uint8)).to(self.device)
                 m = quantize.collect_maxima(
-                    self.params, x, cfg=self.cfg,
+                    self._params_f32, x, cfg=self.cfg,
                     percentile=self._calib_percentile).cpu().numpy()
                 maxima = m if maxima is None else np.maximum(maxima, m)
+                del x
+            self._release_cache()
         self.stats.calibrate_s += time.perf_counter() - t0
         if self.calibration_hook is not None and not provisional:
             maxima = np.asarray(self.calibration_hook(maxima), np.float32)
@@ -535,9 +561,10 @@ class UpscaleEngine:
 
         with self._on_device():
             # margin absorbs content hotter than the calibration batch
-            self._qbody = quantize.build_qbody(self.params, self.cfg,
-                                               np.asarray(maxima),
-                                               margin=1.25)
+            qbody = quantize.build_qbody(self._params_f32, self.cfg,
+                                         np.asarray(maxima), margin=1.25)
+            # K7q's weights packed once per quantization
+            self._qbody = rrdb.prepare_qbody(qbody) if self._rrdb else qbody
         self._qbody_provisional = provisional
         self._act_maxima = np.asarray(maxima, np.float32)
 
@@ -566,6 +593,13 @@ class UpscaleEngine:
         self._qbody_provisional = False
         self._act_maxima = None
 
+    def _release_cache(self) -> None:
+        """After a chunked pass (a batch's, or the int8 measurement's):
+        give the allocator's freed segments back, so that what is
+        allocated next does not split one of them and hold it."""
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
     def _maybe_calibrate(self, frames: np.ndarray, provisional: bool) -> None:
         if not self._int8:
             return
@@ -592,21 +626,32 @@ class UpscaleEngine:
         if chunk is None:
             chunk = max(1, self._CALIB_CHUNK_ELEMS
                         // max(ch * cw * self.cfg.num_feat, 1))
+        if self._rrdb and self.device.type == "cuda":
+            # the float32 RRDB pass bills ~13 GB a 720p frame: at most the
+            # frames that fit the free memory (the sum is chunk-free)
+            fit = int(self._free_bytes() * _MEM_FRACTION) // max(
+                self._rrdb_bytes(ch, cw, torch.float32)
+                + 2 * self._out_bytes(ch, cw) + self._in_bytes(ch, cw), 1)
+            chunk = max(1, min(chunk, fit))
+        model = rrdb if self._rrdb else srvgg
         sse = 0
         with self._on_device():
             for i in range(0, n_real, chunk):
                 x = torch.from_numpy(np.ascontiguousarray(
                     measured[i:min(i + chunk, n_real)],
                     np.uint8)).to(self.device)
-                y8 = srvgg.apply_int8(self.params, self._qbody, x,
+                y8 = model.apply_int8(self.params, self._qbody, x,
                                       cfg=self.cfg,
                                       compute_dtype=self.compute_dtype)
-                yf = srvgg.apply(self.params, x, cfg=self.cfg,
+                yf = model.apply(self._params_f32, x, cfg=self.cfg,
                                  compute_dtype=torch.float32)
                 d = y8.int() - yf.int()
-                del y8, yf
+                # each chunk's outputs are freed before the next chunk runs
+                del y8, yf, x
                 # int64 sum of squares: exact at any frame count
                 sse += int((d * d).sum())
+                del d
+            self._release_cache()
         self.stats.certify_s += time.perf_counter() - t0
         cnt = n_real * (ch * self.scale) * (cw * self.scale) * 3
         mse = max(sse / max(cnt, 1), 1e-12)
@@ -660,7 +705,7 @@ class UpscaleEngine:
         for i in range(0, b, plan.per_call):
             yield i, min(i + plan.per_call, b), \
                 self._forward(x[i:i + plan.per_call])
-        if plan.per_call < b and self.device.type == "cuda":
+        if plan.per_call < b:
             # the caller has dropped the last chunk's output (each chunk
             # finds the last one's freed segments whole, since nothing is
             # allocated between them): give the segments back, so that
@@ -668,7 +713,7 @@ class UpscaleEngine:
             # transformed input, the next batch's) lands in one and splits
             # it, which would keep the next pass's tensors of tens of GB
             # from fitting where free memory suffices
-            torch.cuda.empty_cache()
+            self._release_cache()
 
     def _ensemble(self, x: torch.Tensor):
         """The TTA ensemble of the device batch x: per transform, its

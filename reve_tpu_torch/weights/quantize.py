@@ -1,8 +1,8 @@
-"""Post-training int8 quantization of the SRVGG body (the int8 turbo).
+"""Post-training int8 quantization of the SRVGG body and the RRDB trunk
+(the int8 turbo).
 
-Counterpart of reve_tpu/weights/quantize.py, SRVGG part (RRDB's trunk
-quantization is not ported: ROADMAP.md port queue, RRDB int8).  The
-scheme is the reference's, to the bit:
+Counterpart of reve_tpu/weights/quantize.py.  The scheme is the
+reference's, to the bit:
 
   * weights: per-output-channel symmetric int8,
     ``w8[..., o] = clip(round(w[..., o] / sw[o]), -127, 127)`` with
@@ -18,8 +18,16 @@ Given the same maxima, quantization is float32 elementwise math and comes
 out identical to the reference's, so a calibration persisted by either
 package (Workspace.claim_calibration) quantizes the same way in both.  The
 maxima themselves agree to float32 accumulation order (about 1e-6
-relative): the calibration forward runs K3/K1 in float32 on CUDA and their
-plain versions on the CPU.
+relative): the calibration forward runs K3/K1 (RRDB: K3/K7) in float32 on
+CUDA and their plain versions on the CPU.
+
+RRDB (quantize_rrdb): every dense conv reads a concat of parts with their
+own ranges (the dense block's input and the growth slices), so each part
+keeps its own activation scale, folded into its weight slice before the
+per-output-channel weight quantization (`w' = w * s_part(ci)`); its
+dequant is then `float32(y32) * sw + b`, with no activation scale.  Its
+statistics (collect_act_maxima_rrdb): per block, per dense block, the
+block's input and h1..h4, then conv_body's input: num_block * 15 + 1.
 """
 
 from __future__ import annotations
@@ -31,18 +39,12 @@ import numpy as np
 import torch
 
 from reve_tpu_torch.kernels import conv3x3
-from reve_tpu_torch.models import srvgg
+from reve_tpu_torch.models import rrdb, srvgg
 
 #: percentile statistics of tensors above this many elements are taken on
 #: a deterministic strided subsample of ~this many (reve_tpu's cap); it
 #: also keeps torch.quantile under its 2^24-element input limit
 _PCT_SAMPLE_CAP = 1 << 22
-
-
-def _not_ported_rrdb() -> NotImplementedError:
-    return NotImplementedError(
-        "int8 quantization of RRDB is not yet ported in reve_tpu_torch "
-        "(ROADMAP.md port queue: RRDB int8)")
 
 
 @dataclasses.dataclass
@@ -99,8 +101,6 @@ def collect_act_maxima(params: Dict[str, Any], u8: torch.Tensor, *,
     hidden conv and one for the head conv's input (reve_tpu
     collect_act_maxima, classic domain).  The float32 forward runs K3 and
     K1 (their plain versions on the CPU, or with `plain=True`)."""
-    if not isinstance(cfg, srvgg.SRVGGConfig):
-        raise _not_ported_rrdb()
     if plain:
         first = conv3x3.conv3x3_u8_bias_prelu_plain
         hidden = conv3x3.conv3x3_bias_prelu_plain
@@ -118,6 +118,43 @@ def collect_act_maxima(params: Dict[str, Any], u8: torch.Tensor, *,
     return torch.stack(maxima)
 
 
+def rrdb_num_stats(cfg: rrdb.RRDBConfig) -> int:
+    return cfg.num_block * 15 + 1
+
+
+def collect_act_maxima_rrdb(params: Dict[str, Any], u8: torch.Tensor, *,
+                            cfg: rrdb.RRDBConfig,
+                            percentile: Optional[float] = None,
+                            plain: bool = False) -> torch.Tensor:
+    """Calibration forward in float32 over the RRDB trunk of (B, H, W, 3)
+    uint8 frames: (num_block * 15 + 1,) |activation| statistics in
+    reve_tpu's layout (per block, per dense block: its input, h1..h4;
+    then conv_body's input).  The forward is rrdb.apply's trunk in
+    float32: K3 for conv_first, K7 for the dense convs (their plain
+    versions on the CPU, or with `plain=True`); `params` float32, or
+    rrdb.prepare(params, torch.float32) (K7's weights packed once).
+
+    Each statistic is taken over the tensor the reference holds, (B, H,
+    W, C) of that part alone: a channel slice of the 192-channel dense
+    buffer, made contiguous, so the percentile's strided subsample reads
+    the reference's elements."""
+    nf = cfg.num_feat
+    first = conv3x3.conv3x3_u8_bias_prelu_plain if plain else \
+        conv3x3.conv3x3_u8_bias_prelu
+    stats = []
+
+    def observe(buf, lo, hi):
+        stats.append(_stat(buf[..., lo:hi].contiguous(), percentile))
+
+    cf = params["conv_first"]
+    feat = first(u8, cf["w"].float(), cf["b"],
+                 torch.ones(nf, device=u8.device))
+    a = rrdb.dense_trunk(params, feat, cfg=cfg, compute_dtype=torch.float32,
+                         plain=plain, observe=observe)
+    observe(a, 0, nf)
+    return torch.stack(stats)
+
+
 def _qw(w: torch.Tensor):
     w = w.float()
     s = torch.amax(w.abs(), dim=(0, 1, 2)).clamp_min(1e-12) / 127.0
@@ -129,14 +166,8 @@ def quantize_hidden(params: Dict[str, Any], cfg: srvgg.SRVGGConfig,
     """int8 hidden-stack + head params from float32 params + calibration
     maxima ((num_conv + 1,), e.g. from `collect_act_maxima`), on the
     params' device.  `margin` (>= 1) widens the activation ranges."""
-    dev = params["convs"][0]["w"].device
-    if not torch.is_tensor(act_maxima):
-        act_maxima = torch.from_numpy(np.array(act_maxima, np.float32))
-    act_maxima = act_maxima.to(dev, torch.float32)
-    if tuple(act_maxima.shape) != (cfg.num_conv + 1,):
-        raise ValueError(f"act_maxima must be ({cfg.num_conv + 1},), "
-                         f"got {tuple(act_maxima.shape)}")
-    act_scale = (act_maxima * float(margin)).clamp_min(1e-8) / 127.0
+    act_scale = _act_scale(act_maxima, cfg.num_conv + 1, margin,
+                           params["convs"][0]["w"].device)
     w8, sw, b, alpha = [], [], [], []
     for i in range(cfg.num_conv):
         q, s = _qw(params["convs"][i + 1]["w"])
@@ -151,15 +182,73 @@ def quantize_hidden(params: Dict[str, Any], cfg: srvgg.SRVGGConfig,
                          b_last=params["convs"][-1]["b"].float())
 
 
+def _act_scale(act_maxima, n: int, margin: float, dev) -> torch.Tensor:
+    """max(maxima * margin, 1e-8) / 127 in float32, from (n,) maxima."""
+    if not torch.is_tensor(act_maxima):
+        act_maxima = torch.from_numpy(np.array(act_maxima, np.float32))
+    act_maxima = act_maxima.to(dev, torch.float32)
+    if tuple(act_maxima.shape) != (n,):
+        raise ValueError(f"act_maxima must be ({n},), got "
+                         f"{tuple(act_maxima.shape)}")
+    return (act_maxima * float(margin)).clamp_min(1e-8) / 127.0
+
+
+def _qw_folded(w: torch.Tensor, part_scales, part_channels):
+    """reve_tpu quantize_rrdb._qw_folded: each input-channel part's
+    activation scale folded into its weight slice, then _qw."""
+    sc = torch.cat([s.reshape(1).expand(c) for s, c in
+                    zip(part_scales, part_channels)])
+    return _qw(w.float() * sc[None, None, :, None])
+
+
+def quantize_rrdb(params: Dict[str, Any], cfg: rrdb.RRDBConfig, act_maxima,
+                  margin: float = 1.0) -> Dict[str, Any]:
+    """The int8 RRDB trunk from float32 params + calibration maxima
+    ((num_block * 15 + 1,), e.g. from collect_act_maxima_rrdb), on the
+    params' device, in reve_tpu quantize_rrdb's layout:
+      body: per block, per dense block: {"w8": [5], "sw": [5], "b": [5]}
+        (HWIO int8 with each part's activation scale folded in; sw the
+        per-output-channel dequant scale; b float32);
+      conv_body: {"w8", "sw", "b"};
+      act_scale: (num_block * 15 + 1,) float32, the quant scale of each
+        statistic's tensor."""
+    n = rrdb_num_stats(cfg)
+    act_scale = _act_scale(act_maxima, n, margin,
+                           params["conv_body"]["w"].device)
+    nf, gc = cfg.num_feat, cfg.num_grow_ch
+    body, si = [], 0
+    for block in params["body"]:
+        rdbs = []
+        for rdb_p in block["rdbs"]:
+            scales = act_scale[si:si + 5]  # [x, h1, h2, h3, h4]
+            si += 5
+            q = {"w8": [], "sw": [], "b": []}
+            for i, conv in enumerate(rdb_p["convs"]):
+                w8, sw = _qw_folded(conv["w"], scales[:i + 1],
+                                    [nf] + [gc] * i)
+                q["w8"].append(w8)
+                q["sw"].append(sw)
+                q["b"].append(conv["b"].float())
+            rdbs.append(q)
+        body.append(rdbs)
+    assert si == n - 1, (si, n)
+    w8, sw = _qw_folded(params["conv_body"]["w"], act_scale[si:], [nf])
+    return {"body": body,
+            "conv_body": {"w8": w8, "sw": sw,
+                          "b": params["conv_body"]["b"].float()},
+            "act_scale": act_scale}
+
+
 def collect_maxima(params, u8, *, cfg, percentile: Optional[float] = None,
                    plain: bool = False) -> torch.Tensor:
-    """Calibration statistics for any supported architecture (SRVGG)."""
-    return collect_act_maxima(params, u8, cfg=cfg, percentile=percentile,
-                              plain=plain)
+    """Calibration statistics for any supported architecture."""
+    fn = collect_act_maxima if isinstance(cfg, srvgg.SRVGGConfig) else \
+        collect_act_maxima_rrdb
+    return fn(params, u8, cfg=cfg, percentile=percentile, plain=plain)
 
 
 def build_qbody(params, cfg, act_maxima, margin: float = 1.0):
-    """Quantized body for any supported architecture (SRVGG)."""
-    if not isinstance(cfg, srvgg.SRVGGConfig):
-        raise _not_ported_rrdb()
-    return quantize_hidden(params, cfg, act_maxima, margin=margin)
+    """Quantized body for any supported architecture."""
+    if isinstance(cfg, srvgg.SRVGGConfig):
+        return quantize_hidden(params, cfg, act_maxima, margin=margin)
+    return quantize_rrdb(params, cfg, act_maxima, margin=margin)

@@ -39,7 +39,11 @@ sqrt(9 Cin)) and activations in [-1, 1], scaled with the inputs at
 +-2^8; bfloat16 <= 2 bf16 ulp of the largest operand of its epilogue
 (the conv value, its residuals, the result): a residual add can cancel,
 so a conv value rounded to the neighbouring bf16 lands on a result near
-zero.  K2's conv_last mode: u8 |d| <= 1.  K6 (csrc/tta.cu) moves bytes and adds
+zero.  K7q (csrc/rrdb_s8.cu, RRDB's int8 dense convs): exact (s8 codes
+and float outputs; integer sums and the same float32 steps), also past
+|acc| = 2^24 and at the quantize's clip; the int8 RRDB model u8 |d| <= 1
+(its bf16 conv_first and head sum in another order) and one call's peak
+memory within the engine's bill.  K2's conv_last mode: u8 |d| <= 1.  K6 (csrc/tta.cu) moves bytes and adds
 integers: exact, for each of the 8 transforms and its three forms, on
 ragged shapes and batches.  The engine's halo tiles are byte-identical to
 its whole frames on the card in bfloat16, float32 and int8 (the kernels
@@ -1210,3 +1214,190 @@ def test_chunked_float32_rrdb_runs_with_fixed_allocator_segments():
         assert out[tta]["same"], out
     assert out["False"]["calls"] == 2 * -(-4 // out["False"]["plan"][1])
     assert out["max_d"] <= 1, out
+
+
+# -- RRDB int8: K7q, the model, the engine's memory -----------------------------
+
+#: K7q's forms on the model's path: (Cin, Cout, epilogue); "add" once with
+#: a float32 and once with a bfloat16 feat
+K7Q_FORMS = [(64, 32, "lrelu_q"), (96, 32, "lrelu_q"), (128, 32, "lrelu_q"),
+             (160, 32, "lrelu_q"), (192, 64, "rdb"), (192, 64, "rrdb"),
+             (64, 64, "add"), (64, 64, "add_bf16")]
+
+
+def _k7q_case(seed, B, H, W, cin, cout, epi, dev, x_max=127, w_max=127):
+    """Operands of one K7q call: a random s8 192-channel buffer, s8
+    weights, per-channel sw and b at the model's scale, 1 / s_next, and
+    float32 residuals (add: feat, float32 or bfloat16)."""
+    rs = np.random.RandomState(seed)
+
+    def s8(shape, m):
+        return torch.from_numpy(rs.randint(-m, m + 1, shape)
+                                .astype(np.int8)).to(dev)
+
+    def f32(shape, lo, hi):
+        return torch.from_numpy(rs.uniform(lo, hi, shape)
+                                .astype(np.float32)).to(dev)
+
+    c = dict(buf=s8((B, H, W, 192), x_max), w8=s8((3, 3, cin, cout), w_max),
+             sw=f32(cout, 2e-6, 8e-6), b=f32(cout, -0.05, 0.05),
+             inv=1.0 / f32((), 0.01, 0.03), res=f32((B, H, W, cout), -2, 2),
+             res2=f32((B, H, W, cout), -2, 2))
+    if epi == "add_bf16":
+        c["res"] = c["res"].bfloat16()
+    return c
+
+
+def _k7q_run(c, cin, epi, plain):
+    """K7q or its plain version on copies of the case's tensors; returns
+    (the s8 buffer it read, the other s8 buffer, the float output)."""
+    buf, other = c["buf"].clone(), torch.zeros_like(c["buf"])
+    kw = dict(inv=c["inv"], out8=other)
+    if epi == "lrelu_q":
+        kw.update(out8=buf, out8_off=cin)
+        out = None
+    elif epi == "rdb":
+        out = torch.zeros_like(c["res"])
+        kw.update(res=c["res"], out=out)
+    elif epi == "rrdb":
+        out = c["res2"].clone()  # written over in place
+        kw.update(res=c["res"], res2=out, out=out)
+    else:
+        out = c["res"].clone()  # feat, written over in place
+        kw = dict(res=out, out=out)
+    fn = k7.dense_conv_s8_plain if plain else k7.dense_conv_s8
+    fn(buf, cin, c["w8"], c["sw"], c["b"], epi.replace("_bf16", ""), **kw)
+    return buf, other, out
+
+
+def _k7q_exact(got, want):
+    for g, w in zip(got, want):
+        if g is not None:
+            assert int((g != w).sum()) == 0, (g.dtype, int((g != w).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,epi", K7Q_FORMS)
+def test_k7q_matches_plain_at_tile_edges(cin, cout, epi):
+    """Each K7q form exact against its plain version (s8 codes n_diff 0,
+    float32 and bfloat16 outputs bit-identical: integer sums and the same
+    float32 steps, each rounded on its own) on ragged and whole tiles."""
+    dev = _cuda()
+    for i, (B, H, W) in enumerate(K7_SHAPES):
+        c = _k7q_case(cin + i, B, H, W, cin, cout, epi, dev)
+        before = LAUNCHES["dense_conv_s8"]
+        got = _k7q_run(c, cin, epi, plain=False)
+        want = _k7q_run(c, cin, epi, plain=True)
+        torch.cuda.synchronize()
+        _k7q_exact(got, want)
+        assert LAUNCHES["dense_conv_s8"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,epi", [(96, 32, "lrelu_q"),
+                                          (192, 64, "rrdb")])
+def test_k7q_at_saturation_and_past_2_24(cin, cout, epi):
+    """Inputs and weights at +-127 of one sign make |acc| up to 9 x 192 x
+    127^2 > 2^24, where float32(acc) rounds (to nearest even, in both),
+    and drive the quantize into its clip at +-127: still exact."""
+    dev = _cuda()
+    c = _k7q_case(7, 2, 9, 70, cin, cout, epi, dev, x_max=1, w_max=1)
+    c["buf"] = c["buf"].clamp(0, 1) * 127
+    c["w8"] = torch.where(c["w8"] >= 0, 127, -127).to(torch.int8)
+    got = _k7q_run(c, cin, epi, plain=False)
+    want = _k7q_run(c, cin, epi, plain=True)
+    torch.cuda.synchronize()
+    _k7q_exact(got, want)
+    written = got[0][..., cin:cin + cout] if epi == "lrelu_q" else \
+        got[1][..., :cout]
+    assert bool((written.abs() == 127).any())
+
+
+@pytest.mark.cuda
+def test_k7q_writes_only_its_channels():
+    """lrelu_q writes only its growth slice of the buffer it reads; rdb
+    only the first 64 channels of the other buffer."""
+    dev = _cuda()
+    c = _k7q_case(3, 2, 19, 45, 96, 32, "lrelu_q", dev)
+    buf = c["buf"].clone()
+    k7.dense_conv_s8(buf, 96, c["w8"], c["sw"], c["b"], "lrelu_q",
+                     inv=c["inv"], out8=buf, out8_off=96)
+    torch.cuda.synchronize()
+    assert torch.equal(buf[..., :96], c["buf"][..., :96])
+    assert torch.equal(buf[..., 128:], c["buf"][..., 128:])
+    c = _k7q_case(4, 2, 19, 45, 192, 64, "rdb", dev)
+    other = c["buf"].flip(0).contiguous()
+    before = other.clone()
+    k7.dense_conv_s8(c["buf"], 192, c["w8"], c["sw"], c["b"], "rdb",
+                     inv=c["inv"], out8=other, res=c["res"],
+                     out=torch.empty_like(c["res"]))
+    torch.cuda.synchronize()
+    assert torch.equal(other[..., 64:], before[..., 64:])
+
+
+def _rrdb_int8_small(dev, num_block=2):
+    """A 2-block RRDB (seeded biases) with a quantization calibrated on
+    seeded frames on the card: (cfg, float32 params, bf16-prepared
+    params, K7q-prepared qbody)."""
+    cfg, params = _rrdb_small(num_block)
+    params = rrdb.params_to(params, dev)
+    u8 = torch.from_numpy(np.random.RandomState(5).randint(
+        0, 256, (2, 24, 70, 3), np.uint8)).to(dev)
+    maxima = quantize.collect_maxima(rrdb.prepare(params, torch.float32), u8,
+                                     cfg=cfg, percentile=99.9)
+    qb = rrdb.prepare_qbody(quantize.build_qbody(params, cfg, maxima,
+                                                 margin=1.25))
+    return cfg, params, rrdb.prepare(params, torch.bfloat16), qb
+
+
+@pytest.mark.cuda
+def test_rrdb_int8_model_kernels_match_plain():
+    """apply_int8 through K3, K7q (15 per block + conv_body), K1 x 3 and
+    the conv_last mode against its plain path on the card: the s8 trunk
+    is exact, the bf16 head sums in another order (u8 |d| <= 1, >= 60
+    dB)."""
+    dev = _cuda()
+    cfg, params, prepared, qb = _rrdb_int8_small(dev)
+    u8 = torch.from_numpy(np.random.RandomState(6).randint(
+        0, 256, (2, 24, 70, 3), np.uint8)).to(dev)
+    before = dict(LAUNCHES)
+    got = rrdb.apply_int8(prepared, qb, u8, cfg=cfg)
+    torch.cuda.synchronize()
+    n = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    assert (n["conv3x3_u8_bias_prelu"], n["dense_conv_s8"],
+            n["dense_conv"], n["conv3x3_bias_prelu"],
+            n["conv_last_u8"]) == (1, 15 * cfg.num_block + 1, 0, 3, 1)
+    ref = rrdb.apply_int8(params, qb, u8, cfg=cfg, plain=True)
+    assert got.shape == ref.shape == (2, 96, 280, 3)
+    d = (got.int() - ref.int()).abs()
+    mse = (d.double() ** 2).mean().item()
+    assert d.max().item() <= 1
+    assert 10 * np.log10(255.0 ** 2 / max(mse, 1e-12)) >= 60.0
+
+
+@pytest.mark.cuda
+def test_rrdb_int8_engine_peak_memory_within_its_bill():
+    """One call of an int8 RRDB engine (2 frames of 540 x 960) peaks at
+    most at what the memory plan bills for it (_rrdb_bytes: the bf16 head
+    at 4x, past the s8 trunk); its calibration and certification (the
+    float32 model) leave the allocator's cache empty."""
+    dev = _cuda()
+    cfg, params = _rrdb_small()
+    eng = UpscaleEngine(compute_dtype="int8", batch_size=2,
+                        preloaded=(cfg, params))
+    frames = np.random.RandomState(8).randint(0, 256, (2, 540, 960, 3),
+                                              np.uint8)
+    assert eng.certify_int8(frames) > 0
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_reserved() - torch.cuda.memory_allocated() \
+        < 2 ** 28
+    plan = eng._plan_execution(540, 960)
+    x = torch.from_numpy(frames).to(dev)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with eng._on_device():
+        y = eng._forward(x[:plan.per_call])
+    torch.cuda.synchronize()
+    del y
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak <= plan.per_call * eng._frame_bytes(540, 960), peak

@@ -371,13 +371,13 @@ def test_registry_names_and_refusals(monkeypatch, tmp_path):
         assert (cfg.num_block, cfg.upscale, cfg.num_feat) == (blocks, 4, 64)
         assert len(params["body"]) == blocks
         spec = registry.parse_model_name(name)[0]
-        for dtype in (None, "auto", "float32", "bfloat16"):
+        # every dtype is ported at x4, int8 included (rrdb.apply_int8)
+        for dtype in (None, "auto", "float32", "bfloat16", "int8"):
             assert registry.unported(spec.arch, spec.upscale, dtype) is None
-        # the one place the CLI, the API and the engine read the
-        # refusals from
-        assert registry.unported(spec.arch, spec.upscale, "int8")[1] == \
-            "RRDB int8"
+    # the one place the CLI, the API and the engine read the refusals
+    # from: x2 stays refused in every dtype
     assert registry.unported("rrdb", 2)[1] == "RRDB x2"
+    assert registry.unported("rrdb", 2, "int8")[1] == "RRDB x2"
     assert registry.unported("srvgg", 4, "int8") is None
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*RRDB x2"):
         registry.load_model("realesrgan-x2plus", 2, allow_random_init=True)
@@ -437,14 +437,20 @@ def test_engine_matches_jax_engine(mode):
 
 
 def test_engine_refuses_rrdb_int8_and_x2():
+    """RRDB int8 is ported: the engine builds it (bfloat16 float parts,
+    the float32 weights kept for its measurement passes); RRDB x2 stays
+    refused, in int8 too."""
     jcfg, jp = _jparams(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*RRDB int8"):
-        UpscaleEngine(device="cpu", compute_dtype="int8",
-                      preloaded=_port(jcfg, jp))
+    eng = UpscaleEngine(device="cpu", compute_dtype="int8",
+                        preloaded=_port(jcfg, jp))
+    assert eng._int8 and eng.compute_dtype is torch.bfloat16
+    assert eng._params_f32["conv_body"]["w"].dtype == torch.float32
     cfg, params = _port(jcfg, jp)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*RRDB x2"):
-        UpscaleEngine(device="cpu", preloaded=(
-            dataclasses.replace(cfg, upscale=2), params))
+    for dtype in ("bfloat16", "int8"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md.*RRDB x2"):
+            UpscaleEngine(device="cpu", compute_dtype=dtype, preloaded=(
+                dataclasses.replace(cfg, upscale=2), params))
 
 
 def _gpu_plan(engine, monkeypatch, free_bytes):
