@@ -99,8 +99,12 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               dtypes at a batch of 4 1080p frames on the model's own
               activations, each against its plain version (bfloat16 <=
               2 ulp of the largest operand of its epilogue; float32 max
-              |d| <= 2e-6), timed beside the plain version, cuDNN's
-              F.conv2d and its bound; the CLI job (-s 4 --model
+              |d| <= 2e-6; float32 on the planes of its input, and the
+              planes it writes equal to the split pass's of its output),
+              timed beside the plain version, cuDNN's F.conv2d and its
+              bound; K7's part times (perf_conv_tc_parts on rrdb.cu:
+              its loads, weight copies, wgmmas or epilogue taken out,
+              the epilogue alone); the CLI job (-s 4 --model
               realesrgan-x4plus --allow-random-init --dtype auto =
               bfloat16) with the counters zeroed around it: per model
               call K3 1, K7 346, K1 3 and K2's conv_last mode 1; each
@@ -112,7 +116,9 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               a float32 engine batch through the plan's chunks, twice,
               with PyTorch's default allocator (the second batch
               byte-identical to the first), every frame at u8 |d| <= 1
-              against the plain float32 path; the model's ms per batch,
+              against the plain float32 path, with 5 split passes a
+              call (feat's, the head's) and none in the trunk; the
+              model's ms per batch,
               the plan and one call's peak device memory, at most what
               the plan bills, in both dtypes; the conv_last mode
               at its shapes (4 frames of 7680 x 4320 in bfloat16, the
@@ -127,7 +133,8 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               job, counters zeroed around it): the launch counts split
               into the job's int8 calls (each K3 1, K7q 346, K1 3, the
               conv_last mode 1), the calibration's float32 forwards (K3,
-              345 x K7) and the certification's float32 calls; each
+              345 x K7, one split pass) and the certification's float32
+              calls (5 split passes each); each
               frame against the port's plain int8 path on the card with
               the calibration the workspace persisted, >= 60 dB, with
               n_diff; the certificate (dB vs float32), calibrate_s and
@@ -200,8 +207,9 @@ TILE = 512
 #: kernel's mainloop unrolled (per 64-pixel row: bf16 36, bf16x6 216, s8
 #: 18), the hidden conv, the heads at r = 2, 3, 4 and K2's conv_last mode
 #: (r = 1); K3 and K4a 2 in bfloat16 and 12 in float32 (K = 32: two k16
-#: steps, six products each); K7 at N = 32 and 64, per 32-channel chunk
-#: 18 in bfloat16 and 108 in float32; K7q at N = 32 and 64, per
+#: steps, six products each); K7 at N = 32 and 64, per 16-channel chunk
+#: 18 in bfloat16 (two rows of 9 taps) and 54 in float32 (9 taps, six
+#: products each); K7q at N = 32 and 64, per
 #: 64-channel chunk 18 (s8); P1 one kernel for each count of
 #: 32-B k steps, its dot's wgmmas unrolled: s8 1 + ... + 8 (IGMMA), bf16
 #: 1 + ... + 16 (HGMMA)
@@ -209,7 +217,7 @@ P1_IGMMA, P1_HGMMA = sum(range(1, 9)), sum(range(1, 17))
 MIN_WGMMA = {"conv3x3_tc.cu": 5 * 36, "conv3x3_f32_tc.cu": 5 * 216,
              "conv3x3_s8.cu": 4 * 18, "conv3x3.cu": 2 * (2 + 12),
              "dot_probe.cu": P1_IGMMA + P1_HGMMA,
-             "rrdb.cu": 2 * (18 + 108), "rrdb_s8.cu": 2 * 18}
+             "rrdb.cu": 2 * (18 + 54), "rrdb_s8.cu": 2 * 18}
 
 
 def emit(obj) -> None:
@@ -868,6 +876,9 @@ def probe_phase(out: dict, smi: str) -> dict:
 RRDB_MODEL = "realesrgan-x4plus"
 RRDB_BLOCKS = 23
 RRDB_K7_PER_CALL = 15 * RRDB_BLOCKS + 1
+#: split passes per float32 RRDB call: feat's once (the trunk's convs
+#: write the planes they read), then the head's three K1 and conv_last
+RRDB_F32_SPLITS_PER_CALL = 1 + 3 + 1
 #: each frame of the bf16 job may sit this far further from the plain
 #: float32 path than the plain bfloat16 path does (dB):
 #: tests/test_torch_rrdb.py's margin against the JAX package's own bf16
@@ -920,10 +931,14 @@ def rrdb_kernel_phase(params, frames) -> dict:
     plain version, so every form reads the model's own activations),
     then timed beside the plain version, one cuDNN F.conv2d of the same
     conv (channels-last, the same dtype, TF32 off) and the bound (bytes:
-    the channels read, written and the residuals; operations: float32's
-    six bf16 products at the bf16 rate).  Tolerances: bfloat16 <= 2 ulp
-    of the largest operand of the epilogue (the conv value, the
-    residuals, the result), float32 max |d| <= 2e-6.  The top-level
+    the channels read, written and the residuals, in float32 the planes
+    read and written; operations: float32's six bf16 products at the
+    bf16 rate).  float32 runs as the model runs it, on the split planes
+    of its input, writing those of its output (conv_body's add writes
+    none), which must equal the split pass's of its output bit for bit.
+    Tolerances: bfloat16 <= 2 ulp of the largest operand of the epilogue
+    (the conv value, the residuals, the result), float32 max |d| <= 2e-6.
+    The top-level
     numbers of each dtype are per launch, weighted by the forms'
     launches in one model call ("call_ms": their sum over the call)."""
     import torch
@@ -969,14 +984,29 @@ def rrdb_kernel_phase(params, frames) -> dict:
             plain_args = (buf if buf is not out else want, cin, w, b, want,
                           off, epi, res if res is not out else want,
                           res2 if res2 is not out else want)
+            # float32 as the model runs it: on the planes of its input,
+            # writing those of its output (conv_body's add writes none)
+            pl = {}
+            if name == "float32":
+                pl["planes"] = conv3x3.split_bf16x3(buf)
+                if epi != "add":
+                    pl["out_planes"] = pl["planes"] if out is buf else \
+                        conv3x3.split_bf16x3(out)
             k7.dense_conv(buf, cin, w, b, out, off, epi, res, res2,
-                          packed=packed)
+                          packed=packed, **pl)
             k7.dense_conv_plain(*plain_args)
             torch.cuda.synchronize()
             got_s, want_s = (t[..., off:off + cout] for t in (out, want))
             err = (got_s.float() - want_s.float()).abs().max().item()
             if name == "float32":
                 ok = err <= 2e-6
+                # the planes it wrote: the split pass's of its output
+                if "out_planes" in pl and not torch.equal(
+                        pl["out_planes"][..., off:off + cout],
+                        conv3x3.split_bf16x3(got_s)):
+                    raise AssertionError(f"dense_conv {fname} float32: the "
+                                         f"planes it wrote are not the "
+                                         f"split of its output")
             else:
                 y = conv3x3.conv3x3_plain(a[..., :cin], w, b)
                 # the residuals as they were before the kernel wrote
@@ -998,6 +1028,11 @@ def rrdb_kernel_phase(params, frames) -> dict:
             resid = {"lrelu": 0, "rdb": 1, "rrdb": 2, "add": 1}[epi]
             nbytes = px * (cin + cout * (1 + resid)) * bpe \
                 + w.numel() * bpe + cout * 4
+            if name == "float32":
+                # it reads the planes of its input (6 B a value, not 4)
+                # and writes those of its output beside the values
+                nbytes += px * (cin + (cout if "out_planes" in pl else 0)) \
+                    * 2 * 3 - px * cin * bpe
             bms, bby = bound_ms(nbytes, 2 * 9 * cin * cout * px
                                 * (6 if name == "float32" else 1),
                                 "bfloat16")
@@ -1006,12 +1041,12 @@ def rrdb_kernel_phase(params, frames) -> dict:
                 "launches_per_call": n, "max_abs_err": err,
                 "ms": cuda_time_ms(lambda: k7.dense_conv(
                     buf, cin, w, b, out, off, epi, res, res2,
-                    packed=packed)),
+                    packed=packed, **pl)),
                 "plain_ms": cuda_time_ms(lambda: k7.dense_conv_plain(
                     *plain_args), iters=3),
                 "library_ms": cuda_time_ms(library_conv(buf, cin, w, b)),
                 "bound_ms": bms, "bound_by": bby}
-            del out, want, plain_args, res, res2, buf
+            del out, want, plain_args, res, res2, buf, pl
             torch.cuda.empty_cache()
         total = sum(f["launches_per_call"] for f in by_form.values())
         top = {key: sum(f[key] * f["launches_per_call"]
@@ -1029,6 +1064,23 @@ def rrdb_kernel_phase(params, frames) -> dict:
         del a, feat
         torch.cuda.empty_cache()
     return results
+
+
+def k7_part_times() -> dict:
+    """K7's time by part (reve_tpu_torch.scripts.perf_conv_tc_parts on
+    rrdb.cu: its forms at the trunk's shapes with the halo loads, the
+    weight copies after each block's first tile, the wgmmas or the
+    epilogue taken out, and the stores alone): {variant: {timing: ms}},
+    each the mean of the script's two rounds of 5 launches."""
+    import torch
+
+    from reve_tpu_torch.kernels import rrdb as k7
+    from reve_tpu_torch.scripts import perf_conv_tc_parts
+
+    line = perf_conv_tc_parts.run([k7.SOURCE], iters=5)
+    torch.cuda.empty_cache()
+    return {variant: {key: sum(t) / len(t) for key, t in timings.items()}
+            for variant, timings in line["variants"][k7.SOURCE].items()}
 
 
 def int_mm_x4(x8, cin: int, w8, frames: int):
@@ -1183,9 +1235,10 @@ def rrdb_int8_calls(launches: dict) -> dict:
     """The model calls of the rrdb_int8 job from its launch counts, and
     the check that each ran the int8 path's kernels: an int8 call
     launches K3 (bf16) once, K7q 346 times, K1 3 times and the conv_last
-    mode once; the calibration's float32 forwards K3 once and K7 345
-    times (no conv_body); the certification's float32 calls the whole
-    float32 model (K3, 346 x K7, 3 x K1, conv_last).  At least one of
+    mode once; the calibration's float32 forwards K3 once, the split
+    pass once (feat's) and K7 345 times (no conv_body); the
+    certification's float32 calls the whole float32 model (K3, 346 x K7,
+    3 x K1, conv_last, 5 split passes).  At least one of
     each, and more int8 calls than float32 ones (the job's own batch)."""
     k7q = launches["dense_conv_s8"]
     n8 = k7q // RRDB_K7_PER_CALL
@@ -1195,6 +1248,10 @@ def rrdb_int8_calls(launches: dict) -> dict:
           and launches["conv3x3_bias_prelu"] == 3 * (n8 + cert)
           and launches["dense_conv"] == (RRDB_K7_PER_CALL - 1) * calib
           + RRDB_K7_PER_CALL * cert
+          # feat's split in each float32 trunk, and the head's too in
+          # each certification call
+          and launches["split_bf16x3"] == calib
+          + RRDB_F32_SPLITS_PER_CALL * cert
           and not any(launches[k] for k in (
               "head_conv_residual_u8_shuffle", "conv3x3_s8_dq_prelu_q8",
               "conv3x3_u8_bias_prelu_q8", "head_conv_s8_residual_u8_shuffle",
@@ -1454,6 +1511,11 @@ def rrdb_engine_checks(frames, ref_f32: np.ndarray) -> dict:
                     if v != before[k]}
         if plan.tile or ran != -(-BATCH // plan.per_call):
             raise AssertionError(f"{dt} batch ran {ran} calls; plan {plan}")
+        splits = launches.get("split_bf16x3", 0)
+        if splits != (RRDB_F32_SPLITS_PER_CALL * ran if dt == "float32"
+                      else 0):
+            raise AssertionError(f"{dt} batch: {splits} split passes in "
+                                 f"{ran} calls; the trunk runs none")
         rec = {"plan": list(plan), "calls_per_batch": ran,
                "engine_batch_s": batch_s, "launches": launches}
         if dt == "float32":
@@ -1827,6 +1889,7 @@ def main() -> int:
                 (64, 32, RRDB_BLOCKS)
             params_r = rrdb.params_to(params_r, "cuda")
             k7_results = rrdb_kernel_phase(params_r, frames[:BATCH])
+            k7_results["bfloat16"]["parts"] = k7_part_times()
             torch.cuda.synchronize()
             kernels.reset_launches()
             t0 = time.perf_counter()

@@ -284,21 +284,6 @@ conv3x3_f32_tc_kernel(const __grid_constant__ CUtensorMap map,
   }
 }
 
-// Split two float32 values into their bf16 hi, mid and lo pairs.
-__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
-                                       uint32_t& mid, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const float2 hf = __bfloat1622float2(h);
-  const float r0 = __fsub_rn(v0, hf.x), r1 = __fsub_rn(v1, hf.y);
-  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
-  const float2 mf = __bfloat1622float2(m);
-  const __nv_bfloat162 l =
-      __floats2bfloat162_rn(__fsub_rn(r0, mf.x), __fsub_rn(r1, mf.y));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  mid = *reinterpret_cast<const uint32_t*>(&m);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
 // The split of `rows` rows of `cols` float32 values, `stride` values
 // apart, into planes hi, mid, lo of rows x cols bf16 each; 8 values a
 // thread.  stride == cols: a contiguous run (float32 K1's and K2's

@@ -123,6 +123,47 @@ __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Where `pred` holds: wait until this thread's bulk stores have read
+// their shared-memory sources, then arrive on `bar`.  Predicated inside
+// the instructions: no branch, so it may sit between a wgmma and its wait.
+__device__ __forceinline__ void bulk_read_then_arrive_if(uint32_t bar,
+                                                         bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p cp.async.bulk.wait_group.read 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"((int)pred)
+      : "memory");
+}
+
+// The byte offset `off` into a 1024-B aligned buffer that TMA fills or
+// stores in the swizzle of ROW-byte rows (64 or 128): 16-B chunk bits
+// [4, 4 + b) XOR row-group bits [7, 7 + b), as TMA and wgmma place them.
+template <int ROW>
+__device__ __forceinline__ uint32_t swizzle(uint32_t off) {
+  static_assert(ROW == 64 || ROW == 128, "64-B or 128-B swizzle");
+  constexpr uint32_t mask = ROW == 128 ? 7 : 3;
+  return off ^ (((off >> 7) & mask) << 4);
+}
+
+// Split two float32 values into their bf16 hi, mid and lo pairs: hi =
+// bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid), each subtraction
+// exact in float32 (the split pass, conv3x3_f32_tc.cu, and K7's float32
+// epilogue, rrdb.cu, both write these planes).
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = __fsub_rn(v0, hf.x), r1 = __fsub_rn(v1, hf.y);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(__fsub_rn(r0, mf.x), __fsub_rn(r1, mf.y));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
 // barrier of one warpgroup (ids 1..4; 0 is __syncthreads)
 __device__ __forceinline__ void warpgroup_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
@@ -151,6 +192,24 @@ __device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
          ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
 }
 
+// ... of a K-major operand in the 32-B swizzle: rows of 32 B (one k16
+// step), groups of 8 rows 256 B apart (SBO); layout type 3, base offset 0.
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(256 >> 4) << 32) | ((uint64_t)3 << 62);
+}
+
+// Lower (raise) this warpgroup's registers a thread to N, a multiple of
+// 8 in [24, 256]; every thread of the warpgroup executes it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -172,6 +231,21 @@ __device__ __forceinline__ void fence_reg(float& r) {
 }
 __device__ __forceinline__ void fence_reg(int& r) {
   asm volatile("" : "+r"(r)::"memory");
+}
+__device__ __forceinline__ void fence_reg(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory into the warp's registers
+// (ldmatrix .x4): lane i gives the address of row i % 8 of matrix i / 8,
+// and register m receives row lane / 4, columns 2 (lane % 4) + {0, 1} of
+// matrix m.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
 }
 template <typename T, int N>
 __device__ __forceinline__ void fence_regs(T (&acc)[N]) {
@@ -223,6 +297,20 @@ struct Wgmma<32> {
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
           "+f"(d[15])
         : "l"(a), "l"(b), "r"(1));
+  }
+  // ... with A from registers, as Wgmma<64>'s
+  __device__ static void mma(float (&d)[16], const uint32_t (&a)[4],
+                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
 

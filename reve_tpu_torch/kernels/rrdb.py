@@ -21,9 +21,11 @@ writing over it in place (read at the same pixel); `add` is conv_body's
 Bound per call of 4 1080p frames on an H100 SXM (989 TFLOP/s bf16,
 3.35 TB/s): conv 1 (64 -> 32) 1.59 GB -> 0.475 ms (bytes); conv 5
 (192 -> 64) 1.83 TFLOP -> 1.855 ms (operations).  float32 runs six bf16
-products of operands split in three (never TF32): the split pass over
-the channels the conv reads (`split_bf16x3` on the channel slice), then
-the conv.
+products of operands split in three (never TF32), read from the split
+planes of the buffer, (3, B, H, W, Cs) bfloat16 beside each float32
+dense buffer: the conv that writes a channel writes its hi, mid and lo
+too (`out_planes`), so the trunk runs no split pass; called without
+planes, the wrapper splits the channels the conv reads first.
 
 Rounding points follow the JAX reference: weights in the compute dtype,
 float32 accumulation + b in float32, cast to the compute dtype, then each
@@ -71,10 +73,17 @@ from reve_tpu_torch.kernels.conv3x3_s8 import conv3x3_s8_plain
 SOURCE = "rrdb.cu"
 #: K7q, the s8 form
 S8_SOURCE = "rrdb_s8.cu"
-#: input channels per chunk of K7's mainloop (one TMA box, one 64-B A row)
-CHUNK = 32
+#: K7 and K7q take Cin in multiples of this many channels: K7q's s8 k32
+#: step (K7's own chunk, KCHUNK, divides it), one rule for both so that
+#: every conv the float32 and bf16 model runs, the int8 model runs too
+CIN_STEP = 32
+#: input channels per chunk of K7's mainloop (one TMA box, one 32-B A row,
+#: one k16 step of each tap)
+KCHUNK = 16
 #: K7's output channel counts (the wgmma N): a growth slice, nf
 COUTS = (32, 64)
+#: the most input channels K7 reads: nf + 4 gc (its resident weights)
+MAX_CIN = 192
 #: the epilogue forms, in the kernel's numbering
 EPILOGUES = ("lrelu", "rdb", "rrdb", "add")
 #: the dense blocks' leaky-ReLU slope and residual scale
@@ -112,32 +121,39 @@ def dense_epilogue_plain(y: torch.Tensor, epi: str,
 def dense_conv_plain(buf: torch.Tensor, cin: int, w: torch.Tensor,
                      b: torch.Tensor, out: torch.Tensor, out_off: int,
                      epi: str, res: Optional[torch.Tensor] = None,
-                     res2: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     res2: Optional[torch.Tensor] = None,
+                     out_planes: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """out[..., out_off:out_off + cout] = epilogue(dtype(conv3x3(buf[...,
-    :cin], w) + b)), with the first cout channels of `res` and `res2`;
-    returns out."""
+    :cin], w) + b)), with the first cout channels of `res` and `res2`,
+    and, where `out_planes` ((3, *out.shape) bfloat16) is given, the same
+    channels of it = split_bf16x3_plain of what was written; returns
+    out."""
     cout = w.shape[-1]
     y = conv3x3_plain(buf[..., :cin], w, b)
     y = dense_epilogue_plain(
         y, epi, None if res is None else res[..., :cout],
         None if res2 is None else res2[..., :cout])
     out[..., out_off:out_off + cout] = y
+    if out_planes is not None:
+        out_planes[..., out_off:out_off + cout] = split_bf16x3_plain(y)
     return out
 
 
 def pack_weights_dense(w: torch.Tensor) -> torch.Tensor:
     """HWIO (3, 3, cin, cout) in the compute dtype -> the B operand K7
-    streams: (cin / 32, 9, S, 4, cout, 8) bfloat16 [chunk][tap][split][k /
-    8][n][8], packed[c, t, s, kb, n, kk] = planes[s, t // 3, t % 3, 32 c +
-    8 kb + kk, n] (B K-major in core matrices of 8 rows x 16 B).
-    bfloat16: S = 1, the weights as they are; float32: S = 3,
-    split_bf16x3's hi, mid, lo."""
+    reads: (cin / 16, 9, S, 2, cout, 8) bfloat16 [chunk][tap][split][k /
+    8][n][8], packed[c, t, s, kb, n, kk] = planes[s, t // 3, t % 3, 16 c +
+    8 kb + kk, n] (B K-major in core matrices of 8 rows x 16 B; a chunk's
+    taps, a tap's splits, contiguous).  bfloat16: S = 1, the weights as
+    they are; float32: S = 3, split_bf16x3's hi, mid, lo."""
     cin, cout = w.shape[2], w.shape[3]
-    if cin % CHUNK:
-        raise ValueError(f"K7 reads Cin in chunks of {CHUNK}, got {cin}")
+    if cin % CIN_STEP:
+        raise ValueError(f"K7 reads Cin in chunks of {CIN_STEP}, got "
+                         f"{cin}")
     planes = w[None] if w.dtype == torch.bfloat16 else split_bf16x3_plain(w)
     s = planes.shape[0]
-    t = planes.reshape(s, 9, cin // CHUNK, CHUNK // 8, 8, cout)
+    t = planes.reshape(s, 9, cin // KCHUNK, KCHUNK // 8, 8, cout)
     return t.permute(2, 1, 0, 3, 5, 4).contiguous()
 
 
@@ -146,6 +162,27 @@ def pack_weights_dense(w: torch.Tensor) -> torch.Tensor:
 
 def _shares_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+
+
+def _check_planes(buf, cin, out, out_off, planes, out_planes) -> None:
+    """The split planes K7 reads (of buf) and writes (of out): float32
+    only, (3, *shape) bfloat16; the planes it writes lie beside the
+    channels it reads, as out beside buf."""
+    for p, of in ((planes, buf), (out_planes, out)):
+        if p is None:
+            continue
+        if buf.dtype != torch.float32 or p.dtype != torch.bfloat16 or \
+                tuple(p.shape) != (3, *of.shape):
+            raise ValueError(f"K7's planes are float32's split, (3, "
+                             f"{tuple(of.shape)}) bfloat16; got "
+                             f"{tuple(p.shape)} {p.dtype} for a {buf.dtype} "
+                             f"conv")
+    if planes is not None and out_planes is not None and \
+            _shares_storage(planes, out_planes) and (
+                out_planes.data_ptr() != planes.data_ptr() or
+                out_off < cin):
+        raise ValueError("K7 writes into the planes it reads only in "
+                         "channels past the ones it reads (out_off >= cin)")
 
 
 def _check(buf, cin, w, out, out_off, epi, res, res2) -> None:
@@ -159,25 +196,27 @@ def _check(buf, cin, w, out, out_off, epi, res, res2) -> None:
                          f"{tuple(out.shape)}; expected (B, H, W, C) of one "
                          f"B, H, W")
     cs, cout = buf.shape[3], w.shape[3]
-    if cin % CHUNK or not CHUNK <= cin <= cs or cs % 8 or \
-            tuple(w.shape) != (3, 3, cin, cout) or cout not in COUTS:
-        raise ValueError(f"K7 reads Cin channels in chunks of {CHUNK} of a "
+    if cin % CIN_STEP or not CIN_STEP <= cin <= min(cs, MAX_CIN) or \
+            cs % 8 or tuple(w.shape) != (3, 3, cin, cout) or cout not in COUTS:
+        raise ValueError(f"K7 reads Cin <= {MAX_CIN} channels in chunks of "
+                         f"{CIN_STEP} of a "
                          f"buffer of a multiple of 8 and writes {COUTS}: "
                          f"got Cin {cin} of {cs}, weights {tuple(w.shape)}")
-    if out_off % 8 or out_off + cout > out.shape[3]:
+    if out_off % 8 or out_off + cout > out.shape[3] or out.shape[3] % 8:
         raise ValueError(f"K7 writes channels [{out_off}, {out_off + cout}) "
                          f"of {out.shape[3]}: the offset must be a multiple "
-                         f"of 8 inside the pixel")
+                         f"of 8 inside a pixel of a multiple of 8")
     if epi not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epi!r}; known: {EPILOGUES}")
     need = {"lrelu": (), "rdb": (res,), "add": (res,),
             "rrdb": (res, res2)}[epi]
     for r in need:
         if r is None or r.dtype != w.dtype or r.dim() != 4 or \
-                r.shape[:3] != buf.shape[:3] or r.shape[3] < cout:
+                r.shape[:3] != buf.shape[:3] or r.shape[3] < cout or \
+                r.shape[3] % 8:
             raise ValueError(f"epilogue {epi!r} needs residuals of "
-                             f"({tuple(buf.shape[:3])}, >= {cout}) "
-                             f"{w.dtype}")
+                             f"({tuple(buf.shape[:3])}, >= {cout}, a "
+                             f"multiple of 8) {w.dtype}")
     # the conv reads buf's first cin channels of every pixel in its
     # halos: an output into buf must lie beside them, never over them
     if _shares_storage(out, buf) and (out.data_ptr() != buf.data_ptr() or
@@ -192,24 +231,33 @@ def dense_conv(buf: torch.Tensor, cin: int, w: torch.Tensor,
                b: torch.Tensor, out: torch.Tensor, out_off: int, epi: str,
                res: Optional[torch.Tensor] = None,
                res2: Optional[torch.Tensor] = None,
-               packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+               packed: Optional[torch.Tensor] = None,
+               planes: Optional[torch.Tensor] = None,
+               out_planes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K7: the conv of buf's first `cin` channels ((B, H, W, Cs) in the
     compute dtype) by w ((3, 3, cin, cout) HWIO, cout 32 or 64), + b in
     float32, cast, then the epilogue `epi` (EPILOGUES) with the first cout
     channels of `res` and `res2`, into out[..., out_off:out_off + cout];
     returns out.  `packed`: pack_weights_dense(w), packed once by the
-    caller (packed here when None).  float32 launches two kernels: the
-    split pass over buf's first cin channels and the bf16x6 conv."""
+    caller (packed here when None).
+
+    float32 only: `planes` ((3, *buf.shape) bfloat16) holds the split of
+    buf's first cin channels, which the conv reads (None: the split pass
+    runs first over them, a second launch); `out_planes` ((3, *out.shape)
+    bfloat16), where given, receives the split of the channels written,
+    by the same kernel."""
     if buf.device.type == "cpu":
-        return dense_conv_plain(buf, cin, w, b, out, out_off, epi, res, res2)
+        return dense_conv_plain(buf, cin, w, b, out, out_off, epi, res, res2,
+                                out_planes)
     if buf.device.type != "cuda":
         raise ValueError(f"tensor on {buf.device}: the kernel takes CUDA "
                          f"tensors (CPU tensors take the plain version)")
     _check(buf, cin, w, out, out_off, epi, res, res2)
+    _check_planes(buf, cin, out, out_off, planes, out_planes)
     cout = w.shape[3]
     wp = pack_weights_dense(w) if packed is None else packed
-    expect = (cin // CHUNK, 9, 1 if w.dtype == torch.bfloat16 else 3,
-              CHUNK // 8, cout, 8)
+    expect = (cin // KCHUNK, 9, 1 if w.dtype == torch.bfloat16 else 3,
+              KCHUNK // 8, cout, 8)
     if tuple(wp.shape) != expect or wp.dtype != torch.bfloat16 or \
             wp.device != buf.device or not wp.is_contiguous():
         raise ValueError(f"packed weights {tuple(wp.shape)} {wp.dtype}; "
@@ -224,19 +272,31 @@ def dense_conv(buf: torch.Tensor, cin: int, w: torch.Tensor,
     px = [0 if t is None else t.shape[3] for t in (res, res2)]
     lib = build.load(SOURCE)
     stream = torch.cuda.current_stream(buf.device).cuda_stream
+    epi_i = EPILOGUES.index(epi)
+    P, I = ctypes.c_void_p, ctypes.c_int
     if w.dtype == torch.bfloat16:
         fn = lib.reve_dense_conv_tc
-        x, ints = buf, [cin, cs, cout]
+        fn.argtypes = [P] * 6 + [I] * 10 + [P]
+        fn.restype = ctypes.c_int
+        err = fn(buf.data_ptr(), wp.data_ptr(), bb.data_ptr(), ptr(res),
+                 ptr(res2), out.data_ptr() + out_off * elem, B, H, W, cin,
+                 cs, cout, px[0], px[1], out.shape[3], epi_i, stream)
     else:
-        # the planes stay referenced until the launch is enqueued
-        fn = lib.reve_dense_conv_f32tc
-        x, ints = split_bf16x3(buf[..., :cin]), [cin, cout]
-    fn.argtypes = [ctypes.c_void_p] * 6 + \
-        [ctypes.c_int] * (3 + len(ints) + 4) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), wp.data_ptr(), bb.data_ptr(), ptr(res), ptr(res2),
-             out.data_ptr() + out_off * elem, B, H, W, *ints, px[0], px[1],
-             out.shape[3], EPILOGUES.index(epi), stream)
+        if planes is None:
+            # stays referenced until the launch is enqueued
+            planes = split_bf16x3(buf[..., :cin])
+        check_operands(planes, *(() if out_planes is None
+                                 else (out_planes,)))
+        fn = lib.reve_dense_conv_f32tc_planes
+        fn.argtypes = [P] * 7 + [I] * 11 + [P]
+        fn.restype = ctypes.c_int
+        op = None if out_planes is None else \
+            out_planes.data_ptr() + out_off * 2
+        err = fn(planes.data_ptr(), wp.data_ptr(), bb.data_ptr(), ptr(res),
+                 ptr(res2), out.data_ptr() + out_off * elem, op, B, H, W,
+                 cin, planes.shape[-1], cout, px[0], px[1], out.shape[3],
+                 0 if out_planes is None else out_planes.shape[-1], epi_i,
+                 stream)
     build.check(lib, err, "dense_conv")
     LAUNCHES["dense_conv"] += 1
     return out
@@ -304,9 +364,9 @@ def pack_weights_dense_s8(w8: torch.Tensor) -> torch.Tensor:
     kk, n] and 0 past cin (B K-major in core matrices of 8 rows x 16 B, as
     K4's pack_weights_s8 per chunk)."""
     cin, cout = w8.shape[2], w8.shape[3]
-    if w8.dtype != torch.int8 or cin % CHUNK:
+    if w8.dtype != torch.int8 or cin % CIN_STEP:
         raise ValueError(f"K7q takes int8 weights over Cin in multiples of "
-                         f"{CHUNK}, got {w8.dtype} Cin {cin}")
+                         f"{CIN_STEP}, got {w8.dtype} Cin {cin}")
     chunks = -(-cin // CHUNK_S8)
     w = torch.zeros((3, 3, chunks * CHUNK_S8, cout), dtype=torch.int8,
                     device=w8.device)
@@ -326,9 +386,10 @@ def _check_s8(buf8, cin, w8, epi, inv, out8, out8_off, res, res2,
                         f"weights, got {buf8.dtype} {tuple(buf8.shape)} / "
                         f"{w8.dtype}")
     cs, cout = buf8.shape[3], w8.shape[3]
-    if cin % CHUNK or not CHUNK <= cin <= cs or cs % 16 or \
+    if cin % CIN_STEP or not CIN_STEP <= cin <= cs or cs % 16 or \
             tuple(w8.shape) != (3, 3, cin, cout) or cout not in COUTS:
-        raise ValueError(f"K7q reads Cin channels, a multiple of {CHUNK}, "
+        raise ValueError(f"K7q reads Cin channels, a multiple of "
+                         f"{CIN_STEP}, "
                          f"of a buffer of a multiple of 16 and writes "
                          f"{COUTS}: got Cin {cin} of {cs}, weights "
                          f"{tuple(w8.shape)}")

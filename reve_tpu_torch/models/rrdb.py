@@ -20,7 +20,8 @@ is not ported (ROADMAP.md port queue: RRDB x2).
 (its PReLU at alpha 1 is the identity), K7 for every dense-block conv and
 conv_body with the step after it (one NHWC buffer of nf + 4 gc channels a
 pixel holds a dense block's concat, three of them rotate through an
-RRDB), K1 for conv_up1, conv_up2 and conv_hr with the leaky ReLU (PReLU
+RRDB; in float32 each with its split planes beside it, written by the
+convs that write it), K1 for conv_up1, conv_up2 and conv_hr with the leaky ReLU (PReLU
 at alpha 0.2), and K2's conv_last mode for conv_last with the engine's u8
 rounding.  The nearest x2 before each up conv is a torch op
 (ops/resize.py).  `apply_int8`, the int8 turbo (`--dtype int8`), runs the
@@ -188,12 +189,13 @@ def apply(params: Params, u8: torch.Tensor, *, cfg: RRDBConfig,
     # conv_first has no activation: K3's PReLU at alpha 1 is the identity
     feat = first(u8, cf["w"].to(dt), cf["b"],
                  torch.ones(cfg.num_feat, device=u8.device))
-    a = dense_trunk(params, feat, cfg=cfg, compute_dtype=dt, plain=plain)
+    a, planes = dense_trunk(params, feat, cfg=cfg, compute_dtype=dt,
+                            plain=plain)
     # feat + conv_body(body), written over feat
     _dense_conv_fn(dt, plain)(a, cfg.num_feat, params["conv_body"], feat,
-                              0, "add", res=feat)
-    # the trunk's buffer goes before the head allocates at 2x and 4x
-    del a
+                              0, "add", res=feat, planes=planes)
+    # the trunk's buffers go before the head allocates at 2x and 4x
+    del a, planes
     held = [feat]
     del feat
     return _head(params, held, dt, plain)
@@ -203,50 +205,68 @@ def _dense_conv_fn(dt: torch.dtype, plain: bool):
     """K7 (or its plain version) over a conv's params in the compute
     dtype, with its packed weights where `prepare` packed them."""
 
-    def conv(src, cin, p, dst, off, epi, res=None, res2=None):
+    def conv(src, cin, p, dst, off, epi, res=None, res2=None, planes=None,
+             out_planes=None):
         w = p["w"].to(dt)
         if plain:
             dense.dense_conv_plain(src, cin, w, p["b"], dst, off, epi, res,
                                    res2)
         else:
             dense.dense_conv(src, cin, w, p["b"], dst, off, epi, res, res2,
-                             packed=p.get("packed"))
+                             packed=p.get("packed"), planes=planes,
+                             out_planes=out_planes)
     return conv
 
 
 def dense_trunk(params: Params, feat: torch.Tensor, *, cfg: RRDBConfig,
                 compute_dtype: torch.dtype, plain: bool = False,
-                observe=None) -> torch.Tensor:
+                observe=None):
     """The RRDB blocks of `apply` over feat (B, H, W, nf) in the compute
-    dtype, on K7: returns the dense buffer whose first nf channels hold
-    the trunk's output (conv_body's input).  `observe(buf, lo, hi)`, when
-    given, sees channels [lo, hi) of the buffer holding each dense
-    block's input and each growth slice as it is written (the
-    calibration's statistics, weights/quantize.py)."""
+    dtype, on K7: returns (the dense buffer whose first nf channels hold
+    the trunk's output, conv_body's input; its split planes or None).
+    `observe(buf, lo, hi)`, when given, sees channels [lo, hi) of the
+    buffer holding each dense block's input and each growth slice as it
+    is written (the calibration's statistics, weights/quantize.py).
+
+    In float32 (but with `plain`) each dense buffer has its split planes
+    beside it, (3, B, H, W, nf + 4 gc) bfloat16, which K7 reads: feat's
+    are split once, and every conv writes the planes of the channels it
+    writes, so no split pass runs in the trunk."""
     nf, gc, cs = cfg.num_feat, cfg.num_grow_ch, cfg.dense_channels
     conv = _dense_conv_fn(compute_dtype, plain)
     B, H, W, _ = feat.shape
-    # a: the RRDB's input and, written in place by the third dense
-    # block's last conv, its output; b, c: the first two blocks' outputs
-    a, b, c = (torch.empty((B, H, W, cs), dtype=compute_dtype,
-                           device=feat.device) for _ in range(3))
+    dev = feat.device
+    # a = bufs[0]: the RRDB's input and, written in place by the third
+    # dense block's last conv, its output; bufs[1], bufs[2]: the first two
+    # blocks' outputs; planes[i]: the split of bufs[i] (float32)
+    bufs = [torch.empty((B, H, W, cs), dtype=compute_dtype, device=dev)
+            for _ in range(3)]
+    a = bufs[0]
     a[..., :nf].copy_(feat)
+    planes = [None] * 3
+    if compute_dtype == torch.float32 and not plain:
+        planes = [torch.empty((3, B, H, W, cs), dtype=torch.bfloat16,
+                              device=dev) for _ in range(3)]
+        planes[0][..., :nf].copy_(conv3x3.split_bf16x3(feat))
     for block in params["body"]:
-        for (src, dst), rdb, epi in zip(((a, b), (b, c), (c, a)),
-                                        block["rdbs"], ("rdb", "rdb",
-                                                        "rrdb")):
+        for (i_src, i_dst), rdb, epi in zip(((0, 1), (1, 2), (2, 0)),
+                                            block["rdbs"],
+                                            ("rdb", "rdb", "rrdb")):
+            src, dst = bufs[i_src], bufs[i_dst]
+            ps, pd = planes[i_src], planes[i_dst]
             if observe is not None:
                 observe(src, 0, nf)
             convs = rdb["convs"]
             for i in range(4):
                 # growth slice i right after the channels conv i reads
                 lo = nf + i * gc
-                conv(src, lo, convs[i], src, lo, "lrelu")
+                conv(src, lo, convs[i], src, lo, "lrelu", planes=ps,
+                     out_planes=ps)
                 if observe is not None:
                     observe(src, lo, lo + gc)
             conv(src, cs, convs[4], dst, 0, epi, res=src,
-                 res2=a if epi == "rrdb" else None)
-    return a
+                 res2=a if epi == "rrdb" else None, planes=ps, out_planes=pd)
+    return a, planes[0]
 
 
 def _head(params: Params, held: list, dt: torch.dtype,

@@ -298,8 +298,9 @@ class UpscaleEngine:
         on an int8 engine, apply_int8) in `dtype` (None: the engine's
         compute dtype), the largest of its phases (float32 adds each conv
         input's split planes):
-          trunk   feat + three dense buffers of nf + 4 gc channels (+ the
-                  split of a conv's up-to nf + 4 gc input channels); int8:
+          trunk   feat + three dense buffers of nf + 4 gc channels (+
+                  their three split planes and feat's split while it is
+                  copied into the first: 6,400 B a pixel); int8:
                   feat, two s8 dense buffers, three float32 nf-channel
                   chain buffers and the first quantize's float32
                   temporary;
@@ -312,14 +313,19 @@ class UpscaleEngine:
         dtype = dtype or self.compute_dtype
         bpe = torch.finfo(dtype).bits // 8
         split = _SPLIT_BYTES if dtype == torch.float32 else 0
+        nf = self.cfg.num_feat
+        per_px = max(self._rrdb_trunk_bytes(dtype),
+                     *(r * r * (2 * nf * bpe + nf * split) for r in (2, 4)))
+        return h * w * per_px
+
+    def _rrdb_trunk_bytes(self, dtype: torch.dtype) -> int:
+        """_rrdb_bytes' trunk phase, bytes a pixel (see there)."""
+        bpe = torch.finfo(dtype).bits // 8
+        split = _SPLIT_BYTES if dtype == torch.float32 else 0
         nf, cs = self.cfg.num_feat, self.cfg.dense_channels
         if self._int8 and dtype != torch.float32:
-            trunk = nf * bpe + 2 * cs + 4 * nf * 4
-        else:
-            trunk = (3 * cs + nf) * bpe + cs * split
-        per_px = max(trunk, *(r * r * (2 * nf * bpe + nf * split)
-                              for r in (2, 4)))
-        return h * w * per_px
+            return nf * bpe + 2 * cs + 4 * nf * 4
+        return (3 * cs + nf) * (bpe + split)
 
     def _free_bytes(self) -> int:
         """Device bytes the plan may spend: cudaMemGetInfo's free memory and

@@ -34,6 +34,17 @@ each SM:
     64 tile in place of two (`one_wg`: every dot in one chain) and the
     mainloop without the prologue (`no_prologue`: B not staged, A not
     loaded);
+  * kernels/csrc/rrdb.cu: K7 at the RRDB trunk's shapes (a 192-channel
+    buffer), in bfloat16 its forms lrelu at Cin 64 and 160, rdb, rrdb and
+    add (`lrelu64_ms`, ...), in float32 lrelu at Cin 64 and rdb, each the
+    conv alone on split planes (`f32_lrelu64_ms`, `f32_rdb_ms`), and the
+    split pass alone over 64 and 192 channels (`f32_split64_ms`,
+    `f32_split192_ms`).  Its variants: `no_load` (the halo loads after
+    each block's first tile), `w_once` (the weights of each stage copied
+    only for the block's first tile: what resident weights would save),
+    `no_mma`, `no_epi`, and `stores_only` (no halo or weight loads after
+    the first tile and no wgmmas: the epilogue with its residual loads
+    and its stores alone);
   * kernels/csrc/tta.cu: K6's three forms at the TTA path's shape (4
     frames of 1080p x4) for an even and an odd transform
     (`middle_k1f_ms`: MIDDLE at k = 1 with the flip, ...); its variants
@@ -64,7 +75,7 @@ import numpy as np
 import torch
 
 from reve_tpu_torch.kernels import (build, conv3x3, conv3x3_s8, dot_probe,
-                                    tta)
+                                    rrdb, tta)
 from reve_tpu_torch.scripts import perf_int8_dot
 from reve_tpu_torch.scripts.perf_int8_dot import queued_ms, time_ms
 
@@ -133,6 +144,41 @@ PATCHES[conv3x3.SOURCE]["more_blocks"] = [(_U8_BLOCKS, _U8_BLOCKS.replace(
 PATCHES[conv3x3.SOURCE]["stores_only"] = (
     PATCHES[conv3x3.SOURCE]["no_load"] + PATCHES[conv3x3.SOURCE]["no_mma"]
     + [(_U8_EPI, "")])
+# K7
+_K7_FIRST = "tile == blockIdx.x"
+_K7_HALO = ("          mbar_expect_tx(halo_full + 8 * hs, K::PLANES * "
+            "HALO_TX);\n          for (int q = 0; q < K::PLANES; ++q)\n")
+_K7_W = ("            mbar_expect_tx(w_full + 8 * ws, K::W_STAGE);\n"
+         "            bulk_load(")
+_K7_MMA = ("mma_step<F32, N>(acc[s], cor[s], a + kc * 32,\n"
+           "                                 wt + 2 * kc * N * 16);")
+#: the float32 Cout-32 wgmmas (A in registers)
+_K7_MMA_REGS = ("            mma_step_regs<N>(acc[0], cor[0], af[tl],\n"
+                "                             wst + tl * K::TAP_BYTES);\n")
+_K7_EPI = "    // the epilogue: accumulator fragment register 4j + 2h + e"
+PATCHES[rrdb.SOURCE] = {
+    "no_load": [(_K7_HALO, _K7_HALO
+                 .replace("K::PLANES * HALO_TX", f"{_K7_FIRST} ? K::PLANES * "
+                          "HALO_TX : 0")
+                 .replace("q < K::PLANES", f"q < ({_K7_FIRST} ? K::PLANES : "
+                          "0)"))],
+    "w_once": [(_K7_W, _K7_W
+                .replace("K::W_STAGE)", f"{_K7_FIRST} ? K::W_STAGE : 0)")
+                .replace("bulk_load(", f"if ({_K7_FIRST}) bulk_load("))],
+    "no_mma": [(_K7_MMA, "acc[s][kc] += a;"),
+               (_K7_MMA_REGS, "            acc[0][tl] += af[tl][0][0];\n")],
+    # (every accumulator set stays live, or ptxas drops the wgmmas that
+    # write it; the residual the producer loaded is waited on, so that no
+    # copy is in flight when the block exits)
+    "no_epi": [(_K7_EPI,
+                "    if (has_res) mbar_wait(res_full, (uint32_t)(k & 1));\n"
+                "    if (acc[0][0] + acc[RPW - 1][1] == 0.5f)\n"
+                "      *(float*)out = cor[0][1] + cor[RPW - 1][0];\n"
+                "    continue;\n" + _K7_EPI)],
+}
+PATCHES[rrdb.SOURCE]["stores_only"] = [
+    *PATCHES[rrdb.SOURCE]["no_load"], *PATCHES[rrdb.SOURCE]["w_once"],
+    *PATCHES[rrdb.SOURCE]["no_mma"]]
 for _p in PATCHES.values():
     _p["full"] = []
     _p["no_load_no_epi"] = _p["no_load"] + _p["no_epi"]
@@ -203,6 +249,92 @@ def _entry(lib, name: str, argtypes) -> ctypes._CFuncPtr:
     return fn
 
 
+#: K7's timed forms: (name, Cin, Cout, epilogue)
+_K7_FORMS = (("lrelu64", 64, 32, "lrelu"), ("lrelu160", 160, 32, "lrelu"),
+             ("rdb", 192, 64, "rdb"), ("rrdb", 192, 64, "rrdb"),
+             ("add", 64, 64, "add"))
+_K7_F32_FORMS = (("lrelu64", 64, 32, "lrelu"), ("rdb", 192, 64, "rdb"))
+
+
+def _k7_operands(rs, dev) -> dict:
+    """K7's operands at the trunk's shapes, in both dtypes: the
+    192-channel buffer a dense block reads, the other one conv 5 writes,
+    feat, the float32 buffer's split planes, the weights of each form
+    packed once."""
+    cs = 192
+    ops = {}
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        buf = (torch.rand((B, H, W, cs), device=dev) * 2 - 1).to(dt)
+        ops[name] = {"buf": buf, "other": torch.zeros_like(buf),
+                     "feat": buf[..., :64].contiguous(), "w": {}}
+        for _f, cin, cout, _e in _K7_FORMS:
+            w = torch.from_numpy(rs.uniform(-1, 1, (3, 3, cin, cout)).astype(
+                np.float32) * 0.1 / np.sqrt(9 * cin)).to(dev, dt)
+            ops[name]["w"][cin, cout] = rrdb.pack_weights_dense(w)
+    f = ops["f32"]
+    f["planes"] = conv3x3.split_bf16x3(f["buf"])
+    f["out_planes"] = torch.zeros_like(f["planes"])
+    ops["b"] = torch.zeros(64, device=dev)
+    return ops
+
+
+def _k7_timings(lib, name: str, ops: dict, stream) -> dict:
+    """{timing: callable} of K7's forms for one variant's library (float32
+    reads the planes of the whole buffer and writes the planes of what it
+    writes)."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    bf = _entry(lib, "reve_dense_conv_tc", [P] * 6 + [I] * 10 + [P])
+    f32 = _entry(lib, "reve_dense_conv_f32tc_planes",
+                 [P] * 7 + [I] * 11 + [P])
+    bb = ops["b"].data_ptr()
+
+    def operands(o, cin, epi):
+        """(out tensor, out channel offset, res, res2) as the model lays
+        them out."""
+        if epi == "lrelu":
+            return o["buf"], cin, None, None
+        if epi == "add":
+            return o["feat"], 0, o["feat"], None
+        return o["other"], 0, o["buf"], o["other"] if epi == "rrdb" else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def px(t):
+        return 0 if t is None else t.shape[3]
+
+    def run_bf16(cin, cout, epi):
+        o = ops["bf16"]
+        out, off, res, res2 = operands(o, cin, epi)
+        wp = o["w"][cin, cout]
+        return lambda: build.check(lib, bf(
+            o["buf"].data_ptr(), wp.data_ptr(), bb, ptr(res), ptr(res2),
+            out.data_ptr() + off * 2, B, H, W, cin, 192, cout, px(res),
+            px(res2), out.shape[3], rrdb.EPILOGUES.index(epi), stream), name)
+
+    def run_f32(cin, cout, epi):
+        o = ops["f32"]
+        out, off, res, res2 = operands(o, cin, epi)
+        wp = o["w"][cin, cout]
+        op = o["out_planes"]
+        return lambda: build.check(lib, f32(
+            o["planes"].data_ptr(), wp.data_ptr(), bb, ptr(res), ptr(res2),
+            out.data_ptr() + off * 4, op.data_ptr() + off * 2, B, H, W, cin,
+            192, cout, px(res), px(res2), out.shape[3], op.shape[4],
+            rrdb.EPILOGUES.index(epi), stream), name)
+
+    def run_split(cin):
+        x = ops["f32"]["buf"][..., :cin]
+        return lambda: conv3x3.split_bf16x3(x)
+
+    t = {f"{f}_ms": run_bf16(cin, cout, epi)
+         for f, cin, cout, epi in _K7_FORMS}
+    t.update({f"f32_{f}_ms": run_f32(cin, cout, epi)
+              for f, cin, cout, epi in _K7_F32_FORMS})
+    t.update({f"f32_split{cin}_ms": run_split(cin) for cin in (64, 192)})
+    return t
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     p = argparse.ArgumentParser(prog="perf_conv_tc_parts",
                                 description=__doc__.splitlines()[0])
@@ -210,6 +342,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
     p.add_argument("--sources", nargs="+", choices=sorted(PATCHES),
                    help="time only these sources' variants")
     args = p.parse_args(argv)
+    line = run(args.sources, args.iters)
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
+    """Build and time the variants of `sources` (None: all) on the card;
+    returns the line main prints."""
     dev = torch.device("cuda", 0)
     rs = np.random.RandomState(0)
     xf = torch.from_numpy(rs.rand(B, H, W, 64).astype(np.float32) - 0.3).to(
@@ -280,6 +420,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     for form, fname in ((tta.FIRST, "first"),
                                         (tta.MIDDLE, "middle"),
                                         (tta.LAST, "last"))}
+        if source == rrdb.SOURCE:
+            return _k7_timings(lib, name, k7_ops, stream)
         if source == conv3x3.TC_SOURCE:
             k1 = _entry(lib, "reve_conv3x3_bias_prelu_tc",
                         [P] * 5 + [I] * 3 + [P])
@@ -359,21 +501,25 @@ def main(argv: Optional[List[str]] = None) -> dict:
                 b.data_ptr(), u8.data_ptr(), o.data_ptr(), B, H, W, R,
                 stream), name)}
 
+    k7_ops = None
+    if rrdb.SOURCE in (sources or PATCHES):
+        k7_ops = _k7_operands(rs, dev)
+
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_variants(tmp, args.sources)
+        libs = build_variants(tmp, sources)
         for _ in range(2):
             for (source, variant), lib in libs.items():
+                print(f"# timing {source} {variant}", file=sys.stderr,
+                      flush=True)
                 timer = queued_ms if source == dot_probe.SOURCE else \
                     time_ms
                 for timing, fn in timings(source, lib, variant).items():
                     out.setdefault(source, {}).setdefault(
                         variant, {}).setdefault(timing, []).append(
-                            timer(fn, args.iters, dev))
-    line = {"device": torch.cuda.get_device_name(dev), "shape": [B, H, W],
+                            timer(fn, iters, dev))
+    return {"device": torch.cuda.get_device_name(dev), "shape": [B, H, W],
             "r": R, "variants": out}
-    print(json.dumps(line), flush=True)
-    return line
 
 
 if __name__ == "__main__":

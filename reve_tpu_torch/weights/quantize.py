@@ -149,8 +149,9 @@ def collect_act_maxima_rrdb(params: Dict[str, Any], u8: torch.Tensor, *,
     cf = params["conv_first"]
     feat = first(u8, cf["w"].float(), cf["b"],
                  torch.ones(nf, device=u8.device))
-    a = rrdb.dense_trunk(params, feat, cfg=cfg, compute_dtype=torch.float32,
-                         plain=plain, observe=observe)
+    a, _planes = rrdb.dense_trunk(params, feat, cfg=cfg,
+                                  compute_dtype=torch.float32, plain=plain,
+                                  observe=observe)
     observe(a, 0, nf)
     return torch.stack(stats)
 

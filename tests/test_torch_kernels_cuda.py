@@ -900,8 +900,13 @@ def test_tta_engine_equals_manual_ensemble_and_is_equivariant():
 K7_FORMS = [(64, 32, "lrelu"), (96, 32, "lrelu"), (128, 32, "lrelu"),
             (160, 32, "lrelu"), (192, 64, "rdb"), (192, 64, "rrdb"),
             (64, 64, "add")]
-#: ragged and whole tiles of K7's 4 x 64 tiles
-K7_SHAPES = [(1, 1, 1), (2, 19, 45), (1, 4, 64), (3, 5, 65), (1, 9, 130)]
+#: ragged and whole tiles of K7's tiles: 4 x 64 (float32), 8 x 64
+#: (bfloat16)
+#: (the last: more tiles than the persistent grid has blocks, so each
+#: block's staging buffer and residual loads serve several tiles)
+K7_SHAPES = [(1, 1, 1), (2, 19, 45), (1, 4, 64), (3, 5, 65), (1, 9, 130),
+             (3, 7, 63), (1, 8, 64), (2, 9, 65), (1, 17, 129), (3, 16, 128),
+             (2, 70, 1930)]
 
 
 def _k7_case(seed, B, H, W, cin, cout, epi, dev, dt, scale=1.0):
@@ -929,23 +934,45 @@ def _k7_case(seed, B, H, W, cin, cout, epi, dev, dt, scale=1.0):
                 res2=other if epi == "rrdb" else None)
 
 
-def _k7_run(c, cin, epi, plain):
+def _k7_run(c, cin, epi, plain, planes=False):
     """K7 or its plain version with a copy of the case's output (and of
     whichever operand is that same tensor); returns (the written
     channels, the plain pre-epilogue conv value, the residuals at those
-    channels)."""
+    channels).  `planes` (float32): the kernel reads the split planes of
+    its input and writes those of its output (the model's path), and the
+    planes it wrote are held to the split of its output, bit for bit,
+    and the rest of them to what was there."""
     out = c["out"].clone()
 
     def swap(t):
         return out if t is c["out"] else t
 
-    cout = c["w"].shape[-1]
-    fn = k7.dense_conv_plain if plain else k7.dense_conv
-    fn(swap(c["buf"]), cin, c["w"], c["b"], out, c["off"], epi,
-       swap(c["res"]), swap(c["res2"]))
+    cout, off = c["w"].shape[-1], c["off"]
+    kw = {}
+    if planes:
+        # the output's planes hold the split of its old values; those of
+        # the input are the same tensor when the conv writes into it
+        out_planes = conv3x3.split_bf16x3_plain(out)
+        kw = dict(planes=out_planes if c["buf"] is c["out"] else
+                  conv3x3.split_bf16x3_plain(c["buf"]),
+                  out_planes=out_planes)
+        before = out_planes.clone()
+    if plain:
+        k7.dense_conv_plain(swap(c["buf"]), cin, c["w"], c["b"], out, off,
+                            epi, swap(c["res"]), swap(c["res2"]))
+    else:
+        k7.dense_conv(swap(c["buf"]), cin, c["w"], c["b"], out, off, epi,
+                      swap(c["res"]), swap(c["res2"]), **kw)
+    if planes:
+        got = kw["out_planes"]
+        assert torch.equal(got[..., off:off + cout],
+                           conv3x3.split_bf16x3_plain(
+                               out[..., off:off + cout]))
+        assert torch.equal(got[..., :off], before[..., :off])
+        assert torch.equal(got[..., off + cout:], before[..., off + cout:])
     y = conv3x3.conv3x3_plain(c["buf"][..., :cin], c["w"], c["b"])
     ops = [t[..., :cout] for t in (c["res"], c["res2"]) if t is not None]
-    return out[..., c["off"]:c["off"] + cout], y, ops
+    return out[..., off:off + cout], y, ops
 
 
 def _k7_close(got, want, y, ops, name, scale=1.0):
@@ -964,19 +991,48 @@ def _k7_close(got, want, y, ops, name, scale=1.0):
 @pytest.mark.parametrize("cin,cout,epi", K7_FORMS)
 @pytest.mark.parametrize("name", list(DTYPES))
 def test_k7_matches_plain_at_tile_edges(name, cin, cout, epi):
+    """Every form at ragged and whole tiles against its plain version;
+    float32 on the planes of its input, writing those of its output (no
+    split pass: the model's path), and alone (the split pass first)."""
     dev = _cuda()
     dt = DTYPES[name]
+    modes = (True, False) if name == "float32" else (False,)
     for i, (B, H, W) in enumerate(K7_SHAPES):
         c = _k7_case(cin + i, B, H, W, cin, cout, epi, dev, dt)
-        before = dict(LAUNCHES)
-        got, y, ops = _k7_run(c, cin, epi, plain=False)
         want, _, _ = _k7_run(c, cin, epi, plain=True)
+        for planes in modes:
+            before = dict(LAUNCHES)
+            got, y, ops = _k7_run(c, cin, epi, plain=False, planes=planes)
+            torch.cuda.synchronize()
+            _k7_close(got, want, y, ops, name)
+            assert LAUNCHES["dense_conv"] == before["dense_conv"] + 1
+            # float32 without planes: one split pass over the channels
+            # the conv reads; with them, none
+            assert LAUNCHES["split_bf16x3"] == before["split_bf16x3"] + \
+                (name == "float32" and not planes)
+
+
+#: forms the wrapper takes that the model does not run: the residual
+#: forms at Cout 32 and the leaky ReLU at Cout 64
+K7_OFF_PATH_FORMS = [(64, 32, "rdb"), (96, 32, "rrdb"), (64, 32, "add"),
+                     (64, 64, "lrelu"), (128, 64, "lrelu")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,epi", K7_OFF_PATH_FORMS)
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_k7_off_path_forms_match_plain(name, cin, cout, epi):
+    """The wrapper's other forms against the plain version, at ragged
+    tiles and at more tiles than blocks (float32 on planes)."""
+    dev = _cuda()
+    dt = DTYPES[name]
+    for i, (B, H, W) in enumerate([(2, 19, 45), (2, 70, 1930)]):
+        c = _k7_case(cin + cout + i, B, H, W, cin, cout, epi, dev, dt)
+        want, _, _ = _k7_run(c, cin, epi, plain=True)
+        got, y, ops = _k7_run(c, cin, epi, plain=False,
+                              planes=name == "float32")
         torch.cuda.synchronize()
         _k7_close(got, want, y, ops, name)
-        assert LAUNCHES["dense_conv"] == before["dense_conv"] + 1
-        # float32: one split pass over the channels the conv reads
-        assert LAUNCHES["split_bf16x3"] == before["split_bf16x3"] + \
-            (name == "float32")
 
 
 @pytest.mark.cuda
@@ -986,18 +1042,30 @@ def test_k7_in_place_forms_leave_the_rest_untouched(name):
     the rrdb form writes over its residual's first 64 channels only."""
     dev = _cuda()
     dt = DTYPES[name]
+    f32 = name == "float32"
     c = _k7_case(3, 2, 19, 45, 96, 32, "lrelu", dev, dt)
     before = c["buf"].clone()
-    k7.dense_conv(c["buf"], 96, c["w"], c["b"], c["buf"], 96, "lrelu")
+    pl = conv3x3.split_bf16x3_plain(c["buf"]) if f32 else None
+    pl_before = None if pl is None else pl.clone()
+    k7.dense_conv(c["buf"], 96, c["w"], c["b"], c["buf"], 96, "lrelu",
+                  planes=pl, out_planes=pl)
     torch.cuda.synchronize()
     assert torch.equal(c["buf"][..., :96], before[..., :96])
     assert torch.equal(c["buf"][..., 128:], before[..., 128:])
+    if f32:
+        assert torch.equal(pl[..., :96], pl_before[..., :96])
+        assert torch.equal(pl[..., 128:], pl_before[..., 128:])
     c = _k7_case(4, 2, 19, 45, 192, 64, "rrdb", dev, dt)
     before = c["out"].clone()
+    pl = conv3x3.split_bf16x3_plain(c["buf"]) if f32 else None
+    opl = conv3x3.split_bf16x3_plain(c["out"]) if f32 else None
+    opl_before = None if opl is None else opl.clone()
     k7.dense_conv(c["buf"], 192, c["w"], c["b"], c["out"], 0, "rrdb",
-                  c["res"], c["res2"])
+                  c["res"], c["res2"], planes=pl, out_planes=opl)
     torch.cuda.synchronize()
     assert torch.equal(c["out"][..., 64:], before[..., 64:])
+    if f32:
+        assert torch.equal(opl[..., 64:], opl_before[..., 64:])
 
 
 @pytest.mark.cuda
@@ -1116,6 +1184,9 @@ def test_rrdb_model_kernels_match_plain(name):
     assert (n["conv3x3_u8_bias_prelu"], n["dense_conv"],
             n["conv3x3_bias_prelu"], n["conv_last_u8"]) == (
         1, 15 * cfg.num_block + 1, 3, 1)
+    # float32: feat's split once, then the head's K1 and conv_last each
+    # split their input; the trunk's convs write the planes they read
+    assert n["split_bf16x3"] == (1 + 3 + 1 if name == "float32" else 0)
     ref = rrdb.apply(params, u8, cfg=cfg, compute_dtype=torch.float32,
                      plain=True)
     assert got.shape == ref.shape == (2, 96, 280, 3)

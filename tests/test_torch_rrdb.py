@@ -226,6 +226,73 @@ def test_dense_conv_plain_matches_jax_subexpression(name, cin, cout, epi):
         assert torch.equal(out[..., :cin], tb[..., :cin])
 
 
+@pytest.mark.parametrize("cin,cout,epi", [
+    (96, 32, "lrelu"), (192, 64, "rdb"), (192, 64, "rrdb"), (64, 64, "add")])
+def test_dense_conv_plain_writes_the_split_of_what_it_writes(cin, cout,
+                                                             epi):
+    """float32: `out_planes` receives split_bf16x3_plain of the channels
+    the conv writes, bit for bit, and nothing else of it changes; the
+    output is the same as without planes."""
+    rs = np.random.RandomState(cin + 7)
+    buf = torch.from_numpy(rs.uniform(-1, 1, (2, 7, 9, 192))
+                           .astype(np.float32))
+    w = torch.from_numpy((rs.uniform(-1, 1, (3, 3, cin, cout)) * 0.3
+                          / np.sqrt(9 * cin)).astype(np.float32))
+    b = torch.from_numpy(rs.uniform(-0.1, 0.1, (cout,)).astype(np.float32))
+    r2 = torch.from_numpy(rs.uniform(-1, 1, (2, 7, 9, 64))
+                          .astype(np.float32))
+    off = cin if epi == "lrelu" else 0
+    outs = []
+    for with_planes in (False, True):
+        out = buf.clone() if epi == "lrelu" else r2.clone()
+        planes = torch.full((3, *out.shape), 7.0, dtype=torch.bfloat16) \
+            if with_planes else None
+        k7.dense_conv(out if epi == "lrelu" else buf, cin, w, b, out, off,
+                      epi, res=buf if epi != "add" else r2, res2=r2,
+                      out_planes=planes)
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+    written = outs[1][..., off:off + cout]
+    assert torch.equal(planes[..., off:off + cout],
+                       conv3x3.split_bf16x3_plain(written))
+    assert bool((planes[..., :off] == 7).all())
+    assert bool((planes[..., off + cout:] == 7).all())
+    # hi + mid + lo is the float32 value
+    assert torch.equal(planes[..., off:off + cout].float().sum(0), written)
+
+
+def test_float32_trunk_on_planes_matches_jax_trunk():
+    """dense_trunk in float32 on the kernel path (CPU tensors: the plain
+    versions, with every dense buffer's split planes written by the convs
+    that write it) against the JAX package's trunk (_rrdb per block,
+    rrdb.py:168-172) on the same feat: max |d| <= 2e-6 (float32 sums in
+    another order through 30 convs; measured 2.4e-7); equal to the plain
+    path's, and the
+    returned planes are the split of the returned buffer, every channel."""
+    jcfg, jp = _jparams(2, biased=True)
+    cfg, params = _port(jcfg, jp)
+    feat = np.random.RandomState(7).uniform(-1, 1, (2, 11, 13, 64)) \
+        .astype(np.float32)
+    body = jnp.asarray(feat)
+    for block in jp["body"]:
+        body = jrrdb._rrdb(body, block, jnp.float32,
+                           lambda v, p, dt, parts: jrrdb._conv(v, p, dt),
+                           cfg.num_feat, cfg.num_grow_ch)
+    a, planes = rrdb.dense_trunk(params, torch.from_numpy(feat), cfg=cfg,
+                                 compute_dtype=torch.float32)
+    torch.testing.assert_close(a[..., :64], torch.from_numpy(np.array(body)),
+                               atol=2e-6, rtol=0)
+    assert planes.shape == (3, 2, 11, 13, 192)
+    assert torch.equal(planes, conv3x3.split_bf16x3_plain(a))
+    a_plain, none = rrdb.dense_trunk(params, torch.from_numpy(feat),
+                                     cfg=cfg, compute_dtype=torch.float32,
+                                     plain=True)
+    assert none is None and torch.equal(a, a_plain)
+    # bfloat16 keeps no planes
+    assert rrdb.dense_trunk(params, torch.from_numpy(feat).bfloat16(),
+                            cfg=cfg, compute_dtype=torch.bfloat16)[1] is None
+
+
 @pytest.mark.parametrize("name", ["float32", "bfloat16"])
 def test_conv_last_plain_matches_jax(name):
     dt, jdt = getattr(torch, name), getattr(jnp, name)
@@ -270,7 +337,8 @@ def test_k1_prelu_at_bf16_slope_is_the_jax_leaky_relu():
 @pytest.mark.parametrize("name", ["float32", "bfloat16"])
 def test_pack_weights_dense_layout(name, cin, cout):
     """K7's B operand against its index formula: packed[c, t, s, kb, n,
-    kk] = planes[s][t // 3, t % 3, 32 c + 8 kb + kk, n]."""
+    kk] = planes[s][t // 3, t % 3, 16 c + 8 kb + kk, n] (16-channel
+    chunks)."""
     dt = getattr(torch, name)
     w = torch.from_numpy(np.random.RandomState(cin).standard_normal(
         (3, 3, cin, cout)).astype(np.float32)).to(dt)
@@ -278,15 +346,15 @@ def test_pack_weights_dense_layout(name, cin, cout):
         conv3x3.split_bf16x3_plain(w)
     got = k7.pack_weights_dense(w)
     s_n = planes.shape[0]
-    assert got.shape == (cin // 32, 9, s_n, 4, cout, 8)
+    assert got.shape == (cin // 16, 9, s_n, 2, cout, 8)
     assert got.dtype == torch.bfloat16 and got.is_contiguous()
     rs = np.random.RandomState(1)
     for _ in range(200):
-        c, t, s, kb = (rs.randint(cin // 32), rs.randint(9),
-                       rs.randint(s_n), rs.randint(4))
+        c, t, s, kb = (rs.randint(cin // 16), rs.randint(9),
+                       rs.randint(s_n), rs.randint(2))
         n, kk = rs.randint(cout), rs.randint(8)
         assert got[c, t, s, kb, n, kk] == \
-            planes[s, t // 3, t % 3, 32 * c + 8 * kb + kk, n]
+            planes[s, t // 3, t % 3, 16 * c + 8 * kb + kk, n]
     with pytest.raises(ValueError, match="chunks of 32"):
         k7.pack_weights_dense(w[:, :, :48])
 
@@ -476,6 +544,7 @@ def test_frame_bytes_and_plan_on_an_80_gb_card(monkeypatch):
     assert bf._frame_bytes(h, w) == h * w * 16 * 2 * 64 * 2 + io
     # the trunk (3 x 192 + 64 channels) stays below the head
     assert bf._rrdb_bytes(h, w) > h * w * (3 * 192 + 64) * 2
+    assert bf._rrdb_trunk_bytes(torch.bfloat16) == (3 * 192 + 64) * 2
     free = 79 * 2 ** 30
     _gpu_plan(bf, monkeypatch, free)
     assert bf._plan_execution(h, w) == Plan(0, 4)
@@ -486,6 +555,26 @@ def test_frame_bytes_and_plan_on_an_80_gb_card(monkeypatch):
     assert plan.tile > 0 and plan.per_call >= 1
     assert mine._frame_bytes(*mine._window(2160, 3840, plan.tile)) \
         * plan.per_call <= int(free * 0.85)
+
+
+def test_float32_trunk_bill_holds_the_plane_buffers():
+    """The float32 trunk bills feat, the three dense buffers and their
+    three split planes, and feat's split while it is copied into the
+    first planes: 6,400 B a pixel, the bytes dense_trunk allocates, and
+    still below the float32 head at 4x (14,336 B), which sets the bill."""
+    mine, _ = _engines(batch_size=1)
+    trunk = mine._rrdb_trunk_bytes(torch.float32)
+    assert trunk == 64 * 4 + 3 * 192 * 4 + 3 * 192 * 6 + 64 * 6 == 6400
+    head_4x = 16 * (2 * 64 * 4 + 64 * 6)
+    assert trunk < head_4x
+    assert mine._rrdb_bytes(10, 12) == 10 * 12 * head_4x
+    cfg = rrdb.RRDBConfig(num_block=1)
+    feat = torch.zeros((1, 10, 12, 64))
+    a, planes = rrdb.dense_trunk(rrdb.init_params(cfg), feat, cfg=cfg,
+                                 compute_dtype=torch.float32)
+    held = 3 * (a.nbytes + planes.nbytes) + feat.nbytes \
+        + conv3x3.split_bf16x3(feat).nbytes
+    assert held == trunk * 10 * 12
 
 
 def test_free_bytes_leaves_out_the_free_parts_of_held_segments(
