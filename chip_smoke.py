@@ -143,7 +143,9 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               its plain version (s8 n_diff 0, float outputs
               bit-identical), timed beside the plain version,
               torch._int_mm of one frame's im2col'd product x4 and its
-              bound (bytes); an int8 engine's plan, one call's peak
+              bound (bytes); K7q's part times (perf_conv_tc_parts on
+              rrdb_s8.cu: its loads, wgmmas or epilogue taken out, the
+              epilogue alone); an int8 engine's plan, one call's peak
               device memory against the plan's bill and the model's ms
               per batch beside bfloat16's;
  10. probe    P1, the tensor-core dot-rate probe (wgmma), through
@@ -209,15 +211,16 @@ TILE = 512
 #: (r = 1); K3 and K4a 2 in bfloat16 and 12 in float32 (K = 32: two k16
 #: steps, six products each); K7 at N = 32 and 64, per 16-channel chunk
 #: 18 in bfloat16 (two rows of 9 taps) and 54 in float32 (9 taps, six
-#: products each); K7q at N = 32 and 64, per
-#: 64-channel chunk 18 (s8); P1 one kernel for each count of
+#: products each); K7q in its four kernels (N = 32 and 64, each with and
+#: without float residuals), per 64-channel chunk 18 (s8) a warpgroup's
+#: row, four rows at N = 32 and two at 64; P1 one kernel for each count of
 #: 32-B k steps, its dot's wgmmas unrolled: s8 1 + ... + 8 (IGMMA), bf16
 #: 1 + ... + 16 (HGMMA)
 P1_IGMMA, P1_HGMMA = sum(range(1, 9)), sum(range(1, 17))
 MIN_WGMMA = {"conv3x3_tc.cu": 5 * 36, "conv3x3_f32_tc.cu": 5 * 216,
              "conv3x3_s8.cu": 4 * 18, "conv3x3.cu": 2 * (2 + 12),
              "dot_probe.cu": P1_IGMMA + P1_HGMMA,
-             "rrdb.cu": 2 * (18 + 54), "rrdb_s8.cu": 2 * 18}
+             "rrdb.cu": 2 * (18 + 54), "rrdb_s8.cu": 2 * (4 * 18 + 2 * 18)}
 
 
 def emit(obj) -> None:
@@ -1066,21 +1069,21 @@ def rrdb_kernel_phase(params, frames) -> dict:
     return results
 
 
-def k7_part_times() -> dict:
-    """K7's time by part (reve_tpu_torch.scripts.perf_conv_tc_parts on
-    rrdb.cu: its forms at the trunk's shapes with the halo loads, the
-    weight copies after each block's first tile, the wgmmas or the
-    epilogue taken out, and the stores alone): {variant: {timing: ms}},
-    each the mean of the script's two rounds of 5 launches."""
+def part_times(source: str) -> dict:
+    """A dense-block kernel's time by part (reve_tpu_torch.scripts.
+    perf_conv_tc_parts on rrdb.cu, K7, or rrdb_s8.cu, K7q: its forms at
+    the trunk's shapes with the halo loads, the wgmmas or the epilogue
+    taken out, and the stores alone; K7 also without the weight copies
+    after each block's first tile): {variant: {timing: ms}}, each the
+    mean of the script's two rounds of 5 launches."""
     import torch
 
-    from reve_tpu_torch.kernels import rrdb as k7
     from reve_tpu_torch.scripts import perf_conv_tc_parts
 
-    line = perf_conv_tc_parts.run([k7.SOURCE], iters=5)
+    line = perf_conv_tc_parts.run([source], iters=5)
     torch.cuda.empty_cache()
     return {variant: {key: sum(t) / len(t) for key, t in timings.items()}
-            for variant, timings in line["variants"][k7.SOURCE].items()}
+            for variant, timings in line["variants"][source].items()}
 
 
 def int_mm_x4(x8, cin: int, w8, frames: int):
@@ -1572,6 +1575,7 @@ def main() -> int:
     from reve_tpu_torch import cli, kernels
     from reve_tpu_torch.io import reader, writer
     from reve_tpu_torch.kernels import build, conv3x3, conv3x3_s8, dot_probe
+    from reve_tpu_torch.kernels import rrdb as k7
     from reve_tpu_torch.models import registry, rrdb, srvgg
     from reve_tpu_torch.pipeline.engine import UpscaleEngine
     from reve_tpu_torch.weights import quantize
@@ -1889,7 +1893,7 @@ def main() -> int:
                 (64, 32, RRDB_BLOCKS)
             params_r = rrdb.params_to(params_r, "cuda")
             k7_results = rrdb_kernel_phase(params_r, frames[:BATCH])
-            k7_results["bfloat16"]["parts"] = k7_part_times()
+            k7_results["bfloat16"]["parts"] = part_times(k7.SOURCE)
             torch.cuda.synchronize()
             kernels.reset_launches()
             t0 = time.perf_counter()
@@ -2060,6 +2064,7 @@ def main() -> int:
             del ref, ref_dec, got
             k7q_results = rrdb_int8_kernel_phase(params_q, qb_q,
                                                  frames[:BATCH])
+            k7q_results["parts"] = part_times(k7.S8_SOURCE)
             del qb_q, params_q
             torch.cuda.empty_cache()
             engine_q = rrdb_int8_engine_checks(batch4, maxima)
@@ -2085,7 +2090,9 @@ def main() -> int:
                            "bfloat16": engines["bfloat16"][
                                "model_ms_per_batch"]},
                        k7q_call_ms=k7q_results["call_ms"],
-                       k7q_call_bound_ms=k7q_results["call_bound_ms"])
+                       k7q_call_bound_ms=k7q_results["call_bound_ms"],
+                       k7q_forms=k7q_results["forms"],
+                       k7q_parts=k7q_results["parts"])
         rrdb8_launches = launches
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -35,9 +35,11 @@ csrc/conv3x3_tc.cu, float32 K1 and K2 in csrc/conv3x3_f32_tc.cu (their
 operands split into three bf16 parts, six products summed: float32
 accuracy, never TF32, to match the reference's Precision.HIGHEST), K4 and
 K4h on s8 wgmma in csrc/conv3x3_s8.cu, K7 in both dtypes in
-csrc/rrdb.cu (Cin in chunks of 32 channels through a TMA and bulk-copy
-ring; float32 as six bf16 products), K7q on s8 wgmma in csrc/rrdb_s8.cu
-(Cin in chunks of 64 through a TMA ring, the weights resident).  K3 and K4a run on bf16 wgmma
+csrc/rrdb.cu (Cin in chunks of 16 channels through a four-stage TMA
+ring; float32 as six bf16 products on split planes), K7q on s8 wgmma in csrc/rrdb_s8.cu
+(Cin in chunks of 64 through a TMA ring, the weights resident, two
+consumer teams taking tiles in turn, residuals and outputs moved through
+shared memory by TMA).  K3 and K4a run on bf16 wgmma
 with A from registers and TMA stores (csrc/conv3x3.cu), and P1 on s8 and
 bf16 wgmma with A from registers (csrc/dot_probe.cu).  K6 moves bytes
 only: it stages tiles of the transformed output through shared memory

@@ -398,11 +398,12 @@ def _check_s8(buf8, cin, w8, epi, inv, out8, out8_off, res, res2,
     if epi != "add":
         if out8 is None or out8.dtype != torch.int8 or out8.dim() != 4 or \
                 out8.shape[:3] != px or out8.shape[3] % 16 or \
-                out8_off % 8 or out8_off + cout > out8.shape[3]:
+                out8_off % 16 or out8_off + cout > out8.shape[3]:
+            # (the kernel writes them by TMA stores: 16-B aligned)
             raise ValueError(f"epilogue {epi!r} writes channels "
                              f"[{out8_off}, {out8_off + cout}) of an int8 "
                              f"({tuple(px)}, C) buffer, C a multiple of 16, "
-                             f"at an offset that is a multiple of 8")
+                             f"at an offset that is a multiple of 16")
         if inv is None or inv.numel() != 1:
             raise ValueError(f"epilogue {epi!r} needs inv = 1 / s_next")
         # the conv reads buf8's first cin channels of every pixel in its

@@ -45,6 +45,13 @@ each SM:
     `no_mma`, `no_epi`, and `stores_only` (no halo or weight loads after
     the first tile and no wgmmas: the epilogue with its residual loads
     and its stores alone);
+  * kernels/csrc/rrdb_s8.cu: K7q at the int8 trunk's shapes (a
+    192-channel s8 buffer, float32 residuals), its forms lrelu_q at Cin
+    64 and 160, rdb, rrdb and add (`lrelu_q64_ms`, ...), laid out as
+    apply_int8 lays them out.  Its variants: `no_load`, `no_mma`,
+    `no_epi` (no residual loads, epilogue arithmetic or stores) and
+    `stores_only` (the epilogue with its residual loads and stores
+    alone);
   * kernels/csrc/tta.cu: K6's three forms at the TTA path's shape (4
     frames of 1080p x4) for an even and an odd transform
     (`middle_k1f_ms`: MIDDLE at k = 1 with the flip, ...); its variants
@@ -179,6 +186,29 @@ PATCHES[rrdb.SOURCE] = {
 PATCHES[rrdb.SOURCE]["stores_only"] = [
     *PATCHES[rrdb.SOURCE]["no_load"], *PATCHES[rrdb.SOURCE]["w_once"],
     *PATCHES[rrdb.SOURCE]["no_mma"]]
+# K7q
+_K7Q_HALO = ("          mbar_expect_tx(halo_full + 8 * hs, K::HALO_TX);\n"
+             "          tma_load_4d(")
+_K7Q_MMA = "        WgmmaS8<N>::mma(acc[s], desc_sw64(a), desc(bw, N * 16));"
+_K7Q_EPI = ("    // The epilogue: accumulator register 4j + 2h + e holds pixel "
+            "p0 + 8h,\n")
+PATCHES[rrdb.S8_SOURCE] = {
+    "no_load": [(_K7Q_HALO, _K7Q_HALO
+                 .replace("K::HALO_TX)", f"{_K7_FIRST} ? K::HALO_TX : 0)")
+                 .replace("tma_load_4d(", f"if ({_K7_FIRST}) tma_load_4d("))],
+    "no_mma": [(_K7Q_MMA, "        acc[s][kc] += a;")],
+    # no residual loads, arithmetic or stores: the staging thread idles
+    # (every accumulator read, or ptxas drops the wgmmas that write it)
+    "no_epi": [(_K7Q_EPI,
+                "    int sum = 0;\n    for (int s = 0; s < RPW; ++s)\n"
+                "      for (int i = 0; i < N / 2; ++i) sum += acc[s][i];\n"
+                "    if (sum == 0x7654321) ps[0] = 1.f;\n"
+                "    continue;\n" + _K7Q_EPI),
+               ("    } else if (role == 2) {",
+                "    } else if (role == 2 && false) {")],
+}
+PATCHES[rrdb.S8_SOURCE]["stores_only"] = [
+    *PATCHES[rrdb.S8_SOURCE]["no_load"], *PATCHES[rrdb.S8_SOURCE]["no_mma"]]
 for _p in PATCHES.values():
     _p["full"] = []
     _p["no_load_no_epi"] = _p["no_load"] + _p["no_epi"]
@@ -335,6 +365,64 @@ def _k7_timings(lib, name: str, ops: dict, stream) -> dict:
     return t
 
 
+#: K7q's timed forms: (name, Cin, Cout, epilogue), at the model's path
+_K7Q_FORMS = (("lrelu_q64", 64, 32, "lrelu_q"),
+              ("lrelu_q160", 160, 32, "lrelu_q"), ("rdb", 192, 64, "rdb"),
+              ("rrdb", 192, 64, "rrdb"), ("add", 64, 64, "add"))
+
+
+def _k7q_operands(rs, dev) -> dict:
+    """K7q's operands at the int8 trunk's shapes: the 192-channel s8
+    buffer a dense block reads and the other one conv 5 writes, the
+    float32 chain (res, res2 = out) and feat, the model's scales, the
+    weights of each form packed once."""
+    cs = 192
+    buf = torch.from_numpy(rs.randint(-127, 128, (B, H, W, cs)).astype(
+        np.int8)).to(dev)
+    ops = {"buf": buf, "other": torch.zeros_like(buf), "w": {},
+           "res": torch.rand((B, H, W, 64), device=dev) * 4 - 2,
+           "inv": torch.full((1,), 50.0, device=dev),
+           "sw": torch.full((64,), 4e-6, device=dev),
+           "b": torch.zeros(64, device=dev)}
+    ops["res2"] = ops["res"].flip(0).contiguous()
+    ops["feat"] = ops["res"].clone()
+    for _f, cin, cout, _e in _K7Q_FORMS:
+        w8 = torch.from_numpy(rs.randint(-127, 128, (3, 3, cin, cout))
+                              .astype(np.int8)).to(dev)
+        ops["w"][cin, cout] = rrdb.pack_weights_dense_s8(w8)
+    return ops
+
+
+def _k7q_timings(lib, name: str, ops: dict, stream) -> dict:
+    """{timing: callable} of K7q's forms for one variant's library, laid
+    out as apply_int8 lays them out: lrelu_q writes its growth slice of
+    the buffer it reads, rdb and rrdb the other buffer's first 64
+    channels and a float32 chain buffer (rrdb in place over res2), add
+    feat in place."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _entry(lib, "reve_dense_conv_s8", [P] * 9 + [I] * 9 + [P])
+
+    def run(cin, cout, epi):
+        res = res2 = out = out8 = None
+        if epi == "lrelu_q":
+            out8 = ops["buf"].data_ptr() + cin
+        elif epi == "add":
+            res = out = ops["feat"].data_ptr()
+        else:
+            out8, res = ops["other"].data_ptr(), ops["res"].data_ptr()
+            out = ops["res2"].data_ptr()
+            res2 = out if epi == "rrdb" else None
+        wp = ops["w"][cin, cout]
+        return lambda: build.check(lib, fn(
+            ops["buf"].data_ptr(), wp.data_ptr(), ops["sw"].data_ptr(),
+            ops["b"].data_ptr(), ops["inv"].data_ptr(), res, res2, out,
+            out8, B, H, W, cin, 192, cout, 192,
+            rrdb.EPILOGUES_S8.index(epi), 0, stream), name)
+
+    return {f"{f}_ms": run(cin, cout, epi)
+            for f, cin, cout, epi in _K7Q_FORMS}
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     p = argparse.ArgumentParser(prog="perf_conv_tc_parts",
                                 description=__doc__.splitlines()[0])
@@ -422,6 +510,8 @@ def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
                                         (tta.LAST, "last"))}
         if source == rrdb.SOURCE:
             return _k7_timings(lib, name, k7_ops, stream)
+        if source == rrdb.S8_SOURCE:
+            return _k7q_timings(lib, name, k7q_ops, stream)
         if source == conv3x3.TC_SOURCE:
             k1 = _entry(lib, "reve_conv3x3_bias_prelu_tc",
                         [P] * 5 + [I] * 3 + [P])
@@ -501,9 +591,11 @@ def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
                 b.data_ptr(), u8.data_ptr(), o.data_ptr(), B, H, W, R,
                 stream), name)}
 
-    k7_ops = None
+    k7_ops = k7q_ops = None
     if rrdb.SOURCE in (sources or PATCHES):
         k7_ops = _k7_operands(rs, dev)
+    if rrdb.S8_SOURCE in (sources or PATCHES):
+        k7q_ops = _k7q_operands(rs, dev)
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:

@@ -16,15 +16,18 @@ code and so one u8 step of the RGB frame; one u8 step is up to 4 steps of
 a 10-bit sample (1023 / 255).
 """
 
+import fcntl
 import fractions
 import json
 import os
+import time
 
 import numpy as np
 import pytest
 import torch
 
 from reve_tpu import cli as jcli
+from reve_tpu import native as jnative
 from reve_tpu.pipeline.engine import UpscaleEngine as JaxEngine
 from reve_tpu_torch import cli, device as device_mod
 from reve_tpu_torch.pipeline.engine import UpscaleEngine
@@ -37,6 +40,38 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PTH = os.path.join(REPO, "models", "realesr-animevideov3-x4.pth")
 JOB = ["-s", "4", "--io-backend", "y4m", "--weights", PTH, "-S", "3",
        "--batch", "2", "--dtype", "float32", "--yes"]
+
+
+#: how long jax_native_core waits for a build of the core that another
+#: process runs (one build takes about 15 s on one core)
+NATIVE_WAIT_S = 300.0
+
+
+@pytest.fixture(scope="module")
+def jax_native_core():
+    """reve_tpu's native core, loaded in this process before a test runs
+    the JAX CLI or API as its reference: without it the JAX job's concat
+    re-encodes its parts, and its output no longer matches the port's
+    sample for sample.  reve_tpu.native builds the core with `make` in
+    the source tree on first use, so in a fresh checkout several test
+    processes may build it at once; a process whose load meets a
+    half-written library marks the core unavailable for its whole life.
+    So the first load here holds a lock across processes (on the
+    Makefile), and where a build running elsewhere made it fail, the mark
+    is cleared and the load retried, for at most NATIVE_WAIT_S."""
+    deadline = time.monotonic() + NATIVE_WAIT_S
+    with open(os.path.join(jnative._NATIVE_DIR, "Makefile")) as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            while jnative.load() is None:
+                if time.monotonic() > deadline:
+                    pytest.fail(f"reve_tpu's native core did not load "
+                                f"within {NATIVE_WAIT_S} s")
+                time.sleep(1.0)
+                jnative._build_failed = False
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return jnative.load()
 
 
 def _input(tmp_path, frames=6, w=32, h=24):
@@ -96,6 +131,7 @@ def small_calib_chunks(monkeypatch):
 INT8 = [a if a != "float32" else "int8" for a in JOB]
 
 
+@pytest.mark.usefixtures("jax_native_core")
 def test_cli_matches_jax_cli_on_hermetic_job(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     inp = _input(tmp_path)
@@ -109,6 +145,7 @@ def test_cli_matches_jax_cli_on_hermetic_job(tmp_path, monkeypatch):
     _assert_close_y4m(got, want)
 
 
+@pytest.mark.usefixtures("jax_native_core")
 @pytest.mark.parametrize("extra", [["--tile", "64"], ["--tile", "8"],
                                    ["--tta"]])
 def test_cli_tile_and_tta_match_jax_cli(tmp_path, monkeypatch, extra):
@@ -159,6 +196,7 @@ def test_cli_tta_resume_restores_tta(tmp_path, monkeypatch, capsys):
         assert a.read() != b.read()
 
 
+@pytest.mark.usefixtures("jax_native_core")
 def test_api_upscale_video_matches_jax_api(tmp_path, monkeypatch):
     """reve_tpu_torch.upscale_video against reve_tpu.upscale_video on the
     same y4m, with tile and tta."""
@@ -281,6 +319,7 @@ def test_cli_resume_with_one_committed_part(tmp_path, monkeypatch):
     assert not os.path.exists(out + ".revework")
 
 
+@pytest.mark.usefixtures("jax_native_core")
 def test_cli_int8_matches_jax_cli_on_hermetic_job(tmp_path, monkeypatch,
                                                   capsys, small_calib_chunks):
     """--dtype int8 through both CLIs.  The port quantizes with the

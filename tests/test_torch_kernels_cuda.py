@@ -40,8 +40,11 @@ sqrt(9 Cin)) and activations in [-1, 1], scaled with the inputs at
 (the conv value, its residuals, the result): a residual add can cancel,
 so a conv value rounded to the neighbouring bf16 lands on a result near
 zero.  K7q (csrc/rrdb_s8.cu, RRDB's int8 dense convs): exact (s8 codes
-and float outputs; integer sums and the same float32 steps), also past
-|acc| = 2^24 and at the quantize's clip; the int8 RRDB model u8 |d| <= 1
+and float outputs; integer sums and the same float32 steps) at the
+ragged edges of its tiles (8 x 64 at Cout 32, 4 x 64 at 64), also past
+|acc| = 2^24 and at the quantize's clip; its TMA-stored s8 codes land in
+their Cout channels only, and a build off its register budget refuses
+to launch; the int8 RRDB model u8 |d| <= 1
 (its bf16 conv_first and head sum in another order) and one call's peak
 memory within the engine's bill.  K2's conv_last mode: u8 |d| <= 1.  K6 (csrc/tta.cu) moves bytes and adds
 integers: exact, for each of the 8 transforms and its three forms, on
@@ -1347,14 +1350,22 @@ def _k7q_exact(got, want):
             assert int((g != w).sum()) == 0, (g.dtype, int((g != w).sum()))
 
 
+#: K7q's tiles are 8 x 64 at Cout 32 and 4 x 64 at Cout 64: K7's shapes,
+#: and frames smaller than one tile, one row short of two and one past
+#: them, a tile wide, one pixel wider and one narrower
+K7Q_SHAPES = K7_SHAPES + [(1, 3, 30), (2, 7, 64), (1, 15, 65),
+                          (3, 12, 127), (1, 33, 191)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cin,cout,epi", K7Q_FORMS)
 def test_k7q_matches_plain_at_tile_edges(cin, cout, epi):
     """Each K7q form exact against its plain version (s8 codes n_diff 0,
     float32 and bfloat16 outputs bit-identical: integer sums and the same
-    float32 steps, each rounded on its own) on ragged and whole tiles."""
+    float32 steps, each rounded on its own) on ragged and whole tiles,
+    the rrdb form in place over res2, add over feat."""
     dev = _cuda()
-    for i, (B, H, W) in enumerate(K7_SHAPES):
+    for i, (B, H, W) in enumerate(K7Q_SHAPES):
         c = _k7q_case(cin + i, B, H, W, cin, cout, epi, dev)
         before = LAUNCHES["dense_conv_s8"]
         got = _k7q_run(c, cin, epi, plain=False)
@@ -1365,14 +1376,19 @@ def test_k7q_matches_plain_at_tile_edges(cin, cout, epi):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cin,cout,epi", [(96, 32, "lrelu_q"),
-                                          (192, 64, "rrdb")])
-def test_k7q_at_saturation_and_past_2_24(cin, cout, epi):
+@pytest.mark.parametrize("cin,cout,epi,shape", [
+    (96, 32, "lrelu_q", (2, 9, 70)), (96, 32, "lrelu_q", (1, 5, 129)),
+    (160, 32, "lrelu_q", (2, 9, 70)), (160, 32, "lrelu_q", (1, 5, 129)),
+    (192, 64, "rdb", (2, 9, 70)), (192, 64, "rdb", (1, 5, 129)),
+    (192, 64, "rrdb", (2, 9, 70))])
+def test_k7q_at_saturation_and_past_2_24(cin, cout, epi, shape):
     """Inputs and weights at +-127 of one sign make |acc| up to 9 x 192 x
     127^2 > 2^24, where float32(acc) rounds (to nearest even, in both),
-    and drive the quantize into its clip at +-127: still exact."""
+    and drive the quantize into its clip at +-127: still exact, on frames
+    of ragged tiles.  (rrdb's residuals damp its sum by 0.04: at (1, 5,
+    129) these seeds reach no clip, so it runs at the first shape only.)"""
     dev = _cuda()
-    c = _k7q_case(7, 2, 9, 70, cin, cout, epi, dev, x_max=1, w_max=1)
+    c = _k7q_case(7, *shape, cin, cout, epi, dev, x_max=1, w_max=1)
     c["buf"] = c["buf"].clamp(0, 1) * 127
     c["w8"] = torch.where(c["w8"] >= 0, 127, -127).to(torch.int8)
     got = _k7q_run(c, cin, epi, plain=False)
@@ -1385,25 +1401,87 @@ def test_k7q_at_saturation_and_past_2_24(cin, cout, epi):
 
 
 @pytest.mark.cuda
-def test_k7q_writes_only_its_channels():
-    """lrelu_q writes only its growth slice of the buffer it reads; rdb
-    only the first 64 channels of the other buffer."""
+@pytest.mark.parametrize("shape", [(2, 19, 45), (1, 9, 130)])
+def test_k7q_writes_only_its_channels(shape):
+    """The TMA-stored s8 codes land only in their Cout channels of the
+    192-B pixels: lrelu_q its growth slice of the buffer it reads, at
+    every offset the model writes; rdb and rrdb the first 64 channels of
+    the other buffer; every pixel of the frame written, none past it."""
     dev = _cuda()
-    c = _k7q_case(3, 2, 19, 45, 96, 32, "lrelu_q", dev)
-    buf = c["buf"].clone()
-    k7.dense_conv_s8(buf, 96, c["w8"], c["sw"], c["b"], "lrelu_q",
-                     inv=c["inv"], out8=buf, out8_off=96)
-    torch.cuda.synchronize()
-    assert torch.equal(buf[..., :96], c["buf"][..., :96])
-    assert torch.equal(buf[..., 128:], c["buf"][..., 128:])
-    c = _k7q_case(4, 2, 19, 45, 192, 64, "rdb", dev)
-    other = c["buf"].flip(0).contiguous()
-    before = other.clone()
-    k7.dense_conv_s8(c["buf"], 192, c["w8"], c["sw"], c["b"], "rdb",
-                     inv=c["inv"], out8=other, res=c["res"],
-                     out=torch.empty_like(c["res"]))
-    torch.cuda.synchronize()
-    assert torch.equal(other[..., 64:], before[..., 64:])
+    for cin in (64, 96, 128, 160):
+        c = _k7q_case(3 + cin, *shape, cin, 32, "lrelu_q", dev)
+        buf = c["buf"].clone()
+        k7.dense_conv_s8(buf, cin, c["w8"], c["sw"], c["b"], "lrelu_q",
+                         inv=c["inv"], out8=buf, out8_off=cin)
+        want = c["buf"].clone()
+        k7.dense_conv_s8_plain(want, cin, c["w8"], c["sw"], c["b"],
+                               "lrelu_q", inv=c["inv"], out8=want,
+                               out8_off=cin)
+        torch.cuda.synchronize()
+        assert torch.equal(buf, want), cin
+    for epi in ("rdb", "rrdb"):
+        c = _k7q_case(4, *shape, 192, 64, epi, dev)
+        other = c["buf"].flip(0).contiguous()
+        before = other.clone()
+        out = c["res2"].clone()
+        k7.dense_conv_s8(c["buf"], 192, c["w8"], c["sw"], c["b"], epi,
+                         inv=c["inv"], out8=other, res=c["res"],
+                         res2=out if epi == "rrdb" else None, out=out)
+        torch.cuda.synchronize()
+        assert torch.equal(other[..., 64:], before[..., 64:])
+        assert not torch.equal(other[..., :64], before[..., :64])
+
+
+@pytest.mark.cuda
+def test_k7q_refuses_a_kernel_off_its_register_budget(tmp_path):
+    """setmaxnreg hands the producer's registers to the consumers, which
+    hangs the card unless the block holds them: a build of rrdb_s8.cu
+    whose check expects another register count than ptxas gave refuses
+    every launch with an error (cudaErrorLaunchOutOfResources), writes
+    nothing, and the wrapper's check raises."""
+    import ctypes
+    import os
+    import subprocess
+
+    from reve_tpu_torch.kernels import build
+
+    dev = _cuda()
+    with open(os.path.join(build.CSRC, k7.S8_SOURCE)) as f:
+        text = f.read()
+    check = "if (attr.numRegs != LAUNCH_REGS)"
+    assert text.count(check) == 1
+    cu = tmp_path / "rrdb_s8_budget.cu"
+    cu.write_text(text.replace(check, "if (attr.numRegs != LAUNCH_REGS + 8)"))
+    so = str(tmp_path / "librrdb_s8_budget.so")
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I", build.CSRC,
+                    "-o", so, str(cu)], check=True, capture_output=True)
+    lib = ctypes.CDLL(so)
+    fn = lib.reve_dense_conv_s8
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    for cin, cout, epi in K7Q_FORMS[:1] + K7Q_FORMS[4:6]:
+        c = _k7q_case(9, 2, 19, 45, cin, cout, epi, dev)
+        buf, other = c["buf"].clone(), torch.zeros_like(c["buf"])
+        out = c["res2"].clone()
+        wp = k7.pack_weights_dense_s8(c["w8"])
+        lrelu = epi == "lrelu_q"
+        inv = c["inv"].reshape(1).contiguous()
+        err = fn(buf.data_ptr(), wp.data_ptr(), c["sw"].data_ptr(),
+                 c["b"].data_ptr(), inv.data_ptr(),
+                 None if lrelu else c["res"].data_ptr(),
+                 out.data_ptr() if epi == "rrdb" else None,
+                 None if lrelu else out.data_ptr(),
+                 buf.data_ptr() + cin if lrelu else other.data_ptr(),
+                 2, 19, 45, cin, 192, cout, 192,
+                 k7.EPILOGUES_S8.index(epi), 0,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 701, err  # cudaErrorLaunchOutOfResources
+        with pytest.raises(RuntimeError):
+            build.check(lib, err, "dense_conv_s8")
+        assert torch.equal(buf, c["buf"]) and not other.any()
+        assert torch.equal(out, c["res2"])
 
 
 def _rrdb_int8_small(dev, num_block=2):

@@ -48,6 +48,7 @@ from reve_tpu_torch.pipeline import scheduler
 from reve_tpu_torch.pipeline.engine import Plan, UpscaleEngine
 from reve_tpu_torch.pipeline.planner import plan_segments
 from reve_tpu_torch.pipeline.state import JobState, Workspace
+from test_torch_cli import jax_native_core  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -680,6 +681,7 @@ def _y4m_samples(path):
     return header, frames
 
 
+@pytest.mark.usefixtures("jax_native_core")
 def test_cli_rrdb_job_matches_jax_cli(tmp_path, monkeypatch):
     """The y4m job through both CLIs: --model realesrgan-x4plus with an
     upstream-keyed .pth (1 block), x4, float32; the two output files'

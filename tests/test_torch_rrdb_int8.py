@@ -44,6 +44,7 @@ from reve_tpu_torch.models import rrdb
 from reve_tpu_torch.pipeline.engine import UpscaleEngine
 from reve_tpu_torch.pipeline.state import Workspace
 from reve_tpu_torch.weights import quantize
+from test_torch_cli import jax_native_core  # noqa: F401
 from test_torch_rrdb import (_frames, _jparams, _max_diff, _port, _psnr,
                              _save_upstream_pth, _y4m, _y4m_samples)
 
@@ -243,8 +244,9 @@ def test_pack_weights_dense_s8_layout(cin, cout):
 def test_dense_conv_s8_refusals_before_any_launch():
     """The wrapper's checks, before any launch: a meta tensor is refused
     (the kernel takes CUDA tensors), and on small CPU tensors K7q writes
-    into its own input only past the channels it reads, takes Cin in
-    multiples of 32, and its forms need their scale and residuals."""
+    into its own input only past the channels it reads, at a 16-B aligned
+    channel offset, takes Cin in multiples of 32, and its forms need their
+    scale and residuals."""
     meta = torch.empty((1, 4, 4, CS), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         k7.dense_conv_s8(meta, 64, meta[0, 0, :3, :32], meta, meta,
@@ -265,6 +267,9 @@ def test_dense_conv_s8_refusals_before_any_launch():
          "past the ones it reads"),
         ((buf, 64, w, "lrelu_q", None, buf, 64, None, None, None),
          "needs inv"),
+        # the s8 codes go out by TMA stores, 16-B aligned
+        ((buf, 64, w, "lrelu_q", inv, other, 8, None, None, None),
+         "offset that is a multiple of 16"),
         ((buf, CS, w5, "rrdb", inv, other, 0, f32, None, g32),
          "needs residuals"),
         ((buf, CS, w5, "rdb", inv, other, 0, f32.bfloat16(), None, g32),
@@ -421,6 +426,7 @@ def rrdb_pth(tmp_path):
     return path
 
 
+@pytest.mark.usefixtures("jax_native_core")
 def test_cli_rrdb_int8_job_matches_jax_cli(tmp_path, monkeypatch, capsys,
                                            rrdb_pth, small_calib_chunks):
     """The hermetic y4m job with --dtype int8 through both CLIs (3 frames
