@@ -18,7 +18,9 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               dtypes), rrdb.cu, rrdb_s8.cu and dot_probe.cu must hold
               wgmma, P1's library both
               IGMMA and HGMMA, and no library any __dp4a (IDP.4A) or
-              mma.sync (HMMA, IMMA);
+              mma.sync (HMMA, IMMA); float32 conv_last's library
+              (conv_last_f32.cu, float32 FMAs) must hold FFMA and spill
+              nothing;
   3. kernels  K3, K1 and K2 at the main path's shapes (1080p frames, a
               batch of 4, x4), all on the tensor cores, in bfloat16
               (conv3x3.cu, conv3x3_tc.cu) and float32 (as six bf16
@@ -116,14 +118,16 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               a float32 engine batch through the plan's chunks, twice,
               with PyTorch's default allocator (the second batch
               byte-identical to the first), every frame at u8 |d| <= 1
-              against the plain float32 path, with 5 split passes a
-              call (feat's, the head's) and none in the trunk; the
-              model's ms per batch,
+              against the plain float32 path, with 4 split passes a
+              call (feat's, the head's three K1) and none in the trunk
+              or conv_last; the model's ms per batch,
               the plan and one call's peak device memory, at most what
-              the plan bills, in both dtypes; the conv_last mode
-              at its shapes (4 frames of 7680 x 4320 in bfloat16, the
-              float32 plan's chunk) against its plain version frame by
-              frame (u8 |d| <= 1); K1 at the up convs' shapes (alpha
+              the plan bills, in both dtypes; conv_last at its shapes
+              (4 frames of 7680 x 4320 in bfloat16, K2's conv_last
+              mode; the float32 plan's chunk in float32, its own kernel
+              of float32 FMAs, conv_last_f32.cu) against its plain
+              version frame by frame (u8 |d| <= 1, n_diff), timed
+              beside cuDNN and its bound; K1 at the up convs' shapes (alpha
               0.2; 4 frames at 2x and at 4x, 8.5e9 values, in bfloat16;
               the float32 plan's chunk in float32) against its plain
               version on every frame, in strips of rows (<= 2 ulp;
@@ -134,7 +138,7 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               into the job's int8 calls (each K3 1, K7q 346, K1 3, the
               conv_last mode 1), the calibration's float32 forwards (K3,
               345 x K7, one split pass) and the certification's float32
-              calls (5 split passes each); each
+              calls (4 split passes each); each
               frame against the port's plain int8 path on the card with
               the calibration the workspace persisted, >= 60 dB, with
               n_diff; the certificate (dB vs float32), calibrate_s and
@@ -168,11 +172,14 @@ its path (main, int8, tta, rrdb, rrdb_int8 or probe), error (and, for u8 and s8
 outputs,
 n_diff: the values that differ from the plain version's; the model
 kernels' error on the transposed batch under "transposed"), times, bound
-and design ("wgmma", "wgmma_bf16x6", "elementwise" or "smem_transpose";
+and design ("wgmma", "wgmma_bf16x6", "fma_f32", "elementwise" or
+"smem_transpose";
 K6's numbers per launch averaged over one batch's 8 launches, with each
 form's under "forms"; the
 float32 forms of K1, K2 and K3 nested under "float32" with their own
-source, design and launches on the int8 path, where they run).  The last
+source, design and launches on the int8 path, where they run; those of
+K7 and conv_last (conv_last_f32.cu, "fma_f32") with their launches in
+the rrdb phase's float32 engine batch).  The last
 line is {"ok": true, "device": {...}}.
 
 Run from the root of a checkout: alone, or without a CUDA device, it
@@ -207,8 +214,8 @@ FRAMES, W, H, SCALE, BATCH = 8, 1920, 1080, 4, 4
 TILE = 512
 #: wgmma instructions each tensor-core library must hold at least: every
 #: kernel's mainloop unrolled (per 64-pixel row: bf16 36, bf16x6 216, s8
-#: 18), the hidden conv, the heads at r = 2, 3, 4 and K2's conv_last mode
-#: (r = 1); K3 and K4a 2 in bfloat16 and 12 in float32 (K = 32: two k16
+#: 18), the hidden conv, the heads at r = 2, 3, 4 and (bf16 only) K2's
+#: conv_last mode (r = 1); K3 and K4a 2 in bfloat16 and 12 in float32 (K = 32: two k16
 #: steps, six products each); K7 at N = 32 and 64, per 16-channel chunk
 #: 18 in bfloat16 (two rows of 9 taps) and 54 in float32 (9 taps, six
 #: products each); K7q in its four kernels (N = 32 and 64, each with and
@@ -217,7 +224,7 @@ TILE = 512
 #: 32-B k steps, its dot's wgmmas unrolled: s8 1 + ... + 8 (IGMMA), bf16
 #: 1 + ... + 16 (HGMMA)
 P1_IGMMA, P1_HGMMA = sum(range(1, 9)), sum(range(1, 17))
-MIN_WGMMA = {"conv3x3_tc.cu": 5 * 36, "conv3x3_f32_tc.cu": 5 * 216,
+MIN_WGMMA = {"conv3x3_tc.cu": 5 * 36, "conv3x3_f32_tc.cu": 4 * 216,
              "conv3x3_s8.cu": 4 * 18, "conv3x3.cu": 2 * (2 + 12),
              "dot_probe.cu": P1_IGMMA + P1_HGMMA,
              "rrdb.cu": 2 * (18 + 54), "rrdb_s8.cu": 2 * (4 * 18 + 2 * 18)}
@@ -298,7 +305,8 @@ def bf16_ulp_ok(got, want, ulps: int = 2) -> bool:
 
 def sass_ops(lib: str) -> dict:
     """Counts of the wgmma opcodes (HGMMA, IGMMA, ...), of mma.sync (HMMA,
-    IMMA) and of __dp4a (SASS IDP.4A, counted as "IDP4A") in a built
+    IMMA), of float32 FMAs (FFMA) and of __dp4a (SASS IDP.4A, counted as
+    "IDP4A") in a built
     library's SASS (cuobjdump of the CUDA toolkit whose nvcc built it), in
     all and by kernel: {"all": {op: n}, "by_kernel": {mangled name: {op:
     n}}}."""
@@ -310,7 +318,8 @@ def sass_ops(lib: str) -> dict:
     every, by_kernel = {}, {}
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         ops = by_kernel.setdefault(part.split()[0], {})
-        for m in re.finditer(r"\b([A-Z]GMMA|[HI]MMA|IDP\.?4A)\b", part):
+        for m in re.finditer(r"\b([A-Z]GMMA|[HI]MMA|FFMA|IDP\.?4A)\b",
+                             part):
             op = m.group(1).replace(".", "")
             ops[op] = ops.get(op, 0) + 1
             every[op] = every.get(op, 0) + 1
@@ -880,8 +889,9 @@ RRDB_MODEL = "realesrgan-x4plus"
 RRDB_BLOCKS = 23
 RRDB_K7_PER_CALL = 15 * RRDB_BLOCKS + 1
 #: split passes per float32 RRDB call: feat's once (the trunk's convs
-#: write the planes they read), then the head's three K1 and conv_last
-RRDB_F32_SPLITS_PER_CALL = 1 + 3 + 1
+#: write the planes they read), then the head's three K1 (conv_last reads
+#: its float32 input as it is)
+RRDB_F32_SPLITS_PER_CALL = 1 + 3
 #: each frame of the bf16 job may sit this far further from the plain
 #: float32 path than the plain bfloat16 path does (dB):
 #: tests/test_torch_rrdb.py's margin against the JAX package's own bf16
@@ -1241,7 +1251,7 @@ def rrdb_int8_calls(launches: dict) -> dict:
     mode once; the calibration's float32 forwards K3 once, the split
     pass once (feat's) and K7 345 times (no conv_body); the
     certification's float32 calls the whole float32 model (K3, 346 x K7,
-    3 x K1, conv_last, 5 split passes).  At least one of
+    3 x K1, conv_last, 4 split passes).  At least one of
     each, and more int8 calls than float32 ones (the job's own batch)."""
     k7q = launches["dense_conv_s8"]
     n8 = k7q // RRDB_K7_PER_CALL
@@ -1307,12 +1317,15 @@ def rrdb_int8_engine_checks(frames, maxima) -> dict:
 
 
 def conv_last_phase(params, batches: dict) -> dict:
-    """K2's conv_last mode at the main path's shapes (4 frames of 7680 x
-    4320 in bfloat16; the float32 plan's chunk, `batches["float32"]`
-    frames, in float32) on conv_hr-like activations (a leaky ReLU of
-    seeded normals), against its plain version frame by frame (the
-    plain version's float32 copy of a whole batch would not fit beside
-    it), timed beside cuDNN's F.conv2d and its byte bound."""
+    """conv_last at the main path's shapes (4 frames of 7680 x 4320 in
+    bfloat16, K2's conv_last mode; the float32 plan's chunk,
+    `batches["float32"]` frames, in float32, conv_last_f32.cu's float32
+    FMAs) on conv_hr-like activations (a leaky ReLU of seeded normals),
+    against its plain version frame by frame (the plain version's
+    float32 copy of a whole batch would not fit beside it), timed beside
+    cuDNN's F.conv2d and its bound (the conv's operations at the rate of
+    the type it computes in: bf16 on the tensor cores, float32 on the
+    CUDA cores)."""
     import torch
     import torch.nn.functional as F
 
@@ -1347,8 +1360,7 @@ def conv_last_phase(params, batches: dict) -> dict:
         bpe = torch.finfo(dt).bits // 8
         px = B * oh * ow
         bms, bby = bound_ms(px * (64 * bpe + 3) + w.numel() * bpe + 12,
-                            2 * 9 * 64 * 3 * px
-                            * (6 if name == "float32" else 1), "bfloat16")
+                            2 * 9 * 64 * 3 * px, name)
         results[name] = {
             "max_abs_err": err, "n_diff": n_diff, "clipped_share": clipped,
             "ms": cuda_time_ms(lambda: head.conv_last_u8(h, w, p["b"]),
@@ -1574,7 +1586,8 @@ def main() -> int:
                            f"repo")
     from reve_tpu_torch import cli, kernels
     from reve_tpu_torch.io import reader, writer
-    from reve_tpu_torch.kernels import build, conv3x3, conv3x3_s8, dot_probe
+    from reve_tpu_torch.kernels import (build, conv3x3, conv3x3_s8,
+                                        dot_probe, head)
     from reve_tpu_torch.kernels import rrdb as k7
     from reve_tpu_torch.models import registry, rrdb, srvgg
     from reve_tpu_torch.pipeline.engine import UpscaleEngine
@@ -1601,6 +1614,11 @@ def main() -> int:
                 "wgmma": sum(n for k, n in ops.items()
                              if k.endswith("GMMA")),
                 "sass_ops": ops,
+                # spill stores and loads in ptxas's report (None: no
+                # report, a library loaded from the build cache)
+                "spill_bytes": sum(int(n) for n in re.findall(
+                    r"(\d+) bytes spill (?:stores|loads)", v["log"]))
+                if "spill" in v["log"] else None,
                 "kernels_without_wgmma": sorted(
                     k for k, o in sass["by_kernel"].items()
                     if not any(op.endswith("GMMA") for op in o))}
@@ -1631,6 +1649,12 @@ def main() -> int:
             for op in ("IDP4A", "HMMA", "IMMA"):
                 if v["sass_ops"].get(op):
                     raise AssertionError(f"{s}: {op} in its SASS")
+        # float32 conv_last sums in float32 FMAs held in registers: FFMA
+        # in its SASS, and ptxas reports no spill for its kernel
+        last = rec["sources"][head.LAST_F32_SOURCE]
+        if not last["sass_ops"].get("FFMA") or last["spill_bytes"] != 0:
+            raise AssertionError(f"{head.LAST_F32_SOURCE}: {last}, expected "
+                                 f"FFMA and no spills")
 
     weights = os.path.join(ROOT, "models", "realesr-animevideov3-x4.pth")
     cfg, params = load_srvgg_pth(weights)
@@ -2187,17 +2211,20 @@ def main() -> int:
                                               "batch_bound_ms")}
         elif name in ("dense_conv", "conv_last_u8"):
             # bfloat16 at the top, float32 nested with its launches in the
-            # float32 engine's batch
+            # float32 engine's batch (float32 conv_last: its own kernel
+            # of float32 FMAs)
             by_dt = k7_results if name == "dense_conv" else last
-            f32_src = src if name == "dense_conv" else \
-                "reve_tpu_torch/kernels/csrc/conv3x3_f32_tc.cu"
+            f32_src, f32_design = (src, "wgmma_bf16x6") \
+                if name == "dense_conv" else (
+                    "reve_tpu_torch/kernels/csrc/conv_last_f32.cu",
+                    "fma_f32")
             nums = by_dt["bfloat16"]
             extra = {key: v for key, v in nums.items() if key not in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "shape", "n_diff")}
             extra["float32"] = dict(
                 by_dt["float32"], source=f32_src, route="cuda",
-                design="wgmma_bf16x6",
+                replaces=replaces, design=f32_design,
                 launches=engines["float32"]["launches"].get(name, 0))
         elif name == "dense_conv_s8":
             nums = k7q_results

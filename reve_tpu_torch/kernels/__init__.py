@@ -10,8 +10,10 @@
                                               (RRDB: conv_first, alpha 1)
     K2  head.head_conv_residual_u8_shuffle    head conv + residual + u8 +
                                               pixel shuffle
-        head.conv_last_u8                     K2's conv_last mode (RRDB):
-                                              64->3 conv + u8, no residual
+        head.conv_last_u8                     RRDB's conv_last: 64->3 conv +
+                                              u8, no residual (bf16: K2's
+                                              conv_last mode; float32: its
+                                              own kernel of float32 FMAs)
     K7  rrdb.dense_conv                       RRDB dense-block conv over
                                               a channel slice + leaky ReLU
                                               or the block residuals
@@ -43,7 +45,10 @@ shared memory by TMA).  K3 and K4a run on bf16 wgmma
 with A from registers and TMA stores (csrc/conv3x3.cu), and P1 on s8 and
 bf16 wgmma with A from registers (csrc/dot_probe.cu).  K6 moves bytes
 only: it stages tiles of the transformed output through shared memory
-(csrc/tta.cu).
+(csrc/tta.cu).  float32 conv_last (N = 3, where wgmma's operand reads,
+not its math, would set the pace) sums float32 FMAs on the CUDA cores
+over its input read once by TMA, with no split pass
+(csrc/conv_last_f32.cu).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback.  `LAUNCHES` counts

@@ -10,11 +10,10 @@
 //       _epilogue(quantize_u8=True) (srvgg.py:239-262) and
 //       reve_tpu/ops/pixel_shuffle.py:14-22: + b in float32 (no cast: the
 //       compute dtype is float32), + repeat(u8 / 255, r^2) in float32,
-//       u8(clip(y * 255 + 0.5, 0, 255)), stored in pixel-shuffle order;
-//       at r = 1 with no residual, RRDBNet's conv_last (64 -> 3,
-//       reve_tpu/models/rrdb.py:232-233) with the engine's u8 rounding
-//       (reve_tpu/pipeline/engine.py:428-429).
+//       u8(clip(y * 255 + 0.5, 0, 255)), stored in pixel-shuffle order.
 // The int8 path's float32 calibration and certification passes run both.
+// (RRDBNet's float32 conv_last, 64 -> 3 with no residual, is a kernel of
+// its own: conv_last_f32.cu.)
 //
 // Scheme.  Each float32 value splits into three bf16 parts, hi = bf16(x),
 // mid = bf16(x - hi), lo = bf16(x - hi - mid): each subtraction is exact
@@ -81,8 +80,7 @@ constexpr int STAGES = 3;  // weight ring
 using Grid = TileGrid<TH, TW>;
 
 // R = 0: K1 (bias + PReLU, float32 out); R = 2, 3, 4: K2 (u8 residual +
-// pixel shuffle at scale R); R = 1: K2's conv_last mode (no residual: the
-// epilogue adds a zero base, which leaves every value as it is).
+// pixel shuffle at scale R).
 template <int R>
 struct F32 {
   using Epi = HeadEpilogue<R>;  // K2's; unused by K1
@@ -209,7 +207,7 @@ conv3x3_f32_tc_kernel(const __grid_constant__ CUtensorMap map,
     // K2 reads the row's u8 input pixels before the wgmmas; the loads
     // land while the tensor cores work
     uint8_t o0 = 0, o1 = 0;
-    if constexpr (R > 1)
+    if constexpr (R > 0)
       Epi::load_orig(orig, b, oy, x0, H, W, valid, t, o0, o1);
     mbar_wait(halo_full, (uint32_t)(it & 1));
     float acc[N / 2], cor[N / 2];
@@ -399,14 +397,4 @@ extern "C" int reve_head_conv_residual_u8_shuffle_f32tc(
                                   s);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-// K2's conv_last mode in float32 on the split planes of its input, the
-// weights packed as K2's with n padded to 8: the 64 -> 3 conv + b in
-// float32 to u8 with no residual, (B, H, W, 3).  Returns a cudaError_t.
-extern "C" int reve_conv_last_u8_f32tc(const void* planes, const void* wp,
-                                       const float* b, uint8_t* out, int B,
-                                       int H, int W, void* stream) {
-  return (int)launch<1>(planes, wp, b, nullptr, nullptr, out, B, H, W,
-                        static_cast<cudaStream_t>(stream));
 }

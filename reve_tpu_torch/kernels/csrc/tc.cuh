@@ -3,7 +3,9 @@
 // and instructions, the heads' u8 epilogue and the persistent walk over
 // output tiles.  Used by conv3x3_tc.cu (bfloat16 K1, K2),
 // conv3x3_f32_tc.cu (float32 K1, K2), conv3x3_s8.cu (K4, K4h),
-// conv3x3.cu (K3, K4a), rrdb.cu (K7) and dot_probe.cu (P1).
+// conv3x3.cu (K3, K4a), rrdb.cu (K7) and dot_probe.cu (P1); the TMA
+// loads, barriers and tile walk also by conv_last_f32.cu (float32
+// conv_last, on the CUDA cores).
 //
 // Every 64-channel conv here is an implicit GEMM over a halo tile in
 // shared memory: one halo pixel is one row of the K-major A operand (64

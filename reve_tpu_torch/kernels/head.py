@@ -1,8 +1,9 @@
 """K2 `head_conv_residual_u8_shuffle` and K4h
-`head_conv_s8_residual_u8_shuffle`, the SRVGG heads, and K2's
-`conv_last_u8` mode, RRDBNet's last conv, all on the tensor cores:
-bfloat16 K2 in csrc/conv3x3_tc.cu, float32 K2 in csrc/conv3x3_f32_tc.cu,
-K4h in csrc/conv3x3_s8.cu.
+`head_conv_s8_residual_u8_shuffle`, the SRVGG heads, on the tensor cores
+(bfloat16 K2 in csrc/conv3x3_tc.cu, float32 K2 in csrc/conv3x3_f32_tc.cu,
+K4h in csrc/conv3x3_s8.cu), and `conv_last_u8`, RRDBNet's last conv:
+bfloat16 as K2's conv_last mode (csrc/conv3x3_tc.cu), float32 in float32
+FMAs on the CUDA cores (csrc/conv_last_f32.cu).
 
 Replaces the SRVGG head of reve_tpu/models/srvgg.py:apply: the last
 `_conv3x3` (srvgg.py:211) with `_epilogue(quantize_u8=True)`
@@ -19,14 +20,17 @@ float32 K2 as six bf16 products of its operands split in three
 (`split_bf16x3`, then the conv: float32 accuracy, never TF32), bound at
 6 x 458.6 GFLOP per call of 4 frames -> 2.78 ms; K4h on s8 `wgmma`.
 
-The conv_last mode is K2's kernel at r = 1 (N = 8) with no residual: the
-shared epilogue adds a zero base, which leaves each value as it is, so it
-computes reve_tpu rrdb.apply's conv_last (rrdb.py:232-234) with the
-engine's u8 rounding (engine.py:428-429): u8(clip(float32(dtype(conv +
-b)) * 255 + 0.5, 0, 255)).  Bound per call of 4 frames at 7680 x 4320 (the
-output of 4 1080p frames x4): 2 x 9 x 64 x 3 x 132.7 M = 458.6 GFLOP ->
-0.464 ms at the bf16 rate; 17.0 GB of bf16 in + 0.40 GB u8 out -> 5.19 ms
-(bytes).
+`conv_last_u8` computes reve_tpu rrdb.apply's conv_last (rrdb.py:232-234)
+with the engine's u8 rounding (engine.py:428-429): u8(clip(float32(dtype(
+conv + b)) * 255 + 0.5, 0, 255)).  In bfloat16 it is K2's kernel at r = 1
+(N = 8) with no residual: the shared epilogue adds a zero base, which
+leaves each value as it is.  Bound per call of 4 frames at 7680 x 4320
+(the output of 4 1080p frames x4): 2 x 9 x 64 x 3 x 132.7 M = 458.6 GFLOP
+-> 0.464 ms at the bf16 rate; 17.0 GB of bf16 in + 0.40 GB u8 out -> 5.19
+ms (bytes).  In float32 it is a kernel of its own, csrc/conv_last_f32.cu:
+float32 FMAs on the CUDA cores over the input read once by TMA, no split
+pass; bound per call of 2 frames (the float32 plan's chunk) 17.0 GB in ->
+5.13 ms (bytes; 229 GFLOP -> 3.42 ms at 67 TFLOP/s float32).
 
 Rounding points follow the JAX reference: float32 accumulation + b in
 float32, cast to the compute dtype, + repeat(u8 / 255, r^2) in float32,
@@ -58,6 +62,8 @@ from reve_tpu_torch.kernels.conv3x3_s8 import (SOURCE as S8_SOURCE,
 from reve_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 
 _DTYPES = (torch.float32, torch.bfloat16)
+#: float32 conv_last: float32 FMAs, no split pass
+LAST_F32_SOURCE = "conv_last_f32.cu"
 
 
 def residual_u8_plain(h: torch.Tensor, u8: torch.Tensor,
@@ -151,10 +157,11 @@ def head_conv_residual_u8_shuffle(h: torch.Tensor, w: torch.Tensor,
 
 def conv_last_u8(h: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
-    """K2's conv_last mode: (B, H, W, 64) x (3, 3, 64, 3) HWIO in the
+    """RRDBNet's conv_last: (B, H, W, 64) x (3, 3, 64, 3) HWIO in the
     compute dtype, + b, cast to it, then u8 with no residual -> (B, H, W,
-    3) uint8.  K2's kernel at r = 1 (its epilogue on a zero base); float32
-    launches two kernels: the split pass and the bf16x6 conv."""
+    3) uint8.  bfloat16: K2's kernel at r = 1 (its epilogue on a zero
+    base); float32: one kernel of float32 FMAs on the input as it is, with
+    no split pass (csrc/conv_last_f32.cu)."""
     if h.device.type == "cpu":
         return conv_last_u8_plain(h, w, b)
     if h.device.type != "cuda":
@@ -173,17 +180,16 @@ def conv_last_u8(h: torch.Tensor, w: torch.Tensor,
     bb = f32_operand(b, 3, h.device, "bias")
     out = torch.empty((B, H, W, 3), dtype=torch.uint8, device=h.device)
     if w.dtype == torch.bfloat16:
-        source, entry, ins = TC_SOURCE, "reve_conv_last_u8_tc", (h, w, bb)
+        source, entry = TC_SOURCE, "reve_conv_last_u8_tc"
     else:
-        source, entry = F32_SOURCE, "reve_conv_last_u8_f32tc"
-        ins = (split_bf16x3(h), pack_weights_bf16x3(w), bb)
+        source, entry = LAST_F32_SOURCE, "reve_conv_last_u8_f32"
     lib = build.load(source)
     fn = getattr(lib, entry)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(*(t.data_ptr() for t in ins), out.data_ptr(), B, H, W,
-             torch.cuda.current_stream(h.device).cuda_stream)
+    err = fn(h.data_ptr(), w.data_ptr(), bb.data_ptr(), out.data_ptr(), B,
+             H, W, torch.cuda.current_stream(h.device).cuda_stream)
     build.check(lib, err, entry)
     LAUNCHES["conv_last_u8"] += 1
     return out

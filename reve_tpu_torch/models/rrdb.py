@@ -22,9 +22,10 @@ conv_body with the step after it (one NHWC buffer of nf + 4 gc channels a
 pixel holds a dense block's concat, three of them rotate through an
 RRDB; in float32 each with its split planes beside it, written by the
 convs that write it), K1 for conv_up1, conv_up2 and conv_hr with the leaky ReLU (PReLU
-at alpha 0.2), and K2's conv_last mode for conv_last with the engine's u8
-rounding.  The nearest x2 before each up conv is a torch op
-(ops/resize.py).  `apply_int8`, the int8 turbo (`--dtype int8`), runs the
+at alpha 0.2), and head.conv_last_u8 for conv_last with the engine's u8
+rounding (K2's conv_last mode in bfloat16; in float32 a kernel of float32
+FMAs that reads its input as it is, with no split pass).  The nearest x2
+before each up conv is a torch op (ops/resize.py).  `apply_int8`, the int8 turbo (`--dtype int8`), runs the
 trunk on K7q, K7's s8 form, with the scales of weights/quantize.py's
 quantize_rrdb, and conv_first and the head as `apply` in bfloat16.  On
 CPU tensors each wrapper runs its plain version, and `plain=True` runs
@@ -273,8 +274,8 @@ def _head(params: Params, held: list, dt: torch.dtype,
           plain: bool) -> torch.Tensor:
     """The head after the trunk, u8 out: nearest x2 + conv_up1 + leaky
     ReLU, the same at 4x with conv_up2, conv_hr + leaky ReLU, then
-    conv_last with the u8 rounding (K1 with PReLU at alpha 0.2, K2's
-    conv_last mode; their plain versions with `plain`).  `held`: a
+    conv_last with the u8 rounding (K1 with PReLU at alpha 0.2,
+    head.conv_last_u8; their plain versions with `plain`).  `held`: a
     one-element list holding feat (B, H, W, nf) in the compute dtype,
     emptied here, so that the caller keeps no reference that would hold
     feat while the head allocates at 2x and 4x."""

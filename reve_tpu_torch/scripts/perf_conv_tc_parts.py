@@ -3,7 +3,7 @@
     python -m reve_tpu_torch.scripts.perf_conv_tc_parts [--iters N]
         [--sources SOURCE ...]
 
-Builds variants of the four tensor-core sources with one or two of their
+Builds variants of the conv sources with one or two of their
 parts taken out: the halo loads after the first tile (`no_load`: later
 tiles compute on a stale buffer), the wgmmas (`no_mma`: the accumulators
 are set, not computed), and the epilogue (`no_epi`: nothing is written).
@@ -20,7 +20,11 @@ each SM:
   * kernels/csrc/conv3x3_f32_tc.cu: float32 K1 as the wrapper runs it,
     split pass and conv (`k1_f32_ms`), the conv alone on split planes
     (`conv_ms`), the split pass alone (`split_ms`), and float32 K2 at r=4
-    with its split pass (`k2_f32_ms`) and alone (`k2_conv_ms`).  The
+    with its split pass (`k2_f32_ms`) and alone (`k2_conv_ms`); run
+    against a checkout from before conv_last_f32.cu (by path, with
+    PYTHONPATH at its `git archive`), also float32 conv_last as it was
+    there, the split pass and K2 at r = 1, at conv_last_f32.cu's shape
+    (`conv_last_f32_ms`, `conv_last_split_ms`, `conv_last_conv_ms`).  The
     weights stream tap by tap in every variant: `no_load` takes out the
     halo loads only;
   * kernels/csrc/conv3x3_s8.cu: K4 (`k4_ms`) and K4h at r=4 (`k4h_ms`);
@@ -52,6 +56,15 @@ each SM:
     `no_epi` (no residual loads, epilogue arithmetic or stores) and
     `stores_only` (the epilogue with its residual loads and stores
     alone);
+  * kernels/csrc/conv_last_f32.cu: float32 conv_last at the float32 RRDB
+    plan's chunk, 2 frames of 7680 x 4320 (`conv_last_f32_ms`).  Its
+    variants: `no_load` (the input rows after each block's first work
+    item), `no_mma` (the FMAs: each loaded 16-B vector added once, no
+    weights read) and `no_epi` (the lanes' reduction, the rounding and
+    the stores); and, each with its FMAs alone, every pixel group of a
+    warp reading the same pixels (`fma_x_bcast`), the tap rows looped
+    (`fma_dy_loop`) and 6 rows a step on 12 warps (`fma_rows6`; `rows6`
+    whole);
   * kernels/csrc/tta.cu: K6's three forms at the TTA path's shape (4
     frames of 1080p x4) for an even and an odd transform
     (`middle_k1f_ms`: MIDDLE at k = 1 with the flip, ...); its variants
@@ -87,6 +100,9 @@ from reve_tpu_torch.scripts import perf_int8_dot
 from reve_tpu_torch.scripts.perf_int8_dot import queued_ms, time_ms
 
 B, H, W, R = 4, 1080, 1920, 4
+#: float32 conv_last's source (kernels.head.LAST_F32_SOURCE; named here so
+#: that the script also runs against a checkout from before it existed)
+LAST_F32_SOURCE = "conv_last_f32.cu"
 _LOAD = "    if (tid == 0 && next < g.count) {"
 _LOAD_WAIT = "    mbar_wait(bar + (it & 1) * 8, (it >> 1) & 1);"
 _NO_LOAD = [(_LOAD, "    if (false) {"),
@@ -209,10 +225,51 @@ PATCHES[rrdb.S8_SOURCE] = {
 }
 PATCHES[rrdb.S8_SOURCE]["stores_only"] = [
     *PATCHES[rrdb.S8_SOURCE]["no_load"], *PATCHES[rrdb.S8_SOURCE]["no_mma"]]
+# float32 conv_last: the rows after each block's first item not loaded,
+# the FMAs replaced by one add a loaded vector, the epilogue (reduction,
+# rounding, stores) replaced by a read of every accumulator
+_LAST_FMA = ("          fma_row(acc, rows[dy] + 32 * hf,\n"
+             "                  ws + (hf * 3 + dy) * 9 * 32 + 4 * q);\n")
+_LAST_EPI = "      // The epilogue: reduce the 8 lanes' partial sums"
+PATCHES[LAST_F32_SOURCE] = {
+    "no_load": [("        if (iy >= 0 && iy < H) {",
+                 "        if (iy >= 0 && iy < H && item == blockIdx.x) {")],
+    "no_mma": [(_LAST_FMA,
+                "          for (int j = 0; j < P + 2; ++j)\n"
+                "            acc[j % P][hf] += reinterpret_cast<const float4*>"
+                "(\n                rows[dy] + 32 * hf + j * CIN)->x;\n")],
+    "no_epi": [(_LAST_EPI,
+                "      float sum = 0.f;\n      for (int j = 0; j < P; ++j)\n"
+                "        for (int c = 0; c < COUT; ++c) sum += acc[j][c];\n"
+                "      if (sum == 0.5f) out[0] = 1;\n      continue;\n"
+                + _LAST_EPI)],
+}
 for _p in PATCHES.values():
     _p["full"] = []
     _p["no_load_no_epi"] = _p["no_load"] + _p["no_epi"]
     _p["no_mma_no_epi"] = _p["no_mma"] + _p["no_epi"]
+# what holds float32 conv_last's FMAs (alone: `fma_*`, no loads after the
+# first item, no epilogue) below the card's float32 rate: every pixel
+# group of a warp reading the same pixels (shared-memory bandwidth), the
+# tap rows looped and not unrolled (the instruction cache), 6 rows a
+# step on 12 warps (more warps a scheduler; `rows6` also in full)
+_LAST_PASSES = ("#pragma unroll\n      for (int dy = 0; dy < 3; ++dy)\n"
+                "#pragma unroll\n        for (int hf = 0; hf < 2; ++hf)\n")
+_LAST_ROWS6 = [("constexpr int ROWS = 4;", "constexpr int ROWS = 6;"),
+               ("constexpr int SEG = 64;", "constexpr int SEG = 66;")]
+_LAST_ALONE = PATCHES[LAST_F32_SOURCE]["no_load_no_epi"]
+PATCHES[LAST_F32_SOURCE].update({
+    "fma_x_bcast": [("                   px0 * CIN + 4 * q;",
+                     "                   half * 32 * CIN + 4 * q;"),
+                    *_LAST_ALONE],
+    # (the row pointer by a select: rows[dy] would go to local memory)
+    "fma_dy_loop": [(_LAST_PASSES + _LAST_FMA, _LAST_PASSES.replace(
+        "#pragma unroll\n      for (int dy", "#pragma unroll 1\n      for "
+        "(int dy") + _LAST_FMA.replace(
+            "rows[dy]", "(dy == 0 ? rows[0] : dy == 1 ? rows[1] : rows[2])")),
+        *_LAST_ALONE],
+    "rows6": _LAST_ROWS6,
+    "fma_rows6": [*_LAST_ROWS6, *_LAST_ALONE]})
 PATCHES[dot_probe.SOURCE] = {
     "full": [],
     "one_wg": [("constexpr int WGS = 2;", "constexpr int WGS = 1;")],
@@ -423,6 +480,32 @@ def _k7q_timings(lib, name: str, ops: dict, stream) -> dict:
             for f, cin, cout, epi in _K7Q_FORMS}
 
 
+#: float32 conv_last's shape: the float32 RRDB plan's chunk of 2 frames
+#: of 1080p x4
+LAST_SHAPE = (2, 4320, 7680)
+
+
+def _conv_last_operands(rs, dev, planes: bool) -> dict:
+    """float32 conv_last's operands at LAST_SHAPE: conv_hr-like input (a
+    leaky ReLU of normals), 64 -> 3 weights and bias as the wrapper passes
+    them, and the u8 output; with `planes`, what the form before
+    conv_last_f32.cu also took: the weights packed for the bf16x6 head
+    and the split planes."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((*LAST_SHAPE, 64), device=dev, generator=gen).mul_(0.3)
+    torch.nn.functional.leaky_relu_(x, 0.2)
+    w = torch.from_numpy(rs.uniform(-0.04, 0.04, (3, 3, 64, 3)).astype(
+        np.float32)).to(dev)
+    ops = {"x": x, "w": w, "b": torch.full((3,), 0.45, device=dev),
+           "out": torch.empty((*LAST_SHAPE, 3), dtype=torch.uint8,
+                              device=dev)}
+    if planes:
+        ops.update(wp=conv3x3.pack_weights_bf16x3(w),
+                   planes=torch.empty((3, *x.shape), dtype=torch.bfloat16,
+                                      device=dev))
+    return ops
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     p = argparse.ArgumentParser(prog="perf_conv_tc_parts",
                                 description=__doc__.splitlines()[0])
@@ -531,8 +614,8 @@ def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
                            [P, P, ctypes.c_longlong, I, I, P])
             conv = _entry(lib, "reve_conv3x3_bias_prelu_f32tc",
                           [P] * 5 + [I] * 3 + [P])
-            head = _entry(lib, "reve_head_conv_residual_u8_shuffle_f32tc",
-                          [P] * 5 + [I] * 4 + [P])
+            k2 = _entry(lib, "reve_head_conv_residual_u8_shuffle_f32tc",
+                        [P] * 5 + [I] * 4 + [P])
 
             def run_split():
                 build.check(lib, split(xf.data_ptr(), planes.data_ptr(),
@@ -548,16 +631,48 @@ def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
                 run_conv()
 
             def run_head():
-                build.check(lib, head(
+                build.check(lib, k2(
                     planes.data_ptr(), wph.data_ptr(), b.data_ptr(),
                     u8.data_ptr(), o.data_ptr(), B, H, W, R, stream), name)
 
             def run_head_split():
                 run_split()
                 run_head()
-            return {"k1_f32_ms": run_both, "conv_ms": run_conv,
-                    "split_ms": run_split, "k2_f32_ms": run_head_split,
-                    "k2_conv_ms": run_head}
+            t = {"k1_f32_ms": run_both, "conv_ms": run_conv,
+                 "split_ms": run_split, "k2_f32_ms": run_head_split,
+                 "k2_conv_ms": run_head}
+            if hasattr(lib, "reve_conv_last_u8_f32tc"):
+                # float32 conv_last in a checkout from before
+                # conv_last_f32.cu: the split pass, then K2 at r = 1
+                last = _entry(lib, "reve_conv_last_u8_f32tc",
+                              [P] * 4 + [I] * 3 + [P])
+                lo = last_ops
+
+                def run_last_split():
+                    build.check(lib, split(
+                        lo["x"].data_ptr(), lo["planes"].data_ptr(),
+                        lo["x"].numel() // 8, 8, 8, stream), name)
+
+                def run_last_conv():
+                    build.check(lib, last(
+                        lo["planes"].data_ptr(), lo["wp"].data_ptr(),
+                        lo["b"].data_ptr(), lo["out"].data_ptr(),
+                        *LAST_SHAPE, stream), name)
+
+                def run_last():
+                    run_last_split()
+                    run_last_conv()
+                t.update(conv_last_f32_ms=run_last,
+                         conv_last_split_ms=run_last_split,
+                         conv_last_conv_ms=run_last_conv)
+            return t
+        if source == LAST_F32_SOURCE:
+            last = _entry(lib, "reve_conv_last_u8_f32",
+                          [P] * 4 + [I] * 3 + [P])
+            lo = last_ops
+            return {"conv_last_f32_ms": lambda: build.check(lib, last(
+                lo["x"].data_ptr(), lo["w"].data_ptr(), lo["b"].data_ptr(),
+                lo["out"].data_ptr(), *LAST_SHAPE, stream), name)}
         if source == conv3x3.SOURCE:
             k3 = _entry(lib, "reve_conv3x3_u8_bias_prelu",
                         [P] * 5 + [I] * 4 + [P])
@@ -591,7 +706,10 @@ def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
                 b.data_ptr(), u8.data_ptr(), o.data_ptr(), B, H, W, R,
                 stream), name)}
 
-    k7_ops = k7q_ops = None
+    k7_ops = k7q_ops = last_ops = None
+    if {LAST_F32_SOURCE, conv3x3.F32_SOURCE} & set(sources or PATCHES):
+        last_ops = _conv_last_operands(
+            rs, dev, planes=conv3x3.F32_SOURCE in (sources or PATCHES))
     if rrdb.SOURCE in (sources or PATCHES):
         k7_ops = _k7_operands(rs, dev)
     if rrdb.S8_SOURCE in (sources or PATCHES):

@@ -46,7 +46,10 @@ ragged edges of its tiles (8 x 64 at Cout 32, 4 x 64 at 64), also past
 their Cout channels only, and a build off its register budget refuses
 to launch; the int8 RRDB model u8 |d| <= 1
 (its bf16 conv_first and head sum in another order) and one call's peak
-memory within the engine's bill.  K2's conv_last mode: u8 |d| <= 1.  K6 (csrc/tta.cu) moves bytes and adds
+memory within the engine's bill.  conv_last in both dtypes (bfloat16:
+K2's conv_last mode; float32: csrc/conv_last_f32.cu, float32 FMAs, at the
+edges of its 64 x 64 work items and at +-2^8 activations): u8 |d| <= 1,
+and no split pass.  K6 (csrc/tta.cu) moves bytes and adds
 integers: exact, for each of the 8 transforms and its three forms, on
 ragged shapes and batches.  The engine's halo tiles are byte-identical to
 its whole frames on the card in bfloat16, float32 and int8 (the kernels
@@ -1104,30 +1107,72 @@ def test_k7_refusals():
                                                              .float()))
 
 
+def _conv_last_case(seed, B, H, W, dev, dt, scale=1.0):
+    """Operands of one conv_last call: activations in [-2, 2) x scale,
+    weights at 8 the model's scale, divided by 1.37 scale where scale is
+    not 1 (not a power of 2: the products then round otherwise than at
+    scale 1), the bias near 0.45, so that the u8 outputs spread over
+    their range."""
+    d = _inputs(seed, B, H, W, cout=3)
+    ws = 8.0 if scale == 1.0 else 8.0 / (1.37 * scale)
+    return ((d["x"] * 2 - 1) * scale).to(dev, dt), \
+        (d["w"] * ws).to(dev, dt), (d["b"] + 0.45).to(dev)
+
+
+def _conv_last_check(h, w, b):
+    """One conv_last launch against its plain version (u8 |d| <= 1), with
+    no split pass."""
+    before = dict(LAUNCHES)
+    got = head.conv_last_u8(h, w, b)
+    want = head.conv_last_u8_plain(h, w, b)
+    torch.cuda.synchronize()
+    assert got.shape == h.shape[:3] + (3,) and got.dtype == torch.uint8
+    assert (got.int() - want.int()).abs().max().item() <= 1
+    assert LAUNCHES["conv_last_u8"] == before["conv_last_u8"] + 1
+    # float32 reads its input as it is: no split pass
+    assert LAUNCHES["split_bf16x3"] == before["split_bf16x3"]
+    assert 0 < want.float().mean().item() < 255
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(DTYPES))
 def test_conv_last_mode_matches_plain(name):
     dev = _cuda()
-    dt = DTYPES[name]
     for i, (B, H, W) in enumerate(K7_SHAPES):
-        d = _inputs(30 + i, B, H, W, cout=3)
-        h = (d["x"] * 2 - 1).to(dev, dt)
-        w, b = (d["w"] * 8).to(dev, dt), (d["b"] + 0.45).to(dev)
-        before = LAUNCHES["conv_last_u8"]
-        got = head.conv_last_u8(h, w, b)
-        want = head.conv_last_u8_plain(h, w, b)
-        torch.cuda.synchronize()
-        assert got.shape == (B, H, W, 3) and got.dtype == torch.uint8
-        assert (got.int() - want.int()).abs().max().item() <= 1
-        assert LAUNCHES["conv_last_u8"] == before + 1
-        assert 0 < want.float().mean().item() < 255
+        _conv_last_check(*_conv_last_case(30 + i, B, H, W, dev,
+                                          DTYPES[name]))
+
+
+#: float32 conv_last's work items are 64 columns x 64 rows, walked in
+#: steps of 4 rows: ragged and whole items and steps, rows past the
+#: frame, and (the last) more items than the persistent grid has blocks
+F32_LAST_SHAPES = [(1, 1, 1), (1, 3, 2), (1, 4, 64), (1, 63, 65),
+                   (2, 64, 64), (1, 65, 127), (3, 130, 66), (1, 129, 1),
+                   (2, 300, 1000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, H, W", F32_LAST_SHAPES)
+def test_f32_conv_last_at_its_work_item_edges(B, H, W):
+    dev = _cuda()
+    _conv_last_check(*_conv_last_case(50 + H + W, B, H, W, dev,
+                                      torch.float32))
+
+
+@pytest.mark.cuda
+def test_f32_conv_last_at_large_activations():
+    """Activations to +-2^9 (x 2^8), the weights scaled down to match."""
+    dev = _cuda()
+    _conv_last_check(*_conv_last_case(60, 2, 19, 130, dev, torch.float32,
+                                      scale=2.0 ** 8))
 
 
 @pytest.mark.cuda
 def test_k1_and_conv_last_past_2_31_elements():
     """Two 7680 x 4320 frames of 64 bf16 channels (4.2e9 values, past
     2^31: RRDB's conv_up2 / conv_hr input at a batch of 2 1080p frames):
-    K1 and the conv_last mode in one call each, against their plain
+    K1 and the conv_last mode in one call each, and the float32
+    conv_last on the same values in float32, against their plain
     versions frame by frame (the same function; one frame at a time
     keeps the plain version's float32 copies in memory)."""
     dev = _cuda()
@@ -1150,10 +1195,17 @@ def test_k1_and_conv_last_past_2_31_elements():
     del y
     dl = _inputs(41, 1, 1, 1, cout=3)
     wl, bl = (dl["w"] * 8).to(dev, torch.bfloat16), (dl["b"] + 0.45).to(dev)
-    u8 = head.conv_last_u8(x, wl, bl)
-    for i in range(B):
-        want = head.conv_last_u8_plain(x[i:i + 1], wl, bl)
-        assert (u8[i:i + 1].int() - want.int()).abs().max().item() <= 1
+    # the conv_last mode in both dtypes (float32: 17 GB, the float32
+    # RRDB plan's chunk of 2 frames)
+    for dt in (torch.bfloat16, torch.float32):
+        if dt == torch.float32:
+            x = x.float()
+        u8 = head.conv_last_u8(x, wl.to(dt), bl)
+        for i in range(B):
+            want = head.conv_last_u8_plain(x[i:i + 1], wl.to(dt), bl)
+            assert (u8[i:i + 1].int() - want.int()).abs().max().item() <= 1
+            del want
+        del u8
     torch.cuda.synchronize()
 
 
@@ -1187,9 +1239,10 @@ def test_rrdb_model_kernels_match_plain(name):
     assert (n["conv3x3_u8_bias_prelu"], n["dense_conv"],
             n["conv3x3_bias_prelu"], n["conv_last_u8"]) == (
         1, 15 * cfg.num_block + 1, 3, 1)
-    # float32: feat's split once, then the head's K1 and conv_last each
-    # split their input; the trunk's convs write the planes they read
-    assert n["split_bf16x3"] == (1 + 3 + 1 if name == "float32" else 0)
+    # float32: feat's split once, then the head's three K1 each split
+    # their input; the trunk's convs write the planes they read, and
+    # conv_last reads its float32 input as it is
+    assert n["split_bf16x3"] == (1 + 3 if name == "float32" else 0)
     ref = rrdb.apply(params, u8, cfg=cfg, compute_dtype=torch.float32,
                      plain=True)
     assert got.shape == ref.shape == (2, 96, 280, 3)

@@ -18,16 +18,23 @@ differs in its last bits may round y * 255 + 0.5 to the neighbouring
 integer), on under 1% of the samples.  K3's emulation: float32 atol
 2e-5, rtol 1e-5 as float32 K1's; bfloat16 within 2 bf16 ulp (the ulp
 taken at 2^-10 or more) as the card tests hold the kernel; K4a's s8 codes
-within 1 of the reference's.
+within 1 of the reference's.  float32 conv_last (csrc/conv_last_f32.cu):
+an emulation of its sum (each lane's channels, its packed weights, the
+lanes' reduction) against reve_tpu's float32 conv_last with the engine's
+u8 rounding, u8 |d| <= 1 on under 1% of the samples; its walk over work
+items and its ring of input rows, written out, reads each row once and
+writes each output pixel once.
 """
 
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from reve_tpu.models import rrdb as jrrdb
 from reve_tpu.models import srvgg as jsrvgg
 from reve_tpu_torch.kernels import LAUNCHES, build, conv3x3, conv3x3_s8, head
 from reve_tpu_torch.scripts import perf_conv_tc_parts
@@ -231,6 +238,129 @@ def test_parts_script_variants_still_apply(source):
     if source == conv3x3.SOURCE:  # K3/K4a: stores alone, wgmmas alone
         assert {"stores_only", "no_load_no_epi", "full"} <= set(
             perf_conv_tc_parts.PATCHES[source])
+
+
+def _conv_last_f32_constants() -> dict:
+    """The schedule constants of csrc/conv_last_f32.cu, read from it."""
+    with open(os.path.join(build.CSRC, head.LAST_F32_SOURCE)) as f:
+        src = f.read()
+    return {n: int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
+            for n in ("TW", "ROWS", "SEG", "SLOTS", "P")}
+
+
+def _conv_last_f32_weights(w: torch.Tensor) -> torch.Tensor:
+    """The weights as conv_last_f32.cu packs them in shared memory: i =
+    ((((half * 3 + dy) * 3 + dx) * 3 + c) * 8 + q) * 4 + k holds w[dy][dx]
+    [32 half + 4 q + k][c] (the kernel's own formula, written out)."""
+    out = torch.empty(1728)
+    for i in range(1728):
+        k, q, t = i & 3, (i >> 2) & 7, i >> 5
+        c, t = t % 3, t // 3
+        dx, t = t % 3, t // 3
+        dy, half = t % 3, t // 3
+        out[i] = w[dy, dx, 32 * half + 4 * q + k, c]
+    return out
+
+
+def _conv_last_f32_emulated(x: torch.Tensor, w: torch.Tensor,
+                            b: torch.Tensor) -> torch.Tensor:
+    """conv_last_f32.cu's sum in float32 (each product rounded, where the
+    kernel fuses it into its add): lane q of a pixel's 8 lanes sums
+    channels 32 half + 4 q + k over dy, half, dx and k in that order,
+    reading the weights where the kernel reads them in the packed array;
+    the lanes' sums meet as ((a0 + a4) + (a2 + a6)) + ((a1 + a5) + (a3 +
+    a7)) (the shuffle rounds 4, 2, 1); + b; the u8 rounding."""
+    B, H, W, _ = x.shape
+    packed = _conv_last_f32_weights(w)
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    q = torch.arange(8)
+    a = torch.zeros(8, B, H, W, 3)
+    for dy in range(3):
+        for half in range(2):
+            for dx in range(3):
+                for c in range(3):
+                    base = ((half * 3 + dy) * 9 + dx * 3 + c) * 32
+                    for k in range(4):
+                        ch = 32 * half + 4 * q + k
+                        xs = xp[:, dy:dy + H, dx:dx + W, ch].permute(
+                            3, 0, 1, 2)
+                        a[..., c] += xs * packed[base + 4 * q + k][
+                            :, None, None, None]
+    y = ((a[0] + a[4]) + (a[2] + a[6])) + ((a[1] + a[5]) + (a[3] + a[7]))
+    return torch.clamp((y + b) * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0 ** 8])
+def test_conv_last_f32_sum_matches_jax_float32_conv_last(scale):
+    """float32 conv_last's channel split over the lanes, its packed
+    weights and its reduction, emulated, against reve_tpu's float32
+    conv_last (rrdb._conv) with the engine's u8 rounding: u8 |d| <= 1 (a
+    sum that differs in its last bits may round y * 255 + 0.5 to the
+    neighbouring integer), on under 1% of the samples."""
+    d = _inputs(20, B=2, H=9, W=27, cout=3)
+    h = d["x"] * 2 - 1
+    h, w = (h * scale).astype(np.float32), (d["w"] * 2 / scale).astype(
+        np.float32)
+    b = (d["b"] + 0.45).astype(np.float32)
+    y = jrrdb._conv(jnp.asarray(h), {"w": jnp.asarray(w),
+                                     "b": jnp.asarray(b)}, jnp.float32)
+    want = np.asarray(jnp.clip(y.astype(jnp.float32) * 255.0 + 0.5, 0.0,
+                               255.0).astype(jnp.uint8))
+    got = _conv_last_f32_emulated(torch.from_numpy(h), torch.from_numpy(w),
+                                  torch.from_numpy(b)).numpy()
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    assert diff.max() <= 1
+    assert (diff > 0).mean() < 0.01, (diff > 0).mean()
+    assert np.unique(want).size > 64  # not clipped flat
+
+
+@pytest.mark.parametrize("B, H, W", [(1, 1, 1), (1, 5, 64), (2, 64, 65),
+                                     (1, 130, 129), (3, 67, 200)])
+def test_conv_last_f32_schedule_reads_each_row_once(B, H, W):
+    """conv_last_f32.cu's walk, written out as its producer and consumer
+    loops run it on each block of a grid smaller than the work: the
+    producer loads each item's rows y0 - 1 .. y0 + ROWS steps once, in
+    ring order; each step's window of ROWS + 2 rows holds the input rows
+    its output rows need; the ring never holds more than SLOTS rows a
+    step still needs; every row is released once; every output pixel is
+    written once."""
+    k = _conv_last_f32_constants()
+    TW, ROWS, SEG, SLOTS = k["TW"], k["ROWS"], k["SEG"], k["SLOTS"]
+    strips, segs = -(-W // TW), -(-H // SEG)
+    count = B * segs * strips
+    written = np.zeros((B, H, W), np.int32)
+    for grid in (1, 3):
+        written[:] = 0
+        for block in range(min(grid, count)):
+            loaded, released = [], 0  # the block's row sequence
+            items = range(block, count, grid)
+            for item in items:  # the producer
+                b, rem = divmod(item, segs * strips)
+                y0, x0 = rem // strips * SEG, rem % strips * TW
+                steps = -(-min(SEG, H - y0) // ROWS)
+                loaded += [(b, y0 - 1 + i, x0)
+                           for i in range(ROWS * steps + 2)]
+            g0 = 0
+            for item in items:  # the consumers
+                b, rem = divmod(item, segs * strips)
+                y0, x0 = rem // strips * SEG, rem % strips * TW
+                steps = -(-min(SEG, H - y0) // ROWS)
+                for st in range(steps):
+                    gs = g0 + ROWS * st
+                    assert gs + ROWS + 2 - released <= SLOTS
+                    for r in range(ROWS):
+                        oy = y0 + ROWS * st + r
+                        for dy in range(3):
+                            assert loaded[gs + r + dy] == (b, oy - 1 + dy,
+                                                           x0)
+                        if oy < H:
+                            written[b, oy, x0:x0 + TW] += 1
+                    assert released == gs
+                    released += ROWS if st + 1 < steps else ROWS + 2
+                g0 += ROWS * steps + 2
+            assert released == len(loaded)
+        assert (written == 1).all()
+    assert k["P"] * 4 * 2 == TW  # a warp's 4 pixel groups: half a strip
 
 
 def test_split_pass_refuses_non_cuda_devices():
