@@ -11,13 +11,13 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               in this checkout (sm_90a), all at once, and prints each
               library's registers, spills and count of wgmma instructions
               in its SASS (cuobjdump: HGMMA for bf16, IGMMA for s8): the
-              libraries of K3/K4a, bfloat16 K1/K2, float32 K1/K2, K4/K4h,
-              K7, K7q and P1 must have at least the count of all their
-              kernels (the heads at r = 2, 3, 4 included; P1 at every K),
-              every kernel of conv3x3.cu (K3 and K4a in both compute
-              dtypes), rrdb.cu, rrdb_s8.cu and dot_probe.cu must hold
-              wgmma, P1's library both
-              IGMMA and HGMMA, and no library any __dp4a (IDP.4A) or
+              libraries of K3/K4a (and K3 at Cin 12), bfloat16 K1/K2,
+              float32 K1/K2, K4/K4h, K7, K7q and P1 must have at least the
+              count of all their kernels (the heads at r = 2, 3, 4
+              included; P1 at every K), every kernel of conv3x3.cu (K3,
+              K4a and K3 at Cin 12 in both compute dtypes), rrdb.cu,
+              rrdb_s8.cu and dot_probe.cu must hold wgmma, P1's library
+              both IGMMA and HGMMA, and no library any __dp4a (IDP.4A) or
               mma.sync (HMMA, IMMA); float32 conv_last's library
               (conv_last_f32.cu, float32 FMAs) must hold FFMA and spill
               nothing;
@@ -152,7 +152,39 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               epilogue alone); an int8 engine's plan, one call's peak
               device memory against the plan's bill and the model's ms
               per batch beside bfloat16's;
- 10. probe    P1, the tensor-core dot-rate probe (wgmma), through
+ 10. rrdb_x2  realesrgan-x2plus (RRDBNet x2 at full width and depth, random
+              weights from seed 0) on the same 4 frames, 1080p -> 2160p:
+              K3 at Cin 12 (conv_first over the 2x2-unshuffled frames,
+              read in place; conv3x3.cu at R = 2) in both dtypes at the
+              batch's shape against its plain version (bfloat16 <= 2 ulp,
+              float32 max |d| <= 1e-4, as K3), timed beside it, cuDNN's
+              F.conv2d on the unshuffled input and its bound, with its two
+              kernels' wgmma counts; the CLI bf16 job (counters zeroed
+              around it: per call K3 at Cin 12 1, K7 346, K1 3, conv_last
+              1, K3 0), each frame held as the rrdb phase holds x4's; the
+              float32 engine batch (|d| <= 1 against the plain float32
+              path, peak memory within the plan's bill) and the model's ms
+              a batch in both dtypes; the --dtype int8 job (its launches
+              split into int8, calibration and certification calls; each
+              frame >= 60 dB against the plain int8 path with the
+              persisted calibration; calibrate_s, certify_s; the int8
+              engine's plan, peak and ms a batch); a --tile 512 job whose
+              file equals each 560 x 560 window run alone as a whole frame
+              on a whole-frame engine (n_diff 0);
+ 11. weights  the shipped x4 .pth written as an ncnn .param/.bin pair with
+              fp32 and with fp16 tags: the port's parser gives its params
+              (fp16: rounded through np.float16), and a job with
+              --weights x.param on 2 of the frames writes the bytes of the
+              .pth job (fp32) or of the engine on the fp16-rounded params
+              (fp16); a --denoise 0.5 job with a seeded perturbed twin as
+              --weights-wdn writes the bytes of the engine on
+              interpolate(twin, plain, 0.5), and not the plain job's;
+ 12. scenes   a 24-frame 270 x 480 clip of two seeded scenes (a cut at
+              frame 10), -S 8: with --scene-align the plan saved in
+              state.json is plan_segments_aligned over detect_cuts' cuts
+              ([10]), unlike the fixed plan, and the output file equals
+              the unaligned job's byte for byte;
+ 13. probe    P1, the tensor-core dot-rate probe (wgmma), through
               `python -m reve_tpu_torch.scripts.perf_int8_dot`'s main at
               its shapes: per call at 64 loops timed free of the host's
               launch cost (the calls queued behind a sleep kernel, so that
@@ -168,8 +200,8 @@ JSON line; any failure exits non-zero (no phase catches and continues):
 
 The line before the last is nvidia-smi's name and power limit; before
 that, one JSON object {"kernels": [...]} with each kernel's launches on
-its path (main, int8, tta, rrdb, rrdb_int8 or probe), error (and, for u8 and s8
-outputs,
+its path (main, int8, tta, rrdb, rrdb_int8, rrdb_x2 or probe), error
+(and, for u8 and s8 outputs,
 n_diff: the values that differ from the plain version's; the model
 kernels' error on the transposed batch under "transposed"), times, bound
 and design ("wgmma", "wgmma_bf16x6", "fma_f32", "elementwise" or
@@ -179,7 +211,8 @@ form's under "forms"; the
 float32 forms of K1, K2 and K3 nested under "float32" with their own
 source, design and launches on the int8 path, where they run; those of
 K7 and conv_last (conv_last_f32.cu, "fma_f32") with their launches in
-the rrdb phase's float32 engine batch).  The last
+the rrdb phase's float32 engine batch, and of K3 at Cin 12 with its
+launches in the rrdb_x2 phase's).  The last
 line is {"ok": true, "device": {...}}.
 
 Run from the root of a checkout: alone, or without a CUDA device, it
@@ -216,7 +249,8 @@ TILE = 512
 #: kernel's mainloop unrolled (per 64-pixel row: bf16 36, bf16x6 216, s8
 #: 18), the hidden conv, the heads at r = 2, 3, 4 and (bf16 only) K2's
 #: conv_last mode (r = 1); K3 and K4a 2 in bfloat16 and 12 in float32 (K = 32: two k16
-#: steps, six products each); K7 at N = 32 and 64, per 16-channel chunk
+#: steps, six products each), K3 at Cin 12 7 and 42 (K = 112: seven k16
+#: steps); K7 at N = 32 and 64, per 16-channel chunk
 #: 18 in bfloat16 (two rows of 9 taps) and 54 in float32 (9 taps, six
 #: products each); K7q in its four kernels (N = 32 and 64, each with and
 #: without float residuals), per 64-channel chunk 18 (s8) a warpgroup's
@@ -225,7 +259,7 @@ TILE = 512
 #: 1 + ... + 16 (HGMMA)
 P1_IGMMA, P1_HGMMA = sum(range(1, 9)), sum(range(1, 17))
 MIN_WGMMA = {"conv3x3_tc.cu": 5 * 36, "conv3x3_f32_tc.cu": 4 * 216,
-             "conv3x3_s8.cu": 4 * 18, "conv3x3.cu": 2 * (2 + 12),
+             "conv3x3_s8.cu": 4 * 18, "conv3x3.cu": 2 * (2 + 12) + 7 + 42,
              "dot_probe.cu": P1_IGMMA + P1_HGMMA,
              "rrdb.cu": 2 * (18 + 54), "rrdb_s8.cu": 2 * (4 * 18 + 2 * 18)}
 
@@ -1244,7 +1278,8 @@ def rrdb_int8_kernel_phase(params, qb, frames) -> dict:
     return top
 
 
-def rrdb_int8_calls(launches: dict) -> dict:
+def rrdb_int8_calls(launches: dict,
+                    first: str = "conv3x3_u8_bias_prelu") -> dict:
     """The model calls of the rrdb_int8 job from its launch counts, and
     the check that each ran the int8 path's kernels: an int8 call
     launches K3 (bf16) once, K7q 346 times, K1 3 times and the conv_last
@@ -1252,11 +1287,15 @@ def rrdb_int8_calls(launches: dict) -> dict:
     pass once (feat's) and K7 345 times (no conv_body); the
     certification's float32 calls the whole float32 model (K3, 346 x K7,
     3 x K1, conv_last, 4 split passes).  At least one of
-    each, and more int8 calls than float32 ones (the job's own batch)."""
+    each, and more int8 calls than float32 ones (the job's own batch).
+    `first`: conv_first's kernel (x2: conv3x3_u8x2_bias, K3 at Cin 12);
+    the other u8 conv never runs."""
     k7q = launches["dense_conv_s8"]
     n8 = k7q // RRDB_K7_PER_CALL
     cert = launches["conv_last_u8"] - n8
-    calib = launches["conv3x3_u8_bias_prelu"] - launches["conv_last_u8"]
+    calib = launches[first] - launches["conv_last_u8"]
+    other = "conv3x3_u8x2_bias" if first == "conv3x3_u8_bias_prelu" else \
+        "conv3x3_u8_bias_prelu"
     ok = (k7q == RRDB_K7_PER_CALL * n8 and n8 > cert >= 1 and calib >= 1
           and launches["conv3x3_bias_prelu"] == 3 * (n8 + cert)
           and launches["dense_conv"] == (RRDB_K7_PER_CALL - 1) * calib
@@ -1268,18 +1307,19 @@ def rrdb_int8_calls(launches: dict) -> dict:
           and not any(launches[k] for k in (
               "head_conv_residual_u8_shuffle", "conv3x3_s8_dq_prelu_q8",
               "conv3x3_u8_bias_prelu_q8", "head_conv_s8_residual_u8_shuffle",
-              "tta_accumulate")))
+              "tta_accumulate", other)))
     if not ok:
         raise AssertionError(f"launch counts {launches} do not show the "
                              f"RRDB int8 path's kernels")
     return {"int8": n8, "float32_calibration": calib,
             "float32_certification": cert,
-            "float32_conv3x3_u8_bias_prelu": calib + cert,
+            "float32_" + first: calib + cert,
             "float32_conv3x3_bias_prelu": 3 * cert,
             "float32_conv_last_u8": cert}
 
 
-def rrdb_int8_engine_checks(frames, maxima) -> dict:
+def rrdb_int8_engine_checks(frames, maxima, model: str = RRDB_MODEL,
+                            scale: int = SCALE) -> dict:
     """An int8 RRDB engine on the card with the job's persisted
     calibration: the plan, one call's peak device memory (held to what
     the plan bills for it) and the model's ms per batch."""
@@ -1287,7 +1327,7 @@ def rrdb_int8_engine_checks(frames, maxima) -> dict:
 
     from reve_tpu_torch.pipeline.engine import UpscaleEngine
 
-    eng = UpscaleEngine(model=RRDB_MODEL, scale=SCALE, compute_dtype="int8",
+    eng = UpscaleEngine(model=model, scale=scale, compute_dtype="int8",
                         batch_size=BATCH, allow_random_init=True)
     eng.set_calibration(maxima)
     dev_in = torch.from_numpy(frames).cuda()
@@ -1494,7 +1534,8 @@ def run_pieces(eng, x) -> None:
         del piece
 
 
-def rrdb_engine_checks(frames, ref_f32: np.ndarray) -> dict:
+def rrdb_engine_checks(frames, ref_f32: np.ndarray, model: str = RRDB_MODEL,
+                       scale: int = SCALE) -> dict:
     """The RRDB engines on the card, with PyTorch's default allocator: a
     float32 batch through the plan's chunks, twice (the second
     byte-identical to the first: the chunks find their memory again),
@@ -1510,7 +1551,7 @@ def rrdb_engine_checks(frames, ref_f32: np.ndarray) -> dict:
     dev_in = torch.from_numpy(frames).cuda()
     out = {}
     for dt in ("bfloat16", "float32"):
-        eng = UpscaleEngine(model=RRDB_MODEL, scale=SCALE, compute_dtype=dt,
+        eng = UpscaleEngine(model=model, scale=scale, compute_dtype=dt,
                             batch_size=BATCH, allow_random_init=True)
         torch.cuda.reset_peak_memory_stats()
         reserved0 = torch.cuda.memory_reserved()
@@ -1571,6 +1612,517 @@ def rrdb_engine_checks(frames, ref_f32: np.ndarray) -> dict:
         del eng
         torch.cuda.empty_cache()
     return out
+
+
+#: the rrdb_x2 phase's model: RRDBNet x2 (its input pixel-unshuffled by
+#: 2, conv_first on K3 at Cin 12), 1080p -> 2160p
+X2_MODEL, X2_SCALE = "realesrgan-x2plus", 2
+
+
+def k3x2_phase(params, frames) -> dict:
+    """K3 at Cin 12 (conv3x3_u8x2_bias: RRDB x2's conv_first over the
+    2x2-unshuffled frames, read in place) at the main path's shape (a
+    batch of 4 1080p frames -> a 4 x 540 x 960 trunk), with the model's
+    conv_first weights, in both dtypes: against its plain version
+    (bfloat16 <= 2 ulp, float32 max |d| <= 1e-4 as K3's), then timed
+    beside the plain version, cuDNN's F.conv2d of the same conv on the
+    unshuffled input (channels-last, the same dtype, TF32 off; the port
+    never calls it) and the bound (bytes: the u8 in, the 64 channels out;
+    operations: K = 108, float32 as six bf16 products at the bf16
+    rate)."""
+    import torch
+    import torch.nn.functional as F
+
+    from reve_tpu_torch import device as device_mod
+    from reve_tpu_torch.kernels import conv3x3
+    from reve_tpu_torch.ops.pixel_shuffle import pixel_unshuffle
+
+    dev = torch.device("cuda", 0)
+    u8 = torch.from_numpy(frames).to(dev)
+    B = u8.shape[0]
+    px = B * (H // 2) * (W // 2)
+    cf = params["conv_first"]
+    results = {}
+    for name in ("bfloat16", "float32"):
+        dt = getattr(torch, name)
+        bpe = torch.finfo(dt).bits // 8
+        device_mod.strict_f32()
+        w = cf["w"].to(dt).contiguous()
+        got = conv3x3.conv3x3_u8x2_bias(u8, w, cf["b"])
+        want = conv3x3.conv3x3_u8x2_bias_plain(u8, w, cf["b"])
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = err <= 1e-4 if name == "float32" else bf16_ulp_ok(got, want)
+        if not ok:
+            raise AssertionError(f"conv3x3_u8x2_bias {name} at "
+                                 f"{list(got.shape)}: kernel disagrees "
+                                 f"with its plain version (max |d| {err})")
+        shape = list(got.shape)
+        del got, want
+        lib_in = pixel_unshuffle(conv3x3.u8_to_dtype_plain(u8, dt), 2) \
+            .permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+        lib_w = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        lib_b = cf["b"].to(dt)
+        bms, bby = bound_ms(
+            u8.numel() + px * 64 * bpe + w.numel() * bpe + 2 * 64 * 4,
+            2 * 9 * 12 * 64 * px * (6 if name == "float32" else 1),
+            "bfloat16")
+        results[name] = {
+            "max_abs_err": err, "shape": shape,
+            "ms": cuda_time_ms(lambda: conv3x3.conv3x3_u8x2_bias(
+                u8, w, cf["b"])),
+            "plain_ms": cuda_time_ms(lambda: conv3x3.conv3x3_u8x2_bias_plain(
+                u8, w, cf["b"])),
+            "library_ms": library_time_ms(
+                lambda: F.conv2d(lib_in, lib_w, lib_b, padding=1)),
+            "bound_ms": bms, "bound_by": bby}
+        del lib_in
+        torch.cuda.empty_cache()
+    return results
+
+
+def x2_wgmma(by_kernel: dict) -> dict:
+    """HGMMA of K3 at Cin 12's two kernels (conv3x3.cu's template at
+    R = 2: 7 k16 steps a row in bfloat16, 6 x 7 in float32), by mangled
+    name; fails below those."""
+    got = {k: o.get("HGMMA", 0) for k, o in by_kernel.items()
+           if "Li2EE" in k}
+    if len(got) != 2 or sorted(got.values()) < [7, 42]:
+        raise AssertionError(f"K3 at Cin 12's kernels: {got}, expected two "
+                             f"with 7 and 42 HGMMA")
+    return got
+
+
+def write_ncnn(path: str, cfg, params, fp16: bool) -> str:
+    """The SRVGG params as an ncnn .param/.bin pair at `path` (+ .param,
+    .bin), realesrgan-ncnn-vulkan's layout (fp16 or fp32 weight tags, the
+    biases and PReLU slopes raw float32); returns the .param's path."""
+    import struct
+
+    layers, blobs, parts = [], ["data"], []
+    layers.append("Input            input    0 1 data")
+
+    def conv(i, w, b):
+        o, cin = w.shape[-1], w.shape[2]
+        inb, outb = blobs[-1], f"conv{i}_out"
+        blobs.append(outb)
+        layers.append(f"Convolution      conv{i}   1 1 {inb} {outb} 0={o} "
+                      f"1=3 11=3 2=1 3=1 4=1 5=1 6={o * cin * 9}")
+        oihw = np.transpose(w.cpu().numpy(), (3, 2, 0, 1))
+        if fp16:
+            data = oihw.astype("<f2").tobytes()
+            parts.extend([struct.pack("<I", 0x01306B47), data,
+                          b"\0" * (-len(data) % 4)])
+        else:
+            parts.extend([struct.pack("<I", 0),
+                          oihw.astype("<f4").tobytes()])
+        parts.append(b.cpu().numpy().astype("<f4").tobytes())
+
+    def prelu(i, alpha):
+        inb, outb = blobs[-1], f"prelu{i}_out"
+        blobs.append(outb)
+        layers.append(f"PReLU            prelu{i}  1 1 {inb} {outb} "
+                      f"0={alpha.numel()}")
+        parts.append(alpha.cpu().numpy().astype("<f4").tobytes())
+
+    convs, prelus = params["convs"], params["prelus"]
+    for i in range(cfg.num_conv + 1):
+        conv(i, convs[i]["w"], convs[i]["b"])
+        prelu(i, prelus[i]["alpha"])
+    conv(len(convs) - 1, convs[-1]["w"], convs[-1]["b"])
+    layers.append(f"PixelShuffle     shuf     1 1 {blobs[-1]} shuf_out "
+                  f"0={cfg.upscale}")
+    layers.append(f"Interp           up       1 1 data up_out 0=1 "
+                  f"1={cfg.upscale}.0 2={cfg.upscale}.0")
+    layers.append("BinaryOp         add      2 1 shuf_out up_out out 0=0")
+    with open(path + ".param", "w") as f:
+        f.write("\n".join(["7767517", f"{len(layers)} {len(blobs) + 3}"]
+                          + layers))
+    with open(path + ".bin", "wb") as f:
+        f.write(b"".join(parts))
+    return path + ".param"
+
+
+def save_srvgg_pth(path: str, params) -> str:
+    """SRVGG params as an upstream-keyed .pth ({"params": body.<i>.*},
+    OIHW), which torch_loader.load_srvgg_pth reads back."""
+    import torch
+
+    sd, i = {}, 0
+    for n, c in enumerate(params["convs"]):
+        sd[f"body.{i}.weight"] = c["w"].permute(3, 2, 0, 1).contiguous().cpu()
+        sd[f"body.{i}.bias"] = c["b"].cpu()
+        i += 1
+        if n < len(params["prelus"]):
+            sd[f"body.{i}.weight"] = params["prelus"][n]["alpha"].cpu()
+            i += 1
+    torch.save({"params": sd}, path)
+    return path
+
+
+def encode_y4m(path: str, frames: np.ndarray) -> bytes:
+    """frames through the y4m writer the jobs use; the file's bytes."""
+    from reve_tpu_torch.io import writer
+
+    n, h, w, _ = frames.shape
+    with writer.open_writer(path, w, h, fractions.Fraction(24),
+                            backend="y4m") as wr:
+        for f in frames:
+            wr.write(f)
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def file_n_diff(a: str, b) -> int:
+    """Bytes that differ between file `a` and file or bytes `b` (-1: their
+    lengths differ)."""
+    with open(a, "rb") as f:
+        x = np.frombuffer(f.read(), np.uint8)
+    if isinstance(b, str):
+        with open(b, "rb") as f:
+            b = f.read()
+    y = np.frombuffer(b, np.uint8)
+    return int((x != y).sum()) if len(x) == len(y) else -1
+
+
+def scene_frames(n: int, h: int, w: int, cut: int, seed: int = 3):
+    """n frames of two seeded scenes, the second from frame `cut`: a dark
+    textured one and a bright one, each drifting a little a frame."""
+    rs = np.random.RandomState(seed)
+    scenes = [np.clip(rs.normal(m, 18, (h, w, 3)), 0, 255)
+              for m in (50.0, 190.0)]
+    out = np.empty((n, h, w, 3), np.uint8)
+    for i in range(n):
+        base = scenes[int(i >= cut)]
+        out[i] = np.clip(np.roll(base, 2 * i, axis=1)
+                         + rs.randint(-6, 7, (h, w, 3)), 0, 255)
+    return out
+
+
+def x2_phase(work: str, in4: str, frames) -> tuple:
+    """Phase rrdb_x2 (see the module docstring): returns (K3 at Cin 12's
+    numbers by dtype, the x2 engines' records, the bf16 job's launch
+    counts)."""
+    import torch
+
+    from reve_tpu_torch import cli, kernels
+    from reve_tpu_torch.io import reader
+    from reve_tpu_torch.kernels import build, conv3x3
+    from reve_tpu_torch.models import registry, rrdb
+    from reve_tpu_torch.ops import tiling
+    from reve_tpu_torch.pipeline.engine import RRDB_HALO, UpscaleEngine
+    from reve_tpu_torch.weights import quantize
+
+    # RRDB x2 (realesrgan-x2plus at full width and depth, random
+    # weights from seed 0) on the same 4 frames: 1080p -> 2160p
+    def x2_argv(name, dtype, *extra):
+        return ["-i", in4, "-s", str(X2_SCALE),
+                os.path.join(work, f"{name}.y4m"), "--model", X2_MODEL,
+                "--allow-random-init", "--dtype", dtype, "--io-backend",
+                "y4m", "-S", "4", "--batch", str(BATCH), "--yes",
+                *extra]
+
+    argv_x = x2_argv("out_x2", "auto")
+    out_x = argv_x[4]
+    x2_size = (BATCH, W * X2_SCALE, H * X2_SCALE)
+    with phase("rrdb_x2", {"argv": argv_x[3:]}) as rec:
+        cfg_x, params_x = registry.load_model(X2_MODEL, X2_SCALE,
+                                              allow_random_init=True)
+        assert (cfg_x.num_feat, cfg_x.num_grow_ch, cfg_x.num_block,
+                cfg_x.upscale) == (64, 32, RRDB_BLOCKS, X2_SCALE)
+        params_x = rrdb.params_to(params_x, "cuda")
+        k3x2 = k3x2_phase(params_x, frames[:BATCH])
+        k3x2["bfloat16"]["wgmma_by_kernel"] = x2_wgmma(
+            sass_ops(build.build_info[conv3x3.SOURCE]["path"])
+            ["by_kernel"])
+        batch4 = np.stack(list(reader.Y4MReader(in4).read_range(
+            0, BATCH)))
+        # the bf16 job, its counters zeroed around it
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.run(argv_x)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"cli.run --model {X2_MODEL} exited "
+                                 f"{rc}")
+        rd = reader.Y4MReader(out_x)
+        if (rd.frame_count(), rd.width, rd.height) != x2_size:
+            raise AssertionError(f"x2 output {rd.frame_count()} x "
+                                 f"{rd.width} x {rd.height}, expected "
+                                 f"{x2_size}")
+        calls = launches["conv3x3_u8x2_bias"]
+        if calls < 1 or \
+                launches["dense_conv"] != RRDB_K7_PER_CALL * calls or \
+                launches["conv3x3_bias_prelu"] != 3 * calls or \
+                launches["conv_last_u8"] != calls or \
+                launches["conv3x3_u8_bias_prelu"] != 0:
+            raise AssertionError(f"launch counts {launches} do not "
+                                 f"show the RRDB x2 path's kernels")
+        refs = {}
+        for dt in ("float32", "bfloat16"):
+            y = np.stack([rrdb.apply(
+                params_x, torch.from_numpy(batch4[i:i + 1]).cuda(),
+                cfg=cfg_x, compute_dtype=getattr(torch, dt),
+                plain=True)[0].cpu().numpy() for i in range(BATCH)])
+            torch.cuda.empty_cache()
+            path = os.path.join(work, f"ref_x2_{dt}.y4m")
+            encode_y4m(path, y)
+            refs[dt] = (y, list(reader.Y4MReader(path)
+                                .read_range(0, BATCH)))
+        got = list(rd.read_range(0, BATCH))
+        f32, b16 = refs["float32"][1], refs["bfloat16"][1]
+        db = [psnr(g, r) for g, r in zip(got, f32)]
+        db_plain = [psnr(a, r) for a, r in zip(b16, f32)]
+        db_kernels = [psnr(g, a) for g, a in zip(got, b16)]
+        for i in range(BATCH):
+            if not (db[i] >= db_plain[i] - RRDB_BF16_MARGIN_DB
+                    and db_kernels[i] >= RRDB_VS_PLAIN_BF16_DB):
+                raise AssertionError(
+                    f"x2 frame {i}: {db[i]:.2f} dB vs the plain float32 "
+                    f"path (the plain bfloat16 path's "
+                    f"{db_plain[i]:.2f} dB, margin "
+                    f"{RRDB_BF16_MARGIN_DB}), {db_kernels[i]:.2f} dB vs "
+                    f"the plain bfloat16 path (floor "
+                    f"{RRDB_VS_PLAIN_BF16_DB})")
+        del got, f32, b16
+        engines_x = rrdb_engine_checks(batch4, refs["float32"][0],
+                                       X2_MODEL, X2_SCALE)
+        del refs
+        # the int8 job: every frame against the plain int8 path with
+        # the job's persisted calibration
+        trace_x8 = os.path.join(work, "trace_x2_8.jsonl")
+        argv_x8 = x2_argv("out_x2_8", "int8", "--trace", trace_x8,
+                          "--keep-workspace")
+        out_x8 = argv_x8[4]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.run(argv_x8)
+        wall8 = time.perf_counter() - t0
+        launches8 = dict(kernels.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"cli.run --model {X2_MODEL} --dtype "
+                                 f"int8 exited {rc}")
+        calls8 = rrdb_int8_calls(launches8, "conv3x3_u8x2_bias")
+        ws_x8 = out_x8 + ".revework"
+        with open(os.path.join(ws_x8, "int8_calibration.json")) as f:
+            maxima_x = json.load(f)["act_maxima"]
+        with open(os.path.join(ws_x8, "int8_cert.json")) as f:
+            cert_x = json.load(f)["db"]
+        int8_ev = {}
+        with open(trace_x8) as f:
+            for ln in f:
+                ev = json.loads(ln)
+                if ev.get("ev") == "int8":
+                    int8_ev = ev
+        qb_x = rrdb.prepare_qbody(quantize.build_qbody(
+            params_x, cfg_x, maxima_x, margin=1.25))
+        ref8 = np.stack([rrdb.apply_int8(
+            params_x, qb_x, torch.from_numpy(batch4[i:i + 1]).cuda(),
+            cfg=cfg_x, plain=True)[0].cpu().numpy()
+            for i in range(BATCH)])
+        del qb_x
+        torch.cuda.empty_cache()
+        path = os.path.join(work, "ref_x2_8.y4m")
+        encode_y4m(path, ref8)
+        del ref8
+        db8 = [psnr(g, r) for g, r in zip(
+            reader.Y4MReader(out_x8).read_range(0, BATCH),
+            reader.Y4MReader(path).read_range(0, BATCH))]
+        if not min(db8) >= RRDB_INT8_FLOOR_DB:
+            raise AssertionError(f"x2 int8 frames {db8} dB vs the plain "
+                                 f"int8 path, below "
+                                 f"{RRDB_INT8_FLOOR_DB} dB")
+        engine_x8 = rrdb_int8_engine_checks(batch4, maxima_x, X2_MODEL,
+                                            X2_SCALE)
+        # halo tiles at x2 (even windows, 560 x 560 at tile 512): the
+        # job's file equals each window run alone as a whole frame on
+        # a whole-frame engine, its owned core kept
+        argv_xt = x2_argv("out_x2_tile", "auto", "--tile", str(TILE))
+        out_xt = argv_xt[4]
+        kernels.reset_launches()
+        rc = cli.run(argv_xt)
+        launches_t = dict(kernels.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"cli.run --tile {TILE} at x2 exited "
+                                 f"{rc}")
+        whole = UpscaleEngine(model=X2_MODEL, scale=X2_SCALE,
+                              compute_dtype="bfloat16", batch_size=1,
+                              tile=-1, allow_random_init=True)
+        from reve_tpu_torch.ops import tiling
+
+        with whole._on_device():
+            ref_t = tiling.upscale_tiled(
+                whole._forward, torch.from_numpy(batch4).cuda(),
+                scale=X2_SCALE, tile=TILE, halo=whole.halo,
+                chunk=1).cpu().numpy()
+        del whole
+        torch.cuda.empty_cache()
+        n_diff_t = file_n_diff(out_xt, encode_y4m(
+            os.path.join(work, "ref_x2_tile.y4m"), ref_t))
+        del ref_t
+        windows = BATCH * tiling.plan_tiles(H, W, TILE, RRDB_HALO).num_tiles
+        if n_diff_t != 0 or launches_t["conv3x3_u8x2_bias"] < 1 or \
+                windows <= BATCH:
+            raise AssertionError(f"x2 tiles: n_diff {n_diff_t} against "
+                                 f"the windows run whole, {windows} "
+                                 f"windows, launches {launches_t}")
+        rec.update(
+            rc=rc, frames=BATCH, output=list(x2_size[1:]),
+            wall_s=round(wall, 3), launches=launches, model_calls=calls,
+            launches_per_call={k: launches[k] / calls for k in (
+                "conv3x3_u8x2_bias", "dense_conv", "conv3x3_bias_prelu",
+                "conv_last_u8")},
+            psnr_db_vs_plain_f32=db,
+            psnr_db_plain_bf16_vs_plain_f32=db_plain,
+            psnr_db_vs_plain_bf16=db_kernels, engines=engines_x,
+            int8={"wall_s": round(wall8, 3), "launches": launches8,
+                  "calls": calls8, "psnr_db_vs_plain_int8": db8,
+                  "psnr_floor_db": RRDB_INT8_FLOOR_DB,
+                  "certified_db_vs_f32": cert_x,
+                  "calibrate_s": int8_ev.get("calibrate_s"),
+                  "certify_s": int8_ev.get("certify_s"),
+                  "engine": engine_x8},
+            tile={"tile": TILE, "windows": windows, "launches": launches_t,
+                  "n_diff_vs_windows_whole": n_diff_t},
+            k3x2=k3x2,
+            model_ms_per_batch={
+                "bfloat16": engines_x["bfloat16"]["model_ms_per_batch"],
+                "float32": engines_x["float32"]["model_ms_per_batch"],
+                "int8": engine_x8["model_ms_per_batch"]})
+        del params_x
+        torch.cuda.empty_cache()
+    return k3x2, engines_x, launches
+
+
+def weights_phase(work: str, frames, weights: str) -> None:
+    """Phase weights (see the module docstring)."""
+    import torch
+
+    from reve_tpu_torch import cli
+    from reve_tpu_torch.io import reader
+    from reve_tpu_torch.pipeline.engine import UpscaleEngine
+    from reve_tpu_torch.weights import interpolate, ncnn
+    from reve_tpu_torch.weights.torch_loader import load_srvgg_pth
+
+    # ncnn .param/.bin weights (the shipped .pth written out with fp16
+    # and fp32 tags) and --denoise, each a job on 2 of the frames
+    in2 = os.path.join(work, "in2.y4m")
+    encode_y4m(in2, frames[:2])
+    # the frames as the jobs decode them from the file
+    with reader.Y4MReader(in2) as rd:
+        src2 = np.stack(list(rd.read_range(0, 2)))
+    with phase("weights", {"frames": 2}) as rec:
+        cfg_c, params_c = load_srvgg_pth(weights)
+
+        def job(name, extra):
+            out_j = os.path.join(work, f"out_{name}.y4m")
+            rc = cli.run(["-i", in2, "-s", str(SCALE), out_j,
+                          "--io-backend", "y4m", "-S", "4", "--batch",
+                          "2", "--yes"] + extra)
+            if rc != 0:
+                raise AssertionError(f"{name} job exited {rc}")
+            return out_j
+
+        def engine_file(name, cfg_e, params_e):
+            eng = UpscaleEngine(compute_dtype="bfloat16", batch_size=2,
+                                preloaded=(cfg_e, params_e))
+            y = eng.upscale_frames(src2)
+            del eng
+            return encode_y4m(os.path.join(work, f"eng_{name}.y4m"), y)
+
+        out_pth = job("pth", ["--weights", weights])
+        res = {}
+        for tag, fp16 in (("fp32", False), ("fp16", True)):
+            par = write_ncnn(os.path.join(work, f"m_{tag}"), cfg_c,
+                             params_c, fp16)
+            cfg_n, params_n = ncnn.load_files(par, par[:-6] + ".bin")
+            round_ = (lambda t: t.half().float()) if fp16 else \
+                (lambda t: t)
+            same = cfg_n == cfg_c and all(
+                torch.equal(a["w"], round_(b["w"])) and
+                torch.equal(a["b"], b["b"])
+                for a, b in zip(params_n["convs"], params_c["convs"])) \
+                and all(torch.equal(a["alpha"], b["alpha"]) for a, b in
+                        zip(params_n["prelus"], params_c["prelus"]))
+            if not same:
+                raise AssertionError(f"ncnn {tag}: parsed params differ "
+                                     f"from the .pth's")
+            out_n = job(f"ncnn_{tag}", ["--weights", par])
+            # fp32: the .pth job's bytes; fp16: the engine on the
+            # fp16-rounded params, through the same encode
+            n_diff = file_n_diff(out_n, out_pth if not fp16 else
+                                 engine_file(tag, cfg_n, params_n))
+            if n_diff != 0:
+                raise AssertionError(f"ncnn {tag} job: n_diff {n_diff}")
+            res[tag] = {"n_diff": n_diff, "params_equal": same,
+                        "bin_bytes": os.path.getsize(par[:-6] + ".bin")}
+        # --denoise 0.5 with a seeded perturbed twin as --weights-wdn
+        rs = np.random.RandomState(5)
+        twin = {"convs": [{"w": c["w"] * (1 + 0.05 * torch.from_numpy(
+            rs.standard_normal(tuple(c["w"].shape)).astype(np.float32))),
+            "b": c["b"]} for c in params_c["convs"]],
+            "prelus": params_c["prelus"]}
+        wdn = save_srvgg_pth(os.path.join(work, "wdn.pth"), twin)
+        out_d = job("denoise", ["--weights", weights, "--weights-wdn",
+                                wdn, "--denoise", "0.5"])
+        n_diff_d = file_n_diff(out_d, engine_file(
+            "denoise", cfg_c, interpolate.interpolate(twin, params_c,
+                                                      0.5)))
+        if n_diff_d != 0 or file_n_diff(out_d, out_pth) == 0:
+            raise AssertionError(f"--denoise job: n_diff {n_diff_d} "
+                                 f"against the engine on interpolated "
+                                 f"params (or equal to the plain job)")
+        rec.update(ncnn=res, denoise={"strength": 0.5,
+                                      "n_diff_vs_engine": n_diff_d})
+
+
+def scenes_phase(work: str, weights: str) -> None:
+    """Phase scenes (see the module docstring)."""
+    from reve_tpu_torch import cli
+    from reve_tpu_torch.io import reader
+    from reve_tpu_torch.pipeline import scenes
+    from reve_tpu_torch.pipeline.state import Workspace
+
+    # --scene-align on a small clip of two seeded scenes
+    with phase("scenes", {}) as rec:
+        # a cut 2 frames past the first boundary, inside its snap
+        # window of seg // 4
+        n_f, cut, seg = 24, 10, 8
+        in_s = os.path.join(work, "scenes.y4m")
+        encode_y4m(in_s, scene_frames(n_f, 270, 480, cut))
+        outs = {}
+        for align in (True, False):
+            out_s = os.path.join(work, f"scenes_{align}.y4m")
+            rc = cli.run(["-i", in_s, "-s", str(SCALE), out_s,
+                          "--io-backend", "y4m", "--weights", weights,
+                          "-S", str(seg), "--batch", str(BATCH), "--yes",
+                          "--keep-workspace"]
+                         + (["--scene-align"] if align else []))
+            if rc != 0:
+                raise AssertionError(f"scene-align={align} job exited "
+                                     f"{rc}")
+            plan = [(sg.start, sg.size) for sg in Workspace(
+                out_s + ".revework").load().plan]
+            outs[align] = (out_s, plan)
+        with reader.Y4MReader(in_s) as rd_s:
+            cuts = scenes.detect_cuts(rd_s, n_f)
+        want = [(sg.start, sg.size) for sg in
+                scenes.plan_segments_aligned(n_f, seg, cuts)]
+        n_diff_s = file_n_diff(outs[True][0], outs[False][0])
+        if outs[True][1] != want or cuts != [cut] or \
+                outs[True][1] == outs[False][1] or n_diff_s != 0:
+            raise AssertionError(f"scene-align: cuts {cuts}, plan "
+                                 f"{outs[True][1]} (want {want}; "
+                                 f"unaligned {outs[False][1]}), n_diff "
+                                 f"{n_diff_s}")
+        rec.update(cuts=cuts, plan=outs[True][1],
+                   plan_unaligned=outs[False][1],
+                   n_diff_vs_unaligned=n_diff_s)
 
 
 def main() -> int:
@@ -2118,6 +2670,10 @@ def main() -> int:
                        k7q_forms=k7q_results["forms"],
                        k7q_parts=k7q_results["parts"])
         rrdb8_launches = launches
+
+        k3x2, engines_x, x2_launches = x2_phase(work, in4, frames)
+        weights_phase(work, frames, weights)
+        scenes_phase(work, weights)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2162,6 +2718,9 @@ def main() -> int:
         "dense_conv_s8": (
             "reve_tpu_torch/kernels/csrc/rrdb_s8.cu",
             "reve_tpu/models/rrdb.py:247"),
+        "conv3x3_u8x2_bias": (
+            "reve_tpu_torch/kernels/csrc/conv3x3.cu",
+            "reve_tpu/models/rrdb.py:192"),
     }
     # each kernel's numbers and its launches on the path that runs it: the
     # bf16 main job, the int8 job, or the probe script
@@ -2178,6 +2737,7 @@ def main() -> int:
         "dense_conv": ("bfloat16", rrdb_launches),
         "conv_last_u8": ("bfloat16", rrdb_launches),
         "dense_conv_s8": ("int8", rrdb8_launches),
+        "conv3x3_u8x2_bias": ("bfloat16", x2_launches),
     }
     # every model conv and P1 run on wgmma, the split pass on CUDA cores;
     # the float32 forms of K1, K2 and K3 run on wgmma as six bf16 products
@@ -2226,6 +2786,14 @@ def main() -> int:
                 by_dt["float32"], source=f32_src, route="cuda",
                 replaces=replaces, design=f32_design,
                 launches=engines["float32"]["launches"].get(name, 0))
+        elif name == "conv3x3_u8x2_bias":
+            # float32 nested with its launches in the x2 float32 batch
+            nums = k3x2["bfloat16"]
+            extra = {"wgmma_by_kernel": nums["wgmma_by_kernel"],
+                     "float32": dict(
+                         k3x2["float32"], source=src, route="cuda",
+                         replaces=replaces, design="wgmma_bf16x6",
+                         launches=engines_x["float32"]["launches"][name])}
         elif name == "dense_conv_s8":
             nums = k7q_results
             extra = {key: nums[key] for key in ("forms", "call_ms",

@@ -10,10 +10,11 @@ It keeps the CLI's workspace and segment checkpoints: calling it again
 after a crash continues where the job stopped, with the settings the job
 was started with.  It runs on cuda:0 unless `device` names another CUDA
 device or "cpu".  What the port's CLI refuses with exit 2, this raises:
-NotImplementedError naming the ROADMAP.md port-queue item (`mesh`,
-`scene_align`, `realesrgan-x2plus`, ncnn weights), or ValueError
-(`compile_attempts`, which has no counterpart).  `upscale_image` waits
-for image mode (ROADMAP.md).
+NotImplementedError naming the ROADMAP.md port-queue item (`mesh`), or
+ValueError (`compile_attempts`, which has no counterpart).  As in
+reve_tpu, it has no `denoise` argument and refuses to resume a workspace
+the CLI started with --denoise.  `upscale_image` waits for image mode
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -85,7 +86,9 @@ def upscale_video(
     byte-identical to whole frames (RRDB's halo, 24 px, is an
     approximation, as in reve_tpu).  `tta`: the 8-transform self-ensemble
     (8x the model work).  `dtype="auto"`: the CLI's --dtype auto policy
-    (bfloat16 on CUDA).  `on_progress`: optional callable receiving a
+    (bfloat16 on CUDA).  `scene_align`: snap the segment boundaries to
+    the scene cuts a pre-pass over the clip finds (pipeline/scenes.py; a
+    resume keeps the saved plan).  `on_progress`: optional callable receiving a
     snapshot dict after every counter update, from pipeline worker
     threads.  `device`: None (cuda:0), a CUDA device index, or "cpu" (the
     kernels' plain versions).  `allow_random_init`: run with
@@ -101,15 +104,6 @@ def upscale_video(
         raise ValueError("scale must be 2, 3 or 4")
     if mesh is not None:
         raise _not_ported("a multi-device mesh", "multi-GPU")
-    if scene_align:
-        raise _not_ported("scene_align", "scene-aligned segments")
-    spec, _ = registry.parse_model_name(model)
-    refusal = registry.unported(spec.arch, spec.upscale, dtype)
-    if refusal is not None:
-        raise _not_ported(f"model {model} with dtype {dtype} "
-                          f"({refusal[0]})", refusal[1])
-    if weights and weights.endswith((".param", ".bin")):
-        raise _not_ported(f"ncnn weights {weights!r}", "ncnn/dni weights")
     if compile_attempts is not None:
         raise ValueError("compile_attempts has no counterpart in "
                          "reve_tpu_torch (the JAX package's XLA "
@@ -134,8 +128,9 @@ def upscale_video(
             f"another live process is already working on this "
             f"workspace ({ws.owner_path}); wait for it to finish")
     settings = argparse.Namespace(
-        weights=weights, dtype=dtype, int8_calib=int8_calib, tta=tta,
-        io_backend=io_backend, allow_random_init=allow_random_init)
+        weights=weights, weights_wdn=None, denoise=None, dtype=dtype,
+        int8_calib=int8_calib, tta=tta, io_backend=io_backend,
+        allow_random_init=allow_random_init)
     try:
         if resuming:
             state = ws.load()
@@ -144,6 +139,14 @@ def upscale_video(
                     f"workspace {ws.root!r} holds progress for x"
                     f"{state.scale}; resume with the same scale or remove "
                     f"the workspace to start fresh")
+            if state.opts.get("denoise") is not None:
+                # this API has no denoise argument: a resumed engine would
+                # run the plain weights on the remaining segments
+                raise ValueError(
+                    f"workspace {ws.root!r} was started with --denoise "
+                    f"(interpolated weights); resume it via the CLI with "
+                    f"the original flags, or remove the workspace to start "
+                    f"fresh")
             # resumed segments go through the same weights, dtype,
             # ensemble and container as the committed ones
             state = job_mod.restore(ws, state, settings, model)
@@ -153,7 +156,8 @@ def upscale_video(
                 output_path=output_path, scale=scale,
                 segment_size=segment_size, model=model,
                 encode={"crf": crf, "preset": preset,
-                        "x265_params": x265_params})
+                        "x265_params": x265_params},
+                scene_align=scene_align)
         ws.save(state)
         engine, _ = job_mod.open_engine(ws, state, settings, device,
                                         batch=batch, tile=tile)

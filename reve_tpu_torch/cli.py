@@ -9,16 +9,22 @@ reve-shared/src/lib.rs:209-280):
 
 The port carries the video job: fresh and resumed runs, --dtype
 auto|float32|bfloat16|int8 (auto = bfloat16 on CUDA, as reve_tpu's rule
-has it off the TPU; int8 with SRVGG and with the x4 RRDB models),
---int8-calib, --int8-gate, --model/--weights/-m (SRVGG, and RRDB at x4:
-realesrgan-x4plus, realesrgan-x4plus-anime, realesrnet-x4plus), --batch, --tile N (halo tiles, for SRVGG
-byte-identical to whole frames; 0 = only frames past the memory plan,
--1 = never), --tta (the 8-transform
-self-ensemble, restored on resume), --device N (cuda:N), --io-backend,
---workspace, --yes, --keep-workspace, --progress-json, --trace and
---profile-dir (torch.profiler).  Flags whose feature is not ported yet
-exit 2 with a one-line "not yet ported in reve_tpu_torch" message naming
-the ROADMAP.md port-queue item; they are never silently ignored.
+has it off the TPU; int8 with SRVGG and with the RRDB models),
+--int8-calib, --int8-gate, --model/--weights/-m (SRVGG from .pth or the
+reference's ncnn .param/.bin, and RRDB from .pth at x4:
+realesrgan-x4plus, realesrgan-x4plus-anime, realesrnet-x4plus, and x2:
+realesrgan-x2plus), --denoise D with --weights-wdn (the weights
+interpolated as (1 - D) wdn + D plain, restored on resume), --batch,
+--tile N (halo tiles, for SRVGG byte-identical to whole frames; 0 = only
+frames past the memory plan, -1 = never), --tta (the 8-transform
+self-ensemble, restored on resume), --scene-align (segments snapped to
+scene cuts; a resume keeps the saved plan), --device N (cuda:N),
+--io-backend, --workspace, --yes, --keep-workspace, --progress-json,
+--trace and --profile-dir (torch.profiler).  Flags whose feature is not
+ported yet (image and directory inputs, --shard-worker and
+--lease-stale-after, several devices) exit 2 with a one-line "not yet
+ported in reve_tpu_torch" message naming the ROADMAP.md port-queue item;
+they are never silently ignored.
 
 The job's body (the resume contract, the fresh state, the engine, the
 run) is `pipeline/job.py`, which `api.upscale_video` shares.  A workspace
@@ -146,11 +152,14 @@ def build_parser() -> argparse.ArgumentParser:
     # --- extensions ---
     p.add_argument("--model", default="realesr-animevideov3")
     p.add_argument("--weights", default=None,
-                   help="path to .pth weights (ncnn .param: not ported)")
+                   help="path to .pth weights or an ncnn .param "
+                        "(its .bin beside it; SRVGG models)")
     p.add_argument("--weights-wdn", default=None,
-                   help="denoise-variant .pth for --denoise (not ported)")
+                   help="denoise-variant .pth for --denoise interpolation")
     p.add_argument("--denoise", type=float, default=None, metavar="D",
-                   help="denoise strength 0..1 (not ported)")
+                   help="denoise strength 0..1 (needs --weights and "
+                        "--weights-wdn; dni interpolation, (1 - D) * wdn + "
+                        "D * plain)")
     p.add_argument("--batch", type=_positive_int("batch"), default=4,
                    help="frames per GPU batch")
     p.add_argument("--tile", type=int, default=0,
@@ -191,8 +200,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-m", "--models-dir", default=None, metavar="DIR",
                    dest="models_dir",
                    help="directory searched for --model's weights "
-                        "(<name>.pth).  Replaces the default search path "
-                        "($REVE_TPU_MODELS_DIR, then ./models); an "
+                        "(<name>.pth or <name>.param + .bin).  Replaces "
+                        "the default search path ($REVE_TPU_MODELS_DIR, "
+                        "then ./models); an "
                         "explicit --weights wins")
     p.add_argument("--allow-random-init", action="store_true",
                    dest="allow_random_init",
@@ -215,7 +225,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--keep-workspace", action="store_true",
                    help="do not delete the workspace after success")
     p.add_argument("--scene-align", action="store_true",
-                   help="snap segments to scene cuts (not ported)")
+                   help="snap segment boundaries to detected scene cuts")
     p.add_argument("--progress-json", default=None, metavar="FILE",
                    help="append machine-readable JSON progress snapshots "
                         "to FILE (one object per line)")
@@ -243,25 +253,9 @@ def _refuse_unported(args) -> Optional[int]:
     if os.path.isdir(args.inputpath) or \
             args.inputpath.lower().endswith(IMAGE_EXTS):
         return _not_ported("image and directory inputs", "image mode")
-    checks = (
-        (args.denoise is not None or args.weights_wdn is not None,
-         "--denoise/--weights-wdn", "ncnn/dni weights"),
-        (args.shard_worker is not None or args.lease_stale_after is not None,
-         "--shard-worker/--lease-stale-after", "multi-GPU"),
-        (args.scene_align, "--scene-align", "scene-aligned segments"),
-        (bool(args.weights) and args.weights.endswith((".param", ".bin")),
-         "ncnn --weights", "ncnn/dni weights"),
-    )
-    for cond, what, item in checks:
-        if cond:
-            return _not_ported(what, item)
-    from reve_tpu_torch.models import registry
-
-    spec, _ = registry.parse_model_name(args.model)
-    refusal = registry.unported(spec.arch, spec.upscale, args.dtype)
-    if refusal is not None:
-        return _not_ported(f"--model {args.model} --dtype {args.dtype} "
-                           f"({refusal[0]})", refusal[1])
+    if args.shard_worker is not None or args.lease_stale_after is not None:
+        return _not_ported("--shard-worker/--lease-stale-after",
+                           "multi-GPU")
     if args.compile_attempts is not None:
         print("--compile-attempts has no counterpart in reve_tpu_torch "
               "(the JAX package's XLA compile-lottery guard)",
@@ -332,9 +326,7 @@ def run(argv: Optional[List[str]] = None, device=None) -> int:
             w = (f"weights: x{'/x'.join(map(str, found))}" if found
                  else "weights: none (jobs refuse to start; "
                       "--allow-random-init to override)")
-            ported = "" if registry.unported(spec.arch, spec.upscale) \
-                is None else "  (not ported)"
-            print(f"{name}  [{spec.arch}, x{scales}]  {w}{ported}")
+            print(f"{name}  [{spec.arch}, x{scales}]  {w}")
         return 0
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
@@ -348,6 +340,10 @@ def run(argv: Optional[List[str]] = None, device=None) -> int:
     err = _require_weights(args)
     if err is not None:
         return err
+    if args.denoise is not None and not (args.weights and args.weights_wdn):
+        # (a resumed job's saved settings are checked in job.open_engine)
+        print(job_mod.DENOISE_NEEDS, file=sys.stderr)
+        return 2
     if args.dtype not in ("int8", "auto") and args.int8_calib is not None:
         print("--int8-calib requires --dtype int8 or auto (it configures "
               "the int8 turbo path only)", file=sys.stderr)
@@ -443,7 +439,8 @@ def _run_job(args, ws: Workspace, device) -> int:
             output_path=args.outputpath, scale=args.scale,
             segment_size=args.segmentsize, model=args.model,
             encode={"crf": args.crf, "preset": args.preset,
-                    "x265_params": args.x265params})
+                    "x265_params": args.x265params},
+            scene_align=args.scene_align, on_note=note)
     ws.save(state)
 
     tracer = trace_mod.Tracer(args.trace) if args.trace else \
@@ -585,8 +582,6 @@ def _apply_models_dir(args) -> Optional[int]:
               f"{args.models_dir!r} (expected <name>.pth or "
               f"<name>.param + .bin)", file=sys.stderr)
         return 2
-    if w.endswith(".param"):
-        return _not_ported(f"ncnn weights {w!r}", "ncnn/dni weights")
     args.weights = w
     return None
 

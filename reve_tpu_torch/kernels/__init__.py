@@ -8,6 +8,10 @@
                                               split pass
     K3  conv3x3.conv3x3_u8_bias_prelu         u8 input + first conv + PReLU
                                               (RRDB: conv_first, alpha 1)
+        conv3x3.conv3x3_u8x2_bias             K3 at Cin 12: RRDB x2's
+                                              conv_first over the 2x2-
+                                              unshuffled u8 frame, read in
+                                              place
     K2  head.head_conv_residual_u8_shuffle    head conv + residual + u8 +
                                               pixel shuffle
         head.conv_last_u8                     RRDB's conv_last: 64->3 conv +
@@ -43,7 +47,9 @@ ring; float32 as six bf16 products on split planes), K7q on s8 wgmma in csrc/rrd
 consumer teams taking tiles in turn, residuals and outputs moved through
 shared memory by TMA).  K3 and K4a run on bf16 wgmma
 with A from registers and TMA stores (csrc/conv3x3.cu), and P1 on s8 and
-bf16 wgmma with A from registers (csrc/dot_probe.cu).  K6 moves bytes
+bf16 wgmma with A from registers (csrc/dot_probe.cu); K3 at Cin 12 is
+K3's template with its halo read from the x2 frame as the unshuffle
+lays it out.  K6 moves bytes
 only: it stages tiles of the transformed output through shared memory
 (csrc/tta.cu).  float32 conv_last (N = 3, where wgmma's operand reads,
 not its math, would set the pace) sums float32 FMAs on the CUDA cores
@@ -63,6 +69,7 @@ LAUNCHES = {
     "conv3x3_bias_prelu": 0,
     "split_bf16x3": 0,
     "conv3x3_u8_bias_prelu": 0,
+    "conv3x3_u8x2_bias": 0,
     "head_conv_residual_u8_shuffle": 0,
     "conv_last_u8": 0,
     "dense_conv": 0,

@@ -1,7 +1,7 @@
 """K1 `conv3x3_bias_prelu` (csrc/conv3x3_tc.cu in bfloat16,
-csrc/conv3x3_f32_tc.cu in float32), K3 `conv3x3_u8_bias_prelu` and K4a
-`conv3x3_u8_bias_prelu_q8` (csrc/conv3x3.cu), and the weight packing of
-the tensor-core kernels.
+csrc/conv3x3_f32_tc.cu in float32), K3 `conv3x3_u8_bias_prelu`, K4a
+`conv3x3_u8_bias_prelu_q8` and K3 at Cin 12 `conv3x3_u8x2_bias`
+(csrc/conv3x3.cu), and the weight packing of the tensor-core kernels.
 
 K1 replaces the hidden layers of reve_tpu/models/srvgg.py:apply
 (`_prelu(_conv3x3(h, w, b), alpha)`, srvgg.py:88-113, applied at
@@ -10,12 +10,20 @@ dtype cast (reve_tpu/pipeline/engine.py:645, srvgg.py:154) fused with the
 first conv + PReLU (srvgg.py:203-204).  Both were one XLA-fused conv graph
 on the TPU.  K4a is K3 for the int8 path (srvgg.py:376-379): the same
 first conv + PReLU in the compute dtype, then `_quant_s8` (srvgg.py:279-288)
-to the s8 input of the first int8 hidden conv.
+to the s8 input of the first int8 hidden conv.  K3 at Cin 12 is RRDB
+x2's conv_first (reve_tpu/models/rrdb.py:192-193, :212; apply_int8
+:288-291): reve_tpu/ops/pixel_shuffle.py::pixel_unshuffle by 2 of the u8
+frame / 255, then a 3x3 conv 12 -> 64 + bias, no activation; the kernel
+reads the unshuffle in place from the x2 frame (K3's template at R = 2,
+K = 108 in 112), so no unshuffled copy is written.
 
 Bound per call of 4 1080p frames on an H100 SXM (989 TFLOP/s bf16,
 3.35 TB/s): K1 611.5 GFLOP -> 0.618 ms and 2.12 GB -> 0.634 ms (bf16);
 K3 25 MB of u8 in and 64 channels out, 1.087 GB in bf16 -> 0.324 ms,
-2.148 GB in float32 -> 0.641 ms; K4a 0.556 GB -> 0.166 ms (bytes).  All
+2.148 GB in float32 -> 0.641 ms; K4a 0.556 GB -> 0.166 ms (bytes); K3
+at Cin 12 (a trunk of 4 x 540 x 960) 24.9 MB in, 265 MB bf16 out -> 0.087
+ms (bytes), float32 six bf16 passes at K = 112, about 178 GFLOP -> 0.18
+ms (operations).  All
 are implicit GEMMs on the tensor cores (wgmma): K1 in bfloat16 directly
 (csrc/conv3x3_tc.cu); in float32 as six bf16 products of its operands
 split in three (`split_bf16x3`, then csrc/conv3x3_f32_tc.cu), which keeps
@@ -42,6 +50,7 @@ import torch.nn.functional as F
 
 from reve_tpu_torch import device as device_mod
 from reve_tpu_torch.kernels import LAUNCHES, build
+from reve_tpu_torch.ops.pixel_shuffle import pixel_unshuffle
 
 SOURCE = "conv3x3.cu"
 #: bfloat16 K1 and K2 on the tensor cores
@@ -99,6 +108,14 @@ def conv3x3_u8_bias_prelu_q8_plain(u8, w, b, alpha, inv) -> torch.Tensor:
     return quant_s8_plain(conv3x3_u8_bias_prelu_plain(u8, w, b, alpha), inv)
 
 
+def conv3x3_u8x2_bias_plain(u8, w, b) -> torch.Tensor:
+    """K3 at Cin 12's plain version: pixel_unshuffle by 2 of
+    dtype(u8 / 255), then conv3x3_plain + b (reve_tpu rrdb.apply's
+    conv_first at x2).  Odd dims raise, as reve_tpu's unshuffle does."""
+    x = pixel_unshuffle(u8_to_dtype_plain(u8, w.dtype), 2)
+    return conv3x3_plain(x, w, b).contiguous()
+
+
 def split_bf16x3_plain(x: torch.Tensor) -> torch.Tensor:
     """float32 x -> (3, *x.shape) bfloat16 (hi, mid, lo): hi = bf16(x),
     mid = bf16(x - hi), lo = bf16(x - hi - mid).  Each subtraction is
@@ -127,27 +144,40 @@ def pad_outputs(w: torch.Tensor) -> torch.Tensor:
 #: 3 dy + c (taps column by column, each column of 9 padded to 10), so
 #: k = 9, 19, 29, 30, 31 are zero rows
 U8_K = 32
+#: the K of K3 at Cin 12: k = 36 dx + 12 dy + c (a column of taps is the
+#: 36 values of one unshuffled pixel column), 108 padded to 112
+U8X2_K = 112
 
 
-def u8conv_k(dy: int, dx: int, c: int) -> int:
-    return 10 * dx + 3 * dy + c
+def _u8conv_slots(cin: int) -> int:
+    """Values of one column of taps in the kernel's K order: 9 padded to
+    10 at Cin 3, 36 at Cin 12."""
+    return 10 if cin == 3 else 3 * cin
+
+
+def u8conv_k(dy: int, dx: int, c: int, cin: int = 3) -> int:
+    return _u8conv_slots(cin) * dx + cin * dy + c
 
 
 def pack_weights_u8conv(w: torch.Tensor) -> torch.Tensor:
-    """HWIO (3, 3, 3, 64) in the compute dtype -> the B operand each block
-    of K3 and K4a packs from those weights in shared memory (the kernel's
-    pack_weights; this is its reference, held by the CPU tests): (S, 4,
-    64, 8) bfloat16 [split][k / 8][n][8], with packed[s, kb, n, kk] =
-    planes[s, dy, dx, c, n] at k = 8 kb + kk = u8conv_k(dy, dx, c) and 0
-    at the other k (B K-major in core matrices of 8 rows x 16 B).
-    bfloat16: S = 1, the weights as they are; float32: S = 3,
-    split_bf16x3's hi, mid, lo."""
+    """HWIO (3, 3, Cin, 64), Cin 3 or 12, in the compute dtype -> the B
+    operand each block of K3, K4a and K3 at Cin 12 packs from those
+    weights in shared memory (the kernel's pack_weights; this is its
+    reference, held by the CPU tests): (S, K / 8, 64, 8) bfloat16
+    [split][k / 8][n][8], K = U8_K (Cin 3) or U8X2_K (Cin 12), with
+    packed[s, kb, n, kk] = planes[s, dy, dx, c, n] at k = 8 kb + kk =
+    u8conv_k(dy, dx, c, Cin) and 0 at the other k (B K-major in core
+    matrices of 8 rows x 16 B).  bfloat16: S = 1, the weights as they
+    are; float32: S = 3, split_bf16x3's hi, mid, lo."""
+    cin = w.shape[2]
+    kp = U8_K if cin == 3 else U8X2_K
+    slots = _u8conv_slots(cin)
     planes = w[None] if w.dtype == torch.bfloat16 else split_bf16x3_plain(w)
-    # [s][dx][dy * 3 + c][n], each column of taps padded from 9 to 10
-    k = F.pad(planes.permute(0, 2, 1, 3, 4).reshape(-1, 3, 9, FEAT),
-              (0, 0, 0, 1)).reshape(-1, 30, FEAT)
-    k = F.pad(k, (0, 0, 0, U8_K - 30))
-    return k.reshape(-1, U8_K // 8, 8, FEAT).permute(0, 1, 3, 2).contiguous()
+    # [s][dx][dy * cin + c][n], each column of taps padded to its slots
+    k = F.pad(planes.permute(0, 2, 1, 3, 4).reshape(-1, 3, 3 * cin, FEAT),
+              (0, 0, 0, slots - 3 * cin)).reshape(-1, 3 * slots, FEAT)
+    k = F.pad(k, (0, 0, 0, kp - 3 * slots))
+    return k.reshape(-1, kp // 8, 8, FEAT).permute(0, 1, 3, 2).contiguous()
 
 
 def pack_weights_bf16x3(w: torch.Tensor) -> torch.Tensor:
@@ -164,7 +194,12 @@ def pack_weights_bf16x3(w: torch.Tensor) -> torch.Tensor:
 # -- kernel wrappers ----------------------------------------------------------
 
 
-def _check(x: torch.Tensor, w: torch.Tensor, cin: int, in_dtype) -> None:
+def _check(x: torch.Tensor, w: torch.Tensor, cin: int, in_dtype,
+           in_channels=None) -> None:
+    """`cin`: the conv's input channels (the weights'); `in_channels`: the
+    input tensor's, where they differ (K3 at Cin 12 reads 3-channel
+    frames)."""
+    in_channels = cin if in_channels is None else in_channels
     if x.device.type != "cuda":
         raise ValueError(f"tensor on {x.device}: the kernel takes CUDA "
                          f"tensors (CPU tensors take the plain version)")
@@ -173,9 +208,9 @@ def _check(x: torch.Tensor, w: torch.Tensor, cin: int, in_dtype) -> None:
                         f"(float32, bfloat16)")
     if x.dtype != in_dtype:
         raise TypeError(f"input dtype {x.dtype}, expected {in_dtype}")
-    if x.dim() != 4 or x.shape[3] != cin:
+    if x.dim() != 4 or x.shape[3] != in_channels:
         raise ValueError(f"input shape {tuple(x.shape)}, expected "
-                         f"(B, H, W, {cin})")
+                         f"(B, H, W, {in_channels})")
     if tuple(w.shape) != (3, 3, cin, FEAT):
         raise ValueError(f"weight shape {tuple(w.shape)}, expected "
                          f"(3, 3, {cin}, {FEAT}) HWIO")
@@ -336,4 +371,28 @@ def conv3x3_u8_bias_prelu_q8(u8: torch.Tensor, w: torch.Tensor,
     _check(u8, w, 3, torch.uint8)
     y = _launch_u8("reve_conv3x3_u8_bias_prelu_q8", u8, w, b, alpha, inv)
     LAUNCHES["conv3x3_u8_bias_prelu_q8"] += 1
+    return y
+
+
+def conv3x3_u8x2_bias(u8: torch.Tensor, w: torch.Tensor,
+                      b: torch.Tensor) -> torch.Tensor:
+    """K3 at Cin 12: (B, 2H, 2W, 3) uint8 x (3, 3, 12, 64) HWIO in the
+    compute dtype -> dtype(conv(pixel_unshuffle(dtype(u8 / 255), 2)) + b)
+    (B, H, W, 64), the unshuffle read in place by the kernel.  Odd frame
+    dims are refused, as reve_tpu's pixel_unshuffle refuses them."""
+    if u8.device.type == "cpu":
+        return conv3x3_u8x2_bias_plain(u8, w, b)
+    if u8.dim() != 4 or u8.shape[1] % 2 or u8.shape[2] % 2:
+        raise ValueError(f"input shape {tuple(u8.shape)}: K3 at Cin 12 "
+                         f"takes (B, 2H, 2W, 3) frames of even dims")
+    _check(u8, w, 12, torch.uint8, in_channels=3)
+    B, H2, W2, _ = u8.shape
+    y = torch.empty((B, H2 // 2, W2 // 2, FEAT), dtype=w.dtype,
+                    device=u8.device)
+    # the kernel's PReLU at alpha 1: the identity
+    bb, aa = _bias_alpha(b, torch.ones(FEAT, device=u8.device), w.dtype,
+                         u8.device)
+    _launch(SOURCE, "reve_conv3x3_u8x2_bias", (u8, w, bb, aa), y,
+            (_DTYPE_CODE[w.dtype],))
+    LAUNCHES["conv3x3_u8x2_bias"] += 1
     return y

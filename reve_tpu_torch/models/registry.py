@@ -2,9 +2,12 @@
 
 Counterpart of reve_tpu/models/registry.py with the same names, search
 order, environment variables and MissingWeightsError gate.  SRVGG models
-and the x4 RRDB models with .pth weights are ported; `realesrgan-x2plus`
-(RRDB x2) and ncnn .param/.bin weights raise NotImplementedError naming
-their ROADMAP.md port-queue item.
+(.pth, or the reference's own ncnn .param/.bin files, weights/ncnn.py)
+and the RRDB models at x4 and x2 (.pth) are ported.  An ncnn file named
+for an RRDB model is refused (ncnn files hold SRVGG graphs; reve_tpu's
+RRDB loader reads .pth only).  RRDB x1, which no registered name
+selects, is refused where a config reaches the model
+(rrdb.check_cfg).
 
 The reference selects models by name string: the CLI hardcodes
 `realesr-animevideov3-x2` with the real ratio in `-s`
@@ -95,7 +98,7 @@ _SPECS = {
     "realesr-animevideov3-fast": ModelSpec(
         "srvgg", "realesr-animevideov3-fast", 64, 8, None),
     # upstream general model, S-size SRVGG (+ its weak-denoise twin for
-    # -dni interpolation, not ported yet)
+    # --denoise interpolation, weights/interpolate.py)
     "realesr-general-x4v3": ModelSpec("srvgg", "realesr-general-x4v3", 64, 32, 4),
     "realesr-general-wdn-x4v3": ModelSpec("srvgg", "realesr-general-wdn-x4v3", 64, 32, 4),
     # RRDBNet stretch models (BASELINE.json config #4)
@@ -106,18 +109,6 @@ _SPECS = {
     "realesrgan-x2plus": ModelSpec("rrdb", "RealESRGAN_x2plus", 64, 23, 2),
     "realesrnet-x4plus": ModelSpec("rrdb", "RealESRNet_x4plus", 64, 23, 4),
 }
-
-
-def unported(arch: str, upscale: Optional[int],
-             dtype: Optional[str] = None):
-    """(what, ROADMAP.md port-queue item) when the port does not carry a
-    model of `arch` at `upscale` (None: every scale) in `dtype` (a
-    --dtype name; None: any), else None.  The one place the CLI, the API
-    and the engine read it from: RRDB at x2 (its pixel-unshuffled
-    12-channel input), in every dtype."""
-    if arch == "rrdb" and upscale != 4:
-        return f"rrdb x{upscale}", "RRDB x2"
-    return None
 
 
 def list_models():
@@ -186,8 +177,10 @@ def load_model(name: str, scale: Optional[int] = None,
     """Resolve a model name (+ requested scale) to (cfg, params).
 
     Returns (SRVGGConfig, params) for srvgg archs and (RRDBConfig, params)
-    for the x4 rrdb archs, params as float32 CPU tensors.  RRDB x2 is not
-    ported yet (NotImplementedError).
+    for the rrdb archs, params as float32 CPU tensors.  SRVGG loads .pth
+    or ncnn .param/.bin (weights/ncnn.py); RRDB loads .pth only: an
+    explicit ncnn file is refused (ValueError), and one on the search path
+    is passed over, as reve_tpu's rrdb.load_model passes it over.
 
     Raises MissingWeightsError when no weights resolve, unless random init
     is explicitly allowed (`allow_random_init=True` or
@@ -196,11 +189,6 @@ def load_model(name: str, scale: Optional[int] = None,
     """
     spec, name_scale = parse_model_name(name)
     scale = scale or name_scale or 2
-    refusal = unported(spec.arch, spec.upscale)
-    if refusal is not None:
-        raise NotImplementedError(
-            f"model {name!r} ({refusal[0]}) is not yet ported in "
-            f"reve_tpu_torch (ROADMAP.md port queue: {refusal[1]})")
 
     stem = spec.canonical
     if spec.upscale is None:
@@ -218,10 +206,11 @@ def load_model(name: str, scale: Optional[int] = None,
 
     if spec.arch == "rrdb":
         if found is not None and found[0] == "ncnn":
-            raise NotImplementedError(
-                f"ncnn weights ({found[1]}) are not yet ported in "
-                f"reve_tpu_torch (ROADMAP.md port queue: ncnn/dni "
-                f"weights); pass a .pth")
+            if weights:
+                raise ValueError(
+                    f"ncnn weights ({found[1]}) hold SRVGG graphs only: "
+                    f"{name!r} is an RRDBNet and loads a .pth")
+            found = None  # passed over, as reve_tpu's rrdb.load_model does
         from reve_tpu_torch.models import rrdb
 
         return rrdb.load_model(spec, scale,
@@ -244,12 +233,13 @@ def load_model(name: str, scale: Optional[int] = None,
 
     kind, path = found
     if kind == "ncnn":
-        raise NotImplementedError(
-            f"ncnn weights ({path}) are not yet ported in reve_tpu_torch "
-            f"(ROADMAP.md port queue: ncnn/dni weights); pass a .pth")
-    from reve_tpu_torch.weights.torch_loader import load_srvgg_pth
+        from reve_tpu_torch.weights import ncnn
 
-    cfg, params = load_srvgg_pth(path)
+        cfg, params = ncnn.load_files(path, path[:-6] + ".bin")
+    else:
+        from reve_tpu_torch.weights.torch_loader import load_srvgg_pth
+
+        cfg, params = load_srvgg_pth(path)
     if cfg.upscale != scale:
         raise ValueError(
             f"weights at {path} are x{cfg.upscale} but x{scale} was requested"

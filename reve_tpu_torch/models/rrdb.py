@@ -11,13 +11,17 @@ Real-ESRGAN `RRDBNet`):
     RRDB: 3 RDBs chained, out*0.2 + x
 
 Layouts match reve_tpu: NHWC activations, HWIO weights, uint8 frames at
-the public boundary.  Only the classic domain at x4 is carried: reve_tpu's
-2D space-to-depth form is an MXU-width trick and exact, so the port is
-held against both of its modes; x2 (a pixel-unshuffled 12-channel input)
-is not ported (ROADMAP.md port queue: RRDB x2).
+the public boundary.  Only the classic domain is carried: reve_tpu's 2D
+space-to-depth form is an MXU-width trick and exact, so the port is held
+against both of its modes.  x4 and x2 are carried; x2 pixel-unshuffles
+its input by 2 (reve_tpu rrdb.py:192-193), so conv_first reads 12
+channels and the trunk runs at half the frame's height and width.  x1
+(unshuffled by 4, 48 channels) is in no registry name and is refused
+(ROADMAP.md port queue: RRDB x1).
 
 `apply` runs u8 -> u8 through the kernels of the path: K3 for conv_first
-(its PReLU at alpha 1 is the identity), K7 for every dense-block conv and
+(its PReLU at alpha 1 is the identity; at x2 K3 at Cin 12, which reads
+the unshuffle in place from the frame), K7 for every dense-block conv and
 conv_body with the step after it (one NHWC buffer of nf + 4 gc channels a
 pixel holds a dense block's concat, three of them rotate through an
 RRDB; in float32 each with its split planes beside it, written by the
@@ -151,20 +155,43 @@ def prepare(params: Params, compute_dtype: torch.dtype) -> Params:
     return out
 
 
-def _check_cfg(cfg: RRDBConfig) -> None:
-    if cfg.upscale != 4:
+def check_cfg(cfg: RRDBConfig) -> None:
+    """Raise for a config the port does not run (x1, x3, not RGB)."""
+    if cfg.upscale == 1:
         raise NotImplementedError(
-            f"RRDB x{cfg.upscale} (a pixel-unshuffled input) is not yet "
-            f"ported in reve_tpu_torch (ROADMAP.md port queue: RRDB x2)")
+            "RRDB x1 (an input pixel-unshuffled by 4) is not yet ported in "
+            "reve_tpu_torch (ROADMAP.md port queue: RRDB x1)")
+    if cfg.upscale not in (2, 4):
+        raise ValueError(f"RRDBNet upscales x1, x2 or x4, not "
+                         f"x{cfg.upscale}")
     if (cfg.num_in_ch, cfg.num_out_ch) != (3, 3):
         raise ValueError(f"RRDB takes and returns RGB frames, got "
                          f"{cfg.num_in_ch} -> {cfg.num_out_ch} channels")
 
 
+def conv_first(params: Params, u8: torch.Tensor, *, cfg: RRDBConfig,
+               compute_dtype: torch.dtype,
+               plain: bool = False) -> torch.Tensor:
+    """conv_first of (B, H, W, 3) uint8 frames in the compute dtype, no
+    activation: x4 on K3 (its PReLU at alpha 1, the identity), x2 on K3
+    at Cin 12 over the frames unshuffled by 2 (H and W even) -> (B, H/2,
+    W/2, nf); their plain versions with `plain`."""
+    cf = params["conv_first"]
+    w = cf["w"].to(compute_dtype)
+    if cfg.upscale == 2:
+        fn = conv3x3.conv3x3_u8x2_bias_plain if plain else \
+            conv3x3.conv3x3_u8x2_bias
+        return fn(u8, w, cf["b"])
+    fn = conv3x3.conv3x3_u8_bias_prelu_plain if plain else \
+        conv3x3.conv3x3_u8_bias_prelu
+    return fn(u8, w, cf["b"], torch.ones(cfg.num_feat, device=u8.device))
+
+
 def apply(params: Params, u8: torch.Tensor, *, cfg: RRDBConfig,
           compute_dtype: torch.dtype = torch.float32,
           plain: bool = False) -> torch.Tensor:
-    """Forward pass, u8 -> u8: (B, H, W, 3) uint8 -> (B, 4H, 4W, 3) uint8.
+    """Forward pass, u8 -> u8: (B, H, W, 3) uint8 -> (B, sH, sW, 3) uint8,
+    s = cfg.upscale (4, or 2 with H and W even).
 
     Equals the JAX engine's RRDB call (reve_tpu/pipeline/engine.py:426-429):
     `rrdb.apply(u8 / 255, s2d=...)`, then u8 = clip(y * 255 + 0.5, 0, 255)
@@ -179,17 +206,12 @@ def apply(params: Params, u8: torch.Tensor, *, cfg: RRDBConfig,
     are."""
     if u8.dtype != torch.uint8:
         raise TypeError(f"apply takes uint8 frames, got {u8.dtype}")
-    _check_cfg(cfg)
+    check_cfg(cfg)
     if len(params["body"]) != cfg.num_block:
         raise ValueError(f"params hold {len(params['body'])} RRDB blocks; "
                          f"cfg needs {cfg.num_block}")
     dt = compute_dtype
-    first = conv3x3.conv3x3_u8_bias_prelu_plain if plain else \
-        conv3x3.conv3x3_u8_bias_prelu
-    cf = params["conv_first"]
-    # conv_first has no activation: K3's PReLU at alpha 1 is the identity
-    feat = first(u8, cf["w"].to(dt), cf["b"],
-                 torch.ones(cfg.num_feat, device=u8.device))
+    feat = conv_first(params, u8, cfg=cfg, compute_dtype=dt, plain=plain)
     a, planes = dense_trunk(params, feat, cfg=cfg, compute_dtype=dt,
                             plain=plain)
     # feat + conv_body(body), written over feat
@@ -343,12 +365,13 @@ def _quant_into(dst: torch.Tensor, x: torch.Tensor,
 def apply_int8(params: Params, qbody: Dict[str, Any], u8: torch.Tensor, *,
                cfg: RRDBConfig, compute_dtype: torch.dtype = torch.bfloat16,
                plain: bool = False) -> torch.Tensor:
-    """int8 turbo forward, u8 -> u8: (B, H, W, 3) uint8 -> (B, 4H, 4W, 3)
-    uint8.  Equals reve_tpu's `rrdb.apply_int8(params, qbody, u8 / 255,
-    quantize_u8=True)` in its classic domain (its s2d form is exact in the
-    s8 convs):
+    """int8 turbo forward, u8 -> u8: (B, H, W, 3) uint8 -> (B, sH, sW, 3)
+    uint8, s = cfg.upscale.  Equals reve_tpu's `rrdb.apply_int8(params,
+    qbody, u8 / 255, quantize_u8=True)` in its classic domain (its s2d
+    form is exact in the s8 convs):
 
-      conv_first on K3 in the compute dtype (as `apply`); body =
+      conv_first on K3 (x2: K3 at Cin 12) in the compute dtype (as
+          `apply`); body =
           float32(feat) and its quantize with act_scale[0] as torch ops;
       every dense-block conv on K7q (kernels.rrdb.dense_conv_s8): s8 x
           s8 -> s32, dq = float32(y32) * sw + b, then lrelu_q for convs
@@ -372,7 +395,7 @@ def apply_int8(params: Params, qbody: Dict[str, Any], u8: torch.Tensor, *,
     the plain PyTorch version of every kernel wherever the tensors are."""
     if u8.dtype != torch.uint8:
         raise TypeError(f"apply_int8 takes uint8 frames, got {u8.dtype}")
-    _check_cfg(cfg)
+    check_cfg(cfg)
     n = cfg.num_block * 15 + 1
     if len(params["body"]) != cfg.num_block or \
             len(qbody["body"]) != cfg.num_block or \
@@ -383,8 +406,6 @@ def apply_int8(params: Params, qbody: Dict[str, Any], u8: torch.Tensor, *,
                          f"needs {cfg.num_block} and ({n},)")
     dt = compute_dtype
     nf, gc, cs = cfg.num_feat, cfg.num_grow_ch, cfg.dense_channels
-    first = conv3x3.conv3x3_u8_bias_prelu_plain if plain else \
-        conv3x3.conv3x3_u8_bias_prelu
     conv_s8 = dense.dense_conv_s8_plain if plain else dense.dense_conv_s8
 
     def conv(src, cin, q, i, epi, **kw):
@@ -394,9 +415,8 @@ def apply_int8(params: Params, qbody: Dict[str, Any], u8: torch.Tensor, *,
 
     dev = u8.device
     inv = 1.0 / qbody["act_scale"]  # float32, as `1.0 / scale`
-    cf = params["conv_first"]
-    feat = first(u8, cf["w"].to(dt), cf["b"], torch.ones(nf, device=dev))
-    B, H, W, _ = u8.shape
+    feat = conv_first(params, u8, cfg=cfg, compute_dtype=dt, plain=plain)
+    B, H, W, _ = feat.shape
     s8 = [torch.empty((B, H, W, cs), dtype=torch.int8, device=dev)
           for _ in range(2)]
     # chain[0]: the RRDB's input, then (in place) its output; chain[1],

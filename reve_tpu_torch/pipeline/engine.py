@@ -29,16 +29,19 @@ Counterpart of reve_tpu/pipeline/engine.py.  Design:
     and a 16-bit accumulate), and the 8th K6 writes the u8 mean that the
     one D2H copy reads (`TTAPendingBatch`).
 
-  * Two architectures: SRVGG (K3, K1, K2) and RRDBNet at x4 (K3, K7 for
-    the dense-block trunk, or K7q in int8, K1 for the up and hr convs,
-    K2's conv_last mode), each behind `_forward`, so tiling and TTA reach
-    both the same way.  RRDB's halo is reve_tpu's documented approximation (24 px; its
-    receptive field is far wider, so its tiles are not byte-identical to
-    whole frames), and its memory plan bills its own allocations
-    (`_rrdb_bytes`).
+  * Two architectures: SRVGG (K3, K1, K2) and RRDBNet at x4 and x2 (K3,
+    or at x2 K3 at Cin 12 over the unshuffled frame, K7 for the
+    dense-block trunk, or K7q in int8, K1 for the up and hr convs, K2's
+    conv_last mode), each behind `_forward`, so tiling and TTA reach both
+    the same way.  RRDB's halo is reve_tpu's documented approximation (24
+    px; its receptive field is far wider, so its tiles are not
+    byte-identical to whole frames), and its memory plan bills its own
+    allocations (`_rrdb_bytes`).  At x2 every window has even dims (even
+    frames, even tile and halo), as the unshuffle needs; odd ones raise,
+    as reve_tpu's pixel_unshuffle raises.
 
 Not ported yet (raises NotImplementedError naming its ROADMAP.md
-port-queue item): multi-device meshes, RRDB x2.
+port-queue item): multi-device meshes, RRDB x1.
 """
 
 from __future__ import annotations
@@ -234,10 +237,8 @@ class UpscaleEngine:
         self._rrdb = isinstance(cfg, rrdb.RRDBConfig)
         if not self._rrdb and not isinstance(cfg, srvgg.SRVGGConfig):
             raise TypeError(f"unknown model config {type(cfg).__name__}")
-        refusal = registry.unported("rrdb" if self._rrdb else "srvgg",
-                                    cfg.upscale, compute_dtype)
-        if refusal is not None:
-            raise _not_ported(*refusal)
+        if self._rrdb:
+            rrdb.check_cfg(cfg)  # x1 raises, naming its ROADMAP.md item
         self.cfg = cfg
         #: the float32 params that int8 calibration, quantization and
         #: certification read (None off int8)
@@ -294,9 +295,11 @@ class UpscaleEngine:
 
     def _rrdb_bytes(self, h: int, w: int,
                     dtype: Optional[torch.dtype] = None) -> int:
-        """Peak device bytes of one frame's activations in rrdb.apply (or,
-        on an int8 engine, apply_int8) in `dtype` (None: the engine's
-        compute dtype), the largest of its phases (float32 adds each conv
+        """Peak device bytes of one (h, w) frame's activations in
+        rrdb.apply (or, on an int8 engine, apply_int8) in `dtype` (None:
+        the engine's compute dtype), the largest of its phases, billed a
+        pixel of the trunk: (h, w) at x4, (h/2, w/2) at x2, whose up1 then
+        runs at (h, w) and up2/hr at (2h, 2w) (float32 adds each conv
         input's split planes):
           trunk   feat + three dense buffers of nf + 4 gc channels (+
                   their three split planes and feat's split while it is
@@ -307,7 +310,7 @@ class UpscaleEngine:
           up1     at 2x: the upsampled input and conv_up1's output (+ its
                   split);
           up2/hr  at 4x: a conv's input and output (+ its split), which
-                  peaks: 4096 B per input pixel in bfloat16 (and int8),
+                  peaks: 4096 B per trunk pixel in bfloat16 (and int8),
                   14,336 in float32.
         Each phase frees the last one's tensors before it allocates."""
         dtype = dtype or self.compute_dtype
@@ -316,7 +319,8 @@ class UpscaleEngine:
         nf = self.cfg.num_feat
         per_px = max(self._rrdb_trunk_bytes(dtype),
                      *(r * r * (2 * nf * bpe + nf * split) for r in (2, 4)))
-        return h * w * per_px
+        u = 4 // self.scale  # the unshuffle: 1 at x4, 2 at x2
+        return (h // u) * (w // u) * per_px
 
     def _rrdb_trunk_bytes(self, dtype: torch.dtype) -> int:
         """_rrdb_bytes' trunk phase, bytes a pixel (see there)."""
@@ -362,7 +366,8 @@ class UpscaleEngine:
 
     def _auto_tile(self, h: int, w: int, avail: int) -> int:
         """The largest tile whose window fits `avail` bytes (0: none):
-        fewest windows, so the least halo work."""
+        fewest windows, so the least halo work.  Even at x2, so that even
+        frames give even windows (the unshuffle's)."""
         lo, hi = 0, max(h, w)
         while lo < hi:
             mid = (lo + hi + 1) // 2
@@ -370,7 +375,7 @@ class UpscaleEngine:
                 lo = mid
             else:
                 hi = mid - 1
-        return lo
+        return lo - lo % 2 if self.scale == 2 and self._rrdb else lo
 
     def _does_not_fit(self, what: str, need: int, avail: int):
         return RuntimeError(

@@ -10,7 +10,9 @@ CLI's argparse namespace, or the API's own): they are saved in
 `state.opts` when the job starts, and a resume sets them back to the
 saved values, so that resumed segments go through the same weights,
 dtype, ensemble and container as the committed ones (the reference's
-resume contract, reve-cli/src/main.rs:92-101).  A workspace records the
+resume contract, reve-cli/src/main.rs:92-101): `--denoise` jobs restore
+their two weight files and strength, and a scene-aligned job its saved
+segment plan (`state.plan`).  A workspace records the
 package that started it (`state.opts["backend"]`); the port resumes only
 its own, so one output never mixes segments of two implementations.
 """
@@ -27,8 +29,12 @@ from reve_tpu_torch.pipeline.state import JobState, Workspace, repair_pending
 #: the package's stamp in state.opts["backend"]
 BACKEND = "reve_tpu_torch"
 #: the settings a job is started with and a resume restores
-RESTORED = ("weights", "dtype", "int8_calib", "tta", "io_backend",
-            "allow_random_init")
+RESTORED = ("weights", "weights_wdn", "denoise", "dtype", "int8_calib",
+            "tta", "io_backend", "allow_random_init")
+
+
+#: the refusal of --denoise without both weight files (reve_tpu's words)
+DENOISE_NEEDS = "--denoise requires --weights and --weights-wdn"
 
 
 class JobRefused(ValueError):
@@ -67,11 +73,11 @@ def missing_weights(model: str, scale: int, weights: Optional[str],
 def restore(ws: Workspace, state: JobState, settings, model: str,
             on_note: Optional[Callable[[str], None]] = None) -> JobState:
     """Resume `state` (loaded from `ws`): refuse a workspace another
-    package started, one of another model than `model` or one saved with
-    --denoise, set `settings` back to the saved ones (saying so through
-    `on_note` where the caller asked for others), recreate the workspace
-    keeping its parts and return the state with its pending segments
-    repaired."""
+    package started or one of another model than `model`, set `settings`
+    back to the saved ones (saying so through `on_note` where the caller
+    asked for others), recreate the workspace keeping its parts and
+    return the state with its pending segments repaired (from its saved
+    plan, which a scene-aligned job cannot re-derive)."""
     if state.opts.get("backend") != BACKEND:
         # the other package's segments (or calibration) must never be
         # joined to this one's in one output
@@ -85,14 +91,13 @@ def restore(ws: Workspace, state: JobState, settings, model: str,
         raise JobRefused(f"workspace holds progress for model "
                          f"{state.model!r}; resume with the same model or "
                          f"start fresh (remove {ws.root})")
-    if state.opts.get("denoise") is not None:
-        raise JobRefused("resuming a job saved with --denoise: not yet "
-                         "ported in reve_tpu_torch (ROADMAP.md port queue: "
-                         "ncnn/dni weights)")
     # state files from before these were saved ran without random-init
-    # opt-in only if they named weights, and without the ensemble
+    # opt-in only if they named weights, without the ensemble and without
+    # --denoise
     state.opts.setdefault("allow_random_init", not state.opts.get("weights"))
     state.opts.setdefault("tta", False)
+    state.opts.setdefault("weights_wdn", None)
+    state.opts.setdefault("denoise", None)
     for key in RESTORED:
         if key not in state.opts or getattr(settings, key) == state.opts[key]:
             continue
@@ -110,10 +115,13 @@ def restore(ws: Workspace, state: JobState, settings, model: str,
 
 
 def fresh(ws: Workspace, settings, *, input_path: str, output_path: str,
-          scale: int, segment_size: int, model: str,
-          encode: dict) -> JobState:
+          scale: int, segment_size: int, model: str, encode: dict,
+          scene_align: bool = False,
+          on_note: Optional[Callable[[str], None]] = None) -> JobState:
     """Probe the input and start a job: an empty workspace and the state
-    with its segment plan and `settings` saved."""
+    with its segment plan and `settings` saved.  `scene_align`: the plan's
+    boundaries snap to the scene cuts a pre-pass over the whole clip
+    finds (pipeline/scenes.py), said through `on_note`."""
     from reve_tpu_torch.io import probe
     from reve_tpu_torch.models import registry
 
@@ -122,7 +130,15 @@ def fresh(ws: Workspace, settings, *, input_path: str, output_path: str,
         raise JobRefused(f"could not determine frame count of "
                          f"{input_path!r}", code=1)
     fps = info.fps or Fraction(30, 1)
-    pending = plan_segments(info.frame_count, segment_size)
+    if scene_align:
+        from reve_tpu_torch.pipeline import scenes
+
+        pending = scenes.plan_for_video(input_path, settings.io_backend,
+                                        info, segment_size)
+        if on_note is not None:
+            on_note(f"scene-align: {len(pending)} segment(s) planned")
+    else:
+        pending = plan_segments(info.frame_count, segment_size)
     ws.create(keep_parts=False)
     opts = {key: getattr(settings, key) for key in RESTORED}
     # persist the random-init opt-in (argument or environment): a resume
@@ -153,16 +169,33 @@ def open_engine(ws: Workspace, state: JobState, settings, device, *,
                 tracer=None):
     """The job's engine at `settings`; `--dtype auto` resolves here (the
     resolved dtype is saved, so that a resume runs the same path) and
-    `settings.dtype` becomes it.  Returns (engine, int8 dB certified by
-    the auto rule or None)."""
+    `settings.dtype` becomes it.  With `settings.denoise` the engine runs
+    the weights interpolated from `settings.weights_wdn` and
+    `settings.weights` (weights/interpolate.py).  Returns (engine, int8 dB
+    certified by the auto rule or None)."""
     from reve_tpu_torch.pipeline import scheduler
     from reve_tpu_torch.pipeline.engine import UpscaleEngine
+
+    preloaded = None
+    if settings.denoise is not None:
+        from reve_tpu_torch.weights.interpolate import load_dni
+
+        if not (settings.weights and settings.weights_wdn):
+            raise JobRefused(DENOISE_NEEDS)
+
+        preloaded = load_dni(settings.weights_wdn, settings.weights,
+                             settings.denoise)
+        if preloaded[0].upscale != state.scale:
+            raise JobRefused(f"--denoise weights are "
+                             f"x{preloaded[0].upscale} but -s {state.scale} "
+                             f"was requested")
 
     def make_engine(dtype: str, int8_calib: str) -> UpscaleEngine:
         return UpscaleEngine(
             model=state.model, scale=state.scale, weights=settings.weights,
             batch_size=batch, tile=tile, compute_dtype=dtype,
             int8_calib=int8_calib, tta=settings.tta, device=device,
+            preloaded=preloaded,
             allow_random_init=settings.allow_random_init or None)
 
     if settings.dtype != "auto":

@@ -107,7 +107,7 @@ _LOAD = "    if (tid == 0 && next < g.count) {"
 _LOAD_WAIT = "    mbar_wait(bar + (it & 1) * 8, (it >> 1) & 1);"
 _NO_LOAD = [(_LOAD, "    if (false) {"),
             (_LOAD_WAIT, "    if (it == 0) mbar_wait(bar, 0);")]
-_U8_MMA = ("    mma_row<U::F32>(acc, cor, a_src, base + "
+_U8_MMA = ("    mma_row<U::F32, R>(acc, cor, a_src, base + "
            "(uint32_t)U::OFF_W);\n")
 _U8_EPI = ("    epilogue<T, TOut>(st, acc, cor, bi, al, al2, inv_s, pa, "
            "q);\n")
@@ -149,8 +149,8 @@ PATCHES = {
                         "  static constexpr int BLOCKS = 2;")],
     },
     conv3x3.SOURCE: {
-        "no_load": [("    if (tile + 2 * step < count)\n      fetch(",
-                     "    if (false)\n      fetch(")],
+        "no_load": [("    if (tile + 2 * step < count)\n      fetch<R>(",
+                     "    if (false)\n      fetch<R>(")],
         "no_mma": [(_U8_MMA, "    for (int i = 0; i < 32; ++i) acc[i] = "
                     "cor[i] = it;\n")],
         "no_epi": [(_U8_EPI, "    if (acc[0] == 0.5f) smem[0] = 1;\n"),
@@ -158,8 +158,8 @@ PATCHES = {
     },
 }
 # K3 and K4a at one block fewer and one more on each SM than they run
-_U8_BLOCKS = ("  static constexpr int BLOCKS = F32 ? (Q8 ? 3 : 2) : (Q8 ? 6 : "
-              "4);")
+_U8_BLOCKS = ("      R == 1 ? (F32 ? (Q8 ? 3 : 2) : (Q8 ? 6 : 4)) : (F32 ? 2 "
+              ": 3);")
 PATCHES[conv3x3.SOURCE]["fewer_blocks"] = [(_U8_BLOCKS, _U8_BLOCKS.replace(
     "(Q8 ? 3 : 2) : (Q8 ? 6 : 4)", "(Q8 ? 2 : 1) : (Q8 ? 5 : 3)"))]
 PATCHES[conv3x3.SOURCE]["more_blocks"] = [(_U8_BLOCKS, _U8_BLOCKS.replace(

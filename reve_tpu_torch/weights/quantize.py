@@ -130,7 +130,8 @@ def collect_act_maxima_rrdb(params: Dict[str, Any], u8: torch.Tensor, *,
     uint8 frames: (num_block * 15 + 1,) |activation| statistics in
     reve_tpu's layout (per block, per dense block: its input, h1..h4;
     then conv_body's input).  The forward is rrdb.apply's trunk in
-    float32: K3 for conv_first, K7 for the dense convs (their plain
+    float32: K3 for conv_first (x2: K3 at Cin 12), K7 for the dense
+    convs (their plain
     versions on the CPU, or with `plain=True`); `params` float32, or
     rrdb.prepare(params, torch.float32) (K7's weights packed once).
 
@@ -139,16 +140,13 @@ def collect_act_maxima_rrdb(params: Dict[str, Any], u8: torch.Tensor, *,
     buffer, made contiguous, so the percentile's strided subsample reads
     the reference's elements."""
     nf = cfg.num_feat
-    first = conv3x3.conv3x3_u8_bias_prelu_plain if plain else \
-        conv3x3.conv3x3_u8_bias_prelu
     stats = []
 
     def observe(buf, lo, hi):
         stats.append(_stat(buf[..., lo:hi].contiguous(), percentile))
 
-    cf = params["conv_first"]
-    feat = first(u8, cf["w"].float(), cf["b"],
-                 torch.ones(nf, device=u8.device))
+    feat = rrdb.conv_first(params, u8, cfg=cfg, compute_dtype=torch.float32,
+                           plain=plain)
     a, _planes = rrdb.dense_trunk(params, feat, cfg=cfg,
                                   compute_dtype=torch.float32, plain=plain,
                                   observe=observe)

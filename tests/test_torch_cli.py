@@ -249,13 +249,20 @@ def test_api_resumes_a_cli_tta_job_with_its_settings(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("saved,match", [
-    ({"backend": None}, "started by another implementation"),
-    ({"denoise": 0.5}, "denoise.*ROADMAP"),
+    pytest.param({"backend": None}, "started by another implementation",
+                 id="saved0-started by another implementation"),
+    # (its id from before --denoise was ported, when the CLI refused to
+    # resume it; the CLI resumes a --denoise job now, and refuses this
+    # one, saved without --weights-wdn, as reve_tpu's CLI does)
+    pytest.param({"denoise": 0.5}, "started with --denoise",
+                 id="saved1-denoise.*ROADMAP"),
 ])
 def test_api_refuses_the_resumes_the_cli_refuses(tmp_path, monkeypatch,
                                                  saved, match):
-    """A workspace another package started, or one saved with --denoise,
-    is refused by the API as by the CLI, and left as it was."""
+    """A workspace another package started, or one saved with --denoise
+    (the API has no denoise argument, as in reve_tpu), is refused by the
+    API, and by the CLI (the --denoise one lacks --weights-wdn), and left
+    as it was."""
     from reve_tpu_torch import api
 
     monkeypatch.chdir(tmp_path)
@@ -277,12 +284,15 @@ def test_api_refuses_the_resumes_the_cli_refuses(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    ({"mesh": object()}, NotImplementedError, "multi-GPU"),
-    ({"scene_align": True}, NotImplementedError, "scene-aligned"),
-    ({"model": "realesrgan-x2plus"}, NotImplementedError, "RRDB"),
-    ({"weights": "m.param"}, NotImplementedError, "ncnn"),
-    ({"compile_attempts": 2}, ValueError, "no counterpart"),
-    ({"device": 7}, ValueError, "out of range"),
+    # (ids as before scene_align, realesrgan-x2plus and ncnn weights left
+    # this list: tests/test_torch_scenes.py, test_torch_rrdb_x2.py and
+    # test_torch_weights.py run them through the API)
+    pytest.param({"mesh": object()}, NotImplementedError, "multi-GPU",
+                 id="kw0-NotImplementedError-multi-GPU"),
+    pytest.param({"compile_attempts": 2}, ValueError, "no counterpart",
+                 id="kw4-ValueError-no counterpart"),
+    pytest.param({"device": 7}, ValueError, "out of range",
+                 id="kw5-ValueError-out of range"),
 ])
 def test_api_refuses_what_the_cli_refuses(tmp_path, kw, err, match):
     from reve_tpu_torch import api
@@ -449,13 +459,14 @@ def test_cli_refuses_to_resume_a_reve_tpu_workspace(tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("extra", [
     pytest.param(extra, id=f"extra{i}") for i, extra in (
-        # (ids as before --tta, extra0, and --tile 64, extra5, left)
-        # int8 of RRDB x4 is ported; of RRDB x2 it is not
-        (1, ["--dtype", "int8", "--model", "realesrgan-x2plus"]),
-        (2, ["--lease-stale-after", "5"]), (3, ["--denoise", "0.5"]),
+        # (ids as before --tta, extra0, and --tile 64, extra5, left, and
+        # realesrgan-x2plus in int8 and bf16, extra1 and extra9,
+        # --denoise, extra3, and --scene-align, extra7: their features
+        # are held by tests/test_torch_rrdb_x2.py, test_torch_weights.py
+        # and test_torch_scenes.py)
+        (2, ["--lease-stale-after", "5"]),
         (4, ["--shard-worker", "w0"]), (6, ["--device", "0,1"]),
-        (7, ["--scene-align"]), (8, ["--compile-attempts", "2"]),
-        (9, ["--model", "realesrgan-x2plus"]))])
+        (8, ["--compile-attempts", "2"]))])
 def test_unported_flags_exit_2(tmp_path, monkeypatch, capsys, extra):
     monkeypatch.chdir(tmp_path)
     inp = _input(tmp_path, frames=1)
@@ -512,8 +523,8 @@ def test_list_models(capsys):
     out = capsys.readouterr().out
     assert "realesr-animevideov3" in out
     rows = {ln.split()[0]: ln for ln in out.splitlines() if ln.strip()}
-    # the x4 RRDB models are ported; x2plus (RRDB x2) is not
+    # every registered model is ported, RRDB at x2 too
     for name in ("realesrgan-x4plus", "realesrgan-x4plus-anime",
-                 "realesrnet-x4plus"):
-        assert "(not ported)" not in rows[name]
-    assert "(not ported)" in rows["realesrgan-x2plus"]
+                 "realesrnet-x4plus", "realesrgan-x2plus"):
+        assert "[rrdb, x" in rows[name] and "(not ported)" not in rows[name]
+    assert "[rrdb, x2]" in rows["realesrgan-x2plus"]

@@ -94,18 +94,29 @@ def test_engine_raises_without_cuda(monkeypatch):
     assert device_mod.resolve_device("cpu") == torch.device("cpu")
 
 
+def _rrdb_x1():
+    """An RRDBNet x1 (its input unshuffled by 4: conv_first reads 48
+    channels), 1 block: the one RRDB scale the port refuses."""
+    from reve_tpu_torch.models import rrdb
+
+    cfg = rrdb.RRDBConfig(num_block=1, upscale=1)
+    return cfg, rrdb.init_params(cfg)
+
+
 @pytest.mark.parametrize("kw,item", [
-    # int8 is ported, RRDB's at x4 too; int8 of RRDB x2 still raises
-    pytest.param({"compute_dtype": "int8", "model": "realesrgan-x2plus",
-                  "scale": 2}, "RRDB x2", id="kw0-int8"),
+    # int8 is ported, RRDB's at x4 and x2 too; RRDB x1 raises, in int8
+    # too (until RRDB x2 was ported these two cases held its refusal)
+    pytest.param({"compute_dtype": "int8", "preloaded": "x1"}, "RRDB x1",
+                 id="kw0-int8"),
     # (ids as before tiling and TTA left this list)
     pytest.param({"mesh": object()}, "multi-GPU", id="kw3-multi-GPU"),
-    pytest.param({"model": "realesrgan-x2plus", "scale": 2}, "RRDB",
-                 id="kw4-RRDB"),
+    pytest.param({"preloaded": "x1"}, "RRDB", id="kw4-RRDB"),
 ])
 def test_unported_modes_raise(kw, item):
     base = dict(device="cpu", allow_random_init=True)
     base.update(kw)
+    if base.get("preloaded") == "x1":
+        base["preloaded"] = _rrdb_x1()
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         UpscaleEngine(**base)
 

@@ -55,6 +55,11 @@ ragged shapes and batches.  The engine's halo tiles are byte-identical to
 its whole frames on the card in bfloat16, float32 and int8 (the kernels
 compute each output pixel by the same sum wherever it sits), and its TTA
 ensemble equals the manual one and is exactly dihedral-equivariant.
+K3 at Cin 12 (RRDB x2's conv_first, csrc/conv3x3.cu at R = 2): at K3's
+tolerances in both dtypes, at its tile edges on even frames, and it
+refuses odd ones; the RRDB x2 model on the card against its plain path
+(float32 u8 |d| <= 1, bfloat16 >= 50 dB, int8 u8 |d| <= 1), and its
+engine's halo windows byte-identical to the windows run whole.
 """
 
 import numpy as np
@@ -783,15 +788,72 @@ def test_u8_conv_wrappers_refuse_and_no_cuda_core_form_is_left():
     lib = build.load(conv3x3.SOURCE)
     assert hasattr(lib, "reve_conv3x3_u8_bias_prelu")
     assert hasattr(lib, "reve_conv3x3_u8_bias_prelu_q8")
+    assert hasattr(lib, "reve_conv3x3_u8x2_bias")
     assert not hasattr(lib, "reve_conv3x3_bias_prelu")
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", build.build_info[
         conv3x3.SOURCE]["path"]], check=True, capture_output=True,
         text=True).stdout
     kernels = re.split(r"\n\s*Function : ", sass)[1:]
-    assert len(kernels) == 4  # K3 and K4a, each in both compute dtypes
+    # K3, K4a and K3 at Cin 12, each in both compute dtypes
+    assert len(kernels) == 6
     for k in kernels:  # (a CUDA-core conv would be thousands of FFMA)
         assert "HGMMA" in k and k.count("FFMA") < 8, k.split()[0]
+
+
+#: (B, 2H, 2W) frames of K3 at Cin 12: a lone trunk pixel, ragged tiles,
+#: a whole tile's row (64 trunk pixels), a row and a column past it, and
+#: the x2 trunk's 540 rows, ragged against the trunk's 8-row K7 tiles
+U8X2_SHAPES = [(1, 2, 2), (3, 2 * 19, 2 * 45), (2, 16, 128),
+               (1, 2 * 5, 2 * 65), (1, 1080, 1920)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", U8X2_SHAPES, ids=str)
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_u8x2_conv_kernel_matches_plain_at_tile_edges(name, shape):
+    """K3 at Cin 12 (RRDB x2's conv_first, the 2x2 unshuffle read in place
+    from the u8 frames: a tile's halo is 6 u8 rows of 132 pixels) against
+    its plain version, in both compute dtypes."""
+    dev = _cuda()
+    B, H2, W2 = shape
+    rs = np.random.RandomState(H2 + W2)
+    u8 = torch.from_numpy(rs.randint(0, 256, (B, H2, W2, 3), np.uint8)).to(
+        dev)
+    w = torch.from_numpy(rs.uniform(-0.3, 0.3, (3, 3, 12, 64)).astype(
+        np.float32)).to(dev, DTYPES[name])
+    b = torch.from_numpy(rs.uniform(-0.1, 0.1, 64).astype(np.float32)).to(
+        dev)
+    before = LAUNCHES["conv3x3_u8x2_bias"]
+    got = conv3x3.conv3x3_u8x2_bias(u8, w, b)
+    want = conv3x3.conv3x3_u8x2_bias_plain(u8, w, b)
+    torch.cuda.synchronize()
+    assert got.shape == (B, H2 // 2, W2 // 2, 64)
+    assert got.dtype == DTYPES[name]
+    _close(got, want, name)
+    assert LAUNCHES["conv3x3_u8x2_bias"] == before + 1
+
+
+@pytest.mark.cuda
+def test_u8x2_conv_wrapper_refuses_odd_dims_and_bad_operands():
+    """K3 at Cin 12 refuses odd frame dims (as reve_tpu's unshuffle
+    does), 3-channel weights and non-u8 frames, and launches nothing."""
+    dev = _cuda()
+    before = dict(LAUNCHES)
+    w = torch.zeros((3, 3, 12, 64), device=dev)
+    f = torch.zeros(64, device=dev)
+    for hw in ((5, 8), (4, 7)):
+        with pytest.raises(ValueError, match="even dims"):
+            conv3x3.conv3x3_u8x2_bias(
+                torch.zeros((1, *hw, 3), dtype=torch.uint8, device=dev), w,
+                f)
+    u8 = torch.zeros((1, 4, 8, 3), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="expected"):
+        conv3x3.conv3x3_u8x2_bias(u8, w[:, :, :3].contiguous(), f)
+    with pytest.raises(TypeError):
+        conv3x3.conv3x3_u8x2_bias(u8.float(), w, f)
+    torch.cuda.synchronize()
+    assert LAUNCHES == before
 
 
 @pytest.mark.cuda
@@ -1252,6 +1314,83 @@ def test_rrdb_model_kernels_match_plain(name):
     else:
         mse = (d.double() ** 2).mean().item()
         assert 10 * np.log10(255.0 ** 2 / max(mse, 1e-12)) >= 50.0
+
+
+def _rrdb_x2_small(num_block=2, seed=0):
+    """_rrdb_small at x2: conv_first reads the 12 unshuffled channels."""
+    cfg = rrdb.RRDBConfig(num_block=num_block, upscale=2)
+    base = _rrdb_small(num_block, seed)[1]
+    first = rrdb.init_params(cfg, torch.Generator().manual_seed(seed))
+    return cfg, dict(base, conv_first=dict(first["conv_first"],
+                                           b=base["conv_first"]["b"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_rrdb_x2_model_kernels_match_plain(name):
+    """RRDB x2 through K3 at Cin 12, K7 (on a trunk of 27 x 35, ragged
+    against its 8-row tiles), K1 x 3 and the conv_last mode against its
+    plain path on the card: float32 u8 |d| <= 1; bfloat16 >= 50 dB
+    against the plain float32 path; int8 u8 |d| <= 1 against its plain
+    path."""
+    dev = _cuda()
+    dt = DTYPES[name]
+    cfg, params = _rrdb_x2_small()
+    params = rrdb.params_to(params, dev)
+    u8 = torch.from_numpy(np.random.RandomState(4).randint(
+        0, 256, (2, 54, 70, 3), np.uint8)).to(dev)
+    before = dict(LAUNCHES)
+    got = rrdb.apply(rrdb.prepare(params, dt), u8, cfg=cfg, compute_dtype=dt)
+    torch.cuda.synchronize()
+    n = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    assert (n["conv3x3_u8x2_bias"], n["conv3x3_u8_bias_prelu"],
+            n["dense_conv"], n["conv3x3_bias_prelu"], n["conv_last_u8"]) \
+        == (1, 0, 15 * cfg.num_block + 1, 3, 1)
+    ref = rrdb.apply(params, u8, cfg=cfg, compute_dtype=torch.float32,
+                     plain=True)
+    assert got.shape == ref.shape == (2, 108, 140, 3)
+    d = (got.int() - ref.int()).abs()
+    if name == "float32":
+        assert d.max().item() <= 1
+        maxima = quantize.collect_maxima(params, u8, cfg=cfg)
+        qb = quantize.build_qbody(params, cfg, maxima, margin=1.25)
+        got8 = rrdb.apply_int8(params, rrdb.prepare_qbody(qb), u8, cfg=cfg)
+        want8 = rrdb.apply_int8(params, qb, u8, cfg=cfg, plain=True)
+        assert (got8.int() - want8.int()).abs().max().item() <= 1
+    else:
+        mse = (d.double() ** 2).mean().item()
+        assert 10 * np.log10(255.0 ** 2 / max(mse, 1e-12)) >= 50.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8"])
+def test_rrdb_x2_engine_windows_are_byte_identical_to_whole_frames(dtype):
+    """RRDB x2 through the engine's halo tiles (tile 16 at halo 24 on
+    2 x 40 x 88 frames: windows of 40 x 64, even, as the unshuffle needs)
+    on the card: byte-identical to each window run alone as a whole frame
+    on a whole-frame engine (the kernels sum each output pixel the same
+    way wherever it sits), in each dtype (int8 with the whole-frame
+    engine's calibration)."""
+    from reve_tpu_torch.ops import tiling
+
+    _cuda()
+    cfg, params = _rrdb_x2_small()
+    frames = np.random.RandomState(12).randint(0, 256, (2, 40, 88, 3),
+                                               np.uint8)
+    kw = dict(compute_dtype=dtype, batch_size=2, preloaded=(cfg, params))
+    whole = UpscaleEngine(tile=-1, **kw)
+    tiled = UpscaleEngine(tile=16, **kw)
+    if dtype == "int8":
+        whole.calibrate_int8(frames)
+        tiled.set_calibration(whole.get_calibration())
+    got = tiled.upscale_frames(frames)
+    assert tiled._plans[(40, 88)].tile == 16
+    with whole._on_device():
+        want = tiling.upscale_tiled(
+            whole._forward, torch.from_numpy(frames).cuda(), scale=2,
+            tile=16, halo=whole.halo, chunk=1).cpu().numpy()
+    assert got.shape == want.shape == (2, 80, 176, 3)
+    assert np.array_equal(got, want)
 
 
 @pytest.mark.cuda

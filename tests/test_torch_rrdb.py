@@ -57,10 +57,11 @@ torch.set_num_threads(2)
 BF16_PSNR_MARGIN_DB = 1.0
 
 
-def _jparams(num_block, seed=0, biased=False):
-    """(jax cfg, jax params) at nf 64, gc 32, x4: reve_tpu's init, with
-    seeded biases on every conv when `biased`."""
-    cfg = jrrdb.RRDBConfig(num_block=num_block)
+def _jparams(num_block, seed=0, biased=False, upscale=4):
+    """(jax cfg, jax params) at nf 64, gc 32, x4 (or `upscale`: x2 reads
+    12 channels): reve_tpu's init, with seeded biases on every conv when
+    `biased`."""
+    cfg = jrrdb.RRDBConfig(num_block=num_block, upscale=upscale)
     params = jrrdb.init_params(jax.random.key(seed), cfg)
     if biased:
         rs = np.random.RandomState(seed + 100)
@@ -174,8 +175,8 @@ def test_apply_kernel_path_equals_plain_on_cpu_and_prepare_is_free():
         assert torch.equal(a, b) and torch.equal(a, c)
         assert "packed" not in prepared["conv_body"]  # packs on CUDA only
         assert prepared["conv_hr"]["w"].dtype == dt
-    with pytest.raises(NotImplementedError, match="RRDB x2"):
-        rrdb.apply(params, u8, cfg=dataclasses.replace(cfg, upscale=2))
+    with pytest.raises(NotImplementedError, match="RRDB x1"):
+        rrdb.apply(params, u8, cfg=dataclasses.replace(cfg, upscale=1))
 
 
 # -- K7's epilogues, conv_last, the leaky ReLU --------------------------------
@@ -439,22 +440,22 @@ def test_registry_names_and_refusals(monkeypatch, tmp_path):
         assert isinstance(cfg, rrdb.RRDBConfig)
         assert (cfg.num_block, cfg.upscale, cfg.num_feat) == (blocks, 4, 64)
         assert len(params["body"]) == blocks
-        spec = registry.parse_model_name(name)[0]
-        # every dtype is ported at x4, int8 included (rrdb.apply_int8)
-        for dtype in (None, "auto", "float32", "bfloat16", "int8"):
-            assert registry.unported(spec.arch, spec.upscale, dtype) is None
-    # the one place the CLI, the API and the engine read the refusals
-    # from: x2 stays refused in every dtype
-    assert registry.unported("rrdb", 2)[1] == "RRDB x2"
-    assert registry.unported("rrdb", 2, "int8")[1] == "RRDB x2"
-    assert registry.unported("srvgg", 4, "int8") is None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*RRDB x2"):
-        registry.load_model("realesrgan-x2plus", 2, allow_random_init=True)
+        rrdb.check_cfg(cfg)
+    # x4 and x2 are ported (in every dtype: the int8 path runs the same
+    # configs), x1 (no registered name) stays refused where a config
+    # reaches the model, the engine or the CLI
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*RRDB x1"):
+        rrdb.check_cfg(dataclasses.replace(cfg, upscale=1))
+    cfg, params = registry.load_model("realesrgan-x2plus", 2,
+                                      allow_random_init=True)
+    assert (cfg.upscale, cfg.num_block) == (2, 23)
+    assert tuple(params["conv_first"]["w"].shape) == (3, 3, 12, 64)
     monkeypatch.delenv("REVE_TPU_ALLOW_RANDOM_INIT", raising=False)
     with pytest.raises(registry.MissingWeightsError,
                        match="RealESRGAN_x4plus"):
         registry.load_model("realesrgan-x4plus", 4)
-    with pytest.raises(NotImplementedError, match="ncnn"):
+    # ncnn files hold SRVGG graphs: an explicit one for an RRDB refuses
+    with pytest.raises(ValueError, match="ncnn"):
         registry.load_model("realesrgan-x4plus", 4, weights="m.param")
 
 
@@ -507,7 +508,8 @@ def test_engine_matches_jax_engine(mode):
 
 def test_engine_refuses_rrdb_int8_and_x2():
     """RRDB int8 is ported: the engine builds it (bfloat16 float parts,
-    the float32 weights kept for its measurement passes); RRDB x2 stays
+    the float32 weights kept for its measurement passes); RRDB x2 is
+    ported too, in int8 as well (tests/test_torch_rrdb_x2.py); x1 stays
     refused, in int8 too."""
     jcfg, jp = _jparams(1)
     eng = UpscaleEngine(device="cpu", compute_dtype="int8",
@@ -517,9 +519,9 @@ def test_engine_refuses_rrdb_int8_and_x2():
     cfg, params = _port(jcfg, jp)
     for dtype in ("bfloat16", "int8"):
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md.*RRDB x2"):
+                           match="ROADMAP.md.*RRDB x1"):
             UpscaleEngine(device="cpu", compute_dtype=dtype, preloaded=(
-                dataclasses.replace(cfg, upscale=2), params))
+                dataclasses.replace(cfg, upscale=1), params))
 
 
 def _gpu_plan(engine, monkeypatch, free_bytes):

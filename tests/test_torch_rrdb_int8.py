@@ -472,7 +472,9 @@ def test_cli_rrdb_int8_resume_and_gate(tmp_path, monkeypatch, capsys,
     its persisted calibration and certificate, byte-identical to the
     uninterrupted run, and so is the same job through
     upscale_video(dtype="int8"); --int8-gate above the certificate exits
-    3 and leaves no workspace; realesrgan-x2plus still exits 2."""
+    3 and leaves no workspace; realesrgan-x2plus with a 1-block x2 .pth
+    runs the same int8 job at x2 (until RRDB x2 was ported it exited
+    2)."""
     monkeypatch.chdir(tmp_path)
     inp = _y4m(tmp_path)
     job = JOB + ["--weights", rrdb_pth]
@@ -512,11 +514,16 @@ def test_cli_rrdb_int8_resume_and_gate(tmp_path, monkeypatch, capsys,
                    device="cpu") == 3
     assert "refusing" in capsys.readouterr().err
     assert not os.path.exists(gated + ".revework")
-    x2 = [a if a != "realesrgan-x4plus" else "realesrgan-x2plus"
-          for a in job]
-    assert cli.run(["-i", inp, str(tmp_path / "x2.y4m")] + x2,
-                   device="cpu") == 2
-    assert "RRDB x2" in capsys.readouterr().err
+    _, jp2 = _jparams(1, seed=5, biased=True, upscale=2)
+    pth2 = str(tmp_path / "rrdb1_x2.pth")
+    _save_upstream_pth(pth2, jp2)
+    x2 = [{"realesrgan-x4plus": "realesrgan-x2plus", "4": "2",
+           rrdb_pth: pth2}.get(a, a) for a in job]
+    out2 = str(tmp_path / "x2.y4m")
+    assert cli.run(["-i", inp, out2] + x2, device="cpu") == 0
+    assert "path: int8 turbo (" in capsys.readouterr().err
+    rd = reader.Y4MReader(out2)
+    assert (rd.width, rd.height, rd.frame_count()) == (40, 32, 3)
 
 
 def test_auto_dtype_still_resolves_rrdb_to_bf16():

@@ -135,8 +135,11 @@ def test_registry_resolves_the_same_weights(monkeypatch):
     with pytest.raises(registry.MissingWeightsError,
                        match="REVE_TPU_ALLOW_RANDOM_INIT"):
         registry.load_model("realesr-general-x4v3", 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.load_model("realesrgan-x2plus", 2, allow_random_init=True)
+    # an RRDB model beside them: x2plus resolves no weights here and runs
+    # on random init only when allowed
+    with pytest.raises(registry.MissingWeightsError,
+                       match="RealESRGAN_x2plus"):
+        registry.load_model("realesrgan-x2plus", 2)
 
 
 def test_init_params_is_seeded_by_generator():
