@@ -20,7 +20,8 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               both IGMMA and HGMMA, and no library any __dp4a (IDP.4A) or
               mma.sync (HMMA, IMMA); float32 conv_last's library
               (conv_last_f32.cu, float32 FMAs) must hold FFMA and spill
-              nothing;
+              nothing, and so must T1-T3's (conv3x3_train.cu), FFMA in
+              each of its 27 kernels;
   3. kernels  K3, K1 and K2 at the main path's shapes (1080p frames, a
               batch of 4, x4), all on the tensor cores, in bfloat16
               (conv3x3.cu, conv3x3_tc.cu) and float32 (as six bf16
@@ -184,7 +185,37 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               state.json is plan_segments_aligned over detect_cuts' cuts
               ([10]), unlike the fixed plan, and the output file equals
               the unaligned job's byte for byte;
- 13. probe    P1, the tensor-core dot-rate probe (wgmma), through
+ 13. train    training on the card, at realesr-animevideov3 x4's full
+              width (64 features, 16 convs), LR patches of 64 x 64 in
+              batches of 8: T1, T2 and T3 (csrc/conv3x3_train.cu, float32
+              FMAs) at every channel pair they take (Cin 3, 64, 128 x
+              Cout 48, 64, 128) on seeded inputs, each against its plain
+              version (max |d| <= 1e-5 x max |ref|, T3 5e-5: its sums
+              run over the step's 32,768 pixels), timed beside it,
+              cuDNN's call of the same function (library_ms: F.conv2d,
+              aten.convolution_backward; TF32 off) and its bound (float32
+              operations on the CUDA cores; beside it, as bound_ms_bf16x6,
+              the same operations as six bf16 products on the tensor
+              cores), with a step's sums of each; a fine-tune of the
+              shipped x4 model through train.Trainer, 20 steps of
+              train.data.batches_from_video over the main job's y4m (HR
+              patches of 256), the counters zeroed around it (per step
+              T1 18, T2 17, T3 18), each step's loss within 1e-4
+              relative of the same 20 steps on the plain versions on the
+              card and the final params within 1e-6 of theirs, element
+              by element and in relative l2 (at most 16 elements whose
+              plain-path gradient sits at float32's noise level within 2
+              lr a step instead);
+              the first 5 steps twice on the kernels, bit for bit; the
+              median step's ms and LR patches a second; a distillation
+              of x4 into realesr-animevideov3-fast's shape (64
+              features, 8 convs)
+              from its shipped weights, 20 steps (per step T1 18 + 10,
+              T2 9, T3 10), agreement_psnr before and after, the
+              student saved with save_srvgg_pth, loaded back through
+              registry.load_model, and one engine batch of the frames on
+              it byte-identical to the engine on the in-memory params;
+ 14. probe    P1, the tensor-core dot-rate probe (wgmma), through
               `python -m reve_tpu_torch.scripts.perf_int8_dot`'s main at
               its shapes: per call at 64 loops timed free of the host's
               launch cost (the calls queued behind a sleep kernel, so that
@@ -200,7 +231,8 @@ JSON line; any failure exits non-zero (no phase catches and continues):
 
 The line before the last is nvidia-smi's name and power limit; before
 that, one JSON object {"kernels": [...]} with each kernel's launches on
-its path (main, int8, tta, rrdb, rrdb_int8, rrdb_x2 or probe), error
+its path (main, int8, tta, rrdb, rrdb_int8, rrdb_x2, train's fine-tune or
+probe), error
 (and, for u8 and s8 outputs,
 n_diff: the values that differ from the plain version's; the model
 kernels' error on the transposed batch under "transposed"), times, bound
@@ -1745,23 +1777,6 @@ def write_ncnn(path: str, cfg, params, fp16: bool) -> str:
     return path + ".param"
 
 
-def save_srvgg_pth(path: str, params) -> str:
-    """SRVGG params as an upstream-keyed .pth ({"params": body.<i>.*},
-    OIHW), which torch_loader.load_srvgg_pth reads back."""
-    import torch
-
-    sd, i = {}, 0
-    for n, c in enumerate(params["convs"]):
-        sd[f"body.{i}.weight"] = c["w"].permute(3, 2, 0, 1).contiguous().cpu()
-        sd[f"body.{i}.bias"] = c["b"].cpu()
-        i += 1
-        if n < len(params["prelus"]):
-            sd[f"body.{i}.weight"] = params["prelus"][n]["alpha"].cpu()
-            i += 1
-    torch.save({"params": sd}, path)
-    return path
-
-
 def encode_y4m(path: str, frames: np.ndarray) -> bytes:
     """frames through the y4m writer the jobs use; the file's bytes."""
     from reve_tpu_torch.io import writer
@@ -2007,7 +2022,8 @@ def weights_phase(work: str, frames, weights: str) -> None:
     from reve_tpu_torch.io import reader
     from reve_tpu_torch.pipeline.engine import UpscaleEngine
     from reve_tpu_torch.weights import interpolate, ncnn
-    from reve_tpu_torch.weights.torch_loader import load_srvgg_pth
+    from reve_tpu_torch.weights.torch_loader import (load_srvgg_pth,
+                                                     save_srvgg_pth)
 
     # ncnn .param/.bin weights (the shipped .pth written out with fp16
     # and fp32 tags) and --denoise, each a job on 2 of the frames
@@ -2067,7 +2083,8 @@ def weights_phase(work: str, frames, weights: str) -> None:
             rs.standard_normal(tuple(c["w"].shape)).astype(np.float32))),
             "b": c["b"]} for c in params_c["convs"]],
             "prelus": params_c["prelus"]}
-        wdn = save_srvgg_pth(os.path.join(work, "wdn.pth"), twin)
+        wdn = os.path.join(work, "wdn.pth")
+        save_srvgg_pth(wdn, cfg_c, twin)
         out_d = job("denoise", ["--weights", weights, "--weights-wdn",
                                 wdn, "--denoise", "0.5"])
         n_diff_d = file_n_diff(out_d, engine_file(
@@ -2125,6 +2142,375 @@ def scenes_phase(work: str, weights: str) -> None:
                    n_diff_vs_unaligned=n_diff_s)
 
 
+#: the train phase: realesr-animevideov3 x4 at its full width (64
+#: features, 16 convs), LR patches of 64 x 64 in batches of 8 (the
+#: defaults of reve_tpu's scripts/distill.py), HR patches of 256
+TRAIN_STEPS, TRAIN_REPEAT_STEPS, TRAIN_BATCH, TRAIN_LR_PATCH = 20, 5, 8, 64
+#: T1-T3 against their plain versions: max |d| <= this x max |ref|, float32
+#: sums in another order: T1's and T2's over at most 1,728 taps x
+#: channels, T3's over a step's 32,768 pixels (19x longer: its rounding
+#: error, a random walk, grows about 4.4x)
+TRAIN_KERNEL_REL = {"conv3x3_fwd_train": 1e-5, "conv3x3_dgrad": 1e-5,
+                    "conv3x3_wgrad": 5e-5}
+#: each fine-tune step's loss on the kernels against the plain path's
+TRAIN_LOSS_RTOL = 1e-4
+#: the final params of the two paths: every element within
+#: TRAIN_PARAM_ATOL and the whole within TRAIN_PARAM_REL_L2 (relative
+#: l2), about 15x the readings on an H100 (6.6e-8 and 5.9e-8); a zeroed or
+#: sign-flipped weight gradient moves a leaf by about lr (1e-4) a step.
+#: Adam moves an element by up to about 1.2 lr a step whatever the
+#: gradient's size (its |m^ / sqrt(v^)| bound at b1 0.9, b2 0.999), so an
+#: element whose plain-path gradient fell below 1e-6 of its leaf's
+#: largest in some step (float32's noise level: the paths sum it in other
+#: orders and its sign may differ) is held to 2 lr a step instead, and at
+#: most TRAIN_PARAM_LOOSE of them may need it
+TRAIN_PARAM_ATOL, TRAIN_PARAM_REL_L2, TRAIN_PARAM_LOOSE = 1e-6, 1e-6, 16
+TRAIN_NOISE_REL = 1e-6
+TRAIN_KERNELS = ("conv3x3_fwd_train", "conv3x3_dgrad", "conv3x3_wgrad")
+FAST_MODEL = "realesr-animevideov3-fast"
+
+
+def train_launches(cfg, steps: int, teacher_convs: int = 0) -> dict:
+    """T1, T2 and T3 launches of `steps` steps of an SRVGG of cfg's
+    depth, with (distillation) a teacher of `teacher_convs` convs whose
+    forward runs T1 alone."""
+    n = cfg.num_conv + 2
+    return {"conv3x3_fwd_train": steps * (n + teacher_convs),
+            "conv3x3_dgrad": steps * (n - 1), "conv3x3_wgrad": steps * n}
+
+
+def train_kernel_phase(per_step: dict) -> dict:
+    """T1, T2 and T3 at every channel pair they take, on a step's shapes
+    (8 LR patches of 64 x 64) with seeded inputs: each against its plain
+    version (max |d| / max |ref|), timed beside it, cuDNN's call of the
+    same function (TF32 off: F.conv2d, and aten.convolution_backward for
+    the input and the weight gradients) and the card's bound.  The
+    numbers at the top of each kernel's entry are the hidden conv's (64
+    -> 64, 16 of a step's 18 convs); `step_ms` and `step_bound_ms` sum a
+    step's launches (`per_step`: first 3 -> 64, 16 x 64 -> 64, head 64 ->
+    48) at their pairs' times and bounds.  `bound_ms` is float32 FMAs on
+    the CUDA cores (the kernels' route); `bound_ms_bf16x6` the card's best
+    float32-accurate rate, six bf16 products on the tensor cores."""
+    import torch
+    import torch.nn.functional as F
+
+    from reve_tpu_torch import device as device_mod
+    from reve_tpu_torch.kernels import train
+
+    device_mod.strict_f32()
+    dev = torch.device("cuda", 0)
+    B = TRAIN_BATCH
+    H = W = TRAIN_LR_PATCH
+    npix = B * H * W
+    res = {k: {"pairs": {}} for k in TRAIN_KERNELS}
+    bad = []
+    for cin in train.CINS:
+        for cout in train.COUTS:
+            rs = np.random.RandomState(1000 * cin + cout)
+            bound = 1.0 / np.sqrt(9 * cin)
+
+            def t(a):
+                return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+            x = t(rs.rand(B, H, W, cin) * 2 - 0.5)
+            w = t(rs.uniform(-bound, bound, (3, 3, cin, cout)))
+            b = t(rs.uniform(-0.1, 0.1, (cout,)))
+            a = None if cout == 48 else t(rs.uniform(0.05, 0.4, (cout,)))
+            dz = t(rs.randn(B, H, W, cout) * 1e-3)
+            zp = rs.randn(B, H, W, cin)
+            zp[rs.rand(B, H, W, cin) < 0.05] = 0.0  # PReLU's tie
+            zp = t(zp)
+            ap = t(rs.uniform(0.05, 0.4, (cin,)))
+            xl = x.permute(0, 3, 1, 2)  # channels-last views for cuDNN
+            dzl = dz.permute(0, 3, 1, 2)
+            wl = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+
+            def lib_bwd(mask):
+                return lambda: torch.ops.aten.convolution_backward(
+                    dzl, xl, wl, [cout], [1, 1], [1, 1], [1, 1], False,
+                    [0, 0], 1, mask)
+
+            f4 = 4
+            weights = 9 * cin * cout * f4
+            macs = 9 * cin * cout * npix
+            cases = {
+                # the head (Cout 48) as the model runs it: no PReLU, no z
+                "conv3x3_fwd_train": (
+                    lambda: train.conv3x3_fwd_train(x, w, b, a),
+                    lambda: train.conv3x3_fwd_train_plain(x, w, b, a),
+                    lambda: F.conv2d(xl, wl, b, padding=1),
+                    npix * cin * f4 + weights + 2 * cout * f4
+                    + npix * cout * f4 * (1 if a is None else 2),
+                    2 * macs),
+                "conv3x3_dgrad": (
+                    lambda: train.conv3x3_dgrad(dz, w, zp, ap),
+                    lambda: train.conv3x3_dgrad_plain(dz, w, zp, ap),
+                    lib_bwd([True, False, False]),
+                    npix * cout * f4 + weights + 2 * npix * cin * f4
+                    + 2 * cin * f4, 2 * macs),
+                "conv3x3_wgrad": (
+                    lambda: train.conv3x3_wgrad(x, dz),
+                    lambda: train.conv3x3_wgrad_plain(x, dz),
+                    lib_bwd([False, True, True]),
+                    npix * (cin + cout) * f4 + weights + cout * f4,
+                    2 * macs + npix * cout),
+            }
+            for name, (fn, plain, lib, nbytes, flops) in cases.items():
+                got = [v for v in fn() if v is not None]
+                want = [v for v in plain() if v is not None]
+                err = max(float((g - r).abs().max())
+                          for g, r in zip(got, want))
+                ref = max(float(r.abs().max()) for r in want)
+                if not err <= TRAIN_KERNEL_REL[name] * ref:
+                    bad.append(f"{name} {cin} -> {cout}: max |d| {err} > "
+                               f"{TRAIN_KERNEL_REL[name]} x max |ref| "
+                               f"{ref}")
+                bms, by = bound_ms(nbytes, flops, "float32")
+                res[name]["pairs"][f"{cin}x{cout}"] = {
+                    "max_abs_err": err, "max_rel_err": err / ref,
+                    "ms": cuda_time_ms(fn, 20),
+                    "plain_ms": cuda_time_ms(plain, 20),
+                    "library_ms": library_time_ms(lib, 20),
+                    "bound_ms": bms, "bound_by": by,
+                    "bound_ms_bf16x6": bound_ms(nbytes, 6 * flops,
+                                                "bfloat16")[0],
+                    "shape": [B, H, W, cin, cout]}
+            del x, w, b, a, dz, zp, ap, xl, dzl, wl
+    if bad:
+        raise AssertionError("; ".join(bad))
+    for name, r in res.items():
+        p = r["pairs"]
+        r.update(p["64x64"])
+        steps = {"conv3x3_dgrad": {"64x64": 16, "64x48": 1}}.get(
+            name, {"3x64": 1, "64x64": 16, "64x48": 1})
+        assert sum(steps.values()) == per_step[name]
+        r["launches_per_step"] = per_step[name]
+        r["step_ms"] = sum(n * p[k]["ms"] for k, n in steps.items())
+        r["step_bound_ms"] = sum(n * p[k]["bound_ms"]
+                                 for k, n in steps.items())
+        r["step_bound_ms_bf16x6"] = sum(n * p[k]["bound_ms_bf16x6"]
+                                        for k, n in steps.items())
+        r["step_library_ms"] = sum(n * p[k]["library_ms"]
+                                   for k, n in steps.items()) \
+            if all(p[k]["library_ms"] for k in steps) else None
+    return res
+
+
+def train_batches(path: str) -> list:
+    """TRAIN_STEPS (lr, hr) batches of train.data.batches_from_video over
+    the y4m at `path` (every frame; HR patches of 256, LR 64, batches of
+    8), the seed stepped each time the clip runs out of patches."""
+    from reve_tpu_torch.train import data
+
+    out = []
+    seed = 0
+    while len(out) < TRAIN_STEPS:
+        dc = data.DataConfig(scale=SCALE, patch=TRAIN_LR_PATCH * SCALE,
+                             batch=TRAIN_BATCH, seed=seed)
+        out += list(data.batches_from_video(path, dc, frame_stride=1))
+        seed += 1
+    return out[:TRAIN_STEPS]
+
+
+def run_steps(tr, batches) -> tuple:
+    """Each batch one Trainer step (which ends in its loss's read);
+    (losses, the median step's seconds).  The median leaves out the first
+    step's one-time costs (the first launch of each op, the allocator)."""
+    import torch
+
+    torch.cuda.synchronize()
+    losses, secs = [], []
+    for lr, hr in batches:
+        t0 = time.perf_counter()
+        losses.append(tr.step(lr, hr))
+        secs.append(time.perf_counter() - t0)
+    return losses, float(np.median(secs))
+
+
+def noisy_gradients(tr, batches) -> list:
+    """Per leaf of `tr.params`, the elements whose gradient falls below
+    TRAIN_NOISE_REL of the leaf's largest in some step of `batches`, read
+    before each of those steps is taken on `tr`."""
+    import torch
+
+    from reve_tpu_torch.train import trainer
+
+    masks = [torch.zeros_like(p, dtype=torch.bool)
+             for p in trainer.leaves(tr.params)]
+    for lr, hr in batches:
+        loss = trainer.loss_fn(tr.params, tr.to_device(lr),
+                               tr.to_device(hr), cfg=tr.cfg,
+                               loss=tr.tc.loss, plain=tr.plain)
+        grads = torch.autograd.grad(loss, trainer.leaves(tr.params))
+        for m, g in zip(masks, grads):
+            m |= g.abs() < TRAIN_NOISE_REL * g.abs().max()
+        tr.step(lr, hr)
+    return masks
+
+
+def train_phase(work: str, inp: str, frames, weights: str) -> tuple:
+    """Phase train (see the module docstring).  Returns T1-T3's results
+    and the fine-tune's launch counts."""
+    import torch
+
+    from reve_tpu_torch import kernels
+    from reve_tpu_torch.models import registry, srvgg
+    from reve_tpu_torch.pipeline.engine import UpscaleEngine
+    from reve_tpu_torch.train import distill, trainer
+    from reve_tpu_torch.weights.torch_loader import (load_srvgg_pth,
+                                                     save_srvgg_pth)
+
+    with phase("train", {"batch": TRAIN_BATCH, "lr_patch": TRAIN_LR_PATCH,
+                         "steps": TRAIN_STEPS}) as rec:
+        cfg, params = load_srvgg_pth(weights)
+        per_step = train_launches(cfg, 1)
+        results = train_kernel_phase(per_step)
+        batches = train_batches(inp)
+        tc = trainer.TrainConfig()
+        # fine-tune: the shipped x4 model, 20 steps on the kernels, the
+        # counters zeroed just before and read just after
+        tr = trainer.Trainer(cfg, tc, params=params, device="cuda")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        losses, step_s = run_steps(tr, batches)
+        launches = dict(kernels.LAUNCHES)
+        want = train_launches(cfg, TRAIN_STEPS)
+        if any(launches[k] != n for k, n in want.items()):
+            raise AssertionError(f"fine-tune launches {launches}, expected "
+                                 f"{want}")
+        # the same steps on the plain versions, on the card
+        trp = trainer.Trainer(cfg, tc, params=params, device="cuda",
+                              plain=True)
+        losses_p, step_s_p = run_steps(trp, batches)
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, losses_p)]
+        if not (all(np.isfinite(losses)) and max(rel) <= TRAIN_LOSS_RTOL):
+            raise AssertionError(f"fine-tune losses {losses} against the "
+                                 f"plain path's {losses_p}: relative "
+                                 f"{max(rel)} > {TRAIN_LOSS_RTOL}")
+        d = [(a - b).detach().abs() for a, b in zip(trainer.leaves(tr.params),
+                                          trainer.leaves(trp.params))]
+        # the plain path again, reading which elements' gradients sit at
+        # float32's noise level
+        noisy = noisy_gradients(trainer.Trainer(
+            cfg, tc, params=params, device="cuda", plain=True), batches)
+        p_max = max(float(x.max()) for x in d)
+        p_max_held = max(float(torch.where(m, 0.0, x).max())
+                         for x, m in zip(d, noisy))
+        loose = sum(int((x > TRAIN_PARAM_ATOL).sum()) for x in d)
+        loose_bound = 2 * tc.learning_rate * TRAIN_STEPS
+        p_rel = float(torch.sqrt(sum((x * x).sum() for x in d)) / torch.sqrt(
+            sum((p.detach() ** 2).sum() for p in trainer.leaves(trp.params))))
+        if not (p_max_held <= TRAIN_PARAM_ATOL and loose <= TRAIN_PARAM_LOOSE
+                and p_max <= loose_bound and p_rel <= TRAIN_PARAM_REL_L2):
+            raise AssertionError(
+                f"fine-tune params against the plain path's: max |d| "
+                f"{p_max_held} over elements with a gradient above noise "
+                f"(bound {TRAIN_PARAM_ATOL}), {loose} elements beyond it "
+                f"(at most {TRAIN_PARAM_LOOSE}), max |d| {p_max} (bound "
+                f"{loose_bound}), relative l2 {p_rel} (bound "
+                f"{TRAIN_PARAM_REL_L2})")
+        n_noisy = sum(int(m.sum()) for m in noisy)
+        del noisy
+        # the first steps twice on the kernels: bit for bit
+        reps = []
+        for _ in range(2):
+            t = trainer.Trainer(cfg, tc, params=params, device="cuda")
+            reps.append((run_steps(t, batches[:TRAIN_REPEAT_STEPS])[0],
+                         trainer.leaves(t.params)))
+        same = reps[0][0] == reps[1][0] == losses[:TRAIN_REPEAT_STEPS] and \
+            all(torch.equal(a, b) for a, b in zip(reps[0][1], reps[1][1]))
+        if not same:
+            raise AssertionError(f"{TRAIN_REPEAT_STEPS} steps twice: "
+                                 f"losses {reps[0][0]} and {reps[1][0]} "
+                                 f"(the 20-step run's {losses[:5]})")
+        del tr, trp, reps, d
+        # distillation: teacher x4 (16 convs) into realesr-animevideov3-
+        # fast's shape (64 features, 8 convs) from its shipped weights
+        scfg, sparams = load_srvgg_pth(os.path.join(
+            ROOT, "models", f"{FAST_MODEL}-x{SCALE}.pth"))
+        assert (scfg.num_feat, scfg.num_conv, scfg.upscale) == (64, 8, SCALE)
+        dist = distill.Distiller(cfg, params, scfg, tc=tc, device="cuda",
+                                 student_params=sparams)
+        probe_lr = batches[0][0]
+        agree_before = dist.agreement_psnr(probe_lr)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        secs = []
+
+        def timed(it):
+            for b in it:
+                t0 = time.perf_counter()
+                yield b
+                secs.append(time.perf_counter() - t0)
+
+        hist = distill.run_distillation(
+            dist, timed((lr, None) for lr, _ in batches),
+            distill.DistillConfig(steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                                  patch=TRAIN_LR_PATCH, log_every=0))
+        launches_d = dict(kernels.LAUNCHES)
+        want_d = train_launches(scfg, TRAIN_STEPS, cfg.num_conv + 2)
+        if len(hist) != TRAIN_STEPS or not all(np.isfinite(hist)) or any(
+                launches_d[k] != n for k, n in want_d.items()):
+            raise AssertionError(f"distillation: {len(hist)} steps, losses "
+                                 f"{hist}, launches {launches_d} (expected "
+                                 f"{want_d})")
+        agree_after = dist.agreement_psnr(probe_lr)
+        # the student as product weights: .pth, the registry, the engine
+        student = os.path.join(work, "student.pth")
+        exported = trainer.params_on(dist.trainer.export_params(), "cpu",
+                                     False)
+        save_srvgg_pth(student, scfg, exported)
+        cfg_l, params_l = registry.load_model(FAST_MODEL, SCALE,
+                                              weights=student)
+        if cfg_l != scfg or not all(torch.equal(a, b) for a, b in zip(
+                trainer.leaves(params_l), trainer.leaves(exported))):
+            raise AssertionError("the student's .pth did not load back to "
+                                 "its params")
+        ys = [UpscaleEngine(compute_dtype="bfloat16", batch_size=BATCH,
+                            preloaded=pre).upscale_frames(frames[:BATCH])
+              for pre in ((scfg, exported), (cfg_l, params_l))]
+        n_diff = int((ys[0] != ys[1]).sum())
+        if ys[0].shape != (BATCH, H * SCALE, W * SCALE, 3) or n_diff != 0:
+            raise AssertionError(f"student engine batch {ys[0].shape}: "
+                                 f"n_diff {n_diff} between the .pth and "
+                                 f"the in-memory params")
+        rec.update(
+            kernels={k: {"ms": v["ms"], "bound_ms": v["bound_ms"],
+                         "bound_ms_bf16x6": v["bound_ms_bf16x6"],
+                         "step_ms": v["step_ms"],
+                         "step_bound_ms": v["step_bound_ms"],
+                         "step_bound_ms_bf16x6": v["step_bound_ms_bf16x6"],
+                         "step_library_ms": v["step_library_ms"],
+                         "max_rel_err": max(p["max_rel_err"] for p in
+                                            v["pairs"].values())}
+                     for k, v in results.items()},
+            finetune={"launches": launches, "losses": losses,
+                      "losses_plain": losses_p,
+                      "max_loss_rel_diff": max(rel),
+                      "loss_rtol": TRAIN_LOSS_RTOL,
+                      "params_max_abs_diff": p_max,
+                      "params_max_abs_diff_above_noise": p_max_held,
+                      "params_atol": TRAIN_PARAM_ATOL,
+                      "params_beyond_atol": loose,
+                      "params_beyond_atol_max": TRAIN_PARAM_LOOSE,
+                      "params_noisy_gradient": n_noisy,
+                      "params_rel_l2_diff": p_rel,
+                      "params_rel_l2_bound": TRAIN_PARAM_REL_L2,
+                      "repeat_identical": same,
+                      "ms_per_step": 1e3 * step_s,
+                      "plain_ms_per_step": 1e3 * step_s_p,
+                      "lr_patches_per_s": TRAIN_BATCH / step_s},
+            distill={"launches": launches_d, "losses": hist,
+                     "agreement_db_before": agree_before,
+                     "agreement_db_after": agree_after,
+                     "ms_per_step": 1e3 * float(np.median(secs)),
+                     "n_diff_pth_vs_params": n_diff})
+        del dist, ys
+        torch.cuda.empty_cache()
+    return results, launches
+
+
 def main() -> int:
     import torch
 
@@ -2139,7 +2525,7 @@ def main() -> int:
     from reve_tpu_torch import cli, kernels
     from reve_tpu_torch.io import reader, writer
     from reve_tpu_torch.kernels import (build, conv3x3, conv3x3_s8,
-                                        dot_probe, head)
+                                        dot_probe, head, train)
     from reve_tpu_torch.kernels import rrdb as k7
     from reve_tpu_torch.models import registry, rrdb, srvgg
     from reve_tpu_torch.pipeline.engine import UpscaleEngine
@@ -2207,6 +2593,17 @@ def main() -> int:
         if not last["sass_ops"].get("FFMA") or last["spill_bytes"] != 0:
             raise AssertionError(f"{head.LAST_F32_SOURCE}: {last}, expected "
                                  f"FFMA and no spills")
+        # T1-T3 likewise: FFMA in each of the three kernels' every channel
+        # pair, and no spill
+        by_k = sass_ops(info[train.SOURCE]["path"])["by_kernel"]
+        for form in ("fwd_kernel", "dgrad_kernel", "wgrad_kernel"):
+            ks = [o for k, o in by_k.items() if form in k]
+            if len(ks) != 9 or not all(o.get("FFMA") for o in ks):
+                raise AssertionError(f"{train.SOURCE}: {form}: {ks}, "
+                                     f"expected FFMA in each of 9")
+        if rec["sources"][train.SOURCE]["spill_bytes"] != 0:
+            raise AssertionError(f"{train.SOURCE}: spills "
+                                 f"{rec['sources'][train.SOURCE]}")
 
     weights = os.path.join(ROOT, "models", "realesr-animevideov3-x4.pth")
     cfg, params = load_srvgg_pth(weights)
@@ -2674,6 +3071,7 @@ def main() -> int:
         k3x2, engines_x, x2_launches = x2_phase(work, in4, frames)
         weights_phase(work, frames, weights)
         scenes_phase(work, weights)
+        train_res, train_launched = train_phase(work, inp, frames, weights)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2721,6 +3119,17 @@ def main() -> int:
         "conv3x3_u8x2_bias": (
             "reve_tpu_torch/kernels/csrc/conv3x3.cu",
             "reve_tpu/models/rrdb.py:192"),
+        # the training convs: XLA's conv and the two convs jax autodiff
+        # derives from it under value_and_grad
+        "conv3x3_fwd_train": (
+            "reve_tpu_torch/kernels/csrc/conv3x3_train.cu",
+            "reve_tpu/models/srvgg.py:88"),
+        "conv3x3_dgrad": (
+            "reve_tpu_torch/kernels/csrc/conv3x3_train.cu",
+            "reve_tpu/train/trainer.py:66"),
+        "conv3x3_wgrad": (
+            "reve_tpu_torch/kernels/csrc/conv3x3_train.cu",
+            "reve_tpu/train/trainer.py:66"),
     }
     # each kernel's numbers and its launches on the path that runs it: the
     # bf16 main job, the int8 job, or the probe script
@@ -2738,12 +3147,14 @@ def main() -> int:
         "conv_last_u8": ("bfloat16", rrdb_launches),
         "dense_conv_s8": ("int8", rrdb8_launches),
         "conv3x3_u8x2_bias": ("bfloat16", x2_launches),
+        **{k: ("float32", train_launched) for k in TRAIN_KERNELS},
     }
     # every model conv and P1 run on wgmma, the split pass on CUDA cores;
     # the float32 forms of K1, K2 and K3 run on wgmma as six bf16 products
     # (K1's and K2's after their split pass)
     designs = {"split_bf16x3": "elementwise",
-               "tta_accumulate": "smem_transpose"}
+               "tta_accumulate": "smem_transpose",
+               **{k: "fma_f32" for k in TRAIN_KERNELS}}
     f32_forms = {
         "conv3x3_u8_bias_prelu": ("reve_tpu_torch/kernels/csrc/conv3x3.cu",
                                   "wgmma_bf16x6"),
@@ -2794,6 +3205,13 @@ def main() -> int:
                          k3x2["float32"], source=src, route="cuda",
                          replaces=replaces, design="wgmma_bf16x6",
                          launches=engines_x["float32"]["launches"][name])}
+        elif name in TRAIN_KERNELS:
+            # the hidden conv's numbers, every channel pair under "pairs"
+            nums = train_res[name]
+            extra = {key: nums[key] for key in (
+                "pairs", "launches_per_step", "step_ms", "step_bound_ms",
+                "bound_ms_bf16x6", "step_bound_ms_bf16x6",
+                "step_library_ms", "max_rel_err")}
         elif name == "dense_conv_s8":
             nums = k7q_results
             extra = {key: nums[key] for key in ("forms", "call_ms",

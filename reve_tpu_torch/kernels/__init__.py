@@ -34,6 +34,12 @@
                                               the u8 mean)
     P1  dot_probe.dot_loop                    s8/bf16 dot-rate probe on
                                               wgmma (not on a model path)
+    T1  train.conv3x3_fwd_train               training: conv3x3 + PReLU
+                                              forward, z kept
+    T2  train.conv3x3_dgrad                   training: the input gradient
+                                              + PReLU' and d(alpha)
+    T3  train.conv3x3_wgrad                   training: the weight and
+                                              bias gradients
 
 K1, K2 (both dtypes), K7, K4 and K4h run on the tensor cores as
 implicit-GEMM `wgmma` kernels with TMA halo loads: bfloat16 K1 and K2 in
@@ -54,7 +60,8 @@ only: it stages tiles of the transformed output through shared memory
 (csrc/tta.cu).  float32 conv_last (N = 3, where wgmma's operand reads,
 not its math, would set the pace) sums float32 FMAs on the CUDA cores
 over its input read once by TMA, with no split pass
-(csrc/conv_last_f32.cu).
+(csrc/conv_last_f32.cu).  T1-T3, the training path's convs, are float32
+implicit GEMMs on the CUDA cores (csrc/conv3x3_train.cu).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback.  `LAUNCHES` counts
@@ -79,6 +86,9 @@ LAUNCHES = {
     "head_conv_s8_residual_u8_shuffle": 0,
     "tta_accumulate": 0,
     "dot_loop": 0,
+    "conv3x3_fwd_train": 0,
+    "conv3x3_dgrad": 0,
+    "conv3x3_wgrad": 0,
 }
 
 

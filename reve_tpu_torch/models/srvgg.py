@@ -19,7 +19,9 @@ is held against both of its modes.
 first conv, K1 each hidden conv, K2 the head with its epilogue); on CPU
 tensors each kernel wrapper runs its plain PyTorch version, and
 `plain=True` runs the plain versions on any device (the reference path).
-`apply_int8` is the int8 turbo path on K4a, K4 and K4h.
+`apply_int8` is the int8 turbo path on K4a, K4 and K4h.  `apply_float`
+is the float32 forward that training differentiates, on T1 (and, under
+autograd, T2 and T3 in the backward).
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from reve_tpu_torch.kernels import conv3x3, conv3x3_s8, head
+from reve_tpu_torch.kernels import conv3x3, conv3x3_s8, head, train
+from reve_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 
 #: floor for bf16-vs-f32 PSNR (dB, 8-bit scale) of the model's u8 output:
 #: the repo's 50 dB quality gate (BASELINE.md).  tests/test_torch_srvgg.py
@@ -149,6 +152,25 @@ def apply(params: Params, u8: torch.Tensor, *, cfg: SRVGGConfig,
         h = hidden(h, convs[i + 1]["w"].to(dt), convs[i + 1]["b"],
                    prelus[i + 1]["alpha"])
     return last(h, convs[-1]["w"].to(dt), convs[-1]["b"], u8, cfg.upscale)
+
+
+def apply_float(params: Params, x: torch.Tensor, *, cfg: SRVGGConfig,
+                plain: bool = False) -> torch.Tensor:
+    """float32 forward, (B, H, W, 3) in [0, 1] -> (B, H*r, W*r, 3) float32,
+    not clipped: reve_tpu's `srvgg.apply(params, x, cfg=cfg,
+    compute_dtype=float32)` (quantize_u8=False), the function its trainer
+    differentiates.  The conv stack runs through kernels.train.conv_stack
+    (differentiable in the params), then pixel_shuffle(h + repeat(x, r^2))
+    in float32 as torch ops."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"apply_float takes float32 input, got {x.dtype}")
+    convs = params["convs"]
+    if len(convs) != cfg.num_conv + 2:
+        raise ValueError(f"params hold {len(convs)} convs; cfg needs "
+                         f"{cfg.num_conv + 2}")
+    r = cfg.upscale
+    h = train.conv_stack(x, params, plain=plain)
+    return pixel_shuffle(h + x.repeat_interleave(r * r, dim=-1), r)
 
 
 def apply_int8(params: Params, qbody, u8: torch.Tensor, *, cfg: SRVGGConfig,

@@ -9,6 +9,10 @@ dict under 'params' with keys:
     body.1.weight                    PReLU alpha
     body.2.weight / body.2.bias ...  alternating conv / prelu
     body.<2*(num_conv+1)>.weight     last conv
+
+`save_srvgg_pth` writes that layout back: how weights trained or
+distilled by the port (reve_tpu_torch/train) become product weights, and
+how they pass to and from reve_tpu, whose loader reads the same file.
 """
 
 from __future__ import annotations
@@ -66,3 +70,27 @@ def load_srvgg_pth(path: str):
         upscale=r,
     )
     return cfg, {"convs": convs, "prelus": prelus}
+
+
+def save_srvgg_pth(path: str, cfg, params) -> None:
+    """(SRVGGConfig, params) -> realesr-compatible .pth, the inverse of
+    load_srvgg_pth and the same file as reve_tpu's save_srvgg_pth: convs
+    back to OIHW under the alternating body.<i> numbering, the state dict
+    under 'params'."""
+    convs, prelus = params["convs"], params["prelus"]
+    if len(convs) != cfg.num_conv + 2 or len(prelus) != cfg.num_conv + 1:
+        raise ValueError(
+            f"params shape mismatch: {len(convs)} convs/{len(prelus)} "
+            f"prelus vs cfg num_conv={cfg.num_conv}")
+
+    def cpu(t):
+        return t.detach().to("cpu", torch.float32)
+
+    sd = {}
+    for i, c in enumerate(convs):
+        sd[f"body.{2 * i}.weight"] = cpu(c["w"]).permute(3, 2, 0,
+                                                         1).contiguous()
+        sd[f"body.{2 * i}.bias"] = cpu(c["b"]).clone()
+        if i < len(prelus):
+            sd[f"body.{2 * i + 1}.weight"] = cpu(prelus[i]["alpha"]).clone()
+    torch.save({"params": sd}, path)

@@ -60,6 +60,14 @@ tolerances in both dtypes, at its tile edges on even frames, and it
 refuses odd ones; the RRDB x2 model on the card against its plain path
 (float32 u8 |d| <= 1, bfloat16 >= 50 dB, int8 u8 |d| <= 1), and its
 engine's halo windows byte-identical to the windows run whole.
+T1-T3 (csrc/conv3x3_train.cu, the training path's float32 convs on the
+CUDA cores) at every channel pair they take, on a ragged pixel count:
+max |d| <= 1e-5 of the plain version's largest |value| (float32 sums in
+another order, up to 1,728 taps x channels or every pixel of the batch),
+with z exactly 0 at some pixels (PReLU' = (1 + alpha) / 2 there); T3
+bit-identical run to run; the conv stack's gradients on the kernels
+against torch autograd through F.conv2d on a 2-conv model, at the same
+tolerance.
 """
 
 import numpy as np
@@ -67,7 +75,7 @@ import pytest
 import torch
 
 from reve_tpu_torch.kernels import (LAUNCHES, conv3x3, conv3x3_s8,
-                                    dot_probe, head, rrdb as k7, tta)
+                                    dot_probe, head, rrdb as k7, train, tta)
 from reve_tpu_torch.models import rrdb, srvgg
 from reve_tpu_torch.pipeline.engine import UpscaleEngine
 from reve_tpu_torch.weights import quantize
@@ -1742,3 +1750,103 @@ def test_rrdb_int8_engine_peak_memory_within_its_bill():
     del y
     peak = torch.cuda.max_memory_allocated() - base
     assert peak <= plan.per_call * eng._frame_bytes(540, 960), peak
+
+
+# -- T1-T3, the training kernels ---------------------------------------------
+
+TRAIN_PAIRS = [(ci, co) for ci in train.CINS for co in train.COUTS]
+
+
+def _rel_close(got, want, what, rel=1e-5):
+    err = float((got - want).abs().max())
+    ref = float(want.abs().max())
+    assert err <= rel * ref, f"{what}: max |d| {err} > {rel} x {ref}"
+
+
+def _train_inputs(dev, cin, cout, shape=(2, 19, 45), seed=0):
+    B, H, W = shape
+    rs = np.random.RandomState(seed)
+    bound = 1.0 / np.sqrt(9 * cin)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    z_prev = rs.randn(B, H, W, cin)
+    z_prev[rs.rand(B, H, W, cin) < 0.05] = 0.0  # PReLU's tie
+    return {"x": t(rs.rand(B, H, W, cin) * 2 - 0.5),
+            "w": t(rs.uniform(-bound, bound, (3, 3, cin, cout))),
+            "b": t(rs.uniform(-0.1, 0.1, (cout,))),
+            "alpha": t(rs.uniform(0.05, 0.4, (cout,))),
+            "dz": t(rs.randn(B, H, W, cout) * 1e-3),
+            "z_prev": t(z_prev),
+            "alpha_prev": t(rs.uniform(0.05, 0.4, (cin,)))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", TRAIN_PAIRS)
+def test_training_kernels_match_plain(cin, cout):
+    dev = _cuda()
+    d = _train_inputs(dev, cin, cout)
+    for alpha, save_z in ((d["alpha"], True), (d["alpha"], False),
+                          (None, True)):
+        before = LAUNCHES["conv3x3_fwd_train"]
+        y, z = train.conv3x3_fwd_train(d["x"], d["w"], d["b"], alpha, save_z)
+        assert LAUNCHES["conv3x3_fwd_train"] == before + 1
+        y0, z0 = train.conv3x3_fwd_train_plain(d["x"], d["w"], d["b"], alpha,
+                                               save_z)
+        _rel_close(y, y0, f"T1 y ({alpha is None}, {save_z})")
+        assert (z is None) == (z0 is None)
+        if z is not None:
+            _rel_close(z, z0, "T1 z")
+    dzp, da = train.conv3x3_dgrad(d["dz"], d["w"], d["z_prev"],
+                                  d["alpha_prev"])
+    dzp0, da0 = train.conv3x3_dgrad_plain(d["dz"], d["w"], d["z_prev"],
+                                          d["alpha_prev"])
+    _rel_close(dzp, dzp0, "T2 dz_prev")
+    _rel_close(da, da0, "T2 dalpha")
+    dw, db = train.conv3x3_wgrad(d["x"], d["dz"])
+    dw0, db0 = train.conv3x3_wgrad_plain(d["x"], d["dz"])
+    _rel_close(dw, dw0, "T3 dw")
+    _rel_close(db, db0, "T3 db")
+    dw2, db2 = train.conv3x3_wgrad(d["x"], d["dz"])
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+
+
+@pytest.mark.cuda
+def test_training_kernels_refuse_other_widths():
+    dev = _cuda()
+    x = torch.zeros(1, 4, 4, 32, device=dev)
+    w = torch.zeros(3, 3, 32, 64, device=dev)
+    with pytest.raises(ValueError, match=train.WIDTHS_ITEM):
+        train.conv3x3_fwd_train(x, w, torch.zeros(64, device=dev))
+
+
+@pytest.mark.cuda
+def test_conv_stack_gradients_match_torch_autograd():
+    """The Function on T1-T3 against torch autograd through F.conv2d and
+    PReLU as torch ops: a 2-conv model (3 -> 64 + PReLU, 64 -> 48)."""
+    dev = _cuda()
+    rs = np.random.RandomState(3)
+    cfg = srvgg.SRVGGConfig(num_feat=64, num_conv=0, upscale=4)
+    params = srvgg.params_to(srvgg.init_params(cfg), dev)
+    flat = train.flat_params(params)
+    for t in flat:
+        t.requires_grad_(True)
+    x = torch.from_numpy(rs.rand(4, 32, 40, 3).astype(np.float32)).to(dev)
+    ct = torch.from_numpy(rs.randn(4, 32, 40, 48).astype(np.float32)).to(dev)
+    out = train.conv_stack(x, params)
+    got = torch.autograd.grad((out * ct).sum(), flat)
+
+    def conv(h, w, b):
+        return torch.nn.functional.conv2d(
+            h.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+            padding=1).permute(0, 2, 3, 1) + b
+
+    torch.backends.cudnn.allow_tf32 = False
+    w0, b0, a0, w1, b1 = flat
+    h = conv(x, w0, b0)
+    ref_out = conv(h.clamp_min(0) + a0 * h.clamp_max(0), w1, b1)
+    want = torch.autograd.grad((ref_out * ct).sum(), flat)
+    _rel_close(out.detach(), ref_out.detach(), "stack output")
+    for name, g, w in zip(("w0", "b0", "alpha0", "w1", "b1"), got, want):
+        _rel_close(g, w, name)
