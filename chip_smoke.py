@@ -20,8 +20,13 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               both IGMMA and HGMMA, and no library any __dp4a (IDP.4A) or
               mma.sync (HMMA, IMMA); float32 conv_last's library
               (conv_last_f32.cu, float32 FMAs) must hold FFMA and spill
-              nothing, and so must T1-T3's (conv3x3_train.cu), FFMA in
-              each of its 27 kernels;
+              nothing, and so must T2's (conv3x3_train.cu), FFMA in each
+              of its 9 kernels; T1's and T3's library
+              (conv3x3_train_tc.cu) must hold wgmma (HGMMA) in each of
+              its 18 kernels, no TF32 product and, like T2's, no float
+              atomic (RED or ATOM on F32) (kernels.train.sass_faults,
+              which the card test runs too), and its HGMMA count and
+              spill bytes are reported kernel by kernel;
   3. kernels  K3, K1 and K2 at the main path's shapes (1080p frames, a
               batch of 4, x4), all on the tensor cores, in bfloat16
               (conv3x3.cu, conv3x3_tc.cu) and float32 (as six bf16
@@ -187,16 +192,22 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               the unaligned job's byte for byte;
  13. train    training on the card, at realesr-animevideov3 x4's full
               width (64 features, 16 convs), LR patches of 64 x 64 in
-              batches of 8: T1, T2 and T3 (csrc/conv3x3_train.cu, float32
-              FMAs) at every channel pair they take (Cin 3, 64, 128 x
-              Cout 48, 64, 128) on seeded inputs, each against its plain
-              version (max |d| <= 1e-5 x max |ref|, T3 5e-5: its sums
-              run over the step's 32,768 pixels), timed beside it,
-              cuDNN's call of the same function (library_ms: F.conv2d,
-              aten.convolution_backward; TF32 off) and its bound (float32
-              operations on the CUDA cores; beside it, as bound_ms_bf16x6,
-              the same operations as six bf16 products on the tensor
-              cores), with a step's sums of each; a fine-tune of the
+              batches of 8: T1, T2 and T3 (T1 and T3 on bf16 wgmma as six
+              products of their split float32 operands,
+              csrc/conv3x3_train_tc.cu; T2 float32 FMAs,
+              csrc/conv3x3_train.cu) at every channel pair they take (Cin
+              3, 64, 128 x Cout 48, 64, 128) on seeded inputs, each
+              against its plain version (max |d| <= 1e-5 x max |ref|, T3
+              5e-5: its sums run over the step's 32,768 pixels), timed
+              beside it (the calls queued behind a sleep kernel, free of
+              the host's launch cost), cuDNN's call of the same function
+              (library_ms: F.conv2d, aten.convolution_backward; TF32 off)
+              and its bound on its own route (bound_ms: six bf16
+              products on the tensor cores for T1 and T3, float32 FMAs
+              on the CUDA cores for T2; beside it both, as
+              bound_ms_bf16x6 and bound_ms_fma_f32), with a step's sums
+              of each;
+              a fine-tune of the
               shipped x4 model through train.Trainer, 20 steps of
               train.data.batches_from_video over the main job's y4m (HR
               patches of 256), the counters zeroed around it (per step
@@ -214,7 +225,13 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               T2 9, T3 10), agreement_psnr before and after, the
               student saved with save_srvgg_pth, loaded back through
               registry.load_model, and one engine batch of the frames on
-              it byte-identical to the engine on the in-memory params;
+              it byte-identical to the engine on the in-memory params; a
+              distillation of x4 into a random-init student of 128
+              features and 16 convs (scripts/distill.py's default width;
+              the teacher the shipped x4, as no x2 weights ship), 5 steps
+              on the kernels (per step T1 18 + 18, T2 17, T3 18) and the
+              same 5 on the plain versions (which launch none of T1-T3),
+              each loss within 1e-4 relative, and its ms a step;
  14. probe    P1, the tensor-core dot-rate probe (wgmma), through
               `python -m reve_tpu_torch.scripts.perf_int8_dot`'s main at
               its shapes: per call at 64 loops timed free of the host's
@@ -288,12 +305,15 @@ TILE = 512
 #: without float residuals), per 64-channel chunk 18 (s8) a warpgroup's
 #: row, four rows at N = 32 and two at 64; P1 one kernel for each count of
 #: 32-B k steps, its dot's wgmmas unrolled: s8 1 + ... + 8 (IGMMA), bf16
-#: 1 + ... + 16 (HGMMA)
+#: 1 + ... + 16 (HGMMA); T1 12 a unit (two k16 steps, six products each)
+#: in each of its 9 kernels, T3 48 a tile (eight k16 steps) in each of its
+#: 9
 P1_IGMMA, P1_HGMMA = sum(range(1, 9)), sum(range(1, 17))
 MIN_WGMMA = {"conv3x3_tc.cu": 5 * 36, "conv3x3_f32_tc.cu": 4 * 216,
              "conv3x3_s8.cu": 4 * 18, "conv3x3.cu": 2 * (2 + 12) + 7 + 42,
              "dot_probe.cu": P1_IGMMA + P1_HGMMA,
-             "rrdb.cu": 2 * (18 + 54), "rrdb_s8.cu": 2 * (4 * 18 + 2 * 18)}
+             "rrdb.cu": 2 * (18 + 54), "rrdb_s8.cu": 2 * (4 * 18 + 2 * 18),
+             "conv3x3_train_tc.cu": 9 * 12 + 9 * 48}
 
 
 def emit(obj) -> None:
@@ -337,11 +357,24 @@ def cuda_time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def library_time_ms(fn, iters: int = 10):
-    """cuda_time_ms of a library call that is only a yardstick: None, with
-    the reason printed, where the installed PyTorch refuses the call."""
+def queued_time_ms(fn, iters: int = 10) -> float:
+    """Milliseconds a call on the card, free of the host's launch cost:
+    the calls queued behind a sleep kernel and timed by CUDA events
+    (perf_int8_dot.queued_ms); for calls shorter on the card than on the
+    host."""
+    import torch
+
+    from reve_tpu_torch.scripts import perf_int8_dot
+
+    return perf_int8_dot.queued_ms(fn, iters, torch.device("cuda", 0))
+
+
+def library_time_ms(fn, iters: int = 10, timer=cuda_time_ms):
+    """`timer` (cuda_time_ms) of a library call that is only a yardstick:
+    None, with the reason printed, where the installed PyTorch refuses the
+    call."""
     try:
-        return cuda_time_ms(fn, iters)
+        return timer(fn, iters)
     except RuntimeError as e:
         print(f"# library call refused: {str(e).splitlines()[0]}",
               flush=True)
@@ -369,27 +402,32 @@ def bf16_ulp_ok(got, want, ulps: int = 2) -> bool:
     return True
 
 
-def sass_ops(lib: str) -> dict:
+def sass_ops(source: str) -> dict:
     """Counts of the wgmma opcodes (HGMMA, IGMMA, ...), of mma.sync (HMMA,
     IMMA), of float32 FMAs (FFMA) and of __dp4a (SASS IDP.4A, counted as
-    "IDP4A") in a built
-    library's SASS (cuobjdump of the CUDA toolkit whose nvcc built it), in
-    all and by kernel: {"all": {op: n}, "by_kernel": {mangled name: {op:
-    n}}}."""
+    "IDP4A") in a built library's SASS (build.sass), in all and by
+    kernel: {"all": {op: n}, "by_kernel": {mangled name: {op: n}}}."""
     from reve_tpu_torch.kernels import build
 
-    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", lib], check=True,
-                          capture_output=True, text=True).stdout
     every, by_kernel = {}, {}
-    for part in re.split(r"\n\s*Function : ", sass)[1:]:
-        ops = by_kernel.setdefault(part.split()[0], {})
+    for name, part in build.sass(source).items():
+        ops = by_kernel.setdefault(name, {})
         for m in re.finditer(r"\b([A-Z]GMMA|[HI]MMA|FFMA|IDP\.?4A)\b",
                              part):
             op = m.group(1).replace(".", "")
             ops[op] = ops.get(op, 0) + 1
             every[op] = every.get(op, 0) + 1
     return {"all": every, "by_kernel": by_kernel}
+
+
+def kernel_label(mangled: str) -> str:
+    """A kernel's readable name from its mangled one: fwd_tc_kernel<128,
+    64> for a template of int parameters."""
+    m = re.search(r"([a-z_]+_kernel)(?:I((?:Li\d+E)+)E)?", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"Li(\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
 def bound_ms(nbytes: int, flops: int, dtype: str):
@@ -1850,8 +1888,7 @@ def x2_phase(work: str, in4: str, frames) -> tuple:
         params_x = rrdb.params_to(params_x, "cuda")
         k3x2 = k3x2_phase(params_x, frames[:BATCH])
         k3x2["bfloat16"]["wgmma_by_kernel"] = x2_wgmma(
-            sass_ops(build.build_info[conv3x3.SOURCE]["path"])
-            ["by_kernel"])
+            sass_ops(conv3x3.SOURCE)["by_kernel"])
         batch4 = np.stack(list(reader.Y4MReader(in4).read_range(
             0, BATCH)))
         # the bf16 job, its counters zeroed around it
@@ -2167,7 +2204,16 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_ATOL, TRAIN_PARAM_REL_L2, TRAIN_PARAM_LOOSE = 1e-6, 1e-6, 16
 TRAIN_NOISE_REL = 1e-6
 TRAIN_KERNELS = ("conv3x3_fwd_train", "conv3x3_dgrad", "conv3x3_wgrad")
+#: the route each runs its products on, whose rate its bound_ms takes:
+#: six bf16 products on wgmma (989 TF/s) or float32 FMAs (67 TF/s)
+TRAIN_ROUTE = {"conv3x3_fwd_train": "bf16x6", "conv3x3_dgrad": "fma_f32",
+               "conv3x3_wgrad": "bf16x6"}
 FAST_MODEL = "realesr-animevideov3-fast"
+#: the 128-feature student: reve_tpu_torch/scripts/distill.py's default
+#: width (--student-feat) at the teacher's 16 convs, x4 (the shipped
+#: teacher's scale: no x2 weights ship), drawn from seed 0; steps on the
+#: kernels and again on the plain versions
+WIDE_FEAT, WIDE_STEPS = 128, 5
 
 
 def train_launches(cfg, steps: int, teacher_convs: int = 0) -> dict:
@@ -2188,9 +2234,11 @@ def train_kernel_phase(per_step: dict) -> dict:
     numbers at the top of each kernel's entry are the hidden conv's (64
     -> 64, 16 of a step's 18 convs); `step_ms` and `step_bound_ms` sum a
     step's launches (`per_step`: first 3 -> 64, 16 x 64 -> 64, head 64 ->
-    48) at their pairs' times and bounds.  `bound_ms` is float32 FMAs on
-    the CUDA cores (the kernels' route); `bound_ms_bf16x6` the card's best
-    float32-accurate rate, six bf16 products on the tensor cores."""
+    48) at their pairs' times and bounds.  `bound_ms_bf16x6` is the
+    operations as six bf16 products on the tensor cores (the card's best
+    float32-accurate rate), `bound_ms_fma_f32` as float32 FMAs on the CUDA
+    cores, and `bound_ms` (with `bound_by`) the one of the kernel's own
+    route, TRAIN_ROUTE."""
     import torch
     import torch.nn.functional as F
 
@@ -2266,15 +2314,16 @@ def train_kernel_phase(per_step: dict) -> dict:
                     bad.append(f"{name} {cin} -> {cout}: max |d| {err} > "
                                f"{TRAIN_KERNEL_REL[name]} x max |ref| "
                                f"{ref}")
-                bms, by = bound_ms(nbytes, flops, "float32")
+                bounds = {"bf16x6": bound_ms(nbytes, 6 * flops, "bfloat16"),
+                          "fma_f32": bound_ms(nbytes, flops, "float32")}
+                bms, by = bounds[TRAIN_ROUTE[name]]
                 res[name]["pairs"][f"{cin}x{cout}"] = {
                     "max_abs_err": err, "max_rel_err": err / ref,
-                    "ms": cuda_time_ms(fn, 20),
-                    "plain_ms": cuda_time_ms(plain, 20),
-                    "library_ms": library_time_ms(lib, 20),
+                    "ms": queued_time_ms(fn, 20),
+                    "plain_ms": queued_time_ms(plain, 20),
+                    "library_ms": library_time_ms(lib, 20, queued_time_ms),
                     "bound_ms": bms, "bound_by": by,
-                    "bound_ms_bf16x6": bound_ms(nbytes, 6 * flops,
-                                                "bfloat16")[0],
+                    **{f"bound_ms_{k}": v[0] for k, v in bounds.items()},
                     "shape": [B, H, W, cin, cout]}
             del x, w, b, a, dz, zp, ap, xl, dzl, wl
     if bad:
@@ -2287,10 +2336,8 @@ def train_kernel_phase(per_step: dict) -> dict:
         assert sum(steps.values()) == per_step[name]
         r["launches_per_step"] = per_step[name]
         r["step_ms"] = sum(n * p[k]["ms"] for k, n in steps.items())
-        r["step_bound_ms"] = sum(n * p[k]["bound_ms"]
-                                 for k, n in steps.items())
-        r["step_bound_ms_bf16x6"] = sum(n * p[k]["bound_ms_bf16x6"]
-                                        for k, n in steps.items())
+        for key in ("bound_ms", "bound_ms_bf16x6", "bound_ms_fma_f32"):
+            r["step_" + key] = sum(n * p[k][key] for k, n in steps.items())
         r["step_library_ms"] = sum(n * p[k]["library_ms"]
                                    for k, n in steps.items()) \
             if all(p[k]["library_ms"] for k in steps) else None
@@ -2476,11 +2523,14 @@ def train_phase(work: str, inp: str, frames, weights: str) -> tuple:
                                  f"n_diff {n_diff} between the .pth and "
                                  f"the in-memory params")
         rec.update(
-            kernels={k: {"ms": v["ms"], "bound_ms": v["bound_ms"],
+            kernels={k: {"ms": v["ms"], "route": TRAIN_ROUTE[k],
+                         "bound_ms": v["bound_ms"],
                          "bound_ms_bf16x6": v["bound_ms_bf16x6"],
+                         "bound_ms_fma_f32": v["bound_ms_fma_f32"],
                          "step_ms": v["step_ms"],
                          "step_bound_ms": v["step_bound_ms"],
                          "step_bound_ms_bf16x6": v["step_bound_ms_bf16x6"],
+                         "step_bound_ms_fma_f32": v["step_bound_ms_fma_f32"],
                          "step_library_ms": v["step_library_ms"],
                          "max_rel_err": max(p["max_rel_err"] for p in
                                             v["pairs"].values())}
@@ -2507,6 +2557,47 @@ def train_phase(work: str, inp: str, frames, weights: str) -> tuple:
                      "ms_per_step": 1e3 * float(np.median(secs)),
                      "n_diff_pth_vs_params": n_diff})
         del dist, ys
+        # a random-init 128-feature student: WIDE_STEPS steps on the
+        # kernels, the same on the plain versions (the teacher follows the
+        # trainer's `plain`; that run launches no T1-T3), each loss within
+        # TRAIN_LOSS_RTOL
+        wcfg = srvgg.SRVGGConfig(num_feat=WIDE_FEAT, num_conv=cfg.num_conv,
+                                 upscale=SCALE)
+        wide = {}
+        for plain in (False, True):
+            dw = distill.Distiller(cfg, params, wcfg, tc=tc, seed=0,
+                                   device="cuda")
+            dw.trainer.plain = plain
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            wl, ws = [], []
+            for lr, _ in batches[:WIDE_STEPS]:
+                t0 = time.perf_counter()
+                wl.append(dw.step(lr))
+                ws.append(time.perf_counter() - t0)
+            wide[plain] = (wl, float(np.median(ws)), dict(kernels.LAUNCHES))
+            del dw
+        want_w = train_launches(wcfg, WIDE_STEPS, cfg.num_conv + 2)
+        rel_w = [abs(a - b) / abs(b) for a, b in zip(wide[False][0],
+                                                     wide[True][0])]
+        if not (all(np.isfinite(wide[False][0])) and max(rel_w)
+                <= TRAIN_LOSS_RTOL) or any(
+                    wide[False][2][k] != n for k, n in want_w.items()) or any(
+                        wide[True][2][k] for k in TRAIN_KERNELS):
+            raise AssertionError(
+                f"{WIDE_FEAT}-feature distillation: losses "
+                f"{wide[False][0]} against the plain path's "
+                f"{wide[True][0]} (relative {max(rel_w)}, bound "
+                f"{TRAIN_LOSS_RTOL}); launches {wide[False][2]} (expected "
+                f"{want_w}), on the plain path {wide[True][2]} (expected "
+                f"none of {TRAIN_KERNELS})")
+        rec["distill_wide"] = {
+            "num_feat": WIDE_FEAT, "num_conv": wcfg.num_conv,
+            "launches": wide[False][2], "launches_plain": wide[True][2],
+            "losses": wide[False][0],
+            "losses_plain": wide[True][0], "max_loss_rel_diff": max(rel_w),
+            "ms_per_step": 1e3 * wide[False][1],
+            "plain_ms_per_step": 1e3 * wide[True][1]}
         torch.cuda.empty_cache()
     return results, launches
 
@@ -2545,7 +2636,7 @@ def main() -> int:
         info = build.load_all()
         rec["sources"] = {}
         for s, v in info.items():
-            sass = sass_ops(v["path"])
+            sass = sass_ops(s)
             ops = sass["all"]
             rec["sources"][s] = {
                 "seconds": round(v["seconds"], 3), "cached": v["cached"],
@@ -2593,17 +2684,25 @@ def main() -> int:
         if not last["sass_ops"].get("FFMA") or last["spill_bytes"] != 0:
             raise AssertionError(f"{head.LAST_F32_SOURCE}: {last}, expected "
                                  f"FFMA and no spills")
-        # T1-T3 likewise: FFMA in each of the three kernels' every channel
-        # pair, and no spill
-        by_k = sass_ops(info[train.SOURCE]["path"])["by_kernel"]
-        for form in ("fwd_kernel", "dgrad_kernel", "wgrad_kernel"):
-            ks = [o for k, o in by_k.items() if form in k]
-            if len(ks) != 9 or not all(o.get("FFMA") for o in ks):
-                raise AssertionError(f"{train.SOURCE}: {form}: {ks}, "
-                                     f"expected FFMA in each of 9")
+        # T2 likewise no spill; train.sass_faults: FFMA in each of T2's 9
+        # kernels (one a channel pair), HGMMA in each of T1's and T3's 9 (no
+        # CUDA-core form of them is left), and neither training library a
+        # TF32 product or a float atomic
         if rec["sources"][train.SOURCE]["spill_bytes"] != 0:
             raise AssertionError(f"{train.SOURCE}: spills "
                                  f"{rec['sources'][train.SOURCE]}")
+        faults = train.sass_faults()
+        if faults:
+            raise AssertionError("; ".join(faults))
+        by_k = sass_ops(train.TC_SOURCE)["by_kernel"]
+        tc = rec["sources"][train.TC_SOURCE]
+        tc["hgmma_by_kernel"] = {kernel_label(k): o.get("HGMMA", 0)
+                                 for k, o in sorted(by_k.items())}
+        tc["spill_bytes_by_kernel"] = {
+            kernel_label(k): n
+            for k, n in sorted(build.spills(train.TC_SOURCE).items())}
+        print(f"# {train.TC_SOURCE}: HGMMA {tc['hgmma_by_kernel']}; spill "
+              f"bytes {tc['spill_bytes_by_kernel']}", flush=True)
 
     weights = os.path.join(ROOT, "models", "realesr-animevideov3-x4.pth")
     cfg, params = load_srvgg_pth(weights)
@@ -3122,13 +3221,13 @@ def main() -> int:
         # the training convs: XLA's conv and the two convs jax autodiff
         # derives from it under value_and_grad
         "conv3x3_fwd_train": (
-            "reve_tpu_torch/kernels/csrc/conv3x3_train.cu",
+            "reve_tpu_torch/kernels/csrc/conv3x3_train_tc.cu",
             "reve_tpu/models/srvgg.py:88"),
         "conv3x3_dgrad": (
             "reve_tpu_torch/kernels/csrc/conv3x3_train.cu",
             "reve_tpu/train/trainer.py:66"),
         "conv3x3_wgrad": (
-            "reve_tpu_torch/kernels/csrc/conv3x3_train.cu",
+            "reve_tpu_torch/kernels/csrc/conv3x3_train_tc.cu",
             "reve_tpu/train/trainer.py:66"),
     }
     # each kernel's numbers and its launches on the path that runs it: the
@@ -3154,7 +3253,9 @@ def main() -> int:
     # (K1's and K2's after their split pass)
     designs = {"split_bf16x3": "elementwise",
                "tta_accumulate": "smem_transpose",
-               **{k: "fma_f32" for k in TRAIN_KERNELS}}
+               "conv3x3_fwd_train": "wgmma_bf16x6",
+               "conv3x3_dgrad": "fma_f32",
+               "conv3x3_wgrad": "wgmma_bf16x6"}
     f32_forms = {
         "conv3x3_u8_bias_prelu": ("reve_tpu_torch/kernels/csrc/conv3x3.cu",
                                   "wgmma_bf16x6"),
@@ -3211,6 +3312,7 @@ def main() -> int:
             extra = {key: nums[key] for key in (
                 "pairs", "launches_per_step", "step_ms", "step_bound_ms",
                 "bound_ms_bf16x6", "step_bound_ms_bf16x6",
+                "bound_ms_fma_f32", "step_bound_ms_fma_f32",
                 "step_library_ms", "max_rel_err")}
         elif name == "dense_conv_s8":
             nums = k7q_results

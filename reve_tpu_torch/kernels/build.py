@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,8 +28,9 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 #: one shared library per source
 SOURCES = ("conv3x3.cu", "conv3x3_tc.cu", "conv3x3_f32_tc.cu",
            "conv3x3_s8.cu", "dot_probe.cu", "tta.cu", "rrdb.cu",
-           "rrdb_s8.cu", "conv_last_f32.cu", "conv3x3_train.cu")
-HEADERS = ("common.cuh", "tc.cuh")
+           "rrdb_s8.cu", "conv_last_f32.cu", "conv3x3_train.cu",
+           "conv3x3_train_tc.cu")
+HEADERS = ("common.cuh", "tc.cuh", "train.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
@@ -125,6 +127,30 @@ def load_all() -> Dict[str, dict]:
     for s in SOURCES:
         load(s)
     return build_info
+
+
+def sass(source: str) -> Dict[str, str]:
+    """Each kernel's SASS in `source`'s library, by mangled name
+    (cuobjdump of the CUDA toolkit whose nvcc built it; builds the
+    library first if needed)."""
+    load(source)
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", _lib_path(source)], check=True,
+                          capture_output=True, text=True).stdout
+    return {part.split()[0]: part
+            for part in re.split(r"\n\s*Function : ", text)[1:]}
+
+
+def spills(source: str) -> Dict[str, int]:
+    """Spill bytes (stores and loads) of each kernel in `source`'s
+    library, by mangled name, from ptxas's report of its last build ({}
+    when the report holds none)."""
+    load(source)
+    return {m.group(1): int(m.group(2)) + int(m.group(3))
+            for m in re.finditer(
+                r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                build_info[source]["log"])}
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -1,7 +1,8 @@
 """T1 `conv3x3_fwd_train`, T2 `conv3x3_dgrad` and T3 `conv3x3_wgrad`:
 SRVGG's conv3x3 + PReLU for training, forward and backward, in float32
-(csrc/conv3x3_train.cu), their plain versions, and `conv_stack`, the
-autograd Function that runs a whole SRVGG conv stack through them.
+(T1 and T3 on the tensor cores, csrc/conv3x3_train_tc.cu; T2 on the CUDA
+cores, csrc/conv3x3_train.cu), their plain versions, and `conv_stack`,
+the autograd Function that runs a whole SRVGG conv stack through them.
 
 They replace what XLA runs for reve_tpu/train/trainer.py:53-72
 (`jax.value_and_grad` of `srvgg.apply(..., compute_dtype=float32)`):
@@ -21,13 +22,14 @@ Layouts: NHWC float32 activations, HWIO float32 weights, channels Cin in
 the distillation script's default student); other counts are refused.
 
 Bound on an H100 SXM per training step of a 64-feature, 16-conv student
-on 8 LR patches of 64 x 64 (67 TFLOP/s float32 outside the tensor
-cores): a hidden conv is 2.416 GFLOP -> 0.036 ms against about 25 MB of
-bytes -> 0.0075 ms, so all three are bound by operations; the forward,
-T2 and T3 each about 40.6 GFLOP a step, 1.82 ms of float32 FMAs in all.
-Each kernel is a float32 implicit GEMM on the CUDA cores (the design is
-in the source's head); T3 sums its pixel splits, and T2 its blocks'
-d(alpha), in a fixed order, so a step repeats bit for bit.
+on 8 LR patches of 64 x 64: a hidden conv is 2.416 GFLOP, 0.0147 ms as
+six bf16 products on the tensor cores (989 TFLOP/s; 0.036 ms as float32
+FMAs at 67 TFLOP/s), against about 25 MB of bytes -> 0.0075 ms, so all
+three are bound by operations.  T1 and T3 sum six bf16 products of their
+operands split in three, float32 K1's scheme (the design is in their
+source's head); T2 is a float32 implicit GEMM on the CUDA cores.  T3
+sums its pixel splits, and T2 its blocks' d(alpha), in a fixed order set
+by the shapes alone, so a step repeats bit for bit.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.
@@ -37,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import re
 from typing import List, Optional, Tuple
 
 import torch
@@ -46,16 +49,23 @@ from reve_tpu_torch import device as device_mod
 from reve_tpu_torch.kernels import LAUNCHES, build
 from reve_tpu_torch.kernels.conv3x3 import check_operands, prelu_plain
 
+#: T2
 SOURCE = "conv3x3_train.cu"
+#: T1 and T3
+TC_SOURCE = "conv3x3_train_tc.cu"
 CINS = (3, 64, 128)
 COUTS = (48, 64, 128)
 #: the ROADMAP.md item that other channel counts wait on
 WIDTHS_ITEM = "Training at other widths"
-#: T3's pixel splits are chosen to give about this many blocks (4 per SM
-#: of an H100's 132), from the shapes alone: the sum's order, and so its
-#: bits, depend on nothing else
-WGRAD_BLOCKS = 528
-_BM, _BN, _BK = 128, 64, 8
+#: T1's and T3's tiles: rows x columns of pixels (T1: a block's output,
+#: a warpgroup a row; T3: a K chunk)
+TILE = (2, 64)
+#: T3's pixel splits are chosen to give about this many blocks (one per
+#: SM of an H100's 132), from the shapes alone: the sum's order, and so
+#: its bits, depend on nothing else
+WGRAD_BLOCKS = 132
+#: T2's tile rows (pixels), one d(alpha) partial a block row
+_BM = 128
 
 
 # -- plain versions ---------------------------------------------------------
@@ -145,12 +155,19 @@ def _check_shapes(what: str, got, want) -> None:
         raise ValueError(f"{what} operands {got}; expected {want}")
 
 
-def _call(entry: str, device, ptrs, ints) -> None:
-    lib = build.load(SOURCE)
-    fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + \
-        [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+_entries: dict = {}
+
+
+def _call(source: str, entry: str, device, ptrs, ints) -> None:
+    key = (source, entry)
+    if key not in _entries:
+        lib = build.load(source)
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p] * len(ptrs) + \
+            [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _entries[key] = (lib, fn)
+    lib, fn = _entries[key]
     err = fn(*ptrs, *ints, torch.cuda.current_stream(device).cuda_stream)
     build.check(lib, err, entry)
 
@@ -171,7 +188,7 @@ def conv3x3_fwd_train(x, w, b, alpha=None, save_z: bool = True):
     _check(cin, cout, *ts)
     out = torch.empty((B, H, W, cout), device=x.device)
     z = torch.empty_like(out) if alpha is not None and save_z else None
-    _call("reve_conv3x3_fwd_train", x.device,
+    _call(TC_SOURCE, "reve_conv3x3_fwd_train_tc", x.device,
           [x.data_ptr(), w.data_ptr(), b.data_ptr(), _ptr(alpha),
            out.data_ptr(), _ptr(z)], [B, H, W, cin, cout])
     LAUNCHES["conv3x3_fwd_train"] += 1
@@ -192,7 +209,7 @@ def conv3x3_dgrad(dz, w, z_prev, alpha_prev):
     dz_prev = torch.empty_like(z_prev)
     part = torch.empty((math.ceil(B * H * W / _BM), cin), device=dz.device)
     dalpha = torch.empty((cin,), device=dz.device)
-    _call("reve_conv3x3_dgrad", dz.device,
+    _call(SOURCE, "reve_conv3x3_dgrad", dz.device,
           [dz.data_ptr(), w.data_ptr(), z_prev.data_ptr(),
            alpha_prev.data_ptr(), dz_prev.data_ptr(), part.data_ptr(),
            dalpha.data_ptr()], [B, H, W, cin, cout])
@@ -200,13 +217,31 @@ def conv3x3_dgrad(dz, w, z_prev, alpha_prev):
     return dz_prev, dalpha
 
 
-def wgrad_splits(npix: int, cin: int, cout: int) -> Tuple[int, int]:
-    """(splits, pixels a split) of T3's sum over `npix` pixels: about
-    WGRAD_BLOCKS blocks, a multiple of the 8-pixel step a split."""
-    tiles = math.ceil((9 * cin + 1) / _BM) * math.ceil(cout / _BN)
-    want = math.ceil(WGRAD_BLOCKS / tiles)
-    kc = _BK * math.ceil(npix / want / _BK)
-    return math.ceil(npix / kc), kc
+def tiles(B: int, H: int, W: int) -> int:
+    """The TILE-sized tiles over B images of H x W: T1's blocks of an N
+    block, and T3's K chunks, numbered with x fastest, then rows, then
+    images."""
+    return B * math.ceil(H / TILE[0]) * math.ceil(W / TILE[1])
+
+
+def wgrad_groups(cin: int, cout: int) -> int:
+    """T3's blocks of one split: at Cin 64 and 128, each tap row times each
+    64-channel half of Cin (its three warpgroups the row's taps); at Cin 3
+    one (its 27 rows of dW one slab); each times the 64-channel N blocks
+    of Cout (Cout 48 as one)."""
+    nblk = 2 if cout == 128 else 1
+    return (1 if cin == 3 else 3 * cin // 64) * nblk
+
+
+def wgrad_splits(B: int, H: int, W: int, cin: int,
+                 cout: int) -> Tuple[int, int]:
+    """(splits, tiles a split) of T3's sum over the tiles of B images of H
+    x W: runs of consecutive tiles, about WGRAD_BLOCKS blocks in all,
+    none empty."""
+    n = tiles(B, H, W)
+    want = max(1, WGRAD_BLOCKS // wgrad_groups(cin, cout))
+    per = math.ceil(n / want)
+    return math.ceil(n / per), per
 
 
 def conv3x3_wgrad(x, dz):
@@ -218,18 +253,52 @@ def conv3x3_wgrad(x, dz):
     cout = dz.shape[-1]
     _check_shapes("T3", (x, dz), [(B, H, W, cin), (B, H, W, cout)])
     _check(cin, cout, x, dz)
-    splits, kc = wgrad_splits(B * H * W, cin, cout)
+    if B * H * W == 0:
+        raise ValueError("T3 over no pixels")
+    splits, per = wgrad_splits(B, H, W, cin, cout)
     rows = 9 * cin + 1
     part = torch.empty((splits, rows, cout), device=x.device)
     dwb = torch.empty((rows, cout), device=x.device)
-    _call("reve_conv3x3_wgrad", x.device,
+    _call(TC_SOURCE, "reve_conv3x3_wgrad_tc", x.device,
           [x.data_ptr(), dz.data_ptr(), part.data_ptr(), dwb.data_ptr()],
-          [B, H, W, cin, cout, splits, kc])
+          [B, H, W, cin, cout, splits, per])
     LAUNCHES["conv3x3_wgrad"] += 1
     return dwb[:9 * cin].view(3, 3, cin, cout), dwb[9 * cin]
 
 
 # -- the conv stack under autograd --------------------------------------------
+
+
+#: (source, kernel template, the SASS opcode each of its 9 channel pairs
+#: must hold): T2 on float32 FMAs, T1 and T3 on wgmma
+SASS_FORMS = ((SOURCE, "dgrad_kernel", "FFMA"),
+              (TC_SOURCE, "fwd_tc_kernel", "HGMMA"),
+              (TC_SOURCE, "wgrad_tc_kernel", "HGMMA"))
+
+
+def sass_faults() -> List[str]:
+    """What the built training libraries' SASS breaks of their design,
+    empty when nothing: each SASS_FORMS kernel at each of the 9 channel
+    pairs holds its opcode (so no CUDA-core form of T1 or T3 is left), and
+    neither library holds a TF32 product or a float atomic (RED or ATOM on
+    F32; every sum runs in a fixed order).  Needs the CUDA toolkit."""
+    libs = {s: build.sass(s) for s in (SOURCE, TC_SOURCE)}
+    faults = []
+    for src, form, op in SASS_FORMS:
+        ks = {k: v for k, v in libs[src].items() if form in k}
+        lacking = sorted(k for k, v in ks.items()
+                         if not re.search(rf"\b{op}\b", v))
+        if len(ks) != len(CINS) * len(COUTS) or lacking:
+            faults.append(f"{src}: {len(ks)} {form} kernels, {op} missing "
+                          f"in {lacking}; expected {op} in each of "
+                          f"{len(CINS) * len(COUTS)}")
+    for src, ks in libs.items():
+        text = "".join(ks.values())
+        if "TF32" in text or re.search(
+                r"\b(?:RED|ATOMG?|ATOMS)\.[^\n]*\bF32\b", text):
+            faults.append(f"{src}: a TF32 product or a float atomic in its "
+                          f"SASS")
+    return faults
 
 
 def flat_params(params) -> List[torch.Tensor]:

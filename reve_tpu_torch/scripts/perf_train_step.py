@@ -1,9 +1,11 @@
 """A fine-tune step's time on the card, and where it goes.
 
     python -m reve_tpu_torch.scripts.perf_train_step [--steps N] [--plain]
-        [--trace]
+        [--trace] [--feat F]
 
-Fine-tunes realesr-animevideov3 x4 (models/, 64 features, 16 convs) with
+Fine-tunes realesr-animevideov3 x4 (models/, 64 features, 16 convs; with
+`--feat F`, the same shape at F features drawn from seed 0, e.g. 128, the
+distillation script's default student width) with
 train.Trainer's defaults on seeded batches of 8 LR patches of 64 x 64
 (HR 256) already on the card, so no host-to-device copy is timed: two
 untimed steps, then `--steps` steps by the host's clock (each step ends
@@ -28,6 +30,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from reve_tpu_torch.models import srvgg
 from reve_tpu_torch.train import trainer
 from reve_tpu_torch.weights.torch_loader import load_srvgg_pth
 
@@ -42,9 +45,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--plain", action="store_true")
     p.add_argument("--trace", action="store_true")
+    p.add_argument("--feat", type=int, default=0)
     args = p.parse_args(argv)
     dev = torch.device("cuda", 0)
     cfg, params = load_srvgg_pth(WEIGHTS)
+    if args.feat:
+        cfg = srvgg.SRVGGConfig(num_feat=args.feat, num_conv=cfg.num_conv,
+                                upscale=cfg.upscale)
+        params = srvgg.init_params(cfg)
     tr = trainer.Trainer(cfg, params=params, device=dev, plain=args.plain)
     rs = np.random.RandomState(0)
     hr = torch.from_numpy(rs.rand(BATCH, LR_PATCH * SCALE, LR_PATCH * SCALE,
@@ -62,7 +70,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     line = {"device": torch.cuda.get_device_name(dev), "nvidia_smi": smi,
-            "plain": args.plain, "batch": BATCH, "lr_patch": LR_PATCH,
+            "plain": args.plain, "num_feat": cfg.num_feat, "batch": BATCH,
+            "lr_patch": LR_PATCH,
             "step_ms": step_ms, "lr_patches_per_s": BATCH * 1e3 / step_ms}
     if args.trace:
         from torch.profiler import ProfilerActivity, profile

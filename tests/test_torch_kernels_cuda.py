@@ -60,14 +60,20 @@ tolerances in both dtypes, at its tile edges on even frames, and it
 refuses odd ones; the RRDB x2 model on the card against its plain path
 (float32 u8 |d| <= 1, bfloat16 >= 50 dB, int8 u8 |d| <= 1), and its
 engine's halo windows byte-identical to the windows run whole.
-T1-T3 (csrc/conv3x3_train.cu, the training path's float32 convs on the
-CUDA cores) at every channel pair they take, on a ragged pixel count:
-max |d| <= 1e-5 of the plain version's largest |value| (float32 sums in
-another order, up to 1,728 taps x channels or every pixel of the batch),
-with z exactly 0 at some pixels (PReLU' = (1 + alpha) / 2 there); T3
-bit-identical run to run; the conv stack's gradients on the kernels
-against torch autograd through F.conv2d on a 2-conv model, at the same
-tolerance.
+T1-T3 (the training path's float32 convs: T1 and T3 on bf16 wgmma as six
+products of their split operands, csrc/conv3x3_train_tc.cu; T2 on the
+CUDA cores, csrc/conv3x3_train.cu) at every channel pair they take, on a
+ragged pixel count, a step's 8 x 64 x 64 and the edges of the 2 x 64
+tiles (1 x 1 x 1, 3 x 7 x 63, 1 x 65 x 129): max |d| <= 1e-5 of the
+plain version's largest |value| (float32 sums in another order, up to
+1,728 taps x channels or every pixel of the batch), T2 and T3 at the
+other shapes against the plain versions in float64 (the float32 plain
+weight gradient's own sums drift to 2.6e-5 of its largest value over
+32,768 pixels: H100 run, float64 reference), with z exactly 0 at some pixels
+(PReLU' = (1 + alpha) / 2 there); T1 and T3 bit-identical run to run;
+each of T1's and T3's 18 kernels holds wgmma (HGMMA) and no TF32 or
+float atomic; the conv stack's gradients on the kernels against torch
+autograd through F.conv2d on a 2-conv model, at the same tolerance.
 """
 
 import numpy as np
@@ -1782,11 +1788,18 @@ def _train_inputs(dev, cin, cout, shape=(2, 19, 45), seed=0):
             "alpha_prev": t(rs.uniform(0.05, 0.4, (cin,)))}
 
 
+#: the ragged pixel count first; then a training step's 8 x 64 x 64 and the
+#: edges of T1's and T3's 2 x 64 tiles
+TRAIN_SHAPES = [(2, 19, 45), (8, 64, 64), (1, 1, 1), (3, 7, 63),
+                (1, 65, 129)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
 @pytest.mark.parametrize("cin,cout", TRAIN_PAIRS)
-def test_training_kernels_match_plain(cin, cout):
+def test_training_kernels_match_plain(cin, cout, shape):
     dev = _cuda()
-    d = _train_inputs(dev, cin, cout)
+    d = _train_inputs(dev, cin, cout, shape)
     for alpha, save_z in ((d["alpha"], True), (d["alpha"], False),
                           (None, True)):
         before = LAUNCHES["conv3x3_fwd_train"]
@@ -1798,18 +1811,35 @@ def test_training_kernels_match_plain(cin, cout):
         assert (z is None) == (z0 is None)
         if z is not None:
             _rel_close(z, z0, "T1 z")
+        y2, z2 = train.conv3x3_fwd_train(d["x"], d["w"], d["b"], alpha,
+                                         save_z)
+        assert torch.equal(y, y2) and (z is None or torch.equal(z, z2))
     dzp, da = train.conv3x3_dgrad(d["dz"], d["w"], d["z_prev"],
                                   d["alpha_prev"])
-    dzp0, da0 = train.conv3x3_dgrad_plain(d["dz"], d["w"], d["z_prev"],
-                                          d["alpha_prev"])
+    # the plain versions at the other shapes in float64 (T2's too: its
+    # d(alpha) sums every pixel)
+    f = (lambda t: t) if shape == TRAIN_SHAPES[0] else (lambda t: t.double())
+    dzp0, da0 = train.conv3x3_dgrad_plain(f(d["dz"]), f(d["w"]),
+                                          f(d["z_prev"]),
+                                          f(d["alpha_prev"]))
     _rel_close(dzp, dzp0, "T2 dz_prev")
     _rel_close(da, da0, "T2 dalpha")
     dw, db = train.conv3x3_wgrad(d["x"], d["dz"])
-    dw0, db0 = train.conv3x3_wgrad_plain(d["x"], d["dz"])
+    dw0, db0 = train.conv3x3_wgrad_plain(f(d["x"]), f(d["dz"]))
     _rel_close(dw, dw0, "T3 dw")
     _rel_close(db, db0, "T3 db")
     dw2, db2 = train.conv3x3_wgrad(d["x"], d["dz"])
     assert torch.equal(dw, dw2) and torch.equal(db, db2)
+
+
+@pytest.mark.cuda
+def test_t1_and_t3_run_on_wgmma_in_each_kernel():
+    """Each of T1's and T3's 9 kernels (one a channel pair) holds wgmma
+    (HGMMA) in its SASS, each of T2's 9 float32 FMAs, and neither library
+    a TF32 product or a float atomic: no CUDA-core form of T1 or T3 is
+    left (train.sass_faults, the check the smoke's build phase runs)."""
+    _cuda()
+    assert train.sass_faults() == []
 
 
 @pytest.mark.cuda
