@@ -20,13 +20,12 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               both IGMMA and HGMMA, and no library any __dp4a (IDP.4A) or
               mma.sync (HMMA, IMMA); float32 conv_last's library
               (conv_last_f32.cu, float32 FMAs) must hold FFMA and spill
-              nothing, and so must T2's (conv3x3_train.cu), FFMA in each
-              of its 9 kernels; T1's and T3's library
+              nothing; the training library of T1, T2 and T3
               (conv3x3_train_tc.cu) must hold wgmma (HGMMA) in each of
-              its 18 kernels, no TF32 product and, like T2's, no float
-              atomic (RED or ATOM on F32) (kernels.train.sass_faults,
-              which the card test runs too), and its HGMMA count and
-              spill bytes are reported kernel by kernel;
+              its 27 kernels, no TF32 product and no float atomic (RED
+              or ATOM on F32) (kernels.train.sass_faults, which the card
+              test runs too), and its HGMMA count and spill bytes are
+              reported kernel by kernel;
   3. kernels  K3, K1 and K2 at the main path's shapes (1080p frames, a
               batch of 4, x4), all on the tensor cores, in bfloat16
               (conv3x3.cu, conv3x3_tc.cu) and float32 (as six bf16
@@ -192,10 +191,9 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               the unaligned job's byte for byte;
  13. train    training on the card, at realesr-animevideov3 x4's full
               width (64 features, 16 convs), LR patches of 64 x 64 in
-              batches of 8: T1, T2 and T3 (T1 and T3 on bf16 wgmma as six
-              products of their split float32 operands,
-              csrc/conv3x3_train_tc.cu; T2 float32 FMAs,
-              csrc/conv3x3_train.cu) at every channel pair they take (Cin
+              batches of 8: T1, T2 and T3 (on bf16 wgmma as six products
+              of their split float32 operands, csrc/conv3x3_train_tc.cu)
+              at every channel pair they take (Cin
               3, 64, 128 x Cout 48, 64, 128) on seeded inputs, each
               against its plain version (max |d| <= 1e-5 x max |ref|, T3
               5e-5: its sums run over the step's 32,768 pixels), timed
@@ -203,10 +201,9 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               the host's launch cost), cuDNN's call of the same function
               (library_ms: F.conv2d, aten.convolution_backward; TF32 off)
               and its bound on its own route (bound_ms: six bf16
-              products on the tensor cores for T1 and T3, float32 FMAs
-              on the CUDA cores for T2; beside it both, as
-              bound_ms_bf16x6 and bound_ms_fma_f32), with a step's sums
-              of each;
+              products on the tensor cores; beside it both that and
+              float32 FMAs on the CUDA cores, as bound_ms_bf16x6 and
+              bound_ms_fma_f32), with a step's sums of each;
               a fine-tune of the
               shipped x4 model through train.Trainer, 20 steps of
               train.data.batches_from_video over the main job's y4m (HR
@@ -305,15 +302,15 @@ TILE = 512
 #: without float residuals), per 64-channel chunk 18 (s8) a warpgroup's
 #: row, four rows at N = 32 and two at 64; P1 one kernel for each count of
 #: 32-B k steps, its dot's wgmmas unrolled: s8 1 + ... + 8 (IGMMA), bf16
-#: 1 + ... + 16 (HGMMA); T1 12 a unit (two k16 steps, six products each)
-#: in each of its 9 kernels, T3 48 a tile (eight k16 steps) in each of its
-#: 9
+#: 1 + ... + 16 (HGMMA); T1 and T2 12 a unit (two k16 steps, six
+#: products each) in each of their 9 kernels, T3 48 a tile (eight k16
+#: steps) in each of its 9
 P1_IGMMA, P1_HGMMA = sum(range(1, 9)), sum(range(1, 17))
 MIN_WGMMA = {"conv3x3_tc.cu": 5 * 36, "conv3x3_f32_tc.cu": 4 * 216,
              "conv3x3_s8.cu": 4 * 18, "conv3x3.cu": 2 * (2 + 12) + 7 + 42,
              "dot_probe.cu": P1_IGMMA + P1_HGMMA,
              "rrdb.cu": 2 * (18 + 54), "rrdb_s8.cu": 2 * (4 * 18 + 2 * 18),
-             "conv3x3_train_tc.cu": 9 * 12 + 9 * 48}
+             "conv3x3_train_tc.cu": 2 * 9 * 12 + 9 * 48}
 
 
 def emit(obj) -> None:
@@ -2206,7 +2203,7 @@ TRAIN_NOISE_REL = 1e-6
 TRAIN_KERNELS = ("conv3x3_fwd_train", "conv3x3_dgrad", "conv3x3_wgrad")
 #: the route each runs its products on, whose rate its bound_ms takes:
 #: six bf16 products on wgmma (989 TF/s) or float32 FMAs (67 TF/s)
-TRAIN_ROUTE = {"conv3x3_fwd_train": "bf16x6", "conv3x3_dgrad": "fma_f32",
+TRAIN_ROUTE = {"conv3x3_fwd_train": "bf16x6", "conv3x3_dgrad": "bf16x6",
                "conv3x3_wgrad": "bf16x6"}
 FAST_MODEL = "realesr-animevideov3-fast"
 #: the 128-feature student: reve_tpu_torch/scripts/distill.py's default
@@ -2684,24 +2681,20 @@ def main() -> int:
         if not last["sass_ops"].get("FFMA") or last["spill_bytes"] != 0:
             raise AssertionError(f"{head.LAST_F32_SOURCE}: {last}, expected "
                                  f"FFMA and no spills")
-        # T2 likewise no spill; train.sass_faults: FFMA in each of T2's 9
-        # kernels (one a channel pair), HGMMA in each of T1's and T3's 9 (no
-        # CUDA-core form of them is left), and neither training library a
-        # TF32 product or a float atomic
-        if rec["sources"][train.SOURCE]["spill_bytes"] != 0:
-            raise AssertionError(f"{train.SOURCE}: spills "
-                                 f"{rec['sources'][train.SOURCE]}")
+        # train.sass_faults: HGMMA in each of T1's, T2's and T3's 9
+        # kernels (one a channel pair: no CUDA-core form of them is left),
+        # and no TF32 product or float atomic in the training library
         faults = train.sass_faults()
         if faults:
             raise AssertionError("; ".join(faults))
-        by_k = sass_ops(train.TC_SOURCE)["by_kernel"]
-        tc = rec["sources"][train.TC_SOURCE]
+        by_k = sass_ops(train.SOURCE)["by_kernel"]
+        tc = rec["sources"][train.SOURCE]
         tc["hgmma_by_kernel"] = {kernel_label(k): o.get("HGMMA", 0)
                                  for k, o in sorted(by_k.items())}
         tc["spill_bytes_by_kernel"] = {
             kernel_label(k): n
-            for k, n in sorted(build.spills(train.TC_SOURCE).items())}
-        print(f"# {train.TC_SOURCE}: HGMMA {tc['hgmma_by_kernel']}; spill "
+            for k, n in sorted(build.spills(train.SOURCE).items())}
+        print(f"# {train.SOURCE}: HGMMA {tc['hgmma_by_kernel']}; spill "
               f"bytes {tc['spill_bytes_by_kernel']}", flush=True)
 
     weights = os.path.join(ROOT, "models", "realesr-animevideov3-x4.pth")
@@ -3224,7 +3217,7 @@ def main() -> int:
             "reve_tpu_torch/kernels/csrc/conv3x3_train_tc.cu",
             "reve_tpu/models/srvgg.py:88"),
         "conv3x3_dgrad": (
-            "reve_tpu_torch/kernels/csrc/conv3x3_train.cu",
+            "reve_tpu_torch/kernels/csrc/conv3x3_train_tc.cu",
             "reve_tpu/train/trainer.py:66"),
         "conv3x3_wgrad": (
             "reve_tpu_torch/kernels/csrc/conv3x3_train_tc.cu",
@@ -3254,7 +3247,7 @@ def main() -> int:
     designs = {"split_bf16x3": "elementwise",
                "tta_accumulate": "smem_transpose",
                "conv3x3_fwd_train": "wgmma_bf16x6",
-               "conv3x3_dgrad": "fma_f32",
+               "conv3x3_dgrad": "wgmma_bf16x6",
                "conv3x3_wgrad": "wgmma_bf16x6"}
     f32_forms = {
         "conv3x3_u8_bias_prelu": ("reve_tpu_torch/kernels/csrc/conv3x3.cu",

@@ -60,12 +60,11 @@ only: it stages tiles of the transformed output through shared memory
 (csrc/tta.cu).  float32 conv_last (N = 3, where wgmma's operand reads,
 not its math, would set the pace) sums float32 FMAs on the CUDA cores
 over its input read once by TMA, with no split pass
-(csrc/conv_last_f32.cu).  T1 and T3, the training path's forward and
-weight-gradient convs, run on bf16 wgmma as six products of their float32
-operands split in three by the threads that stage them
-(csrc/conv3x3_train_tc.cu; T3's operands MN-major, through wgmma's
-transpose flags); T2, the input gradient, is a float32 implicit GEMM on
-the CUDA cores (csrc/conv3x3_train.cu).
+(csrc/conv_last_f32.cu).  T1, T2 and T3, the training path's forward,
+input-gradient and weight-gradient convs, run on bf16 wgmma as six
+products of their float32 operands split in three by the threads that
+stage them (csrc/conv3x3_train_tc.cu; T2 over dz's halo at the mirrored
+taps, T3's operands MN-major, through wgmma's transpose flags).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback.  `LAUNCHES` counts

@@ -38,11 +38,26 @@
 // three, hi.hi in its own accumulators, as conv3x3_f32_tc.cu does: the
 // tensor cores add in their own order and may truncate).  One template
 // serves the four kernels (K3 and K4a, each in both compute dtypes).
-//  * The template's R is the unshuffle factor (Geo<R>): 1 for K3 and K4a
-//    (Cin 3), 2 for K3 at Cin 12, whose halo is read in place from the
-//    x2 frame (6 u8 rows of 132 pixels for a tile's 3 unshuffled rows of
+//  * The template's R is the unshuffle factor (Geo<R, TH>): 1 for K3 and
+//    K4a (Cin 3), 2 for K3 at Cin 12, whose halo is read in place from
+//    the x2 frame (2 u8 rows of 132 pixels for each unshuffled row of
 //    66); no unshuffled copy is written.  The numbers below are R = 1's;
-//    Geo<2> has them at Cin 12 (36 values a pixel, K = 108 in 112).
+//    K3 at Cin 12's follow them.
+//  * K3 at Cin 12 (R = 2; K = 108 in 112, 7 k16 steps): staging its
+//    halo had cost it more than its wgmmas in bfloat16 (PERF.md: 792
+//    (row, pixel) pairs a 64-pixel row, each 3 scattered 2-B or 8-B
+//    stores, every unshuffled row staged by the three rows that read
+//    it).  So its tiles are TH rows tall (4 in bfloat16, 2 in float32,
+//    whose taller halo would leave one block an SM), their halo (TH + 2
+//    unshuffled rows) staged once and read by the TH rows in turn, each
+//    row with its own wgmmas, epilogue and store; a halo pixel holds its
+//    TH + 2 rows x 12 channels, so output row i reads the 36 values of
+//    rows i .. i + 2 at 12 i on; and a staging task is one whole
+//    unshuffled pixel: its two u8 rows' 6 bytes as the words that hold
+//    them, its 12 values, 4 consecutive slots a channel, as 3 8-B (bf16)
+//    or 6 16-B (float32) stores.  The k order, the wgmmas and the
+//    epilogue are R = 1's, so the output is what the 1-row form wrote,
+//    bit for bit.
 //  * Blocks of one warpgroup, persistent, several on each SM (U8::BLOCKS,
 //    measured), walk tiles of one row of 64 pixels.  Each block packs the
 //    HWIO weights once into the B operand in shared memory ([split][k /
@@ -91,31 +106,52 @@ constexpr int HALO_PX = TW + 2;           // halo pixels of a tile row
 // next NOUT - 1 tiles compute
 constexpr int NOUT = 2;
 
-// The halo's geometry at unshuffle factor R: the u8 frame is (R H, R W,
-// 3), a conv input pixel (y, x) its R x R block, CIN = 3 R^2 channels.
-template <int R>
+// The halo's geometry at unshuffle factor R for tiles of TH rows and
+// staged values of V bytes: the u8 frame is (R H, R W, 3), a conv input
+// pixel (y, x) its R x R block, CIN = 3 R^2 channels; a tile's halo is TH
+// + 2 conv input rows of 66 pixels.
+template <int R, int TH, int V>
 struct Geo {
+  static constexpr int FACTOR = R;
   static constexpr int CIN = 3 * R * R;    // 3, 12
-  // halo values a pixel: its 3 rows x CIN channels (R = 1: 9 + 0)
-  static constexpr int SLOTS = R == 1 ? 10 : 3 * CIN;   // 10, 36
-  // K: 3 SLOTS, padded to whole k16 steps: 27 in 32, 108 in 112
+  static constexpr int HROWS = TH + 2;     // conv input rows of the halo
+  // the values an output row reads of a halo pixel: 3 rows x CIN
+  // channels (R = 1: 9 + 1 zero)
+  static constexpr int WIN = R == 1 ? 10 : 3 * CIN;        // 10, 36
+  // halo values a pixel: its HROWS rows x CIN channels (R = 1: WIN), the
+  // window of output row i CIN i on; float32's (V 8) padded by 8 zeros,
+  // so that the 16-B reads and writes of neighbouring pixels fall 4
+  // chunks of 16 B apart in the banks, not on the same ones
+  static constexpr int SLOTS =
+      R == 1 ? WIN : HROWS * CIN + (V == 8 ? 8 : 0);  // 10; 56, 72
+  // K: 3 WIN, padded to whole k16 steps: 27 in 32, 108 in 112
   static constexpr int KP = R == 1 ? 32 : 112;
   static constexpr int KSTEPS = KP / 16;
   // halo values: 66 pixels x SLOTS, and what the last pixel's highest k
   // read past them (zeros)
   static constexpr int HALO_VALS = HALO_PX * SLOTS + (R == 1 ? 12 : 8);
-  static constexpr int ROWS = 3 * R;       // u8 rows of a tile's halo
+  static constexpr int ROWS = HROWS * R;   // u8 rows of a tile's halo
   static constexpr int ROW_PX = HALO_PX * R;   // u8 pixels of such a row
   // 4-B words read of a halo row: its 198 R bytes from up to 3 bytes
   // into the first (51, 100); a thread reads words t + 128 n
   static constexpr int ROW_WORDS = (ROW_PX * 3 + 6) / 4;
-  static constexpr int WORDS = ROWS * ROW_WORDS;      // 153, 600
-  static constexpr int NW = (WORDS + THREADS - 1) / THREADS;   // 2, 5
-  static constexpr int RAW_ROW = R == 1 ? 256 : 400;  // raw buffer rows
-  static constexpr int PAIRS = ROWS * ROW_PX;  // (row, pixel): 198, 792
-  static constexpr int NP = (PAIRS + THREADS - 1) / THREADS;   // 2, 7
-  static_assert(ROW_WORDS * 4 <= RAW_ROW, "a raw row holds its words");
-  static_assert(3 * SLOTS <= KP && (TW - 1) * SLOTS + KP <= HALO_VALS,
+  static constexpr int WORDS = ROWS * ROW_WORDS;      // 153; 800, 1200
+  static constexpr int NW = (WORDS + THREADS - 1) / THREADS;  // 2; 7, 10
+  // raw buffer rows (R = 2: 16 B past the words, which the last pixel
+  // pair's three-word read reaches)
+  static constexpr int RAW_ROW = R == 1 ? 256 : 416;
+  // staging tasks: R = 1 (u8 row, u8 pixel), 198; R = 2 (halo row, halo
+  // pixel), 264 at TH 2, 396 at TH 4
+  static constexpr int TASKS = R == 1 ? ROWS * ROW_PX : HROWS * HALO_PX;
+  static constexpr int NP = (TASKS + THREADS - 1) / THREADS;   // 2; 3, 4
+  static_assert(ROW_WORDS * 4 + (R == 1 ? 0 : 16) <= RAW_ROW,
+                "a raw row holds its words (and the last pair's read)");
+  static_assert(R == 1 || V != 8 || SLOTS * V / 16 % 8 == 4,
+                "float32's neighbouring halo pixels 4 chunks apart");
+  // A's highest read: pixel 63's value k 111 of row TH - 1 at dx 2
+  static_assert(3 * WIN <= KP &&
+                    (TW - 1) * SLOTS + CIN * (TH - 1) + KP +
+                            2 * (SLOTS - WIN) <= HALO_VALS,
                 "A's reads stay in the halo");
 };
 
@@ -123,8 +159,11 @@ struct Geo {
 // R: the unshuffle factor (Geo).
 template <typename T, typename TOut, int R = 1>
 struct U8 {
-  using G = Geo<R>;
   static constexpr bool F32 = std::is_same<T, float>::value;
+  // output rows a tile (R = 2: four in bfloat16, two in float32, whose
+  // taller halo would leave room for one block an SM)
+  static constexpr int TH = R == 1 ? 1 : (F32 ? 2 : 4);
+  using G = Geo<R, TH, F32 ? 8 : 2>;
   static constexpr bool Q8 = std::is_same<TOut, int8_t>::value;
   static constexpr int SPLITS = F32 ? 3 : 1;          // hi (, mid, lo)
   static constexpr int W_BYTES = SPLITS * G::KP * COUT * 2;
@@ -156,9 +195,10 @@ struct U8 {
                 "16-B aligned halo reads");
 };
 
-// The persistent walk over tiles of one row of 64 pixels, x fastest:
-// image b, row y, tile column xt, advanced by `step` tiles with no
-// division (gx = step % tx, gy = step / tx, taken once).
+// The persistent walk over tiles of TH rows of 64 pixels, x fastest:
+// image b, row tile y (of H = the image's row tiles), tile column xt,
+// advanced by `step` tiles with no division (gx = step % tx, gy = step /
+// tx, taken once).
 struct Walk {
   int b, y, xt;
   __device__ Walk(int tile, int H, int tx)
@@ -185,12 +225,12 @@ struct Walk {
 // frame or bytes outside the frames' `bytes`.  Plain loads into
 // registers: a thread's proxy fence waits for them, so they are issued
 // right after it.
-template <int R>
+template <class G>
 __device__ __forceinline__ void fetch(const uint8_t* __restrict__ x,
                                       int bytes, int b, int y0, int x0,
                                       int H, int W, int t,
-                                      uint32_t (&v)[Geo<R>::NW]) {
-  using G = Geo<R>;
+                                      uint32_t (&v)[G::NW]) {
+  constexpr int R = G::FACTOR;
   const int HU = R * H, WU = R * W;
 #pragma unroll
   for (int n = 0; n < G::NW; ++n) {
@@ -212,10 +252,9 @@ __device__ __forceinline__ void fetch(const uint8_t* __restrict__ x,
 }
 
 // ... and their place in the raw buffer: row r at r * RAW_ROW.
-template <int R>
+template <class G>
 __device__ __forceinline__ void put_words(unsigned char* raw, int t,
-                                          const uint32_t (&v)[Geo<R>::NW]) {
-  using G = Geo<R>;
+                                          const uint32_t (&v)[G::NW]) {
 #pragma unroll
   for (int n = 0; n < G::NW; ++n) {
     const int j = t + 128 * n, r = j / G::ROW_WORDS;
@@ -247,64 +286,120 @@ __device__ __forceinline__ void unit_entry(unsigned char* table, int u) {
 }
 
 // Stage the raw halo as the A operand's source, through the table, 2 B
-// (bf16) or 8 B (float32's three splits) a value: the 3 values of u8 row
-// r, u8 pixel u of the halo go to conv input pixel u / R, at slot
-// CIN (r / R) + R (r % R) + u % R + R^2 c of its SLOTS: with dy = r / R
-// and the unshuffled channel R^2 c + R (r % R) + u % R, slot CIN dy + ch
-// (R = 1: 3 r + c of 10, slot 9 zero).  Each thread converts the pairs
-// (r, u) t + 128 n; rows and pixels outside the frame read `zeros`.  A
-// row's first pixel starts s_r % 4 bytes into its first word.
-template <bool F32, int R>
+// (bf16) or 8 B (float32's three splits) a value.
+//  * R = 1: the 3 values of u8 row r, pixel u of the halo go to halo
+//    pixel u at slot 3 r + c of its 10 (slot 9 zero).  Each thread
+//    converts the pairs (r, u) t + 128 n; rows and pixels outside the
+//    frame read `zeros`.  A row's first pixel starts s_r % 4 bytes into
+//    its first word.
+//  * R = 2: task (halo row dy, halo pixel X), t + 128 n with dy fastest
+//    (neighbouring threads' stores 12 values apart, not SLOTS), is conv
+//    input pixel X of row y0 - 1 + dy: u8 rows 2 (y0 - 1 + dy) + i and u8
+//    pixels 2 (x0 - 1 + X) + j, i, j < 2, unshuffled channel 4 c + 2 i +
+//    j at slot CIN dy + 4 c + 2 i + j of halo pixel X's SLOTS.  So each c
+//    is four consecutive slots, one 8-B (bf16) or two 16-B (float32)
+//    stores, and a row's 6 bytes of the pixel pair are read as the 3
+//    words that hold them.  Rows and pixels outside the frame are u8 0.
+template <bool F32, class G>
 __device__ __forceinline__ void stage(unsigned char* halo,
                                       const unsigned char* raw,
                                       const unsigned char* zeros,
                                       const unsigned char* table, int t,
                                       int b, int y0, int x0, int H, int W) {
   using E = typename std::conditional<F32, uint2, unsigned short>::type;
-  using G = Geo<R>;
+  constexpr int R = G::FACTOR;
   const int HU = R * H, WU = R * W;
   const int s0 = ((b * HU + R * (y0 - 1)) * WU + R * (x0 - 1)) * 3;
+  const E* tab = reinterpret_cast<const E*>(table);
 #pragma unroll
   for (int n = 0; n < G::NP; ++n) {
     const int m = t + THREADS * n;
-    if (m >= G::PAIRS) break;
-    const int r = m / G::ROW_PX, u = m - r * G::ROW_PX;
-    const int s = s0 + r * WU * 3;
-    const bool in = (unsigned)(R * (y0 - 1) + r) < (unsigned)HU &&
-                    (unsigned)(R * (x0 - 1) + u) < (unsigned)WU;
-    const unsigned char* src =
-        in ? raw + r * G::RAW_ROW + (s & 3) + u * 3 : zeros;
-    E* dst = reinterpret_cast<E*>(halo) + (u / R) * G::SLOTS +
-             G::CIN * (r / R) + R * (r % R) + u % R;
+    if (m >= G::TASKS) break;
+    if constexpr (R == 1) {
+      const int r = m / G::ROW_PX, u = m - r * G::ROW_PX;
+      const int s = s0 + r * WU * 3;
+      const bool in = (unsigned)(y0 - 1 + r) < (unsigned)HU &&
+                      (unsigned)(x0 - 1 + u) < (unsigned)WU;
+      const unsigned char* src =
+          in ? raw + r * G::RAW_ROW + (s & 3) + u * 3 : zeros;
+      E* dst = reinterpret_cast<E*>(halo) + u * G::SLOTS + 3 * r;
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      dst[R * R * c] = reinterpret_cast<const E*>(table)[src[c]];
+      for (int c = 0; c < 3; ++c) dst[c] = tab[src[c]];
+    } else {
+      const int X = m / G::HROWS, dy = m - X * G::HROWS;
+      const bool in = (unsigned)(y0 - 1 + dy) < (unsigned)H &&
+                      (unsigned)(x0 - 1 + X) < (unsigned)W;
+      // bytes 0-5 of each row: pixel 2X's channels, then pixel 2X + 1's
+      uint32_t lo[2] = {0, 0}, hi[2] = {0, 0};
+      if (in) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int o = ((s0 + (2 * dy + i) * WU * 3) & 3) + 6 * X;
+          const uint32_t* w = reinterpret_cast<const uint32_t*>(
+                                  raw + (2 * dy + i) * G::RAW_ROW) +
+                              (o >> 2);
+          const uint32_t w0 = w[0], w1 = w[1], w2 = w[2];
+          lo[i] = __funnelshift_r(w0, w1, 8 * (o & 3));
+          hi[i] = __funnelshift_r(w1, w2, 8 * (o & 3));
+        }
+      }
+      E* dst = reinterpret_cast<E*>(halo) + X * G::SLOTS + G::CIN * dy;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        // (i, j) = (0, 0), (0, 1), (1, 0), (1, 1): byte c and 3 + c
+        E v[4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          v[2 * i] = tab[(lo[i] >> 8 * c) & 0xFF];
+          v[2 * i + 1] =
+              tab[((c == 0 ? lo[i] >> 24 : hi[i] >> 8 * (c - 1))) & 0xFF];
+        }
+        if constexpr (F32) {
+          uint4* d = reinterpret_cast<uint4*>(dst + 4 * c);
+          d[0] = make_uint4(v[0].x, v[0].y, v[1].x, v[1].y);
+          d[1] = make_uint4(v[2].x, v[2].y, v[3].x, v[3].y);
+        } else {
+          *reinterpret_cast<uint2*>(dst + 4 * c) =
+              make_uint2(v[0] | (uint32_t)v[1] << 16,
+                         v[2] | (uint32_t)v[3] << 16);
+        }
+      }
+    }
   }
 }
 
 // The row's GEMM, this thread's part: the A fragments of all KSTEPS k16
 // steps from the staged halo, then the wgmmas, waited on.  With taps
-// numbered column by column, k = SLOTS dx + CIN dy + c (R = 1: 10 dx +
-// 3 dy + c), the value k of output pixel p is halo value SLOTS p + k:
-// register r of step kc holds pixel pa + 8 (r % 2), k = 2q + 16 kc + 8 (r
-// / 2) + {0, 1}, one aligned read (bf16: 4 B; float32: 16 B, both values'
-// hi | mid, lo).  float32: hi.hi into `acc`, the five smaller products
-// into `cor`, smallest first.
-template <bool F32, int R>
+// numbered column by column, k = WIN dx + CIN dy + c (R = 1: 10 dx + 3 dy
+// + c), the value k of output pixel p of the tile's row i is halo value
+// SLOTS (p + dx) + CIN (i + dy) + c = SLOTS p + CIN i + k + (SLOTS - WIN)
+// dx: register r of step kc holds pixel pa + 8 (r % 2), k = 2q + 16 kc +
+// 8 (r / 2) + {0, 1}, one aligned read (bf16: 4 B; float32: 16 B, both
+// values' hi | mid, lo) from `a_src` (pixel pa, k 2q, row i).  At R = 2
+// only k 32..39 crosses a dx (at 36: q >= 2 reads dx 1, `cross` values
+// on), and k 108..111 (zero weights) read the values after k 107.
+// float32: hi.hi into `acc`, the five smaller products into `cor`,
+// smallest first.
+template <bool F32, class G>
 __device__ __forceinline__ void mma_row(float (&acc)[32], float (&cor)[32],
                                         const unsigned char* a_src,
-                                        uint32_t w) {
-  using G = Geo<R>;
+                                        int cross, uint32_t w) {
   constexpr int KS = G::KSTEPS;
   constexpr int WPLANE = G::KP * COUT * 2;
   constexpr int V = F32 ? 8 : 2;  // bytes of a staged value
+  constexpr int PAD = G::SLOTS - G::WIN;  // 0 at R = 1
   uint32_t a[F32 ? 3 : 1][KS][4];
 #pragma unroll
   for (int kc = 0; kc < KS; ++kc)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
+      const int k0 = kc * 16 + (r >> 1) * 8;
+      const int dx = PAD ? k0 / G::WIN : 0;
+      const bool crosses = PAD && k0 % G::WIN + 8 > G::WIN &&
+                           k0 + 8 <= 3 * G::WIN;
       const unsigned char* p =
-          a_src + ((r & 1) * 8 * G::SLOTS + kc * 16 + (r >> 1) * 8) * V;
+          a_src + ((r & 1) * 8 * G::SLOTS + k0 + PAD * dx) * V +
+          (crosses ? cross : 0);
       if constexpr (F32) {
         const uint4 e = *reinterpret_cast<const uint4*>(p);
         a[0][kc][r] = __byte_perm(e.x, e.z, 0x5410);  // hi
@@ -429,21 +524,20 @@ __device__ __forceinline__ void epilogue(unsigned char* st,
 
 // The block's B operand, packed from the HWIO weights (3, 3, CIN, 64) in
 // the compute dtype: [split][k / 8][n][8] bf16 (core matrices of 8 rows x
-// 16 B, K-major), tap (dy, dx), channel c at k = SLOTS dx + CIN dy + c and
+// 16 B, K-major), tap (dy, dx), channel c at k = WIN dx + CIN dy + c and
 // zeros at the other k (R = 1: 9, 19, 29..31; R = 2: 108..111;
 // kernels/conv3x3.py pack_weights_u8conv is its reference); float32 as
 // its bf16 hi, mid, lo, one split a plane.  Packed here, once a block,
 // not by the wrapper: the small torch ops of a packing took longer than
 // a tenth of the kernel.
-template <typename T, int R>
+template <typename T, class G>
 __device__ __forceinline__ void pack_weights(bf16* ws,
                                              const T* __restrict__ w,
                                              int t) {
-  using G = Geo<R>;
   constexpr int KP = G::KP, CIN = G::CIN;
   for (int i = t; i < KP * COUT; i += THREADS) {
     const int k = i / COUT, n = i - k * COUT;
-    const int dx = k / G::SLOTS, s = k - G::SLOTS * dx;  // s = CIN dy + c
+    const int dx = k / G::WIN, s = k - G::WIN * dx;  // s = CIN dy + c
     const float v =
         dx < 3 && s < 3 * CIN
             ? reve::to_float(
@@ -472,7 +566,7 @@ conv3x3_u8_tc_kernel(const __grid_constant__ CUtensorMap out_map,
                      const float* __restrict__ alpha,
                      const float* __restrict__ inv, int B, int H, int W) {
   using U = U8<T, TOut, R>;
-  using G = Geo<R>;
+  using G = typename U::G;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
   unsigned char* halo = smem + U::OFF_HALO;
@@ -485,24 +579,27 @@ conv3x3_u8_tc_kernel(const __grid_constant__ CUtensorMap out_map,
   for (int i = t; i < G::HALO_VALS * U::V / 4; i += THREADS)
     reinterpret_cast<uint32_t*>(halo)[i] = 0;
   if (t < 4) reinterpret_cast<uint32_t*>(smem + U::OFF_ZEROS)[t] = 0;
-  pack_weights<T, R>(reinterpret_cast<bf16*>(smem + U::OFF_W), w, t);
+  pack_weights<T, G>(reinterpret_cast<bf16*>(smem + U::OFF_W), w, t);
   fence_proxy_async();
   __syncthreads();
 
   // the grid never exceeds the tile count; each block walks its tiles
   // `step` apart and reads the halo words of the tile after next
-  const int tx = (W + TW - 1) / TW, count = B * H * tx, step = gridDim.x;
+  constexpr int TH = U::TH;
+  const int tx = (W + TW - 1) / TW, ty = (H + TH - 1) / TH;
+  const int count = B * ty * tx, step = gridDim.x;
   const int gx = step % tx, gy = step / tx,
             bytes = B * H * W * G::CIN;  // the u8 frames'
   unsigned char* raw = smem + U::OFF_RAW;
-  Walk cur(blockIdx.x, H, tx), ahead = cur;
+  Walk cur(blockIdx.x, ty, tx), ahead = cur;
   uint32_t words[G::NW];
-  fetch<R>(x, bytes, ahead.b, ahead.y, ahead.xt * TW, H, W, t, words);
-  put_words<R>(raw, t, words);
-  ahead.advance(gx, gy, tx, H);
+  fetch<G>(x, bytes, ahead.b, ahead.y * TH, ahead.xt * TW, H, W, t, words);
+  put_words<G>(raw, t, words);
+  ahead.advance(gx, gy, tx, ty);
   if (blockIdx.x + step < count)
-    fetch<R>(x, bytes, ahead.b, ahead.y, ahead.xt * TW, H, W, t, words);
-  ahead.advance(gx, gy, tx, H);
+    fetch<G>(x, bytes, ahead.b, ahead.y * TH, ahead.xt * TW, H, W, t,
+             words);
+  ahead.advance(gx, gy, tx, ty);
   __syncthreads();
   // this thread's channels 8j + 2q + e: bias, and alpha as the dtype
   // rounds it (the wrapper rounds it, so the bf16 pairs are exact)
@@ -518,39 +615,50 @@ conv3x3_u8_tc_kernel(const __grid_constant__ CUtensorMap out_map,
     al2[j] = __floats2bfloat162_rn(al[2 * j], al[2 * j + 1]);
   }
   const float inv_s = U::Q8 ? *inv : 0.f;
+  // pixel pa, k 2q; past the dx that k 32..39 crosses at R = 2
   const unsigned char* a_src = halo + (pa * G::SLOTS + 2 * q) * U::V;
-  for (int tile = blockIdx.x, it = 0; tile < count; tile += step, ++it) {
-    const int buf = it % NOUT;
+  const int cross = 2 * q >= G::WIN % 8 ? (G::SLOTS - G::WIN) * U::V : 0;
+  for (int tile = blockIdx.x, it = 0; tile < count; tile += step) {
+    const int y0 = cur.y * TH;
     // every thread read the last staged halo before the barrier after
     // its wgmmas, and these raw words were put before the last barrier
-    stage<U::F32, R>(halo, raw, smem + U::OFF_ZEROS, table, t, cur.b,
-                     cur.y, cur.xt * TW, H, W);
-    // this tile's staging buffer was read out by the store NOUT tiles ago
-    if (t == 0) bulk_wait_read<NOUT - 1>();
-    __syncthreads();
-    float acc[32], cor[32];
-    mma_row<U::F32, R>(acc, cor, a_src, base + (uint32_t)U::OFF_W);
-    unsigned char* st = smem + buf * U::OUT_BYTES;
-    epilogue<T, TOut>(st, acc, cor, bi, al, al2, inv_s, pa, q);
-    // the next tile's halo words, read a tile ago (every thread is done
-    // with the raw buffer: it staged this tile's before the barrier)
-    put_words<R>(raw, t, words);
-    fence_proxy_async();  // the staged row becomes visible to TMA
-    __syncthreads();
-    if (t == 0) {
-      const uint32_t src = base + buf * U::OUT_BYTES;
-      tma_store_4d(&out_map, src, 0, cur.xt * TW, cur.y, cur.b);
-      if constexpr (U::BOX_C == 32)
-        tma_store_4d(&out_map, src + TW * 128, 32, cur.xt * TW, cur.y,
-                     cur.b);
-      bulk_commit();
+    stage<U::F32, G>(halo, raw, smem + U::OFF_ZEROS, table, t, cur.b, y0,
+                     cur.xt * TW, H, W);
+    // the tile's rows, each from the one staged halo (its window CIN i
+    // values into each halo pixel)
+#pragma unroll 1
+    for (int i = 0; i < TH && y0 + i < H; ++i, ++it) {
+      const int buf = it % NOUT;
+      // this row's staging buffer was read out by the store NOUT rows ago
+      if (t == 0) bulk_wait_read<NOUT - 1>();
+      __syncthreads();
+      float acc[32], cor[32];
+      mma_row<U::F32, G>(acc, cor, a_src + G::CIN * i * U::V, cross,
+                         base + (uint32_t)U::OFF_W);
+      unsigned char* st = smem + buf * U::OUT_BYTES;
+      epilogue<T, TOut>(st, acc, cor, bi, al, al2, inv_s, pa, q);
+      // the next tile's halo words, read a tile ago (every thread is
+      // done with the raw buffer: it staged this tile's before the
+      // barrier)
+      if (i == 0) put_words<G>(raw, t, words);
+      fence_proxy_async();  // the staged row becomes visible to TMA
+      __syncthreads();
+      if (t == 0) {
+        const uint32_t src = base + buf * U::OUT_BYTES;
+        tma_store_4d(&out_map, src, 0, cur.xt * TW, y0 + i, cur.b);
+        if constexpr (U::BOX_C == 32)
+          tma_store_4d(&out_map, src + TW * 128, 32, cur.xt * TW, y0 + i,
+                       cur.b);
+        bulk_commit();
+      }
+      // the words of the tile after next: the fence above waits for
+      // every load in flight, so they are read after it
+      if (i == 0 && tile + 2 * step < count)
+        fetch<G>(x, bytes, ahead.b, ahead.y * TH, ahead.xt * TW, H, W, t,
+                 words);
     }
-    // the words of the tile after next: the fence above waits for every
-    // load in flight, so they are read after it
-    if (tile + 2 * step < count)
-      fetch<R>(x, bytes, ahead.b, ahead.y, ahead.xt * TW, H, W, t, words);
-    cur.advance(gx, gy, tx, H);
-    ahead.advance(gx, gy, tx, H);
+    cur.advance(gx, gy, tx, ty);
+    ahead.advance(gx, gy, tx, ty);
   }
   if (t == 0) bulk_wait<0>();  // the stores have read their buffers
 }
@@ -561,10 +669,11 @@ cudaError_t launch(const void* x, const void* w, const float* b,
                    const float* a, const float* inv, void* y, int B, int H,
                    int W, cudaStream_t stream) {
   using U = U8<T, TOut, R>;
-  const long long tiles = (long long)B * H * ((W + TW - 1) / TW);
+  const long long tiles =
+      (long long)B * ((H + U::TH - 1) / U::TH) * ((W + TW - 1) / TW);
   if (tiles == 0) return cudaSuccess;
   // the kernel walks tiles and addresses input bytes in int
-  if ((long long)B * H * W * Geo<R>::CIN >= (1LL << 31))
+  if ((long long)B * H * W * U::G::CIN >= (1LL << 31))
     return cudaErrorInvalidValue;
   CUtensorMap out_map;
   cudaError_t err = halo_map(&out_map, U::MAP_TYPE, (int)sizeof(TOut), y, B,

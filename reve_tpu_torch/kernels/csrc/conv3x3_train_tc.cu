@@ -1,17 +1,22 @@
-// T1 conv3x3_fwd_train and T3 conv3x3_wgrad, SRVGG's training convs, in
-// float32 on the tensor cores as six bf16 products ("bf16x6").
+// T1 conv3x3_fwd_train, T2 conv3x3_dgrad and T3 conv3x3_wgrad, SRVGG's
+// training convs, in float32 on the tensor cores as six bf16 products
+// ("bf16x6").
 //
 //   T1  z = conv3x3(x, W) + b; with a PReLU after it y = PReLU(z), and z
 //       written beside y when asked (the head has no PReLU: y = z)
+//   T2  dx = conv3x3^T(dz, W) (W rotated 180 degrees, in and out
+//       swapped), times the previous layer's PReLU'(z), and that layer's
+//       d(alpha) = sum dx * min(z, 0) as per-tile partial sums that a
+//       second kernel (sum_parts) adds in tile order
 //   T3  dW[ky, kx, ci, co] = sum_p x(p + k) dz(p), db = sum_p dz(p), over
-//       pixel splits whose partial sums a second kernel (train.cuh's
-//       sum_parts) adds in split order
+//       pixel splits whose partial sums sum_parts adds in split order
 //
 // Replaces (TPU side): reve_tpu/models/srvgg.py:88-113 (`_conv3x3` at
 // Precision.HIGHEST and `_prelu`) as reve_tpu/train/trainer.py:66 runs it
-// under jax.value_and_grad: XLA's forward conv (T1) and the weight
-// gradient its autodiff derives from it (T3).  The input gradient, T2,
-// stays on the CUDA cores in conv3x3_train.cu.
+// under jax.value_and_grad: XLA's forward conv (T1) and the input (T2)
+// and weight (T3) gradients its autodiff derives from it.  PReLU's
+// derivative at z = 0 is JAX's (1 + alpha) / 2 (lax.max and lax.min split
+// a tie's gradient in halves), and d(alpha) there is 0.
 //
 // Scheme (float32 K1's, conv3x3_f32_tc.cu): each float32 operand splits
 // into bf16 hi = bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid),
@@ -29,13 +34,14 @@
 // Cout 32,768 x 2 operations, 2.416 GFLOP at 64 -> 64 and 9.66 GFLOP at
 // 128 -> 128; as six bf16 products at 989 TFLOP/s 0.0147 and 0.0586 ms
 // (float32 FMAs at 67 TFLOP/s: 0.036 and 0.144 ms); the bytes (about 25
-// and 50 MB) take 0.0075 and 0.015 ms, so both kernels are bound by
+// and 50 MB) take 0.0075 and 0.015 ms, so all three kernels are bound by
 // their operations.
 //
 // Design.  What held the CUDA-core forms back (float32 FMAs, a
 // single-buffered 8-deep K step, T3's pixel decode a K step and x read
-// once a tap row, db as an extra tile row, 16 MB of partial sums) and
-// what this file does about it:
+// once a tap row, db as an extra tile row, 16 MB of partial sums, T2's
+// weights read transposed one float a thread) and what this file does
+// about it:
 //  * Both are implicit GEMMs on m64nNk16 wgmma with every operand staged
 //    in shared memory as its three bf16 planes.  The threads that stage
 //    an operand load it as float32 (two 16-B loads: 8 channels of one
@@ -43,10 +49,12 @@
 //    planes: no split pass runs anywhere in the step.  A pixel's 64
 //    channels are one 128-B row in the 128-B swizzle (the layout TMA
 //    writes for K1), so a tap's shift is a start moved by whole rows.
-//  * The next operand's global loads are issued before the wgmmas that
-//    read the current one and are consumed after them, so their latency
-//    hides behind the tensor cores; the split and the stores run between
-//    two barriers, never between a wgmma and its wait.
+//  * T1 and T3 issue the next operand's global loads before the proxy
+//    fence and barrier that precede the current one's wgmmas, and consume
+//    them after those: the fence waits for a thread's loads in flight, so
+//    their latency does not hide behind the tensor cores (T2 issues its
+//    weights after its wgmmas instead).  The split and the stores run
+//    between two barriers, never between a wgmma and its wait.
 //  * T1 (M = a row of 64 pixels a warpgroup, N = Cout, K = 9 Cin): a
 //    block takes 2 rows x 64 pixels (two warpgroups) and one N block (64,
 //    or 48: Wgmma<48> for the head; Cout 128 as two blocks).  The halo
@@ -61,6 +69,27 @@
 //    so one block's staging overlaps the other's wgmmas.  The epilogue
 //    keeps the CUDA-core form's rounding: + b with __fadd_rn (after acc +
 //    cor), PReLU as z > 0 ? z : alpha z, z beside y only when asked.
+//  * T2 is T1's GEMM with dz in place of x (M = a row of 64 pixels a
+//    warpgroup, N = Cin, K = 9 Cout) and the taps mirrored: output pixel
+//    q reads dz(q - o_t), o_t = (ky - 1, kx - 1), so tap t's A starts at
+//    halo row wg + 2 - ky, column 2 - kx, whole 128-B rows as in T1.  B is
+//    B[k = co][n = ci] = W[t][ci][co]: HWIO's innermost index is Cout,
+//    T2's K, so a (tap, ci) row's 8 consecutive co are one 32-B load of
+//    one column's K run, staged [k / 8][n][8] as T1's weights; no
+//    transpose.  N is Cin in 64-channel blocks (Cin 128 as two; Cin 3 at
+//    wgmma's N 8, columns 3-7 zero).  Cout 48 runs its odd units with
+//    dz's channels 48-63 staged as zeros and never read (a 16-B load
+//    there would read the next pixel).  The epilogue adds acc + cor in
+//    T1's order, reads z_prev at the accumulator fragment's positions
+//    (two adjacent channels a thread per 8-column group), writes dz_prev
+//    = PReLU'(z_prev) dx and sums d(alpha) per column over the thread's
+//    pixels, then over the 8 lanes of a column (shuffles) and the 8 warps
+//    (in warp order): one partial row a tile, summed by sum_parts in
+//    tile order.  Same shared memory and occupancy as T1: two blocks an
+//    SM.  Unlike T1, T2 issues a unit's next weights after its wgmmas,
+//    not before the proxy fence: that fence waits for the thread's loads
+//    in flight, so loads issued before it hide nothing (T2 by parts,
+//    PERF.md).
 //  * T3 (M = 64 rows of dW, N = 64 output channels, K = pixels): both
 //    operands are MN-major (K, the pixel, is the outer index of x and dz),
 //    read by wgmma with its transpose flags from the same 128-B-swizzled
@@ -103,19 +132,73 @@
 // 128 -> 48 on a step's shape with weights that differ unit to unit, as
 // chip_smoke.py's train phase and the card tests do.
 #include "tc.cuh"
-#include "train.cuh"
 
 namespace {
 
 using namespace reve::tc;
-using reve::train::dispatch;
-using reve::train::sum_parts;
 
 constexpr int TW = 64;       // tile columns
 constexpr int HP = TW + 2;   // halo pixels of a tile row
 constexpr int ROW = 128;     // bytes of a staged pixel: 64 bf16 channels
 
 constexpr int align1024(int n) { return (n + 1023) / 1024 * 1024; }
+
+// out[i] = the sum over p < parts of part[p][i]: T3's split and T2's
+// tile partials summed in an order set by the shapes alone (no float
+// atomics), so a training step repeats bit for bit.  G threads share a
+// column i, thread g summing the run of parts g * per .. (g + 1) * per -
+// 1 in order (per = ceil(parts / G)), and the G runs' sums are added in
+// g order: G 1 for T3's thousands of columns, 8 for T2's 64 or 128,
+// whose one-thread columns would each wait on 256 loads in turn.
+template <int G>
+__global__ void __launch_bounds__(256)
+    sum_parts_kernel(const float* __restrict__ part, float* __restrict__ out,
+                     int parts, int n) {
+  constexpr int COLS = 256 / G;
+  __shared__ float red[256];
+  const int t = threadIdx.x, i = blockIdx.x * COLS + t % COLS, g = t / COLS;
+  const int per = (parts + G - 1) / G, end = min(parts, (g + 1) * per);
+  float s = 0.f;
+  if (i < n)
+    for (int p = g * per; p < end; ++p)
+      s = __fadd_rn(s, part[(long long)p * n + i]);
+  if constexpr (G == 1) {
+    if (i < n) out[i] = s;
+  } else {
+    red[t] = s;
+    __syncthreads();
+    if (g == 0 && i < n) {
+#pragma unroll
+      for (int k = 1; k < G; ++k) s = __fadd_rn(s, red[t + k * COLS]);
+      out[i] = s;
+    }
+  }
+}
+
+template <int G>
+cudaError_t sum_parts(const float* part, float* out, int parts, int n,
+                      cudaStream_t st) {
+  constexpr int COLS = 256 / G;
+  sum_parts_kernel<G><<<(n + COLS - 1) / COLS, 256, 0, st>>>(part, out,
+                                                             parts, n);
+  return cudaGetLastError();
+}
+
+// Call F<CIN, COUT>::run(args...) for a channel pair the training convs
+// take: Cin 3, 64, 128 x Cout 48, 64, 128; cudaErrorInvalidValue for any
+// other.
+template <template <int, int> class F, class... A>
+cudaError_t dispatch(int cin, int cout, A... args) {
+#define REVE_PAIR(CI, CO) \
+  if (cin == CI && cout == CO) return F<CI, CO>::run(args...);
+#define REVE_ROW(CI) REVE_PAIR(CI, 48) REVE_PAIR(CI, 64) REVE_PAIR(CI, 128)
+  REVE_ROW(3)
+  REVE_ROW(64)
+  REVE_ROW(128)
+#undef REVE_ROW
+#undef REVE_PAIR
+  return cudaErrorInvalidValue;
+}
 
 // Eight float32 values (two float4) -> their hi, mid and lo planes, 8
 // bf16 (16 B) each.
@@ -283,11 +366,12 @@ __device__ __forceinline__ void load_w(const float* __restrict__ w, int k0,
   v[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
 
-// x's halo for half h of the tile at (b, y0, x0): halo pixel hp (row hp /
-// 66 from y0 - 1, column hp % 66 from x0 - 1), channels 8 j .. 8 j + 7 of
-// the half at 16-B chunk j of its 128-B row, in the 128-B swizzle.  In
-// batches of 2 tasks: their loads in flight together.
-template <class C, int CIN>
+// The halo of a (B, H, W, CH) tensor (T1's x, T2's dz) for half h of the
+// tile at (b, y0, x0): halo pixel hp (row hp / 66 from y0 - 1, column hp
+// % 66 from x0 - 1), channels 8 j .. 8 j + 7 of the half at 16-B chunk j
+// of its 128-B row, in the 128-B swizzle; zeros from channel CH on (CH
+// 48).  In batches of 2 tasks: their loads in flight together.
+template <class C, int CH>
 __device__ __forceinline__ void stage_halo(unsigned char* a,
                                            const float* __restrict__ x,
                                            int b, int y0, int x0, int h,
@@ -302,8 +386,8 @@ __device__ __forceinline__ void stage_halo(unsigned char* a,
     for (int q = 0; q < BATCH; ++q) {
       const int i = t + C::THREADS * (n0 + q), hp = i >> 3, j = i & 7;
       const int r = hp / HP, c = hp - r * HP;
-      load8<CIN>(x, b, y0 - 1 + r, x0 - 1 + c, 64 * h + 8 * j, H, W,
-                 n0 + q < N && i < TASKS, v[q]);
+      load8<CH>(x, b, y0 - 1 + r, x0 - 1 + c, 64 * h + 8 * j, H, W,
+                n0 + q < N && i < TASKS && 64 * h + 8 * j < CH, v[q]);
     }
 #pragma unroll
     for (int q = 0; q < BATCH; ++q) {
@@ -441,6 +525,199 @@ __global__ void __launch_bounds__(Fwd<CIN, COUT>::THREADS, 2)
                       z1 > 0.f ? z1 : __fmul_rn(av.y, z1));
       if (z) *reinterpret_cast<float2*>(z + o) = make_float2(z0, z1);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// T2
+
+template <int CIN, int COUT>
+struct Dgrad {
+  static constexpr int NB = CIN == 3 ? 8 : 64;     // N of a block
+  static constexpr int NBLK = CIN == 128 ? 2 : 1;
+  static constexpr int TH = 2;                     // rows: one a warpgroup
+  static constexpr int THREADS = 128 * TH;
+  static constexpr int HALVES = (COUT + 63) / 64;  // of Cout (48: one)
+  // units of K: a tap's 32 output channels
+  static constexpr int UPH = 18;                   // units a half
+  static constexpr int UNITS = HALVES * UPH;
+  // A: dz's halo, 4 x 66 pixel rows of a half
+  static constexpr int A_PLANE = align1024((TH + 2) * HP * ROW);
+  static constexpr int W_PLANE = 32 * NB * 2;      // a unit's [4][NB][8]
+  static constexpr int OFF_W = 3 * A_PLANE;
+  static constexpr int SMEM = OFF_W + 3 * W_PLANE;
+  static_assert(2 * (SMEM + 1024) <= 233472, "two blocks an SM");
+  static_assert(4 * NB <= THREADS, "a unit's weights: one task a thread");
+  static_assert(8 * NB * 4 <= A_PLANE, "d(alpha)'s warp sums fit A");
+};
+
+// This thread's task of unit u's weights: column n = n0 + (t % 8) + 8 (t /
+// 32) (a ci), k = 8 kc .. 8 kc + 7 with kc = (t / 8) % 4, i.e. output
+// channels co = 64 (u / 18) + 32 (u % 2) + 8 kc .. + 7 of tap (u % 18) /
+// 2: W[tap][n][co .. co + 7], 32 consecutive bytes, zeros past Cin or
+// Cout.  A warp reads 8 columns' whole 128-B runs; 8 threads of one kc
+// store 8 consecutive 16-B rows (no bank conflict).  One row index a
+// unit, the two loads at fixed offsets from it (see "The weights'
+// addresses" in the head note).  No branch: it runs between T2's wgmmas
+// and their wait, where a branch on the thread would serialise them; a
+// task with no weights (Cin 3's columns 3-7, Cout 48's channels 48-63)
+// loads w's first 32 B and keeps zeros.
+template <class C, int CIN, int COUT>
+__device__ __forceinline__ void load_wt(const float* __restrict__ w, int u,
+                                        int n0, int t, float4 (&v)[2]) {
+  const int kc = (t >> 3) & 3, n = n0 + (t & 7) + 8 * (t >> 5);
+  const int h = u / C::UPH, q = u - h * C::UPH;
+  const int co = 64 * h + 32 * (q & 1) + 8 * kc;
+  const bool ok = (4 * C::NB == C::THREADS || t < 4 * C::NB) &&
+                  (COUT % 64 == 0 || co < COUT) && (CIN % 64 == 0 || n < CIN);
+  const float4* s = reinterpret_cast<const float4*>(
+      ok ? w + (long long)((q >> 1) * CIN + n) * COUT + co : w);
+  const float4 a = s[0], c = s[1], z = make_float4(0.f, 0.f, 0.f, 0.f);
+  v[0] = ok ? a : z;
+  v[1] = ok ? c : z;
+}
+
+// JAX's PReLU vjp: dz = dy * s(z > 0) + (alpha dy) * s(z < 0), where s
+// is 1, 0 or, at a tie z = 0, 0.5 (lax.max / lax.min's balanced
+// gradient).
+__device__ __forceinline__ float prelu_grad(float dy, float z, float a) {
+  if (z > 0.f) return dy;
+  if (z < 0.f) return a * dy;
+  return dy * 0.5f + (a * dy) * 0.5f;
+}
+
+// T2 for a layer CIN -> COUT: blockIdx.x the tile (2 rows x 64 pixels, x
+// fastest), blockIdx.y the N block.  Reads dz (COUT channels), writes the
+// previous layer's dz (CIN channels) and the tile's d(alpha) partial row
+// part[blockIdx.x][n0 ..].
+template <int CIN, int COUT>
+__global__ void __launch_bounds__(Dgrad<CIN, COUT>::THREADS, 2)
+    dgrad_tc_kernel(const float* __restrict__ dz, const float* __restrict__ w,
+                    const float* __restrict__ zprev,
+                    const float* __restrict__ alpha,
+                    float* __restrict__ dzprev, float* __restrict__ part,
+                    int H, int W) {
+  using C = Dgrad<CIN, COUT>;
+  constexpr int NB = C::NB;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  const int t = threadIdx.x, wg = t >> 7;
+  const int tx = (W + TW - 1) / TW, ty = (H + C::TH - 1) / C::TH;
+  const int b = blockIdx.x / (tx * ty), rem = blockIdx.x - b * tx * ty;
+  const int y0 = rem / tx * C::TH, x0 = rem % tx * TW;
+  const int n0 = blockIdx.y * NB;
+
+  float acc[NB / 2], cor[NB / 2];
+#pragma unroll
+  for (int i = 0; i < NB / 2; ++i) acc[i] = cor[i] = 0.f;
+  float4 wv[2];
+  load_wt<C, CIN, COUT>(w, 0, n0, t, wv);
+#pragma unroll 1
+  for (int u = 0; u < C::UNITS; ++u) {
+    if (u % C::UPH == 0)
+      stage_halo<C, COUT>(smem, dz, b, y0, x0, u / C::UPH, H, W, t);
+    if (t < 4 * NB) {
+      uint4 hi, mi, lo;
+      split8(wv[0], wv[1], hi, mi, lo);
+      put3(smem + C::OFF_W, C::W_PLANE,
+           (((t >> 3) & 3) * NB + (t & 7) + 8 * (t >> 5)) * 16, hi, mi, lo);
+    }
+    fence_proxy_async();
+    __syncthreads();
+    // tap (ky, kx) = ((q / 2) / 3, (q / 2) % 3), mirrored: row wg of the
+    // output reads halo row wg + 2 - ky, pixel m halo column m + 2 - kx
+    const int q = u % C::UPH, tap = q >> 1;
+    const uint32_t a = base + ((wg + 2 - tap / 3) * HP + 2 - tap % 3) * ROW +
+                       32 * 2 * (q & 1);
+    const uint32_t wb = base + C::OFF_W;
+    fence_regs(acc);
+    fence_regs(cor);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+      // step s: k blocks 2s, 2s + 1 (A: 32 B on in the swizzled rows; B:
+      // 2 NB * 16 B on)
+      mma_bf16x6<NB>(acc, cor, a + 32 * s, C::A_PLANE, wb + 2 * s * NB * 16,
+                     C::W_PLANE, FwdMma<NB, false>());
+    wgmma_commit();
+    // the next unit's weights load while this unit's wgmmas run: issued
+    // after the proxy fence above, which waits for a thread's loads in
+    // flight (the last unit loads its own again)
+    load_wt<C, CIN, COUT>(w, u + 1 < C::UNITS ? u + 1 : u, n0, t, wv);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(cor);
+    __syncthreads();  // every warpgroup is done with the unit's planes
+  }
+
+  // accumulator fragment: register 4j + 2h + e holds pixel 16 * warp +
+  // lane / 4 + 8h of this warpgroup's row, channel 8j + 2 (lane % 4) + e
+  const int oy = y0 + wg, lane = t & 31, warp = t >> 5;
+  const int p0 = (warp & 3) * 16 + (lane >> 2), c0 = (lane & 3) * 2;
+  const long long row = ((long long)b * H + oy) * W;
+  // d(alpha) of this thread's columns 8j + c0 + e, at 2j + e
+  float da[NB / 4];
+#pragma unroll
+  for (int j = 0; j < NB / 8; ++j) {
+    const int c = n0 + 8 * j + c0;
+    da[2 * j] = da[2 * j + 1] = 0.f;
+    float av[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (c + e < CIN) av[e] = alpha[c + e];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int px = x0 + p0 + 8 * h;
+      if (oy >= H || px >= W) continue;
+      const int r = 4 * j + 2 * h;
+      const float d[2] = {__fadd_rn(acc[r], cor[r]),
+                          __fadd_rn(acc[r + 1], cor[r + 1])};
+      const long long o = (row + px) * CIN + c;
+      float zv[2] = {0.f, 0.f}, g[2];
+      if constexpr (CIN % 8 == 0) {
+        const float2 z2 = *reinterpret_cast<const float2*>(zprev + o);
+        zv[0] = z2.x;
+        zv[1] = z2.y;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (c + e < CIN) zv[e] = zprev[o + e];
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        g[e] = prelu_grad(d[e], zv[e], av[e]);
+        da[2 * j + e] = fmaf(d[e], fminf(zv[e], 0.f), da[2 * j + e]);
+      }
+      if constexpr (CIN % 8 == 0) {
+        *reinterpret_cast<float2*>(dzprev + o) = make_float2(g[0], g[1]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (c + e < CIN) dzprev[o + e] = g[e];
+      }
+    }
+  }
+  // the block's d(alpha) partial row: each column over the 8 lanes that
+  // hold it (lane / 4), then over the 8 warps in order; A's planes are
+  // free after the mainloop's last barrier
+#pragma unroll
+  for (int i = 0; i < NB / 4; ++i)
+#pragma unroll
+    for (int m = 4; m < 32; m <<= 1)
+      da[i] = __fadd_rn(da[i], __shfl_xor_sync(0xFFFFFFFFu, da[i], m));
+  float* red = reinterpret_cast<float*>(smem);
+  if (lane < 4)
+#pragma unroll
+    for (int j = 0; j < NB / 8; ++j) {
+      red[warp * NB + 8 * j + c0] = da[2 * j];
+      red[warp * NB + 8 * j + c0 + 1] = da[2 * j + 1];
+    }
+  __syncthreads();
+  if (t < NB && n0 + t < CIN) {
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s = __fadd_rn(s, red[i * NB + t]);
+    part[(long long)blockIdx.x * CIN + n0 + t] = s;
   }
 }
 
@@ -694,6 +971,29 @@ struct FwdLaunch {
 };
 
 template <int CIN, int COUT>
+struct DgradLaunch {
+  static cudaError_t run(const float* dz, const float* w, const float* zprev,
+                         const float* alpha, float* dzprev, float* part,
+                         float* dalpha, int B, int H, int W,
+                         cudaStream_t st) {
+    using C = Dgrad<CIN, COUT>;
+    auto kernel = dgrad_tc_kernel<CIN, COUT>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return err;
+    const long long tiles =
+        (long long)B * ((H + C::TH - 1) / C::TH) * ((W + TW - 1) / TW);
+    if (tiles > 0x7FFFFFFF) return cudaErrorInvalidValue;
+    dim3 grid((unsigned)tiles, C::NBLK);
+    kernel<<<grid, C::THREADS, C::SMEM, st>>>(dz, w, zprev, alpha, dzprev,
+                                              part, H, W);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return sum_parts<8>(part, dalpha, (int)tiles, CIN, st);
+  }
+};
+
+template <int CIN, int COUT>
 struct WgradLaunch {
   static cudaError_t run(const float* x, const float* dz, float* part,
                          float* dwb, int B, int H, int W, int splits, int per,
@@ -713,7 +1013,7 @@ struct WgradLaunch {
     kernel<<<grid, C::THREADS, C::SMEM, st>>>(x, dz, part, B, H, W, per);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    return sum_parts(part, dwb, splits, C::ROWS * COUT, st);
+    return sum_parts<1>(part, dwb, splits, C::ROWS * COUT, st);
   }
 };
 
@@ -733,6 +1033,20 @@ extern "C" int reve_conv3x3_fwd_train_tc(const float* x, const float* w,
   if ((long long)B * H * W == 0) return (int)cudaSuccess;
   return (int)dispatch<FwdLaunch>(cin, cout, x, w, b, alpha, y, z, B, H, W,
                                   static_cast<cudaStream_t>(stream));
+}
+
+// T2 over (B, H, W, cout) float32 dz, (3, 3, cin, cout) w and (B, H, W,
+// cin) z_prev: dz_prev, and d(alpha) as the sum in tile order of the
+// tiles' partial rows, (tiles, cin) in `part`.
+extern "C" int reve_conv3x3_dgrad_tc(const float* dz, const float* w,
+                                     const float* zprev, const float* alpha,
+                                     float* dzprev, float* part,
+                                     float* dalpha, int B, int H, int W,
+                                     int cin, int cout, void* stream) {
+  if ((long long)B * H * W == 0) return (int)cudaErrorInvalidValue;
+  return (int)dispatch<DgradLaunch>(cin, cout, dz, w, zprev, alpha, dzprev,
+                                    part, dalpha, B, H, W,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // T3: `splits` splits of `per` consecutive 2 x 64 tiles, each writing

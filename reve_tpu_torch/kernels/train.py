@@ -1,8 +1,8 @@
 """T1 `conv3x3_fwd_train`, T2 `conv3x3_dgrad` and T3 `conv3x3_wgrad`:
 SRVGG's conv3x3 + PReLU for training, forward and backward, in float32
-(T1 and T3 on the tensor cores, csrc/conv3x3_train_tc.cu; T2 on the CUDA
-cores, csrc/conv3x3_train.cu), their plain versions, and `conv_stack`,
-the autograd Function that runs a whole SRVGG conv stack through them.
+on the tensor cores (csrc/conv3x3_train_tc.cu), their plain versions,
+and `conv_stack`, the autograd Function that runs a whole SRVGG conv
+stack through them.
 
 They replace what XLA runs for reve_tpu/train/trainer.py:53-72
 (`jax.value_and_grad` of `srvgg.apply(..., compute_dtype=float32)`):
@@ -25,11 +25,11 @@ Bound on an H100 SXM per training step of a 64-feature, 16-conv student
 on 8 LR patches of 64 x 64: a hidden conv is 2.416 GFLOP, 0.0147 ms as
 six bf16 products on the tensor cores (989 TFLOP/s; 0.036 ms as float32
 FMAs at 67 TFLOP/s), against about 25 MB of bytes -> 0.0075 ms, so all
-three are bound by operations.  T1 and T3 sum six bf16 products of their
-operands split in three, float32 K1's scheme (the design is in their
-source's head); T2 is a float32 implicit GEMM on the CUDA cores.  T3
-sums its pixel splits, and T2 its blocks' d(alpha), in a fixed order set
-by the shapes alone, so a step repeats bit for bit.
+three are bound by operations.  All three sum six bf16 products of
+their operands split in three, float32 K1's scheme (the design is in
+their source's head).  T3 sums its pixel splits, and T2 its tiles'
+d(alpha), in a fixed order set by the shapes alone, so a step repeats
+bit for bit.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.
@@ -49,23 +49,19 @@ from reve_tpu_torch import device as device_mod
 from reve_tpu_torch.kernels import LAUNCHES, build
 from reve_tpu_torch.kernels.conv3x3 import check_operands, prelu_plain
 
-#: T2
-SOURCE = "conv3x3_train.cu"
-#: T1 and T3
-TC_SOURCE = "conv3x3_train_tc.cu"
+#: T1, T2 and T3
+SOURCE = "conv3x3_train_tc.cu"
 CINS = (3, 64, 128)
 COUTS = (48, 64, 128)
 #: the ROADMAP.md item that other channel counts wait on
 WIDTHS_ITEM = "Training at other widths"
-#: T1's and T3's tiles: rows x columns of pixels (T1: a block's output,
-#: a warpgroup a row; T3: a K chunk)
+#: T1's, T2's and T3's tiles: rows x columns of pixels (T1, T2: a
+#: block's output, a warpgroup a row; T3: a K chunk)
 TILE = (2, 64)
 #: T3's pixel splits are chosen to give about this many blocks (one per
 #: SM of an H100's 132), from the shapes alone: the sum's order, and so
 #: its bits, depend on nothing else
 WGRAD_BLOCKS = 132
-#: T2's tile rows (pixels), one d(alpha) partial a block row
-_BM = 128
 
 
 # -- plain versions ---------------------------------------------------------
@@ -158,16 +154,15 @@ def _check_shapes(what: str, got, want) -> None:
 _entries: dict = {}
 
 
-def _call(source: str, entry: str, device, ptrs, ints) -> None:
-    key = (source, entry)
-    if key not in _entries:
-        lib = build.load(source)
+def _call(entry: str, device, ptrs, ints) -> None:
+    if entry not in _entries:
+        lib = build.load(SOURCE)
         fn = getattr(lib, entry)
         fn.argtypes = [ctypes.c_void_p] * len(ptrs) + \
             [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _entries[key] = (lib, fn)
-    lib, fn = _entries[key]
+        _entries[entry] = (lib, fn)
+    lib, fn = _entries[entry]
     err = fn(*ptrs, *ints, torch.cuda.current_stream(device).cuda_stream)
     build.check(lib, err, entry)
 
@@ -188,7 +183,7 @@ def conv3x3_fwd_train(x, w, b, alpha=None, save_z: bool = True):
     _check(cin, cout, *ts)
     out = torch.empty((B, H, W, cout), device=x.device)
     z = torch.empty_like(out) if alpha is not None and save_z else None
-    _call(TC_SOURCE, "reve_conv3x3_fwd_train_tc", x.device,
+    _call("reve_conv3x3_fwd_train_tc", x.device,
           [x.data_ptr(), w.data_ptr(), b.data_ptr(), _ptr(alpha),
            out.data_ptr(), _ptr(z)], [B, H, W, cin, cout])
     LAUNCHES["conv3x3_fwd_train"] += 1
@@ -197,7 +192,7 @@ def conv3x3_fwd_train(x, w, b, alpha=None, save_z: bool = True):
 
 def conv3x3_dgrad(dz, w, z_prev, alpha_prev):
     """T2: conv3x3_dgrad_plain's (dz_prev, dalpha_prev) from one kernel
-    launch (and the fixed-order sum of its blocks' d(alpha))."""
+    launch (and the fixed-order sum of its tiles' d(alpha))."""
     if dz.device.type == "cpu":
         return conv3x3_dgrad_plain(dz, w, z_prev, alpha_prev)
     B, H, W, cout = dz.shape
@@ -206,10 +201,12 @@ def conv3x3_dgrad(dz, w, z_prev, alpha_prev):
     _check_shapes("T2", ts, [(B, H, W, cout), (3, 3, cin, cout),
                              (B, H, W, cin), (cin,)])
     _check(cin, cout, *ts)
+    if B * H * W == 0:
+        raise ValueError("T2 over no pixels")
     dz_prev = torch.empty_like(z_prev)
-    part = torch.empty((math.ceil(B * H * W / _BM), cin), device=dz.device)
+    part = torch.empty((tiles(B, H, W), cin), device=dz.device)
     dalpha = torch.empty((cin,), device=dz.device)
-    _call(SOURCE, "reve_conv3x3_dgrad", dz.device,
+    _call("reve_conv3x3_dgrad_tc", dz.device,
           [dz.data_ptr(), w.data_ptr(), z_prev.data_ptr(),
            alpha_prev.data_ptr(), dz_prev.data_ptr(), part.data_ptr(),
            dalpha.data_ptr()], [B, H, W, cin, cout])
@@ -218,9 +215,9 @@ def conv3x3_dgrad(dz, w, z_prev, alpha_prev):
 
 
 def tiles(B: int, H: int, W: int) -> int:
-    """The TILE-sized tiles over B images of H x W: T1's blocks of an N
-    block, and T3's K chunks, numbered with x fastest, then rows, then
-    images."""
+    """The TILE-sized tiles over B images of H x W: T1's and T2's blocks
+    of an N block (T2: its d(alpha) partial rows), and T3's K chunks,
+    numbered with x fastest, then rows, then images."""
     return B * math.ceil(H / TILE[0]) * math.ceil(W / TILE[1])
 
 
@@ -259,7 +256,7 @@ def conv3x3_wgrad(x, dz):
     rows = 9 * cin + 1
     part = torch.empty((splits, rows, cout), device=x.device)
     dwb = torch.empty((rows, cout), device=x.device)
-    _call(TC_SOURCE, "reve_conv3x3_wgrad_tc", x.device,
+    _call("reve_conv3x3_wgrad_tc", x.device,
           [x.data_ptr(), dz.data_ptr(), part.data_ptr(), dwb.data_ptr()],
           [B, H, W, cin, cout, splits, per])
     LAUNCHES["conv3x3_wgrad"] += 1
@@ -269,35 +266,32 @@ def conv3x3_wgrad(x, dz):
 # -- the conv stack under autograd --------------------------------------------
 
 
-#: (source, kernel template, the SASS opcode each of its 9 channel pairs
-#: must hold): T2 on float32 FMAs, T1 and T3 on wgmma
-SASS_FORMS = ((SOURCE, "dgrad_kernel", "FFMA"),
-              (TC_SOURCE, "fwd_tc_kernel", "HGMMA"),
-              (TC_SOURCE, "wgrad_tc_kernel", "HGMMA"))
+#: the kernel templates of T1, T2 and T3, each of whose 9 channel pairs
+#: must hold wgmma (HGMMA)
+SASS_FORMS = ("fwd_tc_kernel", "dgrad_tc_kernel", "wgrad_tc_kernel")
 
 
 def sass_faults() -> List[str]:
-    """What the built training libraries' SASS breaks of their design,
-    empty when nothing: each SASS_FORMS kernel at each of the 9 channel
-    pairs holds its opcode (so no CUDA-core form of T1 or T3 is left), and
-    neither library holds a TF32 product or a float atomic (RED or ATOM on
+    """What the built training library's SASS breaks of its design, empty
+    when nothing: each SASS_FORMS kernel at each of the 9 channel pairs
+    holds HGMMA (so no CUDA-core form of T1, T2 or T3 is left), and
+    the library holds no TF32 product and no float atomic (RED or ATOM on
     F32; every sum runs in a fixed order).  Needs the CUDA toolkit."""
-    libs = {s: build.sass(s) for s in (SOURCE, TC_SOURCE)}
+    lib = build.sass(SOURCE)
     faults = []
-    for src, form, op in SASS_FORMS:
-        ks = {k: v for k, v in libs[src].items() if form in k}
+    for form in SASS_FORMS:
+        ks = {k: v for k, v in lib.items() if form in k}
         lacking = sorted(k for k, v in ks.items()
-                         if not re.search(rf"\b{op}\b", v))
+                         if not re.search(r"\bHGMMA\b", v))
         if len(ks) != len(CINS) * len(COUTS) or lacking:
-            faults.append(f"{src}: {len(ks)} {form} kernels, {op} missing "
-                          f"in {lacking}; expected {op} in each of "
+            faults.append(f"{SOURCE}: {len(ks)} {form} kernels, HGMMA "
+                          f"missing in {lacking}; expected HGMMA in each of "
                           f"{len(CINS) * len(COUTS)}")
-    for src, ks in libs.items():
-        text = "".join(ks.values())
-        if "TF32" in text or re.search(
-                r"\b(?:RED|ATOMG?|ATOMS)\.[^\n]*\bF32\b", text):
-            faults.append(f"{src}: a TF32 product or a float atomic in its "
-                          f"SASS")
+    text = "".join(lib.values())
+    if "TF32" in text or re.search(
+            r"\b(?:RED|ATOMG?|ATOMS)\.[^\n]*\bF32\b", text):
+        faults.append(f"{SOURCE}: a TF32 product or a float atomic in its "
+                      f"SASS")
     return faults
 
 

@@ -30,7 +30,12 @@ each SM:
   * kernels/csrc/conv3x3_s8.cu: K4 (`k4_ms`) and K4h at r=4 (`k4h_ms`);
   * kernels/csrc/conv3x3.cu: K3 in bfloat16 (`k3_ms`) and float32
     (`k3_f32_ms`), K4a with its conv in bfloat16 (`k4a_ms`) and float32
-    (`k4a_f32_ms`);
+    (`k4a_f32_ms`), and K3 at Cin 12 (R = 2) at RRDB x2's shape, the
+    batch's 4 frames of 1920 x 1080 as a 540 x 960 trunk (`k3x2_ms`,
+    `k3x2_f32_ms`).  Besides the variants above: `no_stage` (the halo
+    staged from the raw words for each block's first tile only) and
+    `loads_only` (the halo words' loads and their copy into the raw
+    buffer alone: no staging, wgmmas or epilogue);
   * kernels/csrc/dot_probe.cu: P1 at the probe's shape in s8 and bf16 at
     0 loops (the prologue and epilogue alone), 64 and 1024 loops
     (`int8_64_ms`, ...), the calls queued behind a sleep kernel
@@ -65,6 +70,14 @@ each SM:
     warp reading the same pixels (`fma_x_bcast`), the tap rows looped
     (`fma_dy_loop`) and 6 rows a step on 12 warps (`fma_rows6`; `rows6`
     whole);
+  * kernels/csrc/conv3x3_train_tc.cu: T2 at a training step's 8 LR
+    patches of 64 x 64, 64 -> 64 and 128 -> 128 (`t2_64_ms`,
+    `t2_128_ms`), and T1 beside it as the kernel whose mainloop T2's
+    follows (`t1_64_ms`, `t1_128_ms`; no variant patches T1), the calls
+    queued behind a sleep kernel.  T2's variants: `no_mma` (its
+    wgmmas), `no_epi` (PReLU', the z_prev reads, the dz_prev stores and
+    the d(alpha) partials), `w_once` (the weights loaded for the first
+    unit only), `no_sum` (the tile-order sum of the d(alpha) partials);
   * kernels/csrc/tta.cu: K6's three forms at the TTA path's shape (4
     frames of 1080p x4) for an even and an odd transform
     (`middle_k1f_ms`: MIDDLE at k = 1 with the flip, ...); its variants
@@ -95,7 +108,7 @@ import numpy as np
 import torch
 
 from reve_tpu_torch.kernels import (build, conv3x3, conv3x3_s8, dot_probe,
-                                    rrdb, tta)
+                                    rrdb, train, tta)
 from reve_tpu_torch.scripts import perf_int8_dot
 from reve_tpu_torch.scripts.perf_int8_dot import queued_ms, time_ms
 
@@ -107,11 +120,13 @@ _LOAD = "    if (tid == 0 && next < g.count) {"
 _LOAD_WAIT = "    mbar_wait(bar + (it & 1) * 8, (it >> 1) & 1);"
 _NO_LOAD = [(_LOAD, "    if (false) {"),
             (_LOAD_WAIT, "    if (it == 0) mbar_wait(bar, 0);")]
-_U8_MMA = ("    mma_row<U::F32, R>(acc, cor, a_src, base + "
-           "(uint32_t)U::OFF_W);\n")
-_U8_EPI = ("    epilogue<T, TOut>(st, acc, cor, bi, al, al2, inv_s, pa, "
+_U8_MMA = ("      mma_row<U::F32, G>(acc, cor, a_src + G::CIN * i * U::V, "
+           "cross,\n                         base + (uint32_t)U::OFF_W);\n")
+_U8_EPI = ("      epilogue<T, TOut>(st, acc, cor, bi, al, al2, inv_s, pa, "
            "q);\n")
-_U8_STORE = "    if (t == 0) {\n      const uint32_t src"
+_U8_STORE = "      if (t == 0) {\n        const uint32_t src"
+_U8_STAGE = ("    stage<U::F32, G>(halo, raw, smem + U::OFF_ZEROS, table, t, "
+             "cur.b, y0,\n")
 #: source -> variant -> [(text in the source, its replacement)]
 PATCHES = {
     conv3x3.TC_SOURCE: {
@@ -149,12 +164,14 @@ PATCHES = {
                         "  static constexpr int BLOCKS = 2;")],
     },
     conv3x3.SOURCE: {
-        "no_load": [("    if (tile + 2 * step < count)\n      fetch<R>(",
-                     "    if (false)\n      fetch<R>(")],
-        "no_mma": [(_U8_MMA, "    for (int i = 0; i < 32; ++i) acc[i] = "
-                    "cor[i] = it;\n")],
-        "no_epi": [(_U8_EPI, "    if (acc[0] == 0.5f) smem[0] = 1;\n"),
-                   (_U8_STORE, "    if (false) {\n      const uint32_t src")],
+        "no_load": [("      if (i == 0 && tile + 2 * step < count)\n",
+                     "      if (false)\n")],
+        "no_stage": [(_U8_STAGE, "    if (it == 0)\n" + _U8_STAGE)],
+        "no_mma": [(_U8_MMA, "      for (int j = 0; j < 32; ++j) acc[j] = "
+                    "cor[j] = it;\n")],
+        "no_epi": [(_U8_EPI, "      if (acc[0] == 0.5f) smem[0] = 1;\n"),
+                   (_U8_STORE,
+                    "      if (false) {\n        const uint32_t src")],
     },
 }
 # K3 and K4a at one block fewer and one more on each SM than they run
@@ -167,6 +184,9 @@ PATCHES[conv3x3.SOURCE]["more_blocks"] = [(_U8_BLOCKS, _U8_BLOCKS.replace(
 PATCHES[conv3x3.SOURCE]["stores_only"] = (
     PATCHES[conv3x3.SOURCE]["no_load"] + PATCHES[conv3x3.SOURCE]["no_mma"]
     + [(_U8_EPI, "")])
+PATCHES[conv3x3.SOURCE]["loads_only"] = (
+    PATCHES[conv3x3.SOURCE]["no_stage"] + PATCHES[conv3x3.SOURCE]["no_mma"]
+    + PATCHES[conv3x3.SOURCE]["no_epi"])
 # K7
 _K7_FIRST = "tile == blockIdx.x"
 _K7_HALO = ("          mbar_expect_tx(halo_full + 8 * hs, K::PLANES * "
@@ -287,6 +307,21 @@ PATCHES[tta.SOURCE] = {
     "rows_1": [(_K6_ROWS, _K6_ROWS.replace("2", "1"))],
 }
 #: K6's transforms in the timer: an even one and an odd one (a transpose)
+# T2
+PATCHES[train.SOURCE] = {
+    "no_mma": [("      mma_bf16x6<NB>(acc, cor, a + 32 * s, C::A_PLANE, wb + 2 * s "
+                "* NB * 16,\n                     C::W_PLANE, FwdMma<NB, "
+                "false>());\n", "      acc[s] += 1.f;\n")],
+    "no_epi": [("  const int oy = y0 + wg, lane = t & 31, warp = t >> 5;\n",
+                "  if (acc[0] == 0.5f && cor[0] == 0.25f) part[t] = acc[1] "
+                "+ cor[1];\n  return;\n  const int oy = y0 + wg, lane = t & "
+                "31, warp = t >> 5;\n")],
+    "w_once": [("    load_wt<C, CIN, COUT>(w, u + 1 < C::UNITS ? u + 1 : u, n0, "
+                "t, wv);\n", "")],
+    "no_sum": [("    return sum_parts<8>(part, dalpha, (int)tiles, CIN, st);\n",
+                "    return cudaSuccess;\n")],
+    "full": [],
+}
 _K6_SPECS = ((2, False), (1, True))
 #: P1's loop counts: the prologue and epilogue alone, the probe's, the
 #: slope's
@@ -506,6 +541,47 @@ def _conv_last_operands(rs, dev, planes: bool) -> dict:
     return ops
 
 
+#: T1's and T2's timed channel pairs, at a training step's shape
+_TRAIN_PAIRS = (64, 128)
+_TRAIN_SHAPE = (8, 64, 64)
+
+
+def _train_operands(rs, dev) -> dict:
+    """T1's and T2's operands at each of _TRAIN_PAIRS (c -> c) on
+    _TRAIN_SHAPE: x, w, b, alpha, dz, z_prev and the outputs."""
+    B, H, W = _TRAIN_SHAPE
+    ops = {}
+    for c in _TRAIN_PAIRS:
+        def t(*shape, scale=1.0):
+            return torch.from_numpy((rs.randn(*shape) * scale).astype(
+                np.float32)).to(dev)
+        ops[c] = {"x": t(B, H, W, c), "w": t(3, 3, c, c, scale=0.03),
+                  "b": t(c, scale=0.1), "a": t(c, scale=0.1).abs(),
+                  "dz": t(B, H, W, c, scale=1e-3), "zp": t(B, H, W, c),
+                  "y": t(B, H, W, c), "z": t(B, H, W, c),
+                  "part": t(train.tiles(B, H, W), c), "da": t(c)}
+    return ops
+
+
+def _train_timings(lib, name: str, ops: dict, stream) -> dict:
+    """{t2_C_ms, t1_C_ms: callable} for C in _TRAIN_PAIRS."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    t2 = _entry(lib, "reve_conv3x3_dgrad_tc", [P] * 7 + [I] * 5 + [P])
+    t1 = _entry(lib, "reve_conv3x3_fwd_train_tc", [P] * 6 + [I] * 5 + [P])
+    B, H, W = _TRAIN_SHAPE
+
+    def run(c, fn, keys):
+        o = ops[c]
+        return lambda: build.check(lib, fn(
+            *(o[k].data_ptr() for k in keys), B, H, W, c, c, stream), name)
+    out = {}
+    for c in _TRAIN_PAIRS:
+        out[f"t2_{c}_ms"] = run(c, t2, ("dz", "w", "zp", "a", "y", "part",
+                                         "da"))
+        out[f"t1_{c}_ms"] = run(c, t1, ("x", "w", "b", "a", "y", "z"))
+    return out
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     p = argparse.ArgumentParser(prog="perf_conv_tc_parts",
                                 description=__doc__.splitlines()[0])
@@ -539,6 +615,11 @@ def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
     w8 = conv3x3_s8.pack_weights_s8(w8r)
     w8h = conv3x3_s8.pack_weights_s8(w8r[..., :3 * R * R])
     w3, w3f = w[:, :, :3].contiguous(), wf[:, :, :3].contiguous()
+    w12, w12f = w[:, :, :12].contiguous(), wf[:, :, :12].contiguous()
+    ones = torch.ones(64, device=dev)
+    y2 = torch.empty((B, H // 2, W // 2, 64), dtype=torch.bfloat16,
+                     device=dev)
+    yf2 = torch.empty((B, H // 2, W // 2, 64), device=dev)
     b = torch.zeros(64, device=dev)
     alpha = torch.full((64,), 0.2, device=dev)
     scale = torch.full((64,), 1e-5, device=dev)
@@ -593,6 +674,8 @@ def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
                                         (tta.LAST, "last"))}
         if source == rrdb.SOURCE:
             return _k7_timings(lib, name, k7_ops, stream)
+        if source == train.SOURCE:
+            return _train_timings(lib, name, train_ops, stream)
         if source == rrdb.S8_SOURCE:
             return _k7q_timings(lib, name, k7q_ops, stream)
         if source == conv3x3.TC_SOURCE:
@@ -690,9 +773,20 @@ def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
                     u8.data_ptr(), wt.data_ptr(), b.data_ptr(),
                     alpha.data_ptr(), inv.data_ptr(), y8.data_ptr(), B, H, W,
                     code, stream), name)
+            k3x2 = _entry(lib, "reve_conv3x3_u8x2_bias",
+                          [P] * 5 + [I] * 4 + [P])
+
+            def run_k3x2(wt, out, code):
+                # the batch's 1080p frames as RRDB x2's 540 x 960 trunk
+                return lambda: build.check(lib, k3x2(
+                    u8.data_ptr(), wt.data_ptr(), b.data_ptr(),
+                    ones.data_ptr(), out.data_ptr(), B, H // 2, W // 2,
+                    code, stream), name)
             return {"k3_ms": run_k3(w3, y, 1),
                     "k3_f32_ms": run_k3(w3f, yf, 0),
-                    "k4a_ms": run_k4a(w3, 1), "k4a_f32_ms": run_k4a(w3f, 0)}
+                    "k4a_ms": run_k4a(w3, 1), "k4a_f32_ms": run_k4a(w3f, 0),
+                    "k3x2_ms": run_k3x2(w12, y2, 1),
+                    "k3x2_f32_ms": run_k3x2(w12f, yf2, 0)}
         k4 = _entry(lib, "reve_conv3x3_s8_dq_prelu_q8",
                     [P] * 7 + [I] * 3 + [P])
         k4h = _entry(lib, "reve_head_conv_s8_residual_u8_shuffle_tc",
@@ -706,7 +800,9 @@ def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
                 b.data_ptr(), u8.data_ptr(), o.data_ptr(), B, H, W, R,
                 stream), name)}
 
-    k7_ops = k7q_ops = last_ops = None
+    k7_ops = k7q_ops = last_ops = train_ops = None
+    if train.SOURCE in (sources or PATCHES):
+        train_ops = _train_operands(rs, dev)
     if {LAST_F32_SOURCE, conv3x3.F32_SOURCE} & set(sources or PATCHES):
         last_ops = _conv_last_operands(
             rs, dev, planes=conv3x3.F32_SOURCE in (sources or PATCHES))
@@ -722,8 +818,8 @@ def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
             for (source, variant), lib in libs.items():
                 print(f"# timing {source} {variant}", file=sys.stderr,
                       flush=True)
-                timer = queued_ms if source == dot_probe.SOURCE else \
-                    time_ms
+                timer = queued_ms if source in (dot_probe.SOURCE,
+                                                train.SOURCE) else time_ms
                 for timing, fn in timings(source, lib, variant).items():
                     out.setdefault(source, {}).setdefault(
                         variant, {}).setdefault(timing, []).append(

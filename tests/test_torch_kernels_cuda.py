@@ -60,9 +60,9 @@ tolerances in both dtypes, at its tile edges on even frames, and it
 refuses odd ones; the RRDB x2 model on the card against its plain path
 (float32 u8 |d| <= 1, bfloat16 >= 50 dB, int8 u8 |d| <= 1), and its
 engine's halo windows byte-identical to the windows run whole.
-T1-T3 (the training path's float32 convs: T1 and T3 on bf16 wgmma as six
-products of their split operands, csrc/conv3x3_train_tc.cu; T2 on the
-CUDA cores, csrc/conv3x3_train.cu) at every channel pair they take, on a
+T1-T3 (the training path's float32 convs, on bf16 wgmma as six products
+of their split operands, csrc/conv3x3_train_tc.cu) at every channel pair
+they take, on a
 ragged pixel count, a step's 8 x 64 x 64 and the edges of the 2 x 64
 tiles (1 x 1 x 1, 3 x 7 x 63, 1 x 65 x 129): max |d| <= 1e-5 of the
 plain version's largest |value| (float32 sums in another order, up to
@@ -70,9 +70,11 @@ plain version's largest |value| (float32 sums in another order, up to
 other shapes against the plain versions in float64 (the float32 plain
 weight gradient's own sums drift to 2.6e-5 of its largest value over
 32,768 pixels: H100 run, float64 reference), with z exactly 0 at some pixels
-(PReLU' = (1 + alpha) / 2 there); T1 and T3 bit-identical run to run;
-each of T1's and T3's 18 kernels holds wgmma (HGMMA) and no TF32 or
-float atomic; the conv stack's gradients on the kernels against torch
+(PReLU' = (1 + alpha) / 2 there); T1, T2 and T3 bit-identical run to
+run; T2 also with weights scaled differently at each tap and each
+32-channel unit of Cout (a wrong mirror or unit offset is exact at the
+centre tap only); each of the 27 kernels holds wgmma (HGMMA) and no TF32
+or float atomic; the conv stack's gradients on the kernels against torch
 autograd through F.conv2d on a 2-conv model, at the same tolerance.
 """
 
@@ -817,9 +819,12 @@ def test_u8_conv_wrappers_refuse_and_no_cuda_core_form_is_left():
 
 #: (B, 2H, 2W) frames of K3 at Cin 12: a lone trunk pixel, ragged tiles,
 #: a whole tile's row (64 trunk pixels), a row and a column past it, and
-#: the x2 trunk's 540 rows, ragged against the trunk's 8-row K7 tiles
+#: the x2 trunk's 540 rows, ragged against the trunk's 8-row K7 tiles;
+#: then heights 6 and 7, ragged against its own 4-row (bfloat16) tiles
+#: as 19 and 5 are against its 2-row (float32) ones
 U8X2_SHAPES = [(1, 2, 2), (3, 2 * 19, 2 * 45), (2, 16, 128),
-               (1, 2 * 5, 2 * 65), (1, 1080, 1920)]
+               (1, 2 * 5, 2 * 65), (1, 1080, 1920), (2, 2 * 6, 2 * 65),
+               (1, 2 * 7, 2 * 64)]
 
 
 @pytest.mark.cuda
@@ -1824,6 +1829,9 @@ def test_training_kernels_match_plain(cin, cout, shape):
                                           f(d["alpha_prev"]))
     _rel_close(dzp, dzp0, "T2 dz_prev")
     _rel_close(da, da0, "T2 dalpha")
+    dzp2, da2 = train.conv3x3_dgrad(d["dz"], d["w"], d["z_prev"],
+                                    d["alpha_prev"])
+    assert torch.equal(dzp, dzp2) and torch.equal(da, da2)
     dw, db = train.conv3x3_wgrad(d["x"], d["dz"])
     dw0, db0 = train.conv3x3_wgrad_plain(f(d["x"]), f(d["dz"]))
     _rel_close(dw, dw0, "T3 dw")
@@ -1833,11 +1841,40 @@ def test_training_kernels_match_plain(cin, cout, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 64, 64), (2, 19, 45)])
+@pytest.mark.parametrize("cin,cout", TRAIN_PAIRS)
+def test_t2_matches_plain_with_weights_distinct_per_tap_and_unit(
+        cin, cout, shape):
+    """T2 with each tap's weights and each 32-channel unit of Cout scaled
+    by its own factor (1 + tap + 9 unit: a unit or tap read from the wrong
+    place, or a wrong mirror, shows beyond the tolerance), z_prev exactly 0
+    at some pixels, against its plain version in float64; launched twice,
+    bit for bit; one launch counted each."""
+    dev = _cuda()
+    d = _train_inputs(dev, cin, cout, shape, seed=7)
+    unit = torch.arange(cout, device=dev) // 32
+    tap = torch.arange(9, device=dev).view(3, 3, 1, 1)
+    w = (d["w"] * (1 + tap + 9 * unit)).contiguous()
+    before = LAUNCHES["conv3x3_dgrad"]
+    dzp, da = train.conv3x3_dgrad(d["dz"], w, d["z_prev"], d["alpha_prev"])
+    dzp2, da2 = train.conv3x3_dgrad(d["dz"], w, d["z_prev"],
+                                    d["alpha_prev"])
+    torch.cuda.synchronize()
+    assert LAUNCHES["conv3x3_dgrad"] == before + 2
+    assert torch.equal(dzp, dzp2) and torch.equal(da, da2)
+    dzp0, da0 = train.conv3x3_dgrad_plain(
+        d["dz"].double(), w.double(), d["z_prev"].double(),
+        d["alpha_prev"].double())
+    _rel_close(dzp, dzp0, "T2 dz_prev")
+    _rel_close(da, da0, "T2 dalpha")
+
+
+@pytest.mark.cuda
 def test_t1_and_t3_run_on_wgmma_in_each_kernel():
-    """Each of T1's and T3's 9 kernels (one a channel pair) holds wgmma
-    (HGMMA) in its SASS, each of T2's 9 float32 FMAs, and neither library
-    a TF32 product or a float atomic: no CUDA-core form of T1 or T3 is
-    left (train.sass_faults, the check the smoke's build phase runs)."""
+    """Each of T1's, T2's and T3's 9 kernels (one a channel pair) holds
+    wgmma (HGMMA) in its SASS, and the training library no TF32 product
+    or float atomic: no CUDA-core form of T1, T2 or T3 is left
+    (train.sass_faults, the check the smoke's build phase runs)."""
     _cuda()
     assert train.sass_faults() == []
 

@@ -64,9 +64,12 @@ from test_torch_tc_layouts import BF16X6_PAIRS
 torch.set_num_threads(2)
 
 NF = 64
-#: K3 at Cin 12's staged halo: the values of one unshuffled pixel column
-#: (3 rows x 12 channels), the kernel's SLOTS at R = 2
-SLOTS = 36
+#: K3 at Cin 12's tiles: output rows a tile by compute dtype (the
+#: kernel's U8::TH at R = 2); a tile's halo pixel holds its TH + 2 rows x 12
+#: channels (float32: and 8 zeros; SLOTS), of which an output row reads 3
+#: rows (WIN)
+TILE_ROWS = {torch.bfloat16: 4, torch.float32: 2}
+WIN = 36
 #: the compute dtypes: (JAX dtype, torch dtype)
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -172,31 +175,46 @@ def test_k3x2_weight_packer_matches_its_index_formula(name):
 
 def _k3x2_emulation(u8, w, b):
     """K3 at Cin 12's product on the CPU as csrc/conv3x3.cu (R = 2) lays
-    it out: each u8 value of the 6 x 132 halo of a tile's row staged as
-    the kernel's `stage` places it (u8 row r, u8 pixel u, channel c at
-    pixel u / 2, slot 12 (r / 2) + 2 (r % 2) + u % 2 + 4 c), A of output
-    pixel p the halo values 36 p .. 36 p + 111, B as pack_weights_u8conv
+    it out: tiles of TH output rows, each tile's halo staged as the
+    kernel's `stage` places it (conv input pixel X - 1 of row y0 - 1 + dy
+    at halo pixel X, its unshuffled channel 4 c + 2 i + j, from u8 row i
+    and pixel j of its 2 x 2 block, at slot 12 dy + 4 c + 2 i + j of
+    SLOTS = 12 (TH + 2), and 8 zeros after them in float32), A of output
+    pixel p of the tile's row i the halo value SLOTS p + 12 i + k +
+    (SLOTS - WIN) dx for k = WIN dx + 12
+    dy + c (the zero-weight k 108..111 at dx 2), B as pack_weights_u8conv
     lays it out, float32 sums (float32: the pairs of BF16X6_PAIRS,
     smallest first), + b in float32, cast to the compute dtype."""
     dt = w.dtype
+    TH = TILE_ROWS[dt]
+    SLOTS = 12 * (TH + 2) + (8 if dt == torch.float32 else 0)
     B, H2, W2, _ = u8.shape
     H, W = H2 // 2, W2 // 2
+    ty = -(-H // TH)
     x = u8.float() * (1.0 / 255.0)
     planes = x.to(torch.bfloat16)[None] if dt == torch.bfloat16 \
         else conv3x3.split_bf16x3(x)
     S = planes.shape[0]
-    # the halo of every output row at once: pixels -1 .. W of the row
-    halo = torch.zeros(S, B, H, (W + 3) * SLOTS)
-    xp = torch.nn.functional.pad(planes.float(), (0, 0, 2, 2, 2, 2))
-    for r in range(6):
-        for u in range(2 * (W + 2)):
-            for c in range(3):
-                slot = (u // 2) * SLOTS + 12 * (r // 2) + 2 * (r % 2) \
-                    + u % 2 + 4 * c
-                # u8 row 2 (y - 1) + r, u8 column u - 2 (padded by 2)
-                halo[:, :, :, slot] = xp[:, :, r:r + 2 * H:2, u, c]
-    cols = torch.stack([halo[..., SLOTS * p:SLOTS * p + conv3x3.U8X2_K]
-                        for p in range(W)], 3)
+    # the unshuffled input with a zero border: pixel (y, x) at (y + 1, x +
+    # 1), channel 4 c + 2 i + j; rows past the last tile's halo zero
+    xu = torch.zeros(S, B, ty * TH + 2, W + 3, 12)
+    xu[:, :, 1:H + 1, 1:W + 1] = planes.float().view(
+        S, B, H, 2, W, 2, 3).permute(0, 1, 2, 4, 6, 3, 5).reshape(
+            S, B, H, W, 12)
+    k = torch.arange(conv3x3.U8X2_K)
+    off = k + (SLOTS - WIN) * torch.where(k < 3 * WIN, k // WIN, 2)
+    rows = []
+    for yt in range(ty):
+        # the tile's halo, halo pixel by halo pixel (each padded to SLOTS),
+        # and 8 zeros past it
+        halo = torch.nn.functional.pad(torch.nn.functional.pad(
+            xu[:, :, yt * TH:yt * TH + TH + 2].permute(0, 1, 3, 2, 4)
+            .reshape(S, B, W + 3, -1), (0, SLOTS - 12 * (TH + 2)))
+            .reshape(S, B, -1), (0, 8))
+        for i in range(min(TH, H - yt * TH)):
+            rows.append(halo[:, :, SLOTS * torch.arange(W)[:, None]
+                             + 12 * i + off])
+    cols = torch.stack(rows, 2)
     bp = conv3x3.pack_weights_u8conv(w).permute(0, 1, 3, 2).reshape(
         -1, conv3x3.U8X2_K, NF).float()
     pairs = ((0, 0),) if dt == torch.bfloat16 else BF16X6_PAIRS

@@ -1,27 +1,31 @@
-"""The arithmetic of T1 and T3 on the tensor cores (csrc/conv3x3_train_tc.cu),
-emulated in torch on the CPU, held against the plain versions and against
-reve_tpu's gradients; the wrappers' index helpers against their
-formulas; and, on synthetic SASS and ptxas reports, the SASS check and
-the spill reader that chip_smoke.py's build phase runs.
+"""The arithmetic of T1, T2 and T3 on the tensor cores
+(csrc/conv3x3_train_tc.cu), emulated in torch on the CPU, held against the
+plain versions and against reve_tpu's gradients; the wrappers' index
+helpers against their formulas; and, on synthetic SASS and ptxas
+reports, the SASS check and the spill reader that chip_smoke.py's build
+phase runs.
 
 The kernels cannot run here, so this file holds what they compute: each
 float32 operand split into bf16 hi, mid and lo; the six products hi.hi,
 hi.mid, mid.hi, hi.lo, lo.hi and mid.mid summed in float32, hi.hi in a
-sum of its own added to the other five's at the end; T3's hi.hi flushed
-into a float32 sum after every 2 x 64 tile, its splits (runs of tiles,
-`kernels.train.wgrad_splits`) summed in split order, and db summed apart
-from dz.  The card tests (test_torch_kernels_cuda.py) hold the kernels
-to the plain versions.
+sum of its own added to the other five's at the end; T2's A operand dz
+at the mirrored taps (output pixel q reads dz(q - o_t)) against the
+weights as they lie (B[co][ci] = W[t][ci][co]), its d(alpha) summed a
+2 x 64 tile at a time and the tiles' partials in tile order; T3's hi.hi
+flushed into a float32 sum after every 2 x 64 tile, its splits (runs of
+tiles, `kernels.train.wgrad_splits`) summed in split order, and db
+summed apart from dz.  The card tests (test_torch_kernels_cuda.py) hold
+the kernels to the plain versions.
 
 Tolerances: the split's parts sum back to the value within 2^-24 of it
 (lo keeps the bits below hi's and mid's 16; values from 1e-20 to 1e20,
 where lo is no subnormal); the six products within
 2^-20 of sum |x| |w| of the float64 product (the three left out are
 each below 2^-24 of it; float32 sums of at most 1,152 terms add the
-rest); the emulated T1 and T3 within 1e-5 of the largest |value| of the
-plain float32 versions and of reve_tpu's `_conv3x3` + `_prelu` and its
-`jax.value_and_grad` gradients (float32 sums in other orders: the card
-tests' T1 and T3 gate).
+rest); the emulated T1, T2 and T3 within 1e-5 of the largest |value| of
+the plain float32 versions and of reve_tpu's `_conv3x3` + `_prelu` and
+its `jax.value_and_grad` and `jax.vjp` gradients (float32 sums in other
+orders: the card tests' gate).
 """
 
 import math
@@ -48,12 +52,16 @@ def _inputs(cin, cout, seed=0):
     B, H, W = SHAPE
     rs = np.random.RandomState(seed + 100 * cin + cout)
     bound = 1.0 / np.sqrt(9 * cin)
+    z_prev = rs.randn(B, H, W, cin)
+    z_prev[rs.rand(B, H, W, cin) < 0.05] = 0.0  # PReLU's tie
     return {"x": (rs.rand(B, H, W, cin) * 2 - 0.5).astype(np.float32),
             "w": rs.uniform(-bound, bound, (3, 3, cin, cout)).astype(
                 np.float32),
             "b": rs.uniform(-0.1, 0.1, (cout,)).astype(np.float32),
             "alpha": rs.uniform(0.05, 0.4, (cout,)).astype(np.float32),
-            "dz": (rs.randn(B, H, W, cout) * 1e-3).astype(np.float32)}
+            "dz": (rs.randn(B, H, W, cout) * 1e-3).astype(np.float32),
+            "z_prev": z_prev.astype(np.float32),
+            "alpha_prev": rs.uniform(0.05, 0.4, (cin,)).astype(np.float32)}
 
 
 def split3(t):
@@ -134,6 +142,28 @@ def wgrad_emulated(x, dz):
     return dw.view(3, 3, cin, cout), db
 
 
+def dgrad_emulated(dz, w, z_prev, alpha_prev):
+    """T2: dx = (hi.hi + the five) of A = dz at the mirrored taps (row q,
+    k = tap * Cout + co: dz(q - o_t), o_t = (ky - 1, kx - 1)) times B =
+    W[tap][ci][co] as it lies (k = tap * Cout + co, n = ci); dz_prev =
+    PReLU'(z_prev) dx; d(alpha) summed a 2 x 64 tile at a time, the tiles'
+    partials added in tile order."""
+    B, H, W, cout = dz.shape
+    cin = w.shape[2]
+    # im2col's tap t reads dz(q + o_t); the mirrored tap 8 - t reads
+    # dz(q - o_t)
+    cols = im2col(dz).view(-1, 9, cout).flip(1).reshape(-1, 9 * cout)
+    bmat = w.permute(0, 1, 3, 2).reshape(9 * cout, cin)
+    acc, cor = six(lambda a, b_: a @ b_, cols, bmat)
+    dx = (acc + cor).view(B, H, W, cin)
+    dz_prev = train.prelu_grad_plain(dx, z_prev, alpha_prev)
+    terms = (dx * z_prev.clamp_max(0)).reshape(-1, cin)
+    dalpha = torch.zeros(cin)
+    for p in tile_pixels(B, H, W):
+        dalpha = dalpha + terms[p].sum(0)
+    return dz_prev, dalpha
+
+
 def _rel_close(got, want, what):
     err = float((got - want).abs().max())
     ref = float(want.abs().max())
@@ -202,6 +232,28 @@ def test_wgrad_emulation_matches_plain_and_jax(cin, cout):
     _rel_close(db, torch.from_numpy(np.array(gb)), "db vs reve_tpu")
 
 
+@pytest.mark.parametrize("cin,cout", PAIRS)
+def test_dgrad_emulation_matches_plain_and_jax(cin, cout):
+    d = _inputs(cin, cout)
+    dz, w, zp, ap = (torch.from_numpy(d[k]) for k in
+                     ("dz", "w", "z_prev", "alpha_prev"))
+    assert bool((zp == 0).any())  # JAX's tie is exercised
+    dzp, da = dgrad_emulated(dz, w, zp, ap)
+    dzp0, da0 = train.conv3x3_dgrad_plain(dz, w, zp, ap)
+    _rel_close(dzp, dzp0, "dz_prev vs plain")
+    _rel_close(da, da0, "dalpha vs plain")
+
+    def layer(z, a):
+        return jsrvgg._conv3x3(jsrvgg._prelu(z, a), jnp.asarray(d["w"]),
+                               jnp.zeros((cout,), jnp.float32))
+
+    _, vjp = jax.vjp(layer, jnp.asarray(d["z_prev"]),
+                     jnp.asarray(d["alpha_prev"]))
+    gz, ga = vjp(jnp.asarray(d["dz"]))
+    _rel_close(dzp, torch.from_numpy(np.array(gz)), "dz_prev vs reve_tpu")
+    _rel_close(da, torch.from_numpy(np.array(ga)), "dalpha vs reve_tpu")
+
+
 @pytest.mark.parametrize("shape", [(1, 1, 1), (3, 7, 63), (1, 65, 129),
                                    (8, 64, 64), (2, 5, 70)])
 def test_tiles_cover_every_pixel_once(shape):
@@ -250,24 +302,25 @@ def test_wgrad_splits_at_the_steps_widths():
     assert 6.3e6 < part[64] < 6.4e6 and 6.4e6 < part[128] < 6.5e6
 
 
-def _sass(tc_op="HGMMA", t2_op="FFMA", extra="", drop=None):
-    """Per-kernel SASS as build.sass returns it, for both training
-    libraries: every kernel of SASS_FORMS at each pair holding `op`."""
-    libs = {train.SOURCE: {}, train.TC_SOURCE: {}}
-    for src, form, op in train.SASS_FORMS:
+def _sass(op="HGMMA", extra="", drop=None, lacking=None):
+    """Per-kernel SASS as build.sass returns it for the training library:
+    every kernel of SASS_FORMS at each pair holding `op` (the form
+    `lacking` holding FFMA instead)."""
+    lib = {}
+    for form in train.SASS_FORMS:
         for ci, co in PAIRS:
             name = f"_Z{len(form)}{form}ILi{ci}ELi{co}EEvPKf"
             if name != drop:
-                libs[src][name] = (f"{name}\n  /*0100*/ "
-                                   f"{tc_op if op == 'HGMMA' else t2_op} "
-                                   f"R1, R2, R3 ;\n{extra}")
-    return libs
+                lib[name] = (f"{name}\n  /*0100*/ "
+                             f"{'FFMA' if form == lacking else op} "
+                             f"R1, R2, R3 ;\n{extra}")
+    return lib
 
 
 @pytest.mark.parametrize("case,want", [
     ({}, None),
-    ({"tc_op": "FFMA"}, "fwd_tc_kernel kernels, HGMMA missing"),
-    ({"t2_op": "HGMMA.64x64x16"}, "dgrad_kernel kernels, FFMA missing"),
+    ({"op": "FFMA"}, "fwd_tc_kernel kernels, HGMMA missing"),
+    ({"lacking": "dgrad_tc_kernel"}, "dgrad_tc_kernel kernels, HGMMA missing"),
     ({"extra": "  /*0200*/ HMMA.16816.F32.TF32 R4, R8, R12, R4 ;"},
      "a TF32 product or a float atomic"),
     ({"extra": "  /*0200*/ RED.E.ADD.F32.FTZ.RN.STRONG.GPU [R2.64], R5 ;"},
@@ -277,10 +330,12 @@ def _sass(tc_op="HGMMA", t2_op="FFMA", extra="", drop=None):
 ])
 def test_sass_faults_name_what_breaks_the_design(monkeypatch, case, want):
     """train.sass_faults, the check the smoke's build phase and the card
-    test run: empty on SASS that keeps T1 and T3 on wgmma and T2 on FMAs
-    with no TF32 or float atomic; a fault naming what broke otherwise."""
-    libs = _sass(**case)
-    monkeypatch.setattr(train.build, "sass", lambda src: libs[src])
+    test run: empty on SASS that keeps T1, T2 and T3 on wgmma with no TF32
+    or float atomic; a fault naming what broke otherwise (a T2 kernel
+    without HGMMA: a CUDA-core form of T2 is back)."""
+    lib = _sass(**case)
+    monkeypatch.setattr(train.build, "sass",
+                        lambda src: {train.SOURCE: lib}[src])
     faults = train.sass_faults()
     if want is None:
         assert faults == []
