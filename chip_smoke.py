@@ -60,6 +60,19 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               version, timed beside it, beside the same function as
               in-place torch ops (library_ms: rot90/flip, then add_) and
               its byte bound;
+  3b. color  K9 (color.cu: the engine's u8 output -> the writers' YUV
+              4:2:0 codes) on the main job's model output (4 frames of
+              7680 x 4320, bf16) in all 8 forms (BT.601/709, limited/full,
+              8/10 bits): n_diff 0 against its plain version, timed beside
+              it and its byte bound (no single torch call computes it:
+              library_ms null).  The build phase also builds the native
+              container core (native.py, g++) beside nvcc and fails if it
+              does not build, and fails if K9's PTX holds an fma or a
+              float op without a rounding mode, or its SASS more FFMA than
+              a -fmad=false build (color.contraction_faults).  Every job
+              below that writes y4m runs K9: its launches must equal the
+              job's pieces (whole-frame model calls, or one a batch for
+              tiles and TTA), so the encode thread only writes planes;
   4. main     the product job through the port's CLI: 8 frames of
               1920x1080 -> 7680x4320 (x4, realesr-animevideov3 at its full
               64-feature, 16-conv width, the shipped weights), default
@@ -68,7 +81,12 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               Output frame 0 is held against the port's plain float32 path
               on the card (PSNR >= srvgg.BF16_PSNR_FLOOR_DB).  The job
               runs with --trace: the phase reports seconds per scheduler
-              span and the model's device time as a share of the wall;
+              span, encode_batch's share of the wall, and the model's
+              device time as a share of the wall;
+  4b. native  the native core's exact y4m probe (FRAME markers walked) on
+              the main job's output and on a file whose markers carry
+              parameters, and the main job's concat through the core
+              (backend "native");
   5. int8     the same job with --dtype int8: launch counts must show K4a,
               K4 (16 per model call) and K4h, and float32 K1 and K2, each
               launch with its split pass (calibration, certification);
@@ -279,6 +297,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -449,6 +468,70 @@ def frames_u8(n: int, h: int, w: int, seed: int = 0) -> np.ndarray:
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
     return float(10 * math.log10(255.0 ** 2 / max(mse, 1e-12)))
+
+
+#: float ops K9 computes a pixel: luma 3 mul + 2 add, chroma 2 sub + 2
+#: div, the Y code mul + add, and a quarter of a quad's two means (3 add
+#: + 1 mul each) and two codes
+K9_FLOPS_PER_PX = 5 + 4 + 2 + 3
+#: the form the smoke's y4m jobs write: BT.601 limited, 10-bit (the
+#: default pix_fmt yuv420p10le)
+K9_JOB_FORM = ("bt601", False, 10)
+
+
+def color_phase(params, cfg, frames) -> dict:
+    """K9 on the main path's model output in all 8 forms: n_diff against
+    its plain version (must be 0), its time beside the plain version's
+    and the byte bound; the smoke jobs' form at the top."""
+    import torch
+
+    from reve_tpu_torch.kernels import color as color_k
+    from reve_tpu_torch.models import srvgg
+    from reve_tpu_torch.ops.color_np import YUVFormat
+
+    y = srvgg.apply(params, torch.from_numpy(frames).cuda(), cfg=cfg)
+    b, h, w, _ = y.shape
+    forms = {}
+    for m in ("bt601", "bt709"):
+        for full in (False, True):
+            for bits in (8, 10):
+                fmt = YUVFormat(m, full, bits)
+                got = color_k.rgb_to_yuv420_u8(y, fmt)
+                want = color_k.rgb_to_yuv420_u8_plain(y, fmt)
+                n_diff = sum(int((g != v).sum()) for g, v in zip(got, want))
+                err = max(int((g.int() - v.int()).abs().max())
+                          for g, v in zip(got, want))
+                del got, want
+                if n_diff:
+                    raise AssertionError(f"K9 {fmt}: n_diff {n_diff} "
+                                         f"against its plain version")
+                nbytes = b * h * w * 3 + b * color_k.plane_bytes(h, w, bits)
+                bms, by = bound_ms(nbytes, b * h * w * K9_FLOPS_PER_PX,
+                                   "float32")
+                forms[f"{m}_{'full' if full else 'limited'}_{bits}"] = {
+                    "n_diff": n_diff, "max_abs_err": err,
+                    "ms": cuda_time_ms(
+                        lambda: color_k.rgb_to_yuv420_u8(y, fmt), 20),
+                    "plain_ms": cuda_time_ms(
+                        lambda: color_k.rgb_to_yuv420_u8_plain(y, fmt), 3),
+                    "bound_ms": bms, "bound_by": by, "bytes": nbytes}
+    del y
+    torch.cuda.empty_cache()
+    m, full, bits = K9_JOB_FORM
+    top = forms[f"{m}_{'full' if full else 'limited'}_{bits}"]
+    return dict(top, forms=forms, library_ms=None, shape=[b, h, w, 3],
+                format=list(K9_JOB_FORM))
+
+
+def k9_check(launches: dict, pieces: int, what: str) -> int:
+    """A y4m job's K9 launches: one a piece of its batches (whole-frame
+    model calls, or one a batch for tiles and TTA), so every frame the
+    encode thread wrote was converted on the card."""
+    n = launches["rgb_to_yuv420_u8"]
+    if n != pieces or n < 1:
+        raise AssertionError(f"{what}: K9 launched {n} times, expected one "
+                             f"a piece ({pieces}): {launches}")
+    return n
 
 
 def kernel_phase(params, cfg, frames, out: dict, timed: bool = True) -> dict:
@@ -1911,6 +1994,7 @@ def x2_phase(work: str, in4: str, frames) -> tuple:
                 launches["conv3x3_u8_bias_prelu"] != 0:
             raise AssertionError(f"launch counts {launches} do not "
                                  f"show the RRDB x2 path's kernels")
+        k9_check(launches, calls, "rrdb_x2")
         refs = {}
         for dt in ("float32", "bfloat16"):
             y = np.stack([rrdb.apply(
@@ -1957,6 +2041,8 @@ def x2_phase(work: str, in4: str, frames) -> tuple:
             raise AssertionError(f"cli.run --model {X2_MODEL} --dtype "
                                  f"int8 exited {rc}")
         calls8 = rrdb_int8_calls(launches8, "conv3x3_u8x2_bias")
+        k9_check(launches8, calls8["int8"]
+                 - calls8["float32_certification"], "rrdb_x2 int8")
         ws_x8 = out_x8 + ".revework"
         with open(os.path.join(ws_x8, "int8_calibration.json")) as f:
             maxima_x = json.load(f)["act_maxima"]
@@ -2015,6 +2101,7 @@ def x2_phase(work: str, in4: str, frames) -> tuple:
             os.path.join(work, "ref_x2_tile.y4m"), ref_t))
         del ref_t
         windows = BATCH * tiling.plan_tiles(H, W, TILE, RRDB_HALO).num_tiles
+        k9_check(launches_t, 1, "rrdb_x2 tile")
         if n_diff_t != 0 or launches_t["conv3x3_u8x2_bias"] < 1 or \
                 windows <= BATCH:
             raise AssertionError(f"x2 tiles: n_diff {n_diff_t} against "
@@ -2052,7 +2139,7 @@ def weights_phase(work: str, frames, weights: str) -> None:
     """Phase weights (see the module docstring)."""
     import torch
 
-    from reve_tpu_torch import cli
+    from reve_tpu_torch import cli, kernels
     from reve_tpu_torch.io import reader
     from reve_tpu_torch.pipeline.engine import UpscaleEngine
     from reve_tpu_torch.weights import interpolate, ncnn
@@ -2071,11 +2158,15 @@ def weights_phase(work: str, frames, weights: str) -> None:
 
         def job(name, extra):
             out_j = os.path.join(work, f"out_{name}.y4m")
+            kernels.reset_launches()
             rc = cli.run(["-i", in2, "-s", str(SCALE), out_j,
                           "--io-backend", "y4m", "-S", "4", "--batch",
                           "2", "--yes"] + extra)
             if rc != 0:
                 raise AssertionError(f"{name} job exited {rc}")
+            launches = dict(kernels.LAUNCHES)
+            k9_check(launches, launches["head_conv_residual_u8_shuffle"],
+                     f"weights {name}")
             return out_j
 
         def engine_file(name, cfg_e, params_e):
@@ -2134,7 +2225,7 @@ def weights_phase(work: str, frames, weights: str) -> None:
 
 def scenes_phase(work: str, weights: str) -> None:
     """Phase scenes (see the module docstring)."""
-    from reve_tpu_torch import cli
+    from reve_tpu_torch import cli, kernels
     from reve_tpu_torch.io import reader
     from reve_tpu_torch.pipeline import scenes
     from reve_tpu_torch.pipeline.state import Workspace
@@ -2149,6 +2240,7 @@ def scenes_phase(work: str, weights: str) -> None:
         outs = {}
         for align in (True, False):
             out_s = os.path.join(work, f"scenes_{align}.y4m")
+            kernels.reset_launches()
             rc = cli.run(["-i", in_s, "-s", str(SCALE), out_s,
                           "--io-backend", "y4m", "--weights", weights,
                           "-S", str(seg), "--batch", str(BATCH), "--yes",
@@ -2157,6 +2249,9 @@ def scenes_phase(work: str, weights: str) -> None:
             if rc != 0:
                 raise AssertionError(f"scene-align={align} job exited "
                                      f"{rc}")
+            k9_check(kernels.LAUNCHES,
+                     kernels.LAUNCHES["head_conv_residual_u8_shuffle"],
+                     f"scenes align={align}")
             plan = [(sg.start, sg.size) for sg in Workspace(
                 out_s + ".revework").load().plan]
             outs[align] = (out_s, plan)
@@ -2610,10 +2705,12 @@ def main() -> int:
         raise RuntimeError(f"no reve_tpu_torch package beside {__file__}: "
                            f"run it from the root of a checkout of the "
                            f"repo")
-    from reve_tpu_torch import cli, kernels
+    from reve_tpu_torch import cli, kernels, native
+    from reve_tpu_torch.io import concat as concat_mod
     from reve_tpu_torch.io import reader, writer
     from reve_tpu_torch.kernels import (build, conv3x3, conv3x3_s8,
                                         dot_probe, head, train)
+    from reve_tpu_torch.kernels import color as color_k
     from reve_tpu_torch.kernels import rrdb as k7
     from reve_tpu_torch.models import registry, rrdb, srvgg
     from reve_tpu_torch.pipeline.engine import UpscaleEngine
@@ -2630,6 +2727,9 @@ def main() -> int:
                    torch=torch.__version__, cuda=torch.version.cuda)
 
     with phase("build", {}) as rec:
+        # the native container core (g++) builds beside the kernels
+        native_t = threading.Thread(target=native.load)
+        native_t.start()
         info = build.load_all()
         rec["sources"] = {}
         for s, v in info.items():
@@ -2696,6 +2796,16 @@ def main() -> int:
             for k, n in sorted(build.spills(train.SOURCE).items())}
         print(f"# {train.SOURCE}: HGMMA {tc['hgmma_by_kernel']}; spill "
               f"bytes {tc['spill_bytes_by_kernel']}", flush=True)
+        # K9's float steps are one rounded op each: no contraction
+        faults = color_k.contraction_faults()
+        if faults:
+            raise AssertionError("; ".join(faults))
+        rec["sources"][color_k.SOURCE]["contraction_faults"] = faults
+        native_t.join()
+        if not native.available():
+            raise AssertionError("the native container core did not build "
+                                 "(g++ over reve_tpu_torch/_native/)")
+        rec["native"] = dict(native.build_info)
 
     weights = os.path.join(ROOT, "models", "realesr-animevideov3-x4.pth")
     cfg, params = load_srvgg_pth(weights)
@@ -2732,6 +2842,11 @@ def main() -> int:
         del eng, u8
         k6 = tta_kernel_phase(rec)
 
+    with phase("color", {"batch": BATCH, "h": H * SCALE,
+                         "w": W * SCALE}) as rec:
+        k9 = color_phase(params, cfg, frames[:BATCH])
+        rec.update(k9)
+
     work = tempfile.mkdtemp(prefix=".chip_smoke-", dir=ROOT)
     try:
         inp = os.path.join(work, "in.y4m")
@@ -2744,10 +2859,21 @@ def main() -> int:
                 "--weights", weights, "-S", "4", "--batch", str(BATCH),
                 "--yes", "--trace", trace]
         with phase("main", {"argv": argv[4:]}) as rec:
+            # the job's concat report (its backend)
+            reports, concatenate = [], concat_mod.concatenate
+
+            def recording(*a, **k):
+                reports.append(concatenate(*a, **k))
+                return reports[-1]
+
+            concat_mod.concatenate = recording
             torch.cuda.synchronize()
             kernels.reset_launches()
             t0 = time.perf_counter()
-            rc = cli.run(argv)
+            try:
+                rc = cli.run(argv)
+            finally:
+                concat_mod.concatenate = concatenate
             wall = time.perf_counter() - t0
             launches = dict(kernels.LAUNCHES)
             if rc != 0:
@@ -2763,6 +2889,7 @@ def main() -> int:
                     or launches["head_conv_residual_u8_shuffle"] != calls:
                 raise AssertionError(f"launch counts {launches} do not "
                                      f"show the main path's kernels")
+            k9_check(launches, calls, "main")
             # frame 0 against the plain float32 path on the card, taken
             # through the same y4m encode as the job's output
             in0 = next(reader.Y4MReader(inp).read_range(0, 1))
@@ -2792,9 +2919,35 @@ def main() -> int:
                        model_calls=calls, psnr_db_vs_plain_f32=db,
                        psnr_floor_db=srvgg.BF16_PSNR_FLOOR_DB,
                        output=[W * SCALE, H * SCALE], span_s=spans,
+                       encode_share_of_wall=spans.get("encode_batch", 0.0)
+                       / wall,
                        model_device_s=model_s,
-                       model_share_of_wall=model_s / wall)
+                       model_share_of_wall=model_s / wall,
+                       concat=reports)
         main_launches = launches
+
+        with phase("native", {}) as rec:
+            probed = native.probe_y4m(out)
+            if (probed["frames"], probed["width"], probed["height"]) != \
+                    (FRAMES, W * SCALE, H * SCALE):
+                raise AssertionError(f"native y4m probe of the main job's "
+                                     f"output: {probed}")
+            # FRAME markers with parameters: the walk counts 3 frames
+            marked = os.path.join(work, "marked.y4m")
+            with open(marked, "wb") as f:
+                f.write(b"YUV4MPEG2 W8 H4 F25:1 Ip A1:1 C420\n")
+                for i in range(3):
+                    f.write(b"FRAME Ixyz X=%d\n" % i + bytes(48))
+            marked_frames = native.probe_y4m(marked)["frames"]
+            if marked_frames != 3 or [r["backend"] for r in reports] != \
+                    ["native"]:
+                raise AssertionError(f"native: {marked_frames} frames "
+                                     f"probed of 3; the main job's concat "
+                                     f"reports {reports}")
+            rec.update(build=dict(native.build_info), probe_main=probed,
+                       probe_frame_params=marked_frames,
+                       main_concat=reports[0],
+                       planner=native.plan_segments(FRAMES, 4))
 
         out8 = os.path.join(work, "out8.y4m")
         trace8 = os.path.join(work, "trace8.jsonl")
@@ -2829,6 +2982,9 @@ def main() -> int:
                     or launches["split_bf16x3"] != f32_k1 + f32_k2:
                 raise AssertionError(f"launch counts {launches} do not "
                                      f"show the int8 path's kernels")
+            # the job's own int8 calls: the certification's int8 calls
+            # are as many as its float32 heads (K2)
+            k9_check(launches, heads - f32_k2, "int8")
             ws8 = os.path.join(work, "out8.y4m.revework")
             with open(os.path.join(ws8, "int8_calibration.json")) as f:
                 maxima = json.load(f)["act_maxima"]
@@ -2892,6 +3048,7 @@ def main() -> int:
                     or launches["head_conv_residual_u8_shuffle"] != calls:
                 raise AssertionError(f"launch counts {launches} do not "
                                      f"show the model on every window chunk")
+            k9_check(launches, 1, "tile")  # one batch, one assembled piece
             # the tiled job's file against the main job's first 4 frames:
             # the same header, then the same bytes
             with open(out_t, "rb") as f:
@@ -2934,6 +3091,7 @@ def main() -> int:
                     or launches["head_conv_residual_u8_shuffle"] != calls:
                 raise AssertionError(f"launch counts {launches} do not "
                                      f"show the TTA path's kernels")
+            k9_check(launches, 1, "tta")  # K9 on the one batch's mean
             got0 = next(reader.Y4MReader(out_a).read_range(0, 1))
             rec.update(rc=rc, frames=BATCH, wall_s=round(wall, 3),
                        fps_end_to_end=BATCH / wall, launches=launches,
@@ -2981,6 +3139,7 @@ def main() -> int:
                     launches["head_conv_residual_u8_shuffle"] != 0:
                 raise AssertionError(f"launch counts {launches} do not "
                                      f"show the RRDB path's kernels")
+            k9_check(launches, calls, "rrdb")
             # every frame against the plain float32 and the plain
             # bfloat16 paths on the card (a frame at a time), through the
             # same y4m encode as the job's output
@@ -3081,6 +3240,8 @@ def main() -> int:
                 raise AssertionError(f"rrdb int8 output {shape}, expected "
                                      f"{(BATCH, W * SCALE, H * SCALE)}")
             calls = rrdb_int8_calls(launches)
+            k9_check(launches, calls["int8"]
+                     - calls["float32_certification"], "rrdb_int8")
             ws_q = out_q + ".revework"
             with open(os.path.join(ws_q, "int8_calibration.json")) as f:
                 maxima = json.load(f)["act_maxima"]
@@ -3199,6 +3360,9 @@ def main() -> int:
         "dot_loop": (
             "reve_tpu_torch/kernels/csrc/dot_probe.cu",
             "scripts/perf_pallas_int8.py:54"),
+        "rgb_to_yuv420_u8": (
+            "reve_tpu_torch/kernels/csrc/color.cu",
+            "reve_tpu/ops/color.py:142"),
         "dense_conv": (
             "reve_tpu_torch/kernels/csrc/rrdb.cu",
             "reve_tpu/models/rrdb.py:157"),
@@ -3234,6 +3398,7 @@ def main() -> int:
         "conv3x3_s8_dq_prelu_q8": ("int8", int8_launches),
         "head_conv_s8_residual_u8_shuffle": ("int8", int8_launches),
         "tta_accumulate": ("uint8", tta_launches),
+        "rgb_to_yuv420_u8": ("uint8", main_launches),
         "dot_loop": ("int8", {"dot_loop": probe_launches}),
         "dense_conv": ("bfloat16", rrdb_launches),
         "conv_last_u8": ("bfloat16", rrdb_launches),
@@ -3246,6 +3411,7 @@ def main() -> int:
     # (K1's and K2's after their split pass)
     designs = {"split_bf16x3": "elementwise",
                "tta_accumulate": "smem_transpose",
+               "rgb_to_yuv420_u8": "elementwise",
                "conv3x3_fwd_train": "wgmma_bf16x6",
                "conv3x3_dgrad": "wgmma_bf16x6",
                "conv3x3_wgrad": "wgmma_bf16x6"}
@@ -3270,6 +3436,9 @@ def main() -> int:
             extra["bfloat16"] = probe["bf16"]
         elif name == "split_bf16x3":
             nums, extra = results[name], {}
+        elif name == "rgb_to_yuv420_u8":
+            nums = k9
+            extra = {key: k9[key] for key in ("forms", "format")}
         elif name == "tta_accumulate":
             nums = k6
             extra = {key: k6[key] for key in ("forms", "batch_ms",

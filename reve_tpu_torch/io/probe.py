@@ -2,8 +2,9 @@
 
 The reference shells out to `mediainfo --Output=Video;%FrameCount%` and
 `%FrameRate%` (reve-shared/src/lib.rs:30-57).  Here probing is a backend
-chain: ffprobe subprocess when the binary exists, else OpenCV's demuxer —
-both normalized into one `VideoInfo`.
+chain: the native core's exact y4m (FRAME-marker walk) and mkv (EBML
+block walk) probes, ffprobe subprocess when the binary exists, else
+OpenCV's demuxer — all normalized into one `VideoInfo`.
 """
 
 from __future__ import annotations
@@ -120,9 +121,67 @@ def _probe_cv2(path: str) -> Optional[VideoInfo]:
     )
 
 
+def _probe_native_mkv(path: str) -> Optional[VideoInfo]:
+    """Exact mkv probe via the native EBML walker.  FFmpeg-family probes
+    ESTIMATE mkv frame counts from container duration x fps (Matroska has
+    no frame-count header), which over-counts whenever audio outlives the
+    video; the native walk counts actual video blocks."""
+    try:
+        from reve_tpu_torch import native
+
+        if not native.available():
+            return None
+        info = native.probe_mkv(path)
+    except Exception:
+        return None
+    if info["video_blocks"] <= 0 or info["width"] <= 0:
+        return None
+    # fps is not a Matroska header field; prefer the cv2 estimate, else
+    # derive blocks/duration from the container itself; 30 only when the
+    # file carries no duration at all (and say so — a wrong rate desyncs
+    # the encode from the verbatim-remuxed audio)
+    cv2_info = _probe_cv2(path)
+    if cv2_info:
+        fps = cv2_info.fps
+    elif info.get("duration_s", 0) and info["duration_s"] > 0:
+        fps = fractions.Fraction(
+            info["video_blocks"] / info["duration_s"]
+        ).limit_denominator(1001 * 120)
+    else:
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "%s: no decodable rate source (cv2 cannot open, container has "
+            "no duration); assuming 30 fps", path)
+        fps = fractions.Fraction(30, 1)
+    return VideoInfo(
+        path=path,
+        width=info["width"],
+        height=info["height"],
+        frame_count=int(info["video_blocks"]),
+        fps=fps,
+        has_audio=info["has_audio"],
+    )
+
+
 def _probe_y4m(path: str) -> VideoInfo:
-    # the Python reader divides the file size by the frame size, which
-    # assumes bare "FRAME\n" markers (what Y4MWriter writes)
+    # prefer the native FRAME-marker walk: exact under FRAME parameter
+    # strings and torn tail frames, where the Python reader's file-size
+    # division assumes bare "FRAME\n" markers
+    try:
+        from reve_tpu_torch import native
+
+        if native.available():
+            info = native.probe_y4m(path)
+            return VideoInfo(
+                path=path,
+                width=info["width"],
+                height=info["height"],
+                frame_count=info["frames"],
+                fps=fractions.Fraction(info["fps_num"], info["fps_den"]),
+            )
+    except Exception:
+        pass
     from reve_tpu_torch.io.reader import Y4MReader
 
     rd = Y4MReader(path)
@@ -139,6 +198,10 @@ def probe(path: str, backend: Optional[str] = None) -> VideoInfo:
     """Probe a video file. backend: None (auto) | 'ffprobe' | 'cv2' | 'y4m'."""
     if path.lower().endswith(".y4m") or backend == "y4m":
         return _probe_y4m(path)
+    if path.lower().endswith(".mkv") and backend in (None, "cv2"):
+        info = _probe_native_mkv(path)
+        if info is not None:
+            return info
     if backend in (None, "ffprobe"):
         info = _probe_ffprobe(path)
         if info is not None:

@@ -10,6 +10,11 @@ with in-memory frame feeds:
   * Cv2Writer        — OpenCV VideoWriter (bundled FFmpeg). Codec negotiated
     from what the build supports (this image: mp4v / MJPG / FFV1 / VP9).
   * Y4MWriter        — uncompressed, for hermetic tests.
+
+The ffmpeg and y4m writers encode YUV 4:2:0: `write_planes` takes the
+codes as they are (the engine makes them on the device, K9), `write`
+converts an RGB frame on the host first (color_np, the same codes).
+`planes_format` names the format a path's writer takes, before it opens.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from typing import Optional, Sequence
 import numpy as np
 
 from reve_tpu_torch.io.probe import VideoInfo  # noqa: F401  (re-export convenience)
+from reve_tpu_torch.ops import color_np
+from reve_tpu_torch.ops.color_np import YUVFormat
 
 log = logging.getLogger(__name__)
 
@@ -31,8 +38,25 @@ log = logging.getLogger(__name__)
 class FrameWriter:
     """Consume RGB uint8 (H, W, 3) frames into a video file."""
 
+    #: the YUV 4:2:0 codes `write_planes` takes (None: RGB only)
+    planes_format: Optional[YUVFormat] = None
+
     def write(self, frame: np.ndarray) -> None:
         raise NotImplementedError
+
+    def write_planes(self, y: np.ndarray, u: np.ndarray,
+                     v: np.ndarray) -> None:
+        """One frame's 4:2:0 codes in `planes_format`: y (H, W), u and v
+        (H/2, W/2), uint8 at 8 bits, uint16 at 10."""
+        raise TypeError(f"{type(self).__name__} takes RGB frames only")
+
+    def _write_rgb_as_planes(self, frame: np.ndarray) -> None:
+        # host-side numpy conversion: the same codes as the device's K9
+        # (the writer of an engine that makes planes never gets here)
+        fmt = self.planes_format
+        self.write_planes(*color_np.rgb_to_yuv420_np(
+            frame, matrix=fmt.matrix, full_range=fmt.full_range,
+            bits=fmt.bits))
 
     def describe(self) -> str:
         """Human-readable encoder identity for done-lines/job reports."""
@@ -63,8 +87,11 @@ class EncodeSettings:
 class FfmpegX265Writer(FrameWriter):
     """rawvideo yuv420p10le -> ffmpeg libx265, frame-exact, no temp files.
 
-    uint8 RGB numpy input is converted to 10-bit planes host-side here.
+    Takes BT.709 limited-range 10-bit planes; uint8 RGB numpy input is
+    converted to them host-side here.
     """
+
+    planes_format = YUVFormat("bt709", False, 10)
 
     def __init__(self, path: str, width: int, height: int,
                  fps: fractions.Fraction, settings: EncodeSettings,
@@ -107,13 +134,10 @@ class FfmpegX265Writer(FrameWriter):
                 np.ascontiguousarray(plane, dtype="<u2").tobytes()
             )
 
-    def write(self, frame: np.ndarray) -> None:
-        from reve_tpu_torch.ops import color_np as color
+    write_planes = write_yuv420p10
 
-        # host-side numpy conversion: encode threads must not touch the
-        # accelerator (device round trips per frame)
-        y, u, v = color.rgb_to_yuv420_np(frame, bits=10)
-        self.write_yuv420p10(y, u, v)
+    def write(self, frame: np.ndarray) -> None:
+        self._write_rgb_as_planes(frame)
 
     def describe(self) -> str:
         return "ffmpeg:libx265"
@@ -213,6 +237,7 @@ class Y4MWriter(FrameWriter):
             )
         self.width, self.height = width, height
         self.bits = bits
+        self.planes_format = _y4m_planes(bits)
         chroma = "C420" if bits == 8 else "C420p10"
         self._f = open(path, "wb")
         self._f.write(
@@ -221,16 +246,14 @@ class Y4MWriter(FrameWriter):
         )
 
     def write(self, frame: np.ndarray) -> None:
-        from reve_tpu_torch.ops import color_np as color
+        self._write_rgb_as_planes(frame)
 
-        y, u, v = color.rgb_to_yuv420_np(frame, matrix="bt601",
-                                         bits=self.bits)
+    def write_planes(self, y: np.ndarray, u: np.ndarray,
+                     v: np.ndarray) -> None:
+        dtype = np.uint8 if self.bits == 8 else np.dtype("<u2")
         self._f.write(b"FRAME\n")
         for plane in (y, u, v):
-            if self.bits == 8:
-                self._f.write(plane.tobytes())
-            else:
-                self._f.write(plane.astype("<u2").tobytes())
+            self._f.write(np.ascontiguousarray(plane, dtype=dtype).data)
 
     def describe(self) -> str:
         return f"y4m:{self.bits}bit"
@@ -239,19 +262,56 @@ class Y4MWriter(FrameWriter):
         self._f.close()
 
 
+def writer_kind(path: str, backend: Optional[str] = None) -> str:
+    """The writer open_writer opens for `path`: "y4m", "ffmpeg" or "cv2"
+    (raises when the ffmpeg backend is asked for without its binary)."""
+    if path.lower().endswith(".y4m") or backend == "y4m":
+        return "y4m"
+    if backend in (None, "ffmpeg") and shutil.which("ffmpeg"):
+        return "ffmpeg"
+    if backend == "ffmpeg":
+        raise RuntimeError("ffmpeg backend requested but binary not found")
+    return "cv2"
+
+
+def _y4m_bits(settings: EncodeSettings) -> int:
+    return 10 if "10" in settings.pix_fmt else 8
+
+
+def _y4m_planes(bits: int) -> YUVFormat:
+    """The y4m writer's codes: BT.601 limited range (the reference's
+    y4m route) at its bit depth."""
+    return YUVFormat("bt601", False, bits)
+
+
+def planes_format(path: str, settings: Optional[EncodeSettings] = None,
+                  backend: Optional[str] = None) -> Optional[YUVFormat]:
+    """The `planes_format` of the writer open_writer opens for `path`:
+    y4m BT.601 limited at the settings' bits, ffmpeg BT.709 limited
+    10-bit, cv2 None (RGB)."""
+    try:
+        kind = writer_kind(path, backend)
+    except RuntimeError:
+        return None  # open_writer raises it where the writer opens
+    if kind == "y4m":
+        return _y4m_planes(_y4m_bits(settings or EncodeSettings()))
+    if kind == "ffmpeg":
+        return FfmpegX265Writer.planes_format
+    return None
+
+
 def open_writer(path: str, width: int, height: int, fps: fractions.Fraction,
                 settings: Optional[EncodeSettings] = None,
                 backend: Optional[str] = None) -> FrameWriter:
     """backend: None (auto: ffmpeg-x265 if available, else cv2) |
     'ffmpeg' | 'cv2' | 'y4m'."""
     settings = settings or EncodeSettings()
-    if path.lower().endswith(".y4m") or backend == "y4m":
-        bits = 10 if "10" in settings.pix_fmt else 8
-        return Y4MWriter(path, width, height, fps, bits=bits)
-    if backend in (None, "ffmpeg") and shutil.which("ffmpeg"):
+    kind = writer_kind(path, backend)
+    if kind == "y4m":
+        return Y4MWriter(path, width, height, fps,
+                         bits=_y4m_bits(settings))
+    if kind == "ffmpeg":
         return FfmpegX265Writer(path, width, height, fps, settings)
-    if backend == "ffmpeg":
-        raise RuntimeError("ffmpeg backend requested but binary not found")
     # REVE_TPU_CV2_CODEC picks the fallback's fourcc explicitly: the
     # default preference lands on VP9 when H.264 is unavailable, which is
     # high-quality but slow at 4K (~2.5 s/frame + a ~25-frame lookahead

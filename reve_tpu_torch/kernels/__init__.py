@@ -32,6 +32,10 @@
                                               accumulate (u8 term -> int16
                                               sum; the last form writes
                                               the u8 mean)
+    K9  color.rgb_to_yuv420_u8                the engine's u8 RGB output ->
+                                              YUV 4:2:0 codes for the
+                                              writers (8 or 10 bits,
+                                              BT.601/709, limited/full)
     P1  dot_probe.dot_loop                    s8/bf16 dot-rate probe on
                                               wgmma (not on a model path)
     T1  train.conv3x3_fwd_train               training: conv3x3 + PReLU
@@ -64,7 +68,9 @@ over its input read once by TMA, with no split pass
 input-gradient and weight-gradient convs, run on bf16 wgmma as six
 products of their float32 operands split in three by the threads that
 stage them (csrc/conv3x3_train_tc.cu; T2 over dz's halo at the mirrored
-taps, T3's operands MN-major, through wgmma's transpose flags).
+taps, T3's operands MN-major, through wgmma's transpose flags).  K9 moves
+bytes: a thread converts 16 pixels of a row pair with 16-B loads and
+stores, each float op one IEEE op rounded to nearest (csrc/color.cu).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback.  `LAUNCHES` counts
@@ -88,6 +94,7 @@ LAUNCHES = {
     "conv3x3_u8_bias_prelu_q8": 0,
     "head_conv_s8_residual_u8_shuffle": 0,
     "tta_accumulate": 0,
+    "rgb_to_yuv420_u8": 0,
     "dot_loop": 0,
     "conv3x3_fwd_train": 0,
     "conv3x3_dgrad": 0,

@@ -10,6 +10,8 @@ the JAX package's copy, byte for byte.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 
 # K_r / K_b luma coefficients per matrix (same table as ops.color)
@@ -17,6 +19,24 @@ _MATRIX = {
     "bt601": (0.299, 0.114),
     "bt709": (0.2126, 0.0722),
 }
+
+
+class YUVFormat(NamedTuple):
+    """A 4:2:0 code format: the matrix ("bt601" or "bt709"), the range
+    and the bit depth (8 or 10)."""
+
+    matrix: str = "bt709"
+    full_range: bool = False
+    bits: int = 10
+
+
+class Planes(NamedTuple):
+    """A batch of 4:2:0 frames on the host: y (n, H, W), u and v (n, H/2,
+    W/2), uint8 at 8 bits, uint16 at 10."""
+
+    y: np.ndarray
+    u: np.ndarray
+    v: np.ndarray
 
 
 def _coeffs(matrix):

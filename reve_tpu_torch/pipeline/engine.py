@@ -28,6 +28,12 @@ Counterpart of reve_tpu/pipeline/engine.py.  Design:
     transform's model output goes straight into K6 (the inverse transform
     and a 16-bit accumulate), and the 8th K6 writes the u8 mean that the
     one D2H copy reads (`TTAPendingBatch`).
+  * Planes out (`set_output_format`): the writers' YUV 4:2:0 codes are
+    made on the device by K9 from each piece's u8 output (after the
+    tiles' assembly, after TTA's mean), so the D2H copy carries 1.5 B a
+    pixel at 8 bits (3 at 10) instead of 3 and the encode thread only
+    writes them (reve_tpu/ops/color.py's design).  `upscale_frames` and
+    the int8 measurement passes stay RGB.
 
   * Two architectures: SRVGG (K3, K1, K2) and RRDBNet at x4 and x2 (K3,
     or at x2 K3 at Cin 12 over the unshuffled frame, K7 for the
@@ -55,9 +61,12 @@ import numpy as np
 import torch
 
 from reve_tpu_torch import device as device_mod
+from reve_tpu_torch.kernels import color as color_k
 from reve_tpu_torch.kernels import tta as tta_mod
 from reve_tpu_torch.models import registry, rrdb, srvgg
 from reve_tpu_torch.ops import tiling
+from reve_tpu_torch.ops.color import CODE_DTYPES, codes_numpy
+from reve_tpu_torch.ops.color_np import Planes, YUVFormat
 
 
 #: share of the free device memory (at plan time) the plan may fill
@@ -120,11 +129,12 @@ class EngineStats:
 
 
 class PendingBatch:
-    """Handle to an in-flight batch: a pinned host output buffer that the
-    device fills, and the CUDA event recorded after its D2H copy (None
-    on the CPU, where the work is already done)."""
+    """Handle to an in-flight batch: the pinned host output buffer that
+    the device fills (RGB, or the three planes of a YUV 4:2:0 batch), and
+    the CUDA event recorded after its D2H copy (None on the CPU, where
+    the work is already done)."""
 
-    def __init__(self, host_out: torch.Tensor, valid: int,
+    def __init__(self, host_out, valid: int,
                  event: Optional[torch.cuda.Event] = None,
                  host_in: Optional[torch.Tensor] = None):
         self._out = host_out
@@ -133,12 +143,17 @@ class PendingBatch:
         # the pinned input must outlive its H2D copy
         self._in = host_in
 
-    def result(self) -> np.ndarray:
-        """Block until done; returns (valid, H*s, W*s, 3) uint8."""
+    def result(self):
+        """Block until done; returns (valid, H*s, W*s, 3) uint8, or for a
+        planes batch a color_np.Planes of (valid, H*s, W*s) and (valid,
+        H*s/2, W*s/2) codes (uint8, or uint16 at 10 bits)."""
         if self._event is not None:
             self._event.synchronize()
             self._event = None
             self._in = None
+        if isinstance(self._out, tuple):
+            return Planes(*(codes_numpy(t)[: self._valid]
+                            for t in self._out))
         return self._out.numpy()[: self._valid]
 
 
@@ -163,6 +178,16 @@ class TTAPendingBatch(PendingBatch):
         out = super().result()
         self._out = None
         return out
+
+
+def _copy_out(host_out, lo: int, hi: int, y: torch.Tensor,
+              fmt: Optional[YUVFormat]) -> None:
+    """Enqueue the D2H copy of frames lo:hi of a batch: the piece's u8
+    output y itself, or with `fmt` the planes K9 makes of it, into the
+    pinned host buffers `host_out` (RGB: one; planes: Y, U, V)."""
+    outs = (y,) if fmt is None else color_k.rgb_to_yuv420_u8(y, fmt)
+    for dst, src in zip(host_out, outs):
+        dst[lo:hi].copy_(src, non_blocking=True)
 
 
 class Plan(NamedTuple):
@@ -265,8 +290,24 @@ class UpscaleEngine:
         self.tta = bool(tta)
         self.stats = EngineStats()
         self._plans = {}
+        #: the batches' output: None RGB, else YUV 4:2:0 planes in this
+        #: format (set_output_format)
+        self.output_format: Optional[YUVFormat] = None
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
+
+    def set_output_format(self, fmt: Optional[YUVFormat]) -> None:
+        """What `submit`'s batches return: None RGB frames, or the planes
+        of `fmt` made on the device by K9 (the scheduler asks for its
+        writer's format before the first batch)."""
+        if fmt is not None:
+            if fmt.bits not in CODE_DTYPES or fmt.matrix not in (
+                    "bt601", "bt709"):
+                raise ValueError(f"output format {fmt}: bits 8 or 10, "
+                                 f"matrix bt601 or bt709")
+        if fmt != self.output_format:
+            self.output_format = fmt
+            self._plans = {}  # the plan bills the planes
 
     # -- memory plan -------------------------------------------------------
 
@@ -279,9 +320,17 @@ class UpscaleEngine:
     def _out_bytes(self, h: int, w: int) -> int:
         return h * w * self.scale ** 2 * 3
 
+    def _planes_bytes(self, h: int, w: int) -> int:
+        """Device bytes of one output frame's YUV planes (0 for RGB)."""
+        fmt = self.output_format
+        if fmt is None:
+            return 0
+        return color_k.plane_bytes(h * self.scale, w * self.scale, fmt.bits)
+
     def _frame_bytes(self, h: int, w: int) -> int:
         """Peak device bytes of ONE frame inside a model call: the live
-        hidden activations plus the frame's u8 input and output.  The
+        hidden activations plus the frame's u8 input and output (and the
+        output's planes, which K9 writes beside it).  The
         kernels keep everything else on chip: K2 and K4h write u8 straight
         from the head conv, with no float32 epilogue tensor, and an int8
         engine's activations are s8 (1 byte) from K4a on.  RRDB bills its
@@ -291,7 +340,8 @@ class UpscaleEngine:
         else:
             bpe = 1 if self._int8 else self._bpe()
             act = h * w * self.cfg.num_feat * bpe * _ACT_BUFFERS
-        return act + self._in_bytes(h, w) + self._out_bytes(h, w)
+        return act + self._in_bytes(h, w) + self._out_bytes(h, w) \
+            + self._planes_bytes(h, w)
 
     def _rrdb_bytes(self, h: int, w: int,
                     dtype: Optional[torch.dtype] = None) -> int:
@@ -345,9 +395,11 @@ class UpscaleEngine:
         return free + max(cached, 0)
 
     def _io_batch_bytes(self, h: int, w: int) -> int:
-        """One batch's IO set on the device: u8 input + u8 output."""
+        """One batch's IO set on the device: u8 input + u8 output (+ its
+        planes)."""
         return self.batch_size * (self._in_bytes(h, w)
-                                  + self._out_bytes(h, w))
+                                  + self._out_bytes(h, w)
+                                  + self._planes_bytes(h, w))
 
     def _tta_bytes(self, h: int, w: int) -> int:
         """What TTA holds beside the model per batch: the 16-bit
@@ -679,7 +731,7 @@ class UpscaleEngine:
         calibration."""
         dummy = np.zeros((self.batch_size, h, w, 3), np.uint8)
         self._maybe_calibrate(dummy, provisional=True)
-        self._dispatch(dummy, self.batch_size).result()
+        self._dispatch(dummy, self.batch_size, self.output_format).result()
 
     def submit(self, frames: np.ndarray) -> PendingBatch:
         """Enqueue a batch; returns a handle. frames: (n<=batch, H, W, 3) u8.
@@ -688,7 +740,12 @@ class UpscaleEngine:
         frame (a fixed batch shape per job); padding is cropped in
         result().  An int8 engine without a real calibration calibrates
         on the padded batch first (whole frames, never windows).  With
-        TTA on, the handle is a one-shot TTAPendingBatch."""
+        TTA on, the handle is a one-shot TTAPendingBatch.  Its result is
+        RGB or the planes of `output_format`."""
+        return self._submit(frames, self.output_format)
+
+    def _submit(self, frames: np.ndarray,
+                fmt: Optional[YUVFormat]) -> PendingBatch:
         n, h, w, _ = frames.shape
         if n < self.batch_size:
             pad = np.repeat(frames[-1:], self.batch_size - n, axis=0)
@@ -698,7 +755,7 @@ class UpscaleEngine:
         self._maybe_calibrate(frames, provisional=False)
         self.stats.frames += n
         self.stats.batches += 1
-        return self._dispatch(frames, n)
+        return self._dispatch(frames, n, fmt)
 
     def _pieces(self, x: torch.Tensor):
         """Run the model over the device batch x (B, H, W, 3) u8 in the
@@ -748,10 +805,12 @@ class UpscaleEngine:
                 del y
         yield 0, b, mean
 
-    def _dispatch(self, frames: np.ndarray, n: int) -> PendingBatch:
+    def _dispatch(self, frames: np.ndarray, n: int,
+                  fmt: Optional[YUVFormat] = None) -> PendingBatch:
         """Enqueue one padded (batch_size, H, W, 3) u8 batch through the
         memory plan's model calls (and, with TTA on, the ensemble); `n`
-        frames of it are valid."""
+        frames of it are valid.  With `fmt`, K9 turns each piece's output
+        into planes on the device and the planes are copied out."""
         bs, h, w, _ = frames.shape
         r = self.scale
         cuda = self.device.type == "cuda"
@@ -762,16 +821,22 @@ class UpscaleEngine:
         else:
             host_in = torch.from_numpy(np.ascontiguousarray(frames,
                                                             np.uint8))
-        host_out = torch.empty((bs, h * r, w * r, 3), dtype=torch.uint8,
-                               pin_memory=cuda)
+        if fmt is None:
+            host_out = (torch.empty((bs, h * r, w * r, 3), dtype=torch.uint8,
+                                    pin_memory=cuda),)
+        else:
+            host_out = tuple(
+                torch.empty(s, dtype=CODE_DTYPES[fmt.bits], pin_memory=cuda)
+                for s in color_k.plane_shapes(bs, h * r, w * r))
         event = None
         with self._on_device():
             dev_in = host_in.to(self.device, non_blocking=True)
             pieces = self._ensemble(dev_in) if self.tta else \
                 self._pieces(dev_in)
             for lo, hi, y in pieces:
-                host_out[lo:hi].copy_(y, non_blocking=True)
-                # a piece's output is freed (in stream order) before the
+                _copy_out(host_out, lo, hi, y, fmt)
+                # a piece's output (and its planes, which _copy_out
+                # drops on return) is freed (in stream order) before the
                 # next piece runs, so no segment of this piece's large
                 # tensors stays held by it: the next piece allocates the
                 # same sizes again and finds them whole
@@ -780,14 +845,16 @@ class UpscaleEngine:
                 event = torch.cuda.Event()
                 event.record(self._stream)
         handle = TTAPendingBatch if self.tta else PendingBatch
-        return handle(host_out, n, event, host_in if cuda else None)
+        return handle(host_out if fmt else host_out[0], n, event,
+                      host_in if cuda else None)
 
     def upscale_frames(self, frames: np.ndarray) -> np.ndarray:
         """Synchronous convenience: (N, H, W, 3) u8 -> (N, H*s, W*s, 3) u8."""
         outs = []
         pending = []
         for i in range(0, len(frames), self.batch_size):
-            pending.append(self.submit(frames[i:i + self.batch_size]))
+            pending.append(self._submit(frames[i:i + self.batch_size],
+                                        None))
             # keep at most 2 batches in flight
             while len(pending) > 2:
                 outs.append(pending.pop(0).result())

@@ -25,7 +25,10 @@ Here the stages are connected by bounded in-memory queues with backpressure:
   * encode thread: blocks on each batch's device result, feeds the segment's
     encoder; at segment end commits the part file atomically and persists
     resume state — the reference's per-segment checkpoint
-    (main.rs:340-343), made crash-atomic.
+    (main.rs:340-343), made crash-atomic.  Before the first batch the
+    engine is asked for the YUV 4:2:0 planes the parts' writer takes
+    (y4m: BT.601 at the job's bits; ffmpeg: BT.709 10-bit; cv2: RGB), so
+    the device converts (K9) and this thread only writes bytes.
 
 The GPU sets the pace exactly like the reference's GPU does (SURVEY.md §3.3):
 if decode is slow the GPU starves (queue empty), if encode is slow
@@ -49,6 +52,7 @@ import numpy as np
 from reve_tpu_torch.io import concat as concat_mod
 from reve_tpu_torch.io import reader as reader_mod
 from reve_tpu_torch.io import writer as writer_mod
+from reve_tpu_torch.ops.color_np import Planes
 from reve_tpu_torch.pipeline.engine import UpscaleEngine
 from reve_tpu_torch.pipeline.progress import ProgressTracker
 from reve_tpu_torch.pipeline.state import JobState, Workspace
@@ -344,6 +348,16 @@ class PipelineJob:
         self.part_ext = part_ext
         self.tracer = tracer or trace_mod.from_env()
         self.decode_q: "queue.Queue" = queue.Queue(maxsize=decode_queue_depth)
+        #: the YUV 4:2:0 format the engine makes for the parts' writer
+        #: (None: it returns RGB and the writer converts); set before the
+        #: memory plan, which bills the planes
+        self.planes = None
+        fmt = writer_mod.planes_format(
+            self.ws.part_tmp_path(0, part_ext), self._settings(),
+            io_backend)
+        if fmt is not None and hasattr(engine, "set_output_format"):
+            engine.set_output_format(fmt)
+            self.planes = fmt
         if device_queue_depth is None:
             # memory-planned depth: completed batches held beyond the
             # executing one must leave the engine's working set inside
@@ -415,6 +429,16 @@ class PipelineJob:
 
     # -- stage 3: encode ---------------------------------------------------
 
+    def _settings(self) -> "writer_mod.EncodeSettings":
+        enc = self.state.encode or {}
+        return writer_mod.EncodeSettings(
+            crf=enc.get("crf", 15),
+            preset=enc.get("preset", "slow"),
+            x265_params=enc.get(
+                "x265_params", "psy-rd=2:aq-strength=1:deblock=0,0:bframes=8"
+            ),
+        )
+
     def _encode_loop(self):
         writer = None
         cur_seg = -1
@@ -423,14 +447,7 @@ class PipelineJob:
         fps = Fraction(self.state.fps_num, self.state.fps_den)
         out_w = self.state.width * self.state.scale
         out_h = self.state.height * self.state.scale
-        enc = self.state.encode or {}
-        settings = writer_mod.EncodeSettings(
-            crf=enc.get("crf", 15),
-            preset=enc.get("preset", "slow"),
-            x265_params=enc.get(
-                "x265_params", "psy-rd=2:aq-strength=1:deblock=0,0:bframes=8"
-            ),
-        )
+        settings = self._settings()
         try:
             while True:
                 item = self._get(self.encode_q)
@@ -438,6 +455,8 @@ class PipelineJob:
                     break
                 with self.tracer.span("device_wait", seg=item.seg_index):
                     frames = item.pending.result()  # blocks on device
+                planes = isinstance(frames, Planes)
+                n = len(frames.y) if planes else len(frames)
                 if item.seg_index != cur_seg:
                     assert writer is None, "segment interleave violation"
                     cur_seg = item.seg_index
@@ -447,12 +466,20 @@ class PipelineJob:
                         backend=self.io_backend,
                     )
                     self.encoder_desc = writer.describe()
+                if planes and writer.planes_format != self.planes:
+                    raise PipelineError(
+                        f"the engine made {self.planes} planes, the writer "
+                        f"takes {writer.planes_format}")
                 with self.tracer.span("encode_batch", seg=item.seg_index,
-                                      n=len(frames)):
-                    for f in frames:
-                        writer.write(f)
-                seg_frames += len(frames)
-                self.progress.advance("encode", len(frames))
+                                      n=n):
+                    if planes:
+                        for y, u, v in zip(*frames):
+                            writer.write_planes(y, u, v)
+                    else:
+                        for f in frames:
+                            writer.write(f)
+                seg_frames += n
+                self.progress.advance("encode", n)
                 if item.last_of_segment:
                     writer.close()
                     writer = None

@@ -212,8 +212,8 @@ def test_api_upscale_video_matches_jax_api(tmp_path, monkeypatch):
     jrep = reve_tpu.upscale_video(inp, want, 4, **kw)
     rep = reve_tpu_torch.upscale_video(inp, got, 4, device="cpu", **kw)
     assert rep["dtype"] == jrep["dtype"] == "float32"
-    # the concat backend differs: the port has no native remux core yet
-    assert rep["backend"] == "y4m" and jrep["backend"] == "native"
+    # both concatenate through their native core
+    assert rep["backend"] == jrep["backend"] == "native"
     _assert_close_y4m(got, want)
     assert not os.path.exists(got + ".revework")
     with pytest.raises(FileExistsError):

@@ -76,7 +76,14 @@ run; T2 also with weights scaled differently at each tap and each
 centre tap only); each of the 27 kernels holds wgmma (HGMMA) and no TF32
 or float atomic; the conv stack's gradients on the kernels against torch
 autograd through F.conv2d on a 2-conv model, at the same tolerance.
+K9 (csrc/color.cu, the engine's output to the writers' YUV 4:2:0
+codes): exact (n_diff 0) against its plain version in all 8 forms, at
+ragged and frame-sized shapes, its byte and vector forms; no contracted
+multiply-add in its PTX or SASS; a y4m job on the card writes its planes
+and the RGB route's bytes.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -84,6 +91,8 @@ import torch
 
 from reve_tpu_torch.kernels import (LAUNCHES, conv3x3, conv3x3_s8,
                                     dot_probe, head, rrdb as k7, train, tta)
+from reve_tpu_torch.kernels import color as color_k
+from reve_tpu_torch.ops.color_np import YUVFormat
 from reve_tpu_torch.models import rrdb, srvgg
 from reve_tpu_torch.pipeline.engine import UpscaleEngine
 from reve_tpu_torch.weights import quantize
@@ -1917,3 +1926,112 @@ def test_conv_stack_gradients_match_torch_autograd():
     _rel_close(out.detach(), ref_out.detach(), "stack output")
     for name, g, w in zip(("w0", "b0", "alpha0", "w1", "b1"), got, want):
         _rel_close(g, w, name)
+
+
+# -- K9: RGB u8 -> YUV 4:2:0 codes (csrc/color.cu) -------------------------
+
+K9_FORMS = [YUVFormat(m, fr, b) for m in ("bt601", "bt709")
+            for fr in (False, True) for b in (8, 10)]
+K9_IDS = [f"{f.matrix}-{'full' if f.full_range else 'limited'}-{f.bits}"
+          for f in K9_FORMS]
+
+
+def _k9_n_diff(x, fmt):
+    got = color_k.rgb_to_yuv420_u8(x, fmt)
+    want = color_k.rgb_to_yuv420_u8_plain(x, fmt)
+    assert [g.dtype for g in got] == [w.dtype for w in want]
+    assert [g.shape for g in got] == [w.shape for w in want]
+    return sum(int((g != w).sum()) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2, 2), (3, 2, 66), (2, 18, 130),
+                                   (1, 1080, 1920), (4, 4320, 7680)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("fmt", K9_FORMS, ids=K9_IDS)
+def test_k9_is_exact_against_plain(fmt, shape):
+    """K9 gives the plain version's codes, bit for bit (n_diff 0), in
+    every form: the byte form (W % 16 != 0) and the vector form, a
+    batch slice whose rows start off the 16-B grid, and values at every
+    u8 level."""
+    dev = _cuda()
+    b, h, w = shape
+    rs = np.random.RandomState(h * w % 977)
+    x = torch.from_numpy(rs.randint(0, 256, (b, h, w, 3), np.uint8)).to(dev)
+    n = min(768, x.numel())
+    x.view(-1)[:n] = torch.arange(n, device=dev).to(torch.uint8)
+    before = LAUNCHES["rgb_to_yuv420_u8"]
+    assert _k9_n_diff(x, fmt) == 0
+    assert LAUNCHES["rgb_to_yuv420_u8"] == before + 1
+    if b > 1:
+        assert _k9_n_diff(x[1:], fmt) == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_k9_refuses_what_it_does_not_take():
+    dev = _cuda()
+    fmt = YUVFormat("bt601", False, 8)
+    x = torch.zeros(1, 4, 6, 3, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="even"):
+        color_k.rgb_to_yuv420_u8(x[:, :3], fmt)
+    with pytest.raises(ValueError, match="even"):
+        color_k.rgb_to_yuv420_u8(x[:, :, :5], fmt)
+    with pytest.raises(ValueError, match="uint8"):
+        color_k.rgb_to_yuv420_u8(x.float(), fmt)
+    with pytest.raises(ValueError, match="contiguous"):
+        color_k.rgb_to_yuv420_u8(x.transpose(1, 2), fmt)
+    with pytest.raises(ValueError, match="bits"):
+        color_k.rgb_to_yuv420_u8(x, YUVFormat("bt601", False, 12))
+
+
+@pytest.mark.cuda
+def test_k9_contracts_no_multiply_add():
+    """The PTX holds only the _rn float ops and no fma; the SASS as many
+    FFMA as a build with -fmad=false (the divisions' own)."""
+    _cuda()
+    assert color_k.contraction_faults() == []
+
+
+@pytest.mark.cuda
+def test_y4m_job_on_the_card_encodes_planes_made_by_k9(tmp_path,
+                                                       monkeypatch):
+    """A y4m CLI job on the card: every batch's planes come from K9 (one
+    launch a piece: a whole-frame chunk each here), the encode thread
+    never converts colour on the host, and the file equals the RGB
+    route's (the writer's own write(rgb)) byte for byte."""
+    import fractions
+
+    from reve_tpu_torch import cli, kernels
+    from reve_tpu_torch.io import writer
+    from reve_tpu_torch.ops import color_np
+
+    _cuda()
+    inp = str(tmp_path / "in.y4m")
+    rs = np.random.RandomState(0)
+    with writer.Y4MWriter(inp, 64, 48, fractions.Fraction(24)) as wr:
+        for _ in range(5):
+            wr.write(rs.randint(0, 256, (48, 64, 3), np.uint8))
+    pth = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "models", "realesr-animevideov3-x4.pth")
+    argv = ["-s", "4", "--io-backend", "y4m", "--weights", pth, "-S", "3",
+            "--batch", "2", "--yes"]
+    monkeypatch.chdir(tmp_path)
+
+    def no_host_conversion(*a, **k):
+        raise AssertionError("color_np ran on the encode thread")
+
+    with monkeypatch.context() as m:
+        m.setattr(color_np, "rgb_to_yuv420_np", no_host_conversion)
+        kernels.reset_launches()
+        assert cli.run(["-i", inp, str(tmp_path / "planes.y4m")] + argv) \
+            == 0
+        launched = dict(kernels.LAUNCHES)
+    # 5 frames in segments of 3 at batches of 2: 3 batches, each one call
+    assert launched["head_conv_residual_u8_shuffle"] == 3
+    assert launched["rgb_to_yuv420_u8"] == 3
+    with monkeypatch.context() as m:
+        m.setattr(writer, "planes_format", lambda *a, **k: None)
+        assert cli.run(["-i", inp, str(tmp_path / "rgb.y4m")] + argv) == 0
+    assert open(tmp_path / "planes.y4m", "rb").read() == \
+        open(tmp_path / "rgb.y4m", "rb").read()

@@ -130,7 +130,7 @@ def test_y4m_concat_is_byte_exact_and_checks_headers(tmp_path):
     b = _y4m(tmp_path / "b.y4m", frames=3)
     out = str(tmp_path / "out.y4m")
     report = concat.concatenate([a, b], a, out, fractions.Fraction(24))
-    assert report == {"backend": "y4m", "audio_copied": False}
+    assert report == {"backend": "native", "audio_copied": False}
     with open(a, "rb") as fa, open(b, "rb") as fb, open(out, "rb") as fo:
         head = fa.readline()
         fb.readline()
