@@ -22,8 +22,8 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               (conv_last_f32.cu, float32 FMAs) must hold FFMA and spill
               nothing; the training library of T1, T2 and T3
               (conv3x3_train_tc.cu) must hold wgmma (HGMMA) in each of
-              its 27 kernels, no TF32 product and no float atomic (RED
-              or ATOM on F32) (kernels.train.sass_faults, which the card
+              its 69 kernels (23 channel pairs), no TF32 product and no
+              float atomic (RED or ATOM on F32) (kernels.train.sass_faults, which the card
               test runs too), and its HGMMA count and spill bytes are
               reported kernel by kernel;
   3. kernels  K3, K1 and K2 at the main path's shapes (1080p frames, a
@@ -211,8 +211,10 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               width (64 features, 16 convs), LR patches of 64 x 64 in
               batches of 8: T1, T2 and T3 (on bf16 wgmma as six products
               of their split float32 operands, csrc/conv3x3_train_tc.cu)
-              at every channel pair they take (Cin
-              3, 64, 128 x Cout 48, 64, 128) on seeded inputs, each
+              at every channel pair they take (kernels.train.PAIRS: Cin
+              3, 64, 128 x Cout 48, 64, 128, and every SRVGG conv at 32,
+              64, 96 and 128 features and x2, x3, x4, heads of Cout 12,
+              27 and 48) on seeded inputs, each
               against its plain version (max |d| <= 1e-5 x max |ref|, T3
               5e-5: its sums run over the step's 32,768 pixels), timed
               beside it (the calls queued behind a sleep kernel, free of
@@ -233,20 +235,32 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               plain-path gradient sits at float32's noise level within 2
               lr a step instead);
               the first 5 steps twice on the kernels, bit for bit; the
-              median step's ms and LR patches a second; a distillation
+              median step's ms and LR patches a second; the same checks
+              on a 5-step fine-tune of a seeded 64 x 16 model at x3 (HR
+              patches of 192; the head's 27 outputs); a distillation
               of x4 into realesr-animevideov3-fast's shape (64
               features, 8 convs)
               from its shipped weights, 20 steps (per step T1 18 + 10,
               T2 9, T3 10), agreement_psnr before and after, the
               student saved with save_srvgg_pth, loaded back through
               registry.load_model, and one engine batch of the frames on
-              it byte-identical to the engine on the in-memory params; a
-              distillation of x4 into a random-init student of 128
-              features and 16 convs (scripts/distill.py's default width;
-              the teacher the shipped x4, as no x2 weights ship), 5 steps
-              on the kernels (per step T1 18 + 18, T2 17, T3 18) and the
-              same 5 on the plain versions (which launch none of T1-T3),
-              each loss within 1e-4 relative, and its ms a step;
+              it byte-identical to the engine on the in-memory params;
+              the engine refusing a 128-feature SRVGG on the card before
+              any batch ("Serving at other widths"); reve_tpu's
+              distillation defaults end to end through
+              scripts.distill.main, given a seeded 64 x 16 x2 teacher
+              .pth (no x2 weights ship), --data the main job's y4m and 5
+              steps: the x2 teacher, a 128-feature 16-conv student,
+              batch 8, patch 64, on T1-T3 with the launches predicted
+              (per step T1 18 + 18, T2 17, T3 18, and 36 T1 for the
+              closing agreement), the .pth loaded back through the
+              registry equal to the exported params, each loss within
+              1e-4 relative of the same steps through Distiller on the
+              plain versions; distillations of x4 into random-init
+              students of 32, 96 and 128 features and 16 convs, 5 steps
+              each on the kernels and the same 5 on the plain versions
+              (which launch none of T1-T3), each loss within 1e-4
+              relative, and their ms a step;
  14. probe    P1, the tensor-core dot-rate probe (wgmma), through
               `python -m reve_tpu_torch.scripts.perf_int8_dot`'s main at
               its shapes: per call at 64 loops timed free of the host's
@@ -322,14 +336,15 @@ TILE = 512
 #: row, four rows at N = 32 and two at 64; P1 one kernel for each count of
 #: 32-B k steps, its dot's wgmmas unrolled: s8 1 + ... + 8 (IGMMA), bf16
 #: 1 + ... + 16 (HGMMA); T1 and T2 12 a unit (two k16 steps, six
-#: products each) in each of their 9 kernels, T3 48 a tile (eight k16
-#: steps) in each of its 9
+#: products each; T2 at Cout 12 6, one k16 step) in each of their 23
+#: kernels (kernels.train.PAIRS; 4 at Cout 12), T3 48 a tile (eight k16
+#: steps) in each of its 23
 P1_IGMMA, P1_HGMMA = sum(range(1, 9)), sum(range(1, 17))
 MIN_WGMMA = {"conv3x3_tc.cu": 5 * 36, "conv3x3_f32_tc.cu": 4 * 216,
              "conv3x3_s8.cu": 4 * 18, "conv3x3.cu": 2 * (2 + 12) + 7 + 42,
              "dot_probe.cu": P1_IGMMA + P1_HGMMA,
              "rrdb.cu": 2 * (18 + 54), "rrdb_s8.cu": 2 * (4 * 18 + 2 * 18),
-             "conv3x3_train_tc.cu": 2 * 9 * 12 + 9 * 48}
+             "conv3x3_train_tc.cu": 23 * 12 + 19 * 12 + 4 * 6 + 23 * 48}
 
 
 def emit(obj) -> None:
@@ -2301,11 +2316,16 @@ TRAIN_KERNELS = ("conv3x3_fwd_train", "conv3x3_dgrad", "conv3x3_wgrad")
 TRAIN_ROUTE = {"conv3x3_fwd_train": "bf16x6", "conv3x3_dgrad": "bf16x6",
                "conv3x3_wgrad": "bf16x6"}
 FAST_MODEL = "realesr-animevideov3-fast"
-#: the 128-feature student: reve_tpu_torch/scripts/distill.py's default
-#: width (--student-feat) at the teacher's 16 convs, x4 (the shipped
-#: teacher's scale: no x2 weights ship), drawn from seed 0; steps on the
-#: kernels and again on the plain versions
-WIDE_FEAT, WIDE_STEPS = 128, 5
+#: random-init students of the training kernels' other widths (128:
+#: reve_tpu_torch/scripts/distill.py's default --student-feat) at the
+#: shipped x4 teacher's 16 convs, drawn from seed 0; steps on the kernels
+#: and again on the plain versions
+WIDE_FEATS, WIDE_STEPS = (32, 96, 128), 5
+#: steps of the x3 fine-tune (a seeded 64 x 16 model)
+X3_STEPS = 5
+#: scripts/distill.py's default teacher, given seeded x2 weights, and the
+#: steps its defaults run here
+DEFAULT_TEACHER, DEFAULT_STEPS = "realesr-animevideov3-x2", 5
 
 
 def train_launches(cfg, steps: int, teacher_convs: int = 0) -> dict:
@@ -2318,106 +2338,93 @@ def train_launches(cfg, steps: int, teacher_convs: int = 0) -> dict:
 
 
 def train_kernel_phase(per_step: dict) -> dict:
-    """T1, T2 and T3 at every channel pair they take, on a step's shapes
-    (8 LR patches of 64 x 64) with seeded inputs: each against its plain
-    version (max |d| / max |ref|), timed beside it, cuDNN's call of the
-    same function (TF32 off: F.conv2d, and aten.convolution_backward for
-    the input and the weight gradients) and the card's bound.  The
-    numbers at the top of each kernel's entry are the hidden conv's (64
-    -> 64, 16 of a step's 18 convs); `step_ms` and `step_bound_ms` sum a
-    step's launches (`per_step`: first 3 -> 64, 16 x 64 -> 64, head 64 ->
-    48) at their pairs' times and bounds.  `bound_ms_bf16x6` is the
-    operations as six bf16 products on the tensor cores (the card's best
-    float32-accurate rate), `bound_ms_fma_f32` as float32 FMAs on the CUDA
-    cores, and `bound_ms` (with `bound_by`) the one of the kernel's own
-    route, TRAIN_ROUTE."""
+    """T1, T2 and T3 at every channel pair they take (train.PAIRS), on a
+    step's shapes (8 LR patches of 64 x 64) with seeded inputs
+    (perf_train_kernels.inputs; the heads, Cout 12, 27 and 48, with no
+    PReLU): each against its plain version (max |d| / max |ref|), timed
+    beside it, cuDNN's call of the same function (TF32 off: F.conv2d, and
+    aten.convolution_backward for the input and the weight gradients) and
+    the card's bound.  The numbers at the top of each kernel's entry are
+    the hidden conv's (64 -> 64, 16 of a step's 18 convs); `step_ms` and
+    `step_bound_ms` sum a step's launches (`per_step`: first 3 -> 64, 16
+    x 64 -> 64, head 64 -> 48) at their pairs' times and bounds.
+    `bound_ms_bf16x6` is the operations as six bf16 products on the
+    tensor cores (the card's best float32-accurate rate),
+    `bound_ms_fma_f32` as float32 FMAs on the CUDA cores, and `bound_ms`
+    (with `bound_by`) the one of the kernel's own route, TRAIN_ROUTE."""
     import torch
     import torch.nn.functional as F
 
     from reve_tpu_torch import device as device_mod
     from reve_tpu_torch.kernels import train
+    from reve_tpu_torch.scripts import perf_train_kernels as ptk
 
     device_mod.strict_f32()
     dev = torch.device("cuda", 0)
-    B = TRAIN_BATCH
-    H = W = TRAIN_LR_PATCH
+    B, H, W = ptk.SHAPE
     npix = B * H * W
     res = {k: {"pairs": {}} for k in TRAIN_KERNELS}
     bad = []
-    for cin in train.CINS:
-        for cout in train.COUTS:
-            rs = np.random.RandomState(1000 * cin + cout)
-            bound = 1.0 / np.sqrt(9 * cin)
+    for cin, cout in train.PAIRS:
+        d = ptk.inputs(cin, cout, dev)
+        x, w, b, a, dz = (d[k] for k in ("x", "w", "b", "alpha", "dz"))
+        zp, ap = d["z_prev"], d["alpha_prev"]
+        xl = x.permute(0, 3, 1, 2)  # channels-last views for cuDNN
+        dzl = dz.permute(0, 3, 1, 2)
+        wl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
 
-            def t(a):
-                return torch.from_numpy(a.astype(np.float32)).to(dev)
+        def lib_bwd(mask):
+            return lambda: torch.ops.aten.convolution_backward(
+                dzl, xl, wl, [cout], [1, 1], [1, 1], [1, 1], False,
+                [0, 0], 1, mask)
 
-            x = t(rs.rand(B, H, W, cin) * 2 - 0.5)
-            w = t(rs.uniform(-bound, bound, (3, 3, cin, cout)))
-            b = t(rs.uniform(-0.1, 0.1, (cout,)))
-            a = None if cout == 48 else t(rs.uniform(0.05, 0.4, (cout,)))
-            dz = t(rs.randn(B, H, W, cout) * 1e-3)
-            zp = rs.randn(B, H, W, cin)
-            zp[rs.rand(B, H, W, cin) < 0.05] = 0.0  # PReLU's tie
-            zp = t(zp)
-            ap = t(rs.uniform(0.05, 0.4, (cin,)))
-            xl = x.permute(0, 3, 1, 2)  # channels-last views for cuDNN
-            dzl = dz.permute(0, 3, 1, 2)
-            wl = w.permute(3, 2, 0, 1).contiguous(
-                memory_format=torch.channels_last)
-
-            def lib_bwd(mask):
-                return lambda: torch.ops.aten.convolution_backward(
-                    dzl, xl, wl, [cout], [1, 1], [1, 1], [1, 1], False,
-                    [0, 0], 1, mask)
-
-            f4 = 4
-            weights = 9 * cin * cout * f4
-            macs = 9 * cin * cout * npix
-            cases = {
-                # the head (Cout 48) as the model runs it: no PReLU, no z
-                "conv3x3_fwd_train": (
-                    lambda: train.conv3x3_fwd_train(x, w, b, a),
-                    lambda: train.conv3x3_fwd_train_plain(x, w, b, a),
-                    lambda: F.conv2d(xl, wl, b, padding=1),
-                    npix * cin * f4 + weights + 2 * cout * f4
-                    + npix * cout * f4 * (1 if a is None else 2),
-                    2 * macs),
-                "conv3x3_dgrad": (
-                    lambda: train.conv3x3_dgrad(dz, w, zp, ap),
-                    lambda: train.conv3x3_dgrad_plain(dz, w, zp, ap),
-                    lib_bwd([True, False, False]),
-                    npix * cout * f4 + weights + 2 * npix * cin * f4
-                    + 2 * cin * f4, 2 * macs),
-                "conv3x3_wgrad": (
-                    lambda: train.conv3x3_wgrad(x, dz),
-                    lambda: train.conv3x3_wgrad_plain(x, dz),
-                    lib_bwd([False, True, True]),
-                    npix * (cin + cout) * f4 + weights + cout * f4,
-                    2 * macs + npix * cout),
-            }
-            for name, (fn, plain, lib, nbytes, flops) in cases.items():
-                got = [v for v in fn() if v is not None]
-                want = [v for v in plain() if v is not None]
-                err = max(float((g - r).abs().max())
-                          for g, r in zip(got, want))
-                ref = max(float(r.abs().max()) for r in want)
-                if not err <= TRAIN_KERNEL_REL[name] * ref:
-                    bad.append(f"{name} {cin} -> {cout}: max |d| {err} > "
-                               f"{TRAIN_KERNEL_REL[name]} x max |ref| "
-                               f"{ref}")
-                bounds = {"bf16x6": bound_ms(nbytes, 6 * flops, "bfloat16"),
-                          "fma_f32": bound_ms(nbytes, flops, "float32")}
-                bms, by = bounds[TRAIN_ROUTE[name]]
-                res[name]["pairs"][f"{cin}x{cout}"] = {
-                    "max_abs_err": err, "max_rel_err": err / ref,
-                    "ms": queued_time_ms(fn, 20),
-                    "plain_ms": queued_time_ms(plain, 20),
-                    "library_ms": library_time_ms(lib, 20, queued_time_ms),
-                    "bound_ms": bms, "bound_by": by,
-                    **{f"bound_ms_{k}": v[0] for k, v in bounds.items()},
-                    "shape": [B, H, W, cin, cout]}
-            del x, w, b, a, dz, zp, ap, xl, dzl, wl
+        f4 = 4
+        weights = 9 * cin * cout * f4
+        macs = 9 * cin * cout * npix
+        fns = ptk.launchers(d)
+        cases = {
+            # a head as the model runs it: no PReLU, no z
+            "conv3x3_fwd_train": (
+                lambda: train.conv3x3_fwd_train_plain(x, w, b, a),
+                lambda: F.conv2d(xl, wl, b, padding=1),
+                npix * cin * f4 + weights + 2 * cout * f4
+                + npix * cout * f4 * (1 if a is None else 2),
+                2 * macs),
+            "conv3x3_dgrad": (
+                lambda: train.conv3x3_dgrad_plain(dz, w, zp, ap),
+                lib_bwd([True, False, False]),
+                npix * cout * f4 + weights + 2 * npix * cin * f4
+                + 2 * cin * f4, 2 * macs),
+            "conv3x3_wgrad": (
+                lambda: train.conv3x3_wgrad_plain(x, dz),
+                lib_bwd([False, True, True]),
+                npix * (cin + cout) * f4 + weights + cout * f4,
+                2 * macs + npix * cout),
+        }
+        for name, (plain, lib, nbytes, flops) in cases.items():
+            fn = fns[name]
+            got = [v for v in fn() if v is not None]
+            want = [v for v in plain() if v is not None]
+            err = max(float((g - r).abs().max())
+                      for g, r in zip(got, want))
+            ref = max(float(r.abs().max()) for r in want)
+            if not err <= TRAIN_KERNEL_REL[name] * ref:
+                bad.append(f"{name} {cin} -> {cout}: max |d| {err} > "
+                           f"{TRAIN_KERNEL_REL[name]} x max |ref| "
+                           f"{ref}")
+            bounds = {"bf16x6": bound_ms(nbytes, 6 * flops, "bfloat16"),
+                      "fma_f32": bound_ms(nbytes, flops, "float32")}
+            bms, by = bounds[TRAIN_ROUTE[name]]
+            res[name]["pairs"][f"{cin}x{cout}"] = {
+                "max_abs_err": err, "max_rel_err": err / ref,
+                "ms": queued_time_ms(fn, 20),
+                "plain_ms": queued_time_ms(plain, 20),
+                "library_ms": library_time_ms(lib, 20, queued_time_ms),
+                "bound_ms": bms, "bound_by": by,
+                **{f"bound_ms_{k}": v[0] for k, v in bounds.items()},
+                "shape": [B, H, W, cin, cout]}
+        del d, fns, cases, x, w, b, a, dz, zp, ap, xl, dzl, wl
     if bad:
         raise AssertionError("; ".join(bad))
     for name, r in res.items():
@@ -2436,20 +2443,21 @@ def train_kernel_phase(per_step: dict) -> dict:
     return res
 
 
-def train_batches(path: str) -> list:
-    """TRAIN_STEPS (lr, hr) batches of train.data.batches_from_video over
-    the y4m at `path` (every frame; HR patches of 256, LR 64, batches of
-    8), the seed stepped each time the clip runs out of patches."""
+def train_batches(path: str, scale: int = SCALE,
+                  n: int = TRAIN_STEPS) -> list:
+    """n (lr, hr) batches of train.data.batches_from_video over the y4m at
+    `path` (every frame; HR patches of 64 x scale, LR 64, batches of 8),
+    the seed stepped each time the clip runs out of patches."""
     from reve_tpu_torch.train import data
 
     out = []
     seed = 0
-    while len(out) < TRAIN_STEPS:
-        dc = data.DataConfig(scale=SCALE, patch=TRAIN_LR_PATCH * SCALE,
+    while len(out) < n:
+        dc = data.DataConfig(scale=scale, patch=TRAIN_LR_PATCH * scale,
                              batch=TRAIN_BATCH, seed=seed)
         out += list(data.batches_from_video(path, dc, frame_stride=1))
         seed += 1
-    return out[:TRAIN_STEPS]
+    return out[:n]
 
 
 def run_steps(tr, batches) -> tuple:
@@ -2488,6 +2496,179 @@ def noisy_gradients(tr, batches) -> list:
     return masks
 
 
+def finetune_checks(cfg, params, batches, tc) -> tuple:
+    """Fine-tune steps of an SRVGG (cfg, params) over `batches` on the
+    kernels, the launch counts zeroed just before and read just after;
+    the same steps on the plain versions, each loss within
+    TRAIN_LOSS_RTOL; the final params within the TRAIN_PARAM_* bounds;
+    the first TRAIN_REPEAT_STEPS twice more on the kernels, bit for bit.
+    Returns (the record, the launches)."""
+    import torch
+
+    from reve_tpu_torch import kernels
+    from reve_tpu_torch.train import trainer
+
+    steps = len(batches)
+    tr = trainer.Trainer(cfg, tc, params=params, device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    losses, step_s = run_steps(tr, batches)
+    launches = dict(kernels.LAUNCHES)
+    want = train_launches(cfg, steps)
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"fine-tune x{cfg.upscale} launches "
+                             f"{launches}, expected {want}")
+    # the same steps on the plain versions, on the card
+    trp = trainer.Trainer(cfg, tc, params=params, device="cuda", plain=True)
+    losses_p, step_s_p = run_steps(trp, batches)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, losses_p)]
+    if not (all(np.isfinite(losses)) and max(rel) <= TRAIN_LOSS_RTOL):
+        raise AssertionError(f"fine-tune x{cfg.upscale} losses {losses} "
+                             f"against the plain path's {losses_p}: "
+                             f"relative {max(rel)} > {TRAIN_LOSS_RTOL}")
+    d = [(a - b).detach().abs() for a, b in zip(trainer.leaves(tr.params),
+                                                trainer.leaves(trp.params))]
+    # the plain path again, reading which elements' gradients sit at
+    # float32's noise level
+    noisy = noisy_gradients(trainer.Trainer(
+        cfg, tc, params=params, device="cuda", plain=True), batches)
+    p_max = max(float(x.max()) for x in d)
+    p_max_held = max(float(torch.where(m, 0.0, x).max())
+                     for x, m in zip(d, noisy))
+    loose = sum(int((x > TRAIN_PARAM_ATOL).sum()) for x in d)
+    loose_bound = 2 * tc.learning_rate * steps
+    p_rel = float(torch.sqrt(sum((x * x).sum() for x in d)) / torch.sqrt(
+        sum((p.detach() ** 2).sum() for p in trainer.leaves(trp.params))))
+    if not (p_max_held <= TRAIN_PARAM_ATOL and loose <= TRAIN_PARAM_LOOSE
+            and p_max <= loose_bound and p_rel <= TRAIN_PARAM_REL_L2):
+        raise AssertionError(
+            f"fine-tune x{cfg.upscale} params against the plain path's: "
+            f"max |d| {p_max_held} over elements with a gradient above "
+            f"noise (bound {TRAIN_PARAM_ATOL}), {loose} elements beyond it "
+            f"(at most {TRAIN_PARAM_LOOSE}), max |d| {p_max} (bound "
+            f"{loose_bound}), relative l2 {p_rel} (bound "
+            f"{TRAIN_PARAM_REL_L2})")
+    n_noisy = sum(int(m.sum()) for m in noisy)
+    del noisy
+    # the first steps twice on the kernels: bit for bit
+    reps = []
+    for _ in range(2):
+        t = trainer.Trainer(cfg, tc, params=params, device="cuda")
+        reps.append((run_steps(t, batches[:TRAIN_REPEAT_STEPS])[0],
+                     trainer.leaves(t.params)))
+    same = reps[0][0] == reps[1][0] == losses[:TRAIN_REPEAT_STEPS] and \
+        all(torch.equal(a, b) for a, b in zip(reps[0][1], reps[1][1]))
+    if not same:
+        raise AssertionError(f"{TRAIN_REPEAT_STEPS} x{cfg.upscale} steps "
+                             f"twice: losses {reps[0][0]} and {reps[1][0]} "
+                             f"(the {steps}-step run's "
+                             f"{losses[:TRAIN_REPEAT_STEPS]})")
+    rec = {"num_feat": cfg.num_feat, "num_conv": cfg.num_conv,
+           "scale": cfg.upscale, "steps": steps, "launches": launches,
+           "losses": losses, "losses_plain": losses_p,
+           "max_loss_rel_diff": max(rel), "loss_rtol": TRAIN_LOSS_RTOL,
+           "params_max_abs_diff": p_max,
+           "params_max_abs_diff_above_noise": p_max_held,
+           "params_atol": TRAIN_PARAM_ATOL,
+           "params_beyond_atol": loose,
+           "params_beyond_atol_max": TRAIN_PARAM_LOOSE,
+           "params_noisy_gradient": n_noisy,
+           "params_rel_l2_diff": p_rel,
+           "params_rel_l2_bound": TRAIN_PARAM_REL_L2,
+           "repeat_identical": same,
+           "ms_per_step": 1e3 * step_s,
+           "plain_ms_per_step": 1e3 * step_s_p,
+           "lr_patches_per_s": TRAIN_BATCH / step_s}
+    return rec, launches
+
+
+def default_distill_checks(work: str, inp: str) -> dict:
+    """reve_tpu's distillation defaults end to end:
+    scripts.distill.main with no flag changed but --teacher-weights (a
+    seeded random-init 64 x 16 x2 teacher: no x2 .pth ships), --steps,
+    --data (the smoke's y4m) and --out: the x2 teacher, a 128-feature,
+    16-conv student, batch 8, patch 64, on T1-T3 with the launches
+    train_launches predicts (and the two forwards of its closing
+    agreement), finite losses, the .pth loaded back through the registry
+    equal to the exported params; the same steps through Distiller on the
+    plain versions, each loss within TRAIN_LOSS_RTOL."""
+    import torch
+
+    from reve_tpu_torch import kernels
+    from reve_tpu_torch.models import registry, srvgg
+    from reve_tpu_torch.scripts import distill as script
+    from reve_tpu_torch.train import distill, trainer
+    from reve_tpu_torch.weights.torch_loader import save_srvgg_pth
+
+    tcfg = srvgg.SRVGGConfig(num_feat=64, num_conv=16, upscale=2)
+    teacher = os.path.join(work, f"{DEFAULT_TEACHER}.pth")
+    save_srvgg_pth(teacher, tcfg, srvgg.init_params(
+        tcfg, torch.Generator().manual_seed(2)))
+    student = os.path.join(work, "default-student.pth")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = script.main(["--teacher-weights", teacher, "--steps",
+                       str(DEFAULT_STEPS), "--data", inp, "--out", student])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    dist = res["distiller"]
+    scfg = dist.trainer.cfg
+    if (scfg.num_feat, scfg.num_conv, scfg.upscale) != (128, 16, 2):
+        raise AssertionError(f"the script's default student is {scfg}")
+    want = train_launches(scfg, DEFAULT_STEPS, tcfg.num_conv + 2)
+    # agreement_psnr: the teacher's forward and the student's
+    want["conv3x3_fwd_train"] += tcfg.num_conv + 2 + scfg.num_conv + 2
+    hist = res["history"]
+    if len(hist) != DEFAULT_STEPS or not all(np.isfinite(hist)) or any(
+            launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"default distillation: losses {hist}, "
+                             f"launches {launches} (expected {want})")
+    exported = trainer.params_on(dist.trainer.export_params(), "cpu", False)
+    cfg_l, params_l = registry.load_model(DEFAULT_TEACHER, 2,
+                                          weights=student)
+    if cfg_l != scfg or not all(torch.equal(a, b) for a, b in zip(
+            trainer.leaves(params_l), trainer.leaves(exported))):
+        raise AssertionError("the default student's .pth did not load back "
+                             "to its params")
+    # the same steps on the plain versions: the script's student init
+    # (seed 0), learning rate and batches
+    _, tparams = registry.load_model(DEFAULT_TEACHER, 2, weights=teacher)
+    dp = distill.Distiller(tcfg, tparams, scfg, tc=trainer.TrainConfig(
+        learning_rate=2e-4), device="cuda")
+    dp.trainer.plain = True
+    batches = [next(b) for b in [script.video_batches(inp, 8, 64, 2)]
+               for _ in range(DEFAULT_STEPS)]
+
+    def steps(d):
+        """Each batch one step of Distiller `d`: (losses, median ms)."""
+        losses, secs = [], []
+        torch.cuda.synchronize()
+        for lr, _ in batches:
+            t0 = time.perf_counter()
+            losses.append(d.step(lr))
+            secs.append(time.perf_counter() - t0)
+        return losses, 1e3 * float(np.median(secs))
+
+    hist_p, ms_p = steps(dp)
+    rel = [abs(a - b) / abs(b) for a, b in zip(hist, hist_p)]
+    if max(rel) > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"default distillation losses {hist} against "
+                             f"the plain path's {hist_p}: relative "
+                             f"{max(rel)} > {TRAIN_LOSS_RTOL}")
+    # the step's time on the kernels: the same batches again on the
+    # script's distiller
+    ms = steps(dist)[1]
+    return {"teacher": [tcfg.num_feat, tcfg.num_conv, tcfg.upscale],
+            "student": [scfg.num_feat, scfg.num_conv, scfg.upscale],
+            "steps": DEFAULT_STEPS, "launches": launches,
+            "launches_expected": want, "losses": hist,
+            "losses_plain": hist_p, "max_loss_rel_diff": max(rel),
+            "agreement_db": res["agreement_db"], "wall_s": wall,
+            "ms_per_step": ms, "plain_ms_per_step": ms_p}
+
+
 def train_phase(work: str, inp: str, frames, weights: str) -> tuple:
     """Phase train (see the module docstring).  Returns T1-T3's results
     and the fine-tune's launch counts."""
@@ -2507,63 +2688,14 @@ def train_phase(work: str, inp: str, frames, weights: str) -> tuple:
         results = train_kernel_phase(per_step)
         batches = train_batches(inp)
         tc = trainer.TrainConfig()
-        # fine-tune: the shipped x4 model, 20 steps on the kernels, the
-        # counters zeroed just before and read just after
-        tr = trainer.Trainer(cfg, tc, params=params, device="cuda")
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        losses, step_s = run_steps(tr, batches)
-        launches = dict(kernels.LAUNCHES)
-        want = train_launches(cfg, TRAIN_STEPS)
-        if any(launches[k] != n for k, n in want.items()):
-            raise AssertionError(f"fine-tune launches {launches}, expected "
-                                 f"{want}")
-        # the same steps on the plain versions, on the card
-        trp = trainer.Trainer(cfg, tc, params=params, device="cuda",
-                              plain=True)
-        losses_p, step_s_p = run_steps(trp, batches)
-        rel = [abs(a - b) / abs(b) for a, b in zip(losses, losses_p)]
-        if not (all(np.isfinite(losses)) and max(rel) <= TRAIN_LOSS_RTOL):
-            raise AssertionError(f"fine-tune losses {losses} against the "
-                                 f"plain path's {losses_p}: relative "
-                                 f"{max(rel)} > {TRAIN_LOSS_RTOL}")
-        d = [(a - b).detach().abs() for a, b in zip(trainer.leaves(tr.params),
-                                          trainer.leaves(trp.params))]
-        # the plain path again, reading which elements' gradients sit at
-        # float32's noise level
-        noisy = noisy_gradients(trainer.Trainer(
-            cfg, tc, params=params, device="cuda", plain=True), batches)
-        p_max = max(float(x.max()) for x in d)
-        p_max_held = max(float(torch.where(m, 0.0, x).max())
-                         for x, m in zip(d, noisy))
-        loose = sum(int((x > TRAIN_PARAM_ATOL).sum()) for x in d)
-        loose_bound = 2 * tc.learning_rate * TRAIN_STEPS
-        p_rel = float(torch.sqrt(sum((x * x).sum() for x in d)) / torch.sqrt(
-            sum((p.detach() ** 2).sum() for p in trainer.leaves(trp.params))))
-        if not (p_max_held <= TRAIN_PARAM_ATOL and loose <= TRAIN_PARAM_LOOSE
-                and p_max <= loose_bound and p_rel <= TRAIN_PARAM_REL_L2):
-            raise AssertionError(
-                f"fine-tune params against the plain path's: max |d| "
-                f"{p_max_held} over elements with a gradient above noise "
-                f"(bound {TRAIN_PARAM_ATOL}), {loose} elements beyond it "
-                f"(at most {TRAIN_PARAM_LOOSE}), max |d| {p_max} (bound "
-                f"{loose_bound}), relative l2 {p_rel} (bound "
-                f"{TRAIN_PARAM_REL_L2})")
-        n_noisy = sum(int(m.sum()) for m in noisy)
-        del noisy
-        # the first steps twice on the kernels: bit for bit
-        reps = []
-        for _ in range(2):
-            t = trainer.Trainer(cfg, tc, params=params, device="cuda")
-            reps.append((run_steps(t, batches[:TRAIN_REPEAT_STEPS])[0],
-                         trainer.leaves(t.params)))
-        same = reps[0][0] == reps[1][0] == losses[:TRAIN_REPEAT_STEPS] and \
-            all(torch.equal(a, b) for a, b in zip(reps[0][1], reps[1][1]))
-        if not same:
-            raise AssertionError(f"{TRAIN_REPEAT_STEPS} steps twice: "
-                                 f"losses {reps[0][0]} and {reps[1][0]} "
-                                 f"(the 20-step run's {losses[:5]})")
-        del tr, trp, reps, d
+        # fine-tune: the shipped x4 model, 20 steps on the kernels
+        finetune, launches = finetune_checks(cfg, params, batches, tc)
+        # fine-tune at x3 (the head's 27 outputs): a seeded 64 x 16 model
+        # (no x3 .pth ships)
+        cfg3 = srvgg.SRVGGConfig(num_feat=64, num_conv=16, upscale=3)
+        finetune_x3, _ = finetune_checks(
+            cfg3, srvgg.init_params(cfg3, torch.Generator().manual_seed(3)),
+            train_batches(inp, 3, X3_STEPS), tc)
         # distillation: teacher x4 (16 convs) into realesr-animevideov3-
         # fast's shape (64 features, 8 convs) from its shipped weights
         scfg, sparams = load_srvgg_pth(os.path.join(
@@ -2627,69 +2759,71 @@ def train_phase(work: str, inp: str, frames, weights: str) -> tuple:
                          "max_rel_err": max(p["max_rel_err"] for p in
                                             v["pairs"].values())}
                      for k, v in results.items()},
-            finetune={"launches": launches, "losses": losses,
-                      "losses_plain": losses_p,
-                      "max_loss_rel_diff": max(rel),
-                      "loss_rtol": TRAIN_LOSS_RTOL,
-                      "params_max_abs_diff": p_max,
-                      "params_max_abs_diff_above_noise": p_max_held,
-                      "params_atol": TRAIN_PARAM_ATOL,
-                      "params_beyond_atol": loose,
-                      "params_beyond_atol_max": TRAIN_PARAM_LOOSE,
-                      "params_noisy_gradient": n_noisy,
-                      "params_rel_l2_diff": p_rel,
-                      "params_rel_l2_bound": TRAIN_PARAM_REL_L2,
-                      "repeat_identical": same,
-                      "ms_per_step": 1e3 * step_s,
-                      "plain_ms_per_step": 1e3 * step_s_p,
-                      "lr_patches_per_s": TRAIN_BATCH / step_s},
+            finetune=finetune, finetune_x3=finetune_x3,
             distill={"launches": launches_d, "losses": hist,
                      "agreement_db_before": agree_before,
                      "agreement_db_after": agree_after,
                      "ms_per_step": 1e3 * float(np.median(secs)),
                      "n_diff_pth_vs_params": n_diff})
         del dist, ys
-        # a random-init 128-feature student: WIDE_STEPS steps on the
-        # kernels, the same on the plain versions (the teacher follows the
-        # trainer's `plain`; that run launches no T1-T3), each loss within
-        # TRAIN_LOSS_RTOL
-        wcfg = srvgg.SRVGGConfig(num_feat=WIDE_FEAT, num_conv=cfg.num_conv,
-                                 upscale=SCALE)
-        wide = {}
-        for plain in (False, True):
-            dw = distill.Distiller(cfg, params, wcfg, tc=tc, seed=0,
-                                   device="cuda")
-            dw.trainer.plain = plain
-            torch.cuda.synchronize()
-            kernels.reset_launches()
-            wl, ws = [], []
-            for lr, _ in batches[:WIDE_STEPS]:
-                t0 = time.perf_counter()
-                wl.append(dw.step(lr))
-                ws.append(time.perf_counter() - t0)
-            wide[plain] = (wl, float(np.median(ws)), dict(kernels.LAUNCHES))
-            del dw
-        want_w = train_launches(wcfg, WIDE_STEPS, cfg.num_conv + 2)
-        rel_w = [abs(a - b) / abs(b) for a, b in zip(wide[False][0],
-                                                     wide[True][0])]
-        if not (all(np.isfinite(wide[False][0])) and max(rel_w)
-                <= TRAIN_LOSS_RTOL) or any(
-                    wide[False][2][k] != n for k, n in want_w.items()) or any(
-                        wide[True][2][k] for k in TRAIN_KERNELS):
-            raise AssertionError(
-                f"{WIDE_FEAT}-feature distillation: losses "
-                f"{wide[False][0]} against the plain path's "
-                f"{wide[True][0]} (relative {max(rel_w)}, bound "
-                f"{TRAIN_LOSS_RTOL}); launches {wide[False][2]} (expected "
-                f"{want_w}), on the plain path {wide[True][2]} (expected "
-                f"none of {TRAIN_KERNELS})")
-        rec["distill_wide"] = {
-            "num_feat": WIDE_FEAT, "num_conv": wcfg.num_conv,
-            "launches": wide[False][2], "launches_plain": wide[True][2],
-            "losses": wide[False][0],
-            "losses_plain": wide[True][0], "max_loss_rel_diff": max(rel_w),
-            "ms_per_step": 1e3 * wide[False][1],
-            "plain_ms_per_step": 1e3 * wide[True][1]}
+        # the engine refuses a student it cannot serve on the card, before
+        # any batch
+        wide_cfg = srvgg.SRVGGConfig(num_feat=128, num_conv=1, upscale=2)
+        try:
+            UpscaleEngine(compute_dtype="bfloat16", preloaded=(
+                wide_cfg, srvgg.init_params(wide_cfg)))
+            raise AssertionError("the engine took a 128-feature SRVGG on "
+                                 "the card")
+        except NotImplementedError as e:
+            if "Serving at other widths" not in str(e):
+                raise
+            rec["engine_refuses_128_features"] = str(e)
+        rec["distill_default"] = default_distill_checks(work, inp)
+        # random-init students of WIDE_FEATS features from the shipped x4
+        # teacher: WIDE_STEPS steps on the kernels, the same on the plain
+        # versions (the teacher follows the trainer's `plain`; that run
+        # launches no T1-T3), each loss within TRAIN_LOSS_RTOL
+        rec["distill_wide"] = {}
+        for feat in WIDE_FEATS:
+            wcfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=cfg.num_conv,
+                                     upscale=SCALE)
+            wide = {}
+            for plain in (False, True):
+                dw = distill.Distiller(cfg, params, wcfg, tc=tc, seed=0,
+                                       device="cuda")
+                dw.trainer.plain = plain
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                wl, ws = [], []
+                for lr, _ in batches[:WIDE_STEPS]:
+                    t0 = time.perf_counter()
+                    wl.append(dw.step(lr))
+                    ws.append(time.perf_counter() - t0)
+                wide[plain] = (wl, float(np.median(ws)),
+                               dict(kernels.LAUNCHES))
+                del dw
+            want_w = train_launches(wcfg, WIDE_STEPS, cfg.num_conv + 2)
+            rel_w = [abs(a - b) / abs(b) for a, b in zip(wide[False][0],
+                                                         wide[True][0])]
+            if not (all(np.isfinite(wide[False][0])) and max(rel_w)
+                    <= TRAIN_LOSS_RTOL) or any(
+                        wide[False][2][k] != n for k, n in want_w.items()) \
+                    or any(wide[True][2][k] for k in TRAIN_KERNELS):
+                raise AssertionError(
+                    f"{feat}-feature distillation: losses "
+                    f"{wide[False][0]} against the plain path's "
+                    f"{wide[True][0]} (relative {max(rel_w)}, bound "
+                    f"{TRAIN_LOSS_RTOL}); launches {wide[False][2]} "
+                    f"(expected {want_w}), on the plain path "
+                    f"{wide[True][2]} (expected none of {TRAIN_KERNELS})")
+            rec["distill_wide"][str(feat)] = {
+                "num_feat": feat, "num_conv": wcfg.num_conv,
+                "launches": wide[False][2], "launches_plain": wide[True][2],
+                "losses": wide[False][0],
+                "losses_plain": wide[True][0],
+                "max_loss_rel_diff": max(rel_w),
+                "ms_per_step": 1e3 * wide[False][1],
+                "plain_ms_per_step": 1e3 * wide[True][1]}
         torch.cuda.empty_cache()
     return results, launches
 
@@ -2781,7 +2915,7 @@ def main() -> int:
         if not last["sass_ops"].get("FFMA") or last["spill_bytes"] != 0:
             raise AssertionError(f"{head.LAST_F32_SOURCE}: {last}, expected "
                                  f"FFMA and no spills")
-        # train.sass_faults: HGMMA in each of T1's, T2's and T3's 9
+        # train.sass_faults: HGMMA in each of T1's, T2's and T3's 23
         # kernels (one a channel pair: no CUDA-core form of them is left),
         # and no TF32 product or float atomic in the training library
         faults = train.sass_faults()

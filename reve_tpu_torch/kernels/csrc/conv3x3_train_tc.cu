@@ -35,7 +35,23 @@
 // 128 -> 128; as six bf16 products at 989 TFLOP/s 0.0147 and 0.0586 ms
 // (float32 FMAs at 67 TFLOP/s: 0.036 and 0.144 ms); the bytes (about 25
 // and 50 MB) take 0.0075 and 0.015 ms, so all three kernels are bound by
-// their operations.
+// their operations there.  At 32 -> 32 (0.60 GFLOP, 0.0037 ms as six
+// passes, against 12.6 MB, 0.0038 ms) and at the heads (64 -> 12: 0.45
+// GFLOP, 0.0027 ms, against 10 MB, 0.0030 ms) they are bound by bytes.
+//
+// Channel counts (REVE_TRAIN_PAIRS): Cin 3, 32, 64, 96, 128 and Cout 12,
+// 27, 32, 48, 64, 96, 128 at the pairs of an SRVGG.  Cin (T1's K) and
+// Cout (T2's K) are read in 64-channel halo halves and units of one tap's
+// 32 channels (KUnits): the last half of 32 or 96 is 32 channels, staged
+// 4 chunks of 16 B a pixel instead of 8 and read by a tap's one unit;
+// Cout 12 is one unit of 16 (one k16 step, not 64 channels of which 52
+// are zeros).  N blocks: T1's Cout 12 at wgmma's N 16, 27 at 32, 96 as
+// two of 48; T2's Cin 96 as two of 48; T3 keeps N 64 and M 64, its
+// columns past Cout (12, 27, 32, 48, the second block of 96) and its rows
+// past Cin (the last half of 32 or 96) zero and never written.  A Cout-27
+// pixel is 108 B, only 4-B aligned: its loads (load8, T2's load_wt) and
+// stores (T1's and T3's epilogues) go a float at a time; Cout 12 (48 B)
+// loads whole 16-B halves.
 //
 // Design.  What held the CUDA-core forms back (float32 FMAs, a
 // single-buffered 8-deep K step, T3's pixel decode a K step and x read
@@ -184,21 +200,73 @@ cudaError_t sum_parts(const float* part, float* out, int parts, int n,
   return cudaGetLastError();
 }
 
-// Call F<CIN, COUT>::run(args...) for a channel pair the training convs
-// take: Cin 3, 64, 128 x Cout 48, 64, 128; cudaErrorInvalidValue for any
-// other.
+// The channel pairs the training convs take (kernels/train.py PAIRS):
+// Cin 3, 64, 128 x Cout 48, 64, 128, and every SRVGG conv at 32, 64, 96
+// and 128 features and x2, x3, x4 -- conv_first (3, F), the hidden convs
+// (F, F) and the head (F, 3 r^2), Cout 12, 27 or 48.
+#define REVE_TRAIN_PAIRS(X)                                               \
+  X(3, 32) X(3, 48) X(3, 64) X(3, 96) X(3, 128)                           \
+  X(32, 12) X(32, 27) X(32, 32) X(32, 48)                                 \
+  X(64, 12) X(64, 27) X(64, 48) X(64, 64) X(64, 128)                      \
+  X(96, 12) X(96, 27) X(96, 48) X(96, 96)                                 \
+  X(128, 12) X(128, 27) X(128, 48) X(128, 64) X(128, 128)
+
+// Call F<CIN, COUT>::run(args...) for a channel pair of REVE_TRAIN_PAIRS;
+// cudaErrorInvalidValue for any other.
 template <template <int, int> class F, class... A>
 cudaError_t dispatch(int cin, int cout, A... args) {
 #define REVE_PAIR(CI, CO) \
   if (cin == CI && cout == CO) return F<CI, CO>::run(args...);
-#define REVE_ROW(CI) REVE_PAIR(CI, 48) REVE_PAIR(CI, 64) REVE_PAIR(CI, 128)
-  REVE_ROW(3)
-  REVE_ROW(64)
-  REVE_ROW(128)
-#undef REVE_ROW
+  REVE_TRAIN_PAIRS(REVE_PAIR)
 #undef REVE_PAIR
   return cudaErrorInvalidValue;
 }
+
+// The 16-B chunks (8 channels) of a staged 128-B pixel row of C channels
+// that the wgmmas read: 2 at C <= 16, 4 at C <= 32, else all 8.
+__host__ __device__ constexpr int chunks(int c) {
+  return c <= 16 ? 2 : c <= 32 ? 4 : 8;
+}
+
+// The K of T1 (over Cin) and of T2 (over Cout) in units, each one tap's
+// run of 32 channels (16 where C <= 16: one k16 step), taken halo half by
+// halo half: half h holds channels 64 h .. 64 h + 63, the last of C 32 or
+// 96 only 32 of them (C 12, 27, 48: one partial half), and each half's
+// taps run in turn, a tap's units in turn.
+template <int C>
+struct KUnits {
+  static constexpr int FULL = C / 64;   // whole 64-channel halves
+  static constexpr int REM = C % 64;    // channels of a last, partial half
+  static constexpr int UPT = (REM + 31) / 32;  // units a tap of that half
+  static constexpr int UNITS = 18 * FULL + 9 * UPT;
+  static constexpr int STEPS = C <= 16 ? 1 : 2;  // k16 steps a unit
+  // unit u -> its half, tap and 32-channel run of the half; no branch
+  // (T2 calls it between its wgmmas and their wait).  Whole halves only
+  // (C 64, 128) or one partial half (C <= 48) need no select; C 96
+  // selects between its two halves.
+  struct Unit {
+    int h, tap, sub;
+  };
+  __device__ __forceinline__ static Unit unit(int u) {
+    if constexpr (REM == 0 || FULL == 0) {
+      constexpr int PER = REM == 0 ? 18 : 9 * UPT;  // units a half
+      const int q = u % PER;
+      return {u / PER, PER == 9 ? q : q >> 1, PER == 9 ? 0 : q & 1};
+    } else {
+      const bool full = u < 18 * FULL;
+      const int hf = u / 18, q = u - 18 * hf, v = u - 18 * FULL;
+      return {full ? hf : FULL, full ? q >> 1 : UPT == 2 ? v >> 1 : v,
+              full ? q & 1 : UPT == 2 ? v & 1 : 0};
+    }
+  }
+  // a half's halo is staged before its first unit
+  __device__ __forceinline__ static bool first_of_half(int u) {
+    if constexpr (REM == 0 || FULL == 0)
+      return u % (REM == 0 ? 18 : 9 * UPT) == 0;
+    else
+      return u < 18 * FULL ? u % 18 == 0 : u == 18 * FULL;
+  }
+};
 
 // Eight float32 values (two float4) -> their hi, mid and lo planes, 8
 // bf16 (16 B) each.
@@ -272,17 +340,31 @@ __device__ __forceinline__ bool inside(int y, int x, int H, int W) {
 }
 
 // 8 channels of pixel (b, y, x) of a (B, H, W, C) float32 tensor from
-// channel c, or zeros outside the image.
+// channel c (< C), zeros past C and outside the image.  A pixel of C % 8
+// == 0 channels is 32-B aligned: two 16-B loads; of C 12, 16-B aligned: a
+// 16-B load for each whole 4 channels; of C 27 (108 B), only 4-B aligned:
+// a load a channel.
 template <int C>
 __device__ __forceinline__ void load8(const float* __restrict__ t, int b,
                                       int y, int x, int c, int H, int W,
                                       bool ok, float4 (&v)[2]) {
   v[0] = v[1] = make_float4(0.f, 0.f, 0.f, 0.f);
   if (ok && inside(y, x, H, W)) {
-    const float4* s = reinterpret_cast<const float4*>(
-        t + (((long long)b * H + y) * W + x) * C + c);
-    v[0] = s[0];
-    v[1] = s[1];
+    const float* p = t + (((long long)b * H + y) * W + x) * C + c;
+    const float4* s = reinterpret_cast<const float4*>(p);
+    if constexpr (C % 8 == 0) {
+      v[0] = s[0];
+      v[1] = s[1];
+    } else if constexpr (C % 4 == 0) {
+      if (c + 4 <= C) v[0] = s[0];
+      if (c + 8 <= C) v[1] = s[1];
+    } else {
+      float f[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[e] = c + e < C ? p[e] : 0.f;
+      v[0] = make_float4(f[0], f[1], f[2], f[3]);
+      v[1] = make_float4(f[4], f[5], f[6], f[7]);
+    }
   }
 }
 
@@ -307,17 +389,23 @@ __device__ __forceinline__ void load_rgb8(const float* __restrict__ x, int b,
 // ---------------------------------------------------------------------------
 // T1
 
+// T1's N of a block: Cout 12 at wgmma's N 16 and 27 at 32 (columns past
+// Cout zero, never stored), 96 as two blocks of 48, 128 as two of 64
+constexpr int fwd_nb(int cout) {
+  return cout == 12 ? 16 : cout == 27 ? 32 : cout == 96 ? 48
+                                          : cout > 64 ? 64 : cout;
+}
+
 template <int CIN, int COUT>
 struct Fwd {
-  static constexpr int NB = COUT == 48 ? 48 : 64;  // N of a block
-  static constexpr int NBLK = COUT / NB;
+  static constexpr int NB = fwd_nb(COUT);  // N of a block
+  static constexpr int NBLK = (COUT + NB - 1) / NB;
   static constexpr int TH = 2;                    // rows: one a warpgroup
   static constexpr int THREADS = 128 * TH;
   static constexpr bool RGB = CIN == 3;
-  static constexpr int HALVES = RGB ? 1 : CIN / 64;
+  using K = KUnits<RGB ? 64 : CIN>;
   // units of K: a tap's 32 input channels (Cin 3: its 27 values in 32)
-  static constexpr int UPH = RGB ? 1 : 18;  // units a half
-  static constexpr int UNITS = HALVES * UPH;
+  static constexpr int UNITS = RGB ? 1 : K::UNITS;
   // A: the halo's 4 x 66 pixel rows, or Cin 3's im2col [row][k / 8][64][8]
   static constexpr int A_PLANE =
       RGB ? TH * 4 * TW * 16 : align1024((TH + 2) * HP * ROW);
@@ -327,12 +415,11 @@ struct Fwd {
   static_assert(2 * (SMEM + 1024) <= 233472, "two blocks an SM");
   static_assert(4 * NB <= THREADS, "a unit's weights: one task a thread");
 
-  // The first weight row of unit u: half u / UPH, tap (u % UPH) / 2, 32
-  // channels (u % 2).
+  // The first weight row of unit u (KUnits::unit's half, tap and run).
   __device__ static int unit_k0(int u) {
     if (RGB) return 0;
-    const int h = u / UPH, q = u - h * UPH;
-    return (q >> 1) * CIN + 64 * h + 32 * (q & 1);
+    const auto k = K::unit(u);
+    return k.tap * CIN + 64 * k.h + 32 * k.sub;
   }
 };
 
@@ -348,19 +435,22 @@ struct FwdMma {
 };
 
 // This thread's column of a unit's weights: k = k0 + 8 kc .. + 7 of
-// column n0 + n, (kc, n) = (t / NB, t % NB); rows from `valid` on zero.
-// Indexed as written here, not through __ldg: see "The weights'
-// addresses" in the head note.
+// column n0 + n, (kc, n) = (t / NB, t % NB); rows from `valid` on, and
+// columns from COUT on, zero.  Indexed as written here, not through
+// __ldg: see "The weights' addresses" in the head note.
 template <int COUT, int NB>
 __device__ __forceinline__ void load_w(const float* __restrict__ w, int k0,
                                        int valid, int n0, int t,
                                        float4 (&v)[2]) {
   const int kc = t / NB, n = t - kc * NB;
+  const bool col = COUT % NB == 0 || n0 + n < COUT;
   float f[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
     const int k = 8 * kc + e;
-    f[e] = kc < 4 && k < valid ? w[(long long)(k0 + k) * COUT + n0 + n] : 0.f;
+    f[e] = kc < 4 && k < valid && col
+               ? w[(long long)(k0 + k) * COUT + n0 + n]
+               : 0.f;
   }
   v[0] = make_float4(f[0], f[1], f[2], f[3]);
   v[1] = make_float4(f[4], f[5], f[6], f[7]);
@@ -369,22 +459,24 @@ __device__ __forceinline__ void load_w(const float* __restrict__ w, int k0,
 // The halo of a (B, H, W, CH) tensor (T1's x, T2's dz) for half h of the
 // tile at (b, y0, x0): halo pixel hp (row hp / 66 from y0 - 1, column hp
 // % 66 from x0 - 1), channels 8 j .. 8 j + 7 of the half at 16-B chunk j
-// of its 128-B row, in the 128-B swizzle; zeros from channel CH on (CH
-// 48).  In batches of 2 tasks: their loads in flight together.
+// of its 128-B row, in the 128-B swizzle, for the chunks(CH) chunks j
+// the wgmmas read (the rest of the row is never read); zeros from
+// channel CH on.  In batches of 2 tasks: their loads in flight together.
 template <class C, int CH>
 __device__ __forceinline__ void stage_halo(unsigned char* a,
                                            const float* __restrict__ x,
                                            int b, int y0, int x0, int h,
                                            int H, int W, int t) {
-  constexpr int BATCH = 2;
-  constexpr int TASKS = (C::TH + 2) * HP * 8;  // (halo pixel, 8 channels)
+  constexpr int J = chunks(CH);
+  constexpr int BATCH = 2, LJ = J == 8 ? 3 : J == 4 ? 2 : 1;
+  constexpr int TASKS = (C::TH + 2) * HP * J;  // (halo pixel, 8 channels)
   constexpr int N = (TASKS + C::THREADS - 1) / C::THREADS;
 #pragma unroll
   for (int n0 = 0; n0 < N; n0 += BATCH) {
     float4 v[BATCH][2];
 #pragma unroll
     for (int q = 0; q < BATCH; ++q) {
-      const int i = t + C::THREADS * (n0 + q), hp = i >> 3, j = i & 7;
+      const int i = t + C::THREADS * (n0 + q), hp = i >> LJ, j = i & (J - 1);
       const int r = hp / HP, c = hp - r * HP;
       load8<CH>(x, b, y0 - 1 + r, x0 - 1 + c, 64 * h + 8 * j, H, W,
                 n0 + q < N && i < TASKS && 64 * h + 8 * j < CH, v[q]);
@@ -395,8 +487,9 @@ __device__ __forceinline__ void stage_halo(unsigned char* a,
       if (n0 + q < N && i < TASKS) {
         uint4 hi, mi, lo;
         split8(v[q][0], v[q][1], hi, mi, lo);
-        put3(a, C::A_PLANE, swizzle<128>((i >> 3) * ROW + (i & 7) * 16), hi,
-             mi, lo);
+        put3(a, C::A_PLANE,
+             swizzle<128>((i >> LJ) * ROW + (i & (J - 1)) * 16),
+             hi, mi, lo);
       }
     }
   }
@@ -454,11 +547,12 @@ __global__ void __launch_bounds__(Fwd<CIN, COUT>::THREADS, 2)
   load_w<COUT, NB>(w, C::unit_k0(0), VALID, n0, t, wv);
 #pragma unroll 1
   for (int u = 0; u < C::UNITS; ++u) {
-    if (u % C::UPH == 0) {
-      if constexpr (C::RGB)
-        stage_rgb<C>(smem, x, b, y0, x0, H, W, t);
-      else
-        stage_halo<C, CIN>(smem, x, b, y0, x0, u / C::UPH, H, W, t);
+    // a unit's half, tap and run are decoded where each is used, so that
+    // none stays live across the staging (at 128 registers a thread)
+    if constexpr (C::RGB) {
+      stage_rgb<C>(smem, x, b, y0, x0, H, W, t);
+    } else if (C::K::first_of_half(u)) {
+      stage_halo<C, CIN>(smem, x, b, y0, x0, C::K::unit(u).h, H, W, t);
     }
     if (t < 4 * NB) {
       uint4 hi, mi, lo;
@@ -472,11 +566,10 @@ __global__ void __launch_bounds__(Fwd<CIN, COUT>::THREADS, 2)
       load_w<COUT, NB>(w, C::unit_k0(u + 1), VALID, n0, t, wv);
     fence_proxy_async();
     __syncthreads();
-    const int q = u % C::UPH;
+    const auto k = C::K::unit(C::RGB ? 0 : u);
     const uint32_t a =
         C::RGB ? base + wg * 4096
-               : base + ((wg + (q >> 1) / 3) * HP + (q >> 1) % 3) * ROW +
-                     32 * 2 * (q & 1);
+               : base + ((wg + k.tap / 3) * HP + k.tap % 3) * ROW + 64 * k.sub;
     const uint32_t wb = base + C::OFF_W;
     fence_regs(acc);
     fence_regs(cor);
@@ -504,26 +597,48 @@ __global__ void __launch_bounds__(Fwd<CIN, COUT>::THREADS, 2)
 #pragma unroll
   for (int j = 0; j < NB / 8; ++j) {
     const int c = n0 + 8 * j + c0;
-    const float2 bv = *reinterpret_cast<const float2*>(bias + c);
-    float2 av = make_float2(0.f, 0.f);
-    if (alpha) av = *reinterpret_cast<const float2*>(alpha + c);
+    if (COUT % NB != 0 && c >= COUT) continue;  // Cout 12, 27's padding
+    if constexpr (COUT % 2 == 0) {
+      // c even and below Cout: c + 1 is too, and (pixel Cout + c) is even,
+      // so both channels go as one 8-B access
+      const float2 bv = *reinterpret_cast<const float2*>(bias + c);
+      float2 av = make_float2(0.f, 0.f);
+      if (alpha) av = *reinterpret_cast<const float2*>(alpha + c);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int px = x0 + p0 + 8 * h;
-      if (px >= W) continue;
-      const int r = 4 * j + 2 * h;
-      // conv + b in float32; PReLU: max(z, 0) + alpha * min(z, 0)
-      const float z0 = __fadd_rn(__fadd_rn(acc[r], cor[r]), bv.x);
-      const float z1 = __fadd_rn(__fadd_rn(acc[r + 1], cor[r + 1]), bv.y);
-      const long long o = (row + px) * COUT + c;
-      if (!alpha) {
-        *reinterpret_cast<float2*>(y + o) = make_float2(z0, z1);
-        continue;
+      for (int h = 0; h < 2; ++h) {
+        const int px = x0 + p0 + 8 * h;
+        if (px >= W) continue;
+        const int r = 4 * j + 2 * h;
+        // conv + b in float32; PReLU: max(z, 0) + alpha * min(z, 0)
+        const float z0 = __fadd_rn(__fadd_rn(acc[r], cor[r]), bv.x);
+        const float z1 = __fadd_rn(__fadd_rn(acc[r + 1], cor[r + 1]), bv.y);
+        const long long o = (row + px) * COUT + c;
+        if (!alpha) {
+          *reinterpret_cast<float2*>(y + o) = make_float2(z0, z1);
+          continue;
+        }
+        *reinterpret_cast<float2*>(y + o) =
+            make_float2(z0 > 0.f ? z0 : __fmul_rn(av.x, z0),
+                        z1 > 0.f ? z1 : __fmul_rn(av.y, z1));
+        if (z) *reinterpret_cast<float2*>(z + o) = make_float2(z0, z1);
       }
-      *reinterpret_cast<float2*>(y + o) =
-          make_float2(z0 > 0.f ? z0 : __fmul_rn(av.x, z0),
-                      z1 > 0.f ? z1 : __fmul_rn(av.y, z1));
-      if (z) *reinterpret_cast<float2*>(z + o) = make_float2(z0, z1);
+    } else {
+      // Cout 27: a pixel is 108 B, 4-B aligned; one channel at a time
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (c + e >= COUT) continue;
+        const float bv = bias[c + e], av = alpha ? alpha[c + e] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int px = x0 + p0 + 8 * h;
+          if (px >= W) continue;
+          const int r = 4 * j + 2 * h + e;
+          const float zz = __fadd_rn(__fadd_rn(acc[r], cor[r]), bv);
+          const long long o = (row + px) * COUT + c + e;
+          y[o] = !alpha || zz > 0.f ? zz : __fmul_rn(av, zz);
+          if (alpha && z) z[o] = zz;
+        }
+      }
     }
   }
 }
@@ -531,16 +646,21 @@ __global__ void __launch_bounds__(Fwd<CIN, COUT>::THREADS, 2)
 // ---------------------------------------------------------------------------
 // T2
 
+// T2's N of a block: Cin 3 at wgmma's N 8 (columns 3-7 zero), 96 as two
+// blocks of 48, 128 as two of 64
+constexpr int dgrad_nb(int cin) {
+  return cin == 3 ? 8 : cin == 96 ? 48 : cin > 64 ? 64 : cin;
+}
+
 template <int CIN, int COUT>
 struct Dgrad {
-  static constexpr int NB = CIN == 3 ? 8 : 64;     // N of a block
-  static constexpr int NBLK = CIN == 128 ? 2 : 1;
+  static constexpr int NB = dgrad_nb(CIN);         // N of a block
+  static constexpr int NBLK = (CIN + NB - 1) / NB;
   static constexpr int TH = 2;                     // rows: one a warpgroup
   static constexpr int THREADS = 128 * TH;
-  static constexpr int HALVES = (COUT + 63) / 64;  // of Cout (48: one)
-  // units of K: a tap's 32 output channels
-  static constexpr int UPH = 18;                   // units a half
-  static constexpr int UNITS = HALVES * UPH;
+  // units of K: a tap's 32 output channels (16 at Cout 12)
+  using K = KUnits<COUT>;
+  static constexpr int UNITS = K::UNITS;
   // A: dz's halo, 4 x 66 pixel rows of a half
   static constexpr int A_PLANE = align1024((TH + 2) * HP * ROW);
   static constexpr int W_PLANE = 32 * NB * 2;      // a unit's [4][NB][8]
@@ -553,28 +673,61 @@ struct Dgrad {
 
 // This thread's task of unit u's weights: column n = n0 + (t % 8) + 8 (t /
 // 32) (a ci), k = 8 kc .. 8 kc + 7 with kc = (t / 8) % 4, i.e. output
-// channels co = 64 (u / 18) + 32 (u % 2) + 8 kc .. + 7 of tap (u % 18) /
-// 2: W[tap][n][co .. co + 7], 32 consecutive bytes, zeros past Cin or
+// channels co = 64 h + 32 sub + 8 kc .. + 7 of the unit's tap (KUnits::
+// unit): W[tap][n][co .. co + 7], 32 consecutive bytes, zeros past Cin or
 // Cout.  A warp reads 8 columns' whole 128-B runs; 8 threads of one kc
 // store 8 consecutive 16-B rows (no bank conflict).  One row index a
 // unit, the two loads at fixed offsets from it (see "The weights'
 // addresses" in the head note).  No branch: it runs between T2's wgmmas
 // and their wait, where a branch on the thread would serialise them; a
-// task with no weights (Cin 3's columns 3-7, Cout 48's channels 48-63)
-// loads w's first 32 B and keeps zeros.
+// task with no weights (Cin 3's columns 3-7, channels past Cout) loads
+// w's first 32 B and keeps zeros.  A row of Cout 12 is 48 B: its 16-B
+// halves load alone; of Cout 27 (108 B, 4-B aligned), a float at a time.
 template <class C, int CIN, int COUT>
 __device__ __forceinline__ void load_wt(const float* __restrict__ w, int u,
                                         int n0, int t, float4 (&v)[2]) {
   const int kc = (t >> 3) & 3, n = n0 + (t & 7) + 8 * (t >> 5);
-  const int h = u / C::UPH, q = u - h * C::UPH;
-  const int co = 64 * h + 32 * (q & 1) + 8 * kc;
+  if constexpr (COUT % 64 == 0) {  // decoded as dgrad_tc_kernel says why
+    const int h = u / 18, q = u - h * 18;
+    const int co = 64 * h + 32 * (q & 1) + 8 * kc;
+    const bool ok = (4 * C::NB == C::THREADS || t < 4 * C::NB) &&
+                    (CIN % 64 == 0 || n < CIN);
+    const float4* s = reinterpret_cast<const float4*>(
+        ok ? w + (long long)((q >> 1) * CIN + n) * COUT + co : w);
+    const float4 a = s[0], c = s[1], z = make_float4(0.f, 0.f, 0.f, 0.f);
+    v[0] = ok ? a : z;
+    v[1] = ok ? c : z;
+    return;
+  }
+  const auto k = C::K::unit(u);
+  const int co = 64 * k.h + 32 * k.sub + 8 * kc;
   const bool ok = (4 * C::NB == C::THREADS || t < 4 * C::NB) &&
                   (COUT % 64 == 0 || co < COUT) && (CIN % 64 == 0 || n < CIN);
-  const float4* s = reinterpret_cast<const float4*>(
-      ok ? w + (long long)((q >> 1) * CIN + n) * COUT + co : w);
-  const float4 a = s[0], c = s[1], z = make_float4(0.f, 0.f, 0.f, 0.f);
-  v[0] = ok ? a : z;
-  v[1] = ok ? c : z;
+  const float* p = ok ? w + (long long)(k.tap * CIN + n) * COUT + co : w;
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (COUT % 8 == 0) {
+    const float4* s = reinterpret_cast<const float4*>(p);
+    const float4 a = s[0], c = s[1];
+    v[0] = ok ? a : z;
+    v[1] = ok ? c : z;
+  } else if constexpr (COUT % 4 == 0) {
+    const bool ok1 = ok && co + 8 <= COUT;
+    const float4* s = reinterpret_cast<const float4*>(p);
+    const float4* s1 = ok1 ? s + 1 : s;
+    const float4 a = s[0], c = s1[0];
+    v[0] = ok ? a : z;
+    v[1] = ok1 ? c : z;
+  } else {
+    float f[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const bool oke = ok && co + e < COUT;
+      const float g = *(oke ? p + e : p);
+      f[e] = oke ? g : 0.f;
+    }
+    v[0] = make_float4(f[0], f[1], f[2], f[3]);
+    v[1] = make_float4(f[4], f[5], f[6], f[7]);
+  }
 }
 
 // JAX's PReLU vjp: dz = dy * s(z > 0) + (alpha dy) * s(z < 0), where s
@@ -614,8 +767,16 @@ __global__ void __launch_bounds__(Dgrad<CIN, COUT>::THREADS, 2)
   load_wt<C, CIN, COUT>(w, 0, n0, t, wv);
 #pragma unroll 1
   for (int u = 0; u < C::UNITS; ++u) {
-    if (u % C::UPH == 0)
-      stage_halo<C, COUT>(smem, dz, b, y0, x0, u / C::UPH, H, W, t);
+    // Cout 64 and 128 (whole halves, 18 units each) decode a unit here and
+    // in load_wt with u % 18 and u / 18 written out: KUnits::unit gives the
+    // same values, but with it ptxas spilled 28-64 B at the 128-register
+    // cap and T2 ran 4-6% slower at those pairs (PERF.md section 6)
+    if constexpr (COUT % 64 == 0) {
+      if (u % 18 == 0)
+        stage_halo<C, COUT>(smem, dz, b, y0, x0, u / 18, H, W, t);
+    } else if (C::K::first_of_half(u)) {
+      stage_halo<C, COUT>(smem, dz, b, y0, x0, C::K::unit(u).h, H, W, t);
+    }
     if (t < 4 * NB) {
       uint4 hi, mi, lo;
       split8(wv[0], wv[1], hi, mi, lo);
@@ -624,17 +785,24 @@ __global__ void __launch_bounds__(Dgrad<CIN, COUT>::THREADS, 2)
     }
     fence_proxy_async();
     __syncthreads();
-    // tap (ky, kx) = ((q / 2) / 3, (q / 2) % 3), mirrored: row wg of the
-    // output reads halo row wg + 2 - ky, pixel m halo column m + 2 - kx
-    const int q = u % C::UPH, tap = q >> 1;
-    const uint32_t a = base + ((wg + 2 - tap / 3) * HP + 2 - tap % 3) * ROW +
-                       32 * 2 * (q & 1);
+    // tap (ky, kx) = (tap / 3, tap % 3), mirrored: row wg of the output
+    // reads halo row wg + 2 - ky, pixel m halo column m + 2 - kx
+    uint32_t a;
+    if constexpr (COUT % 64 == 0) {
+      const int q = u % 18, tap = q >> 1;
+      a = base + ((wg + 2 - tap / 3) * HP + 2 - tap % 3) * ROW +
+          32 * 2 * (q & 1);
+    } else {
+      const auto k = C::K::unit(u);
+      a = base + ((wg + 2 - k.tap / 3) * HP + 2 - k.tap % 3) * ROW +
+          64 * k.sub;
+    }
     const uint32_t wb = base + C::OFF_W;
     fence_regs(acc);
     fence_regs(cor);
     wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < 2; ++s)
+    for (int s = 0; s < C::K::STEPS; ++s)
       // step s: k blocks 2s, 2s + 1 (A: 32 B on in the swizzled rows; B:
       // 2 NB * 16 B on)
       mma_bf16x6<NB>(acc, cor, a + 32 * s, C::A_PLANE, wb + 2 * s * NB * 16,
@@ -732,9 +900,18 @@ struct Wgrad {
   static constexpr int MWG = RGB ? 1 : 3;
   static constexpr int THREADS = 128 * (RGB ? 2 : 3);
   static constexpr int TH = 2;             // rows of a tile (K chunk)
-  static constexpr int HALVES = RGB ? 1 : CIN / 64;
-  static constexpr int NBLK = COUT == 128 ? 2 : 1;  // N blocks of 64
+  // 64-channel halves of Cin (the last of 32 or 96: 32 channels, its
+  // slab's rows 32-63 zero and never written)
+  static constexpr int HALVES = RGB ? 1 : (CIN + 63) / 64;
+  // N blocks of 64 (Cout 12, 27, 32, 48 and the second of 96: columns past
+  // Cout zero and never written)
+  static constexpr int NBLK = (COUT + 63) / 64;
   static constexpr int GROUPS = (RGB ? 1 : 3 * HALVES) * NBLK;
+  // 16-B chunks (8 channels) a staged pixel row of x and of dz: only those
+  // that can hold channels (Cin 32: 4; Cout 12: 2, 27 and 32: 4); the
+  // others are zeroed once
+  static constexpr int XJ = RGB ? 8 : chunks(CIN);
+  static constexpr int DJ = chunks(COUT);
   static constexpr int ROWS = 9 * CIN + 1;  // dW, then db
   // x: 2 rows x 66 halo pixels of a half, or Cin 3's 2 x 64 im2col rows
   static constexpr int X_PX = RGB ? TH * TW : TH * HP;
@@ -744,11 +921,11 @@ struct Wgrad {
   // the running float32 sums of hi.hi, one 64 x 64 slab a warpgroup
   static constexpr int OFF_TOT = OFF_D + 3 * D_PLANE;
   static constexpr int SMEM = OFF_TOT + MWG * 64 * 64 * 4;
-  static constexpr int XT = RGB ? TH * TW * 4 : X_PX * 8;  // x tasks
-  static constexpr int DT = TH * TW * 8;                   // dz tasks
+  static constexpr int XT = RGB ? TH * TW * 4 : X_PX * XJ;  // x tasks
+  static constexpr int DT = TH * TW * DJ;                    // dz tasks
   static constexpr int NX = (XT + THREADS - 1) / THREADS;
   static constexpr int ND = (DT + THREADS - 1) / THREADS;
-  static_assert(THREADS % 8 == 0, "a thread stages fixed 8 channels");
+  static_assert(THREADS % DJ == 0, "a thread stages fixed 8 channels");
   static_assert(THREADS * 8 * 4 <= OFF_TOT, "db's sums fit the planes");
   static_assert(!RGB || 2 * (SMEM + 1024) <= 233472, "two blocks an SM");
 };
@@ -761,10 +938,10 @@ struct Raw {
 };
 
 // The loads of tile `tile` (2 x 64 pixels, x fastest): x task i = (pixel
-// i / 8 of the 2 x 66 halo, whose rows are the tile's shifted by dy,
-// channels 8 (i % 8) of half h), or Cin 3's (pixel i % 64 of row i / 256,
-// k / 8 = (i / 64) % 4); dz task i = (pixel i / 8, channels n0 + 8 (i %
-// 8)), zeros past Cout.
+// i / XJ of the 2 x 66 halo, whose rows are the tile's shifted by dy,
+// channels 8 (i % XJ) of half h), zeros past Cin, or Cin 3's (pixel i %
+// 64 of row i / 256, k / 8 = (i / 64) % 4); dz task i = (pixel i / DJ,
+// channels n0 + 8 (i % DJ)), zeros past Cout.
 template <class C, int CIN, int COUT>
 __device__ __forceinline__ void load_tile(Raw<C>& raw,
                                           const float* __restrict__ x,
@@ -781,14 +958,16 @@ __device__ __forceinline__ void load_tile(Raw<C>& raw,
       load_rgb8(x, b, y0 + (i >> 8), x0 + (i & 63), (i >> 6) & 3, H, W,
                 i < C::XT, raw.x[n]);
     } else {
-      const int hp = i >> 3, r = hp / HP, c = hp - r * HP;
-      load8<CIN>(x, b, y0 + r + dy, x0 - 1 + c, 64 * h + 8 * (i & 7), H, W,
-                 i < C::XT, raw.x[n]);
+      const int hp = (unsigned)i / C::XJ, r = hp / HP, c = hp - r * HP;
+      const int ch = 64 * h + 8 * ((unsigned)i % C::XJ);
+      load8<CIN>(x, b, y0 + r + dy, x0 - 1 + c, ch, H, W,
+                 i < C::XT && ch < CIN, raw.x[n]);
     }
   }
 #pragma unroll
   for (int n = 0; n < C::ND; ++n) {
-    const int i = t + C::THREADS * n, p = i >> 3, ch = n0 + 8 * (i & 7);
+    const int i = t + C::THREADS * n, p = (unsigned)i / C::DJ,
+              ch = n0 + 8 * ((unsigned)i % C::DJ);
     load8<COUT>(dz, b, y0 + (p >> 6), x0 + (p & 63), ch, H, W,
                 i < C::DT && ch < COUT, raw.d[n]);
   }
@@ -806,8 +985,8 @@ __device__ __forceinline__ void stage_tile(unsigned char* smem,
     if (i >= C::XT) continue;
     uint4 hi, mi, lo;
     split8(raw.x[n][0], raw.x[n][1], hi, mi, lo);
-    const int row = C::RGB ? (i >> 8) * TW + (i & 63) : i >> 3;
-    const int chunk = C::RGB ? (i >> 6) & 3 : i & 7;
+    const int row = C::RGB ? (i >> 8) * TW + (i & 63) : (unsigned)i / C::XJ;
+    const int chunk = C::RGB ? (i >> 6) & 3 : (unsigned)i % C::XJ;
     put3(smem, C::X_PLANE, swizzle<128>(row * ROW + chunk * 16), hi, mi, lo);
   }
 #pragma unroll
@@ -816,7 +995,8 @@ __device__ __forceinline__ void stage_tile(unsigned char* smem,
     if (i >= C::DT) continue;
     uint4 hi, mi, lo;
     split8(raw.d[n][0], raw.d[n][1], hi, mi, lo);
-    put3(smem + C::OFF_D, C::D_PLANE, swizzle<128>((i >> 3) * ROW + (i & 7) * 16),
+    put3(smem + C::OFF_D, C::D_PLANE,
+         swizzle<128>((unsigned)i / C::DJ * ROW + (unsigned)i % C::DJ * 16),
          hi, mi, lo);
     if constexpr (DB) {
       const float f[8] = {raw.d[n][0].x, raw.d[n][0].y, raw.d[n][0].z,
@@ -853,14 +1033,18 @@ __global__ void __launch_bounds__(Wgrad<CIN, COUT>::THREADS, 1)
   const int first = blockIdx.x * per, last = min(first + per, tiles);
 
   // the hi.hi sums start at zero (Cin 3: so do A's rows 27-63, which the
-  // wgmmas read but nothing stages)
+  // wgmmas read but nothing stages; so do the chunks of x's and dz's rows
+  // past XJ and DJ)
   float* tot = reinterpret_cast<float*>(smem + C::OFF_TOT) + wg * 64 * 64;
   for (int i = t; i < C::MWG * 64 * 64 / 4; i += C::THREADS)
     reinterpret_cast<float4*>(smem + C::OFF_TOT)[i] =
         make_float4(0.f, 0.f, 0.f, 0.f);
-  if constexpr (C::RGB)
+  if constexpr (C::RGB || C::XJ < 8)
     for (int i = t; i < 3 * C::X_PLANE / 16; i += C::THREADS)
       reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+  if constexpr (C::DJ < 8)
+    for (int i = t; i < 3 * C::D_PLANE / 16; i += C::THREADS)
+      reinterpret_cast<uint4*>(smem + C::OFF_D)[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
   const bool mma = wg < C::MWG;
   float acc[32], cor[32], dbs[8];
@@ -928,25 +1112,33 @@ __global__ void __launch_bounds__(Wgrad<CIN, COUT>::THREADS, 1)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int m = m0 + 8 * hh;
-      if (C::RGB && m >= 27) continue;
+      if (C::RGB ? m >= 27 : 64 * h + m >= CIN) continue;
       const int row = C::RGB ? m : tap * CIN + 64 * h + m;
       const int r = 4 * j + 2 * hh;
-      *reinterpret_cast<float2*>(out + (long long)row * COUT + c) =
-          make_float2(__fadd_rn(tot[r * 128 + (t & 127)], cor[r]),
-                      __fadd_rn(tot[(r + 1) * 128 + (t & 127)], cor[r + 1]));
+      const float v0 = __fadd_rn(tot[r * 128 + (t & 127)], cor[r]),
+                  v1 = __fadd_rn(tot[(r + 1) * 128 + (t & 127)], cor[r + 1]);
+      float* o = out + (long long)row * COUT + c;
+      if constexpr (COUT % 2 == 0) {
+        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+      } else {
+        // Cout 27: rows of 108 B, 4-B aligned
+        o[0] = v0;
+        if (c + 1 < COUT) o[1] = v1;
+      }
     }
   }
   if (!has_db) return;
-  // db: the threads' sums of their 8 channels (t % 8), added in thread
+  // db: the threads' sums of their 8 channels (t % DJ), added in thread
   // order
   float* red = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int e = 0; e < 8; ++e) red[t * 8 + e] = dbs[e];
   __syncthreads();
-  if (t < 64 && n0 + t < COUT) {
+  if (t < 8 * C::DJ && n0 + t < COUT) {
     const int j = t >> 3, e = t & 7;
     float s = 0.f;
-    for (int u = j; u < C::THREADS; u += 8) s = __fadd_rn(s, red[u * 8 + e]);
+    for (int u = j; u < C::THREADS; u += C::DJ)
+      s = __fadd_rn(s, red[u * 8 + e]);
     out[(long long)(9 * CIN) * COUT + n0 + t] = s;
   }
 }

@@ -16,10 +16,16 @@ They replace what XLA runs for reve_tpu/train/trainer.py:53-72
         PReLU'(0) = (1 + alpha) / 2 and d(alpha) 0 there
     T3  dW[ky, kx, ci, co] = sum_p x(p + k) dz(p), db = sum_p dz(p)
 
-Layouts: NHWC float32 activations, HWIO float32 weights, channels Cin in
-{3, 64, 128} and Cout in {48, 64, 128} (conv_first's 3 inputs, x4's 48 =
-3 * 4^2 head outputs, realesr-animevideov3's 64 features and the 128 of
-the distillation script's default student); other counts are refused.
+Layouts: NHWC float32 activations, HWIO float32 weights, at the channel
+pairs of PAIRS: Cin 3, 64, 128 x Cout 48, 64, 128, and every SRVGG conv
+at WIDTHS features (32, 64, 96, 128) and SCALES (x2, x3, x4) -- conv_first
+(3, F), the hidden convs (F, F) and the head (F, 3 r^2), Cout 12, 27 or
+48 (23 pairs); other pairs are refused.  The kernels read Cin and Cout
+in 64-channel halo halves (the last of 32 or 96 features: 32 channels)
+and units of one tap's 32 channels (16 at Cout 12); T1's N blocks are
+`fwd_block`, T2's `dgrad_block`, T3's `wgrad_groups`.  A Cout-27 pixel is
+108 B, only 4-B aligned: the kernels read and write it a float at a
+time.
 
 Bound on an H100 SXM per training step of a 64-feature, 16-conv student
 on 8 LR patches of 64 x 64: a hidden conv is 2.416 GFLOP, 0.0147 ms as
@@ -51,8 +57,14 @@ from reve_tpu_torch.kernels.conv3x3 import check_operands, prelu_plain
 
 #: T1, T2 and T3
 SOURCE = "conv3x3_train_tc.cu"
-CINS = (3, 64, 128)
-COUTS = (48, 64, 128)
+#: the SRVGG widths (num_feat) and scales whose convs the kernels take
+WIDTHS = (32, 64, 96, 128)
+SCALES = (2, 3, 4)
+#: the (Cin, Cout) pairs the kernels take (REVE_TRAIN_PAIRS in SOURCE)
+PAIRS = tuple(sorted(
+    {(ci, co) for ci in (3, 64, 128) for co in (48, 64, 128)}
+    | {p for f in WIDTHS
+       for p in [(3, f), (f, f)] + [(f, 3 * r * r) for r in SCALES]}))
 #: the ROADMAP.md item that other channel counts wait on
 WIDTHS_ITEM = "Training at other widths"
 #: T1's, T2's and T3's tiles: rows x columns of pixels (T1, T2: a
@@ -124,11 +136,36 @@ def conv3x3_wgrad_plain(x, dz):
 
 
 def check_channels(cin: int, cout: int) -> None:
-    if cin not in CINS or cout not in COUTS:
+    if (cin, cout) not in PAIRS:
         raise ValueError(
             f"conv3x3 {cin} -> {cout} channels: the training kernels take "
-            f"Cin in {CINS} and Cout in {COUTS} (ROADMAP.md queue 1, "
-            f"'{WIDTHS_ITEM}')")
+            f"the (Cin, Cout) pairs {PAIRS}: SRVGG at {WIDTHS} features and "
+            f"x{SCALES} (ROADMAP.md queue 1, '{WIDTHS_ITEM}')")
+
+
+def fwd_block(cout: int) -> int:
+    """T1's N of a block (its blocks: ceil(cout / it)): Cout 12 at wgmma's
+    N 16 and 27 at 32 (the columns past Cout zero), 96 as two blocks of
+    48, 128 as two of 64."""
+    return {12: 16, 27: 32, 96: 48}.get(cout, min(cout, 64))
+
+
+def dgrad_block(cin: int) -> int:
+    """T2's N of a block over Cin: 3 at wgmma's N 8, 96 as two of 48, 128
+    as two of 64."""
+    return {3: 8, 96: 48}.get(cin, min(cin, 64))
+
+
+def k_units(c: int) -> List[Tuple[int, int, int]]:
+    """T1's K over Cin (not 3: its 27 im2col values are one unit) and
+    T2's over Cout, in the order the kernels run it: (tap, first channel,
+    channels) of each unit, halo half by halo half (channels 64 h .. 64 h
+    + 63), each tap's 32-channel runs of the half (a run of 16 where c <=
+    16: one k16 step)."""
+    run = 16 if c <= 16 else 32
+    return [(tap, c0, min(run, c - c0))
+            for h0 in range(0, c, 64) for tap in range(9)
+            for c0 in range(h0, min(h0 + 64, c), 32)]
 
 
 def _check(cin: int, cout: int, *ts: torch.Tensor) -> None:
@@ -222,12 +259,13 @@ def tiles(B: int, H: int, W: int) -> int:
 
 
 def wgrad_groups(cin: int, cout: int) -> int:
-    """T3's blocks of one split: at Cin 64 and 128, each tap row times each
-    64-channel half of Cin (its three warpgroups the row's taps); at Cin 3
-    one (its 27 rows of dW one slab); each times the 64-channel N blocks
-    of Cout (Cout 48 as one)."""
-    nblk = 2 if cout == 128 else 1
-    return (1 if cin == 3 else 3 * cin // 64) * nblk
+    """T3's blocks of one split: each tap row times each 64-channel half of
+    Cin (its three warpgroups the row's taps; the last half of 32 or 96:
+    32 channels); at Cin 3 one (its 27 rows of dW one slab); each times
+    the 64-channel N blocks of Cout (Cout 12 to 64 as one, 96 and 128 as
+    two)."""
+    return (1 if cin == 3 else 3 * math.ceil(cin / 64)) * math.ceil(
+        cout / 64)
 
 
 def wgrad_splits(B: int, H: int, W: int, cin: int,
@@ -266,27 +304,27 @@ def conv3x3_wgrad(x, dz):
 # -- the conv stack under autograd --------------------------------------------
 
 
-#: the kernel templates of T1, T2 and T3, each of whose 9 channel pairs
-#: must hold wgmma (HGMMA)
+#: the kernel templates of T1, T2 and T3, each of whose PAIRS must hold
+#: wgmma (HGMMA)
 SASS_FORMS = ("fwd_tc_kernel", "dgrad_tc_kernel", "wgrad_tc_kernel")
 
 
 def sass_faults() -> List[str]:
     """What the built training library's SASS breaks of its design, empty
-    when nothing: each SASS_FORMS kernel at each of the 9 channel pairs
-    holds HGMMA (so no CUDA-core form of T1, T2 or T3 is left), and
-    the library holds no TF32 product and no float atomic (RED or ATOM on
-    F32; every sum runs in a fixed order).  Needs the CUDA toolkit."""
+    when nothing: each SASS_FORMS kernel at each of the PAIRS holds HGMMA
+    (so no CUDA-core form of T1, T2 or T3 is left), and the library holds
+    no TF32 product and no float atomic (RED or ATOM on F32; every sum
+    runs in a fixed order).  Needs the CUDA toolkit."""
     lib = build.sass(SOURCE)
     faults = []
     for form in SASS_FORMS:
         ks = {k: v for k, v in lib.items() if form in k}
         lacking = sorted(k for k, v in ks.items()
                          if not re.search(r"\bHGMMA\b", v))
-        if len(ks) != len(CINS) * len(COUTS) or lacking:
+        if len(ks) != len(PAIRS) or lacking:
             faults.append(f"{SOURCE}: {len(ks)} {form} kernels, HGMMA "
                           f"missing in {lacking}; expected HGMMA in each of "
-                          f"{len(CINS) * len(COUTS)}")
+                          f"{len(PAIRS)}")
     text = "".join(lib.values())
     if "TF32" in text or re.search(
             r"\b(?:RED|ATOMG?|ATOMS)\.[^\n]*\bF32\b", text):

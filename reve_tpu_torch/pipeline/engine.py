@@ -47,7 +47,8 @@ Counterpart of reve_tpu/pipeline/engine.py.  Design:
     as reve_tpu's pixel_unshuffle raises.
 
 Not ported yet (raises NotImplementedError naming its ROADMAP.md
-port-queue item): multi-device meshes, RRDB x1.
+port-queue item): multi-device meshes, RRDB x1, and on the card an SRVGG
+of other than 64 features (`check_serving_width`).
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ import torch
 
 from reve_tpu_torch import device as device_mod
 from reve_tpu_torch.kernels import color as color_k
+from reve_tpu_torch.kernels import conv3x3
 from reve_tpu_torch.kernels import tta as tta_mod
 from reve_tpu_torch.models import registry, rrdb, srvgg
 from reve_tpu_torch.ops import tiling
@@ -109,10 +111,27 @@ def parse_int8_calib(int8_calib: str):
     return pct
 
 
+#: the ROADMAP.md item that serving an SRVGG of another width waits on
+SERVING_WIDTHS_ITEM = "Serving at other widths"
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not yet ported in reve_tpu_torch (ROADMAP.md port "
         f"queue: {item})")
+
+
+def check_serving_width(cfg, device: torch.device) -> None:
+    """Raise, for a CUDA device, on an SRVGG whose num_feat is not the
+    FEAT (64) that K3, K1, K2 and K4a/K4/K4h are written for
+    (kernels/conv3x3.py): before the first batch, not deep in K3.  The
+    plain path on the CPU serves any width."""
+    if device.type == "cuda" and isinstance(cfg, srvgg.SRVGGConfig) and \
+            cfg.num_feat != conv3x3.FEAT:
+        raise _not_ported(
+            f"serving an SRVGG of {cfg.num_feat} features on the card (its "
+            f"inference kernels K3, K1, K2, K4a, K4 and K4h take "
+            f"{conv3x3.FEAT})", SERVING_WIDTHS_ITEM)
 
 
 @dataclasses.dataclass
@@ -264,6 +283,7 @@ class UpscaleEngine:
             raise TypeError(f"unknown model config {type(cfg).__name__}")
         if self._rrdb:
             rrdb.check_cfg(cfg)  # x1 raises, naming its ROADMAP.md item
+        check_serving_width(cfg, self.device)
         self.cfg = cfg
         #: the float32 params that int8 calibration, quantization and
         #: certification read (None off int8)

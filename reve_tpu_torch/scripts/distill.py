@@ -113,7 +113,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     else:
         checkpoint.save(args.out, dist.trainer, step=args.steps)
         print(f"saved student checkpoint: {args.out}")
-    return {"history": history, "agreement_db": agreement, "out": args.out}
+    return {"history": history, "agreement_db": agreement, "out": args.out,
+            "distiller": dist}
 
 
 if __name__ == "__main__":

@@ -1,13 +1,14 @@
 """A fine-tune step's time on the card, and where it goes.
 
     python -m reve_tpu_torch.scripts.perf_train_step [--steps N] [--plain]
-        [--trace] [--feat F]
+        [--trace] [--feat F] [--scale R]
 
 Fine-tunes realesr-animevideov3 x4 (models/, 64 features, 16 convs; with
-`--feat F`, the same shape at F features drawn from seed 0, e.g. 128, the
-distillation script's default student width) with
-train.Trainer's defaults on seeded batches of 8 LR patches of 64 x 64
-(HR 256) already on the card, so no host-to-device copy is timed: two
+`--feat F` (32, 96 or 128, the distillation script's default student
+width) or `--scale R` (2 or 3: no x2 or x3 weights ship), the same depth
+at F features (64 by default) and xR (4 by default) drawn from seed 0)
+with train.Trainer's defaults on seeded batches of 8 LR patches of 64 x
+64 (HR 64 R) already on the card, so no host-to-device copy is timed: two
 untimed steps, then `--steps` steps by the host's clock (each step ends
 in its loss's read, as Trainer.step does).  `--plain` runs the kernels'
 plain versions (cuDNN) instead of T1-T3.  With `--trace`, three more
@@ -34,7 +35,7 @@ from reve_tpu_torch.models import srvgg
 from reve_tpu_torch.train import trainer
 from reve_tpu_torch.weights.torch_loader import load_srvgg_pth
 
-BATCH, LR_PATCH, SCALE = 8, 64, 4
+BATCH, LR_PATCH = 8, 64
 WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "models", "realesr-animevideov3-x4.pth")
 
@@ -46,18 +47,22 @@ def main(argv: Optional[List[str]] = None) -> dict:
     p.add_argument("--plain", action="store_true")
     p.add_argument("--trace", action="store_true")
     p.add_argument("--feat", type=int, default=0)
+    p.add_argument("--scale", type=int, default=0, choices=(0, 2, 3, 4))
     args = p.parse_args(argv)
     dev = torch.device("cuda", 0)
     cfg, params = load_srvgg_pth(WEIGHTS)
-    if args.feat:
-        cfg = srvgg.SRVGGConfig(num_feat=args.feat, num_conv=cfg.num_conv,
-                                upscale=cfg.upscale)
+    if (args.feat or cfg.num_feat, args.scale or cfg.upscale) != (
+            cfg.num_feat, cfg.upscale):
+        cfg = srvgg.SRVGGConfig(num_feat=args.feat or cfg.num_feat,
+                                num_conv=cfg.num_conv,
+                                upscale=args.scale or cfg.upscale)
         params = srvgg.init_params(cfg)
+    r = cfg.upscale
     tr = trainer.Trainer(cfg, params=params, device=dev, plain=args.plain)
     rs = np.random.RandomState(0)
-    hr = torch.from_numpy(rs.rand(BATCH, LR_PATCH * SCALE, LR_PATCH * SCALE,
+    hr = torch.from_numpy(rs.rand(BATCH, LR_PATCH * r, LR_PATCH * r,
                                   3).astype(np.float32)).to(dev)
-    lr = hr.reshape(BATCH, LR_PATCH, SCALE, LR_PATCH, SCALE, 3).mean((2, 4))
+    lr = hr.reshape(BATCH, LR_PATCH, r, LR_PATCH, r, 3).mean((2, 4))
     for _ in range(2):
         tr.step(lr, hr)
     torch.cuda.synchronize(dev)
@@ -70,7 +75,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     line = {"device": torch.cuda.get_device_name(dev), "nvidia_smi": smi,
-            "plain": args.plain, "num_feat": cfg.num_feat, "batch": BATCH,
+            "plain": args.plain, "num_feat": cfg.num_feat,
+            "scale": cfg.upscale, "batch": BATCH,
             "lr_patch": LR_PATCH,
             "step_ms": step_ms, "lr_patches_per_s": BATCH * 1e3 / step_ms}
     if args.trace:

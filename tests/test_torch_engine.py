@@ -331,3 +331,46 @@ def test_frame_bytes_counts_what_the_kernels_keep():
                        preloaded=(mine.cfg, srvgg.init_params(mine.cfg)))
     assert bf._frame_bytes(10, 10) == 100 * (2 * 16 * 2 + 3 + 12)
     assert engine_mod._PLAN_INFLIGHT_SETS >= 1
+
+
+@pytest.mark.parametrize("feat", [32, 96, 128])
+def test_engine_refuses_other_srvgg_widths_on_the_card(monkeypatch, feat):
+    """On a CUDA device the engine refuses, before any batch, an SRVGG
+    whose num_feat is not the inference kernels' 64, naming the ROADMAP.md
+    item (ROADMAP.md lists it); 64 features pass, and on the CPU every
+    width runs (the plain path) and matches reve_tpu's engine."""
+    cfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=1, upscale=2)
+    cuda = torch.device("cuda", 0)
+    with pytest.raises(NotImplementedError,
+                       match=engine_mod.SERVING_WIDTHS_ITEM):
+        engine_mod.check_serving_width(cfg, cuda)
+    engine_mod.check_serving_width(
+        srvgg.SRVGGConfig(num_feat=64, num_conv=1, upscale=2), cuda)
+    engine_mod.check_serving_width(cfg, torch.device("cpu"))
+    # the engine asks before it touches the device: its device resolved
+    # to cuda:0, it raises with nothing on the card yet
+    monkeypatch.setattr(engine_mod.device_mod, "resolve_device",
+                        lambda device: cuda)
+    with pytest.raises(NotImplementedError,
+                       match=engine_mod.SERVING_WIDTHS_ITEM):
+        UpscaleEngine(compute_dtype="float32",
+                      preloaded=(cfg, srvgg.init_params(cfg)))
+    monkeypatch.undo()
+    import os
+
+    with open(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "ROADMAP.md")) as f:
+        assert engine_mod.SERVING_WIDTHS_ITEM in f.read()
+    import jax
+
+    jcfg = jsrvgg.SRVGGConfig(num_feat=feat, num_conv=1, upscale=2)
+    jparams = jsrvgg.init_params(jax.random.key(feat), jcfg)
+    mine = UpscaleEngine(device="cpu", compute_dtype="float32",
+                         batch_size=2,
+                         preloaded=(cfg, srvgg.params_from_jax(jparams)))
+    ref = JaxEngine(compute_dtype="float32", batch_size=2,
+                    preloaded=(jcfg, jparams))
+    x = _frames(2)
+    d = np.abs(mine.upscale_frames(x).astype(int)
+               - np.asarray(ref.upscale_frames(x)).astype(int))
+    assert d.max() <= 1

@@ -1774,7 +1774,7 @@ def test_rrdb_int8_engine_peak_memory_within_its_bill():
 
 # -- T1-T3, the training kernels ---------------------------------------------
 
-TRAIN_PAIRS = [(ci, co) for ci in train.CINS for co in train.COUTS]
+TRAIN_PAIRS = list(train.PAIRS)
 
 
 def _rel_close(got, want, what, rel=1e-5):
@@ -1880,12 +1880,49 @@ def test_t2_matches_plain_with_weights_distinct_per_tap_and_unit(
 
 @pytest.mark.cuda
 def test_t1_and_t3_run_on_wgmma_in_each_kernel():
-    """Each of T1's, T2's and T3's 9 kernels (one a channel pair) holds
-    wgmma (HGMMA) in its SASS, and the training library no TF32 product
-    or float atomic: no CUDA-core form of T1, T2 or T3 is left
-    (train.sass_faults, the check the smoke's build phase runs)."""
+    """Each of T1's, T2's and T3's 23 kernels (one a channel pair of
+    train.PAIRS) holds wgmma (HGMMA) in its SASS, and the training library
+    no TF32 product or float atomic: no CUDA-core form of T1, T2 or T3 is
+    left (train.sass_faults, the check the smoke's build phase runs).
+    ptxas's spill bytes by kernel are printed."""
     _cuda()
     assert train.sass_faults() == []
+    print({k: n for k, n in train.build.spills(train.SOURCE).items() if n})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat,r", [(64, 2), (64, 3), (32, 3), (96, 2)])
+def test_training_steps_repeat_bit_for_bit_at_x2_and_x3(feat, r):
+    """Three Trainer steps of a seeded SRVGG (2 hidden convs) at x2 and x3
+    and 32 and 96 features on T1-T3, twice: the losses and the params bit
+    for bit; each loss within 1e-4 of the same steps on the plain
+    versions; T1-T3 launched as the depth says."""
+    from reve_tpu_torch import kernels
+    from reve_tpu_torch.train import trainer
+
+    dev = _cuda()
+    cfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=2, upscale=r)
+    params = srvgg.init_params(cfg, torch.Generator().manual_seed(r))
+    rs = np.random.RandomState(feat + r)
+    batches = []
+    for _ in range(3):
+        hr = rs.rand(4, 24 * r, 40 * r, 3).astype(np.float32)
+        batches.append((hr.reshape(4, 24, r, 40, r, 3).mean((2, 4)), hr))
+    runs = []
+    for plain in (False, False, True):
+        tr = trainer.Trainer(cfg, params=params, device=dev, plain=plain)
+        kernels.reset_launches()
+        losses = [tr.step(lr, hr) for lr, hr in batches]
+        launches = {k: kernels.LAUNCHES[k] for k in (
+            "conv3x3_fwd_train", "conv3x3_dgrad", "conv3x3_wgrad")}
+        runs.append((losses, trainer.leaves(tr.params), launches))
+    (l0, p0, n0), (l1, p1, _), (lp, _, np_) = runs
+    assert l0 == l1 and all(torch.equal(a, b) for a, b in zip(p0, p1))
+    assert n0 == {"conv3x3_fwd_train": 3 * 4, "conv3x3_dgrad": 3 * 3,
+                  "conv3x3_wgrad": 3 * 4}
+    assert not any(np_.values())
+    for a, b in zip(l0, lp):
+        assert np.isfinite(a) and abs(a - b) <= 1e-4 * abs(b), (l0, lp)
 
 
 @pytest.mark.cuda

@@ -29,6 +29,9 @@ orders: the card tests' gate).
 """
 
 import math
+import os
+import re
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -42,7 +45,8 @@ from reve_tpu_torch.kernels import train
 
 torch.set_num_threads(2)
 
-PAIRS = [(ci, co) for ci in train.CINS for co in train.COUTS]
+PAIRS = list(train.PAIRS)
+CINS = sorted({ci for ci, _ in PAIRS})
 #: 2 images of 5 x 70: a ragged tile row and a ragged tile column
 SHAPE = (2, 5, 70)
 REL = 1e-5
@@ -89,10 +93,42 @@ def _conv(x, w):
                     padding=1).permute(0, 2, 3, 1)
 
 
+def _tap(x, tap, mirror=False):
+    """x at every pixel p shifted by tap (ky, kx)'s offset o = (ky - 1, kx
+    - 1): x(p + o), or mirrored x(p - o); zeros outside."""
+    ky, kx = divmod(tap, 3)
+    if mirror:
+        ky, kx = 2 - ky, 2 - kx
+    _, H, W, _ = x.shape
+    return F.pad(x, (0, 0, 1, 1, 1, 1))[:, ky:ky + H, kx:kx + W]
+
+
+def _blocks(n, nb):
+    """The kernels' N blocks of nb columns over n: ceil(n / nb) of them,
+    the last cut at n."""
+    return [(n0, min(nb, n - n0)) for n0 in range(0, nb * math.ceil(n / nb),
+                                                  nb)]
+
+
 def fwd_emulated(x, w, b, alpha):
-    """T1: z = (hi.hi + the five) + b, y = z > 0 ? z : alpha z."""
-    acc, cor = six(_conv, x, w)
-    z = (acc + cor) + b
+    """T1: z = (hi.hi + the five) + b, y = z > 0 ? z : alpha z, an N block
+    (train.fwd_block) at a time, its K summed unit by unit
+    (train.k_units: a tap's run of input channels; Cin 3's 27 im2col
+    values one unit)."""
+    cin, cout = w.shape[2], w.shape[3]
+    z = torch.zeros(*x.shape[:3], cout)
+    for n0, nb in _blocks(cout, train.fwd_block(cout)):
+        wb = w[..., n0:n0 + nb]
+        if cin == 3:
+            acc, cor = six(_conv, x, wb)
+        else:
+            acc = cor = 0
+            for tap, c0, n in train.k_units(cin):
+                a, c = six(lambda p, q: p @ q,
+                           _tap(x, tap)[..., c0:c0 + n],
+                           wb[tap // 3, tap % 3, c0:c0 + n])
+                acc, cor = acc + a, cor + c
+        z[..., n0:n0 + nb] = (acc + cor) + b[n0:n0 + nb]
     return torch.where(z > 0, z, alpha * z), z
 
 
@@ -139,7 +175,30 @@ def wgrad_emulated(x, dz):
             part_db = part_db + d[p].sum(0)
         dw = dw + (tot + cor)
         db = db + part_db
-    return dw.view(3, 3, cin, cout), db
+    return (dw * wgrad_written(cin, cout)).view(3, 3, cin, cout), db
+
+
+def wgrad_written(cin, cout):
+    """The rows and columns of [dW] that T3's train.wgrad_groups blocks
+    write (1, else 0): a block a tap row, a 64-channel half of Cin (its
+    three warpgroups the taps) and a 64-column N block; Cin 3's 27 rows
+    one slab."""
+    halves = 1 if cin == 3 else math.ceil(cin / 64)
+    nblk = math.ceil(cout / 64)
+    rows = 1 if cin == 3 else 3
+    assert train.wgrad_groups(cin, cout) == rows * halves * nblk
+    m = torch.zeros(9 * cin, cout)
+    for g in range(rows * halves * nblk):
+        nb, rest = g % nblk, g // nblk
+        h, dy = rest % halves, rest // halves
+        cols = slice(64 * nb, 64 * nb + 64)
+        if cin == 3:
+            m[:27, cols] = 1
+            continue
+        for dx in range(3):
+            r0 = (3 * dy + dx) * cin + 64 * h
+            m[r0:min(r0 + 64, (3 * dy + dx + 1) * cin), cols] = 1
+    return m
 
 
 def dgrad_emulated(dz, w, z_prev, alpha_prev):
@@ -150,12 +209,17 @@ def dgrad_emulated(dz, w, z_prev, alpha_prev):
     partials added in tile order."""
     B, H, W, cout = dz.shape
     cin = w.shape[2]
-    # im2col's tap t reads dz(q + o_t); the mirrored tap 8 - t reads
-    # dz(q - o_t)
-    cols = im2col(dz).view(-1, 9, cout).flip(1).reshape(-1, 9 * cout)
-    bmat = w.permute(0, 1, 3, 2).reshape(9 * cout, cin)
-    acc, cor = six(lambda a, b_: a @ b_, cols, bmat)
-    dx = (acc + cor).view(B, H, W, cin)
+    # an N block of Cin columns (train.dgrad_block) at a time, its K
+    # summed unit by unit over Cout (train.k_units)
+    dx = torch.zeros(B, H, W, cin)
+    for n0, nb in _blocks(cin, train.dgrad_block(cin)):
+        acc = cor = 0
+        for tap, c0, n in train.k_units(cout):
+            a, c = six(lambda p, q: p @ q,
+                       _tap(dz, tap, mirror=True)[..., c0:c0 + n],
+                       w[tap // 3, tap % 3, n0:n0 + nb, c0:c0 + n].t())
+            acc, cor = acc + a, cor + c
+        dx[..., n0:n0 + nb] = acc + cor
     dz_prev = train.prelu_grad_plain(dx, z_prev, alpha_prev)
     terms = (dx * z_prev.clamp_max(0)).reshape(-1, cin)
     dalpha = torch.zeros(cin)
@@ -185,7 +249,7 @@ def test_split_sums_back_to_the_value():
     assert bool((mid.abs() <= 2.0 ** -8 * hi.abs()).all())
 
 
-@pytest.mark.parametrize("cin", train.CINS)
+@pytest.mark.parametrize("cin", CINS)
 def test_six_products_leave_out_only_what_lies_below_float32(cin):
     rs = np.random.RandomState(cin)
     a = torch.from_numpy(rs.randn(32, 9 * cin).astype(np.float32))
@@ -266,12 +330,16 @@ def test_tiles_cover_every_pixel_once(shape):
 
 
 def test_wgrad_groups_follow_their_formula():
-    for cin in train.CINS:
-        for cout in train.COUTS:
-            halves = 1 if cin == 3 else cin // 64
-            taps = 1 if cin == 3 else 3
-            nblk = math.ceil(cout / 64)
-            assert train.wgrad_groups(cin, cout) == taps * halves * nblk
+    for cin, cout in PAIRS:
+        halves = 1 if cin == 3 else math.ceil(cin / 64)
+        taps = 1 if cin == 3 else 3
+        nblk = math.ceil(cout / 64)
+        assert train.wgrad_groups(cin, cout) == taps * halves * nblk
+    # every row and column of dW is some block's, once Cin 96's second half
+    # (32 channels) and Cout 96's second N block are counted
+    for cin, cout in PAIRS:
+        m = wgrad_written(cin, cout)
+        assert bool((m[:27] if cin == 3 else m).eq(1).all()), (cin, cout)
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 1), (3, 7, 63), (1, 65, 129),
@@ -279,17 +347,16 @@ def test_wgrad_groups_follow_their_formula():
 def test_wgrad_splits_cover_the_tiles_in_about_one_wave(shape):
     B, H, W = shape
     n = train.tiles(B, H, W)
-    for cin in train.CINS:
-        for cout in train.COUTS:
-            splits, per = train.wgrad_splits(B, H, W, cin, cout)
-            groups = train.wgrad_groups(cin, cout)
-            # every split holds tiles, and together they hold every tile
-            assert per >= 1 and (splits - 1) * per < n <= splits * per
-            # about WGRAD_BLOCKS blocks: never more, and as many as the
-            # tiles allow
-            assert splits * groups <= max(train.WGRAD_BLOCKS, groups)
-            assert splits == min(n, math.ceil(
-                n / math.ceil(n / (train.WGRAD_BLOCKS // groups))))
+    for cin, cout in PAIRS:
+        splits, per = train.wgrad_splits(B, H, W, cin, cout)
+        groups = train.wgrad_groups(cin, cout)
+        # every split holds tiles, and together they hold every tile
+        assert per >= 1 and (splits - 1) * per < n <= splits * per
+        # about WGRAD_BLOCKS blocks: never more, and as many as the
+        # tiles allow
+        assert splits * groups <= max(train.WGRAD_BLOCKS, groups)
+        assert splits == min(n, math.ceil(
+            n / math.ceil(n / (train.WGRAD_BLOCKS // groups))))
 
 
 def test_wgrad_splits_at_the_steps_widths():
@@ -298,6 +365,12 @@ def test_wgrad_splits_at_the_steps_widths():
     assert train.wgrad_splits(8, 64, 64, 64, 64) == (43, 6)
     assert train.wgrad_splits(8, 64, 64, 128, 128) == (11, 24)
     assert train.wgrad_splits(8, 64, 64, 3, 64) == (128, 2)
+    # the new widths: 32 -> 32 as 64 -> 64 (one half, one N block), 96 ->
+    # 96 as two halves and two N blocks, the heads one N block
+    assert train.wgrad_splits(8, 64, 64, 32, 32) == (43, 6)
+    assert train.wgrad_splits(8, 64, 64, 96, 96) == (11, 24)
+    assert train.wgrad_splits(8, 64, 64, 128, 12) == (22, 12)
+    assert train.wgrad_splits(8, 64, 64, 64, 27) == (43, 6)
     part = {k: s * (9 * k + 1) * k * 4 for k, s in ((64, 43), (128, 11))}
     assert 6.3e6 < part[64] < 6.4e6 and 6.4e6 < part[128] < 6.5e6
 
@@ -326,8 +399,16 @@ def _sass(op="HGMMA", extra="", drop=None, lacking=None):
     ({"extra": "  /*0200*/ RED.E.ADD.F32.FTZ.RN.STRONG.GPU [R2.64], R5 ;"},
      "a TF32 product or a float atomic"),
     ({"drop": "_Z15wgrad_tc_kernelILi128ELi64EEvPKf"},
-     "8 wgrad_tc_kernel kernels"),
-])
+     "22 wgrad_tc_kernel kernels"),
+    ({"drop": "_Z13fwd_tc_kernelILi96ELi27EEvPKf"},
+     "22 fwd_tc_kernel kernels"),
+], ids=["case0-None", "case1-fwd_tc_kernel kernels, HGMMA missing",
+        "case2-dgrad_tc_kernel kernels, HGMMA missing",
+        "case3-a TF32 product or a float atomic",
+        "case4-a TF32 product or a float atomic",
+        # the name it had when the library held 9 kernels a form
+        "case5-8 wgrad_tc_kernel kernels",
+        "case6-22 fwd_tc_kernel kernels"])
 def test_sass_faults_name_what_breaks_the_design(monkeypatch, case, want):
     """train.sass_faults, the check the smoke's build phase and the card
     test run: empty on SASS that keeps T1, T2 and T3 on wgmma with no TF32
@@ -354,3 +435,61 @@ def test_spills_read_ptxas_report_by_kernel(monkeypatch):
     monkeypatch.setitem(train.build.build_info, "x.cu", {"log": log})
     assert train.build.spills("x.cu") == {"_Z3fooILi1EEv": 24,
                                            "_Z3barv": 0}
+
+
+def test_pairs_are_the_sources_and_every_srvggs():
+    """train.PAIRS is the pair list the kernels are instantiated at
+    (REVE_TRAIN_PAIRS in the source): the 9 pairs of before and every
+    SRVGG conv at 32, 64, 96 and 128 features and x2, x3, x4 -- 23."""
+    with open(os.path.join(os.path.dirname(train.__file__), "csrc",
+                           train.SOURCE)) as f:
+        src = f.read()
+    block = src[src.index("#define REVE_TRAIN_PAIRS"):]
+    block = block[:block.index("\n\n")]
+    got = {(int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)",
+                                                    block)}
+    srvgg = {p for f in (32, 64, 96, 128)
+             for p in [(3, f), (f, f), (f, 12), (f, 27), (f, 48)]}
+    old = {(ci, co) for ci in (3, 64, 128) for co in (48, 64, 128)}
+    assert got == set(train.PAIRS) == srvgg | old
+    assert len(train.PAIRS) == 23 and len(srvgg - old) == 14
+
+
+@pytest.mark.parametrize("c", [12, 27, 32, 48, 64, 96, 128])
+def test_k_units_cover_each_tap_and_channel_once(c):
+    """T1's (Cin) and T2's (Cout) units: every (tap, channel) once, a tap's
+    runs inside one 64-channel half, 32 channels a run (16 at Cout 12), in
+    the kernels' order: half by half, each half's taps in turn."""
+    units = train.k_units(c)
+    seen = [(tap, ch) for tap, c0, n in units for ch in range(c0, c0 + n)]
+    assert sorted(seen) == [(t, ch) for t in range(9) for ch in range(c)]
+    run = 16 if c <= 16 else 32
+    assert all(c0 % run == 0 and 0 < n <= run and c0 // 64 == (c0 + n - 1)
+               // 64 for _, c0, n in units)
+    halves = [c0 // 64 for _, c0, _ in units]
+    assert halves == sorted(halves)
+    # the kernels' count of units: 18 a whole half, 9 a tap's run of the
+    # last partial half
+    assert len(units) == 18 * (c // 64) + 9 * math.ceil(c % 64 / 32)
+
+
+def test_emulation_fails_a_blocking_that_drops_channels(monkeypatch):
+    """The emulations hold the kernels' blocking, not only their
+    arithmetic: at 96 -> 96, a T1 that took Cin 96 as one 64-channel half
+    (CIN / 64 halves) or Cout 96 as one 64-column N block drops channels
+    and lands far outside the tolerance."""
+    d = _inputs(96, 96)
+    x, w, b, alpha = (torch.from_numpy(d[k]) for k in
+                      ("x", "w", "b", "alpha"))
+    y0, _ = train.conv3x3_fwd_train_plain(x, w, b, alpha)
+    units = train.k_units
+
+    for owner, name, fn in (
+            (train, "k_units", lambda c: [u for u in units(c) if u[1] < 64]),
+            (sys.modules[__name__], "_blocks",
+             lambda n, nb: [(0, min(64, n))])):
+        with monkeypatch.context() as m:
+            m.setattr(owner, name, fn)
+            y, _ = fwd_emulated(x, w, b, alpha)
+        err = float((y - y0).abs().max())
+        assert err > 100 * REL * float(y0.abs().max()), name
