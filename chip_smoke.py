@@ -23,9 +23,11 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               nothing; the training library of T1, T2 and T3
               (conv3x3_train_tc.cu) must hold wgmma (HGMMA) in each of
               its 69 kernels (23 channel pairs), no TF32 product and no
-              float atomic (RED or ATOM on F32) (kernels.train.sass_faults, which the card
-              test runs too), and its HGMMA count and spill bytes are
-              reported kernel by kernel;
+              float atomic (RED or ATOM on F32) (kernels.train.sass_faults,
+              which the card test runs too), and its HGMMA count and
+              spill bytes are reported kernel by kernel, as are the spill
+              bytes of K3's, K1's and K2's libraries (their forms at 32,
+              96 and 128 features among them);
   3. kernels  K3, K1 and K2 at the main path's shapes (1080p frames, a
               batch of 4, x4), all on the tensor cores, in bfloat16
               (conv3x3.cu, conv3x3_tc.cu) and float32 (as six bf16
@@ -245,8 +247,7 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               student saved with save_srvgg_pth, loaded back through
               registry.load_model, and one engine batch of the frames on
               it byte-identical to the engine on the in-memory params;
-              the engine refusing a 128-feature SRVGG on the card before
-              any batch ("Serving at other widths"); reve_tpu's
+              reve_tpu's
               distillation defaults end to end through
               scripts.distill.main, given a seeded 64 x 16 x2 teacher
               .pth (no x2 weights ship), --data the main job's y4m and 5
@@ -261,6 +262,27 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               each on the kernels and the same 5 on the plain versions
               (which launch none of T1-T3), each loss within 1e-4
               relative, and their ms a step;
+ 13b. widths  serving an SRVGG of 32, 96 and 128 features: K3, K1 and K2
+              at those widths (K1 and K2 in conv3x3_wide.cuh, K3 its
+              template at Cout F), in both dtypes and K2 at x2, x3, x4,
+              on seeded 1-conv models at the main path's batch, held
+              and timed as the kernels phase holds the 64-feature forms
+              (their own plain version, cuDNN, the bound); then one
+              engine batch of the main job's first 4 frames through
+              UpscaleEngine in bfloat16 and float32 for each of the train
+              phase's x4 students (32, 96, 128 features, 16 convs), the
+              default distillation's x2 128-feature student loaded
+              through the registry from its .pth, and a seeded x3 model
+              of 96 features and 16 convs: launches 1 K3, num_conv K1
+              and 1 K2 a model call (float32: a split pass before each K1
+              and K2), float32 u8 |d| <= 1 on every frame against the
+              plain float32 path, bfloat16 each frame >= 50 dB against
+              the plain bf16 path and within 1 dB of the plain bf16
+              path's own PSNR against plain float32, the model's ms a
+              batch; a --tile 512 bfloat16 batch of the 128-feature
+              student byte-identical to its whole frames; int8 at 128
+              features and bfloat16 at 48 refused before any batch,
+              naming "Serving at other widths", with nothing launched;
  14. probe    P1, the tensor-core dot-rate probe (wgmma), through
               `python -m reve_tpu_torch.scripts.perf_int8_dot`'s main at
               its shapes: per call at 64 loops timed free of the host's
@@ -290,7 +312,10 @@ float32 forms of K1, K2 and K3 nested under "float32" with their own
 source, design and launches on the int8 path, where they run; those of
 K7 and conv_last (conv_last_f32.cu, "fma_f32") with their launches in
 the rrdb phase's float32 engine batch, and of K3 at Cin 12 with its
-launches in the rrdb_x2 phase's).  The last
+launches in the rrdb_x2 phase's; K3's, K1's and K2's forms at 32, 96 and
+128 features under "widths", by width and dtype, with their launches in
+the widths phase's engine batch of the x4 student of that width, K2's x2
+and x3 nested).  The last
 line is {"ok": true, "device": {...}}.
 
 Run from the root of a checkout: alone, or without a CUDA device, it
@@ -338,10 +363,18 @@ TILE = 512
 #: 1 + ... + 16 (HGMMA); T1 and T2 12 a unit (two k16 steps, six
 #: products each; T2 at Cout 12 6, one k16 step) in each of their 23
 #: kernels (kernels.train.PAIRS; 4 at Cout 12), T3 48 a tile (eight k16
-#: steps) in each of its 23
+#: steps) in each of its 23.  The SRVGG widths 32, 96 and 128
+#: (conv3x3_wide.cuh, instantiated by conv3x3_tc.cu and conv3x3_f32_tc.cu):
+#: K1 and K2 at x2, x3, x4, 12 kernels in each dtype, 18 (bf16) or 108
+#: (bf16x6) a unit of 32 input channels (nine taps of two k16 steps; the
+#: units looped); K3 at Cout 32, 96, 128 in chunks of 64 or 32 output
+#: channels (1, 3, 2 chunks): 2 and 12 a chunk
 P1_IGMMA, P1_HGMMA = sum(range(1, 9)), sum(range(1, 17))
-MIN_WGMMA = {"conv3x3_tc.cu": 5 * 36, "conv3x3_f32_tc.cu": 4 * 216,
-             "conv3x3_s8.cu": 4 * 18, "conv3x3.cu": 2 * (2 + 12) + 7 + 42,
+WIDE_KERNELS = 3 + 3 * 3
+MIN_WGMMA = {"conv3x3_tc.cu": 5 * 36 + WIDE_KERNELS * 18,
+             "conv3x3_f32_tc.cu": 4 * 216 + WIDE_KERNELS * 108,
+             "conv3x3_s8.cu": 4 * 18,
+             "conv3x3.cu": 2 * (2 + 12) + 7 + 42 + (1 + 3 + 2) * (2 + 12),
              "dot_probe.cu": P1_IGMMA + P1_HGMMA,
              "rrdb.cu": 2 * (18 + 54), "rrdb_s8.cu": 2 * (4 * 18 + 2 * 18),
              "conv3x3_train_tc.cu": 23 * 12 + 19 * 12 + 4 * 6 + 23 * 48}
@@ -451,14 +484,34 @@ def sass_ops(source: str) -> dict:
     return {"all": every, "by_kernel": by_kernel}
 
 
+#: template arguments in a mangled kernel name: int values, and the
+#: types of conv3x3.cu's kernels (float, bf16, int8_t, the first again)
+_MANGLED_ARGS = r"(?:Li\d+E|f|a|13__nv_bfloat16|S\d*_)"
+_ARG_NAMES = {"f": "float", "a": "int8", "13__nv_bfloat16": "bf16"}
+
+
 def kernel_label(mangled: str) -> str:
     """A kernel's readable name from its mangled one: fwd_tc_kernel<128,
-    64> for a template of int parameters."""
-    m = re.search(r"([a-z_]+_kernel)(?:I((?:Li\d+E)+)E)?", mangled)
-    if not m:
+    64> for a template of int parameters, conv3x3_u8_tc_kernel<bf16,
+    bf16, 1, 96> for one of types and ints.  The name is the shortest
+    run ending in `_kernel` that the decimal of its length precedes."""
+    end = mangled.find("_kernel")
+    if end < 0:
         return mangled
-    args = re.findall(r"Li(\d+)E", m.group(2) or "")
-    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
+    end += len("_kernel")
+    for start in range(end - 1, 0, -1):
+        n = str(end - start)
+        if (mangled[start].isalpha() or mangled[start] == "_") and \
+                mangled[max(start - len(n), 0):start] == n:
+            break
+    else:
+        return mangled
+    m = re.match(rf"I({_MANGLED_ARGS}+)E", mangled[end:])
+    args = []
+    for a in re.findall(_MANGLED_ARGS, m.group(1) if m else ""):
+        args.append(args[0] if a[0] == "S" else a[2:-1] if a[0] == "L"
+                    else _ARG_NAMES[a])
+    return mangled[start:end] + (f"<{', '.join(args)}>" if args else "")
 
 
 def bound_ms(nbytes: int, flops: int, dtype: str):
@@ -549,11 +602,13 @@ def k9_check(launches: dict, pieces: int, what: str) -> int:
     return n
 
 
-def kernel_phase(params, cfg, frames, out: dict, timed: bool = True) -> dict:
+def kernel_phase(params, cfg, frames, out: dict, timed: bool = True,
+                 only=None) -> dict:
     """Each kernel against its plain version, then (`timed`) timed, in
     both dtypes.  Inputs chain like the model's: K3 on the frames, K1 on
     K3's output, K2 on K1's output, with the model's real weights.
-    Untimed, the results hold each kernel's error only."""
+    Untimed, the results hold each kernel's error only.  `only`: the
+    names of the kernels to hold (None: all, and the split pass)."""
     import torch
     import torch.nn.functional as F
 
@@ -615,6 +670,8 @@ def kernel_phase(params, cfg, frames, out: dict, timed: bool = True) -> dict:
                 peak="bfloat16"),
         }
         for kname, c in cases.items():
+            if only is not None and kname not in only:
+                continue
             got, want = c["kernel"](), c["plain"]()
             torch.cuda.synchronize()
             n_diff = None
@@ -652,7 +709,7 @@ def kernel_phase(params, cfg, frames, out: dict, timed: bool = True) -> dict:
                 "shape": list(got.shape),
             }
             del got, want
-        if name == "float32" and timed:
+        if name == "float32" and timed and only is None:
             results["split_bf16x3"] = split_case(x3)
         del x3, x1
         torch.cuda.empty_cache()
@@ -1850,10 +1907,10 @@ def k3x2_phase(params, frames) -> dict:
 
 def x2_wgmma(by_kernel: dict) -> dict:
     """HGMMA of K3 at Cin 12's two kernels (conv3x3.cu's template at
-    R = 2: 7 k16 steps a row in bfloat16, 6 x 7 in float32), by mangled
-    name; fails below those."""
-    got = {k: o.get("HGMMA", 0) for k, o in by_kernel.items()
-           if "Li2EE" in k}
+    R = 2, C = 64: 7 k16 steps a row in bfloat16, 6 x 7 in float32), by
+    kernel_label; fails below those."""
+    got = {kernel_label(k): o.get("HGMMA", 0) for k, o in by_kernel.items()
+           if kernel_label(k).endswith(", 2, 64>")}
     if len(got) != 2 or sorted(got.values()) < [7, 42]:
         raise AssertionError(f"K3 at Cin 12's kernels: {got}, expected two "
                              f"with 7 and 42 HGMMA")
@@ -2670,8 +2727,9 @@ def default_distill_checks(work: str, inp: str) -> dict:
 
 
 def train_phase(work: str, inp: str, frames, weights: str) -> tuple:
-    """Phase train (see the module docstring).  Returns T1-T3's results
-    and the fine-tune's launch counts."""
+    """Phase train (see the module docstring).  Returns T1-T3's results,
+    the fine-tune's launch counts and the wide students ({feat: (cfg,
+    params)}, params on the CPU)."""
     import torch
 
     from reve_tpu_torch import kernels
@@ -2766,24 +2824,12 @@ def train_phase(work: str, inp: str, frames, weights: str) -> tuple:
                      "ms_per_step": 1e3 * float(np.median(secs)),
                      "n_diff_pth_vs_params": n_diff})
         del dist, ys
-        # the engine refuses a student it cannot serve on the card, before
-        # any batch
-        wide_cfg = srvgg.SRVGGConfig(num_feat=128, num_conv=1, upscale=2)
-        try:
-            UpscaleEngine(compute_dtype="bfloat16", preloaded=(
-                wide_cfg, srvgg.init_params(wide_cfg)))
-            raise AssertionError("the engine took a 128-feature SRVGG on "
-                                 "the card")
-        except NotImplementedError as e:
-            if "Serving at other widths" not in str(e):
-                raise
-            rec["engine_refuses_128_features"] = str(e)
         rec["distill_default"] = default_distill_checks(work, inp)
         # random-init students of WIDE_FEATS features from the shipped x4
         # teacher: WIDE_STEPS steps on the kernels, the same on the plain
         # versions (the teacher follows the trainer's `plain`; that run
         # launches no T1-T3), each loss within TRAIN_LOSS_RTOL
-        rec["distill_wide"] = {}
+        rec["distill_wide"], students = {}, {}
         for feat in WIDE_FEATS:
             wcfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=cfg.num_conv,
                                      upscale=SCALE)
@@ -2801,6 +2847,9 @@ def train_phase(work: str, inp: str, frames, weights: str) -> tuple:
                     ws.append(time.perf_counter() - t0)
                 wide[plain] = (wl, float(np.median(ws)),
                                dict(kernels.LAUNCHES))
+                if not plain:  # the student the widths phase serves
+                    students[feat] = (wcfg, trainer.params_on(
+                        dw.trainer.export_params(), "cpu", False))
                 del dw
             want_w = train_launches(wcfg, WIDE_STEPS, cfg.num_conv + 2)
             rel_w = [abs(a - b) / abs(b) for a, b in zip(wide[False][0],
@@ -2825,7 +2874,231 @@ def train_phase(work: str, inp: str, frames, weights: str) -> tuple:
                 "ms_per_step": 1e3 * wide[False][1],
                 "plain_ms_per_step": 1e3 * wide[True][1]}
         torch.cuda.empty_cache()
-    return results, launches
+    return results, launches, students
+
+
+#: the SRVGG widths besides 64 that the card serves (K3, K1 and K2 in
+#: bfloat16 and float32); the widths phase's refusals: int8 at 128
+#: features, and a width no kernel takes
+SERVE_WIDTHS = (32, 96, 128)
+REFUSED = (("int8", 128), ("bfloat16", 48))
+#: the widths phase's bfloat16 rule (RRDB's): each frame >= this against
+#: the plain bf16 path, and within the slack of the plain bf16 path's own
+#: PSNR against plain float32 (students trained 5 steps make no
+#: transparency claim of their own)
+WIDTH_BF16_DB, WIDTH_BF16_SLACK_DB = 50.0, 1.0
+
+
+def widths_kernel_checks(frames) -> dict:
+    """K3, K1 and K2 at SERVE_WIDTHS on the main path's batch, as the
+    kernels phase holds them at 64 (kernel_phase: against the plain
+    version, then timed beside it, cuDNN and the bound): K3, K1 and K2 at
+    x4 of a seeded 1-conv model at each width, and K2 at x2 and x3 of
+    models seeded the same way.  {feat: {kernel: {dtype: numbers}}}, K2's
+    x2 and x3 nested under "x2" and "x3"."""
+    import torch
+
+    from reve_tpu_torch.models import srvgg
+
+    out = {}
+    for feat in SERVE_WIDTHS:
+        res = None
+        for r in (4, 2, 3):
+            cfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=1, upscale=r)
+            params = srvgg.params_to(srvgg.init_params(
+                cfg, torch.Generator().manual_seed(feat + r)), "cuda")
+            got = kernel_phase(params, cfg, frames, {}, only=None if r == 4
+                               else ("head_conv_residual_u8_shuffle",))
+            if res is None:
+                res = got
+                continue
+            for dt, v in got["head_conv_residual_u8_shuffle"].items():
+                res["head_conv_residual_u8_shuffle"][dt][f"x{r}"] = v
+        res.pop("split_bf16x3", None)
+        out[str(feat)] = res
+        torch.cuda.empty_cache()
+    return out
+
+
+def frame_psnr(a, b) -> list:
+    """psnr() of each frame of two u8 batches on the card: the squared
+    differences summed in int64 (exact), the same formula."""
+    import torch
+
+    d = a.int() - b.int()
+    sq = (d * d).reshape(len(d), -1)
+    return [float(10 * math.log10(255.0 ** 2 / max(v / sq.shape[1], 1e-12)))
+            for v in sq.sum(1, dtype=torch.int64).tolist()]
+
+
+def serve_checks(cfg, params, frames, tile_check: bool = False) -> dict:
+    """One engine batch of `frames` through UpscaleEngine on the card in
+    bfloat16 and float32, the counters zeroed around it, against
+    srvgg.apply's plain path on the same frames: the launches 1 K3,
+    num_conv K1 and 1 K2 a model call (float32: a split pass before each
+    K1 and K2); float32 u8 |d| <= 1 on every frame; bfloat16 each frame
+    >= WIDTH_BF16_DB against the plain bf16 path and within
+    WIDTH_BF16_SLACK_DB of the plain bf16 path's PSNR against plain
+    float32; the model's ms a batch.  `tile_check`: one --tile TILE batch
+    in bfloat16 too, byte-identical to the whole frames."""
+    import torch
+
+    from reve_tpu_torch import kernels
+    from reve_tpu_torch.models import srvgg
+    from reve_tpu_torch.pipeline.engine import UpscaleEngine
+
+    u8 = torch.from_numpy(frames).cuda()
+    pdev = srvgg.params_to(params, "cuda")
+    # the plain paths' outputs stay on the card, where the engine's
+    # frames are held against them
+    plain = {dt: srvgg.apply(pdev, u8, cfg=cfg, plain=True,
+                             compute_dtype=getattr(torch, dt))
+             for dt in ("bfloat16", "float32")}
+    del pdev
+    res = {"num_feat": cfg.num_feat, "num_conv": cfg.num_conv,
+           "upscale": cfg.upscale}
+    for dt in ("bfloat16", "float32"):
+        eng = UpscaleEngine(compute_dtype=dt, batch_size=len(frames),
+                            preloaded=(cfg, params))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        y = torch.from_numpy(eng.upscale_frames(frames)).cuda()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        calls = eng.stats.calls
+        want = {"conv3x3_u8_bias_prelu": calls,
+                "conv3x3_bias_prelu": cfg.num_conv * calls,
+                "head_conv_residual_u8_shuffle": calls}
+        if dt == "float32":
+            want["split_bf16x3"] = (cfg.num_conv + 1) * calls
+        if launches != want:
+            raise AssertionError(f"{cfg} {dt} engine batch: launches "
+                                 f"{launches}, expected {want}")
+        rec = {"launches": launches, "calls": calls,
+               "model_ms_per_batch": cuda_time_ms(lambda: srvgg.apply(
+                   eng.params, u8, cfg=cfg,
+                   compute_dtype=eng.compute_dtype), iters=3)}
+        if dt == "float32":
+            d = (y.int() - plain[dt].int()).abs()
+            per_frame = d.reshape(len(y), -1).amax(1).tolist()
+            if max(per_frame) > 1:
+                raise AssertionError(f"{cfg} float32 engine batch: max "
+                                     f"|d| {per_frame} by frame against "
+                                     f"the plain path (bound 1)")
+            rec.update(max_abs_diff_by_frame=per_frame,
+                       n_diff=int((d > 0).sum()))
+            del d
+        else:
+            db = frame_psnr(y, plain[dt])
+            db_ref = frame_psnr(y, plain["float32"])
+            db_plain = frame_psnr(plain[dt], plain["float32"])
+            if min(db) < WIDTH_BF16_DB or any(
+                    a < b - WIDTH_BF16_SLACK_DB
+                    for a, b in zip(db_ref, db_plain)):
+                raise AssertionError(
+                    f"{cfg} bfloat16 engine batch: {db} dB against the "
+                    f"plain bf16 path (floor {WIDTH_BF16_DB}); {db_ref} "
+                    f"against plain float32, the plain bf16 path's "
+                    f"{db_plain} (slack {WIDTH_BF16_SLACK_DB})")
+            rec.update(psnr_db_vs_plain_bf16=db, psnr_db_vs_plain_f32=db_ref,
+                       plain_bf16_psnr_db_vs_plain_f32=db_plain)
+            if tile_check:
+                eng_t = UpscaleEngine(compute_dtype=dt, tile=TILE,
+                                      batch_size=len(frames),
+                                      preloaded=(cfg, params))
+                kernels.reset_launches()
+                yt = torch.from_numpy(eng_t.upscale_frames(frames)).cuda()
+                torch.cuda.synchronize()
+                n_diff = int((yt != y).sum())
+                if n_diff:
+                    raise AssertionError(f"{cfg} --tile {TILE}: n_diff "
+                                         f"{n_diff} against whole frames")
+                rec["tile"] = {"tile": TILE, "n_diff_vs_whole": n_diff,
+                               "calls": eng_t.stats.calls,
+                               "launches": {k: v for k, v in
+                                            kernels.LAUNCHES.items() if v}}
+                del eng_t, yt
+        res[dt] = rec
+        del eng, y
+        torch.cuda.empty_cache()
+    return res
+
+
+#: the widths phase's engine batch whose launches each K2 form reports:
+#: (feat, scale) -> model; x4 at every width is that width's student
+WIDTH_K2_MODELS = {(128, 2): "x2_128_default", (96, 3): "x3_96_seeded"}
+
+
+def width_entries(name: str, widths: dict) -> dict:
+    """K3's, K1's or K2's forms at SERVE_WIDTHS for the kernels line:
+    {feat: {dtype: the widths phase's numbers, with source, route, design
+    and launches}}.  launches: in that phase's engine batch of the x4
+    student of that width (K2 at x2 and x3, nested under "x2" and "x3":
+    of the model WIDTH_K2_MODELS names, else 0)."""
+    src = "reve_tpu_torch/kernels/csrc/" + (
+        "conv3x3.cu" if name == "conv3x3_u8_bias_prelu"
+        else "conv3x3_wide.cuh")
+    out = {}
+    for feat in SERVE_WIDTHS:
+        out[str(feat)] = {}
+        for dt, nums in widths["kernels"][str(feat)][name].items():
+            def launched(r):
+                model = f"x4_{feat}" if r == 4 else \
+                    WIDTH_K2_MODELS.get((feat, r))
+                return widths["engine"][model][dt]["launches"].get(name, 0) \
+                    if model else 0
+            e = dict(nums, source=src, route="cuda",
+                     design="wgmma" if dt == "bfloat16" else "wgmma_bf16x6",
+                     launches=launched(4))
+            for r in (2, 3):
+                if f"x{r}" in e:
+                    e[f"x{r}"] = dict(e[f"x{r}"], launches=launched(r))
+            out[str(feat)][dt] = e
+    return out
+
+
+def widths_phase(work: str, frames, students: dict) -> dict:
+    """Phase widths (see the module docstring).  `students`: {feat: (cfg,
+    params)} of the train phase's x4 students.  Returns the kernels' and
+    the engine batches' numbers."""
+    import torch
+
+    from reve_tpu_torch import kernels
+    from reve_tpu_torch.models import registry, srvgg
+    from reve_tpu_torch.pipeline.engine import (SERVING_WIDTHS_ITEM,
+                                                UpscaleEngine)
+
+    with phase("widths", {"widths": list(SERVE_WIDTHS),
+                          "batch": len(frames), "h": H, "w": W}) as rec:
+        rec["kernels"] = widths_kernel_checks(frames)
+        models = {f"x4_{feat}": students[feat] for feat in SERVE_WIDTHS}
+        # the default distillation's student, as a user loads it
+        models["x2_128_default"] = registry.load_model(
+            DEFAULT_TEACHER, 2,
+            weights=os.path.join(work, "default-student.pth"))
+        cfg3 = srvgg.SRVGGConfig(num_feat=96, num_conv=16, upscale=3)
+        models["x3_96_seeded"] = (cfg3, srvgg.init_params(
+            cfg3, torch.Generator().manual_seed(96)))
+        rec["engine"] = {
+            name: serve_checks(cfg, params, frames,
+                               tile_check=name == "x4_128")
+            for name, (cfg, params) in models.items()}
+        # refused before any batch, naming the ROADMAP.md item
+        rec["refused"] = {}
+        for dt, feat in REFUSED:
+            cfg_r = srvgg.SRVGGConfig(num_feat=feat, num_conv=1, upscale=4)
+            kernels.reset_launches()
+            try:
+                UpscaleEngine(compute_dtype=dt, preloaded=(
+                    cfg_r, srvgg.init_params(cfg_r)))
+                raise AssertionError(f"the engine took a {feat}-feature "
+                                     f"SRVGG in {dt} on the card")
+            except NotImplementedError as e:
+                if SERVING_WIDTHS_ITEM not in str(e) or any(
+                        kernels.LAUNCHES.values()):
+                    raise
+                rec["refused"][f"{dt}_{feat}"] = str(e)
+    return rec
 
 
 def main() -> int:
@@ -2930,6 +3203,12 @@ def main() -> int:
             for k, n in sorted(build.spills(train.SOURCE).items())}
         print(f"# {train.SOURCE}: HGMMA {tc['hgmma_by_kernel']}; spill "
               f"bytes {tc['spill_bytes_by_kernel']}", flush=True)
+        # K3, K1 and K2 at every width, both dtypes: spills by kernel
+        for s in (conv3x3.SOURCE, conv3x3.TC_SOURCE, conv3x3.F32_SOURCE):
+            by = {kernel_label(k): n
+                  for k, n in sorted(build.spills(s).items())}
+            rec["sources"][s]["spill_bytes_by_kernel"] = by
+            print(f"# {s}: spill bytes {by}", flush=True)
         # K9's float steps are one rounded op each: no contraction
         faults = color_k.contraction_faults()
         if faults:
@@ -3458,7 +3737,9 @@ def main() -> int:
         k3x2, engines_x, x2_launches = x2_phase(work, in4, frames)
         weights_phase(work, frames, weights)
         scenes_phase(work, weights)
-        train_res, train_launched = train_phase(work, inp, frames, weights)
+        train_res, train_launched, students = train_phase(work, inp, frames,
+                                                          weights)
+        widths = widths_phase(work, frames[:BATCH], students)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3632,6 +3913,8 @@ def main() -> int:
             "library_ms", "shape") + (("n_diff",) if "n_diff" in nums
                                       else ())})
         entry.update(extra)
+        if name in f32_forms:
+            entry["widths"] = width_entries(name, widths)
         if name == "conv3x3_bias_prelu":
             # K1 on the RRDB path: conv_up1 at 2x, conv_up2 and conv_hr at
             # 4x, with its launches in the bf16 job and the float32 batch

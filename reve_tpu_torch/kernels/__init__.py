@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the SRVGG and RRDBNet main paths
 (sm_90a), each with its plain PyTorch version and a launch counter.
 
-    K1  conv3x3.conv3x3_bias_prelu            hidden conv 64->64 + PReLU
+    K1  conv3x3.conv3x3_bias_prelu            hidden conv F->F + PReLU (F
+                                              the SRVGG's 32, 64, 96 or
+                                              128 features)
                                               (RRDB: the up and hr convs +
                                               leaky ReLU, alpha 0.2)
         conv3x3.split_bf16x3                  float32 K1's, K2's and K7's
@@ -49,9 +51,11 @@ K1, K2 (both dtypes), K7, K4 and K4h run on the tensor cores as
 implicit-GEMM `wgmma` kernels with TMA halo loads: bfloat16 K1 and K2 in
 csrc/conv3x3_tc.cu, float32 K1 and K2 in csrc/conv3x3_f32_tc.cu (their
 operands split into three bf16 parts, six products summed: float32
-accuracy, never TF32, to match the reference's Precision.HIGHEST), K4 and
-K4h on s8 wgmma in csrc/conv3x3_s8.cu, K7 in both dtypes in
-csrc/rrdb.cu (Cin in chunks of 16 channels through a four-stage TMA
+accuracy, never TF32, to match the reference's Precision.HIGHEST), at
+32, 96 and 128 features both as csrc/conv3x3_wide.cuh's template
+(halo and weights streamed in units of 32 input channels), K4 and
+K4h on s8 wgmma in csrc/conv3x3_s8.cu (64 features only, as K4a), K7
+in both dtypes in csrc/rrdb.cu (Cin in chunks of 16 channels through a four-stage TMA
 ring; float32 as six bf16 products on split planes), K7q on s8 wgmma in csrc/rrdb_s8.cu
 (Cin in chunks of 64 through a TMA ring, the weights resident, two
 consumer teams taking tiles in turn, residuals and outputs moved through

@@ -36,6 +36,22 @@ output, which sets their time, leaves by TMA stores from two staging
 buffers.
 `bound_ms` in chip_smoke.py is computed from each run's own shapes.
 
+Widths.  K3, K1 and K2 take an SRVGG of any of WIDTHS (32, 64, 96, 128)
+features in bfloat16 and float32; K4a (and K4, K4h) 64 only.  At 64 they
+run the kernels above.  K3 at Cout F is its template's C (the row's GEMM
+in chunks of 64 output channels, or 32 where F is not a multiple of 64;
+the output staged and stored as boxes of 64 bf16 channels in the 128-B
+swizzle, 32 bf16 channels in the 64-B swizzle, or 32 float32 channels).
+K1 and K2 at 32, 96 and 128 run csrc/conv3x3_wide.cuh's template: the
+halo and the weights stream in units of 32 input channels (a TMA box of
+32 channels in the 64-B swizzle, two slots; the unit's nine taps of
+weights through a ring of four stages, packed by `pack_weights_wide`),
+since the 64-feature kernels' resident weights and whole-Cin halos do
+not fit a block's shared memory there.  Bound per call of 4 1080p
+frames: K1 bf16 0.317 ms at 32 (bytes), 1.391 ms at 96 and 2.473 ms at
+128 (operations, past the card's ridge), float32 as six bf16 passes 0.93,
+8.35 and 14.84 ms; K3 bf16 0.159, 0.475 and 0.634 ms (bytes).
+
 Rounding points follow the JAX reference exactly: weights in the compute
 dtype, float32 accumulation, + bias in float32, cast to the compute
 dtype, PReLU in the compute dtype with alpha cast to it.
@@ -59,7 +75,15 @@ TC_SOURCE = "conv3x3_tc.cu"
 F32_SOURCE = "conv3x3_f32_tc.cu"
 #: (rows, columns) of those kernels' output tile (TH, TW in TC_SOURCE)
 TC_TILE = (4, 64)
+#: the channels of the int8 forms (K4a, K4, K4h) and of RRDB's convs
 FEAT = 64
+#: the SRVGG widths (num_feat) K3, K1 and K2 take in bfloat16 and float32:
+#: FEAT in the 64-feature kernels, the others in csrc/conv3x3_wide.cuh's
+#: (K1, K2) and K3's template at their Cout
+WIDTHS = (32, 64, 96, 128)
+#: input channels of a unit of the wide forms (CK in conv3x3_wide.cuh):
+#: their halo and weights stream unit by unit
+WIDE_UNIT = 32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -160,45 +184,65 @@ def u8conv_k(dy: int, dx: int, c: int, cin: int = 3) -> int:
 
 
 def pack_weights_u8conv(w: torch.Tensor) -> torch.Tensor:
-    """HWIO (3, 3, Cin, 64), Cin 3 or 12, in the compute dtype -> the B
-    operand each block of K3, K4a and K3 at Cin 12 packs from those
-    weights in shared memory (the kernel's pack_weights; this is its
-    reference, held by the CPU tests): (S, K / 8, 64, 8) bfloat16
-    [split][k / 8][n][8], K = U8_K (Cin 3) or U8X2_K (Cin 12), with
+    """HWIO (3, 3, Cin, C), Cin 3 or 12 (C = 64 at Cin 12; K3's C any of
+    WIDTHS), in the compute dtype -> the B operand each block of K3, K4a
+    and K3 at Cin 12 packs from those weights in shared memory (the
+    kernel's pack_weights; this is its reference, held by the CPU tests):
+    (S, K / 8, C, 8) bfloat16 [split][k / 8][n][8], K = U8_K (Cin 3) or
+    U8X2_K (Cin 12), with
     packed[s, kb, n, kk] = planes[s, dy, dx, c, n] at k = 8 kb + kk =
     u8conv_k(dy, dx, c, Cin) and 0 at the other k (B K-major in core
     matrices of 8 rows x 16 B).  bfloat16: S = 1, the weights as they
     are; float32: S = 3, split_bf16x3's hi, mid, lo."""
-    cin = w.shape[2]
+    cin, cout = w.shape[2], w.shape[3]
     kp = U8_K if cin == 3 else U8X2_K
     slots = _u8conv_slots(cin)
     planes = w[None] if w.dtype == torch.bfloat16 else split_bf16x3_plain(w)
     # [s][dx][dy * cin + c][n], each column of taps padded to its slots
-    k = F.pad(planes.permute(0, 2, 1, 3, 4).reshape(-1, 3, 3 * cin, FEAT),
-              (0, 0, 0, slots - 3 * cin)).reshape(-1, 3 * slots, FEAT)
+    k = F.pad(planes.permute(0, 2, 1, 3, 4).reshape(-1, 3, 3 * cin, cout),
+              (0, 0, 0, slots - 3 * cin)).reshape(-1, 3 * slots, cout)
     k = F.pad(k, (0, 0, 0, kp - 3 * slots))
-    return k.reshape(-1, kp // 8, 8, FEAT).permute(0, 1, 3, 2).contiguous()
+    return k.reshape(-1, kp // 8, 8, cout).permute(0, 1, 3, 2).contiguous()
 
 
 def pack_weights_bf16x3(w: torch.Tensor) -> torch.Tensor:
-    """float32 HWIO (3, 3, 64, cout) -> the weights float32 K1 and K2
-    stream, tap by tap: (9, 3, 8, N, 8) bfloat16 [tap][split][k / 8][n][8],
-    N = padded_n(cout), with packed[t, s, kb, n, kk] = split_bf16x3(w)[s,
-    t // 3, t % 3, 8 kb + kk, n] for n < cout and 0 above (B K-major in
-    core matrices of 8 rows x 16 B)."""
-    n = padded_n(w.shape[-1])
-    s = split_bf16x3_plain(pad_outputs(w)).reshape(3, 9, FEAT // 8, 8, n)
+    """float32 HWIO (3, 3, Cin, cout) -> the weights float32 K1 and K2
+    stream at 64 features (Cin 64), tap by tap: (9, 3, Cin / 8, N, 8)
+    bfloat16 [tap][split][k / 8][n][8], N = padded_n(cout), with
+    packed[t, s, kb, n, kk] = split_bf16x3(w)[s, t // 3, t % 3, 8 kb + kk,
+    n] for n < cout and 0 above (B K-major in core matrices of 8 rows x 16
+    B)."""
+    cin, n = w.shape[2], padded_n(w.shape[-1])
+    s = split_bf16x3_plain(pad_outputs(w)).reshape(3, 9, cin // 8, 8, n)
     return s.permute(1, 0, 2, 4, 3).contiguous()
+
+
+def pack_weights_wide(w: torch.Tensor) -> torch.Tensor:
+    """HWIO (3, 3, Cin, cout) in the compute dtype, Cin a multiple of
+    WIDE_UNIT -> the weights K1 and K2 at 32, 96 and 128 features stream,
+    unit by unit and tap by tap (csrc/conv3x3_wide.cuh): (Cin / 32, 9, S,
+    4, N, 8) bfloat16 [unit][tap][split][k / 8][n][8], N = padded_n(cout),
+    with packed[u, t, s, kb, n, kk] = planes[s, t // 3, t % 3, 32 u + 8 kb
+    + kk, n] for n < cout and 0 above (B K-major in core matrices of 8
+    rows x 16 B); S = 1, the bfloat16 weights as they are, or 3,
+    split_bf16x3's hi, mid, lo of float32 weights."""
+    cin, n = w.shape[2], padded_n(w.shape[-1])
+    wp = pad_outputs(w)
+    planes = wp[None] if w.dtype == torch.bfloat16 else \
+        split_bf16x3_plain(wp)
+    # [s][tap][u][kb][kk][n] -> [u][tap][s][kb][n][kk]
+    s = planes.reshape(-1, 9, cin // WIDE_UNIT, WIDE_UNIT // 8, 8, n)
+    return s.permute(2, 1, 0, 3, 5, 4).contiguous()
 
 
 # -- kernel wrappers ----------------------------------------------------------
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, cin: int, in_dtype,
-           in_channels=None) -> None:
-    """`cin`: the conv's input channels (the weights'); `in_channels`: the
-    input tensor's, where they differ (K3 at Cin 12 reads 3-channel
-    frames)."""
+           in_channels=None, cout: int = FEAT) -> None:
+    """`cin`, `cout`: the conv's input and output channels (the
+    weights'); `in_channels`: the input tensor's, where they differ (K3
+    at Cin 12 reads 3-channel frames)."""
     in_channels = cin if in_channels is None else in_channels
     if x.device.type != "cuda":
         raise ValueError(f"tensor on {x.device}: the kernel takes CUDA "
@@ -211,9 +255,9 @@ def _check(x: torch.Tensor, w: torch.Tensor, cin: int, in_dtype,
     if x.dim() != 4 or x.shape[3] != in_channels:
         raise ValueError(f"input shape {tuple(x.shape)}, expected "
                          f"(B, H, W, {in_channels})")
-    if tuple(w.shape) != (3, 3, cin, FEAT):
+    if tuple(w.shape) != (3, 3, cin, cout):
         raise ValueError(f"weight shape {tuple(w.shape)}, expected "
-                         f"(3, 3, {cin}, {FEAT}) HWIO")
+                         f"(3, 3, {cin}, {cout}) HWIO")
     check_operands(x, w)
 
 
@@ -235,11 +279,19 @@ def f32_operand(t: torch.Tensor, n: int, device, what: str) -> torch.Tensor:
     return t
 
 
-def _bias_alpha(b, alpha, dtype, device):
+def check_width(feat: int, what: str) -> None:
+    """Raise unless `feat` is one of WIDTHS, the SRVGG widths the kernels
+    take."""
+    if feat not in WIDTHS:
+        raise ValueError(f"{what} takes an SRVGG of {WIDTHS} features, got "
+                         f"{feat} channels")
+
+
+def _bias_alpha(b, alpha, dtype, device, n: int = FEAT):
     """b as float32, and alpha as the compute dtype rounds it, widened to
-    float32: the per-channel vectors the kernels read."""
-    return (f32_operand(b, FEAT, device, "bias"),
-            f32_operand(alpha.to(device).to(dtype), FEAT, device, "alpha"))
+    float32: the per-channel vectors (n each) the kernels read."""
+    return (f32_operand(b, n, device, "bias"),
+            f32_operand(alpha.to(device).to(dtype), n, device, "alpha"))
 
 
 def _launch(source: str, entry: str, ins, y: torch.Tensor,
@@ -316,45 +368,64 @@ def split_bf16x3(x: torch.Tensor) -> torch.Tensor:
 
 def conv3x3_bias_prelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                        alpha: torch.Tensor) -> torch.Tensor:
-    """K1: (B, H, W, 64) x (3, 3, 64, 64) HWIO in the compute dtype ->
-    PReLU(dtype(conv + b)) (B, H, W, 64) in the compute dtype.  float32
-    launches two kernels: the split pass and the bf16x6 conv."""
+    """K1: (B, H, W, F) x (3, 3, F, F) HWIO in the compute dtype, F one of
+    WIDTHS -> PReLU(dtype(conv + b)) (B, H, W, F) in the compute dtype.
+    float32 launches two kernels: the split pass and the bf16x6 conv.  F
+    = 64 runs the 64-feature kernels, the other widths the wide forms
+    (csrc/conv3x3_wide.cuh), their weights packed by pack_weights_wide."""
     if x.device.type == "cpu":
         return conv3x3_bias_prelu_plain(x, w, b, alpha)
-    _check(x, w, FEAT, w.dtype)
+    feat = x.shape[-1] if x.dim() == 4 else FEAT
+    check_width(feat, "K1")
+    _check(x, w, feat, w.dtype, cout=feat)
     y = torch.empty(x.shape, dtype=w.dtype, device=x.device)
-    bb, aa = _bias_alpha(b, alpha, w.dtype, x.device)
-    if w.dtype == torch.bfloat16:
+    bb, aa = _bias_alpha(b, alpha, w.dtype, x.device, feat)
+    bf16 = w.dtype == torch.bfloat16
+    if feat == FEAT and bf16:
         _launch(TC_SOURCE, "reve_conv3x3_bias_prelu_tc", (x, w, bb, aa), y)
-    else:
+    elif feat == FEAT:
         _launch(F32_SOURCE, "reve_conv3x3_bias_prelu_f32tc",
                 (split_bf16x3(x), pack_weights_bf16x3(w), bb, aa), y)
+    elif bf16:
+        _launch(TC_SOURCE, "reve_conv3x3_bias_prelu_wide_tc",
+                (x, pack_weights_wide(w), bb, aa), y, (feat,))
+    else:
+        _launch(F32_SOURCE, "reve_conv3x3_bias_prelu_wide_f32tc",
+                (split_bf16x3(x), pack_weights_wide(w), bb, aa), y, (feat,))
     LAUNCHES["conv3x3_bias_prelu"] += 1
     return y
 
 
 def _launch_u8(entry: str, u8, w, b, alpha, inv=None) -> torch.Tensor:
-    """K3 (inv None) or K4a: the launch of `entry` of csrc/conv3x3.cu in
-    w's dtype (the kernel packs the HWIO weights itself)."""
+    """K3 (inv None: at w's Cout) or K4a (64 channels): the launch of
+    `entry` of csrc/conv3x3.cu in w's dtype (the kernel packs the HWIO
+    weights itself)."""
     B, H, W, _ = u8.shape
-    y = torch.empty((B, H, W, FEAT),
+    cout = w.shape[-1]
+    y = torch.empty((B, H, W, cout),
                     dtype=w.dtype if inv is None else torch.int8,
                     device=u8.device)
-    bb, aa = _bias_alpha(b, alpha, w.dtype, u8.device)
+    bb, aa = _bias_alpha(b, alpha, w.dtype, u8.device, cout)
     ins = [u8, w, bb, aa]
+    ints = (_DTYPE_CODE[w.dtype],)
     if inv is not None:
         ins.append(f32_operand(inv, 1, u8.device, "inv (1 / scale)"))
-    _launch(SOURCE, entry, ins, y, (_DTYPE_CODE[w.dtype],))
+    else:
+        ints += (cout,)
+    _launch(SOURCE, entry, ins, y, ints)
     return y
 
 
 def conv3x3_u8_bias_prelu(u8: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                           alpha: torch.Tensor) -> torch.Tensor:
-    """K3: (B, H, W, 3) uint8 x (3, 3, 3, 64) HWIO in the compute dtype ->
-    PReLU(dtype(conv(dtype(u8 / 255)) + b)) (B, H, W, 64)."""
+    """K3: (B, H, W, 3) uint8 x (3, 3, 3, F) HWIO in the compute dtype, F
+    one of WIDTHS -> PReLU(dtype(conv(dtype(u8 / 255)) + b)) (B, H, W,
+    F)."""
     if u8.device.type == "cpu":
         return conv3x3_u8_bias_prelu_plain(u8, w, b, alpha)
-    _check(u8, w, 3, torch.uint8)
+    feat = w.shape[-1] if w.dim() == 4 else FEAT
+    check_width(feat, "K3")
+    _check(u8, w, 3, torch.uint8, cout=feat)
     y = _launch_u8("reve_conv3x3_u8_bias_prelu", u8, w, b, alpha)
     LAUNCHES["conv3x3_u8_bias_prelu"] += 1
     return y

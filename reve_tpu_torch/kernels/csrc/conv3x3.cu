@@ -38,6 +38,15 @@
 // three, hi.hi in its own accumulators, as conv3x3_f32_tc.cu does: the
 // tensor cores add in their own order and may truncate).  One template
 // serves the four kernels (K3 and K4a, each in both compute dtypes).
+//  * K3 takes the SRVGG's num_feat C of 32, 64, 96 or 128 output channels
+//    (the template's C; K4a and K3 at Cin 12 run at 64): the row's GEMM
+//    runs in chunks of NC = 64 output channels (32 where C is not a
+//    multiple of 64: m64n32k16), the A fragments read again from the
+//    staged halo for each, and the output row is staged and stored as
+//    C / BOX_C boxes (64 bf16 channels in the 128-B swizzle, 32 bf16 in
+//    the 64-B swizzle at C 32 and 96, 32 float32 in the 128-B).  The
+//    numbers below are C = 64's; per call of 4 1080p frames K3's bound in
+//    bfloat16 is 0.159, 0.475 and 0.634 ms at 32, 96 and 128 (bytes).
 //  * The template's R is the unshuffle factor (Geo<R, TH>): 1 for K3 and
 //    K4a (Cin 3), 2 for K3 at Cin 12, whose halo is read in place from
 //    the x2 frame (2 u8 rows of 132 pixels for each unshuffled row of
@@ -98,7 +107,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace reve::tc;
 
-constexpr int COUT = 64;
 constexpr int TW = 64;    // tile: one row of 64 pixels, the M of a wgmma
 constexpr int THREADS = 128;  // one warpgroup
 constexpr int HALO_PX = TW + 2;           // halo pixels of a tile row
@@ -156,9 +164,15 @@ struct Geo {
 };
 
 // T: the compute dtype (bf16 or float); TOut: T for K3, int8_t for K4a;
-// R: the unshuffle factor (Geo).
-template <typename T, typename TOut, int R = 1>
+// R: the unshuffle factor (Geo); C: the output channels (K3: the SRVGG's
+// num_feat, 32, 64, 96 or 128; K4a and K3 at Cin 12: 64).
+template <typename T, typename TOut, int R = 1, int C = 64>
 struct U8 {
+  // the row's GEMM runs in chunks of NC output channels, one wgmma N each
+  // (A's fragments read again for each): 64, or 32 where C is not a
+  // multiple of 64
+  static constexpr int NC = C % 64 == 0 ? 64 : 32;
+  static constexpr int CHUNKS = C / NC;
   static constexpr bool F32 = std::is_same<T, float>::value;
   // output rows a tile (R = 2: four in bfloat16, two in float32, whose
   // taller halo would leave room for one block an SM)
@@ -166,10 +180,10 @@ struct U8 {
   using G = Geo<R, TH, F32 ? 8 : 2>;
   static constexpr bool Q8 = std::is_same<TOut, int8_t>::value;
   static constexpr int SPLITS = F32 ? 3 : 1;          // hi (, mid, lo)
-  static constexpr int W_BYTES = SPLITS * G::KP * COUT * 2;
+  static constexpr int W_BYTES = SPLITS * G::KP * C * 2;
   static constexpr int V = F32 ? 8 : 2;  // a staged value: bf16 (x 3)
-  // one staged output row: 8 KB bf16, 16 KB float32, 4 KB s8
-  static constexpr int OUT_BYTES = TW * COUT * (int)sizeof(TOut);
+  // one staged output row: 8 KB bf16, 16 KB float32, 4 KB s8 at C 64
+  static constexpr int OUT_BYTES = TW * C * (int)sizeof(TOut);
   static constexpr size_t OFF_W = NOUT * OUT_BYTES;  // after the buffers
   static constexpr size_t OFF_RAW = OFF_W + W_BYTES;   // the raw words
   static constexpr size_t OFF_HALO = OFF_RAW + G::ROWS * G::RAW_ROW;
@@ -177,10 +191,15 @@ struct U8 {
   static constexpr size_t OFF_TABLE = OFF_HALO + G::HALO_VALS * V;
   static constexpr size_t OFF_ZEROS = OFF_TABLE + 256 * V;  // 16 B
   static constexpr size_t SMEM = OFF_ZEROS + 16;
-  // the output's tensor map: channels a box holds, its swizzle
-  static constexpr int BOX_C = F32 && !Q8 ? 32 : 64;
+  // the output's tensor map: channels a box holds (128-B rows: 64 bf16,
+  // 32 float32; 64-B rows: 64 s8, and 32 bf16 where C is not a multiple
+  // of 64), its swizzle, and the boxes of a staged row
+  static constexpr int BOX_C =
+      F32 && !Q8 ? 32 : (Q8 || C % 64 == 0 ? 64 : 32);
+  static constexpr int BOX_ROW = BOX_C * (int)sizeof(TOut);  // bytes
+  static constexpr int NBOX = C / BOX_C;
   static constexpr CUtensorMapSwizzle SWIZZLE =
-      Q8 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+      BOX_ROW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
   static constexpr CUtensorMapDataType MAP_TYPE =
       Q8    ? CU_TENSOR_MAP_DATA_TYPE_UINT8
       : F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
@@ -193,6 +212,8 @@ struct U8 {
       R == 1 ? (F32 ? (Q8 ? 3 : 2) : (Q8 ? 6 : 4)) : (F32 ? 2 : 3);
   static_assert(OFF_HALO % 16 == 0 && OFF_TABLE % 16 == 0,
                 "16-B aligned halo reads");
+  static_assert(C == 64 || (R == 1 && !Q8),
+                "K4a and K3 at Cin 12 take 64 output channels");
 };
 
 // The persistent walk over tiles of TH rows of 64 pixels, x fastest:
@@ -379,13 +400,15 @@ __device__ __forceinline__ void stage(unsigned char* halo,
 // only k 32..39 crosses a dx (at 36: q >= 2 reads dx 1, `cross` values
 // on), and k 108..111 (zero weights) read the values after k 107.
 // float32: hi.hi into `acc`, the five smaller products into `cor`,
-// smallest first.
-template <bool F32, class G>
-__device__ __forceinline__ void mma_row(float (&acc)[32], float (&cor)[32],
+// smallest first.  B (`w`): NC columns of the C packed, [k / 8][n][8]
+// with n < C, started at the chunk's first column.
+template <bool F32, class G, int C, int NC>
+__device__ __forceinline__ void mma_row(float (&acc)[NC / 2],
+                                        float (&cor)[NC / 2],
                                         const unsigned char* a_src,
                                         int cross, uint32_t w) {
   constexpr int KS = G::KSTEPS;
-  constexpr int WPLANE = G::KP * COUT * 2;
+  constexpr int WPLANE = G::KP * C * 2;
   constexpr int V = F32 ? 8 : 2;  // bytes of a staged value
   constexpr int PAD = G::SLOTS - G::WIN;  // 0 at R = 1
   uint32_t a[F32 ? 3 : 1][KS][4];
@@ -410,7 +433,7 @@ __device__ __forceinline__ void mma_row(float (&acc)[32], float (&cor)[32],
       }
     }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
   // every write of A and of the accumulators comes before the fence
 #pragma unroll
   for (int sp = 0; sp < (F32 ? 3 : 1); ++sp)
@@ -421,25 +444,25 @@ __device__ __forceinline__ void mma_row(float (&acc)[32], float (&cor)[32],
   fence_regs(acc);
   if constexpr (F32) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) cor[i] = 0.f;
+    for (int i = 0; i < NC / 2; ++i) cor[i] = 0.f;
     fence_regs(cor);
   }
   wgmma_fence();
 #pragma unroll
   for (int kc = 0; kc < KS; ++kc) {
-    // B of step kc: k blocks 2kc, 2kc + 1, 1024 B apart
-    const uint32_t wb = w + kc * 2048;
+    // B of step kc: k blocks 2kc, 2kc + 1, 16 C B apart
+    const uint32_t wb = w + kc * 32 * C;
     if constexpr (F32) {
-      const uint64_t bh = desc(wb, 1024), bm = desc(wb + WPLANE, 1024),
-                     bl = desc(wb + 2 * WPLANE, 1024);
-      Wgmma<64>::mma(cor, a[2][kc], bh);
-      Wgmma<64>::mma(cor, a[0][kc], bl);
-      Wgmma<64>::mma(cor, a[1][kc], bm);
-      Wgmma<64>::mma(cor, a[1][kc], bh);
-      Wgmma<64>::mma(cor, a[0][kc], bm);
-      Wgmma<64>::mma(acc, a[0][kc], bh);
+      const uint64_t bh = desc(wb, 16 * C), bm = desc(wb + WPLANE, 16 * C),
+                     bl = desc(wb + 2 * WPLANE, 16 * C);
+      Wgmma<NC>::mma(cor, a[2][kc], bh);
+      Wgmma<NC>::mma(cor, a[0][kc], bl);
+      Wgmma<NC>::mma(cor, a[1][kc], bm);
+      Wgmma<NC>::mma(cor, a[1][kc], bh);
+      Wgmma<NC>::mma(cor, a[0][kc], bm);
+      Wgmma<NC>::mma(acc, a[0][kc], bh);
     } else {
-      Wgmma<64>::mma(acc, a[0][kc], desc(wb, 1024));
+      Wgmma<NC>::mma(acc, a[0][kc], desc(wb, 16 * C));
     }
   }
   wgmma_commit();
@@ -460,25 +483,25 @@ __device__ __forceinline__ uint32_t quant_bits(float x, float inv) {
   return __float_as_uint(__fadd_rn(v, 12582912.f));
 }
 
-// The epilogue of this thread's accumulators into the staging buffer `st`,
-// in the swizzle of the output's tensor map.  Register 4j + 2h + e holds
-// pixel pa + 8h, channel 8j + 2q + e; bi, al (float32) and al2 (bf16
-// pairs) are those channels' bias and alpha.
-template <typename T, typename TOut>
-__device__ __forceinline__ void epilogue(unsigned char* st,
-                                         const float (&acc)[32],
-                                         const float (&cor)[32],
-                                         const float (&bi)[16],
-                                         const float (&al)[16],
-                                         const __nv_bfloat162 (&al2)[8],
-                                         float inv, int pa, int q) {
-  using U = U8<T, TOut>;
+// The epilogue of this thread's accumulators of channel chunk `ci` into
+// the staging buffer `st`, in the swizzle of the output's tensor map.
+// Register 4j + 2h + e holds pixel pa + 8h, channel 8 jc + 2q + e, jc =
+// ci NC / 8 + j; bi, al (float32) and al2 (bf16 pairs) hold the bias and
+// alpha of the thread's channels of all chunks.
+template <typename T, typename TOut, int C>
+__device__ __forceinline__ void epilogue(
+    unsigned char* st, const float (&acc)[U8<T, TOut, 1, C>::NC / 2],
+    const float (&cor)[U8<T, TOut, 1, C>::NC / 2], const float (&bi)[C / 4],
+    const float (&al)[C / 4], const __nv_bfloat162 (&al2)[C / 8], float inv,
+    int pa, int q, int ci) {
+  using U = U8<T, TOut, 1, C>;
   const __nv_bfloat162 zero = __float2bfloat162_rn(0.f);
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int jj = 0; jj < U::NC / 8; ++jj)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int p = pa + 8 * h, r = 4 * j + 2 * h;
+      const int j = ci * (U::NC / 8) + jj;  // the channel group
+      const int p = pa + 8 * h, r = 4 * jj + 2 * h;
       float v[2];
       uint32_t hb = 0;
       if constexpr (U::F32) {
@@ -509,20 +532,27 @@ __device__ __forceinline__ void epilogue(unsigned char* st,
             2 * q) = (uint16_t)__byte_perm(quant_bits(v[0], inv),
                                            quant_bits(v[1], inv), 0x40);
       } else if constexpr (U::F32) {
-        // two boxes of 32 channels, each 128-B rows; chunk c of pixel p at
+        // boxes of 32 channels, each 128-B rows; chunk c of pixel p at
         // chunk c ^ (p % 8)
         *reinterpret_cast<float2*>(
             st + (j >> 2) * (TW * 128) + p * 128 +
             (((2 * (j & 3) + (q >> 1)) ^ (p & 7)) << 4) + (q & 1) * 8) =
             make_float2(v[0], v[1]);
+      } else if constexpr (U::BOX_C == 64) {
+        // boxes of 64 channels, 128-B rows
+        *reinterpret_cast<uint32_t*>(st + (j >> 3) * (TW * 128) + p * 128 +
+                                     (((j & 7) ^ (p & 7)) << 4) + 4 * q) = hb;
       } else {
-        *reinterpret_cast<uint32_t*>(st + p * 128 + ((j ^ (p & 7)) << 4) +
+        // boxes of 32 channels, 64-B rows; chunk c of pixel p at chunk c ^
+        // ((p / 2) % 4)
+        *reinterpret_cast<uint32_t*>(st + (j >> 2) * (TW * 64) + p * 64 +
+                                     (((j & 3) ^ ((p >> 1) & 3)) << 4) +
                                      4 * q) = hb;
       }
     }
 }
 
-// The block's B operand, packed from the HWIO weights (3, 3, CIN, 64) in
+// The block's B operand, packed from the HWIO weights (3, 3, CIN, C) in
 // the compute dtype: [split][k / 8][n][8] bf16 (core matrices of 8 rows x
 // 16 B, K-major), tap (dy, dx), channel c at k = WIN dx + CIN dy + c and
 // zeros at the other k (R = 1: 9, 19, 29..31; R = 2: 108..111;
@@ -530,42 +560,42 @@ __device__ __forceinline__ void epilogue(unsigned char* st,
 // its bf16 hi, mid, lo, one split a plane.  Packed here, once a block,
 // not by the wrapper: the small torch ops of a packing took longer than
 // a tenth of the kernel.
-template <typename T, class G>
+template <typename T, class G, int C>
 __device__ __forceinline__ void pack_weights(bf16* ws,
                                              const T* __restrict__ w,
                                              int t) {
   constexpr int KP = G::KP, CIN = G::CIN;
-  for (int i = t; i < KP * COUT; i += THREADS) {
-    const int k = i / COUT, n = i - k * COUT;
+  for (int i = t; i < KP * C; i += THREADS) {
+    const int k = i / C, n = i - k * C;
     const int dx = k / G::WIN, s = k - G::WIN * dx;  // s = CIN dy + c
     const float v =
         dx < 3 && s < 3 * CIN
             ? reve::to_float(
-                  w[((s / CIN * 3 + dx) * CIN + s % CIN) * COUT + n])
+                  w[((s / CIN * 3 + dx) * CIN + s % CIN) * C + n])
             : 0.f;
-    const int at = ((k >> 3) * COUT + n) * 8 + (k & 7);
+    const int at = ((k >> 3) * C + n) * 8 + (k & 7);
     const bf16 hi = __float2bfloat16_rn(v);
     ws[at] = hi;
     if constexpr (std::is_same<T, float>::value) {
       const float r = __fsub_rn(v, __bfloat162float(hi));
       const bf16 mid = __float2bfloat16_rn(r);
-      ws[KP * COUT + at] = mid;
-      ws[2 * KP * COUT + at] =
+      ws[KP * C + at] = mid;
+      ws[2 * KP * C + at] =
           __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(mid)));
     }
   }
 }
 
 // B, H, W: the output's; x is (B, R H, R W, 3).
-template <typename T, typename TOut, int R>
-__global__ void __launch_bounds__(THREADS, U8<T, TOut, R>::BLOCKS)
+template <typename T, typename TOut, int R, int C>
+__global__ void __launch_bounds__(THREADS, U8<T, TOut, R, C>::BLOCKS)
 conv3x3_u8_tc_kernel(const __grid_constant__ CUtensorMap out_map,
                      const uint8_t* __restrict__ x,
                      const T* __restrict__ w,
                      const float* __restrict__ bias,
                      const float* __restrict__ alpha,
                      const float* __restrict__ inv, int B, int H, int W) {
-  using U = U8<T, TOut, R>;
+  using U = U8<T, TOut, R, C>;
   using G = typename U::G;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
@@ -579,7 +609,7 @@ conv3x3_u8_tc_kernel(const __grid_constant__ CUtensorMap out_map,
   for (int i = t; i < G::HALO_VALS * U::V / 4; i += THREADS)
     reinterpret_cast<uint32_t*>(halo)[i] = 0;
   if (t < 4) reinterpret_cast<uint32_t*>(smem + U::OFF_ZEROS)[t] = 0;
-  pack_weights<T, G>(reinterpret_cast<bf16*>(smem + U::OFF_W), w, t);
+  pack_weights<T, G, C>(reinterpret_cast<bf16*>(smem + U::OFF_W), w, t);
   fence_proxy_async();
   __syncthreads();
 
@@ -603,10 +633,10 @@ conv3x3_u8_tc_kernel(const __grid_constant__ CUtensorMap out_map,
   __syncthreads();
   // this thread's channels 8j + 2q + e: bias, and alpha as the dtype
   // rounds it (the wrapper rounds it, so the bf16 pairs are exact)
-  float bi[16], al[16];
-  __nv_bfloat162 al2[8];
+  float bi[C / 4], al[C / 4];
+  __nv_bfloat162 al2[C / 8];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < C / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       bi[2 * j + e] = bias[8 * j + 2 * q + e];
@@ -632,11 +662,15 @@ conv3x3_u8_tc_kernel(const __grid_constant__ CUtensorMap out_map,
       // this row's staging buffer was read out by the store NOUT rows ago
       if (t == 0) bulk_wait_read<NOUT - 1>();
       __syncthreads();
-      float acc[32], cor[32];
-      mma_row<U::F32, G>(acc, cor, a_src + G::CIN * i * U::V, cross,
-                         base + (uint32_t)U::OFF_W);
       unsigned char* st = smem + buf * U::OUT_BYTES;
-      epilogue<T, TOut>(st, acc, cor, bi, al, al2, inv_s, pa, q);
+#pragma unroll
+      for (int ci = 0; ci < U::CHUNKS; ++ci) {
+        float acc[U::NC / 2], cor[U::NC / 2];
+        mma_row<U::F32, G, C, U::NC>(
+            acc, cor, a_src + G::CIN * i * U::V, cross,
+            base + (uint32_t)(U::OFF_W + ci * U::NC * 16));
+        epilogue<T, TOut, C>(st, acc, cor, bi, al, al2, inv_s, pa, q, ci);
+      }
       // the next tile's halo words, read a tile ago (every thread is
       // done with the raw buffer: it staged this tile's before the
       // barrier)
@@ -645,10 +679,10 @@ conv3x3_u8_tc_kernel(const __grid_constant__ CUtensorMap out_map,
       __syncthreads();
       if (t == 0) {
         const uint32_t src = base + buf * U::OUT_BYTES;
-        tma_store_4d(&out_map, src, 0, cur.xt * TW, y0 + i, cur.b);
-        if constexpr (U::BOX_C == 32)
-          tma_store_4d(&out_map, src + TW * 128, 32, cur.xt * TW, y0 + i,
-                       cur.b);
+#pragma unroll
+        for (int k = 0; k < U::NBOX; ++k)
+          tma_store_4d(&out_map, src + k * TW * U::BOX_ROW, k * U::BOX_C,
+                       cur.xt * TW, y0 + i, cur.b);
         bulk_commit();
       }
       // the words of the tile after next: the fence above waits for
@@ -664,11 +698,11 @@ conv3x3_u8_tc_kernel(const __grid_constant__ CUtensorMap out_map,
 }
 
 // B, H, W: the output's (the u8 input is R H x R W).
-template <typename T, typename TOut, int R = 1>
+template <typename T, typename TOut, int R = 1, int C = 64>
 cudaError_t launch(const void* x, const void* w, const float* b,
                    const float* a, const float* inv, void* y, int B, int H,
                    int W, cudaStream_t stream) {
-  using U = U8<T, TOut, R>;
+  using U = U8<T, TOut, R, C>;
   const long long tiles =
       (long long)B * ((H + U::TH - 1) / U::TH) * ((W + TW - 1) / TW);
   if (tiles == 0) return cudaSuccess;
@@ -677,9 +711,9 @@ cudaError_t launch(const void* x, const void* w, const float* b,
     return cudaErrorInvalidValue;
   CUtensorMap out_map;
   cudaError_t err = halo_map(&out_map, U::MAP_TYPE, (int)sizeof(TOut), y, B,
-                             H, W, TW, 1, U::SWIZZLE, U::BOX_C);
+                             H, W, TW, 1, U::SWIZZLE, U::BOX_C, C);
   if (err != cudaSuccess) return err;
-  auto kernel = conv3x3_u8_tc_kernel<T, TOut, R>;
+  auto kernel = conv3x3_u8_tc_kernel<T, TOut, R, C>;
   int grid = 0;
   err = reve::persistent_grid(kernel, THREADS, U::SMEM, tiles, &grid,
                               U::BLOCKS);
@@ -690,22 +724,37 @@ cudaError_t launch(const void* x, const void* w, const float* b,
   return cudaGetLastError();
 }
 
+template <int C>
+cudaError_t launch_k3(const void* x, const void* w, const float* b,
+                      const float* alpha, void* y, int B, int H, int W,
+                      int dtype, cudaStream_t s) {
+  if (dtype == 1)
+    return launch<bf16, bf16, 1, C>(x, w, b, alpha, nullptr, y, B, H, W, s);
+  if (dtype == 0)
+    return launch<float, float, 1, C>(x, w, b, alpha, nullptr, y, B, H, W,
+                                      s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// K3.  `w`: the HWIO weights (3, 3, 3, 64) in the compute dtype; `alpha`
-// rounded to the compute dtype; dtype: 0 = float32, 1 = bfloat16.
-// Returns a cudaError_t (0 = success).
+// K3.  `w`: the HWIO weights (3, 3, 3, feat) in the compute dtype; `alpha`
+// rounded to the compute dtype; dtype: 0 = float32, 1 = bfloat16; feat:
+// the output channels, 32, 64, 96 or 128.  Returns a cudaError_t (0 =
+// success).
 extern "C" int reve_conv3x3_u8_bias_prelu(const void* x, const void* w,
                                           const float* b, const float* alpha,
                                           void* y, int B, int H, int W,
-                                          int dtype, void* stream) {
+                                          int dtype, int feat, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return (int)launch<bf16, bf16>(x, w, b, alpha, nullptr, y, B, H, W, s);
-  if (dtype == 0)
-    return (int)launch<float, float>(x, w, b, alpha, nullptr, y, B, H, W,
-                                     s);
-  return (int)cudaErrorInvalidValue;
+  switch (feat) {
+    case 32: return (int)launch_k3<32>(x, w, b, alpha, y, B, H, W, dtype, s);
+    case 64: return (int)launch_k3<64>(x, w, b, alpha, y, B, H, W, dtype, s);
+    case 96: return (int)launch_k3<96>(x, w, b, alpha, y, B, H, W, dtype, s);
+    case 128:
+      return (int)launch_k3<128>(x, w, b, alpha, y, B, H, W, dtype, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // K4a: K3 with the s8 quantize epilogue; `inv` is a device pointer to

@@ -62,6 +62,11 @@
 //    HeadEpilogue) with the value acc + cor + b in float32: it reads the
 //    row's u8 pixels before the wgmmas, stages r output rows of 64r x 3
 //    bytes in shuffle order and writes them as 16-B vectors.
+// At 32, 96 and 128 features K1 and K2 in float32 are conv3x3_wide.cuh's
+// template (the halo and weights streamed in units of 32 input channels),
+// instantiated here behind their own entry points (the *_wide_* ones at
+// the end of this file); this file's own template takes 64.
+#include "conv3x3_wide.cuh"
 #include "tc.cuh"
 
 namespace {
@@ -397,4 +402,27 @@ extern "C" int reve_head_conv_residual_u8_shuffle_f32tc(
                                   s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// K1 in float32 at feat = 32, 96 or 128 channels (64 is the kernel
+// above): conv3x3_wide.cuh's units of 32 input channels.  `planes`: the
+// split planes (3, B, H, W, feat) bf16 of the input; `w`: the HWIO
+// weights packed by kernels/conv3x3.py pack_weights_wide, three splits.
+// Returns a cudaError_t (0 = success).
+extern "C" int reve_conv3x3_bias_prelu_wide_f32tc(
+    const void* planes, const void* w, const float* b, const float* alpha,
+    void* y, int B, int H, int W, int feat, void* stream) {
+  return (int)reve::wide::k1<3>(planes, w, b, alpha, y, B, H, W, feat,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// K2 in float32 at feat = 32, 96 or 128 input channels, r in {2, 3, 4}:
+// the weights packed as K1's at these widths, n padded with zeros to 3r^2
+// rounded up to a multiple of 8; `b`: 3r^2 float32.  Returns a
+// cudaError_t (0 = success).
+extern "C" int reve_head_conv_residual_u8_shuffle_wide_f32tc(
+    const void* planes, const void* w, const float* b, const uint8_t* orig,
+    uint8_t* out, int B, int H, int W, int feat, int r, void* stream) {
+  return (int)reve::wide::k2<3>(planes, w, b, orig, out, B, H, W, feat, r,
+                                static_cast<cudaStream_t>(stream));
 }

@@ -59,6 +59,11 @@
 //    shared memory in pixel-shuffle order, and writes each as 16-B vectors
 //    (tc.cuh's HeadEpilogue, which float32 K2 and K4h share).
 // The barrier, TMA, descriptor and wgmma helpers are tc.cuh's.
+// At 32, 96 and 128 features K1 and K2 in bfloat16 are conv3x3_wide.cuh's
+// template (the halo and weights streamed in units of 32 input channels),
+// instantiated here behind their own entry points (the *_wide_* ones at
+// the end of this file); this file's own template takes 64.
+#include "conv3x3_wide.cuh"
 #include "tc.cuh"
 
 namespace {
@@ -306,4 +311,26 @@ extern "C" int reve_conv_last_u8_tc(const void* x, const void* w,
                                     int H, int W, void* stream) {
   return (int)launch<1>(x, w, b, nullptr, nullptr, out, B, H, W,
                         static_cast<cudaStream_t>(stream));
+}
+
+// K1 in bfloat16 at feat = 32, 96 or 128 channels (64 is the kernel
+// above): conv3x3_wide.cuh's units of 32 input channels.  `x`: (B, H, W,
+// feat) bf16; `w`: the HWIO weights packed by kernels/conv3x3.py
+// pack_weights_wide.  Returns a cudaError_t (0 = success).
+extern "C" int reve_conv3x3_bias_prelu_wide_tc(
+    const void* x, const void* w, const float* b, const float* alpha,
+    void* y, int B, int H, int W, int feat, void* stream) {
+  return (int)reve::wide::k1<1>(x, w, b, alpha, y, B, H, W, feat,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// K2 in bfloat16 at feat = 32, 96 or 128 input channels, r in {2, 3, 4}:
+// the weights packed as K1's at these widths, n padded with zeros to 3r^2
+// rounded up to a multiple of 8; `b`: 3r^2 float32.  Returns a
+// cudaError_t (0 = success).
+extern "C" int reve_head_conv_residual_u8_shuffle_wide_tc(
+    const void* x, const void* w, const float* b, const uint8_t* orig,
+    uint8_t* out, int B, int H, int W, int feat, int r, void* stream) {
+  return (int)reve::wide::k2<1>(x, w, b, orig, out, B, H, W, feat, r,
+                                static_cast<cudaStream_t>(stream));
 }

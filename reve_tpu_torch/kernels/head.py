@@ -32,6 +32,13 @@ float32 FMAs on the CUDA cores over the input read once by TMA, no split
 pass; bound per call of 2 frames (the float32 plan's chunk) 17.0 GB in ->
 5.13 ms (bytes; 229 GFLOP -> 3.42 ms at 67 TFLOP/s float32).
 
+At 32, 96 and 128 features (Cin F) K2 in both dtypes is
+csrc/conv3x3_wide.cuh's template at R = 2, 3, 4 (the halo and weights
+streamed in units of 32 input channels; the same HeadEpilogue), its
+weights packed by conv3x3.pack_weights_wide; bound per call of 4 1080p
+frames at r = 4 in bf16 0.232, 0.696 and 0.927 ms (operations).  K4h,
+conv_last and K2's conv_last mode take 64 channels only.
+
 Rounding points follow the JAX reference: float32 accumulation + b in
 float32, cast to the compute dtype, + repeat(u8 / 255, r^2) in float32,
 clip(y * 255 + 0.5, 0, 255) truncated to u8, then the shuffle.
@@ -53,9 +60,10 @@ import torch
 
 from reve_tpu_torch.kernels import LAUNCHES, build
 from reve_tpu_torch.kernels.conv3x3 import (F32_SOURCE, FEAT, TC_SOURCE,
-                                            check_operands, conv3x3_plain,
-                                            f32_operand, pack_weights_bf16x3,
-                                            split_bf16x3)
+                                            check_operands, check_width,
+                                            conv3x3_plain, f32_operand,
+                                            pack_weights_bf16x3,
+                                            pack_weights_wide, split_bf16x3)
 from reve_tpu_torch.kernels.conv3x3_s8 import (SOURCE as S8_SOURCE,
                                                conv3x3_s8_plain,
                                                pack_weights_s8)
@@ -96,17 +104,17 @@ def head_conv_s8_residual_u8_shuffle_plain(x8, w8, scale, b, u8,
     return residual_u8_plain(h, u8, r)
 
 
-def _check_head(x, w, u8, r: int) -> None:
+def _check_head(x, w, u8, r: int, feat: int = FEAT) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"tensor on {x.device}: the kernel takes CUDA "
                          f"tensors (CPU tensors take the plain version)")
     if r not in (2, 3, 4):
         raise ValueError(f"upscale {r} not supported (2, 3, 4)")
-    if x.dim() != 4 or x.shape[3] != FEAT or \
-            tuple(w.shape) != (3, 3, FEAT, 3 * r * r):
+    if x.dim() != 4 or x.shape[3] != feat or \
+            tuple(w.shape) != (3, 3, feat, 3 * r * r):
         raise ValueError(f"head shapes {tuple(x.shape)} x {tuple(w.shape)}; "
-                         f"expected (B, H, W, {FEAT}) x "
-                         f"(3, 3, {FEAT}, {3 * r * r})")
+                         f"expected (B, H, W, {feat}) x "
+                         f"(3, 3, {feat}, {3 * r * r})")
     B, H, W, _ = x.shape
     if u8.dtype != torch.uint8 or tuple(u8.shape) != (B, H, W, 3):
         raise ValueError(f"residual input {tuple(u8.shape)} {u8.dtype}; "
@@ -131,26 +139,40 @@ def _launch(source: str, entry: str, ins, u8, out, ints, what: str):
 def head_conv_residual_u8_shuffle(h: torch.Tensor, w: torch.Tensor,
                                   b: torch.Tensor, u8: torch.Tensor,
                                   r: int) -> torch.Tensor:
-    """K2: head conv (B, H, W, 64) x (3, 3, 64, 3r^2) HWIO in the compute
-    dtype + the u8 residual epilogue -> (B, H*r, W*r, 3) uint8.  float32
-    launches two kernels: the split pass and the bf16x6 conv."""
+    """K2: head conv (B, H, W, F) x (3, 3, F, 3r^2) HWIO in the compute
+    dtype, F one of WIDTHS, + the u8 residual epilogue -> (B, H*r, W*r, 3)
+    uint8.  float32 launches two kernels: the split pass and the bf16x6
+    conv.  F = 64 runs the 64-feature kernels, the other widths the wide
+    forms (csrc/conv3x3_wide.cuh), their weights packed by
+    pack_weights_wide."""
     if h.device.type == "cpu":
         return head_conv_residual_u8_shuffle_plain(h, w, b, u8, r)
     if w.dtype not in _DTYPES or h.dtype != w.dtype:
         raise TypeError(f"head dtypes {h.dtype}/{w.dtype}; expected one "
                         f"of float32, bfloat16 for both")
-    _check_head(h, w, u8, r)
+    feat = h.shape[-1] if h.dim() == 4 else FEAT
+    check_width(feat, "K2")
+    _check_head(h, w, u8, r, feat)
     B, H, W, _ = h.shape
     bb = f32_operand(b, 3 * r * r, h.device, "bias")
     out = torch.empty((B, H * r, W * r, 3), dtype=torch.uint8,
                       device=h.device)
-    if w.dtype == torch.bfloat16:
+    bf16 = w.dtype == torch.bfloat16
+    what = "head_conv_residual_u8_shuffle" + ("" if bf16 else " (float32)")
+    if feat == FEAT and bf16:
         _launch(TC_SOURCE, "reve_head_conv_residual_u8_shuffle_tc",
-                (h, w, bb), u8, out, (r,), "head_conv_residual_u8_shuffle")
-    else:
+                (h, w, bb), u8, out, (r,), what)
+    elif feat == FEAT:
         _launch(F32_SOURCE, "reve_head_conv_residual_u8_shuffle_f32tc",
                 (split_bf16x3(h), pack_weights_bf16x3(w), bb), u8, out,
-                (r,), "head_conv_residual_u8_shuffle (float32)")
+                (r,), what)
+    elif bf16:
+        _launch(TC_SOURCE, "reve_head_conv_residual_u8_shuffle_wide_tc",
+                (h, pack_weights_wide(w), bb), u8, out, (feat, r), what)
+    else:
+        _launch(F32_SOURCE, "reve_head_conv_residual_u8_shuffle_wide_f32tc",
+                (split_bf16x3(h), pack_weights_wide(w), bb), u8, out,
+                (feat, r), what)
     LAUNCHES["head_conv_residual_u8_shuffle"] += 1
     return out
 

@@ -16,10 +16,12 @@ space-to-depth form is an MXU-width trick, and it is exact, so the port
 is held against both of its modes.
 
 `apply` runs u8 -> u8 through the three kernels of the main path (K3 the
-first conv, K1 each hidden conv, K2 the head with its epilogue); on CPU
-tensors each kernel wrapper runs its plain PyTorch version, and
-`plain=True` runs the plain versions on any device (the reference path).
-`apply_int8` is the int8 turbo path on K4a, K4 and K4h.  `apply_float`
+first conv, K1 each hidden conv, K2 the head with its epilogue), at any
+num_feat the kernels take on the card (kernels.conv3x3.WIDTHS: 32, 64,
+96, 128); on CPU tensors each kernel wrapper runs its plain PyTorch
+version (any width), and `plain=True` runs the plain versions on any
+device (the reference path).  `apply_int8` is the int8 turbo path on
+K4a, K4 and K4h (64 features on the card).  `apply_float`
 is the float32 forward that training differentiates, on T1 (and, under
 autograd, T2 and T3 in the backward).
 """

@@ -46,9 +46,16 @@ Counterpart of reve_tpu/pipeline/engine.py.  Design:
     frames, even tile and halo), as the unshuffle needs; odd ones raise,
     as reve_tpu's pixel_unshuffle raises.
 
+  * SRVGG widths: on the card K3, K1 and K2 take an SRVGG of 32, 64, 96
+    or 128 features (kernels.conv3x3.WIDTHS) in bfloat16 and float32, the
+    widths the JAX package's own distillation makes (its default student
+    has 128); the int8 forms K4a, K4 and K4h take 64.
+
 Not ported yet (raises NotImplementedError naming its ROADMAP.md
 port-queue item): multi-device meshes, RRDB x1, and on the card an SRVGG
-of other than 64 features (`check_serving_width`).
+of another width, or int8 at a width other than 64
+(`check_serving_width`).  The CPU's plain path serves every width in
+every dtype.
 """
 
 from __future__ import annotations
@@ -115,23 +122,38 @@ def parse_int8_calib(int8_calib: str):
 SERVING_WIDTHS_ITEM = "Serving at other widths"
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
+def _not_ported(what: str, item: str,
+                cls=NotImplementedError) -> NotImplementedError:
+    return cls(
         f"{what} is not yet ported in reve_tpu_torch (ROADMAP.md port "
         f"queue: {item})")
 
 
-def check_serving_width(cfg, device: torch.device) -> None:
-    """Raise, for a CUDA device, on an SRVGG whose num_feat is not the
-    FEAT (64) that K3, K1, K2 and K4a/K4/K4h are written for
-    (kernels/conv3x3.py): before the first batch, not deep in K3.  The
-    plain path on the CPU serves any width."""
-    if device.type == "cuda" and isinstance(cfg, srvgg.SRVGGConfig) and \
-            cfg.num_feat != conv3x3.FEAT:
+class WidthNotServed(NotImplementedError):
+    """An SRVGG width (or int8 at a width) the card's kernels do not take:
+    raised before any batch, naming SERVING_WIDTHS_ITEM."""
+
+
+def check_serving_width(cfg, device: torch.device,
+                        int8: bool = False) -> None:
+    """Raise WidthNotServed, for a CUDA device, on an SRVGG whose num_feat
+    is not one of the WIDTHS that K3, K1 and K2 take in bfloat16 and
+    float32 (kernels/conv3x3.py), or, with `int8`, not the FEAT (64) that
+    K4a, K4 and K4h take: before the first batch, not deep in a kernel.
+    The plain path on the CPU serves any width in any dtype."""
+    if device.type != "cuda" or not isinstance(cfg, srvgg.SRVGGConfig):
+        return
+    if cfg.num_feat not in conv3x3.WIDTHS:
         raise _not_ported(
             f"serving an SRVGG of {cfg.num_feat} features on the card (its "
-            f"inference kernels K3, K1, K2, K4a, K4 and K4h take "
-            f"{conv3x3.FEAT})", SERVING_WIDTHS_ITEM)
+            f"inference kernels K3, K1 and K2 take "
+            f"{', '.join(map(str, conv3x3.WIDTHS))})",
+            SERVING_WIDTHS_ITEM, WidthNotServed)
+    if int8 and cfg.num_feat != conv3x3.FEAT:
+        raise _not_ported(
+            f"serving an SRVGG of {cfg.num_feat} features in int8 on the "
+            f"card (its int8 kernels K4a, K4 and K4h take "
+            f"{conv3x3.FEAT})", SERVING_WIDTHS_ITEM, WidthNotServed)
 
 
 @dataclasses.dataclass
@@ -283,7 +305,7 @@ class UpscaleEngine:
             raise TypeError(f"unknown model config {type(cfg).__name__}")
         if self._rrdb:
             rrdb.check_cfg(cfg)  # x1 raises, naming its ROADMAP.md item
-        check_serving_width(cfg, self.device)
+        check_serving_width(cfg, self.device, self._int8)
         self.cfg = cfg
         #: the float32 params that int8 calibration, quantization and
         #: certification read (None off int8)

@@ -53,7 +53,7 @@ from reve_tpu_torch.io import concat as concat_mod
 from reve_tpu_torch.io import reader as reader_mod
 from reve_tpu_torch.io import writer as writer_mod
 from reve_tpu_torch.ops.color_np import Planes
-from reve_tpu_torch.pipeline.engine import UpscaleEngine
+from reve_tpu_torch.pipeline.engine import UpscaleEngine, WidthNotServed
 from reve_tpu_torch.pipeline.progress import ProgressTracker
 from reve_tpu_torch.pipeline.state import JobState, Workspace
 
@@ -288,6 +288,10 @@ def resolve_auto_dtype(make_engine, workspace: Workspace, state: JobState,
                       "path)")
     try:
         engine = make_engine("int8", state.opts.get("int8_calib", "p99.9"))
+    except WidthNotServed:
+        # an SRVGG whose int8 kernels the card lacks: refused, as --dtype
+        # int8 is, not served in bfloat16 instead
+        raise
     except (ValueError, NotImplementedError) as e:
         # an architecture without a (ported) int8 path
         return decide("bfloat16", None, None, f"auto dtype: bfloat16 ({e})")

@@ -120,10 +120,11 @@ _LOAD = "    if (tid == 0 && next < g.count) {"
 _LOAD_WAIT = "    mbar_wait(bar + (it & 1) * 8, (it >> 1) & 1);"
 _NO_LOAD = [(_LOAD, "    if (false) {"),
             (_LOAD_WAIT, "    if (it == 0) mbar_wait(bar, 0);")]
-_U8_MMA = ("      mma_row<U::F32, G>(acc, cor, a_src + G::CIN * i * U::V, "
-           "cross,\n                         base + (uint32_t)U::OFF_W);\n")
-_U8_EPI = ("      epilogue<T, TOut>(st, acc, cor, bi, al, al2, inv_s, pa, "
-           "q);\n")
+_U8_MMA = ("        mma_row<U::F32, G, C, U::NC>(\n"
+           "            acc, cor, a_src + G::CIN * i * U::V, cross,\n"
+           "            base + (uint32_t)(U::OFF_W + ci * U::NC * 16));\n")
+_U8_EPI = ("        epilogue<T, TOut, C>(st, acc, cor, bi, al, al2, inv_s, pa, "
+           "q, ci);\n")
 _U8_STORE = "      if (t == 0) {\n        const uint32_t src"
 _U8_STAGE = ("    stage<U::F32, G>(halo, raw, smem + U::OFF_ZEROS, table, t, "
              "cur.b, y0,\n")
@@ -167,9 +168,9 @@ PATCHES = {
         "no_load": [("      if (i == 0 && tile + 2 * step < count)\n",
                      "      if (false)\n")],
         "no_stage": [(_U8_STAGE, "    if (it == 0)\n" + _U8_STAGE)],
-        "no_mma": [(_U8_MMA, "      for (int j = 0; j < 32; ++j) acc[j] = "
-                    "cor[j] = it;\n")],
-        "no_epi": [(_U8_EPI, "      if (acc[0] == 0.5f) smem[0] = 1;\n"),
+        "no_mma": [(_U8_MMA, "        for (int j = 0; j < U::NC / 2; ++j) "
+                    "acc[j] = cor[j] = it;\n")],
+        "no_epi": [(_U8_EPI, "        if (acc[0] == 0.5f) smem[0] = 1;\n"),
                    (_U8_STORE,
                     "      if (false) {\n        const uint32_t src")],
     },

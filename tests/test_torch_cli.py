@@ -146,6 +146,39 @@ def test_cli_matches_jax_cli_on_hermetic_job(tmp_path, monkeypatch):
 
 
 @pytest.mark.usefixtures("jax_native_core")
+@pytest.mark.parametrize("feat, extra", [(32, ["--tile", "8"]),
+                                         (128, ["--tta"])])
+def test_cli_at_other_widths_matches_jax_cli(tmp_path, monkeypatch, feat,
+                                             extra):
+    """A student of 32 or 128 features (reve_tpu's seeded init, 2 convs,
+    x2) as a user runs it: its .pth through --weights in both CLIs, with
+    --tile 8 (real windows at this model's halo of 4) or --tta, sample
+    for sample.  On the card these widths run K3, K1 and K2 at F."""
+    import jax
+
+    from reve_tpu.models import srvgg as jsrvgg
+    from reve_tpu_torch.models import srvgg
+    from reve_tpu_torch.weights.torch_loader import save_srvgg_pth
+
+    monkeypatch.chdir(tmp_path)
+    inp = _input(tmp_path)
+    cfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=2, upscale=2)
+    pth = str(tmp_path / f"student{feat}.pth")
+    save_srvgg_pth(pth, cfg, srvgg.params_from_jax(jsrvgg.init_params(
+        jax.random.key(feat), jsrvgg.SRVGGConfig(num_feat=feat, num_conv=2,
+                                                 upscale=2))))
+    job = ["-s", "2", "--io-backend", "y4m", "--weights", pth, "-S", "3",
+           "--batch", "2", "--dtype", "float32", "--yes"] + extra
+    want = str(tmp_path / "jax.y4m")
+    got = str(tmp_path / "torch.y4m")
+    assert jcli.run(["-i", inp, want] + job) == 0
+    assert cli.run(["-i", inp, got] + job, device="cpu") == 0
+    rd = reader.Y4MReader(got)
+    assert (rd.width, rd.height, rd.frame_count()) == (64, 48, 6)
+    _assert_close_y4m(got, want)
+
+
+@pytest.mark.usefixtures("jax_native_core")
 @pytest.mark.parametrize("extra", [["--tile", "64"], ["--tile", "8"],
                                    ["--tta"]])
 def test_cli_tile_and_tta_match_jax_cli(tmp_path, monkeypatch, extra):

@@ -333,19 +333,21 @@ def test_frame_bytes_counts_what_the_kernels_keep():
     assert engine_mod._PLAN_INFLIGHT_SETS >= 1
 
 
-@pytest.mark.parametrize("feat", [32, 96, 128])
+@pytest.mark.parametrize("feat", [16, 48, 80])
 def test_engine_refuses_other_srvgg_widths_on_the_card(monkeypatch, feat):
     """On a CUDA device the engine refuses, before any batch, an SRVGG
-    whose num_feat is not the inference kernels' 64, naming the ROADMAP.md
-    item (ROADMAP.md lists it); 64 features pass, and on the CPU every
-    width runs (the plain path) and matches reve_tpu's engine."""
+    whose num_feat is none of the inference kernels' widths (32, 64, 96,
+    128), naming the ROADMAP.md item (ROADMAP.md lists it); those widths
+    pass, and on the CPU every width runs (the plain path) and matches
+    reve_tpu's engine."""
     cfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=1, upscale=2)
     cuda = torch.device("cuda", 0)
     with pytest.raises(NotImplementedError,
                        match=engine_mod.SERVING_WIDTHS_ITEM):
         engine_mod.check_serving_width(cfg, cuda)
-    engine_mod.check_serving_width(
-        srvgg.SRVGGConfig(num_feat=64, num_conv=1, upscale=2), cuda)
+    for served in (32, 64, 96, 128):
+        engine_mod.check_serving_width(
+            srvgg.SRVGGConfig(num_feat=served, num_conv=1, upscale=2), cuda)
     engine_mod.check_serving_width(cfg, torch.device("cpu"))
     # the engine asks before it touches the device: its device resolved
     # to cuda:0, it raises with nothing on the card yet
@@ -374,3 +376,31 @@ def test_engine_refuses_other_srvgg_widths_on_the_card(monkeypatch, feat):
     d = np.abs(mine.upscale_frames(x).astype(int)
                - np.asarray(ref.upscale_frames(x)).astype(int))
     assert d.max() <= 1
+
+
+@pytest.mark.parametrize("feat", [32, 96, 128])
+def test_engine_refuses_int8_at_other_widths_on_the_card(monkeypatch, feat):
+    """int8 on the card takes 64 features only (K4a, K4, K4h): an int8
+    engine of another served width is refused before any batch, naming
+    the ROADMAP.md item, while bfloat16 and float32 at that width and
+    int8 at 64 pass; the CPU serves the width in int8 (the plain path)."""
+    cfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=1, upscale=2)
+    cuda = torch.device("cuda", 0)
+    with pytest.raises(engine_mod.WidthNotServed,
+                       match=engine_mod.SERVING_WIDTHS_ITEM):
+        engine_mod.check_serving_width(cfg, cuda, int8=True)
+    engine_mod.check_serving_width(cfg, cuda)
+    engine_mod.check_serving_width(
+        srvgg.SRVGGConfig(num_feat=64, num_conv=1, upscale=2), cuda,
+        int8=True)
+    engine_mod.check_serving_width(cfg, torch.device("cpu"), int8=True)
+    monkeypatch.setattr(engine_mod.device_mod, "resolve_device",
+                        lambda device: cuda)
+    with pytest.raises(engine_mod.WidthNotServed,
+                       match=engine_mod.SERVING_WIDTHS_ITEM):
+        UpscaleEngine(compute_dtype="int8",
+                      preloaded=(cfg, srvgg.init_params(cfg)))
+    monkeypatch.undo()
+    mine = UpscaleEngine(device="cpu", compute_dtype="int8",
+                         preloaded=(cfg, srvgg.init_params(cfg)))
+    assert mine.cfg.num_feat == feat

@@ -337,6 +337,160 @@ def test_model_kernels_match_plain_path():
     assert (got.int() - want.int()).abs().max().item() <= 1
 
 
+#: the SRVGG widths besides 64 that K3, K1 and K2 take
+#: (csrc/conv3x3_wide.cuh for K1 and K2, K3's template at Cout F)
+WIDE_FEATS = (32, 96, 128)
+
+
+def _width_forms(d, dev, dt, feat, scale=1.0):
+    """(name, kernel call, plain call) of K3, K1 and K2 at x2, x3, x4 on
+    `d` (seeded at Cin = Cout = feat), in `dt`."""
+    x = ((d["x"] - 0.5) * scale + 0.5).to(dev, dt) if scale != 1.0 else \
+        d["x"].to(dev, dt)
+    w, b, a, u8 = d["w"].to(dev, dt), d["b"].to(dev), d["alpha"].to(dev), \
+        d["u8"].to(dev)
+    w3 = w[:, :, :3].contiguous()
+    h = x.clamp_min(0)
+    forms = [("conv3x3_u8_bias_prelu",
+              lambda: conv3x3.conv3x3_u8_bias_prelu(u8, w3, b, a),
+              lambda: conv3x3.conv3x3_u8_bias_prelu_plain(u8, w3, b, a)),
+             ("conv3x3_bias_prelu",
+              lambda: conv3x3.conv3x3_bias_prelu(x, w, b, a),
+              lambda: conv3x3.conv3x3_bias_prelu_plain(x, w, b, a))]
+    # the heads' weights from the conv's, doubled along Cout for Cout 48
+    # at 32 features
+    w2, b2 = torch.cat([w, w.flip(-1)], -1), torch.cat([b, b.flip(-1)])
+    for r in (2, 3, 4):
+        wh = w2[..., :3 * r * r].contiguous()
+        bh = b2[:3 * r * r].contiguous()
+        forms.append(("head_conv_residual_u8_shuffle",
+                      lambda wh=wh, bh=bh, r=r:
+                      head.head_conv_residual_u8_shuffle(h, wh, bh, u8, r),
+                      lambda wh=wh, bh=bh, r=r:
+                      head.head_conv_residual_u8_shuffle_plain(
+                          h, wh, bh, u8, r)))
+    return forms
+
+
+def _hold_width_forms(forms, name, floor=2.0 ** -10, atol=1e-4):
+    for kname, kernel, plain in forms:
+        before = dict(LAUNCHES)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == want.dtype
+        if got.dtype == torch.uint8:
+            assert (got.int() - want.int()).abs().max().item() <= 1, kname
+        elif name == "float32":
+            torch.testing.assert_close(got, want, atol=atol, rtol=0)
+        else:
+            _close(got, want, name, floor=floor)
+        # one launch of the form (float32 K1 and K2: and their split pass)
+        assert LAUNCHES[kname] == before[kname] + 1
+        split = name == "float32" and kname != "conv3x3_u8_bias_prelu"
+        assert LAUNCHES["split_bf16x3"] == before["split_bf16x3"] + split
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", TC_SHAPES)
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("feat", WIDE_FEATS)
+def test_width_kernels_match_plain_at_tile_edges(feat, name, B, hw):
+    """K3, K1 and K2 at x2, x3, x4 at 32, 96 and 128 features against
+    their plain versions at the tile edges (K1 and K2: 4 x 64 tiles, 2 x
+    64 in float32 at 96 and 128; K3: rows of 64), to the 64-feature
+    forms' tolerances."""
+    dev = _cuda()
+    d = _inputs(feat + B, B, *hw, cin=feat, cout=feat)
+    _hold_width_forms(_width_forms(d, dev, DTYPES[name], feat), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("feat", WIDE_FEATS)
+def test_width_kernels_match_plain_at_1080p(feat, name):
+    """... on a 1080p frame: far more tiles than the persistent grid's
+    blocks, so every halo slot and weight stage is reused many times."""
+    dev = _cuda()
+    d = _inputs(feat, 1, 1080, 1920, cin=feat, cout=feat)
+    _hold_width_forms(_width_forms(d, dev, DTYPES[name], feat), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("feat", WIDE_FEATS)
+def test_width_kernels_at_large_activations(feat, name):
+    """Activations up to +-2^8 at the wide widths: the tolerance scales
+    with the inputs (a sum of 9 F products 2^8 times the usual size
+    carries 2^8 times the order noise)."""
+    dev = _cuda()
+    d = _inputs(feat + 5, 2, 19, 45, cin=feat, cout=feat)
+    forms = _width_forms(d, dev, DTYPES[name], feat, scale=2.0 ** 8)
+    _hold_width_forms(forms[1:], name, floor=2.0 ** -2, atol=1e-4 * 2 ** 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [2, 3, 4])
+@pytest.mark.parametrize("feat", WIDE_FEATS)
+def test_width_model_matches_plain_path(feat, r):
+    """A whole SRVGG at 32, 96 and 128 features on the kernels against
+    its plain path: float32 u8 |d| <= 1, bfloat16 at the engine's 50 dB
+    floor against the plain bf16 path; the launches 1 K3, num_conv K1
+    and 1 K2."""
+    dev = _cuda()
+    cfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=2, upscale=r)
+    params = srvgg.params_to(srvgg.init_params(
+        cfg, torch.Generator().manual_seed(feat + r)), dev)
+    u8 = _inputs(5, 2, 17, 70)["u8"].to(dev)
+    for name, dt in DTYPES.items():
+        before = dict(LAUNCHES)
+        got = srvgg.apply(params, u8, cfg=cfg, compute_dtype=dt)
+        torch.cuda.synchronize()
+        assert {k: LAUNCHES[k] - before[k] for k in (
+            "conv3x3_u8_bias_prelu", "conv3x3_bias_prelu",
+            "head_conv_residual_u8_shuffle")} == {
+                "conv3x3_u8_bias_prelu": 1, "conv3x3_bias_prelu": 2,
+                "head_conv_residual_u8_shuffle": 1}
+        want = srvgg.apply(params, u8, cfg=cfg, compute_dtype=dt,
+                           plain=True)
+        d = (got.int() - want.int()).abs()
+        if name == "float32":
+            assert d.max().item() <= 1
+        else:
+            mse = (d.double() ** 2).mean().item()
+            assert 10 * np.log10(255.0 ** 2 / max(mse, 1e-12)) >= 50.0
+
+
+@pytest.mark.cuda
+def test_width_wrappers_reject_what_the_kernels_do_not_take():
+    """A width none of the kernels take (48), and K1 of Cin != Cout, are
+    refused before a launch."""
+    dev = _cuda()
+    before = dict(LAUNCHES)
+    for dt in DTYPES.values():
+        x = torch.zeros((1, 4, 8, 48), device=dev, dtype=dt)
+        with pytest.raises(ValueError, match="features"):
+            conv3x3.conv3x3_bias_prelu(
+                x, torch.zeros((3, 3, 48, 48), device=dev, dtype=dt),
+                torch.zeros(48), torch.zeros(48))
+        with pytest.raises(ValueError, match="features"):
+            conv3x3.conv3x3_u8_bias_prelu(
+                torch.zeros((1, 4, 8, 3), device=dev, dtype=torch.uint8),
+                torch.zeros((3, 3, 3, 48), device=dev, dtype=dt),
+                torch.zeros(48), torch.zeros(48))
+        with pytest.raises(ValueError, match="features"):
+            head.head_conv_residual_u8_shuffle(
+                x, torch.zeros((3, 3, 48, 12), device=dev, dtype=dt),
+                torch.zeros(12), torch.zeros((1, 4, 8, 3), device=dev,
+                                             dtype=torch.uint8), 2)
+        with pytest.raises(ValueError, match="expected"):
+            conv3x3.conv3x3_bias_prelu(
+                torch.zeros((1, 4, 8, 96), device=dev, dtype=dt),
+                torch.zeros((3, 3, 96, 128), device=dev, dtype=dt),
+                torch.zeros(128), torch.zeros(128))
+    assert LAUNCHES == before
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take():
     dev = _cuda()
@@ -820,8 +974,9 @@ def test_u8_conv_wrappers_refuse_and_no_cuda_core_form_is_left():
         conv3x3.SOURCE]["path"]], check=True, capture_output=True,
         text=True).stdout
     kernels = re.split(r"\n\s*Function : ", sass)[1:]
-    # K3, K4a and K3 at Cin 12, each in both compute dtypes
-    assert len(kernels) == 6
+    # K3 at Cout 32, 64, 96 and 128, K4a and K3 at Cin 12, each in both
+    # compute dtypes
+    assert len(kernels) == 12
     for k in kernels:  # (a CUDA-core conv would be thousands of FFMA)
         assert "HGMMA" in k and k.count("FFMA") < 8, k.split()[0]
 
