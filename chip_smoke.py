@@ -16,7 +16,9 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               count of all their kernels (the heads at r = 2, 3, 4
               included; P1 at every K), every kernel of conv3x3.cu (K3,
               K4a and K3 at Cin 12 in both compute dtypes), rrdb.cu,
-              rrdb_s8.cu and dot_probe.cu must hold wgmma, P1's library
+              rrdb_s8.cu, conv3x3_s8.cu (K4 and K4h, their forms at 32,
+              96 and 128 features in conv3x3_s8_wide.cuh among them) and
+              dot_probe.cu must hold wgmma, P1's library
               both IGMMA and HGMMA, and no library any __dp4a (IDP.4A) or
               mma.sync (HMMA, IMMA); float32 conv_last's library
               (conv_last_f32.cu, float32 FMAs) must hold FFMA and spill
@@ -267,9 +269,16 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               template at Cout F), in both dtypes and K2 at x2, x3, x4,
               on seeded 1-conv models at the main path's batch, held
               and timed as the kernels phase holds the 64-feature forms
-              (their own plain version, cuDNN, the bound); then one
+              (their own plain version, cuDNN, the bound); K4a, K4 and
+              K4h at those widths (K4h at x2, x3, x4; K4 and K4h in
+              conv3x3_s8_wide.cuh, K4a K3's template with the s8
+              epilogue) on the same models quantized by an int8 engine's
+              calibration on the batch, held and timed as the kernels
+              phase holds the 64-feature forms (K4 and K4h exact, K4a
+              within 1 s8 code; their plain version, torch._int_mm x4 or
+              cuDNN, the bound); then one
               engine batch of the main job's first 4 frames through
-              UpscaleEngine in bfloat16 and float32 for each of the train
+              UpscaleEngine in bfloat16, float32 and int8 for each of the train
               phase's x4 students (32, 96, 128 features, 16 convs), the
               default distillation's x2 128-feature student loaded
               through the registry from its .pth, and a seeded x3 model
@@ -279,10 +288,18 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               plain float32 path, bfloat16 each frame >= 50 dB against
               the plain bf16 path and within 1 dB of the plain bf16
               path's own PSNR against plain float32, the model's ms a
-              batch; a --tile 512 bfloat16 batch of the 128-feature
-              student byte-identical to its whole frames; int8 at 128
-              features and bfloat16 at 48 refused before any batch,
-              naming "Serving at other widths", with nothing launched;
+              batch; int8 calibrated on the batch, launches 1 K4a,
+              num_conv K4 and 1 K4h a model call, frame 0 >= 60 dB
+              against the plain int8 path on the same calibration, the
+              certificate's PSNR (reported, not gated) and the int8
+              model's ms a batch; a --tile 512 bfloat16 and int8 batch
+              of the 128-feature student byte-identical to its whole
+              frames; 2-frame `--dtype int8` and `--dtype auto`
+              (REVE_TPU_AUTO_INT8=1: int8 at >= 50 dB certified, else
+              bf16) CLI jobs of the default student's .pth; int8 and
+              bfloat16 at 48 features refused
+              before any batch, naming "Serving at other widths", with
+              nothing launched;
  14. probe    P1, the tensor-core dot-rate probe (wgmma), through
               `python -m reve_tpu_torch.scripts.perf_int8_dot`'s main at
               its shapes: per call at 64 loops timed free of the host's
@@ -313,9 +330,10 @@ source, design and launches on the int8 path, where they run; those of
 K7 and conv_last (conv_last_f32.cu, "fma_f32") with their launches in
 the rrdb phase's float32 engine batch, and of K3 at Cin 12 with its
 launches in the rrdb_x2 phase's; K3's, K1's and K2's forms at 32, 96 and
-128 features under "widths", by width and dtype, with their launches in
-the widths phase's engine batch of the x4 student of that width, K2's x2
-and x3 nested).  The last
+128 features under "widths", by width and dtype, and K4a's, K4's and
+K4h's under "widths" by width ("int8"), with their launches in the
+widths phase's engine batch of the x4 student of that width, K2's and
+K4h's x2 and x3 nested).  The last
 line is {"ok": true, "device": {...}}.
 
 Run from the root of a checkout: alone, or without a CUDA device, it
@@ -368,13 +386,17 @@ TILE = 512
 #: K1 and K2 at x2, x3, x4, 12 kernels in each dtype, 18 (bf16) or 108
 #: (bf16x6) a unit of 32 input channels (nine taps of two k16 steps; the
 #: units looped); K3 at Cout 32, 96, 128 in chunks of 64 or 32 output
-#: channels (1, 3, 2 chunks): 2 and 12 a chunk
+#: channels (1, 3, 2 chunks): 2 and 12 a chunk, and K4a the same; K4 and
+#: K4h in int8 (conv3x3_s8_wide.cuh, instantiated by conv3x3_s8.cu): 12
+#: kernels, 9 (s8) a unit of 32 input channels (nine taps of one k32
+#: step; the units looped)
 P1_IGMMA, P1_HGMMA = sum(range(1, 9)), sum(range(1, 17))
 WIDE_KERNELS = 3 + 3 * 3
 MIN_WGMMA = {"conv3x3_tc.cu": 5 * 36 + WIDE_KERNELS * 18,
              "conv3x3_f32_tc.cu": 4 * 216 + WIDE_KERNELS * 108,
-             "conv3x3_s8.cu": 4 * 18,
-             "conv3x3.cu": 2 * (2 + 12) + 7 + 42 + (1 + 3 + 2) * (2 + 12),
+             "conv3x3_s8.cu": 4 * 18 + WIDE_KERNELS * 9,
+             "conv3x3.cu": 2 * (2 + 12) + 7 + 42
+             + 2 * (1 + 3 + 2) * (2 + 12),
              "dot_probe.cu": P1_IGMMA + P1_HGMMA,
              "rrdb.cu": 2 * (18 + 54), "rrdb_s8.cu": 2 * (4 * 18 + 2 * 18),
              "conv3x3_train_tc.cu": 23 * 12 + 19 * 12 + 4 * 6 + 23 * 48}
@@ -740,11 +762,12 @@ def split_case(x):
 
 
 def int8_kernel_phase(params, cfg, frames, qb, out: dict,
-                      timed: bool = True) -> dict:
+                      timed: bool = True, only=None) -> dict:
     """K4a, K4 and K4h against their plain versions, then (`timed`)
     timed.  Inputs chain like the int8 model's: K4a on the frames, K4 on
     K4a's output, K4h on K4's output, with the model's weights quantized
-    by `qb`.  Untimed, the results hold each kernel's error only."""
+    by `qb`.  Untimed, the results hold each kernel's error only.
+    `only`: the names of the kernels to hold (None: all)."""
     import torch
     import torch.nn.functional as F
 
@@ -799,6 +822,8 @@ def int8_kernel_phase(params, cfg, frames, qb, out: dict,
     }
     results = {}
     for kname, c in cases.items():
+        if only is not None and kname not in only:
+            continue
         got, want = c["kernel"](), c["plain"]()
         torch.cuda.synchronize()
         err = (got.int() - want.int()).abs().max().item()
@@ -1355,8 +1380,9 @@ def part_times(source: str) -> dict:
 def int_mm_x4(x8, cin: int, w8, frames: int):
     """The yardstick of K4's and K7q's time (the port never calls it):
     torch._int_mm of one frame's im2col'd s8 product (x8's first `cin`
-    channels, built here once and not timed), `frames` times.  Returns a
-    callable."""
+    channels, built here once and not timed; the weights' columns padded
+    with zeros to a multiple of 8, as _int_mm takes them: 12 and 27 at
+    the x2 and x3 heads), `frames` times.  Returns a callable."""
     import torch
     import torch.nn.functional as F
 
@@ -1365,7 +1391,8 @@ def int_mm_x4(x8, cin: int, w8, frames: int):
         .permute(1, 2, 0)
     cols = torch.cat([xp[dy:dy + h, dx:dx + w] for dy in range(3)
                       for dx in range(3)], -1).reshape(h * w, -1)
-    wm = w8.reshape(-1, w8.shape[-1]).contiguous()
+    n = w8.shape[-1]
+    wm = F.pad(w8.reshape(-1, n), (0, -n % 8)).contiguous()
 
     def run():
         for _ in range(frames):
@@ -2878,10 +2905,16 @@ def train_phase(work: str, inp: str, frames, weights: str) -> tuple:
 
 
 #: the SRVGG widths besides 64 that the card serves (K3, K1 and K2 in
-#: bfloat16 and float32); the widths phase's refusals: int8 at 128
-#: features, and a width no kernel takes
+#: bfloat16 and float32, K4a, K4 and K4h in int8); the widths phase's
+#: refusals: a width no kernel takes, in int8 and in bfloat16
 SERVE_WIDTHS = (32, 96, 128)
-REFUSED = (("int8", 128), ("bfloat16", 48))
+REFUSED = (("int8", 48), ("bfloat16", 48))
+#: the int8 kernels, whose forms at SERVE_WIDTHS the widths phase holds
+INT8_KERNELS = ("conv3x3_u8_bias_prelu_q8", "conv3x3_s8_dq_prelu_q8",
+                "head_conv_s8_residual_u8_shuffle")
+#: the widths phase's int8 rule: frame 0 of each engine batch against the
+#: plain int8 path on the same calibration (the int8 job's floor)
+WIDTH_INT8_DB = 60.0
 #: the widths phase's bfloat16 rule (RRDB's): each frame >= this against
 #: the plain bf16 path, and within the slack of the plain bf16 path's own
 #: PSNR against plain float32 (students trained 5 steps make no
@@ -2894,12 +2927,18 @@ def widths_kernel_checks(frames) -> dict:
     kernels phase holds them at 64 (kernel_phase: against the plain
     version, then timed beside it, cuDNN and the bound): K3, K1 and K2 at
     x4 of a seeded 1-conv model at each width, and K2 at x2 and x3 of
-    models seeded the same way.  {feat: {kernel: {dtype: numbers}}}, K2's
-    x2 and x3 nested under "x2" and "x3"."""
+    models seeded the same way; and K4a, K4 and K4h as the kernels phase
+    holds them (int8_kernel_phase: exact, K4a within 1 code; timed beside
+    their plain version, torch._int_mm x4 or cuDNN, and the bound) on the
+    same models quantized by an int8 engine's calibration on the batch.
+    {feat: {kernel: {dtype: numbers}}} (the int8 kernels' dtype "int8"),
+    K2's and K4h's x2 and x3 nested under "x2" and "x3"."""
     import torch
 
     from reve_tpu_torch.models import srvgg
+    from reve_tpu_torch.pipeline.engine import UpscaleEngine
 
+    head8 = "head_conv_s8_residual_u8_shuffle"
     out = {}
     for feat in SERVE_WIDTHS:
         res = None
@@ -2909,11 +2948,19 @@ def widths_kernel_checks(frames) -> dict:
                 cfg, torch.Generator().manual_seed(feat + r)), "cuda")
             got = kernel_phase(params, cfg, frames, {}, only=None if r == 4
                                else ("head_conv_residual_u8_shuffle",))
+            eng = UpscaleEngine(compute_dtype="int8", batch_size=len(frames),
+                                preloaded=(cfg, params))
+            eng.calibrate_int8(frames)
+            got8 = int8_kernel_phase(params, cfg, frames, eng._qbody, {},
+                                     only=None if r == 4 else (head8,))
+            del eng
             if res is None:
                 res = got
+                res.update({k: {"int8": v} for k, v in got8.items()})
                 continue
             for dt, v in got["head_conv_residual_u8_shuffle"].items():
                 res["head_conv_residual_u8_shuffle"][dt][f"x{r}"] = v
+            res[head8]["int8"][f"x{r}"] = got8[head8]
         res.pop("split_bf16x3", None)
         out[str(feat)] = res
         torch.cuda.empty_cache()
@@ -3021,7 +3068,78 @@ def serve_checks(cfg, params, frames, tile_check: bool = False) -> dict:
         res[dt] = rec
         del eng, y
         torch.cuda.empty_cache()
+    res["int8"] = serve_int8_checks(cfg, params, frames, u8, tile_check)
     return res
+
+
+def serve_int8_checks(cfg, params, frames, u8, tile_check: bool) -> dict:
+    """One int8 engine batch of `frames` through UpscaleEngine on the
+    card, calibrated on them first (a job's own calibration), the
+    counters zeroed around the batch: launches 1 K4a, num_conv K4 and 1
+    K4h a model call; frame 0 >= WIDTH_INT8_DB against srvgg.apply_int8's
+    plain path (`u8` on the card) quantized from the same calibration's
+    maxima, as the int8 job's frame is held; the certificate's PSNR
+    (certify_int8 on the frames: reported, not gated) and the int8
+    model's ms a batch.  `tile_check`: one --tile TILE int8 batch on the
+    same calibration, byte-identical to the whole frames."""
+    import torch
+
+    from reve_tpu_torch import kernels
+    from reve_tpu_torch.models import srvgg
+    from reve_tpu_torch.pipeline.engine import UpscaleEngine
+    from reve_tpu_torch.weights import quantize
+
+    eng = UpscaleEngine(compute_dtype="int8", batch_size=len(frames),
+                        preloaded=(cfg, params))
+    eng.calibrate_int8(frames)
+    maxima = eng.get_calibration()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    y = torch.from_numpy(eng.upscale_frames(frames)).cuda()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    calls = eng.stats.calls
+    want = {"conv3x3_u8_bias_prelu_q8": calls,
+            "conv3x3_s8_dq_prelu_q8": cfg.num_conv * calls,
+            "head_conv_s8_residual_u8_shuffle": calls}
+    if launches != want:
+        raise AssertionError(f"{cfg} int8 engine batch: launches "
+                             f"{launches}, expected {want}")
+    pdev = srvgg.params_to(params, "cuda")
+    ref = srvgg.apply_int8(pdev, quantize.build_qbody(pdev, cfg, maxima,
+                                                      margin=1.25),
+                           u8[:1], cfg=cfg, plain=True)
+    db = frame_psnr(y[:1], ref)[0]
+    if not db >= WIDTH_INT8_DB:
+        raise AssertionError(f"{cfg} int8 engine batch: frame 0 {db:.2f} dB "
+                             f"against the plain int8 path < "
+                             f"{WIDTH_INT8_DB}")
+    rec = {"launches": launches, "calls": calls,
+           "psnr_db_vs_plain_int8": db, "psnr_floor_db": WIDTH_INT8_DB,
+           "n_diff_vs_plain_int8": int((y[:1] != ref).sum()),
+           "certificate_db": eng.certify_int8(frames),
+           "model_ms_per_batch": cuda_time_ms(lambda: srvgg.apply_int8(
+               eng.params, eng._qbody, u8, cfg=cfg), iters=3)}
+    del pdev, ref
+    if tile_check:
+        eng_t = UpscaleEngine(compute_dtype="int8", tile=TILE,
+                              batch_size=len(frames), preloaded=(cfg, params))
+        eng_t.set_calibration(maxima)
+        kernels.reset_launches()
+        yt = torch.from_numpy(eng_t.upscale_frames(frames)).cuda()
+        torch.cuda.synchronize()
+        n_diff = int((yt != y).sum())
+        if n_diff:
+            raise AssertionError(f"{cfg} int8 --tile {TILE}: n_diff "
+                                 f"{n_diff} against whole frames")
+        rec["tile"] = {"tile": TILE, "n_diff_vs_whole": n_diff,
+                       "calls": eng_t.stats.calls,
+                       "launches": {k: v for k, v in
+                                    kernels.LAUNCHES.items() if v}}
+        del eng_t, yt
+    del eng, y
+    torch.cuda.empty_cache()
+    return rec
 
 
 #: the widths phase's engine batch whose launches each K2 form reports:
@@ -3030,13 +3148,15 @@ WIDTH_K2_MODELS = {(128, 2): "x2_128_default", (96, 3): "x3_96_seeded"}
 
 
 def width_entries(name: str, widths: dict) -> dict:
-    """K3's, K1's or K2's forms at SERVE_WIDTHS for the kernels line:
-    {feat: {dtype: the widths phase's numbers, with source, route, design
-    and launches}}.  launches: in that phase's engine batch of the x4
-    student of that width (K2 at x2 and x3, nested under "x2" and "x3":
-    of the model WIDTH_K2_MODELS names, else 0)."""
+    """K3's, K1's, K2's, K4a's, K4's or K4h's forms at SERVE_WIDTHS for
+    the kernels line: {feat: {dtype: the widths phase's numbers, with
+    source, route, design and launches}}.  launches: in that phase's
+    engine batch of the x4 student of that width (K2 and K4h at x2 and
+    x3, nested under "x2" and "x3": of the model WIDTH_K2_MODELS names,
+    else 0)."""
     src = "reve_tpu_torch/kernels/csrc/" + (
-        "conv3x3.cu" if name == "conv3x3_u8_bias_prelu"
+        "conv3x3.cu" if name.startswith("conv3x3_u8_bias_prelu")
+        else "conv3x3_s8_wide.cuh" if name in INT8_KERNELS
         else "conv3x3_wide.cuh")
     out = {}
     for feat in SERVE_WIDTHS:
@@ -3048,13 +3168,84 @@ def width_entries(name: str, widths: dict) -> dict:
                 return widths["engine"][model][dt]["launches"].get(name, 0) \
                     if model else 0
             e = dict(nums, source=src, route="cuda",
-                     design="wgmma" if dt == "bfloat16" else "wgmma_bf16x6",
+                     design="wgmma_bf16x6" if dt == "float32" else "wgmma",
                      launches=launched(4))
             for r in (2, 3):
                 if f"x{r}" in e:
                     e[f"x{r}"] = dict(e[f"x{r}"], launches=launched(r))
             out[str(feat)][dt] = e
     return out
+
+
+def width_cli_int8(work: str, frames) -> dict:
+    """The default distillation's x2 128-feature student, as its .pth,
+    through `cli.run --dtype int8` on `frames` (its own calibration and
+    certification): exit 0, the output's frame count and size, and the
+    int8 kernels among the job's launches.  Then the same job with
+    `--dtype auto` under REVE_TPU_AUTO_INT8=1: it certifies int8 and
+    resolves int8 at the 50-dB gate or above, else bfloat16, and runs the
+    kernels of what it resolved."""
+    import torch
+
+    from reve_tpu_torch import cli, kernels
+    from reve_tpu_torch.io import reader, writer
+    from reve_tpu_torch.pipeline.state import Workspace
+
+    inp = os.path.join(work, "widths-in.y4m")
+    with writer.Y4MWriter(inp, W, H, fractions.Fraction(24)) as wr:
+        for f in frames:
+            wr.write(f)
+    res = {}
+    for dtype in ("int8", "auto"):
+        out = os.path.join(work, f"widths-{dtype}.y4m")
+        argv = ["-i", inp, "-s", "2", out, "--dtype", dtype,
+                "--io-backend", "y4m", "--weights",
+                os.path.join(work, "default-student.pth"), "-S",
+                str(len(frames)), "--batch", str(len(frames)), "--yes",
+                "--keep-workspace"]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with _env("REVE_TPU_AUTO_INT8", "1" if dtype == "auto" else None):
+            rc = cli.run(argv)
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        rd = reader.Y4MReader(out) if rc == 0 else None
+        shape = (rd.frame_count(), rd.width, rd.height) if rd else None
+        resolved = Workspace(out + ".revework").load_resolution() \
+            if dtype == "auto" else {"dtype": "int8", "db": None}
+        want = "int8" if resolved and resolved["db"] is not None and \
+            resolved["db"] >= 50.0 else "bfloat16"
+        runs = INT8_KERNELS if (resolved or {}).get("dtype") == "int8" \
+            else ("conv3x3_u8_bias_prelu", "head_conv_residual_u8_shuffle")
+        if rc != 0 or shape != (len(frames), 2 * W, 2 * H) or any(
+                not launches.get(k) for k in runs) or (
+                    dtype == "auto" and resolved["dtype"] != want):
+            raise AssertionError(
+                f"default student --dtype {dtype} job: exit {rc}, output "
+                f"{shape}, resolved {resolved}, launches {launches}")
+        res[dtype] = {"argv": argv[4:], "rc": rc, "wall_s": wall,
+                      "output": shape, "resolved": resolved,
+                      "launches": launches}
+    return res
+
+
+@contextlib.contextmanager
+def _env(name: str, value):
+    """The environment variable `name` set to `value` (None: unset) for
+    the block, then restored."""
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
 
 
 def widths_phase(work: str, frames, students: dict) -> dict:
@@ -3083,6 +3274,7 @@ def widths_phase(work: str, frames, students: dict) -> dict:
             name: serve_checks(cfg, params, frames,
                                tile_check=name == "x4_128")
             for name, (cfg, params) in models.items()}
+        rec["cli"] = width_cli_int8(work, frames[:2])
         # refused before any batch, naming the ROADMAP.md item
         rec["refused"] = {}
         for dt, feat in REFUSED:
@@ -3170,10 +3362,11 @@ def main() -> int:
         if p1.get("IGMMA", 0) < P1_IGMMA or p1.get("HGMMA", 0) < P1_HGMMA:
             raise AssertionError(f"{dot_probe.SOURCE}: {p1}, fewer than "
                                  f"IGMMA {P1_IGMMA} and HGMMA {P1_HGMMA}")
-        # no CUDA-core form of K3, K4a, K7 or K7q and no mma.sync form of
-        # P1 is left: every kernel of their libraries holds wgmma
-        for s in (conv3x3.SOURCE, dot_probe.SOURCE, "rrdb.cu",
-                  "rrdb_s8.cu"):
+        # no CUDA-core form of K3, K4a, K4, K4h, K7 or K7q and no
+        # mma.sync form of P1 is left: every kernel of their libraries
+        # holds wgmma
+        for s in (conv3x3.SOURCE, conv3x3_s8.SOURCE, dot_probe.SOURCE,
+                  "rrdb.cu", "rrdb_s8.cu"):
             if rec["sources"][s]["kernels_without_wgmma"]:
                 raise AssertionError(
                     f"{s}: kernels without wgmma: "
@@ -3203,8 +3396,10 @@ def main() -> int:
             for k, n in sorted(build.spills(train.SOURCE).items())}
         print(f"# {train.SOURCE}: HGMMA {tc['hgmma_by_kernel']}; spill "
               f"bytes {tc['spill_bytes_by_kernel']}", flush=True)
-        # K3, K1 and K2 at every width, both dtypes: spills by kernel
-        for s in (conv3x3.SOURCE, conv3x3.TC_SOURCE, conv3x3.F32_SOURCE):
+        # K3, K1 and K2 at every width, both dtypes, and K4a, K4 and K4h:
+        # spills by kernel
+        for s in (conv3x3.SOURCE, conv3x3.TC_SOURCE, conv3x3.F32_SOURCE,
+                  conv3x3_s8.SOURCE):
             by = {kernel_label(k): n
                   for k, n in sorted(build.spills(s).items())}
             rec["sources"][s]["spill_bytes_by_kernel"] = by
@@ -3913,7 +4108,7 @@ def main() -> int:
             "library_ms", "shape") + (("n_diff",) if "n_diff" in nums
                                       else ())})
         entry.update(extra)
-        if name in f32_forms:
+        if name in f32_forms or name in INT8_KERNELS:
             entry["widths"] = width_entries(name, widths)
         if name == "conv3x3_bias_prelu":
             # K1 on the RRDB path: conv_up1 at 2x, conv_up2 and conv_hr at

@@ -30,7 +30,8 @@ SOURCES = ("conv3x3.cu", "conv3x3_tc.cu", "conv3x3_f32_tc.cu",
            "conv3x3_s8.cu", "dot_probe.cu", "tta.cu", "rrdb.cu",
            "rrdb_s8.cu", "conv_last_f32.cu", "conv3x3_train_tc.cu",
            "color.cu")
-HEADERS = ("common.cuh", "tc.cuh", "conv3x3_wide.cuh")
+HEADERS = ("common.cuh", "tc.cuh", "conv3x3_wide.cuh",
+           "conv3x3_s8_wide.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]

@@ -37,11 +37,13 @@ buffers.
 `bound_ms` in chip_smoke.py is computed from each run's own shapes.
 
 Widths.  K3, K1 and K2 take an SRVGG of any of WIDTHS (32, 64, 96, 128)
-features in bfloat16 and float32; K4a (and K4, K4h) 64 only.  At 64 they
-run the kernels above.  K3 at Cout F is its template's C (the row's GEMM
-in chunks of 64 output channels, or 32 where F is not a multiple of 64;
-the output staged and stored as boxes of 64 bf16 channels in the 128-B
-swizzle, 32 bf16 channels in the 64-B swizzle, or 32 float32 channels).
+features in bfloat16 and float32, and K4a (with K4 and K4h,
+kernels/conv3x3_s8.py) in int8.  At 64 they run the kernels above.  K3
+and K4a at Cout F are their template's C (the row's GEMM in chunks of 64
+output channels, or 32 where F is not a multiple of 64; the output staged
+and stored as boxes of 64 bf16 channels in the 128-B swizzle, 32 bf16
+channels in the 64-B swizzle, 32 float32 channels, or K4a's 64 s8
+channels in the 64-B swizzle and 32 in the 32-B).
 K1 and K2 at 32, 96 and 128 run csrc/conv3x3_wide.cuh's template: the
 halo and the weights stream in units of 32 input channels (a TMA box of
 32 channels in the 64-B swizzle, two slots; the unit's nine taps of
@@ -75,11 +77,13 @@ TC_SOURCE = "conv3x3_tc.cu"
 F32_SOURCE = "conv3x3_f32_tc.cu"
 #: (rows, columns) of those kernels' output tile (TH, TW in TC_SOURCE)
 TC_TILE = (4, 64)
-#: the channels of the int8 forms (K4a, K4, K4h) and of RRDB's convs
+#: the channels of the 64-feature kernels and of RRDB's convs
 FEAT = 64
-#: the SRVGG widths (num_feat) K3, K1 and K2 take in bfloat16 and float32:
-#: FEAT in the 64-feature kernels, the others in csrc/conv3x3_wide.cuh's
-#: (K1, K2) and K3's template at their Cout
+#: the SRVGG widths (num_feat) the kernels take: K3, K1 and K2 in
+#: bfloat16 and float32, K4a, K4 and K4h in int8; FEAT in the 64-feature
+#: kernels, the others in csrc/conv3x3_wide.cuh's (K1, K2),
+#: csrc/conv3x3_s8_wide.cuh's (K4, K4h) and K3's template at their Cout
+#: (K3, K4a)
 WIDTHS = (32, 64, 96, 128)
 #: input channels of a unit of the wide forms (CK in conv3x3_wide.cuh):
 #: their halo and weights stream unit by unit
@@ -397,9 +401,9 @@ def conv3x3_bias_prelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _launch_u8(entry: str, u8, w, b, alpha, inv=None) -> torch.Tensor:
-    """K3 (inv None: at w's Cout) or K4a (64 channels): the launch of
-    `entry` of csrc/conv3x3.cu in w's dtype (the kernel packs the HWIO
-    weights itself)."""
+    """K3 (inv None) or K4a at w's Cout: the launch of `entry` of
+    csrc/conv3x3.cu in w's dtype (the kernel packs the HWIO weights
+    itself)."""
     B, H, W, _ = u8.shape
     cout = w.shape[-1]
     y = torch.empty((B, H, W, cout),
@@ -407,12 +411,9 @@ def _launch_u8(entry: str, u8, w, b, alpha, inv=None) -> torch.Tensor:
                     device=u8.device)
     bb, aa = _bias_alpha(b, alpha, w.dtype, u8.device, cout)
     ins = [u8, w, bb, aa]
-    ints = (_DTYPE_CODE[w.dtype],)
     if inv is not None:
         ins.append(f32_operand(inv, 1, u8.device, "inv (1 / scale)"))
-    else:
-        ints += (cout,)
-    _launch(SOURCE, entry, ins, y, ints)
+    _launch(SOURCE, entry, ins, y, (_DTYPE_CODE[w.dtype], cout))
     return y
 
 
@@ -435,11 +436,13 @@ def conv3x3_u8_bias_prelu_q8(u8: torch.Tensor, w: torch.Tensor,
                              b: torch.Tensor, alpha: torch.Tensor,
                              inv: torch.Tensor) -> torch.Tensor:
     """K4a: K3, then the s8 quantize of its PReLU output ->
-    clip(round(float32(h) * inv), +-127) (B, H, W, 64) int8.  `inv`: one
-    float32 value, 1 / act_scale[0]."""
+    clip(round(float32(h) * inv), +-127) (B, H, W, F) int8, F one of
+    WIDTHS.  `inv`: one float32 value, 1 / act_scale[0]."""
     if u8.device.type == "cpu":
         return conv3x3_u8_bias_prelu_q8_plain(u8, w, b, alpha, inv)
-    _check(u8, w, 3, torch.uint8)
+    feat = w.shape[-1] if w.dim() == 4 else FEAT
+    check_width(feat, "K4a")
+    _check(u8, w, 3, torch.uint8, cout=feat)
     y = _launch_u8("reve_conv3x3_u8_bias_prelu_q8", u8, w, b, alpha, inv)
     LAUNCHES["conv3x3_u8_bias_prelu_q8"] += 1
     return y

@@ -38,15 +38,17 @@
 // three, hi.hi in its own accumulators, as conv3x3_f32_tc.cu does: the
 // tensor cores add in their own order and may truncate).  One template
 // serves the four kernels (K3 and K4a, each in both compute dtypes).
-//  * K3 takes the SRVGG's num_feat C of 32, 64, 96 or 128 output channels
-//    (the template's C; K4a and K3 at Cin 12 run at 64): the row's GEMM
+//  * K3 and K4a take the SRVGG's num_feat C of 32, 64, 96 or 128 output
+//    channels (the template's C; K3 at Cin 12 runs at 64): the row's GEMM
 //    runs in chunks of NC = 64 output channels (32 where C is not a
 //    multiple of 64: m64n32k16), the A fragments read again from the
 //    staged halo for each, and the output row is staged and stored as
 //    C / BOX_C boxes (64 bf16 channels in the 128-B swizzle, 32 bf16 in
-//    the 64-B swizzle at C 32 and 96, 32 float32 in the 128-B).  The
+//    the 64-B swizzle at C 32 and 96, 32 float32 in the 128-B; K4a's s8
+//    64 channels in the 64-B swizzle, 32 in the 32-B at C 32 and 96).  The
 //    numbers below are C = 64's; per call of 4 1080p frames K3's bound in
-//    bfloat16 is 0.159, 0.475 and 0.634 ms at 32, 96 and 128 (bytes).
+//    bfloat16 is 0.159, 0.475 and 0.634 ms at 32, 96 and 128, K4a's 0.087,
+//    0.245 and 0.324 ms (bytes).
 //  * The template's R is the unshuffle factor (Geo<R, TH>): 1 for K3 and
 //    K4a (Cin 3), 2 for K3 at Cin 12, whose halo is read in place from
 //    the x2 frame (2 u8 rows of 132 pixels for each unshuffled row of
@@ -164,8 +166,8 @@ struct Geo {
 };
 
 // T: the compute dtype (bf16 or float); TOut: T for K3, int8_t for K4a;
-// R: the unshuffle factor (Geo); C: the output channels (K3: the SRVGG's
-// num_feat, 32, 64, 96 or 128; K4a and K3 at Cin 12: 64).
+// R: the unshuffle factor (Geo); C: the output channels (K3 and K4a: the
+// SRVGG's num_feat, 32, 64, 96 or 128; K3 at Cin 12: 64).
 template <typename T, typename TOut, int R = 1, int C = 64>
 struct U8 {
   // the row's GEMM runs in chunks of NC output channels, one wgmma N each
@@ -193,27 +195,30 @@ struct U8 {
   static constexpr size_t SMEM = OFF_ZEROS + 16;
   // the output's tensor map: channels a box holds (128-B rows: 64 bf16,
   // 32 float32; 64-B rows: 64 s8, and 32 bf16 where C is not a multiple
-  // of 64), its swizzle, and the boxes of a staged row
+  // of 64; 32-B rows: 32 s8 where C is not a multiple of 64), its
+  // swizzle, and the boxes of a staged row
   static constexpr int BOX_C =
-      F32 && !Q8 ? 32 : (Q8 || C % 64 == 0 ? 64 : 32);
+      F32 && !Q8 ? 32 : (C % 64 == 0 ? 64 : 32);
   static constexpr int BOX_ROW = BOX_C * (int)sizeof(TOut);  // bytes
   static constexpr int NBOX = C / BOX_C;
   static constexpr CUtensorMapSwizzle SWIZZLE =
-      BOX_ROW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+      BOX_ROW == 32   ? CU_TENSOR_MAP_SWIZZLE_32B
+      : BOX_ROW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                      : CU_TENSOR_MAP_SWIZZLE_128B;
   static constexpr CUtensorMapDataType MAP_TYPE =
       Q8    ? CU_TENSOR_MAP_DATA_TYPE_UINT8
       : F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   // blocks on each SM: the registers must allow them, and no more run
   // (R = 1: the fastest counts on an H100 SXM; perf_conv_tc_parts times
-  // one fewer and one more; R = 2: what its A fragments' registers allow,
-  // 84 of them in float32)
-  static constexpr int BLOCKS =
+  // one fewer and one more; K4a at C other than 64 K3's, whose bias and
+  // alpha registers grow with C; R = 2: what its A fragments' registers
+  // allow, 84 of them in float32)
+  static constexpr int BLOCKS = Q8 && C != 64 ? (F32 ? 2 : 4) :
       R == 1 ? (F32 ? (Q8 ? 3 : 2) : (Q8 ? 6 : 4)) : (F32 ? 2 : 3);
   static_assert(OFF_HALO % 16 == 0 && OFF_TABLE % 16 == 0,
                 "16-B aligned halo reads");
-  static_assert(C == 64 || (R == 1 && !Q8),
-                "K4a and K3 at Cin 12 take 64 output channels");
+  static_assert(C == 64 || R == 1, "K3 at Cin 12 takes 64 output channels");
 };
 
 // The persistent walk over tiles of TH rows of 64 pixels, x fastest:
@@ -525,12 +530,22 @@ __device__ __forceinline__ void epilogue(
         v[0] = __uint_as_float(hb << 16);
         v[1] = __uint_as_float(hb & 0xFFFF0000u);
       }
-      if constexpr (U::Q8) {
-        // 64-B rows; 16-B chunk c of pixel p at chunk c ^ ((p / 2) % 4)
+      if constexpr (U::Q8 && U::BOX_C == 64) {
+        // boxes of 64 channels, 64-B rows; 16-B chunk c of pixel p at
+        // chunk c ^ ((p / 2) % 4)
         *reinterpret_cast<uint16_t*>(
-            st + p * 64 + (((j >> 1) ^ ((p >> 1) & 3)) << 4) + 8 * (j & 1) +
-            2 * q) = (uint16_t)__byte_perm(quant_bits(v[0], inv),
-                                           quant_bits(v[1], inv), 0x40);
+            st + (j >> 3) * (TW * 64) + p * 64 +
+            ((((j >> 1) & 3) ^ ((p >> 1) & 3)) << 4) + 8 * (j & 1) + 2 * q) =
+            (uint16_t)__byte_perm(quant_bits(v[0], inv),
+                                  quant_bits(v[1], inv), 0x40);
+      } else if constexpr (U::Q8) {
+        // boxes of 32 channels, 32-B rows; chunk c of pixel p at chunk c ^
+        // ((p / 4) % 2)
+        *reinterpret_cast<uint16_t*>(
+            st + (j >> 2) * (TW * 32) + p * 32 +
+            ((((j >> 1) & 1) ^ ((p >> 2) & 1)) << 4) + 8 * (j & 1) + 2 * q) =
+            (uint16_t)__byte_perm(quant_bits(v[0], inv),
+                                  quant_bits(v[1], inv), 0x40);
       } else if constexpr (U::F32) {
         // boxes of 32 channels, each 128-B rows; chunk c of pixel p at
         // chunk c ^ (p % 8)
@@ -724,16 +739,40 @@ cudaError_t launch(const void* x, const void* w, const float* b,
   return cudaGetLastError();
 }
 
-template <int C>
-cudaError_t launch_k3(const void* x, const void* w, const float* b,
-                      const float* alpha, void* y, int B, int H, int W,
-                      int dtype, cudaStream_t s) {
+// K3 (Q8 false: the output in the compute dtype) or K4a (Q8: s8) at C
+// output channels, in the compute dtype `dtype` (0 = float32, 1 =
+// bfloat16).
+template <bool Q8, int C>
+cudaError_t launch_c(const void* x, const void* w, const float* b,
+                     const float* alpha, const float* inv, void* y, int B,
+                     int H, int W, int dtype, cudaStream_t s) {
+  using OutBf16 = typename std::conditional<Q8, int8_t, bf16>::type;
+  using OutF32 = typename std::conditional<Q8, int8_t, float>::type;
   if (dtype == 1)
-    return launch<bf16, bf16, 1, C>(x, w, b, alpha, nullptr, y, B, H, W, s);
+    return launch<bf16, OutBf16, 1, C>(x, w, b, alpha, inv, y, B, H, W, s);
   if (dtype == 0)
-    return launch<float, float, 1, C>(x, w, b, alpha, nullptr, y, B, H, W,
-                                      s);
+    return launch<float, OutF32, 1, C>(x, w, b, alpha, inv, y, B, H, W, s);
   return cudaErrorInvalidValue;
+}
+
+// ... at `feat` (32, 64, 96 or 128) output channels.
+template <bool Q8>
+int launch_feat(const void* x, const void* w, const float* b,
+                const float* alpha, const float* inv, void* y, int B, int H,
+                int W, int dtype, int feat, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (feat) {
+    case 32:
+      return (int)launch_c<Q8, 32>(x, w, b, alpha, inv, y, B, H, W, dtype, s);
+    case 64:
+      return (int)launch_c<Q8, 64>(x, w, b, alpha, inv, y, B, H, W, dtype, s);
+    case 96:
+      return (int)launch_c<Q8, 96>(x, w, b, alpha, inv, y, B, H, W, dtype, s);
+    case 128:
+      return (int)launch_c<Q8, 128>(x, w, b, alpha, inv, y, B, H, W, dtype,
+                                    s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -746,31 +785,21 @@ extern "C" int reve_conv3x3_u8_bias_prelu(const void* x, const void* w,
                                           const float* b, const float* alpha,
                                           void* y, int B, int H, int W,
                                           int dtype, int feat, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (feat) {
-    case 32: return (int)launch_k3<32>(x, w, b, alpha, y, B, H, W, dtype, s);
-    case 64: return (int)launch_k3<64>(x, w, b, alpha, y, B, H, W, dtype, s);
-    case 96: return (int)launch_k3<96>(x, w, b, alpha, y, B, H, W, dtype, s);
-    case 128:
-      return (int)launch_k3<128>(x, w, b, alpha, y, B, H, W, dtype, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_feat<false>(x, w, b, alpha, nullptr, y, B, H, W, dtype, feat,
+                            stream);
 }
 
 // K4a: K3 with the s8 quantize epilogue; `inv` is a device pointer to
-// float32(1 / act_scale[0]).
+// float32(1 / act_scale[0]); feat: the output channels, 32, 64, 96 or
+// 128.
 extern "C" int reve_conv3x3_u8_bias_prelu_q8(const void* x, const void* w,
                                              const float* b,
                                              const float* alpha,
                                              const float* inv, void* y, int B,
                                              int H, int W, int dtype,
-                                             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return (int)launch<bf16, int8_t>(x, w, b, alpha, inv, y, B, H, W, s);
-  if (dtype == 0)
-    return (int)launch<float, int8_t>(x, w, b, alpha, inv, y, B, H, W, s);
-  return (int)cudaErrorInvalidValue;
+                                             int feat, void* stream) {
+  return launch_feat<true>(x, w, b, alpha, inv, y, B, H, W, dtype, feat,
+                           stream);
 }
 
 // K3 at Cin 12: RRDB x2's conv_first over the 2x2-unshuffled frame, read

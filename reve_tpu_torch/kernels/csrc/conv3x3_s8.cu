@@ -64,6 +64,12 @@
 //    conversion took a fifth off K4; K4h's epilogue reads the residual
 //    bases once per pixel and colour and clips as one saturating
 //    conversion (common.cuh).
+//
+// At 32, 96 and 128 features K4 and K4h are conv3x3_s8_wide.cuh's
+// template (the halo streamed in units of 32 input channels), instantiated
+// here behind their own entry points (the *_wide ones at the end); the
+// 64-feature kernels above are unchanged.
+#include "conv3x3_s8_wide.cuh"
 #include "tc.cuh"
 
 namespace {
@@ -331,4 +337,28 @@ extern "C" int reve_head_conv_s8_residual_u8_shuffle_tc(
                             H, W, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// K4 at `feat` (32, 96, 128) input and output channels
+// (conv3x3_s8_wide.cuh).  `wp`: the weights packed as [unit][tap][k /
+// 16][n][16] s8 (kernels/conv3x3_s8.py pack_weights_s8_wide).  Returns a
+// cudaError_t (0 = success).
+extern "C" int reve_conv3x3_s8_dq_prelu_q8_wide(
+    const void* x, const void* wp, const float* scale, const float* bias,
+    const float* alpha, const float* inv_next, void* y, int B, int H, int W,
+    int feat, void* stream) {
+  return (int)reve::s8wide::k4(x, wp, scale, bias, alpha, inv_next, y, B, H,
+                               W, feat, static_cast<cudaStream_t>(stream));
+}
+
+// K4h at `feat` (32, 96, 128) input channels and r in {2, 3, 4}
+// (conv3x3_s8_wide.cuh).  `wp`: packed as K4's at that width, n padded
+// with zeros to 3r^2 rounded up to a multiple of 8.  Returns a cudaError_t
+// (0 = success).
+extern "C" int reve_head_conv_s8_residual_u8_shuffle_wide_tc(
+    const void* x, const void* wp, const float* scale, const float* b,
+    const uint8_t* orig, uint8_t* out, int B, int H, int W, int feat, int r,
+    void* stream) {
+  return (int)reve::s8wide::k4h(x, wp, scale, b, orig, out, B, H, W, feat, r,
+                                static_cast<cudaStream_t>(stream));
 }

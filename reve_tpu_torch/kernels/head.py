@@ -36,8 +36,11 @@ At 32, 96 and 128 features (Cin F) K2 in both dtypes is
 csrc/conv3x3_wide.cuh's template at R = 2, 3, 4 (the halo and weights
 streamed in units of 32 input channels; the same HeadEpilogue), its
 weights packed by conv3x3.pack_weights_wide; bound per call of 4 1080p
-frames at r = 4 in bf16 0.232, 0.696 and 0.927 ms (operations).  K4h,
-conv_last and K2's conv_last mode take 64 channels only.
+frames at r = 4 in bf16 0.232, 0.696 and 0.927 ms (operations).  K4h
+there is csrc/conv3x3_s8_wide.cuh's template at R = 2, 3, 4 (its weights
+packed by conv3x3_s8.pack_weights_s8_wide; the same HeadEpilogue); bound
+at r = 4 0.206 and 0.364 ms at 32 and 96 (bytes), 0.464 ms at 128
+(operations).  conv_last and K2's conv_last mode take 64 channels only.
 
 Rounding points follow the JAX reference: float32 accumulation + b in
 float32, cast to the compute dtype, + repeat(u8 / 255, r^2) in float32,
@@ -66,7 +69,8 @@ from reve_tpu_torch.kernels.conv3x3 import (F32_SOURCE, FEAT, TC_SOURCE,
                                             pack_weights_wide, split_bf16x3)
 from reve_tpu_torch.kernels.conv3x3_s8 import (SOURCE as S8_SOURCE,
                                                conv3x3_s8_plain,
-                                               pack_weights_s8)
+                                               pack_weights_s8,
+                                               pack_weights_s8_wide)
 from reve_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -221,23 +225,32 @@ def head_conv_s8_residual_u8_shuffle(x8: torch.Tensor, w8: torch.Tensor,
                                      scale: torch.Tensor, b: torch.Tensor,
                                      u8: torch.Tensor,
                                      r: int) -> torch.Tensor:
-    """K4h: int8 head conv (B, H, W, 64) int8 x (3, 3, 64, 3r^2) int8 HWIO,
-    dequantized with `scale` = act_scale[n] * sw_last and `b` (3r^2
-    float32 each), + the u8 residual epilogue -> (B, H*r, W*r, 3) uint8."""
+    """K4h: int8 head conv (B, H, W, F) int8 x (3, 3, F, 3r^2) int8 HWIO, F
+    one of conv3x3.WIDTHS, dequantized with `scale` = act_scale[n] *
+    sw_last and `b` (3r^2 float32 each), + the u8 residual epilogue -> (B,
+    H*r, W*r, 3) uint8.  F = 64 runs the 64-feature kernel, the other
+    widths the wide form (csrc/conv3x3_s8_wide.cuh)."""
     if x8.device.type == "cpu":
         return head_conv_s8_residual_u8_shuffle_plain(x8, w8, scale, b, u8,
                                                       r)
     if x8.dtype != torch.int8 or w8.dtype != torch.int8:
         raise TypeError(f"K4h takes int8 activations and weights, got "
                         f"{x8.dtype} / {w8.dtype}")
-    _check_head(x8, w8, u8, r)
+    feat = x8.shape[-1] if x8.dim() == 4 else FEAT
+    check_width(feat, "K4h")
+    _check_head(x8, w8, u8, r, feat)
     B, H, W, _ = x8.shape
     ss = f32_operand(scale, 3 * r * r, x8.device, "scale")
     bb = f32_operand(b, 3 * r * r, x8.device, "bias")
     out = torch.empty((B, H * r, W * r, 3), dtype=torch.uint8,
                       device=x8.device)
-    _launch(S8_SOURCE, "reve_head_conv_s8_residual_u8_shuffle_tc",
-            (x8, pack_weights_s8(w8), ss, bb), u8, out, (r,),
-            "head_conv_s8_residual_u8_shuffle")
+    what = "head_conv_s8_residual_u8_shuffle"
+    if feat == FEAT:
+        _launch(S8_SOURCE, "reve_head_conv_s8_residual_u8_shuffle_tc",
+                (x8, pack_weights_s8(w8), ss, bb), u8, out, (r,), what)
+    else:
+        _launch(S8_SOURCE, "reve_head_conv_s8_residual_u8_shuffle_wide_tc",
+                (x8, pack_weights_s8_wide(w8), ss, bb), u8, out, (feat, r),
+                what)
     LAUNCHES["head_conv_s8_residual_u8_shuffle"] += 1
     return out

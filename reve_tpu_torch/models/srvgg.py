@@ -21,7 +21,9 @@ num_feat the kernels take on the card (kernels.conv3x3.WIDTHS: 32, 64,
 96, 128); on CPU tensors each kernel wrapper runs its plain PyTorch
 version (any width), and `plain=True` runs the plain versions on any
 device (the reference path).  `apply_int8` is the int8 turbo path on
-K4a, K4 and K4h (64 features on the card).  `apply_float`
+K4a, K4 and K4h, at the same widths on the card (each wrapper takes the
+width of its operands: the 64-feature kernels at 64, the wide forms at
+32, 96 and 128).  `apply_float`
 is the float32 forward that training differentiates, on T1 (and, under
 autograd, T2 and T3 in the backward).
 """

@@ -46,16 +46,15 @@ Counterpart of reve_tpu/pipeline/engine.py.  Design:
     frames, even tile and halo), as the unshuffle needs; odd ones raise,
     as reve_tpu's pixel_unshuffle raises.
 
-  * SRVGG widths: on the card K3, K1 and K2 take an SRVGG of 32, 64, 96
-    or 128 features (kernels.conv3x3.WIDTHS) in bfloat16 and float32, the
-    widths the JAX package's own distillation makes (its default student
-    has 128); the int8 forms K4a, K4 and K4h take 64.
+  * SRVGG widths: on the card K3, K1 and K2 (bfloat16 and float32) and
+    K4a, K4 and K4h (int8) take an SRVGG of 32, 64, 96 or 128 features
+    (kernels.conv3x3.WIDTHS), the widths the JAX package's own
+    distillation makes (its default student has 128).
 
 Not ported yet (raises NotImplementedError naming its ROADMAP.md
 port-queue item): multi-device meshes, RRDB x1, and on the card an SRVGG
-of another width, or int8 at a width other than 64
-(`check_serving_width`).  The CPU's plain path serves every width in
-every dtype.
+of another width (`check_serving_width`).  The CPU's plain path serves
+every width in every dtype.
 """
 
 from __future__ import annotations
@@ -89,7 +88,8 @@ _PLAN_INFLIGHT_SETS = 2
 #: input and output (K1 writes a fresh tensor; the input is freed after)
 _ACT_BUFFERS = 2
 #: bytes a float32 conv adds per value of its input: the three bf16
-#: planes of the split pass (float32 K1, K2 and K7)
+#: planes of the split pass (float32 K1, K2 and K7), live beside the
+#: conv's input and output
 _SPLIT_BYTES = 6
 #: RRDB's tile halo: reve_tpu's documented approximation (24 px of
 #: context; the true receptive field spans hundreds of pixels)
@@ -130,30 +130,36 @@ def _not_ported(what: str, item: str,
 
 
 class WidthNotServed(NotImplementedError):
-    """An SRVGG width (or int8 at a width) the card's kernels do not take:
-    raised before any batch, naming SERVING_WIDTHS_ITEM."""
+    """An SRVGG width the card's kernels do not take: raised before any
+    batch, naming SERVING_WIDTHS_ITEM."""
 
 
-def check_serving_width(cfg, device: torch.device,
-                        int8: bool = False) -> None:
+def check_serving_width(cfg, device: torch.device) -> None:
     """Raise WidthNotServed, for a CUDA device, on an SRVGG whose num_feat
-    is not one of the WIDTHS that K3, K1 and K2 take in bfloat16 and
-    float32 (kernels/conv3x3.py), or, with `int8`, not the FEAT (64) that
-    K4a, K4 and K4h take: before the first batch, not deep in a kernel.
-    The plain path on the CPU serves any width in any dtype."""
+    is not one of the WIDTHS that the inference kernels take
+    (kernels/conv3x3.py: K3, K1 and K2 in bfloat16 and float32, K4a, K4
+    and K4h in int8): before the first batch, not deep in a kernel.  The
+    plain path on the CPU serves any width in any dtype."""
     if device.type != "cuda" or not isinstance(cfg, srvgg.SRVGGConfig):
         return
     if cfg.num_feat not in conv3x3.WIDTHS:
         raise _not_ported(
             f"serving an SRVGG of {cfg.num_feat} features on the card (its "
-            f"inference kernels K3, K1 and K2 take "
+            f"inference kernels K3, K1, K2, K4a, K4 and K4h take "
             f"{', '.join(map(str, conv3x3.WIDTHS))})",
             SERVING_WIDTHS_ITEM, WidthNotServed)
-    if int8 and cfg.num_feat != conv3x3.FEAT:
-        raise _not_ported(
-            f"serving an SRVGG of {cfg.num_feat} features in int8 on the "
-            f"card (its int8 kernels K4a, K4 and K4h take "
-            f"{conv3x3.FEAT})", SERVING_WIDTHS_ITEM, WidthNotServed)
+
+
+def srvgg_act_bytes(h: int, w: int, num_feat: int,
+                    dtype: torch.dtype) -> int:
+    """Peak device bytes of one (h, w) frame's activations in srvgg.apply
+    (or, at `dtype` int8, apply_int8) on the card: a hidden layer's input
+    and output, _ACT_BUFFERS tensors of num_feat values in `dtype` (s8
+    from K4a on in int8), and in float32 the three bf16 split planes of
+    the input (_SPLIT_BYTES a value) that the split pass writes for K1
+    and K2 and that live until the conv returns."""
+    split = _SPLIT_BYTES if dtype == torch.float32 else 0
+    return h * w * num_feat * (dtype.itemsize * _ACT_BUFFERS + split)
 
 
 @dataclasses.dataclass
@@ -305,7 +311,7 @@ class UpscaleEngine:
             raise TypeError(f"unknown model config {type(cfg).__name__}")
         if self._rrdb:
             rrdb.check_cfg(cfg)  # x1 raises, naming its ROADMAP.md item
-        check_serving_width(cfg, self.device, self._int8)
+        check_serving_width(cfg, self.device)
         self.cfg = cfg
         #: the float32 params that int8 calibration, quantization and
         #: certification read (None off int8)
@@ -353,9 +359,6 @@ class UpscaleEngine:
 
     # -- memory plan -------------------------------------------------------
 
-    def _bpe(self) -> int:
-        return torch.finfo(self.compute_dtype).bits // 8
-
     def _in_bytes(self, h: int, w: int) -> int:
         return h * w * 3
 
@@ -376,12 +379,13 @@ class UpscaleEngine:
         kernels keep everything else on chip: K2 and K4h write u8 straight
         from the head conv, with no float32 epilogue tensor, and an int8
         engine's activations are s8 (1 byte) from K4a on.  RRDB bills its
-        own allocations (_rrdb_bytes)."""
+        own allocations (_rrdb_bytes), SRVGG srvgg_act_bytes."""
         if self._rrdb:
             act = self._rrdb_bytes(h, w)
         else:
-            bpe = 1 if self._int8 else self._bpe()
-            act = h * w * self.cfg.num_feat * bpe * _ACT_BUFFERS
+            act = srvgg_act_bytes(
+                h, w, self.cfg.num_feat,
+                torch.int8 if self._int8 else self.compute_dtype)
         return act + self._in_bytes(h, w) + self._out_bytes(h, w) \
             + self._planes_bytes(h, w)
 

@@ -289,8 +289,8 @@ def resolve_auto_dtype(make_engine, workspace: Workspace, state: JobState,
     try:
         engine = make_engine("int8", state.opts.get("int8_calib", "p99.9"))
     except WidthNotServed:
-        # an SRVGG whose int8 kernels the card lacks: refused, as --dtype
-        # int8 is, not served in bfloat16 instead
+        # an SRVGG width the card's kernels do not take: refused, as
+        # --dtype int8 is, not served in bfloat16 instead
         raise
     except (ValueError, NotImplementedError) as e:
         # an architecture without a (ported) int8 path

@@ -1,17 +1,23 @@
-"""K3, K1 and K2 at the SRVGG widths, per call of the main path's batch.
+"""K3, K1 and K2 (and in int8 K4a, K4 and K4h) at the SRVGG widths, per
+call of the main path's batch.
 
     python -m reve_tpu_torch.scripts.perf_conv_widths [--widths 32 64 96 128]
-        [--dtypes bfloat16 float32] [--scales 2 3 4] [--iters N]
+        [--dtypes bfloat16 float32 int8] [--scales 2 3 4] [--iters N]
 
 At a batch of 4 frames of 1920 x 1080 with seeded inputs (made on the
 card): K3 on the u8 frames (3 -> F), K1 over F channels (F -> F) and K2
 at each scale (F -> 3r^2 with the u8 residual and the shuffle), each
 through its wrapper as the model calls it (float32 K1 and K2 with their
 split pass), and the whole model (`srvgg.apply`, u8 -> u8, F features,
-16 convs, x4, seeded init).  For each form it prints its time a call
-(CUDA events over `--iters` calls after one warm-up call) and the sha256
-of its output, so two checkouts' outputs can be compared bit for bit;
-then nvidia-smi's name and power limit.  One JSON line.
+16 convs, x4, seeded init).  `--dtypes int8` (or `--dtype int8`) times
+the int8 forms instead: K4a on the u8 frames (3 -> F, bfloat16 compute,
+s8 out), K4 over F s8 channels and K4h at each scale, on seeded codes
+and weights, and the int8 model (`srvgg.apply_int8` with the same seeded
+init, quantized from the float32 calibration statistic of its first
+frame).  For each form it prints its time a call (CUDA events over
+`--iters` calls after one warm-up call) and the sha256 of its output, so
+two checkouts' outputs can be compared bit for bit; then nvidia-smi's
+name and power limit.  One JSON line.
 
 The parent's kernels: run this file by path with PYTHONPATH at a `git
 archive` of the parent (a parent without the wide forms takes `--widths
@@ -29,8 +35,9 @@ import sys
 
 import torch
 
-from reve_tpu_torch.kernels import conv3x3, head
+from reve_tpu_torch.kernels import conv3x3, conv3x3_s8, head
 from reve_tpu_torch.models import srvgg
+from reve_tpu_torch.weights import quantize
 
 H, W, FRAMES = 1080, 1920, 4
 #: the SRVGG widths timed by default (kernels.conv3x3.WIDTHS)
@@ -89,11 +96,58 @@ def forms(feat: int, dtype: torch.dtype, scales, seed: int = 0) -> dict:
     return calls
 
 
+def int8_forms(feat: int, scales, seed: int = 0) -> dict:
+    """name -> the call of each int8 form at `feat` features, on seeded
+    inputs: s8 codes and weights uniform in [-127, 127], K4's scale
+    2e-6..2e-5 and K4h's 1e-8..1e-7 (sums of 9 F codes' products land
+    on many codes), inv 1 / 0.02; K4a's bf16 weights as K3's."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed * 1000 + feat + 7)
+
+    def unif(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    def codes(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    u8 = torch.randint(0, 256, (FRAMES, H, W, 3), generator=gen, device=dev,
+                       dtype=torch.uint8)
+    x8 = codes((FRAMES, H, W, feat))
+    b0 = 1 / 27 ** 0.5
+    w3 = unif((3, 3, 3, feat), -b0, b0).to(torch.bfloat16)
+    w8 = codes((3, 3, feat, feat))
+    b, a = unif((feat,), -0.1, 0.1), unif((feat,), 0.05, 0.4)
+    scale = unif((feat,), 2e-6, 2e-5)
+    inv = torch.tensor([1 / 0.02], device=dev)
+    calls = {
+        "k4a": lambda: conv3x3.conv3x3_u8_bias_prelu_q8(u8, w3, b, a, inv),
+        "k4": lambda: conv3x3_s8.conv3x3_s8_dq_prelu_q8(x8, w8, scale, b,
+                                                        a, inv),
+    }
+    for r in scales:
+        wh = codes((3, 3, feat, 3 * r * r))
+        sh, bh = unif((3 * r * r,), 1e-8, 1e-7), unif((3 * r * r,), -0.1,
+                                                      0.1)
+        calls[f"k4h_x{r}"] = (lambda wh=wh, sh=sh, bh=bh, r=r:
+                              head.head_conv_s8_residual_u8_shuffle(
+                                  x8, wh, sh, bh, u8, r))
+    cfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=16, upscale=4)
+    params = srvgg.params_to(srvgg.init_params(
+        cfg, torch.Generator().manual_seed(feat)), dev)
+    maxima = quantize.collect_act_maxima(params, u8[:1], cfg=cfg,
+                                         percentile=99.9)
+    qb = quantize.build_qbody(params, cfg, maxima, margin=1.25)
+    calls["model"] = lambda: srvgg.apply_int8(params, qb, u8, cfg=cfg)
+    return calls
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--widths", type=int, nargs="+", default=list(WIDTHS))
-    p.add_argument("--dtypes", nargs="+", default=["bfloat16", "float32"],
-                   choices=["bfloat16", "float32"])
+    p.add_argument("--dtypes", "--dtype", nargs="+",
+                   default=["bfloat16", "float32"],
+                   choices=["bfloat16", "float32", "int8"])
     p.add_argument("--scales", type=int, nargs="+", default=[2, 3, 4])
     p.add_argument("--iters", type=int, default=10)
     args = p.parse_args(argv)
@@ -102,7 +156,8 @@ def main(argv=None) -> dict:
     res = {}
     for feat in args.widths:
         for name in args.dtypes:
-            calls = forms(feat, getattr(torch, name), args.scales)
+            calls = int8_forms(feat, args.scales) if name == "int8" \
+                else forms(feat, getattr(torch, name), args.scales)
             for form, fn in calls.items():
                 out = fn()
                 res[f"{form}_f{feat}_{name}"] = {

@@ -325,12 +325,61 @@ def test_chunked_submit_is_exact():
 
 def test_frame_bytes_counts_what_the_kernels_keep():
     mine, _ = _pair(batch_size=1, r=2)
-    # 2 hidden buffers of 16 float32 channels + 3 u8 in + 12 u8 out
-    assert mine._frame_bytes(10, 10) == 100 * (2 * 16 * 4 + 3 + 12)
+    # 2 hidden buffers of 16 float32 channels + the three bf16 split
+    # planes of the conv's input (6 B a value) + 3 u8 in + 12 u8 out
+    assert mine._frame_bytes(10, 10) == 100 * (2 * 16 * 4 + 16 * 6 + 3
+                                               + 12)
     bf = UpscaleEngine(device="cpu", compute_dtype="bfloat16",
                        preloaded=(mine.cfg, srvgg.init_params(mine.cfg)))
     assert bf._frame_bytes(10, 10) == 100 * (2 * 16 * 2 + 3 + 12)
     assert engine_mod._PLAN_INFLIGHT_SETS >= 1
+
+
+def _srvgg_f32_call_bytes(params, cfg, u8):
+    """The activation bytes srvgg.apply's float32 path holds at its peak
+    on the card, replayed on the CPU with the tensors its kernels allocate
+    (each the shape and dtype of the plain version's result): K3's output;
+    at each K1 its input, the split pass's three bf16 planes of it
+    (conv3x3.split_bf16x3) and its output; at K2 its input and the input's
+    planes (K2's u8 output is the frame's own, billed apart)."""
+    from reve_tpu_torch.kernels import conv3x3
+
+    c, p = params["convs"], params["prelus"]
+    h = conv3x3.conv3x3_u8_bias_prelu_plain(u8, c[0]["w"], c[0]["b"],
+                                            p[0]["alpha"])
+    peak = h.nbytes
+    for i in range(cfg.num_conv):
+        planes = conv3x3.split_bf16x3(h)
+        y = conv3x3.conv3x3_bias_prelu_plain(h, c[i + 1]["w"],
+                                             c[i + 1]["b"],
+                                             p[i + 1]["alpha"])
+        peak = max(peak, h.nbytes + planes.nbytes + y.nbytes)
+        h = y
+    return max(peak, h.nbytes + conv3x3.split_bf16x3(h).nbytes)
+
+
+@pytest.mark.parametrize("feat,r", [(16, 2), (64, 4), (128, 2)])
+def test_float32_memory_plan_bills_the_split_planes(feat, r):
+    """The float32 SRVGG bill holds the three bf16 split planes that the
+    split pass writes beside each K1's and K2's input (6 B a value), as
+    RRDB's does: a frame's activations are what srvgg.apply's float32 path
+    allocates at its peak (its input, the planes and its output at a
+    hidden layer), not the two activation buffers alone, which would plan
+    more frames a call than the card holds.  bfloat16 and int8 bill no
+    planes."""
+    cfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=2, upscale=r)
+    params = srvgg.init_params(cfg, torch.Generator().manual_seed(feat))
+    h, w = 5, 7
+    u8 = torch.from_numpy(_frames(2, h, w))
+    want = _srvgg_f32_call_bytes(params, cfg, u8) // 2
+    io = h * w * (3 + 3 * r * r)
+    for dtype, act in (("float32", want), ("bfloat16", h * w * feat * 4),
+                       ("int8", h * w * feat * 2)):
+        eng = UpscaleEngine(device="cpu", compute_dtype=dtype,
+                            preloaded=(cfg, params))
+        assert eng._frame_bytes(h, w) == act + io, dtype
+    assert want == h * w * feat * (2 * 4 + 6)
+    assert engine_mod.srvgg_act_bytes(h, w, feat, torch.float32) == want
 
 
 @pytest.mark.parametrize("feat", [16, 48, 80])
@@ -378,22 +427,18 @@ def test_engine_refuses_other_srvgg_widths_on_the_card(monkeypatch, feat):
     assert d.max() <= 1
 
 
-@pytest.mark.parametrize("feat", [32, 96, 128])
+@pytest.mark.parametrize("feat", [16, 48, 80])
 def test_engine_refuses_int8_at_other_widths_on_the_card(monkeypatch, feat):
-    """int8 on the card takes 64 features only (K4a, K4, K4h): an int8
-    engine of another served width is refused before any batch, naming
-    the ROADMAP.md item, while bfloat16 and float32 at that width and
-    int8 at 64 pass; the CPU serves the width in int8 (the plain path)."""
+    """int8 on the card takes the widths K4a, K4 and K4h take (32, 64, 96,
+    128): an int8 engine of any other width is refused before any batch,
+    naming the ROADMAP.md item; the CPU serves the width in int8 (the
+    plain path)."""
     cfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=1, upscale=2)
     cuda = torch.device("cuda", 0)
     with pytest.raises(engine_mod.WidthNotServed,
                        match=engine_mod.SERVING_WIDTHS_ITEM):
-        engine_mod.check_serving_width(cfg, cuda, int8=True)
-    engine_mod.check_serving_width(cfg, cuda)
-    engine_mod.check_serving_width(
-        srvgg.SRVGGConfig(num_feat=64, num_conv=1, upscale=2), cuda,
-        int8=True)
-    engine_mod.check_serving_width(cfg, torch.device("cpu"), int8=True)
+        engine_mod.check_serving_width(cfg, cuda)
+    engine_mod.check_serving_width(cfg, torch.device("cpu"))
     monkeypatch.setattr(engine_mod.device_mod, "resolve_device",
                         lambda device: cuda)
     with pytest.raises(engine_mod.WidthNotServed,
@@ -404,3 +449,23 @@ def test_engine_refuses_int8_at_other_widths_on_the_card(monkeypatch, feat):
     mine = UpscaleEngine(device="cpu", compute_dtype="int8",
                          preloaded=(cfg, srvgg.init_params(cfg)))
     assert mine.cfg.num_feat == feat
+
+
+@pytest.mark.parametrize("feat", [32, 64, 96, 128])
+def test_engine_serves_int8_at_the_kernels_widths_on_the_card(monkeypatch,
+                                                             feat):
+    """int8 at each width K4a, K4 and K4h take passes the width check and
+    builds an engine for the card (nothing touches the device before a
+    batch): the int8 kernels take 32, 96 and 128 features as well as 64."""
+    cfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=1, upscale=2)
+    cuda = torch.device("cuda", 0)
+    engine_mod.check_serving_width(cfg, cuda)
+    monkeypatch.setattr(engine_mod.device_mod, "resolve_device",
+                        lambda device: cuda)
+    monkeypatch.setattr(engine_mod.srvgg, "params_to",
+                        lambda params, device: params)
+    monkeypatch.setattr(engine_mod.torch.cuda, "Stream",
+                        lambda device: None)
+    eng = UpscaleEngine(compute_dtype="int8",
+                        preloaded=(cfg, srvgg.init_params(cfg)))
+    assert eng._int8 and eng.device == cuda and eng.cfg.num_feat == feat

@@ -76,6 +76,16 @@ run; T2 also with weights scaled differently at each tap and each
 centre tap only); each of the 27 kernels holds wgmma (HGMMA) and no TF32
 or float atomic; the conv stack's gradients on the kernels against torch
 autograd through F.conv2d on a 2-conv model, at the same tolerance.
+K4a, K4 and K4h at 32, 96 and 128 features (K4 and K4h
+csrc/conv3x3_s8_wide.cuh, 4 x 64 tiles over units of 32 input channels
+in the 32-B swizzle; K4a K3's template with the s8 epilogue): K4 and K4h
+exact, K4a within 1 s8 code, at the tile edges, at 1080p, at codes and
+weights of +-127 (sums past 2^24 at 128 features) and, for K4, at each
+tap alone; the int8 model at each width >= 60 dB against its plain
+path; the 64-feature int8 forms' outputs equal to their bytes before
+the wide forms (sha256 of perf_conv_widths' seeded forms); a planned
+float32 call of a 128-feature SRVGG peaks within the memory plan's bill,
+which holds each K1's and K2's split planes.
 K9 (csrc/color.cu, the engine's output to the writers' YUV 4:2:0
 codes): exact (n_diff 0) against its plain version in all 8 forms, at
 ragged and frame-sized shapes, its byte and vector forms; no contracted
@@ -489,6 +499,241 @@ def test_width_wrappers_reject_what_the_kernels_do_not_take():
                 torch.zeros((3, 3, 96, 128), device=dev, dtype=dt),
                 torch.zeros(128), torch.zeros(128))
     assert LAUNCHES == before
+
+
+def _width_int8_forms(seed, B, H, W, feat, edge=False):
+    """(name, kernel call, plain call) of K4a (both compute dtypes), K4
+    and K4h at x2, x3, x4 at `feat` features on seeded inputs: s8 codes
+    and weights uniform in [-127, 127], K4's scale 2e-6..2e-5 and K4h's
+    1e-8..1e-7.  `edge`: codes and weights at the s8 range's ends (all
+    127 but a few, and half the output channels' weights 127: interior
+    sums of 9 F 127^2, past 2^24 at 128 features), most K4 outputs
+    clipped to +-127, and K4a's inv large enough to clip its codes at
+    both ends."""
+    dev = _cuda()
+    rs = np.random.RandomState(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a)).to(dev, dt)
+
+    if edge:
+        x8 = np.full((B, H, W, feat), 127)
+        few = rs.rand(*x8.shape) < 0.05
+        x8[few] = rs.randint(-127, 128, few.sum())
+        w8 = np.full((3, 3, feat, feat), 127)
+        w8[..., feat // 2:] = rs.choice([-127, 127],
+                                        (3, 3, feat, feat - feat // 2))
+    else:
+        x8 = rs.randint(-127, 128, (B, H, W, feat))
+        w8 = rs.randint(-127, 128, (3, 3, feat, feat))
+    x8, w8 = t(x8, torch.int8), t(w8, torch.int8)
+    u8 = t(rs.randint(0, 256, (B, H, W, 3)), torch.uint8)
+    w3 = t(rs.uniform(-0.3, 0.3, (3, 3, 3, feat)))
+    b, a = t(rs.uniform(-0.1, 0.1, feat)), t(rs.uniform(0.05, 0.4, feat))
+    scale = t(rs.uniform(2e-6, 2e-5, feat))
+    inv = torch.tensor([1 / (0.002 if edge else 0.01)], device=dev)
+    inv8 = torch.tensor([1 / 0.02], device=dev)
+    forms = []
+    for dt in DTYPES.values():
+        forms.append(("conv3x3_u8_bias_prelu_q8",
+                      lambda w=w3.to(dt): conv3x3.conv3x3_u8_bias_prelu_q8(
+                          u8, w, b, a, inv),
+                      lambda w=w3.to(dt):
+                      conv3x3.conv3x3_u8_bias_prelu_q8_plain(
+                          u8, w, b, a, inv)))
+    forms.append(("conv3x3_s8_dq_prelu_q8",
+                  lambda: conv3x3_s8.conv3x3_s8_dq_prelu_q8(
+                      x8, w8, scale, b, a, inv8),
+                  lambda: conv3x3_s8.conv3x3_s8_dq_prelu_q8_plain(
+                      x8, w8, scale, b, a, inv8)))
+    for r in (2, 3, 4):
+        wh = t(rs.randint(-127, 128, (3, 3, feat, 3 * r * r)), torch.int8)
+        sh = t(rs.uniform(1e-8, 1e-7, 3 * r * r))
+        bh = t(rs.uniform(-0.1, 0.1, 3 * r * r))
+        forms.append(("head_conv_s8_residual_u8_shuffle",
+                      lambda wh=wh, sh=sh, bh=bh, r=r:
+                      head.head_conv_s8_residual_u8_shuffle(
+                          x8, wh, sh, bh, u8, r),
+                      lambda wh=wh, sh=sh, bh=bh, r=r:
+                      head.head_conv_s8_residual_u8_shuffle_plain(
+                          x8, wh, sh, bh, u8, r)))
+    return forms
+
+
+def _hold_width_int8_forms(forms):
+    """K4 and K4h exact, K4a within 1 s8 code on a few values (its float
+    conv sums in another order before the quantize); one launch each."""
+    for kname, kernel, plain in forms:
+        before = LAUNCHES[kname]
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == want.dtype, kname
+        if kname == "conv3x3_u8_bias_prelu_q8":
+            _u8_close(got, want, None, True)
+        else:
+            assert torch.equal(got, want), kname
+        assert LAUNCHES[kname] == before + 1, kname
+        del got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", TC_SHAPES)
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("feat", WIDE_FEATS)
+def test_width_int8_kernels_match_plain_at_tile_edges(feat, B, hw):
+    """K4a, K4 and K4h (x2, x3, x4) at 32, 96 and 128 features against
+    their plain versions at the tile edges (K4 and K4h: 4 x 64 tiles, K4a
+    rows of 64): K4 and K4h exact, K4a within 1 s8 code."""
+    _hold_width_int8_forms(_width_int8_forms(feat + B + hw[1], B, *hw,
+                                             feat))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat", WIDE_FEATS)
+def test_width_int8_kernels_match_plain_at_1080p(feat):
+    """... on a 1080p frame: far more tiles than the persistent grid's
+    blocks, so every halo slot (and at 128 features every streamed weight
+    unit) is reused many times."""
+    _hold_width_int8_forms(_width_int8_forms(feat, 1, 1080, 1920, feat))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat", WIDE_FEATS)
+def test_width_int8_kernels_at_the_s8_edges(feat):
+    """Codes and weights at +-127 (2^7's edge): K4's s32 sums past 2^24 at
+    128 features (their float32 conversion rounds to nearest even in the
+    kernel and in torch alike) and its codes clipped at +-127, K4a's
+    codes clipped at both ends; exact (K4a within 1 code)."""
+    forms = _width_int8_forms(feat + 1, 2, 19, 45, feat, edge=True)
+    _hold_width_int8_forms(forms)
+    k4 = next(f for f in forms if f[0] == "conv3x3_s8_dq_prelu_q8")
+    y = k4[1]()
+    assert (y.abs() == 127).float().mean().item() > 0.5
+    q = forms[0][1]()
+    assert bool((q == 127).any()) and bool((q == -127).any())
+    if feat == 128:
+        x8 = torch.full((1, 3, 3, feat), 127, dtype=torch.int8,
+                        device=y.device)
+        w8 = torch.full((3, 3, feat, feat), 127, dtype=torch.int8,
+                        device=y.device)
+        assert int(conv3x3_s8.conv3x3_s8_plain(x8, w8).max()) > 2 ** 24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tap", range(9))
+@pytest.mark.parametrize("feat", WIDE_FEATS)
+def test_width_k4_each_tap_alone_under_the_32b_swizzle(feat, tap):
+    """Weights nonzero at one tap only: the A operand of tap (dy, dx) is
+    the unit's halo started dy * 66 + dx 32-B rows later in the 32-B
+    swizzle, and each start must read what TMA wrote (ragged shape,
+    exact)."""
+    dev = _cuda()
+    rs = np.random.RandomState(tap)
+    x8 = torch.from_numpy(rs.randint(-127, 128, (2, 19, 45, feat)).astype(
+        np.int8)).to(dev)
+    w8 = torch.zeros((3, 3, feat, feat), dtype=torch.int8, device=dev)
+    w8[tap // 3, tap % 3] = torch.from_numpy(rs.randint(
+        -127, 128, (feat, feat)).astype(np.int8)).to(dev)
+    f = torch.full((feat,), 0.2, device=dev)
+    scale = torch.full((feat,), 2e-5, device=dev)
+    inv = torch.tensor([1 / 0.02], device=dev)
+    got = conv3x3_s8.conv3x3_s8_dq_prelu_q8(x8, w8, scale, f, f, inv)
+    want = conv3x3_s8.conv3x3_s8_dq_prelu_q8_plain(x8, w8, scale, f, f,
+                                                   inv)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert want.unique().numel() > 64  # not clipped flat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [2, 3, 4])
+@pytest.mark.parametrize("feat", WIDE_FEATS)
+def test_width_int8_model_matches_plain_path(feat, r):
+    """A whole int8 SRVGG at 32, 96 and 128 features on K4a, K4 and K4h
+    against its plain path, quantized from its own float32 calibration on
+    the card: >= 60 dB in both compute dtypes (a K4a code that differs by
+    one may move later codes), with the int8 head exact wherever K4a's
+    codes agree; the launches 1 K4a, num_conv K4 and 1 K4h."""
+    dev = _cuda()
+    cfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=2, upscale=r)
+    params = srvgg.params_to(srvgg.init_params(
+        cfg, torch.Generator().manual_seed(feat + r)), dev)
+    u8 = _inputs(7, 2, 17, 70)["u8"].to(dev)
+    maxima = quantize.collect_act_maxima(params, u8, cfg=cfg,
+                                         percentile=99.9)
+    qb = quantize.build_qbody(params, cfg, maxima, margin=1.25)
+    for dt in DTYPES.values():
+        before = dict(LAUNCHES)
+        got = srvgg.apply_int8(params, qb, u8, cfg=cfg, compute_dtype=dt)
+        torch.cuda.synchronize()
+        assert {k: LAUNCHES[k] - before[k] for k in (
+            "conv3x3_u8_bias_prelu_q8", "conv3x3_s8_dq_prelu_q8",
+            "head_conv_s8_residual_u8_shuffle")} == {
+                "conv3x3_u8_bias_prelu_q8": 1, "conv3x3_s8_dq_prelu_q8": 2,
+                "head_conv_s8_residual_u8_shuffle": 1}
+        want = srvgg.apply_int8(params, qb, u8, cfg=cfg, compute_dtype=dt,
+                                plain=True)
+        assert got.shape == want.shape == (2, 17 * r, 70 * r, 3)
+        mse = ((got.double() - want.double()) ** 2).mean().item()
+        assert 10 * np.log10(255.0 ** 2 / max(mse, 1e-12)) >= 60.0
+
+
+@pytest.mark.cuda
+def test_float32_srvgg_call_peaks_within_its_memory_bill():
+    """One planned float32 call of a 128-feature SRVGG (2 frames of 540 x
+    960): the memory it allocates above what was allocated before it stays
+    within the plan's bill for its frames, which holds the split planes of
+    each K1's and K2's input; the bill without them is short of what the
+    call allocates."""
+    dev = _cuda()
+    cfg = srvgg.SRVGGConfig(num_feat=128, num_conv=4, upscale=4)
+    params = srvgg.params_to(srvgg.init_params(cfg), dev)
+    eng = UpscaleEngine(compute_dtype="float32", batch_size=2,
+                        preloaded=(cfg, params))
+    h, w = 540, 960
+    frames = np.random.RandomState(3).randint(0, 256, (2, h, w, 3),
+                                              np.uint8)
+    plan = eng._plan_execution(h, w)
+    assert plan == (0, 2)
+    x = torch.from_numpy(frames).to(dev)
+    with eng._on_device():
+        eng._forward(x[:1])  # the packed weights' first allocations
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with eng._on_device():
+        y = eng._forward(x[:plan.per_call])
+    torch.cuda.synchronize()
+    del y
+    peak = torch.cuda.max_memory_allocated() - base
+    bill = plan.per_call * eng._frame_bytes(h, w)
+    assert peak <= bill, (peak, bill)
+    no_planes = bill - plan.per_call * h * w * cfg.num_feat * 6
+    assert peak > no_planes, (peak, no_planes)
+
+
+#: sha256 (the first 16 hex digits) of each 64-feature int8 form's output
+#: in perf_conv_widths --dtypes int8 --widths 64 on the parent of the
+#: change that gave K4a, K4 and K4h their wide forms (H100, that script's
+#: seeded inputs): the 64-feature kernels must give the same bytes
+INT8_64_SHA256 = {"k4a": "f295c1bb5f103180", "k4": "b00e569916f054b4",
+                  "k4h_x2": "4a54b36a7af04176",
+                  "k4h_x3": "e1c5c74012705525",
+                  "k4h_x4": "b92b5e29a573cc0b", "model": "64d67a05c78604d0"}
+
+
+@pytest.mark.cuda
+def test_64_feature_int8_forms_are_unchanged():
+    """K4a, K4, K4h (x2, x3, x4) and the int8 model at 64 features give
+    the bytes they gave before their wide forms were added."""
+    from reve_tpu_torch.scripts import perf_conv_widths as perf
+
+    _cuda()
+    got = {}
+    for form, fn in perf.int8_forms(64, (2, 3, 4)).items():
+        got[form] = perf.digest(fn())
+    torch.cuda.synchronize()
+    assert got == INT8_64_SHA256
 
 
 @pytest.mark.cuda
@@ -974,9 +1219,9 @@ def test_u8_conv_wrappers_refuse_and_no_cuda_core_form_is_left():
         conv3x3.SOURCE]["path"]], check=True, capture_output=True,
         text=True).stdout
     kernels = re.split(r"\n\s*Function : ", sass)[1:]
-    # K3 at Cout 32, 64, 96 and 128, K4a and K3 at Cin 12, each in both
-    # compute dtypes
-    assert len(kernels) == 12
+    # K3 and K4a at Cout 32, 64, 96 and 128, and K3 at Cin 12, each in
+    # both compute dtypes
+    assert len(kernels) == 18
     for k in kernels:  # (a CUDA-core conv would be thousands of FFMA)
         assert "HGMMA" in k and k.count("FFMA") < 8, k.split()[0]
 

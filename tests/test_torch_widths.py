@@ -7,7 +7,8 @@ Cin 96 and 128), and an emulation of the wide K1's and K2's arithmetic
 each, A the halo's planes, B as pack_weights_wide lays it out, bf16
 products or the six bf16 pair products with hi.hi apart) against
 reve_tpu's `_conv3x3` + `_prelu` and its head `_epilogue`; and the
-engine's refusal of int8 at those widths under --dtype auto.
+engine's refusal, under --dtype auto, of int8 at widths no kernel
+takes.
 
 Tolerances (test_torch_tc_layouts.py's): float32 atol 2e-5, rtol 1e-5,
 scaled by 2^8 with the inputs; bfloat16 within 2 bf16 ulp (the ulp taken
@@ -245,11 +246,11 @@ def test_split_pass_is_width_agnostic():
     assert all(v == 0 for v in LAUNCHES.values())
 
 
-@pytest.mark.parametrize("feat", NEW_WIDTHS)
+@pytest.mark.parametrize("feat", [16, 48, 80])
 def test_auto_dtype_refuses_int8_at_other_widths(tmp_path, monkeypatch,
                                                  feat):
     """--dtype auto with REVE_TPU_AUTO_INT8 set (eligible for the int8
-    turbo) at a width whose int8 kernels the card lacks: the trial int8
+    turbo) at a width the card's kernels do not take: the trial int8
     engine refuses before any batch, and auto passes the refusal on
     rather than serving bfloat16 instead."""
     monkeypatch.setenv("REVE_TPU_AUTO_INT8", "1")
@@ -271,8 +272,9 @@ def test_auto_dtype_refuses_int8_at_other_widths(tmp_path, monkeypatch,
     with pytest.raises(engine_mod.WidthNotServed,
                        match=engine_mod.SERVING_WIDTHS_ITEM):
         scheduler.resolve_auto_dtype(make_engine, ws, st, platform="cuda")
-    # at 64 features the same engine is built (nothing touches the card
-    # before a batch): only the width is refused
-    engine_mod.check_serving_width(
-        srvgg.SRVGGConfig(num_feat=64, num_conv=1, upscale=2),
-        torch.device("cuda", 0), int8=True)
+    # at the kernels' widths the same check passes: only the width is
+    # refused
+    for served in conv3x3.WIDTHS:
+        engine_mod.check_serving_width(
+            srvgg.SRVGGConfig(num_feat=served, num_conv=1, upscale=2),
+            torch.device("cuda", 0))
