@@ -269,7 +269,12 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               template at Cout F), in both dtypes and K2 at x2, x3, x4,
               on seeded 1-conv models at the main path's batch, held
               and timed as the kernels phase holds the 64-feature forms
-              (their own plain version, cuDNN, the bound); K4a, K4 and
+              (their own plain version, cuDNN, the bound), and float32
+              K1 as the model calls it there, on the split planes of its
+              input writing those of its output ("float32_planes"; held
+              with its float32 value written beside: the value bit for
+              bit the float32-out K1's and within 1e-4 of the plain
+              version's, the planes bit for bit its split); K4a, K4 and
               K4h at those widths (K4h at x2, x3, x4; K4 and K4h in
               conv3x3_s8_wide.cuh, K4a K3's template with the s8
               epilogue) on the same models quantized by an int8 engine's
@@ -283,13 +288,16 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               default distillation's x2 128-feature student loaded
               through the registry from its .pth, and a seeded x3 model
               of 96 features and 16 convs: launches 1 K3, num_conv K1
-              and 1 K2 a model call (float32: a split pass before each K1
-              and K2), float32 u8 |d| <= 1 on every frame against the
-              plain float32 path, bfloat16 each frame >= 50 dB against
-              the plain bf16 path and within 1 dB of the plain bf16
-              path's own PSNR against plain float32, the model's ms a
-              batch; int8 calibrated on the batch, launches 1 K4a,
-              num_conv K4 and 1 K4h a model call, frame 0 >= 60 dB
+              and 1 K2 a model call (float32: one split pass, after K3;
+              K1 reads and writes the split planes, counted as
+              conv3x3_bias_prelu_planes with no float32-out K1, K2 reads
+              them; its `split_passes_per_call` reported), float32 u8
+              |d| <= 1 on every frame against the plain float32 path,
+              bfloat16 each frame >= 50 dB against the plain bf16 path
+              and within 1 dB of the plain bf16 path's own PSNR against
+              plain float32, the model's ms a batch; int8 calibrated on
+              the batch, launches 1 K4a, num_conv K4 and 1 K4h a model
+              call, frame 0 >= 60 dB
               against the plain int8 path on the same calibration, the
               certificate's PSNR (reported, not gated) and the int8
               model's ms a batch; a --tile 512 bfloat16 and int8 batch
@@ -385,7 +393,8 @@ TILE = 512
 #: (conv3x3_wide.cuh, instantiated by conv3x3_tc.cu and conv3x3_f32_tc.cu):
 #: K1 and K2 at x2, x3, x4, 12 kernels in each dtype, 18 (bf16) or 108
 #: (bf16x6) a unit of 32 input channels (nine taps of two k16 steps; the
-#: units looped); K3 at Cout 32, 96, 128 in chunks of 64 or 32 output
+#: units looped; the resident K1 forms that many a row of a warpgroup);
+#: K3 at Cout 32, 96, 128 in chunks of 64 or 32 output
 #: channels (1, 3, 2 chunks): 2 and 12 a chunk, and K4a the same; K4 and
 #: K4h in int8 (conv3x3_s8_wide.cuh, instantiated by conv3x3_s8.cu): 12
 #: kernels, 9 (s8) a unit of 32 input channels (nine taps of one k32
@@ -691,13 +700,44 @@ def kernel_phase(params, cfg, frames, out: dict, timed: bool = True,
                 * (6 if name == "float32" else 1),
                 peak="bfloat16"),
         }
+        if name == "float32" and feat != conv3x3.FEAT:
+            # float32 K1 as the model calls it at the wide widths: on the
+            # split planes of its input, writing those of its output
+            # (held on its value, then the planes bit for bit its own
+            # value's split), reported as K1's "float32_planes"
+            xp = conv3x3.split_bf16x3(x3)
+            cases["conv3x3_bias_prelu_planes"] = dict(
+                cases["conv3x3_bias_prelu"],
+                kernel=lambda: conv3x3.conv3x3_bias_prelu_planes(
+                    xp, w1, c1["b"], a1),
+                plain=lambda: conv3x3.conv3x3_bias_prelu_planes_plain(
+                    xp, w1, c1["b"], a1),
+                nbytes=2 * px * feat * 6 + w1.numel() * 4 + 2 * feat * 4)
         for kname, c in cases.items():
             if only is not None and kname not in only:
                 continue
             got, want = c["kernel"](), c["plain"]()
             torch.cuda.synchronize()
             n_diff = None
-            if got.dtype == torch.uint8:
+            key, dname = kname, name
+            if kname == "conv3x3_bias_prelu_planes":
+                key, dname = "conv3x3_bias_prelu", "float32_planes"
+                # the one kernel writing its float32 value beside the
+                # planes: the value bit for bit the float32-out K1's on
+                # the same input and within 1e-4 of the plain version's;
+                # the planes that value's split bit for bit, the same
+                # with or without the value written
+                planes, value = conv3x3.conv3x3_bias_prelu_planes(
+                    xp, w1, c1["b"], a1, value=True)
+                # plane values off the plain version's split
+                n_diff = int((got != want).sum().item())
+                err = (value - x1).abs().max().item()
+                ok = err <= 1e-4 and torch.equal(got, planes) and \
+                    torch.equal(planes, conv3x3.split_bf16x3_plain(value)) \
+                    and torch.equal(value, conv3x3.conv3x3_bias_prelu(
+                        x3, w1, c1["b"], a1))
+                del planes, value
+            elif got.dtype == torch.uint8:
                 err = (got.int() - want.int()).abs().max().item()
                 n_diff = int((got != want).sum().item())
                 ok = err <= 1
@@ -710,7 +750,7 @@ def kernel_phase(params, cfg, frames, out: dict, timed: bool = True,
                                      f"kernel disagrees with its plain "
                                      f"version (max |d| {err})")
             if not timed:
-                results.setdefault(kname, {})[name] = {
+                results.setdefault(key, {})[dname] = {
                     "max_abs_err": err, "n_diff": n_diff,
                     "shape": list(got.shape)}
                 del got, want
@@ -721,7 +761,7 @@ def kernel_phase(params, cfg, frames, out: dict, timed: bool = True,
             lib_b = c["lib_b"].to(dt)
             bms, bby = bound_ms(c["nbytes"], c["flops"],
                                 c.get("peak", name))
-            results.setdefault(kname, {})[name] = {
+            results.setdefault(key, {})[dname] = {
                 "max_abs_err": err, "n_diff": n_diff,
                 "ms": cuda_time_ms(c["kernel"]),
                 "plain_ms": cuda_time_ms(c["plain"]),
@@ -733,6 +773,7 @@ def kernel_phase(params, cfg, frames, out: dict, timed: bool = True,
             del got, want
         if name == "float32" and timed and only is None:
             results["split_bf16x3"] = split_case(x3)
+        xp = None
         del x3, x1
         torch.cuda.empty_cache()
     out["kernels" if timed else "kernels_transposed"] = results
@@ -2982,9 +3023,10 @@ def serve_checks(cfg, params, frames, tile_check: bool = False) -> dict:
     """One engine batch of `frames` through UpscaleEngine on the card in
     bfloat16 and float32, the counters zeroed around it, against
     srvgg.apply's plain path on the same frames: the launches 1 K3,
-    num_conv K1 and 1 K2 a model call (float32: a split pass before each
-    K1 and K2); float32 u8 |d| <= 1 on every frame; bfloat16 each frame
-    >= WIDTH_BF16_DB against the plain bf16 path and within
+    num_conv K1 and 1 K2 a model call (float32: srvgg.split_passes; at
+    the wide widths K1 on planes, counted as conv3x3_bias_prelu_planes,
+    and no float32-out K1); float32 u8 |d| <= 1 on every frame;
+    bfloat16 each frame >= WIDTH_BF16_DB against the plain bf16 path and within
     WIDTH_BF16_SLACK_DB of the plain bf16 path's PSNR against plain
     float32; the model's ms a batch.  `tile_check`: one --tile TILE batch
     in bfloat16 too, byte-identical to the whole frames."""
@@ -3017,11 +3059,18 @@ def serve_checks(cfg, params, frames, tile_check: bool = False) -> dict:
                 "conv3x3_bias_prelu": cfg.num_conv * calls,
                 "head_conv_residual_u8_shuffle": calls}
         if dt == "float32":
-            want["split_bf16x3"] = (cfg.num_conv + 1) * calls
+            want["split_bf16x3"] = srvgg.split_passes(cfg, torch.float32) \
+                * calls
+            if srvgg.carries_planes(cfg.num_feat, torch.float32):
+                # K1 on planes, counted apart from the float32-out form
+                want["conv3x3_bias_prelu_planes"] = want.pop(
+                    "conv3x3_bias_prelu")
         if launches != want:
             raise AssertionError(f"{cfg} {dt} engine batch: launches "
                                  f"{launches}, expected {want}")
         rec = {"launches": launches, "calls": calls,
+               "split_passes_per_call": launches.get("split_bf16x3", 0)
+               / calls,
                "model_ms_per_batch": cuda_time_ms(lambda: srvgg.apply(
                    eng.params, u8, cfg=cfg,
                    compute_dtype=eng.compute_dtype), iters=3)}
@@ -3165,10 +3214,16 @@ def width_entries(name: str, widths: dict) -> dict:
             def launched(r):
                 model = f"x4_{feat}" if r == 4 else \
                     WIDTH_K2_MODELS.get((feat, r))
-                return widths["engine"][model][dt]["launches"].get(name, 0) \
-                    if model else 0
+                # float32 K1 on planes: the float32 engine's launches of
+                # that form, counted apart
+                eng, key = ("float32", name + "_planes") \
+                    if dt == "float32_planes" else (dt, name)
+                return widths["engine"][model][eng]["launches"].get(
+                    key, 0) if model else 0
             e = dict(nums, source=src, route="cuda",
-                     design="wgmma_bf16x6" if dt == "float32" else "wgmma",
+                     design="wgmma_bf16x6" if dt == "float32" else
+                     "wgmma_bf16x6_planes" if dt == "float32_planes" else
+                     "wgmma",
                      launches=launched(4))
             for r in (2, 3):
                 if f"x{r}" in e:

@@ -6,6 +6,9 @@
                                               128 features)
                                               (RRDB: the up and hr convs +
                                               leaky ReLU, alpha 0.2)
+        conv3x3.conv3x3_bias_prelu_planes     float32 K1 at 32, 96, 128 on
+                                              split planes, writing its
+                                              output's (counted apart)
         conv3x3.split_bf16x3                  float32 K1's, K2's and K7's
                                               split pass
     K3  conv3x3.conv3x3_u8_bias_prelu         u8 input + first conv + PReLU
@@ -87,6 +90,7 @@ from __future__ import annotations
 #: kernel name -> launches since the last reset_launches()
 LAUNCHES = {
     "conv3x3_bias_prelu": 0,
+    "conv3x3_bias_prelu_planes": 0,
     "split_bf16x3": 0,
     "conv3x3_u8_bias_prelu": 0,
     "conv3x3_u8x2_bias": 0,

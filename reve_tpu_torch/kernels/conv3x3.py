@@ -44,15 +44,21 @@ output channels, or 32 where F is not a multiple of 64; the output staged
 and stored as boxes of 64 bf16 channels in the 128-B swizzle, 32 bf16
 channels in the 64-B swizzle, 32 float32 channels, or K4a's 64 s8
 channels in the 64-B swizzle and 32 in the 32-B).
-K1 and K2 at 32, 96 and 128 run csrc/conv3x3_wide.cuh's template: the
-halo and the weights stream in units of 32 input channels (a TMA box of
-32 channels in the 64-B swizzle, two slots; the unit's nine taps of
-weights through a ring of four stages, packed by `pack_weights_wide`),
-since the 64-feature kernels' resident weights and whole-Cin halos do
-not fit a block's shared memory there.  Bound per call of 4 1080p
-frames: K1 bf16 0.317 ms at 32 (bytes), 1.391 ms at 96 and 2.473 ms at
-128 (operations, past the card's ridge), float32 as six bf16 passes 0.93,
-8.35 and 14.84 ms; K3 bf16 0.159, 0.475 and 0.634 ms (bytes).
+K1 and K2 at 32, 96 and 128 run csrc/conv3x3_wide.cuh's templates: the
+halo streams in units of 32 input channels (a TMA box of 32 channels in
+the 64-B swizzle), since the 64-feature kernels' whole-Cin halos do not
+fit a block's shared memory there beside the weights.  K1 keeps its
+weights resident where they fit (bf16 at 32 and 96, float32 at 32; two
+consumer teams take tiles in turn, so one team's epilogue runs beside
+the other's wgmmas); K1 elsewhere and K2 stream them tap by tap through a
+ring of four stages.  The weights are packed by `pack_weights_wide`,
+once per set of weights (`packed_wide`).  float32 K1 there reads the
+split planes of its input and writes those of its output
+(`conv3x3_bias_prelu_planes`), so a float32 model runs one split pass a
+call, after K3.  Bound per call of 4 1080p frames: K1 bf16 0.317 ms at 32
+(bytes), 1.391 ms at 96 and 2.473 ms at 128 (operations, past the card's
+ridge), float32 as six bf16 passes 0.93, 8.35 and 14.84 ms; K3 bf16
+0.159, 0.475 and 0.634 ms (bytes).
 
 Rounding points follow the JAX reference exactly: weights in the compute
 dtype, float32 accumulation, + bias in float32, cast to the compute
@@ -155,6 +161,14 @@ def split_bf16x3_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, mid, (r - mid.float()).to(torch.bfloat16)])
 
 
+def merge_bf16x3_plain(planes: torch.Tensor) -> torch.Tensor:
+    """(3, ...) bfloat16 planes hi, mid, lo -> float32 (hi + mid) + lo:
+    split_bf16x3_plain's value back, exactly (the parts do not overlap,
+    so neither addition rounds)."""
+    hi, mid, lo = planes.float()
+    return (hi + mid) + lo
+
+
 def padded_n(cout: int) -> int:
     """The N of a wgmma over `cout` output channels: a multiple of 8 (64
     for the hidden convs; 16, 32, 48 for the heads at r = 2, 3, 4)."""
@@ -237,6 +251,24 @@ def pack_weights_wide(w: torch.Tensor) -> torch.Tensor:
     # [s][tap][u][kb][kk][n] -> [u][tap][s][kb][n][kk]
     s = planes.reshape(-1, 9, cin // WIDE_UNIT, WIDE_UNIT // 8, 8, n)
     return s.permute(2, 1, 0, 3, 5, 4).contiguous()
+
+
+def packed_wide(w: torch.Tensor) -> torch.Tensor:
+    """pack_weights_wide(w), packed once per set of weights: the pack is
+    kept on `w` with the version counter, storage, dtype and shape it was
+    packed from, so an in-place update (an optimizer step) or new storage
+    gives a fresh pack, never a stale one.  A tensor without a version
+    counter (made under torch.inference_mode) is packed at each call."""
+    try:
+        key = (w._version, w.data_ptr(), w.dtype, tuple(w.shape))
+    except RuntimeError:
+        return pack_weights_wide(w)
+    held = getattr(w, "_reve_wide_pack", None)
+    if held is not None and held[0] == key:
+        return held[1]
+    packed = pack_weights_wide(w)
+    w._reve_wide_pack = (key, packed)
+    return packed
 
 
 # -- kernel wrappers ----------------------------------------------------------
@@ -374,9 +406,10 @@ def conv3x3_bias_prelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                        alpha: torch.Tensor) -> torch.Tensor:
     """K1: (B, H, W, F) x (3, 3, F, F) HWIO in the compute dtype, F one of
     WIDTHS -> PReLU(dtype(conv + b)) (B, H, W, F) in the compute dtype.
-    float32 launches two kernels: the split pass and the bf16x6 conv.  F
-    = 64 runs the 64-feature kernels, the other widths the wide forms
-    (csrc/conv3x3_wide.cuh), their weights packed by pack_weights_wide."""
+    float32 launches two kernels: the split pass and the bf16x6 conv
+    (conv3x3_bias_prelu_planes takes and gives the planes instead).  F =
+    64 runs the 64-feature kernels, the other widths the wide forms
+    (csrc/conv3x3_wide.cuh), their weights packed once (packed_wide)."""
     if x.device.type == "cpu":
         return conv3x3_bias_prelu_plain(x, w, b, alpha)
     feat = x.shape[-1] if x.dim() == 4 else FEAT
@@ -392,12 +425,72 @@ def conv3x3_bias_prelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                 (split_bf16x3(x), pack_weights_bf16x3(w), bb, aa), y)
     elif bf16:
         _launch(TC_SOURCE, "reve_conv3x3_bias_prelu_wide_tc",
-                (x, pack_weights_wide(w), bb, aa), y, (feat,))
+                (x, packed_wide(w), bb, aa), y, (feat,))
     else:
-        _launch(F32_SOURCE, "reve_conv3x3_bias_prelu_wide_f32tc",
-                (split_bf16x3(x), pack_weights_wide(w), bb, aa), y, (feat,))
+        _launch_wide_f32(split_bf16x3(x), w, bb, aa, y, None)
     LAUNCHES["conv3x3_bias_prelu"] += 1
     return y
+
+
+def _launch_wide_f32(xp, w, bb, aa, y, planes) -> None:
+    """float32 K1 at a wide width on the split planes `xp` of its input:
+    its float32 output into `y` and its split planes into `planes` (each
+    or None, not both)."""
+    _, B, H, W, feat = xp.shape
+    lib = build.load(F32_SOURCE)
+    fn = lib.reve_conv3x3_bias_prelu_wide_f32tc_planes
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(xp.data_ptr(), packed_wide(w).data_ptr(), bb.data_ptr(),
+             aa.data_ptr(), None if y is None else y.data_ptr(),
+             None if planes is None else planes.data_ptr(), B, H, W, feat,
+             torch.cuda.current_stream(xp.device).cuda_stream)
+    build.check(lib, err, "conv3x3_bias_prelu (float32)")
+
+
+def conv3x3_bias_prelu_planes_plain(xp, w, b, alpha, value: bool = False):
+    """conv3x3_bias_prelu_planes' plain version: split_bf16x3_plain of the
+    plain float32 K1 on the planes' value (and that output)."""
+    y = conv3x3_bias_prelu_plain(merge_bf16x3_plain(xp), w, b, alpha)
+    planes = split_bf16x3_plain(y)
+    return (planes, y) if value else planes
+
+
+def conv3x3_bias_prelu_planes(xp: torch.Tensor, w: torch.Tensor,
+                              b: torch.Tensor, alpha: torch.Tensor,
+                              value: bool = False):
+    """float32 K1 at the wide widths (32, 96, 128) on split planes: `xp`
+    (3, B, H, W, F) bfloat16, the hi, mid and lo planes of its float32
+    input (split_bf16x3's, or this function's), `w` (3, 3, F, F) float32
+    HWIO -> the planes (3, B, H, W, F) of PReLU(conv + b), bit for bit
+    split_bf16x3 of the output conv3x3_bias_prelu gives on that input, so
+    the next layer runs no split pass; with `value`, (planes, that float32
+    output (B, H, W, F)), both written by the one kernel.  Its launches
+    are counted under "conv3x3_bias_prelu_planes", apart from the
+    float32-out form's."""
+    if xp.device.type == "cpu":
+        return conv3x3_bias_prelu_planes_plain(xp, w, b, alpha, value)
+    if xp.dtype != torch.bfloat16 or w.dtype != torch.float32:
+        raise TypeError(f"K1 on planes takes bfloat16 planes and float32 "
+                        f"weights, got {xp.dtype} / {w.dtype}")
+    if xp.dim() != 5 or xp.shape[0] != 3:
+        raise ValueError(f"planes shape {tuple(xp.shape)}, expected (3, B, "
+                         f"H, W, F)")
+    feat = xp.shape[-1]
+    check_width(feat, "K1")
+    if feat == FEAT:
+        raise ValueError("K1 on planes takes the wide widths (32, 96, 128); "
+                         "at 64 conv3x3_bias_prelu splits its input")
+    _check(xp[0], w, feat, torch.bfloat16, cout=feat)
+    check_operands(xp, w)
+    planes = torch.empty_like(xp)
+    y = torch.empty(xp.shape[1:], dtype=torch.float32, device=xp.device) \
+        if value else None
+    bb, aa = _bias_alpha(b, alpha, torch.float32, xp.device, feat)
+    _launch_wide_f32(xp, w, bb, aa, y, planes)
+    LAUNCHES["conv3x3_bias_prelu_planes"] += 1
+    return (planes, y) if value else planes
 
 
 def _launch_u8(entry: str, u8, w, b, alpha, inv=None) -> torch.Tensor:

@@ -63,9 +63,12 @@
 //    row's u8 pixels before the wgmmas, stages r output rows of 64r x 3
 //    bytes in shuffle order and writes them as 16-B vectors.
 // At 32, 96 and 128 features K1 and K2 in float32 are conv3x3_wide.cuh's
-// template (the halo and weights streamed in units of 32 input channels),
-// instantiated here behind their own entry points (the *_wide_* ones at
-// the end of this file); this file's own template takes 64.
+// templates (the halo in units of 32 input channels; K1's weights
+// resident at 32, streamed at 96, 128 and in K2), instantiated here behind
+// their own entry points (the *_wide_* ones at the end of this file);
+// this file's own template takes 64.  There K1 writes the split planes of
+// its output where the caller asks (`_planes`), so a float32 SRVGG at
+// those widths runs one split pass a call, after K3.
 #include "conv3x3_wide.cuh"
 #include "tc.cuh"
 
@@ -405,15 +408,19 @@ extern "C" int reve_head_conv_residual_u8_shuffle_f32tc(
 }
 
 // K1 in float32 at feat = 32, 96 or 128 channels (64 is the kernel
-// above): conv3x3_wide.cuh's units of 32 input channels.  `planes`: the
-// split planes (3, B, H, W, feat) bf16 of the input; `w`: the HWIO
-// weights packed by kernels/conv3x3.py pack_weights_wide, three splits.
-// Returns a cudaError_t (0 = success).
-extern "C" int reve_conv3x3_bias_prelu_wide_f32tc(
+// above): conv3x3_wide.cuh's units of 32 input channels, the weights
+// resident at 32.  `planes`: the split planes (3, B, H, W, feat) bf16 of
+// the input; `w`: the HWIO weights packed by kernels/conv3x3.py
+// pack_weights_wide, three splits; `y`: the float32 output (B, H, W,
+// feat), or null; `y_planes`: its split planes (3, B, H, W, feat) bf16,
+// bit for bit the split pass's of y, or null (not both null).  Returns a
+// cudaError_t (0 = success).
+extern "C" int reve_conv3x3_bias_prelu_wide_f32tc_planes(
     const void* planes, const void* w, const float* b, const float* alpha,
-    void* y, int B, int H, int W, int feat, void* stream) {
-  return (int)reve::wide::k1<3>(planes, w, b, alpha, y, B, H, W, feat,
-                                static_cast<cudaStream_t>(stream));
+    void* y, void* y_planes, int B, int H, int W, int feat, void* stream) {
+  if (y == nullptr && y_planes == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)reve::wide::k1<3>(planes, w, b, alpha, y, y_planes, B, H, W,
+                                feat, static_cast<cudaStream_t>(stream));
 }
 
 // K2 in float32 at feat = 32, 96 or 128 input channels, r in {2, 3, 4}:

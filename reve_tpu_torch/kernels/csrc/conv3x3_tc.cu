@@ -60,9 +60,10 @@
 //    (tc.cuh's HeadEpilogue, which float32 K2 and K4h share).
 // The barrier, TMA, descriptor and wgmma helpers are tc.cuh's.
 // At 32, 96 and 128 features K1 and K2 in bfloat16 are conv3x3_wide.cuh's
-// template (the halo and weights streamed in units of 32 input channels),
-// instantiated here behind their own entry points (the *_wide_* ones at
-// the end of this file); this file's own template takes 64.
+// templates (the halo in units of 32 input channels; K1's weights
+// resident at 32 and 96, streamed at 128 and in K2), instantiated here
+// behind their own entry points (the *_wide_* ones at the end of this
+// file); this file's own template takes 64.
 #include "conv3x3_wide.cuh"
 #include "tc.cuh"
 
@@ -314,13 +315,14 @@ extern "C" int reve_conv_last_u8_tc(const void* x, const void* w,
 }
 
 // K1 in bfloat16 at feat = 32, 96 or 128 channels (64 is the kernel
-// above): conv3x3_wide.cuh's units of 32 input channels.  `x`: (B, H, W,
-// feat) bf16; `w`: the HWIO weights packed by kernels/conv3x3.py
-// pack_weights_wide.  Returns a cudaError_t (0 = success).
+// above): conv3x3_wide.cuh's units of 32 input channels, the weights
+// resident at 32 and 96.  `x`: (B, H, W, feat) bf16; `w`: the HWIO
+// weights packed by kernels/conv3x3.py pack_weights_wide.  Returns a
+// cudaError_t (0 = success).
 extern "C" int reve_conv3x3_bias_prelu_wide_tc(
     const void* x, const void* w, const float* b, const float* alpha,
     void* y, int B, int H, int W, int feat, void* stream) {
-  return (int)reve::wide::k1<1>(x, w, b, alpha, y, B, H, W, feat,
+  return (int)reve::wide::k1<1>(x, w, b, alpha, y, nullptr, B, H, W, feat,
                                 static_cast<cudaStream_t>(stream));
 }
 

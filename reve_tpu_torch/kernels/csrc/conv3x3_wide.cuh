@@ -1,9 +1,9 @@
 // K1 conv3x3_bias_prelu and K2 head_conv_residual_u8_shuffle of an SRVGG
 // of 32, 96 or 128 features, in both compute dtypes, on the tensor cores:
-// one template, instantiated by conv3x3_tc.cu in bfloat16 (PLANES 1) and
-// by conv3x3_f32_tc.cu in float32 (PLANES 3, the split pass's planes,
-// six bf16 products).  The 64-feature forms are those sources' own
-// kernels, unchanged.
+// two templates, instantiated by conv3x3_tc.cu in bfloat16 (PLANES 1) and
+// by conv3x3_f32_tc.cu in float32 (PLANES 3, the split planes, six bf16
+// products).  The 64-feature forms are those sources' own kernels,
+// unchanged.
 //
 // Replaces (TPU side) what those sources' kernels replace, at the SRVGG's
 // num_feat F: reve_tpu/models/srvgg.py:_conv3x3 + _prelu (srvgg.py:88-113)
@@ -21,35 +21,54 @@
 // the 64-feature K1 sits); float32 K1 as six bf16 products 0.93, 8.35 and
 // 14.84 ms; bf16 K2 at r = 4 0.232, 0.696 and 0.927 ms (operations).
 //
-// Design.  What breaks the 64-feature kernels' design at these widths is
-// shared memory (227 KB a block): bf16 K1 keeps all nine taps of weights
-// resident (294,912 B at 128) beside two halos of the whole Cin (204,800
-// B at 128), float32 K1 three planes of the whole Cin's halo.  So here
-// both the halo and the weights stream in units of 32 input channels:
-//  * A unit is 32 channels of Cin: its halo ((TH+2) x 66 pixels, one 64-B
-//    row a pixel, in the 64-B swizzle wgmma reads, a TMA box of 32
-//    channels at channel 32u of a tensor map over the whole pixel; three
-//    boxes, one a plane, in float32) goes to one of two slots, and its
-//    nine taps' weights ([split][k / 8][n][8], K-major, 32 k: packed by
-//    the wrapper, kernels/conv3x3.py pack_weights_wide) stream through a
-//    ring of four stages by bulk copies.  A tap's A is the halo started
-//    whole 64-B rows later (dy * 66 + dx), as in conv3x3_s8.cu's 64-B
-//    rows; its two k16 steps are 32 B apart in a row.
-//  * One thread of a producer warpgroup issues every copy in the order
-//    the warpgroups consume them and waits for the slot or stage it
-//    refills to be released; the warpgroups (one output row of 64 pixels
-//    each, M = 64, N = Cout padded to a multiple of 8) run no branch on the
-//    thread index between a wgmma and its wait: each tap's release is a
-//    predicated arrival after the wait that retires the tap before it, so
-//    consecutive taps' wgmmas overlap.  The producer warpgroup gives its
-//    registers to the consumers by setmaxnreg (112 a thread at TH 4, 240
-//    at TH 2), as rrdb.cu's does.
-//  * Tiles of TH = 4 rows (four warpgroups), or 2 in float32 at N 96 and
-//    128, whose two accumulator sets (hi.hi apart from the five smaller
-//    products, as conv3x3_f32_tc.cu keeps them) take 96 and 128
-//    registers a thread.
-//  * K1's epilogue writes straight from the accumulator fragment (bf16
-//    pairs, float32 pairs), K2's is tc.cuh's HeadEpilogue.
+// Both templates read the input in units of 32 channels: a unit's halo
+// ((TH+2) x 66 pixels, one 64-B row a pixel, in the 64-B swizzle wgmma
+// reads; a TMA box of 32 channels at channel 32u of a tensor map over the
+// whole pixel, three boxes, one a plane, in float32).  A tap's A is the
+// halo started whole 64-B rows later (dy * 66 + dx); its two k16 steps
+// are 32 B apart in a row.  The weights are packed by the wrapper
+// (kernels/conv3x3.py pack_weights_wide) as [unit][tap][split][k / 8][n]
+// [8], K-major.  Each output pixel sums its K steps in the order (unit,
+// tap, k16) in both templates, hi.hi apart from the five smaller products
+// in float32 (conv3x3_f32_tc.cu's rule), so both give the same bits.
+//
+// Resident K1 (`Res`, `conv3x3_wide_res_kernel`): K1 where the weights fit
+// a block beside the halo ring: bf16 at 32 (18,432 B) and 96 (165,888 B),
+// float32 at 32 (55,296 B).  What held the streamed design back there was
+// its weights, streamed from L2 for every unit-tap of every tile behind a
+// barrier (5.4 GB a bf16 call at 96), and an epilogue that left the
+// tensor cores idle (all warpgroups on one tile).  So:
+//  * the weights come in once per block by one bulk copy and stay;
+//  * two consumer teams take the block's tiles in turn, as rrdb_s8.cu's
+//    do: a team issues a tile's wgmmas only after the other team has
+//    issued its own (`turn`), so the halo units are read in the order the
+//    producer loads them, and one team's epilogue runs beside the other
+//    team's wgmmas;
+//  * a warpgroup takes RPW rows (RPW wgmmas a k16 step, rows innermost so
+//    each step's B descriptor serves them and dies), so a tile is TEAM_WGS
+//    x RPW rows (`ResShape`): 8 at bf16 32 (halo 1.29x the tile, 4
+//    slots), 2 at bf16 96 (48 accumulator registers a row; the weights
+//    leave room for 3 slots of a 2-row halo only) and at float32 32 (3
+//    slots of three planes; its A fragments read into registers by
+//    ldmatrix, once for the six products that use them);
+//  * one thread of a producer warpgroup issues the weight copy and every
+//    halo unit, each once the team that read the unit HS before it
+//    released it; a team issues a unit's wgmmas as one group and releases
+//    the unit before it once that group is retired (wgmma_wait<1>), with a
+//    predicated arrival: no branch on the thread index between a wgmma and
+//    its wait.  setmaxnreg hands the producer's registers to the teams.
+// Streamed (`Wide`, `conv3x3_wide_kernel`): K2 at every width, bf16 K1 at
+// 128 (294,912 B of weights) and float32 K1 at 96 and 128, the halo in
+// two unit slots and the weights through a ring of four tap stages by
+// bulk copies; the producer warpgroup as above; the warpgroups one output
+// row of 64 pixels each (TH = 4, or 2 in float32 at N 96 and 128, whose
+// acc and cor take 96 and 128 registers); each tap's release a predicated
+// arrival after the wait that retires the tap before it.
+// Epilogues: K1 writes from the accumulator fragment (bf16 pairs; float32
+// pairs and, where the caller passes `planes`, the hi, mid and lo bf16
+// pairs of its value by tc.cuh's split2, the split pass's own arithmetic:
+// the next layer's operand, so no split pass runs between hidden layers);
+// K2's is tc.cuh's HeadEpilogue.
 #pragma once
 
 #include "tc.cuh"
@@ -145,8 +164,26 @@ __device__ __forceinline__ void fence_acc(float (&acc)[K::N / 2],
   if constexpr (K::F32) fence_regs(cor);
 }
 
+// float32 K1's value pair (v0, v1) at element `at` of (B, H, W, F) into
+// `out` (float32, if given) and its hi, mid and lo pairs into `planes`
+// (three (B, H, W, F) bf16 planes `plane` elements apart, if given).
+__device__ __forceinline__ void store_f32(float v0, float v1, long long at,
+                                          float* out, bf16* planes,
+                                          long long plane) {
+  if (out != nullptr)
+    *reinterpret_cast<float2*>(out + at) = make_float2(v0, v1);
+  if (planes != nullptr) {
+    uint32_t hi, mid, lo;
+    split2(v0, v1, hi, mid, lo);
+    *reinterpret_cast<uint32_t*>(planes + at) = hi;
+    *reinterpret_cast<uint32_t*>(planes + plane + at) = mid;
+    *reinterpret_cast<uint32_t*>(planes + 2 * plane + at) = lo;
+  }
+}
+
 // `x`: the input's tensor map (B images, or the three planes' 3B);
-// `w`: the packed weights, [unit][tap][split][k / 8][n][8] bf16.
+// `w`: the packed weights, [unit][tap][split][k / 8][n][8] bf16;
+// `planes`: float32 K1's output planes (or null; K2 and bf16 ignore it).
 template <int PLANES, int CIN, int R>
 __global__ void __launch_bounds__(Wide<PLANES, CIN, R>::THREADS, 1)
 conv3x3_wide_kernel(const __grid_constant__ CUtensorMap map,
@@ -154,7 +191,8 @@ conv3x3_wide_kernel(const __grid_constant__ CUtensorMap map,
                     const float* __restrict__ bias,
                     const float* __restrict__ alpha,
                     const uint8_t* __restrict__ orig,
-                    void* __restrict__ out, int B, int H, int W) {
+                    void* __restrict__ out, bf16* __restrict__ planes,
+                    int B, int H, int W) {
   using K = Wide<PLANES, CIN, R>;
   using Epi = typename K::Epi;
   constexpr int N = K::N, COUT = K::COUT, TH = K::TH, UNITS = K::UNITS;
@@ -293,8 +331,8 @@ conv3x3_wide_kernel(const __grid_constant__ CUtensorMap map,
                   __fadd_rn(__fadd_rn(acc[q + 1], cor[q + 1]), bs[c + 1]);
               v0 = v0 > 0.f ? v0 : __fmul_rn(as[c], v0);
               v1 = v1 > 0.f ? v1 : __fmul_rn(as[c + 1], v1);
-              *reinterpret_cast<float2*>(static_cast<float*>(out) + at) =
-                  make_float2(v0, v1);
+              store_f32(v0, v1, at, static_cast<float*>(out), planes,
+                        (long long)B * H * W * COUT);
             } else {
               // (acc + b) in float32, cast to bf16; PReLU in bf16:
               // max(v, 0) + bf16(alpha * min(v, 0))
@@ -327,7 +365,8 @@ conv3x3_wide_kernel(const __grid_constant__ CUtensorMap map,
 template <int PLANES, int CIN, int R>
 cudaError_t launch(const void* x, const void* w, const float* b,
                    const float* alpha, const uint8_t* orig, void* out, int B,
-                   int H, int W, cudaStream_t stream) {
+                   int H, int W, cudaStream_t stream,
+                   void* planes = nullptr) {
   using K = Wide<PLANES, CIN, R>;
   const long long tiles =
       (long long)B * ((H + K::TH - 1) / K::TH) * ((W + TW - 1) / TW);
@@ -348,22 +387,418 @@ cudaError_t launch(const void* x, const void* w, const float* b,
   err = reve::persistent_grid(kernel, K::THREADS, K::SMEM, tiles, &grid);
   if (err != cudaSuccess) return err;
   kernel<<<grid, K::THREADS, K::SMEM, stream>>>(
-      map, static_cast<const bf16*>(w), b, alpha, orig, out, B, H, W);
+      map, static_cast<const bf16*>(w), b, alpha, orig, out,
+      static_cast<bf16*>(planes), B, H, W);
   return cudaGetLastError();
 }
 
-// K1 at `feat` (32, 96, 128) input and output channels.
+// The resident K1's shape: teams of TEAM_WGS warpgroups of RPW rows each,
+// HS halo slots; AREGS (float32 at N 32): the A fragments of the three
+// planes read into registers (ldmatrix) once for their six products, a
+// tap at a time in two sets of registers.
+template <int TEAM_WGS_, int RPW_, int HS_, bool AREGS_ = false>
+struct Shape {
+  static constexpr int TEAM_WGS = TEAM_WGS_, RPW = RPW_, HS = HS_;
+  static constexpr bool AREGS = AREGS_;
+};
+
+template <int PLANES, int CIN, class S>
+struct Res {
+  static constexpr bool F32 = PLANES == 3;
+  static constexpr int N = CIN;  // K1: Cout = Cin, a multiple of 32
+  static constexpr int TEAMS = 2;
+  static constexpr int TEAM_WGS = S::TEAM_WGS, RPW = S::RPW, HS = S::HS;
+  static constexpr bool AREGS = S::AREGS;
+  static constexpr int WGS = TEAMS * TEAM_WGS;
+  static constexpr int TH = TEAM_WGS * RPW;  // tile rows
+  static constexpr int THREADS = 128 * (WGS + 1);  // + the producer
+  // registers a thread, as Wide's: launch() refuses a kernel that ptxas
+  // gave another count than LAUNCH_REGS
+  static constexpr int LAUNCH_REGS = 65536 / THREADS / 8 * 8;
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int SPARE =
+      ((WGS + 1) * LAUNCH_REGS - PRODUCER_REGS) / WGS / 8 * 8;
+  static constexpr int CONSUMER_REGS = SPARE > 256 ? 256 : SPARE;
+  static constexpr int UNITS = CIN / CK;
+  static constexpr int HALO_TX = (TH + 2) * (TW + 2) * CK * 2;  // a plane
+  static constexpr int HALO_BYTES = (HALO_TX + 1023) / 1024 * 1024;
+  static constexpr int SLOT = PLANES * HALO_BYTES;  // a unit's halo
+  static constexpr int SLOT_TX = PLANES * HALO_TX;  // ... its copies' bytes
+  static constexpr int SPLIT_BYTES = CK * N * 2;    // a tap's weights, a split
+  static constexpr int TAP_BYTES = PLANES * SPLIT_BYTES;
+  static constexpr int W_BYTES = UNITS * 9 * TAP_BYTES;  // all of them
+  static constexpr size_t OFF_W = (size_t)HS * SLOT;
+  static constexpr size_t OFF_PAR = OFF_W + W_BYTES;  // bias, alpha
+  static constexpr size_t OFF_BAR = OFF_PAR + 2 * N * sizeof(float);
+  // barriers: HS full, HS empty, the weights', a team's turn each
+  static constexpr size_t SMEM =
+      OFF_BAR + (2 * HS + 1 + TEAMS) * sizeof(uint64_t);
+  static_assert(CIN % CK == 0, "Cin in whole units of 32 channels");
+  static_assert(SMEM <= 232448, "more shared memory than a block may have");
+  static_assert(OFF_PAR % 16 == 0 && OFF_BAR % 8 == 0,
+                "16-B weights and parameters, 8-B barriers");
+  static_assert(PRODUCER_REGS + WGS * CONSUMER_REGS <=
+                    (WGS + 1) * LAUNCH_REGS,
+                "more registers than the block was launched with");
+  static_assert(!S::AREGS || (F32 && N == 32),
+                "A in registers: float32 at N 32 (Wgmma<32>'s form)");
+};
+
+// The resident K1's shape at each width, the fastest of those tried on an
+// H100 SXM (teams of one or two warpgroups of one to eight rows, 2 to 6
+// slots): bf16 32 teams of two warpgroups of four rows, 4 slots; bf16 96
+// of one row each, 3 slots (the weights take 165,888 B; at two rows a
+// warpgroup 96 accumulator registers would spill); float32 32 of one row
+// each, 3 slots of three planes, A in registers (from shared memory each
+// m64n32k16 reads 2 KB of A for 1 KB of B: six of them a k16 step read
+// more than shared memory delivers in their time; two rows a warpgroup
+// spilled).
+template <int PLANES, int CIN>
+struct ResShape;
+template <>
+struct ResShape<1, 32> : Shape<2, 4, 4> {};
+template <>
+struct ResShape<1, 96> : Shape<2, 1, 3> {};
+template <>
+struct ResShape<3, 32> : Shape<2, 1, 3, true> {};
+
+// mma_step (a k16 step of one row) with A in registers: a[q] the
+// fragments of planes hi, mid, lo.
+template <class K>
+__device__ __forceinline__ void res_step_regs(float (&acc)[K::N / 2],
+                                              float (&cor)[K::N / 2],
+                                              const uint32_t (&a)[3][4],
+                                              uint32_t w) {
+  constexpr int N = K::N;
+  const uint64_t bh = desc(w, N * 16), bm = desc(w + K::SPLIT_BYTES, N * 16),
+                 bl = desc(w + 2 * K::SPLIT_BYTES, N * 16);
+  Wgmma<N>::mma(cor, a[2], bh);
+  Wgmma<N>::mma(cor, a[0], bl);
+  Wgmma<N>::mma(cor, a[1], bm);
+  Wgmma<N>::mma(cor, a[1], bh);
+  Wgmma<N>::mma(cor, a[0], bm);
+  Wgmma<N>::mma(acc, a[0], bh);
+}
+
+template <class K>
+__device__ __forceinline__ void res_fence(
+    float (&acc)[K::RPW][K::N / 2],
+    float (&cor)[K::RPW][K::N / 2]) {
+#pragma unroll
+  for (int s = 0; s < K::RPW; ++s) {
+    fence_regs(acc[s]);
+    if constexpr (K::F32) fence_regs(cor[s]);
+  }
+}
+
+// The wgmmas of one unit into the warpgroup's RPW rows, one group:
+// `a_rows` its first halo row in the slot, `wu` the unit's weights.  With
+// A in registers (`lm`: this lane's ldmatrix row and 16-B half, in
+// bytes), a group a tap, the tap before waited on (wgmma_wait<1>) before
+// its fragments' registers are loaded again.
+template <class K>
+__device__ __forceinline__ void res_unit(
+    float (&acc)[K::RPW][K::N / 2],
+    float (&cor)[K::RPW][K::N / 2], uint32_t a_rows,
+    uint32_t wu, uint32_t lm) {
+  constexpr int RPW = K::RPW;
+  res_fence<K>(acc, cor);
+  if constexpr (K::AREGS) {
+    uint32_t af[2][RPW][CK / 16][3][4];
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int h = tap & 1;
+#pragma unroll
+      for (int s = 0; s < RPW; ++s)
+#pragma unroll
+        for (int kc = 0; kc < CK / 16; ++kc)
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            const uint32_t a = a_rows + q * K::HALO_BYTES +
+                               ((s + tap / 3) * (TW + 2) + tap % 3) * CK * 2 +
+                               kc * 32 + lm;
+            ldmatrix_x4(af[h][s][kc][q], swizzle<64>(a));
+          }
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < CK / 16; ++kc)
+#pragma unroll
+        for (int s = 0; s < RPW; ++s)
+          res_step_regs<K>(acc[s], cor[s], af[h][s][kc],
+                           wu + tap * K::TAP_BYTES + 2 * kc * K::N * 16);
+      wgmma_commit();
+      res_fence<K>(acc, cor);
+      // the tap before is done: its fragments' registers are free
+      wgmma_wait<1>();
+#pragma unroll
+      for (int s = 0; s < RPW; ++s)
+#pragma unroll
+        for (int kc = 0; kc < CK / 16; ++kc)
+#pragma unroll
+          for (int q = 0; q < 3; ++q) fence_regs(af[h ^ 1][s][kc][q]);
+    }
+    // the last tap's fragments stay live until its wgmmas are done
+    wgmma_wait<0>();
+#pragma unroll
+    for (int s = 0; s < RPW; ++s)
+#pragma unroll
+      for (int kc = 0; kc < CK / 16; ++kc)
+#pragma unroll
+        for (int q = 0; q < 3; ++q) fence_regs(af[0][s][kc][q]);
+    res_fence<K>(acc, cor);
+  } else {
+    wgmma_fence();
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+      for (int kc = 0; kc < CK / 16; ++kc)
+#pragma unroll
+        for (int s = 0; s < RPW; ++s)
+          mma_step<K>(acc[s], cor[s],
+                      a_rows + ((s + tap / 3) * (TW + 2) + tap % 3) * CK * 2 +
+                          kc * 32,
+                      wu + tap * K::TAP_BYTES + 2 * kc * K::N * 16);
+    wgmma_commit();
+    res_fence<K>(acc, cor);
+  }
+}
+
+// The bf16 pairs of one 32-channel group of a pixel (m[j]: channels 32g +
+// 8j + 2 (lane % 4) + {0, 1}) written at `dst` (the pixel's channel 32g)
+// as 4-B pairs.  (Turned around across each quad of lanes first and
+// written as one 16-B vector a lane, as rrdb.cu's quad_transpose does,
+// every form took longer on an H100 SXM.)
+__device__ __forceinline__ void store_group(const uint32_t (&m)[4], bf16* dst,
+                                            int c0) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    *reinterpret_cast<uint32_t*>(dst + 8 * j + c0) = m[j];
+}
+
+// `map`: the input's tensor map (B images, or the three planes' 3B); `w`:
+// the packed weights; `out`: K1's output (bf16, or float32 where given);
+// `planes`: float32 K1's output planes (or null).
+template <int PLANES, int CIN, class S>
+__global__ void __launch_bounds__(Res<PLANES, CIN, S>::THREADS, 1)
+conv3x3_wide_res_kernel(const __grid_constant__ CUtensorMap map,
+                        const bf16* __restrict__ w,
+                        const float* __restrict__ bias,
+                        const float* __restrict__ alpha,
+                        void* __restrict__ out, bf16* __restrict__ planes,
+                        int B, int H, int W) {
+  using K = Res<PLANES, CIN, S>;
+  constexpr int N = K::N, UNITS = K::UNITS, WGS = K::WGS, HS = K::HS;
+  constexpr int TEAM_WGS = K::TEAM_WGS, RPW = K::RPW;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, t = tid & 127;
+
+  float* bs = reinterpret_cast<float*>(smem + K::OFF_PAR);
+  float* as = bs + N;
+  for (int i = tid; i < N; i += K::THREADS) {
+    bs[i] = bias[i];
+    as[i] = alpha[i];
+  }
+  const uint32_t h_full = base + (uint32_t)K::OFF_BAR;
+  const uint32_t h_empty = h_full + 8 * HS;
+  const uint32_t w_full = h_empty + 8 * HS;
+  const uint32_t turn = w_full + 8;  // + 8 * team
+  if (tid == 0) {
+    for (int s = 0; s < HS; ++s) {
+      mbar_init(h_full + 8 * s, 1);
+      mbar_init(h_empty + 8 * s, TEAM_WGS);
+    }
+    mbar_init(w_full, 1);
+    for (int m = 0; m < K::TEAMS; ++m) mbar_init(turn + 8 * m, TEAM_WGS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const TileGrid<K::TH, TW> g(B, H, W);
+
+  if (wg == WGS) {
+    // The producer: one thread issues the weights' copy, then every halo
+    // unit in the order the teams read them: the block's gh-th unit
+    // (unit gh % UNITS of its tile gh / UNITS) goes to slot gh % HS once
+    // the team that read unit gh - HS released it.
+    setmaxnreg_dec<K::PRODUCER_REGS>();
+    if (t != 0) return;
+    mbar_expect_tx(w_full, K::W_BYTES);
+    bulk_load(base + (uint32_t)K::OFF_W, w, K::W_BYTES, w_full);
+    uint32_t gh = 0;
+    for (long long tile = blockIdx.x; tile < g.count; tile += gridDim.x) {
+      int b, y0, x0;
+      g.origin(tile, b, y0, x0);
+      for (int u = 0; u < UNITS; ++u, ++gh) {
+        const uint32_t hs = gh % HS;
+        if (gh >= HS) mbar_wait(h_empty + 8 * hs, (gh / HS - 1) & 1);
+        mbar_expect_tx(h_full + 8 * hs, K::SLOT_TX);
+        for (int q = 0; q < PLANES; ++q)
+          tma_load_4d(base + hs * K::SLOT + q * K::HALO_BYTES, &map,
+                      h_full + 8 * hs, u * CK, x0 - 1, y0 - 1, q * B + b);
+      }
+    }
+    return;
+  }
+
+  // The teams: team m takes the block's tiles m, m + 2, ...; its
+  // wgmmas follow the other team's last (`turn`).
+  setmaxnreg_inc<K::CONSUMER_REGS>();
+  const int team = wg / TEAM_WGS;
+  const int r0 = (wg % TEAM_WGS) * RPW;  // the warpgroup's first tile row
+  const int lane = t & 31;
+  const int p0 = (t >> 5) * 16 + (lane >> 2), c0 = (lane & 3) * 2;
+  // ldmatrix (AREGS): this lane's row of the warp's 16 and its 16-B half
+  const uint32_t lm =
+      ((t >> 5) * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * CK * 2 +
+      (lane >> 4) * 16;
+  const long long plane = (long long)B * H * W * N;
+  mbar_wait(w_full, 0);
+  int j = 0;  // the team's tiles so far
+  for (long long tile = blockIdx.x + team * gridDim.x; tile < g.count;
+       tile += K::TEAMS * gridDim.x, ++j) {
+    const long long kk = 2LL * j + team;  // the block's tile index
+    int b, y0, x0;
+    g.origin(tile, b, y0, x0);
+    // the other team has issued its wgmmas of the block's tile kk - 1
+    if (kk > 0) mbar_wait(turn + 8 * team, (uint32_t)((j - 1 + team) & 1));
+    float acc[RPW][N / 2], cor[RPW][N / 2];  // cor: float32's
+#pragma unroll
+    for (int s = 0; s < RPW; ++s)
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) acc[s][i] = cor[s][i] = 0.f;
+    uint32_t gh = (uint32_t)kk * UNITS;  // the block's unit
+#pragma unroll 1
+    for (int u = 0; u < UNITS; ++u, ++gh) {
+      const uint32_t hs = gh % HS;
+      mbar_wait(h_full + 8 * hs, (gh / HS) & 1);
+      res_unit<K>(acc, cor, base + hs * K::SLOT + r0 * (TW + 2) * CK * 2,
+                  base + (uint32_t)(K::OFF_W + u * 9 * K::TAP_BYTES), lm);
+      // the unit before this one is done: release its slot
+      wgmma_wait<1>();
+      mbar_arrive_if(h_empty + 8 * ((gh + HS - 1) % HS), t == 0 && u > 0);
+    }
+    // the other team's turn; then this tile's last wgmmas and its slot
+    mbar_arrive_if(turn + 8 * (1 - team), t == 0);
+    wgmma_wait<0>();
+    res_fence<K>(acc, cor);
+    mbar_arrive_if(h_empty + 8 * ((gh - 1) % HS), t == 0);
+
+    // accumulator fragment: register 4j + 2h + e of row s holds pixel
+    // 16 * warp + lane / 4 + 8h, channel 8j + 2 * (lane % 4) + e
+#pragma unroll
+    for (int s = 0; s < RPW; ++s) {
+      const int oy = y0 + r0 + s;
+      if (oy >= H) continue;
+      const long long row = ((long long)b * H + oy) * W;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = p0 + 8 * h;
+        if (x0 + p >= W) continue;
+        const long long px = (row + x0 + p) * N;
+#pragma unroll
+        for (int g32 = 0; g32 < N / 32; ++g32) {
+          // the group's four pairs: hi, mid, lo (float32) or the bf16
+          // output
+          uint32_t m[3][4];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int c = 32 * g32 + 8 * jj + c0, q = 4 * (4 * g32 + jj) + 2 * h;
+            const float2 bi = *reinterpret_cast<const float2*>(bs + c);
+            const float2 al = *reinterpret_cast<const float2*>(as + c);
+            if constexpr (K::F32) {
+              // conv + b in float32; PReLU in float32:
+              // max(v, 0) + alpha * min(v, 0)
+              float v0 = __fadd_rn(__fadd_rn(acc[s][q], cor[s][q]), bi.x);
+              float v1 =
+                  __fadd_rn(__fadd_rn(acc[s][q + 1], cor[s][q + 1]), bi.y);
+              v0 = v0 > 0.f ? v0 : __fmul_rn(al.x, v0);
+              v1 = v1 > 0.f ? v1 : __fmul_rn(al.y, v1);
+              if (out != nullptr)
+                *reinterpret_cast<float2*>(static_cast<float*>(out) + px +
+                                           c) = make_float2(v0, v1);
+              split2(v0, v1, m[0][jj], m[1][jj], m[2][jj]);
+            } else {
+              // (acc + b) in float32, cast to bf16; PReLU in bf16:
+              // max(v, 0) + bf16(alpha * min(v, 0))
+              __nv_bfloat162 y2;
+              float f = round_to<bf16>(__fadd_rn(acc[s][q], bi.x));
+              y2.x = __float2bfloat16_rn(f > 0.f ? f : __fmul_rn(al.x, f));
+              f = round_to<bf16>(__fadd_rn(acc[s][q + 1], bi.y));
+              y2.y = __float2bfloat16_rn(f > 0.f ? f : __fmul_rn(al.y, f));
+              m[0][jj] = *reinterpret_cast<const uint32_t*>(&y2);
+            }
+          }
+          if constexpr (K::F32) {
+            if (planes != nullptr)
+#pragma unroll
+              for (int pl = 0; pl < 3; ++pl)
+                store_group(m[pl], planes + pl * plane + px + 32 * g32, c0);
+          } else {
+            store_group(m[0], static_cast<bf16*>(out) + px + 32 * g32, c0);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int PLANES, int CIN, class S>
+cudaError_t launch_res(const void* x, const void* w, const float* b,
+                       const float* alpha, void* out, void* planes, int B,
+                       int H, int W, cudaStream_t stream) {
+  using K = Res<PLANES, CIN, S>;
+  const long long tiles =
+      (long long)B * ((H + K::TH - 1) / K::TH) * ((W + TW - 1) / TW);
+  if (tiles == 0) return cudaSuccess;
+  CUtensorMap map;
+  cudaError_t err = halo_map(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x,
+                             PLANES * B, H, W, TW + 2, K::TH + 2,
+                             CU_TENSOR_MAP_SWIZZLE_64B, CK, CIN);
+  if (err != cudaSuccess) return err;
+  auto kernel = conv3x3_wide_res_kernel<PLANES, CIN, S>;
+  // the registers setmaxnreg redistributes are those the block launched
+  // with: any other count than the budget's would hang the card
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs != K::LAUNCH_REGS) return cudaErrorLaunchOutOfResources;
+  int grid = 0;
+  err = reve::persistent_grid(kernel, K::THREADS, K::SMEM, tiles, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, K::THREADS, K::SMEM, stream>>>(
+      map, static_cast<const bf16*>(w), b, alpha, out,
+      static_cast<bf16*>(planes), B, H, W);
+  return cudaGetLastError();
+}
+
+// The resident K1 at its width's shape (ResShape).
+template <int PLANES, int CIN>
+cudaError_t k1_res(const void* x, const void* w, const float* b,
+                   const float* alpha, void* y, void* planes, int B, int H,
+                   int W, cudaStream_t s) {
+  return launch_res<PLANES, CIN, ResShape<PLANES, CIN>>(x, w, b, alpha, y,
+                                                        planes, B, H, W, s);
+}
+
+// K1 at `feat` (32, 96, 128) input and output channels: resident at bf16
+// 32 and 96 and float32 32, streamed at the others.  `y`: the output
+// (float32: may be null); `planes`: float32's output planes (or null).
 template <int PLANES>
 cudaError_t k1(const void* x, const void* w, const float* b,
-               const float* alpha, void* y, int B, int H, int W, int feat,
-               cudaStream_t s) {
+               const float* alpha, void* y, void* planes, int B, int H,
+               int W, int feat, cudaStream_t s) {
   switch (feat) {
-    case 32: return launch<PLANES, 32, 0>(x, w, b, alpha, nullptr, y, B, H,
-                                          W, s);
-    case 96: return launch<PLANES, 96, 0>(x, w, b, alpha, nullptr, y, B, H,
-                                          W, s);
+    case 32: return k1_res<PLANES, 32>(x, w, b, alpha, y, planes, B, H, W,
+                                       s);
+    case 96:
+      if constexpr (PLANES == 1)
+        return k1_res<PLANES, 96>(x, w, b, alpha, y, planes, B, H, W, s);
+      else
+        return launch<PLANES, 96, 0>(x, w, b, alpha, nullptr, y, B, H, W, s,
+                                     planes);
     case 128: return launch<PLANES, 128, 0>(x, w, b, alpha, nullptr, y, B,
-                                            H, W, s);
+                                            H, W, s, planes);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -65,8 +65,9 @@ from reve_tpu_torch.kernels import LAUNCHES, build
 from reve_tpu_torch.kernels.conv3x3 import (F32_SOURCE, FEAT, TC_SOURCE,
                                             check_operands, check_width,
                                             conv3x3_plain, f32_operand,
-                                            pack_weights_bf16x3,
-                                            pack_weights_wide, split_bf16x3)
+                                            merge_bf16x3_plain,
+                                            pack_weights_bf16x3, packed_wide,
+                                            split_bf16x3)
 from reve_tpu_torch.kernels.conv3x3_s8 import (SOURCE as S8_SOURCE,
                                                conv3x3_s8_plain,
                                                pack_weights_s8,
@@ -88,7 +89,16 @@ def residual_u8_plain(h: torch.Tensor, u8: torch.Tensor,
     return pixel_shuffle(q, r).contiguous()
 
 
+def _is_planes(h: torch.Tensor, w: torch.Tensor) -> bool:
+    """`h` is the split planes (3, B, H, W, F) bfloat16 of a float32
+    input to float32 weights (conv3x3.conv3x3_bias_prelu_planes')."""
+    return h.dim() == 5 and h.dtype == torch.bfloat16 and \
+        w.dtype == torch.float32
+
+
 def head_conv_residual_u8_shuffle_plain(h, w, b, u8, r: int) -> torch.Tensor:
+    if _is_planes(h, w):
+        h = merge_bf16x3_plain(h)
     return residual_u8_plain(conv3x3_plain(h, w, b), u8, r)
 
 
@@ -146,12 +156,20 @@ def head_conv_residual_u8_shuffle(h: torch.Tensor, w: torch.Tensor,
     """K2: head conv (B, H, W, F) x (3, 3, F, 3r^2) HWIO in the compute
     dtype, F one of WIDTHS, + the u8 residual epilogue -> (B, H*r, W*r, 3)
     uint8.  float32 launches two kernels: the split pass and the bf16x6
-    conv.  F = 64 runs the 64-feature kernels, the other widths the wide
-    forms (csrc/conv3x3_wide.cuh), their weights packed by
-    pack_weights_wide."""
+    conv; given the split planes (3, B, H, W, F) bfloat16 of its input
+    (conv3x3.conv3x3_bias_prelu_planes') it launches the conv alone.  F =
+    64 runs the 64-feature kernels, the other widths the wide forms
+    (csrc/conv3x3_wide.cuh), their weights packed once (packed_wide)."""
     if h.device.type == "cpu":
         return head_conv_residual_u8_shuffle_plain(h, w, b, u8, r)
-    if w.dtype not in _DTYPES or h.dtype != w.dtype:
+    planes = None
+    if _is_planes(h, w):
+        if h.shape[0] != 3:
+            raise ValueError(f"head planes {tuple(h.shape)}, expected (3, "
+                             f"B, H, W, F)")
+        check_operands(h)
+        planes, h = h, h[0]
+    elif w.dtype not in _DTYPES or h.dtype != w.dtype:
         raise TypeError(f"head dtypes {h.dtype}/{w.dtype}; expected one "
                         f"of float32, bfloat16 for both")
     feat = h.shape[-1] if h.dim() == 4 else FEAT
@@ -168,15 +186,15 @@ def head_conv_residual_u8_shuffle(h: torch.Tensor, w: torch.Tensor,
                 (h, w, bb), u8, out, (r,), what)
     elif feat == FEAT:
         _launch(F32_SOURCE, "reve_head_conv_residual_u8_shuffle_f32tc",
-                (split_bf16x3(h), pack_weights_bf16x3(w), bb), u8, out,
-                (r,), what)
+                (planes if planes is not None else split_bf16x3(h),
+                 pack_weights_bf16x3(w), bb), u8, out, (r,), what)
     elif bf16:
         _launch(TC_SOURCE, "reve_head_conv_residual_u8_shuffle_wide_tc",
-                (h, pack_weights_wide(w), bb), u8, out, (feat, r), what)
+                (h, packed_wide(w), bb), u8, out, (feat, r), what)
     else:
         _launch(F32_SOURCE, "reve_head_conv_residual_u8_shuffle_wide_f32tc",
-                (split_bf16x3(h), pack_weights_wide(w), bb), u8, out,
-                (feat, r), what)
+                (planes if planes is not None else split_bf16x3(h),
+                 packed_wide(w), bb), u8, out, (feat, r), what)
     LAUNCHES["head_conv_residual_u8_shuffle"] += 1
     return out
 

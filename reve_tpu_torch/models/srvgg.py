@@ -20,12 +20,17 @@ first conv, K1 each hidden conv, K2 the head with its epilogue), at any
 num_feat the kernels take on the card (kernels.conv3x3.WIDTHS: 32, 64,
 96, 128); on CPU tensors each kernel wrapper runs its plain PyTorch
 version (any width), and `plain=True` runs the plain versions on any
-device (the reference path).  `apply_int8` is the int8 turbo path on
-K4a, K4 and K4h, at the same widths on the card (each wrapper takes the
-width of its operands: the 64-feature kernels at 64, the wide forms at
-32, 96 and 128).  `apply_float`
-is the float32 forward that training differentiates, on T1 (and, under
-autograd, T2 and T3 in the backward).
+device (the reference path).  In float32 at 32, 96 and 128 features the
+hidden layers pass the split planes of their output from K1 to K1 and
+into K2 (conv3x3.conv3x3_bias_prelu_planes): one split pass a call,
+after K3 (`body`, which the int8 calibration runs too).
+`prepare` casts the weights to the compute dtype once, so the wide
+kernels' packed weights are packed once too.  `apply_int8` is the int8
+turbo path on K4a, K4 and K4h, at the same widths on the card (each
+wrapper takes the width of its operands: the 64-feature kernels at 64,
+the wide forms at 32, 96 and 128).  `apply_float` is the float32
+forward that training differentiates, on T1 (and, under autograd, T2
+and T3 in the backward).
 """
 
 from __future__ import annotations
@@ -122,6 +127,75 @@ def params_to(params: Params, device) -> Params:
     }
 
 
+def prepare(params: Params, dtype: torch.dtype) -> Params:
+    """params with each conv's weights cast to the compute dtype once (the
+    same tensors in float32): what `apply` casts them to at each call, so
+    the wide kernels' packs (conv3x3.packed_wide, kept on the weights)
+    are made once for every batch.  Biases and alphas stay float32."""
+    return {
+        "convs": [dict(c, w=c["w"].to(dtype).contiguous())
+                  for c in params["convs"]],
+        "prelus": params["prelus"],
+    }
+
+
+def carries_planes(num_feat: int, compute_dtype: torch.dtype) -> bool:
+    """Whether the hidden layers pass the split planes of their output
+    from K1 to K1 and into K2 (conv3x3.conv3x3_bias_prelu_planes): in
+    float32 at the wide widths (32, 96, 128) on the card."""
+    return compute_dtype == torch.float32 and num_feat != conv3x3.FEAT
+
+
+def split_passes(cfg: SRVGGConfig, compute_dtype: torch.dtype) -> int:
+    """The split passes (conv3x3.split_bf16x3) of one `apply` call on the
+    card: none in bfloat16; in float32 one after K3 where the hidden layers
+    carry planes, else one before each K1 and K2."""
+    if compute_dtype != torch.float32:
+        return 0
+    return 1 if carries_planes(cfg.num_feat, compute_dtype) else \
+        cfg.num_conv + 1
+
+
+def body(params: Params, u8: torch.Tensor, *, cfg: SRVGGConfig,
+         compute_dtype: torch.dtype, plain: bool = False,
+         each=None) -> torch.Tensor:
+    """The first conv (K3) on the u8 frames and the num_conv hidden convs
+    (K1) -> the head's operand: the last layer's output, or, where the
+    layers carry planes (carries_planes; not with `plain`), its split
+    planes, after one split pass of K3's output.  `each`, if given, is
+    called with K3's output and each hidden layer's, in the compute dtype
+    (with planes, the float32 value the same kernel writes beside them).
+    It holds no layer's output past the layer after it (the caller holds
+    none): the float32 call's memory bill, engine.srvgg_act_bytes, counts
+    on that."""
+    dt = compute_dtype
+    convs, prelus = params["convs"], params["prelus"]
+    first = conv3x3.conv3x3_u8_bias_prelu_plain if plain else \
+        conv3x3.conv3x3_u8_bias_prelu
+    h = first(u8, convs[0]["w"].to(dt).contiguous(), convs[0]["b"],
+              prelus[0]["alpha"])
+    if each is not None:
+        each(h)
+    planes = not plain and carries_planes(cfg.num_feat, dt)
+    if planes:
+        h = conv3x3.split_bf16x3(h)
+    hidden = conv3x3.conv3x3_bias_prelu_plain if plain else \
+        conv3x3.conv3x3_bias_prelu
+    for i in range(cfg.num_conv):
+        args = (convs[i + 1]["w"].to(dt).contiguous(), convs[i + 1]["b"],
+                prelus[i + 1]["alpha"])
+        if not planes:
+            h = value = hidden(h, *args)
+        elif each is None:
+            h = conv3x3.conv3x3_bias_prelu_planes(h, *args)
+        else:
+            h, value = conv3x3.conv3x3_bias_prelu_planes(h, *args,
+                                                         value=True)
+        if each is not None:
+            each(value)
+    return h
+
+
 def apply(params: Params, u8: torch.Tensor, *, cfg: SRVGGConfig,
           compute_dtype: torch.dtype = torch.float32,
           plain: bool = False) -> torch.Tensor:
@@ -143,18 +217,9 @@ def apply(params: Params, u8: torch.Tensor, *, cfg: SRVGGConfig,
         raise ValueError(f"params hold {len(convs)} convs / {len(prelus)} "
                          f"prelus; cfg needs {cfg.num_conv + 2} / "
                          f"{cfg.num_conv + 1}")
-    if plain:
-        first = conv3x3.conv3x3_u8_bias_prelu_plain
-        hidden = conv3x3.conv3x3_bias_prelu_plain
-        last = head.head_conv_residual_u8_shuffle_plain
-    else:
-        first = conv3x3.conv3x3_u8_bias_prelu
-        hidden = conv3x3.conv3x3_bias_prelu
-        last = head.head_conv_residual_u8_shuffle
-    h = first(u8, convs[0]["w"].to(dt), convs[0]["b"], prelus[0]["alpha"])
-    for i in range(cfg.num_conv):
-        h = hidden(h, convs[i + 1]["w"].to(dt), convs[i + 1]["b"],
-                   prelus[i + 1]["alpha"])
+    last = head.head_conv_residual_u8_shuffle_plain if plain else \
+        head.head_conv_residual_u8_shuffle
+    h = body(params, u8, cfg=cfg, compute_dtype=dt, plain=plain)
     return last(h, convs[-1]["w"].to(dt), convs[-1]["b"], u8, cfg.upscale)
 
 

@@ -157,7 +157,9 @@ def srvgg_act_bytes(h: int, w: int, num_feat: int,
     and output, _ACT_BUFFERS tensors of num_feat values in `dtype` (s8
     from K4a on in int8), and in float32 the three bf16 split planes of
     the input (_SPLIT_BYTES a value) that the split pass writes for K1
-    and K2 and that live until the conv returns."""
+    and K2 and that live until the conv returns.  At the wide widths
+    float32 K1 reads its input's planes and writes its output's instead
+    (12 B a value held, K3's output and its planes 10): within the bill."""
     split = _SPLIT_BYTES if dtype == torch.float32 else 0
     return h * w * num_feat * (dtype.itemsize * _ACT_BUFFERS + split)
 
@@ -328,6 +330,9 @@ class UpscaleEngine:
             self.params = srvgg.params_to(params, self.device)
             if self._int8:
                 self._params_f32 = self.params
+            else:
+                # weights cast once; the wide kernels' packs made once
+                self.params = srvgg.prepare(self.params, self.compute_dtype)
         self.scale = cfg.upscale
         self.batch_size = batch_size
         #: 0 = tile only frames past the memory plan, -1 = never tile,

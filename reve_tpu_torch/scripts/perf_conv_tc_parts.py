@@ -28,6 +28,17 @@ each SM:
     weights stream tap by tap in every variant: `no_load` takes out the
     halo loads only;
   * kernels/csrc/conv3x3_s8.cu: K4 (`k4_ms`) and K4h at r=4 (`k4h_ms`);
+  * kernels/csrc/conv3x3_wide.cuh (the header; conv3x3_tc.cu and
+    conv3x3_f32_tc.cu are built over each variant of it): K1 at 32 and 96
+    features in bfloat16 (`k1_32_ms`, `k1_96_ms`), and float32 K1 at 32,
+    its conv alone as the model calls it (`k1_f32_32_conv_ms`: on split
+    planes, writing its output's planes) and its split pass alone
+    (`k1_f32_32_split_ms`).  Its variants: `no_load` (the halo loads after
+    each block's first tile), `no_mma`, `no_epi`, `weights_only` (the
+    weight copies alone: no halo loads after the first tile, no wgmmas, no
+    epilogue) and `streamed` (the three forms on the streamed kernel that
+    K1 at the other widths runs, whole and right: what the resident
+    design gains);
   * kernels/csrc/conv3x3.cu: K3 in bfloat16 (`k3_ms`) and float32
     (`k3_f32_ms`), K4a with its conv in bfloat16 (`k4a_ms`) and float32
     (`k4a_f32_ms`), and K3 at Cin 12 (R = 2) at RRDB x2's shape, the
@@ -99,6 +110,7 @@ import argparse
 import ctypes
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -323,6 +335,54 @@ PATCHES[train.SOURCE] = {
                 "    return cudaSuccess;\n")],
     "full": [],
 }
+# conv3x3_wide.cuh: the resident K1 (bf16 at 32 and 96, float32 at 32)
+WIDE = "conv3x3_wide.cuh"
+_RES_LOAD = ("        if (gh >= HS) mbar_wait(h_empty + 8 * hs, (gh / HS - 1) & "
+             "1);\n")
+_RES_WAIT = "      mbar_wait(h_full + 8 * hs, (gh / HS) & 1);\n"
+_RES_MMA = ("          mma_step<K>(acc[s], cor[s],\n"
+            "                      a_rows + ((s + tap / 3) * (TW + 2) + tap % "
+            "3) * CK * 2 +\n"
+            "                          kc * 32,\n"
+            "                      wu + tap * K::TAP_BYTES + 2 * kc * K::N * "
+            "16);\n")
+#: ... with A in registers
+_RES_MMA_REGS = ("          res_step_regs<K>(acc[s], cor[s], af[h][s][kc],\n"
+                 "                           wu + tap * K::TAP_BYTES + 2 * kc "
+                 "* K::N * 16);\n")
+_RES_EPI = ("    // accumulator fragment: register 4j + 2h + e of row s holds "
+            "pixel\n")
+PATCHES[WIDE] = {
+    "full": [],
+    # the producer neither loads nor waits past the first tile (waits on
+    # slots the teams no longer pace could alias phases)
+    "no_load": [(_RES_LOAD, "        if (gh >= UNITS) continue;\n" + _RES_LOAD),
+                (_RES_WAIT, "      if (gh < UNITS)\n" + _RES_WAIT)],
+    "no_mma": [(_RES_MMA, "          acc[s][kc] += a_rows;\n"),
+               (_RES_MMA_REGS, "          acc[s][kc] += af[h][s][kc][0][0];"
+                "\n")],
+    # every accumulator set read, so that ptxas keeps the wgmmas
+    "no_epi": [(_RES_EPI,
+                "    float keep = 0.f;\n"
+                "    for (int s = 0; s < RPW; ++s) keep += acc[s][0] + "
+                "cor[s][0];\n"
+                "    if (keep == 0.5f && out) *(float*)out = keep;\n"
+                "    continue;\n" + _RES_EPI)],
+}
+PATCHES[WIDE]["weights_only"] = [*PATCHES[WIDE]["no_load"],
+                                 *PATCHES[WIDE]["no_mma"],
+                                 *PATCHES[WIDE]["no_epi"]]
+# the resident forms routed to the streamed kernel (planes out in
+# float32), whole: what the resident design gains over it
+PATCHES[WIDE]["streamed"] = [(
+    "  return launch_res<PLANES, CIN, ResShape<PLANES, CIN>>(x, w, b, alpha, "
+    "y,\n",
+    "  return launch<PLANES, CIN, 0>(x, w, b, alpha, nullptr, y, B, H, W, s,\n"
+    "                                planes);\n"
+    "  return launch_res<PLANES, CIN, ResShape<PLANES, CIN>>(x, w, b, alpha, "
+    "y,\n")]
+#: the sources built over each variant of the header
+_WIDE_USERS = (conv3x3.TC_SOURCE, conv3x3.F32_SOURCE)
 _K6_SPECS = ((2, False), (1, True))
 #: P1's loop counts: the prologue and epilogue alone, the probe's, the
 #: slope's
@@ -348,6 +408,22 @@ def build_variants(tmp: str, sources=None) -> dict:
     for source in sources or PATCHES:
         for variant in PATCHES[source]:
             stem = f"{os.path.splitext(source)[0]}-{variant}"
+            if source == WIDE:
+                # the patched header beside copies of the sources that
+                # include it, which find it first
+                vdir = os.path.join(tmp, stem)
+                os.makedirs(vdir)
+                with open(os.path.join(vdir, WIDE), "w") as f:
+                    f.write(variant_source(source, variant))
+                for user in _WIDE_USERS:
+                    shutil.copy(os.path.join(build.CSRC, user), vdir)
+                    so = os.path.join(vdir, f"lib{user[:-3]}.so")
+                    procs[source, variant, user] = (so, subprocess.Popen(
+                        [build.nvcc_path(), *build.NVCC_FLAGS, "-I",
+                         build.CSRC, "-o", so, os.path.join(vdir, user)],
+                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                        text=True))
+                continue
             cu = os.path.join(tmp, f"{stem}.cu")
             with open(cu, "w") as f:
                 f.write(variant_source(source, variant))
@@ -361,7 +437,11 @@ def build_variants(tmp: str, sources=None) -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"{key}: nvcc exited {proc.returncode}\n{log}")
-        libs[key] = ctypes.CDLL(so)
+        if key[0] == WIDE:
+            # {user source: library} of the header's variant
+            libs.setdefault(key[:2], {})[key[2]] = ctypes.CDLL(so)
+        else:
+            libs[key] = ctypes.CDLL(so)
     return libs
 
 
@@ -462,6 +542,68 @@ def _k7_timings(lib, name: str, ops: dict, stream) -> dict:
 _K7Q_FORMS = (("lrelu_q64", 64, 32, "lrelu_q"),
               ("lrelu_q160", 160, 32, "lrelu_q"), ("rdb", 192, 64, "rdb"),
               ("rrdb", 192, 64, "rrdb"), ("add", 64, 64, "add"))
+
+
+#: the wide K1 forms timed: (timing, width, dtype)
+_WIDE_FORMS = (("k1_32_ms", 32, "bf16"), ("k1_96_ms", 96, "bf16"),
+               ("k1_f32_32", 32, "f32"))
+
+
+def _wide_operands(rs, dev) -> dict:
+    """The wide K1 forms' operands at the main path's shape: the input
+    (and in float32 its split planes, made once), the weights packed
+    once, the outputs."""
+    ops = {}
+    for timing, feat, dt in _WIDE_FORMS:
+        xf = torch.from_numpy(rs.rand(B, H, W, feat).astype(np.float32)
+                              - 0.3).to(dev)
+        wf = torch.from_numpy(rs.uniform(-1, 1, (3, 3, feat, feat)).astype(
+            np.float32) / np.sqrt(9 * feat)).to(dev)
+        o = {"b": torch.zeros(feat, device=dev),
+             "alpha": torch.full((feat,), 0.2, device=dev)}
+        if dt == "bf16":
+            o["x"] = xf.to(torch.bfloat16)
+            o["w"] = conv3x3.pack_weights_wide(wf.to(torch.bfloat16))
+            o["y"] = torch.empty_like(o["x"])
+        else:
+            o["xf"] = xf
+            o["x"] = conv3x3.split_bf16x3(xf)
+            o["w"] = conv3x3.pack_weights_wide(wf)
+            o["y_planes"] = torch.empty_like(o["x"])
+        ops[timing] = o
+    return ops
+
+
+def _wide_timings(libs, name: str, ops: dict, stream) -> dict:
+    """{timing: callable} of the wide K1 forms for one variant's libraries
+    ({user source: library})."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    tc, f32 = libs[conv3x3.TC_SOURCE], libs[conv3x3.F32_SOURCE]
+    bf = _entry(tc, "reve_conv3x3_bias_prelu_wide_tc", [P] * 5 + [I] * 4 + [P])
+    split = _entry(f32, "reve_split_bf16x3", [P, P, ctypes.c_longlong, I, I, P])
+    conv = _entry(f32, "reve_conv3x3_bias_prelu_wide_f32tc_planes",
+                  [P] * 6 + [I] * 4 + [P])
+
+    def run_bf16(o, feat):
+        return lambda: build.check(tc, bf(
+            o["x"].data_ptr(), o["w"].data_ptr(), o["b"].data_ptr(),
+            o["alpha"].data_ptr(), o["y"].data_ptr(), B, H, W, feat, stream),
+            name)
+
+    o = ops["k1_f32_32"]
+
+    def run_conv():  # as the model calls it: planes in, planes out
+        build.check(f32, conv(
+            o["x"].data_ptr(), o["w"].data_ptr(), o["b"].data_ptr(),
+            o["alpha"].data_ptr(), None, o["y_planes"].data_ptr(), B, H, W,
+            32, stream), name)
+
+    def run_split():
+        build.check(f32, split(o["xf"].data_ptr(), o["x"].data_ptr(),
+                               o["xf"].numel() // 8, 8, 8, stream), name)
+    return {"k1_32_ms": run_bf16(ops["k1_32_ms"], 32),
+            "k1_96_ms": run_bf16(ops["k1_96_ms"], 96),
+            "k1_f32_32_conv_ms": run_conv, "k1_f32_32_split_ms": run_split}
 
 
 def _k7q_operands(rs, dev) -> dict:
@@ -679,6 +821,8 @@ def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
             return _train_timings(lib, name, train_ops, stream)
         if source == rrdb.S8_SOURCE:
             return _k7q_timings(lib, name, k7q_ops, stream)
+        if source == WIDE:
+            return _wide_timings(lib, name, wide_ops, stream)
         if source == conv3x3.TC_SOURCE:
             k1 = _entry(lib, "reve_conv3x3_bias_prelu_tc",
                         [P] * 5 + [I] * 3 + [P])
@@ -801,7 +945,9 @@ def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
                 b.data_ptr(), u8.data_ptr(), o.data_ptr(), B, H, W, R,
                 stream), name)}
 
-    k7_ops = k7q_ops = last_ops = train_ops = None
+    k7_ops = k7q_ops = last_ops = train_ops = wide_ops = None
+    if WIDE in (sources or PATCHES):
+        wide_ops = _wide_operands(rs, dev)
     if train.SOURCE in (sources or PATCHES):
         train_ops = _train_operands(rs, dev)
     if {LAST_F32_SOURCE, conv3x3.F32_SOURCE} & set(sources or PATCHES):

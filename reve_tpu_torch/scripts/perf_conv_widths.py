@@ -7,8 +7,10 @@ call of the main path's batch.
 At a batch of 4 frames of 1920 x 1080 with seeded inputs (made on the
 card): K3 on the u8 frames (3 -> F), K1 over F channels (F -> F) and K2
 at each scale (F -> 3r^2 with the u8 residual and the shuffle), each
-through its wrapper as the model calls it (float32 K1 and K2 with their
-split pass), and the whole model (`srvgg.apply`, u8 -> u8, F features,
+through its wrapper (float32 K1 and K2 with their split pass; at the
+wide widths float32 K1 also as the model calls it there, `k1_planes`: on
+the split planes of its input, writing those of its output), and the
+whole model (`srvgg.apply`, u8 -> u8, F features,
 16 convs, x4, seeded init).  `--dtypes int8` (or `--dtype int8`) times
 the int8 forms instead: K4a on the u8 frames (3 -> F, bfloat16 compute,
 s8 out), K4 over F s8 channels and K4h at each scale, on seeded codes
@@ -82,6 +84,11 @@ def forms(feat: int, dtype: torch.dtype, scales, seed: int = 0) -> dict:
         "k3": lambda: conv3x3.conv3x3_u8_bias_prelu(u8, w3, b, a),
         "k1": lambda: conv3x3.conv3x3_bias_prelu(x, w1, b, a),
     }
+    if dtype == torch.float32 and feat != conv3x3.FEAT:
+        # K1 as the float32 model calls it there: planes in, planes out
+        xp = conv3x3.split_bf16x3(x)
+        calls["k1_planes"] = lambda: conv3x3.conv3x3_bias_prelu_planes(
+            xp, w1, b, a)
     for r in scales:
         wh = unif((3, 3, feat, 3 * r * r), -b1, b1).to(dtype)
         bh = unif((3 * r * r,), -0.1, 0.1)

@@ -38,7 +38,6 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from reve_tpu_torch.kernels import conv3x3
 from reve_tpu_torch.models import rrdb, srvgg
 
 #: percentile statistics of tensors above this many elements are taken on
@@ -100,21 +99,12 @@ def collect_act_maxima(params: Dict[str, Any], u8: torch.Tensor, *,
     (num_conv + 1,) |activation| statistics, one for the input of each
     hidden conv and one for the head conv's input (reve_tpu
     collect_act_maxima, classic domain).  The float32 forward runs K3 and
-    K1 (their plain versions on the CPU, or with `plain=True`)."""
-    if plain:
-        first = conv3x3.conv3x3_u8_bias_prelu_plain
-        hidden = conv3x3.conv3x3_bias_prelu_plain
-    else:
-        first = conv3x3.conv3x3_u8_bias_prelu
-        hidden = conv3x3.conv3x3_bias_prelu
-    convs, prelus = params["convs"], params["prelus"]
-    h = first(u8, convs[0]["w"].float().contiguous(), convs[0]["b"],
-              prelus[0]["alpha"])
-    maxima = [_stat(h, percentile)]
-    for i in range(cfg.num_conv):
-        h = hidden(h, convs[i + 1]["w"].float().contiguous(),
-                   convs[i + 1]["b"], prelus[i + 1]["alpha"])
-        maxima.append(_stat(h, percentile))
+    K1 (their plain versions on the CPU, or with `plain=True`) through
+    srvgg.body, as srvgg.apply does: at the wide widths K1
+    carries the split planes and writes its float32 output beside them."""
+    maxima = []
+    srvgg.body(params, u8, cfg=cfg, compute_dtype=torch.float32,
+               plain=plain, each=lambda v: maxima.append(_stat(v, percentile)))
     return torch.stack(maxima)
 
 

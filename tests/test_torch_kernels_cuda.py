@@ -446,7 +446,7 @@ def test_width_model_matches_plain_path(feat, r):
     """A whole SRVGG at 32, 96 and 128 features on the kernels against
     its plain path: float32 u8 |d| <= 1, bfloat16 at the engine's 50 dB
     floor against the plain bf16 path; the launches 1 K3, num_conv K1
-    and 1 K2."""
+    (float32: K1 on planes, counted apart) and 1 K2."""
     dev = _cuda()
     cfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=2, upscale=r)
     params = srvgg.params_to(srvgg.init_params(
@@ -456,11 +456,15 @@ def test_width_model_matches_plain_path(feat, r):
         before = dict(LAUNCHES)
         got = srvgg.apply(params, u8, cfg=cfg, compute_dtype=dt)
         torch.cuda.synchronize()
+        k1 = "conv3x3_bias_prelu_planes" \
+            if srvgg.carries_planes(feat, dt) else "conv3x3_bias_prelu"
         assert {k: LAUNCHES[k] - before[k] for k in (
             "conv3x3_u8_bias_prelu", "conv3x3_bias_prelu",
+            "conv3x3_bias_prelu_planes",
             "head_conv_residual_u8_shuffle")} == {
-                "conv3x3_u8_bias_prelu": 1, "conv3x3_bias_prelu": 2,
-                "head_conv_residual_u8_shuffle": 1}
+                "conv3x3_u8_bias_prelu": 1, "conv3x3_bias_prelu": 0,
+                "conv3x3_bias_prelu_planes": 0,
+                "head_conv_residual_u8_shuffle": 1, k1: 2}
         want = srvgg.apply(params, u8, cfg=cfg, compute_dtype=dt,
                            plain=True)
         d = (got.int() - want.int()).abs()
@@ -469,6 +473,177 @@ def test_width_model_matches_plain_path(feat, r):
         else:
             mse = (d.double() ** 2).mean().item()
             assert 10 * np.log10(255.0 ** 2 / max(mse, 1e-12)) >= 50.0
+
+
+#: the resident wide K1 forms (conv3x3_wide.cuh's ResShape): (dtype,
+#: width) -> its tile rows
+RES_TILE_ROWS = {("bfloat16", 32): 8, ("bfloat16", 96): 2,
+                 ("float32", 32): 2}
+
+
+def _res_shapes(rows):
+    """Tile edges of a resident form: a lone pixel, one tile, a tile plus
+    a row and a column, two tile rows ragged, a full-width strip."""
+    return [(1, 1), (rows, 64), (rows + 1, 65), (2 * rows + 3, 130),
+            (rows, 1920)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("form", sorted(RES_TILE_ROWS))
+def test_resident_k1_matches_plain_at_its_tile_edges(form, B):
+    """bf16 K1 at 32 and 96 and float32 K1 at 32 (weights resident, two
+    teams taking tiles in turn) against their plain versions at their own
+    tile edges (tiles of 8, 2 and 2 rows), to the 64-feature forms'
+    tolerances; float32 also on planes, its output's planes those of its
+    value bit for bit."""
+    dev = _cuda()
+    name, feat = form
+    for hw in _res_shapes(RES_TILE_ROWS[form]):
+        d = _inputs(feat + B + hw[0], B, *hw, cin=feat, cout=feat)
+        _hold_width_forms(_width_forms(d, dev, DTYPES[name], feat)[1:2],
+                          name)
+        if name == "float32":
+            _hold_planes_k1(d, dev)
+
+
+def _hold_planes_k1(d, dev, scale=1.0):
+    """float32 K1 on planes (conv3x3_bias_prelu_planes) on `d`'s input:
+    its float32 value bit for bit the float32-out K1's on the same input
+    and within 1e-4 (scaled) of the plain version; its planes
+    split_bf16x3_plain's of that value bit for bit, and the same whether
+    or not the value is written; one launch each of the planes form (its
+    own counter), no float32-out K1 and no split pass."""
+    x = ((d["x"] - 0.5) * scale + 0.5).to(dev)
+    w, b, a = d["w"].to(dev), d["b"].to(dev), d["alpha"].to(dev)
+    xp = conv3x3.split_bf16x3(x)
+    before = dict(LAUNCHES)
+    p, y = conv3x3.conv3x3_bias_prelu_planes(xp, w, b, a, value=True)
+    p2 = conv3x3.conv3x3_bias_prelu_planes(xp, w, b, a)
+    torch.cuda.synchronize()
+    assert {k: LAUNCHES[k] - before[k] for k in (
+        "conv3x3_bias_prelu_planes", "conv3x3_bias_prelu",
+        "split_bf16x3")} == {"conv3x3_bias_prelu_planes": 2,
+                             "conv3x3_bias_prelu": 0, "split_bf16x3": 0}
+    assert torch.equal(p, conv3x3.split_bf16x3_plain(y))
+    assert torch.equal(p, p2)
+    assert torch.equal(y, conv3x3.conv3x3_bias_prelu(x, w, b, a))
+    torch.testing.assert_close(
+        y, conv3x3.conv3x3_bias_prelu_plain(x, w, b, a), atol=1e-4 * scale,
+        rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", TC_SHAPES + [(2, 64), (3, 65), (8, 64),
+                                            (9, 65)])
+@pytest.mark.parametrize("feat", WIDE_FEATS)
+def test_planes_k1_is_the_split_of_float32_k1_at_tile_edges(feat, hw):
+    """float32 K1 at 32, 96 and 128 writing its output's split planes
+    (the next layer's operand: no split pass between hidden layers)."""
+    _hold_planes_k1(_inputs(feat + hw[0], 2, *hw, cin=feat, cout=feat),
+                    _cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat", WIDE_FEATS)
+def test_planes_k1_at_1080p_and_large_activations(feat):
+    """... on a 1080p frame, and on activations up to +-2^8."""
+    dev = _cuda()
+    _hold_planes_k1(_inputs(feat, 1, 1080, 1920, cin=feat, cout=feat), dev)
+    _hold_planes_k1(_inputs(feat + 5, 2, 19, 45, cin=feat, cout=feat), dev,
+                    scale=2.0 ** 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat", WIDE_FEATS)
+def test_float32_model_call_runs_one_split_pass(feat):
+    """A float32 SRVGG call at 32, 96 and 128 features launches the split
+    pass once (after K3): K1 reads and writes planes (counted as
+    conv3x3_bias_prelu_planes; no float32-out K1), K2 reads them."""
+    dev = _cuda()
+    cfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=3, upscale=4)
+    params = srvgg.params_to(srvgg.init_params(
+        cfg, torch.Generator().manual_seed(feat)), dev)
+    u8 = _inputs(9, 2, 17, 70)["u8"].to(dev)
+    before = dict(LAUNCHES)
+    got = srvgg.apply(params, u8, cfg=cfg, compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert {k: LAUNCHES[k] - before[k] for k in (
+        "split_bf16x3", "conv3x3_u8_bias_prelu", "conv3x3_bias_prelu",
+        "conv3x3_bias_prelu_planes", "head_conv_residual_u8_shuffle")} == {
+            "split_bf16x3": srvgg.split_passes(cfg, torch.float32),
+            "conv3x3_u8_bias_prelu": 1, "conv3x3_bias_prelu": 0,
+            "conv3x3_bias_prelu_planes": 3,
+            "head_conv_residual_u8_shuffle": 1}
+    assert srvgg.split_passes(cfg, torch.float32) == 1
+    want = srvgg.apply(params, u8, cfg=cfg, compute_dtype=torch.float32,
+                       plain=True)
+    assert (got.int() - want.int()).abs().max().item() <= 1
+
+
+#: sha256 (the first 16 hex digits) of every wide form's output in
+#: perf_conv_widths (1080p, its seeded inputs: K3, K1, K2 at x2, x3, x4
+#: and the 16-conv model) on the parent of the change that gave K1 its
+#: resident and planes forms (H100): the redesign keeps each output
+#: pixel's order of K steps, so the bytes must be the same
+WIDE_SHA256 = {
+    "k3_f32_bfloat16": "cee70daaef7fea38",
+    "k1_f32_bfloat16": "af16d6e130be71ad",
+    "k2_x2_f32_bfloat16": "b58c7a2872be6b36",
+    "k2_x3_f32_bfloat16": "29bc07f39dbc14d7",
+    "k2_x4_f32_bfloat16": "bdac8030cb28709e",
+    "model_f32_bfloat16": "87b652f0ff63117d",
+    "k3_f32_float32": "86235d4b02e870a0",
+    "k1_f32_float32": "d4e32ccb92071526",
+    "k2_x2_f32_float32": "99795348630a5a74",
+    "k2_x3_f32_float32": "bd2f8592b65478ba",
+    "k2_x4_f32_float32": "143e7f8af11c8540",
+    "model_f32_float32": "f68025f81c3abd8c",
+    "k3_f96_bfloat16": "e1c2bbccad9a3006",
+    "k1_f96_bfloat16": "9c265c9d92860b5b",
+    "k2_x2_f96_bfloat16": "6583e8d678686d99",
+    "k2_x3_f96_bfloat16": "c2e16dd657d1a51f",
+    "k2_x4_f96_bfloat16": "359a1093e8bb2515",
+    "model_f96_bfloat16": "9fe600ab37f6bbf3",
+    "k3_f96_float32": "d25e79bed3311386",
+    "k1_f96_float32": "c9b3f7cef2dead7e",
+    "k2_x2_f96_float32": "120e48ec82f7193d",
+    "k2_x3_f96_float32": "049d6b4ac386c143",
+    "k2_x4_f96_float32": "3d717d9e70833152",
+    "model_f96_float32": "ffa064e9b9af161e",
+    "k3_f128_bfloat16": "1111d186cf93d46b",
+    "k1_f128_bfloat16": "6990c6c51e6c0688",
+    "k2_x2_f128_bfloat16": "36de7f7404c49469",
+    "k2_x3_f128_bfloat16": "16987ad19344111b",
+    "k2_x4_f128_bfloat16": "f7c1f47a1c98bc92",
+    "model_f128_bfloat16": "bf0373e1e572defa",
+    "k3_f128_float32": "4d6ccc6de4158a42",
+    "k1_f128_float32": "f5eb19bcc730d4ab",
+    "k2_x2_f128_float32": "54778e719b746b04",
+    "k2_x3_f128_float32": "aeb81f28c4ab1177",
+    "k2_x4_f128_float32": "cde9fa36f845d265",
+    "model_f128_float32": "cfa6d157e32a0f4e",
+}
+
+
+@pytest.mark.cuda
+def test_wide_forms_keep_the_parents_outputs():
+    """K3, K1 and K2 (x2, x3, x4) and the 16-conv model at 32, 96 and 128
+    features in bfloat16 and float32 give the bytes they gave before K1
+    was redesigned (float32 K1 as the wrapper calls it on a float32
+    input: the split pass, then the kernel writing its float32 output)."""
+    from reve_tpu_torch.scripts import perf_conv_widths as perf
+
+    _cuda()
+    got = {}
+    for feat in WIDE_FEATS:
+        for name, dt in DTYPES.items():
+            for form, fn in perf.forms(feat, dt, (2, 3, 4)).items():
+                if form != "k1_planes":
+                    got[f"{form}_f{feat}_{name}"] = perf.digest(fn())
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    assert got == WIDE_SHA256
 
 
 @pytest.mark.cuda

@@ -238,6 +238,11 @@ def test_parts_script_variants_still_apply(source):
     if source == conv3x3.SOURCE:  # K3/K4a: stores alone, wgmmas alone
         assert {"stores_only", "no_load_no_epi", "full"} <= set(
             perf_conv_tc_parts.PATCHES[source])
+    if source == perf_conv_tc_parts.WIDE:
+        # the resident K1's parts, and the resident forms on the streamed
+        # kernel
+        assert {"no_load", "no_mma", "no_epi", "weights_only", "streamed",
+                "full"} == set(perf_conv_tc_parts.PATCHES[source])
 
 
 def _conv_last_f32_constants() -> dict:

@@ -6,7 +6,11 @@ Cin 96 and 128), and an emulation of the wide K1's and K2's arithmetic
 (csrc/conv3x3_wide.cuh: units of 32 input channels, the nine taps of
 each, A the halo's planes, B as pack_weights_wide lays it out, bf16
 products or the six bf16 pair products with hi.hi apart) against
-reve_tpu's `_conv3x3` + `_prelu` and its head `_epilogue`; and the
+reve_tpu's `_conv3x3` + `_prelu` and its head `_epilogue`; float32
+K1's planes epilogue (the hi, mid and lo planes of its value by split2's
+arithmetic, emulated in integers) and the float32 model's and the int8
+calibration's planes-carrying path against reve_tpu's; the packed weights
+kept once per set of weights, fresh after an in-place update; and the
 engine's refusal, under --dtype auto, of int8 at widths no kernel
 takes.
 
@@ -14,9 +18,14 @@ Tolerances (test_torch_tc_layouts.py's): float32 atol 2e-5, rtol 1e-5,
 scaled by 2^8 with the inputs; bfloat16 within 2 bf16 ulp (the ulp taken
 at 2^-10 or more) as the card tests hold the kernels; through the head
 epilogue u8 |d| <= 1 on under 1% of the samples (a sum that differs in
-its last bits may round y * 255 + 0.5 to the neighbouring integer).
+its last bits may round y * 255 + 0.5 to the neighbouring integer); the
+planes exact (bit for bit); the float32 model as
+test_torch_engine_widths.py holds the engine (u8 |d| <= 1 on under 0.1%
+of the samples), the calibration maxima as test_torch_int8.py holds them
+(rtol 1e-5).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,11 +33,13 @@ import torch
 import torch.nn.functional as F
 
 from reve_tpu.models import srvgg as jsrvgg
+from reve_tpu.weights import quantize as jquantize
 from reve_tpu_torch.kernels import LAUNCHES, conv3x3, head
 from reve_tpu_torch.models import srvgg
 from reve_tpu_torch.pipeline import engine as engine_mod
 from reve_tpu_torch.pipeline import scheduler
 from reve_tpu_torch.pipeline.state import JobState, Workspace
+from reve_tpu_torch.weights import quantize
 
 torch.set_num_threads(2)
 
@@ -228,6 +239,154 @@ def test_wide_k2_emulation_matches_jax_head(name, cin, r, scale):
     assert (diff > 0).mean() < 0.01, (diff > 0).mean()
     if scale == 1.0:  # not clipped flat: the comparison has something
         assert np.unique(want).size > 64
+
+
+def _bf16_rne(v: np.ndarray) -> np.ndarray:
+    """float32 -> the nearest bfloat16 (ties to even), as float32, in
+    integers: __floats2bfloat162_rn of finite values."""
+    u = v.astype(np.float32).view(np.uint32).astype(np.uint64)
+    r = (u + 0x7FFF + ((u >> 16) & 1)) >> 16 << 16
+    return r.astype(np.uint32).view(np.float32)
+
+
+def _split2(v: np.ndarray):
+    """tc.cuh's split2 of float32 values: hi = bf16(v), mid = bf16(v -
+    hi), lo = bf16(v - hi - mid), each subtraction a float32 op."""
+    hi = _bf16_rne(v)
+    r = (v - hi).astype(np.float32)
+    mid = _bf16_rne(r)
+    return hi, mid, _bf16_rne((r - mid).astype(np.float32))
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0 ** 8])
+@pytest.mark.parametrize("cin", NEW_WIDTHS)
+def test_planes_epilogue_emulation_matches_jax_and_the_split(cin, scale):
+    """float32 K1's planes epilogue, emulated: the wide sum, (acc + cor) +
+    b and PReLU in float32, then split2's hi, mid and lo.  The value is
+    reve_tpu's float32 `_prelu(_conv3x3)` within the float32 rule; its
+    planes are split_bf16x3_plain's of it bit for bit (the split pass the
+    next layer no longer runs), and (hi + mid) + lo gives it back exactly.
+    The wrapper's plain version keeps both properties on its own value."""
+    d = _inputs(70 + cin + int(scale), cin, cin, scale)
+    want = np.asarray(jsrvgg._prelu(jsrvgg._conv3x3(
+        jnp.asarray(d["x"]), jnp.asarray(d["w"]), jnp.asarray(d["b"])),
+        jnp.asarray(d["alpha"])))
+    x, w = torch.from_numpy(d["x"]), torch.from_numpy(d["w"])
+    b, alpha = torch.from_numpy(d["b"]), torch.from_numpy(d["alpha"])
+    v = (_wide_sum(x, w) + b).numpy()
+    v = np.where(v > 0, v, (d["alpha"] * v).astype(np.float32))
+    _close(v, want, "float32", scale)
+    hi, mid, lo = _split2(v)
+    planes = conv3x3.split_bf16x3_plain(torch.from_numpy(v))
+    assert planes.dtype == torch.bfloat16 and planes.shape == (3, *v.shape)
+    for got, emulated in zip(planes, (hi, mid, lo)):
+        assert np.array_equal(got.float().numpy(), emulated)
+    assert np.array_equal((hi + mid) + lo, v)
+    assert torch.equal(conv3x3.merge_bf16x3_plain(planes),
+                       torch.from_numpy(v))
+    # the wrapper (its plain version on the CPU): planes in, planes out
+    p, y = conv3x3.conv3x3_bias_prelu_planes(
+        conv3x3.split_bf16x3(x), w, b, alpha, value=True)
+    assert torch.equal(y, conv3x3.conv3x3_bias_prelu(x, w, b, alpha))
+    assert torch.equal(p, conv3x3.split_bf16x3_plain(y))
+    assert torch.equal(p, conv3x3.conv3x3_bias_prelu_planes(
+        conv3x3.split_bf16x3(x), w, b, alpha))
+    _close(y.numpy(), want, "float32", scale)
+
+
+@pytest.mark.parametrize("feat", NEW_WIDTHS)
+def test_float32_model_and_calibration_carry_planes(monkeypatch, feat):
+    """srvgg.apply in float32 at the wide widths runs one split pass (after
+    K3) and num_conv K1s on planes into K2, and quantize.collect_act_maxima
+    the same K1s writing their float32 value beside the planes: the u8
+    output against reve_tpu's apply, the maxima against reve_tpu's
+    collect_act_maxima, and both equal to the plain float32 path's."""
+    num_conv, r = 2, 2
+    jcfg = jsrvgg.SRVGGConfig(num_feat=feat, num_conv=num_conv, upscale=r)
+    cfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=num_conv, upscale=r)
+    jparams = jsrvgg.init_params(jax.random.key(feat), jcfg)
+    params = srvgg.params_from_jax(jparams)
+    u8 = np.random.RandomState(feat).randint(0, 256, (2, 9, 14, 3)).astype(
+        np.uint8)
+    calls = {"split": 0, "planes": []}
+    split, planes_k1 = conv3x3.split_bf16x3, conv3x3.conv3x3_bias_prelu_planes
+
+    def counted_split(x):
+        calls["split"] += 1
+        return split(x)
+
+    def counted_k1(*args, value=False):
+        calls["planes"].append(value)
+        return planes_k1(*args, value=value)
+
+    monkeypatch.setattr(conv3x3, "split_bf16x3", counted_split)
+    monkeypatch.setattr(conv3x3, "conv3x3_bias_prelu_planes", counted_k1)
+    got = srvgg.apply(params, torch.from_numpy(u8), cfg=cfg,
+                      compute_dtype=torch.float32)
+    assert calls == {"split": 1, "planes": [False] * num_conv}
+    assert srvgg.carries_planes(feat, torch.float32) and \
+        srvgg.split_passes(cfg, torch.float32) == 1
+    x = jnp.asarray(u8).astype(jnp.float32) * (1.0 / 255.0)
+    want = np.asarray(jsrvgg.apply(jparams, x, cfg=jcfg,
+                                   compute_dtype=jnp.float32,
+                                   quantize_u8=True))
+    assert got.shape == want.shape == (2, 9 * r, 14 * r, 3)
+    diff = np.abs(got.numpy().astype(np.int16) - want.astype(np.int16))
+    assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
+    assert np.unique(want).size > 32
+    assert torch.equal(got, srvgg.apply(params, torch.from_numpy(u8),
+                                        cfg=cfg, compute_dtype=torch.float32,
+                                        plain=True))
+    calls.update(split=0, planes=[])
+    maxima = quantize.collect_act_maxima(params, torch.from_numpy(u8),
+                                         cfg=cfg)
+    assert calls == {"split": 1, "planes": [True] * num_conv}
+    np.testing.assert_allclose(
+        maxima.numpy(), np.asarray(jquantize.collect_act_maxima(
+            jparams, jnp.asarray(u8).astype(jnp.float32) / 255.0, cfg=jcfg)),
+        rtol=1e-5)
+    assert torch.equal(maxima, quantize.collect_act_maxima(
+        params, torch.from_numpy(u8), cfg=cfg, plain=True))
+
+
+def test_packed_wide_weights_are_packed_once_and_never_stale():
+    """packed_wide packs a set of weights once; an in-place update (as an
+    optimizer step makes), new storage under the same tensor, or another
+    tensor gives a fresh pack, equal to pack_weights_wide's.  srvgg.prepare
+    casts the weights once, so the casts `apply` makes at each call are
+    those tensors themselves and their packs are kept."""
+    d = _inputs(5, 32, 32)
+    w = torch.from_numpy(d["w"])
+    p1 = conv3x3.packed_wide(w)
+    assert conv3x3.packed_wide(w) is p1
+    assert torch.equal(p1, conv3x3.pack_weights_wide(w))
+    w.mul_(2.0)
+    p2 = conv3x3.packed_wide(w)
+    assert p2 is not p1 and torch.equal(p2, conv3x3.pack_weights_wide(w))
+    assert not torch.equal(p2, p1)
+    param = torch.nn.Parameter(w.clone())
+    p3 = conv3x3.packed_wide(param)
+    with torch.no_grad():
+        param.add_(0.5)
+    p4 = conv3x3.packed_wide(param)
+    assert p4 is not p3
+    assert torch.equal(p4, conv3x3.pack_weights_wide(param.detach()))
+    param.data = torch.zeros_like(param)
+    assert not conv3x3.packed_wide(param).any()
+    other = w.to(torch.bfloat16)
+    assert torch.equal(conv3x3.packed_wide(other),
+                       conv3x3.pack_weights_wide(other))
+    cfg = srvgg.SRVGGConfig(num_feat=32, num_conv=1, upscale=2)
+    params = srvgg.init_params(cfg)
+    for dt in (torch.bfloat16, torch.float32):
+        prepared = srvgg.prepare(params, dt)
+        for c in prepared["convs"]:
+            assert c["w"].dtype == dt and c["w"].to(dt) is c["w"]
+        u8 = torch.from_numpy(d["u8"])
+        assert torch.equal(srvgg.apply(prepared, u8, cfg=cfg,
+                                       compute_dtype=dt),
+                           srvgg.apply(params, u8, cfg=cfg,
+                                       compute_dtype=dt))
 
 
 def test_split_pass_is_width_agnostic():
