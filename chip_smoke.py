@@ -274,7 +274,11 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               input writing those of its output ("float32_planes"; held
               with its float32 value written beside: the value bit for
               bit the float32-out K1's and within 1e-4 of the plain
-              version's, the planes bit for bit its split); K4a, K4 and
+              version's, the planes bit for bit its split), and float32
+              K2 so, on the split planes of its input ("float32_planes";
+              u8 |d| <= 1 against its plain version, n_diff reported;
+              its launches those of head_conv_residual_u8_shuffle_planes
+              in the engine batches below); K4a, K4 and
               K4h at those widths (K4h at x2, x3, x4; K4 and K4h in
               conv3x3_s8_wide.cuh, K4a K3's template with the s8
               epilogue) on the same models quantized by an int8 engine's
@@ -291,7 +295,9 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               and 1 K2 a model call (float32: one split pass, after K3;
               K1 reads and writes the split planes, counted as
               conv3x3_bias_prelu_planes with no float32-out K1, K2 reads
-              them; its `split_passes_per_call` reported), float32 u8
+              them, counted as head_conv_residual_u8_shuffle_planes with
+              no float32-input K2; its `split_passes_per_call` reported),
+              float32 u8
               |d| <= 1 on every frame against the plain float32 path,
               bfloat16 each frame >= 50 dB against the plain bf16 path
               and within 1 dB of the plain bf16 path's own PSNR against
@@ -474,6 +480,15 @@ def library_time_ms(fn, iters: int = 10, timer=cuda_time_ms):
         print(f"# library call refused: {str(e).splitlines()[0]}",
               flush=True)
         return None
+
+
+def count_diff(a, b, chunk: int = 1 << 28) -> int:
+    """Elements of `a` and `b` (one shape) that differ, counted a chunk at
+    a time: a sum over a whole 1080p batch's planes at 128 features would
+    widen 3.2 G flags to int64 at once (25 GB)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    return sum(int((a[i:i + chunk] != b[i:i + chunk]).sum())
+               for i in range(0, a.numel(), chunk))
 
 
 def bf16_ulp_ok(got, want, ulps: int = 2) -> bool:
@@ -713,6 +728,17 @@ def kernel_phase(params, cfg, frames, out: dict, timed: bool = True,
                 plain=lambda: conv3x3.conv3x3_bias_prelu_planes_plain(
                     xp, w1, c1["b"], a1),
                 nbytes=2 * px * feat * 6 + w1.numel() * 4 + 2 * feat * 4)
+            # ... and float32 K2: on the split planes of its input, with
+            # no split pass, reported as K2's "float32_planes"
+            x1p = conv3x3.split_bf16x3(x1)
+            cases["head_conv_residual_u8_shuffle_planes"] = dict(
+                cases["head_conv_residual_u8_shuffle"],
+                kernel=lambda: head.head_conv_residual_u8_shuffle(
+                    x1p, wl, cl["b"], u8, r),
+                plain=lambda: head.head_conv_residual_u8_shuffle_plain(
+                    x1p, wl, cl["b"], u8, r),
+                nbytes=px * feat * 6 + px * 3 + px * r * r * 3
+                + wl.numel() * 4 + 3 * r * r * 4)
         for kname, c in cases.items():
             if only is not None and kname not in only:
                 continue
@@ -720,8 +746,9 @@ def kernel_phase(params, cfg, frames, out: dict, timed: bool = True,
             torch.cuda.synchronize()
             n_diff = None
             key, dname = kname, name
+            if kname.endswith("_planes"):
+                key, dname = kname[:-len("_planes")], "float32_planes"
             if kname == "conv3x3_bias_prelu_planes":
-                key, dname = "conv3x3_bias_prelu", "float32_planes"
                 # the one kernel writing its float32 value beside the
                 # planes: the value bit for bit the float32-out K1's on
                 # the same input and within 1e-4 of the plain version's;
@@ -730,7 +757,7 @@ def kernel_phase(params, cfg, frames, out: dict, timed: bool = True,
                 planes, value = conv3x3.conv3x3_bias_prelu_planes(
                     xp, w1, c1["b"], a1, value=True)
                 # plane values off the plain version's split
-                n_diff = int((got != want).sum().item())
+                n_diff = count_diff(got, want)
                 err = (value - x1).abs().max().item()
                 ok = err <= 1e-4 and torch.equal(got, planes) and \
                     torch.equal(planes, conv3x3.split_bf16x3_plain(value)) \
@@ -773,7 +800,7 @@ def kernel_phase(params, cfg, frames, out: dict, timed: bool = True,
             del got, want
         if name == "float32" and timed and only is None:
             results["split_bf16x3"] = split_case(x3)
-        xp = None
+        xp = x1p = None
         del x3, x1
         torch.cuda.empty_cache()
     out["kernels" if timed else "kernels_transposed"] = results
@@ -2988,7 +3015,8 @@ def widths_kernel_checks(frames) -> dict:
             params = srvgg.params_to(srvgg.init_params(
                 cfg, torch.Generator().manual_seed(feat + r)), "cuda")
             got = kernel_phase(params, cfg, frames, {}, only=None if r == 4
-                               else ("head_conv_residual_u8_shuffle",))
+                               else ("head_conv_residual_u8_shuffle",
+                                     "head_conv_residual_u8_shuffle_planes"))
             eng = UpscaleEngine(compute_dtype="int8", batch_size=len(frames),
                                 preloaded=(cfg, params))
             eng.calibrate_int8(frames)
@@ -3024,8 +3052,10 @@ def serve_checks(cfg, params, frames, tile_check: bool = False) -> dict:
     bfloat16 and float32, the counters zeroed around it, against
     srvgg.apply's plain path on the same frames: the launches 1 K3,
     num_conv K1 and 1 K2 a model call (float32: srvgg.split_passes; at
-    the wide widths K1 on planes, counted as conv3x3_bias_prelu_planes,
-    and no float32-out K1); float32 u8 |d| <= 1 on every frame;
+    the wide widths K1 and K2 on planes, counted as
+    conv3x3_bias_prelu_planes and head_conv_residual_u8_shuffle_planes,
+    and no float32-out K1 or float32-input K2); float32 u8 |d| <= 1 on
+    every frame;
     bfloat16 each frame >= WIDTH_BF16_DB against the plain bf16 path and within
     WIDTH_BF16_SLACK_DB of the plain bf16 path's PSNR against plain
     float32; the model's ms a batch.  `tile_check`: one --tile TILE batch
@@ -3062,9 +3092,11 @@ def serve_checks(cfg, params, frames, tile_check: bool = False) -> dict:
             want["split_bf16x3"] = srvgg.split_passes(cfg, torch.float32) \
                 * calls
             if srvgg.carries_planes(cfg.num_feat, torch.float32):
-                # K1 on planes, counted apart from the float32-out form
-                want["conv3x3_bias_prelu_planes"] = want.pop(
-                    "conv3x3_bias_prelu")
+                # K1 and K2 on planes, counted apart from the forms on a
+                # float32 input
+                for k in ("conv3x3_bias_prelu",
+                          "head_conv_residual_u8_shuffle"):
+                    want[k + "_planes"] = want.pop(k)
         if launches != want:
             raise AssertionError(f"{cfg} {dt} engine batch: launches "
                                  f"{launches}, expected {want}")
@@ -3214,8 +3246,8 @@ def width_entries(name: str, widths: dict) -> dict:
             def launched(r):
                 model = f"x4_{feat}" if r == 4 else \
                     WIDTH_K2_MODELS.get((feat, r))
-                # float32 K1 on planes: the float32 engine's launches of
-                # that form, counted apart
+                # float32 K1 and K2 on planes: the float32 engine's
+                # launches of that form, counted apart
                 eng, key = ("float32", name + "_planes") \
                     if dt == "float32_planes" else (dt, name)
                 return widths["engine"][model][eng]["launches"].get(

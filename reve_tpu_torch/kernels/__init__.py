@@ -18,7 +18,11 @@
                                               unshuffled u8 frame, read in
                                               place
     K2  head.head_conv_residual_u8_shuffle    head conv + residual + u8 +
-                                              pixel shuffle
+                                              pixel shuffle (float32 given
+                                              the split planes of its
+                                              input: counted apart, as
+                                              head_conv_residual_u8_
+                                              shuffle_planes)
         head.conv_last_u8                     RRDB's conv_last: 64->3 conv +
                                               u8, no residual (bf16: K2's
                                               conv_last mode; float32: its
@@ -95,6 +99,7 @@ LAUNCHES = {
     "conv3x3_u8_bias_prelu": 0,
     "conv3x3_u8x2_bias": 0,
     "head_conv_residual_u8_shuffle": 0,
+    "head_conv_residual_u8_shuffle_planes": 0,
     "conv_last_u8": 0,
     "dense_conv": 0,
     "dense_conv_s8": 0,

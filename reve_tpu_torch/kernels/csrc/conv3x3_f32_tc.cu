@@ -423,10 +423,12 @@ extern "C" int reve_conv3x3_bias_prelu_wide_f32tc_planes(
                                 feat, static_cast<cudaStream_t>(stream));
 }
 
-// K2 in float32 at feat = 32, 96 or 128 input channels, r in {2, 3, 4}:
-// the weights packed as K1's at these widths, n padded with zeros to 3r^2
-// rounded up to a multiple of 8; `b`: 3r^2 float32.  Returns a
-// cudaError_t (0 = success).
+// K2 in float32 at feat = 32, 96 or 128 input channels, r in {2, 3, 4},
+// on the split planes (3, B, H, W, feat) bf16 of its input: the weights
+// resident at 32 (conv3x3_wide.cuh's head_resident), else streamed; each
+// plane's A in registers; the weights packed as K1's at these widths, n
+// padded with zeros to 3r^2 rounded up to a multiple of 8; `b`: 3r^2
+// float32.  Returns a cudaError_t (0 = success).
 extern "C" int reve_head_conv_residual_u8_shuffle_wide_f32tc(
     const void* planes, const void* w, const float* b, const uint8_t* orig,
     uint8_t* out, int B, int H, int W, int feat, int r, void* stream) {

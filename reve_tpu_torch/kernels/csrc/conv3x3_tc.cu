@@ -327,8 +327,9 @@ extern "C" int reve_conv3x3_bias_prelu_wide_tc(
 }
 
 // K2 in bfloat16 at feat = 32, 96 or 128 input channels, r in {2, 3, 4}:
-// the weights packed as K1's at these widths, n padded with zeros to 3r^2
-// rounded up to a multiple of 8; `b`: 3r^2 float32.  Returns a
+// conv3x3_wide.cuh's resident kernel (the weights resident at every
+// form); the weights packed as K1's at these widths, n padded with zeros
+// to 3r^2 rounded up to a multiple of 8; `b`: 3r^2 float32.  Returns a
 // cudaError_t (0 = success).
 extern "C" int reve_head_conv_residual_u8_shuffle_wide_tc(
     const void* x, const void* w, const float* b, const uint8_t* orig,

@@ -33,9 +33,14 @@ pass; bound per call of 2 frames (the float32 plan's chunk) 17.0 GB in ->
 5.13 ms (bytes; 229 GFLOP -> 3.42 ms at 67 TFLOP/s float32).
 
 At 32, 96 and 128 features (Cin F) K2 in both dtypes is
-csrc/conv3x3_wide.cuh's template at R = 2, 3, 4 (the halo and weights
-streamed in units of 32 input channels; the same HeadEpilogue), its
-weights packed by conv3x3.pack_weights_wide; bound per call of 4 1080p
+csrc/conv3x3_wide.cuh's at R = 2, 3, 4 (the halo in units of 32 input
+channels; the same HeadEpilogue), its weights packed by
+conv3x3.pack_weights_wide: on its resident kernel (the weights copied
+once a block, teams of warpgroups taking tiles in turn so that one's
+epilogue runs beside another's wgmmas) in bf16 at every form and in
+float32 at 32, else on its streamed kernel (float32 at 96 and 128); in
+float32 each plane's A read into registers once for its six products;
+bound per call of 4 1080p
 frames at r = 4 in bf16 0.232, 0.696 and 0.927 ms (operations).  K4h
 there is csrc/conv3x3_s8_wide.cuh's template at R = 2, 3, 4 (its weights
 packed by conv3x3_s8.pack_weights_s8_wide; the same HeadEpilogue); bound
@@ -157,7 +162,8 @@ def head_conv_residual_u8_shuffle(h: torch.Tensor, w: torch.Tensor,
     dtype, F one of WIDTHS, + the u8 residual epilogue -> (B, H*r, W*r, 3)
     uint8.  float32 launches two kernels: the split pass and the bf16x6
     conv; given the split planes (3, B, H, W, F) bfloat16 of its input
-    (conv3x3.conv3x3_bias_prelu_planes') it launches the conv alone.  F =
+    (conv3x3.conv3x3_bias_prelu_planes') it launches the conv alone,
+    counted as head_conv_residual_u8_shuffle_planes.  F =
     64 runs the 64-feature kernels, the other widths the wide forms
     (csrc/conv3x3_wide.cuh), their weights packed once (packed_wide)."""
     if h.device.type == "cpu":
@@ -195,7 +201,10 @@ def head_conv_residual_u8_shuffle(h: torch.Tensor, w: torch.Tensor,
         _launch(F32_SOURCE, "reve_head_conv_residual_u8_shuffle_wide_f32tc",
                 (planes if planes is not None else split_bf16x3(h),
                  packed_wide(w), bb), u8, out, (feat, r), what)
-    LAUNCHES["head_conv_residual_u8_shuffle"] += 1
+    # the planes form (the float32 model's at the wide widths, with no
+    # split pass) counts apart from the float32-input form
+    LAUNCHES["head_conv_residual_u8_shuffle" if planes is None
+             else "head_conv_residual_u8_shuffle_planes"] += 1
     return out
 
 

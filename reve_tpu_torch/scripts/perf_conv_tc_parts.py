@@ -33,12 +33,20 @@ each SM:
     features in bfloat16 (`k1_32_ms`, `k1_96_ms`), and float32 K1 at 32,
     its conv alone as the model calls it (`k1_f32_32_conv_ms`: on split
     planes, writing its output's planes) and its split pass alone
-    (`k1_f32_32_split_ms`).  Its variants: `no_load` (the halo loads after
-    each block's first tile), `no_mma`, `no_epi`, `weights_only` (the
-    weight copies alone: no halo loads after the first tile, no wgmmas, no
-    epilogue) and `streamed` (the three forms on the streamed kernel that
-    K1 at the other widths runs, whole and right: what the resident
-    design gains);
+    (`k1_f32_32_split_ms`); K2 in bfloat16 at x2 and x4 at 128 features
+    and x4 at 32 (`k2_x2_128_ms`, ...) and float32 K2 at x2 at 128 on the
+    split planes of its input, as the model calls it
+    (`k2_f32_x2_128_planes_ms`; at 96 `k2_f32_x2_96_planes_ms`).  Its
+    variants take their part out of
+    the resident kernel and the streamed one alike: `no_load` (the halo
+    loads after each block's first tile), `no_mma`, `no_epi`,
+    `weights_only` (the weight copies alone: no halo loads after the first
+    tile, no wgmmas, no epilogue; the streamed kernel's weights still
+    stream each tile, the resident kernel's are one copy a block) and
+    `streamed` (the three K1 forms on the streamed kernel that K1 at the
+    other widths runs, whole and right: what the resident design gains)
+    and `resident` (float32 K2 at x2 at 96 and 128 on the resident
+    kernel, whole and right: what its streamed form gains);
   * kernels/csrc/conv3x3.cu: K3 in bfloat16 (`k3_ms`) and float32
     (`k3_f32_ms`), K4a with its conv in bfloat16 (`k4a_ms`) and float32
     (`k4a_f32_ms`), and K3 at Cin 12 (R = 2) at RRDB x2's shape, the
@@ -335,7 +343,9 @@ PATCHES[train.SOURCE] = {
                 "    return cudaSuccess;\n")],
     "full": [],
 }
-# conv3x3_wide.cuh: the resident K1 (bf16 at 32 and 96, float32 at 32)
+# conv3x3_wide.cuh: the resident kernel (K1 at bf16 32 and 96 and float32
+# 32; K2 where its weights fit) and the streamed one (the other forms),
+# each variant taking its part out of both
 WIDE = "conv3x3_wide.cuh"
 _RES_LOAD = ("        if (gh >= HS) mbar_wait(h_empty + 8 * hs, (gh / HS - 1) & "
              "1);\n")
@@ -347,27 +357,58 @@ _RES_MMA = ("          mma_step<K>(acc[s], cor[s],\n"
             "                      wu + tap * K::TAP_BYTES + 2 * kc * K::N * "
             "16);\n")
 #: ... with A in registers
-_RES_MMA_REGS = ("          res_step_regs<K>(acc[s], cor[s], af[h][s][kc],\n"
-                 "                           wu + tap * K::TAP_BYTES + 2 * kc "
-                 "* K::N * 16);\n")
+_RES_MMA_REGS = "res_step_regs<K>(acc[s], cor[s], af[h][s][kc],\n"
 _RES_EPI = ("    // accumulator fragment: register 4j + 2h + e of row s holds "
             "pixel\n")
+#: ... the streamed kernel's: its producer's halo wait and the copies'
+#: end (the weight copies follow), its warpgroups' halo wait, a k16
+#: step's wgmmas and the epilogue
+_WIDE_LOAD = ("        if (hu >= K::SLOTS)\n"
+              "          mbar_wait(h_empty + 8 * hs, ((hu >> 1) - 1) & 1);\n")
+_WIDE_LOADED = ("q * B + b);\n"
+                "        for (int tap = 0; tap < 9; ++tap, ++gi) {\n")
+_WIDE_WAIT = "      mbar_wait(h_full + 8 * hs, (hu >> 1) & 1);\n"
+_WIDE_MMA = ("          mma_step<K>(acc, cor, a + kc * 32, ws + 2 * kc * N * "
+             "16);\n")
+#: ... the float32 K2's k16 steps with A in registers, in the streamed
+#: kernel and the resident one, which a checkout from before them does
+#: not have
+_WIDE_MMA_REGS = ("res_step_regs<K>(acc, cor, af[kc], ws + 2 * kc * K::N * "
+                  "16);")
+_HEAD_MMA_REGS = "res_step_regs<K>(acc[s], cor[s], af[kc][s],\n"
+#: ... which K2 forms run resident
+_HEAD_RESIDENT = "  return PLANES == 1 || CIN == 32;\n"
+#: texts a variant replaces where the source has them: an older checkout
+#: (a parent timed by path) may not; the current sources have each once
+OPTIONAL = {_WIDE_MMA_REGS, _HEAD_MMA_REGS, _HEAD_RESIDENT}
+_WIDE_EPI = "    // accumulator fragment: register 4j + 2h + e holds pixel\n"
 PATCHES[WIDE] = {
     "full": [],
     # the producer neither loads nor waits past the first tile (waits on
-    # slots the teams no longer pace could alias phases)
+    # slots the teams no longer pace could alias phases); the streamed
+    # kernel's weights still stream
     "no_load": [(_RES_LOAD, "        if (gh >= UNITS) continue;\n" + _RES_LOAD),
-                (_RES_WAIT, "      if (gh < UNITS)\n" + _RES_WAIT)],
+                (_RES_WAIT, "      if (gh < UNITS)\n" + _RES_WAIT),
+                (_WIDE_LOAD, "        if (hu < UNITS) {\n" + _WIDE_LOAD),
+                (_WIDE_LOADED, _WIDE_LOADED.replace("\n", "\n        }\n",
+                                                    1)),
+                (_WIDE_WAIT, "      if (hu < UNITS)\n" + _WIDE_WAIT)],
     "no_mma": [(_RES_MMA, "          acc[s][kc] += a_rows;\n"),
-               (_RES_MMA_REGS, "          acc[s][kc] += af[h][s][kc][0][0];"
-                "\n")],
+               (_RES_MMA_REGS, "acc[s][kc] += af[h][s][kc][0][0] + (\n"),
+               (_WIDE_MMA, "          acc[kc] += a;\n"),
+               (_WIDE_MMA_REGS, "acc[kc] += af[kc][0][0];"),
+               (_HEAD_MMA_REGS, "acc[s][kc] += af[kc][s][0][0] + (\n")],
     # every accumulator set read, so that ptxas keeps the wgmmas
     "no_epi": [(_RES_EPI,
                 "    float keep = 0.f;\n"
                 "    for (int s = 0; s < RPW; ++s) keep += acc[s][0] + "
                 "cor[s][0];\n"
                 "    if (keep == 0.5f && out) *(float*)out = keep;\n"
-                "    continue;\n" + _RES_EPI)],
+                "    continue;\n" + _RES_EPI),
+               (_WIDE_EPI,
+                "    if (acc[0] + cor[0] == 0.5f && out) *(float*)out = "
+                "acc[0];\n"
+                "    continue;\n" + _WIDE_EPI)],
 }
 PATCHES[WIDE]["weights_only"] = [*PATCHES[WIDE]["no_load"],
                                  *PATCHES[WIDE]["no_mma"],
@@ -381,6 +422,11 @@ PATCHES[WIDE]["streamed"] = [(
     "                                planes);\n"
     "  return launch_res<PLANES, CIN, ResShape<PLANES, CIN>>(x, w, b, alpha, "
     "y,\n")]
+# float32 K2 at x2 at 96 and 128 routed to the resident kernel (2-row
+# tiles), whole: what its streamed form (4-row tiles) gains; a checkout
+# from before the resident K2 times its own kernel
+PATCHES[WIDE]["resident"] = [(
+    _HEAD_RESIDENT, "  return PLANES == 1 || CIN == 32 || R == 2;\n")]
 #: the sources built over each variant of the header
 _WIDE_USERS = (conv3x3.TC_SOURCE, conv3x3.F32_SOURCE)
 _K6_SPECS = ((2, False), (1, True))
@@ -389,11 +435,14 @@ _K6_SPECS = ((2, False), (1, True))
 _DOT_LOOPS = (0, 64, 1024)
 
 
-def variant_source(source: str, variant: str) -> str:
-    """The text of `source` with `variant`'s parts taken out."""
+def variant_source(source: str, variant: str, strict: bool = False) -> str:
+    """The text of `source` with `variant`'s parts taken out (`strict`:
+    the OPTIONAL texts too, each once)."""
     with open(os.path.join(build.CSRC, source)) as f:
         text = f.read()
     for old, new in PATCHES[source][variant]:
+        if not strict and old in OPTIONAL and old not in text:
+            continue
         if text.count(old) != 1:
             raise RuntimeError(f"{source} {variant}: the source no longer "
                                f"has the text this variant replaces")
@@ -547,12 +596,19 @@ _K7Q_FORMS = (("lrelu_q64", 64, 32, "lrelu_q"),
 #: the wide K1 forms timed: (timing, width, dtype)
 _WIDE_FORMS = (("k1_32_ms", 32, "bf16"), ("k1_96_ms", 96, "bf16"),
                ("k1_f32_32", 32, "f32"))
+#: the wide K2 forms timed: (timing, width, scale, dtype); float32 as the
+#: model calls it, on the split planes of its input
+_WIDE_HEADS = (("k2_x2_128_ms", 128, 2, "bf16"),
+               ("k2_x4_128_ms", 128, 4, "bf16"),
+               ("k2_x4_32_ms", 32, 4, "bf16"),
+               ("k2_f32_x2_128_planes_ms", 128, 2, "f32"),
+               ("k2_f32_x2_96_planes_ms", 96, 2, "f32"))
 
 
 def _wide_operands(rs, dev) -> dict:
-    """The wide K1 forms' operands at the main path's shape: the input
-    (and in float32 its split planes, made once), the weights packed
-    once, the outputs."""
+    """The wide K1 and K2 forms' operands at the main path's shape: the
+    input (and in float32 its split planes, made once), the weights
+    packed once, the outputs (K2's: its u8 frames too)."""
     ops = {}
     for timing, feat, dt in _WIDE_FORMS:
         xf = torch.from_numpy(rs.rand(B, H, W, feat).astype(np.float32)
@@ -571,12 +627,29 @@ def _wide_operands(rs, dev) -> dict:
             o["w"] = conv3x3.pack_weights_wide(wf)
             o["y_planes"] = torch.empty_like(o["x"])
         ops[timing] = o
+    u8 = torch.from_numpy(rs.randint(0, 256, (B, H, W, 3)).astype(
+        np.uint8)).to(dev)
+    for timing, feat, r, dt in _WIDE_HEADS:
+        xf = torch.from_numpy(rs.rand(B, H, W, feat).astype(np.float32)
+                              - 0.3).to(dev)
+        wf = torch.from_numpy(rs.uniform(-1, 1, (3, 3, feat, 3 * r * r))
+                              .astype(np.float32) / np.sqrt(9 * feat)).to(
+                                  dev)
+        bf16 = dt == "bf16"
+        ops[timing] = {
+            "x": xf.to(torch.bfloat16) if bf16 else conv3x3.split_bf16x3(xf),
+            "w": conv3x3.pack_weights_wide(wf.to(torch.bfloat16) if bf16
+                                           else wf),
+            "b": torch.zeros(3 * r * r, device=dev), "u8": u8,
+            "out": torch.empty((B, H * r, W * r, 3), dtype=torch.uint8,
+                               device=dev)}
+        del xf
     return ops
 
 
 def _wide_timings(libs, name: str, ops: dict, stream) -> dict:
-    """{timing: callable} of the wide K1 forms for one variant's libraries
-    ({user source: library})."""
+    """{timing: callable} of the wide K1 and K2 forms for one variant's
+    libraries ({user source: library})."""
     P, I = ctypes.c_void_p, ctypes.c_int
     tc, f32 = libs[conv3x3.TC_SOURCE], libs[conv3x3.F32_SOURCE]
     bf = _entry(tc, "reve_conv3x3_bias_prelu_wide_tc", [P] * 5 + [I] * 4 + [P])
@@ -601,9 +674,20 @@ def _wide_timings(libs, name: str, ops: dict, stream) -> dict:
     def run_split():
         build.check(f32, split(o["xf"].data_ptr(), o["x"].data_ptr(),
                                o["xf"].numel() // 8, 8, 8, stream), name)
+
+    def run_head(timing, feat, r, dt):
+        lib = tc if dt == "bf16" else f32
+        fn = _entry(lib, "reve_head_conv_residual_u8_shuffle_wide_" + (
+            "tc" if dt == "bf16" else "f32tc"), [P] * 5 + [I] * 5 + [P])
+        h = ops[timing]
+        return lambda: build.check(lib, fn(
+            h["x"].data_ptr(), h["w"].data_ptr(), h["b"].data_ptr(),
+            h["u8"].data_ptr(), h["out"].data_ptr(), B, H, W, feat, r,
+            stream), name)
     return {"k1_32_ms": run_bf16(ops["k1_32_ms"], 32),
             "k1_96_ms": run_bf16(ops["k1_96_ms"], 96),
-            "k1_f32_32_conv_ms": run_conv, "k1_f32_32_split_ms": run_split}
+            "k1_f32_32_conv_ms": run_conv, "k1_f32_32_split_ms": run_split,
+            **{form[0]: run_head(*form) for form in _WIDE_HEADS}}
 
 
 def _k7q_operands(rs, dev) -> dict:

@@ -8,8 +8,9 @@ At a batch of 4 frames of 1920 x 1080 with seeded inputs (made on the
 card): K3 on the u8 frames (3 -> F), K1 over F channels (F -> F) and K2
 at each scale (F -> 3r^2 with the u8 residual and the shuffle), each
 through its wrapper (float32 K1 and K2 with their split pass; at the
-wide widths float32 K1 also as the model calls it there, `k1_planes`: on
-the split planes of its input, writing those of its output), and the
+wide widths float32 K1 and K2 also as the model calls them there,
+`k1_planes` and `k2_planes_x{r}`: on the split planes of their input, K1
+writing those of its output), and the
 whole model (`srvgg.apply`, u8 -> u8, F features,
 16 convs, x4, seeded init).  `--dtypes int8` (or `--dtype int8`) times
 the int8 forms instead: K4a on the u8 frames (3 -> F, bfloat16 compute,
@@ -84,6 +85,7 @@ def forms(feat: int, dtype: torch.dtype, scales, seed: int = 0) -> dict:
         "k3": lambda: conv3x3.conv3x3_u8_bias_prelu(u8, w3, b, a),
         "k1": lambda: conv3x3.conv3x3_bias_prelu(x, w1, b, a),
     }
+    xp = None
     if dtype == torch.float32 and feat != conv3x3.FEAT:
         # K1 as the float32 model calls it there: planes in, planes out
         xp = conv3x3.split_bf16x3(x)
@@ -95,6 +97,11 @@ def forms(feat: int, dtype: torch.dtype, scales, seed: int = 0) -> dict:
         calls[f"k2_x{r}"] = (lambda wh=wh, bh=bh, r=r:
                              head.head_conv_residual_u8_shuffle(
                                  x, wh, bh, u8, r))
+        if xp is not None:
+            # ... and K2 as it calls it: on those planes, no split pass
+            calls[f"k2_planes_x{r}"] = (lambda wh=wh, bh=bh, r=r:
+                                        head.head_conv_residual_u8_shuffle(
+                                            xp, wh, bh, u8, r))
     cfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=16, upscale=4)
     params = srvgg.params_to(srvgg.init_params(
         cfg, torch.Generator().manual_seed(feat)), dev)

@@ -354,7 +354,9 @@ WIDE_FEATS = (32, 96, 128)
 
 def _width_forms(d, dev, dt, feat, scale=1.0):
     """(name, kernel call, plain call) of K3, K1 and K2 at x2, x3, x4 on
-    `d` (seeded at Cin = Cout = feat), in `dt`."""
+    `d` (seeded at Cin = Cout = feat), in `dt`; float32 K2 then also as
+    the model calls it at these widths, on the split planes of its input
+    (split here, before the call)."""
     x = ((d["x"] - 0.5) * scale + 0.5).to(dev, dt) if scale != 1.0 else \
         d["x"].to(dev, dt)
     w, b, a, u8 = d["w"].to(dev, dt), d["b"].to(dev), d["alpha"].to(dev), \
@@ -379,6 +381,18 @@ def _width_forms(d, dev, dt, feat, scale=1.0):
                       lambda wh=wh, bh=bh, r=r:
                       head.head_conv_residual_u8_shuffle_plain(
                           h, wh, bh, u8, r)))
+    if dt == torch.float32 and feat != conv3x3.FEAT:
+        hp = conv3x3.split_bf16x3(h)
+        for r in (2, 3, 4):
+            wh = w2[..., :3 * r * r].contiguous()
+            bh = b2[:3 * r * r].contiguous()
+            forms.append(("head_conv_residual_u8_shuffle_planes",
+                          lambda wh=wh, bh=bh, r=r:
+                          head.head_conv_residual_u8_shuffle(
+                              hp, wh, bh, u8, r),
+                          lambda wh=wh, bh=bh, r=r:
+                          head.head_conv_residual_u8_shuffle_plain(
+                              hp, wh, bh, u8, r)))
     return forms
 
 
@@ -394,9 +408,11 @@ def _hold_width_forms(forms, name, floor=2.0 ** -10, atol=1e-4):
             torch.testing.assert_close(got, want, atol=atol, rtol=0)
         else:
             _close(got, want, name, floor=floor)
-        # one launch of the form (float32 K1 and K2: and their split pass)
+        # one launch of the form (float32 K1 and K2: and their split pass;
+        # K2 on planes: none)
         assert LAUNCHES[kname] == before[kname] + 1
-        split = name == "float32" and kname != "conv3x3_u8_bias_prelu"
+        split = name == "float32" and kname in (
+            "conv3x3_bias_prelu", "head_conv_residual_u8_shuffle")
         assert LAUNCHES["split_bf16x3"] == before["split_bf16x3"] + split
 
 
@@ -446,7 +462,7 @@ def test_width_model_matches_plain_path(feat, r):
     """A whole SRVGG at 32, 96 and 128 features on the kernels against
     its plain path: float32 u8 |d| <= 1, bfloat16 at the engine's 50 dB
     floor against the plain bf16 path; the launches 1 K3, num_conv K1
-    (float32: K1 on planes, counted apart) and 1 K2."""
+    and 1 K2 (float32: K1 and K2 on planes, counted apart)."""
     dev = _cuda()
     cfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=2, upscale=r)
     params = srvgg.params_to(srvgg.init_params(
@@ -456,15 +472,17 @@ def test_width_model_matches_plain_path(feat, r):
         before = dict(LAUNCHES)
         got = srvgg.apply(params, u8, cfg=cfg, compute_dtype=dt)
         torch.cuda.synchronize()
-        k1 = "conv3x3_bias_prelu_planes" \
-            if srvgg.carries_planes(feat, dt) else "conv3x3_bias_prelu"
+        on = "_planes" if srvgg.carries_planes(feat, dt) else ""
         assert {k: LAUNCHES[k] - before[k] for k in (
             "conv3x3_u8_bias_prelu", "conv3x3_bias_prelu",
-            "conv3x3_bias_prelu_planes",
-            "head_conv_residual_u8_shuffle")} == {
+            "conv3x3_bias_prelu_planes", "head_conv_residual_u8_shuffle",
+            "head_conv_residual_u8_shuffle_planes")} == {
                 "conv3x3_u8_bias_prelu": 1, "conv3x3_bias_prelu": 0,
                 "conv3x3_bias_prelu_planes": 0,
-                "head_conv_residual_u8_shuffle": 1, k1: 2}
+                "head_conv_residual_u8_shuffle": 0,
+                "head_conv_residual_u8_shuffle_planes": 0,
+                "conv3x3_bias_prelu" + on: 2,
+                "head_conv_residual_u8_shuffle" + on: 1}
         want = srvgg.apply(params, u8, cfg=cfg, compute_dtype=dt,
                            plain=True)
         d = (got.int() - want.int()).abs()
@@ -505,6 +523,32 @@ def test_resident_k1_matches_plain_at_its_tile_edges(form, B):
                           name)
         if name == "float32":
             _hold_planes_k1(d, dev)
+
+
+#: the resident wide K2 forms (conv3x3_wide.cuh's head_resident and
+#: HeadShape): (dtype, width, scale) -> its tile rows
+RES_HEAD_TILE_ROWS = {
+    **{("bfloat16", f, r): 4 for f in WIDE_FEATS for r in (2, 3, 4)},
+    **{("float32", 32, r): 2 for r in (2, 3, 4)}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2, 3])
+@pytest.mark.parametrize("form", sorted(RES_HEAD_TILE_ROWS))
+def test_resident_k2_matches_plain_at_its_tile_edges(form, B):
+    """K2 where its weights are resident (bf16 at every width and scale,
+    float32 at 32; teams taking tiles in turn) against its plain version
+    at its own tile edges (tiles of 4 rows in bfloat16, 2 in float32), u8
+    |d| <= 1; float32 on a float32 input and on the split planes of its
+    input, as the model calls it."""
+    dev = _cuda()
+    name, feat, r = form
+    for hw in _res_shapes(RES_HEAD_TILE_ROWS[form]):
+        d = _inputs(feat + B + hw[0] + r, B, *hw, cin=feat, cout=feat)
+        forms = _width_forms(d, dev, DTYPES[name], feat)
+        # K2 at scale r is form r; on planes (float32) form r + 3
+        _hold_width_forms([forms[r]] + ([forms[r + 3]] if name == "float32"
+                                        else []), name)
 
 
 def _hold_planes_k1(d, dev, scale=1.0):
@@ -559,7 +603,8 @@ def test_planes_k1_at_1080p_and_large_activations(feat):
 def test_float32_model_call_runs_one_split_pass(feat):
     """A float32 SRVGG call at 32, 96 and 128 features launches the split
     pass once (after K3): K1 reads and writes planes (counted as
-    conv3x3_bias_prelu_planes; no float32-out K1), K2 reads them."""
+    conv3x3_bias_prelu_planes; no float32-out K1), K2 reads them (counted
+    as head_conv_residual_u8_shuffle_planes; no float32-input K2)."""
     dev = _cuda()
     cfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=3, upscale=4)
     params = srvgg.params_to(srvgg.init_params(
@@ -570,11 +615,13 @@ def test_float32_model_call_runs_one_split_pass(feat):
     torch.cuda.synchronize()
     assert {k: LAUNCHES[k] - before[k] for k in (
         "split_bf16x3", "conv3x3_u8_bias_prelu", "conv3x3_bias_prelu",
-        "conv3x3_bias_prelu_planes", "head_conv_residual_u8_shuffle")} == {
+        "conv3x3_bias_prelu_planes", "head_conv_residual_u8_shuffle",
+        "head_conv_residual_u8_shuffle_planes")} == {
             "split_bf16x3": srvgg.split_passes(cfg, torch.float32),
             "conv3x3_u8_bias_prelu": 1, "conv3x3_bias_prelu": 0,
             "conv3x3_bias_prelu_planes": 3,
-            "head_conv_residual_u8_shuffle": 1}
+            "head_conv_residual_u8_shuffle": 0,
+            "head_conv_residual_u8_shuffle_planes": 1}
     assert srvgg.split_passes(cfg, torch.float32) == 1
     want = srvgg.apply(params, u8, cfg=cfg, compute_dtype=torch.float32,
                        plain=True)
@@ -585,7 +632,10 @@ def test_float32_model_call_runs_one_split_pass(feat):
 #: perf_conv_widths (1080p, its seeded inputs: K3, K1, K2 at x2, x3, x4
 #: and the 16-conv model) on the parent of the change that gave K1 its
 #: resident and planes forms (H100): the redesign keeps each output
-#: pixel's order of K steps, so the bytes must be the same
+#: pixel's order of K steps, so the bytes must be the same.  The float32
+#: K2 on planes (`k2_planes_*`) recorded so on the parent of the change
+#: that gave K2 its resident forms (the bytes of K2 on a float32 input,
+#: as its split pass gives those planes).
 WIDE_SHA256 = {
     "k3_f32_bfloat16": "cee70daaef7fea38",
     "k1_f32_bfloat16": "af16d6e130be71ad",
@@ -598,6 +648,9 @@ WIDE_SHA256 = {
     "k2_x2_f32_float32": "99795348630a5a74",
     "k2_x3_f32_float32": "bd2f8592b65478ba",
     "k2_x4_f32_float32": "143e7f8af11c8540",
+    "k2_planes_x2_f32_float32": "99795348630a5a74",
+    "k2_planes_x3_f32_float32": "bd2f8592b65478ba",
+    "k2_planes_x4_f32_float32": "143e7f8af11c8540",
     "model_f32_float32": "f68025f81c3abd8c",
     "k3_f96_bfloat16": "e1c2bbccad9a3006",
     "k1_f96_bfloat16": "9c265c9d92860b5b",
@@ -610,6 +663,9 @@ WIDE_SHA256 = {
     "k2_x2_f96_float32": "120e48ec82f7193d",
     "k2_x3_f96_float32": "049d6b4ac386c143",
     "k2_x4_f96_float32": "3d717d9e70833152",
+    "k2_planes_x2_f96_float32": "120e48ec82f7193d",
+    "k2_planes_x3_f96_float32": "049d6b4ac386c143",
+    "k2_planes_x4_f96_float32": "3d717d9e70833152",
     "model_f96_float32": "ffa064e9b9af161e",
     "k3_f128_bfloat16": "1111d186cf93d46b",
     "k1_f128_bfloat16": "6990c6c51e6c0688",
@@ -622,6 +678,9 @@ WIDE_SHA256 = {
     "k2_x2_f128_float32": "54778e719b746b04",
     "k2_x3_f128_float32": "aeb81f28c4ab1177",
     "k2_x4_f128_float32": "cde9fa36f845d265",
+    "k2_planes_x2_f128_float32": "54778e719b746b04",
+    "k2_planes_x3_f128_float32": "aeb81f28c4ab1177",
+    "k2_planes_x4_f128_float32": "cde9fa36f845d265",
     "model_f128_float32": "cfa6d157e32a0f4e",
 }
 
@@ -631,7 +690,9 @@ def test_wide_forms_keep_the_parents_outputs():
     """K3, K1 and K2 (x2, x3, x4) and the 16-conv model at 32, 96 and 128
     features in bfloat16 and float32 give the bytes they gave before K1
     was redesigned (float32 K1 as the wrapper calls it on a float32
-    input: the split pass, then the kernel writing its float32 output)."""
+    input: the split pass, then the kernel writing its float32 output),
+    and float32 K2 on the split planes of its input the bytes it gave
+    before K2 was redesigned."""
     from reve_tpu_torch.scripts import perf_conv_widths as perf
 
     _cuda()

@@ -233,16 +233,31 @@ def test_parts_script_variants_still_apply(source):
     with open(os.path.join(build.CSRC, source)) as f:
         original = f.read()
     for variant in perf_conv_tc_parts.PATCHES[source]:
-        text = perf_conv_tc_parts.variant_source(source, variant)
+        text = perf_conv_tc_parts.variant_source(source, variant,
+                                                 strict=True)
         assert (text == original) == (variant == "full")
     if source == conv3x3.SOURCE:  # K3/K4a: stores alone, wgmmas alone
         assert {"stores_only", "no_load_no_epi", "full"} <= set(
             perf_conv_tc_parts.PATCHES[source])
     if source == perf_conv_tc_parts.WIDE:
-        # the resident K1's parts, and the resident forms on the streamed
-        # kernel
+        # the resident kernel's parts, the resident K1 forms on the
+        # streamed kernel and float32 K2 at x2 on the resident one
         assert {"no_load", "no_mma", "no_epi", "weights_only", "streamed",
-                "full"} == set(perf_conv_tc_parts.PATCHES[source])
+                "resident", "full"} == set(perf_conv_tc_parts.PATCHES[source])
+        # each part taken out of the resident kernel and the streamed one
+        # alike (the wide K2 runs on both, by form)
+        for variant, marks in (
+                ("no_load", ("if (gh < UNITS)", "if (hu < UNITS)")),
+                ("no_mma", ("acc[s][kc] += a_rows;", "acc[kc] += a;",
+                            "acc[kc] += af[kc][0][0];",
+                            "acc[s][kc] += af[kc][s][0][0]")),
+                ("no_epi", ("keep += acc[s][0]", "acc[0] + cor[0] == 0.5f"))):
+            text = perf_conv_tc_parts.variant_source(source, variant)
+            assert all(m in text and m not in original for m in marks)
+        assert "mma_step<K>(" not in perf_conv_tc_parts.variant_source(
+            source, "weights_only")
+        assert "res_step_regs<K>(" not in perf_conv_tc_parts.variant_source(
+            source, "no_mma").split("void res_step_regs(")[1]
 
 
 def _conv_last_f32_constants() -> dict:

@@ -144,13 +144,14 @@ def _wide_sum(x, w):
     channels and each tap, the planes of the input's shifted halo (bf16
     x, or split_bf16x3's hi, mid, lo of float32 x) times that unit-tap of
     pack_weights_wide, float32 sums; float32 sums the pairs of
-    BF16X6_PAIRS, smallest first, hi.hi apart.  Returns the (B, H, W,
-    Cout) float32 sum before the bias."""
-    B, H, W, cin = x.shape
+    BF16X6_PAIRS, smallest first, hi.hi apart; `x` may be those planes
+    themselves, (3, B, H, W, Cin) bf16, as the float32 model hands them
+    to K2).  Returns the (B, H, W, Cout) float32 sum before the bias."""
+    B, H, W, cin = x.shape[-4:]
     cout = w.shape[-1]
     n = conv3x3.padded_n(cout)
-    planes = x[None] if x.dtype == torch.bfloat16 else \
-        conv3x3.split_bf16x3(x)
+    planes = x if x.dim() == 5 else x[None] if x.dtype == torch.bfloat16 \
+        else conv3x3.split_bf16x3(x)
     xp = F.pad(planes, (0, 0, 1, 1, 1, 1))
     packed = conv3x3.pack_weights_wide(w)
     S = planes.shape[0]
@@ -213,12 +214,16 @@ def test_wide_k1_emulation_matches_jax_conv_prelu(name, cin, scale):
 
 @pytest.mark.parametrize("scale", [1.0, 2.0 ** 8])
 @pytest.mark.parametrize("r", [2, 3, 4])
-@pytest.mark.parametrize("cin", [96, 128])
+@pytest.mark.parametrize("cin", [96, 128, 32])
 @pytest.mark.parametrize("name", sorted(DTYPES))
 def test_wide_k2_emulation_matches_jax_head(name, cin, r, scale):
     """The wide K2's sum at 3r^2 outputs, + b (cast to bf16 in bfloat16),
     then the head epilogue, against reve_tpu's `_conv3x3` +
-    `_epilogue(quantize_u8=True)` (the pixel shuffle included)."""
+    `_epilogue(quantize_u8=True)` (the pixel shuffle included).  float32
+    also on the split planes of its input, as the float32 model hands
+    them to K2 at these widths: the same sum bit for bit, and the
+    wrapper's CPU path on the planes (its plain version, which merges
+    them) within the same rule."""
     jdt, tdt = DTYPES[name]
     d = _inputs(10 * r + cin, cin, 3 * r * r, scale)
     h = np.maximum(d["x"], 0) * 0.5  # a hidden activation, as K1 hands it
@@ -233,10 +238,19 @@ def test_wide_k2_emulation_matches_jax_head(name, cin, r, scale):
                        d["b"])
     got = head.residual_u8_plain(hv.to(tdt), torch.from_numpy(d["u8"]),
                                  r).numpy()
-    assert got.shape == want.shape == (2, 9 * r, 13 * r, 3)
-    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
-    assert diff.max() <= 1
-    assert (diff > 0).mean() < 0.01, (diff > 0).mean()
+    gots = [got]
+    if name == "float32":
+        hp = conv3x3.split_bf16x3_plain(torch.from_numpy(h))
+        assert torch.equal(_wide_sum(hp, torch.from_numpy(d["w"])) +
+                           torch.from_numpy(d["b"]), hv)
+        gots.append(head.head_conv_residual_u8_shuffle(
+            hp, torch.from_numpy(d["w"]), torch.from_numpy(d["b"]),
+            torch.from_numpy(d["u8"]), r).numpy())
+    for got in gots:
+        assert got.shape == want.shape == (2, 9 * r, 13 * r, 3)
+        diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        assert diff.max() <= 1
+        assert (diff > 0).mean() < 0.01, (diff > 0).mean()
     if scale == 1.0:  # not clipped flat: the comparison has something
         assert np.unique(want).size > 64
 
