@@ -403,8 +403,8 @@ TILE = 512
 #: K3 at Cout 32, 96, 128 in chunks of 64 or 32 output
 #: channels (1, 3, 2 chunks): 2 and 12 a chunk, and K4a the same; K4 and
 #: K4h in int8 (conv3x3_s8_wide.cuh, instantiated by conv3x3_s8.cu): 12
-#: kernels, 9 (s8) a unit of 32 input channels (nine taps of one k32
-#: step; the units looped)
+#: kernels, 9 (s8) a unit of 32 input channels and row of a warpgroup
+#: (nine taps of one k32 step; the units looped)
 P1_IGMMA, P1_HGMMA = sum(range(1, 9)), sum(range(1, 17))
 WIDE_KERNELS = 3 + 3 * 3
 MIN_WGMMA = {"conv3x3_tc.cu": 5 * 36 + WIDE_KERNELS * 18,
@@ -3255,6 +3255,7 @@ def width_entries(name: str, widths: dict) -> dict:
             e = dict(nums, source=src, route="cuda",
                      design="wgmma_bf16x6" if dt == "float32" else
                      "wgmma_bf16x6_planes" if dt == "float32_planes" else
+                     "wgmma_s8_teams" if src.endswith("s8_wide.cuh") else
                      "wgmma",
                      launches=launched(4))
             for r in (2, 3):

@@ -253,22 +253,29 @@ def pack_weights_wide(w: torch.Tensor) -> torch.Tensor:
     return s.permute(2, 1, 0, 3, 5, 4).contiguous()
 
 
-def packed_wide(w: torch.Tensor) -> torch.Tensor:
-    """pack_weights_wide(w), packed once per set of weights: the pack is
-    kept on `w` with the version counter, storage, dtype and shape it was
-    packed from, so an in-place update (an optimizer step) or new storage
-    gives a fresh pack, never a stale one.  A tensor without a version
-    counter (made under torch.inference_mode) is packed at each call."""
+def packed_once(w: torch.Tensor, pack, attr: str) -> torch.Tensor:
+    """pack(w), packed once per set of weights: the pack is kept on `w`
+    (as attribute `attr`, one per packer) with the version counter,
+    storage, dtype and shape it was packed from, so an in-place update (an
+    optimizer step) or new storage gives a fresh pack, never a stale one.
+    A tensor without a version counter (made under torch.inference_mode)
+    is packed at each call."""
     try:
         key = (w._version, w.data_ptr(), w.dtype, tuple(w.shape))
     except RuntimeError:
-        return pack_weights_wide(w)
-    held = getattr(w, "_reve_wide_pack", None)
+        return pack(w)
+    held = getattr(w, attr, None)
     if held is not None and held[0] == key:
         return held[1]
-    packed = pack_weights_wide(w)
-    w._reve_wide_pack = (key, packed)
+    packed = pack(w)
+    setattr(w, attr, (key, packed))
     return packed
+
+
+def packed_wide(w: torch.Tensor) -> torch.Tensor:
+    """pack_weights_wide(w), packed once per set of weights
+    (`packed_once`)."""
+    return packed_once(w, pack_weights_wide, "_reve_wide_pack")
 
 
 # -- kernel wrappers ----------------------------------------------------------

@@ -12,15 +12,17 @@ Bound per call of 4 1080p frames on an H100 SXM (1979 TOP/s s8 dense,
 3.35 TB/s): 611.5 GOP -> 0.31 ms; 1.06 GB of s8 in + out -> 0.32 ms.  The
 kernel is an implicit GEMM on s8 `wgmma` (m64n64k32) with TMA halo loads
 (see the .cu header); the wrapper packs the weights for it
-(`pack_weights_s8`).
+(`pack_weights_s8`), once per set of weights (`packed_s8`).
 
 Widths.  K4 and K4h take an SRVGG of any of conv3x3.WIDTHS (32, 64, 96,
 128) features.  At 64 they run the kernels above; at 32, 96 and 128
 csrc/conv3x3_s8_wide.cuh's template (instantiated by the same source): the
 halo streams in units of 32 input channels (a TMA box of 32 s8 channels in
 the 32-B swizzle, one k32 step of m64nNk32 wgmma a tap), the weights
-packed unit by unit (`pack_weights_s8_wide`) and resident in shared
-memory (147 KB for K4 at 128).
+packed unit by unit (`pack_weights_s8_wide`, once per set of weights:
+`packed_s8_wide`) and resident in shared memory (147 KB for K4 at 128),
+consumer teams of warpgroups taking tiles in turn so that one team's
+epilogue runs beside another's wgmmas.
 Bound per call of 4 1080p frames: K4 at 32 0.158 ms (bytes), at 96 1,376
 GOP -> 0.695 ms and at 128 2,446 GOP -> 1.236 ms (operations).
 
@@ -42,7 +44,8 @@ from reve_tpu_torch.kernels import LAUNCHES, build
 from reve_tpu_torch.kernels.conv3x3 import (FEAT, WIDE_UNIT,
                                             check_operands, check_width,
                                             f32_operand, pad_outputs,
-                                            padded_n, quant_s8_plain)
+                                            packed_once, padded_n,
+                                            quant_s8_plain)
 
 SOURCE = "conv3x3_s8.cu"
 
@@ -98,6 +101,19 @@ def pack_weights_s8_wide(w8: torch.Tensor) -> torch.Tensor:
         .permute(1, 0, 2, 3, 4).contiguous()
 
 
+def packed_s8(w8: torch.Tensor) -> torch.Tensor:
+    """pack_weights_s8(w8), packed once per set of weights (as
+    conv3x3.packed_wide: kept on `w8` with its version counter, storage,
+    dtype and shape, so never stale)."""
+    return packed_once(w8, pack_weights_s8, "_reve_s8_pack")
+
+
+def packed_s8_wide(w8: torch.Tensor) -> torch.Tensor:
+    """pack_weights_s8_wide(w8), packed once per set of weights (as
+    packed_s8)."""
+    return packed_once(w8, pack_weights_s8_wide, "_reve_s8_wide_pack")
+
+
 # -- kernel wrapper -----------------------------------------------------------
 
 
@@ -136,11 +152,10 @@ def conv3x3_s8_dq_prelu_q8(x8: torch.Tensor, w8: torch.Tensor,
     y = torch.empty_like(x8)
     lib = build.load(SOURCE)
     if feat == FEAT:
-        fn, wp, ints = lib.reve_conv3x3_s8_dq_prelu_q8, \
-            pack_weights_s8(w8), ()
+        fn, wp, ints = lib.reve_conv3x3_s8_dq_prelu_q8, packed_s8(w8), ()
     else:
         fn, wp, ints = lib.reve_conv3x3_s8_dq_prelu_q8_wide, \
-            pack_weights_s8_wide(w8), (feat,)
+            packed_s8_wide(w8), (feat,)
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * (3 + len(ints)) \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int

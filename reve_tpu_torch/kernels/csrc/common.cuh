@@ -67,6 +67,18 @@ __device__ __forceinline__ uint32_t quant_s8(float x, float inv) {
   return r & 0xFFu;
 }
 
+// quant_s8's code of x * inv, in float32 arithmetic only, as the low byte
+// of the result.  Clip first (+-127 are integers: clip(rint(v)) ==
+// rint(clip(v))), then add 1.5 * 2^23, where the float32 spacing is 1:
+// the sum rounds to the nearest integer, ties to even, and its low byte is
+// the code in two's complement.  The same bits as quant_s8, whose
+// conversion instruction issues at a quarter of the float32 rate on
+// Hopper: K4a and the wide K4 have one a value.
+__device__ __forceinline__ uint32_t quant_bits(float x, float inv) {
+  const float v = fminf(fmaxf(__fmul_rn(x, inv), -127.f), 127.f);
+  return __float_as_uint(__fadd_rn(v, 12582912.f));
+}
+
 // Launch grid for a persistent kernel: one wave of resident blocks (each
 // loads its weights into shared memory once and then walks many tiles),
 // at most `max_per_sm` on each SM.

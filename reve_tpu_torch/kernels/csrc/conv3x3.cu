@@ -99,7 +99,7 @@
 //    no FMA contraction).  It avoids conversion instructions, which issue
 //    at a quarter of the float32 rate on this card: bf16 PReLU is one
 //    bf16x2 fma after one packing conversion a pair, and K4a's quantize
-//    adds 1.5 * 2^23 in float32 (quant_bits).
+//    adds 1.5 * 2^23 in float32 (common.cuh's quant_bits).
 #include <type_traits>
 
 #include "tc.cuh"
@@ -476,18 +476,6 @@ __device__ __forceinline__ void mma_row(float (&acc)[NC / 2],
   if constexpr (F32) fence_regs(cor);
 }
 
-// The s8 code of x * inv, rounded half to even and clipped to +-127
-// (reve_tpu srvgg._quant_s8), as the low byte of the result.  Clip first
-// (+-127 are integers: clip(rint(v)) == rint(clip(v))), then add 1.5 *
-// 2^23, where the float32 spacing is 1: the sum rounds to the nearest
-// integer, ties to even, and its low byte is the code in two's
-// complement.  Float32 arithmetic only: a conversion instruction issues at
-// a quarter of that rate on this card, and K4a would have one a value.
-__device__ __forceinline__ uint32_t quant_bits(float x, float inv) {
-  const float v = fminf(fmaxf(__fmul_rn(x, inv), -127.f), 127.f);
-  return __float_as_uint(__fadd_rn(v, 12582912.f));
-}
-
 // The epilogue of this thread's accumulators of channel chunk `ci` into
 // the staging buffer `st`, in the swizzle of the output's tensor map.
 // Register 4j + 2h + e holds pixel pa + 8h, channel 8 jc + 2q + e, jc =
@@ -536,16 +524,16 @@ __device__ __forceinline__ void epilogue(
         *reinterpret_cast<uint16_t*>(
             st + (j >> 3) * (TW * 64) + p * 64 +
             ((((j >> 1) & 3) ^ ((p >> 1) & 3)) << 4) + 8 * (j & 1) + 2 * q) =
-            (uint16_t)__byte_perm(quant_bits(v[0], inv),
-                                  quant_bits(v[1], inv), 0x40);
+            (uint16_t)__byte_perm(reve::quant_bits(v[0], inv),
+                                  reve::quant_bits(v[1], inv), 0x40);
       } else if constexpr (U::Q8) {
         // boxes of 32 channels, 32-B rows; chunk c of pixel p at chunk c ^
         // ((p / 4) % 2)
         *reinterpret_cast<uint16_t*>(
             st + (j >> 2) * (TW * 32) + p * 32 +
             ((((j >> 1) & 1) ^ ((p >> 2) & 1)) << 4) + 8 * (j & 1) + 2 * q) =
-            (uint16_t)__byte_perm(quant_bits(v[0], inv),
-                                  quant_bits(v[1], inv), 0x40);
+            (uint16_t)__byte_perm(reve::quant_bits(v[0], inv),
+                                  reve::quant_bits(v[1], inv), 0x40);
       } else if constexpr (U::F32) {
         // boxes of 32 channels, each 128-B rows; chunk c of pixel p at
         // chunk c ^ (p % 8)

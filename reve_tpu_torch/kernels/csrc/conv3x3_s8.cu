@@ -66,9 +66,10 @@
 //    conversion (common.cuh).
 //
 // At 32, 96 and 128 features K4 and K4h are conv3x3_s8_wide.cuh's
-// template (the halo streamed in units of 32 input channels), instantiated
-// here behind their own entry points (the *_wide ones at the end); the
-// 64-feature kernels above are unchanged.
+// template (the halo streamed in units of 32 input channels, consumer
+// teams taking tiles in turn), instantiated here behind their own entry
+// points (the *_wide ones at the end); the 64-feature kernels above are
+// unchanged.
 #include "conv3x3_s8_wide.cuh"
 #include "tc.cuh"
 
@@ -341,8 +342,8 @@ extern "C" int reve_head_conv_s8_residual_u8_shuffle_tc(
 
 // K4 at `feat` (32, 96, 128) input and output channels
 // (conv3x3_s8_wide.cuh).  `wp`: the weights packed as [unit][tap][k /
-// 16][n][16] s8 (kernels/conv3x3_s8.py pack_weights_s8_wide).  Returns a
-// cudaError_t (0 = success).
+// 16][n][16] s8 (kernels/conv3x3_s8.py pack_weights_s8_wide, kept by
+// packed_s8_wide).  Returns a cudaError_t (0 = success).
 extern "C" int reve_conv3x3_s8_dq_prelu_q8_wide(
     const void* x, const void* wp, const float* scale, const float* bias,
     const float* alpha, const float* inv_next, void* y, int B, int H, int W,

@@ -43,7 +43,8 @@ float32 each plane's A read into registers once for its six products;
 bound per call of 4 1080p
 frames at r = 4 in bf16 0.232, 0.696 and 0.927 ms (operations).  K4h
 there is csrc/conv3x3_s8_wide.cuh's template at R = 2, 3, 4 (its weights
-packed by conv3x3_s8.pack_weights_s8_wide; the same HeadEpilogue); bound
+packed once by conv3x3_s8.packed_s8_wide; consumer teams taking tiles in
+turn, as the resident K2's; the same HeadEpilogue); bound
 at r = 4 0.206 and 0.364 ms at 32 and 96 (bytes), 0.464 ms at 128
 (operations).  conv_last and K2's conv_last mode take 64 channels only.
 
@@ -74,9 +75,8 @@ from reve_tpu_torch.kernels.conv3x3 import (F32_SOURCE, FEAT, TC_SOURCE,
                                             pack_weights_bf16x3, packed_wide,
                                             split_bf16x3)
 from reve_tpu_torch.kernels.conv3x3_s8 import (SOURCE as S8_SOURCE,
-                                               conv3x3_s8_plain,
-                                               pack_weights_s8,
-                                               pack_weights_s8_wide)
+                                               conv3x3_s8_plain, packed_s8,
+                                               packed_s8_wide)
 from reve_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -274,10 +274,9 @@ def head_conv_s8_residual_u8_shuffle(x8: torch.Tensor, w8: torch.Tensor,
     what = "head_conv_s8_residual_u8_shuffle"
     if feat == FEAT:
         _launch(S8_SOURCE, "reve_head_conv_s8_residual_u8_shuffle_tc",
-                (x8, pack_weights_s8(w8), ss, bb), u8, out, (r,), what)
+                (x8, packed_s8(w8), ss, bb), u8, out, (r,), what)
     else:
         _launch(S8_SOURCE, "reve_head_conv_s8_residual_u8_shuffle_wide_tc",
-                (x8, pack_weights_s8_wide(w8), ss, bb), u8, out, (feat, r),
-                what)
+                (x8, packed_s8_wide(w8), ss, bb), u8, out, (feat, r), what)
     LAUNCHES["head_conv_s8_residual_u8_shuffle"] += 1
     return out

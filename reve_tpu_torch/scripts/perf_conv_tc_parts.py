@@ -47,6 +47,18 @@ each SM:
     other widths runs, whole and right: what the resident design gains)
     and `resident` (float32 K2 at x2 at 96 and 128 on the resident
     kernel, whole and right: what its streamed form gains);
+  * kernels/csrc/conv3x3_s8_wide.cuh (the header; conv3x3_s8.cu is built
+    over each variant of it): K4 at 32 and 128 features (`k4_32_ms`,
+    `k4_128_ms`), K4h at x4 at 32 and 128 and at x2 at 128
+    (`k4h_x4_32_ms`, ...), each entry point on weights packed once (the
+    wrappers' per-call packing before their packs were kept is not in
+    these times).  Its variants `no_load`, `no_mma` and `no_epi` (every
+    accumulator still read) are anchored on texts its kernel has had since
+    its first form, so they apply to a parent's kernel too; the shape
+    variants (`k4_32_t2w1r8h4`: K4 at 32 on TEAMS 2 teams of TEAM_WGS 1
+    warpgroup of RPW 8 rows, HS 4 halo slots; `k4_128_...` K4 at 128,
+    `heads_...` K4h at x3 and x4) route forms to other shapes of the
+    teams' kernel, whole and right;
   * kernels/csrc/conv3x3.cu: K3 in bfloat16 (`k3_ms`) and float32
     (`k3_f32_ms`), K4a with its conv in bfloat16 (`k4a_ms`) and float32
     (`k4a_f32_ms`), and K3 at Cin 12 (R = 2) at RRDB x2's shape, the
@@ -103,8 +115,9 @@ each SM:
     walk each tile's rows 4 or 1 at a time (`rows_4`, `rows_1`) where
     it walks them 2 at a time.  They compute the right result.
 Each conv source's kernels share one mainloop, so a variant takes the part out
-of all of them.  The variants that take a part out compute wrong results.
-They exist only here, in a temporary directory, and only their times mean
+of all of them.  Run by path with PYTHONPATH at a `git archive` of a
+parent, a variant none of whose texts that parent has is not built.  The
+variants that take a part out compute wrong results.  They exist only here, in a temporary directory, and only their times mean
 anything.
 Prints one JSON line: the
 card, then {source: {variant: {timing: [ms, ms]}}}, each time the mean
@@ -423,12 +436,95 @@ PATCHES[WIDE]["streamed"] = [(
     "  return launch_res<PLANES, CIN, ResShape<PLANES, CIN>>(x, w, b, alpha, "
     "y,\n")]
 # float32 K2 at x2 at 96 and 128 routed to the resident kernel (2-row
-# tiles), whole: what its streamed form (4-row tiles) gains; a checkout
-# from before the resident K2 times its own kernel
+# tiles), whole: what its streamed form (4-row tiles) gains (not built
+# for a checkout from before the resident K2)
 PATCHES[WIDE]["resident"] = [(
     _HEAD_RESIDENT, "  return PLANES == 1 || CIN == 32 || R == 2;\n")]
-#: the sources built over each variant of the header
-_WIDE_USERS = (conv3x3.TC_SOURCE, conv3x3.F32_SOURCE)
+# conv3x3_s8_wide.cuh: the wide K4 and K4h.  Each part is anchored on a
+# text its kernel has had since its first form (a parent timed by path
+# has it too); the shape variants route forms to other shapes of the
+# teams' kernel
+S8_WIDE = "conv3x3_s8_wide.cuh"
+_S8_CK = ("constexpr int CK = 32;  // input channels of a unit: one 32-B "
+          "halo row\n")
+#: the variants' stand-ins: a "wgmma" that adds its operands' descriptors
+#: to the accumulators, and a read of every accumulator set
+_S8_PARTS = (
+    "template <int M>\n"
+    "__device__ __forceinline__ void no_mma(int (&acc)[M], uint64_t a, "
+    "uint64_t b) {\n"
+    "  acc[0] += (int)(a ^ b);\n"
+    "}\n"
+    "template <int M>\n"
+    "__device__ __forceinline__ int keep(int (&acc)[M]) { return acc[0]; }\n"
+    "template <int S, int M>\n"
+    "__device__ __forceinline__ int keep(int (&acc)[S][M]) {\n"
+    "  int k = 0;\n"
+    "  for (int s = 0; s < S; ++s) k += acc[s][0];\n"
+    "  return k;\n"
+    "}\n")
+_S8_LOAD = "      for (int u = 0; u < UNITS; ++u, ++hu) {\n"
+_S8_WAIT = "      mbar_wait(h_full + 8 * hs, (hu "
+_S8_EPI = "    // accumulator fragment: register 4j + 2h + e holds pixel\n"
+#: the shapes the shape variants replace (texts of the teams' kernel only)
+_S8_K4_32 = "struct S8Shape<32, 0> : Shape<"
+_S8_K4_128 = "struct S8Shape<128, 0> : Shape<"
+_S8_HEADS = "struct S8Shape : Shape<"
+#: ... K4's epilogue: its parameters in registers at 32, its quantize in
+#: float32 arithmetic
+_S8_PJ = "  constexpr int PJ = R > 0 || N <= 32 ? N / 8 : 1;\n"
+_S8_QUANT = "quant_bits(v0, inv), quant_bits(v1, inv)"
+OPTIONAL |= {_S8_K4_32, _S8_K4_128, _S8_HEADS, _S8_PJ, _S8_QUANT}
+
+
+def _s8_shape(anchor: str, shape: str, name: str) -> tuple:
+    """A patch that gives the forms at `anchor` the shape `shape` (the
+    shape there before is left in an unused struct `name`)."""
+    return (anchor, anchor + shape + "> {};\nstruct " + name + " : Shape<")
+
+
+PATCHES[S8_WIDE] = {
+    "full": [],
+    # the producer neither loads nor waits past each block's first tile
+    "no_load": [(_S8_LOAD, _S8_LOAD + "        if (hu >= UNITS) continue;\n"),
+                (_S8_WAIT, "      if (hu < UNITS) mbar_wait(h_full + 8 * hs, "
+                           "(hu ")],
+    "no_mma": [(_S8_CK, _S8_CK + _S8_PARTS),
+               ("WgmmaS8<N>::mma(", "no_mma(")],
+    # every accumulator set read, so that ptxas keeps the wgmmas
+    "no_epi": [(_S8_CK, _S8_CK + _S8_PARTS),
+               (_S8_EPI, "    if (keep(acc) == 12345 && out) *(int*)out = "
+                         "0;\n    continue;\n" + _S8_EPI)],
+    # the epilogues as they were first written: K4's and K4h's parameters
+    # read from shared memory, K4's quantize as reve::quant_s8's
+    # conversion
+    "params_smem": [(_S8_PJ, "  constexpr int PJ = 1;\n")],
+    "k4_quant_cvt": [(_S8_QUANT,
+                      "reve::quant_s8(v0, inv), reve::quant_s8(v1, inv)")],
+    # K4 at 32: teams (TEAMS, TEAM_WGS, RPW, HS)
+    "k4_32_t2w2r2h6": [_s8_shape(_S8_K4_32, "2, 2, 2, 6", "Was32")],
+    "k4_32_t3w2r2h6": [_s8_shape(_S8_K4_32, "3, 2, 2, 6", "Was32")],
+    "k4_32_t4w1r2h6": [_s8_shape(_S8_K4_32, "4, 1, 2, 6", "Was32")],
+    "k4_32_t2w2r4h3": [_s8_shape(_S8_K4_32, "2, 2, 4, 3", "Was32")],
+    "k4_32_t2w2r4h4": [_s8_shape(_S8_K4_32, "2, 2, 4, 4", "Was32")],
+    "k4_32_t2w2r4h6": [_s8_shape(_S8_K4_32, "2, 2, 4, 6", "Was32")],
+    "k4_32_t2w1r4h6": [_s8_shape(_S8_K4_32, "2, 1, 4, 6", "Was32")],
+    "k4_32_t2w1r8h4": [_s8_shape(_S8_K4_32, "2, 1, 8, 4", "Was32")],
+    "k4_32_t2w1r8h6": [_s8_shape(_S8_K4_32, "2, 1, 8, 6", "Was32")],
+    # K4 at 128: the parent's shape (one team of four warpgroups of a row,
+    # two slots) on the teams' kernel
+    "k4_128_t1w4r1h2": [_s8_shape(_S8_K4_128, "1, 4, 1, 2", "Was128")],
+    "k4_128_t2w1r2h3": [_s8_shape(_S8_K4_128, "2, 1, 2, 3", "Was128")],
+    "k4_128_t3w1r1h4": [_s8_shape(_S8_K4_128, "3, 1, 1, 4", "Was128")],
+    "k4_128_t4w1r1h4": [_s8_shape(_S8_K4_128, "4, 1, 1, 4", "Was128")],
+    # K4h at x3 and x4 (x2 has its own)
+    "heads_t2w2r1h4": [_s8_shape(_S8_HEADS, "2, 2, 1, 4", "WasHeads")],
+    "heads_t4w1r2h4": [_s8_shape(_S8_HEADS, "4, 1, 2, 4", "WasHeads")],
+    "heads_t2w1r4h4": [_s8_shape(_S8_HEADS, "2, 1, 4, 4", "WasHeads")],
+}
+#: the sources built over each variant of a header
+_HEADER_USERS = {WIDE: (conv3x3.TC_SOURCE, conv3x3.F32_SOURCE),
+                 S8_WIDE: (conv3x3_s8.SOURCE,)}
 _K6_SPECS = ((2, False), (1, True))
 #: P1's loop counts: the prologue and epilogue alone, the probe's, the
 #: slope's
@@ -456,15 +552,18 @@ def build_variants(tmp: str, sources=None) -> dict:
     procs = {}
     for source in sources or PATCHES:
         for variant in PATCHES[source]:
+            text = variant_source(source, variant)
+            if variant != "full" and text == variant_source(source, "full"):
+                continue  # none of its texts in an older checkout
             stem = f"{os.path.splitext(source)[0]}-{variant}"
-            if source == WIDE:
+            if source in _HEADER_USERS:
                 # the patched header beside copies of the sources that
                 # include it, which find it first
                 vdir = os.path.join(tmp, stem)
                 os.makedirs(vdir)
-                with open(os.path.join(vdir, WIDE), "w") as f:
-                    f.write(variant_source(source, variant))
-                for user in _WIDE_USERS:
+                with open(os.path.join(vdir, source), "w") as f:
+                    f.write(text)
+                for user in _HEADER_USERS[source]:
                     shutil.copy(os.path.join(build.CSRC, user), vdir)
                     so = os.path.join(vdir, f"lib{user[:-3]}.so")
                     procs[source, variant, user] = (so, subprocess.Popen(
@@ -475,7 +574,7 @@ def build_variants(tmp: str, sources=None) -> dict:
                 continue
             cu = os.path.join(tmp, f"{stem}.cu")
             with open(cu, "w") as f:
-                f.write(variant_source(source, variant))
+                f.write(text)
             so = os.path.join(tmp, f"lib{stem}.so")
             procs[source, variant] = (so, subprocess.Popen(
                 [build.nvcc_path(), *build.NVCC_FLAGS, "-I", build.CSRC,
@@ -486,7 +585,7 @@ def build_variants(tmp: str, sources=None) -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"{key}: nvcc exited {proc.returncode}\n{log}")
-        if key[0] == WIDE:
+        if key[0] in _HEADER_USERS:
             # {user source: library} of the header's variant
             libs.setdefault(key[:2], {})[key[2]] = ctypes.CDLL(so)
         else:
@@ -688,6 +787,69 @@ def _wide_timings(libs, name: str, ops: dict, stream) -> dict:
             "k1_96_ms": run_bf16(ops["k1_96_ms"], 96),
             "k1_f32_32_conv_ms": run_conv, "k1_f32_32_split_ms": run_split,
             **{form[0]: run_head(*form) for form in _WIDE_HEADS}}
+
+
+#: the wide K4 and K4h forms timed: (timing, width, scale; 0: K4)
+_S8_WIDE_FORMS = (("k4_32_ms", 32, 0), ("k4_128_ms", 128, 0),
+                  ("k4h_x4_32_ms", 32, 4), ("k4h_x4_128_ms", 128, 4),
+                  ("k4h_x2_128_ms", 128, 2))
+
+
+def _s8_wide_operands(rs, dev) -> dict:
+    """The wide K4 and K4h forms' operands at the main path's shape: s8
+    codes and weights uniform in [-127, 127] (the weights packed once, as
+    the wrappers keep them), K4's scale 2e-6..2e-5 and K4h's 1e-8..1e-7,
+    the outputs."""
+    ops = {}
+    u8 = torch.from_numpy(rs.randint(0, 256, (B, H, W, 3)).astype(
+        np.uint8)).to(dev)
+    x8 = {}
+    for timing, feat, r in _S8_WIDE_FORMS:
+        if feat not in x8:
+            x8[feat] = torch.from_numpy(rs.randint(
+                -127, 128, (B, H, W, feat)).astype(np.int8)).to(dev)
+        cout = 3 * r * r if r else feat
+        w8 = torch.from_numpy(rs.randint(-127, 128, (3, 3, feat, cout))
+                              .astype(np.int8)).to(dev)
+        lo, hi = (1e-8, 1e-7) if r else (2e-6, 2e-5)
+        ops[timing] = {
+            "x": x8[feat], "w": conv3x3_s8.pack_weights_s8_wide(w8),
+            "scale": torch.from_numpy(rs.uniform(lo, hi, cout).astype(
+                np.float32)).to(dev),
+            "b": torch.from_numpy(rs.uniform(-0.1, 0.1, cout).astype(
+                np.float32)).to(dev),
+            "alpha": torch.full((cout,), 0.2, device=dev),
+            "inv": torch.full((1,), 50.0, device=dev), "u8": u8,
+            "out": torch.empty((B, H * r, W * r, 3), dtype=torch.uint8,
+                               device=dev) if r else torch.empty_like(
+                                   x8[feat])}
+    return ops
+
+
+def _s8_wide_timings(libs, name: str, ops: dict, stream) -> dict:
+    """{timing: callable} of the wide K4 and K4h forms for one variant's
+    library ({conv3x3_s8.cu: library}): their entry points on the
+    weights packed once."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib = libs[conv3x3_s8.SOURCE]
+    k4 = _entry(lib, "reve_conv3x3_s8_dq_prelu_q8_wide",
+                [P] * 7 + [I] * 4 + [P])
+    k4h = _entry(lib, "reve_head_conv_s8_residual_u8_shuffle_wide_tc",
+                 [P] * 6 + [I] * 5 + [P])
+
+    def run(timing, feat, r):
+        o = ops[timing]
+        if r == 0:
+            return lambda: build.check(lib, k4(
+                o["x"].data_ptr(), o["w"].data_ptr(), o["scale"].data_ptr(),
+                o["b"].data_ptr(), o["alpha"].data_ptr(),
+                o["inv"].data_ptr(), o["out"].data_ptr(), B, H, W, feat,
+                stream), name)
+        return lambda: build.check(lib, k4h(
+            o["x"].data_ptr(), o["w"].data_ptr(), o["scale"].data_ptr(),
+            o["b"].data_ptr(), o["u8"].data_ptr(), o["out"].data_ptr(), B,
+            H, W, feat, r, stream), name)
+    return {form[0]: run(*form) for form in _S8_WIDE_FORMS}
 
 
 def _k7q_operands(rs, dev) -> dict:
@@ -907,6 +1069,8 @@ def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
             return _k7q_timings(lib, name, k7q_ops, stream)
         if source == WIDE:
             return _wide_timings(lib, name, wide_ops, stream)
+        if source == S8_WIDE:
+            return _s8_wide_timings(lib, name, s8w_ops, stream)
         if source == conv3x3.TC_SOURCE:
             k1 = _entry(lib, "reve_conv3x3_bias_prelu_tc",
                         [P] * 5 + [I] * 3 + [P])
@@ -1029,9 +1193,11 @@ def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
                 b.data_ptr(), u8.data_ptr(), o.data_ptr(), B, H, W, R,
                 stream), name)}
 
-    k7_ops = k7q_ops = last_ops = train_ops = wide_ops = None
+    k7_ops = k7q_ops = last_ops = train_ops = wide_ops = s8w_ops = None
     if WIDE in (sources or PATCHES):
         wide_ops = _wide_operands(rs, dev)
+    if S8_WIDE in (sources or PATCHES):
+        s8w_ops = _s8_wide_operands(rs, dev)
     if train.SOURCE in (sources or PATCHES):
         train_ops = _train_operands(rs, dev)
     if {LAST_F32_SOURCE, conv3x3.F32_SOURCE} & set(sources or PATCHES):

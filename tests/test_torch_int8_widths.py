@@ -2,10 +2,12 @@
 features), held on the CPU against the JAX package: srvgg.apply_int8 and
 the int8 engine against reve_tpu's from the same maxima, the s8 weight
 packers of K4 and K4h (pack_weights_s8 at any Cin, pack_weights_s8_wide)
-against their index formulas, and an emulation of the wide K4's and K4h's
-walk (csrc/conv3x3_s8_wide.cuh: units of 32 input channels, the nine taps
-of each one k32 step, B as pack_weights_s8_wide lays it out, s32 sums,
-then the float32 epilogue rounded where the kernel rounds) against
+against their index formulas and their packs kept once per set of
+weights (packed_s8, packed_s8_wide), and an emulation of the wide K4's
+and K4h's walk (csrc/conv3x3_s8_wide.cuh: units of 32 input channels,
+the nine taps of each one k32 step, B as pack_weights_s8_wide lays it
+out, s32 sums, then the float32 epilogue rounded where the kernel
+rounds) against
 reve_tpu's `_conv3x3_s8`, `dq_prelu`, `_quant_s8` and the int8 head's
 `_epilogue`, including at +-127 codes and at the quantize's ties.
 
@@ -186,6 +188,45 @@ def test_s8_wide_weight_packer_matches_its_index_formula(cin, cout):
         at = (u * 9 + t) * 32 * n_pad + (kb * n_pad + n) * 16 + kk
         assert flat[at] == p[u, t, kb, n, kk]
     assert not p[..., cout:, :].any()
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_s8_weights_are_packed_once_and_never_stale(wide):
+    """packed_s8 and packed_s8_wide pack a set of s8 weights once; an
+    in-place update, new storage under the same tensor, or another tensor
+    gives a fresh pack, equal to the packer's; the two packs of one tensor
+    are kept apart; a tensor made under torch.inference_mode (no version
+    counter) is packed at each call.  The int8 model's weights
+    (QuantizedBody) are the same tensors at every call, so K4 and K4h pack
+    them once."""
+    packed, pack = (conv3x3_s8.packed_s8_wide,
+                    conv3x3_s8.pack_weights_s8_wide) if wide else \
+        (conv3x3_s8.packed_s8, conv3x3_s8.pack_weights_s8)
+    other = conv3x3_s8.packed_s8 if wide else conv3x3_s8.packed_s8_wide
+    w8 = _w8(96, 27, 3)
+    p1 = packed(w8)
+    assert packed(w8) is p1 and torch.equal(p1, pack(w8))
+    assert not torch.equal(other(w8).reshape(-1), p1.reshape(-1))
+    assert packed(w8) is p1  # the other pack did not replace this one
+    w8.neg_()
+    p2 = packed(w8)
+    assert p2 is not p1 and torch.equal(p2, pack(w8))
+    assert not torch.equal(p2, p1)
+    w8.data = _w8(96, 27, 4)
+    p3 = packed(w8)
+    assert torch.equal(p3, pack(_w8(96, 27, 4))) and not torch.equal(p3, p2)
+    assert torch.equal(packed(w8.clone()), p3)
+    with torch.inference_mode():
+        wi = _w8(96, 27, 5)
+    pi = packed(wi)
+    assert torch.equal(pi, pack(wi)) and packed(wi) is not pi
+    cfg = srvgg.SRVGGConfig(num_feat=32, num_conv=2, upscale=2)
+    params = srvgg.init_params(cfg, torch.Generator().manual_seed(2))
+    u8 = torch.from_numpy(_u8((1, 6, 7, 3)))
+    qb = quantize.build_qbody(params, cfg, quantize.collect_act_maxima(
+        params, u8, cfg=cfg), margin=1.25)
+    for w in (*qb.w8, qb.w8_last):
+        assert packed(w) is packed(w)
 
 
 # -- the wide K4's and K4h's arithmetic -------------------------------------------

@@ -77,13 +77,17 @@ centre tap only); each of the 27 kernels holds wgmma (HGMMA) and no TF32
 or float atomic; the conv stack's gradients on the kernels against torch
 autograd through F.conv2d on a 2-conv model, at the same tolerance.
 K4a, K4 and K4h at 32, 96 and 128 features (K4 and K4h
-csrc/conv3x3_s8_wide.cuh, 4 x 64 tiles over units of 32 input channels
-in the 32-B swizzle; K4a K3's template with the s8 epilogue): K4 and K4h
-exact, K4a within 1 s8 code, at the tile edges, at 1080p, at codes and
-weights of +-127 (sums past 2^24 at 128 features) and, for K4, at each
-tap alone; the int8 model at each width >= 60 dB against its plain
-path; the 64-feature int8 forms' outputs equal to their bytes before
-the wide forms (sha256 of perf_conv_widths' seeded forms); a planned
+csrc/conv3x3_s8_wide.cuh, consumer teams taking tiles of TEAM_WGS x RPW
+rows x 64 in turn over units of 32 input channels in the 32-B swizzle;
+K4a K3's template with the s8 epilogue): K4 and K4h exact, K4a within 1
+s8 code, at the tile edges, at each form's own tile height and a row
+either side, on a frame of one tile and at a tile count no multiple of
+the blocks' teams, at 1080p, at codes and weights of +-127 (sums past
+2^24 at 128 features) and, for K4, at each tap alone; the int8 model at
+each width >= 60 dB against its plain path; the 64-feature int8 forms'
+outputs equal to their bytes before the wide forms, and the wide ones
+to their bytes before the teams' kernel (sha256 of perf_conv_widths'
+seeded forms); a planned
 float32 call of a 128-feature SRVGG peaks within the memory plan's bill,
 which holds each K1's and K2's split planes.
 K9 (csrc/color.cu, the engine's output to the writers' YUV 4:2:0
@@ -94,12 +98,13 @@ and the RGB route's bytes.
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
 import torch
 
-from reve_tpu_torch.kernels import (LAUNCHES, conv3x3, conv3x3_s8,
+from reve_tpu_torch.kernels import (LAUNCHES, build, conv3x3, conv3x3_s8,
                                     dot_probe, head, rrdb as k7, train, tta)
 from reve_tpu_torch.kernels import color as color_k
 from reve_tpu_torch.ops.color_np import YUVFormat
@@ -946,6 +951,130 @@ def test_float32_srvgg_call_peaks_within_its_memory_bill():
     assert peak <= bill, (peak, bill)
     no_planes = bill - plan.per_call * h * w * cfg.num_feat * 6
     assert peak > no_planes, (peak, no_planes)
+
+
+def _s8_shapes() -> dict:
+    """{(feat, r): (TEAMS, TEAM_WGS, RPW, HS)} of the wide K4 (r =
+    0) and K4h forms, read from csrc/conv3x3_s8_wide.cuh's S8Shape: the
+    primary template (K4h), its partial specialisation at an r, and the
+    full ones."""
+    with open(os.path.join(build.CSRC, "conv3x3_s8_wide.cuh")) as f:
+        src = f.read()
+
+    def shape(text):
+        return tuple(int(n) for n in text.split(","))
+    primary = shape(re.search(r"struct S8Shape : Shape<([\d, ]+)>",
+                              src).group(1))
+    partial = {int(r): shape(v) for r, v in re.findall(
+        r"struct S8Shape<CIN, (\d)> : Shape<([\d, ]+)>", src)}
+    full = {(int(f), int(r)): shape(v) for f, r, v in re.findall(
+        r"struct S8Shape<(\d+), (\d)> : Shape<([\d, ]+)>", src)}
+    return {(feat, r): full.get((feat, r)) or partial.get(r) or primary
+            for feat in WIDE_FEATS for r in (0, 2, 3, 4)}
+
+
+def _s8_wide_form(rs, dev, feat, r, B, H, W):
+    """(kernel call, plain call) of K4 (r = 0) or K4h at x r at `feat`
+    features on seeded codes and weights in [-127, 127]."""
+    x8 = torch.from_numpy(rs.randint(-127, 128, (B, H, W, feat)).astype(
+        np.int8)).to(dev)
+    cout = 3 * r * r if r else feat
+    w8 = torch.from_numpy(rs.randint(-127, 128, (3, 3, feat, cout)).astype(
+        np.int8)).to(dev)
+    lo, hi = (1e-8, 1e-7) if r else (2e-6, 2e-5)
+    scale = torch.from_numpy(rs.uniform(lo, hi, cout).astype(
+        np.float32)).to(dev)
+    b = torch.from_numpy(rs.uniform(-0.1, 0.1, cout).astype(np.float32)).to(
+        dev)
+    if r == 0:
+        a = torch.from_numpy(rs.uniform(0.05, 0.4, cout).astype(
+            np.float32)).to(dev)
+        inv = torch.tensor([1 / 0.02], device=dev)
+        return (lambda: conv3x3_s8.conv3x3_s8_dq_prelu_q8(x8, w8, scale, b,
+                                                          a, inv),
+                lambda: conv3x3_s8.conv3x3_s8_dq_prelu_q8_plain(
+                    x8, w8, scale, b, a, inv))
+    u8 = torch.from_numpy(rs.randint(0, 256, (B, H, W, 3)).astype(
+        np.uint8)).to(dev)
+    return (lambda: head.head_conv_s8_residual_u8_shuffle(x8, w8, scale, b,
+                                                          u8, r),
+            lambda: head.head_conv_s8_residual_u8_shuffle_plain(
+                x8, w8, scale, b, u8, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [0, 2, 3, 4])
+@pytest.mark.parametrize("feat", WIDE_FEATS)
+def test_width_s8_teams_exact_at_their_tile_edges(feat, r):
+    """The wide K4 (r = 0) and K4h at x r, on the teams' kernel at their
+    form's shape (TH = TEAM_WGS x RPW rows a tile): exact against the
+    plain version at TH rows, one row less and one more, W a multiple of
+    64 and one more, B 1 to 3; on a frame of one tile (the other teams of
+    its block get none: they must neither hang nor write); and at a tile
+    count that is no multiple of the blocks' teams (the grid's last
+    round leaves some teams without a tile)."""
+    dev = _cuda()
+    teams, team_wgs, rpw, _ = _s8_shapes()[feat, r]
+    th = team_wgs * rpw
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ragged = (1, th * 45 + 1, 64 * 7 + 1)
+    tiles = 46 * 8
+    assert tiles % (sms * teams) and tiles > sms
+    kname = "head_conv_s8_residual_u8_shuffle" if r else \
+        "conv3x3_s8_dq_prelu_q8"
+    rs = np.random.RandomState(feat + r)
+    for B, H, W in ((1, th, 64), (1, th, 1), (2, th, 128), (3, th - 1, 65),
+                    (2, th + 1, 64), (1, max(th - 1, 1), 129), ragged):
+        kernel, plain = _s8_wide_form(rs, dev, feat, r, B, H, W)
+        before = LAUNCHES[kname]
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and torch.equal(got, want), \
+            (B, H, W)
+        assert LAUNCHES[kname] == before + 1
+
+
+#: sha256 (the first 16 hex digits) of each wide int8 form's output in
+#: perf_conv_widths --dtypes int8 --widths 32 96 128 (1080p, its seeded
+#: inputs: K4a, K4, K4h at x2, x3, x4 and the 16-conv int8 model) on the
+#: parent of the change that gave K4 and K4h their teams' kernel (H100):
+#: s32 sums are exact in any order, so the bytes must be the same
+INT8_WIDE_SHA256 = {
+    "k4a_f32_int8": "a768ca08b805c0a3",
+    "k4_f32_int8": "6dbc0dce9b964516",
+    "k4h_x2_f32_int8": "5b99ebce4b0c6429",
+    "k4h_x3_f32_int8": "dfeaa7fa6ab005b7",
+    "k4h_x4_f32_int8": "3d658c0f92e97506",
+    "model_f32_int8": "343516f4ef8884da",
+    "k4a_f96_int8": "5bb29f3763c4b75a",
+    "k4_f96_int8": "674a5c665d6974be",
+    "k4h_x2_f96_int8": "bebab0f847758749",
+    "k4h_x3_f96_int8": "25a024c1fcc0e25a",
+    "k4h_x4_f96_int8": "d74d951fd5e47761",
+    "model_f96_int8": "80d51aca91e2df79",
+    "k4a_f128_int8": "4f5956c5447bd60a",
+    "k4_f128_int8": "c010ccd24b99c67e",
+    "k4h_x2_f128_int8": "5c9a402f2cbdc09d",
+    "k4h_x3_f128_int8": "8846d3796200a091",
+    "k4h_x4_f128_int8": "cb47dbc0ba4d813e",
+    "model_f128_int8": "ad9e2d3d667b8c6d"}
+
+
+@pytest.mark.cuda
+def test_wide_int8_forms_keep_the_parents_outputs():
+    """K4a, K4, K4h (x2, x3, x4) and the int8 model at 32, 96 and 128
+    features give the bytes they gave before K4 and K4h were
+    redesigned."""
+    from reve_tpu_torch.scripts import perf_conv_widths as perf
+
+    _cuda()
+    got = {}
+    for feat in WIDE_FEATS:
+        for form, fn in perf.int8_forms(feat, (2, 3, 4)).items():
+            got[f"{form}_f{feat}_int8"] = perf.digest(fn())
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    assert got == INT8_WIDE_SHA256
 
 
 #: sha256 (the first 16 hex digits) of each 64-feature int8 form's output

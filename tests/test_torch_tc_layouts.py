@@ -258,6 +258,32 @@ def test_parts_script_variants_still_apply(source):
             source, "weights_only")
         assert "res_step_regs<K>(" not in perf_conv_tc_parts.variant_source(
             source, "no_mma").split("void res_step_regs(")[1]
+    if source == perf_conv_tc_parts.S8_WIDE:
+        # the wide K4's and K4h's parts, on texts the parent's kernel has
+        # too, and the teams' kernel at other shapes
+        for variant, mark in (("no_load", "if (hu >= UNITS) continue;"),
+                              ("no_load", "if (hu < UNITS) mbar_wait("),
+                              ("no_mma", "no_mma(\n"),
+                              ("no_epi", "keep(acc) == 12345")):
+            text = perf_conv_tc_parts.variant_source(source, variant)
+            assert mark in text and mark not in original
+        assert "WgmmaS8<N>::mma(" not in perf_conv_tc_parts.variant_source(
+            source, "no_mma")
+        shapes = [v for v in perf_conv_tc_parts.PATCHES[source]
+                  if re.search(r"_t\d+w\d+r\d+h\d+", v)]
+        assert shapes
+        for variant in shapes:
+            text = perf_conv_tc_parts.variant_source(source, variant)
+            # one shape replaced, the one it replaced left unused
+            assert text.count("struct S8Shape") == original.count(
+                "struct S8Shape")
+            assert re.search(r"\nstruct Was\w+ : Shape<[\d, ]+> \{\};",
+                             text)
+        # the epilogues as first written: parameters in shared memory,
+        # K4's quantize by conversion
+        for variant, mark in (("params_smem", "int PJ = 1;"),
+                              ("k4_quant_cvt", "reve::quant_s8(v0, inv)")):
+            assert mark in perf_conv_tc_parts.variant_source(source, variant)
 
 
 def _conv_last_f32_constants() -> dict:
