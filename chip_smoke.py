@@ -3256,6 +3256,7 @@ def width_entries(name: str, widths: dict) -> dict:
                      design="wgmma_bf16x6" if dt == "float32" else
                      "wgmma_bf16x6_planes" if dt == "float32_planes" else
                      "wgmma_s8_teams" if src.endswith("s8_wide.cuh") else
+                     "wgmma_row_tiles" if name == INT8_KERNELS[0] else
                      "wgmma",
                      launches=launched(4))
             for r in (2, 3):

@@ -278,6 +278,21 @@ def packed_wide(w: torch.Tensor) -> torch.Tensor:
     return packed_once(w, pack_weights_wide, "_reve_wide_pack")
 
 
+def packed_u8conv(w: torch.Tensor) -> torch.Tensor:
+    """pack_weights_u8conv(w), packed once per set of weights
+    (`packed_once`): the B that K4a's wide bfloat16 forms copy into each
+    block."""
+    return packed_once(w, pack_weights_u8conv, "_reve_u8conv_pack")
+
+
+def packs_u8conv(w: torch.Tensor, q8: bool) -> bool:
+    """Whether the u8 kernel of these weights takes them packed
+    (packed_u8conv): K4a in bfloat16 at 32, 96 and 128 features (the
+    kernel's U8::ROWS forms); the other forms pack the HWIO weights in
+    each block."""
+    return q8 and w.dtype == torch.bfloat16 and w.shape[-1] != FEAT
+
+
 # -- kernel wrappers ----------------------------------------------------------
 
 
@@ -503,14 +518,16 @@ def conv3x3_bias_prelu_planes(xp: torch.Tensor, w: torch.Tensor,
 def _launch_u8(entry: str, u8, w, b, alpha, inv=None) -> torch.Tensor:
     """K3 (inv None) or K4a at w's Cout: the launch of `entry` of
     csrc/conv3x3.cu in w's dtype (the kernel packs the HWIO weights
-    itself)."""
+    itself, but for the forms that take them packed once:
+    packs_u8conv)."""
     B, H, W, _ = u8.shape
     cout = w.shape[-1]
     y = torch.empty((B, H, W, cout),
                     dtype=w.dtype if inv is None else torch.int8,
                     device=u8.device)
     bb, aa = _bias_alpha(b, alpha, w.dtype, u8.device, cout)
-    ins = [u8, w, bb, aa]
+    wk = packed_u8conv(w) if packs_u8conv(w, inv is not None) else w
+    ins = [u8, wk, bb, aa]
     if inv is not None:
         ins.append(f32_operand(inv, 1, u8.device, "inv (1 / scale)"))
     _launch(SOURCE, entry, ins, y, (_DTYPE_CODE[w.dtype], cout))

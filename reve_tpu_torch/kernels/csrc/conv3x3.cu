@@ -73,6 +73,23 @@
 //    measured), walk tiles of one row of 64 pixels.  Each block packs the
 //    HWIO weights once into the B operand in shared memory ([split][k /
 //    8][n][8] bf16: 4 KB, 12 KB in float32).
+//  * K4a's wide forms in bfloat16 (U8::ROWS: 32, 96 and 128 features, the
+//    int8 engine's first conv) had paid a row's fixed costs (its halo
+//    loaded and staged, two barriers, a fence, a store) for 2-8 KB of
+//    output, every halo row staged three times, and each chunk's wgmma
+//    latency before its epilogue (PERF.md: at 128 the stores alone took
+//    0.34 ms, the rest 0.28, and they did not overlap).  They run tiles
+//    of TH rows (Q8Shape<C>, measured) whose halo is staged once
+//    (RowGeo: two copies, so that each row's window starts 4-B aligned),
+//    the units (row, chunk) of a row pair unrolled with each unit's
+//    wgmmas issued before the epilogue of the unit before it, and the
+//    tile's rows leave together, by one TMA store of all C channels (at
+//    96 in no swizzle).  The
+//    quantize's clip is taken on the bf16 PReLU pairs, at the least bf16
+//    whose code is 127 and its negation, so the float32 steps left are
+//    the multiply and the rounding add.  The k order, the wgmmas and the
+//    epilogue's float32 steps are the one-row form's, so every code is
+//    what it wrote.
 //  * The halo (3 rows x 66 pixels x 3 channels) comes as the 4-B words
 //    that hold each row's 198 bytes, read by the threads two tiles ahead
 //    into registers.  TMA cannot load it as rows (W * 3 bytes meets no
@@ -122,6 +139,7 @@ constexpr int NOUT = 2;
 // + 2 conv input rows of 66 pixels.
 template <int R, int TH, int V>
 struct Geo {
+  static constexpr bool PACKED = false;  // B packed by each block
   static constexpr int FACTOR = R;
   static constexpr int CIN = 3 * R * R;    // 3, 12
   static constexpr int HROWS = TH + 2;     // conv input rows of the halo
@@ -165,6 +183,61 @@ struct Geo {
                 "A's reads stay in the halo");
 };
 
+// The shape of a wide K4a form (bfloat16 weights at 32, 96 and 128
+// features; `U8::ROWS`): TH output rows a tile (its halo staged once, its
+// rows stored together by one TMA store of all C channels), BLOCKS on
+// each SM, and UNROLL: the tile's row pairs unrolled (1) or looped (0).
+// The fastest of those tried on an H100 SXM (perf_conv_tc_parts
+// --sources conv3x3.cu, its shape variants; PERF.md section 6, with the
+// staged tiles and box widths tried).
+template <int TH_, int BLOCKS_, int UNROLL_>
+struct RowShape {
+  static constexpr int TH = TH_, BLOCKS = BLOCKS_, UNROLL = UNROLL_;
+};
+template <int C>
+struct Q8Shape : RowShape<1, 1, 0> {};  // the forms on one-row tiles
+template <>
+struct Q8Shape<32> : RowShape<8, 5, 1> {};
+template <>
+struct Q8Shape<96> : RowShape<4, 4, 1> {};
+template <>
+struct Q8Shape<128> : RowShape<6, 3, 0> {};
+
+// The halo of a wide K4a tile (R = 1, TH rows): TH + 2 u8 rows of 66
+// pixels, staged once.  A halo pixel holds its rows' 3 values each at slot
+// 3 r + c of SLOTS, twice: in copy 0 as they are, and in copy 1 one slot
+// later, so that output row i's window (3 i on) starts at an even slot of
+// copy i % 2 and every A register is one aligned 4-B read.  SLOTS / 2 is 4
+// modulo 8: a warp's A reads of k 0..7 and 24..31 fall on distinct banks,
+// those of k 8..23, whose tap column changes with q, on two words a bank
+// at most (no stride does better).
+// The k order is R = 1's (k = 10 dx + 3 dy + c), so a value k of output
+// pixel p, row i lies at slot SLOTS (p + dx) + 3 i + k - 10 dx of its
+// copy; k 30 and 31 (zero weights) are read at dx 2.
+template <int TH>
+struct RowGeo {
+  // B packed once per set of weights by the wrapper
+  // (kernels/conv3x3.py packed_u8conv), each block's copy as it lies
+  static constexpr bool PACKED = true;
+  static constexpr int FACTOR = 1, CIN = 3, WIN = 10, KP = 32, KSTEPS = 2;
+  static constexpr int HROWS = TH + 2, ROWS = HROWS, ROW_PX = HALO_PX;
+  static constexpr int ROW_WORDS = (ROW_PX * 3 + 6) / 4;  // 51
+  static constexpr int WORDS = ROWS * ROW_WORDS;
+  static constexpr int NW = (WORDS + THREADS - 1) / THREADS;
+  static constexpr int RAW_ROW = 256;
+  // staging tasks: (u8 row, u8 pixel), the pixel fastest
+  static constexpr int TASKS = ROWS * ROW_PX;
+  static constexpr int NP = (TASKS + THREADS - 1) / THREADS;
+  static constexpr int SLOTS = 3 * TH + 10 < 24 ? 24 : 40;
+  static constexpr int COPY = HALO_PX * SLOTS;  // values of a copy
+  static constexpr int HALO_VALS = 2 * COPY;
+  // A's highest read: pixel 63 + 2 at slot 3 (TH - 1) + 1 + 11 + 1 of
+  // copy 1
+  static_assert(3 * TH + 10 < SLOTS, "A's reads stay in their copy");
+  static_assert(SLOTS / 2 % 8 == 4, "A's reads on few banks");
+  static_assert(ROW_WORDS * 4 <= RAW_ROW, "a raw row holds its words");
+};
+
 // T: the compute dtype (bf16 or float); TOut: T for K3, int8_t for K4a;
 // R: the unshuffle factor (Geo); C: the output channels (K3 and K4a: the
 // SRVGG's num_feat, 32, 64, 96 or 128; K3 at Cin 12: 64).
@@ -176,17 +249,27 @@ struct U8 {
   static constexpr int NC = C % 64 == 0 ? 64 : 32;
   static constexpr int CHUNKS = C / NC;
   static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr bool Q8 = std::is_same<TOut, int8_t>::value;
+  // K4a's wide forms in bfloat16: tiles of S::TH rows (RowGeo), stored a
+  // tile at a time
+  static constexpr bool ROWS = Q8 && !F32 && C != 64;
+  using S = Q8Shape<C>;
   // output rows a tile (R = 2: four in bfloat16, two in float32, whose
   // taller halo would leave room for one block an SM)
-  static constexpr int TH = R == 1 ? 1 : (F32 ? 2 : 4);
-  using G = Geo<R, TH, F32 ? 8 : 2>;
-  static constexpr bool Q8 = std::is_same<TOut, int8_t>::value;
+  static constexpr int TH = ROWS ? S::TH : R == 1 ? 1 : (F32 ? 2 : 4);
+  using G = typename std::conditional<ROWS, RowGeo<TH>,
+                                      Geo<R, TH, F32 ? 8 : 2>>::type;
   static constexpr int SPLITS = F32 ? 3 : 1;          // hi (, mid, lo)
   static constexpr int W_BYTES = SPLITS * G::KP * C * 2;
   static constexpr int V = F32 ? 8 : 2;  // a staged value: bf16 (x 3)
   // one staged output row: 8 KB bf16, 16 KB float32, 4 KB s8 at C 64
   static constexpr int OUT_BYTES = TW * C * (int)sizeof(TOut);
-  static constexpr size_t OFF_W = NOUT * OUT_BYTES;  // after the buffers
+  // rows of an output box, and the staged tiles (the wide K4a: one, a
+  // tile's rows, written again once its store has read it)
+  static constexpr int BOX_H = ROWS ? TH : 1;
+  static constexpr int TILE_BYTES = BOX_H * OUT_BYTES;
+  static constexpr int TILES = ROWS ? 1 : NOUT;
+  static constexpr size_t OFF_W = TILES * TILE_BYTES;  // after the buffers
   static constexpr size_t OFF_RAW = OFF_W + W_BYTES;   // the raw words
   static constexpr size_t OFF_HALO = OFF_RAW + G::ROWS * G::RAW_ROW;
   // the table of a u8 value's staged form: bf16, or bf16 hi | mid, lo
@@ -195,15 +278,17 @@ struct U8 {
   static constexpr size_t SMEM = OFF_ZEROS + 16;
   // the output's tensor map: channels a box holds (128-B rows: 64 bf16,
   // 32 float32; 64-B rows: 64 s8, and 32 bf16 where C is not a multiple
-  // of 64; 32-B rows: 32 s8 where C is not a multiple of 64), its
-  // swizzle, and the boxes of a staged row
+  // of 64; 32-B rows: 32 s8 where C is not a multiple of 64; the wide
+  // K4a all C s8, in the 32- and 128-B swizzles at 32 and 128 and none
+  // at 96), its swizzle, and the boxes of a staged row
   static constexpr int BOX_C =
-      F32 && !Q8 ? 32 : (C % 64 == 0 ? 64 : 32);
+      ROWS ? C : F32 && !Q8 ? 32 : (C % 64 == 0 ? 64 : 32);
   static constexpr int BOX_ROW = BOX_C * (int)sizeof(TOut);  // bytes
   static constexpr int NBOX = C / BOX_C;
   static constexpr CUtensorMapSwizzle SWIZZLE =
       BOX_ROW == 32   ? CU_TENSOR_MAP_SWIZZLE_32B
       : BOX_ROW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+      : BOX_ROW == 96 ? CU_TENSOR_MAP_SWIZZLE_NONE
                       : CU_TENSOR_MAP_SWIZZLE_128B;
   static constexpr CUtensorMapDataType MAP_TYPE =
       Q8    ? CU_TENSOR_MAP_DATA_TYPE_UINT8
@@ -211,14 +296,26 @@ struct U8 {
             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   // blocks on each SM: the registers must allow them, and no more run
   // (R = 1: the fastest counts on an H100 SXM; perf_conv_tc_parts times
-  // one fewer and one more; K4a at C other than 64 K3's, whose bias and
-  // alpha registers grow with C; R = 2: what its A fragments' registers
-  // allow, 84 of them in float32)
-  static constexpr int BLOCKS = Q8 && C != 64 ? (F32 ? 2 : 4) :
+  // one fewer and one more; K4a's wide bf16 forms their shape's, its
+  // float32 forms K3's, whose bias and alpha registers grow with C; R =
+  // 2: what its A fragments' registers allow, 84 of them in float32)
+  static constexpr int BLOCKS = ROWS ? S::BLOCKS :
+      Q8 && C != 64 ? (F32 ? 2 : 4) :
       R == 1 ? (F32 ? (Q8 ? 3 : 2) : (Q8 ? 6 : 4)) : (F32 ? 2 : 3);
+  // registers a thread: __launch_bounds__(THREADS, BLOCKS) caps each at
+  // REGS, so BLOCKS blocks of THREADS fit the SM's 65,536
+  static constexpr int REGS = 65536 / (THREADS * BLOCKS) / 8 * 8;
+  static_assert(REGS * THREADS * BLOCKS <= 65536,
+                "the blocks' registers fit the SM's");
   static_assert(OFF_HALO % 16 == 0 && OFF_TABLE % 16 == 0,
                 "16-B aligned halo reads");
   static_assert(C == 64 || R == 1, "K3 at Cin 12 takes 64 output channels");
+  static_assert(!ROWS || (SMEM + 1024) * BLOCKS <= 228 * 1024,
+                "the blocks' shared memory (and 1 KB each the card "
+                "reserves) fit the SM's 228 KB");
+  static_assert(!ROWS || TILE_BYTES % 1024 == 0,
+                "the wide K4a's staged tile 1-KB aligned, as its swizzle "
+                "needs");
 };
 
 // The persistent walk over tiles of TH rows of 64 pixels, x fastest:
@@ -394,6 +491,78 @@ __device__ __forceinline__ void stage(unsigned char* halo,
   }
 }
 
+// Stage a wide K4a tile's raw halo (RowGeo): the 3 values of u8 row r,
+// pixel u go to halo pixel u at slots 3 r + c of copy 0 and 3 r + c + 1
+// of copy 1, 2 B each.  Each thread converts the pairs (r, u) t + 128 n,
+// u fastest; rows and pixels outside the frame read `zeros`.
+template <class G>
+__device__ __forceinline__ void stage_rows(unsigned char* halo,
+                                           const unsigned char* raw,
+                                           const unsigned char* zeros,
+                                           const unsigned char* table,
+                                           int t, int b, int y0, int x0,
+                                           int H, int W) {
+  const int s0 = ((b * H + y0 - 1) * W + x0 - 1) * 3;
+  const unsigned short* tab = reinterpret_cast<const unsigned short*>(table);
+#pragma unroll
+  for (int n = 0; n < G::NP; ++n) {
+    const int m = t + THREADS * n;
+    if (m >= G::TASKS) break;
+    const int r = m / G::ROW_PX, u = m - r * G::ROW_PX;
+    const int s = s0 + r * W * 3;
+    const bool in = (unsigned)(y0 - 1 + r) < (unsigned)H &&
+                    (unsigned)(x0 - 1 + u) < (unsigned)W;
+    const unsigned char* src =
+        in ? raw + r * G::RAW_ROW + (s & 3) + u * 3 : zeros;
+    unsigned short* dst =
+        reinterpret_cast<unsigned short*>(halo) + u * G::SLOTS + 3 * r;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const unsigned short v = tab[src[c]];
+      dst[c] = v;
+      dst[G::COPY + 1 + c] = v;
+    }
+  }
+}
+
+// A wide K4a row's A fragments (RowGeo), this thread's: register r of k16
+// step kc holds pixel pa + 8 (r % 2), k = 16 kc + 8 (r / 2) + 2q + {0,
+// 1}; `src` is its row's copy at pixel pa, slot 3 i (+ 1 in copy 1) + 2q,
+// and dxo[j] the bytes (SLOTS - 10) dx that k = 8 j + 2q's tap column adds.
+template <class G>
+__device__ __forceinline__ void a_frags(uint32_t (&a)[G::KSTEPS][4],
+                                        const unsigned char* src,
+                                        const int (&dxo)[4]) {
+#pragma unroll
+  for (int kc = 0; kc < G::KSTEPS; ++kc)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kc][r] = *reinterpret_cast<const uint32_t*>(
+          src + ((r & 1) * 8 * G::SLOTS + 16 * kc + 8 * (r >> 1)) * 2 +
+          dxo[2 * kc + (r >> 1)]);
+}
+
+// Issue one channel chunk's wgmmas of a wide K4a row (bfloat16, A in
+// registers, B the chunk's NC columns of the packed weights at `w`) into
+// `acc`, and commit them; the caller waits.  The wgmmas are mma_row's.
+template <int C, int NC>
+__device__ __forceinline__ void issue_row(float (&acc)[NC / 2],
+                                          uint32_t (&a)[2][4], uint32_t w) {
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
+  // every write of A and of the accumulators comes before the fence
+#pragma unroll
+  for (int kc = 0; kc < 2; ++kc)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[kc][r]));
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < 2; ++kc)
+    Wgmma<NC>::mma(acc, a[kc], desc(w + kc * 32 * C, 16 * C));
+  wgmma_commit();
+}
+
 // The row's GEMM, this thread's part: the A fragments of all KSTEPS k16
 // steps from the staged halo, then the wgmmas, waited on.  With taps
 // numbered column by column, k = WIN dx + CIN dy + c (R = 1: 10 dx + 3 dy
@@ -480,13 +649,15 @@ __device__ __forceinline__ void mma_row(float (&acc)[NC / 2],
 // the staging buffer `st`, in the swizzle of the output's tensor map.
 // Register 4j + 2h + e holds pixel pa + 8h, channel 8 jc + 2q + e, jc =
 // ci NC / 8 + j; bi, al (float32) and al2 (bf16 pairs) hold the bias and
-// alpha of the thread's channels of all chunks.
+// alpha of the thread's channels of all chunks; clip_hi and clip_lo the
+// wide K4a's clip.
 template <typename T, typename TOut, int C>
 __device__ __forceinline__ void epilogue(
     unsigned char* st, const float (&acc)[U8<T, TOut, 1, C>::NC / 2],
     const float (&cor)[U8<T, TOut, 1, C>::NC / 2], const float (&bi)[C / 4],
     const float (&al)[C / 4], const __nv_bfloat162 (&al2)[C / 8], float inv,
-    int pa, int q, int ci) {
+    int pa, int q, int ci, __nv_bfloat162 clip_hi = __nv_bfloat162(),
+    __nv_bfloat162 clip_lo = __nv_bfloat162()) {
   using U = U8<T, TOut, 1, C>;
   const __nv_bfloat162 zero = __float2bfloat162_rn(0.f);
 #pragma unroll
@@ -512,13 +683,28 @@ __device__ __forceinline__ void epilogue(
         const __nv_bfloat162 f =
             __floats2bfloat162_rn(__fadd_rn(acc[r], bi[2 * j]),
                                   __fadd_rn(acc[r + 1], bi[2 * j + 1]));
-        const __nv_bfloat162 pr =
+        __nv_bfloat162 pr =
             __hfma2(al2[j], __hmin2(f, zero), __hmax2(f, zero));
+        // the wide K4a: the quantize's clip here, on bf16 pairs
+        if constexpr (U::ROWS) pr = __hmax2(__hmin2(pr, clip_hi), clip_lo);
         hb = *reinterpret_cast<const uint32_t*>(&pr);
         v[0] = __uint_as_float(hb << 16);
         v[1] = __uint_as_float(hb & 0xFFFF0000u);
       }
-      if constexpr (U::Q8 && U::BOX_C == 64) {
+      if constexpr (U::ROWS) {
+        // the wide K4a's rows of C s8 in their swizzle (none at 96):
+        // 16-B chunk c of pixel p at c ^ ((p C / 128) % (C / 16))
+        const int sw = U::SWIZZLE == CU_TENSOR_MAP_SWIZZLE_NONE
+                           ? 0
+                           : (p * C >> 7) & (C / 16 - 1);
+        // (clipped above: quant_bits without its clip)
+        *reinterpret_cast<uint16_t*>(st + p * C + (((j >> 1) ^ sw) << 4) +
+                                     8 * (j & 1) + 2 * q) =
+            (uint16_t)__byte_perm(
+                __float_as_uint(__fadd_rn(__fmul_rn(v[0], inv), 12582912.f)),
+                __float_as_uint(__fadd_rn(__fmul_rn(v[1], inv), 12582912.f)),
+                0x40);
+      } else if constexpr (U::Q8 && U::BOX_C == 64) {
         // boxes of 64 channels, 64-B rows; 16-B chunk c of pixel p at
         // chunk c ^ ((p / 2) % 4)
         *reinterpret_cast<uint16_t*>(
@@ -562,29 +748,37 @@ __device__ __forceinline__ void epilogue(
 // kernels/conv3x3.py pack_weights_u8conv is its reference); float32 as
 // its bf16 hi, mid, lo, one split a plane.  Packed here, once a block,
 // not by the wrapper: the small torch ops of a packing took longer than
-// a tenth of the kernel.
+// a tenth of the kernel.  The wide K4a (G::PACKED) takes B packed once
+// per set of weights and copies it (packing it in each block took 2.4-
+// 2.5% of its call: PERF.md).
 template <typename T, class G, int C>
 __device__ __forceinline__ void pack_weights(bf16* ws,
                                              const T* __restrict__ w,
                                              int t) {
   constexpr int KP = G::KP, CIN = G::CIN;
-  for (int i = t; i < KP * C; i += THREADS) {
-    const int k = i / C, n = i - k * C;
-    const int dx = k / G::WIN, s = k - G::WIN * dx;  // s = CIN dy + c
-    const float v =
-        dx < 3 && s < 3 * CIN
-            ? reve::to_float(
-                  w[((s / CIN * 3 + dx) * CIN + s % CIN) * C + n])
-            : 0.f;
-    const int at = ((k >> 3) * C + n) * 8 + (k & 7);
-    const bf16 hi = __float2bfloat16_rn(v);
-    ws[at] = hi;
-    if constexpr (std::is_same<T, float>::value) {
-      const float r = __fsub_rn(v, __bfloat162float(hi));
-      const bf16 mid = __float2bfloat16_rn(r);
-      ws[KP * C + at] = mid;
-      ws[2 * KP * C + at] =
-          __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(mid)));
+  if constexpr (G::PACKED) {
+    for (int i = t; i < KP * C / 8; i += THREADS)
+      reinterpret_cast<uint4*>(ws)[i] =
+          __ldg(reinterpret_cast<const uint4*>(w) + i);
+  } else {
+    for (int i = t; i < KP * C; i += THREADS) {
+      const int k = i / C, n = i - k * C;
+      const int dx = k / G::WIN, s = k - G::WIN * dx;  // s = CIN dy + c
+      const float v =
+          dx < 3 && s < 3 * CIN
+              ? reve::to_float(
+                    w[((s / CIN * 3 + dx) * CIN + s % CIN) * C + n])
+              : 0.f;
+      const int at = ((k >> 3) * C + n) * 8 + (k & 7);
+      const bf16 hi = __float2bfloat16_rn(v);
+      ws[at] = hi;
+      if constexpr (std::is_same<T, float>::value) {
+        const float r = __fsub_rn(v, __bfloat162float(hi));
+        const bf16 mid = __float2bfloat16_rn(r);
+        ws[KP * C + at] = mid;
+        ws[2 * KP * C + at] =
+            __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(mid)));
+      }
     }
   }
 }
@@ -651,7 +845,101 @@ conv3x3_u8_tc_kernel(const __grid_constant__ CUtensorMap out_map,
   // pixel pa, k 2q; past the dx that k 32..39 crosses at R = 2
   const unsigned char* a_src = halo + (pa * G::SLOTS + 2 * q) * U::V;
   const int cross = 2 * q >= G::WIN % 8 ? (G::SLOTS - G::WIN) * U::V : 0;
-  for (int tile = blockIdx.x, it = 0; tile < count; tile += step) {
+  if constexpr (U::ROWS) {
+    // The wide K4a: a tile's TH rows from its halo staged once, row i
+    // from copy i % 2, each row's CHUNKS chunks in turn, the units (row,
+    // chunk) of a row pair unrolled: each unit's wgmmas are issued before
+    // the epilogue of the unit before it (two accumulator sets, and two A
+    // sets, one a row of the pair).  The tile's rows are staged together
+    // and leave by one TMA store a box.
+    int dxo[4];  // bytes that the tap column of k = 8 j + 2q adds
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int dx = (8 * j + 2 * q) / G::WIN;
+      dxo[j] = (G::SLOTS - G::WIN) * (dx < 2 ? dx : 2) * 2;
+    }
+    // the quantize's clip, on the bf16 PReLU output: HI, the least bf16
+    // whose code is 127 (fl(HI inv) > 126.5, and below 127.5, a bf16 step
+    // above a value that is not), and -HI.  Codes of values within them
+    // need no float32 clip, and those past them are +-127, as clipped.
+    uint32_t hi = 0x7F80;  // +inf: a code past every finite value
+    for (uint32_t lo = 0; lo < hi;) {
+      const uint32_t mid = (lo + hi) >> 1;
+      if (__fmul_rn(__uint_as_float(mid << 16), inv_s) > 126.5f) {
+        hi = mid;
+      } else {
+        lo = mid + 1;
+      }
+    }
+    const __nv_bfloat162 clip_hi = __halves2bfloat162(
+        __ushort_as_bfloat16((unsigned short)hi),
+        __ushort_as_bfloat16((unsigned short)hi));
+    const __nv_bfloat162 clip_lo = __hneg2(clip_hi);
+    constexpr int UNITS = 2 * U::CHUNKS;  // of a row pair
+    static_assert(TH % 2 == 0, "rows in pairs");
+    for (int tile = blockIdx.x; tile < count; tile += step) {
+      const int y0 = cur.y * TH;
+      stage_rows<G>(halo, raw, smem + U::OFF_ZEROS, table, t, cur.b, y0,
+                    cur.xt * TW, H, W);
+      // the staged tile was read out by the last tile's store
+      if (t == 0) bulk_wait_read<0>();
+      __syncthreads();
+      unsigned char* st = smem;
+      uint32_t a[2][G::KSTEPS][4];
+      float acc[2][U::NC / 2];
+      // the units of the row pair i, i + 1
+      auto pair = [&](int i) {
+        a_frags<G>(a[0], a_src + 3 * i * 2, dxo);
+        issue_row<C, U::NC>(acc[0], a[0], base + (uint32_t)U::OFF_W);
+#pragma unroll
+        for (int v = 0; v < UNITS; ++v) {
+          // the pair's next unit's wgmmas (none in flight past the pair:
+          // a wgmma carried across the loop made ptxas wait more)
+          const int n = v + 1;
+          if (n < UNITS) {
+            if (n == U::CHUNKS)
+              a_frags<G>(a[1], a_src + (G::COPY + 3 * i + 4) * 2, dxo);
+            issue_row<C, U::NC>(
+                acc[n % 2], a[n / U::CHUNKS],
+                base + (uint32_t)(U::OFF_W + n % U::CHUNKS * U::NC * 16));
+            wgmma_wait<1>();
+          } else {
+            wgmma_wait<0>();
+          }
+          fence_regs(acc[v % 2]);  // its reads below the wait
+          epilogue<T, TOut, C>(st + (i + v / U::CHUNKS) * TW * C,
+                               acc[v % 2], acc[v % 2], bi, al, al2, inv_s,
+                               pa, q, v % U::CHUNKS, clip_hi, clip_lo);
+        }
+      };
+      if constexpr (U::S::UNROLL) {
+#pragma unroll
+        for (int i = 0; i < TH; i += 2) pair(i);
+      } else {
+#pragma unroll 1
+        for (int i = 0; i < TH; i += 2) pair(i);
+      }
+      // the next tile's halo words, read a tile ago (every thread staged
+      // this tile's from the raw buffer before the barrier)
+      put_words<G>(raw, t, words);
+      fence_proxy_async();  // the staged rows become visible to TMA
+      __syncthreads();
+      if (t == 0) {
+        tma_store_4d(&out_map, base, 0, cur.xt * TW, y0, cur.b);
+        bulk_commit();
+      }
+      // the words of the tile after next, after the fence (it waits for
+      // every load in flight)
+      if (tile + 2 * step < count)
+        fetch<G>(x, bytes, ahead.b, ahead.y * TH, ahead.xt * TW, H, W, t,
+                 words);
+      cur.advance(gx, gy, tx, ty);
+      ahead.advance(gx, gy, tx, ty);
+    }
+  }
+  // the one-row tiles (no tile in the wide K4a's instantiations)
+  for (int tile = blockIdx.x, it = 0; !U::ROWS && tile < count;
+       tile += step) {
     const int y0 = cur.y * TH;
     // every thread read the last staged halo before the barrier after
     // its wgmmas, and these raw words were put before the last barrier
@@ -714,7 +1002,7 @@ cudaError_t launch(const void* x, const void* w, const float* b,
     return cudaErrorInvalidValue;
   CUtensorMap out_map;
   cudaError_t err = halo_map(&out_map, U::MAP_TYPE, (int)sizeof(TOut), y, B,
-                             H, W, TW, 1, U::SWIZZLE, U::BOX_C, C);
+                             H, W, TW, U::BOX_H, U::SWIZZLE, U::BOX_C, C);
   if (err != cudaSuccess) return err;
   auto kernel = conv3x3_u8_tc_kernel<T, TOut, R, C>;
   int grid = 0;

@@ -284,8 +284,14 @@ def apply_int8(params: Params, qbody, u8: torch.Tensor, *, cfg: SRVGGConfig,
         last = head.head_conv_residual_u8_shuffle
     sx = qbody.act_scale
     inv = 1.0 / sx  # float32 reciprocals, as `1.0 / scale` in _quant_s8
-    q = first(u8, convs[0]["w"].to(dt), convs[0]["b"], prelus[0]["alpha"],
-              inv[0:1])
+    # K4a's weights cast once per set of weights (an int8 engine keeps its
+    # params in float32), so that the pack its wide forms take is made
+    # once too (conv3x3.packed_u8conv)
+    w0 = convs[0]["w"]
+    if w0.dtype != dt:
+        w0 = w0.to(dt) if plain else conv3x3.packed_once(
+            w0, lambda w: w.to(dt), f"_reve_as_{str(dt)[6:]}")
+    q = first(u8, w0, convs[0]["b"], prelus[0]["alpha"], inv[0:1])
     for i in range(n):
         q = hidden(q, qbody.w8[i], sx[i] * qbody.sw[i], qbody.b[i],
                    qbody.alpha[i], inv[i + 1:i + 2])

@@ -1,7 +1,7 @@
 """Where the time of the tensor-core conv kernels (and of K6) goes.
 
     python -m reve_tpu_torch.scripts.perf_conv_tc_parts [--iters N]
-        [--sources SOURCE ...]
+        [--sources SOURCE ...] [--variants VARIANT ...]
 
 Builds variants of the conv sources with one or two of their
 parts taken out: the halo loads after the first tile (`no_load`: later
@@ -14,7 +14,7 @@ out the epilogue arithmetic and the TMA stores, and `stores_only` runs
 the stores of the staging buffers alone (no loads, wgmmas or epilogue
 arithmetic); their `no_load_no_epi` is the wgmmas with the halo's
 staging, and `fewer_blocks` / `more_blocks` run one block fewer / more on
-each SM:
+each SM (K4a's wide forms: below):
   * kernels/csrc/conv3x3_tc.cu: bfloat16 K1 (`k1_ms`) and K2 at r=4
     (`k2_ms`);
   * kernels/csrc/conv3x3_f32_tc.cu: float32 K1 as the wrapper runs it,
@@ -61,12 +61,25 @@ each SM:
     teams' kernel, whole and right;
   * kernels/csrc/conv3x3.cu: K3 in bfloat16 (`k3_ms`) and float32
     (`k3_f32_ms`), K4a with its conv in bfloat16 (`k4a_ms`) and float32
-    (`k4a_f32_ms`), and K3 at Cin 12 (R = 2) at RRDB x2's shape, the
-    batch's 4 frames of 1920 x 1080 as a 540 x 960 trunk (`k3x2_ms`,
-    `k3x2_f32_ms`).  Besides the variants above: `no_stage` (the halo
-    staged from the raw words for each block's first tile only) and
-    `loads_only` (the halo words' loads and their copy into the raw
-    buffer alone: no staging, wgmmas or epilogue);
+    (`k4a_f32_ms`), K4a's wide forms in bfloat16 at 32, 96 and 128
+    features (`k4a_32_ms`, `k4a_96_ms`, `k4a_128_ms`), and K3 at Cin 12
+    (R = 2) at RRDB x2's shape, the batch's 4 frames of 1920 x 1080 as a
+    540 x 960 trunk (`k3x2_ms`, `k3x2_f32_ms`).  Besides the variants
+    above: `no_stage` (the halo staged from the raw words for each
+    block's first tile only), `loads_only` (the halo words' loads and
+    their copy into the raw buffer alone: no staging, wgmmas or
+    epilogue) and `no_pack` (B left as the block finds its shared
+    memory: the weights' packing inside each block taken out); each
+    takes its part out of the one-row kernel and of the wide K4a's row
+    tiles alike.  `fewer_blocks` / `more_blocks` move every form's
+    blocks on each SM, `k4a_blocks3` ... `k4a_blocks8` the wide bf16
+    K4a's only (texts the kernel has had since its wide forms, so a
+    parent has them too); `k4a_clip_f32` runs the wide K4a's quantize
+    with the one-row forms' float32 clip; and the shape variants
+    (`k4a_32_t8b5u1`: K4a at 32 on tiles of 8 rows, 5 blocks, row pairs
+    unrolled) route a wide form to another shape.  These three compute
+    the right result.  A swept variant that does not build (registers
+    or shared memory refused) is listed under "failed" and not timed;
   * kernels/csrc/dot_probe.cu: P1 at the probe's shape in s8 and bf16 at
     0 loops (the prologue and epilogue alone), 64 and 1024 loops
     (`int8_64_ms`, ...), the calls queued behind a sleep kernel
@@ -122,7 +135,7 @@ anything.
 Prints one JSON line: the
 card, then {source: {variant: {timing: [ms, ms]}}}, each time the mean
 over `iters` launches after one untimed launch, the variants run in turn,
-twice.
+twice, and the swept variants that did not build.
 """
 
 from __future__ import annotations
@@ -161,6 +174,28 @@ _U8_EPI = ("        epilogue<T, TOut, C>(st, acc, cor, bi, al, al2, inv_s, pa, "
 _U8_STORE = "      if (t == 0) {\n        const uint32_t src"
 _U8_STAGE = ("    stage<U::F32, G>(halo, raw, smem + U::OFF_ZEROS, table, t, "
              "cur.b, y0,\n")
+#: ... the wide K4a's rows loop (conv3x3.cu's U8::ROWS forms): its
+#: fetch, staging, wgmmas, epilogue and stores
+_ROWS_LOAD = "      if (tile + 2 * step < count)\n"
+_ROWS_STAGE = "      stage_rows<G>(halo, raw, smem + U::OFF_ZEROS, table, t, "
+_ROWS_MMA = ("    Wgmma<NC>::mma(acc, a[kc], desc(w + kc * 32 * C, 16 * "
+             "C));\n")
+_ROWS_EPI = ("          epilogue<T, TOut, C>(st + (i + v / U::CHUNKS) * TW * C,\n"
+             "                               acc[v % 2], acc[v % 2], bi, al, "
+             "al2, inv_s,\n"
+             "                               pa, q, v % U::CHUNKS, clip_hi, "
+             "clip_lo);\n")
+_ROWS_STORE = "      if (t == 0) {\n        tma_store_4d(&out_map, base, 0,"
+#: ... the wide K4a's quantize: its clip on the bf16 pairs, and its
+#: codes of the clipped values
+_ROWS_CLIP = ("        if constexpr (U::ROWS) pr = __hmax2(__hmin2(pr, clip_hi), "
+              "clip_lo);\n")
+_ROWS_QUANT = ("                __float_as_uint(__fadd_rn(__fmul_rn(v[0], inv), "
+               "12582912.f)),\n"
+               "                __float_as_uint(__fadd_rn(__fmul_rn(v[1], inv), "
+               "12582912.f)),\n")
+#: ... the wide K4a's shapes (the shape variants replace them)
+_ROWS_SHAPES = {f: f"struct Q8Shape<{f}> : RowShape<" for f in (32, 96, 128)}
 #: source -> variant -> [(text in the source, its replacement)]
 PATCHES = {
     conv3x3.TC_SOURCE: {
@@ -199,25 +234,73 @@ PATCHES = {
     },
     conv3x3.SOURCE: {
         "no_load": [("      if (i == 0 && tile + 2 * step < count)\n",
-                     "      if (false)\n")],
-        "no_stage": [(_U8_STAGE, "    if (it == 0)\n" + _U8_STAGE)],
+                     "      if (false)\n"),
+                    (_ROWS_LOAD, "      if (false)\n")],
+        "no_stage": [(_U8_STAGE, "    if (it == 0)\n" + _U8_STAGE),
+                     (_ROWS_STAGE,
+                      "      if (tile == blockIdx.x)\n" + _ROWS_STAGE)],
         "no_mma": [(_U8_MMA, "        for (int j = 0; j < U::NC / 2; ++j) "
-                    "acc[j] = cor[j] = it;\n")],
+                    "acc[j] = cor[j] = it;\n"),
+                   (_ROWS_MMA, "    acc[kc] += (float)a[kc][0];\n")],
         "no_epi": [(_U8_EPI, "        if (acc[0] == 0.5f) smem[0] = 1;\n"),
                    (_U8_STORE,
-                    "      if (false) {\n        const uint32_t src")],
+                    "      if (false) {\n        const uint32_t src"),
+                   (_ROWS_EPI, "          if (acc[v % 2][0] == 0.5f) "
+                    "smem[0] = 1;\n"),
+                   (_ROWS_STORE, _ROWS_STORE.replace("(t == 0)", "(false)"))],
     },
 }
-# K3 and K4a at one block fewer and one more on each SM than they run
-_U8_BLOCKS = ("      R == 1 ? (F32 ? (Q8 ? 3 : 2) : (Q8 ? 6 : 4)) : (F32 ? 2 "
-              ": 3);")
-PATCHES[conv3x3.SOURCE]["fewer_blocks"] = [(_U8_BLOCKS, _U8_BLOCKS.replace(
-    "(Q8 ? 3 : 2) : (Q8 ? 6 : 4)", "(Q8 ? 2 : 1) : (Q8 ? 5 : 3)"))]
-PATCHES[conv3x3.SOURCE]["more_blocks"] = [(_U8_BLOCKS, _U8_BLOCKS.replace(
-    "(Q8 ? 3 : 2) : (Q8 ? 6 : 4)", "(Q8 ? 4 : 3) : (Q8 ? 7 : 5)"))]
+# The blocks on each SM, anchored on where the kernel's launch bounds and
+# its grid read U8's count (texts that the kernel has had since the wide
+# forms): every form at one block fewer and one more than it runs, and
+# the bf16 K4a at 32, 96 and 128 features (its Q8 forms whose staged row
+# is not 64 channels) at 3 to 8 blocks, the other forms as they run
+_U8_BOUNDS = "U8<T, TOut, R, C>::BLOCKS)"
+_U8_GRID = "                              U::BLOCKS);"
+
+
+def _u8_blocks(n: str, wide_k4a_only: bool) -> list:
+    """Patches that run the forms at `n` blocks on each SM (a C
+    expression of U, U8's instantiation)."""
+    pick = (f"U::Q8 && !U::F32 && U::OUT_BYTES != TW * 64 ? {n} : U::BLOCKS"
+            if wide_k4a_only else n)
+    return [("struct Walk {",
+             "template <class U>\nstruct KBlocks {\n  static constexpr int N "
+             f"= {pick};\n}};\nstruct Walk {{"),
+            (_U8_BOUNDS, "KBlocks<U8<T, TOut, R, C>>::N)"),
+            (_U8_GRID, "                              KBlocks<U>::N);")]
+
+
+PATCHES[conv3x3.SOURCE]["fewer_blocks"] = _u8_blocks("U::BLOCKS - 1", False)
+PATCHES[conv3x3.SOURCE]["more_blocks"] = _u8_blocks("U::BLOCKS + 1", False)
+for _n in range(3, 9):
+    PATCHES[conv3x3.SOURCE][f"k4a_blocks{_n}"] = _u8_blocks(str(_n), True)
+# the weights not packed: each block's B as it finds its shared memory
+# (what packing them once per set of weights could save)
+PATCHES[conv3x3.SOURCE]["no_pack"] = [
+    ("  pack_weights<T, G, C>(reinterpret_cast<bf16*>(smem + U::OFF_W), w, "
+     "t);\n", "")]
 PATCHES[conv3x3.SOURCE]["stores_only"] = (
     PATCHES[conv3x3.SOURCE]["no_load"] + PATCHES[conv3x3.SOURCE]["no_mma"]
-    + [(_U8_EPI, "")])
+    + [(_U8_EPI, ""), (_ROWS_EPI, "")])
+# the wide K4a's quantize as the one-row forms run it: the float32 clip
+# of quant_bits, none on the bf16 pairs (whole and right)
+PATCHES[conv3x3.SOURCE]["k4a_clip_f32"] = [
+    (_ROWS_CLIP, ""),
+    (_ROWS_QUANT, "                reve::quant_bits(v[0], inv),\n"
+                  "                reve::quant_bits(v[1], inv),\n")]
+# the wide K4a's shapes (TH rows a tile, blocks on each SM, row pairs
+# unrolled or looped), whole and right: `k4a_32_t8b5u1` runs K4a at 32
+# on RowShape<8, 5, 1> (the shape there before left in an unused struct)
+_ROWS_SWEEP = {32: ("8, 5, 0", "8, 4, 1", "8, 6, 1", "6, 5, 1", "4, 6, 1"),
+               96: ("4, 4, 0", "6, 3, 1", "4, 3, 1", "4, 5, 1"),
+               128: ("6, 3, 1", "8, 2, 0", "4, 3, 0", "6, 2, 0")}
+for _f, _shapes in _ROWS_SWEEP.items():
+    for _sh in _shapes:
+        _th, _b, _u = _sh.split(", ")
+        PATCHES[conv3x3.SOURCE][f"k4a_{_f}_t{_th}b{_b}u{_u}"] = [(
+            _ROWS_SHAPES[_f], _ROWS_SHAPES[_f] + _sh + "> {};\nstruct Was"
+            f"{_f} : RowShape<")]
 PATCHES[conv3x3.SOURCE]["loads_only"] = (
     PATCHES[conv3x3.SOURCE]["no_stage"] + PATCHES[conv3x3.SOURCE]["no_mma"]
     + PATCHES[conv3x3.SOURCE]["no_epi"])
@@ -475,6 +558,9 @@ _S8_HEADS = "struct S8Shape : Shape<"
 _S8_PJ = "  constexpr int PJ = R > 0 || N <= 32 ? N / 8 : 1;\n"
 _S8_QUANT = "quant_bits(v0, inv), quant_bits(v1, inv)"
 OPTIONAL |= {_S8_K4_32, _S8_K4_128, _S8_HEADS, _S8_PJ, _S8_QUANT}
+OPTIONAL |= {_ROWS_LOAD, _ROWS_STAGE, _ROWS_MMA, _ROWS_EPI, _ROWS_STORE,
+             _ROWS_CLIP, _ROWS_QUANT,
+             *_ROWS_SHAPES.values()}
 
 
 def _s8_shape(anchor: str, shape: str, name: str) -> tuple:
@@ -531,6 +617,11 @@ _K6_SPECS = ((2, False), (1, True))
 _DOT_LOOPS = (0, 64, 1024)
 
 
+#: "source variant" -> the end of nvcc's output, of the swept variants
+#: that did not build
+FAILED = {}
+
+
 def variant_source(source: str, variant: str, strict: bool = False) -> str:
     """The text of `source` with `variant`'s parts taken out (`strict`:
     the OPTIONAL texts too, each once)."""
@@ -546,12 +637,14 @@ def variant_source(source: str, variant: str, strict: bool = False) -> str:
     return text
 
 
-def build_variants(tmp: str, sources=None) -> dict:
-    """{(source, variant): loaded library} of `sources` (default: all),
-    all compiled at once."""
+def build_variants(tmp: str, sources=None, variants=None) -> dict:
+    """{(source, variant): loaded library} of `sources` (default: all)
+    and `variants` (default: all; `full` always), all compiled at once."""
     procs = {}
     for source in sources or PATCHES:
         for variant in PATCHES[source]:
+            if variants and variant != "full" and variant not in variants:
+                continue
             text = variant_source(source, variant)
             if variant != "full" and text == variant_source(source, "full"):
                 continue  # none of its texts in an older checkout
@@ -583,6 +676,11 @@ def build_variants(tmp: str, sources=None) -> dict:
     libs = {}
     for key, (so, proc) in procs.items():
         log, _ = proc.communicate()
+        if proc.returncode and key[1].startswith("k4a_"):
+            # a swept count or shape of the wide K4a that its registers or
+            # shared memory refuse: reported (FAILED), not timed
+            FAILED[f"{key[0]} {key[1]}"] = log[-2000:]
+            continue
         if proc.returncode:
             raise RuntimeError(f"{key}: nvcc exited {proc.returncode}\n{log}")
         if key[0] in _HEADER_USERS:
@@ -690,6 +788,32 @@ def _k7_timings(lib, name: str, ops: dict, stream) -> dict:
 _K7Q_FORMS = (("lrelu_q64", 64, 32, "lrelu_q"),
               ("lrelu_q160", 160, 32, "lrelu_q"), ("rdb", 192, 64, "rdb"),
               ("rrdb", 192, 64, "rrdb"), ("add", 64, 64, "add"))
+
+
+#: the widths of K4a's wide forms timed (bfloat16 weights, as the int8
+#: engine runs them)
+U8_WIDE = (32, 96, 128)
+
+
+def _u8_wide_operands(rs, dev) -> dict:
+    """{feat: the bf16 weights (3, 3, 3, feat) as the wrapper hands them
+    to the kernel (packed once where it takes them packed,
+    conv3x3.packs_u8conv; HWIO for a checkout whose kernel packs them
+    itself), bias, alpha and the s8 output} of K4a at each of U8_WIDE."""
+    ops = {}
+    for feat in U8_WIDE:
+        w = torch.from_numpy(rs.uniform(-0.19, 0.19, (3, 3, 3, feat)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        if getattr(conv3x3, "packs_u8conv", lambda w, q8: False)(w, True):
+            w = conv3x3.packed_u8conv(w)
+        ops[feat] = {
+            "w": w,
+            "b": torch.from_numpy(rs.uniform(-0.1, 0.1, feat).astype(
+                np.float32)).to(dev),
+            "a": torch.from_numpy(rs.uniform(0.05, 0.4, feat).astype(
+                np.float32)).to(dev),
+            "y": torch.empty((B, H, W, feat), dtype=torch.int8, device=dev)}
+    return ops
 
 
 #: the wide K1 forms timed: (timing, width, dtype)
@@ -977,15 +1101,18 @@ def main(argv: Optional[List[str]] = None) -> dict:
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--sources", nargs="+", choices=sorted(PATCHES),
                    help="time only these sources' variants")
+    p.add_argument("--variants", nargs="+",
+                   help="time only these variants (and `full`)")
     args = p.parse_args(argv)
-    line = run(args.sources, args.iters)
+    line = run(args.sources, args.iters, args.variants)
     print(json.dumps(line), flush=True)
     return line
 
 
-def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
-    """Build and time the variants of `sources` (None: all) on the card;
-    returns the line main prints."""
+def run(sources: Optional[List[str]] = None, iters: int = 20,
+        variants: Optional[List[str]] = None) -> dict:
+    """Build and time the variants of `sources` (None: all; `variants`:
+    only those and `full`) on the card; returns the line main prints."""
     dev = torch.device("cuda", 0)
     rs = np.random.RandomState(0)
     xf = torch.from_numpy(rs.rand(B, H, W, 64).astype(np.float32) - 0.3).to(
@@ -1151,21 +1278,23 @@ def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
                 lo["out"].data_ptr(), *LAST_SHAPE, stream), name)}
         if source == conv3x3.SOURCE:
             k3 = _entry(lib, "reve_conv3x3_u8_bias_prelu",
-                        [P] * 5 + [I] * 4 + [P])
+                        [P] * 5 + [I] * 5 + [P])
             k4a = _entry(lib, "reve_conv3x3_u8_bias_prelu_q8",
-                         [P] * 6 + [I] * 4 + [P])
+                         [P] * 6 + [I] * 5 + [P])
 
             def run_k3(wt, out, code):
                 return lambda: build.check(lib, k3(
                     u8.data_ptr(), wt.data_ptr(), b.data_ptr(),
-                    alpha.data_ptr(), out.data_ptr(), B, H, W, code, stream),
-                    name)
+                    alpha.data_ptr(), out.data_ptr(), B, H, W, code, 64,
+                    stream), name)
 
-            def run_k4a(wt, code):
+            def run_k4a(wt, code, feat=64):
+                o = u8w_ops[feat] if feat != 64 else dict(
+                    b=b, a=alpha, y=y8)
                 return lambda: build.check(lib, k4a(
-                    u8.data_ptr(), wt.data_ptr(), b.data_ptr(),
-                    alpha.data_ptr(), inv.data_ptr(), y8.data_ptr(), B, H, W,
-                    code, stream), name)
+                    u8.data_ptr(), wt.data_ptr(), o["b"].data_ptr(),
+                    o["a"].data_ptr(), inv.data_ptr(), o["y"].data_ptr(), B,
+                    H, W, code, feat, stream), name)
             k3x2 = _entry(lib, "reve_conv3x3_u8x2_bias",
                           [P] * 5 + [I] * 4 + [P])
 
@@ -1178,6 +1307,8 @@ def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
             return {"k3_ms": run_k3(w3, y, 1),
                     "k3_f32_ms": run_k3(w3f, yf, 0),
                     "k4a_ms": run_k4a(w3, 1), "k4a_f32_ms": run_k4a(w3f, 0),
+                    **{f"k4a_{f}_ms": run_k4a(u8w_ops[f]["w"], 1, f)
+                       for f in U8_WIDE},
                     "k3x2_ms": run_k3x2(w12, y2, 1),
                     "k3x2_f32_ms": run_k3x2(w12f, yf2, 0)}
         k4 = _entry(lib, "reve_conv3x3_s8_dq_prelu_q8",
@@ -1194,6 +1325,9 @@ def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
                 stream), name)}
 
     k7_ops = k7q_ops = last_ops = train_ops = wide_ops = s8w_ops = None
+    u8w_ops = {}
+    if conv3x3.SOURCE in (sources or PATCHES):
+        u8w_ops = _u8_wide_operands(rs, dev)
     if WIDE in (sources or PATCHES):
         wide_ops = _wide_operands(rs, dev)
     if S8_WIDE in (sources or PATCHES):
@@ -1210,7 +1344,7 @@ def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_variants(tmp, sources)
+        libs = build_variants(tmp, sources, variants)
         for _ in range(2):
             for (source, variant), lib in libs.items():
                 print(f"# timing {source} {variant}", file=sys.stderr,
@@ -1222,7 +1356,7 @@ def run(sources: Optional[List[str]] = None, iters: int = 20) -> dict:
                         variant, {}).setdefault(timing, []).append(
                             timer(fn, iters, dev))
     return {"device": torch.cuda.get_device_name(dev), "shape": [B, H, W],
-            "r": R, "variants": out}
+            "r": R, "variants": out, "failed": FAILED}
 
 
 if __name__ == "__main__":

@@ -229,6 +229,43 @@ def test_s8_weights_are_packed_once_and_never_stale(wide):
         assert packed(w) is packed(w)
 
 
+@pytest.mark.parametrize("feat", [32, 64, 96, 128])
+def test_k4a_weights_are_packed_once_where_its_kernel_takes_them(feat):
+    """K4a's wide bfloat16 forms (32, 96, 128 features) take B packed once
+    per set of weights (packed_u8conv, pack_weights_u8conv's layout, the
+    reference of the kernel's own packing); K4a at 64, its float32 forms
+    and K3 pack in each block.  The pack is made once, made afresh after
+    an in-place update, and apply_int8 casts the float32 engine's first
+    conv once, so its pack is kept across calls."""
+    rs = np.random.RandomState(feat)
+    w = torch.from_numpy(rs.uniform(-0.3, 0.3, (3, 3, 3, feat)).astype(
+        np.float32))
+    wb = w.to(torch.bfloat16)
+    assert conv3x3.packs_u8conv(wb, True) == (feat != 64)
+    assert not conv3x3.packs_u8conv(w, True)
+    assert not conv3x3.packs_u8conv(wb, False)
+    p1 = conv3x3.packed_u8conv(wb)
+    assert conv3x3.packed_u8conv(wb) is p1 and p1.is_contiguous()
+    assert torch.equal(p1, conv3x3.pack_weights_u8conv(wb))
+    assert p1.shape == (1, conv3x3.U8_K // 8, feat, 8)
+    wb.mul_(2)
+    p2 = conv3x3.packed_u8conv(wb)
+    assert p2 is not p1 and torch.equal(p2, conv3x3.pack_weights_u8conv(wb))
+    cfg = srvgg.SRVGGConfig(num_feat=feat, num_conv=1, upscale=2)
+    params = srvgg.init_params(cfg, torch.Generator().manual_seed(feat))
+    u8 = torch.from_numpy(_u8((1, 5, 6, 3)))
+    qb = quantize.build_qbody(params, cfg, quantize.collect_act_maxima(
+        params, u8, cfg=cfg), margin=1.25)
+    y1 = srvgg.apply_int8(params, qb, u8, cfg=cfg)
+    cast = params["convs"][0]["w"]._reve_as_bfloat16[1]
+    y2 = srvgg.apply_int8(params, qb, u8, cfg=cfg)
+    assert params["convs"][0]["w"]._reve_as_bfloat16[1] is cast
+    assert torch.equal(cast, params["convs"][0]["w"].to(torch.bfloat16))
+    assert torch.equal(y1, y2)
+    assert torch.equal(y1, srvgg.apply_int8(params, qb, u8, cfg=cfg,
+                                            plain=True))
+
+
 # -- the wide K4's and K4h's arithmetic -------------------------------------------
 
 

@@ -79,10 +79,11 @@ autograd through F.conv2d on a 2-conv model, at the same tolerance.
 K4a, K4 and K4h at 32, 96 and 128 features (K4 and K4h
 csrc/conv3x3_s8_wide.cuh, consumer teams taking tiles of TEAM_WGS x RPW
 rows x 64 in turn over units of 32 input channels in the 32-B swizzle;
-K4a K3's template with the s8 epilogue): K4 and K4h exact, K4a within 1
-s8 code, at the tile edges, at each form's own tile height and a row
-either side, on a frame of one tile and at a tile count no multiple of
-the blocks' teams, at 1080p, at codes and weights of +-127 (sums past
+K4a K3's template with the s8 epilogue, its bf16 forms on tiles of TH
+rows, Q8Shape): K4 and K4h exact, K4a within 1 s8 code, at the tile
+edges, at each form's own tile height and a row either side, on a frame
+of one tile and at a tile count no multiple of the blocks' teams (K4a:
+of its grid), at 1080p, at codes and weights of +-127 (sums past
 2^24 at 128 features) and, for K4, at each tap alone; the int8 model at
 each width >= 60 dB against its plain path; the 64-feature int8 forms'
 outputs equal to their bytes before the wide forms, and the wide ones
@@ -817,14 +818,49 @@ def _hold_width_int8_forms(forms):
         del got, want
 
 
+def _k4a_shapes() -> dict:
+    """{feat: (TH, BLOCKS, UNROLL)} of the wide K4a forms (bf16
+    weights), read from csrc/conv3x3.cu's Q8Shape specialisations."""
+    with open(os.path.join(build.CSRC, conv3x3.SOURCE)) as f:
+        src = f.read()
+    return {int(f): tuple(int(n) for n in v.split(","))
+            for f, v in re.findall(r"struct Q8Shape<(\d+)> : RowShape<"
+                                   r"([\d, ]+)> \{\};", src)}
+
+
+def _int8_edge_cases() -> list:
+    """(feat, B, (H, W)) of the wide int8 forms' tile edges: TC_SHAPES at
+    B 1 and 3; and K4a's own at each width: a frame of one tile of TH
+    rows, TH - 1 and TH + 1 rows, W 64k and 64k + 1, 2 TH + 1 rows at B
+    3, and "grid", a tile count above the persistent grid's and no
+    multiple of it (sized in the test from the card's SMs)."""
+    cases = [(feat, B, hw) for feat in WIDE_FEATS for B in (1, 3)
+             for hw in TC_SHAPES]
+    for feat, (th, *_) in sorted(_k4a_shapes().items()):
+        cases += [(feat, 1, (th, 64)), (feat, 2, (th - 1, 128)),
+                  (feat, 1, (th + 1, 129)), (feat, 3, (2 * th + 1, 65)),
+                  (feat, 1, "grid")]
+    return cases
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("hw", TC_SHAPES)
-@pytest.mark.parametrize("B", [1, 3])
-@pytest.mark.parametrize("feat", WIDE_FEATS)
+@pytest.mark.parametrize(
+    "feat,B,hw", _int8_edge_cases(),
+    ids=[f"{f}-{b}-{hw if isinstance(hw, str) else '%dx%d' % hw}"
+         for f, b, hw in _int8_edge_cases()])
 def test_width_int8_kernels_match_plain_at_tile_edges(feat, B, hw):
     """K4a, K4 and K4h (x2, x3, x4) at 32, 96 and 128 features against
-    their plain versions at the tile edges (K4 and K4h: 4 x 64 tiles, K4a
-    rows of 64): K4 and K4h exact, K4a within 1 s8 code."""
+    their plain versions at the tile edges (K4 and K4h: 4 x 64 tiles;
+    K4a: tiles of its shape's TH rows x 64, the rows past the frame's
+    bottom computed and clipped by the store), and at K4a's own: K4 and
+    K4h exact, K4a within 1 s8 code."""
+    if hw == "grid":
+        th, blocks = _k4a_shapes()[feat][:2]
+        grid = torch.cuda.get_device_properties(
+            _cuda()).multi_processor_count * blocks
+        ty = grid // 7 + 3
+        assert ty * 7 > grid and ty * 7 % grid
+        hw = (ty * th, 64 * 7 - 5)
     _hold_width_int8_forms(_width_int8_forms(feat + B + hw[1], B, *hw,
                                              feat))
 

@@ -523,6 +523,118 @@ def test_u8conv_emulation_matches_jax_first_conv(name, q8):
         assert (np.abs(g - want) <= 2 * ulp).all()
 
 
+def _k4a_shapes() -> dict:
+    """{feat: (TH, BLOCKS, UNROLL)} of the wide K4a forms
+    (csrc/conv3x3.cu's Q8Shape specialisations), read from the source."""
+    with open(os.path.join(build.CSRC, conv3x3.SOURCE)) as f:
+        src = f.read()
+    return {int(m.group(1)): tuple(int(v) for v in m.group(2).split(", "))
+            for m in re.finditer(r"struct Q8Shape<(\d+)> : RowShape<"
+                                 r"([\d, ]+)> \{\};", src)}
+
+
+def _k4a_slots(th: int) -> int:
+    """RowGeo<TH>::SLOTS, the values of a staged halo pixel (a copy)."""
+    return 24 if 3 * th + 10 < 24 else 40
+
+
+#: the wide K4a's shapes: each form's, and each that the parts script
+#: sweeps (perf_conv_tc_parts._ROWS_SWEEP)
+_K4A_SHAPES = sorted(
+    {(f, tuple(int(v) for v in sh.split(", ")))
+     for f, shapes in perf_conv_tc_parts._ROWS_SWEEP.items()
+     for sh in shapes} | set(_k4a_shapes().items()))
+
+
+def test_wide_k4a_forms_each_have_a_shape():
+    assert sorted(_k4a_shapes()) == [32, 96, 128]
+
+
+@pytest.mark.parametrize("feat,shape", _K4A_SHAPES,
+                         ids=[f"{f}-{'x'.join(map(str, s))}"
+                              for f, s in _K4A_SHAPES])
+def test_wide_k4a_shape_fits_the_sm(feat, shape):
+    """A wide K4a shape's budgets as conv3x3.cu's U8 states them: the
+    registers __launch_bounds__ leaves a thread x 128 threads x BLOCKS
+    within the SM's 65,536, and at least what a thread's live arrays hold
+    (two accumulator sets of a channel chunk, two A sets, the bias and the
+    bf16 alpha pairs); the blocks' shared memory (the staged tile of TH
+    rows, the packed weights, raw words, two halo copies, the table, and
+    the 1 KB the card reserves a block) within the SM's 228 KB; rows in
+    pairs, the tile 1-KB aligned, the pairs unrolled or looped."""
+    th, blocks, unroll = shape
+    nc = 64 if feat % 64 == 0 else 32
+    regs = 65536 // (128 * blocks) // 8 * 8
+    assert regs * 128 * blocks <= 65536
+    assert 2 * nc // 2 + 2 * 8 + feat // 4 + feat // 8 <= regs
+    slots = _k4a_slots(th)
+    assert 3 * th + 10 < slots and slots // 2 % 8 == 4
+    tile = th * 64 * feat
+    smem = (tile + 32 * feat * 2 + (th + 2) * 256 + 2 * 66 * slots * 2
+            + 256 * 2 + 16)
+    assert (smem + 1024) * blocks <= 228 * 1024
+    assert th % 2 == 0 and tile % 1024 == 0 and unroll in (0, 1)
+
+
+@pytest.mark.parametrize("th", [2, 4, 8])
+def test_wide_k4a_rows_read_their_windows_from_the_staged_halo(th):
+    """The wide K4a's halo (RowGeo) and A reads, written out: value (u8
+    row r, pixel u, channel c) staged at slot u SLOTS + 3 r + c of copy 0
+    and one slot later in copy 1; thread (pa, q)'s register r of k16 step
+    kc for output row i read as conv3x3.cu's a_frags reads it.  Every
+    read is 4-B aligned and inside its copy, the eight pixels x four q of
+    a warp fall on at most two words a bank (on distinct banks where all
+    four q read one tap column: k 0..7 and 24..31), and each k of a
+    nonzero weight
+    (k = 10 dx + 3 dy + c) reads the value of row i + dy, pixel p + dx,
+    channel c (k 9, 19, 29..31 read finite values)."""
+    slots = _k4a_slots(th)
+    copy = 66 * slots
+    val = np.full(2 * copy, -1.0)  # pad slots (zeros in the kernel)
+    want = {}
+    for r in range(th + 2):
+        for u in range(66):
+            for c in range(3):
+                v = 1000 * r + 3 * u + c
+                want[r, u, c] = v
+                val[u * slots + 3 * r + c] = v
+                val[copy + u * slots + 3 * r + c + 1] = v
+    real = {conv3x3.u8conv_k(dy, dx, c): (dy, dx, c)
+            for dy in range(3) for dx in range(3) for c in range(3)}
+    for i in range(th):
+        row = ((i & 1) * copy + 3 * i + (i & 1)) * 2
+        for w in range(4):
+            for kc in range(2):
+                for r in range(4):
+                    words = []
+                    for lane in range(32):
+                        pa, q = 16 * w + lane // 4, lane % 4
+                        dxs = [min((8 * j + 2 * q) // 10, 2)
+                               for j in range(4)]
+                        dxo = [(slots - 10) * d * 2 for d in dxs]
+                        addr = ((pa * slots + 2 * q) * 2 + row
+                                + ((r & 1) * 8 * slots + 16 * kc
+                                   + 8 * (r >> 1)) * 2
+                                + dxo[2 * kc + (r >> 1)])
+                        assert addr % 4 == 0
+                        lo = (i & 1) * copy * 2
+                        assert lo <= addr and addr + 4 <= lo + copy * 2
+                        words.append(addr // 4)
+                        p = pa + 8 * (r & 1)
+                        for e in range(2):
+                            k = 16 * kc + 8 * (r >> 1) + 2 * q + e
+                            got = val[addr // 2 + e]
+                            if k in real:
+                                dy, dx, c = real[k]
+                                assert got == want[i + dy, p + dx, c], (
+                                    i, p, k)
+                    banks = {}
+                    for word in words:
+                        banks.setdefault(word % 32, set()).add(word)
+                    ways = max(len(s) for s in banks.values())
+                    assert ways <= (1 if kc == r >> 1 else 2)
+
+
 def test_quantize_by_adding_1p5_2p23_is_round_half_even_clipped():
     """K4a's quantize: clip(t, +-127) + 1.5 * 2^23 in float32 has the code
     clip(rint(t), +-127) in its low byte, ties to even, at the halves,
