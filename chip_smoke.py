@@ -119,6 +119,41 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               the model output of the first quarter-turn (1080 x 1920)
               against the plain float32 path on the same input at the
               main phase's PSNR gate; the job's seconds by span;
+  7b. image   image and directory modes (cli.run in this process, as
+              `python -m reve_tpu_torch` runs it, the counters zeroed
+              around each run) with the port's PNG and BMP codecs (which
+              of cv2 and PIL import is printed on a line of its own):
+              frame 0 with a seeded alpha plane as a 1920 x 1080 RGBA
+              PNG, -s 4: K3, 16 x K1 and K2 for each of two model calls
+              (colour, alpha) and no K9; its colour planes the engine's
+              bf16 output for the frame (UpscaleEngine.upscale_frames,
+              n_diff 0) and >= 50 dB against the plain float32 path, its
+              alpha the luma of the replicated plane's output (n_diff
+              0); the codec's seconds (encode and decode of the 1080p
+              RGBA PNG, decode of a Paeth-filtered copy through the
+              native unfilter, decode and encode of the 7680 x 4320
+              output); a 16-bit gray PNG (480 x 270) through `python -m
+              reve_tpu_torch` in a process of its own, back 16-bit and
+              equal to the engine's output widened x 257; a --dtype int8
+              image of frame 1 (K4a 1, K4 16, K4h 1) >= 60 dB against
+              the plain int8 path on the engine's calibration; a
+              directory of three 640 x 360 images (png, BGRA bmp, gray
+              png) run twice, one engine a run, the second skipping all
+              three with nothing launched; upscale_image on the first,
+              byte for byte the directory mode's output;
+  7c. service  the web service (service.server.make_server on 127.0.0.1,
+              a free port; jobs through the port's JobManager and
+              pipeline/job.py): the main phase's y4m input as a job
+              through POST /api/jobs (x4, segments of 4, --dtype auto =
+              bf16), counters zeroed around it (K3, K1, K2 and K9 as
+              the main job), its output file byte for byte the CLI main
+              job's; a second job of the same settings on the main
+              job's first 4 frames on the cached engine (one engine,
+              the main file's first bytes); an int8 job (a second cached
+              engine), the device bytes held with one and with two
+              engines cached and the jobs' peak, each over what the
+              smoke held before them; /api/metrics and
+              /api/version answered;
   8. rrdb     RRDBNet (realesrgan-x4plus at its full width and depth: 64
               features, 32 growth channels, 23 blocks; random weights
               from seed 0, reve_tpu's init scales) on the same 4 frames:
@@ -165,8 +200,9 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               into the job's int8 calls (each K3 1, K7q 346, K1 3, the
               conv_last mode 1), the calibration's float32 forwards (K3,
               345 x K7, one split pass) and the certification's float32
-              calls (4 split passes each); each
-              frame against the port's plain int8 path on the card with
+              calls (4 split passes each); the batch's first and last
+              frames (RRDB_INT8_HELD; the plain path takes about 18 s a
+              frame) against the port's plain int8 path on the card with
               the calibration the workspace persisted, >= 60 dB, with
               n_diff; the certificate (dB vs float32), calibrate_s and
               certify_s; K7q's seven forms at a batch of 4 1080p frames
@@ -365,11 +401,13 @@ import math
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import zlib
 
 import numpy as np
 
@@ -381,6 +419,9 @@ PEAK_BYTES = 3.35e12
 FRAMES, W, H, SCALE, BATCH = 8, 1920, 1080, 4, 4
 #: the tile phase's --tile: windows of 548 x 548 at the model's halo 18
 TILE = 512
+#: the rrdb_int8 job's frames held against the plain int8 path (about 18
+#: s a frame on the card): the batch's first and last
+RRDB_INT8_HELD = (0, BATCH - 1)
 #: wgmma instructions each tensor-core library must hold at least: every
 #: kernel's mainloop unrolled (per 64-pixel row: bf16 36, bf16x6 216, s8
 #: 18), the hidden conv, the heads at r = 2, 3, 4 and (bf16 only) K2's
@@ -3382,6 +3423,372 @@ def widths_phase(work: str, frames, students: dict) -> dict:
     return rec
 
 
+def png_paeth(img: np.ndarray) -> bytes:
+    """A BGRA uint8 image as a PNG whose every row is Paeth-filtered (as
+    images from most other tools are), zlib level 6: the input whose
+    decode runs the PNG reader's native unfilter loop."""
+    from reve_tpu_torch.io import png
+
+    h, w, ch = img.shape
+    rows = img[:, :, [2, 1, 0, 3]].reshape(h, w * ch).astype(np.int16)
+    a = np.zeros_like(rows)
+    a[:, ch:] = rows[:, :-ch]
+    b = np.zeros_like(rows)
+    b[1:] = rows[:-1]
+    c = np.zeros_like(rows)
+    c[1:, ch:] = rows[:-1, :-ch]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    filt = np.empty((h, w * ch + 1), np.uint8)
+    filt[:, 0] = 4
+    filt[:, 1:] = (rows - pred) & 0xFF
+    return (png.SIGNATURE + png._chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, 8, 6, 0, 0, 0))
+        + png._chunk(b"IDAT", zlib.compress(filt.tobytes(), 6))
+        + png._chunk(b"IEND", b""))
+
+
+def timed_s(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def run_cli(argv) -> tuple:
+    """cli.run(argv) in this process, as `python -m reve_tpu_torch argv`
+    runs it, with the launch counters zeroed just before and read just
+    after, the engines the image modes build recorded and the stderr
+    kept: (rc, launches, engines, stderr, wall seconds)."""
+    import io
+
+    import torch
+
+    from reve_tpu_torch import cli, kernels
+
+    built, make = [], cli._image_engine
+
+    def recording(*a, **k):
+        eng, err = make(*a, **k)
+        built.append(eng)
+        return eng, err
+
+    cli._image_engine = recording
+    err = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.run(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        cli._image_engine = make
+    sys.stderr.write(err.getvalue())
+    return rc, dict(kernels.LAUNCHES), built, err.getvalue(), wall
+
+
+def image_launches_ok(launches: dict, calls: int, cfg, what: str) -> None:
+    """bf16 image mode's model calls: each K3, num_conv K1 and K2 once; no
+    K9 (the codec converts nothing on the card)."""
+    want = {"conv3x3_u8_bias_prelu": calls,
+            "conv3x3_bias_prelu": cfg.num_conv * calls,
+            "head_conv_residual_u8_shuffle": calls, "rgb_to_yuv420_u8": 0}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def image_phase(work: str, frames, weights: str, cfg, params) -> dict:
+    """Image and directory modes and upscale_image on the card (module
+    docstring, phase image)."""
+    import importlib
+
+    import torch
+
+    import reve_tpu_torch
+    from reve_tpu_torch.io import image as image_mod
+    from reve_tpu_torch.io import png
+    from reve_tpu_torch.models import srvgg
+    from reve_tpu_torch.pipeline.engine import UpscaleEngine
+    from reve_tpu_torch.weights import quantize
+
+    codecs = {}
+    for name in ("cv2", "PIL"):
+        try:
+            codecs[name] = importlib.import_module(name).__version__
+        except Exception as e:  # absent, or present but broken
+            codecs[name] = f"does not import: {type(e).__name__}"
+    rec = {"codecs": codecs}
+    print(f"# codecs: cv2 {codecs['cv2']}, PIL {codecs['PIL']} (JPEG and "
+          f"WebP through cv2 where it imports)", flush=True)
+    secs = {}
+    rgb0 = frames[0]
+    alpha = np.random.RandomState(7).randint(0, 256, (H, W)).astype(np.uint8)
+    bgra = np.dstack([rgb0[:, :, ::-1], alpha])
+    in_png = os.path.join(work, "in_rgba.png")
+    _, secs["encode_1080p_rgba"] = timed_s(lambda: png.write(in_png, bgra))
+    paeth = os.path.join(work, "in_rgba_paeth.png")
+    with open(paeth, "wb") as f:
+        f.write(png_paeth(bgra))
+    for name, path in (("decode_1080p_rgba", in_png),
+                       ("decode_1080p_rgba_paeth", paeth)):
+        got, secs[name] = timed_s(lambda: png.read(path))
+        if count_diff(torch.from_numpy(got), torch.from_numpy(bgra)):
+            raise AssertionError(f"{name}: the decoded image differs")
+    # the RGBA frame through the CLI: colour and alpha each a model call
+    out_png = os.path.join(work, "out_rgba.png")
+    rc, launches, _, _, rec["rgba_wall_s"] = run_cli(
+        ["-i", in_png, "-s", str(SCALE), out_png, "--weights", weights])
+    if rc != 0:
+        raise AssertionError(f"image mode exited {rc}")
+    image_launches_ok(launches, 2, cfg, "rgba image")
+    out, secs["decode_4320p_rgba"] = timed_s(lambda: png.read(out_png))
+    _, secs["encode_4320p_rgba"] = timed_s(lambda: png.encode(out))
+    if out.shape != (H * SCALE, W * SCALE, 4) or out.dtype != np.uint8:
+        raise AssertionError(f"rgba output {out.shape} {out.dtype}")
+    # against the engine's bf16 output for the frame and its alpha plane
+    eng = UpscaleEngine(weights=weights, scale=SCALE, batch_size=1)
+    want = eng.upscale_frames(rgb0[None])[0]
+    want_a = image_mod._luma(eng.upscale_frames(
+        np.repeat(alpha[:, :, None], 3, axis=2)[None])[0][:, :, ::-1])
+    got_rgb = np.ascontiguousarray(out[:, :, 2::-1])
+    n_diff = count_diff(torch.from_numpy(got_rgb), torch.from_numpy(want))
+    n_diff_a = count_diff(torch.from_numpy(out[:, :, 3]),
+                          torch.from_numpy(want_a))
+    ref = srvgg.apply(params, torch.from_numpy(rgb0[None]).cuda(), cfg=cfg,
+                      compute_dtype=torch.float32, plain=True)[0].cpu().numpy()
+    db = psnr(got_rgb, ref)
+    if n_diff or n_diff_a or not db >= srvgg.BF16_PSNR_FLOOR_DB:
+        raise AssertionError(
+            f"rgba image: colour n_diff {n_diff}, alpha n_diff {n_diff_a} "
+            f"against the engine; {db:.2f} dB against the plain float32 "
+            f"path (floor {srvgg.BF16_PSNR_FLOOR_DB})")
+    rec.update(rgba_launches=launches, rgba_n_diff_vs_engine=n_diff,
+               rgba_alpha_n_diff_vs_luma=n_diff_a,
+               rgba_psnr_db_vs_plain_f32=db)
+    del out, want, want_a, got_rgb, ref
+    # a 16-bit gray PNG through `python -m reve_tpu_torch` (a process of
+    # its own: the module's entry point on the card) comes back 16-bit
+    gh, gw = H // 4, W // 4
+    g8 = frames[1][:gh, :gw, 1]
+    g16 = g8.astype(np.uint16) * 257 + np.random.RandomState(8).randint(
+        0, 257, g8.shape).astype(np.uint16)
+    in16, out16 = os.path.join(work, "g16.png"), os.path.join(work,
+                                                              "g16_out.png")
+    png.write(in16, g16)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "reve_tpu_torch", "-i", in16, "-s",
+         str(SCALE), out16, "--weights", weights], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    rec["gray16_process_wall_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m reve_tpu_torch exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    got16 = png.read(out16)
+    u8, _ = image_mod.to_u8(g16)
+    want16 = image_mod.to_output_depth(image_mod._luma(eng.upscale_frames(
+        np.repeat(u8[:, :, None], 3, axis=2)[None])[0][:, :, ::-1]), True)
+    if got16.dtype != np.uint16 or got16.shape != want16.shape or \
+            (got16 % 257).any() or (got16 != want16).any():
+        raise AssertionError(f"16-bit gray image: {got16.dtype} "
+                             f"{got16.shape}, n_diff "
+                             f"{int((got16 != want16).sum())}")
+    rec.update(gray16_shape=list(got16.shape), gray16_n_diff=0,
+               gray16_notes=[ln for ln in proc.stderr.splitlines()
+                             if "16-bit" in ln])
+    # --dtype int8: frame 1 against the plain int8 path on the engine's
+    # calibration (the image itself)
+    in8, out8 = os.path.join(work, "in8.png"), os.path.join(work, "out8.png")
+    png.write(in8, np.ascontiguousarray(frames[1][:, :, ::-1]))
+    rc, launches8, built, _, rec["int8_wall_s"] = run_cli(
+        ["-i", in8, "-s", str(SCALE), out8, "--dtype", "int8", "--weights",
+         weights])
+    if rc != 0 or len(built) != 1:
+        raise AssertionError(f"int8 image mode exited {rc}, {len(built)} "
+                             f"engines")
+    if (launches8["conv3x3_u8_bias_prelu_q8"],
+            launches8["conv3x3_s8_dq_prelu_q8"],
+            launches8["head_conv_s8_residual_u8_shuffle"]) != \
+            (1, cfg.num_conv, 1):
+        raise AssertionError(f"int8 image: launches {launches8}")
+    maxima = built[0].get_calibration()
+    qb = quantize.build_qbody(params, cfg, maxima, margin=1.25)
+    ref8 = srvgg.apply_int8(params, qb, torch.from_numpy(
+        frames[1][None]).cuda(), cfg=cfg, plain=True)[0].cpu().numpy()
+    db8 = psnr(png.read(out8)[:, :, ::-1], ref8)
+    if not db8 >= 60.0:
+        raise AssertionError(f"int8 image {db8:.2f} dB against the plain "
+                             f"int8 path < 60 dB")
+    rec.update(int8_launches=launches8, int8_psnr_db_vs_plain_int8=db8)
+    del built, ref8
+    # a directory of three images, run twice: the second run skips all
+    d_in, d_out = os.path.join(work, "imgs"), os.path.join(work, "imgs_out")
+    os.makedirs(d_in)
+    dh, dw = 360, 640
+    png.write(os.path.join(d_in, "a.png"),
+              np.ascontiguousarray(frames[2][:dh, :dw, ::-1]))
+    from reve_tpu_torch.io import bmp
+
+    bmp.write(os.path.join(d_in, "b.bmp"), np.dstack(
+        [frames[3][:dh, :dw, ::-1], alpha[:dh, :dw]]))
+    png.write(os.path.join(d_in, "c.png"),
+              np.ascontiguousarray(frames[4][:dh, :dw, 0]))
+    runs = []
+    for i in range(2):
+        rc, launches, built, err, wall = run_cli(
+            ["-i", d_in, "-s", str(SCALE), d_out, "--weights", weights])
+        runs.append({"rc": rc, "launches": {
+            k: launches[k] for k in ("conv3x3_u8_bias_prelu",
+                                     "conv3x3_bias_prelu",
+                                     "head_conv_residual_u8_shuffle")},
+            "engines": len(built), "summary": err.strip().splitlines()[-1],
+            "wall_s": wall})
+        if rc != 0 or len(built) != 1:
+            raise AssertionError(f"directory run {i}: {runs[-1]}")
+    image_launches_ok(dict(runs[0]["launches"], rgb_to_yuv420_u8=0), 4,
+                      cfg, "directory")
+    if sorted(os.listdir(d_out)) != ["a.png", "b.png", "c.png"] or \
+            runs[0]["summary"] != "done: 3 upscaled" or \
+            runs[1]["summary"] != \
+            "done: 0 upscaled, 3 already present (skipped)" or \
+            any(runs[1]["launches"].values()):
+        raise AssertionError(f"directory runs: {runs}, outputs "
+                             f"{sorted(os.listdir(d_out))}")
+    rec["directory"] = runs
+    # upscale_image: the directory mode's bytes for a.png
+    api_out = os.path.join(work, "api.png")
+    dims = reve_tpu_torch.upscale_image(os.path.join(d_in, "a.png"),
+                                        api_out, scale=SCALE,
+                                        weights=weights)
+    n_api = file_n_diff(api_out, os.path.join(d_out, "a.png"))
+    if dims != (dw * SCALE, dh * SCALE) or n_api != 0:
+        raise AssertionError(f"upscale_image: {dims}, n_diff {n_api} "
+                             f"against the directory mode's a.png")
+    rec.update(upscale_image_dims=list(dims), upscale_image_n_diff=n_api,
+               codec_s=secs)
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def service_phase(work: str, inp: str, out_main: str, in4: str,
+                  cfg) -> dict:
+    """The web service on 127.0.0.1 running the main job's input through
+    POST /api/jobs (module docstring, phase service)."""
+    import urllib.request
+
+    import torch
+
+    from reve_tpu_torch.service import config as svc_config
+    from reve_tpu_torch.service import server as svc_server
+
+    def call(method, path, body=None):
+        req = urllib.request.Request(
+            base + path, method=method,
+            data=None if body is None else json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            data = r.read()
+            return r.status, (json.loads(data) if r.headers.get(
+                "Content-Type") == "application/json" else data.decode())
+
+    def run_job(body, what):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        code, job = call("POST", "/api/jobs", body)
+        while job["status"] in ("queued", "running"):
+            time.sleep(0.05)
+            code, job = call("GET", f"/api/jobs/{job['id']}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if job["status"] != "done":
+            raise AssertionError(f"service {what} job: {job['status']}: "
+                                 f"{job['error']}")
+        return job, dict(kernels.LAUNCHES), wall
+
+    from reve_tpu_torch import kernels
+
+    rec = {}
+    with _env("REVE_TPU_MODELS_DIR", os.path.join(ROOT, "models")):
+        srv = svc_server.make_server(
+            "127.0.0.1", 0, cfg=svc_config.ServiceConfig(segment_size=4),
+            io_backend="y4m")
+        manager = srv.RequestHandlerClass.manager
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            # device bytes the smoke held before the service's engines
+            base_bytes = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out1 = os.path.join(work, "svc_main.y4m")
+            job1, launches, wall = run_job(
+                {"input": inp, "scale": SCALE, "output": out1}, "main")
+            calls = launches["conv3x3_u8_bias_prelu"]
+            if calls != math.ceil(FRAMES / BATCH) or \
+                    launches["conv3x3_bias_prelu"] != cfg.num_conv * calls \
+                    or launches["head_conv_residual_u8_shuffle"] != calls:
+                raise AssertionError(f"service job launches {launches}")
+            k9_check(launches, calls, "service")
+            n_diff = file_n_diff(out1, out_main)
+            if n_diff != 0:
+                raise AssertionError(f"the service job's file differs from "
+                                     f"the CLI main job's: n_diff {n_diff}")
+            rec.update(job=job1["result"], dtype=job1["dtype"],
+                       wall_s=wall, launches=launches, model_calls=calls,
+                       n_diff_vs_main_job=n_diff,
+                       fps_end_to_end=FRAMES / wall)
+            os.unlink(out1)
+            # a second job of the same settings runs on the cached engine
+            out2 = os.path.join(work, "svc_in4.y4m")
+            _, launches2, wall2 = run_job(
+                {"input": in4, "scale": SCALE, "output": out2}, "second")
+            with open(out_main, "rb") as f:
+                want = f.read(os.path.getsize(out2))
+            n_diff2 = file_n_diff(out2, want)
+            if len(manager._engines) != 1 or n_diff2 != 0:
+                raise AssertionError(f"second job: {len(manager._engines)} "
+                                     f"engines cached, n_diff {n_diff2}")
+            bytes_one = torch.cuda.memory_allocated() - base_bytes
+            # an int8 job: a second cached engine
+            _, launches3, wall3 = run_job(
+                {"input": in4, "scale": SCALE, "dtype": "int8",
+                 "output": os.path.join(work, "svc_int8.y4m")}, "int8")
+            if len(manager._engines) != 2 or \
+                    launches3["conv3x3_s8_dq_prelu_q8"] < cfg.num_conv:
+                raise AssertionError(f"int8 job: {len(manager._engines)} "
+                                     f"engines, launches {launches3}")
+            code, metrics = call("GET", "/api/metrics")
+            if code != 200 or \
+                    'reve_jobs_total{status="done"} 3' not in metrics:
+                raise AssertionError(f"/api/metrics: {code} {metrics!r}")
+            code, version = call("GET", "/api/version")
+            jobs = manager.list_jobs()
+            rec.update(
+                second_job={"wall_s": wall2, "n_diff_vs_main_prefix":
+                            n_diff2, "launches": launches2},
+                int8_job={"wall_s": wall3, "launches": launches3,
+                          "int8_psnr": jobs[-1]["int8_psnr"]},
+                engines_cached=len(manager._engines),
+                device_bytes_before=base_bytes,
+                device_bytes_one_engine=bytes_one,
+                device_bytes_two_engines=torch.cuda.memory_allocated()
+                - base_bytes,
+                peak_device_bytes_over_before=torch.cuda
+                .max_memory_allocated() - base_bytes,
+                metrics=metrics.splitlines(), version=version)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            manager.shutdown()
+            manager._engines.clear()
+            torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3798,6 +4205,11 @@ def main() -> int:
                                in4).read_range(0, BATCH))), got0, work))
         tta_launches = launches
 
+        with phase("image", {}) as rec:
+            rec.update(image_phase(work, frames, weights, cfg, params))
+        with phase("service", {}) as rec:
+            rec.update(service_phase(work, inp, out, in4, cfg))
+
         # RRDBNet (realesrgan-x4plus at full width and depth, random
         # weights from seed 0) on the same 4 frames
         out_r = os.path.join(work, "out_rrdb.y4m")
@@ -3957,16 +4369,18 @@ def main() -> int:
             params_q = rrdb.params_to(params_q, "cuda")
             qb_q = rrdb.prepare_qbody(quantize.build_qbody(
                 params_q, cfg_q, maxima, margin=1.25))
-            # every frame against the plain int8 path on the card with the
-            # job's persisted calibration, a frame at a time, through the
-            # same y4m encode
+            # the batch's first and last frames against the plain int8
+            # path on the card with the job's persisted calibration, a
+            # frame at a time, through the same y4m encode (the plain
+            # path takes about 18 s a frame: the image and service
+            # phases' time is taken from it)
             batch4 = np.stack(list(reader.Y4MReader(in4).read_range(
                 0, BATCH)))
+            held = RRDB_INT8_HELD
             t1 = time.perf_counter()
             ref = np.stack([rrdb.apply_int8(
                 params_q, qb_q, torch.from_numpy(batch4[i:i + 1]).cuda(),
-                cfg=cfg_q, plain=True)[0].cpu().numpy()
-                for i in range(BATCH)])
+                cfg=cfg_q, plain=True)[0].cpu().numpy() for i in held])
             plain_s = time.perf_counter() - t1
             torch.cuda.empty_cache()
             ref_path = os.path.join(work, "ref_rrdb8.y4m")
@@ -3976,13 +4390,15 @@ def main() -> int:
                 for f in ref:
                     wr.write(f)
             got = list(rd.read_range(0, BATCH))
-            ref_dec = list(reader.Y4MReader(ref_path).read_range(0, BATCH))
+            got = [got[i] for i in held]
+            ref_dec = list(reader.Y4MReader(ref_path).read_range(
+                0, len(held)))
             db_q = [psnr(g, r) for g, r in zip(got, ref_dec)]
             n_diff_q = [int((g != r).sum()) for g, r in zip(got, ref_dec)]
-            for i in range(BATCH):
-                if not db_q[i] >= RRDB_INT8_FLOOR_DB:
+            for i, db_i in zip(held, db_q):
+                if not db_i >= RRDB_INT8_FLOOR_DB:
                     raise AssertionError(
-                        f"rrdb int8 frame {i} PSNR {db_q[i]:.2f} dB vs the "
+                        f"rrdb int8 frame {i} PSNR {db_i:.2f} dB vs the "
                         f"plain int8 path < {RRDB_INT8_FLOOR_DB} dB")
             del ref, ref_dec, got
             k7q_results = rrdb_int8_kernel_phase(params_q, qb_q,
@@ -4000,6 +4416,7 @@ def main() -> int:
                            / max(calls["int8"], 1) for k in (
                                "conv3x3_u8_bias_prelu", "conv3x3_bias_prelu",
                                "conv_last_u8")},
+                       frames_vs_plain_int8=list(held),
                        psnr_db_vs_plain_int8=db_q,
                        n_diff_vs_plain_int8=n_diff_q,
                        psnr_floor_db=RRDB_INT8_FLOOR_DB,

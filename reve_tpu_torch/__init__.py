@@ -8,7 +8,8 @@ so each file's counterpart is easy to find.
 
 Layer map:
 
-    CLI / library API                 reve_tpu_torch.cli / reve_tpu_torch.api
+    CLI / library API / web service   reve_tpu_torch.cli / .api / .service
+      ├─ image routing + codecs       reve_tpu_torch.io.{image,png,bmp}
       └─ pipeline scheduler           reve_tpu_torch.pipeline.scheduler
            ├─ planner + resume        reve_tpu_torch.pipeline.{planner,state}
            ├─ io backends             reve_tpu_torch.io.{probe,reader,writer,concat}
@@ -25,7 +26,7 @@ CPU.
 
 from reve_tpu_torch.version import __version__
 
-__all__ = ["__version__", "UpscaleEngine", "upscale_video"]
+__all__ = ["__version__", "UpscaleEngine", "upscale_image", "upscale_video"]
 
 
 def __getattr__(name):
@@ -34,8 +35,8 @@ def __getattr__(name):
         from reve_tpu_torch.pipeline.engine import UpscaleEngine
 
         return UpscaleEngine
-    if name == "upscale_video":
+    if name in ("upscale_image", "upscale_video"):
         from reve_tpu_torch import api
 
-        return api.upscale_video
+        return getattr(api, name)
     raise AttributeError(name)

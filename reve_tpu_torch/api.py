@@ -1,10 +1,11 @@
 """One-call Python API of the PyTorch/CUDA port.
 
-Counterpart of reve_tpu/api.py: a thin, blocking convenience over the
+Counterpart of reve_tpu/api.py: thin, blocking conveniences over the
 same pipeline the CLI drives.
 
     import reve_tpu_torch
     reve_tpu_torch.upscale_video("in.y4m", "out.y4m", scale=4, tta=True)
+    reve_tpu_torch.upscale_image("in.png", "out.png", scale=4)
 
 It keeps the CLI's workspace and segment checkpoints: calling it again
 after a crash continues where the job stopped, with the settings the job
@@ -13,8 +14,9 @@ device or "cpu".  What the port's CLI refuses with exit 2, this raises:
 NotImplementedError naming the ROADMAP.md port-queue item (`mesh`), or
 ValueError (`compile_attempts`, which has no counterpart).  As in
 reve_tpu, it has no `denoise` argument and refuses to resume a workspace
-the CLI started with --denoise.  `upscale_image` waits for image mode
-(ROADMAP.md).
+the CLI started with --denoise.  `upscale_image` is the CLI's image
+mode as a call (io/image.py: PNG and BMP by the port's codecs, JPEG and
+WebP where cv2 imports).
 """
 
 from __future__ import annotations
@@ -177,3 +179,59 @@ def upscale_video(
         return report
     finally:
         ws.release_owner()
+
+
+def upscale_image(
+    input_path: str,
+    output_path: str,
+    scale: int = 2,
+    *,
+    model: str = "realesr-animevideov3",
+    weights: Optional[str] = None,
+    tile: int = 0,
+    dtype: str = "bfloat16",
+    tta: bool = False,
+    device=None,
+    allow_random_init: bool = False,
+) -> tuple:
+    """Upscale one image file; returns the output (width, height).
+
+    Grayscale, BGRA (alpha upscaled through the model) and 16-bit inputs
+    keep their layout/bit depth (io/image.py); alpha requires a png/webp
+    output.  `device`: None (cuda:0), a CUDA device index, or "cpu".
+    `allow_random_init`: as in upscale_video — without it (or
+    REVE_TPU_ALLOW_RANDOM_INIT=1), missing weights raise
+    registry.MissingWeightsError.  A JPEG or WebP file where cv2 does
+    not import raises image.CodecUnavailable (a ValueError) naming the
+    format, before any engine is built."""
+    from reve_tpu_torch.io import image as image_mod
+    from reve_tpu_torch.models import registry
+    from reve_tpu_torch.pipeline import job as job_mod
+    from reve_tpu_torch.pipeline.engine import UpscaleEngine
+
+    msg = job_mod.missing_weights(model, scale, weights, allow_random_init)
+    if msg is not None:
+        raise registry.MissingWeightsError(msg)
+    img = image_mod.imread(input_path)
+    if img is None:
+        raise ValueError(f"cannot decode image {input_path!r}")
+    if image_mod.classify(img) == "bgra" and \
+            not image_mod.alpha_ok(output_path):
+        raise ValueError("input has an alpha channel; output must be "
+                         "png/webp to keep it")
+    msg = image_mod.codec_missing(output_path)
+    if msg is not None:
+        raise image_mod.CodecUnavailable(msg)
+    if dtype == "auto":  # images run the exact path (the CLI's rule)
+        dtype = "bfloat16"
+    engine = UpscaleEngine(model=model, scale=scale, weights=weights,
+                           batch_size=1, tile=tile, compute_dtype=dtype,
+                           tta=tta, device=_resolve_device(device),
+                           allow_random_init=allow_random_init or None)
+    err, dims = image_mod.upscale_image_file(engine, input_path,
+                                             output_path, img=img)
+    if err is not None:
+        if err.startswith("cannot write"):
+            raise IOError(err)
+        raise ValueError(err)
+    return dims

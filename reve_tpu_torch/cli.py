@@ -1,4 +1,4 @@
-"""Drop-in compatible CLI of the PyTorch/CUDA port (video mode).
+"""Drop-in compatible CLI of the PyTorch/CUDA port.
 
 Counterpart of reve_tpu/cli.py with the same argv surface, defaults and
 exit codes (flag-for-flag parity with the reference CLI,
@@ -6,6 +6,13 @@ reve-shared/src/lib.rs:209-280):
 
     reve -i <input.mp4|mkv|y4m> -s {2,3,4} [-S segsize] [-c crf] [-p preset]
          [-x x265params] <output.mp4|mkv|y4m>
+    reve -i <image.png|bmp|jpg|webp> -s N <output image>     (image mode)
+    reve -i <dir of images> -s N <output dir> [-f png|jpg|webp]
+
+Image and directory modes are reve_tpu's (io/image.py routes gray, BGRA
+and 16-bit images through the RGB engine, one frame at a time): PNG and
+BMP by the port's own codecs, JPEG and WebP only where cv2 imports (else
+exit 2 naming the format, before any engine is built).
 
 The port carries the video job: fresh and resumed runs, --dtype
 auto|float32|bfloat16|int8 (auto = bfloat16 on CUDA, as reve_tpu's rule
@@ -21,10 +28,9 @@ self-ensemble, restored on resume), --scene-align (segments snapped to
 scene cuts; a resume keeps the saved plan), --device N (cuda:N),
 --io-backend, --workspace, --yes, --keep-workspace, --progress-json,
 --trace and --profile-dir (torch.profiler).  Flags whose feature is not
-ported yet (image and directory inputs, --shard-worker and
---lease-stale-after, several devices) exit 2 with a one-line "not yet
-ported in reve_tpu_torch" message naming the ROADMAP.md port-queue item;
-they are never silently ignored.
+ported yet (--shard-worker and --lease-stale-after, several devices) exit
+2 with a one-line "not yet ported in reve_tpu_torch" message naming the
+ROADMAP.md port-queue item; they are never silently ignored.
 
 The job's body (the resume contract, the fresh state, the engine, the
 run) is `pipeline/job.py`, which `api.upscale_video` shares.  A workspace
@@ -55,14 +61,21 @@ PRESETS = (
     "slow", "slower", "veryslow",
 )
 VIDEO_EXTS = (".mp4", ".mkv")
+#: single-image mode: the surface of the engine reve_tpu replaces
+#: (realesrgan-ncnn-vulkan upscales images, `-i in.jpg -o out.png`)
 IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")
+#: the refusal of --int8-gate in the image modes
+IMAGE_GATE = ("--int8-gate applies to video jobs (image mode does not run "
+              "certification)")
 
 
 def _input_validation(s: str) -> str:
     if not os.path.exists(s):
         raise argparse.ArgumentTypeError("input path not found")
     if os.path.isdir(s):
-        return s  # directory of images: refused in run() (not ported)
+        # directory of images -> batch image mode; content checked in
+        # _run_image_dir so the error can name the directory
+        return s
     if not s.lower().endswith(VIDEO_EXTS + (".y4m",) + IMAGE_EXTS):
         raise argparse.ArgumentTypeError(
             "valid input formats: mp4/mkv (videos), png/jpg/webp/bmp "
@@ -195,8 +208,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(several devices) is not ported")
     p.add_argument("-f", "--format", choices=("png", "jpg", "webp"),
                    default=None,
-                   help="image output format for image/directory modes "
-                        "(not ported)")
+                   help="image output format for directory mode (the "
+                        "replaced ncnn engine's -f switch; default: keep "
+                        "each input's extension); in single-image mode it "
+                        "must match the output's extension")
     p.add_argument("-m", "--models-dir", default=None, metavar="DIR",
                    dest="models_dir",
                    help="directory searched for --model's weights "
@@ -250,9 +265,6 @@ def _not_ported(what: str, item: str) -> int:
 
 def _refuse_unported(args) -> Optional[int]:
     """Exit code 2 for any requested feature this slice does not carry."""
-    if os.path.isdir(args.inputpath) or \
-            args.inputpath.lower().endswith(IMAGE_EXTS):
-        return _not_ported("image and directory inputs", "image mode")
     if args.shard_worker is not None or args.lease_stale_after is not None:
         return _not_ported("--shard-worker/--lease-stale-after",
                            "multi-GPU")
@@ -348,7 +360,21 @@ def run(argv: Optional[List[str]] = None, device=None) -> int:
         print("--int8-calib requires --dtype int8 or auto (it configures "
               "the int8 turbo path only)", file=sys.stderr)
         return 2
+    image_input = os.path.isdir(args.inputpath) or \
+        args.inputpath.lower().endswith(IMAGE_EXTS)
+    if args.int8_calib is not None and args.dtype == "auto" and image_input:
+        # image modes resolve auto to the exact path (no certification on
+        # stills), so an explicit calibration knob would configure nothing
+        print("--int8-calib has no effect in image mode unless --dtype "
+              "int8 forces the turbo path (auto runs the exact path on "
+              "stills)", file=sys.stderr)
+        return 2
     args.int8_calib = args.int8_calib or "p99.9"
+    if os.path.isdir(args.inputpath):
+        if args.int8_gate is not None:
+            print(IMAGE_GATE, file=sys.stderr)
+            return 2
+        return _run_image_dir(args, device)
     if os.path.exists(args.outputpath):
         print("output path already exists", file=sys.stderr)
         return 2
@@ -357,6 +383,11 @@ def run(argv: Optional[List[str]] = None, device=None) -> int:
         print("--int8-gate requires --dtype int8 or auto (it gates the "
               "int8 turbo path only)", file=sys.stderr)
         return 2
+    if image_input:
+        if args.int8_gate is not None:
+            print(IMAGE_GATE, file=sys.stderr)
+            return 2
+        return _run_image(args, device)
     if args.format is not None:
         print("--format applies to image/directory modes (video output "
               "format follows the output extension)", file=sys.stderr)
@@ -552,8 +583,10 @@ def _require_weights(args, skip_if_resumable: bool = True) -> Optional[int]:
 
     `skip_if_resumable`: an existing interrupted workspace defers the check
     to the resume path (the saved opts are the contract)."""
-    if skip_if_resumable and Workspace(
-            args.workspace or args.outputpath + ".revework").has_state():
+    if skip_if_resumable and \
+            not args.inputpath.lower().endswith(IMAGE_EXTS) and \
+            not os.path.isdir(args.inputpath) and Workspace(
+                args.workspace or args.outputpath + ".revework").has_state():
         return None
     msg = job_mod.missing_weights(args.model, args.scale, args.weights,
                                   args.allow_random_init)
@@ -584,6 +617,200 @@ def _apply_models_dir(args) -> Optional[int]:
         return 2
     args.weights = w
     return None
+
+
+def _image_engine(args, device):
+    """Build the (shared) engine for image mode on one device; returns
+    (engine, err)."""
+    if args.device is not None and \
+            len([t for t in str(args.device).split(",") if t.strip()]) > 1:
+        print("image mode runs one frame at a time on one device; pass "
+              "a single --device index", file=sys.stderr)
+        return None, 2
+    device, err = _resolve_device(args, device)
+    if err is not None:
+        return None, err
+    preloaded = None
+    if args.denoise is not None:
+        from reve_tpu_torch.weights.interpolate import load_dni
+
+        preloaded = load_dni(args.weights_wdn, args.weights, args.denoise)
+    from reve_tpu_torch.pipeline.engine import UpscaleEngine
+
+    # image modes run the exact path under --dtype auto: per-content
+    # certification is a video-job contract (sampled frames), and a still
+    # image is too small to amortize calibration
+    dtype = "bfloat16" if args.dtype == "auto" else args.dtype
+    return UpscaleEngine(
+        model=args.model, scale=args.scale, weights=args.weights,
+        batch_size=1, tile=args.tile, compute_dtype=dtype,
+        int8_calib=args.int8_calib, tta=args.tta, device=device,
+        preloaded=preloaded,
+        allow_random_init=args.allow_random_init or None,
+    ), None
+
+
+def _run_image(args, device) -> int:
+    """Single-image upscale: the replaced engine's own surface
+    (realesrgan-ncnn-vulkan `-i in.jpg -o out.png`).  Grayscale, alpha and
+    16-bit layouts route through io/image.py."""
+    from reve_tpu_torch.io import image as image_mod
+
+    if not args.outputpath.lower().endswith(IMAGE_EXTS):
+        print("image input requires an image output "
+              "(png/jpg/webp/bmp)", file=sys.stderr)
+        return 2
+    if args.format is not None and not _format_matches(
+            args.outputpath, args.format):
+        # the output path names the format in single-file mode; writing
+        # <fmt> bytes under a different extension would lie to every
+        # later consumer of the file
+        print(f"--format {args.format} conflicts with the output "
+              f"extension {os.path.splitext(args.outputpath)[1]!r}; in "
+              f"single-image mode the output path decides the format",
+              file=sys.stderr)
+        return 2
+    try:
+        img = image_mod.imread(args.inputpath)
+    except ValueError as e:  # a refused codec or feature, named
+        print(str(e), file=sys.stderr)
+        return 2
+    if img is None:
+        print(f"cannot decode image {args.inputpath!r}", file=sys.stderr)
+        return 2
+    try:
+        mode = image_mod.classify(img)
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
+        return 2
+    if mode == "bgra" and not image_mod.alpha_ok(args.outputpath):
+        print("input has an alpha channel; output must be png/webp "
+              "to keep it", file=sys.stderr)
+        return 2
+    msg = image_mod.codec_missing(args.outputpath)
+    if msg is not None:
+        print(msg, file=sys.stderr)
+        return 2
+    engine, err = _image_engine(args, device)
+    if err is not None:
+        return err
+    msg, dims = image_mod.upscale_image_file(
+        engine, args.inputpath, args.outputpath, img=img)
+    if msg is not None:
+        print(msg, file=sys.stderr)
+        return 2
+    print(f"done: {args.outputpath} ({dims[0]}x{dims[1]})",
+          file=sys.stderr)
+    return 0
+
+
+def _run_image_dir(args, device) -> int:
+    """Directory batch: `-i <dir> -s N <outdir>` upscales every image in
+    <dir> (the replaced ncnn engine accepts folders for -i/-o).  One
+    engine is shared across files; existing outputs are SKIPPED so an
+    interrupted batch re-run continues where it stopped.  Alpha images
+    whose extension cannot carry alpha are written as .png with a note."""
+    from reve_tpu_torch.io import image as image_mod
+
+    files = sorted(
+        f for f in os.listdir(args.inputpath)
+        if f.lower().endswith(IMAGE_EXTS)
+        and os.path.isfile(os.path.join(args.inputpath, f))
+    )
+    if not files:
+        print(f"no images (png/jpg/webp/bmp) in {args.inputpath!r}",
+              file=sys.stderr)
+        return 2
+    if os.path.isfile(args.outputpath):
+        print("output for a directory input must be a directory",
+              file=sys.stderr)
+        return 2
+    if os.path.realpath(args.outputpath) == \
+            os.path.realpath(args.inputpath):
+        # outputs would collide with the inputs themselves: every target
+        # "already exists" and the whole batch silently skips
+        print("output directory must differ from the input directory",
+              file=sys.stderr)
+        return 2
+    fmt = args.format
+    # a JPEG or WebP file to read or write without cv2: refused before
+    # any engine is built
+    for name in files + ([f"*.{fmt}"] if fmt else []):
+        msg = image_mod.codec_missing(name)
+        if msg is not None:
+            print(msg, file=sys.stderr)
+            return 2
+    os.makedirs(args.outputpath, exist_ok=True)
+    engine, err = _image_engine(args, device)
+    if err is not None:
+        return err
+    #: owner of each default output name: when --format maps two stems
+    #: onto one name, the input whose filename already IS that name owns
+    #: it (its output must not be shadowed — the skip-exists check would
+    #: silently never upscale it), then sorted-first; everyone else
+    #: diverts to <name>.<fmt>
+    owner = {}
+    for f in files:
+        ident = (os.path.splitext(f)[0] + "." + fmt) if fmt else f
+        cur = owner.get(ident)
+        if cur is None or (f == ident and cur != ident):
+            owner[ident] = f
+    claimed = set()
+    done = failed = skipped = 0
+    for name in files:
+        in_path = os.path.join(args.inputpath, name)
+        stem = os.path.splitext(name)[0]
+        own = (stem + "." + fmt) if fmt else name
+        out_name = own if owner[own] == name else name + "." + fmt
+        if out_name != own:
+            print(f"{name}: output name taken -> writing {out_name}",
+                  file=sys.stderr)
+        try:
+            img, err_msg = image_mod.imread(in_path), None
+        except ValueError as e:  # a refused feature, named
+            img, err_msg = None, str(e)
+        if img is not None and img.ndim == 3 and img.shape[2] == 4 \
+                and not image_mod.alpha_ok(out_name):
+            retarget = stem + ".png"
+            if (retarget in owner and owner[retarget] != name) \
+                    or retarget in claimed:
+                # a sibling input already owns that name — keep the
+                # original filename so nothing is shadowed or skipped
+                retarget = name + ".png"
+            out_name = retarget
+            print(f"{name}: alpha channel -> writing {out_name}",
+                  file=sys.stderr)
+        claimed.add(out_name)
+        out_path = os.path.join(args.outputpath, out_name)
+        if os.path.exists(out_path):
+            skipped += 1
+            continue
+        msg = err_msg
+        if msg is None:
+            msg, _ = image_mod.upscale_image_file(engine, in_path, out_path,
+                                                  img=img)
+        if msg is None:
+            done += 1
+            print(f"[{done + failed}/{len(files)}] {name}",
+                  file=sys.stderr)
+        else:
+            failed += 1
+            print(f"[{done + failed}/{len(files)}] {name}: {msg}",
+                  file=sys.stderr)
+    summary = f"done: {done} upscaled"
+    if skipped:
+        summary += f", {skipped} already present (skipped)"
+    if failed:
+        summary += f", {failed} FAILED"
+    print(summary, file=sys.stderr)
+    return 0 if not failed else 2
+
+
+def _format_matches(path: str, fmt: str) -> bool:
+    """Does `path`'s extension name the same encoding as --format `fmt`?
+    (jpg and jpeg are the same encoder)."""
+    ext = os.path.splitext(path)[1].lower().lstrip(".")
+    return ext == fmt or (fmt == "jpg" and ext == "jpeg")
 
 
 def _part_ext(args) -> str:

@@ -2,8 +2,9 @@
 
 A copy of reve_tpu/native.py over the port's own copy of its C++ sources
 (reve_tpu_torch/_native/: the y4m, mp4 and Matroska probes and concats,
-the segment planner, the frame ring and the counters).  It never loads
-the JAX package's library.
+the segment planner, the frame ring and the counters), and one source of
+the port's own, png.cpp (the PNG reader's Average and Paeth unfilter,
+io/png.py).  It never loads the JAX package's library.
 
 The library is built on first use with the C++ compiler directly (`g++`,
 or $CXX; no `make`) into `_native/build/` (listed in .gitignore), named
@@ -12,7 +13,8 @@ rebuilds and an unchanged one loads at once.  Processes that start the
 build together (test workers) take turns on a lock file, and the library
 appears by an atomic rename, so no process loads a half-written one.
 Callers degrade to their Python paths when the core is unavailable (no
-compiler): the planner, the byte-copy y4m concat, the re-encode concat.
+compiler): the planner, the byte-copy y4m concat, the re-encode concat,
+the PNG reader's per-pixel unfilter loop.
 """
 
 from __future__ import annotations
@@ -33,7 +35,10 @@ log = logging.getLogger(__name__)
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "_native")
 BUILD_DIR = os.path.join(_NATIVE_DIR, "build")
+#: byte copies of reve_tpu/_native/'s sources
 SOURCES = ("mp4.cpp", "mkv.cpp", "y4m.cpp", "core.cpp")
+#: the port's own sources, built into the same library
+PORT_SOURCES = ("png.cpp",)
 HEADERS = ("mp4_internal.h",)
 CXXFLAGS = ["-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared"]
 #: seconds a build may take
@@ -47,7 +52,7 @@ build_info: dict = {}
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for name in SOURCES + HEADERS:
+    for name in SOURCES + PORT_SOURCES + HEADERS:
         with open(os.path.join(_NATIVE_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     h.update(" ".join(CXXFLAGS).encode())
@@ -83,7 +88,8 @@ def _build(path: str) -> bool:
         try:
             subprocess.run(
                 [cxx, *CXXFLAGS, "-o", tmp,
-                 *(os.path.join(_NATIVE_DIR, s) for s in SOURCES)],
+                 *(os.path.join(_NATIVE_DIR, s)
+                   for s in SOURCES + PORT_SOURCES)],
                 check=True, capture_output=True, text=True,
                 timeout=BUILD_TIMEOUT_S)
             os.replace(tmp, path)
@@ -150,6 +156,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rc_counter_add.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_long]
     lib.rc_counter_get.restype = ctypes.c_long
     lib.rc_counter_get.argtypes = [ctypes.c_void_p, ctypes.c_long]
+    lib.rc_png_unfilter_row.restype = ctypes.c_int
+    lib.rc_png_unfilter_row.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_long, ctypes.c_long,
+    ]
     return lib
 
 

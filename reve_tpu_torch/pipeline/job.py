@@ -1,9 +1,11 @@
-"""One video job's body, shared by the CLI (`cli.run`) and the library
-(`api.upscale_video`): the weights pre-flight, the resume contract, the
-fresh job state, the engine and its resolved dtype, the pipeline run and
-finalize.  The callers keep only their own surface: the CLI parses argv,
-asks before resuming, certifies int8 and turns refusals into exit codes;
-the API raises.
+"""One video job's body, shared by the CLI (`cli.run`), the library
+(`api.upscale_video`) and the web service (`service/jobs.py`): the
+weights pre-flight, the resume contract, the fresh job state, the engine
+and its resolved dtype, the pipeline run and finalize.  The callers keep
+only their own surface: the CLI parses argv, asks before resuming,
+certifies int8 and turns refusals into exit codes; the API raises; the
+service queues jobs, caches engines by their settings and reports
+progress.
 
 A job's settings are an object with the attributes of `RESTORED` (the
 CLI's argparse namespace, or the API's own): they are saved in
@@ -165,14 +167,16 @@ def fresh(ws: Workspace, settings, *, input_path: str, output_path: str,
 
 
 def open_engine(ws: Workspace, state: JobState, settings, device, *,
-                batch: int, tile: int, gate_db=None, on_note=None,
-                tracer=None):
+                batch: int = 4, tile: int = 0, gate_db=None, on_note=None,
+                tracer=None, make_engine=None):
     """The job's engine at `settings`; `--dtype auto` resolves here (the
     resolved dtype is saved, so that a resume runs the same path) and
     `settings.dtype` becomes it.  With `settings.denoise` the engine runs
     the weights interpolated from `settings.weights_wdn` and
-    `settings.weights` (weights/interpolate.py).  Returns (engine, int8 dB
-    certified by the auto rule or None)."""
+    `settings.weights` (weights/interpolate.py).  `make_engine(dtype,
+    int8_calib)`: the caller's engines (the service's cache) in place of
+    a new UpscaleEngine on `device` at `batch` and `tile`.  Returns
+    (engine, int8 dB certified by the auto rule or None)."""
     from reve_tpu_torch.pipeline import scheduler
     from reve_tpu_torch.pipeline.engine import UpscaleEngine
 
@@ -190,7 +194,7 @@ def open_engine(ws: Workspace, state: JobState, settings, device, *,
                              f"x{preloaded[0].upscale} but -s {state.scale} "
                              f"was requested")
 
-    def make_engine(dtype: str, int8_calib: str) -> UpscaleEngine:
+    def new_engine(dtype: str, int8_calib: str) -> UpscaleEngine:
         return UpscaleEngine(
             model=state.model, scale=state.scale, weights=settings.weights,
             batch_size=batch, tile=tile, compute_dtype=dtype,
@@ -198,6 +202,7 @@ def open_engine(ws: Workspace, state: JobState, settings, device, *,
             preloaded=preloaded,
             allow_random_init=settings.allow_random_init or None)
 
+    make_engine = make_engine or new_engine
     if settings.dtype != "auto":
         return make_engine(settings.dtype, settings.int8_calib), None
     settings.dtype, engine, int8_db, notes = scheduler.resolve_auto_dtype(
@@ -217,12 +222,14 @@ def open_engine(ws: Workspace, state: JobState, settings, device, *,
 
 def run(ws: Workspace, state: JobState, engine, settings, *, progress=None,
         tracer=None, profile_dir: Optional[str] = None,
-        keep_workspace: bool = False):
+        keep_workspace: bool = False, on_pipeline=None):
     """Run the pending segments and finalize the output; destroys the
     workspace unless `keep_workspace`.  Returns (state, report):
     finalize's report with the job's "dtype" and, when known, its
     "encoder".  On KeyboardInterrupt the pipeline is cancelled (committed
-    parts and the state are already on disk) and the interrupt raised."""
+    parts and the state are already on disk) and the interrupt raised.
+    `on_pipeline(job)` receives the scheduler.PipelineJob before it runs
+    (the service cancels a job through it)."""
     from reve_tpu_torch.pipeline import scheduler
     from reve_tpu_torch.utils import trace as trace_mod
 
@@ -231,6 +238,8 @@ def run(ws: Workspace, state: JobState, engine, settings, *, progress=None,
                                 io_backend=settings.io_backend,
                                 part_ext=ext, progress=progress,
                                 tracer=tracer)
+    if on_pipeline is not None:
+        on_pipeline(job)
     try:
         with trace_mod.device_profile(profile_dir):
             state = job.run()

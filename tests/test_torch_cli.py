@@ -515,12 +515,17 @@ def test_unported_flags_exit_2(tmp_path, monkeypatch, capsys, extra):
 
 
 def test_image_input_exits_2(tmp_path, capsys):
+    """Image mode is ported (tests/test_torch_image.py): an input that is
+    not a decodable image exits 2 as reve_tpu's does, and writes no
+    output."""
     img = tmp_path / "in.png"
     img.write_bytes(b"\x89PNG")
     rc = cli.run(["-i", str(img), "-s", "2", str(tmp_path / "o.png")],
                  device="cpu")
     assert rc == 2
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "cannot decode image" in err and "not yet ported" not in err
+    assert not os.path.exists(tmp_path / "o.png")
 
 
 def test_cli_raises_without_cuda(tmp_path, monkeypatch):
