@@ -154,6 +154,39 @@ JSON line; any failure exits non-zero (no phase catches and continues):
               engines cached and the jobs' peak, each over what the
               smoke held before them; /api/metrics and
               /api/version answered;
+  7d. multi_gpu  several devices, as a one-card host can run them: an
+              engine on Mesh((cuda:0, cuda:0)) (two replicas, each with
+              its params and stream, a share of 2 frames each) against a
+              one-device engine on the main job's first 4 frames, in
+              bf16 with RGB out and with K9's planes out, and in int8
+              with the one-device engine's maxima injected: n_diff 0,
+              each replica's launches counted (K3, K1, K2, K9; K4a, K4,
+              K4h) and added to the kernels line; both engines' ms a
+              batch (host clock, batches one after another) beside
+              nvidia-smi's name and power limit, a record; the main
+              job again through the CLI's job body (job.open_engine with
+              the mesh, job.run: the scheduler's batches in flight on
+              both replicas' streams, the queue depth planned over the
+              replicas), its file byte for byte the main job's; the mesh
+              engine's own calibration on the 8 frames, each replica
+              measuring its share of 4 in calls its memory holds, within
+              rtol 1e-5 of one statistic over the same dp-padded sample
+              taken as one chunk, and the same for realesrgan-x4plus in
+              int8 (23 blocks, random weights from seed 0) on 2 frames'
+              720p crops; two `python -m reve_tpu_torch` processes,
+              --shard-worker w1 and w2 with --device 0 on one workspace,
+              on the main job's input and settings (w2 imports the port,
+              then starts the moment w1 has saved the job's state: a
+              second fresh start would race the first): both exit 0,
+              their segments add up to the plan, exactly one finalizes,
+              and the output file is byte for byte the main job's;
+              --device 0,1 exits 2 with "out of range" and leaves no
+              workspace;
+  7e. doctor  `python -m reve_tpu_torch.doctor --json` in a process of
+              its own: exit 0, every required probe ok (the card's
+              devices, the kernels' build and K3 on each device against
+              its plain version, the native core and mux, the 4-frame
+              x2 mini pipeline on cuda:0);
   8. rrdb     RRDBNet (realesrgan-x4plus at its full width and depth: 64
               features, 32 growth channels, 23 blocks; random weights
               from seed 0, reve_tpu's init scales) on the same 4 frames:
@@ -3789,6 +3822,330 @@ def service_phase(work: str, inp: str, out_main: str, in4: str,
     return rec
 
 
+#: the multi_gpu phase's engine runs, each a batch of the smoke's 4
+#: frames: bf16 RGB out, bf16 K9 planes out, int8 with injected maxima
+MESH_RUNS = ("bfloat16", "planes", "int8")
+#: the kernels each mesh run must launch on every replica
+MESH_KERNELS = {
+    "bfloat16": ("conv3x3_u8_bias_prelu", "conv3x3_bias_prelu",
+                 "head_conv_residual_u8_shuffle"),
+    "planes": ("conv3x3_u8_bias_prelu", "conv3x3_bias_prelu",
+               "head_conv_residual_u8_shuffle", "rgb_to_yuv420_u8"),
+    "int8": ("conv3x3_u8_bias_prelu_q8", "conv3x3_s8_dq_prelu_q8",
+             "head_conv_s8_residual_u8_shuffle")}
+
+
+def count_replicas(engine) -> list:
+    """Each replica's kernel launches, counted as it enqueues its share
+    (a replica's launches are the counters' growth across its
+    `_enqueue`; the replicas enqueue in turn from this thread)."""
+    from reve_tpu_torch import kernels
+
+    tallies = [dict.fromkeys(kernels.LAUNCHES, 0) for _ in engine._replicas]
+    for tally, rep in zip(tallies, engine._replicas):
+        def counted(*a, _tally=tally, _enqueue=rep._enqueue, **kw):
+            before = dict(kernels.LAUNCHES)
+            event = _enqueue(*a, **kw)
+            for k, n in kernels.LAUNCHES.items():
+                _tally[k] += n - before[k]
+            return event
+        rep._enqueue = counted
+    return tallies
+
+
+def batch_ms(engine, frames, iters: int = 5) -> float:
+    """Host ms a batch through submit and result, batches one after
+    another (the mesh's replicas run on their own streams, so no event of
+    one stream spans the batch)."""
+    import torch
+
+    engine.submit(frames).result()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        engine.submit(frames).result()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def spawn_worker(argv, log_path: str, wait_for: str = None):
+    """`python -m reve_tpu_torch argv` in a process of its own, its output
+    in `log_path`.  `wait_for`: the process imports the port first, then
+    waits for that file before it runs the CLI's main, as `python -m`
+    does (runpy), so that it starts the moment the file appears."""
+    if wait_for is None:
+        cmd = [sys.executable, "-m", "reve_tpu_torch"] + argv
+    else:
+        cmd = [sys.executable, "-c", (
+            "import os, runpy, sys, time\n"
+            "import torch, reve_tpu_torch.cli\n"
+            f"while not os.path.exists({wait_for!r}):\n"
+            "    time.sleep(0.01)\n"
+            f"sys.argv = ['reve_tpu_torch'] + {argv!r}\n"
+            "runpy.run_module('reve_tpu_torch', run_name='__main__',"
+            " alter_sys=True)\n")]
+    log = open(log_path, "w")
+    return subprocess.Popen(cmd, cwd=ROOT, stdout=log,
+                            stderr=subprocess.STDOUT), log
+
+
+def mesh_rrdb_calibration(mesh, frames) -> dict:
+    """realesrgan-x4plus's int8 calibration on `mesh` (each replica its
+    share of the frames' 720p crops) against one statistic over the same
+    sample taken as one chunk on one device: rtol 1e-5."""
+    import torch
+
+    from reve_tpu_torch.models import registry
+    from reve_tpu_torch.pipeline.engine import UpscaleEngine
+    from reve_tpu_torch.weights import quantize
+
+    cfg_r, params_r = registry.load_model(RRDB_MODEL, SCALE,
+                                          allow_random_init=True)
+    two = UpscaleEngine(mesh=mesh, batch_size=BATCH, compute_dtype="int8",
+                        preloaded=(cfg_r, params_r))
+    two.calibrate_int8(frames)
+    sample, _n = two._dp_pad(UpscaleEngine._calib_crop(frames))
+    want = quantize.collect_maxima(
+        two._params_f32, torch.from_numpy(np.ascontiguousarray(sample))
+        .cuda(), cfg=cfg_r, percentile=two._calib_percentile).cpu().numpy()
+    got = two.get_calibration()
+    rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                       1e-30)))
+    if not rel <= 1e-5:
+        raise AssertionError(f"multi_gpu: {RRDB_MODEL}'s mesh calibration "
+                             f"against one chunk's: rel {rel:.3g}")
+    out = {"frames": len(frames), "padded": len(sample), "stats": len(got),
+           "max_rel": rel, "calibrate_s": two.stats.calibrate_s}
+    del two, params_r
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_job(work: str, inp: str, out_main: str, weights: str,
+             mesh) -> dict:
+    """The main job's input and settings through the CLI's job body on
+    `mesh` (job.open_engine(mesh=), job.run; the CLI refuses a repeated
+    CUDA index, so its device resolution is given the mesh): exit 0, the
+    file byte for byte the main job's, every batch on both replicas, and
+    the queue depth the scheduler was given."""
+    import torch
+
+    from reve_tpu_torch import cli, kernels
+    from reve_tpu_torch.pipeline.engine import UpscaleEngine
+
+    out_m = os.path.join(work, "out_mesh.y4m")
+    argv = ["-i", inp, "-s", str(SCALE), out_m, "--io-backend", "y4m",
+            "--weights", weights, "-S", "4", "--batch", str(BATCH), "--yes"]
+    depths, resolve = [], cli._resolve_device
+    depth = UpscaleEngine.recommended_queue_depth
+
+    def recorded(self, h, w):
+        depths.append(depth(self, h, w))
+        return depths[-1]
+
+    cli._resolve_device = lambda args, device: (None, mesh, None)
+    UpscaleEngine.recommended_queue_depth = recorded
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.run(argv)
+    finally:
+        cli._resolve_device = resolve
+        UpscaleEngine.recommended_queue_depth = depth
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n_diff = file_n_diff(out_m, out_main) if rc == 0 else -1
+    calls = launches["conv3x3_u8_bias_prelu"]
+    batches = math.ceil(FRAMES / BATCH)
+    if rc != 0 or n_diff != 0 or calls < 2 * batches or calls % 2 or \
+            not depths:
+        raise AssertionError(f"multi_gpu: the main job on the mesh exited "
+                             f"{rc}, n_diff {n_diff} against the main "
+                             f"job's, K3 launched {calls} for {batches} "
+                             f"batches, queue depths {depths}")
+    return {"rc": rc, "wall_s": wall, "n_diff_vs_main": n_diff,
+            "launches": launches, "queue_depth": depths[0]}
+
+
+def multi_gpu_phase(work: str, inp: str, out_main: str, weights: str,
+                    cfg, params, frames) -> dict:
+    """Two engine replicas on cuda:0 against one engine, two shard-worker
+    processes against the main job, and --device 0,1's refusal (module
+    docstring, phase multi_gpu)."""
+    import io
+
+    import torch
+
+    from reve_tpu_torch import cli, kernels
+    from reve_tpu_torch.ops.color_np import YUVFormat
+    from reve_tpu_torch.parallel.mesh import Mesh
+    from reve_tpu_torch.pipeline.engine import UpscaleEngine
+    from reve_tpu_torch.weights import quantize
+
+    rec = {"nvidia_smi": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip().splitlines()[0]}
+    batch = frames[:BATCH]
+    dev = torch.device("cuda", 0)
+    mesh = Mesh((dev, dev))
+    # (a) the mesh engine against one engine, batch for batch
+    runs, by_replica, ms = {}, {}, {}
+    for run in MESH_RUNS:
+        dt = "int8" if run == "int8" else "bfloat16"
+        one = UpscaleEngine(batch_size=BATCH, compute_dtype=dt,
+                            preloaded=(cfg, params))
+        two = UpscaleEngine(mesh=mesh, batch_size=BATCH, compute_dtype=dt,
+                            preloaded=(cfg, params))
+        if run == "planes":
+            fmt = YUVFormat(*K9_JOB_FORM)
+            one.set_output_format(fmt)
+            two.set_output_format(fmt)
+        if run == "int8":
+            one.calibrate_int8(frames)
+            two.set_calibration(one.get_calibration())
+        want = one.submit(batch).result()
+        two.warmup(H, W)
+        tallies = count_replicas(two)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got = two.submit(batch).result()
+        launches = dict(kernels.LAUNCHES)
+        tallies = [dict(t) for t in tallies]  # the timed batches uncounted
+        if run == "planes":
+            n_diff = sum(int((g != v).sum()) for g, v in zip(got, want))
+        else:
+            n_diff = int((got != want).sum())
+        for k in MESH_KERNELS[run]:
+            if not all(t[k] >= 1 for t in tallies) or \
+                    launches[k] != sum(t[k] for t in tallies):
+                raise AssertionError(f"multi_gpu {run}: {k} launched "
+                                     f"{[t[k] for t in tallies]} by the "
+                                     f"replicas, {launches[k]} in all")
+        if n_diff != 0:
+            raise AssertionError(f"multi_gpu {run}: the two-replica "
+                                 f"engine's batch differs from one "
+                                 f"engine's: n_diff {n_diff}")
+        runs[run] = {"n_diff": n_diff, "launches": launches,
+                     "launches_by_replica": [
+                         {k: t[k] for k in MESH_KERNELS[run]}
+                         for t in tallies],
+                     "plans": [list(r._plans[(H, W)])
+                               for r in two._replicas]}
+        by_replica[run] = tallies
+        if run != "planes":
+            ms[dt] = {"one_engine": batch_ms(one, batch),
+                      "two_replicas": batch_ms(two, batch)}
+        del one, two, want, got
+        torch.cuda.empty_cache()
+    # the mesh engine's own calibration against one statistic over the
+    # same dp-padded sample taken as one chunk on one device
+    two = UpscaleEngine(mesh=mesh, batch_size=BATCH, compute_dtype="int8",
+                        preloaded=(cfg, params))
+    two.calibrate_int8(frames)
+    sample, _n = two._dp_pad(UpscaleEngine._calib_crop(frames))
+    want = quantize.collect_maxima(
+        two._params_f32, torch.from_numpy(np.ascontiguousarray(sample))
+        .cuda(), cfg=cfg, percentile=two._calib_percentile).cpu().numpy()
+    got = two.get_calibration()
+    rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                       1e-30)))
+    if not rel <= 1e-5:
+        raise AssertionError(f"multi_gpu: the mesh calibration's maxima "
+                             f"{got} against one chunk's {want}: rel "
+                             f"{rel:.3g}")
+    rec.update(engines=runs, ms_per_batch=ms, calibration={
+        "frames": len(frames), "padded": len(sample), "max_rel": rel,
+        "frames_per_call": [r._calib_per_call(*sample.shape[1:3],
+                                              len(sample) // 2)
+                            for r in two._replicas],
+        "maxima": got.tolist(), "calibrate_s": two.stats.calibrate_s})
+    del two
+    torch.cuda.empty_cache()
+    rec["calibration_rrdb_int8"] = mesh_rrdb_calibration(mesh, frames[:2])
+    rec["mesh_job"] = mesh_job(work, inp, out_main, weights, mesh)
+
+    # (b) two shard workers in processes of their own on the main job
+    out_s = os.path.join(work, "out_shard.y4m")
+    state = os.path.join(out_s + ".revework", "state.json")
+    argv = ["-i", inp, "-s", str(SCALE), out_s, "--io-backend", "y4m",
+            "--weights", weights, "-S", "4", "--batch", str(BATCH), "--yes",
+            "--keep-workspace", "--device", "0"]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        procs.append(spawn_worker(argv + ["--shard-worker", "w1"],
+                                  os.path.join(work, "w1.log")))
+        procs.append(spawn_worker(argv + ["--shard-worker", "w2"],
+                                  os.path.join(work, "w2.log"),
+                                  wait_for=state))
+        rcs = [p.wait(timeout=300) for p, _log in procs]
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    wall = time.perf_counter() - t0
+    logs = [open(os.path.join(work, f"w{i}.log")).read() for i in (1, 2)]
+    segs = [int(m.group(1)) for m in (
+        re.search(rf"worker w{i}: (\d+) segment", lg)
+        for i, lg in zip((1, 2), logs)) if m]
+    finalized = [lg.count("\ndone: ") for lg in logs]
+    with open(os.path.join(out_s + ".revework", "leases",
+                           "finalize.lease")) as f:
+        winner = f.read()
+    n_diff = file_n_diff(out_s, out_main)
+    if rcs != [0, 0] or len(segs) != 2 or sum(segs) != FRAMES // 4 or \
+            sorted(finalized) != [0, 1] or n_diff != 0:
+        raise AssertionError(
+            f"shard workers: exit codes {rcs}, segments {segs} (plan "
+            f"{FRAMES // 4}), finalized {finalized}, n_diff {n_diff}; "
+            f"logs: {[lg[-1500:] for lg in logs]}")
+    rec["shard_workers"] = {
+        "exit_codes": rcs, "segments": segs, "finalizer": winner,
+        "wall_s": wall, "n_diff_vs_main": n_diff,
+        "not_finalizing": [ln for lg in logs for ln in lg.splitlines()
+                           if "finaliz" in ln]}
+
+    # (c) a device this host does not have: exit 2 before any workspace
+    out_c = os.path.join(work, "out_dev.y4m")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.run(["-i", inp, "-s", str(SCALE), out_c, "--io-backend",
+                      "y4m", "--weights", weights, "--yes", "--device",
+                      "0,1"])
+    if rc != 2 or "out of range" not in err.getvalue() or \
+            os.path.exists(out_c + ".revework"):
+        raise AssertionError(f"--device 0,1 on a one-card host: exit {rc}, "
+                             f"{err.getvalue()!r}")
+    rec["device_0_1"] = {"rc": rc, "stderr": err.getvalue().strip()}
+    rec["launches_by_replica"] = by_replica
+    return rec
+
+
+def doctor_phase() -> dict:
+    """`python -m reve_tpu_torch.doctor --json` in a process of its own:
+    exit 0 and every required probe ok."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "reve_tpu_torch.doctor",
+                        "--json"], cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    try:
+        data = json.loads(r.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        data = {}
+    bad = [p for p in data.get("probes", ())
+           if p["required"] and p["status"] != "ok"]
+    if r.returncode != 0 or data.get("ok") is not True or bad or \
+            len(data.get("probes", ())) != 7:
+        raise AssertionError(f"doctor: exit {r.returncode}, "
+                             f"{data or r.stdout[-2000:]}; stderr "
+                             f"{r.stderr[-2000:]}")
+    return {"rc": r.returncode, "wall_s": wall, "probes": data["probes"]}
+
+
 def main() -> int:
     import torch
 
@@ -4209,6 +4566,12 @@ def main() -> int:
             rec.update(image_phase(work, frames, weights, cfg, params))
         with phase("service", {}) as rec:
             rec.update(service_phase(work, inp, out, in4, cfg))
+        with phase("multi_gpu", {"mesh": ["cuda:0", "cuda:0"]}) as rec:
+            rec.update(multi_gpu_phase(work, inp, out, weights, cfg, params,
+                                       frames))
+            mesh_launches = rec["launches_by_replica"]
+        with phase("doctor", {}) as rec:
+            rec.update(doctor_phase())
 
         # RRDBNet (realesrgan-x4plus at full width and depth, random
         # weights from seed 0) on the same 4 frames
@@ -4616,6 +4979,11 @@ def main() -> int:
         entry.update(extra)
         if name in f32_forms or name in INT8_KERNELS:
             entry["widths"] = width_entries(name, widths)
+        meshed = {run: [t[name] for t in mesh_launches[run]]
+                  for run in MESH_RUNS if name in MESH_KERNELS[run]}
+        if meshed:
+            # its launches by replica in the multi_gpu phase's batches
+            entry["multi_gpu_launches_by_replica"] = meshed
         if name == "conv3x3_bias_prelu":
             # K1 on the RRDB path: conv_up1 at 2x, conv_up2 and conv_hr at
             # 4x, with its launches in the bf16 job and the float32 batch

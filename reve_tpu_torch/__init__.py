@@ -9,11 +9,15 @@ so each file's counterpart is easy to find.
 Layer map:
 
     CLI / library API / web service   reve_tpu_torch.cli / .api / .service
+      ├─ diagnostics, quality tool    reve_tpu_torch.doctor / .utils.quality
       ├─ image routing + codecs       reve_tpu_torch.io.{image,png,bmp}
+      ├─ shard workers                reve_tpu_torch.pipeline.leases,
+      │                               reve_tpu_torch.parallel.distributed
       └─ pipeline scheduler           reve_tpu_torch.pipeline.scheduler
            ├─ planner + resume        reve_tpu_torch.pipeline.{planner,state}
            ├─ io backends             reve_tpu_torch.io.{probe,reader,writer,concat}
            └─ CUDA inference engine   reve_tpu_torch.pipeline.engine
+                ├─ device mesh        reve_tpu_torch.parallel.mesh
                 ├─ models             reve_tpu_torch.models.srvgg
                 ├─ ops                reve_tpu_torch.ops.{tiling,pixel_shuffle}
                 ├─ kernels            reve_tpu_torch.kernels.{conv3x3,conv3x3_s8,head,tta}

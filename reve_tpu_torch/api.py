@@ -10,9 +10,11 @@ same pipeline the CLI drives.
 It keeps the CLI's workspace and segment checkpoints: calling it again
 after a crash continues where the job stopped, with the settings the job
 was started with.  It runs on cuda:0 unless `device` names another CUDA
-device or "cpu".  What the port's CLI refuses with exit 2, this raises:
-NotImplementedError naming the ROADMAP.md port-queue item (`mesh`), or
-ValueError (`compile_attempts`, which has no counterpart).  As in
+device or "cpu", or `mesh` (parallel.mesh.Mesh, the CLI's --device
+N,M,...) splits each batch over several.  What the port's CLI refuses
+with exit 2, this raises: ValueError (`compile_attempts`, which has no
+counterpart; a device out of range; a mesh whose dp does not divide
+`batch`, or that repeats a CUDA device).  As in
 reve_tpu, it has no `denoise` argument and refuses to resume a workspace
 the CLI started with --denoise.  `upscale_image` is the CLI's image
 mode as a call (io/image.py: PNG and BMP by the port's codecs, JPEG and
@@ -24,12 +26,6 @@ from __future__ import annotations
 import argparse
 import os
 from typing import Optional
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported in reve_tpu_torch (ROADMAP.md port "
-        f"queue: {item})")
 
 
 def _resolve_device(device):
@@ -93,24 +89,36 @@ def upscale_video(
     resume keeps the saved plan).  `on_progress`: optional callable receiving a
     snapshot dict after every counter update, from pipeline worker
     threads.  `device`: None (cuda:0), a CUDA device index, or "cpu" (the
-    kernels' plain versions).  `allow_random_init`: run with
-    deterministic random weights when no trained weights resolve
-    (tests/benchmarks only); without it (or REVE_TPU_ALLOW_RANDOM_INIT=1)
-    missing weights raise registry.MissingWeightsError before any
-    workspace or decode."""
+    kernels' plain versions).  `mesh`: a parallel.mesh.Mesh to split each
+    batch over, one engine replica an entry (a CUDA device at most once;
+    the CPU's entries may repeat, as the tests run it); `batch` must be a
+    multiple of its dp size; exclusive with `device`.
+    `allow_random_init`: run with deterministic random weights when no
+    trained weights resolve (tests/benchmarks only); without it (or
+    REVE_TPU_ALLOW_RANDOM_INIT=1) missing weights raise
+    registry.MissingWeightsError before any workspace or decode."""
     from reve_tpu_torch.models import registry
     from reve_tpu_torch.pipeline import job as job_mod
     from reve_tpu_torch.pipeline.state import Workspace
 
     if scale not in (2, 3, 4):
         raise ValueError("scale must be 2, 3 or 4")
-    if mesh is not None:
-        raise _not_ported("a multi-device mesh", "multi-GPU")
+    if device is not None and mesh is not None:
+        raise ValueError("device and mesh are mutually exclusive")
     if compile_attempts is not None:
         raise ValueError("compile_attempts has no counterpart in "
                          "reve_tpu_torch (the JAX package's XLA "
                          "compile-lottery guard)")
-    device = _resolve_device(device)
+    if mesh is not None:
+        if batch % mesh.shape["dp"]:
+            raise ValueError(f"batch {batch} must be a multiple of the "
+                             f"mesh's dp size ({mesh.shape['dp']})")
+        if any(d.type == "cuda" and mesh.devices.count(d) > 1
+               for d in mesh.devices):
+            raise ValueError(f"mesh devices must be distinct: "
+                             f"{mesh!r} repeats a CUDA device")
+    else:
+        device = _resolve_device(device)
     if os.path.exists(output_path):
         raise FileExistsError(f"output path already exists: {output_path}")
     if input_path.lower().endswith(".mkv") and \
@@ -162,7 +170,7 @@ def upscale_video(
                 scene_align=scene_align)
         ws.save(state)
         engine, _ = job_mod.open_engine(ws, state, settings, device,
-                                        batch=batch, tile=tile)
+                                        mesh=mesh, batch=batch, tile=tile)
         progress = None
         if on_progress is not None:
             from reve_tpu_torch.pipeline.progress import ProgressTracker

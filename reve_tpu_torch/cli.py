@@ -25,12 +25,15 @@ interpolated as (1 - D) wdn + D plain, restored on resume), --batch,
 --tile N (halo tiles, for SRVGG byte-identical to whole frames; 0 = only
 frames past the memory plan, -1 = never), --tta (the 8-transform
 self-ensemble, restored on resume), --scene-align (segments snapped to
-scene cuts; a resume keeps the saved plan), --device N (cuda:N),
---io-backend, --workspace, --yes, --keep-workspace, --progress-json,
---trace and --profile-dir (torch.profiler).  Flags whose feature is not
-ported yet (--shard-worker and --lease-stale-after, several devices) exit
-2 with a one-line "not yet ported in reve_tpu_torch" message naming the
-ROADMAP.md port-queue item; they are never silently ignored.
+scene cuts; a resume keeps the saved plan), --device N (cuda:N) or
+--device N,M,... (a mesh: each batch split over those devices, one engine
+replica each; --batch a multiple of their count), --shard-worker ID and
+--lease-stale-after S (the job's segments shared with other processes
+through lease files in the workspace, pipeline/leases.py; no single-owner
+lock; exactly one worker finalizes), --io-backend, --workspace, --yes,
+--keep-workspace, --progress-json, --trace and --profile-dir
+(torch.profiler).  --compile-attempts (the JAX package's XLA guard) exits
+2: it has no counterpart here and is never silently ignored.
 
 The job's body (the resume contract, the fresh state, the engine, the
 run) is `pipeline/job.py`, which `api.upscale_video` shares.  A workspace
@@ -204,8 +207,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "--dtype int8: refuse to run below DB, exit 3 (the "
                         "turbo PSNR is always reported)")
     p.add_argument("--device", default=None, metavar="N[,M,...]",
-                   help="run on CUDA device N (cuda:N); a comma list "
-                        "(several devices) is not ported")
+                   help="run on CUDA device N (cuda:N; the replaced ncnn "
+                        "engine's -g gpu-id, e.g. one --shard-worker per "
+                        "card).  A comma list builds a data-parallel mesh "
+                        "over those devices (the ncnn engine's multi-GPU "
+                        "`-g 0,1,...`): each batch of frames is split "
+                        "across them, so --batch must be a multiple of "
+                        "the device count")
     p.add_argument("-f", "--format", choices=("png", "jpg", "webp"),
                    default=None,
                    help="image output format for directory mode (the "
@@ -249,25 +257,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", default=None, metavar="DIR",
                    help="capture a torch.profiler trace into DIR")
     p.add_argument("--shard-worker", default=None, metavar="ID",
-                   help="lease-queue worker (not ported)")
+                   help="participate as a lease-queue worker (segments "
+                        "shared by several processes over one workspace, "
+                        "on one host or several); the worker that finds "
+                        "all parts complete finalizes")
     p.add_argument("--lease-stale-after",
                    type=_positive_float("lease-stale-after"), default=None,
-                   metavar="SECONDS", help="shard lease timeout (not "
-                                           "ported)")
+                   metavar="SECONDS",
+                   help="declare a worker's segment lease stale (stealable) "
+                        "after this many seconds without a heartbeat "
+                        "(default 600; leases renew every few seconds while "
+                        "a worker is alive)")
     return p
 
 
-def _not_ported(what: str, item: str) -> int:
-    print(f"{what}: not yet ported in reve_tpu_torch (ROADMAP.md port "
-          f"queue: {item})", file=sys.stderr)
-    return 2
-
-
 def _refuse_unported(args) -> Optional[int]:
-    """Exit code 2 for any requested feature this slice does not carry."""
-    if args.shard_worker is not None or args.lease_stale_after is not None:
-        return _not_ported("--shard-worker/--lease-stale-after",
-                           "multi-GPU")
+    """Exit code 2 for a flag with no counterpart in the port."""
     if args.compile_attempts is not None:
         print("--compile-attempts has no counterpart in reve_tpu_torch "
               "(the JAX package's XLA compile-lottery guard)",
@@ -292,31 +297,44 @@ def _confirm(prompt: str, assume_yes: bool) -> bool:
 
 
 def _resolve_device(args, device):
-    """--device N -> cuda:N (a comma list of several devices is not
-    ported); else the caller's `device`; else None (the engine's default,
-    cuda:0).  Returns (device, error_exit_code)."""
+    """--device N -> cuda:N; --device N,M,... -> a parallel.mesh.Mesh of
+    cuda:N, cuda:M, ... (the ncnn engine's multi-GPU `-g 0,1,...`: the
+    engine splits each batch over them), its --batch a multiple of their
+    count; else the caller's `device`; else None (the engine's default,
+    cuda:0).  Returns (device, mesh, error_exit_code); at most one of
+    device and mesh is set.  Refusals are reve_tpu's words."""
     if args.device is None:
-        return device, None
+        return device, None, None
     try:
         idxs = [int(t) for t in str(args.device).split(",") if t.strip()]
     except ValueError:
         print(f"--device must be a device index or comma list of "
               f"indices, got {args.device!r}", file=sys.stderr)
-        return None, 2
+        return None, None, 2
     if not idxs:
         print("--device needs at least one device index", file=sys.stderr)
-        return None, 2
-    if len(idxs) > 1:
-        return None, _not_ported("--device with several devices",
-                                 "multi-GPU")
+        return None, None, 2
     import torch
 
     n = torch.cuda.device_count()
-    if not 0 <= idxs[0] < n:
-        print(f"--device {idxs[0]} out of range: this host has {n} CUDA "
-              f"device(s)", file=sys.stderr)
-        return None, 2
-    return f"cuda:{idxs[0]}", None
+    for i in idxs:
+        if not 0 <= i < n:
+            print(f"--device {i} out of range: this host has {n} CUDA "
+                  f"device(s)", file=sys.stderr)
+            return None, None, 2
+    if len(set(idxs)) != len(idxs):
+        print("--device indices must be distinct", file=sys.stderr)
+        return None, None, 2
+    if len(idxs) == 1:
+        return f"cuda:{idxs[0]}", None, None
+    if args.batch % len(idxs):
+        print(f"--batch {args.batch} must be a multiple of the --device "
+              f"count ({len(idxs)}) so each device gets the same share of "
+              f"every batch", file=sys.stderr)
+        return None, None, 2
+    from reve_tpu_torch.parallel.mesh import Mesh
+
+    return None, Mesh([f"cuda:{i}" for i in idxs]), None
 
 
 def run(argv: Optional[List[str]] = None, device=None) -> int:
@@ -401,33 +419,40 @@ def run(argv: Optional[List[str]] = None, device=None) -> int:
         print("mkv input requires mkv output", file=sys.stderr)
         return 2
 
-    # resolve the device BEFORE any workspace exists: a rejected
-    # invocation must not leave behind a fresh state file
-    device, err = _resolve_device(args, device)
+    # resolve the device (and a mesh's --batch multiple) BEFORE any
+    # workspace exists: a rejected invocation must not leave behind a
+    # fresh state file
+    device, mesh, err = _resolve_device(args, device)
     if err is not None:
         return err
-    from reve_tpu_torch import device as device_mod
+    if mesh is None:
+        from reve_tpu_torch import device as device_mod
 
-    device = device_mod.resolve_device(device)
+        device = device_mod.resolve_device(device)
 
     ws = Workspace(args.workspace or args.outputpath + ".revework")
-    if not ws.acquire_owner():
+    # single-writer guard: a second concurrent run on this workspace would
+    # redo every pending segment and race the finalize rename; cooperating
+    # writers run as --shard-worker (the lease queue) and take no lock
+    if not args.shard_worker and not ws.acquire_owner():
         print(f"another live process is already working on this "
-              f"workspace ({ws.owner_path}); wait for it to finish",
-              file=sys.stderr)
+              f"workspace ({ws.owner_path}); wait for it to finish "
+              f"or run both as --shard-worker", file=sys.stderr)
         return 2
     try:
-        return _run_job(args, ws, device)
+        return _run_job(args, ws, device, mesh)
     except job_mod.JobRefused as e:
         print(e, file=sys.stderr)
         return e.code
     finally:
-        ws.release_owner()
+        if not args.shard_worker:
+            ws.release_owner()
 
 
-def _run_job(args, ws: Workspace, device) -> int:
-    """The job in `ws` (owned): resume or start it, then run it through
-    pipeline/job.py; returns the exit code (refusals raise JobRefused)."""
+def _run_job(args, ws: Workspace, device, mesh=None) -> int:
+    """The job in `ws` (owned, or shared by shard workers): resume or
+    start it, then run it through pipeline/job.py; returns the exit code
+    (refusals raise JobRefused)."""
     import time as _time
 
     from reve_tpu_torch.pipeline.progress import (ConsoleRenderer,
@@ -479,8 +504,8 @@ def _run_job(args, ws: Workspace, device) -> int:
     resolve_t0 = _time.monotonic()
     auto = args.dtype == "auto"
     engine, int8_db = job_mod.open_engine(
-        ws, state, args, device, batch=args.batch, tile=args.tile,
-        gate_db=args.int8_gate, on_note=note, tracer=tracer)
+        ws, state, args, device, mesh=mesh, batch=args.batch,
+        tile=args.tile, gate_db=args.int8_gate, on_note=note, tracer=tracer)
     resolve_s = _time.monotonic() - resolve_t0 if auto else None
     if args.dtype == "int8" and int8_db is None:
         err, int8_db = _certify_int8(args, state, engine, ws)
@@ -504,7 +529,9 @@ def _run_job(args, ws: Workspace, device) -> int:
         state, report = job_mod.run(
             ws, state, engine, args, progress=tracker, tracer=tracer,
             profile_dir=args.profile_dir,
-            keep_workspace=args.keep_workspace)
+            keep_workspace=args.keep_workspace,
+            shard_worker=args.shard_worker,
+            stale_after=args.lease_stale_after, on_note=note)
     except KeyboardInterrupt:
         # committed parts + state are already on disk (checkpoint
         # after every segment)
@@ -512,6 +539,8 @@ def _run_job(args, ws: Workspace, device) -> int:
         print(f"\ninterrupted — {done} segment(s) committed; rerun the "
               f"same command to resume", file=sys.stderr)
         return 130
+    if report is None:
+        return 0  # a shard worker that leaves the output to another
     enc_note = f", encoder: {report['encoder']}" if "encoder" in report \
         else ""
     # end-to-end x-realtime for the frames THIS run processed
@@ -531,7 +560,7 @@ def _run_job(args, ws: Workspace, device) -> int:
         path_note += f", auto-resolve {resolve_s:.1f} s"
     print(f"\ndone: {state.output_path} (concat backend: "
           f"{report['backend']}{enc_note}{path_note} on "
-          f"{engine.device}{rate_note})", file=sys.stderr)
+          f"{engine.mesh or engine.device}{rate_note})", file=sys.stderr)
     return 0
 
 
@@ -555,7 +584,10 @@ def _certify_int8(args, state, engine, ws: Workspace):
                   f"--int8-gate {args.int8_gate:g} demands a measured "
                   f"PSNR — run without --dtype int8 or without the gate",
                   file=sys.stderr)
-            if not ws.completed_parts(_part_ext(args)):
+            # a shard worker's workspace is shared (leases, calibration,
+            # sibling parts): never deleted under live workers
+            if not args.shard_worker and \
+                    not ws.completed_parts(_part_ext(args)):
                 ws.destroy()
             return 3, None
         print(f"int8 certification skipped: {e}", file=sys.stderr)
@@ -570,7 +602,8 @@ def _certify_int8(args, state, engine, ws: Workspace):
         print(f"refusing: int8 PSNR {db:.1f} dB is below --int8-gate "
               f"{args.int8_gate:g} — run without --dtype int8 (or lower "
               f"the gate)", file=sys.stderr)
-        if not ws.completed_parts(_part_ext(args)):
+        if not args.shard_worker and \
+                not ws.completed_parts(_part_ext(args)):
             ws.destroy()  # nothing committed: leave no resume prompt
         return 3, db
     return None, db
@@ -627,7 +660,7 @@ def _image_engine(args, device):
         print("image mode runs one frame at a time on one device; pass "
               "a single --device index", file=sys.stderr)
         return None, 2
-    device, err = _resolve_device(args, device)
+    device, _mesh, err = _resolve_device(args, device)
     if err is not None:
         return None, err
     preloaded = None

@@ -51,10 +51,22 @@ Counterpart of reve_tpu/pipeline/engine.py.  Design:
     (kernels.conv3x3.WIDTHS), the widths the JAX package's own
     distillation makes (its default student has 128).
 
+  * A mesh (`mesh=`, parallel/mesh.py, the CLI's --device N,M,...): each
+    batch is cut into dp equal shares, one a replica (this engine for the
+    first device, a replica engine for each other entry: its own params
+    and CUDA stream), and the replicas write their frames into slices of
+    one pinned output; the handle waits on every replica's event.  Tiles
+    and TTA run inside each share.  Each replica plans its share in its
+    part of its device's free memory (replicas sharing a device split
+    it).  int8 calibration and certification run on the first replica,
+    with reve_tpu's mesh semantics: the sample padded cyclically to a dp
+    multiple, the statistic over all of it as one chunk; the quantized
+    body is installed on every replica.
+
 Not ported yet (raises NotImplementedError naming its ROADMAP.md
-port-queue item): multi-device meshes, RRDB x1, and on the card an SRVGG
-of another width (`check_serving_width`).  The CPU's plain path serves
-every width in every dtype.
+port-queue item): RRDB x1, and on the card an SRVGG of another width
+(`check_serving_width`).  The CPU's plain path serves every width in
+every dtype.
 """
 
 from __future__ import annotations
@@ -180,25 +192,25 @@ class EngineStats:
 class PendingBatch:
     """Handle to an in-flight batch: the pinned host output buffer that
     the device fills (RGB, or the three planes of a YUV 4:2:0 batch), and
-    the CUDA event recorded after its D2H copy (None on the CPU, where
-    the work is already done)."""
+    the CUDA events recorded after its D2H copies, one a replica (none on
+    the CPU, where the work is already done)."""
 
-    def __init__(self, host_out, valid: int,
-                 event: Optional[torch.cuda.Event] = None,
+    def __init__(self, host_out, valid: int, events=(),
                  host_in: Optional[torch.Tensor] = None):
         self._out = host_out
         self._valid = valid
-        self._event = event
-        # the pinned input must outlive its H2D copy
+        self._events = list(events)
+        # the pinned input must outlive its H2D copies
         self._in = host_in
 
     def result(self):
         """Block until done; returns (valid, H*s, W*s, 3) uint8, or for a
         planes batch a color_np.Planes of (valid, H*s, W*s) and (valid,
         H*s/2, W*s/2) codes (uint8, or uint16 at 10 bits)."""
-        if self._event is not None:
-            self._event.synchronize()
-            self._event = None
+        if self._events:
+            for event in self._events:
+                event.synchronize()
+            self._events = []
             self._in = None
         if isinstance(self._out, tuple):
             return Planes(*(codes_numpy(t)[: self._valid]
@@ -249,7 +261,8 @@ class Plan(NamedTuple):
 
 
 class UpscaleEngine:
-    """Batched u8 -> u8 video upscaler on one CUDA device."""
+    """Batched u8 -> u8 video upscaler on one CUDA device, or on a mesh
+    of them (a replica a device)."""
 
     def __init__(
         self,
@@ -267,7 +280,10 @@ class UpscaleEngine:
         allow_random_init: Optional[bool] = None,
     ):
         """`device`: None -> cuda:0 (raises without CUDA); "cpu" runs
-        every kernel's plain PyTorch version (tests).  `preloaded`:
+        every kernel's plain PyTorch version (tests).  `mesh`: a
+        parallel.mesh.Mesh to split each batch of frames over, one
+        replica an entry; batch_size must be a multiple of its dp size;
+        exclusive with `device`.  `preloaded`:
         (cfg, params) to use instead of resolving `model`/`weights`
         (params as float32 tensors, e.g. from srvgg.params_from_jax or
         rrdb.params_from_jax).
@@ -286,10 +302,18 @@ class UpscaleEngine:
         past the memory plan; N > 0 tiles every frame in N x N tiles; -1
         never tiles (a frame past the plan raises).  `tta`: the
         8-transform self-ensemble."""
-        if mesh is not None:
-            raise _not_ported("a multi-device mesh", "multi-GPU")
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("device and mesh are mutually exclusive")
+            dp = mesh.shape["dp"]
+            if batch_size % dp:
+                raise ValueError(
+                    f"batch_size {batch_size} not divisible by dp={dp}")
+            device = mesh.devices[0]
+        #: the mesh the batches are split over (None: one device)
+        self.mesh = mesh
         self._int8 = compute_dtype == "int8"
         self._qbody = None
         self._qbody_provisional = False
@@ -308,6 +332,8 @@ class UpscaleEngine:
         else:
             cfg, params = registry.load_model(
                 model, scale, weights, allow_random_init=allow_random_init)
+        # the replicas' weights, as loaded: each replica places them
+        raw_params = params
         self._rrdb = isinstance(cfg, rrdb.RRDBConfig)
         if not self._rrdb and not isinstance(cfg, srvgg.SRVGGConfig):
             raise TypeError(f"unknown model config {type(cfg).__name__}")
@@ -335,6 +361,11 @@ class UpscaleEngine:
                 self.params = srvgg.prepare(self.params, self.compute_dtype)
         self.scale = cfg.upscale
         self.batch_size = batch_size
+        #: the frames of a batch this replica runs (batch_size / dp)
+        self._share = batch_size // (len(mesh) if mesh is not None else 1)
+        #: replicas on this replica's device (its memory plan's share)
+        self._mem_share = 1 if mesh is None else \
+            mesh.devices.count(self.device)
         #: 0 = tile only frames past the memory plan, -1 = never tile,
         #: N > 0 = always tile N x N
         self.tile = tile
@@ -348,6 +379,17 @@ class UpscaleEngine:
         self.output_format: Optional[YUVFormat] = None
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
+        #: the engines that run a batch's shares in order: this one, then
+        #: a replica for each further mesh entry (sharing these stats)
+        self._replicas = [self]
+        for d in (mesh.devices[1:] if mesh is not None else ()):
+            rep = UpscaleEngine(
+                batch_size=self._share, tile=tile,
+                compute_dtype=compute_dtype, int8_calib=int8_calib,
+                tta=tta, device=d, preloaded=(cfg, raw_params))
+            rep._mem_share = mesh.devices.count(rep.device)
+            rep.stats = self.stats
+            self._replicas.append(rep)
 
     def set_output_format(self, fmt: Optional[YUVFormat]) -> None:
         """What `submit`'s batches return: None RGB frames, or the planes
@@ -358,9 +400,10 @@ class UpscaleEngine:
                     "bt601", "bt709"):
                 raise ValueError(f"output format {fmt}: bits 8 or 10, "
                                  f"matrix bt601 or bt709")
-        if fmt != self.output_format:
-            self.output_format = fmt
-            self._plans = {}  # the plan bills the planes
+        for rep in self._replicas:
+            if fmt != rep.output_format:
+                rep.output_format = fmt
+                rep._plans = {}  # the plan bills the planes
 
     # -- memory plan -------------------------------------------------------
 
@@ -437,20 +480,21 @@ class UpscaleEngine:
         the segments this process's caching allocator holds with nothing
         in them (it releases those before it fails an allocation).  The
         unused parts of segments that a live tensor still holds do not
-        count: a tensor larger than such a part cannot use it."""
+        count: a tensor larger than such a part cannot use it.  Replicas
+        that share the device each get an equal part of it."""
         free, _total = torch.cuda.mem_get_info(self.device)
         stats = torch.cuda.memory_stats(self.device)
         cached = (stats.get("reserved_bytes.all.current", 0)
                   - stats.get("allocated_bytes.all.current", 0)
                   - stats.get("inactive_split_bytes.all.current", 0))
-        return free + max(cached, 0)
+        return (free + max(cached, 0)) // self._mem_share
 
     def _io_batch_bytes(self, h: int, w: int) -> int:
-        """One batch's IO set on the device: u8 input + u8 output (+ its
-        planes)."""
-        return self.batch_size * (self._in_bytes(h, w)
-                                  + self._out_bytes(h, w)
-                                  + self._planes_bytes(h, w))
+        """One batch share's IO set on the device: u8 input + u8 output
+        (+ its planes)."""
+        return self._share * (self._in_bytes(h, w)
+                              + self._out_bytes(h, w)
+                              + self._planes_bytes(h, w))
 
     def _tta_bytes(self, h: int, w: int) -> int:
         """What TTA holds beside the model per batch: the 16-bit
@@ -459,8 +503,8 @@ class UpscaleEngine:
         input."""
         if not self.tta:
             return 0
-        return self.batch_size * (4 * self._out_bytes(h, w)
-                                  + self._in_bytes(h, w))
+        return self._share * (4 * self._out_bytes(h, w)
+                              + self._in_bytes(h, w))
 
     def _window(self, h: int, w: int, tile: int):
         """The (rows, columns) of a halo window of `tile` at (h, w)."""
@@ -487,7 +531,8 @@ class UpscaleEngine:
             f"GiB available beside the in-flight IO reserve)")
 
     def _plan_execution(self, h: int, w: int) -> Plan:
-        """The plan of a batch at (h, w).  Whole frames, the whole batch
+        """The plan of this replica's share of a batch at (h, w) (the
+        whole batch on one device).  Whole frames, the whole share
         per call when it fits, else the largest chunk whose working set
         plus the in-flight IO reserve (and TTA's accumulator) fits the
         free device memory, fewest calls first (also when `tile > 0` but
@@ -501,7 +546,7 @@ class UpscaleEngine:
         key = (h, w)
         if key in self._plans:
             return self._plans[key]
-        batch = self.batch_size
+        batch = self._share
         # a given tile whose one window is the whole frame runs as whole
         # frames, in chunks of frames like tile == 0
         n = tiling.plan_tiles(h, w, self.tile, self.halo).num_tiles \
@@ -542,11 +587,26 @@ class UpscaleEngine:
         self._plans[key] = plan
         return plan
 
+    def _plan_replicas(self, h: int, w: int) -> None:
+        """Plan every replica's share at (h, w) (and the ensemble's
+        rotated (w, h)) before any of them allocates, so that replicas
+        sharing a device read its free memory alike."""
+        for rep in self._replicas:
+            rep._plan_execution(h, w)
+            if self.tta and h != w:
+                rep._plan_execution(w, h)
+
     def recommended_queue_depth(self, h: int, w: int) -> int:
         """Completed batches the scheduler may hold beyond the executing
         one: what the free memory left after the plan's working set
         (tiled or whole-frame, with TTA's accumulator) affords in IO sets,
-        clamped to [1, 3]."""
+        clamped to [1, 3]; on a mesh the least of the replicas'."""
+        if len(self._replicas) > 1:
+            self._plan_replicas(h, w)
+        return min(rep._queue_depth(h, w) for rep in self._replicas)
+
+    def _queue_depth(self, h: int, w: int) -> int:
+        """recommended_queue_depth of this replica's share."""
         plan = self._plan_execution(h, w)
         if self.device.type != "cuda":
             return 2
@@ -601,10 +661,20 @@ class UpscaleEngine:
     # -- int8 calibration and certification --------------------------------
 
     def _dp_pad(self, frames: np.ndarray):
-        """reve_tpu pads calibration and certification batches to a
-        multiple of its mesh's dp size; on one device (the only layout the
-        port runs) the batch is used as it is.  Returns (frames, n_real)."""
-        return frames, len(frames)
+        """Pad a calibration/certification batch to a multiple of the
+        mesh's dp size by repeating frames cyclically, as reve_tpu pads
+        it for its sharded placement (without a mesh: as it is).  Returns
+        (padded, n_real); duplicates are excluded from the certificate's
+        PSNR and only repeat existing content in the statistics."""
+        if self.mesh is None:
+            return frames, len(frames)
+        dp = self.mesh.shape["dp"]
+        n = len(frames)
+        pad = (-n) % dp
+        if pad == 0:
+            return frames, n
+        reps = frames[np.arange(n, n + pad) % n]
+        return np.concatenate([frames, reps]), n
 
     @staticmethod
     def _calib_crop(frames: np.ndarray) -> np.ndarray:
@@ -641,16 +711,34 @@ class UpscaleEngine:
     def _calibrate_int8(self, frames: np.ndarray, provisional: bool) -> None:
         """Build the quantized body from a calibration batch: the float32
         forward over chunks of the (cropped) frames, per-layer statistics
-        max-combined across chunks.  The sample is padded by cyclic frame
-        repeats to a chunk multiple, as reve_tpu pads it, so the chunks
-        and hence the percentile scales are the reference's."""
-        from reve_tpu_torch.weights import quantize
-
+        max-combined across chunks (_chunked_maxima).  The sample is
+        padded by cyclic frame repeats to a chunk multiple, as reve_tpu
+        pads it, so the chunks and hence the percentile scales are the
+        reference's.  On a mesh the statistic is reve_tpu's sharded
+        calibration's, the dp-padded sample's as one chunk
+        (_mesh_maxima).  Every replica installs the body."""
         t0 = time.perf_counter()
         frames, _ = self._dp_pad(self._calib_crop(frames))
+        maxima = self._chunked_maxima(frames) if self.mesh is None \
+            else self._mesh_maxima(frames)
+        self.stats.calibrate_s += time.perf_counter() - t0
+        if self.calibration_hook is not None and not provisional:
+            maxima = np.asarray(self.calibration_hook(maxima), np.float32)
+        self._install_qbody(maxima, provisional)
+
+    def _calib_chunk(self, h: int, w: int) -> int:
+        """Frames of a one-device calibration chunk at (h, w): reve_tpu's
+        budget of _CALIB_CHUNK_ELEMS activations."""
+        return max(1, self._CALIB_CHUNK_ELEMS
+                   // max(h * w * self.cfg.num_feat, 1))
+
+    def _chunked_maxima(self, frames: np.ndarray) -> np.ndarray:
+        """The one-device statistic: per-layer statistics of each chunk
+        max-combined, the sample padded to a chunk multiple."""
+        from reve_tpu_torch.weights import quantize
+
         n, h, w, _c = frames.shape
-        chunk = max(1, self._CALIB_CHUNK_ELEMS
-                    // max(h * w * self.cfg.num_feat, 1))
+        chunk = self._calib_chunk(h, w)
         pad = (-n) % chunk
         if pad:
             frames = np.concatenate([frames, frames[np.arange(pad) % n]])
@@ -665,22 +753,69 @@ class UpscaleEngine:
                 maxima = m if maxima is None else np.maximum(maxima, m)
                 del x
             self._release_cache()
-        self.stats.calibrate_s += time.perf_counter() - t0
-        if self.calibration_hook is not None and not provisional:
-            maxima = np.asarray(self.calibration_hook(maxima), np.float32)
-        self._install_qbody(maxima, provisional)
+        return maxima
 
-    def _install_qbody(self, maxima: np.ndarray, provisional: bool) -> None:
+    def _mesh_maxima(self, frames: np.ndarray) -> np.ndarray:
+        """reve_tpu's sharded calibration: the statistic of the dp-padded
+        sample taken as one chunk.  Each replica measures its share (the
+        frames a device holds there), in calls of _calib_per_call frames,
+        and the parts (maxima, or the frames' elements of the sample's
+        strided subsample) are joined on the first replica's device, so
+        no device holds more than one call's activations."""
         from reve_tpu_torch.weights import quantize
 
+        n, h, w, _c = frames.shape
+        share = n // len(self._replicas)
+        parts = []
+        for k, rep in enumerate(self._replicas):
+            per = rep._calib_per_call(h, w, share)
+            with rep._on_device():
+                for i in range(k * share, (k + 1) * share, per):
+                    x = torch.from_numpy(np.ascontiguousarray(
+                        frames[i:min(i + per, (k + 1) * share)],
+                        np.uint8)).to(rep.device)
+                    parts.append(quantize.collect_maxima(
+                        rep._params_f32, x, cfg=rep.cfg,
+                        percentile=self._calib_percentile, part=(i, n)))
+                    del x
+                rep._release_cache()
         with self._on_device():
-            # margin absorbs content hotter than the calibration batch
-            qbody = quantize.build_qbody(self._params_f32, self.cfg,
-                                         np.asarray(maxima), margin=1.25)
-            # K7q's weights packed once per quantization
-            self._qbody = rrdb.prepare_qbody(qbody) if self._rrdb else qbody
-        self._qbody_provisional = provisional
-        self._act_maxima = np.asarray(maxima, np.float32)
+            return quantize.join_parts(parts, self._calib_percentile,
+                                       self.device).cpu().numpy()
+
+    def _calib_per_call(self, h: int, w: int, share: int) -> int:
+        """Frames of this replica's calibration share per call: at most a
+        one-device chunk and, on CUDA, what its part of the free memory
+        holds of the float32 forward's activations (RRDB: its trunk), the
+        statistic's |h| copy and the u8 input."""
+        per = min(share, self._calib_chunk(h, w))
+        if self.device.type == "cuda":
+            nf = self.cfg.num_feat
+            if self._rrdb:
+                u = 4 // self.scale
+                act = (h // u) * (w // u) * (
+                    self._rrdb_trunk_bytes(torch.float32) + 8 * nf)
+            else:
+                act = srvgg_act_bytes(h, w, nf, torch.float32) \
+                    + 4 * h * w * nf
+            need = act + self._in_bytes(h, w)
+            per = min(per, int(self._free_bytes() * _MEM_FRACTION) // need)
+        return max(1, per)
+
+    def _install_qbody(self, maxima: np.ndarray, provisional: bool) -> None:
+        """Quantize every replica's weights with `maxima`."""
+        from reve_tpu_torch.weights import quantize
+
+        for rep in self._replicas:
+            with rep._on_device():
+                # margin absorbs content hotter than the calibration batch
+                qbody = quantize.build_qbody(rep._params_f32, rep.cfg,
+                                             np.asarray(maxima), margin=1.25)
+                # K7q's weights packed once per quantization
+                rep._qbody = rrdb.prepare_qbody(qbody) if rep._rrdb \
+                    else qbody
+            rep._qbody_provisional = provisional
+            rep._act_maxima = np.asarray(maxima, np.float32)
 
     def get_calibration(self):
         """The activation maxima the current int8 quantization was built
@@ -703,9 +838,10 @@ class UpscaleEngine:
 
     def reset_calibration(self) -> None:
         """Drop the int8 calibration so the next real batch recalibrates."""
-        self._qbody = None
-        self._qbody_provisional = False
-        self._act_maxima = None
+        for rep in self._replicas:
+            rep._qbody = None
+            rep._qbody_provisional = False
+            rep._act_maxima = None
 
     def _release_cache(self) -> None:
         """After a chunked pass (a batch's, or the int8 measurement's):
@@ -728,7 +864,9 @@ class UpscaleEngine:
         this engine's kernels, with the scales the job runs with
         (calibrating first if needed).  By default the frames are cropped
         to <=720p windows as calibration crops them; `chunk` = frames per
-        model call (None: from _CALIB_CHUNK_ELEMS, as reve_tpu)."""
+        model call (None: from _CALIB_CHUNK_ELEMS, as reve_tpu; the sum
+        is chunk-free).  On a mesh it runs on the first replica, the
+        dp-pad's repeated frames excluded, as reve_tpu excludes them."""
         if not self._int8:
             raise ValueError("certify_int8 requires an int8 engine")
         self._maybe_calibrate(frames, provisional=False)
@@ -738,8 +876,7 @@ class UpscaleEngine:
         measured, n_real = self._dp_pad(measured)
         _n, ch, cw, _c = measured.shape
         if chunk is None:
-            chunk = max(1, self._CALIB_CHUNK_ELEMS
-                        // max(ch * cw * self.cfg.num_feat, 1))
+            chunk = self._calib_chunk(ch, cw)
         if self._rrdb and self.device.type == "cuda":
             # the float32 RRDB pass bills ~13 GB a 720p frame: at most the
             # frames that fit the free memory (the sum is chunk-free)
@@ -858,10 +995,11 @@ class UpscaleEngine:
 
     def _dispatch(self, frames: np.ndarray, n: int,
                   fmt: Optional[YUVFormat] = None) -> PendingBatch:
-        """Enqueue one padded (batch_size, H, W, 3) u8 batch through the
-        memory plan's model calls (and, with TTA on, the ensemble); `n`
-        frames of it are valid.  With `fmt`, K9 turns each piece's output
-        into planes on the device and the planes are copied out."""
+        """Enqueue one padded (batch_size, H, W, 3) u8 batch, a share on
+        each replica, through the memory plans' model calls (and, with
+        TTA on, the ensemble); `n` frames of it are valid.  With `fmt`, K9
+        turns each piece's output into planes on the device and the
+        planes are copied out."""
         bs, h, w, _ = frames.shape
         r = self.scale
         cuda = self.device.type == "cuda"
@@ -879,25 +1017,40 @@ class UpscaleEngine:
             host_out = tuple(
                 torch.empty(s, dtype=CODE_DTYPES[fmt.bits], pin_memory=cuda)
                 for s in color_k.plane_shapes(bs, h * r, w * r))
+        if len(self._replicas) > 1:
+            self._plan_replicas(h, w)
+        share = self._share
+        events = [rep._enqueue(host_in[k * share:(k + 1) * share],
+                               host_out, k * share, fmt)
+                  for k, rep in enumerate(self._replicas)]
+        handle = TTAPendingBatch if self.tta else PendingBatch
+        return handle(host_out if fmt else host_out[0], n,
+                      [e for e in events if e is not None],
+                      host_in if cuda else None)
+
+    def _enqueue(self, host_in: torch.Tensor, host_out, offset: int,
+                 fmt: Optional[YUVFormat]) -> Optional[torch.cuda.Event]:
+        """Enqueue this replica's share `host_in` on its device and
+        stream; its frames land at `offset` in the pinned `host_out`.
+        Returns the CUDA event recorded after its D2H copies (None on the
+        CPU)."""
         event = None
         with self._on_device():
             dev_in = host_in.to(self.device, non_blocking=True)
             pieces = self._ensemble(dev_in) if self.tta else \
                 self._pieces(dev_in)
             for lo, hi, y in pieces:
-                _copy_out(host_out, lo, hi, y, fmt)
+                _copy_out(host_out, offset + lo, offset + hi, y, fmt)
                 # a piece's output (and its planes, which _copy_out
                 # drops on return) is freed (in stream order) before the
                 # next piece runs, so no segment of this piece's large
                 # tensors stays held by it: the next piece allocates the
                 # same sizes again and finds them whole
                 del y
-            if cuda:
+            if self.device.type == "cuda":
                 event = torch.cuda.Event()
                 event.record(self._stream)
-        handle = TTAPendingBatch if self.tta else PendingBatch
-        return handle(host_out if fmt else host_out[0], n, event,
-                      host_in if cuda else None)
+        return event
 
     def upscale_frames(self, frames: np.ndarray) -> np.ndarray:
         """Synchronous convenience: (N, H, W, 3) u8 -> (N, H*s, W*s, 3) u8."""

@@ -17,6 +17,13 @@ their two weight files and strength, and a scene-aligned job its saved
 segment plan (`state.plan`).  A workspace records the
 package that started it (`state.opts["backend"]`); the port resumes only
 its own, so one output never mixes segments of two implementations.
+
+A shard worker (`run(shard_worker=ID)`, the CLI's --shard-worker) shares
+the job's segments with other processes, on this host or others, through
+the lease files of pipeline/leases.py in the workspace: claim, run,
+heartbeat, release, until none is left; exactly one worker that finds
+every part committed wins the finalize election and writes the output.
+A shard worker never removes the shared workspace.
 """
 
 from __future__ import annotations
@@ -167,9 +174,10 @@ def fresh(ws: Workspace, settings, *, input_path: str, output_path: str,
 
 
 def open_engine(ws: Workspace, state: JobState, settings, device, *,
-                batch: int = 4, tile: int = 0, gate_db=None, on_note=None,
-                tracer=None, make_engine=None):
-    """The job's engine at `settings`; `--dtype auto` resolves here (the
+                mesh=None, batch: int = 4, tile: int = 0, gate_db=None,
+                on_note=None, tracer=None, make_engine=None):
+    """The job's engine at `settings`, on `device` or, given `mesh`, on
+    its devices; `--dtype auto` resolves here (the
     resolved dtype is saved, so that a resume runs the same path) and
     `settings.dtype` becomes it.  With `settings.denoise` the engine runs
     the weights interpolated from `settings.weights_wdn` and
@@ -198,7 +206,8 @@ def open_engine(ws: Workspace, state: JobState, settings, device, *,
         return UpscaleEngine(
             model=state.model, scale=state.scale, weights=settings.weights,
             batch_size=batch, tile=tile, compute_dtype=dtype,
-            int8_calib=int8_calib, tta=settings.tta, device=device,
+            int8_calib=int8_calib, tta=settings.tta,
+            device=None if mesh is not None else device, mesh=mesh,
             preloaded=preloaded,
             allow_random_init=settings.allow_random_init or None)
 
@@ -207,7 +216,9 @@ def open_engine(ws: Workspace, state: JobState, settings, device, *,
         return make_engine(settings.dtype, settings.int8_calib), None
     settings.dtype, engine, int8_db, notes = scheduler.resolve_auto_dtype(
         make_engine, ws, state, io_backend=settings.io_backend,
-        gate_db=gate_db, platform=device.type, on_note=on_note,
+        gate_db=gate_db,
+        platform=(mesh.devices[0] if mesh is not None else device).type,
+        on_note=on_note,
         tracer=tracer)
     if on_note is not None:
         for msg in notes:
@@ -222,18 +233,29 @@ def open_engine(ws: Workspace, state: JobState, settings, device, *,
 
 def run(ws: Workspace, state: JobState, engine, settings, *, progress=None,
         tracer=None, profile_dir: Optional[str] = None,
-        keep_workspace: bool = False, on_pipeline=None):
+        keep_workspace: bool = False, on_pipeline=None,
+        shard_worker: Optional[str] = None,
+        stale_after: Optional[float] = None, on_note=None):
     """Run the pending segments and finalize the output; destroys the
     workspace unless `keep_workspace`.  Returns (state, report):
     finalize's report with the job's "dtype" and, when known, its
     "encoder".  On KeyboardInterrupt the pipeline is cancelled (committed
     parts and the state are already on disk) and the interrupt raised.
     `on_pipeline(job)` receives the scheduler.PipelineJob before it runs
-    (the service cancels a job through it)."""
+    (the service cancels a job through it).
+
+    `shard_worker`: run as the lease-queue worker of that id instead
+    (run_shard, `stale_after` its lease timeout, None the default 600 s);
+    its report is None when another worker finalizes."""
     from reve_tpu_torch.pipeline import scheduler
     from reve_tpu_torch.utils import trace as trace_mod
 
     ext = part_ext(settings.io_backend)
+    if shard_worker is not None:
+        return run_shard(ws, state, engine, settings, shard_worker,
+                         stale_after=stale_after, progress=progress,
+                         tracer=tracer, profile_dir=profile_dir,
+                         on_note=on_note)
     job = scheduler.PipelineJob(state, ws, engine,
                                 io_backend=settings.io_backend,
                                 part_ext=ext, progress=progress,
@@ -253,4 +275,50 @@ def run(ws: Workspace, state: JobState, engine, settings, *, progress=None,
         report["encoder"] = job.encoder_desc
     if not keep_workspace:
         ws.destroy()
+    return state, report
+
+
+def run_shard(ws: Workspace, state: JobState, engine, settings,
+              worker_id: str, *, stale_after: Optional[float] = None,
+              progress=None, tracer=None, profile_dir: Optional[str] = None,
+              on_note=None):
+    """The job's segments as lease-queue worker `worker_id`
+    (leases.run_sharded: claim, run, heartbeat, release), then, when
+    every part is committed and this worker wins the finalize election,
+    the output.  Says through `on_note` how many segments it ran and,
+    when it does not finalize, why (reve_tpu's lines).  The workspace is
+    kept either way: other workers may still read it.  Returns (state,
+    report), report None when this worker does not finalize."""
+    import dataclasses
+
+    from reve_tpu_torch.pipeline import leases, scheduler
+    from reve_tpu_torch.utils import trace as trace_mod
+
+    def note(msg: str) -> None:
+        if on_note is not None:
+            on_note(msg)
+
+    ext = part_ext(settings.io_backend)
+    stale = leases.DEFAULT_STALE_AFTER if stale_after is None \
+        else stale_after
+    queue = leases.SegmentLeaseQueue(ws, worker_id, stale_after=stale,
+                                     part_ext=ext)
+    with trace_mod.device_profile(profile_dir):
+        done = leases.run_sharded(
+            state, ws, engine, worker_id, io_backend=settings.io_backend,
+            part_ext=ext, progress=progress, stale_after=stale,
+            tracer=tracer, queue=queue)
+    note(f"worker {worker_id}: {done} segment(s)")
+    if not queue.all_done(state.pending):
+        note("other workers still running; not finalizing")
+        return state, None
+    # every worker that observes all_done reaches here: exactly one
+    # finalizes (O_EXCL finalize lease; stale and no output: stealable)
+    if not queue.claim_finalize(state.output_path):
+        note("another worker is finalizing; exiting")
+        return state, None
+    state = dataclasses.replace(state, pending=[])
+    report = scheduler.finalize(state, ws, io_backend=settings.io_backend,
+                                part_ext=ext)
+    report["dtype"] = settings.dtype
     return state, report

@@ -13,7 +13,7 @@ bias correction.  Params, optimizer moments and the EMA are updated in
 place, each op of the chain over all leaves at once.
 
 reve_tpu shards the batch over a mesh; the port runs on one device (a
-mesh is the multi-GPU item of ROADMAP.md).
+mesh waits on the "Multi-GPU training" item of ROADMAP.md).
 """
 
 from __future__ import annotations

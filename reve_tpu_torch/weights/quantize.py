@@ -33,7 +33,7 @@ block's input and h1..h4, then conv_body's input: num_block * 15 + 1.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,25 +76,59 @@ def qbody_from_jax(qb) -> QuantizedBody:
         sw_last=t(qb.sw_last), b_last=t(qb.b_last))
 
 
-def _stat(h: torch.Tensor, percentile: Optional[float]) -> torch.Tensor:
+#: frames [first, first + B) of a sample of `total` frames (collect_maxima)
+Part = Tuple[int, int]
+
+
+def _stat(h: torch.Tensor, percentile: Optional[float],
+          part: Optional[Part] = None) -> torch.Tensor:
     """max|h|, or the `percentile` of |h| (linear interpolation) over the
-    reference's strided subsample: every (n // 2^22)-th element."""
+    reference's strided subsample: every (n // 2^22)-th element.
+
+    With `part`, h holds frames [first, first + B) of a sample of `total`
+    frames, and the result is max|h|, or, for a percentile, h's elements
+    of the whole sample's strided subsample (at the sample's offsets):
+    join_parts takes the statistic over the parts."""
     a = h.float().abs()
     if percentile is None:
         return a.max()
     flat = a.reshape(-1)
-    stride = max(1, flat.shape[0] // _PCT_SAMPLE_CAP)
+    first, total = part if part is not None else (0, h.shape[0])
+    per_frame = flat.shape[0] // max(h.shape[0], 1)
+    stride = max(1, per_frame * total // _PCT_SAMPLE_CAP)
+    sub = flat[(-first * per_frame) % stride::stride]
+    # a part's subsample is kept past the layer: a copy, not a view that
+    # would hold the whole |h|
+    return sub.clone() if part is not None else _quantile(sub, percentile)
+
+
+def _quantile(sub: torch.Tensor, percentile: float) -> torch.Tensor:
     # q as jnp.percentile forms it: float32(percentile) / 100 in float32
     # (a double q would move the interpolation rank by up to ~n * 6e-8)
     q = torch.tensor(percentile, dtype=torch.float32,
-                     device=a.device) / 100.0
-    return torch.quantile(flat[::stride], q, interpolation="linear")
+                     device=sub.device) / 100.0
+    return torch.quantile(sub, q, interpolation="linear")
+
+
+def join_parts(parts: List[List[torch.Tensor]], percentile: Optional[float],
+               device: torch.device) -> torch.Tensor:
+    """The statistics of a sample from its parts' (collect_maxima with
+    `part`, in any order, on any devices): per layer the max of the
+    parts' maxima, or the percentile of their subsamples joined, which
+    are the whole sample's strided subsample.  So the result is the
+    statistic of the sample taken as one chunk."""
+    out = []
+    for layer in zip(*parts):
+        joined = torch.cat([t.to(device).reshape(-1) for t in layer])
+        out.append(joined.max() if percentile is None
+                   else _quantile(joined, percentile))
+    return torch.stack(out)
 
 
 def collect_act_maxima(params: Dict[str, Any], u8: torch.Tensor, *,
                        cfg: srvgg.SRVGGConfig,
                        percentile: Optional[float] = None,
-                       plain: bool = False) -> torch.Tensor:
+                       plain: bool = False, part: Optional[Part] = None):
     """Calibration forward in float32 over (B, H, W, 3) uint8 frames:
     (num_conv + 1,) |activation| statistics, one for the input of each
     hidden conv and one for the head conv's input (reve_tpu
@@ -104,8 +138,9 @@ def collect_act_maxima(params: Dict[str, Any], u8: torch.Tensor, *,
     carries the split planes and writes its float32 output beside them."""
     maxima = []
     srvgg.body(params, u8, cfg=cfg, compute_dtype=torch.float32,
-               plain=plain, each=lambda v: maxima.append(_stat(v, percentile)))
-    return torch.stack(maxima)
+               plain=plain,
+               each=lambda v: maxima.append(_stat(v, percentile, part)))
+    return maxima if part is not None else torch.stack(maxima)
 
 
 def rrdb_num_stats(cfg: rrdb.RRDBConfig) -> int:
@@ -115,7 +150,8 @@ def rrdb_num_stats(cfg: rrdb.RRDBConfig) -> int:
 def collect_act_maxima_rrdb(params: Dict[str, Any], u8: torch.Tensor, *,
                             cfg: rrdb.RRDBConfig,
                             percentile: Optional[float] = None,
-                            plain: bool = False) -> torch.Tensor:
+                            plain: bool = False,
+                            part: Optional[Part] = None):
     """Calibration forward in float32 over the RRDB trunk of (B, H, W, 3)
     uint8 frames: (num_block * 15 + 1,) |activation| statistics in
     reve_tpu's layout (per block, per dense block: its input, h1..h4;
@@ -133,7 +169,7 @@ def collect_act_maxima_rrdb(params: Dict[str, Any], u8: torch.Tensor, *,
     stats = []
 
     def observe(buf, lo, hi):
-        stats.append(_stat(buf[..., lo:hi].contiguous(), percentile))
+        stats.append(_stat(buf[..., lo:hi].contiguous(), percentile, part))
 
     feat = rrdb.conv_first(params, u8, cfg=cfg, compute_dtype=torch.float32,
                            plain=plain)
@@ -141,7 +177,7 @@ def collect_act_maxima_rrdb(params: Dict[str, Any], u8: torch.Tensor, *,
                                   compute_dtype=torch.float32, plain=plain,
                                   observe=observe)
     observe(a, 0, nf)
-    return torch.stack(stats)
+    return stats if part is not None else torch.stack(stats)
 
 
 def _qw(w: torch.Tensor):
@@ -229,11 +265,14 @@ def quantize_rrdb(params: Dict[str, Any], cfg: rrdb.RRDBConfig, act_maxima,
 
 
 def collect_maxima(params, u8, *, cfg, percentile: Optional[float] = None,
-                   plain: bool = False) -> torch.Tensor:
-    """Calibration statistics for any supported architecture."""
+                   plain: bool = False, part: Optional[Part] = None):
+    """Calibration statistics for any supported architecture.  With
+    `part` (u8 holds frames [first, first + B) of a sample of `total`):
+    the list of the layers' parts for join_parts."""
     fn = collect_act_maxima if isinstance(cfg, srvgg.SRVGGConfig) else \
         collect_act_maxima_rrdb
-    return fn(params, u8, cfg=cfg, percentile=percentile, plain=plain)
+    return fn(params, u8, cfg=cfg, percentile=percentile, plain=plain,
+              part=part)
 
 
 def build_qbody(params, cfg, act_maxima, margin: float = 1.0):

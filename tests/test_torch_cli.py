@@ -319,9 +319,8 @@ def test_api_refuses_the_resumes_the_cli_refuses(tmp_path, monkeypatch,
 @pytest.mark.parametrize("kw,err,match", [
     # (ids as before scene_align, realesrgan-x2plus and ncnn weights left
     # this list: tests/test_torch_scenes.py, test_torch_rrdb_x2.py and
-    # test_torch_weights.py run them through the API)
-    pytest.param({"mesh": object()}, NotImplementedError, "multi-GPU",
-                 id="kw0-NotImplementedError-multi-GPU"),
+    # test_torch_weights.py run them through the API; so did `mesh`,
+    # kw0, held below by test_api_mesh_*)
     pytest.param({"compile_attempts": 2}, ValueError, "no counterpart",
                  id="kw4-ValueError-no counterpart"),
     pytest.param({"device": 7}, ValueError, "out of range",
@@ -496,10 +495,10 @@ def test_cli_refuses_to_resume_a_reve_tpu_workspace(tmp_path, monkeypatch,
         # realesrgan-x2plus in int8 and bf16, extra1 and extra9,
         # --denoise, extra3, and --scene-align, extra7: their features
         # are held by tests/test_torch_rrdb_x2.py, test_torch_weights.py
-        # and test_torch_scenes.py)
-        (2, ["--lease-stale-after", "5"]),
-        (4, ["--shard-worker", "w0"]), (6, ["--device", "0,1"]),
-        (8, ["--compile-attempts", "2"]))])
+        # and test_torch_scenes.py; --lease-stale-after, extra2,
+        # --shard-worker, extra4, and --device 0,1, extra6, are ported:
+        # held below and by test_torch_leases.py, test_torch_parallel.py)
+        (8, ["--compile-attempts", "2"]),)])
 def test_unported_flags_exit_2(tmp_path, monkeypatch, capsys, extra):
     monkeypatch.chdir(tmp_path)
     inp = _input(tmp_path, frames=1)
@@ -566,3 +565,181 @@ def test_list_models(capsys):
                  "realesrnet-x4plus", "realesrgan-x2plus"):
         assert "[rrdb, x" in rows[name] and "(not ported)" not in rows[name]
     assert "[rrdb, x2]" in rows["realesrgan-x2plus"]
+
+
+# -- several devices and shard workers --------------------------------------
+
+
+@pytest.mark.usefixtures("jax_native_core")
+def test_two_shard_worker_runs_write_the_one_job_bytes(tmp_path, monkeypatch,
+                                                       capsys):
+    """Two --shard-worker CLI runs on one workspace: the first starts the
+    job, runs the one segment it can claim while another worker holds
+    the other two leases, and leaves the output to the others; the second
+    resumes it, runs the rest and finalizes.  The output is the port's
+    one-worker job byte for byte and within 1 of reve_tpu's; no
+    single-owner lock is taken and the shared workspace stays."""
+    from reve_tpu_torch.pipeline import leases
+
+    monkeypatch.chdir(tmp_path)
+    inp = _input(tmp_path)
+    one = str(tmp_path / "one.y4m")
+    assert cli.run(["-i", inp, one] + JOB, device="cpu") == 0
+    ref = str(tmp_path / "jax.y4m")
+    assert jcli.run(["-i", inp, ref] + JOB) == 0
+    out = str(tmp_path / "out.y4m")
+    ws = Workspace(out + ".revework")
+    other = os.path.join(ws.root, leases.LEASES_DIR)
+    os.makedirs(other)
+    for i in (1,):
+        with open(os.path.join(other, f"{i:06d}.lease"), "w") as f:
+            f.write("w-other")
+    capsys.readouterr()
+    assert cli.run(["-i", inp, out, "--shard-worker", "w1",
+                    "--lease-stale-after", "30"] + JOB, device="cpu") == 0
+    err = capsys.readouterr().err
+    assert "worker w1: 1 segment(s)" in err
+    assert "other workers still running; not finalizing" in err
+    assert not os.path.exists(out) and not os.path.exists(ws.owner_path)
+    assert ws.completed_parts(".y4m") == [0]
+    os.unlink(os.path.join(other, "000001.lease"))  # the other worker quit
+    assert cli.run(["-i", inp, out, "--shard-worker", "w2"] + JOB,
+                   device="cpu") == 0
+    err = capsys.readouterr().err
+    assert "worker w2: 1 segment(s)" in err and "\ndone: " in err
+    with open(out, "rb") as a, open(one, "rb") as b:
+        assert a.read() == b.read()
+    _assert_close_y4m(out, ref)
+    with open(os.path.join(other, "finalize.lease")) as f:
+        assert f.read() == "w2"
+    assert os.path.isdir(ws.root)
+    # a third worker finds the output written: reve_tpu's refusal
+    assert cli.run(["-i", inp, out, "--shard-worker", "w3"] + JOB,
+                   device="cpu") == 2
+    assert "output path already exists" in capsys.readouterr().err
+
+
+def test_shard_worker_loses_the_finalize_election(tmp_path, monkeypatch,
+                                                  capsys):
+    """A worker that finds every part committed but another finalizing
+    exits 0 with reve_tpu's line and writes nothing."""
+    from reve_tpu_torch.pipeline import leases
+
+    monkeypatch.chdir(tmp_path)
+    inp = _input(tmp_path, frames=3)
+    out = str(tmp_path / "out.y4m")
+    lease_dir = os.path.join(out + ".revework", leases.LEASES_DIR)
+    os.makedirs(lease_dir)
+    with open(os.path.join(lease_dir, "finalize.lease"), "w") as f:
+        f.write("w-other")
+    capsys.readouterr()
+    assert cli.run(["-i", inp, out, "--shard-worker", "w1"] + JOB,
+                   device="cpu") == 0
+    err = capsys.readouterr().err
+    assert "worker w1: 1 segment(s)" in err
+    assert "another worker is finalizing; exiting" in err
+    assert not os.path.exists(out)
+
+
+def test_shard_worker_never_removes_the_shared_workspace_on_a_refusal(
+        tmp_path, monkeypatch, capsys, small_calib_chunks):
+    """An int8 gate refusal (exit 3) removes an unshared workspace with
+    nothing committed, and leaves a shard worker's (its leases,
+    calibration and siblings' parts are shared)."""
+    monkeypatch.chdir(tmp_path)
+    inp = _input(tmp_path, frames=2)
+    for extra, kept in (([], False), (["--shard-worker", "w1"], True)):
+        out = str(tmp_path / f"out{len(extra)}.y4m")
+        assert cli.run(["-i", inp, out, "--int8-gate", "200"] + INT8 + extra,
+                       device="cpu") == 3
+        assert "below --int8-gate" in capsys.readouterr().err
+        assert os.path.isdir(out + ".revework") is kept
+
+
+@pytest.mark.parametrize("extra,msg,count", [
+    # reve_tpu's tests/test_cli.py cases and messages
+    (["--device", "0,0"], "must be distinct", 8),
+    (["--device", "0,junk"], "comma list", 8),
+    (["--device", "0,99"], "out of range", 8),
+    (["--device", "0,1,2"], "must be a multiple of the --device", 8),
+    (["--device", "0,1"], "out of range", None),  # this host: no card
+    (["--device", "0"], "out of range", None),
+])
+def test_device_lists_refused_with_reve_tpus_messages(tmp_path, monkeypatch,
+                                                      capsys, extra, msg,
+                                                      count):
+    """--device refusals exit 2 before any workspace exists; a count of
+    devices is patched where the case needs one."""
+    if count is not None:
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    monkeypatch.chdir(tmp_path)
+    inp = _input(tmp_path, frames=1)
+    out = str(tmp_path / "o.y4m")
+    rc = cli.run(["-i", inp, "-s", "2", out, "--yes", "--io-backend", "y4m",
+                  "--allow-random-init"] + extra)
+    assert rc == 2
+    assert msg in capsys.readouterr().err
+    assert not os.path.exists(out + ".revework")
+
+
+def test_device_list_builds_a_mesh_of_those_cards(tmp_path, monkeypatch):
+    """--device 0,1 builds a Mesh of cuda:0 and cuda:1 for the engine (the
+    engine itself is stubbed: there is no card here)."""
+    from reve_tpu_torch.pipeline import job as job_mod
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    seen = {}
+
+    def open_engine(ws, state, settings, device, *, mesh=None, **kw):
+        seen.update(device=device, mesh=mesh, batch=kw["batch"])
+        raise job_mod.JobRefused("stop here")
+
+    monkeypatch.setattr(job_mod, "open_engine", open_engine)
+    monkeypatch.chdir(tmp_path)
+    inp = _input(tmp_path, frames=1)
+    assert cli.run(["-i", inp, str(tmp_path / "o.y4m"), "--device",
+                    "0,1"] + JOB) == 2
+    assert seen["device"] is None and seen["batch"] == 2
+    assert [str(d) for d in seen["mesh"].devices] == ["cuda:0", "cuda:1"]
+
+
+def test_api_mesh_writes_the_one_device_bytes(tmp_path, monkeypatch):
+    from reve_tpu_torch import api
+    from reve_tpu_torch.parallel.mesh import Mesh
+
+    monkeypatch.chdir(tmp_path)
+    inp = _input(tmp_path)
+    one = str(tmp_path / "one.y4m")
+    kw = dict(weights=PTH, segment_size=3, batch=2, dtype="float32",
+              io_backend="y4m")
+    api.upscale_video(inp, one, 4, device="cpu", **kw)
+    out = str(tmp_path / "mesh.y4m")
+    rep = api.upscale_video(inp, out, 4, mesh=Mesh(("cpu", "cpu")), **kw)
+    assert rep["dtype"] == "float32"
+    with open(out, "rb") as a, open(one, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_api_mesh_refusals(tmp_path, monkeypatch):
+    """device with mesh, a batch the mesh's dp does not divide (reve_tpu's
+    message) and a CUDA device twice raise before any workspace."""
+    from reve_tpu_torch import api
+    from reve_tpu_torch.parallel.mesh import Mesh
+
+    inp = _input(tmp_path, frames=1)
+    o = str(tmp_path / "o.y4m")
+    base = dict(allow_random_init=True, io_backend="y4m")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        api.upscale_video(inp, o, 4, device="cpu",
+                          mesh=Mesh(("cpu", "cpu")), **base)
+    with pytest.raises(ValueError, match=r"batch 3 must be a multiple of "
+                                         r"the mesh's dp size \(2\)"):
+        api.upscale_video(inp, o, 4, batch=3, mesh=Mesh(("cpu", "cpu")),
+                          **base)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError, match="must be distinct"):
+        api.upscale_video(inp, o, 4, mesh=Mesh(("cuda:0", "cuda:0")),
+                          **base)
+    assert not os.path.exists(o + ".revework")

@@ -108,8 +108,8 @@ def _rrdb_x1():
     # too (until RRDB x2 was ported these two cases held its refusal)
     pytest.param({"compute_dtype": "int8", "preloaded": "x1"}, "RRDB x1",
                  id="kw0-int8"),
-    # (ids as before tiling and TTA left this list)
-    pytest.param({"mesh": object()}, "multi-GPU", id="kw3-multi-GPU"),
+    # (ids as before tiling and TTA, and the mesh, kw3, left this list:
+    # tests/test_torch_parallel.py holds the mesh engine)
     pytest.param({"preloaded": "x1"}, "RRDB", id="kw4-RRDB"),
 ])
 def test_unported_modes_raise(kw, item):
